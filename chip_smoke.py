@@ -7,16 +7,27 @@ Run from the repository root with no arguments::
 Phases, in order; any failure exits nonzero before the result line:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles every kernel of the main path from
-   ``spartan_tpu_torch/csrc`` with nvcc for sm_90a;
+2. build: compiles every CUDA source of ``spartan_tpu_torch/csrc`` with
+   nvcc for sm_90a, one nvcc per source, all at once, and prints each
+   kernel's registers and spills;
 3. kernel vs plain: each kernel against its plain torch version on the
-   card, at the main path's shape and at edge shapes;
+   card, at the main paths' shapes and at edge shapes, and each kernel
+   rerun against its first run bit for bit;
 4. main path, dense dot chain: bench.py's 4096^2 f32 chain through
    ``st.loop``/``evaluate``/``glom``, checked against float64 numpy;
 5. main path, k-means: ``examples.kmeans.kmeans`` at 1M x 128, k = 64,
    20 iterations, with the kernel's launch count proving the kernel ran,
    checked against the same run driven through the plain version;
-6. the ``kernels`` line (times, launches, bounds) and the result line.
+6. main path, PageRank (BASELINE config 5 at bench.py's size: 1M pages x
+   16 links, 10 iterations): windowed-kernel launches, ranks against the
+   same iterations in float64, iterations per second and where an
+   iteration's time goes;
+7. main path, naive Bayes (20 classes, 2,048 features, 262,144 rows of
+   counts) under ``native_kernels=on``: segment-kernel launches, tables
+   bit-equal to the plain-driven fit, prediction accuracy;
+8. the segment-sum A/B at 1M x 128, k = 64 (kernel, ``index_add_``,
+   one-hot product);
+9. the ``kernels`` line (times, launches, bounds) and the result line.
 
 Imports torch, numpy and the port only.
 """
@@ -41,6 +52,9 @@ _PEAKS = {
 
 KM_N, KM_D, KM_K, KM_ITERS = 1_000_000, 128, 64, 20
 DOT_N, DOT_K = 4096, 64
+PR_N, PR_DEG, PR_ITERS = 1_000_000, 16, 10
+NB_ROWS, NB_FEATURES, NB_CLASSES = 262_144, 2048, 20
+SEG_E, SEG_D, SEG_K = 1_000_000, 128, 64
 
 
 def _say(*args) -> None:
@@ -95,15 +109,20 @@ def phase_device() -> str:
 # -- phase 2 ------------------------------------------------------------
 
 
-def phase_build(kk) -> None:
+def phase_build(build_mod, libs) -> None:
     t0 = time.perf_counter()
-    path = kk.build()
-    kk._load()
-    _say(f"[build] {os.path.relpath(path)} in "
-         f"{time.perf_counter() - t0:.2f} s")
-    for line in kk.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            _say(f"[build] {line.strip()}")
+    names = build_mod.sources()
+    paths = build_mod.build_all(names)
+    for load in libs:
+        load()
+    _say(f"[build] {len(names)} sources ({', '.join(names)}) in "
+         f"{time.perf_counter() - t0:.2f} s, one nvcc each, in parallel")
+    for name in names:
+        _say(f"[build] {os.path.relpath(paths[name])}")
+        for line in build_mod.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry" in line:
+                _say(f"[build] {name}: {line.strip()}")
 
 
 # -- phase 3 ------------------------------------------------------------
@@ -345,6 +364,346 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+# -- phase 3, segment kernels ---------------------------------------------
+
+_U = 2.0 ** -24  # f32 unit roundoff
+
+
+def _reset_counts(kk, ks) -> None:
+    """Every kernel's launch count to 0 (just before a main path)."""
+    kk.LAUNCHES = 0
+    for name in ks.LAUNCHES:
+        ks.LAUNCHES[name] = 0
+
+
+def _windowed_args(plan) -> dict:
+    return dict(rows_pad=plan.rows_pad, nsteps=plan.nsteps,
+                outblk=plan.outblk, sub=plan.SUB, starts=plan._starts)
+
+
+def _check_windowed(ks, plan, vals, label: str, integer: bool) -> float:
+    """The windowed kernel against its plain version on one plan-ordered
+    stream, and a rerun against the first run. Integer-valued streams
+    must agree bit for bit; otherwise each slot is a sum of at most m
+    nonnegative terms whose sum is at most S, and two f32 summation
+    orders differ by at most 2 (m - 1) 2^-24 S."""
+    out = ks.windowed_segsum(vals, plan._ids2d, plan._wb,
+                             **_windowed_args(plan))
+    torch.cuda.synchronize()
+    again = ks.windowed_segsum(vals, plan._ids2d, plan._wb,
+                               **_windowed_args(plan))
+    ref = ks.windowed_segsum_plain(vals, plan._ids2d, plan._wb,
+                                   plan.rows_pad)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max().item())
+    if integer:
+        tol = 0.0
+    else:
+        m = float(ks.windowed_segsum_plain(
+            torch.ones_like(vals), plan._ids2d, plan._wb,
+            plan.rows_pad).max().item())
+        s_max = float(ks.windowed_segsum_plain(
+            vals.abs(), plan._ids2d, plan._wb, plan.rows_pad).max().item())
+        tol = 2.0 * max(m - 1.0, 0.0) * _U * s_max
+    same = bool(torch.equal(out, again))
+    ok = err <= tol and same and bool(torch.isfinite(out).all())
+    _say(f"[kernel] windowed_segsum {label}: P={plan.padded_size} "
+         f"rows_pad={plan.rows_pad} max |kernel - plain| {err:.3g} "
+         f"(tol {tol:.3g}), rerun bit-equal {same} -> "
+         f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        _fail(f"windowed_segsum disagrees with its plain version ({label})")
+    return err
+
+
+def _windowed_edge_cases(seg, dev):
+    """The cases of tests/test_sparse.py:138-232 and a window-boundary
+    case: (label, plan, stream, integer-valued)."""
+    rng = np.random.RandomState(3)
+    edges = np.sort(np.r_[np.arange(0, 5000, 7), [1023, 1024, 2047, 2048]])
+    cases = [
+        ("random", np.sort(rng.randint(0, 3000, 20000)), 3000,
+         rng.rand(20000), False),
+        ("out of range above", np.array([0, 1, 1, 5, 7, 9, 9]), 6,
+         np.arange(1, 8), True),
+        ("partial trailing block", np.array([5, 139999]), 140000,
+         np.array([1.5, 2.0]), True),
+        ("skewed into window 0", np.zeros(24576, np.int64), 256 * 1024,
+         np.ones(24576), True),
+        ("out of range below", np.array([-3, -1, 0, 2, 2, 5, 9]), 6,
+         np.arange(1, 8), True),
+        ("window edges", edges, 5000, rng.rand(edges.size), False),
+    ]
+    for label, ids, n, vals, integer in cases:
+        plan = seg.SegmentPlan(ids.astype(np.int32), n, device=dev)
+        v = torch.from_numpy(plan.reorder(vals.astype(np.float32))).to(dev)
+        yield label, plan, v, integer
+
+
+def _block_case(ks, e, d, k, seed, dev, integer=True,
+                id_dtype=torch.int32, label="") -> float:
+    """The block kernel against its plain version (the one-hot product)
+    and a rerun against the first run. Integer-valued data is exact on
+    both: bit-equal. Otherwise each output is a sum of at most e terms
+    in [0, 1): 2 e 2^-24 |sum| bounds two orders."""
+    rng = np.random.RandomState(seed)
+    shape = (e,) if d is None else (e, d)
+    vals = rng.randint(-8, 9, shape) if integer else rng.rand(*shape)
+    v = torch.from_numpy(vals.astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.randint(-2, k + 3, e)).to(dev, id_dtype)
+    out = ks.segment_sum_block(v, ids, k)
+    torch.cuda.synchronize()
+    again = ks.segment_sum_block(v, ids, k)
+    ref = ks.segment_sum_block_plain(v, ids, k)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max().item()) if out.numel() else 0.0
+    tol = 0.0 if integer else \
+        2.0 * e * _U * float(ref.abs().max().item())
+    same = bool(torch.equal(out, again))
+    ok = err <= tol and same and tuple(out.shape) == tuple(ref.shape)
+    _say(f"[kernel] segment_sum_block {label or ''}e={e} d={d} k={k} "
+         f"ids {str(id_dtype).split('.')[-1]} "
+         f"{'integer' if integer else 'uniform'}: max |kernel - plain| "
+         f"{err:.3g} (tol {tol:.3g}), rerun bit-equal {same} -> "
+         f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        _fail(f"segment_sum_block disagrees with its plain version at "
+              f"e={e} d={d} k={k}")
+    return err
+
+
+def phase_segment_kernels(ks, seg, T, dev) -> dict:
+    plan = T._ensure_plan()
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.rand(T.shape[1]).astype(np.float32)).to(dev)
+    contrib = T._pdata * torch.index_select(x, 0, T._pcols)
+    w_err = _check_windowed(ks, plan, contrib,
+                            "PageRank plan, data * x[cols]", False)
+    _check_windowed(ks, plan, torch.ones_like(contrib),
+                    "PageRank plan, ones", True)
+    for label, p, v, integer in _windowed_edge_cases(seg, dev):
+        _check_windowed(ks, p, v, label, integer)
+    b_err = _block_case(ks, SEG_E, SEG_D, SEG_K, 11, dev,
+                        label="main shape ")
+    _block_case(ks, 1000, 16, 12, 12, dev, id_dtype=torch.int64)
+    _block_case(ks, 1000, None, 12, 13, dev)
+    _block_case(ks, 4096, 300, 37, 14, dev, integer=False)
+    _block_case(ks, 8192, NB_FEATURES, NB_CLASSES, 15, dev)
+    return {"windowed_err": w_err, "block_err": b_err}
+
+
+# -- phase 6, PageRank -----------------------------------------------------
+
+
+def pagerank_links(SparseDistArray):
+    """bench.py's config-5 graph (bench.py:367-372): 1M pages, 16
+    out-links each from RandomState(4), weight 1."""
+    rng = np.random.RandomState(4)
+    rows = np.repeat(np.arange(PR_N), PR_DEG)
+    cols = rng.randint(0, PR_N, PR_N * PR_DEG)
+    return SparseDistArray.from_coo(rows, cols,
+                                    np.ones(PR_N * PR_DEG, np.float32),
+                                    (PR_N, PR_N))
+
+
+def _pagerank_float64(T, iters: int, damping: float = 0.85) -> np.ndarray:
+    """The same iterations in float64 on the card (index_add_ over the
+    transition's f32 entries widened to float64)."""
+    n = T.shape[0]
+    keep = T.rows < n
+    rows = T.rows[keep].long()
+    cols = T.cols[keep].long()
+    data = T.data[keep].double()
+    r = torch.full((n,), 1.0 / n, dtype=torch.float64, device=T.device)
+    for _ in range(iters):
+        y = torch.zeros_like(r).index_add_(0, rows, data * r[cols])
+        new = damping * y + (1.0 - damping) / n
+        r = new + (1.0 - new.sum()) / n
+    return r.cpu().numpy()
+
+
+def phase_pagerank(kk, ks, pr, links, card: str, dev) -> dict:
+    T = links.transition()
+    plan = T._ensure_plan()
+    _reset_counts(kk, ks)
+    t0 = time.perf_counter()
+    ranks = pr.pagerank(links, num_iter=PR_ITERS)
+    wall = time.perf_counter() - t0
+    launches = ks.LAUNCHES["windowed_segsum"]
+    _say(f"[pagerank] pagerank() {PR_N} pages x {PR_DEG} links, "
+         f"{PR_ITERS} iterations: {wall:.3f} s wall, windowed-kernel "
+         f"launches {launches}; T: nnz {T.nnz} nse {T.nse}, plan "
+         f"padded_size {plan.padded_size} rows_pad {plan.rows_pad} "
+         f"nsteps {plan.nsteps}")
+    if launches < PR_ITERS:
+        _fail(f"the windowed kernel ran {launches} times, want >= "
+              f"{PR_ITERS}")
+    if ranks.shape != (PR_N,) or not np.isfinite(ranks).all():
+        _fail("PageRank ranks have the wrong shape or are not finite")
+    ref = _pagerank_float64(T, PR_ITERS)
+    err = float(np.abs(ranks.astype(np.float64) - ref).max())
+    rel = err / float(ref.max())
+    total = float(ranks.astype(np.float64).sum())
+    # Tolerance 1e-5 of the largest rank: an iteration rounds each rank
+    # in f32 about 20 times (16 products and sums, the teleport), ~20 *
+    # 2^-24 = 1.2e-6 relative; ten iterations, each error damped by 0.85
+    # per step, stay below 1e-5 unless every rounding has one sign.
+    _say(f"[pagerank] ranks vs float64 on the card: max |diff| {err:.3g} "
+         f"= {rel:.3g} of the largest rank (tol 1e-5); sum {total!r} "
+         f"(tol 1e-5 of 1)")
+    if not (rel <= 1e-5 and abs(total - 1.0) <= 1e-5):
+        _fail("PageRank ranks disagree with the float64 iterations")
+
+    def run_s() -> float:
+        t = time.perf_counter()
+        pr.pagerank(links, num_iter=PR_ITERS)  # ends in a host fetch
+        return time.perf_counter() - t
+
+    run_s()
+    best = min(run_s() for _ in range(3))
+    ips = PR_ITERS / best
+
+    # where one iteration's time goes, by CUDA events
+    rank = torch.from_numpy(ranks).to(dev)
+    damp = torch.tensor(0.85, dtype=torch.float32, device=dev)
+    contrib = T._pdata * torch.index_select(rank, 0, T._pcols)
+    args = _windowed_args(plan)
+    gather_ms = _event_ms(
+        lambda: T._pdata * torch.index_select(rank, 0, T._pcols), 20)
+    ms = _event_ms(lambda: ks.windowed_segsum(contrib, plan._ids2d,
+                                              plan._wb, **args), 20)
+    y = ks.windowed_segsum(contrib, plan._ids2d, plan._wb,
+                           **args).reshape(-1)[:PR_N]
+    teleport_ms = _event_ms(lambda: pr._teleport_body(y, damp, PR_N), 20)
+    plain_ms = _event_ms(lambda: ks.windowed_segsum_plain(
+        contrib, plan._ids2d, plan._wb, plan.rows_pad), 20)
+    # library yardstick: one index_add_ of the same products by row
+    keep = T.rows < PR_N
+    lib_vals = (T.data * torch.index_select(rank, 0, T.cols))[keep]
+    lib_ids = T.rows[keep]
+    lib_ms = _event_ms(lambda: torch.zeros(
+        PR_N, device=dev).index_add_(0, lib_ids, lib_vals), 20)
+    _, bw_peak = _peaks(card)
+    p = plan.padded_size
+    nbytes = 4.0 * (p + p + p // 1024 + plan.rows_pad * 128)
+    bound_ms = nbytes / bw_peak * 1e3
+    parts_ms = PR_ITERS * (gather_ms + ms + teleport_ms)
+    _say(f"[pagerank] {ips:.2f} iters/s ({PR_ITERS}-iteration pagerank(), "
+         f"best of 3, {best * 1e3:.2f} ms); per iteration: gather "
+         f"pdata*x[pcols] {gather_ms:.4f} ms, windowed kernel {ms:.4f} ms, "
+         f"teleport {teleport_ms:.4f} ms; the parts of {PR_ITERS} "
+         f"iterations fill {parts_ms:.3f} ms of the call's "
+         f"{best * 1e3:.3f} ms; kernel plain_ms {plain_ms:.4f} "
+         f"library_ms {lib_ms:.4f} (index_add_) bound_ms {bound_ms:.4f} "
+         f"(bytes: {nbytes / 1e6:.1f} MB) on {card}")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+# -- phase 7, naive Bayes ---------------------------------------------------
+
+
+def _nb_data(dev):
+    """20 classes (as 20 Newsgroups has), 2,048 hashed features, 262,144
+    rows of Poisson counts with mean 2: each class scales the rate of
+    every feature by its own factor in [0.25, 1.75], renormalised to a
+    mean of 2. Labels and rates from RandomState(6); the counts are
+    drawn on the card from a seeded generator."""
+    rng = np.random.RandomState(6)
+    u = rng.uniform(0.25, 1.75, (NB_CLASSES, NB_FEATURES))
+    rates = (2.0 * u / u.mean(axis=1, keepdims=True)).astype(np.float32)
+    y = rng.randint(0, NB_CLASSES, NB_ROWS).astype(np.int32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    yt = torch.from_numpy(y).to(dev)
+    x = torch.poisson(torch.from_numpy(rates).to(dev)[yt.long()],
+                      generator=gen)
+    return x, yt, y
+
+
+def phase_naive_bayes(st, kk, ks, nb, card: str, dev) -> dict:
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    x, yt, y = _nb_data(dev)
+    X, Y = from_tensor(x), from_tensor(yt)
+    prev = (st.FLAGS.native_kernels, st.FLAGS.segment_impl)
+    try:
+        st.FLAGS.native_kernels = "on"
+        _reset_counts(kk, ks)
+        t0 = time.perf_counter()
+        lp, ll = nb.fit(X, Y, NB_CLASSES)
+        wall = time.perf_counter() - t0
+        launches = ks.LAUNCHES["segment_sum_block"]
+        _say(f"[naive_bayes] fit() {NB_ROWS} x {NB_FEATURES} counts "
+             f"({x.numel() * 4 / 1e9:.2f} GB f32), {NB_CLASSES} classes, "
+             f"native_kernels=on: {wall:.3f} s wall, segment-kernel "
+             f"launches {launches} (the 2-D counts; the 1-D class counts "
+             f"are lifted to rows of 128 and take the one-hot product)")
+        if launches < 1:
+            _fail("the segment kernel did not run in naive Bayes' fit")
+        st.FLAGS.segment_impl = "onehot"  # the kernel's plain version
+        lp_p, ll_p = nb.fit(X, Y, NB_CLASSES)
+        st.FLAGS.segment_impl = "auto"
+        same = np.array_equal(lp, lp_p) and np.array_equal(ll, ll_p)
+        _say(f"[naive_bayes] tables vs the fit driven through the plain "
+             f"version: bit-equal {same} (integer counts below 2^24)")
+        if not same:
+            _fail("naive Bayes tables differ from the plain-driven fit")
+        if not (np.isfinite(lp).all() and np.isfinite(ll).all()):
+            _fail("naive Bayes tables are not finite")
+        pred = nb.predict(X, lp, ll).glom()
+        acc = float((pred == y).mean())
+        _say(f"[naive_bayes] predict() accuracy against the generating "
+             f"labels {acc:.6f} (want >= 0.99)")
+        if not acc >= 0.99:
+            _fail(f"naive Bayes accuracy {acc} < 0.99")
+
+        def fit_s() -> float:
+            t = time.perf_counter()
+            nb.fit(X, Y, NB_CLASSES)
+            return time.perf_counter() - t
+
+        fit_s()
+        best = min(fit_s() for _ in range(3))
+        ms = _event_ms(lambda: ks.segment_sum_block(x, yt, NB_CLASSES), 10)
+        _say(f"[naive_bayes] fit {best * 1e3:.2f} ms (best of 3); "
+             f"segment kernel at {NB_ROWS} x {NB_FEATURES}, k = "
+             f"{NB_CLASSES}: {ms:.4f} ms on {card}")
+    finally:
+        st.FLAGS.native_kernels, st.FLAGS.segment_impl = prev
+    return {"launches": launches}
+
+
+# -- phase 8, segment A/B ---------------------------------------------------
+
+
+def phase_segment_ab(ks, card: str, dev) -> dict:
+    """The JAX package's measured shape (ops/segment.py: 1M x 128, k =
+    64): the block kernel, one index_add_ and the one-hot product. Data
+    for Hopper's ``auto`` policy; it changes no policy here."""
+    rng = np.random.RandomState(8)
+    vals = torch.from_numpy(rng.rand(SEG_E, SEG_D).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.randint(0, SEG_K, SEG_E).astype(
+        np.int32)).to(dev)
+    ms = _event_ms(lambda: ks.segment_sum_block(vals, ids, SEG_K), 20)
+    lib_ms = _event_ms(lambda: torch.zeros(
+        (SEG_K, SEG_D), device=dev).index_add_(0, ids, vals), 20)
+    plain_ms = _event_ms(
+        lambda: ks.segment_sum_block_plain(vals, ids, SEG_K), 20)
+    flops_peak, bw_peak = _peaks(card)
+    nbytes = 4.0 * (SEG_E * SEG_D + SEG_E + SEG_K * SEG_D)
+    t_bytes = nbytes / bw_peak * 1e3
+    t_ops = SEG_E * SEG_D / flops_peak * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    _say(f"[segment] {SEG_E} x {SEG_D} f32, k = {SEG_K}: kernel "
+         f"{ms:.4f} ms, index_add_ {lib_ms:.4f} ms, one-hot product "
+         f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({by}; bytes "
+         f"{t_bytes:.4f} ms, additions {t_ops:.4f} ms) on {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -352,16 +711,30 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import spartan_tpu_torch as st
     from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.examples import naive_bayes as nb
+    from spartan_tpu_torch.examples import pagerank as pr
+    from spartan_tpu_torch.kernels import build as build_mod
     from spartan_tpu_torch.kernels import kmeans as kk
+    from spartan_tpu_torch.kernels import segment as ks
+    from spartan_tpu_torch.ops import segment as seg
 
     t_start = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda")
     st.set_default_device(dev)
-    phase_build(kk)
+    phase_build(build_mod, (kk._load, ks._load))
     max_err = phase_kernel_vs_plain(kk, dev)
+    t0 = time.perf_counter()
+    links = pagerank_links(st.SparseDistArray)
+    links.transition()._ensure_plan()
+    _say(f"[pagerank] set-up (from_coo, transition, plan) "
+         f"{time.perf_counter() - t0:.2f} s")
+    seg_err = phase_segment_kernels(ks, seg, links.transition(), dev)
     phase_dot(st, card)
     kmr = phase_kmeans(st, kk, km, card, dev)
+    prr = phase_pagerank(kk, ks, pr, links, card, dev)
+    nbr = phase_naive_bayes(st, kk, ks, nb, card, dev)
+    abr = phase_segment_ab(ks, card, dev)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -369,7 +742,21 @@ def main() -> None:
         "launches": kmr["launches"], "max_abs_err": max_err,
         "ms": kmr["ms"], "plain_ms": kmr["plain_ms"],
         "bound_ms": kmr["bound_ms"], "bound_by": kmr["bound_by"],
-        "library_ms": kmr["library_ms"]}]}))
+        "library_ms": kmr["library_ms"]}, {
+        "name": "windowed_segsum", "route": "cuda",
+        "source": "spartan_tpu_torch/csrc/segment.cu",
+        "replaces": "spartan_tpu/kernels/segment.py:148",
+        "launches": prr["launches"], "max_abs_err": seg_err["windowed_err"],
+        "ms": prr["ms"], "plain_ms": prr["plain_ms"],
+        "bound_ms": prr["bound_ms"], "bound_by": prr["bound_by"],
+        "library_ms": prr["library_ms"]}, {
+        "name": "segment_sum_block", "route": "cuda",
+        "source": "spartan_tpu_torch/csrc/segment.cu",
+        "replaces": "spartan_tpu/kernels/segment.py:33",
+        "launches": nbr["launches"], "max_abs_err": seg_err["block_err"],
+        "ms": abr["ms"], "plain_ms": abr["plain_ms"],
+        "bound_ms": abr["bound_ms"], "bound_by": abr["bound_by"],
+        "library_ms": abr["library_ms"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 A lazy NumPy-like expression DAG (map / map2 / reduce / dot / slice /
 loop) over tiled arrays, evaluated eagerly with torch on one device,
-with the fused k-means pass as a hand-written CUDA kernel for Hopper.
+with the fused k-means pass and the segment sums of the sparse path
+(PageRank, naive Bayes) as hand-written CUDA kernels for Hopper.
 This package imports torch and numpy only: never jax, never
 ``spartan_tpu``.
 
@@ -24,6 +25,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .array.distarray import DistArray, from_reference  # noqa: E402
 from .array.extent import TileExtent  # noqa: E402
+from .array.sparse import SparseDistArray  # noqa: E402
 from .array.tiling import Tiling  # noqa: E402
 from .expr import *  # noqa: F401,F403,E402
 from .expr import __all__ as _expr_all  # noqa: E402
@@ -34,7 +36,8 @@ from .utils.config import FLAGS  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = (["DistArray", "TileExtent", "Tiling", "FLAGS", "from_reference",
+__all__ = (["DistArray", "SparseDistArray", "TileExtent", "Tiling", "FLAGS",
+            "from_reference",
             "build_mesh", "get_mesh", "set_mesh", "use_mesh",
             "set_default_device", "get_default_device"]
            + list(_expr_all))

@@ -1,0 +1,333 @@
+"""Sparse arrays: padded, row-sorted COO with a static entry count (port
+of ``spartan_tpu/array/sparse.py``).
+
+A ``SparseDistArray`` holds three tensors on the mesh's device — data
+(f32), rows and cols (int32) — with entries in lexicographic (row, col)
+order, duplicates summed at construction, and padding entries carrying
+distinct out-of-range coordinates (``row >= nrows``) so that every merge
+drops them. The entry count is padded to the logical mesh's size, as the
+JAX package pads it to its device count, so ``nse`` and the padding
+pattern equal the JAX package's at the same mesh shape.
+
+SpMV paths (``spmv(x, impl=...)``):
+
+* ``windowed`` — the default for a vector operand: a :class:`SegmentPlan`
+  over the row ids, the plan-ordered ``data * x[cols]`` stream, and the
+  hand-written windowed kernel (its plain version for CPU tensors);
+* ``bcoo`` — ``torch.sparse_coo_tensor(...) @ x``, the library matvec
+  (the counterpart of the JAX package's BCOO path), the default for
+  matrix operands;
+* ``xla`` | ``onehot`` | ``pallas`` — the segment-merge ablations
+  through ``ops/segment.segment_sum``.
+
+The entry-sharded ``sharded`` path and its ``psum`` merge wait for the
+multi-GPU slice; ``from_coo_device`` waits for the checkpoint layer, its
+only user.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.segment import SegmentPlan, segment_sum
+from ..parallel import mesh as mesh_mod
+from ..parallel.mesh import DeviceLike, Mesh
+from ..utils import dtypes
+from . import tiling as tiling_mod
+from .distarray import DistArray
+
+
+def _contrib_segsum(data: torch.Tensor, rows: torch.Tensor,
+                    cols: torch.Tensor, x: torch.Tensor, n: int,
+                    impl: str) -> torch.Tensor:
+    """SpMV body: gather operand rows, scale by entry values, merge into
+    output rows (out-of-range padding rows drop)."""
+    gathered = torch.index_select(x, 0, cols)
+    contrib = data * gathered if gathered.ndim == 1 \
+        else data[:, None] * gathered
+    return segment_sum(contrib, rows, n, impl=impl, sorted_ids=True)
+
+
+class SparseDistArray:
+    """A (nrows, ncols) sparse matrix as padded, row-sorted COO tensors.
+    Immutable; every op returns a new array or a dense result."""
+
+    # the JAX package's plan keeps its output in VMEM, which bounds the
+    # windowed path to 2M rows; the port keeps that constraint
+    _PLAN_MAX_ROWS = 2 * 1024 * 1024
+
+    def __init__(self, data: torch.Tensor, rows: torch.Tensor,
+                 cols: torch.Tensor, shape: Tuple[int, int], nnz: int,
+                 mesh: Optional[Mesh] = None):
+        self.data = data
+        self.rows = rows
+        self.cols = cols
+        self.shape = tuple(int(s) for s in shape)
+        self.nnz = int(nnz)  # true (unpadded) count
+        self.mesh = mesh or mesh_mod.get_mesh()
+        # the windowed path's layout, built on first use: the plan and
+        # the plan-ordered data / cols tensors
+        self._plan: Optional[SegmentPlan] = None
+        self._pdata: Optional[torch.Tensor] = None
+        self._pcols: Optional[torch.Tensor] = None
+        # cached column-stochastic transition (see transition())
+        self._transition: Optional["SparseDistArray"] = None
+
+    # -- construction ---------------------------------------------------
+
+    @staticmethod
+    def _place(data: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+               shape, nnz: int, mesh: Mesh) -> "SparseDistArray":
+        def put(a, dtype):
+            # an owned, writable copy: never the caller's (maybe read-only)
+            # buffer
+            return torch.from_numpy(np.array(a, dtype, order="C")).to(
+                mesh.device)
+
+        return SparseDistArray(put(data, np.float32), put(rows, np.int32),
+                               put(cols, np.int32), shape, nnz, mesh)
+
+    @staticmethod
+    def from_coo(rows: Any, cols: Any, data: Any, shape: Tuple[int, int],
+                 pad_to: Optional[int] = None, mesh: Optional[Mesh] = None,
+                 device: Optional[DeviceLike] = None) -> "SparseDistArray":
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        data = np.asarray(data, np.float32)
+        m = int(shape[1])
+        # lexicographic (row, col) sort and duplicate summation (COO
+        # semantics, like scipy), as in the JAX package
+        flat = rows * m + cols
+        uniq, inv = np.unique(flat, return_inverse=True)
+        data = np.bincount(inv.reshape(-1), weights=data.astype(np.float64),
+                           minlength=uniq.size).astype(np.float32)
+        rows = (uniq // m).astype(np.int32)
+        cols = (uniq % m).astype(np.int32)
+        nnz = data.size
+        mesh = mesh or mesh_mod.mesh_on(device)
+        nx, ny = mesh_mod.mesh_axis_sizes(mesh)
+        total = max(pad_to or nnz, nnz)
+        total += -total % (nx * ny)
+        pad = total - nnz
+        if pad:
+            # distinct out-of-range (row >= nrows) coordinates per padding
+            # entry, still sorted: every merge drops them
+            j = np.arange(pad, dtype=np.int64)
+            rows = np.concatenate(
+                [rows, (shape[0] + j // max(m, 1)).astype(np.int32)])
+            cols = np.concatenate([cols, (j % max(m, 1)).astype(np.int32)])
+            data = np.pad(data, (0, pad))
+        return SparseDistArray._place(data, rows, cols, shape, nnz, mesh)
+
+    @staticmethod
+    def from_reference(data: Any, rows: Any, cols: Any,
+                       shape: Tuple[int, int], nnz: int,
+                       mesh: Optional[Mesh] = None,
+                       device: Optional[DeviceLike] = None
+                       ) -> "SparseDistArray":
+        """Carry a JAX-package sparse array's state across: its glommed
+        ``data``/``rows``/``cols`` as numpy, padding included, its shape
+        and its true entry count."""
+        mesh = mesh or mesh_mod.mesh_on(device)
+        data, rows, cols = (np.asarray(a) for a in (data, rows, cols))
+        if not data.shape == rows.shape == cols.shape or data.ndim != 1:
+            raise ValueError(f"data {data.shape}, rows {rows.shape} and "
+                             f"cols {cols.shape} must be one 1-D length")
+        return SparseDistArray._place(data, rows, cols, shape, nnz, mesh)
+
+    @staticmethod
+    def from_scipy(mat, mesh: Optional[Mesh] = None,
+                   device: Optional[DeviceLike] = None) -> "SparseDistArray":
+        coo = mat.tocoo()
+        return SparseDistArray.from_coo(coo.row, coo.col, coo.data,
+                                        coo.shape, mesh=mesh, device=device)
+
+    @staticmethod
+    def from_dense(arr: Any, mesh: Optional[Mesh] = None,
+                   device: Optional[DeviceLike] = None) -> "SparseDistArray":
+        arr = np.asarray(arr)
+        rows, cols = np.nonzero(arr)
+        return SparseDistArray.from_coo(rows, cols, arr[rows, cols],
+                                        arr.shape, mesh=mesh, device=device)
+
+    # -- properties -----------------------------------------------------
+
+    @property
+    def dtype(self) -> np.dtype:
+        return dtypes.to_numpy(self.data.dtype)
+
+    @property
+    def nse(self) -> int:
+        """Stored (padded) entry count."""
+        return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def __repr__(self) -> str:
+        return (f"SparseDistArray(shape={self.shape}, nnz={self.nnz}, "
+                f"nse={self.nse}, device={self.device})")
+
+    # -- conversions ----------------------------------------------------
+
+    def todense(self) -> DistArray:
+        n, m = self.shape
+        # padding rows are >= n, so their flat ids fall out of range and
+        # the merge drops them
+        flat = self.rows.to(torch.int64) * m + self.cols.to(torch.int64)
+        out = segment_sum(self.data, flat, n * m, sorted_ids=True)
+        return DistArray(out.reshape(n, m),
+                         tiling_mod.default_tiling((n, m), self.mesh),
+                         self.mesh)
+
+    def glom(self) -> np.ndarray:
+        return self.todense().glom()
+
+    # -- ops ------------------------------------------------------------
+
+    def _ensure_plan(self) -> SegmentPlan:
+        """Build (once) the windowed path's layout: a SegmentPlan over
+        the sorted row ids and the plan-ordered data / cols tensors (one
+        copy to the host and back, at set-up)."""
+        if self._plan is not None:
+            return self._plan
+        rows = self.rows.cpu().numpy()
+        data = self.data.cpu().numpy()
+        cols = self.cols.cpu().numpy()
+        dev = self.device
+        plan = SegmentPlan(rows, self.shape[0], device=dev)
+        self._pdata = torch.from_numpy(plan.reorder(data)).to(dev)
+        self._pcols = torch.from_numpy(
+            plan.reorder(cols, fill=0).astype(np.int32)).to(dev)
+        self._plan = plan
+        return plan
+
+    def _can_window(self) -> bool:
+        """The windowed path runs on the one device the port uses, up to
+        the JAX plan's row bound."""
+        return self.shape[0] <= self._PLAN_MAX_ROWS
+
+    def _default_windowed(self) -> bool:
+        return self._can_window()
+
+    def default_impl(self, x_ndim: int = 1) -> str:
+        """The spmv path the default dispatch takes for an operand of
+        rank ``x_ndim``."""
+        if x_ndim == 1 and self._default_windowed():
+            return "windowed"
+        return "bcoo"
+
+    def spmv_traced(self, x: torch.Tensor) -> torch.Tensor:
+        """Windowed matvec on a vector already on the device (the body of
+        the fused PageRank loop)."""
+        plan = self._ensure_plan()
+        return plan.segment_sum(self._pdata
+                                * torch.index_select(x, 0, self._pcols))
+
+    def _operand(self, x: Any) -> torch.Tensor:
+        if isinstance(x, DistArray):
+            x = x.tensor
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x, np.float32))
+        return x.to(self.device)
+
+    def spmv(self, x: Any, impl: Optional[str] = None) -> torch.Tensor:
+        """y = A @ x for dense x (ncols,) or (ncols, d).
+
+        Default: the windowed path for a vector, the library matvec
+        (``bcoo``) for a matrix. ``impl`` forces a path ('windowed' |
+        'bcoo' | 'xla' | 'onehot' | 'pallas')."""
+        x = self._operand(x)
+        if impl is None:
+            impl = self.default_impl(x.ndim)
+        if impl == "sharded":
+            raise ValueError("impl='sharded' (entry shards merged by a "
+                             "psum) waits for the multi-GPU port; use "
+                             "impl='windowed' or 'bcoo'")
+        if impl == "windowed":
+            if x.ndim != 1:
+                raise ValueError(
+                    "impl='windowed' supports vector x only; use the "
+                    "'bcoo' or 'xla' path for (n, d) operands")
+            if not self._can_window():
+                raise ValueError(
+                    "impl='windowed' requested but the windowed kernel "
+                    f"takes at most {self._PLAN_MAX_ROWS} rows; use "
+                    "impl='bcoo' or leave impl=None")
+            return self.spmv_traced(x)
+        if impl == "bcoo":
+            keep = self.rows < self.shape[0]
+            idx = torch.stack([self.rows[keep], self.cols[keep]]).to(
+                torch.int64)
+            mat = torch.sparse_coo_tensor(idx, self.data[keep], self.shape,
+                                          is_coalesced=True,
+                                          check_invariants=False)
+            if x.ndim == 1:
+                return torch.mv(mat, x)
+            return torch.sparse.mm(mat, x)
+        return _contrib_segsum(self.data, self.rows, self.cols, x,
+                               self.shape[0], impl)
+
+    def rsums(self) -> torch.Tensor:
+        """Row sums (out-degree weights for PageRank)."""
+        return segment_sum(self.data, self.rows, self.shape[0],
+                           sorted_ids=True)
+
+    def transition(self) -> "SparseDistArray":
+        """Column-stochastic transition matrix ``T = (A / outdegree)^T``
+        (the PageRank operator), built once and cached on this array;
+        :meth:`clear_cache` releases it."""
+        if self._transition is None:
+            out_deg = self.rsums().cpu().numpy()
+            inv = np.where(out_deg > 0,
+                           1.0 / np.maximum(out_deg, 1e-30), 0.0)
+            self._transition = self.scale_rows(
+                inv.astype(np.float32)).transpose()
+        return self._transition
+
+    def clear_cache(self) -> None:
+        """Drop cached derived state: the transition matrix and the
+        windowed layout."""
+        self._transition = None
+        self._plan = None
+        self._pdata = None
+        self._pcols = None
+
+    def transpose(self) -> "SparseDistArray":
+        """Transposed copy, on the device. Entries re-sort by (new row,
+        new col) = (col, row); padding entries get the transposed shape's
+        distinct out-of-range pattern (``m + j // n``, ``j % n``), whose
+        rows are all >= m, so one int64 key ``new_row * n + new_col``
+        orders them last, as the JAX package's leading pad flag does."""
+        n, m = self.shape
+        nn = max(n, 1)
+        j = torch.arange(self.nse, dtype=torch.int64, device=self.device)
+        valid = self.rows < n
+        new_r = torch.where(valid, self.cols.to(torch.int64), m + j // nn)
+        new_c = torch.where(valid, self.rows.to(torch.int64), j % nn)
+        order = torch.argsort(new_r * nn + new_c, stable=True)
+        return SparseDistArray(
+            self.data[order], new_r[order].to(torch.int32),
+            new_c[order].to(torch.int32), (m, n), self.nnz, self.mesh)
+
+    @property
+    def T(self) -> "SparseDistArray":
+        return self.transpose()
+
+    def scale_rows(self, scale: Any) -> "SparseDistArray":
+        """Multiply row i's entries by scale[i] (PageRank normalization).
+
+        Padding entries read one zero slot past the last row (the JAX
+        package's gather clamps their out-of-range rows to it)."""
+        scale = torch.as_tensor(np.asarray(scale)) \
+            if not isinstance(scale, torch.Tensor) else scale
+        scale = scale.to(device=self.device, dtype=self.data.dtype)
+        n = self.shape[0]
+        ext = torch.cat([scale, scale.new_zeros(1)])
+        data = self.data * ext[self.rows.to(torch.int64).clamp(0, n)]
+        return SparseDistArray(data, self.rows, self.cols, self.shape,
+                               self.nnz, self.mesh)

@@ -18,17 +18,13 @@ The JAX package runs one kernel per row shard and merges with a
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..array import tiling as tiling_mod
+from . import build as build_mod
 from . import registry
 
 _BLOCK = 1024
@@ -36,21 +32,12 @@ _BLOCK = 1024
 # geometry of the CUDA kernel (csrc/kmeans.cu)
 _TILE = 256
 _MAX_D = 1024
-# the dynamic shared memory one block may use on Hopper (227 KB)
-_SMEM_LIMIT = 232448
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "kmeans.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
+_SMEM_LIMIT = build_mod.SMEM_PER_BLOCK
 
 # Kernel launches so far: the wrapper adds one per launch of the CUDA
 # kernel and nowhere else (the plain version does not count).
 LAUNCHES = 0
-# nvcc's output (ptxas register / shared-memory report) of the build
-BUILD_LOG = ""
 
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 _occupancy: Dict[Tuple[int, int, int], int] = {}
 
 
@@ -102,60 +89,23 @@ def assign_accumulate_plain(points: torch.Tensor, centers: torch.Tensor,
 # -- the CUDA kernel ---------------------------------------------------
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the k-means kernel is built "
-                       "from csrc/kmeans.cu at first use")
-
-
-def build() -> str:
-    """Compile ``csrc/kmeans.cu`` for sm_90a into the package's build
-    directory (named by the source's hash, so an edit rebuilds) and
-    return the library path."""
-    global BUILD_LOG
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"libspartan_kmeans_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, _SRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, out)
-    return out
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.spartan_kmeans_blocks_per_sm.argtypes = [i32, i32,
+                                                 ctypes.POINTER(i32)]
+    lib.spartan_kmeans_blocks_per_sm.restype = i32
+    lib.spartan_kmeans_assign_accumulate.argtypes = [
+        vp, vp, vp, vp, vp, vp, i64, i32, i32, i64, i32, vp]
+    lib.spartan_kmeans_assign_accumulate.restype = i32
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.spartan_kmeans_blocks_per_sm.argtypes = [
-                i32, i32, ctypes.POINTER(i32)]
-            lib.spartan_kmeans_blocks_per_sm.restype = i32
-            lib.spartan_kmeans_assign_accumulate.argtypes = [
-                vp, vp, vp, vp, vp, vp, i64, i32, i32, i64, i32, vp]
-            lib.spartan_kmeans_assign_accumulate.restype = i32
-            _lib = lib
-        return _lib
+    """``csrc/kmeans.cu``, built with nvcc for sm_90a at first use."""
+    return build_mod.load("kmeans", _bind)
 
 
 def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"k-means kernel {what} failed with CUDA error "
-                           f"{err}")
+    build_mod.check(err, f"k-means kernel {what}")
 
 
 def _grid(lib: ctypes.CDLL, dev: torch.device, m: int, d: int, k: int

@@ -6,15 +6,18 @@ expr path (``expr``), with the reason for every fallback.
 ``FLAGS.native_kernels``: ``auto`` and ``on`` pick the kernel module
 whenever its constraints hold — the module then launches the CUDA
 kernel for CUDA tensors and its plain torch version for CPU tensors;
-``off`` keeps the expr path. The JAX package's TPU lane/sublane grid
-derivation (``derive``) has no counterpart: a CUDA kernel computes its
-own offsets.
+``off`` keeps the expr path. Ops listed in ``_MEASURED_OFF`` keep their
+library path under ``auto`` as in the JAX package, and ``force=True``
+(an explicit ``impl=``) skips the flag and that table but never the
+constraint checks. A CUDA kernel computes its own offsets, so the JAX
+package's TPU lane/sublane grid derivation (``derive``) is carried only
+as far as a constraint reads it (the segment rule's entry block).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -57,6 +60,20 @@ def _fallback(op: str, reason: str) -> Selection:
     return Selection(op, "expr", reason)
 
 
+# Ops whose kernel the JAX package measured slower than the library op
+# on its own chip keep the library op under ``auto``, here as there,
+# until a measurement on the card settles it. ``native_kernels=on`` and
+# ``force`` still select them.
+_MEASURED_OFF: Dict[str, str] = {
+    "segment_sum": (
+        "kept on the library scatter under native_kernels=auto, as in the "
+        "JAX package, whose kernel measured slower than its scatter on "
+        "its own chip; the card's A/B (chip_smoke.py [segment]) has not "
+        "changed this policy. Select the kernel with segment_impl=pallas "
+        "or native_kernels=on"),
+}
+
+
 def _sel_kmeans(shape, dtype, tiling, mesh, params) -> Selection:
     op = "kmeans"
     n, d = shape
@@ -87,17 +104,63 @@ def _sel_kmeans(shape, dtype, tiling, mesh, params) -> Selection:
     return Selection(op, "native", "selected")
 
 
-_CHECKS = {"kmeans": _sel_kmeans}
+def _sel_segment(shape, dtype, tiling, mesh, params) -> Selection:
+    """The JAX package's ``_sel_segment``: the same decision for every
+    shape, dtype and mesh shape."""
+    op = "segment_sum"
+    k = int(params["num_segments"])
+    if np.dtype(dtype) != np.float32:
+        return _fallback(op, f"vals dtype {np.dtype(dtype)} != float32")
+    if len(shape) not in (1, 2):
+        return _fallback(op, "only 1-D/2-D value streams")
+    d = shape[1] if len(shape) == 2 else 1
+    p = max(int(mesh.shape.get(tiling_mod.AXIS_ROW, 1)), 1)
+    n_pad = -(-shape[0] // p) * p
+    if n_pad == 0 or d == 0:
+        return _fallback(op, "empty operand")
+    # the JAX package's derive() for this row-tiled f32 stream: a 1-D
+    # shard is lifted to (ceil(rows / 128), 128) and its block counts
+    # 128 entries a row; a block is min(512, shard rows) rows, rounded
+    # up to the f32 sublane quantum 8
+    rows = n_pad // p
+    lifted = len(shape) == 1
+    if lifted:
+        rows = -(-rows // LANE)
+    brows = -(-min(512, rows) // 8) * 8
+    be = brows * LANE if lifted else brows
+    k_pad = -(-k // 8) * 8
+    d_pad = -(-d // LANE) * LANE
+    need = 4 * (be * k_pad + k_pad * d_pad + be * d_pad)
+    if need > VMEM_BUDGET:
+        return _fallback(op, f"one-hot working set {need}B > VMEM "
+                             f"budget {VMEM_BUDGET}B")
+    # the CUDA kernel's own limit (kernels/segment.py); the budget above
+    # already keeps k far below it
+    from . import segment as segment_kernel
+
+    why = segment_kernel.cuda_limits(k)
+    if why:
+        return _fallback(op, why)
+    return Selection(op, "native", "selected")
+
+
+_CHECKS = {"kmeans": _sel_kmeans, "segment_sum": _sel_segment}
 
 
 def select(op: str, shape, dtype, tiling: Optional[tiling_mod.Tiling],
-           mesh=None, **params: Any) -> Selection:
-    """The per-op decision (pure: flags + static shapes only)."""
+           mesh=None, force: bool = False, **params: Any) -> Selection:
+    """The per-op decision (pure: flags + static shapes only).
+
+    ``force=True`` skips ``FLAGS.native_kernels`` and the measured-off
+    table (an explicit ``impl=``), never the constraint checks."""
     if op not in _CHECKS:
         raise KeyError(f"unknown kernel op {op!r}; known: "
                        f"{sorted(_CHECKS)}")
-    if mode() == "expr":
-        return _fallback(op, "FLAGS.native_kernels=off")
+    if not force:
+        if mode() == "expr":
+            return _fallback(op, "FLAGS.native_kernels=off")
+        if FLAGS.native_kernels == "auto" and op in _MEASURED_OFF:
+            return _fallback(op, _MEASURED_OFF[op])
     mesh = mesh or mesh_mod.get_mesh()
     shape = tuple(int(s) for s in shape)
     return _CHECKS[op](shape, np.dtype(dtype), tiling, mesh, params)
