@@ -27,7 +27,17 @@ Phases, in order; any failure exits nonzero before the result line:
    bit-equal to the plain-driven fit, prediction accuracy;
 8. the segment-sum A/B at 1M x 128, k = 64 (kernel, ``index_add_``,
    one-hot product);
-9. the ``kernels`` line (times, launches, bounds) and the result line.
+9. main path, sort (2^26 uniform f32 keys under a logical (8, 1) mesh):
+   ``st.sort``, ``st.argsort``, ``st.median`` and ``st.percentile``
+   through the sample sort, with ``partition_pack`` launches, against
+   ``torch.sort`` and float64 numpy;
+10. main path, top-k on the same keys: ``st.topk(x, 128)`` against a
+    float64 stable-sort oracle (ties to the lowest index) and smallest-k
+    on int32 data dense with ties, with ``shard_topk`` launches;
+11. main path, histogram: ``st.histogram`` with and without a range and
+    ``st.unique(..., return_counts=True)`` on 2^26 int32 ids, against
+    numpy, with ``bincount_block`` launches;
+12. the ``kernels`` line (times, launches, bounds) and the result line.
 
 Imports torch, numpy and the port only.
 """
@@ -55,6 +65,8 @@ DOT_N, DOT_K = 4096, 64
 PR_N, PR_DEG, PR_ITERS = 1_000_000, 16, 10
 NB_ROWS, NB_FEATURES, NB_CLASSES = 262_144, 2048, 20
 SEG_E, SEG_D, SEG_K = 1_000_000, 128, 64
+SORT_N, SORT_MESH, TOPK_K = 2 ** 26, (8, 1), 128
+HIST_BINS, UNIQ_SIZE, UNIQ_HIGH = 64, 4096, 3000
 
 
 def _say(*args) -> None:
@@ -303,7 +315,7 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
     pts_np, c0_np, labels = _data(KM_N, KM_D, KM_K, "clustered", 0)
     points = st.from_numpy(pts_np)
 
-    kk.LAUNCHES = 0
+    _reset_counts(kk)
     t0 = time.perf_counter()
     centers, assign = km.kmeans(points, KM_K, num_iter=KM_ITERS,
                                 centers=c0_np)
@@ -369,11 +381,17 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
 _U = 2.0 ** -24  # f32 unit roundoff
 
 
-def _reset_counts(kk, ks) -> None:
+# the kernel modules whose LAUNCHES dicts count launches per kernel
+# (filled by main)
+_COUNTED: list = []
+
+
+def _reset_counts(kk) -> None:
     """Every kernel's launch count to 0 (just before a main path)."""
     kk.LAUNCHES = 0
-    for name in ks.LAUNCHES:
-        ks.LAUNCHES[name] = 0
+    for mod in _COUNTED:
+        for name in mod.LAUNCHES:
+            mod.LAUNCHES[name] = 0
 
 
 def _windowed_args(plan) -> dict:
@@ -525,7 +543,7 @@ def _pagerank_float64(T, iters: int, damping: float = 0.85) -> np.ndarray:
 def phase_pagerank(kk, ks, pr, links, card: str, dev) -> dict:
     T = links.transition()
     plan = T._ensure_plan()
-    _reset_counts(kk, ks)
+    _reset_counts(kk)
     t0 = time.perf_counter()
     ranks = pr.pagerank(links, num_iter=PR_ITERS)
     wall = time.perf_counter() - t0
@@ -629,7 +647,7 @@ def phase_naive_bayes(st, kk, ks, nb, card: str, dev) -> dict:
     prev = (st.FLAGS.native_kernels, st.FLAGS.segment_impl)
     try:
         st.FLAGS.native_kernels = "on"
-        _reset_counts(kk, ks)
+        _reset_counts(kk)
         t0 = time.perf_counter()
         lp, ll = nb.fit(X, Y, NB_CLASSES)
         wall = time.perf_counter() - t0
@@ -704,6 +722,469 @@ def phase_segment_ab(ks, card: str, dev) -> dict:
             "bound_ms": bound_ms, "bound_by": by}
 
 
+# -- phase 3, sort/select kernels ------------------------------------------
+
+
+def _pack_runs(rng, b: int, p: int, m: int, fill: float):
+    """starts/counts (b, p) of sorted runs: each shard cuts the first
+    ``fill`` of its m slots at p - 1 random points."""
+    valid = np.full(b, int(m * fill))
+    cuts = np.sort(rng.randint(0, m + 1, (b, p - 1)) * fill, axis=1)
+    edges = np.concatenate([np.zeros((b, 1)), np.minimum(
+        cuts.astype(np.int64), valid[:, None]), valid[:, None]], axis=1)
+    counts = np.diff(edges, axis=1).astype(np.int32)
+    starts = edges[:, :-1].astype(np.int32)
+    return starts, counts
+
+
+def _pack_case(kx, xs, starts, counts, label: str, dev) -> float:
+    """partition_pack against its plain version, bit for bit, and a
+    rerun against the first run."""
+    x = xs.to(dev)
+    st_t = torch.from_numpy(np.ascontiguousarray(starts)).to(dev)
+    ct_t = torch.from_numpy(np.ascontiguousarray(counts)).to(dev)
+    out = kx.partition_pack(x, st_t, ct_t)
+    torch.cuda.synchronize()
+    again = kx.partition_pack(x, st_t, ct_t)
+    ref = kx.partition_pack_plain(x, st_t, ct_t)
+    torch.cuda.synchronize()
+    words = torch.int32
+    bad = int((out.view(words) != ref.view(words)).sum().item())
+    same = bool(torch.equal(out.view(words), again.view(words)))
+    ok = bad == 0 and same and tuple(out.shape) == tuple(ref.shape)
+    _say(f"[kernel] partition_pack {label}: shards={x.shape[0]} "
+         f"p={starts.shape[1]} m={x.shape[1]} {str(x.dtype)[6:]}: words "
+         f"differing from plain {bad} (want 0, bit for bit), rerun "
+         f"bit-equal {same} -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        _fail(f"partition_pack disagrees with its plain version ({label})")
+    return 0.0
+
+
+def phase_pack_kernel(kx, dev) -> None:
+    rng = np.random.RandomState(21)
+    p, m = SORT_MESH[0], SORT_N // SORT_MESH[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    xs = torch.rand((p, m), generator=gen, device=dev)
+    s, c = _pack_runs(rng, p, p, m, 1.0)
+    _pack_case(kx, xs, s, c, "sort phase shape", dev)
+    # ragged last shard: its valid prefix ends before m
+    xs = torch.from_numpy(rng.rand(p, 1000).astype(np.float32))
+    s, c = _pack_runs(rng, p, p, 1000, 1.0)
+    s2, c2 = _pack_runs(rng, 1, p, 1000, 0.37)
+    s[-1], c[-1] = s2[0], c2[0]
+    _pack_case(kx, xs, s, c, "ragged last shard", dev)
+    # counts of 0 and of m: one destination takes a whole shard
+    s = np.zeros((p, p), np.int32)
+    c = np.zeros((p, p), np.int32)
+    c[np.arange(p), rng.randint(0, p, p)] = 1000
+    _pack_case(kx, xs, s, c, "counts 0 and m", dev)
+    # every bit pattern: NaN payloads, -0.0, denormals
+    bits = rng.randint(0, 2 ** 32, (p, 4099), np.uint64).astype(np.uint32)
+    bits[:, :4] = [0x80000000, 0x7FC00001, 0xFFC12345, 0x00000001]
+    s, c = _pack_runs(rng, p, p, 4099, 1.0)
+    _pack_case(kx, torch.from_numpy(bits.view(np.float32)), s, c,
+               "NaN payloads and -0.0", dev)
+    _pack_case(kx, torch.from_numpy(bits.view(np.int32)), s, c,
+               "int32 data", dev)
+    # batched rows of shards (a batched sort's 64 rows x 8 shards)
+    xs = torch.from_numpy(rng.rand(512, 613).astype(np.float32))
+    s, c = _pack_runs(rng, 512, p, 613, 1.0)
+    _pack_case(kx, xs, s, c, "batched 64 rows x 8 shards", dev)
+
+
+def _topk_case(kt, key, k: int, sentinel, label: str) -> float:
+    """shard_topk against its plain version: keys bit-equal and indices
+    equal; a rerun bit-equal to the first."""
+    out_k, out_i = kt.shard_topk(key, k, sentinel)
+    torch.cuda.synchronize()
+    again_k, again_i = kt.shard_topk(key, k, sentinel)
+    ref_k, ref_i = kt.shard_topk_plain(key, k, sentinel)
+    torch.cuda.synchronize()
+    words = torch.int32
+    same_keys = bool(torch.equal(out_k.view(words), ref_k.view(words)))
+    same_idx = bool(torch.equal(out_i, ref_i))
+    rerun = bool(torch.equal(out_k.view(words), again_k.view(words))
+                 and torch.equal(out_i, again_i))
+    finite = torch.isfinite(ref_k.float()) & torch.isfinite(out_k.float())
+    err = float((out_k.double() - ref_k.double())[finite].abs().max()
+                .item()) if bool(finite.any()) else 0.0
+    ok = same_keys and same_idx and rerun
+    _say(f"[kernel] shard_topk {label}: rows={key.shape[0]} "
+         f"m={key.shape[1]} k={k} {str(key.dtype)[6:]}: keys bit-equal "
+         f"{same_keys}, indices equal {same_idx}, rerun bit-equal {rerun} "
+         f"-> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        _fail(f"shard_topk disagrees with its plain version ({label})")
+    return err
+
+
+def phase_topk_kernel(kt, dev) -> float:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    p, m = SORT_MESH[0], SORT_N // SORT_MESH[0]
+    ninf, imin = float("-inf"), int(np.iinfo(np.int32).min)
+    main = _topk_case(kt, torch.rand((p, m), generator=gen, device=dev),
+                      TOPK_K, ninf, "topk phase shape")
+    ties = torch.randint(0, 10, (p, 100_003), generator=gen, device=dev,
+                         dtype=torch.int32)
+    _topk_case(kt, ties, TOPK_K, imin, "heavy ties, int32 in [0, 10)")
+    _topk_case(kt, ties.float(), TOPK_K, ninf, "heavy ties, f32")
+    _topk_case(kt, ties.float(), 1, ninf, "k = 1")
+    sent = torch.full((p, 40_000), ninf, device=dev)
+    sent[:, 17] = 1.0
+    _topk_case(kt, sent, TOPK_K, ninf, "-inf data (the sentinel)")
+    isent = torch.full((p, 40_000), imin, dtype=torch.int32, device=dev)
+    isent[:, 39_999] = 5
+    _topk_case(kt, isent, TOPK_K, imin, "INT_MIN data (the sentinel)")
+    odd = torch.tensor([0.0, -0.0, float("nan"), -float("nan"), 1.0,
+                        float("inf"), ninf, 1.0], device=dev)
+    _topk_case(kt, odd.repeat(3, 1000), TOPK_K, ninf,
+               "NaN, -NaN, -0.0, +-inf (IEEE total order)")
+    _topk_case(kt, torch.rand((5, 50), generator=gen, device=dev),
+               TOPK_K, ninf, "rows shorter than k")
+    _topk_case(kt, torch.rand((2, 3 * 16384 + 5), generator=gen,
+                              device=dev), TOPK_K, ninf,
+               "ragged chunks")
+    return main
+
+
+def _bincount_case(kh, ids, length: int, label: str) -> float:
+    out = kh.bincount_block(ids, length)
+    torch.cuda.synchronize()
+    again = kh.bincount_block(ids, length)
+    ref = kh.bincount_block_plain(ids, length)
+    torch.cuda.synchronize()
+    err = float((out.double() - ref.double()).abs().max().item())
+    same = bool(torch.equal(out, again))
+    ok = err == 0.0 and same and out.dtype == ref.dtype == torch.int32
+    _say(f"[kernel] bincount_block {label}: e={ids.numel()} "
+         f"length={length} ids {str(ids.dtype)[6:]}: max |kernel - plain| "
+         f"{err:.3g} (want 0: integer counts), rerun bit-equal {same} -> "
+         f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        _fail(f"bincount_block disagrees with its plain version ({label})")
+    return err
+
+
+def phase_bincount_kernel(kh, dev) -> float:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+
+    def ids(lo, hi, e, dtype=torch.int32):
+        return torch.randint(lo, hi, (e,), generator=gen, device=dev,
+                             dtype=dtype)
+
+    main = _bincount_case(kh, ids(0, HIST_BINS, SORT_N), HIST_BINS,
+                          "histogram phase shape")
+    _bincount_case(kh, torch.sort(ids(0, UNIQ_HIGH, SORT_N)).values,
+                   UNIQ_SIZE, "unique phase shape (sorted ranks)")
+    _bincount_case(kh, ids(-50, 4200, 1_000_003), 4096,
+                   "negatives, ids >= length, length 4096, e % 512 != 0")
+    _bincount_case(kh, ids(-3, 14, 1003, torch.int64), 10, "int64 ids")
+    _bincount_case(kh, ids(0, 1, 7), 1, "length 1")
+    return main
+
+
+
+# -- phases 9-11, sort / top-k / histogram -----------------------------------
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Best host-clock time of ``fn()`` ending in a synchronise, after one
+    warm-up call."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t)
+    return best * 1e3
+
+
+def _device_split(fn, label: str, card: str, top: int = 5) -> None:
+    """Where one ``fn()`` spends its device time: a torch.profiler trace
+    of one call after a warm-up, the device kernels' summed time against
+    the call's host-clock time (the rest is launch gaps and host work),
+    and the ``top`` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        _say(f"[{label}] device split: the profiler recorded no device "
+             f"time (not measured)")
+        return
+    parts = "; ".join(f"{name[:48]} x{count} {ms:.3f} ms"
+                      for ms, count, name in rows[:top])
+    _say(f"[{label}] device split of one call (torch.profiler, traced "
+         f"{wall:.2f} ms host clock): kernels busy {busy:.3f} ms "
+         f"({100.0 * busy / wall:.1f}%); top: {parts} on {card}")
+
+
+def _f32_close(got, want, what: str) -> None:
+    """An f32 order statistic against float64 numpy: the interpolation
+    rounds three times in f32 (two products, one sum) and its weights
+    once, so allow 4 ulps of the value."""
+    got = np.atleast_1d(np.asarray(got, np.float64))
+    want = np.atleast_1d(np.asarray(want, np.float64))
+    tol = 4.0 * _U * np.abs(want)
+    err = np.abs(got - want)
+    _say(f"[sort] {what}: {got.tolist()} vs float64 numpy "
+         f"{want.tolist()}: max |diff| {float(err.max()):.3g} (tol 4 ulps "
+         f"of f32, {float(tol.max()):.3g})")
+    if not (err <= tol).all():
+        _fail(f"{what} disagrees with float64 numpy")
+
+
+def phase_sort(st, kk, kx, x, card: str, dev) -> dict:
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    n = x.numel()
+    X = from_tensor(x)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(kk)
+    t0 = time.perf_counter()
+    got = st.sort(X).glom()
+    idx = st.argsort(X).glom()
+    med = float(st.median(X).glom())
+    pct = st.percentile(X, [1.0, 50.0, 99.0]).glom()
+    wall = time.perf_counter() - t0
+    launches = kx.LAUNCHES["partition_pack"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _say(f"[sort] sort, argsort, median, percentile of {n} uniform f32 "
+         f"keys under a logical {SORT_MESH} mesh: {wall:.3f} s wall, "
+         f"partition_pack launches {launches}, peak device memory "
+         f"{peak:.2f} GB")
+    if launches < 1:
+        _fail("the partition_pack kernel did not run on the sort path")
+    want = torch.sort(x).values
+    same = np.array_equal(got.view(np.uint32),
+                          want.cpu().numpy().view(np.uint32))
+    it = torch.from_numpy(idx).to(dev).long()
+    hits = torch.zeros(n, dtype=torch.int32, device=dev).scatter_add_(
+        0, it, torch.ones_like(it, dtype=torch.int32))
+    perm = bool((hits == 1).all().item())
+    gathered = bool(torch.equal(x[it].view(torch.int32),
+                                want.view(torch.int32)))
+    _say(f"[sort] st.sort bit-equal to torch.sort: {same}; st.argsort a "
+         f"permutation: {perm}, x[idx] bit-equal to the sorted keys: "
+         f"{gathered}")
+    if not (same and perm and gathered and got.shape == (n,)):
+        _fail("the sample sort disagrees with torch.sort")
+    x64 = x.double().cpu().numpy()
+    _f32_close(med, np.median(x64), "median")
+    _f32_close(pct, np.percentile(x64, [1.0, 50.0, 99.0]),
+               "percentile [1, 50, 99]")
+    sort_ms = _wall_ms(lambda: st.sort(X).evaluate())
+    argsort_ms = _wall_ms(lambda: st.argsort(X).evaluate())
+    torch_ms = _wall_ms(lambda: torch.sort(x))
+    _say(f"[sort] per call: st.sort {sort_ms:.2f} ms, st.argsort "
+         f"{argsort_ms:.2f} ms, torch.sort {torch_ms:.2f} ms (best of 3) "
+         f"on {card}")
+    _device_split(lambda: st.sort(X).evaluate(), "sort", card)
+
+    # the kernel at the path's shape: 8 shards' sorted streams cut into
+    # 8 runs each
+    p, m = SORT_MESH[0], n // SORT_MESH[0]
+    xs = torch.sort(x.view(p, m), dim=1).values
+    s, c = _pack_runs(np.random.RandomState(25), p, p, m, 1.0)
+    s_t, c_t = torch.from_numpy(s).to(dev), torch.from_numpy(c).to(dev)
+    ms = _event_ms(lambda: kx.partition_pack(xs, s_t, c_t), 10)
+    plain_ms = _event_ms(lambda: kx.partition_pack_plain(xs, s_t, c_t), 3,
+                         warmup=1)
+    # yardstick: the composite scatter_ of the expr path (no single
+    # PyTorch call packs runs)
+    tt = torch.arange(m, device=dev)
+    dst = torch.searchsorted(s_t.long(), tt.expand(p, m).contiguous(),
+                             right=True) - 1
+    flat = dst * m + tt - s_t.long().gather(1, dst)
+    lib_ms = _event_ms(lambda: torch.zeros((p, p * m), device=dev).scatter_(
+        1, flat, xs), 10)
+    _, bw_peak = _peaks(card)
+    nbytes = 4.0 * (p * m + p * p * m)
+    bound_ms = nbytes / bw_peak * 1e3
+    _say(f"[sort] partition_pack at {p} shards x {m}: kernel {ms:.4f} ms, "
+         f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (composite "
+         f"scatter_), bound {bound_ms:.4f} ms (bytes, "
+         f"{nbytes / 1e9:.2f} GB) on {card}")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def phase_topk(st, kk, kt, x, card: str, dev) -> dict:
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    n = x.numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    ints = torch.randint(0, 1000, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    X, I = from_tensor(x), from_tensor(ints)
+    _reset_counts(kk)
+    t0 = time.perf_counter()
+    vals, idx = st.topk(X, TOPK_K)
+    gi, gv = idx.glom(), vals.glom()
+    ivals, iidx = st.topk(I, TOPK_K, largest=False)
+    gii, giv = iidx.glom(), ivals.glom()
+    wall = time.perf_counter() - t0
+    launches = kt.LAUNCHES["shard_topk"]
+    _say(f"[topk] st.topk(x, {TOPK_K}) on {n} f32 keys and smallest-"
+         f"{TOPK_K} on {n} int32 in [0, 1000): {wall:.3f} s wall, "
+         f"shard_topk launches {launches}")
+    if launches < 1:
+        _fail("the shard_topk kernel did not run on the top-k path")
+    # oracle: a float64 stable sort, ties to the lowest index
+    want = torch.sort(x.double(), descending=True, stable=True).indices[
+        :TOPK_K].cpu().numpy()
+    wi = torch.sort(ints.long(), stable=True).indices[:TOPK_K].cpu().numpy()
+    tied = int(np.unique(gv, return_counts=True)[1].max())
+    ok_f = (np.array_equal(gi, want) and gv.dtype == np.float32
+            and np.array_equal(gv, x[torch.from_numpy(want).to(dev)]
+                               .cpu().numpy()))
+    ok_i = (np.array_equal(gii, wi) and np.array_equal(
+        giv, ints[torch.from_numpy(wi).to(dev)].cpu().numpy()))
+    _say(f"[topk] largest-{TOPK_K}: indices equal to the float64 stable-"
+         f"sort oracle {ok_f} (up to {tied} winners share a key, so the "
+         f"lowest-index rule decides); int32 smallest-{TOPK_K}: indices "
+         f"equal {ok_i} (all values {int(giv.max())} or less)")
+    if not (ok_f and ok_i):
+        _fail("st.topk disagrees with the stable-sort oracle")
+
+    def both():
+        v, i = st.topk(X, TOPK_K)
+        i.evaluate()
+        v.evaluate()
+
+    topk_ms = _wall_ms(both)
+    torch_ms = _wall_ms(lambda: torch.topk(x, TOPK_K))
+    _say(f"[topk] per call: st.topk {topk_ms:.2f} ms, torch.topk "
+         f"{torch_ms:.2f} ms (best of 3) on {card}")
+    _device_split(both, "topk", card)
+    p, m = SORT_MESH[0], n // SORT_MESH[0]
+    key = x.view(p, m)
+    ninf = float("-inf")
+    ms = _event_ms(lambda: kt.shard_topk(key, TOPK_K, ninf), 10)
+    plain_ms = _event_ms(lambda: kt.shard_topk_plain(key, TOPK_K, ninf), 3,
+                         warmup=1)
+    lib_ms = _event_ms(lambda: torch.topk(key, TOPK_K, dim=1), 10)
+    _, bw_peak = _peaks(card)
+    nbytes = 4.0 * p * m + 8.0 * p * TOPK_K
+    bound_ms = nbytes / bw_peak * 1e3
+    _say(f"[topk] shard_topk at {p} x {m}, k = {TOPK_K}: kernel "
+         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+         f"(torch.topk on the (p, m) view), bound {bound_ms:.4f} ms (bytes)"
+         f" on {card}")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def _np_edges(lo, hi, bins: int) -> np.ndarray:
+    """The port's f32 edge formula in numpy f32 arithmetic."""
+    f32 = np.float32
+    lo, hi = f32(lo), f32(hi)
+    step = np.arange(bins, dtype=f32) / f32(bins)
+    return np.append(lo * (f32(1) - step) + hi * step, hi).astype(f32)
+
+
+def phase_histogram(st, kk, kh, x, card: str, dev) -> dict:
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    n = x.numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    ids = torch.randint(0, UNIQ_HIGH, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    X, ID = from_tensor(x), from_tensor(ids)
+    _reset_counts(kk)
+    t0 = time.perf_counter()
+    c1, e1 = (a.glom() for a in st.histogram(X, bins=HIST_BINS,
+                                              range=(0.0, 1.0)))
+    c2, e2 = (a.glom() for a in st.histogram(X, bins=HIST_BINS))
+    u, uc = (a.glom() for a in st.unique(ID, size=UNIQ_SIZE, fill_value=-1,
+                                         return_counts=True))
+    wall = time.perf_counter() - t0
+    launches = kh.LAUNCHES["bincount_block"]
+    _say(f"[histogram] histogram(bins={HIST_BINS}) with and without a "
+         f"range on {n} f32 keys, unique(size={UNIQ_SIZE}, "
+         f"return_counts=True) on {n} int32 ids: {wall:.3f} s wall, "
+         f"bincount_block launches {launches}")
+    if launches < 1:
+        _fail("the bincount_block kernel did not run on the histogram path")
+    xn = x.cpu().numpy()
+    ok = True
+    for label, counts, edges, lo, hi, ranged in (
+            ("range=(0, 1)", c1, e1, 0.0, 1.0, True),
+            ("range=None", c2, e2, xn.min(), xn.max(), False)):
+        want_e = _np_edges(lo, hi, HIST_BINS)
+        b = np.searchsorted(want_e, xn, side="right") - 1
+        if ranged:
+            b[xn == want_e[-1]] = HIST_BINS - 1
+            b = b[(xn >= want_e[0]) & (xn <= want_e[-1])]
+        else:
+            b = np.clip(b, 0, HIST_BINS - 1)
+        want_c = np.bincount(b, minlength=HIST_BINS)
+        good = (np.array_equal(counts, want_c) and np.array_equal(
+            edges.view(np.uint32), want_e.view(np.uint32)))
+        _say(f"[histogram] {label}: counts equal numpy's on the same f32 "
+             f"edges {np.array_equal(counts, want_c)}, edges bit-equal "
+             f"{np.array_equal(edges.view(np.uint32), want_e.view(np.uint32))}"
+             f", total {int(counts.sum())}")
+        ok = ok and good
+    rv, rc = np.unique(ids.cpu().numpy(), return_counts=True)
+    k = rv.size
+    good_u = (k <= UNIQ_SIZE and np.array_equal(u[:k], rv)
+              and (u[k:] == -1).all() and np.array_equal(uc[:k], rc)
+              and (uc[k:] == 0).all())
+    _say(f"[histogram] unique: {k} distinct values, values and counts "
+         f"equal np.unique's {good_u}")
+    if not (ok and good_u):
+        _fail("histogram or unique disagrees with numpy")
+
+    hist_ms = _wall_ms(lambda: st.histogram(X, bins=HIST_BINS,
+                                            range=(0.0, 1.0))[0].evaluate())
+    bucket = torch.clamp((x * HIST_BINS).to(torch.int32), 0, HIST_BINS - 1)
+    torch_ms = _wall_ms(lambda: torch.bincount(bucket, minlength=HIST_BINS))
+    _say(f"[histogram] per call: st.histogram counts {hist_ms:.2f} ms, "
+         f"torch.bincount of the bucket ids {torch_ms:.2f} ms (best of 3) "
+         f"on {card}")
+    _device_split(lambda: st.histogram(X, bins=HIST_BINS, range=(
+        0.0, 1.0))[0].evaluate(), "histogram", card)
+    ms = _event_ms(lambda: kh.bincount_block(bucket, HIST_BINS), 10)
+    plain_ms = _event_ms(lambda: kh.bincount_block_plain(bucket, HIST_BINS),
+                         3, warmup=1)
+    lib_ms = _event_ms(lambda: torch.bincount(bucket, minlength=HIST_BINS),
+                       10)
+    ranks = torch.sort(ids).values
+    uniq_ms = _event_ms(lambda: kh.bincount_block(ranks, UNIQ_SIZE), 10)
+    _, bw_peak = _peaks(card)
+    nbytes = 4.0 * (n + HIST_BINS)
+    bound_ms = nbytes / bw_peak * 1e3
+    _say(f"[histogram] bincount_block at {n} ids, {HIST_BINS} buckets: "
+         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+         f"{lib_ms:.4f} ms (torch.bincount), bound {bound_ms:.4f} ms "
+         f"(bytes); at {n} sorted ranks, {UNIQ_SIZE} buckets: kernel "
+         f"{uniq_ms:.4f} ms, on {card}")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -715,15 +1196,23 @@ def main() -> None:
     from spartan_tpu_torch.examples import pagerank as pr
     from spartan_tpu_torch.kernels import build as build_mod
     from spartan_tpu_torch.kernels import kmeans as kk
+    from spartan_tpu_torch.kernels import exchange as kx
+    from spartan_tpu_torch.kernels import histogram as kh
     from spartan_tpu_torch.kernels import segment as ks
+    from spartan_tpu_torch.kernels import topk as kt
     from spartan_tpu_torch.ops import segment as seg
 
     t_start = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda")
     st.set_default_device(dev)
-    phase_build(build_mod, (kk._load, ks._load))
+    _COUNTED[:] = [ks, kx, kt, kh]
+    phase_build(build_mod, (kk._load, ks._load, kx._load, kt._load,
+                            kh._load))
     max_err = phase_kernel_vs_plain(kk, dev)
+    phase_pack_kernel(kx, dev)
+    topk_err = phase_topk_kernel(kt, dev)
+    hist_err = phase_bincount_kernel(kh, dev)
     t0 = time.perf_counter()
     links = pagerank_links(st.SparseDistArray)
     links.transition()._ensure_plan()
@@ -735,6 +1224,13 @@ def main() -> None:
     prr = phase_pagerank(kk, ks, pr, links, card, dev)
     nbr = phase_naive_bayes(st, kk, ks, nb, card, dev)
     abr = phase_segment_ab(ks, card, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    keys = torch.rand(SORT_N, generator=gen, device=dev)
+    with st.use_mesh(st.build_mesh(SORT_MESH)):
+        sortr = phase_sort(st, kk, kx, keys, card, dev)
+        topkr = phase_topk(st, kk, kt, keys, card, dev)
+        histr = phase_histogram(st, kk, kh, keys, card, dev)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -756,7 +1252,28 @@ def main() -> None:
         "launches": nbr["launches"], "max_abs_err": seg_err["block_err"],
         "ms": abr["ms"], "plain_ms": abr["plain_ms"],
         "bound_ms": abr["bound_ms"], "bound_by": abr["bound_by"],
-        "library_ms": abr["library_ms"]}]}))
+        "library_ms": abr["library_ms"]}, {
+        "name": "partition_pack", "route": "cuda",
+        "source": "spartan_tpu_torch/csrc/exchange.cu",
+        "replaces": "spartan_tpu/kernels/exchange.py:31",
+        "launches": sortr["launches"], "max_abs_err": 0.0,
+        "ms": sortr["ms"], "plain_ms": sortr["plain_ms"],
+        "bound_ms": sortr["bound_ms"], "bound_by": sortr["bound_by"],
+        "library_ms": sortr["library_ms"]}, {
+        "name": "shard_topk", "route": "cuda",
+        "source": "spartan_tpu_torch/csrc/topk.cu",
+        "replaces": "spartan_tpu/kernels/topk.py:30",
+        "launches": topkr["launches"], "max_abs_err": topk_err,
+        "ms": topkr["ms"], "plain_ms": topkr["plain_ms"],
+        "bound_ms": topkr["bound_ms"], "bound_by": topkr["bound_by"],
+        "library_ms": topkr["library_ms"]}, {
+        "name": "bincount_block", "route": "cuda",
+        "source": "spartan_tpu_torch/csrc/histogram.cu",
+        "replaces": "spartan_tpu/kernels/histogram.py:24",
+        "launches": histr["launches"], "max_abs_err": hist_err,
+        "ms": histr["ms"], "plain_ms": histr["plain_ms"],
+        "bound_ms": histr["bound_ms"], "bound_by": histr["bound_by"],
+        "library_ms": histr["library_ms"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")
     print(json.dumps({"ok": True, "device": {

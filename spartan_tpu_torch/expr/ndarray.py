@@ -22,7 +22,7 @@ from .base import Expr
 
 
 class CreateExpr(Expr):
-    """Lazy fill: zeros/ones/full/arange/eye."""
+    """Lazy fill: zeros/ones/full/arange/linspace/eye."""
 
     def __init__(self, shape: Sequence[int], dtype: Any, kind: str,
                  params: Tuple = (),
@@ -56,6 +56,19 @@ class CreateExpr(Expr):
         if k == "arange":
             return torch.from_numpy(
                 np.arange(*self.params).astype(self.dtype)).to(dev)
+        if k == "linspace":
+            # the JAX package's explicit iota lowering: start + step * i
+            # in f32, the last sample pinned to stop
+            start, stop, num, endpoint = self.params
+            if num == 1:
+                return torch.full((1,), start, dtype=dt, device=dev)
+            step = (stop - start) / ((num - 1) if endpoint else num)
+            out = (torch.tensor(start, dtype=torch.float32)
+                   + torch.tensor(step, dtype=torch.float32)
+                   * torch.arange(num, dtype=torch.float32)).to(dev)
+            if endpoint:
+                out[-1] = stop
+            return out.to(dt)
         if k == "eye":
             n, m, k_off = self.params
             return torch.from_numpy(

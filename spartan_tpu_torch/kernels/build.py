@@ -117,3 +117,13 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what} failed with CUDA error {err}")
+
+
+def on_card(t, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no {what} kernel for device {t.device}")

@@ -1,0 +1,151 @@
+"""Histogram / bincount: the hand-written CUDA kernel and its plain
+version (port of ``spartan_tpu/kernels/histogram.py``).
+
+:func:`bincount_block` counts integer ids into ``length`` buckets with
+``jnp.bincount``'s rule: negative ids count in bucket 0, ids >= length
+are dropped. :func:`bincount_sharded` is the BincountExpr path over the
+logical mesh: the id stream padded to whole row shards (padding ids are
+``length``, dropped), each shard counted, the shards' counts summed.
+
+On CUDA tensors the wrappers launch ``spartan_tpu_torch/csrc/
+histogram.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, bound
+through ``ctypes``), which counts all shards' ids in one launch into
+int32; on CPU tensors they run :func:`bincount_block_plain`, the TPU
+kernel's formulation (a f32 one-hot per 512-id block, reduced over the
+block); any other device raises. Counting in int32 instead of the TPU's
+f32 gives the same result wherever the TPU's count is exact: below 2**24
+per bucket per shard. Both wrappers return int32, as ``bincount_sharded``
+does in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from ..array import tiling as tiling_mod
+from ..parallel import mesh as mesh_mod
+from . import build as build_mod
+
+# Kernel launches so far: the wrappers add one where they launch the
+# CUDA kernel and nowhere else (the plain version does not count).
+LAUNCHES: Dict[str, int] = {"bincount_block": 0}
+
+_BLOCK_E = 512
+# one-hot elements the plain version materialises per step
+_ONEHOT_BUDGET = 1 << 24
+# CTAs per SM of the kernel
+_CTAS_PER_SM = 4
+
+
+def cuda_limits(length: int, e: int) -> str:
+    """Why the kernel cannot count ``e`` ids into ``length`` buckets, or
+    "" when it can: one int32 histogram per CTA must fit a block's
+    shared memory, and int32 counts must not overflow."""
+    if 4 * int(length) > build_mod.SMEM_PER_BLOCK:
+        return (f"{length} buckets need {4 * int(length)}B of shared "
+                f"memory > {build_mod.SMEM_PER_BLOCK}B per block")
+    if e >= 2 ** 31:
+        return f"{e} ids could overflow int32 counts"
+    return ""
+
+
+def bincount_block_plain(ids: torch.Tensor, length: int,
+                         block_e: int = _BLOCK_E) -> torch.Tensor:
+    """The TPU kernel's formulation: ids padded to whole ``block_e``
+    blocks with ``length`` (dropped), clipped at 0, each block's
+    ``(block_e, k_total)`` one-hot summed into a f32 counts row. Returns
+    int32 ``(length,)``."""
+    dev = ids.device
+    ids = ids.reshape(-1).to(torch.int32)
+    e_pad = -ids.numel() % block_e
+    if e_pad:
+        ids = torch.cat([ids, torch.full((e_pad,), length, dtype=torch.int32,
+                                         device=dev)])
+    ids = ids.clamp_min(0).reshape(-1, block_e)
+    k_total = -(-length // 128) * 128
+    seg = torch.arange(k_total, dtype=torch.int32, device=dev)
+    counts = torch.zeros((k_total,), dtype=torch.float32, device=dev)
+    step = max(1, _ONEHOT_BUDGET // (block_e * k_total))
+    for lo in range(0, ids.shape[0], step):
+        onehot = (ids[lo:lo + step, :, None] == seg).to(torch.float32)
+        counts += onehot.sum(dim=(0, 1))
+    return counts[:length].to(torch.int32)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.spartan_bincount.argtypes = [vp, i64, i32, vp, i32, vp]
+    lib.spartan_bincount.restype = i32
+
+
+def _load() -> ctypes.CDLL:
+    """``csrc/histogram.cu``, built with nvcc for sm_90a at first use."""
+    return build_mod.load("histogram", _bind)
+
+
+def _launch(ids: torch.Tensor, length: int) -> torch.Tensor:
+    why = cuda_limits(length, ids.numel())
+    if why:
+        raise ValueError(f"bincount_block kernel cannot take this input: "
+                         f"{why}")
+    lib = _load()
+    dev = ids.device
+    with torch.cuda.device(dev):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ctas = max(1, min(_CTAS_PER_SM * sms, -(-ids.numel() // 512)))
+        out = torch.zeros((length,), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.spartan_bincount(ids.data_ptr(), ids.numel(), length,
+                                   out.data_ptr(), ctas, stream)
+    build_mod.check(err, "bincount_block kernel launch")
+    LAUNCHES["bincount_block"] += 1
+    return out
+
+
+def _checked(ids: torch.Tensor, length: int) -> int:
+    if ids.dtype.is_floating_point or ids.dtype.is_complex \
+            or ids.dtype == torch.bool:
+        raise TypeError(f"bincount ids must be integers, not {ids.dtype}")
+    length = int(length)
+    if length < 1:
+        raise ValueError(f"bincount needs length >= 1, got {length}")
+    return length
+
+
+def bincount_block(ids: torch.Tensor, length: int,
+                   block_e: int = _BLOCK_E) -> torch.Tensor:
+    """One shard's int32 counts of ``ids`` in [0, length). ``block_e`` is
+    the TPU kernel's id block, kept for the plain version."""
+    length = _checked(ids, length)
+    if not build_mod.on_card(ids, "bincount_block"):
+        return bincount_block_plain(ids, length, block_e)
+    # jnp parity: ids are counted as int32 (wider ids wrap, as astype)
+    return _launch(ids.reshape(-1).to(torch.int32).contiguous(), length)
+
+
+def bincount_sharded(ids: torch.Tensor, length: int,
+                     mesh: Optional[mesh_mod.Mesh] = None) -> torch.Tensor:
+    """Distributed bincount over the mesh row axis: the 1-D id stream
+    padded to p whole shards with ``length``, counted per shard, the
+    shards' counts summed. Returns int32 ``(length,)``. On the card all
+    shards are counted in one launch."""
+    length = _checked(ids, length)
+    mesh = mesh or mesh_mod.get_mesh()
+    p = max(int(mesh.shape.get(tiling_mod.AXIS_ROW, 1)), 1)
+    ids = ids.reshape(-1)
+    if build_mod.on_card(ids, "bincount_block"):
+        return _launch(ids.to(torch.int32).contiguous(), length)
+    e_pad = -ids.numel() % p
+    if e_pad:
+        ids = torch.cat([ids.to(torch.int32),
+                         torch.full((e_pad,), length, dtype=torch.int32,
+                                    device=ids.device)])
+    shards = ids.reshape(p, -1)
+    # the shards' rows merge as the psum does: f32 rows added, then int32
+    total = torch.zeros((length,), dtype=torch.float32, device=ids.device)
+    for i in range(p):
+        total += bincount_block_plain(shards[i], length).to(torch.float32)
+    return total.to(torch.int32)

@@ -11,7 +11,18 @@ library path under ``auto`` as in the JAX package, and ``force=True``
 (an explicit ``impl=``) skips the flag and that table but never the
 constraint checks. A CUDA kernel computes its own offsets, so the JAX
 package's TPU lane/sublane grid derivation (``derive``) is carried only
-as far as a constraint reads it (the segment rule's entry block).
+as far as a constraint reads it (the segment rule's entry block, the
+empty-operand check of the 1-D rules).
+
+The sort/select rules (``topk``, ``bincount``, ``sort_exchange``) make
+the JAX package's decision on every check but one: the TPU's working-set
+budget. The TPU kernels of bincount and the sort exchange keep a whole
+shard's ids or keys resident in VMEM, so the JAX package refuses them
+past ~2M ids per shard (and bincount past ~2,000 buckets for int32 ids);
+the CUDA kernels stream from device memory and have their own, looser
+limits (``cuda_limits`` of each kernel module), which replace that
+budget. Everywhere else the decision, and under ``force`` or ``on`` the
+reason, are the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,9 +37,9 @@ from ..parallel import mesh as mesh_mod
 from ..utils.config import FLAGS
 
 LANE = 128
-# the JAX package's per-kernel working-set budget, kept so that no shape
-# its kernel rejects is taken here (the port extends the constraints,
-# never loosens them)
+# the JAX package's per-kernel working-set budget, kept by the k-means
+# and segment rules so that no shape their TPU kernels reject is taken
+# here; the sort/select rules replace it (module docstring)
 VMEM_BUDGET = 8 * 1024 * 1024
 
 
@@ -144,7 +155,96 @@ def _sel_segment(shape, dtype, tiling, mesh, params) -> Selection:
     return Selection(op, "native", "selected")
 
 
-_CHECKS = {"kmeans": _sel_kmeans, "segment_sum": _sel_segment}
+def _row_shards(mesh) -> int:
+    return max(int(mesh.shape.get(tiling_mod.AXIS_ROW, 1)), 1)
+
+
+def _derive_1d(n: int, mesh) -> str:
+    """Why the JAX package's ``derive`` cannot cover a row-tiled stream of
+    ``n`` elements, or "": it must be nonempty and split into the mesh's
+    row shards."""
+    if n == 0:
+        return "empty operand"
+    if n % _row_shards(mesh):
+        return (f"tiling {tiling_mod.row(1).axes} does not divide shape "
+                f"{(n,)} over mesh {dict(mesh.shape)}")
+    return ""
+
+
+def _sel_bincount(shape, dtype, tiling, mesh, params) -> Selection:
+    op = "bincount"
+    length = int(params["length"])
+    if len(shape) != 1:
+        return _fallback(op, "only 1-D operands (ravel falls back)")
+    if not np.issubdtype(np.dtype(dtype), np.integer):
+        return _fallback(op, f"ids dtype {np.dtype(dtype)} not integral")
+    if length > 4096:
+        return _fallback(op, f"length {length} > 4096 (one-hot block "
+                             "exceeds the VMEM budget)")
+    p = _row_shards(mesh)
+    n_pad = -(-shape[0] // p) * p
+    why = _derive_1d(n_pad, mesh)
+    if why:
+        return _fallback(op, why)
+    # in place of the TPU's one-hot working-set budget: the CUDA
+    # kernel's own limits (kernels/histogram.py)
+    from . import histogram as histogram_kernel
+
+    why = histogram_kernel.cuda_limits(length, n_pad)
+    if why:
+        return _fallback(op, why)
+    return Selection(op, "native", "selected")
+
+
+def _sel_topk(shape, dtype, tiling, mesh, params) -> Selection:
+    op = "topk"
+    k = int(params["k"])
+    if len(shape) != 1:
+        return _fallback(op, "only 1-D operands")
+    if np.dtype(dtype).itemsize != 4:
+        return _fallback(op, f"dtype {np.dtype(dtype)} is not 4-byte "
+                             "(extraction keys are f32/i32 lanes)")
+    if k > LANE:
+        return _fallback(op, f"k {k} > 128 (candidate row exceeds one "
+                             "lane tile; the sample argsort handles it)")
+    p = _row_shards(mesh)
+    m = -(-shape[0] // p)
+    why = _derive_1d(m * p, mesh)
+    if why:
+        return _fallback(op, why)
+    from . import topk as topk_kernel
+
+    why = topk_kernel.cuda_limits(dtype, m, k)
+    if why:
+        return _fallback(op, why)
+    return Selection(op, "native", "selected")
+
+
+def _sel_exchange(shape, dtype, tiling, mesh, params) -> Selection:
+    op = "sort_exchange"
+    m = int(params["m"])
+    p = int(params["p"])
+    if p < 2:
+        return _fallback(op, "single shard: no exchange to pack")
+    if np.dtype(dtype).itemsize != 4:
+        return _fallback(op, f"dtype {np.dtype(dtype)} is not 4-byte "
+                             "(the exact lane-roll splits 16-bit halves)")
+    why = _derive_1d(m * p, mesh)
+    if why:
+        return _fallback(op, why)
+    # in place of the TPU's resident-shard budget: the CUDA kernel's own
+    # limits (kernels/exchange.py)
+    from . import exchange as exchange_kernel
+
+    why = exchange_kernel.cuda_limits(dtype, m)
+    if why:
+        return _fallback(op, why)
+    return Selection(op, "native", "selected")
+
+
+_CHECKS = {"kmeans": _sel_kmeans, "segment_sum": _sel_segment,
+           "bincount": _sel_bincount, "topk": _sel_topk,
+           "sort_exchange": _sel_exchange}
 
 
 def select(op: str, shape, dtype, tiling: Optional[tiling_mod.Tiling],
@@ -164,3 +264,31 @@ def select(op: str, shape, dtype, tiling: Optional[tiling_mod.Tiling],
     mesh = mesh or mesh_mod.get_mesh()
     shape = tuple(int(s) for s in shape)
     return _CHECKS[op](shape, np.dtype(dtype), tiling, mesh, params)
+
+
+def node_selection(node: Any) -> Optional[Selection]:
+    """The Selection an expr node's lowering asks for, or None when the
+    node type never routes through the kernel layer. Matched by class
+    name so this module imports no expr module. The JAX package's ragged
+    transport, which carries 1-D sorts on its own chip, has no port: a
+    sample sort's exchange is always the padded, packed one."""
+    name = type(node).__name__
+    mesh = mesh_mod.get_mesh()
+    if name == "TopKExpr":
+        return select("topk", node.x.shape, node.x.dtype, tiling_mod.row(1),
+                      mesh, k=node.k)
+    if name == "BincountExpr":
+        return select("bincount", node.x.shape, node.x.dtype,
+                      node.x.out_tiling(), mesh, length=node.length)
+    if name == "SampleSortExpr":
+        from ..ops import sort as sort_ops
+
+        moved = (node._moved_in_tiling() if node.x.ndim > 1
+                 else node.x.out_tiling())
+        axis = sort_ops.collective_axis(moved, mesh)
+        p = int(mesh.shape.get(axis, 1))
+        n = node.x.shape[node.axis] if node.x.ndim else 0
+        m = -(-n // p) if p else n
+        return select("sort_exchange", (n,), node.x.dtype, moved, mesh,
+                      p=p, m=m)
+    return None

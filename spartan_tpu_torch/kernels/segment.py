@@ -171,15 +171,6 @@ def _launch_windowed(vals: torch.Tensor, ids: torch.Tensor,
 # -- the wrappers -------------------------------------------------------
 
 
-def _on_card(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU tensor; raises otherwise."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no {what} kernel for device {t.device}")
-
-
 def segment_sum_block(vals: torch.Tensor, ids: torch.Tensor,
                       num_segments: int, block_e: int = 512) -> torch.Tensor:
     """Sum the rows of ``vals`` ``(e,)`` or ``(e, d)`` f32 into
@@ -200,7 +191,7 @@ def segment_sum_block(vals: torch.Tensor, ids: torch.Tensor,
     if ids.device != vals.device:
         raise ValueError("vals and ids must be on one device")
     k = int(num_segments)
-    if not _on_card(vals, "segment_sum_block"):
+    if not build_mod.on_card(vals, "segment_sum_block"):
         return segment_sum_block_plain(vals, ids, k)
     if ids.dtype not in (torch.int32, torch.int64):
         ids = ids.to(torch.int64)
@@ -230,7 +221,7 @@ def windowed_segsum(vals: torch.Tensor, ids2d: torch.Tensor,
                          f"{ids2d.numel()} ids and {wb.numel()} subblock "
                          f"windows do not form {nsteps} steps of {sub} "
                          f"subblocks")
-    if not _on_card(vals, "windowed_segsum"):
+    if not build_mod.on_card(vals, "windowed_segsum"):
         return windowed_segsum_plain(vals, ids2d, wb, rows_pad)
     if starts is None:
         raise ValueError("the windowed_segsum kernel needs the plan's "

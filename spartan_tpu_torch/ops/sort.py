@@ -1,0 +1,348 @@
+"""Distributed sample sort and top-k over the logical row shards (port
+of ``spartan_tpu/ops/sort.py``).
+
+The JAX package sorts an array sharded along its sort axis with one
+static-shape shard_map program per shard:
+
+1. a local two-key sort ``(is_padding, value)``: a ragged tail (n not a
+   multiple of p) is padded, and a validity channel keeps the padding
+   behind every real element through the whole pipeline;
+2. ``s`` evenly spaced samples of each shard's valid prefix, gathered and
+   sorted into p - 1 splitters;
+3. the bucket exchange: each shard packs its sorted stream into a fixed
+   ``(p, m)`` send buffer (run j to row j) with a parallel validity
+   buffer, one all_to_all for each;
+4. a local two-key merge of the ``p * m`` received slots;
+5. the rebalance to even shards of m: the buckets' valid sizes are
+   gathered, each shard cuts its bucket at the output shards' bounds,
+   and a second all_to_all delivers the chunks.
+
+Here the p logical shards are the rows of one tensor on one card, the
+all_to_all is a transpose of the (sender, receiver) axes and the
+all_gather a view; every step keeps the JAX program's static shapes (no
+host sync). Batched sorts (an N-d array along its last axis) stack the
+rows of every batch position. The send buffer is packed by the
+``partition_pack`` kernel when ``kernels.select("sort_exchange")`` picks
+it, else by the scatter the JAX package's expr path lowers through. The
+JAX package's ragged transport (``lax.ragged_all_to_all``, its own
+chip's payload-only exchange) has no port.
+
+Order: ``lax.sort``'s. Values compare through :func:`sort_key`, an
+integer key with -0.0 == +0.0 and every NaN equal and last, and every
+sort is stable, so equal keys keep their source order: the result (and
+the argsort's indices) are the stable sort's, whatever the splitters.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..array import tiling as tiling_mod
+from ..parallel import mesh as mesh_mod
+from ..utils import dtypes
+
+_SAMPLES = 64  # per-shard splitter samples (capped at shard size)
+
+
+# -- order keys ---------------------------------------------------------
+
+
+def sort_key(v: torch.Tensor) -> torch.Tensor:
+    """An integer tensor ordered as ``lax.sort`` orders ``v``: floats
+    with -0.0 equal to +0.0 and every NaN equal and above +inf (the
+    comparator's canonicalisation), then by IEEE total order on the bits;
+    integers and bools by value."""
+    if v.dtype.is_floating_point:
+        v = torch.where(v == 0, torch.zeros((), dtype=v.dtype,
+                                            device=v.device), v)
+        v = torch.where(torch.isnan(v), torch.full((), float("nan"),
+                                                   dtype=v.dtype,
+                                                   device=v.device), v)
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        bits = v.view(ints[v.element_size()])
+        width = 8 * v.element_size()
+        return bits ^ ((bits >> (width - 1)) & ((1 << (width - 1)) - 1))
+    if v.dtype == torch.bool:
+        return v.to(torch.int32)
+    return v
+
+
+def _lexsort(first: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Stable order along the last axis by (``first``, ``key``): ``first``
+    a 0/1 flag, ``key`` from :func:`sort_key`."""
+    if key.element_size() <= 4:
+        comp = (first.to(torch.int64) << 32) | (key.to(torch.int64)
+                                                + 2 ** 31)
+        return torch.sort(comp, dim=-1, stable=True).indices
+    order = torch.sort(key, dim=-1, stable=True).indices
+    flags = first.to(torch.int8).expand(key.shape).gather(-1, order)
+    return order.gather(-1, torch.sort(flags, dim=-1, stable=True).indices)
+
+
+def stable_argsort(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.argsort`` along ``dim`` (stable, ``lax.sort`` order), int64."""
+    return torch.sort(sort_key(x), dim=dim, stable=True).indices
+
+
+# -- the per-shard program, batched over rows and logical shards ---------
+
+
+def _exchange(t: torch.Tensor) -> torch.Tensor:
+    """all_to_all (split 0, concat 0, tiled) over the logical shards:
+    ``t[r, sender, receiver, ...]`` becomes ``[r, receiver, sender,
+    ...]``."""
+    return t.transpose(1, 2)
+
+
+def _pack_scatter(xs_sorted: torch.Tensor, dst: torch.Tensor,
+                  starts: torch.Tensor, p: int) -> torch.Tensor:
+    """The expr path's send buffer: element t of a shard scattered to
+    (dst[t], t - starts[dst[t]]); padding (dst == p) to a dropped slot.
+    Returns (R, p, p, m)."""
+    r, _, m = xs_sorted.shape
+    dc = dst.clamp(max=p - 1)
+    pos = torch.arange(m, device=dst.device) - starts.gather(-1, dc)
+    flat = torch.where(dst < p, dc * m + pos, p * m)
+    out = torch.zeros((r, p, p * m + 1), dtype=xs_sorted.dtype,
+                      device=xs_sorted.device)
+    out.scatter_(-1, flat, xs_sorted)
+    return out[..., :p * m].reshape(r, p, p, m)
+
+
+def _kernel(xs: torch.Tensor, p: int, s: int, n: int,
+            with_indices: bool = False, pack: bool = False):
+    """The sample sort of ``xs`` (R, p, m): R independent rows, each
+    padded to p shards of m slots, of which global slots >= n are
+    padding. Returns the sorted rows (R, p, m) (and the int32 source
+    index of each slot) with the padding in the global tail."""
+    from ..kernels import exchange as kexchange
+
+    r, _, m = xs.shape
+    dev = xs.device
+    t = torch.arange(m, dtype=torch.int64, device=dev)
+    gidx = torch.arange(p * m, dtype=torch.int64, device=dev).reshape(p, m)
+    inv = (gidx >= n).expand(r, p, m)
+    # 1. local two-key sort: padding behind every value, stable
+    order = _lexsort(inv, sort_key(xs))
+    xs_sorted = xs.gather(-1, order)
+    src_idx = (gidx[:, :1] + order).to(torch.int32) if with_indices else None
+    mv = m - (gidx >= n).sum(-1)                          # (p,) valid
+    inv_s = t >= mv[:, None]                              # (p, m)
+
+    # 2. splitters: s evenly spaced samples of each valid prefix
+    samp_idx = ((torch.arange(s, device=dev) * mv[:, None]) // s
+                ).clamp(0, m - 1)
+    samples = xs_sorted.gather(-1, samp_idx.expand(r, p, s)).reshape(r,
+                                                                     p * s)
+    alls = samples.gather(-1, stable_argsort(samples))
+    splitters = alls[:, torch.arange(1, p, device=dev) * s]  # (R, p - 1)
+
+    # 3. bucket exchange: runs are contiguous in the sorted stream
+    skey = sort_key(splitters)[:, None, :].expand(r, p, p - 1).contiguous()
+    dst = torch.searchsorted(skey, sort_key(xs_sorted), right=True)
+    dst = torch.where(inv_s, p, dst)                      # padding: nowhere
+    bounds = torch.searchsorted(
+        dst, torch.arange(p + 1, device=dev).expand(r, p, p + 1).contiguous())
+    starts = bounds[..., :p]
+    counts = bounds[..., 1:] - bounds[..., :p]            # (R, p, p)
+    if pack:
+        send = kexchange.partition_pack(
+            xs_sorted.reshape(r * p, m), starts.reshape(r * p, p).to(
+                torch.int32), counts.reshape(r * p, p).to(torch.int32)
+        ).reshape(r, p, p, m)
+    else:
+        send = _pack_scatter(xs_sorted, dst, starts, p)
+    vals = _exchange(send).reshape(r, p, p * m)
+    rvalid = _exchange(t < counts[..., None]).reshape(r, p, p * m)
+    k = rvalid.sum(-1)                                    # (R, p)
+    if with_indices:
+        isend = (kexchange.partition_pack(
+            src_idx.reshape(r * p, m), starts.reshape(r * p, p).to(
+                torch.int32), counts.reshape(r * p, p).to(torch.int32)
+        ).reshape(r, p, p, m) if pack
+            else _pack_scatter(src_idx, dst, starts, p))
+        ridx = _exchange(isend).reshape(r, p, p * m)
+
+    # 4. local merge: (invalid, value), stable
+    order2 = _lexsort(~rvalid, sort_key(vals))
+    bucket = vals.gather(-1, order2)
+    bidx = ridx.gather(-1, order2) if with_indices else None
+
+    # 5. rebalance to even output shards
+    off = torch.cumsum(k, -1) - k                         # (R, p)
+    out_starts = torch.arange(p, device=dev) * m
+    lo = torch.maximum(off[..., None], out_starts)        # (R, d, j)
+    hi = torch.minimum((off + k)[..., None], out_starts + m)
+    cnt = (hi - lo).clamp(min=0)
+    st = (lo - out_starts).clamp(0, m)
+    gather_idx = (lo[..., None] - off[..., None, None] + t
+                  ).clamp(0, p * m - 1).reshape(r, p, p * m)
+    rcnt, rst = _exchange(cnt), _exchange(st)             # (R, j, d)
+    positions = torch.where(t < rcnt[..., None], rst[..., None] + t, m
+                            ).reshape(r, p, p * m)
+
+    def deliver(src: torch.Tensor) -> torch.Tensor:
+        chunks = _exchange(src.gather(-1, gather_idx).reshape(r, p, p, m))
+        out = torch.zeros((r, p, m + 1), dtype=src.dtype, device=dev)
+        out.scatter_(-1, positions, chunks.reshape(r, p, p * m))
+        return out[..., :m]
+
+    out_vals = deliver(bucket)
+    if not with_indices:
+        return out_vals
+    return out_vals, deliver(bidx)
+
+
+def _padded(x: torch.Tensor, n: int, p: int) -> Tuple[torch.Tensor, int]:
+    """Pad the last axis to the next multiple of ``p``; the padded values
+    are irrelevant (the validity channel orders and places them)."""
+    m = -(-n // p)
+    if m * p != n:
+        pad = torch.zeros(tuple(x.shape[:-1]) + (m * p - n,), dtype=x.dtype,
+                          device=x.device)
+        x = torch.cat([x, pad], dim=-1)
+    return x, m
+
+
+def _uses(mesh_axis, name) -> bool:
+    """Does a Tiling axis entry involve mesh axis ``name``?"""
+    if mesh_axis == name:
+        return True
+    return isinstance(mesh_axis, tuple) and name in mesh_axis
+
+
+def collective_axis(in_tiling, mesh=None) -> str:
+    """The mesh axis the sample sort runs over: the sort (last) axis's
+    placement when that is a mesh axis of size > 1, else the row axis."""
+    mesh = mesh or mesh_mod.get_mesh()
+    name = tiling_mod.AXIS_ROW
+    if in_tiling is not None and isinstance(in_tiling.axes[-1], str) \
+            and int(mesh.shape.get(in_tiling.axes[-1], 1)) > 1:
+        name = in_tiling.axes[-1]
+    return name
+
+
+def batch_axes(in_tiling, name: str, ndim: int):
+    """Leading (batch) axis placements with any use of the collective
+    axis ``name`` cleared."""
+    if in_tiling is None:
+        return (None,) * (ndim - 1)
+    return tuple(None if _uses(a, name) else a
+                 for a in in_tiling.axes[:-1])
+
+
+def _run(x: torch.Tensor, mesh, with_indices: bool,
+         in_tiling=None) -> torch.Tensor:
+    """Every sample-sort entry point: pad the last axis, pick the
+    collective axis, run the program over all rows, unpad."""
+    from ..kernels import registry as kernels_mod
+
+    mesh = mesh or mesh_mod.get_mesh()
+    n = int(x.shape[-1])
+    name = collective_axis(in_tiling, mesh)
+    p = int(mesh.shape.get(name, 1))
+    if p <= 1 or n == 0:
+        order = stable_argsort(x)
+        return order.to(torch.int32) if with_indices else x.gather(-1, order)
+    xp, m = _padded(x, n, p)
+    t = tiling_mod.Tiling(batch_axes(in_tiling, name, x.ndim) + (name,))
+    sel = kernels_mod.select("sort_exchange", (n,), dtypes.to_numpy(x.dtype),
+                             t, mesh, p=p, m=m)
+    rows = int(np.prod(x.shape[:-1], dtype=np.int64))
+    out = _kernel(xp.reshape(rows, p, m), p, min(_SAMPLES, m), n,
+                  with_indices=with_indices, pack=sel.native)
+    out = (out[1] if with_indices else out).reshape(xp.shape)
+    return out[..., :n] if m * p != n else out
+
+
+def sample_sort(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Sort a 1-D array of any length over the mesh row axis."""
+    return _run(x, mesh, with_indices=False)
+
+
+def sample_argsort(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """int32 indices that sort a 1-D array of any length (the source
+    index rides the pipeline as a payload)."""
+    return _run(x, mesh, with_indices=True)
+
+
+def sample_sort_axis(x: torch.Tensor, mesh=None, with_indices: bool = False,
+                     in_tiling=None) -> torch.Tensor:
+    """Sort an N-d array along its last axis, every leading position a
+    row of the same program; ``in_tiling`` (the layout with the sort axis
+    last) picks the collective axis. Indices are within-row positions."""
+    return _run(x, mesh, with_indices=with_indices, in_tiling=in_tiling)
+
+
+# -- top-k ----------------------------------------------------------------
+
+
+def _extreme(dtype, lo: bool):
+    """The dtype's most extreme value (lo=True: minimum): the sentinel
+    that masks padded slots out of a top-k."""
+    dt = dtypes.to_numpy(dtype)
+    if dt == np.bool_:
+        return not lo
+    if np.issubdtype(dt, np.floating):
+        return float(-np.inf if lo else np.inf)
+    info = np.iinfo(dt)
+    return int(info.min if lo else info.max)
+
+
+def _flip_key(v: torch.Tensor) -> torch.Tensor:
+    """Order-reversing key: floats negate (NaN's sign flips, as in JAX),
+    integers flip their bits (exact over the whole range)."""
+    if v.dtype.is_floating_point:
+        return -v
+    if v.dtype == torch.bool:
+        return ~v
+    return torch.bitwise_not(v)
+
+
+def distributed_topk(x: torch.Tensor, k: int, largest: bool = True,
+                     mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, int32 indices) of the k largest (smallest) elements of a
+    1-D array, best first: each logical shard's top-k candidates, their
+    gather (a view) and a final top-k of the p * k candidates. The order
+    is ``lax.top_k``'s (ties to the lowest index); smallest-k runs
+    largest-k on the order-flipped key. Requires ``k <= ceil(n / p)``."""
+    from ..kernels import registry as kernels_mod
+    from ..kernels import topk as ktopk
+
+    mesh = mesh or mesh_mod.get_mesh()
+    p = int(mesh.shape.get(tiling_mod.AXIS_ROW, 1))
+    n = int(x.shape[0])
+    k = int(k)
+    if not 1 <= k <= n:
+        raise ValueError(f"topk needs 1 <= k <= {n}, got {k}")
+    if p <= 1:
+        _, idx = ktopk.top_k(x if largest else _flip_key(x), k)
+        return x[idx], idx.to(torch.int32)
+    xp, m = _padded(x, n, p)
+    if k > m:
+        raise ValueError(
+            f"distributed_topk requires k <= shard size {m}; got {k}")
+    sentinel = _extreme(x.dtype, lo=largest)
+    sel = kernels_mod.select("topk", (n,), dtypes.to_numpy(x.dtype),
+                             tiling_mod.row(1), mesh, k=k)
+    gidx = torch.arange(p * m, dtype=torch.int64,
+                        device=x.device).reshape(p, m)
+    # padding slots carry the sentinel; they sit at the global tail, so
+    # with ties to the lowest index no padding slot displaces a real
+    # element of the same key, and every returned index is < n
+    vv = torch.where(gidx < n, xp.reshape(p, m),
+                     torch.full((), sentinel, dtype=x.dtype,
+                                device=x.device))
+    key = vv if largest else _flip_key(vv)
+    if sel.native:
+        lk, li = ktopk.shard_topk(key, k, _extreme(key.dtype, lo=True))
+        li = li.to(torch.int64)
+    else:
+        lk, li = ktopk.top_k(key, k)
+    gv = vv.gather(1, li).reshape(-1)                     # (p * k,)
+    gi = gidx.gather(1, li).reshape(-1)
+    _, win = ktopk.top_k(lk.reshape(-1), k)
+    return gv[win], gi[win].to(torch.int32)

@@ -188,3 +188,140 @@ def test_segment_kernels_never_fall_back(card):
         ks.segment_sum_block(vals, torch.zeros(16, dtype=torch.int64,
                                                device=card), 60000)
     assert ks.LAUNCHES == before
+
+
+# -- sort/select kernels (csrc/exchange.cu, topk.cu, histogram.cu) ---------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards,p,m,dtype", [
+    (8, 8, 1 << 20, torch.float32), (8, 8, 1000, torch.int32),
+    (512, 8, 613, torch.float32), (3, 2, 1, torch.float32)])
+def test_partition_pack_matches_plain(card, shards, p, m, dtype):
+    from spartan_tpu_torch.kernels import exchange as kx
+
+    rng = np.random.RandomState(m)
+    bits = rng.randint(0, 2 ** 32, (shards, m), np.uint64).astype(np.uint32)
+    xs = torch.from_numpy(bits.view(np.float32 if dtype == torch.float32
+                                    else np.int32)).to(card)
+    counts = rng.multinomial(m, np.ones(p) / p, shards).astype(np.int32)
+    counts[0] = 0
+    counts[0, -1] = m  # one destination takes a whole shard
+    starts = (np.cumsum(counts, 1) - counts).astype(np.int32)
+    s, c = torch.from_numpy(starts).to(card), torch.from_numpy(counts).to(card)
+    before = kx.LAUNCHES["partition_pack"]
+    out = kx.partition_pack(xs, s, c)
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["partition_pack"] == before + 1
+    ref = kx.partition_pack_plain(xs, s, c)
+    # bit for bit: NaN payloads and -0.0 survive the copy
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "ties", "ints", "sentinel",
+                                  "short", "total_order"])
+@pytest.mark.parametrize("k", [1, 128])
+def test_shard_topk_matches_plain(card, case, k):
+    from spartan_tpu_torch.kernels import topk as kt
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(k)
+    ninf = float("-inf")
+    sentinel = ninf
+    if case == "uniform":
+        key = torch.rand((8, 200_003), generator=gen, device=card)
+    elif case == "ties":
+        key = torch.randint(0, 4, (8, 70_000), generator=gen,
+                            device=card).float()
+    elif case == "ints":
+        key = torch.randint(-5, 5, (8, 70_000), generator=gen, device=card,
+                            dtype=torch.int32)
+        sentinel = -2 ** 31
+    elif case == "sentinel":
+        key = torch.full((4, 33_000), ninf, device=card)
+        key[:, 32_999] = 0.5
+    elif case == "short":
+        key = torch.rand((3, 60), generator=gen, device=card)
+    else:
+        key = torch.tensor([0.0, -0.0, float("nan"), -float("nan"), 1.0,
+                            float("inf"), ninf], device=card).repeat(2, 500)
+    before = kt.LAUNCHES["shard_topk"]
+    out_k, out_i = kt.shard_topk(key, k, sentinel)
+    torch.cuda.synchronize()
+    assert kt.LAUNCHES["shard_topk"] == before + 1
+    ref_k, ref_i = kt.shard_topk_plain(key, k, sentinel)
+    assert torch.equal(out_i, ref_i)  # ties to the lowest index
+    assert torch.equal(out_k.view(torch.int32), ref_k.view(torch.int32))
+    again = kt.shard_topk(key, k, sentinel)
+    assert torch.equal(again[1], out_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi,e,length", [
+    (0, 64, 1 << 22, 64), (-50, 4200, 1_000_003, 4096), (0, 1, 7, 1),
+    (-3, 14, 1003, 10)])
+def test_bincount_matches_plain(card, lo, hi, e, length):
+    from spartan_tpu_torch.kernels import histogram as kh
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(e)
+    ids = torch.randint(lo, hi, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    before = kh.LAUNCHES["bincount_block"]
+    out = kh.bincount_block(ids, length)
+    torch.cuda.synchronize()
+    assert kh.LAUNCHES["bincount_block"] == before + 1
+    assert torch.equal(out, kh.bincount_block_plain(ids, length))
+    sorted_ids = torch.sort(ids).values  # one id per warp: aggregated adds
+    assert torch.equal(kh.bincount_block(sorted_ids, length), out)
+
+
+@pytest.mark.cuda
+def test_select_kernels_never_fall_back(card):
+    from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.kernels import topk as kt
+
+    before = (dict(kt.LAUNCHES), dict(kh.LAUNCHES))
+    with pytest.raises(ValueError, match="cannot take"):
+        kt.shard_topk(torch.zeros((2, 300), device=card), 129, 0.0)
+    with pytest.raises(ValueError, match="cannot take"):
+        kt.shard_topk(torch.zeros((2, 300), device=card,
+                                  dtype=torch.float64), 4, 0.0)
+    with pytest.raises(ValueError, match="cannot take"):
+        kh.bincount_block(torch.zeros(16, dtype=torch.int32, device=card),
+                          60_000)
+    assert (dict(kt.LAUNCHES), dict(kh.LAUNCHES)) == before
+
+
+@pytest.mark.cuda
+def test_sort_topk_histogram_builtins_on_the_card(card):
+    """The three builtins end to end under a logical (8, 1) mesh: the
+    kernels run on their paths and the results match torch/numpy."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.kernels import exchange as kx
+    from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.kernels import topk as kt
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(7)
+    x = torch.rand(1_000_003, generator=gen, device=card)
+    before = (kx.LAUNCHES["partition_pack"], kt.LAUNCHES["shard_topk"],
+              kh.LAUNCHES["bincount_block"])
+    with st.use_mesh(st.build_mesh((8, 1), device=card)):
+        X = st.from_numpy(x.cpu().numpy(), device=card)
+        s = st.sort(X).glom()
+        idx = st.argsort(X).glom()
+        vals, top = st.topk(X, 100)
+        counts, edges = st.histogram(X, bins=50, range=(0.0, 1.0))
+        top, vals = top.glom(), vals.glom()
+        counts = counts.glom()
+    after = (kx.LAUNCHES["partition_pack"], kt.LAUNCHES["shard_topk"],
+             kh.LAUNCHES["bincount_block"])
+    assert all(a > b for a, b in zip(after, before))
+    want = torch.sort(x).values.cpu().numpy()
+    np.testing.assert_array_equal(s, want)
+    np.testing.assert_array_equal(x.cpu().numpy()[idx], want)
+    oracle = torch.sort(x.double(), descending=True, stable=True).indices
+    np.testing.assert_array_equal(top, oracle[:100].cpu().numpy())
+    assert counts.sum() == x.numel() and counts.dtype == np.int32
