@@ -67,6 +67,9 @@ NB_ROWS, NB_FEATURES, NB_CLASSES = 262_144, 2048, 20
 SEG_E, SEG_D, SEG_K = 1_000_000, 128, 64
 SORT_N, SORT_MESH, TOPK_K = 2 ** 26, (8, 1), 128
 HIST_BINS, UNIQ_SIZE, UNIQ_HIGH = 64, 4096, 3000
+# VGG-16 (configuration D) block 1: batch, image side, channel widths
+VGG_N, VGG_HW, VGG_WIDTHS, VGG_MESH = 32, 224, (3, 64, 64), (8, 1)
+STRUCT_N, OUTER_N, EINSUM_B, EINSUM_N, SHUFFLE_N = 8192, 16384, 64, 512, 4096
 
 
 def _say(*args) -> None:
@@ -1184,6 +1187,304 @@ def phase_histogram(st, kk, kh, x, card: str, dev) -> dict:
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
+# -- stencil: conv_block against its plain version --------------------------
+
+
+def _stencil_case(kst, blocks, wt, label: str) -> float:
+    """conv_block on the card against its plain version on the same halo
+    blocks, and a rerun against the first run bit for bit. Both sum the
+    same K = KH*KW*C products in f32 in different orders, so they differ
+    by at most 2 K 2^-24 max conv(|x|, |w|)."""
+    out = kst.conv_block(blocks, wt)
+    torch.cuda.synchronize()
+    again = kst.conv_block(blocks, wt)
+    ref = kst.conv_block_plain(blocks, wt)
+    mag = float(kst.conv_block_plain(blocks.abs(), wt.abs()).max().item())
+    torch.cuda.synchronize()
+    kh, kw, c, o = wt.shape
+    tol = 2.0 * kh * kw * c * _U * mag
+    err = float((out - ref).abs().max().item())
+    same = bool(torch.equal(out, again))
+    ok = err <= tol and same and out.shape == ref.shape
+    _say(f"[stencil] conv_block {label}: blocks {tuple(blocks.shape)} "
+         f"filter {tuple(wt.shape)} -> {tuple(out.shape)}: max |kernel - "
+         f"plain| {err:.3g} (tol {tol:.3g}), rerun bit-equal {same} -> "
+         f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        _fail(f"conv_block disagrees with its plain version ({label})")
+    return err
+
+
+def _halo_blocks(kst, n, h, w, c, kh, kw, p, gen, dev):
+    x = torch.randn((n, h, w, c), generator=gen, device=dev)
+    return kst.halo_exchange(x, kh, kw, p)
+
+
+def phase_stencil_kernel(kst, dev) -> float:
+    """At both VGG-16 block-1 widths and at edge shapes: 2x2 and 5x5
+    filters, C = 3, O = 10, W = 17, shard height = KH, p = 2 and 8; and
+    C = 13 (a ragged channel chunk) to O = 70 (a ragged channel tile)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    p = VGG_MESH[0]
+    main = 0.0
+    for cin, cout in zip(VGG_WIDTHS[:-1], VGG_WIDTHS[1:]):
+        blocks = _halo_blocks(kst, VGG_N, VGG_HW, VGG_HW, cin, 3, 3, p, gen,
+                              dev)
+        wt = torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+        main = max(main, _stencil_case(kst, blocks, wt,
+                                       f"VGG width {cin}->{cout}"))
+        del blocks
+    for k in (2, 5):
+        for shards in (2, 8):
+            blocks = _halo_blocks(kst, 3, k * shards, 17, 3, k, k, shards,
+                                  gen, dev)
+            wt = torch.randn((k, k, 3, 10), generator=gen, device=dev)
+            _stencil_case(kst, blocks, wt, f"{k}x{k}, p={shards}, hs=KH")
+    blocks = _halo_blocks(kst, 2, 8 * 5, 33, 13, 3, 3, 8, gen, dev)
+    wt = torch.randn((3, 3, 13, 70), generator=gen, device=dev)
+    _stencil_case(kst, blocks, wt, "C=13, O=70, W=33")
+    return main
+
+
+# -- stencil: the VGG-16 block-1 forward --------------------------------------
+
+
+def _vgg_params(dev):
+    """Seeded He-scaled 3x3 filters (HWIO) and small biases for the block's
+    two convolutions, and the batch of images (NHWC)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    params = []
+    for cin, cout in zip(VGG_WIDTHS[:-1], VGG_WIDTHS[1:]):
+        w = torch.randn((3, 3, cin, cout), generator=gen, device=dev) \
+            * (2.0 / (9 * cin)) ** 0.5
+        b = 0.01 * torch.randn((cout,), generator=gen, device=dev)
+        params.append((w, b))
+    x = torch.randn((VGG_N, VGG_HW, VGG_HW, VGG_WIDTHS[0]), generator=gen,
+                    device=dev)
+    return x, params
+
+
+def vgg_block1(st, x, params):
+    """conv3-64, ReLU, conv3-64, ReLU, maxpool 2x2 stride 2 (VGG-16
+    configuration D, block 1) as port expressions."""
+    h = x
+    for w, b in params:
+        h = st.maximum(st.stencil(h, w) + b, 0.0)
+    return st.maxpool(h, 2)
+
+
+def _vgg_float64(x, params):
+    import torch.nn.functional as F
+
+    h = x.double().permute(0, 3, 1, 2)
+    for w, b in params:
+        h = F.conv2d(h, w.double().permute(3, 2, 0, 1), b.double(),
+                     padding=1).clamp_min(0.0)
+    return F.max_pool2d(h, 2).permute(0, 2, 3, 1)
+
+
+def phase_vgg(st, kk, kst, card: str, dev) -> dict:
+    import torch.nn.functional as F
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    x, params = _vgg_params(dev)
+    X = from_tensor(x, tiling=st.Tiling((None, "x", None, None)))
+    P = [(from_tensor(w), from_tensor(b)) for w, b in params]
+
+    def forward():
+        return vgg_block1(st, X, P).evaluate()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    _reset_counts(kk)
+    t0 = time.perf_counter()
+    out = forward().tensor
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = kst.LAUNCHES["conv_block"]
+    peak = (torch.cuda.max_memory_allocated() - live) / 1e9
+    _say(f"[stencil] VGG-16 block 1 (conv3-64, ReLU, conv3-64, ReLU, maxpool"
+         f" 2) on {VGG_N} x {VGG_HW}x{VGG_HW}x{VGG_WIDTHS[0]} f32 under a "
+         f"logical {VGG_MESH} mesh, H tiled: first forward {first:.3f} s, "
+         f"conv_block launches {launches} (want 2), peak device memory "
+         f"{peak:.2f} GB above the {live / 1e9:.2f} GB live before it")
+    if launches != 2:
+        _fail(f"conv_block ran {launches} times in one forward, not 2")
+    want_shape = (VGG_N, VGG_HW // 2, VGG_HW // 2, VGG_WIDTHS[-1])
+    if tuple(out.shape) != want_shape or not bool(out.isfinite().all()):
+        _fail(f"VGG block output {tuple(out.shape)} is not finite "
+              f"{want_shape}")
+    ref = _vgg_float64(x[:2], [(w, b) for w, b in params])
+    rel = float(((out[:2].double() - ref).abs().max()
+                 / ref.abs().max()).item())
+    _say(f"[stencil] two images against a float64 conv2d forward: "
+         f"max |err| / max |ref| {rel:.3g} (want <= 1e-5)")
+    if rel > 1e-5:
+        _fail("the VGG block disagrees with its float64 forward")
+    st.FLAGS.native_kernels = "off"
+    _reset_counts(kk)
+    off = forward().tensor
+    off_launches = kst.LAUNCHES["conv_block"]
+    st.FLAGS.native_kernels = "auto"
+    # rtol 1e-4 plus an atol of 1e-6 of the largest output, for outputs
+    # that sit near 0 where ReLU cut most of a sum away
+    atol = 1e-6 * float(off.abs().max().item())
+    diff = (out - off).abs()
+    bad = int((diff > 1e-4 * off.abs() + atol).sum().item())
+    _say(f"[stencil] whole batch against the native_kernels=off forward "
+         f"(F.conv2d, TF32 off; {off_launches} kernel launches): max |diff| "
+         f"{float(diff.max().item()):.3g}, {bad} of {off.numel()} outside "
+         f"rtol 1e-4 + atol {atol:.3g}")
+    if bad or off_launches:
+        _fail("the VGG block disagrees with its native_kernels=off forward")
+    ms = _wall_ms(forward)
+    _say(f"[stencil] per forward: {ms:.2f} ms, {VGG_N / ms * 1e3:.1f} "
+         f"images/s (best of 3, host clock to a synchronise) on {card}")
+    _device_split(forward, "stencil", card, top=6)
+
+    flops_peak, bw_peak = _peaks(card)
+    per_width = []
+    h = x
+    for (w, b) in params:
+        kh, kw, c, o = w.shape
+        blocks = kst.halo_exchange(h, kh, kw, VGG_MESH[0])
+        p, n = blocks.shape[:2]
+        flat = blocks.reshape(p * n, *blocks.shape[2:])
+        ms_k = _event_ms(lambda: kst.conv_block(blocks, w), 10)
+        plain = _event_ms(lambda: kst.conv_block_plain(flat, w), 3,
+                          warmup=1)
+        xc = flat.permute(0, 3, 1, 2)  # channels_last view, no copy
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = _event_ms(lambda: F.conv2d(xc, wc), 10)
+        ho, wo = blocks.shape[2] - kh + 1, blocks.shape[3] - kw + 1
+        flops = 2.0 * p * n * ho * wo * o * kh * kw * c
+        nbytes = 4.0 * (blocks.numel() + w.numel() + p * n * ho * wo * o)
+        f_ms, b_ms = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+        bound, by = (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+        _say(f"[stencil] conv_block {c}->{o} at {tuple(blocks.shape)}: "
+             f"kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s), "
+             f"plain {plain:.4f} ms, library {lib:.4f} ms (F.conv2d on the "
+             f"same blocks, TF32 off), bound {bound:.4f} ms ({by}; "
+             f"operations {f_ms:.4f}, bytes {b_ms:.4f}: {flops / 1e9:.2f} "
+             f"GFLOP, {nbytes / 1e9:.3f} GB) on {card}")
+        per_width.append({"ms": ms_k, "plain_ms": plain, "library_ms": lib,
+                          "bound_ms": bound, "bound_by": by})
+        h = (kst.conv_block(blocks, w) + b).clamp_min(0.0)
+        del blocks, flat, xc
+    res = dict(per_width[-1])
+    res["launches"] = launches
+    return res
+
+
+# -- the structure ops ---------------------------------------------------------
+
+
+def _structure_case(label: str, build, want, card: str, rtol=None) -> None:
+    """``build()`` evaluated and fetched against numpy's ``want`` (bit for
+    bit, or within ``rtol`` of the largest entry of a float64 ``want``),
+    then its wall time per evaluate."""
+    got = build().glom()
+    if rtol is None:
+        ok = got.shape == want.shape and got.dtype == want.dtype and \
+            np.array_equal(got, want)
+        how = "bit-equal to numpy"
+    else:
+        # normwise: entries of randn products cancel to near 0, where an
+        # elementwise relative error means nothing
+        err = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+        ok = got.shape == want.shape and err <= rtol
+        how = (f"max |err| / max |float64| {err:.3g} (want <= {rtol:g})")
+    ms = _wall_ms(lambda: build().evaluate())
+    _say(f"[structure] {label}: {how} -> {'ok' if ok else 'MISMATCH'}, "
+         f"{ms:.2f} ms per evaluate (best of 3) on {card}")
+    if not ok:
+        _fail(f"structure op {label} disagrees with numpy")
+
+
+def _shuffle_transposed(ext, block):
+    yield ((ext.ul[1], ext.ul[0]), (ext.lr[1], ext.lr[0])), block.T
+
+
+def phase_structure(st, card: str, dev) -> None:
+    """transpose / reshape / ravel / concatenate / assign / write_array /
+    outer / einsum / tensordot / shuffle at sizes users run, each against
+    numpy. No hand-written kernel runs here: the JAX package has no
+    Pallas kernel for these ops."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    n = STRUCT_N
+    a = torch.rand((n, n), generator=gen, device=dev)
+    b = torch.rand((n, n), generator=gen, device=dev)
+    A, B = st.as_expr(from_tensor(a)), st.as_expr(from_tensor(b))
+    an, bn = a.cpu().numpy(), b.cpu().numpy()
+    _structure_case(f"transpose {n}^2 f32", lambda: A.T, an.T, card)
+    _structure_case(f"reshape {n}^2 -> ({n // 4}, {4 * n})",
+                    lambda: st.reshape(A, (n // 4, 4 * n)),
+                    an.reshape(n // 4, 4 * n), card)
+    _structure_case(f"ravel {n}^2", lambda: st.ravel(A), an.ravel(), card)
+    _structure_case(f"concatenate two {n}^2 along axis 0",
+                    lambda: st.concatenate([A, B]),
+                    np.concatenate([an, bn]), card)
+    _structure_case(f"concatenate two {n}^2 along axis 1",
+                    lambda: st.concatenate([A, B], axis=1),
+                    np.concatenate([an, bn], axis=1), card)
+    region = (slice(1000, 5000), slice(2048, 8192))
+    want = an.copy()
+    want[region] += bn[region]
+    _structure_case("assign(A, region, B[region], reducer='add')",
+                    lambda: st.assign(A, region, B[region], reducer="add"),
+                    want, card)
+    want = np.zeros((n, n), np.float32)
+    want[region] = bn[region]
+    _structure_case(f"write_array({n}^2, region, B[region])",
+                    lambda: st.write_array((n, n), region, B[region]),
+                    want, card)
+    del want, bn
+    u = torch.rand(OUTER_N, generator=gen, device=dev)
+    v = torch.rand(OUTER_N, generator=gen, device=dev)
+    U, V = st.as_expr(from_tensor(u)), st.as_expr(from_tensor(v))
+    un, vn = u.cpu().numpy(), v.cpu().numpy()
+    _structure_case(f"outer of two {OUTER_N}-vectors", lambda: st.outer(U, V),
+                    np.outer(un, vn), card)
+    _structure_case(f"outer of two {OUTER_N}-vectors, fn=minimum",
+                    lambda: st.outer(U, V, torch.minimum),
+                    np.minimum.outer(un, vn), card)
+    bi = torch.randn((EINSUM_B, EINSUM_N, EINSUM_N), generator=gen,
+                     device=dev)
+    bj = torch.randn((EINSUM_B, EINSUM_N, EINSUM_N), generator=gen,
+                     device=dev)
+    BI, BJ = from_tensor(bi), from_tensor(bj)
+    _structure_case(
+        f"einsum('bij,bjk->bik') at {EINSUM_B}x{EINSUM_N}x{EINSUM_N}",
+        lambda: st.einsum("bij,bjk->bik", BI, BJ),
+        torch.einsum("bij,bjk->bik", bi.double(), bj.double()).cpu().numpy(),
+        card, rtol=1e-4)
+    p3 = torch.randn((1024, 64, 256), generator=gen, device=dev)
+    q3 = torch.randn((256, 64, 512), generator=gen, device=dev)
+    P3, Q3 = from_tensor(p3), from_tensor(q3)
+    _structure_case(
+        "tensordot((1024, 64, 256), (256, 64, 512), axes=([1, 2], [1, 0]))",
+        lambda: st.tensordot(P3, Q3, axes=([1, 2], [1, 0])),
+        torch.tensordot(p3.double(), q3.double(),
+                        dims=([1, 2], [1, 0])).cpu().numpy(), card,
+        rtol=1e-4)
+    m = SHUFFLE_N
+    s = torch.rand((m, m), generator=gen, device=dev)
+    sn = s.cpu().numpy()
+    with st.use_mesh(st.build_mesh(VGG_MESH)):
+        S = from_tensor(s, tiling=st.Tiling(("x", None)))
+        _structure_case(
+            f"shuffle of {m}^2 over (8, 1) tiles, each tile emitted "
+            f"transposed under 'add'",
+            lambda: st.shuffle(S, _shuffle_transposed, target_shape=(m, m),
+                               combiner="add"), sn.T, card)
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1199,6 +1500,7 @@ def main() -> None:
     from spartan_tpu_torch.kernels import exchange as kx
     from spartan_tpu_torch.kernels import histogram as kh
     from spartan_tpu_torch.kernels import segment as ks
+    from spartan_tpu_torch.kernels import stencil as kst
     from spartan_tpu_torch.kernels import topk as kt
     from spartan_tpu_torch.ops import segment as seg
 
@@ -1206,13 +1508,14 @@ def main() -> None:
     card = phase_device()
     dev = torch.device("cuda")
     st.set_default_device(dev)
-    _COUNTED[:] = [ks, kx, kt, kh]
+    _COUNTED[:] = [ks, kx, kt, kh, kst]
     phase_build(build_mod, (kk._load, ks._load, kx._load, kt._load,
-                            kh._load))
+                            kh._load, kst._load))
     max_err = phase_kernel_vs_plain(kk, dev)
     phase_pack_kernel(kx, dev)
     topk_err = phase_topk_kernel(kt, dev)
     hist_err = phase_bincount_kernel(kh, dev)
+    stencil_err = phase_stencil_kernel(kst, dev)
     t0 = time.perf_counter()
     links = pagerank_links(st.SparseDistArray)
     links.transition()._ensure_plan()
@@ -1231,6 +1534,10 @@ def main() -> None:
         sortr = phase_sort(st, kk, kx, keys, card, dev)
         topkr = phase_topk(st, kk, kt, keys, card, dev)
         histr = phase_histogram(st, kk, kh, keys, card, dev)
+    del keys
+    with st.use_mesh(st.build_mesh(VGG_MESH)):
+        vggr = phase_vgg(st, kk, kst, card, dev)
+    phase_structure(st, card, dev)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -1273,7 +1580,14 @@ def main() -> None:
         "launches": histr["launches"], "max_abs_err": hist_err,
         "ms": histr["ms"], "plain_ms": histr["plain_ms"],
         "bound_ms": histr["bound_ms"], "bound_by": histr["bound_by"],
-        "library_ms": histr["library_ms"]}]}))
+        "library_ms": histr["library_ms"]}, {
+        "name": "conv_block", "route": "cuda",
+        "source": "spartan_tpu_torch/csrc/stencil.cu",
+        "replaces": "spartan_tpu/kernels/stencil.py:32",
+        "launches": vggr["launches"], "max_abs_err": stencil_err,
+        "ms": vggr["ms"], "plain_ms": vggr["plain_ms"],
+        "bound_ms": vggr["bound_ms"], "bound_by": vggr["bound_by"],
+        "library_ms": vggr["library_ms"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")
     print(json.dumps({"ok": True, "device": {

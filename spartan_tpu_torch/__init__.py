@@ -29,6 +29,7 @@ from .array.sparse import SparseDistArray  # noqa: E402
 from .array.tiling import Tiling  # noqa: E402
 from .expr import *  # noqa: F401,F403,E402
 from .expr import __all__ as _expr_all  # noqa: E402
+from .ops.stencil import avgpool, maxpool, stencil  # noqa: E402
 from .parallel.mesh import (build_mesh, get_default_device,  # noqa: E402
                             get_mesh, set_default_device, set_mesh,
                             use_mesh)
@@ -39,5 +40,6 @@ __version__ = "0.1.0"
 __all__ = (["DistArray", "SparseDistArray", "TileExtent", "Tiling", "FLAGS",
             "from_reference",
             "build_mesh", "get_mesh", "set_mesh", "use_mesh",
-            "set_default_device", "get_default_device"]
+            "set_default_device", "get_default_device",
+            "stencil", "maxpool", "avgpool"]
            + list(_expr_all))

@@ -21,8 +21,30 @@ from ..parallel import mesh as mesh_mod
 from ..parallel.mesh import DeviceLike, Mesh
 from ..utils import dtypes
 from . import tiling as tiling_mod
+from . import extent as extent_mod
 from .extent import TileExtent
 from .tiling import Tiling
+
+# region-write reducers: the reference's names and numpy functions map to
+# the canonical names assign/write_array and shuffle apply
+REDUCERS = {None: "set", "set": "set", "add": "add", "mul": "multiply",
+            "max": "max", "min": "min"}
+
+
+def _canonical_reducer(reducer: Any) -> str:
+    """Accept the reference's numpy-function reducers as well as names."""
+    if reducer is None:
+        return "set"
+    if isinstance(reducer, str):
+        if reducer not in REDUCERS:
+            raise ValueError(f"unknown reducer {reducer!r}")
+        return reducer
+    for name, fn in (("add", np.add), ("mul", np.multiply),
+                     ("max", np.maximum), ("min", np.minimum)):
+        if reducer is fn:
+            return name
+    raise ValueError(f"unsupported reducer {reducer!r}; use one of "
+                     f"{sorted(k for k in REDUCERS if k)}")
 
 
 class DistArray:
@@ -75,6 +97,13 @@ class DistArray:
     def glom(self) -> np.ndarray:
         """Fetch the whole array to the host."""
         return self.tensor.detach().cpu().numpy()
+
+    def fetch(self, region: Any) -> np.ndarray:
+        """Fetch a rectangular region (a TileExtent or a slice/int index)
+        to the host."""
+        if not isinstance(region, TileExtent):
+            region = extent_mod.from_slice(region, self.shape)
+        return self.tensor[region.to_slice()].detach().cpu().numpy()
 
 
 # -- creation -----------------------------------------------------------

@@ -1,8 +1,11 @@
 """Rectangular tile extents — the port's own copy of the part of
-``spartan_tpu/array/extent.py`` this package uses (numpy path only).
+``spartan_tpu/array/extent.py`` this package uses (the Python path; the
+JAX package's native ctypes twin is not carried).
 
 ``TileExtent(ul, lr, array_shape)`` is a half-open region; ``tile_grid``
-gives the regular grid of extents a tiling induces on a shape. Metadata
+gives the regular grid of extents a tiling induces on a shape;
+``from_slice``, ``intersection`` and the local-offset methods are the
+region algebra of ``assign``/``write_array`` and ``shuffle``. Metadata
 only: the data of an array is one torch tensor whatever its tiles.
 Extents are immutable and hashable.
 """
@@ -11,6 +14,8 @@ from __future__ import annotations
 
 import itertools
 from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 
 Coord = Tuple[int, ...]
 
@@ -71,6 +76,72 @@ class TileExtent:
 
     def to_slice(self) -> Tuple[slice, ...]:
         return tuple(slice(u, l) for u, l in zip(self.ul, self.lr))
+
+    def intersection(self, other: "TileExtent") -> Optional["TileExtent"]:
+        """The overlap of two extents, or None when they do not overlap;
+        the result keeps whichever array_shape is known."""
+        ul = tuple(max(a, b) for a, b in zip(self.ul, other.ul))
+        lr = tuple(min(a, b) for a, b in zip(self.lr, other.lr))
+        if any(u >= l for u, l in zip(ul, lr)):
+            return None
+        shape = self.array_shape if self.array_shape is not None \
+            else other.array_shape
+        return TileExtent(ul, lr, shape)
+
+    def contains(self, other: "TileExtent") -> bool:
+        return (all(a <= b for a, b in zip(self.ul, other.ul))
+                and all(a >= b for a, b in zip(self.lr, other.lr)))
+
+    def offset_from(self, outer: "TileExtent") -> "TileExtent":
+        """``self`` in the local coordinates of ``outer``, which must
+        contain it."""
+        if not outer.contains(self):
+            raise ValueError(f"{self} not inside {outer}")
+        ul = tuple(a - b for a, b in zip(self.ul, outer.ul))
+        lr = tuple(a - b for a, b in zip(self.lr, outer.ul))
+        return TileExtent(ul, lr, outer.shape)
+
+    def offset_slice(self, inner: "TileExtent") -> Tuple[slice, ...]:
+        """The slice selecting ``inner`` out of a buffer shaped like
+        ``self``."""
+        return inner.offset_from(self).to_slice()
+
+
+def from_slice(idx, shape: Sequence[int]) -> TileExtent:
+    """The extent a (tuple of) slice/int selects from ``shape``. Integer
+    indices keep their axis with extent 1; negative indices and open
+    slices are normalized; steps other than 1 are rejected."""
+    shape = tuple(int(s) for s in shape)
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    if len(idx) > len(shape):
+        raise IndexError(f"too many indices {idx} for shape {shape}")
+    idx = idx + (slice(None),) * (len(shape) - len(idx))
+    ul: List[int] = []
+    lr: List[int] = []
+    for i, (ix, dim) in enumerate(zip(idx, shape)):
+        if isinstance(ix, slice):
+            start, stop, step = ix.indices(dim)
+            if step != 1:
+                raise ValueError("strided slices unsupported in extent algebra")
+            ul.append(start)
+            lr.append(max(start, stop))
+        elif isinstance(ix, (int, np.integer)):
+            ii = int(ix)
+            if ii < 0:
+                ii += dim
+            if not 0 <= ii < dim:
+                raise IndexError(f"index {ix} out of bounds for axis {i} "
+                                 f"with size {dim}")
+            ul.append(ii)
+            lr.append(ii + 1)
+        else:
+            raise TypeError(f"unsupported index {ix!r}")
+    return TileExtent(ul, lr, shape)
+
+
+def intersection(a: TileExtent, b: TileExtent) -> Optional[TileExtent]:
+    return a.intersection(b)
 
 
 def compute_splits(dim: int, n: int) -> List[Tuple[int, int]]:

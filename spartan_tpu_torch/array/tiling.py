@@ -46,6 +46,9 @@ class Tiling:
         axis = axis % self.ndim
         return Tiling(self.axes[:axis] + self.axes[axis + 1:])
 
+    def transpose(self, perm: Sequence[int]) -> "Tiling":
+        return Tiling(tuple(self.axes[p] for p in perm))
+
     def with_axis(self, axis: int, mesh_axis: Optional[str]) -> "Tiling":
         axes = list(self.axes)
         axes[axis] = mesh_axis

@@ -6,6 +6,7 @@ from .base import (Expr, ScalarExpr, TupleExpr, ValExpr, as_expr,
                    reset_plan_stats)
 from .builtins import *  # noqa: F401,F403
 from .builtins import __all__ as _builtin_all
+from .assign import WriteExpr, assign, write_array
 from .dot import DotExpr, dot
 from .filter import GatherExpr, filter
 from .loop import LoopExpr, LoopItemExpr, loop
@@ -13,7 +14,11 @@ from .map import MapExpr, map
 from .map2 import Map2Expr, map2
 from .ndarray import CreateExpr, RandomExpr
 from .optimize import dag_nodes, optimize
-from .reduce import ReduceExpr
+from .outer import OuterExpr, outer
+from .reduce import GeneralReduceExpr, ReduceExpr
+from .reshape import (ConcatExpr, ReshapeExpr, TransposeExpr, concatenate,
+                      ravel, reshape, transpose)
+from .shuffle import shuffle
 from .slice import SliceExpr, make_slice
 
 __all__ = ["Expr", "ValExpr", "ScalarExpr", "TupleExpr", "as_expr",
@@ -22,4 +27,7 @@ __all__ = ["Expr", "ValExpr", "ScalarExpr", "TupleExpr", "as_expr",
            "clear_plan_cache", "plan_stats", "reset_plan_stats", "dot",
            "DotExpr", "filter", "GatherExpr", "map2", "Map2Expr", "loop",
            "LoopExpr", "LoopItemExpr", "SliceExpr", "make_slice",
+           "assign", "write_array", "WriteExpr", "outer", "OuterExpr",
+           "GeneralReduceExpr", "shuffle", "transpose", "reshape",
+           "TransposeExpr", "ReshapeExpr", "ConcatExpr",
            ] + [n for n in _builtin_all if n != "dot"]

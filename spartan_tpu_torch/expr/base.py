@@ -91,6 +91,10 @@ class Expr:
         self._shape = tuple(int(s) for s in shape)
         self._dtype = np.dtype(dtype)
         self._result: Any = None
+        # a tiling pinned on this node (the JAX package's auto-tiling
+        # pass sets it; tests and callers pin an axis with it): it
+        # changes out_tiling() and the plan key, never the data
+        self._forced_tiling: Optional[Tiling] = None
         self._site = _user_site()
 
     # -- structure ------------------------------------------------------
@@ -142,7 +146,9 @@ class Expr:
         raise NotImplementedError
 
     def out_tiling(self) -> Tiling:
-        """Tiling of the evaluated result."""
+        """Tiling of the evaluated result (``_forced_tiling`` when set)."""
+        if self._forced_tiling is not None:
+            return self._forced_tiling
         return self._default_tiling()
 
     def _default_tiling(self) -> Tiling:
@@ -301,6 +307,16 @@ class Expr:
 
         return _min(self, axis=axis, keepdims=keepdims)
 
+    def all(self, axis=None, keepdims=False) -> "Expr":
+        from .reduce import all as _all
+
+        return _all(self, axis=axis, keepdims=keepdims)
+
+    def any(self, axis=None, keepdims=False) -> "Expr":
+        from .reduce import any as _any
+
+        return _any(self, axis=axis, keepdims=keepdims)
+
     def argmax(self, axis=None) -> "Expr":
         from .reduce import argmax
 
@@ -320,6 +336,25 @@ class Expr:
         from .dot import dot
 
         return dot(self, other)
+
+    def transpose(self, *axes) -> "Expr":
+        from .reshape import transpose
+
+        return transpose(self, *axes)
+
+    @property
+    def T(self) -> "Expr":
+        return self.transpose()
+
+    def reshape(self, *shape) -> "Expr":
+        from .reshape import reshape
+
+        return reshape(self, *shape)
+
+    def ravel(self) -> "Expr":
+        from .reshape import ravel
+
+        return ravel(self)
 
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(id={self._id}, shape={self._shape}, "
@@ -464,6 +499,8 @@ class _SigCtx:
             # so diamond DAGs don't blow up exponentially
             return ("ref", self._visit[node._id])
         sig = node._sig(self)
+        if node._forced_tiling is not None:
+            sig = sig + ("forced", node._forced_tiling.axes)
         self._visit[node._id] = len(self._memo)
         self._memo[node._id] = sig
         return sig

@@ -2,8 +2,10 @@
 ``spartan_tpu/expr/builtins.py``): creation, elementwise wrappers, the
 reductions and ``dot`` it re-exports, and the sort/select half (sample
 sort, argsort, order statistics, top-k, bincount, histogram, unique,
-prefix scans). The contraction builtins (einsum, tensordot, matmul) and
-the masked-array branches wait for later slices.
+prefix scans), the statistics (var, std, ptp, norm), the matrix shape
+helpers (diag, diagonal, tril, triu, trace) and the contraction builtins
+(einsum, tensordot, matmul, inner, outer_product) over
+``expr/contract.py``. The masked-array branches wait for a later slice.
 """
 
 from __future__ import annotations
@@ -20,13 +22,17 @@ from .local import LocalInput, LocalUfunc
 from .map import MapExpr, build_binop, build_unop, map as map_expr
 from .map2 import map2
 from .ndarray import CreateExpr, RandomExpr, ndarray
-from .reduce import argmax, argmin, max, mean, min, sum
+from .reduce import (all, any, argmax, argmin, max, mean, min, prod,
+                     reduce, sum)
 
 __all__ = [
     "zeros", "ones", "full", "arange", "eye", "identity", "rand", "randn",
-    "astype", "absolute", "abs", "exp", "log", "sqrt", "square", "sign",
-    "sin", "cos", "tan", "tanh", "maximum", "minimum", "where", "clip",
-    "sum", "mean", "max", "min", "argmax", "argmin",
+    "randint", "astype", "absolute", "abs", "exp", "log", "sqrt", "square",
+    "sign", "sin", "cos", "tan", "tanh", "maximum", "minimum", "where",
+    "clip", "sum", "mean", "max", "min", "prod", "all", "any", "argmax",
+    "argmin", "reduce", "norm", "diag", "diagonal", "tril", "triu",
+    "concatenate", "ravel", "var", "std", "ptp", "outer_product", "einsum",
+    "tensordot", "matmul", "trace", "inner",
     "ndarray", "dot", "power", "equal", "from_numpy", "isnan", "isinf",
     "isfinite", "logical_not", "log1p", "expm1", "log2", "log10", "floor",
     "ceil", "rint", "negative", "reciprocal", "add", "subtract",
@@ -76,6 +82,13 @@ def rand(*shape, seed=None, tile_hint=None, tiling=None) -> Expr:
 
 def randn(*shape, seed=None, tile_hint=None, tiling=None) -> Expr:
     return RandomExpr(shape, "normal", seed, np.float32, tiling, tile_hint)
+
+
+def randint(*shape, low=0, high=10, seed=None, tile_hint=None) -> Expr:
+    """int32 uniform in [low, high) from a seeded ``torch.Generator``."""
+    e = RandomExpr(shape, "randint", seed, np.int32, None, tile_hint)
+    e.params_range = (int(low), int(high))
+    return e
 
 
 def from_numpy(arr, tiling=None, tile_hint=None, device=None) -> Expr:
@@ -169,6 +182,242 @@ def dot(a, b, precision=None) -> Expr:
     from .dot import dot as _dot
 
     return _dot(a, b, precision=precision)
+
+
+# -- shape-flavoured / misc builtins -----------------------------------------
+
+
+def ravel(x) -> Expr:
+    from .reshape import ravel as _ravel
+
+    return _ravel(x)
+
+
+def concatenate(arrays, axis=0) -> Expr:
+    from .reshape import concatenate as _concat
+
+    return _concat(arrays, axis)
+
+
+def norm(x, ord=2) -> Expr:
+    x = as_expr(x)
+    if ord == 2:
+        return sqrt(sum(x * x))
+    if ord == 1:
+        return sum(absolute(x))
+    raise ValueError(f"unsupported norm order {ord}")
+
+
+def diag(x) -> Expr:
+    """1-D -> diagonal matrix; 2-D -> its diagonal (NumPy semantics)."""
+    x = as_expr(x)
+    if x.ndim == 1:
+        return map_expr(torch.diag, x)
+    if x.ndim == 2:
+        return diagonal(x)
+    raise ValueError("diag requires 1-D or 2-D input")
+
+
+def diagonal(x) -> Expr:
+    x = as_expr(x)
+    if x.ndim != 2:
+        raise ValueError("diagonal requires a 2-D input")
+    return map_expr(lambda v: torch.diagonal(v).clone(), x)
+
+
+def tril(x, k=0) -> Expr:
+    return map_expr(lambda v: torch.tril(v, k), as_expr(x))
+
+
+def triu(x, k=0) -> Expr:
+    return map_expr(lambda v: torch.triu(v, k), as_expr(x))
+
+
+def var(x, axis=None, ddof: int = 0, keepdims: bool = False) -> Expr:
+    """Variance in two passes: the mean, then the mean squared
+    deviation."""
+    x = as_expr(x)
+    m = mean(x, axis=axis, keepdims=True)
+    d = x - m
+    n = x.size if axis is None else _axis_count(x.shape, axis)
+    return sum(d * d, axis=axis, keepdims=keepdims) / float(n - ddof)
+
+
+def std(x, axis=None, ddof: int = 0, keepdims: bool = False) -> Expr:
+    return sqrt(var(x, axis=axis, ddof=ddof, keepdims=keepdims))
+
+
+def ptp(x, axis=None) -> Expr:
+    return max(x, axis=axis) - min(x, axis=axis)
+
+
+def _axis_count(shape, axis) -> int:
+    if isinstance(axis, (int, np.integer)):
+        axis = (int(axis),)
+    n = 1
+    for a in axis:
+        n *= shape[a % len(shape)]
+    return n
+
+
+# -- contractions --------------------------------------------------------------
+
+
+def _promoted(*xs):
+    """The operands in their common torch dtype (``jnp``'s promotion for
+    the dtypes this package stores)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return [x.to(dt) for x in xs]
+
+
+def _einsum_whole(*xs, subscripts):
+    return torch.einsum(subscripts, *_promoted(*xs))
+
+
+def einsum(subscripts: str, *operands, precision=None) -> Expr:
+    """NumPy-style einsum over lazy operands. Two-operand contractions
+    (ellipsis batching included) are one ``ContractExpr``; three or more
+    operands become a chain of them along ``np.einsum_path``'s greedy
+    order. Specs outside that family (diagonals, broadcasting ellipses,
+    single-operand reductions) run one ``torch.einsum`` over the whole
+    operands."""
+    from .contract import contract, contract_chain, parse_einsum
+
+    exprs = [as_expr(o) for o in operands]
+    parsed = parse_einsum(subscripts, tuple(e.ndim for e in exprs))
+    if parsed is not None:
+        per_op, out_labels = parsed
+        if len(exprs) == 2:
+            e = contract(exprs[0], exprs[1], per_op[0], per_op[1],
+                         out_labels, precision=precision)
+            if e is not None:
+                return e
+        elif len(exprs) > 2:
+            e = contract_chain(exprs, per_op, out_labels,
+                               precision=precision)
+            if e is not None:
+                return e
+    return map2(exprs, _einsum_whole, fn_kw={"subscripts": subscripts})
+
+
+def _tensordot_whole(x, y, axes):
+    return torch.tensordot(*_promoted(x, y), dims=axes)
+
+
+def tensordot(a, b, axes=2) -> Expr:
+    """NumPy ``tensordot`` as a contraction: the free axes of ``a``, then
+    those of ``b``; contracted pairs share labels."""
+    from .contract import _CANON, contract
+
+    a, b = as_expr(a), as_expr(b)
+    if isinstance(axes, (list, tuple)):
+        ax0, ax1 = axes
+
+        def _norm(xs, nd):
+            out = []
+            for x in np.atleast_1d(xs):
+                x = int(x)
+                if not -nd <= x < nd:
+                    raise ValueError(
+                        f"tensordot axis {x} out of range for ndim {nd}")
+                out.append(x % nd)
+            return tuple(out)
+
+        ax_a = _norm(ax0, a.ndim)
+        ax_b = _norm(ax1, b.ndim)
+        if len(ax_a) != len(ax_b):
+            raise ValueError(
+                f"tensordot axes lists differ in length: "
+                f"{len(ax_a)} vs {len(ax_b)}")
+    else:
+        k = int(axes)
+        if k > a.ndim or k > b.ndim:
+            raise ValueError(
+                f"tensordot axes={k} exceeds operand ranks "
+                f"{a.ndim} and {b.ndim}")
+        ax_a = tuple(range(a.ndim - k, a.ndim))
+        ax_b = tuple(range(k))
+    la = [_CANON[i] for i in range(a.ndim)]
+    lb = [_CANON[a.ndim + i] for i in range(b.ndim)]
+    for i, j in zip(ax_a, ax_b):
+        lb[j] = la[i]
+    out = tuple(la[i] for i in range(a.ndim) if i not in ax_a) + \
+        tuple(lb[j] for j in range(b.ndim) if j not in ax_b)
+    e = contract(a, b, tuple(la), tuple(lb), out)
+    if e is not None:
+        return e
+    return map2([a, b], _tensordot_whole,
+                fn_kw={"axes": (list(ax_a), list(ax_b))})
+
+
+def _matmul_whole(x, y):
+    return torch.matmul(*_promoted(x, y))
+
+
+def matmul(a, b, precision=None) -> Expr:
+    """``a @ b``: 1-D/2-D operands are a ``DotExpr``; batched operands a
+    batched contraction (``torch.matmul`` over the whole operands when
+    the batch axes broadcast)."""
+    from .contract import _CANON, contract
+    from .dot import dot as dot_expr
+
+    a, b = as_expr(a), as_expr(b)
+    if a.ndim <= 2 and b.ndim <= 2:
+        return dot_expr(a, b, precision=precision)
+    e = None
+    if a.ndim >= 2 and b.ndim >= 2:
+        nb = (a.ndim if a.ndim >= b.ndim else b.ndim) - 2
+        batch = [_CANON[i] for i in range(nb)]
+        la = tuple(batch[nb - (a.ndim - 2):]) + (_CANON[nb], _CANON[nb + 1])
+        lb = tuple(batch[nb - (b.ndim - 2):]) + (_CANON[nb + 1],
+                                                 _CANON[nb + 2])
+        out = tuple(batch) + (_CANON[nb], _CANON[nb + 2])
+        e = contract(a, b, la, lb, out, precision=precision)
+    if e is not None:
+        return e
+    return map2([a, b], _matmul_whole)
+
+
+def _trace(v, offset):
+    d = torch.diagonal(v, offset, 0, 1)
+    if d.dtype.is_floating_point or d.dtype.is_complex:
+        return d.sum(-1)
+    return d.sum(-1, dtype=torch.int32)
+
+
+def trace(x, offset: int = 0) -> Expr:
+    return map2([as_expr(x)], _trace, fn_kw={"offset": offset})
+
+
+def _inner_whole(x, y):
+    return torch.inner(*_promoted(x, y))
+
+
+def inner(a, b) -> Expr:
+    """NumPy ``inner``: 1-D operands are a dot; otherwise the last-axis
+    contraction."""
+    from .contract import _CANON, contract
+
+    a, b = as_expr(a), as_expr(b)
+    if a.ndim == 1 and b.ndim == 1:
+        return dot(a, b)
+    if a.ndim >= 1 and b.ndim >= 1:
+        la = tuple(_CANON[i] for i in range(a.ndim - 1)) + ("z",)
+        lb = tuple(_CANON[a.ndim - 1 + i]
+                   for i in range(b.ndim - 1)) + ("z",)
+        e = contract(a, b, la, lb, la[:-1] + lb[:-1])
+        if e is not None:
+            return e
+    return map2([a, b], _inner_whole)
+
+
+def outer_product(a, b) -> Expr:
+    """NumPy ``np.outer``: the flattened outer product (not the tile-pair
+    ``outer`` of ``expr/outer.py``)."""
+    return map_expr(lambda u, v: u.reshape(-1)[:, None]
+                    * v.reshape(-1)[None, :], as_expr(a), as_expr(b))
 
 
 # -- counting -------------------------------------------------------------
@@ -689,7 +938,7 @@ def unique(x, size: int, fill_value=0.0, return_counts: bool = False):
     if size <= 0:
         raise ValueError(f"unique needs size >= 1, got {size}")
     if x.ndim != 1:
-        x = map_expr(lambda v: v.reshape(-1), x)
+        x = ravel(x)
     if x.size == 0:
         vals = full((size,), fill_value, x.dtype)
         if not return_counts:

@@ -103,6 +103,8 @@ class RandomExpr(Expr):
             RandomExpr._counter[0] += 1
             seed = RandomExpr._counter[0]
         self.seed = int(seed)
+        # [low, high) of a randint fill
+        self.params_range: Tuple[int, int] = (0, 0)
         if tiling is None and tile_hint is not None:
             tiling = tiling_mod.from_tile_hint(shape, tile_hint)
         self._tiling = tiling
@@ -124,11 +126,15 @@ class RandomExpr(Expr):
         if self.kind == "normal":
             return torch.randn(self.shape, generator=gen, dtype=dt,
                                device=dev)
+        if self.kind == "randint":
+            lo, hi = self.params_range
+            return torch.randint(lo, hi, self.shape, generator=gen,
+                                 dtype=dt, device=dev)
         raise ValueError(f"unknown random kind {self.kind!r}")
 
     def _sig(self, ctx) -> Tuple:
         return ("random", self.kind, self.seed, self._shape,
-                str(self._dtype))
+                str(self._dtype), self.params_range)
 
     def _default_tiling(self) -> Tiling:
         if self._tiling is not None:

@@ -2,14 +2,16 @@
 
 ``ReduceExpr`` reduces over axes, optionally through a fused pre-reduce
 elementwise tree (what the reduce-map fusion pass builds). Dtypes follow
-the JAX package: integer and bool sums stay int32, means of integers
-are float32, and argmin/argmax give int32 with the first index winning
-ties.
+the JAX package: integer and bool sums and products stay int32, means of
+integers are float32, all/any give bool, and argmin/argmax give int32
+with the first index winning ties. ``GeneralReduceExpr`` is the
+reference's user reduction: a torch ``local_reduce_fn(block, axis=...)``
+applied to the whole tensor.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -17,12 +19,13 @@ import torch
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
 from ..utils import dtypes
-from .base import Expr, as_expr, eval_shape_of
+from .base import Expr, as_expr, eval_shape_of, fn_key
 from .local import LocalExpr, LocalInput
 
 Axis = Union[None, int, Tuple[int, ...]]
 
-REDUCE_OPS = ("sum", "max", "min", "mean", "argmax", "argmin")
+REDUCE_OPS = ("sum", "prod", "max", "min", "mean", "all", "any",
+              "argmax", "argmin")
 _NO_KEEPDIMS = ("argmax", "argmin")
 
 
@@ -51,6 +54,14 @@ def reduce_tensor(op: str, x: torch.Tensor, axis: Optional[Tuple[int, ...]],
     if op == "sum":
         return torch.sum(x, dim=dims, keepdim=keepdims,
                          dtype=torch.int32 if integral else None)
+    if op == "prod":
+        out = x.to(torch.int32) if integral else x
+        for d in sorted(dims, reverse=True):
+            out = torch.prod(out, dim=d, keepdim=keepdims)
+        return out.to(torch.int32) if integral else out
+    if op in ("all", "any"):
+        fn = torch.all if op == "all" else torch.any
+        return fn(x.to(torch.bool), dim=dims, keepdim=keepdims)
     if op == "mean":
         if integral:
             x = x.to(torch.float32)
@@ -163,7 +174,67 @@ def _make(op: str):
     return builder
 
 
+class GeneralReduceExpr(Expr):
+    """User reduction: the reference's ``ReduceExpr(input, axis,
+    dtype_fn, local_reduce_fn, accumulate_fn)``. ``local_reduce_fn(block,
+    axis=...)`` is torch code, associative with ``accumulate_fn`` as its
+    combiner; on one device it is applied to the whole tensor, which for
+    an associative reducer equals per-tile reduces merged."""
+
+    def __init__(self, input: Expr, axis: Axis,
+                 local_reduce_fn: Callable,
+                 accumulate_fn: Optional[Callable] = None,
+                 dtype: Any = None):
+        self.input = input
+        self.axis = _norm_axis(axis, input.ndim)
+        self.local_reduce_fn = local_reduce_fn
+        self.accumulate_fn = accumulate_fn
+        out = eval_shape_of(lambda x: local_reduce_fn(x, axis=self._ax()),
+                            input)
+        super().__init__(out.shape, out.dtype if dtype is None else dtype)
+
+    def _ax(self):
+        return self.axis if self.axis is None or len(self.axis) > 1 \
+            else self.axis[0]
+
+    def children(self) -> Tuple[Expr, ...]:
+        return (self.input,)
+
+    def replace_children(self, new_children: Tuple[Expr, ...]
+                         ) -> "GeneralReduceExpr":
+        return GeneralReduceExpr(new_children[0], self.axis,
+                                 self.local_reduce_fn, self.accumulate_fn,
+                                 self.dtype)
+
+    def _lower(self, env: Dict[int, Any]) -> Any:
+        out = self.local_reduce_fn(self.input.lower(env), axis=self._ax())
+        want = dtypes.to_torch(self.dtype)
+        return out if out.dtype == want else out.to(want)
+
+    def _sig(self, ctx) -> Tuple:
+        return ("greduce", fn_key(self.local_reduce_fn),
+                fn_key(self.accumulate_fn) if self.accumulate_fn else None,
+                self.axis, str(self.dtype), ctx.of(self.input))
+
+    def _default_tiling(self) -> Tiling:
+        t = self.input.out_tiling()
+        if self.axis is None:
+            return tiling_mod.replicated(self.ndim)
+        for a in reversed(self.axis):
+            t = t.drop_axis(a)
+        return t
+
+
+def reduce(input: Any, axis: Axis = None, *,
+           local_reduce_fn: Callable,
+           accumulate_fn: Optional[Callable] = None,
+           dtype: Any = None) -> GeneralReduceExpr:
+    return GeneralReduceExpr(as_expr(input), axis, local_reduce_fn,
+                             accumulate_fn, dtype)
+
+
 sum = _make("sum")
+prod = _make("prod")
 mean = _make("mean")
 
 
@@ -173,6 +244,14 @@ def max(input: Any, axis: Axis = None, keepdims: bool = False) -> ReduceExpr:
 
 def min(input: Any, axis: Axis = None, keepdims: bool = False) -> ReduceExpr:
     return ReduceExpr(as_expr(input), "min", axis, keepdims)
+
+
+def all(input: Any, axis: Axis = None, keepdims: bool = False) -> ReduceExpr:
+    return ReduceExpr(as_expr(input), "all", axis, keepdims)
+
+
+def any(input: Any, axis: Axis = None, keepdims: bool = False) -> ReduceExpr:
+    return ReduceExpr(as_expr(input), "any", axis, keepdims)
 
 
 def argmax(input: Any, axis: Axis = None) -> ReduceExpr:

@@ -242,9 +242,55 @@ def _sel_exchange(shape, dtype, tiling, mesh, params) -> Selection:
     return Selection(op, "native", "selected")
 
 
+def _sel_stencil(shape, dtype, tiling, mesh, params) -> Selection:
+    """The JAX package's ``_sel_stencil``, its working-set budget
+    included (the VGG-16 widths stay far inside it), then the CUDA
+    kernel's own limits."""
+    op = "stencil"
+    if len(shape) != 4:
+        return _fallback(op, "only NHWC operands")
+    if np.dtype(dtype) != np.float32:
+        return _fallback(op, f"dtype {np.dtype(dtype)} != float32")
+    if tuple(params.get("stride", (1, 1))) != (1, 1):
+        return _fallback(op, "only stride 1 (strided shards misalign "
+                             "with the halo rule)")
+    if params.get("padding", "SAME") != "SAME":
+        return _fallback(op, "only SAME padding (halo ppermute zeros "
+                             "match SAME's zero pad)")
+    h_axis = tiling.axes[1]
+    if not isinstance(h_axis, str) or int(mesh.shape.get(h_axis, 1)) < 2:
+        return _fallback(op, "H axis not mesh-sharded: GSPMD needs no "
+                             "halo exchange here")
+    if any(a is not None for a in (tiling.axes[2], tiling.axes[3])):
+        return _fallback(op, "W/C axes must be unsharded")
+    p = int(mesh.shape[h_axis])
+    n, h, w, c = shape
+    if h % p:
+        return _fallback(op, f"H {h} not divisible by {p} shards")
+    kh, kw = (int(k) for k in params["kshape"])
+    o = int(params["out_channels"])
+    hs = h // p
+    if hs < kh:
+        return _fallback(op, f"shard H {hs} smaller than filter {kh}")
+    # the JAX package's derive() over one image's (H, W, C): nonempty
+    if w == 0 or c == 0:
+        return _fallback(op, "empty operand")
+    wp = w + kw - 1
+    need = 4 * ((hs + kh - 1) * wp * c + kh * kw * c * o)
+    if need > VMEM_BUDGET:
+        return _fallback(op, f"per-image working set {need}B > VMEM "
+                             f"budget {VMEM_BUDGET}B")
+    from . import stencil as stencil_kernel
+
+    why = stencil_kernel.cuda_limits(kh, kw, c, o, n * p)
+    if why:
+        return _fallback(op, why)
+    return Selection(op, "native", "selected")
+
+
 _CHECKS = {"kmeans": _sel_kmeans, "segment_sum": _sel_segment,
            "bincount": _sel_bincount, "topk": _sel_topk,
-           "sort_exchange": _sel_exchange}
+           "sort_exchange": _sel_exchange, "stencil": _sel_stencil}
 
 
 def select(op: str, shape, dtype, tiling: Optional[tiling_mod.Tiling],
@@ -291,4 +337,9 @@ def node_selection(node: Any) -> Optional[Selection]:
         m = -(-n // p) if p else n
         return select("sort_exchange", (n,), node.x.dtype, moved, mesh,
                       p=p, m=m)
+    if name == "StencilExpr":
+        return select("stencil", node.x.shape, node.x.dtype,
+                      node.x.out_tiling(), mesh, stride=node.stride,
+                      padding=node.padding, kshape=node.w.shape[:2],
+                      out_channels=node.w.shape[3])
     return None

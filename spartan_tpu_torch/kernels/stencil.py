@@ -1,0 +1,185 @@
+"""Halo-exchange stencil: the hand-written CUDA conv kernel and its plain
+version (port of ``spartan_tpu/kernels/stencil.py``).
+
+:func:`halo_stencil` is the SAME-padded stride-1 NHWC convolution of an
+operand whose H axis is tiled over ``p`` logical shards, with the JAX
+program's structure: :func:`halo_exchange` builds each shard's block from
+its own rows and its neighbours' boundary rows (zeros above shard 0 and
+below shard p-1, as the ppermute delivers them, and SAME's zero columns
+on W), then :func:`conv_block` convolves every shard's block VALID.
+
+On CUDA tensors :func:`conv_block` launches ``spartan_tpu_torch/csrc/
+stencil.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, bound
+through ``ctypes``), one launch for all shards' blocks, writing the
+unsharded ``(N, H, W, O)`` result directly; on CPU tensors it runs
+:func:`conv_block_plain`, the TPU kernel's formulation (KH*KW shifted
+slices, each a ``(rows, C) @ (C, O)`` product in f32); any other device
+raises. The halo copy is where a multi-card mesh would send and receive
+the boundary rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..parallel import mesh as mesh_mod
+from . import build as build_mod
+
+# Kernel launches so far: the wrapper adds one where it launches the CUDA
+# kernel and nowhere else (the plain version does not count).
+LAUNCHES: Dict[str, int] = {"conv_block": 0}
+
+# the kernel's CTA tile (csrc/stencil.cu): output rows, columns, channels
+_TH, _TW, _TO = 8, 32, 64
+_MAX_GRID_YZ = 65535
+
+
+def _same_pad(k: int) -> Tuple[int, int]:
+    """XLA SAME padding split for stride 1: total k-1, low half first."""
+    lo = (k - 1) // 2
+    return lo, k - 1 - lo
+
+
+def _chunk(c: int) -> int:
+    """Input channels the kernel stages per step (its template CK)."""
+    return 4 if c <= 4 else 8
+
+
+def cuda_limits(kh: int, kw: int, c: int, o: int, blocks: int) -> str:
+    """Why the kernel cannot convolve ``blocks`` blocks of ``c`` channels
+    with a (kh, kw, c, o) filter, or "" when it can: one chunk's filter
+    taps and input tile must fit a block's shared memory, and the blocks
+    and output-channel tiles must fit the launch grid."""
+    ck = _chunk(c)
+    smem = 4 * (kh * kw * ck * _TO + ck * (_TH + kh - 1) * (_TW + kw - 1))
+    if smem > build_mod.SMEM_PER_BLOCK:
+        return (f"a {kh}x{kw} filter needs {smem}B of shared memory > "
+                f"{build_mod.SMEM_PER_BLOCK}B per block")
+    if blocks > _MAX_GRID_YZ:
+        return f"{blocks} shard blocks > {_MAX_GRID_YZ} (grid z)"
+    if -(-o // _TO) > _MAX_GRID_YZ:
+        return f"{o} output channels > {_MAX_GRID_YZ * _TO} (grid y)"
+    return ""
+
+
+def conv_block_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's body in torch: VALID conv of ``x`` (B, Hp, Wp, C)
+    with ``w`` (KH, KW, C, O) as KH*KW shifted-slice ``(rows, C) @ (C, O)``
+    products summed in f32. Returns (B, Hp-KH+1, Wp-KW+1, O); halo blocks
+    (p, N, Hp, Wp, C) give :func:`conv_block`'s unsharded layout."""
+    if x.ndim == 5:
+        p, n = x.shape[:2]
+        out = conv_block_plain(x.reshape(p * n, *x.shape[2:]), w)
+        ho, wo, o = out.shape[1:]
+        return out.reshape(p, n, ho, wo, o).transpose(0, 1).reshape(
+            n, p * ho, wo, o)
+    b, hp, wp, c = x.shape
+    kh, kw, _, o = w.shape
+    ho, wo = hp - kh + 1, wp - kw + 1
+    acc = torch.zeros((b * ho * wo, o), dtype=torch.float32, device=x.device)
+    for dh in range(kh):
+        for dw in range(kw):
+            patch = x[:, dh:dh + ho, dw:dw + wo, :].reshape(-1, c)
+            acc += patch @ w[dh, dw]
+    return acc.reshape(b, ho, wo, o)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.spartan_conv_block.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
+    lib.spartan_conv_block.restype = i32
+
+
+def _load() -> ctypes.CDLL:
+    """``csrc/stencil.cu``, built with nvcc for sm_90a at first use."""
+    return build_mod.load("stencil", _bind)
+
+
+def _launch(x5: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    p, n, hp, wp, c = x5.shape
+    kh, kw, _, o = w.shape
+    why = cuda_limits(kh, kw, c, o, p * n)
+    if why:
+        raise ValueError(f"conv_block kernel cannot take this input: {why}")
+    dev = x5.device
+    out = torch.empty((n, p * (hp - kh + 1), wp - kw + 1, o),
+                      dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.spartan_conv_block(x5.data_ptr(), w.data_ptr(),
+                                     out.data_ptr(), p * n, n, hp, wp, c,
+                                     kh, kw, o, stream)
+    build_mod.check(err, "conv_block kernel launch")
+    LAUNCHES["conv_block"] += 1
+    return out
+
+
+def conv_block(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """VALID f32 conv of ``x`` with ``w`` (KH, KW, C, O): for ``x``
+    (B, Hp, Wp, C) the result is (B, Hp-KH+1, Wp-KW+1, O); for the p
+    shards' halo blocks (p, N, Hp, Wp, C) of :func:`halo_exchange` it is
+    the unsharded (N, p*(Hp-KH+1), Wp-KW+1, O). One kernel launch on a
+    CUDA tensor; the plain version on a CPU tensor."""
+    if x.ndim not in (4, 5) or w.ndim != 4:
+        raise ValueError(f"conv_block takes x (B, Hp, Wp, C) or (p, N, Hp, "
+                         f"Wp, C) and w (KH, KW, C, O); got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"conv_block is float32 only, got {x.dtype} and "
+                        f"{w.dtype}")
+    kh, kw, c, _ = w.shape
+    if x.shape[-1] != c or x.shape[-3] < kh or x.shape[-2] < kw:
+        raise ValueError(f"conv_block: x {tuple(x.shape)} does not fit the "
+                         f"filter {tuple(w.shape)}")
+    if build_mod.on_card(x, "conv_block"):
+        x5 = x if x.ndim == 5 else x.unsqueeze(0)
+        return _launch(x5.contiguous(), w.contiguous())
+    return conv_block_plain(x, w)
+
+
+def halo_exchange(x: torch.Tensor, kh: int, kw: int, p: int) -> torch.Tensor:
+    """Each of the ``p`` H-shards' SAME-padded blocks of ``x`` (N, H, W, C):
+    (p, N, H/p + KH-1, W + KW-1, C). Shard s's block holds the previous
+    shard's last ``lo`` rows, its own H/p rows and the next shard's first
+    ``hi`` rows (zeros beyond the first and last shard), between ``wlo``
+    and ``whi`` zero columns, where (lo, hi) and (wlo, whi) are XLA's SAME
+    split of KH-1 and KW-1 (the extra row or column goes high)."""
+    n, h, w, c = x.shape
+    if h % p:
+        raise ValueError(f"H {h} does not split into {p} shards")
+    hs = h // p
+    hlo, hhi = _same_pad(kh)
+    wlo, whi = _same_pad(kw)
+    if hs < max(hlo, hhi):
+        raise ValueError(f"shard H {hs} cannot supply a {kh}-row halo")
+    out = torch.empty((p, n, hs + kh - 1, w + kw - 1, c), dtype=x.dtype,
+                      device=x.device)
+    out[..., :wlo, :] = 0
+    out[..., wlo + w:, :] = 0
+    out[0, :, :hlo] = 0
+    out[p - 1, :, hlo + hs:] = 0
+    for s in range(p):
+        lo = max(s * hs - hlo, 0)
+        hi = min(s * hs + hs + hhi, h)
+        top = lo - (s * hs - hlo)
+        out[s, :, top:top + hi - lo, wlo:wlo + w] = x[:, lo:hi]
+    return out
+
+
+def halo_stencil(x: torch.Tensor, w: torch.Tensor, tiling,
+                 mesh: Optional[mesh_mod.Mesh] = None) -> torch.Tensor:
+    """SAME-padded stride-1 NHWC conv of ``x`` (N, H, W, C) with ``w``
+    (KH, KW, C, O), H tiled over ``tiling.axes[1]``: the halo exchange
+    feeding one :func:`conv_block` over all shards. Returns (N, H, W, O)
+    f32."""
+    mesh = mesh or mesh_mod.get_mesh()
+    p = int(mesh.shape[tiling.axes[1]])
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    blocks = halo_exchange(x, kh, kw, p)
+    return conv_block(blocks, w.to(torch.float32))

@@ -325,3 +325,139 @@ def test_sort_topk_histogram_builtins_on_the_card(card):
     oracle = torch.sort(x.double(), descending=True, stable=True).indices
     np.testing.assert_array_equal(top, oracle[:100].cpu().numpy())
     assert counts.sum() == x.numel() and counts.dtype == np.int32
+
+
+# -- stencil kernel (csrc/stencil.cu) ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hs,w,c,o,kh,kw,p", [
+    (3, 2, 17, 3, 10, 2, 2, 2), (3, 2, 17, 3, 10, 2, 2, 8),
+    (2, 5, 17, 3, 10, 5, 5, 2), (2, 5, 17, 3, 10, 5, 5, 8),
+    (2, 5, 33, 13, 70, 3, 3, 8), (4, 28, 224, 64, 64, 3, 3, 8),
+    (1, 9, 1, 4, 1, 3, 1, 1), (2, 8, 40, 200, 130, 1, 3, 3)])
+def test_conv_block_matches_plain(card, n, hs, w, c, o, kh, kw, p):
+    from spartan_tpu_torch.kernels import stencil as kst
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(n * hs + w)
+    x = torch.randn((n, hs * p, w, c), generator=gen, device=card)
+    wt = torch.randn((kh, kw, c, o), generator=gen, device=card)
+    blocks = kst.halo_exchange(x, kh, kw, p)
+    before = kst.LAUNCHES["conv_block"]
+    out = kst.conv_block(blocks, wt)
+    torch.cuda.synchronize()
+    assert kst.LAUNCHES["conv_block"] == before + 1
+    ref = kst.conv_block_plain(blocks, wt)
+    assert out.shape == ref.shape == (n, hs * p, w, o)
+    # K = kh*kw*c products summed in f32 in two orders
+    mag = kst.conv_block_plain(blocks.abs(), wt.abs()).max().item()
+    tol = 2 * kh * kw * c * 2.0 ** -24 * mag
+    assert (out - ref).abs().max().item() <= tol
+    assert torch.equal(kst.conv_block(blocks, wt), out)  # deterministic
+    # a 4-D batch of blocks gives the per-block results
+    flat = blocks.reshape(p * n, *blocks.shape[2:])
+    one = kst.conv_block(flat, wt)
+    assert one.shape == (p * n, hs, w, o)
+    assert torch.equal(one.reshape(p, n, hs, w, o).transpose(0, 1).reshape(
+        n, p * hs, w, o), out)
+
+
+@pytest.mark.cuda
+def test_stencil_launches_twice_per_vgg_forward(card):
+    """conv, bias+ReLU, conv, bias+ReLU, maxpool under a logical (8, 1)
+    mesh with H tiled: the H tiling carries through the map, so both
+    convolutions launch the kernel; the result matches float64."""
+    import torch.nn.functional as F
+
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.kernels import stencil as kst
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    x = torch.randn((2, 32, 32, 3), generator=gen, device=card)
+    params = [(torch.randn((3, 3, ci, co), generator=gen, device=card)
+               * (2.0 / (9 * ci)) ** 0.5,
+               0.01 * torch.randn((co,), generator=gen, device=card))
+              for ci, co in ((3, 16), (16, 16))]
+    with st.use_mesh(st.build_mesh((8, 1), device=card)):
+        h = from_tensor(x, tiling=st.Tiling((None, "x", None, None)))
+        for w, b in params:
+            h = st.maximum(st.stencil(h, from_tensor(w)) + from_tensor(b),
+                           0.0)
+        before = kst.LAUNCHES["conv_block"]
+        out = st.maxpool(h, 2).evaluate().tensor
+        assert kst.LAUNCHES["conv_block"] == before + 2
+    ref = x.double().permute(0, 3, 1, 2)
+    for w, b in params:
+        ref = F.conv2d(ref, w.double().permute(3, 2, 0, 1), b.double(),
+                       padding=1).clamp_min(0.0)
+    ref = F.max_pool2d(ref, 2).permute(0, 2, 3, 1)
+    err = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+    assert err <= 1e-5
+
+
+def _tf32(t):
+    """``t`` rounded to TF32 (10 mantissa bits), toward zero."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.cuda
+def test_stencil_paths_stay_off_tf32(card):
+    """Both stencil paths hold float64 to 1e-5 relative on inputs where
+    rounding the operands to TF32 alone moves the result by more than
+    that, so a path that rounded through TF32 would fail here."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.ops.stencil import conv_nhwc
+
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    gen = torch.Generator(device=card)
+    gen.manual_seed(6)
+    # values just above 1 with mantissa bits below TF32's last one set
+    x = 1.0 + torch.rand((4, 32, 32, 64), generator=gen, device=card) * 1e-3
+    w = 1.0 + torch.rand((3, 3, 64, 32), generator=gen, device=card) * 1e-3
+    ref = conv_nhwc(x.double(), w.double(), (1, 1), "SAME")
+    scale = ref.abs().max().item()
+    rounded = conv_nhwc(_tf32(x).double(), _tf32(w).double(), (1, 1),
+                        "SAME")
+    assert (rounded - ref).abs().max().item() / scale > 1e-5
+    for mode in ("auto", "off"):
+        prev = st.FLAGS.native_kernels
+        st.FLAGS.native_kernels = mode
+        try:
+            with st.use_mesh(st.build_mesh((8, 1), device=card)):
+                X = from_tensor(x, tiling=st.Tiling((None, "x", None, None)))
+                out = st.stencil(X, from_tensor(w)).evaluate().tensor
+        finally:
+            st.FLAGS.native_kernels = prev
+        assert (out.double() - ref).abs().max().item() / scale <= 1e-5
+
+
+@pytest.mark.cuda
+def test_stencil_kernel_never_falls_back(card, monkeypatch, tmp_path):
+    """A filter the kernel cannot take, and a kernel that cannot be
+    built, raise on the card: neither quietly runs the plain version or
+    F.conv2d."""
+    from spartan_tpu_torch.kernels import build as build_mod
+    from spartan_tpu_torch.kernels import stencil as kst
+
+    x = torch.zeros((1, 2, 40, 40, 8), device=card)
+    before = kst.LAUNCHES["conv_block"]
+    with pytest.raises(ValueError, match="cannot take"):
+        kst.conv_block(x, torch.zeros((15, 15, 8, 64), device=card))
+    with pytest.raises(TypeError, match="float32"):
+        kst.conv_block(x.double(), torch.zeros((3, 3, 8, 4), device=card,
+                                               dtype=torch.float64))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build_mod, "_libs", {})
+    monkeypatch.setattr(build_mod, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build_mod, "_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kst.conv_block(x, torch.zeros((3, 3, 8, 4), device=card))
+    assert kst.LAUNCHES["conv_block"] == before
