@@ -54,10 +54,10 @@ import numpy as np
 import torch
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# FP32 outside the tensor cores and HBM bandwidth.
+# FP32 outside the tensor cores, HBM bandwidth, TF32 on the tensor cores.
 _PEAKS = {
-    "H100 PCIe": (51e12, 2.0e12),
-    "H100": (67e12, 3.35e12),  # SXM
+    "H100 PCIe": (51e12, 2.0e12, 378e12),
+    "H100": (67e12, 3.35e12, 495e12),  # SXM
 }
 
 KM_N, KM_D, KM_K, KM_ITERS = 1_000_000, 128, 64, 20
@@ -81,11 +81,21 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _peaks(name: str):
+def _peak_row(name: str):
     for key, peaks in _PEAKS.items():
         if key in name:
             return peaks
     _fail(f"no published peaks for {name!r}")
+
+
+def _peaks(name: str):
+    """FP32 FLOP/s and HBM bytes/s of the card."""
+    return _peak_row(name)[:2]
+
+
+def _tf32_peak(name: str) -> float:
+    """Dense TF32 FLOP/s of the card's tensor cores."""
+    return _peak_row(name)[2]
 
 
 def _event_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -138,6 +148,9 @@ def phase_build(build_mod, libs) -> None:
             if "registers" in line or "spill" in line \
                     or "Compiling entry" in line:
                 _say(f"[build] {name}: {line.strip()}")
+    _say("[build] stencil routes: C <= 4 -> conv_kernel (SIMT, FP32 FMAs); "
+         "C > 4 -> conv_mma_kernel<S> (3xTF32 mma.sync, S cp.async "
+         "staging slots, 2 where they fit)")
 
 
 # -- phase 3 ------------------------------------------------------------
@@ -1194,21 +1207,30 @@ def _stencil_case(kst, blocks, wt, label: str) -> float:
     """conv_block on the card against its plain version on the same halo
     blocks, and a rerun against the first run bit for bit. Both sum the
     same K = KH*KW*C products in f32 in different orders, so they differ
-    by at most 2 K 2^-24 max conv(|x|, |w|)."""
+    by at most 2 K 2^-24 max conv(|x|, |w|); the tensor-core route (C > 4)
+    adds at most 12 K 2^-24 max conv(|x|, |w|) for its 3xTF32 split (the
+    derivation is in tests/test_torch_cuda.py::_conv_tol). Both are also
+    held against the float64 conv of the same blocks, for the record."""
     out = kst.conv_block(blocks, wt)
     torch.cuda.synchronize()
     again = kst.conv_block(blocks, wt)
     ref = kst.conv_block_plain(blocks, wt)
     mag = float(kst.conv_block_plain(blocks.abs(), wt.abs()).max().item())
+    exact = kst.conv_block_plain(blocks.double(), wt.double())
     torch.cuda.synchronize()
     kh, kw, c, o = wt.shape
-    tol = 2.0 * kh * kw * c * _U * mag
+    route = kst.route(c)
+    tol = (2.0 + (12.0 if route == "mma" else 0.0)) * kh * kw * c * _U * mag
     err = float((out - ref).abs().max().item())
+    err64 = float((out.double() - exact).abs().max().item()) / mag
+    plain64 = float((ref.double() - exact).abs().max().item()) / mag
     same = bool(torch.equal(out, again))
     ok = err <= tol and same and out.shape == ref.shape
-    _say(f"[stencil] conv_block {label}: blocks {tuple(blocks.shape)} "
-         f"filter {tuple(wt.shape)} -> {tuple(out.shape)}: max |kernel - "
-         f"plain| {err:.3g} (tol {tol:.3g}), rerun bit-equal {same} -> "
+    _say(f"[stencil] conv_block {label} ({route} route): blocks "
+         f"{tuple(blocks.shape)} filter {tuple(wt.shape)} -> "
+         f"{tuple(out.shape)}: max |kernel - plain| {err:.3g} (tol "
+         f"{tol:.3g}), max |x - float64| / max conv(|x|, |w|): kernel "
+         f"{err64:.3g}, plain {plain64:.3g}; rerun bit-equal {same} -> "
          f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         _fail(f"conv_block disagrees with its plain version ({label})")
@@ -1221,9 +1243,11 @@ def _halo_blocks(kst, n, h, w, c, kh, kw, p, gen, dev):
 
 
 def phase_stencil_kernel(kst, dev) -> float:
-    """At both VGG-16 block-1 widths and at edge shapes: 2x2 and 5x5
-    filters, C = 3, O = 10, W = 17, shard height = KH, p = 2 and 8; and
-    C = 13 (a ragged channel chunk) to O = 70 (a ragged channel tile)."""
+    """At both VGG-16 block-1 widths (conv1_1 on the SIMT route, conv1_2
+    on the tensor-core route) and at edge shapes: 2x2 and 5x5 filters,
+    C = 3 and C = 16 (one per route), O = 10 and 70, W = 17, shard
+    height = KH, p = 2 and 8; C = 13 (a ragged channel chunk) to O = 70
+    (a ragged channel tile); C = O = 8 (one chunk, one ragged tile)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(29)
     p = VGG_MESH[0]
@@ -1235,15 +1259,19 @@ def phase_stencil_kernel(kst, dev) -> float:
         main = max(main, _stencil_case(kst, blocks, wt,
                                        f"VGG width {cin}->{cout}"))
         del blocks
-    for k in (2, 5):
-        for shards in (2, 8):
-            blocks = _halo_blocks(kst, 3, k * shards, 17, 3, k, k, shards,
-                                  gen, dev)
-            wt = torch.randn((k, k, 3, 10), generator=gen, device=dev)
-            _stencil_case(kst, blocks, wt, f"{k}x{k}, p={shards}, hs=KH")
-    blocks = _halo_blocks(kst, 2, 8 * 5, 33, 13, 3, 3, 8, gen, dev)
-    wt = torch.randn((3, 3, 13, 70), generator=gen, device=dev)
-    _stencil_case(kst, blocks, wt, "C=13, O=70, W=33")
+    for cin, cout in ((3, 10), (16, 70)):
+        for k in (2, 5):
+            for shards in (2, 8):
+                blocks = _halo_blocks(kst, 3, k * shards, 17, cin, k, k,
+                                      shards, gen, dev)
+                wt = torch.randn((k, k, cin, cout), generator=gen,
+                                 device=dev)
+                _stencil_case(kst, blocks, wt, f"{k}x{k}, C={cin}, "
+                              f"O={cout}, p={shards}, hs=KH")
+    for cin, cout in ((13, 70), (8, 8)):
+        blocks = _halo_blocks(kst, 2, 8 * 5, 33, cin, 3, 3, 8, gen, dev)
+        wt = torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+        _stencil_case(kst, blocks, wt, f"C={cin}, O={cout}, W=33")
     return main
 
 
@@ -1305,14 +1333,18 @@ def phase_vgg(st, kk, kst, card: str, dev) -> dict:
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     launches = kst.LAUNCHES["conv_block"]
+    mma = kst.LAUNCHES["conv_block_mma"]
     peak = (torch.cuda.max_memory_allocated() - live) / 1e9
     _say(f"[stencil] VGG-16 block 1 (conv3-64, ReLU, conv3-64, ReLU, maxpool"
          f" 2) on {VGG_N} x {VGG_HW}x{VGG_HW}x{VGG_WIDTHS[0]} f32 under a "
          f"logical {VGG_MESH} mesh, H tiled: first forward {first:.3f} s, "
-         f"conv_block launches {launches} (want 2), peak device memory "
+         f"conv_block launches {launches} (want 2), of them on the "
+         f"tensor-core route {mma} (want 1: conv1_2), peak device memory "
          f"{peak:.2f} GB above the {live / 1e9:.2f} GB live before it")
     if launches != 2:
         _fail(f"conv_block ran {launches} times in one forward, not 2")
+    if mma != 1:
+        _fail(f"conv1_2 did not take the tensor-core route ({mma} launches)")
     want_shape = (VGG_N, VGG_HW // 2, VGG_HW // 2, VGG_WIDTHS[-1])
     if tuple(out.shape) != want_shape or not bool(out.isfinite().all()):
         _fail(f"VGG block output {tuple(out.shape)} is not finite "
@@ -1346,6 +1378,7 @@ def phase_vgg(st, kk, kst, card: str, dev) -> dict:
     _device_split(forward, "stencil", card, top=6)
 
     flops_peak, bw_peak = _peaks(card)
+    tf32_peak = _tf32_peak(card)
     per_width = []
     h = x
     for (w, b) in params:
@@ -1363,16 +1396,24 @@ def phase_vgg(st, kk, kst, card: str, dev) -> dict:
         ho, wo = blocks.shape[2] - kh + 1, blocks.shape[3] - kw + 1
         flops = 2.0 * p * n * ho * wo * o * kh * kw * c
         nbytes = 4.0 * (blocks.numel() + w.numel() + p * n * ho * wo * o)
-        f_ms, b_ms = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-        bound, by = (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
-        _say(f"[stencil] conv_block {c}->{o} at {tuple(blocks.shape)}: "
-             f"kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s), "
-             f"plain {plain:.4f} ms, library {lib:.4f} ms (F.conv2d on the "
-             f"same blocks, TF32 off), bound {bound:.4f} ms ({by}; "
-             f"operations {f_ms:.4f}, bytes {b_ms:.4f}: {flops / 1e9:.2f} "
-             f"GFLOP, {nbytes / 1e9:.3f} GB) on {card}")
+        # f32-accurate operations: FP32 FMAs on the CUDA cores, or on the
+        # tensor-core route three TF32 products per product (3xTF32)
+        route = kst.route(c)
+        f_ms = flops / flops_peak * 1e3
+        t_ms = 3.0 * flops / tf32_peak * 1e3
+        b_ms = nbytes / bw_peak * 1e3
+        ops = t_ms if route == "mma" else f_ms
+        bound, by = (ops, "operations") if ops >= b_ms else (b_ms, "bytes")
+        _say(f"[stencil] conv_block {c}->{o} at {tuple(blocks.shape)} "
+             f"({route} route): kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f}"
+             f" TFLOP/s), plain {plain:.4f} ms, library {lib:.4f} ms "
+             f"(F.conv2d on the same blocks, TF32 off), bound {bound:.4f} ms "
+             f"({by}{', 3xTF32' if route == 'mma' and by != 'bytes' else ''};"
+             f" 3xTF32 {t_ms:.4f}, FP32 {f_ms:.4f}, bytes {b_ms:.4f}: "
+             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB) on {card}")
         per_width.append({"ms": ms_k, "plain_ms": plain, "library_ms": lib,
-                          "bound_ms": bound, "bound_by": by})
+                          "bound_ms": bound, "bound_by": by,
+                          "bound_fp32_ms": max(f_ms, b_ms)})
         h = (kst.conv_block(blocks, w) + b).clamp_min(0.0)
         del blocks, flat, xc
     res = dict(per_width[-1])
@@ -1587,6 +1628,7 @@ def main() -> None:
         "launches": vggr["launches"], "max_abs_err": stencil_err,
         "ms": vggr["ms"], "plain_ms": vggr["plain_ms"],
         "bound_ms": vggr["bound_ms"], "bound_by": vggr["bound_by"],
+        "bound_fp32_ms": vggr["bound_fp32_ms"],
         "library_ms": vggr["library_ms"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")

@@ -96,14 +96,14 @@ class DistArray:
 
     def glom(self) -> np.ndarray:
         """Fetch the whole array to the host."""
-        return self.tensor.detach().cpu().numpy()
+        return dtypes.to_host(self.tensor)
 
     def fetch(self, region: Any) -> np.ndarray:
         """Fetch a rectangular region (a TileExtent or a slice/int index)
         to the host."""
         if not isinstance(region, TileExtent):
             region = extent_mod.from_slice(region, self.shape)
-        return self.tensor[region.to_slice()].detach().cpu().numpy()
+        return dtypes.to_host(self.tensor[region.to_slice()])
 
 
 # -- creation -----------------------------------------------------------
@@ -139,7 +139,7 @@ def from_numpy(arr: Any, tiling: Optional[Tiling] = None,
     # an owned, writable, C-ordered copy: the tensor never aliases the
     # caller's buffer (which may be read-only, e.g. a glommed array)
     arr = np.array(arr, dtype=dtypes.canonical(arr.dtype), order="C")
-    t = torch.from_numpy(arr).to(mesh.device)
+    t = dtypes.from_host(arr).to(mesh.device)
     return DistArray(t, tiling, mesh)
 
 

@@ -10,6 +10,7 @@ helpers (diag, diagonal, tril, triu, trace) and the contraction builtins
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import numpy as np
@@ -263,17 +264,17 @@ def _axis_count(shape, axis) -> int:
 # -- contractions --------------------------------------------------------------
 
 
-def _promoted(*xs):
-    """The operands in their common torch dtype (``jnp``'s promotion for
-    the dtypes this package stores)."""
+def _contract_whole(fn, *xs, **kw):
+    """``fn`` over the operands in their common torch dtype (``jnp``'s
+    promotion for the dtypes this package stores)."""
     dt = xs[0].dtype
     for x in xs[1:]:
         dt = torch.promote_types(dt, x.dtype)
-    return [x.to(dt) for x in xs]
+    return dtypes.contract(fn, dt, *xs, **kw)
 
 
 def _einsum_whole(*xs, subscripts):
-    return torch.einsum(subscripts, *_promoted(*xs))
+    return _contract_whole(functools.partial(torch.einsum, subscripts), *xs)
 
 
 def einsum(subscripts: str, *operands, precision=None) -> Expr:
@@ -303,7 +304,7 @@ def einsum(subscripts: str, *operands, precision=None) -> Expr:
 
 
 def _tensordot_whole(x, y, axes):
-    return torch.tensordot(*_promoted(x, y), dims=axes)
+    return _contract_whole(torch.tensordot, x, y, dims=axes)
 
 
 def tensordot(a, b, axes=2) -> Expr:
@@ -353,7 +354,7 @@ def tensordot(a, b, axes=2) -> Expr:
 
 
 def _matmul_whole(x, y):
-    return torch.matmul(*_promoted(x, y))
+    return _contract_whole(torch.matmul, x, y)
 
 
 def matmul(a, b, precision=None) -> Expr:
@@ -1051,23 +1052,26 @@ def _blocked_scannable(x: Expr, axis: int, op: str) -> bool:
     return True
 
 
-def scan(x, axis: int = 0, op: str = "add") -> Expr:
+def scan(x, axis: Optional[int] = 0, op: str = "add") -> Expr:
     """Prefix scan along an axis: the blocked scan along a tiled leading
-    axis, the local cumulative op otherwise."""
+    axis, the local cumulative op otherwise; ``axis=None`` scans the
+    flattened array, as ``jnp.cumsum`` does."""
     from ..ops import scan as scan_ops
 
     x = as_expr(x)
     if op not in scan_ops._LOCAL:
         raise ValueError(f"unknown scan op {op!r}")
+    fn = scan_ops._LOCAL[op]
+    if axis is None:
+        return map_expr(lambda v: fn(v.reshape(-1), 0), x)
     if _blocked_scannable(x, axis, op):
         return BlockedScanExpr(x, op)
-    fn = scan_ops._LOCAL[op]
     return map_expr(lambda v: fn(v, axis), x)
 
 
-def cumsum(x, axis: int = 0) -> Expr:
+def cumsum(x, axis: Optional[int] = 0) -> Expr:
     return scan(x, axis=axis, op="add")
 
 
-def cumprod(x, axis: int = 0) -> Expr:
+def cumprod(x, axis: Optional[int] = 0) -> Expr:
     return scan(x, axis=axis, op="mul")

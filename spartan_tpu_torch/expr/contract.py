@@ -19,6 +19,7 @@ Axis vocabulary (einsum labels):
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -101,10 +102,9 @@ class ContractExpr(Expr):
                 + "->" + "".join(self.out_labels))
 
     def _lower(self, env: Dict[int, Any]) -> Any:
-        tdt = dtypes.to_torch(self.dtype)
-        av = self.a.lower(env).to(tdt)
-        bv = self.b.lower(env).to(tdt)
-        return torch.einsum(self._subscripts(), av, bv)
+        return dtypes.contract(
+            functools.partial(torch.einsum, self._subscripts()), self.dtype,
+            self.a.lower(env), self.b.lower(env))
 
     def _sig(self, ctx) -> Tuple:
         return ("contract", self._subscripts(), self.precision, None,

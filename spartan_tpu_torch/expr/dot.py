@@ -51,9 +51,8 @@ class DotExpr(Expr):
 
     def _lower(self, env: Dict[int, Any]) -> Any:
         # torch.matmul takes one dtype; promote as numpy/JAX do
-        dt = dtypes.to_torch(self.dtype)
-        return torch.matmul(self.a.lower(env).to(dt),
-                            self.b.lower(env).to(dt))
+        return dtypes.contract(torch.matmul, self.dtype, self.a.lower(env),
+                               self.b.lower(env))
 
     def _sig(self, ctx) -> Tuple:
         return ("dot", self.precision, ctx.of(self.a), ctx.of(self.b))

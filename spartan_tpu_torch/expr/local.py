@@ -12,11 +12,39 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 
 import torch
 
+from ..utils import dtypes
+
+
+def _is_bool(v: Any) -> bool:
+    return isinstance(v, bool) or (isinstance(v, torch.Tensor)
+                                   and v.dtype == torch.bool)
+
+
+def _promote_bool(v: Any, other: Any) -> Any:
+    """The bool operand ``v`` in the dtype JAX promotes it to against
+    ``other``: a tensor's dtype, or a Python scalar's weak int32/float32."""
+    if isinstance(v, bool):
+        return int(v)
+    if isinstance(other, torch.Tensor):
+        return v.to(other.dtype)
+    return v.to(dtypes.scalar_dtype(other))
+
+
+def _subtract(a: Any, b: Any) -> Any:
+    """``a - b``; torch refuses a bool operand, JAX promotes it (bool -
+    bool stays an error in both)."""
+    if _is_bool(a) and not _is_bool(b):
+        a = _promote_bool(a, b)
+    elif _is_bool(b) and not _is_bool(a):
+        b = _promote_bool(b, a)
+    return torch.sub(a, b)
+
+
 # numpy ufunc name -> (torch fn, arity)
 UFUNCS: Dict[str, Tuple[Callable, int]] = {
     # binary arithmetic
     "add": (torch.add, 2),
-    "subtract": (torch.sub, 2),
+    "subtract": (_subtract, 2),
     "multiply": (torch.mul, 2),
     "divide": (torch.true_divide, 2),
     "true_divide": (torch.true_divide, 2),
@@ -146,7 +174,7 @@ class LocalUfunc(LocalExpr):
 
     def emit(self, inputs):
         fn = UFUNCS[self.name][0]
-        return fn(*[a.emit(inputs) for a in self.args])
+        return dtypes.call(fn, *[a.emit(inputs) for a in self.args])
 
     def key(self):
         return ("uf", self.name) + tuple(a.key() for a in self.args)

@@ -2,9 +2,10 @@
 
 ``ReduceExpr`` reduces over axes, optionally through a fused pre-reduce
 elementwise tree (what the reduce-map fusion pass builds). Dtypes follow
-the JAX package: integer and bool sums and products stay int32, means of
-integers are float32, all/any give bool, and argmin/argmax give int32
-with the first index winning ties. ``GeneralReduceExpr`` is the
+the JAX package: sums and products of unsigned integers are uint32, of
+signed integers and bool int32; means of integers are float32, all/any
+give bool, and argmin/argmax give int32 with the first index winning
+ties (bool compared as int32). ``GeneralReduceExpr`` is the
 reference's user reduction: a torch ``local_reduce_fn(block, axis=...)``
 applied to the whole tensor.
 """
@@ -42,23 +43,35 @@ def reduce_tensor(op: str, x: torch.Tensor, axis: Optional[Tuple[int, ...]],
     """One named reduction of ``x`` over ``axis`` (None = all axes)."""
     if op in _NO_KEEPDIMS:
         fn = torch.argmax if op == "argmax" else torch.argmin
+        if x.dtype == torch.bool:
+            x = x.to(torch.int32)
         if axis is None:
-            out = fn(x.reshape(-1))
+            out = dtypes.call(fn, x.reshape(-1))
         else:
             if len(axis) != 1:
                 raise ValueError(f"{op} takes one axis, got {axis}")
-            out = fn(x, dim=axis[0])
+            out = dtypes.call(fn, x, dim=axis[0])
         return out.to(torch.int32)
     dims = tuple(range(x.ndim)) if axis is None else axis
     integral = not (x.dtype.is_floating_point or x.dtype.is_complex)
-    if op == "sum":
-        return torch.sum(x, dim=dims, keepdim=keepdims,
-                         dtype=torch.int32 if integral else None)
-    if op == "prod":
-        out = x.to(torch.int32) if integral else x
+    if op in ("sum", "prod") and integral:
+        # int32 or uint32 results, summed in a type torch has kernels for
+        # (int64 wraps to the same low 32 bits)
+        acc = torch.uint32 if dtypes.is_unsigned(x.dtype) else torch.int32
+        wide = torch.int64 if acc == torch.uint32 else torch.int32
+        x = x.to(wide)
+        if op == "sum":
+            return torch.sum(x, dim=dims, keepdim=keepdims,
+                             dtype=wide).to(acc)
         for d in sorted(dims, reverse=True):
-            out = torch.prod(out, dim=d, keepdim=keepdims)
-        return out.to(torch.int32) if integral else out
+            x = torch.prod(x, dim=d, keepdim=keepdims)
+        return x.to(acc)
+    if op == "sum":
+        return torch.sum(x, dim=dims, keepdim=keepdims)
+    if op == "prod":
+        for d in sorted(dims, reverse=True):
+            x = torch.prod(x, dim=d, keepdim=keepdims)
+        return x
     if op in ("all", "any"):
         fn = torch.all if op == "all" else torch.any
         return fn(x.to(torch.bool), dim=dims, keepdim=keepdims)
@@ -67,9 +80,9 @@ def reduce_tensor(op: str, x: torch.Tensor, axis: Optional[Tuple[int, ...]],
             x = x.to(torch.float32)
         return torch.mean(x, dim=dims, keepdim=keepdims)
     if op == "max":
-        return torch.amax(x, dim=dims, keepdim=keepdims)
+        return dtypes.call(torch.amax, x, dim=dims, keepdim=keepdims)
     if op == "min":
-        return torch.amin(x, dim=dims, keepdim=keepdims)
+        return dtypes.call(torch.amin, x, dim=dims, keepdim=keepdims)
     raise ValueError(f"unknown reduction {op!r}")
 
 

@@ -8,7 +8,7 @@ its source's hash, so an edited source is rebuilt and an unchanged one is
 not. :func:`load` opens a library once per process and lets the kernel
 module declare its functions' argument types. ``BUILD_LOG[name]`` holds
 nvcc's output (ptxas registers, shared memory and spills per kernel) of
-the build this process ran.
+the library's build, kept beside it as ``<library>.log``.
 
 Nothing here runs at import: kernels are built at their first launch,
 on the machine with the card (the CPU has no ``nvcc``).
@@ -74,6 +74,9 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
     running = []
     for name, out in paths.items():
         if os.path.exists(out):
+            if os.path.exists(out + ".log"):
+                with open(out + ".log") as f:
+                    BUILD_LOG[name] = f.read()
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         log = open(f"{tmp}.log", "w+")
@@ -89,11 +92,12 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
         log.seek(0)
         BUILD_LOG[name] = log.read()
         log.close()
-        os.remove(log.name)
         if rc != 0:
+            os.remove(log.name)
             failed.append(f"csrc/{name}.cu: nvcc exited {rc}:\n"
                           f"{BUILD_LOG[name]}")
         else:
+            os.replace(log.name, out + ".log")
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -11,7 +11,10 @@ on W), then :func:`conv_block` convolves every shard's block VALID.
 On CUDA tensors :func:`conv_block` launches ``spartan_tpu_torch/csrc/
 stencil.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, bound
 through ``ctypes``), one launch for all shards' blocks, writing the
-unsharded ``(N, H, W, O)`` result directly; on CPU tensors it runs
+unsharded ``(N, H, W, O)`` result directly. :func:`route` picks the
+kernel by a static rule on C: C <= 4 takes the SIMT direct conv (FP32
+FMAs), C > 4 the tensor-core implicit GEMM (3xTF32 ``mma.sync``, about
+f32 accuracy). On CPU tensors it runs
 :func:`conv_block_plain`, the TPU kernel's formulation (KH*KW shifted
 slices, each a ``(rows, C) @ (C, O)`` product in f32); any other device
 raises. The halo copy is where a multi-card mesh would send and receive
@@ -28,12 +31,17 @@ import torch
 from ..parallel import mesh as mesh_mod
 from . import build as build_mod
 
-# Kernel launches so far: the wrapper adds one where it launches the CUDA
+# Kernel launches so far: the wrapper adds one where it launches a CUDA
 # kernel and nowhere else (the plain version does not count).
-LAUNCHES: Dict[str, int] = {"conv_block": 0}
+# "conv_block" counts every launch, "conv_block_mma" those of the
+# tensor-core route.
+LAUNCHES: Dict[str, int] = {"conv_block": 0, "conv_block_mma": 0}
 
-# the kernel's CTA tile (csrc/stencil.cu): output rows, columns, channels
-_TH, _TW, _TO = 8, 32, 64
+# csrc/stencil.cu's CTA tiles (output rows, columns, channels) and the
+# input channels staged per chunk, per route; the tensor-core route stages
+# a pixel's 8 channels at a pitch of 12 floats, in a ring of 2 stages
+_SIMT_TILE, _SIMT_CK = (8, 32, 64), 4
+_MMA_TILE, _MMA_CK, _MMA_PITCH = (4, 32, 64), 8, 12
 _MAX_GRID_YZ = 65535
 
 
@@ -43,9 +51,25 @@ def _same_pad(k: int) -> Tuple[int, int]:
     return lo, k - 1 - lo
 
 
-def _chunk(c: int) -> int:
-    """Input channels the kernel stages per step (its template CK)."""
-    return 4 if c <= 4 else 8
+def route(c: int) -> str:
+    """The kernel that convolves ``c`` input channels: "simt" (FP32 FMAs
+    on the CUDA cores; C <= 4, where the work is bound by bytes) or "mma"
+    (3xTF32 on the tensor cores; C > 4). A static rule, never a
+    fallback."""
+    return "simt" if c <= 4 else "mma"
+
+
+def _smem(kh: int, kw: int, c: int) -> int:
+    """Shared memory of the least launch of ``route(c)``'s kernel: one
+    chunk's filter taps and input tile (the tensor-core route adds ring
+    stages only where they fit)."""
+    if route(c) == "simt":
+        th, tw, to = _SIMT_TILE
+        return 4 * (kh * kw * _SIMT_CK * to
+                    + _SIMT_CK * (th + kh - 1) * (tw + kw - 1))
+    th, tw, to = _MMA_TILE
+    return 4 * (kh * kw * _MMA_CK * to
+                + (th + kh - 1) * (tw + kw - 1) * _MMA_PITCH)
 
 
 def cuda_limits(kh: int, kw: int, c: int, o: int, blocks: int) -> str:
@@ -53,15 +77,15 @@ def cuda_limits(kh: int, kw: int, c: int, o: int, blocks: int) -> str:
     with a (kh, kw, c, o) filter, or "" when it can: one chunk's filter
     taps and input tile must fit a block's shared memory, and the blocks
     and output-channel tiles must fit the launch grid."""
-    ck = _chunk(c)
-    smem = 4 * (kh * kw * ck * _TO + ck * (_TH + kh - 1) * (_TW + kw - 1))
+    smem = _smem(kh, kw, c)
     if smem > build_mod.SMEM_PER_BLOCK:
         return (f"a {kh}x{kw} filter needs {smem}B of shared memory > "
                 f"{build_mod.SMEM_PER_BLOCK}B per block")
     if blocks > _MAX_GRID_YZ:
         return f"{blocks} shard blocks > {_MAX_GRID_YZ} (grid z)"
-    if -(-o // _TO) > _MAX_GRID_YZ:
-        return f"{o} output channels > {_MAX_GRID_YZ * _TO} (grid y)"
+    to = _SIMT_TILE[2] if route(c) == "simt" else _MMA_TILE[2]
+    if -(-o // to) > _MAX_GRID_YZ:
+        return f"{o} output channels > {_MAX_GRID_YZ * to} (grid y)"
     return ""
 
 
@@ -89,8 +113,9 @@ def conv_block_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spartan_conv_block.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
-    lib.spartan_conv_block.restype = i32
+    for fn in (lib.spartan_conv_block, lib.spartan_conv_block_mma):
+        fn.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
+        fn.restype = i32
 
 
 def _load() -> ctypes.CDLL:
@@ -110,13 +135,16 @@ def _launch(x5: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _load()
+    mma = route(c) == "mma"
+    fn = lib.spartan_conv_block_mma if mma else lib.spartan_conv_block
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.spartan_conv_block(x5.data_ptr(), w.data_ptr(),
-                                     out.data_ptr(), p * n, n, hp, wp, c,
-                                     kh, kw, o, stream)
+        err = fn(x5.data_ptr(), w.data_ptr(), out.data_ptr(), p * n, n, hp,
+                 wp, c, kh, kw, o, stream)
     build_mod.check(err, "conv_block kernel launch")
     LAUNCHES["conv_block"] += 1
+    if mma:
+        LAUNCHES["conv_block_mma"] += 1
     return out
 
 

@@ -10,11 +10,14 @@ blocked decomposition stays: float sums round as they do in the JAX
 package's blocked program (up to the summation order inside a block).
 
 Supports add / mul / max / min, axis 0 of arrays of any rank. Result
-dtypes follow ``jnp.cumsum``/``cumprod`` with 64-bit types off: bool and
-signed integers below 64 bits scan in int32.
+dtypes follow ``jnp.cumsum``/``cumprod`` with 64-bit types off: bool
+scans in int32, every other type keeps its dtype (an int8 sum wraps in
+int8, a uint16 sum in uint16).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -26,32 +29,35 @@ from ..utils import dtypes
 
 def _acc_dtype(x: torch.Tensor):
     """The dtype ``jnp.cumsum``/``jnp.cumprod`` return for ``x``."""
-    if x.dtype == torch.bool or (not x.dtype.is_floating_point
-                                 and not x.dtype.is_complex
-                                 and x.dtype != torch.int64):
-        return torch.int32
-    return x.dtype
+    return torch.int32 if x.dtype == torch.bool else x.dtype
+
+
+def _cumulative(fn, v: torch.Tensor, axis: int) -> torch.Tensor:
+    """``fn`` (cumsum or cumprod) accumulating in the result's dtype."""
+    return dtypes.call(lambda t: fn(t, dim=axis, dtype=t.dtype),
+                       v.to(_acc_dtype(v)))
 
 
 def _cumsum(v: torch.Tensor, axis: int) -> torch.Tensor:
-    return torch.cumsum(v, dim=axis, dtype=_acc_dtype(v))
+    return _cumulative(torch.cumsum, v, axis)
 
 
 def _cumprod(v: torch.Tensor, axis: int) -> torch.Tensor:
-    return torch.cumprod(v, dim=axis, dtype=_acc_dtype(v))
+    return _cumulative(torch.cumprod, v, axis)
 
 
 def _cummax(v: torch.Tensor, axis: int) -> torch.Tensor:
-    return torch.cummax(v, dim=axis).values
+    return dtypes.call(lambda t: torch.cummax(t, dim=axis).values, v)
 
 
 def _cummin(v: torch.Tensor, axis: int) -> torch.Tensor:
-    return torch.cummin(v, dim=axis).values
+    return dtypes.call(lambda t: torch.cummin(t, dim=axis).values, v)
 
 
 _LOCAL = {"add": _cumsum, "mul": _cumprod, "max": _cummax, "min": _cummin}
-_COMBINE = {"add": torch.add, "mul": torch.mul, "max": torch.maximum,
-            "min": torch.minimum}
+_COMBINE = {op: functools.partial(dtypes.call, fn) for op, fn in
+            (("add", torch.add), ("mul", torch.mul), ("max", torch.maximum),
+             ("min", torch.minimum))}
 _IDENTITY = {"add": 0.0, "mul": 1.0, "max": -np.inf, "min": np.inf}
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..array.tiling import Tiling
 from ..expr.base import Expr, as_expr
 from ..expr.map2 import map2
+from ..utils import dtypes
 
 Stride = Union[int, Tuple[int, int]]
 
@@ -140,11 +141,25 @@ def _pool_input(x: torch.Tensor, w, s, padding: str,
 
 
 def _maxpool(x, window, stride, padding):
-    xc = _pool_input(x, window, stride, padding, float("-inf"))
-    return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
+    """Floats pad with -inf; integers with their dtype's least value and
+    keep their dtype (``reduce_window`` with -inf as the init value)."""
+    if x.dtype.is_floating_point:
+        xc = _pool_input(x, window, stride, padding, float("-inf"))
+        return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
+    # max_pool2d has no integer kernel: pool in float64 (every int32 and
+    # smaller value is exact there) and cast back
+    fill = torch.iinfo(x.dtype).min if x.dtype != torch.bool else 0
+    xc = _pool_input(x, window, stride, padding, fill)
+    return dtypes.call(lambda t: F.max_pool2d(t.to(torch.float64), window,
+                                              stride).to(t.dtype),
+                       xc).permute(0, 2, 3, 1)
 
 
 def _avgpool(x, window, stride, padding):
+    """Integers are summed in a float32 copy and give float32, as
+    ``reduce_window(x, 0.0, add) / denom`` does."""
+    if not x.dtype.is_floating_point:
+        x = x.to(torch.float32)
     xc = _pool_input(x, window, stride, padding, 0.0)
     summed = F.avg_pool2d(xc, window, stride, divisor_override=1)
     return summed.permute(0, 2, 3, 1) / float(window[0] * window[1])

@@ -330,12 +330,30 @@ def test_sort_topk_histogram_builtins_on_the_card(card):
 # -- stencil kernel (csrc/stencil.cu) ------------------------------------------
 
 
+def _conv_tol(kst, c, k, mag):
+    """Max |kernel - plain| for K = k products per output of magnitude
+    at most ``mag``. Both sum in f32 in different orders: 2 K 2^-24 mag.
+    The tensor-core route adds its 3xTF32 split: with hi = tf32(v) and
+    lo = tf32(v - hi), |v - hi| <= 2^-11 |v| and lo is off by at most
+    2^-11 |v - hi| <= 2^-22 |v|; the dropped a_lo b_lo (<= 2^-22 |ab|)
+    and the rounding of a_lo and of b_lo (each <= 2^-22 |ab|) give at
+    most 3 * 2^-22 = 12 * 2^-24 |ab| per product, so (2 + 12) K 2^-24
+    mag."""
+    return (2 + (12 if kst.route(c) == "mma" else 0)) * k * 2.0 ** -24 * mag
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,hs,w,c,o,kh,kw,p", [
     (3, 2, 17, 3, 10, 2, 2, 2), (3, 2, 17, 3, 10, 2, 2, 8),
     (2, 5, 17, 3, 10, 5, 5, 2), (2, 5, 17, 3, 10, 5, 5, 8),
     (2, 5, 33, 13, 70, 3, 3, 8), (4, 28, 224, 64, 64, 3, 3, 8),
-    (1, 9, 1, 4, 1, 3, 1, 1), (2, 8, 40, 200, 130, 1, 3, 3)])
+    (1, 9, 1, 4, 1, 3, 1, 1), (2, 8, 40, 200, 130, 1, 3, 3),
+    # the tensor-core route: whole and ragged channel chunks (C = 8, 16,
+    # 13), whole and ragged channel tiles (O = 8, 70), and filters whose
+    # taps leave room for 3, 2 and 1 staging slots (3x3, 6x6, 7x7)
+    (2, 5, 17, 8, 8, 3, 3, 2), (2, 5, 17, 16, 70, 5, 5, 2),
+    (2, 5, 33, 13, 8, 3, 3, 8), (3, 2, 17, 8, 70, 2, 2, 8),
+    (2, 6, 40, 16, 64, 6, 6, 2), (2, 7, 40, 16, 64, 7, 7, 2)])
 def test_conv_block_matches_plain(card, n, hs, w, c, o, kh, kw, p):
     from spartan_tpu_torch.kernels import stencil as kst
 
@@ -350,9 +368,8 @@ def test_conv_block_matches_plain(card, n, hs, w, c, o, kh, kw, p):
     assert kst.LAUNCHES["conv_block"] == before + 1
     ref = kst.conv_block_plain(blocks, wt)
     assert out.shape == ref.shape == (n, hs * p, w, o)
-    # K = kh*kw*c products summed in f32 in two orders
     mag = kst.conv_block_plain(blocks.abs(), wt.abs()).max().item()
-    tol = 2 * kh * kw * c * 2.0 ** -24 * mag
+    tol = _conv_tol(kst, c, kh * kw * c, mag)
     assert (out - ref).abs().max().item() <= tol
     assert torch.equal(kst.conv_block(blocks, wt), out)  # deterministic
     # a 4-D batch of blocks gives the per-block results
@@ -361,6 +378,46 @@ def test_conv_block_matches_plain(card, n, hs, w, c, o, kh, kw, p):
     assert one.shape == (p * n, hs, w, o)
     assert torch.equal(one.reshape(p, n, hs, w, o).transpose(0, 1).reshape(
         n, p * hs, w, o), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0x7FC00000, 0x7FFFFFFF, -1])
+@pytest.mark.parametrize("c", [3, 16])
+def test_conv_block_propagates_nan(card, c, bits):
+    """A NaN input (any payload: CUDA's own 0x7fffffff and an all-ones
+    pattern included, whose rounding would carry into the sign) makes
+    NaN exactly the outputs whose window holds it, on both routes."""
+    from spartan_tpu_torch.kernels import stencil as kst
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(c)
+    x = torch.randn((2, 1, 12, 20, c), generator=gen, device=card)
+    x.view(torch.int32)[1, 0, 5, 7, c - 1] = bits
+    w = torch.randn((3, 3, c, 8), generator=gen, device=card)
+    out = kst.conv_block(x, w)
+    ref = kst.conv_block_plain(x, w)
+    torch.cuda.synchronize()
+    assert int(out.isnan().sum()) == 9 * 8
+    assert torch.equal(out.isnan(), ref.isnan())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8, 64])
+def test_conv_block_route_by_channels(card, c):
+    """C <= 4 launches the SIMT kernel, C > 4 the tensor-core kernel: the
+    route's counter moves with the total."""
+    from spartan_tpu_torch.kernels import stencil as kst
+
+    x = torch.ones((2, 1, 6, 9, c), device=card)
+    w = torch.ones((3, 3, c, 8), device=card)
+    before = dict(kst.LAUNCHES)
+    out = kst.conv_block(x, w)
+    torch.cuda.synchronize()
+    mma = kst.LAUNCHES["conv_block_mma"] - before["conv_block_mma"]
+    assert kst.LAUNCHES["conv_block"] == before["conv_block"] + 1
+    assert mma == (1 if c > 4 else 0) and kst.route(c) == (
+        "mma" if c > 4 else "simt")
+    assert torch.equal(out, torch.full_like(out, 9.0 * c))
 
 
 @pytest.mark.cuda
@@ -461,3 +518,52 @@ def test_stencil_kernel_never_falls_back(card, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kst.conv_block(x, torch.zeros((3, 3, 8, 4), device=card))
     assert kst.LAUNCHES["conv_block"] == before
+
+
+# -- dtypes on the card ---------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_dtype_rules_on_card(card):
+    """The dtype rules the CPU parity tests hold against the JAX package
+    (tests/test_torch_dtype_parity.py) give the same results on the card:
+    uint16/uint32 computed wider and cast back, bfloat16 host data,
+    unsigned sums, narrow scans, bool contractions and integer pooling."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    prev = mesh_mod.get_default_device()
+    mesh_mod.set_default_device(card)
+    try:
+        rng = np.random.RandomState(0)
+        u32 = rng.randint(0, 2 ** 32, size=(8, 4), dtype=np.uint64).astype(
+            np.uint32)
+        x = st.from_numpy(u32)
+        got = (x + x).glom()
+        assert got.dtype == np.uint32
+        np.testing.assert_array_equal(got, u32 + u32)
+        assert st.sum(st.from_numpy(u32.astype(np.uint8))).glom().dtype \
+            == np.uint32
+        i8 = rng.randint(-128, 128, size=(8, 4)).astype(np.int8)
+        got = st.cumsum(st.from_numpy(i8), axis=0).glom()
+        np.testing.assert_array_equal(got, np.cumsum(i8, axis=0,
+                                                     dtype=np.int8))
+        b = rng.rand(8, 4) > 0.5
+        got = st.dot(st.from_numpy(b), st.from_numpy(b.T)).glom()
+        np.testing.assert_array_equal(got, (b.astype(np.int64)
+                                            @ b.T.astype(np.int64)) > 0)
+        im = rng.randint(-1000, 1000, size=(2, 16, 11, 3)).astype(np.int32)
+        got = st.maxpool(st.from_numpy(im), 3, 2, padding="SAME").glom()
+        assert got.dtype == np.int32 and got.shape == (2, 8, 6, 3)
+        assert got.max() == im.max()
+        try:
+            import ml_dtypes
+        except ImportError:
+            return
+        bf = rng.randn(8, 4).astype(ml_dtypes.bfloat16)
+        got = st.from_numpy(bf).glom()
+        assert got.dtype == bf.dtype
+        np.testing.assert_array_equal(got.view(np.uint16),
+                                      bf.view(np.uint16))
+    finally:
+        mesh_mod.set_default_device(prev)

@@ -210,6 +210,19 @@ def test_conv_block_and_halo_contracts():
     assert "grid z" in kst_t.cuda_limits(3, 3, 3, 4, 70000)
 
 
+@pytest.mark.parametrize("c,route", [(1, "simt"), (3, "simt"), (4, "simt"),
+                                     (5, "mma"), (13, "mma"), (64, "mma")])
+def test_conv_route_rule_and_its_limits(c, route):
+    """C <= 4 goes to the SIMT kernel, C > 4 to the tensor-core kernel;
+    each route takes every filter up to 10x10 (the tensor-core route
+    with fewer staging slots) and refuses 15x15."""
+    assert kst_t.route(c) == route
+    assert kst_t.cuda_limits(3, 3, c, 64, 256) == ""
+    assert kst_t.cuda_limits(10, 10, c, 64, 8) == ""
+    assert "shared memory" in kst_t.cuda_limits(15, 15, c, 64, 8)
+    assert "grid y" in kst_t.cuda_limits(3, 3, c, 64 * 65536, 8)
+
+
 @pytest.mark.parametrize("case", ["h_unsharded", "stride", "valid",
                                   "selected"])
 def test_fallbacks_keep_the_jax_reason_and_result(case):
