@@ -200,6 +200,8 @@ def _check_kernel(kk, n, d, k, valid, kind, seed, dev) -> dict:
     v = n if valid is None else valid
     s_k, n_k = kk.assign_accumulate(p, c, k, valid)
     torch.cuda.synchronize()
+    again = kk.assign_accumulate(p, c, k, valid)
+    rerun = bool(torch.equal(again[0], s_k) and torch.equal(again[1], n_k))
     s_p, n_p = kk.assign_accumulate_plain(p, c, k, valid)
     torch.cuda.synchronize()
     moved = int((n_k - n_p).abs().sum().item()) // 2
@@ -215,11 +217,12 @@ def _check_kernel(kk, n, d, k, valid, kind, seed, dev) -> dict:
     else:
         allowed = _near_ties(p, c, v)
         tol = order_tol + allowed * float(p[:v].abs().max().item())
-    ok = (moved <= allowed and err <= tol
+    ok = (moved <= allowed and err <= tol and rerun
           and int(n_k.sum().item()) == v)
     _say(f"[kernel] n={n} d={d} k={k} valid={v} {kind}: moved rows "
          f"{moved} (allowed {allowed}), max |sum err| {err:.3g} "
-         f"(tol {tol:.3g}) -> {'ok' if ok else 'MISMATCH'}")
+         f"(tol {tol:.3g}), rerun bit-equal {rerun} -> "
+         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         _fail(f"kernel disagrees with its plain version at n={n} d={d} "
               f"k={k} valid={v} ({kind})")
@@ -235,6 +238,8 @@ def phase_kernel_vs_plain(kk, dev) -> float:
     _check_kernel(kk, 131_072, 128, 1, None, "uniform", 5, dev)
     _check_kernel(kk, 131_072, 256, 64, None, "uniform", 6, dev)
     _check_kernel(kk, 131_072, 256, 64, 100_000, "clustered", 7, dev)
+    _check_kernel(kk, 131_072, 128, 7, 100_003, "clustered", 8, dev)
+    _check_kernel(kk, 131_072, 1024, 16, 100_003, "clustered", 9, dev)
     return main["err"]
 
 
@@ -386,7 +391,8 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
          f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
          f"{lib_ms:.4f} (composite cdist+argmin+index_add_) bound_ms "
          f"{bound_ms:.4f} ({'operations' if t_ops >= t_bytes else 'bytes'}"
-         f"; ops {t_ops:.4f} ms, bytes {t_bytes:.4f} ms) on {card}")
+         f"; ops {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), kernel at "
+         f"{100.0 * bound_ms / ms:.1f}% of its bound on {card}")
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -836,6 +842,35 @@ def _topk_case(kt, key, k: int, sentinel, label: str) -> float:
     return err
 
 
+def _topk_burst_rows(kt, key: torch.Tensor, gen) -> torch.Tensor:
+    """``key`` (rows, m), m % 4 == 0, in [0, 1), made so that one merge
+    of the top-k kernel's first pass takes more than a step's 4096
+    words: in every chunk, 10 keys of 1.5 in the step before a burst of
+    8192 keys in [2, 3) that starts on a step and lies between two
+    sampled runs. The 10 wait for a merge; the burst's first step then
+    appends all 4096 of its keys beside them."""
+    rows, m = key.shape
+    step, run = kt._STEP, kt._RUN_LEN
+    sms = torch.cuda.get_device_properties(key.device).multi_processor_count
+    chunk, chunks = kt._chunking(rows, m, sms)
+    for c in range(chunks):
+        lo, n = c * chunk, min(chunk, m - c * chunk)
+        runs = kt._sample_runs(n)
+
+        def clear(a: int, b: int) -> bool:
+            return not any(r < b and a < r + run for r in runs)
+
+        starts = [s for s in range(step, n - 2 * step + 1, step)
+                  if clear(s, s + 2 * step) and clear(s - step, s - step + 10)]
+        if not starts:
+            _fail(f"a top-k chunk of {n} keys has no room for the burst")
+        s = lo + starts[0]
+        key[:, s - step:s - step + 10] = 1.5
+        key[:, s:s + 2 * step] = 2.0 + torch.rand(
+            (rows, 2 * step), generator=gen, device=key.device)
+    return key
+
+
 def phase_topk_kernel(kt, dev) -> float:
     gen = torch.Generator(device=dev)
     gen.manual_seed(22)
@@ -862,7 +897,25 @@ def phase_topk_kernel(kt, dev) -> float:
                TOPK_K, ninf, "rows shorter than k")
     _topk_case(kt, torch.rand((2, 3 * 16384 + 5), generator=gen,
                               device=dev), TOPK_K, ninf,
-               "ragged chunks")
+               "odd row length")
+    _topk_case(kt, torch.rand((6, 1_000), generator=gen, device=dev),
+               TOPK_K, ninf, "rows within one sample")
+    flat = torch.rand(3 * 250_000 + 1, generator=gen, device=dev)
+    _topk_case(kt, flat[1:].view(3, 250_000), TOPK_K, ninf,
+               "rows off 16-byte boundaries")
+    up = torch.sort(torch.rand((p, m), generator=gen, device=dev), 1).values
+    _topk_case(kt, up, TOPK_K, ninf, "ascending rows")
+    _topk_case(kt, up.flip(1), TOPK_K, ninf, "descending rows")
+    del up
+    most = torch.rand((p, 400_000), generator=gen, device=dev)
+    most[:, torch.randperm(400_000, generator=gen, device=dev)[:10_000]] = 2.0
+    _topk_case(kt, most, TOPK_K, ninf, "10,000 equal maximal keys a row")
+    del most
+    for label, back in (("zeros", torch.zeros((p, m), device=dev)),
+                        ("uniform noise",
+                         torch.rand((p, m), generator=gen, device=dev))):
+        _topk_case(kt, _topk_burst_rows(kt, back, gen), TOPK_K, ninf,
+                   f"a step of survivors beside waiting words ({label})")
     return main
 
 
@@ -1106,6 +1159,19 @@ def phase_topk(st, kk, kt, x, card: str, dev) -> dict:
          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
          f"(torch.topk on the (p, m) view), bound {bound_ms:.4f} ms (bytes)"
          f" on {card}")
+    # the same shape on harder rows: the int32 keys of the smallest-k
+    # call (2^23 / 1000 copies of each value a row, so thousands of
+    # maximal keys tie) and ascending rows (every key beats the last)
+    imin = int(np.iinfo(np.int32).min)
+    for label, hard, sent in (
+            ("int32 in [0, 1000), heavy ties", ints.view(p, m), imin),
+            ("ascending f32 rows", torch.sort(key, 1).values, ninf)):
+        hard_ms = _event_ms(lambda: kt.shard_topk(hard, TOPK_K, sent), 10)
+        hard_lib = _event_ms(lambda: torch.topk(hard, TOPK_K, dim=1), 10)
+        _say(f"[topk] shard_topk at {p} x {m}, k = {TOPK_K}, {label}: "
+             f"kernel {hard_ms:.4f} ms ({hard_ms / ms:.2f}x the uniform "
+             f"rows), torch.topk {hard_lib:.4f} ms on {card}")
+        del hard
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
 

@@ -29,8 +29,10 @@ from . import registry
 
 _BLOCK = 1024
 
-# geometry of the CUDA kernel (csrc/kmeans.cu)
-_TILE = 256
+# geometry of the CUDA kernel (csrc/kmeans.cu): rows per tile, centers
+# per block of the register tile
+_TILE = 128
+_CBLOCK = 64
 _MAX_D = 1024
 _SMEM_LIMIT = build_mod.SMEM_PER_BLOCK
 
@@ -41,15 +43,28 @@ LAUNCHES = 0
 _occupancy: Dict[Tuple[int, int, int], int] = {}
 
 
+def _rule_bytes(d: int, k: int) -> int:
+    """The shared memory the selection rule allows for (d, k): centers,
+    partial sums, norms, counts and a 256-row assignment, the first
+    kernel's footprint. The rule keeps it so that its answers stay the
+    same; the kernel's own footprint without staging is never larger."""
+    return 4 * (2 * k * d + 2 * k + 256)
+
+
 def _smem_bytes(d: int, k: int) -> int:
-    return 4 * (2 * k * d + 2 * k + _TILE)
+    """The kernel's shared memory where it reads the points from global
+    memory: centers and partial sums (k, d), norms padded to the center
+    block, counts and one assignment per tile row. (The kernel stages
+    point tiles on top of this only where they fit.)"""
+    kp = -(-k // _CBLOCK) * _CBLOCK
+    return 4 * (2 * k * d + kp + k + _TILE)
 
 
 def cuda_limits(d: int, k: int) -> str:
     """Why the CUDA kernel cannot take (d, k), or "" when it can."""
     if d > _MAX_D:
-        return f"d {d} > {_MAX_D} (a point row is held in registers)"
-    need = _smem_bytes(d, k)
+        return f"d {d} > {_MAX_D}"
+    need = _rule_bytes(d, k)
     if need > _SMEM_LIMIT:
         return (f"centers + partial sums {need}B > {_SMEM_LIMIT}B of "
                 "shared memory per block")
@@ -108,8 +123,15 @@ def _check(err: int, what: str) -> None:
     build_mod.check(err, f"k-means kernel {what}")
 
 
-def _grid(lib: ctypes.CDLL, dev: torch.device, m: int, d: int, k: int
-          ) -> int:
+def _grid_size(rows: int, per_sm: int, sms: int) -> int:
+    """Persistent CTAs for ``rows`` rows: one per tile, at most
+    ``per_sm`` on each of ``sms`` SMs, at least one (it writes the zero
+    partials when no row is valid)."""
+    return max(1, min(-(-rows // _TILE), per_sm * sms))
+
+
+def _grid(lib: ctypes.CDLL, dev: torch.device, m: int, d: int,
+          k: int) -> int:
     key = (dev.index or 0, d, k)
     bps = _occupancy.get(key)
     if bps is None:
@@ -117,11 +139,11 @@ def _grid(lib: ctypes.CDLL, dev: torch.device, m: int, d: int, k: int
         _check(lib.spartan_kmeans_blocks_per_sm(d, k, ctypes.byref(out)),
                "occupancy query")
         if out.value < 1:
-            raise RuntimeError(f"k-means kernel cannot run one block with "
-                               f"{_smem_bytes(d, k)}B of shared memory")
+            raise RuntimeError(f"k-means kernel cannot run one block of "
+                               f"d={d}, k={k}")
         bps = _occupancy[key] = out.value
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-m // _TILE), bps * sms))
+    return _grid_size(m, bps, sms)
 
 
 def _launch(points: torch.Tensor, centers: torch.Tensor, k: int,
@@ -138,7 +160,7 @@ def _launch(points: torch.Tensor, centers: torch.Tensor, k: int,
     lib = _load()
     dev = points.device
     with torch.cuda.device(dev):
-        grid = _grid(lib, dev, max(valid, 1), d, k)
+        grid = _grid(lib, dev, valid, d, k)
         part_sums = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
         part_cnt = torch.empty((grid, k), dtype=torch.float32, device=dev)
         sums = torch.empty((k, d), dtype=torch.float32, device=dev)

@@ -19,7 +19,7 @@ device raises, and so does a CUDA tensor the kernel cannot take.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +33,15 @@ LAUNCHES: Dict[str, int] = {"shard_topk": 0}
 
 MAX_K = 128
 IDX_INF = 2 ** 30  # index of an empty slot, before the clamp to m - 1
-# keys one CTA of the kernel's first pass takes
-_CHUNK = 16384
+# keys one CTA of the kernel's first pass reads per step (256 threads x
+# four 16-byte vectors), and its CTAs per SM (the kernel's launch bounds)
+_STEP = 4096
+_CTAS_PER_SM = 4
+# candidate words one CTA of the second pass takes
+_PASS2_WORDS = 1024
+# the first pass seeds its threshold from _RUNS runs of _RUN_LEN keys
+_RUNS = 8
+_RUN_LEN = 128
 
 
 def order_key(key: torch.Tensor) -> torch.Tensor:
@@ -90,6 +97,29 @@ def shard_topk_plain(key: torch.Tensor, k: int,
     return keys, idx.clamp_(max=max(m - 1, 0)).to(torch.int32)
 
 
+def _chunking(rows: int, m: int, sms: int) -> Tuple[int, int]:
+    """``(chunk, chunks)`` of the kernel's first pass: each of ``rows``
+    rows of ``m`` keys is cut into ``chunks`` chunks of ``chunk`` keys
+    (the last one shorter), one CTA each, so that all rows together make
+    about ``_CTAS_PER_SM`` CTAs per SM of ``sms``, one wave. A chunk is a
+    whole number of steps; pass 2 then weighs ``chunks * k`` words per
+    row, ``_PASS2_WORDS`` a CTA."""
+    want = max(1, (_CTAS_PER_SM * sms) // rows)
+    per_cta = -(-m // want)
+    chunk = -(-per_cta // _STEP) * _STEP
+    return chunk, -(-m // chunk)
+
+
+def _sample_runs(n: int) -> List[int]:
+    """Chunk-relative starts of the runs of ``_RUN_LEN`` keys from which
+    the first pass seeds a chunk of ``n`` keys, spread from its first
+    key to its last (none when the chunk holds at most ``_RUNS *
+    _RUN_LEN`` keys: the seed then takes them all)."""
+    if n <= _RUNS * _RUN_LEN:
+        return []
+    return [r * (n - _RUN_LEN) // (_RUNS - 1) for r in range(_RUNS)]
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.spartan_shard_topk.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32,
@@ -110,19 +140,21 @@ def _sentinel_bits(sentinel, dtype) -> int:
 
 def _launch(key: torch.Tensor, k: int, sentinel):
     b, m = key.shape
-    chunks = -(-m // _CHUNK)
     lib = _load()
     dev = key.device
+    chunk, chunks = _chunking(
+        b, m, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
         cand1 = torch.empty((b, chunks, k), dtype=torch.int64, device=dev)
-        cand2 = torch.empty((b, k), dtype=torch.int64, device=dev)
+        cand2 = torch.empty((b, -(-chunks * k // _PASS2_WORDS), k),
+                            dtype=torch.int64, device=dev)
         out_keys = torch.empty((b, k), dtype=key.dtype, device=dev)
         out_idx = torch.empty((b, k), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spartan_shard_topk(
             key.data_ptr(), cand1.data_ptr(), cand2.data_ptr(),
             out_keys.data_ptr(), out_idx.data_ptr(), b, m, k,
-            int(key.dtype == torch.float32), _CHUNK, chunks,
+            int(key.dtype == torch.float32), chunk, chunks,
             _sentinel_bits(sentinel, key.dtype), stream)
     build_mod.check(err, "shard_topk kernel launch")
     LAUNCHES["shard_topk"] += 1

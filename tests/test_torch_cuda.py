@@ -62,6 +62,46 @@ def test_kernel_is_deterministic(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(128, 1), (128, 7), (128, 128), (256, 1),
+                                 (256, 7), (256, 112)])
+@pytest.mark.parametrize("valid", [None, 5_001])
+def test_kernel_center_and_row_edges(card, d, k, valid):
+    """Center counts off the 64-center register block, both staging
+    routes (d = 256 or k = 128 read the rows from global memory) and a
+    valid_rows that ends inside a 128-row tile. At d = 256, k = 112 is
+    the most centers the kernel's limits take (k = 128 raises)."""
+    pts, c0 = _clustered(6144, d, k, seed=10 * d + k)
+    p, c = torch.from_numpy(pts).to(card), torch.from_numpy(c0).to(card)
+    before = kk.LAUNCHES
+    s_k, n_k = kk.assign_accumulate(p, c, k, valid)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES == before + 1
+    s_p, n_p = kk.assign_accumulate_plain(p, c, k, valid)
+    torch.testing.assert_close(n_k, n_p, rtol=0, atol=0)
+    torch.testing.assert_close(s_k, s_p, rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,twin", [(2, 1), (64, 37), (64, 63), (70, 65)])
+def test_kernel_first_of_identical_centers_wins(card, k, twin):
+    """Center `twin` repeats center `twin - 1`: their scores tie, and the
+    lower index takes every row of that cluster (as argmin does). The
+    reference is the plain version without the twin, with an empty
+    cluster in its place."""
+    pts, c0 = _clustered(4096, 128, k, seed=k + twin)
+    c0[twin] = c0[twin - 1]
+    p, c = torch.from_numpy(pts).to(card), torch.from_numpy(c0).to(card)
+    s_k, n_k = kk.assign_accumulate(p, c, k)
+    keep = [i for i in range(k) if i != twin]
+    s_p, n_p = kk.assign_accumulate_plain(p, c[keep], k - 1)
+    s_p = torch.cat([s_p[:twin], torch.zeros_like(s_p[:1]), s_p[twin:]])
+    n_p = torch.cat([n_p[:twin], torch.zeros_like(n_p[:1]), n_p[twin:]])
+    assert n_k[twin].item() == 0 and n_k[twin - 1].item() > 0
+    torch.testing.assert_close(n_k, n_p, rtol=0, atol=0)
+    torch.testing.assert_close(s_k, s_p, rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,k", [(100, 8), (512, 128)])
 def test_cuda_tensor_never_falls_back(card, d, k):
     """A shape the kernel cannot take raises on the card; it never
@@ -255,6 +295,106 @@ def test_shard_topk_matches_plain(card, case, k):
     assert torch.equal(out_k.view(torch.int32), ref_k.view(torch.int32))
     again = kt.shard_topk(key, k, sentinel)
     assert torch.equal(again[1], out_i)
+
+
+def _topk_hard_rows(case, gen, card):
+    """Rows that stress the kernel's seed, scan and merges: (keys,
+    sentinel)."""
+    ninf = float("-inf")
+    if case == "ascending":
+        return torch.sort(torch.rand((4, 300_001), generator=gen,
+                                     device=card), 1).values, ninf
+    if case == "descending":
+        return torch.sort(torch.rand((4, 300_001), generator=gen,
+                                     device=card), 1,
+                          descending=True).values, ninf
+    if case == "odd_length":  # rows start off 16-byte boundaries
+        return torch.rand((5, 131_075), generator=gen, device=card), ninf
+    if case == "unaligned_view":
+        flat = torch.rand(3 * 250_000 + 1, generator=gen, device=card)
+        return flat[1:].view(3, 250_000), ninf
+    if case == "shorter_than_a_chunk":
+        return torch.rand((6, 3_001), generator=gen, device=card), ninf
+    if case == "shorter_than_the_sample":
+        return torch.rand((6, 1_000), generator=gen, device=card), ninf
+    if case == "max_ties":  # 10,000 equal maximal keys per row
+        key = torch.rand((4, 400_000), generator=gen, device=card)
+        pos = torch.randperm(400_000, generator=gen, device=card)[:10_000]
+        key[:, pos] = 2.0
+        return key, ninf
+    if case == "all_equal_int32":
+        return torch.full((2, 500_000), 7, dtype=torch.int32,
+                          device=card), -2 ** 31
+    if case in ("burst_after_zeros", "burst_after_noise"):
+        shape = (8, 1 << 23)
+        back = (torch.zeros(shape, device=card) if case == "burst_after_zeros"
+                else torch.rand(shape, generator=gen, device=card))
+        return _topk_burst(back, gen), ninf
+    raise ValueError(case)
+
+
+def _topk_burst(key, gen):
+    """In every chunk of the kernel's first pass: 10 keys of 1.5 in the
+    step before a step-aligned burst of 8192 keys in [2, 3) that lies
+    between two sampled runs, so that one merge takes the 10 waiting
+    words and a whole step of survivors, more than 4096 words."""
+    from spartan_tpu_torch.kernels import topk as kt
+
+    rows, m = key.shape
+    step, run = kt._STEP, kt._RUN_LEN
+    sms = torch.cuda.get_device_properties(key.device).multi_processor_count
+    chunk, chunks = kt._chunking(rows, m, sms)
+    for c in range(chunks):
+        lo, n = c * chunk, min(chunk, m - c * chunk)
+        runs = kt._sample_runs(n)
+
+        def clear(a, b):
+            return not any(r < b and a < r + run for r in runs)
+
+        starts = [s for s in range(step, n - 2 * step + 1, step)
+                  if clear(s, s + 2 * step) and clear(s - step, s - step + 10)]
+        assert starts, "the chunk has no room for the burst"
+        s = lo + starts[0]
+        key[:, s - step:s - step + 10] = 1.5
+        key[:, s:s + 2 * step] = 2.0 + torch.rand(
+            (rows, 2 * step), generator=gen, device=key.device)
+    return key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "ascending", "descending", "odd_length", "unaligned_view",
+    "shorter_than_a_chunk", "shorter_than_the_sample", "max_ties",
+    "all_equal_int32", "burst_after_zeros", "burst_after_noise"])
+@pytest.mark.parametrize("k", [1, 7, 128])
+def test_shard_topk_hard_rows(card, case, k):
+    from spartan_tpu_torch.kernels import topk as kt
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(100 + k)
+    key, sentinel = _topk_hard_rows(case, gen, card)
+    before = kt.LAUNCHES["shard_topk"]
+    out_k, out_i = kt.shard_topk(key, k, sentinel)
+    torch.cuda.synchronize()
+    assert kt.LAUNCHES["shard_topk"] == before + 1
+    ref_k, ref_i = kt.shard_topk_plain(key, k, sentinel)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_k.view(torch.int32), ref_k.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_shard_topk_is_deterministic(card):
+    """Two launches on the same keys give the same bits (the order is
+    total, so there is one answer whatever the merges' timing)."""
+    from spartan_tpu_torch.kernels import topk as kt
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(7)
+    key = torch.randint(0, 50, (8, 1 << 21), generator=gen, device=card,
+                        dtype=torch.int32)
+    a = kt.shard_topk(key, 128, -2 ** 31)
+    b = kt.shard_topk(key, 128, -2 ** 31)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda
