@@ -9,7 +9,8 @@ Phases, in order; any failure exits nonzero before the result line:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA source of ``spartan_tpu_torch/csrc`` with
    nvcc for sm_90a, one nvcc per source, all at once, and prints each
-   kernel's registers and spills;
+   kernel's registers and spills, and the bincount routes' shared
+   memory and CTAs an SM;
 3. kernel vs plain: each kernel against its plain torch version on the
    card, at the main paths' shapes and at edge shapes, and each kernel
    rerun against its first run bit for bit;
@@ -24,7 +25,8 @@ Phases, in order; any failure exits nonzero before the result line:
    iteration's time goes;
 7. main path, naive Bayes (20 classes, 2,048 features, 262,144 rows of
    counts) under ``native_kernels=on``: segment-kernel launches, tables
-   bit-equal to the plain-driven fit, prediction accuracy;
+   bit-equal to the plain-driven fit, prediction accuracy, and the
+   kernel's time at that shape beside its bound and ``index_add_``'s;
 8. the segment-sum A/B at 1M x 128, k = 64 (kernel, ``index_add_``,
    one-hot product);
 9. main path, sort (2^26 uniform f32 keys under a logical (8, 1) mesh):
@@ -36,7 +38,10 @@ Phases, in order; any failure exits nonzero before the result line:
     on int32 data dense with ties, with ``shard_topk`` launches;
 11. main path, histogram: ``st.histogram`` with and without a range and
     ``st.unique(..., return_counts=True)`` on 2^26 int32 ids, against
-    numpy, with ``bincount_block`` launches;
+    numpy, with ``bincount_block`` launches; the kernel's time at each
+    shape the path launches (and at two more) beside its bound and
+    ``torch.bincount``'s, a torch reduction over the same ids as the
+    read floor, and its two routes on the same ids;
 12. the ``kernels`` line (times, launches, bounds) and the result line.
 
 Imports torch, numpy and the port only.
@@ -151,6 +156,25 @@ def phase_build(build_mod, libs) -> None:
     _say("[build] stencil routes: C <= 4 -> conv_kernel (SIMT, FP32 FMAs); "
          "C > 4 -> conv_mma_kernel<S> (3xTF32 mma.sync, S cp.async "
          "staging slots, 2 where they fit)")
+
+
+def _histogram_routes(kh, dev) -> None:
+    """Each bincount route at the path's lengths: its dynamic shared
+    memory a CTA, CTAs an SM (the occupancy query) and flush interval;
+    the ptxas lines above give each kernel's registers."""
+    lib = kh._load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for length in (HIST_BINS, kh.PRIVATE_MAX, kh.PRIVATE_MAX + 1,
+                   UNIQ_SIZE):
+        slots = kh._card_slots(lib, dev, length)
+        plan = kh._plan(length, SORT_N, 0, slots)
+        _say(f"[build] histogram length {length}: {plan.route} route "
+             f"({plan.route}_kernel), {plan.smem} B shared memory a CTA, "
+             f"{slots // sms} CTAs an SM, "
+             f"{plan.ctas} CTAs at e = {SORT_N}"
+             + (f", flush every {plan.flush} chunks"
+                if plan.route == "private" else
+                f", {plan.copies} sub-histogram(s) a CTA"))
 
 
 # -- phase 3 ------------------------------------------------------------
@@ -706,12 +730,24 @@ def phase_naive_bayes(st, kk, ks, nb, card: str, dev) -> dict:
         fit_s()
         best = min(fit_s() for _ in range(3))
         ms = _event_ms(lambda: ks.segment_sum_block(x, yt, NB_CLASSES), 10)
+        lib_ms = _event_ms(lambda: torch.zeros(
+            (NB_CLASSES, NB_FEATURES), device=dev).index_add_(0, yt, x), 10)
+        flops_peak, bw_peak = _peaks(card)
+        nbytes = 4.0 * (NB_ROWS * NB_FEATURES + NB_ROWS
+                        + NB_CLASSES * NB_FEATURES)
+        t_bytes = nbytes / bw_peak * 1e3
+        t_ops = NB_ROWS * NB_FEATURES / flops_peak * 1e3
+        bound_ms = max(t_bytes, t_ops)
         _say(f"[naive_bayes] fit {best * 1e3:.2f} ms (best of 3); "
              f"segment kernel at {NB_ROWS} x {NB_FEATURES}, k = "
-             f"{NB_CLASSES}: {ms:.4f} ms on {card}")
+             f"{NB_CLASSES}: {ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
+             f"bound {bound_ms:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}; "
+             f"bytes {nbytes / 1e9:.4f} GB in {t_bytes:.4f} ms, additions "
+             f"{t_ops:.4f} ms) on {card}")
     finally:
         st.FLAGS.native_kernels, st.FLAGS.segment_impl = prev
-    return {"launches": launches}
+    return {"launches": launches, "ms": ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms}
 
 
 # -- phase 8, segment A/B ---------------------------------------------------
@@ -949,6 +985,34 @@ def phase_bincount_kernel(kh, dev) -> float:
                           "histogram phase shape")
     _bincount_case(kh, torch.sort(ids(0, UNIQ_HIGH, SORT_N)).values,
                    UNIQ_SIZE, "unique phase shape (sorted ranks)")
+    _bincount_case(kh, ids(0, UNIQ_SIZE, SORT_N), UNIQ_SIZE,
+                   "uniform ids over 4096 buckets")
+    plan = kh._plan(HIST_BINS, SORT_N, 0,
+                    kh._card_slots(kh._load(), dev, HIST_BINS))
+    # the most chunks a CTA takes; past `flush` of them a thread's
+    # counter would pass 255 without the flush in between
+    per_cta = -(-plan.nvec // (kh._THREADS * kh._VECS) // plan.ctas)
+    if plan.route != "private" or per_cta <= plan.flush:
+        _fail(f"the one-bucket case would not need a flush: {plan}")
+    _bincount_case(kh, torch.full((SORT_N,), HIST_BINS - 1,
+                                  dtype=torch.int32, device=dev), HIST_BINS,
+                   f"all ids in one bucket (up to {per_cta} chunks a CTA, "
+                   f"{4 * kh._VECS * per_cta} ids a thread's counter; it "
+                   f"flushes at {4 * kh._VECS * plan.flush})")
+    _bincount_case(kh, torch.full((1 << 20,), 5, dtype=torch.int32,
+                                  device=dev), UNIQ_SIZE,
+                   "all ids in one bucket, shared route")
+    for length in (HIST_BINS, UNIQ_SIZE):
+        _bincount_case(kh, ids(-1000, 0, 1 << 22), length,
+                       "all ids negative")
+        _bincount_case(kh, ids(-3, length + 3, 1_000_004)[1:], length,
+                       "int32 view at a 4-byte offset (ids[1:])")
+    for e in (1, 3, 5):
+        _bincount_case(kh, ids(-1, 11, e), 10, f"e = {e}")
+    for length in (kh.PRIVATE_MAX, kh.PRIVATE_MAX + 1):
+        _bincount_case(kh, ids(-5, length + 10, 1_000_003), length,
+                       "length L" + ("" if length == kh.PRIVATE_MAX
+                                     else " + 1"))
     _bincount_case(kh, ids(-50, 4200, 1_000_003), 4096,
                    "negatives, ids >= length, length 4096, e % 512 != 0")
     _bincount_case(kh, ids(-3, 14, 1003, torch.int64), 10, "int64 ids")
@@ -1184,6 +1248,57 @@ def _np_edges(lo, hi, bins: int) -> np.ndarray:
     return np.append(lo * (f32(1) - step) + hi * step, hi).astype(f32)
 
 
+def _route_ab(kh, dev, card: str) -> None:
+    """Both routes of the bincount kernel on the same uniform ids at 2 and
+    64 buckets, through the entry point with a plan of each route, in
+    turns (private, shared, shared, private): the measurement behind
+    counting short rows in private counters."""
+    import ctypes
+
+    lib = kh._load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    for length in (2, HIST_BINS):
+        ids = torch.randint(0, length, (SORT_N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        want = torch.bincount(ids, minlength=length).to(torch.int32)
+        base = kh._plan(length, SORT_N, 0, 1)
+        plans = {}
+        for route, copies, smem in (
+                kh._layout(length),
+                ("shared", kh._WARPS, 4 * length * kh._WARPS)):
+            per_sm = ctypes.c_int(0)
+            lib.spartan_bincount_ctas_per_sm(kh.ROUTES[route], smem,
+                                             ctypes.byref(per_sm))
+            chunks = -(-base.nvec // (kh._THREADS * kh._VECS))
+            plans[route] = base._replace(
+                route=route, copies=copies, smem=smem,
+                ctas=max(1, min(per_sm.value * sms, chunks)))
+
+        def run(plan):
+            out = torch.zeros((length,), dtype=torch.int32, device=dev)
+            kh.build_mod.check(lib.spartan_bincount(
+                ids.data_ptr(), plan.head, plan.nvec, plan.tail, length,
+                out.data_ptr(), kh.ROUTES[plan.route], plan.copies,
+                plan.flush, plan.smem, plan.ctas,
+                torch.cuda.current_stream(dev).cuda_stream), "route A/B")
+            return out
+
+        for plan in plans.values():
+            if not torch.equal(run(plan), want):
+                _fail(f"bincount {plan.route} route miscounts at "
+                      f"length {length}")
+        p1 = _event_ms(lambda: run(plans["private"]), 20)
+        s1 = _event_ms(lambda: run(plans["shared"]), 20)
+        s2 = _event_ms(lambda: run(plans["shared"]), 20)
+        p2 = _event_ms(lambda: run(plans["private"]), 20)
+        _say(f"[histogram] route A/B at {SORT_N} uniform ids, {length} "
+             f"buckets: private {p1:.4f} / {p2:.4f} ms, shared ("
+             f"{kh._WARPS} sub-histograms) {s1:.4f} / {s2:.4f} ms on "
+             f"{card}")
+
+
 def phase_histogram(st, kk, kh, x, card: str, dev) -> dict:
     from spartan_tpu_torch.array.distarray import from_tensor
 
@@ -1247,23 +1362,41 @@ def phase_histogram(st, kk, kh, x, card: str, dev) -> dict:
          f"on {card}")
     _device_split(lambda: st.histogram(X, bins=HIST_BINS, range=(
         0.0, 1.0))[0].evaluate(), "histogram", card)
-    ms = _event_ms(lambda: kh.bincount_block(bucket, HIST_BINS), 10)
+    _, bw_peak = _peaks(card)
+    ranks = torch.sort(ids).values
+    shapes = {}
+    # the path's two shapes (64 buckets x2, sorted ranks x1), then two
+    # more for the design: uniform over 4096 buckets, one hot bucket
+    for label, ids_s, length in (
+            ("64 buckets (histogram)", bucket, HIST_BINS),
+            ("4096 buckets, sorted ranks (unique)", ranks, UNIQ_SIZE),
+            ("4096 buckets, uniform", ids, UNIQ_SIZE),
+            ("64 buckets, one hot bucket", torch.full_like(bucket, 7),
+             HIST_BINS)):
+        ms = _event_ms(lambda: kh.bincount_block(ids_s, length), 20)
+        lib_ms = _event_ms(
+            lambda: torch.bincount(ids_s, minlength=length), 10)
+        bound_ms = 4.0 * (n + length) / bw_peak * 1e3
+        shapes[label] = (ms, lib_ms, bound_ms)
+        _say(f"[histogram] bincount_block at {n} ids, {label}: kernel "
+             f"{ms:.4f} ms, library {lib_ms:.4f} ms (torch.bincount), "
+             f"bound {bound_ms:.4f} ms (bytes; {100.0 * bound_ms / ms:.1f}% "
+             f"of it) on {card}")
+    read_ms = _event_ms(lambda: bucket.max(), 20)
+    _say(f"[histogram] read floor: torch's max over the same {n} int32 "
+         f"ids {read_ms:.4f} ms ({4.0 * n / read_ms / 1e9:.2f} TB/s) on "
+         f"{card}")
+    _route_ab(kh, dev, card)
     plain_ms = _event_ms(lambda: kh.bincount_block_plain(bucket, HIST_BINS),
                          3, warmup=1)
-    lib_ms = _event_ms(lambda: torch.bincount(bucket, minlength=HIST_BINS),
-                       10)
-    ranks = torch.sort(ids).values
-    uniq_ms = _event_ms(lambda: kh.bincount_block(ranks, UNIQ_SIZE), 10)
-    _, bw_peak = _peaks(card)
-    nbytes = 4.0 * (n + HIST_BINS)
-    bound_ms = nbytes / bw_peak * 1e3
-    _say(f"[histogram] bincount_block at {n} ids, {HIST_BINS} buckets: "
-         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-         f"{lib_ms:.4f} ms (torch.bincount), bound {bound_ms:.4f} ms "
-         f"(bytes); at {n} sorted ranks, {UNIQ_SIZE} buckets: kernel "
-         f"{uniq_ms:.4f} ms, on {card}")
+    _say(f"[histogram] bincount_block_plain at {n} ids, 64 buckets: "
+         f"{plain_ms:.4f} ms on {card}")
+    ms, lib_ms, bound_ms = shapes["64 buckets (histogram)"]
+    u_ms, u_lib, u_bound = shapes["4096 buckets, sorted ranks (unique)"]
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "unique_ms": u_ms, "unique_library_ms": u_lib,
+            "unique_bound_ms": u_bound}
 
 
 # -- stencil: conv_block against its plain version --------------------------
@@ -1618,6 +1751,7 @@ def main() -> None:
     _COUNTED[:] = [ks, kx, kt, kh, kst]
     phase_build(build_mod, (kk._load, ks._load, kx._load, kt._load,
                             kh._load, kst._load))
+    _histogram_routes(kh, dev)
     max_err = phase_kernel_vs_plain(kk, dev)
     phase_pack_kernel(kx, dev)
     topk_err = phase_topk_kernel(kt, dev)
@@ -1666,7 +1800,9 @@ def main() -> None:
         "launches": nbr["launches"], "max_abs_err": seg_err["block_err"],
         "ms": abr["ms"], "plain_ms": abr["plain_ms"],
         "bound_ms": abr["bound_ms"], "bound_by": abr["bound_by"],
-        "library_ms": abr["library_ms"]}, {
+        "library_ms": abr["library_ms"], "naive_bayes_ms": nbr["ms"],
+        "naive_bayes_bound_ms": nbr["bound_ms"],
+        "naive_bayes_library_ms": nbr["library_ms"]}, {
         "name": "partition_pack", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/exchange.cu",
         "replaces": "spartan_tpu/kernels/exchange.py:31",
@@ -1687,7 +1823,9 @@ def main() -> None:
         "launches": histr["launches"], "max_abs_err": hist_err,
         "ms": histr["ms"], "plain_ms": histr["plain_ms"],
         "bound_ms": histr["bound_ms"], "bound_by": histr["bound_by"],
-        "library_ms": histr["library_ms"]}, {
+        "library_ms": histr["library_ms"], "unique_ms": histr["unique_ms"],
+        "unique_bound_ms": histr["unique_bound_ms"],
+        "unique_library_ms": histr["unique_library_ms"]}, {
         "name": "conv_block", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/stencil.cu",
         "replaces": "spartan_tpu/kernels/stencil.py:32",

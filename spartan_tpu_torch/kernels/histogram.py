@@ -10,7 +10,11 @@ logical mesh: the id stream padded to whole row shards (padding ids are
 On CUDA tensors the wrappers launch ``spartan_tpu_torch/csrc/
 histogram.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, bound
 through ``ctypes``), which counts all shards' ids in one launch into
-int32; on CPU tensors they run :func:`bincount_block_plain`, the TPU
+int32. :func:`_plan` decides each launch: the route (per-thread 8-bit
+counters up to ``PRIVATE_MAX`` buckets, shared int32 sub-histograms
+above), its shared memory, the flush interval, the split of the ids
+into a scalar head, 16-byte vectors and a scalar tail, and the grid. On
+CPU tensors they run :func:`bincount_block_plain`, the TPU
 kernel's formulation (a f32 one-hot per 512-id block, reduced over the
 block); any other device raises. Counting in int32 instead of the TPU's
 f32 gives the same result wherever the TPU's count is exact: below 2**24
@@ -21,7 +25,7 @@ does in the JAX package.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,8 +40,63 @@ LAUNCHES: Dict[str, int] = {"bincount_block": 0}
 _BLOCK_E = 512
 # one-hot elements the plain version materialises per step
 _ONEHOT_BUDGET = 1 << 24
-# CTAs per SM of the kernel
-_CTAS_PER_SM = 4
+
+# geometry of the CUDA kernel (csrc/histogram.cu): threads a CTA, 16-byte
+# vectors a thread loads per chunk, warps a CTA
+_THREADS = 256
+_VECS = 8
+_WARPS = _THREADS // 32
+# lengths up to this count in the private route: 8-bit counters, one
+# column per thread ([bucket][thread] bytes) beside an int32 row
+PRIVATE_MAX = 128
+_COUNTER_MAX = 255
+# the shared route's sub-histograms a CTA stay within this many bytes
+# (one copy when a single row is larger)
+_SHARED_BUDGET = 16 * 1024
+ROUTES = {"private": 0, "shared": 1}
+
+
+class Plan(NamedTuple):
+    """One launch of ``csrc/histogram.cu``: the route, its sub-histograms
+    (shared route) and chunks between flushes (private route), its
+    dynamic shared memory, the split of the ids into a scalar head, a
+    body of 16-byte vectors and a scalar tail, and the grid."""
+    route: str
+    copies: int
+    flush: int
+    smem: int
+    head: int
+    nvec: int
+    tail: int
+    ctas: int
+
+
+def _layout(length: int) -> Tuple[str, int, int]:
+    """``(route, copies, smem bytes)`` for ``length`` buckets. Private:
+    an int32 row, then ``length`` rows of ``_THREADS`` byte counters.
+    Shared: ``copies`` int32 rows, one per warp where they fit
+    ``_SHARED_BUDGET`` (halved until they do, at least one)."""
+    if length <= PRIVATE_MAX:
+        return "private", 1, length * (4 + _THREADS)
+    copies = _WARPS
+    while copies > 1 and 4 * length * copies > _SHARED_BUDGET:
+        copies //= 2
+    return "shared", copies, 4 * length * copies
+
+
+def _plan(length: int, e: int, misalign: int, slots: int) -> Plan:
+    """The launch for ``e`` ids whose first lies ``misalign`` 4-byte words
+    past a 16-byte boundary, on a card that holds ``slots`` CTAs of this
+    route at once: one CTA per chunk of ``_THREADS * _VECS`` vectors, at
+    most ``slots`` (CTAs then walk the chunks grid-stride), at least
+    one. A private counter takes at most ``4 * _VECS`` ids a chunk, so
+    ``flush`` chunks keep it at or below ``_COUNTER_MAX``."""
+    route, copies, smem = _layout(length)
+    head = min(e, -misalign % 4)
+    nvec = (e - head) // 4
+    chunks = -(-nvec // (_THREADS * _VECS))
+    return Plan(route, copies, _COUNTER_MAX // (4 * _VECS), smem, head,
+                nvec, e - head - 4 * nvec, max(1, min(slots, chunks)))
 
 
 def cuda_limits(length: int, e: int) -> str:
@@ -77,13 +136,40 @@ def bincount_block_plain(ids: torch.Tensor, length: int,
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.spartan_bincount.argtypes = [vp, i64, i32, vp, i32, vp]
+    lib.spartan_bincount_ctas_per_sm.argtypes = [i32, i32,
+                                                 ctypes.POINTER(i32)]
+    lib.spartan_bincount_ctas_per_sm.restype = i32
+    lib.spartan_bincount.argtypes = [vp, i32, i64, i32, i32, vp, i32, i32,
+                                     i32, i32, i32, vp]
     lib.spartan_bincount.restype = i32
 
 
 def _load() -> ctypes.CDLL:
     """``csrc/histogram.cu``, built with nvcc for sm_90a at first use."""
     return build_mod.load("histogram", _bind)
+
+
+_slots: Dict[Tuple[int, int], int] = {}
+
+
+def _card_slots(lib: ctypes.CDLL, dev: torch.device, length: int) -> int:
+    """CTAs of ``length``'s route and footprint that the card holds at
+    once (the occupancy query times the SMs), cached per device and
+    length."""
+    key = (dev.index or 0, length)
+    slots = _slots.get(key)
+    if slots is None:
+        route, _, smem = _layout(length)
+        per_sm = ctypes.c_int(0)
+        build_mod.check(lib.spartan_bincount_ctas_per_sm(
+            ROUTES[route], smem, ctypes.byref(per_sm)),
+            "bincount_block occupancy query")
+        if per_sm.value < 1:
+            raise RuntimeError(f"bincount_block kernel cannot hold one CTA "
+                               f"of {length} buckets on an SM")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slots = _slots[key] = per_sm.value * sms
+    return slots
 
 
 def _launch(ids: torch.Tensor, length: int) -> torch.Tensor:
@@ -94,12 +180,14 @@ def _launch(ids: torch.Tensor, length: int) -> torch.Tensor:
     lib = _load()
     dev = ids.device
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        ctas = max(1, min(_CTAS_PER_SM * sms, -(-ids.numel() // 512)))
+        plan = _plan(length, ids.numel(), (ids.data_ptr() // 4) % 4,
+                     _card_slots(lib, dev, length))
         out = torch.zeros((length,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.spartan_bincount(ids.data_ptr(), ids.numel(), length,
-                                   out.data_ptr(), ctas, stream)
+        err = lib.spartan_bincount(
+            ids.data_ptr(), plan.head, plan.nvec, plan.tail, length,
+            out.data_ptr(), ROUTES[plan.route], plan.copies, plan.flush,
+            plan.smem, plan.ctas, stream)
     build_mod.check(err, "bincount_block kernel launch")
     LAUNCHES["bincount_block"] += 1
     return out

@@ -397,10 +397,29 @@ def test_shard_topk_is_deterministic(card):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def _bincount_ref(ids: torch.Tensor, length: int) -> torch.Tensor:
+    """jnp.bincount's rule by torch.bincount: ids as int32, negatives in
+    bucket 0, ids >= length dropped."""
+    ids = ids.reshape(-1).to(torch.int32).clamp_min(0).long()
+    return torch.bincount(ids[ids < length], minlength=length)[
+        :length].to(torch.int32)
+
+
+# csrc/histogram.cu counts lengths up to PRIVATE_MAX (128) in 8-bit
+# per-thread counters and longer ones in shared int32 sub-histograms
 @pytest.mark.cuda
 @pytest.mark.parametrize("lo,hi,e,length", [
     (0, 64, 1 << 22, 64), (-50, 4200, 1_000_003, 4096), (0, 1, 7, 1),
-    (-3, 14, 1003, 10)])
+    (-3, 14, 1003, 10),
+    # one hot bucket, in each route
+    (5, 6, 1 << 22, 64), (7, 8, 1 << 22, 4096),
+    # all negative ids: bucket 0 takes them all
+    (-100, 0, 1 << 20, 64), (-100, 0, 1 << 20, 4096),
+    # e below one 16-byte vector, and one vector and one id
+    (0, 10, 1, 10), (0, 10, 3, 10), (0, 10, 5, 10), (0, 5000, 3, 4096),
+    # the last private length and the first shared one, and 4096
+    (-5, 140, 1_000_003, 128), (-5, 140, 1_000_003, 129),
+    (0, 4096, 1 << 22, 4096), (1, 2, 100_000, 1)])
 def test_bincount_matches_plain(card, lo, hi, e, length):
     from spartan_tpu_torch.kernels import histogram as kh
 
@@ -413,8 +432,97 @@ def test_bincount_matches_plain(card, lo, hi, e, length):
     torch.cuda.synchronize()
     assert kh.LAUNCHES["bincount_block"] == before + 1
     assert torch.equal(out, kh.bincount_block_plain(ids, length))
-    sorted_ids = torch.sort(ids).values  # one id per warp: aggregated adds
+    sorted_ids = torch.sort(ids).values  # runs: aggregated adds
     assert torch.equal(kh.bincount_block(sorted_ids, length), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("length", [64, 4096])
+def test_bincount_misaligned_view(card, offset, length):
+    """A view whose first id is not at a 16-byte boundary (the kernel's
+    scalar head) and whose end is not either (its scalar tail)."""
+    from spartan_tpu_torch.kernels import histogram as kh
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(offset)
+    base = torch.randint(-3, length + 3, (1_000_006,), generator=gen,
+                         device=card, dtype=torch.int32)
+    ids = base[offset:]
+    assert ids.data_ptr() % 16 == 4 * offset % 16
+    out = kh.bincount_block(ids, length)
+    assert torch.equal(out, kh.bincount_block_plain(ids, length))
+    assert torch.equal(out, _bincount_ref(ids, length))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [64, 4096])
+def test_bincount_int64_ids_wrap(card, length):
+    """int64 ids count as their int32 wrap, as astype does: 2**32 + 5
+    counts in bucket 5, 2**31 wraps negative and counts in bucket 0."""
+    from spartan_tpu_torch.kernels import histogram as kh
+
+    rng = np.random.RandomState(length)
+    ids = rng.randint(-2, length + 2, 50_001).astype(np.int64)
+    ids += rng.choice([0, 2 ** 32, -2 ** 32, 2 ** 33], ids.size)
+    ids[:7] = [2 ** 31, 2 ** 32 + 5, -2 ** 32 + 3, 2 ** 32 - 1, 0, -1,
+               length]
+    t = torch.from_numpy(ids).to(card)
+    out = kh.bincount_block(t, length)
+    want = np.bincount(np.clip(ids.astype(np.int32), 0, None)[
+        ids.astype(np.int32) < length], minlength=length)
+    assert np.array_equal(out.cpu().numpy(), want)
+    assert torch.equal(out, kh.bincount_block_plain(t, length))
+
+
+@pytest.mark.cuda
+def test_bincount_counters_flush(card):
+    """2**26 ids in one of 64 buckets: every thread's 8-bit counter
+    fills to its flush limit again and again (it would wrap after 255),
+    and the count comes out whole."""
+    from spartan_tpu_torch.kernels import histogram as kh
+
+    e = 1 << 26
+    plan = kh._plan(64, e, 0, kh._card_slots(kh._load(), card, 64))
+    # more chunks than one flush interval for every CTA
+    assert plan.route == "private"
+    assert plan.nvec > plan.ctas * plan.flush * kh._THREADS * kh._VECS
+    ids = torch.full((e,), 63, dtype=torch.int32, device=card)
+    out = kh.bincount_block(ids, 64)
+    assert int(out[63]) == e and int(out.sum()) == e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [64, 4096])
+def test_bincount_is_deterministic(card, length):
+    """Integer adds in any order: two launches give the same bits."""
+    from spartan_tpu_torch.kernels import histogram as kh
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(length)
+    ids = torch.randint(-1, length + 1, (1 << 24,), generator=gen,
+                        device=card, dtype=torch.int32)
+    assert torch.equal(kh.bincount_block(ids, length),
+                       kh.bincount_block(ids, length))
+
+
+@pytest.mark.cuda
+def test_bincount_every_accepted_length_launches(card):
+    """Every length the selection's bincount rule accepts (1 to 4096)
+    launches the kernel and counts right: no route is missing and no
+    footprint is refused."""
+    from spartan_tpu_torch.kernels import histogram as kh
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4096)
+    raw = torch.randint(0, 1 << 30, (4099,), generator=gen, device=card,
+                        dtype=torch.int32)
+    before = kh.LAUNCHES["bincount_block"]
+    for length in range(1, 4097):
+        ids = raw % (length + 4) - 2
+        assert torch.equal(kh.bincount_block(ids, length),
+                           _bincount_ref(ids, length)), length
+    assert kh.LAUNCHES["bincount_block"] == before + 4096
 
 
 @pytest.mark.cuda

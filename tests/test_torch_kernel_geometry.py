@@ -1,9 +1,11 @@
 """The launch geometry of the port's hand-written kernels, computed in
-Python on the CPU: the top-k kernel's chunking and the k-means
-kernel's staging, shared memory and grid."""
+Python on the CPU: the top-k kernel's chunking, the k-means kernel's
+staging, shared memory and grid, and the histogram kernel's plan."""
 
 import pytest
 
+from spartan_tpu_torch.kernels import build as kbuild
+from spartan_tpu_torch.kernels import histogram as khist
 from spartan_tpu_torch.kernels import kmeans as kkm
 from spartan_tpu_torch.kernels import topk as ktopk
 
@@ -81,3 +83,60 @@ def test_kmeans_grid_covers_every_tile(rows, per_sm, sms):
     taken = sorted(t for b in range(grid) for t in range(b, tiles, grid))
     assert taken == list(range(tiles))
     assert grid <= max(tiles, 1)
+
+
+# -- the histogram kernel (csrc/histogram.cu) ----------------------------
+
+_LENGTHS = [1, 64, khist.PRIVATE_MAX, khist.PRIVATE_MAX + 1, 4096]
+
+
+@pytest.mark.parametrize("length", _LENGTHS)
+@pytest.mark.parametrize("e", [1, 2 ** 26, 2 ** 31 - 1])
+@pytest.mark.parametrize("misalign", [0, 1, 3])
+@pytest.mark.parametrize("slots", [1, 8 * 132, 6 * 114])
+def test_bincount_plan(length, e, misalign, slots):
+    plan = khist._plan(length, e, misalign, slots)
+    # the selection accepts this length, so the kernel has a route whose
+    # shared memory one block may have
+    assert khist.cuda_limits(length, e) == ""
+    assert plan.route in khist.ROUTES
+    assert 0 < plan.smem <= kbuild.SMEM_PER_BLOCK
+    assert 1 <= plan.copies <= khist._WARPS
+    # every id once: the head up to the first 16-byte boundary, whole
+    # vectors from there, then fewer than one vector
+    assert plan.head + 4 * plan.nvec + plan.tail == e
+    assert 0 <= plan.head < 4 and 0 <= plan.tail < 4
+    assert (misalign + plan.head) % 4 == 0 or plan.head == e
+    # chunks of _THREADS * _VECS vectors walked grid-stride: CTA b takes
+    # chunks b, b + ctas, ...; each chunk once, every CTA at least one
+    # chunk when there are any, and no more CTAs than fit the card
+    chunk = khist._THREADS * khist._VECS
+    chunks = -(-plan.nvec // chunk)
+    assert 1 <= plan.ctas <= max(1, min(slots, chunks))
+    assert plan.ctas == 1 or plan.ctas <= chunks
+    if chunks <= 4096:
+        taken = sorted(c for b in range(plan.ctas)
+                       for c in range(b, chunks, plan.ctas))
+        assert taken == list(range(chunks))
+    if plan.route == "private":
+        # a thread adds 4 * _VECS ids a chunk to its 8-bit counters, and
+        # flushes every `flush` chunks: no counter can pass 255
+        assert 4 * khist._VECS * plan.flush <= 255
+        assert plan.flush >= 1
+    else:
+        # int32 sub-histograms: no bucket can count past e < 2**31
+        assert e < 2 ** 31
+
+
+def test_bincount_routes():
+    # 64 buckets (the histogram path) take the private route; every
+    # accepted length has a route, and the private one ends at PRIVATE_MAX
+    for length in range(1, 4097):
+        route, copies, smem = khist._layout(length)
+        assert route == ("private" if length <= khist.PRIVATE_MAX
+                         else "shared")
+        assert smem <= kbuild.SMEM_PER_BLOCK
+    assert khist._layout(64)[0] == "private"
+    # direct calls the limits accept, up to 58,112 buckets, fit too
+    assert khist.cuda_limits(58112, 10) == ""
+    assert khist._layout(58112)[2] <= kbuild.SMEM_PER_BLOCK
