@@ -9,8 +9,8 @@ Phases, in order; any failure exits nonzero before the result line:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA source of ``spartan_tpu_torch/csrc`` with
    nvcc for sm_90a, one nvcc per source, all at once, and prints each
-   kernel's registers and spills, and the bincount routes' shared
-   memory and CTAs an SM;
+   kernel's registers and spills, and the bincount kernel's
+   sub-histograms and CTAs an SM at the path's lengths;
 3. kernel vs plain: each kernel against its plain torch version on the
    card, at the main paths' shapes and at edge shapes, and each kernel
    rerun against its first run bit for bit;
@@ -40,8 +40,8 @@ Phases, in order; any failure exits nonzero before the result line:
     ``st.unique(..., return_counts=True)`` on 2^26 int32 ids, against
     numpy, with ``bincount_block`` launches; the kernel's time at each
     shape the path launches (and at two more) beside its bound and
-    ``torch.bincount``'s, a torch reduction over the same ids as the
-    read floor, and its two routes on the same ids;
+    ``torch.bincount``'s, and a torch reduction over the same ids as
+    the read floor;
 12. the ``kernels`` line (times, launches, bounds) and the result line.
 
 Imports torch, numpy and the port only.
@@ -158,23 +158,20 @@ def phase_build(build_mod, libs) -> None:
          "staging slots, 2 where they fit)")
 
 
-def _histogram_routes(kh, dev) -> None:
-    """Each bincount route at the path's lengths: its dynamic shared
-    memory a CTA, CTAs an SM (the occupancy query) and flush interval;
-    the ptxas lines above give each kernel's registers."""
+def _histogram_layout(kh, dev) -> None:
+    """The bincount kernel at the path's lengths and at the last and first
+    length of the copy count's step: its int32 sub-histograms a CTA and
+    CTAs an SM (the occupancy query); the ptxas lines above give its
+    registers."""
     lib = kh._load()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for length in (HIST_BINS, kh.PRIVATE_MAX, kh.PRIVATE_MAX + 1,
-                   UNIQ_SIZE):
+    last = kh._SHARED_BUDGET // (4 * kh._WARPS)
+    for length in (HIST_BINS, last, last + 1, UNIQ_SIZE):
         slots = kh._card_slots(lib, dev, length)
         plan = kh._plan(length, SORT_N, 0, slots)
-        _say(f"[build] histogram length {length}: {plan.route} route "
-             f"({plan.route}_kernel), {plan.smem} B shared memory a CTA, "
-             f"{slots // sms} CTAs an SM, "
-             f"{plan.ctas} CTAs at e = {SORT_N}"
-             + (f", flush every {plan.flush} chunks"
-                if plan.route == "private" else
-                f", {plan.copies} sub-histogram(s) a CTA"))
+        _say(f"[build] histogram length {length}: bincount_kernel, "
+             f"{plan.copies} int32 sub-histogram(s) of {length} a CTA, "
+             f"{slots // sms} CTAs an SM, {plan.ctas} CTAs at e = {SORT_N}")
 
 
 # -- phase 3 ------------------------------------------------------------
@@ -987,21 +984,12 @@ def phase_bincount_kernel(kh, dev) -> float:
                    UNIQ_SIZE, "unique phase shape (sorted ranks)")
     _bincount_case(kh, ids(0, UNIQ_SIZE, SORT_N), UNIQ_SIZE,
                    "uniform ids over 4096 buckets")
-    plan = kh._plan(HIST_BINS, SORT_N, 0,
-                    kh._card_slots(kh._load(), dev, HIST_BINS))
-    # the most chunks a CTA takes; past `flush` of them a thread's
-    # counter would pass 255 without the flush in between
-    per_cta = -(-plan.nvec // (kh._THREADS * kh._VECS) // plan.ctas)
-    if plan.route != "private" or per_cta <= plan.flush:
-        _fail(f"the one-bucket case would not need a flush: {plan}")
     _bincount_case(kh, torch.full((SORT_N,), HIST_BINS - 1,
                                   dtype=torch.int32, device=dev), HIST_BINS,
-                   f"all ids in one bucket (up to {per_cta} chunks a CTA, "
-                   f"{4 * kh._VECS * per_cta} ids a thread's counter; it "
-                   f"flushes at {4 * kh._VECS * plan.flush})")
+                   "all ids in one bucket")
     _bincount_case(kh, torch.full((1 << 20,), 5, dtype=torch.int32,
                                   device=dev), UNIQ_SIZE,
-                   "all ids in one bucket, shared route")
+                   "all ids in one bucket, one sub-histogram")
     for length in (HIST_BINS, UNIQ_SIZE):
         _bincount_case(kh, ids(-1000, 0, 1 << 22), length,
                        "all ids negative")
@@ -1009,10 +997,11 @@ def phase_bincount_kernel(kh, dev) -> float:
                        "int32 view at a 4-byte offset (ids[1:])")
     for e in (1, 3, 5):
         _bincount_case(kh, ids(-1, 11, e), 10, f"e = {e}")
-    for length in (kh.PRIVATE_MAX, kh.PRIVATE_MAX + 1):
+    # L: the last length with a sub-histogram per warp
+    last = kh._SHARED_BUDGET // (4 * kh._WARPS)
+    for length in (last, last + 1):
         _bincount_case(kh, ids(-5, length + 10, 1_000_003), length,
-                       "length L" + ("" if length == kh.PRIVATE_MAX
-                                     else " + 1"))
+                       f"length {'L' if length == last else 'L + 1'}")
     _bincount_case(kh, ids(-50, 4200, 1_000_003), 4096,
                    "negatives, ids >= length, length 4096, e % 512 != 0")
     _bincount_case(kh, ids(-3, 14, 1003, torch.int64), 10, "int64 ids")
@@ -1248,57 +1237,6 @@ def _np_edges(lo, hi, bins: int) -> np.ndarray:
     return np.append(lo * (f32(1) - step) + hi * step, hi).astype(f32)
 
 
-def _route_ab(kh, dev, card: str) -> None:
-    """Both routes of the bincount kernel on the same uniform ids at 2 and
-    64 buckets, through the entry point with a plan of each route, in
-    turns (private, shared, shared, private): the measurement behind
-    counting short rows in private counters."""
-    import ctypes
-
-    lib = kh._load()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(29)
-    for length in (2, HIST_BINS):
-        ids = torch.randint(0, length, (SORT_N,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        want = torch.bincount(ids, minlength=length).to(torch.int32)
-        base = kh._plan(length, SORT_N, 0, 1)
-        plans = {}
-        for route, copies, smem in (
-                kh._layout(length),
-                ("shared", kh._WARPS, 4 * length * kh._WARPS)):
-            per_sm = ctypes.c_int(0)
-            lib.spartan_bincount_ctas_per_sm(kh.ROUTES[route], smem,
-                                             ctypes.byref(per_sm))
-            chunks = -(-base.nvec // (kh._THREADS * kh._VECS))
-            plans[route] = base._replace(
-                route=route, copies=copies, smem=smem,
-                ctas=max(1, min(per_sm.value * sms, chunks)))
-
-        def run(plan):
-            out = torch.zeros((length,), dtype=torch.int32, device=dev)
-            kh.build_mod.check(lib.spartan_bincount(
-                ids.data_ptr(), plan.head, plan.nvec, plan.tail, length,
-                out.data_ptr(), kh.ROUTES[plan.route], plan.copies,
-                plan.flush, plan.smem, plan.ctas,
-                torch.cuda.current_stream(dev).cuda_stream), "route A/B")
-            return out
-
-        for plan in plans.values():
-            if not torch.equal(run(plan), want):
-                _fail(f"bincount {plan.route} route miscounts at "
-                      f"length {length}")
-        p1 = _event_ms(lambda: run(plans["private"]), 20)
-        s1 = _event_ms(lambda: run(plans["shared"]), 20)
-        s2 = _event_ms(lambda: run(plans["shared"]), 20)
-        p2 = _event_ms(lambda: run(plans["private"]), 20)
-        _say(f"[histogram] route A/B at {SORT_N} uniform ids, {length} "
-             f"buckets: private {p1:.4f} / {p2:.4f} ms, shared ("
-             f"{kh._WARPS} sub-histograms) {s1:.4f} / {s2:.4f} ms on "
-             f"{card}")
-
-
 def phase_histogram(st, kk, kh, x, card: str, dev) -> dict:
     from spartan_tpu_torch.array.distarray import from_tensor
 
@@ -1370,7 +1308,9 @@ def phase_histogram(st, kk, kh, x, card: str, dev) -> dict:
     for label, ids_s, length in (
             ("64 buckets (histogram)", bucket, HIST_BINS),
             ("4096 buckets, sorted ranks (unique)", ranks, UNIQ_SIZE),
-            ("4096 buckets, uniform", ids, UNIQ_SIZE),
+            ("4096 buckets, uniform", torch.randint(
+                0, UNIQ_SIZE, (n,), generator=gen, device=dev,
+                dtype=torch.int32), UNIQ_SIZE),
             ("64 buckets, one hot bucket", torch.full_like(bucket, 7),
              HIST_BINS)):
         ms = _event_ms(lambda: kh.bincount_block(ids_s, length), 20)
@@ -1386,7 +1326,6 @@ def phase_histogram(st, kk, kh, x, card: str, dev) -> dict:
     _say(f"[histogram] read floor: torch's max over the same {n} int32 "
          f"ids {read_ms:.4f} ms ({4.0 * n / read_ms / 1e9:.2f} TB/s) on "
          f"{card}")
-    _route_ab(kh, dev, card)
     plain_ms = _event_ms(lambda: kh.bincount_block_plain(bucket, HIST_BINS),
                          3, warmup=1)
     _say(f"[histogram] bincount_block_plain at {n} ids, 64 buckets: "
@@ -1751,7 +1690,7 @@ def main() -> None:
     _COUNTED[:] = [ks, kx, kt, kh, kst]
     phase_build(build_mod, (kk._load, ks._load, kx._load, kt._load,
                             kh._load, kst._load))
-    _histogram_routes(kh, dev)
+    _histogram_layout(kh, dev)
     max_err = phase_kernel_vs_plain(kk, dev)
     phase_pack_kernel(kx, dev)
     topk_err = phase_topk_kernel(kt, dev)

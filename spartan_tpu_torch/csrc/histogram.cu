@@ -15,8 +15,9 @@
 // buckets): the function reads 4 e bytes and writes 4 length, 268 MB over
 // 3.35 TB/s ~ 0.080 ms. So it is bound by bytes, and the design's aim is
 // to stream the ids at the card's rate and to spend at most a few
-// instructions, and no atomic, on each: at best as fast as a torch
-// reduction that reads the same ids (chip_smoke.py prints both).
+// instructions, and at most one shared atomic, on each: at best as fast
+// as a torch reduction that reads the same ids (chip_smoke.py prints
+// both).
 //
 // Stream. The wrapper (kernels/histogram.py::_plan) splits the ids into a
 // scalar head up to the first 16-byte boundary, a body of 16-byte
@@ -25,26 +26,18 @@
 // kThreads * kVecs vectors; each thread issues its kVecs loads (32 ids)
 // before it counts any of them. Head and tail go to CTA 0.
 //
-// Count. Two routes; the wrapper picks one from `length` and plans its
-// shared memory, the entry point takes the route and the footprint.
-//   * private (length <= kernels/histogram.py::PRIVATE_MAX): every thread
-//     owns a column of 8-bit counters, laid out [bucket][thread], so an
-//     id costs a shared byte load, an add and a store: no atomic, no
-//     match, whatever the ids. A warp's lanes sit on 32 distinct banks
-//     (lane l, warp w at byte 128 (w / 4) + 4 l + w % 4 of a row), so
-//     the counts never conflict. Every `flush` chunks (at most 255 ids a
-//     thread, so no byte wraps) the CTA sums each bucket's row into an
-//     int32 row (dp4a over the row's words, a warp reduce) and zeroes
-//     the bytes. Few distinct ids cost it nothing more, where the
-//     shared route's atomics pile onto a few addresses (chip_smoke.py's
-//     route A/B at 2 buckets).
-//   * shared (longer rows, up to 4096 and past it where the wrapper's
-//     limits allow): `copies` int32 sub-histograms (one per warp where
-//     they fit the wrapper's budget, fewer where they do not), added to
-//     with shared atomics. Each thread adds each run of equal ids in
-//     its vector with one atomic, and a warp whose 128 ids are all one
-//     bucket adds them with one: sorted ranks (unique's launch) then
-//     cost about one atomic per 128 ids, with no __match_any_sync.
+// Count. Each CTA holds `copies` int32 sub-histograms in shared memory
+// (the wrapper picks one per warp where they fit its budget, fewer where
+// they do not; the entry point sizes the shared memory from them), added
+// to with shared atomics. Each thread adds each run of equal ids in its
+// vector with one atomic, and a warp whose 128 ids are all one bucket
+// adds them with one: sorted ranks (unique's launch) and one hot bucket
+// then cost about one atomic per 128 ids, with no __match_any_sync, and
+// uniform ids over 64 buckets spread their atomics over eight copies.
+// Per-thread 8-bit counters (the CUDA samples' histogram64) ran no
+// faster at 64 buckets on the card (PERF.md, Findings), so this route
+// counts every length. A CTA counts fewer than 2^31 ids (the wrapper
+// refuses more), so no int32 counter wraps.
 // Each CTA then adds its nonzero buckets into the int32 output with
 // global atomicAdd. Integer addition does not depend on order, so every
 // run gives the same bits. Counting in int32 instead of the TPU's f32
@@ -60,7 +53,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVecs = 8;                   // 16-byte vectors a thread a chunk
 constexpr int kChunk = kThreads * kVecs;   // vectors per chunk
-constexpr int kCounterMax = 255;           // 8-bit private counters
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPast = 0x7fffffff;          // a vector slot past the body
 
@@ -70,8 +62,7 @@ struct Args {
   int nvec;
   int tail;
   int length;
-  int copies;      // shared route: sub-histograms a CTA
-  int flush;       // private route: chunks between flushes
+  int copies;      // sub-histograms a CTA
   int* out;
 };
 
@@ -80,99 +71,6 @@ __device__ __forceinline__ unsigned bucket(int id) {
   return id < 0 ? 0u : static_cast<unsigned>(id);
 }
 
-__device__ __forceinline__ void load_chunk(const Args& a, int chunk,
-                                           int4 (&r)[kVecs]) {
-  const int4* body = reinterpret_cast<const int4*>(a.ids + a.head);
-#pragma unroll
-  for (int u = 0; u < kVecs; ++u) {
-    const int i = chunk * kChunk + u * kThreads + threadIdx.x;
-    r[u] = i < a.nvec ? __ldg(body + i)
-                      : make_int4(kPast, kPast, kPast, kPast);
-  }
-}
-
-// the head's and the tail's ids (at most 3 each) into an int32 row
-__device__ __forceinline__ void count_ends(const Args& a, int* row) {
-  if (blockIdx.x != 0) return;
-  const unsigned t = threadIdx.x;
-  if (t < static_cast<unsigned>(a.head)) {
-    const unsigned b = bucket(a.ids[t]);
-    if (b < static_cast<unsigned>(a.length)) atomicAdd(&row[b], 1);
-  }
-  if (t < static_cast<unsigned>(a.tail)) {
-    const unsigned b = bucket(a.ids[a.head + 4LL * a.nvec + t]);
-    if (b < static_cast<unsigned>(a.length)) atomicAdd(&row[b], 1);
-  }
-}
-
-// -- private route ------------------------------------------------------
-
-__device__ __forceinline__ void count_private(uint8_t* mine, int id,
-                                              unsigned length) {
-  const unsigned b = bucket(id);
-  if (b < length) mine[b * kThreads] += 1;
-}
-
-// every counter byte into the int32 row, then zero; the barriers make
-// the counts whole before and the zeros seen after
-__device__ __forceinline__ void flush_private(uint32_t* words, int* row,
-                                              int length) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int b = warp; b < length; b += kWarps) {
-    uint32_t* w = words + b * (kThreads / 4);
-    unsigned s = 0;
-#pragma unroll
-    for (int j = lane; j < kThreads / 4; j += 32) {
-      s = __dp4a(w[j], 0x01010101u, s);
-      w[j] = 0;
-    }
-    s = __reduce_add_sync(kFull, s);
-    if (lane == 0) row[b] += static_cast<int>(s);
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-private_kernel(Args a) {
-  extern __shared__ int smem[];
-  int* row = smem;                                   // (length,) int32
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + a.length);
-  const int nwords = a.length * (kThreads / 4);      // (length, kThreads) bytes
-  for (int i = threadIdx.x; i < a.length; i += kThreads) row[i] = 0;
-  for (int i = threadIdx.x; i < nwords; i += kThreads) words[i] = 0;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint8_t* mine = reinterpret_cast<uint8_t*>(words) +
-                  ((warp >> 2) << 7) + (lane << 2) + (warp & 3);
-  const unsigned length = a.length;
-  const int chunks = (a.nvec + kChunk - 1) / kChunk;
-  // the trip count is the CTA's, so every thread reaches each flush
-  int since = 0;
-  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
-    int4 r[kVecs];
-    load_chunk(a, c, r);
-#pragma unroll
-    for (int u = 0; u < kVecs; ++u) {
-      count_private(mine, r[u].x, length);
-      count_private(mine, r[u].y, length);
-      count_private(mine, r[u].z, length);
-      count_private(mine, r[u].w, length);
-    }
-    if (++since == a.flush) {
-      flush_private(words, row, a.length);
-      since = 0;
-    }
-  }
-  flush_private(words, row, a.length);
-  count_ends(a, row);
-  __syncthreads();
-  for (int b = threadIdx.x; b < a.length; b += kThreads)
-    if (row[b] != 0) atomicAdd(&a.out[b], row[b]);
-}
-
-// -- shared route -------------------------------------------------------
-
 __device__ __forceinline__ void add_run(int* h, unsigned b, unsigned n,
                                         unsigned length) {
   if (b < length) atomicAdd(&h[b], static_cast<int>(n));
@@ -180,8 +78,7 @@ __device__ __forceinline__ void add_run(int* h, unsigned b, unsigned n,
 
 // one vector's 4 ids: one atomic for the warp when its 128 ids are one
 // bucket, else one per run of equal ids in the vector
-__device__ __forceinline__ void count_shared(int* h, int4 v,
-                                             unsigned length) {
+__device__ __forceinline__ void count_vec(int* h, int4 v, unsigned length) {
   const unsigned x = bucket(v.x), y = bucket(v.y), z = bucket(v.z),
                  w = bucket(v.w);
   const unsigned x0 = __shfl_sync(kFull, x, 0);
@@ -197,23 +94,35 @@ __device__ __forceinline__ void count_shared(int* h, int4 v,
 }
 
 __global__ void __launch_bounds__(kThreads)
-shared_kernel(Args a) {
+bincount_kernel(Args a) {
   extern __shared__ int hist[];                      // (copies, length)
   const int n = a.copies * a.length;
   for (int i = threadIdx.x; i < n; i += kThreads) hist[i] = 0;
   __syncthreads();
   int* h = hist + ((threadIdx.x >> 5) % a.copies) * a.length;
   const unsigned length = a.length;
+  const int4* body = reinterpret_cast<const int4*>(a.ids + a.head);
   const int chunks = (a.nvec + kChunk - 1) / kChunk;
   // the trip count is the CTA's, so a warp's lanes vote together
   for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
     int4 r[kVecs];
-    load_chunk(a, c, r);
 #pragma unroll
-    for (int u = 0; u < kVecs; ++u) count_shared(h, r[u], length);
+    for (int u = 0; u < kVecs; ++u) {
+      const int i = c * kChunk + u * kThreads + threadIdx.x;
+      r[u] = i < a.nvec ? __ldg(body + i)
+                        : make_int4(kPast, kPast, kPast, kPast);
+    }
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) count_vec(h, r[u], length);
   }
-  __syncthreads();
-  count_ends(a, hist);
+  // the head's and the tail's ids (at most 3 each), in CTA 0
+  if (blockIdx.x == 0) {
+    const unsigned t = threadIdx.x;
+    if (t < static_cast<unsigned>(a.head)) add_run(hist, bucket(a.ids[t]), 1,
+                                                   length);
+    if (t < static_cast<unsigned>(a.tail))
+      add_run(hist, bucket(a.ids[a.head + 4LL * a.nvec + t]), 1, length);
+  }
   __syncthreads();
   for (int b = threadIdx.x; b < a.length; b += kThreads) {
     int s = 0;
@@ -222,73 +131,55 @@ shared_kernel(Args a) {
   }
 }
 
-enum Route { kPrivate = 0, kShared = 1 };
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
+// the dynamic shared memory of `copies` int32 rows of `length`, allowed
+// for the kernel; refuses a layout it cannot hold
+cudaError_t allow_smem(int length, int copies, int* smem) {
+  if (length <= 0 || copies < 1 || copies > kWarps ||
+      static_cast<long long>(length) * copies > (1 << 20))
+    return cudaErrorInvalidValue;
+  *smem = 4 * length * copies;
   return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <typename Kernel>
-cudaError_t ctas_per_sm(Kernel kernel, int smem, int* out) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads,
-                                                       smem);
+      bincount_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// CTAs of `route` with `smem` bytes of dynamic shared memory that one SM
-// holds at once, into *out (0 when none fits).
-int spartan_bincount_ctas_per_sm(int route, int smem, int* out) {
-  if (smem < 0) return cudaErrorInvalidValue;
-  if (route == kPrivate) return ctas_per_sm(private_kernel, smem, out);
-  if (route == kShared) return ctas_per_sm(shared_kernel, smem, out);
-  return cudaErrorInvalidValue;
+// CTAs of `copies` sub-histograms of `length` buckets that one SM holds
+// at once, into *out (0 when none fits).
+int spartan_bincount_ctas_per_sm(int length, int copies, int* out) {
+  int smem = 0;
+  const cudaError_t err = allow_smem(length, copies, &smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, bincount_kernel, kThreads, smem);
 }
 
 // Add the counts of int32 ids into out (length,) int32, which the caller
 // zeroes. The ids are `head` scalars, then `nvec` 16-byte vectors (the
 // first at a 16-byte boundary), then `tail` scalars. `ctas` CTAs of
-// kThreads threads run `route` with `smem` bytes of dynamic shared
-// memory: the wrapper's footprint for the route's layout at this
-// length and `copies`. A plan the kernels cannot take (a counter that
-// could wrap between flushes, a misaligned body, more shared memory
-// than a block may have) is refused. Launches on `stream`, does not
-// synchronise, returns cudaGetLastError().
+// kThreads threads count into `copies` sub-histograms each (1 to
+// kWarps); the shared memory they need is sized here, and a layout a
+// block cannot hold, or a misaligned body, is refused. Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
 int spartan_bincount(const void* ids, int head, long long nvec, int tail,
-                     int length, void* out, int route, int copies,
-                     int flush, int smem, int ctas, void* stream) {
+                     int length, void* out, int copies, int ctas,
+                     void* stream) {
   if (head < 0 || head > 3 || tail < 0 || tail > 3 || nvec < 0 ||
-      nvec >= (1LL << 29) || length <= 0 || ctas <= 0)
+      nvec >= (1LL << 29) || ctas <= 0)
     return cudaErrorInvalidValue;
-  if (route == kPrivate) {
-    if (flush < 1 || flush * kVecs * 4 > kCounterMax)
-      return cudaErrorInvalidValue;
-  } else if (route != kShared || copies < 1 || copies > kWarps) {
-    return cudaErrorInvalidValue;
-  }
+  int smem = 0;
+  cudaError_t err = allow_smem(length, copies, &smem);
+  if (err != cudaSuccess) return err;
   const int* p = static_cast<const int*>(ids);
   if (nvec > 0 && (reinterpret_cast<uintptr_t>(p + head) & 15) != 0)
     return cudaErrorMisalignedAddress;
   if (head + nvec + tail == 0) return cudaSuccess;
   const Args a{p, head, static_cast<int>(nvec), tail, length, copies,
-               flush, static_cast<int*>(out)};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (route == kPrivate) {
-    err = allow_smem(private_kernel, smem);
-    if (err != cudaSuccess) return err;
-    private_kernel<<<ctas, kThreads, smem, s>>>(a);
-  } else {
-    err = allow_smem(shared_kernel, smem);
-    if (err != cudaSuccess) return err;
-    shared_kernel<<<ctas, kThreads, smem, s>>>(a);
-  }
+               static_cast<int*>(out)};
+  bincount_kernel<<<ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return cudaGetLastError();
 }
 

@@ -10,10 +10,9 @@ logical mesh: the id stream padded to whole row shards (padding ids are
 On CUDA tensors the wrappers launch ``spartan_tpu_torch/csrc/
 histogram.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, bound
 through ``ctypes``), which counts all shards' ids in one launch into
-int32. :func:`_plan` decides each launch: the route (per-thread 8-bit
-counters up to ``PRIVATE_MAX`` buckets, shared int32 sub-histograms
-above), its shared memory, the flush interval, the split of the ids
-into a scalar head, 16-byte vectors and a scalar tail, and the grid. On
+int32 sub-histograms in shared memory. :func:`_plan` decides each
+launch: the sub-histograms a CTA, the split of the ids into a scalar
+head, 16-byte vectors and a scalar tail, and the grid. On
 CPU tensors they run :func:`bincount_block_plain`, the TPU
 kernel's formulation (a f32 one-hot per 512-id block, reduced over the
 block); any other device raises. Counting in int32 instead of the TPU's
@@ -46,57 +45,42 @@ _ONEHOT_BUDGET = 1 << 24
 _THREADS = 256
 _VECS = 8
 _WARPS = _THREADS // 32
-# lengths up to this count in the private route: 8-bit counters, one
-# column per thread ([bucket][thread] bytes) beside an int32 row
-PRIVATE_MAX = 128
-_COUNTER_MAX = 255
-# the shared route's sub-histograms a CTA stay within this many bytes
-# (one copy when a single row is larger)
+# a CTA's sub-histograms stay within this many bytes (one copy when a
+# single row is larger)
 _SHARED_BUDGET = 16 * 1024
-ROUTES = {"private": 0, "shared": 1}
 
 
 class Plan(NamedTuple):
-    """One launch of ``csrc/histogram.cu``: the route, its sub-histograms
-    (shared route) and chunks between flushes (private route), its
-    dynamic shared memory, the split of the ids into a scalar head, a
-    body of 16-byte vectors and a scalar tail, and the grid."""
-    route: str
+    """One launch of ``csrc/histogram.cu``: its int32 sub-histograms a
+    CTA, the split of the ids into a scalar head, a body of 16-byte
+    vectors and a scalar tail, and the grid."""
     copies: int
-    flush: int
-    smem: int
     head: int
     nvec: int
     tail: int
     ctas: int
 
 
-def _layout(length: int) -> Tuple[str, int, int]:
-    """``(route, copies, smem bytes)`` for ``length`` buckets. Private:
-    an int32 row, then ``length`` rows of ``_THREADS`` byte counters.
-    Shared: ``copies`` int32 rows, one per warp where they fit
-    ``_SHARED_BUDGET`` (halved until they do, at least one)."""
-    if length <= PRIVATE_MAX:
-        return "private", 1, length * (4 + _THREADS)
+def _copies(length: int) -> int:
+    """Sub-histograms a CTA: one per warp where ``length`` int32 rows of
+    them fit ``_SHARED_BUDGET``, halved until they do, at least one."""
     copies = _WARPS
     while copies > 1 and 4 * length * copies > _SHARED_BUDGET:
         copies //= 2
-    return "shared", copies, 4 * length * copies
+    return copies
 
 
 def _plan(length: int, e: int, misalign: int, slots: int) -> Plan:
     """The launch for ``e`` ids whose first lies ``misalign`` 4-byte words
     past a 16-byte boundary, on a card that holds ``slots`` CTAs of this
-    route at once: one CTA per chunk of ``_THREADS * _VECS`` vectors, at
+    length at once: one CTA per chunk of ``_THREADS * _VECS`` vectors, at
     most ``slots`` (CTAs then walk the chunks grid-stride), at least
-    one. A private counter takes at most ``4 * _VECS`` ids a chunk, so
-    ``flush`` chunks keep it at or below ``_COUNTER_MAX``."""
-    route, copies, smem = _layout(length)
+    one."""
     head = min(e, -misalign % 4)
     nvec = (e - head) // 4
     chunks = -(-nvec // (_THREADS * _VECS))
-    return Plan(route, copies, _COUNTER_MAX // (4 * _VECS), smem, head,
-                nvec, e - head - 4 * nvec, max(1, min(slots, chunks)))
+    return Plan(_copies(length), head, nvec, e - head - 4 * nvec,
+                max(1, min(slots, chunks)))
 
 
 def cuda_limits(length: int, e: int) -> str:
@@ -140,7 +124,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                                  ctypes.POINTER(i32)]
     lib.spartan_bincount_ctas_per_sm.restype = i32
     lib.spartan_bincount.argtypes = [vp, i32, i64, i32, i32, vp, i32, i32,
-                                     i32, i32, i32, vp]
+                                     vp]
     lib.spartan_bincount.restype = i32
 
 
@@ -153,16 +137,14 @@ _slots: Dict[Tuple[int, int], int] = {}
 
 
 def _card_slots(lib: ctypes.CDLL, dev: torch.device, length: int) -> int:
-    """CTAs of ``length``'s route and footprint that the card holds at
-    once (the occupancy query times the SMs), cached per device and
-    length."""
+    """CTAs of ``length``'s sub-histograms that the card holds at once
+    (the occupancy query times the SMs), cached per device and length."""
     key = (dev.index or 0, length)
     slots = _slots.get(key)
     if slots is None:
-        route, _, smem = _layout(length)
         per_sm = ctypes.c_int(0)
         build_mod.check(lib.spartan_bincount_ctas_per_sm(
-            ROUTES[route], smem, ctypes.byref(per_sm)),
+            length, _copies(length), ctypes.byref(per_sm)),
             "bincount_block occupancy query")
         if per_sm.value < 1:
             raise RuntimeError(f"bincount_block kernel cannot hold one CTA "
@@ -186,8 +168,7 @@ def _launch(ids: torch.Tensor, length: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spartan_bincount(
             ids.data_ptr(), plan.head, plan.nvec, plan.tail, length,
-            out.data_ptr(), ROUTES[plan.route], plan.copies, plan.flush,
-            plan.smem, plan.ctas, stream)
+            out.data_ptr(), plan.copies, plan.ctas, stream)
     build_mod.check(err, "bincount_block kernel launch")
     LAUNCHES["bincount_block"] += 1
     return out

@@ -405,20 +405,21 @@ def _bincount_ref(ids: torch.Tensor, length: int) -> torch.Tensor:
         :length].to(torch.int32)
 
 
-# csrc/histogram.cu counts lengths up to PRIVATE_MAX (128) in 8-bit
-# per-thread counters and longer ones in shared int32 sub-histograms
+# csrc/histogram.cu keeps one int32 sub-histogram per warp up to 512
+# buckets and fewer, down to one, above
 @pytest.mark.cuda
 @pytest.mark.parametrize("lo,hi,e,length", [
     (0, 64, 1 << 22, 64), (-50, 4200, 1_000_003, 4096), (0, 1, 7, 1),
     (-3, 14, 1003, 10),
-    # one hot bucket, in each route
+    # one hot bucket, with eight sub-histograms and with one
     (5, 6, 1 << 22, 64), (7, 8, 1 << 22, 4096),
     # all negative ids: bucket 0 takes them all
     (-100, 0, 1 << 20, 64), (-100, 0, 1 << 20, 4096),
     # e below one 16-byte vector, and one vector and one id
     (0, 10, 1, 10), (0, 10, 3, 10), (0, 10, 5, 10), (0, 5000, 3, 4096),
-    # the last private length and the first shared one, and 4096
-    (-5, 140, 1_000_003, 128), (-5, 140, 1_000_003, 129),
+    # the last length with eight sub-histograms and the first with
+    # four, and 4096
+    (-5, 520, 1_000_003, 512), (-5, 520, 1_000_003, 513),
     (0, 4096, 1 << 22, 4096), (1, 2, 100_000, 1)])
 def test_bincount_matches_plain(card, lo, hi, e, length):
     from spartan_tpu_torch.kernels import histogram as kh
@@ -476,23 +477,6 @@ def test_bincount_int64_ids_wrap(card, length):
 
 
 @pytest.mark.cuda
-def test_bincount_counters_flush(card):
-    """2**26 ids in one of 64 buckets: every thread's 8-bit counter
-    fills to its flush limit again and again (it would wrap after 255),
-    and the count comes out whole."""
-    from spartan_tpu_torch.kernels import histogram as kh
-
-    e = 1 << 26
-    plan = kh._plan(64, e, 0, kh._card_slots(kh._load(), card, 64))
-    # more chunks than one flush interval for every CTA
-    assert plan.route == "private"
-    assert plan.nvec > plan.ctas * plan.flush * kh._THREADS * kh._VECS
-    ids = torch.full((e,), 63, dtype=torch.int32, device=card)
-    out = kh.bincount_block(ids, 64)
-    assert int(out[63]) == e and int(out.sum()) == e
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("length", [64, 4096])
 def test_bincount_is_deterministic(card, length):
     """Integer adds in any order: two launches give the same bits."""
@@ -509,8 +493,8 @@ def test_bincount_is_deterministic(card, length):
 @pytest.mark.cuda
 def test_bincount_every_accepted_length_launches(card):
     """Every length the selection's bincount rule accepts (1 to 4096)
-    launches the kernel and counts right: no route is missing and no
-    footprint is refused."""
+    launches the kernel and counts right: no layout of sub-histograms
+    is refused."""
     from spartan_tpu_torch.kernels import histogram as kh
 
     gen = torch.Generator(device=card)

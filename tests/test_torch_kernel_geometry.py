@@ -87,56 +87,52 @@ def test_kmeans_grid_covers_every_tile(rows, per_sm, sms):
 
 # -- the histogram kernel (csrc/histogram.cu) ----------------------------
 
-_LENGTHS = [1, 64, khist.PRIVATE_MAX, khist.PRIVATE_MAX + 1, 4096]
+# the last length that keeps one sub-histogram per warp, and the first
+# that does not
+_L = khist._SHARED_BUDGET // (4 * khist._WARPS)
 
 
-@pytest.mark.parametrize("length", _LENGTHS)
+@pytest.mark.parametrize("length", [1, 64, _L, _L + 1, 4096])
 @pytest.mark.parametrize("e", [1, 2 ** 26, 2 ** 31 - 1])
-@pytest.mark.parametrize("misalign", [0, 1, 3])
-@pytest.mark.parametrize("slots", [1, 8 * 132, 6 * 114])
-def test_bincount_plan(length, e, misalign, slots):
-    plan = khist._plan(length, e, misalign, slots)
-    # the selection accepts this length, so the kernel has a route whose
+def test_bincount_plan(length, e):
+    # the selection accepts this length, so its sub-histograms fit the
     # shared memory one block may have
     assert khist.cuda_limits(length, e) == ""
-    assert plan.route in khist.ROUTES
-    assert 0 < plan.smem <= kbuild.SMEM_PER_BLOCK
-    assert 1 <= plan.copies <= khist._WARPS
-    # every id once: the head up to the first 16-byte boundary, whole
-    # vectors from there, then fewer than one vector
-    assert plan.head + 4 * plan.nvec + plan.tail == e
-    assert 0 <= plan.head < 4 and 0 <= plan.tail < 4
-    assert (misalign + plan.head) % 4 == 0 or plan.head == e
-    # chunks of _THREADS * _VECS vectors walked grid-stride: CTA b takes
-    # chunks b, b + ctas, ...; each chunk once, every CTA at least one
-    # chunk when there are any, and no more CTAs than fit the card
-    chunk = khist._THREADS * khist._VECS
-    chunks = -(-plan.nvec // chunk)
-    assert 1 <= plan.ctas <= max(1, min(slots, chunks))
-    assert plan.ctas == 1 or plan.ctas <= chunks
-    if chunks <= 4096:
-        taken = sorted(c for b in range(plan.ctas)
-                       for c in range(b, chunks, plan.ctas))
-        assert taken == list(range(chunks))
-    if plan.route == "private":
-        # a thread adds 4 * _VECS ids a chunk to its 8-bit counters, and
-        # flushes every `flush` chunks: no counter can pass 255
-        assert 4 * khist._VECS * plan.flush <= 255
-        assert plan.flush >= 1
-    else:
-        # int32 sub-histograms: no bucket can count past e < 2**31
-        assert e < 2 ** 31
+    # misalignments and card sizes (one CTA, an H100 SXM's, an H100
+    # PCIe's) as a few explicit cases
+    for misalign, slots in ((0, 8 * 132), (1, 1), (3, 6 * 114)):
+        plan = khist._plan(length, e, misalign, slots)
+        assert 1 <= plan.copies <= khist._WARPS
+        assert 4 * length * plan.copies <= kbuild.SMEM_PER_BLOCK
+        # every id once: the head up to the first 16-byte boundary,
+        # whole vectors from there, then fewer than one vector
+        assert plan.head + 4 * plan.nvec + plan.tail == e
+        assert 0 <= plan.head < 4 and 0 <= plan.tail < 4
+        assert (misalign + plan.head) % 4 == 0 or plan.head == e
+        # chunks of _THREADS * _VECS vectors walked grid-stride: CTA b
+        # takes chunks b, b + ctas, ...; each chunk once, every CTA at
+        # least one chunk when there are any, no more CTAs than fit
+        chunk = khist._THREADS * khist._VECS
+        chunks = -(-plan.nvec // chunk)
+        assert 1 <= plan.ctas <= max(1, min(slots, chunks))
+        if chunks <= 4096:
+            taken = sorted(c for b in range(plan.ctas)
+                           for c in range(b, chunks, plan.ctas))
+            assert taken == list(range(chunks))
+    # int32 counters: the wrapper refuses 2**31 ids, so no counter can
+    # pass its width
+    assert khist.cuda_limits(length, 2 ** 31) != ""
 
 
 def test_bincount_routes():
-    # 64 buckets (the histogram path) take the private route; every
-    # accepted length has a route, and the private one ends at PRIVATE_MAX
+    # one route counts every length: every accepted length has a layout
+    # of sub-histograms that fits, and the histogram path's 64 buckets
+    # keep one per warp
     for length in range(1, 4097):
-        route, copies, smem = khist._layout(length)
-        assert route == ("private" if length <= khist.PRIVATE_MAX
-                         else "shared")
-        assert smem <= kbuild.SMEM_PER_BLOCK
-    assert khist._layout(64)[0] == "private"
+        assert khist.cuda_limits(length, 10) == ""
+        assert 4 * length * khist._copies(length) <= kbuild.SMEM_PER_BLOCK
+    assert khist._copies(64) == khist._WARPS
+    assert khist._copies(_L) == khist._WARPS > khist._copies(_L + 1)
     # direct calls the limits accept, up to 58,112 buckets, fit too
     assert khist.cuda_limits(58112, 10) == ""
-    assert khist._layout(58112)[2] <= kbuild.SMEM_PER_BLOCK
+    assert 4 * 58112 * khist._copies(58112) <= kbuild.SMEM_PER_BLOCK
