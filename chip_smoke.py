@@ -42,7 +42,19 @@ Phases, in order; any failure exits nonzero before the result line:
     shape the path launches (and at two more) beside its bound and
     ``torch.bincount``'s, and a torch reduction over the same ids as
     the read floor;
-12. the ``kernels`` line (times, launches, bounds) and the result line.
+12. the stencil (VGG-16 block 1) and the structure ops;
+13. the application tier (``[examples]``): logistic regression at
+    bench.py's size (10,000,000 x 32, 10 iterations through ``st.loop``)
+    against float64 numpy, with iterations per second beside its bound
+    and a device split, then linear, ridge and SVM on the same X; SSVD
+    of 8192 x 512 at rank 32 (seconds, device split) and Lanczos SVD of
+    the same matrix; the ``KMeans`` estimator (k-means kernel launches
+    equal to ``max_iter``) and ``MultinomialNB`` (segment kernel, tables
+    bit-equal to ``examples.naive_bayes.fit``); CG, fuzzy k-means,
+    Cholesky, QR and TSQR; ALS, Netflix SGD and sparse SGD matrix
+    factorization at MovieLens-100K's shape; LDA and LSH; each against
+    float64 or its plain-version run;
+14. the ``kernels`` line (times, launches, bounds) and the result line.
 
 Imports torch, numpy and the port only.
 """
@@ -75,6 +87,19 @@ HIST_BINS, UNIQ_SIZE, UNIQ_HIGH = 64, 4096, 3000
 # VGG-16 (configuration D) block 1: batch, image side, channel widths
 VGG_N, VGG_HW, VGG_WIDTHS, VGG_MESH = 32, 224, (3, 64, 64), (8, 1)
 STRUCT_N, OUTER_N, EINSUM_B, EINSUM_N, SHUFFLE_N = 8192, 16384, 64, 512, 4096
+# bench.py's guard sizes (BASELINE configs 4-5): logistic regression on
+# 10,000,000 x 32 f32 for 10 iterations, SSVD of 8192 x 512 at rank 32
+EX_LR_N, EX_LR_D, EX_LR_ITERS = 10_000_000, 32, 10
+EX_SSVD_M, EX_SSVD_N, EX_SSVD_RANK = 8192, 512, 32
+# smaller, stated sizes for the rest of the application tier
+EX_KM_N, EX_KM_K, EX_KM_ITERS = 262_144, 64, 10
+EX_CG_N, EX_CG_ITERS = 4096, 20
+EX_FZ_N, EX_FZ_D, EX_FZ_K, EX_FZ_ITERS = 65_536, 32, 16, 10
+EX_QR_M, EX_QR_N, EX_QR_MESH = 131_072, 64, (8, 1)
+# MovieLens-100K's shape: 943 users x 1,682 items, 100,000 ratings
+EX_ML_USERS, EX_ML_ITEMS, EX_ML_RATINGS, EX_ML_K = 943, 1682, 100_000, 16
+EX_LDA_DOCS, EX_LDA_WORDS, EX_LDA_K, EX_LDA_ITERS = 8192, 16_384, 4, 2
+EX_LSH_N, EX_LSH_D, EX_LSH_BITS, EX_LSH_PAIRS_N = 1_000_000, 128, 64, 4096
 
 
 def _say(*args) -> None:
@@ -1665,6 +1690,622 @@ def phase_structure(st, card: str, dev) -> None:
                                combiner="add"), sn.T, card)
 
 
+# -- the application tier ---------------------------------------------------
+
+
+def _rel(got, want) -> float:
+    """Normwise relative error in float64."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        _fail(f"shape {got.shape} where {want.shape} was expected")
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-300))
+
+
+def _check_rel(label: str, got, want, rtol: float, what: str) -> None:
+    err = _rel(got, want)
+    finite = bool(np.isfinite(np.asarray(got, np.float64)).all())
+    _say(f"[examples] {label}: vs {what}: normwise rel err {err:.3g} "
+         f"(rtol {rtol:g}){'' if finite else ', NOT FINITE'}")
+    if not (finite and err <= rtol):
+        _fail(f"{label} disagrees with {what}")
+
+
+def _logreg_f64(x, y, iters: int, lr: float) -> np.ndarray:
+    """logistic_regression's steps in float64 numpy."""
+    w = np.zeros(x.shape[1])
+    for _ in range(iters):
+        p = 1.0 / (1.0 + np.exp(-(x @ w)))
+        w = w - lr * (x.T @ (p - y) / x.shape[0])
+    return w
+
+
+def _gd_f64(x, y, iters: int, lr: float, grad) -> np.ndarray:
+    """``iters`` steps of ``w -= lr * grad(x, y, w)`` from 0 in float64 on
+    the card (plain torch; a host pass over 10M x 32 takes ~0.3 s)."""
+    w = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    for _ in range(iters):
+        w = w - lr * grad(x, y, w)
+    return w.cpu().numpy()
+
+
+def _examples_regression(st, card: str, dev) -> dict:
+    """Logistic regression at bench.py's size (fused through st.loop),
+    then linear, ridge and SVM on the same X."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.examples import regression, svm
+
+    n, d, iters = EX_LR_N, EX_LR_D, EX_LR_ITERS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    # bench.py's X (uniform f32); labels from a planted direction
+    x = torch.rand((n, d), generator=gen, device=dev)
+    w_true = torch.randn((d,), generator=gen, device=dev)
+    y01 = ((x - 0.5) @ w_true > 0).float()
+    X, Y = from_tensor(x), from_tensor(y01)
+
+    t0 = time.perf_counter()
+    w = regression.logistic_regression(X, Y, num_iter=iters)
+    first = time.perf_counter() - t0
+    x64 = x.cpu().numpy().astype(np.float64)
+    ref = _logreg_f64(x64, y01.cpu().numpy().astype(np.float64), iters, 0.1)
+    del x64
+    _check_rel(f"logistic_regression {n} x {d}, {iters} iterations "
+               f"(first call {first:.3f} s)", w, ref, 1e-4,
+               "the same steps in float64 numpy")
+
+    def fit() -> None:
+        regression.logistic_regression(X, Y, num_iter=iters)
+
+    best = _wall_ms(fit)
+    ips = iters / (best / 1e3)
+    flops_peak, bw_peak = _peaks(card)
+    two_pass = 2.0 * n * d * 4 / bw_peak * 1e3  # X @ w, then X.T @ err
+    one_pass = n * d * 4 / bw_peak * 1e3
+    ops_ms = 4.0 * n * d / flops_peak * 1e3
+    _say(f"[examples] logreg {ips:.2f} iters/s ({best:.3f} ms per "
+         f"{iters}-iteration fit, best of 3 after a warm-up; "
+         f"{best / iters:.4f} ms an iteration) against a bound of "
+         f"{two_pass:.4f} ms an iteration ({1e3 / two_pass:.1f} iters/s: "
+         f"X read twice, by X @ w and X.T @ err; bytes, operations "
+         f"{ops_ms:.4f} ms; a one-pass fused step's bound {one_pass:.4f} "
+         f"ms) on {card}")
+    _device_split(fit, f"examples: logreg fit of {iters} iterations", card)
+
+    x64 = x.double()
+    y_lin = x @ w_true
+    ypm = 2.0 * y01 - 1.0
+    cases = [
+        ("linear_regression", lambda: regression.linear_regression(
+            X, from_tensor(y_lin), num_iter=iters),
+         lambda a, b, w: a.T @ (a @ w - b) / a.shape[0], y_lin, 1e-2),
+        ("ridge_regression", lambda: regression.ridge_regression(
+            X, from_tensor(y_lin), num_iter=iters),
+         lambda a, b, w: a.T @ (a @ w - b) / a.shape[0] + 1.0 * w, y_lin,
+         1e-2),
+        ("svm", lambda: svm.svm(X, from_tensor(ypm), num_iter=iters),
+         lambda a, b, w: -(a.T @ ((b * (a @ w) < 1.0).double() * b))
+         / a.shape[0] + 1e-3 * w, ypm, 0.1),
+    ]
+    for name, run, grad, target, lr in cases:
+        t0 = time.perf_counter()
+        got = run()
+        wall = time.perf_counter() - t0
+        ref = _gd_f64(x64, target.double(), iters, lr, grad)
+        _check_rel(f"{name} on the same X, {iters} iterations ({wall:.3f} "
+                   f"s wall)", got, ref, 1e-4,
+                   "the same steps in float64 on the card")
+    return {"logreg_iters_per_sec": ips, "logreg_ms": best}
+
+
+def _ssvd_f64(a, rank: int, k: int, power: int, seed: int):
+    """ssvd's steps in float64 numpy, from the same Omega."""
+    omega = np.random.RandomState(seed).randn(a.shape[1], k).astype(
+        np.float32).astype(np.float64)
+    q = np.linalg.qr(a @ omega)[0]
+    for _ in range(power):
+        q = np.linalg.qr(a @ np.linalg.qr(a.T @ q)[0])[0]
+    u_b, s, vt = np.linalg.svd(q.T @ a, full_matrices=False)
+    return (q @ u_b)[:, :rank], s[:rank], vt[:rank]
+
+
+def _lanczos_host(a, steps: int, rank: int, seed: int, dt) -> np.ndarray:
+    """lanczos_svd's recurrence on the host in ``dt`` (the port's and the
+    JAX package's is float32), with float64 products rounded to ``dt``:
+    the top ``rank`` singular values of its bidiagonal B."""
+    u = np.random.RandomState(seed).randn(a.shape[0]).astype(
+        np.float32).astype(dt)
+    u /= np.linalg.norm(u)
+    us, vs, alphas, betas = [u], [], [], []
+    for _ in range(steps):
+        v = (a.T @ us[-1].astype(np.float64)).astype(dt)
+        for prev in vs:
+            v -= prev * (prev @ v)
+        alphas.append(np.linalg.norm(v))
+        vs.append(v / alphas[-1])
+        u = (a @ vs[-1].astype(np.float64)).astype(dt)
+        for prev in us:
+            u -= prev * (prev @ u)
+        betas.append(np.linalg.norm(u))
+        us.append(u / betas[-1])
+    b = np.zeros((steps + 1, steps), dt)
+    for j in range(steps):
+        b[j, j], b[j + 1, j] = alphas[j], betas[j]
+    return np.linalg.svd(b, compute_uv=False)[:rank]
+
+
+def _residual(a, u, s, vt) -> float:
+    a = np.asarray(a, np.float64)
+    return float(np.linalg.norm(a - (u * s[None, :]) @ vt))
+
+
+def _examples_svd(st, card: str, dev) -> dict:
+    """SSVD at bench.py's size, and Lanczos SVD of the same matrix."""
+    from spartan_tpu_torch.examples import lanczos, ssvd
+
+    m, n, rank = EX_SSVD_M, EX_SSVD_N, EX_SSVD_RANK
+    a_np = np.random.RandomState(44).rand(m, n).astype(np.float32)
+    a64 = a_np.astype(np.float64)
+    A = st.from_numpy(a_np)
+    k = min(rank + 10, m, n)
+
+    u, s, vt = ssvd.ssvd(A, rank=rank)
+    u_r, s_r, vt_r = _ssvd_f64(a64, rank, k, 2, 0)
+    # the same steps in float64: each QR is backward stable, so Q carries
+    # ~eps_f32 * cond(Y) (cond ~ s_1/s_k ~ 31 here) and, by Weyl, each
+    # singular value moves by at most ~|dB| ~ 1e-6 |A|: 1e-4 relative
+    _check_rel(f"ssvd {m} x {n} rank {rank} (k = {k}, 2 power iterations) "
+               f"singular values", s, s_r, 1e-4,
+               "the same steps in float64 numpy (same Omega)")
+    res, res_r = _residual(a64, u, s, vt), _residual(a64, u_r, s_r, vt_r)
+    _check_rel("ssvd residual |A - U S V^T|_F", res, res_r, 1e-4,
+               f"float64's {res_r:.6g}")
+    sec = _wall_ms(lambda: ssvd.ssvd(A, rank=rank)) / 1e3
+    _say(f"[examples] ssvd {sec:.4f} s ({m} x {n}, rank {rank}, best of 3 "
+         f"after a warm-up) on {card}")
+    _device_split(lambda: ssvd.ssvd(A, rank=rank), "examples: ssvd", card)
+
+    steps = rank + 6
+    t0 = time.perf_counter()
+    _, s_l, _ = lanczos.lanczos_svd(A, rank=rank)
+    wall = time.perf_counter() - t0
+    # the device computes only the products: against the same float32
+    # host recurrence fed float64 products, agreement is the products'
+    # rounding (3e-7 on the CPU)
+    _check_rel(f"lanczos_svd rank {rank} ({steps} steps, {wall:.3f} s "
+               f"wall) singular values", s_l,
+               _lanczos_host(a64, steps, rank, 0, np.float32), 1e-4,
+               "the same float32 host recurrence with float64 products")
+    # the float32 host recurrence itself (the JAX package's) moves the
+    # unconverged values away from a float64 recurrence's (1.7% at the
+    # tail on the CPU); the converged top value must hold
+    s64 = _lanczos_host(a64, steps, rank, 0, np.float64)
+    tail = float(np.max(np.abs(s_l - s64) / s64))
+    _say(f"[examples] lanczos_svd vs the float64 recurrence: top value "
+         f"rel err {abs(s_l[0] - s64[0]) / s64[0]:.3g} (rtol 1e-5), the "
+         f"unconverged rest up to {tail:.3g} (the float32 host "
+         f"recurrence's own drift, not gated)")
+    if not abs(s_l[0] - s64[0]) <= 1e-5 * s64[0]:
+        _fail("lanczos_svd's converged top value disagrees with float64")
+    return {"ssvd_s": sec}
+
+
+def _blobs(n: int, d: int, k: int, scale: float, seed: int, first_rows):
+    """Points around k well-separated centers; row ``first_rows[j]`` is
+    in cluster j (an estimator seeded to pick those rows starts with one
+    center a cluster)."""
+    rng = np.random.RandomState(seed)
+    true = (rng.rand(k, d) * scale).astype(np.float32)
+    lab = rng.randint(0, k, n)
+    lab[first_rows] = np.arange(k)
+    pts = true[lab] + (0.05 * scale / 4.0 * rng.randn(n, d)).astype(
+        np.float32)
+    return pts.astype(np.float32), lab
+
+
+def _examples_estimators(st, kk, ks, nb, card: str, dev) -> dict:
+    """KMeans through the fused k-means kernel, MultinomialNB through the
+    segment kernel, each against its run through the plain version."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.examples.sklearn import KMeans, MultinomialNB
+
+    n, d, k, iters = EX_KM_N, KM_D, EX_KM_K, EX_KM_ITERS
+    first = np.sort(np.random.RandomState(0).choice(n, k, replace=False))
+    pts, lab = _blobs(n, d, k, 4.0, 45, first)
+    P = st.from_numpy(pts)
+    _reset_counts(kk)
+    t0 = time.perf_counter()
+    est = KMeans(n_clusters=k, max_iter=iters, random_state=0).fit(P)
+    wall = time.perf_counter() - t0
+    km_launches = kk.LAUNCHES
+    _say(f"[examples] KMeans(n_clusters={k}, max_iter={iters}).fit() "
+         f"{n} x {d}: {wall:.3f} s wall, k-means kernel launches "
+         f"{km_launches} (want {iters})")
+    if km_launches != iters:
+        _fail(f"KMeans.fit launched the k-means kernel {km_launches} "
+              f"times, want {iters}")
+    if not np.array_equal(est.labels_, lab):
+        _fail(f"KMeans mislabelled {int((est.labels_ != lab).sum())} rows")
+    p = P.value.tensor
+    npad = km._kernel_pad(n)
+    if npad != n:
+        p = torch.cat([p, p.new_zeros((npad - n, d))])
+    ref = _plain_kmeans(kk, p, torch.from_numpy(pts[first]).to(dev), k,
+                        iters, n).cpu().numpy()
+    diff = float(np.abs(est.cluster_centers_ - ref).max())
+    _say(f"[examples] KMeans: every row in its true cluster; centers vs "
+         f"the plain-driven run: max |diff| {diff:.3g} (atol 1e-4)")
+    if not diff <= 1e-4:
+        _fail("KMeans centers disagree with the plain-driven run")
+    if not np.array_equal(est.predict(P), est.labels_):
+        _fail("KMeans.predict disagrees with labels_")
+
+    x, yt, _ = _nb_data(dev)
+    X, Y = from_tensor(x), from_tensor(yt)
+    prev = st.FLAGS.native_kernels
+    try:
+        st.FLAGS.native_kernels = "on"
+        _reset_counts(kk)
+        t0 = time.perf_counter()
+        nbe = MultinomialNB().fit(X, Y)
+        wall = time.perf_counter() - t0
+        nb_launches = ks.LAUNCHES["segment_sum_block"]
+        lp, ll = nb.fit(X, Y, NB_CLASSES)
+    finally:
+        st.FLAGS.native_kernels = prev
+    same = (np.array_equal(nbe.class_log_prior_, lp)
+            and np.array_equal(nbe.feature_log_prob_, ll))
+    _say(f"[examples] MultinomialNB().fit() {NB_ROWS} x {NB_FEATURES}, "
+         f"{NB_CLASSES} classes, native_kernels=on: {wall:.3f} s wall, "
+         f"segment-kernel launches {nb_launches}; tables bit-equal to "
+         f"examples.naive_bayes.fit: {same}")
+    if nb_launches < 1:
+        _fail("MultinomialNB.fit did not launch the segment kernel")
+    if not same:
+        _fail("MultinomialNB tables differ from examples.naive_bayes.fit")
+    return {"kmeans_launches": km_launches, "nb_launches": nb_launches}
+
+
+def _cg_f64(a, b, iters: int, tol: float) -> np.ndarray:
+    """conj_gradient's steps in float64 numpy."""
+    x = np.zeros_like(b)
+    r = b - a @ x
+    p = r
+    rs_old = r @ r
+    for _ in range(iters):
+        ap = a @ p
+        alpha = rs_old / (p @ ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = r @ r
+        if np.sqrt(rs_new) < tol:
+            break
+        p = r + (rs_new / rs_old) * p
+        rs_old = rs_new
+    return x
+
+
+def _fuzzy_f64(pts, centers, iters: int, m: float) -> np.ndarray:
+    """fuzzy_kmeans' steps in float64 numpy."""
+    p, c = pts.astype(np.float64), centers.astype(np.float64)
+    for _ in range(iters):
+        d2 = ((p * p).sum(1)[:, None] - 2.0 * p @ c.T
+              + (c * c).sum(1)[None, :])
+        inv = np.maximum(d2, 1e-12) ** (-1.0 / (m - 1.0))
+        um = (inv / inv.sum(1, keepdims=True)) ** m
+        c = (um.T @ p) / np.maximum(um.sum(0), 1e-12)[:, None]
+    return c
+
+
+def _qr_check(label: str, q, r, a64, r64) -> None:
+    """Sign-free: Q R against A, Q^T Q against I, |R| against float64's."""
+    q64, rr = np.asarray(q, np.float64), np.asarray(r, np.float64)
+    _check_rel(f"{label}: Q R", q64 @ rr, a64, 1e-5, "A")
+    _check_rel(f"{label}: Q^T Q", q64.T @ q64, np.eye(q64.shape[1]), 1e-5,
+               "I")
+    _check_rel(f"{label}: |R|", np.abs(rr), np.abs(r64), 1e-5,
+               "float64 numpy's |R|")
+
+
+def _examples_solvers(st, card: str, dev) -> None:
+    """CG, fuzzy k-means and the decompositions."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.examples import (conj_gradient, decomposition,
+                                            fuzzy_kmeans)
+
+    n = EX_CG_N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(46)
+    g = torch.randn((n, n), generator=gen, device=dev)
+    spd = g @ g.T / n + torch.eye(n, device=dev)  # eigenvalues in ~[1, 5]
+    x_true = torch.randn((n,), generator=gen, device=dev)
+    b = spd @ x_true
+    spd64 = spd.cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    x = conj_gradient.conj_gradient(from_tensor(spd), from_tensor(b),
+                                    num_iter=EX_CG_ITERS)
+    wall = time.perf_counter() - t0
+    _check_rel(f"conj_gradient {n}^2 SPD, {EX_CG_ITERS} iterations "
+               f"({wall:.3f} s wall)", x,
+               _cg_f64(spd64, b.cpu().numpy().astype(np.float64),
+                       EX_CG_ITERS, 1e-6), 1e-4,
+               "the same steps in float64 numpy")
+
+    fn, fd, fk = EX_FZ_N, EX_FZ_D, EX_FZ_K
+    first = np.sort(np.random.RandomState(0).choice(fn, fk, replace=False))
+    pts, _ = _blobs(fn, fd, fk, 40.0, 47, first)
+    t0 = time.perf_counter()
+    c = fuzzy_kmeans.fuzzy_kmeans(st.from_numpy(pts), fk,
+                                  num_iter=EX_FZ_ITERS)
+    wall = time.perf_counter() - t0
+    _check_rel(f"fuzzy_kmeans {fn} x {fd}, k = {fk}, {EX_FZ_ITERS} "
+               f"iterations ({wall:.3f} s wall)", c,
+               _fuzzy_f64(pts, pts[first], EX_FZ_ITERS, 2.0), 1e-4,
+               "the same steps in float64 numpy")
+
+    with st.use_mesh(st.build_mesh(EX_QR_MESH)):
+        t0 = time.perf_counter()
+        chol = decomposition.cholesky(from_tensor(spd)).glom()
+        wall = time.perf_counter() - t0
+        _check_rel(f"cholesky {n}^2 ({wall:.3f} s wall)", chol,
+                   np.linalg.cholesky(spd64), 1e-5,
+                   "float64 numpy (the factor is unique)")
+        qm, qn = EX_QR_M, EX_QR_N
+        a_np = np.random.RandomState(48).randn(qm, qn).astype(np.float32)
+        a64 = a_np.astype(np.float64)
+        r64 = np.linalg.qr(a64)[1]
+        for name in ("qr", "tsqr"):
+            t0 = time.perf_counter()
+            q, r = getattr(decomposition, name)(st.from_numpy(a_np))
+            wall = time.perf_counter() - t0
+            _qr_check(f"{name} {qm} x {qn} under a logical {EX_QR_MESH} "
+                      f"mesh ({wall:.3f} s wall)", q, r, a64, r64)
+
+
+def _movielens():
+    """MovieLens-100K's shape, synthetic: 100,000 distinct (user, item)
+    pairs, integer ratings 1-5 from a rank-5 model plus noise."""
+    rng = np.random.RandomState(49)
+    nu, ni = EX_ML_USERS, EX_ML_ITEMS
+    flat = rng.choice(nu * ni, EX_ML_RATINGS, replace=False)
+    rows, cols = flat // ni, flat % ni
+    score = (rng.randn(nu, 5) @ rng.randn(5, ni)) / np.sqrt(5.0)
+    vals = np.clip(np.rint(3.0 + score[rows, cols]
+                           + 0.5 * rng.randn(rows.size)), 1, 5)
+    dense = np.zeros((nu, ni), np.float32)
+    dense[rows, cols] = vals
+    return rows, cols, vals.astype(np.float32), dense
+
+
+def _als_f64(r, k: int, iters: int, reg: float, seed: int):
+    """als' steps in float64 numpy (batched normal equations)."""
+    v = (np.random.RandomState(seed).rand(r.shape[1], k).astype(np.float32)
+         * 0.1).astype(np.float64)
+    r = r.astype(np.float64)
+
+    def side(rr, other):
+        w = (rr != 0).astype(np.float64)
+        a = np.einsum("mn,nk,nl->mkl", w, other, other) + reg * np.eye(k)
+        return np.linalg.solve(a, ((w * rr) @ other)[:, :, None])[:, :, 0]
+
+    for _ in range(iters):
+        u = side(r, v)
+        v = side(r.T, u)
+    return u, v
+
+
+def _netflix_f64(r, k: int, iters: int, lr: float, reg: float, seed: int):
+    """netflix_sgd's steps in float64 numpy."""
+    rng = np.random.RandomState(seed)
+    u = (rng.rand(r.shape[0], k).astype(np.float32) * 0.1).astype(np.float64)
+    v = (rng.rand(r.shape[1], k).astype(np.float32) * 0.1).astype(np.float64)
+    mask = (r != 0).astype(np.float64)
+    for _ in range(iters):
+        err = (u @ v.T - r) * mask
+        cnt = max(mask.sum(), 1.0)
+        u, v = (u - lr * (err @ v / cnt + reg * u),
+                v - lr * (err.T @ u / cnt + reg * v))
+    return u, v
+
+
+def _mf_f64(ratings, k: int, epochs: int, lr: float, reg: float,
+            batch: int, seed: int):
+    """sgd_matrix_factorization's epochs in float64 numpy over the same
+    permuted entry stream; padding entries skipped."""
+    nu, ni = ratings.shape
+    rng = np.random.RandomState(seed)
+    scale = 1.0 / np.sqrt(k)
+    u = (rng.rand(nu, k).astype(np.float32) * scale).astype(np.float64)
+    v = (rng.rand(ni, k).astype(np.float32) * scale).astype(np.float64)
+    perm = rng.permutation(ratings.nse)
+    rows = ratings.rows.cpu().numpy()[perm]
+    cols = ratings.cols.cpu().numpy()[perm]
+    vals = ratings.data.cpu().numpy()[perm].astype(np.float64)
+    batch = min(batch, rows.size)
+    for _ in range(epochs):
+        for s in range(0, rows.size, batch):
+            r, c, x = rows[s:s + batch], cols[s:s + batch], vals[s:s + batch]
+            ok = (r < nu) & (c < ni)
+            r, c, x = r[ok], c[ok], x[ok]
+            ur, vr = u[r], v[c]
+            err = (ur * vr).sum(1) - x
+            np.add.at(u, r, -lr * (err[:, None] * vr + reg * ur))
+            np.add.at(v, c, -lr * (err[:, None] * ur + reg * vr))
+    return u, v
+
+
+def _examples_factorizations(st, card: str, dev) -> None:
+    """ALS, Netflix SGD and sparse SGD matrix factorization at
+    MovieLens-100K's shape."""
+    from spartan_tpu_torch.examples import als, decomposition, matrix_fact
+
+    rows, cols, vals, dense = _movielens()
+    k = EX_ML_K
+    what = "the same steps in float64 numpy"
+    R = st.from_numpy(dense)
+    t0 = time.perf_counter()
+    u, v = als.als(R, k=k, num_iter=5, reg=0.1)
+    wall = time.perf_counter() - t0
+    u_r, v_r = _als_f64(dense, k, 5, 0.1, 0)
+    # normal equations of ~106 ratings a user: entries differ from
+    # float64's by summation order; the solves amplify by their condition
+    # (2.3e-6 measured through torch on the CPU)
+    _check_rel(f"als {EX_ML_USERS} x {EX_ML_ITEMS}, {EX_ML_RATINGS} "
+               f"ratings, k = {k}, 5 iterations ({wall:.3f} s wall): "
+               f"U V^T", u @ v.T, u_r @ v_r.T, 1e-4, what)
+
+    t0 = time.perf_counter()
+    u, v = decomposition.netflix_sgd(R, k=k, num_iter=10)
+    wall = time.perf_counter() - t0
+    u_r, v_r = _netflix_f64(dense.astype(np.float64), k, 10, 0.01, 0.05, 0)
+    _check_rel(f"netflix_sgd same ratings, 10 iterations ({wall:.3f} s "
+               f"wall): U", u, u_r, 1e-5, what)
+    _check_rel("netflix_sgd: V", v, v_r, 1e-5, what)
+
+    ratings = st.SparseDistArray.from_coo(rows, cols, vals,
+                                          (EX_ML_USERS, EX_ML_ITEMS))
+    t0 = time.perf_counter()
+    u, v = matrix_fact.sgd_matrix_factorization(ratings, k=k, num_epochs=5)
+    wall = time.perf_counter() - t0
+    u_r, v_r = _mf_f64(ratings, k, 5, 0.02, 0.02, 4096, 0)
+    # index_add_ on the card sums a batch's duplicate rows atomically in
+    # any order: float32 rounding of a few terms a row per step
+    _check_rel(f"sgd_matrix_factorization {ratings.nnz} ratings (nse "
+               f"{ratings.nse}), 5 epochs of batches of 4096 ({wall:.3f} s "
+               f"wall): U", u, u_r, 1e-4, what)
+    _check_rel("sgd_matrix_factorization: V", v, v_r, 1e-4, what)
+    err = matrix_fact.rmse(ratings, u, v)
+    _check_rel("rmse", err, np.sqrt(np.mean(
+        ((u_r[rows] * v_r[cols]).sum(1) - vals) ** 2)), 1e-4,
+        "float64 of the oracle's factors")
+
+
+def _lda_f64(counts, k: int, iters: int, alpha: float, beta: float,
+             seed: int):
+    """lda's EM steps in float64 on the card (plain torch: the (D, W)
+    slices of 8192 x 16,384 take seconds a pass in numpy)."""
+    d, w = counts.shape
+    rng = np.random.RandomState(seed)
+    theta = rng.rand(d, k).astype(np.float32) + 0.5
+    theta /= theta.sum(axis=1, keepdims=True)
+    phi = rng.rand(k, w).astype(np.float32) + 0.5
+    phi /= phi.sum(axis=1, keepdims=True)
+    c = counts.double()
+    th = torch.from_numpy(theta).double().to(c.device)
+    ph = torch.from_numpy(phi).double().to(c.device)
+    for _ in range(iters):
+        denom = torch.clamp_min(th @ ph, 1e-30)
+        new_th, new_ph = torch.empty_like(th), torch.empty_like(ph)
+        for t in range(k):
+            r_t = c * th[:, t, None] * ph[None, t, :] / denom
+            new_ph[t], new_th[:, t] = r_t.sum(0), r_t.sum(1)
+        th = new_th + alpha
+        th = th / th.sum(1, keepdim=True)
+        ph = new_ph + beta
+        ph = ph / ph.sum(1, keepdim=True)
+    return th.cpu().numpy(), ph.cpu().numpy()
+
+
+def _examples_text(st, card: str, dev) -> None:
+    """LDA on an 8,192 x 16,384 count matrix; LSH signatures at 1M x 128
+    and candidate pairs on a few thousand points with planted
+    near-duplicates."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.examples import lda, lsh
+
+    nd, nw, k = EX_LDA_DOCS, EX_LDA_WORDS, EX_LDA_K
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(50)
+    # k topics on disjoint quarters of the vocabulary; a document draws
+    # ~0.1 of a count per word of its topic's quarter, ~0.01 elsewhere
+    topic = torch.arange(nd, device=dev) % k
+    block = torch.arange(nw, device=dev) // (nw // k)
+    rate = torch.where(topic[:, None] == block[None, :], 0.1, 0.01)
+    counts = torch.poisson(rate, generator=gen)
+    del rate
+    C = from_tensor(counts)
+    t0 = time.perf_counter()
+    theta, phi = lda.lda(C, k, num_iter=EX_LDA_ITERS)
+    wall = time.perf_counter() - t0
+    th_r, ph_r = _lda_f64(counts, k, EX_LDA_ITERS, 0.1, 0.01, 0)
+    what = "the same EM steps in float64 on the card"
+    _check_rel(f"lda {nd} x {nw} counts, k = {k}, {EX_LDA_ITERS} iterations "
+               f"({wall:.3f} s wall): theta", theta, th_r, 1e-4, what)
+    _check_rel("lda: phi", phi, ph_r, 1e-4, what)
+    del C, counts
+
+    n, d, nbits = EX_LSH_N, EX_LSH_D, EX_LSH_BITS
+    x = torch.randn((n, d), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    bits = lsh.signatures(from_tensor(x), n_bits=nbits, seed=0)
+    wall = time.perf_counter() - t0
+    r = np.random.RandomState(0).randn(d, nbits).astype(np.float32)
+    r64 = torch.from_numpy(r).double().to(dev)
+    proj = x.double() @ r64
+    # a float32 dot of length d errs by at most d * 2^-24 * |x| |r|
+    # (7.6e-6 |x| |r| at d = 128): bits agree wherever |x . r| exceeds
+    # 1e-5 |x| |r|
+    margin = 1e-5 * (x.double().norm(dim=1)[:, None]
+                     * r64.norm(dim=0)[None, :])
+    clear = (proj.abs() > margin).cpu().numpy()
+    want = (proj > 0).cpu().numpy()
+    agree = bool((bits[clear] == want[clear]).all())
+    _say(f"[examples] lsh.signatures {n} x {d}, {nbits} bits ({wall:.3f} s "
+         f"wall): {clear.mean():.6f} of the bits clear of the rounding "
+         f"margin, all of those equal to float64's signs: {agree}")
+    if bits.shape != (n, nbits) or not agree or clear.mean() < 0.999:
+        _fail("LSH signatures disagree with float64's signs")
+
+    pn, bands = EX_LSH_PAIRS_N, 4
+    rng = np.random.RandomState(51)
+    pts = rng.randn(pn, d).astype(np.float32)
+    planted = {(2 * i, 2 * i + 1) for i in range(64)}
+    for i, j in planted:
+        pts[j] = pts[i] + 0.01 * rng.randn(d).astype(np.float32)
+    t0 = time.perf_counter()
+    pairs = lsh.candidate_pairs(st.from_numpy(pts), n_bits=nbits,
+                                bands=bands, seed=0)
+    wall = time.perf_counter() - t0
+    proj = pts.astype(np.float64) @ r.astype(np.float64)
+    margin = 1e-5 * np.outer(np.linalg.norm(pts, axis=1),
+                             np.linalg.norm(r, axis=0))
+    sure = (np.abs(proj) > margin).all(axis=1)
+    keys = (proj > 0).reshape(pn, bands, nbits // bands)
+    want_pairs = set()
+    for b in range(bands):
+        groups = {}
+        for i in np.flatnonzero(sure):
+            groups.setdefault(keys[i, b].tobytes(), []).append(int(i))
+        for members in groups.values():
+            want_pairs.update((p, q) for ix, p in enumerate(members)
+                              for q in members[ix + 1:])
+    got = {(i, j) for i, j in pairs if sure[i] and sure[j]}
+    _say(f"[examples] lsh.candidate_pairs {pn} points, {bands} bands "
+         f"({wall:.3f} s wall): {len(pairs)} pairs, {len(planted & pairs)}"
+         f" of {len(planted)} planted near-duplicates; on the "
+         f"{int(sure.sum())} rows clear of the margin, equal to float64's "
+         f"banding: {got == want_pairs}")
+    if got != want_pairs or not planted <= pairs:
+        _fail("LSH candidate pairs disagree with float64's banding")
+
+
+def phase_examples(st, kk, ks, nb, card: str, dev) -> dict:
+    """The application tier through the entry points a user calls: the
+    examples, the sklearn-style estimators, each against float64 (or,
+    where a kernel runs, against its plain-version run)."""
+    t0 = time.perf_counter()
+    out = _examples_regression(st, card, dev)
+    out.update(_examples_svd(st, card, dev))
+    out.update(_examples_estimators(st, kk, ks, nb, card, dev))
+    _examples_solvers(st, card, dev)
+    _examples_factorizations(st, card, dev)
+    _examples_text(st, card, dev)
+    _say(f"[examples] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -1718,6 +2359,7 @@ def main() -> None:
     with st.use_mesh(st.build_mesh(VGG_MESH)):
         vggr = phase_vgg(st, kk, kst, card, dev)
     phase_structure(st, card, dev)
+    exr = phase_examples(st, kk, ks, nb, card, dev)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -1725,7 +2367,8 @@ def main() -> None:
         "launches": kmr["launches"], "max_abs_err": max_err,
         "ms": kmr["ms"], "plain_ms": kmr["plain_ms"],
         "bound_ms": kmr["bound_ms"], "bound_by": kmr["bound_by"],
-        "library_ms": kmr["library_ms"]}, {
+        "library_ms": kmr["library_ms"],
+        "estimator_launches": exr["kmeans_launches"]}, {
         "name": "windowed_segsum", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:148",
@@ -1741,7 +2384,8 @@ def main() -> None:
         "bound_ms": abr["bound_ms"], "bound_by": abr["bound_by"],
         "library_ms": abr["library_ms"], "naive_bayes_ms": nbr["ms"],
         "naive_bayes_bound_ms": nbr["bound_ms"],
-        "naive_bayes_library_ms": nbr["library_ms"]}, {
+        "naive_bayes_library_ms": nbr["library_ms"],
+        "estimator_launches": exr["nb_launches"]}, {
         "name": "partition_pack", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/exchange.cu",
         "replaces": "spartan_tpu/kernels/exchange.py:31",

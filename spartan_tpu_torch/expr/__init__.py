@@ -1,16 +1,16 @@
 """Public lazy-expression API (the slice of ``spartan_tpu.expr`` this
 package carries)."""
 
-from .base import (Expr, ScalarExpr, TupleExpr, ValExpr, as_expr,
-                   clear_plan_cache, evaluate, plan_cache_size, plan_stats,
-                   reset_plan_stats)
+from .base import (DictExpr, Expr, ListExpr, ScalarExpr, TupleExpr, ValExpr,
+                   as_expr, clear_plan_cache, dict_of, evaluate, lazify,
+                   plan_cache_size, plan_stats, reset_plan_stats, tuple_of)
 from .builtins import *  # noqa: F401,F403
 from .builtins import __all__ as _builtin_all
 from .assign import WriteExpr, assign, write_array
 from .dot import DotExpr, dot
 from .filter import GatherExpr, filter
 from .loop import LoopExpr, LoopItemExpr, loop
-from .map import MapExpr, map
+from .map import MapExpr, MapWithLocationExpr, map, map_with_location
 from .map2 import Map2Expr, map2
 from .ndarray import CreateExpr, RandomExpr
 from .optimize import dag_nodes, optimize
@@ -29,5 +29,7 @@ __all__ = ["Expr", "ValExpr", "ScalarExpr", "TupleExpr", "as_expr",
            "LoopExpr", "LoopItemExpr", "SliceExpr", "make_slice",
            "assign", "write_array", "WriteExpr", "outer", "OuterExpr",
            "GeneralReduceExpr", "shuffle", "transpose", "reshape",
-           "TransposeExpr", "ReshapeExpr", "ConcatExpr",
+           "TransposeExpr", "ReshapeExpr", "ConcatExpr", "tuple_of",
+           "ListExpr", "DictExpr", "dict_of", "lazify", "map_with_location",
+           "MapWithLocationExpr",
            ] + [n for n in _builtin_all if n != "dot"]

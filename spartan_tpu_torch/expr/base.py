@@ -473,6 +473,61 @@ class TupleExpr(Expr):
         return tuple(r.glom() for r in evaluate(self))
 
 
+def lazify(value: Any) -> Expr:
+    return as_expr(value)
+
+
+def tuple_of(*elements: Any) -> TupleExpr:
+    return TupleExpr(elements)
+
+
+class ListExpr(TupleExpr):
+    """List-shaped multi-root evaluation (the reference's ``ListExpr``)."""
+
+    def glom(self):  # type: ignore[override]
+        return [r.glom() for r in evaluate(self)]
+
+
+class DictExpr(Expr):
+    """Dict of exprs evaluated in ONE plan (the reference's ``DictExpr``):
+    the values, in sorted key order, are one ``TupleExpr``;
+    ``glom()``/``evaluate()`` return dicts."""
+
+    def __init__(self, items: Dict[str, Any]):
+        self._keys = tuple(sorted(items))
+        self._tuple = TupleExpr([items[k] for k in self._keys])
+        super().__init__((), self._tuple.elements[0].dtype)
+
+    def children(self) -> Tuple[Expr, ...]:
+        return (self._tuple,)
+
+    def replace_children(self, new_children: Tuple[Expr, ...]) -> "DictExpr":
+        e = DictExpr.__new__(DictExpr)
+        Expr.__init__(e, (), new_children[0].elements[0].dtype)
+        e._keys = self._keys
+        e._tuple = new_children[0]
+        return e
+
+    def _lower(self, env: Dict[int, Any]) -> Any:
+        raise RuntimeError("DictExpr is evaluated via its tuple")
+
+    def _sig(self, ctx: "_SigCtx") -> Tuple:
+        return ("dict", self._keys, ctx.of(self._tuple))
+
+    def evaluate(self):  # type: ignore[override]
+        return dict(zip(self._keys, evaluate(self._tuple)))
+
+    def glom(self):  # type: ignore[override]
+        return {k: v.glom() for k, v in self.evaluate().items()}
+
+    def __getitem__(self, key: str) -> Expr:  # type: ignore[override]
+        return self._tuple.elements[self._keys.index(key)]
+
+
+def dict_of(**items: Any) -> DictExpr:
+    return DictExpr(items)
+
+
 # -- evaluation machinery ----------------------------------------------
 
 

@@ -9,9 +9,13 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import torch
+
+from ..array import extent as extent_mod
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
-from .base import Expr, as_expr, eval_shape_of
+from ..parallel import mesh as mesh_mod
+from .base import Expr, as_expr, eval_shape_of, fn_key
 from .local import LocalCall, LocalExpr, LocalInput, LocalUfunc
 
 
@@ -72,3 +76,69 @@ def map(fn: Callable, *args: Any, fn_kw: Optional[dict] = None) -> MapExpr:
     kw = tuple(sorted((fn_kw or {}).items()))
     op = LocalCall(fn, tuple(LocalInput(i) for i in range(len(inputs))), kw)
     return MapExpr(inputs, op)
+
+
+class MapWithLocationExpr(Expr):
+    """Map whose kernel also receives the block's global offset (the
+    reference's ``map_with_location``: index-dependent ops).
+
+    ``fn(block, ul)`` runs once per logical block of the input's tiling,
+    with ``ul`` that block's global upper-left corner (Python ints), and
+    the blocks' results are stitched together: the JAX package runs
+    ``fn`` per shard under ``shard_map``. Where the tiling does not
+    divide the shape, ``fn`` runs once on the whole array at
+    ``(0, ...)``, as there.
+    """
+
+    def __init__(self, input: Expr, fn: Callable,
+                 fn_kw: Tuple[Tuple[str, Any], ...] = ()):
+        self.input = input
+        self.fn = fn
+        self.fn_kw = fn_kw
+        # fn must preserve the block shape; dtype may change
+        out = eval_shape_of(
+            lambda x: fn(x, tuple(0 for _ in input.shape), **dict(fn_kw)),
+            input)
+        if out.shape != input.shape:
+            raise ValueError(
+                "map_with_location kernels must preserve shape; got "
+                f"{out.shape} from {input.shape}")
+        super().__init__(out.shape, out.dtype)
+
+    def children(self) -> Tuple[Expr, ...]:
+        return (self.input,)
+
+    def replace_children(self, new_children: Tuple[Expr, ...]
+                         ) -> "MapWithLocationExpr":
+        return MapWithLocationExpr(new_children[0], self.fn, self.fn_kw)
+
+    def _lower(self, env: Dict[int, Any]) -> Any:
+        x = self.input.lower(env)
+        kw = dict(self.fn_kw)
+        mesh = mesh_mod.get_mesh()
+        tiles = self.input.out_tiling().tiles_per_dim(mesh)
+        if any(n > 1 and d % n for d, n in zip(self.shape, tiles)):
+            # uneven tiling: a single logical block at (0, ...)
+            return self.fn(x, tuple(0 for _ in self.shape), **kw)
+        out = None
+        for ext in extent_mod.tile_grid(self.shape, tiles):
+            sl = ext.to_slice()
+            blk = self.fn(x[sl], ext.ul, **kw)
+            if out is None:
+                out = torch.empty(self.shape, dtype=blk.dtype,
+                                  device=blk.device)
+            out[sl] = blk
+        return out
+
+    def _sig(self, ctx) -> Tuple:
+        return ("maploc", fn_key(self.fn), self.fn_kw,
+                self.input.out_tiling().axes, ctx.of(self.input))
+
+    def _default_tiling(self) -> Tiling:
+        return self.input.out_tiling()
+
+
+def map_with_location(array: Any, fn: Callable,
+                      fn_kw: Optional[dict] = None) -> MapWithLocationExpr:
+    return MapWithLocationExpr(as_expr(array), fn,
+                               tuple(sorted((fn_kw or {}).items())))

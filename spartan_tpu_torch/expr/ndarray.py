@@ -144,6 +144,10 @@ class RandomExpr(Expr):
 
 def ndarray(shape: Sequence[int], dtype: Any = np.float32,
             tile_hint: Optional[Sequence[int]] = None,
+            reducer: Any = None,
             tiling: Optional[Tiling] = None) -> CreateExpr:
-    """The reference's ``ndarray``: a new zero-filled distributed array."""
+    """The reference's ``ndarray``: a new zero-filled distributed array.
+
+    ``reducer`` is accepted for API parity and is advisory, as in the
+    JAX package: a write names its reducer itself."""
     return CreateExpr(shape, dtype, "zeros", (), tiling, tile_hint)

@@ -7,7 +7,8 @@ and no time.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..array.distarray import DistArray
 from ..utils.config import FLAGS
@@ -139,11 +140,22 @@ _PASSES: List[Pass] = [CollapseCachedPass(), MapFusionPass(),
                        ReduceFusionPass()]
 
 
-def optimize(root: Expr) -> Expr:
-    """Run the enabled pass stack. Only plan-cache misses reach this."""
+def optimize(root: Expr, report: Optional[List[Dict]] = None) -> Expr:
+    """Run the enabled pass stack. Only plan-cache misses reach this.
+
+    ``report``: optional list; one dict per enabled pass is appended
+    (``name`` / ``nodes_before`` / ``nodes_after`` / ``seconds``), the
+    JAX package's per-pass record."""
     for p in _PASSES:
         if p.enabled():
-            root = p.run(root)
+            before = len(dag_nodes(root)) if report is not None else 0
+            t0 = time.perf_counter()
+            new_root = p.run(root)
+            if report is not None:
+                report.append({"name": p.name, "nodes_before": before,
+                               "nodes_after": len(dag_nodes(new_root)),
+                               "seconds": time.perf_counter() - t0})
+            root = new_root
     return root
 
 
