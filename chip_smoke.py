@@ -54,7 +54,31 @@ Phases, in order; any failure exits nonzero before the result line:
     Cholesky, QR and TSQR; ALS, Netflix SGD and sparse SGD matrix
     factorization at MovieLens-100K's shape; LDA and LSH; each against
     float64 or its plain-version run;
-14. the ``kernels`` line (times, launches, bounds) and the result line.
+14. ``[masked]``: a sensor matrix of 8 x 2^23 f32 with 1% NaN
+    (``masked_invalid``) and 5% more masked (``masked_where``): count,
+    sum, mean, var, std, min and max per row and whole, the median, sort
+    and argsort per row, and a masked GEMM of two 4096^2 matrices, against
+    float64 on the card and ``numpy.ma`` for one whole row, with ms per
+    call and the peak memory;
+15. ``[checkpoint]``: save and load of the k-means points (8 blobs on a
+    logical (8, 1) mesh) and of a replicated 4096^2 matrix (1 blob):
+    bit-equal round trips, CRCs verified, a flipped byte refused, GB/s by
+    host clock, through the blob I/O pool built with g++;
+16. ``[ckpt_loop]``: BASELINE config 3 through ``st.loop(...,
+    checkpoint_every=5)``: exactly 20 k-means launches and the
+    uninterrupted loop's bits, one restore after an injected transient
+    fault, and a child process killed by SIGKILL after its iteration-10
+    snapshot, resumed to 20 here, all bit-equal; iterations per second
+    with and without snapshots;
+17. ``[streaming]``: ``OnlineKMeans`` (16 mini-batches, then ``refine``
+    over the 1M points: 5 k-means launches, against the plain-driven
+    refine), ``SlidingWindowStats`` over a 512 MiB window and
+    ``IncrementalPageRank`` on a dense 16,384^2 transition, against
+    float64;
+18. the ``kernels`` line (times, launches, bounds) and the result line.
+
+``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
+``[ckpt_loop]``; it is not meant to be run by hand.
 
 Imports torch, numpy and the port only.
 """
@@ -63,8 +87,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -424,6 +450,11 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
     loop_s()
     best = min(loop_s() for _ in range(3))
     ips = KM_ITERS / best
+    # kmeans() itself: one st.loop over kmeans_step, same kernel launches
+    c0_e = st.from_numpy(c0_np)
+    loop_ips = KM_ITERS / (_wall_ms(lambda: st.loop(
+        KM_ITERS, lambda c: km.kmeans_step(points, c, KM_K),
+        c0_e).evaluate()) / 1e3)
     ms = _event_ms(lambda: kk.assign_accumulate(p, c0, KM_K, KM_N), 20)
     plain_ms = _event_ms(
         lambda: kk.assign_accumulate_plain(p, c0, KM_K, KM_N), 20)
@@ -434,6 +465,9 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
     t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
     bound_ms = max(t_ops, t_bytes)
     _say(f"[kmeans] {ips:.2f} iters/s ({KM_ITERS}-iteration loop, best of 3); "
+         f"st.loop over kmeans_step (kmeans()'s path) {loop_ips:.2f} "
+         f"iters/s on {card}")
+    _say(f"[kmeans] "
          f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
          f"{lib_ms:.4f} (composite cdist+argmin+index_add_) bound_ms "
          f"{bound_ms:.4f} ({'operations' if t_ops >= t_bytes else 'bytes'}"
@@ -441,7 +475,8 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
          f"{100.0 * bound_ms / ms:.1f}% of its bound on {card}")
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "points": points, "padded": p, "c0": c0_np, "ref": centers}
 
 
 # -- phase 3, segment kernels ---------------------------------------------
@@ -1038,10 +1073,11 @@ def phase_bincount_kernel(kh, dev) -> float:
 # -- phases 9-11, sort / top-k / histogram -----------------------------------
 
 
-def _wall_ms(fn, reps: int = 3) -> float:
+def _wall_ms(fn, reps: int = 3, warm: bool = True) -> float:
     """Best host-clock time of ``fn()`` ending in a synchronise, after one
-    warm-up call."""
-    fn()
+    warm-up call unless ``warm`` is False."""
+    if warm:
+        fn()
     best = float("inf")
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -2306,7 +2342,510 @@ def phase_examples(st, kk, ks, nb, card: str, dev) -> dict:
     return out
 
 
+# -- phases 14-17: the state tier -----------------------------------------
+
+# sensor matrix of [masked]: 8 rows of 2^23 f32 with 1% NaN (masked
+# through masked_invalid) and a further 5% masked through masked_where;
+# masked_dot of two 4096^2 matrices with 10% masked
+MASK_ROWS, MASK_COLS, MASK_SEED = 8, 2 ** 23, 50
+MASK_NAN, MASK_WHERE, MDOT_N, MDOT_MASKED = 0.01, 0.05, 4096, 0.10
+# [checkpoint]: the k-means points (padded rows) on a logical (8, 1) mesh
+# and a replicated 4096^2 matrix
+CKPT_MESH, CKPT_REP_N = (8, 1), 4096
+# [ckpt_loop]: BASELINE config 3 in segments of 5
+CKL_EVERY = 5
+# [streaming]
+OKM_BATCHES, OKM_BATCH, OKM_REFINE = 16, 65_536, 5
+SW_WINDOW, SW_DIM, SW_PUSHES, SW_PUSH = 1_048_576, 128, 20, 65_536
+PR_DENSE_N, PR_INSERTS, PR_INSERT_COLS, PR_REBASE = 16_384, 4, 256, 4
+
+
+def _rel_t(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Normwise relative error of a tensor against a float64 tensor."""
+    if tuple(got.shape) != tuple(want.shape):
+        _fail(f"shape {tuple(got.shape)} where {tuple(want.shape)} was "
+              f"expected")
+    d = got.to(torch.float64) - want
+    return float(d.norm() / want.norm().clamp_min(1e-300))
+
+
+def _expect(label: str, err: float, tol: float, what: str) -> None:
+    _say(f"[{label}] {what}: normwise rel err {err:.3g} (tol {tol:g})")
+    if not err <= tol:
+        _fail(f"[{label}] {what} off by {err:.3g} > {tol:g}")
+
+
+def _masked_f64(x: torch.Tensor, valid: torch.Tensor, dim):
+    """count, sum, mean, var, std, min, max of the valid entries in
+    float64 (over ``dim``, or everything when None)."""
+    x64 = torch.where(valid, x.to(torch.float64), 0.0)
+    kw = {} if dim is None else {"dim": dim}
+    cnt = valid.sum(**kw).to(torch.float64)
+    tot = x64.sum(**kw)
+    mean = tot / cnt
+    dev_ = torch.where(valid, x.to(torch.float64) - (
+        mean if dim is None else mean.unsqueeze(dim)), 0.0)
+    var = (dev_ * dev_).sum(**kw) / cnt
+    lo = torch.where(valid, x.to(torch.float64), float("inf"))
+    hi = torch.where(valid, x.to(torch.float64), float("-inf"))
+    mn = lo.amin(**kw)
+    mx = hi.amax(**kw)
+    return {"count": cnt, "sum": tot, "mean": mean, "var": var,
+            "std": var.sqrt(), "min": mn, "max": mx}
+
+
+def phase_masked(st, card: str, dev) -> None:
+    """Masked reductions, median, sort and argsort of a sensor matrix
+    and a masked GEMM, against float64 on the card and numpy.ma."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.array.masked import MaskedDistArray
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MASK_SEED)
+    shape = (MASK_ROWS, MASK_COLS)
+    x = torch.rand(shape, generator=gen, device=dev)
+    x[torch.rand(shape, generator=gen, device=dev) < MASK_NAN] = float("nan")
+    extra = torch.rand(shape, generator=gen, device=dev) < MASK_WHERE
+    xe = from_tensor(x)
+    invalid = MaskedDistArray.masked_invalid(xe)
+    s = MaskedDistArray.masked_where(invalid.mask | from_tensor(extra),
+                                     xe).evaluate()
+    mask = s.mask.evaluate().tensor
+    valid = ~mask
+    want_mask = torch.isnan(x) | extra
+    if not torch.equal(mask, want_mask):
+        _fail("[masked] the mask is not NaN | the masked_where condition")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+
+    ops = {"count": lambda a: s.count(axis=a), "sum": lambda a: s.sum(a),
+           "mean": lambda a: s.mean(a), "var": lambda a: s.var(a),
+           "std": lambda a: s.std(a), "min": lambda a: s.min(a).data,
+           "max": lambda a: s.max(a).data}
+    times = {}
+    for axis, label in ((1, "per row"), (None, "whole")):
+        want = _masked_f64(x, valid, axis)
+        for name, op in ops.items():
+            got = op(axis).evaluate().tensor
+            if name == "count":
+                if not torch.equal(got.to(torch.float64), want[name]):
+                    _fail(f"[masked] count {label} is not exact")
+            else:
+                _expect("masked", _rel_t(got, want[name]), 1e-5,
+                        f"{name} {label} vs float64")
+            times[f"{name} {label}"] = _wall_ms(
+                lambda: op(axis).evaluate())
+        if axis is not None:
+            for name in ("min", "max"):
+                m = getattr(s, name)(axis).mask.evaluate().tensor
+                if bool(m.any()):
+                    _fail(f"[masked] {name} per row masked a row with "
+                          f"valid entries")
+    med = st.median(s, axis=1).evaluate().tensor
+    srt = st.sort(s, axis=1)
+    srt_d, srt_m = srt.data.evaluate().tensor, srt.mask.evaluate().tensor
+    arg = st.argsort(s, axis=1).evaluate().tensor
+    times["median per row"] = _wall_ms(
+        lambda: st.median(s, axis=1).evaluate())
+    times["sort per row"] = _wall_ms(
+        lambda: st.tuple_of(st.sort(s, axis=1).data,
+                            st.sort(s, axis=1).mask).evaluate())
+    times["argsort per row"] = _wall_ms(
+        lambda: st.argsort(s, axis=1).evaluate())
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    # numpy.ma on the host for one whole row: exact
+    r = 3
+    row = np.ma.masked_array(x[r].cpu().numpy(), mask[r].cpu().numpy())
+    k = int(row.count())
+    want_sorted = np.sort(row.compressed(), kind="stable")
+    want_arg = np.ma.argsort(row, kind="stable")[:k]
+    got_sorted = srt_d[r].cpu().numpy()
+    if not (np.array_equal(got_sorted[:k], want_sorted)
+            and not srt_m[r, :k].any() and bool(srt_m[r, k:].all())):
+        _fail("[masked] sorted row differs from numpy.ma.sort")
+    if not np.array_equal(arg[r, :k].cpu().numpy(), want_arg):
+        _fail("[masked] argsort row differs from numpy.ma.argsort "
+              "(stable)")
+    want_med = np.float32(np.ma.median(row))
+    if float(med[r]) != float(want_med):
+        _fail(f"[masked] median of row {r}: {float(med[r])!r} vs "
+              f"numpy.ma {float(want_med)!r}")
+    if int(s.count(axis=1).evaluate().tensor[r]) != k:
+        _fail("[masked] count of the row differs from numpy.ma")
+    _say(f"[masked] row {r} against numpy.ma: {k} valid of {MASK_COLS}; "
+         f"sort, argsort (stable), median {float(want_med)!r} and count "
+         f"exact")
+
+    # masked GEMM: filled data and valid-pair counts
+    a = torch.rand((MDOT_N, MDOT_N), generator=gen, device=dev)
+    b = torch.rand((MDOT_N, MDOT_N), generator=gen, device=dev)
+    ma_ = torch.rand((MDOT_N, MDOT_N), generator=gen, device=dev) \
+        < MDOT_MASKED
+    mb = torch.rand((MDOT_N, MDOT_N), generator=gen, device=dev) \
+        < MDOT_MASKED
+    sa = MaskedDistArray(from_tensor(a), from_tensor(ma_))
+    sb = MaskedDistArray(from_tensor(b), from_tensor(mb))
+    prod = st.dot(sa, sb)
+    pd, pm = st.tuple_of(prod.data, prod.mask).evaluate()
+    va, vb = (~ma_).to(torch.float64), (~mb).to(torch.float64)
+    want = (a.to(torch.float64) * va) @ (b.to(torch.float64) * vb)
+    cnt = va @ vb
+    if not torch.equal(pm.tensor, cnt == 0):
+        _fail("[masked] masked_dot's mask is not (valid pairs == 0)")
+    _expect("masked", _rel_t(pd.tensor, want), 1e-4,
+            f"masked_dot {MDOT_N}^2 data vs float64")
+    times["masked_dot"] = _wall_ms(
+        lambda: st.tuple_of(st.dot(sa, sb).data,
+                            st.dot(sa, sb).mask).evaluate())
+    _say("[masked] ms per call (host clock to a synchronise, best of 3 "
+         "after a warm-up): "
+         + "; ".join(f"{k} {v:.3f}" for k, v in times.items())
+         + f" on {card}")
+    _say(f"[masked] peak device memory above the inputs during the "
+         f"{MASK_ROWS}x{MASK_COLS} ops: {peak / 2 ** 30:.2f} GiB "
+         f"(torch.cuda.max_memory_allocated) on {card}")
+    _say(f"[masked] phase {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def phase_checkpoint(st, card: str, dev, padded: torch.Tensor,
+                     workdir: str) -> None:
+    """save/load of the k-means points on a logical (8, 1) mesh (8
+    blobs) and of a replicated 4096^2 matrix (1 blob): bit-equal round
+    trips, CRCs verified, a flipped byte refused."""
+    import spartan_tpu_torch.native as native
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    _say(f"[checkpoint] blob route: {native.route()} (built with g++ "
+         f"from spartan_tpu_torch/native/blob_io.cpp)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(51)
+    rep = torch.rand((CKPT_REP_N, CKPT_REP_N), generator=gen, device=dev)
+    with st.use_mesh(st.build_mesh(CKPT_MESH)):
+        cases = [("points", padded, st.Tiling(("x", None)), 8),
+                 ("replicated", rep, st.Tiling((None, None)), 1)]
+        for name, t, tiling, blobs in cases:
+            arr = from_tensor(t, tiling=tiling)
+            path = os.path.join(workdir, name)
+            nbytes = t.numel() * t.element_size()
+            first_ms = _wall_ms(lambda: ckpt.save(path, arr), reps=1,
+                                warm=False)
+            save_ms = _wall_ms(lambda: ckpt.save(path, arr), reps=2)
+            files = sorted(f for f in os.listdir(path) if f.endswith(".bin"))
+            if len(files) != blobs:
+                _fail(f"[checkpoint] {name}: {len(files)} blobs, want "
+                      f"{blobs}")
+            holder = []
+            load_ms = _wall_ms(
+                lambda: holder.append(ckpt.load(path)), reps=2)
+            back = holder[-1]
+            if back.device != t.device or not torch.equal(back.tensor, t):
+                _fail(f"[checkpoint] {name}: the round trip is not "
+                      f"bit-equal on the card")
+            _say(f"[checkpoint] {name} {tuple(t.shape)} f32 "
+                 f"({nbytes / 2 ** 20:.0f} MiB, {len(files)} blob"
+                 f"{'s' if len(files) > 1 else ''}): save {save_ms:.1f} ms "
+                 f"({nbytes / save_ms / 1e6:.2f} GB/s), load {load_ms:.1f} "
+                 f"ms ({nbytes / load_ms / 1e6:.2f} GB/s) by host clock, "
+                 f"CRC32 verified, bit-equal; first save {first_ms:.1f} ms "
+                 f"(no warm-up) on {card}")
+            del holder, back
+        # the pageable branch (arrays above the cached page-locked size)
+        keep, ckpt._PINNED_KEEP = ckpt._PINNED_KEEP, 0
+        try:
+            arr = from_tensor(padded, tiling=st.Tiling(("x", None)))
+            path = os.path.join(workdir, "pageable")
+            nbytes = padded.numel() * padded.element_size()
+            save_ms = _wall_ms(lambda: ckpt.save(path, arr), reps=2)
+            holder = []
+            load_ms = _wall_ms(
+                lambda: holder.append(ckpt.load(path)), reps=2)
+            if not torch.equal(holder[-1].tensor, padded):
+                _fail("[checkpoint] the pageable round trip is not "
+                      "bit-equal")
+            del holder
+        finally:
+            ckpt._PINNED_KEEP = keep
+        shutil.rmtree(path, ignore_errors=True)
+        _say(f"[checkpoint] points through pageable staging (above the "
+             f"cached size): save {save_ms:.1f} ms ({nbytes / save_ms / 1e6:.2f}"
+             f" GB/s), load {load_ms:.1f} ms ({nbytes / load_ms / 1e6:.2f} "
+             f"GB/s), bit-equal, on {card}")
+        victim = os.path.join(workdir, "points", sorted(
+            f for f in os.listdir(os.path.join(workdir, "points"))
+            if f.endswith(".bin"))[5])
+        at = os.path.getsize(victim) // 2
+        with open(victim, "r+b") as f:
+            f.seek(at)
+            byte = f.read(1)
+            f.seek(at)
+            f.write(bytes([byte[0] ^ 0x40]))
+        try:
+            ckpt.load(os.path.join(workdir, "points"))
+        except ValueError as e:
+            if os.path.basename(victim) not in str(e):
+                _fail(f"[checkpoint] the CRC error does not name the "
+                      f"shard: {e}")
+            _say(f"[checkpoint] flipped byte in "
+                 f"{os.path.basename(victim)}: refused ({str(e)[:60]}...)")
+        else:
+            _fail("[checkpoint] a flipped byte loaded without error")
+    shutil.rmtree(os.path.join(workdir, "replicated"), ignore_errors=True)
+    _say(f"[checkpoint] phase {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def ckpt_child(workdir: str) -> None:
+    """The process [ckpt_loop] kills: the checkpointed k-means loop from
+    the points and centers saved under ``workdir``, killed with SIGKILL
+    when it builds segment 3, after its iteration-10 snapshot."""
+    import signal
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.utils import checkpoint as ckpt
+
+    st.set_default_device("cuda")
+    points = st.as_expr(ckpt.load(os.path.join(workdir, "child_points")))
+    c0 = ckpt.load(os.path.join(workdir, "child_c0"))
+    calls = [0]
+
+    def body(c):
+        calls[0] += 1
+        if calls[0] == 3:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return km.kmeans_step(points, c, KM_K)
+
+    st.loop(KM_ITERS, body, c0, checkpoint_every=CKL_EVERY,
+            checkpoint_path=os.path.join(workdir, "killed"))
+    _fail("the child was not killed")
+
+
+def phase_ckpt_loop(st, kk, km, card: str, dev, points, c0_np,
+                    workdir: str) -> dict:
+    """BASELINE config 3 through ``st.loop(..., checkpoint_every=5)``:
+    exactly 20 k-means kernel launches and the uninterrupted loop's
+    bits; one injected transient fault restores once with the same
+    bits; a child killed by SIGKILL after its iteration-10 snapshot,
+    resumed here to 20, gives the same bits."""
+    from spartan_tpu_torch.resilience import loop_ckpt
+    from spartan_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+
+    def body(c):
+        return km.kmeans_step(points, c, KM_K)
+
+    def c0():
+        return st.from_numpy(c0_np)
+
+    if not isinstance(body(c0()), km.KMeansStepExpr):
+        _fail("[ckpt_loop] kmeans_step did not select the fused pass")
+    _reset_counts(kk)
+    ref = st.loop(KM_ITERS, body, c0()).glom()
+    if kk.LAUNCHES != KM_ITERS:
+        _fail(f"[ckpt_loop] uninterrupted loop: {kk.LAUNCHES} launches")
+    plain_s = _wall_ms(lambda: st.loop(KM_ITERS, body, c0()).glom()) / 1e3
+
+    _reset_counts(kk)
+    out = st.loop(KM_ITERS, body, c0(), checkpoint_every=CKL_EVERY,
+                  checkpoint_path=os.path.join(workdir, "a"))
+    got = out.glom()
+    launches = kk.LAUNCHES
+    _say(f"[ckpt_loop] {KM_N}x{KM_D} k={KM_K} {KM_ITERS} iters in segments "
+         f"of {CKL_EVERY}: kernel launches {launches}, "
+         f"{out._resilience['segments']} segments")
+    if launches != KM_ITERS:
+        _fail(f"[ckpt_loop] {launches} k-means launches, want {KM_ITERS}")
+    if not np.array_equal(got, ref):
+        _fail("[ckpt_loop] checkpointed centers differ from the "
+              "uninterrupted loop's")
+    ckpt_s = _wall_ms(lambda: st.loop(
+        KM_ITERS, body, c0(), checkpoint_every=CKL_EVERY,
+        checkpoint_path=os.path.join(workdir, "t")).glom()) / 1e3
+    carry = st.from_numpy(ref)
+    snap_ms = _wall_ms(lambda: loop_ckpt.save_snapshot(
+        os.path.join(workdir, "s"), CKL_EVERY, [carry]), reps=5)
+
+    calls = [0]
+
+    def flaky(c):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise RuntimeError("UNAVAILABLE: fault injected in segment 3")
+        return body(c)
+
+    out = st.loop(KM_ITERS, flaky, c0(), checkpoint_every=CKL_EVERY,
+                  checkpoint_path=os.path.join(workdir, "b"))
+    restores = out._resilience["restores"]
+    if restores != 1 or not np.array_equal(out.glom(), ref):
+        _fail(f"[ckpt_loop] injected fault: {restores} restores, "
+              f"bit-equal {np.array_equal(out.glom(), ref)}")
+    _say("[ckpt_loop] one transient fault injected in segment 3: 1 "
+         "restore from the iteration-10 snapshot, centers bit-equal")
+
+    ckpt.save(os.path.join(workdir, "child_points"), points.evaluate())
+    ckpt.save(os.path.join(workdir, "child_c0"), c0())
+    t1 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--ckpt-child", workdir],
+        capture_output=True, text=True, timeout=300)
+    if child.returncode != -9:
+        _fail(f"[ckpt_loop] the child exited {child.returncode}, not by "
+              f"SIGKILL:\n{child.stdout[-2000:]}\n{child.stderr[-2000:]}")
+    killed = os.path.join(workdir, "killed")
+    with open(os.path.join(killed, "LATEST.json")) as f:
+        step = json.load(f)["step"]
+    if step != 2 * CKL_EVERY:
+        _fail(f"[ckpt_loop] the child's last snapshot is iteration {step}")
+    _reset_counts(kk)
+    out = st.loop(KM_ITERS, body, c0(), checkpoint_every=CKL_EVERY,
+                  checkpoint_path=killed, resume=killed)
+    resumed = out.glom()
+    if kk.LAUNCHES != KM_ITERS - step or not np.array_equal(resumed, ref):
+        _fail(f"[ckpt_loop] resume from {step}: {kk.LAUNCHES} launches, "
+              f"bit-equal {np.array_equal(resumed, ref)}")
+    _say(f"[ckpt_loop] child killed by SIGKILL after its iteration-{step} "
+         f"snapshot ({time.perf_counter() - t1:.1f} s with its start-up), "
+         f"resumed here to {KM_ITERS} ({kk.LAUNCHES} launches): centers "
+         f"bit-equal")
+    _say(f"[ckpt_loop] {KM_ITERS / plain_s:.2f} iters/s uninterrupted, "
+         f"{KM_ITERS / ckpt_s:.2f} iters/s with a snapshot every "
+         f"{CKL_EVERY} ({KM_ITERS // CKL_EVERY} snapshots), "
+         f"{snap_ms:.2f} ms per snapshot of the ({KM_K}, {KM_D}) centers "
+         f"(host clock, best of 3 and 5 after a warm-up) on {card}")
+    _say(f"[ckpt_loop] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return {"launches": launches}
+
+
+def _refine_plain(kk, pts: torch.Tensor, c: torch.Tensor, k: int,
+                  iters: int) -> torch.Tensor:
+    for _ in range(iters):
+        s, n = kk.assign_accumulate_plain(pts, c, k)
+        c = s / torch.clamp_min(n, 1.0)[:, None]
+    return c
+
+
+def phase_streaming(st, kk, card: str, dev, points, c0_np) -> dict:
+    """The three streaming classes at full width: OnlineKMeans (16
+    mini-batches, then refine over the 1M points: 5 k-means launches),
+    SlidingWindowStats over a 512 MiB window, IncrementalPageRank on a
+    dense 16,384^2 transition (1 GiB)."""
+    from spartan_tpu_torch.examples import streaming
+
+    t0 = time.perf_counter()
+    pts = points.evaluate().tensor
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(52)
+    # one start center per cluster (as [kmeans]): every row keeps one
+    # clear nearest center, so the kernel-driven and the plain-driven
+    # refine assign alike (from random points, near-tie rows flip
+    # between the two roundings and the centers drift ~1e-3 apart)
+    okm = streaming.OnlineKMeans(torch.from_numpy(c0_np).to(dev))
+    tb = time.perf_counter()
+    for i in range(OKM_BATCHES):
+        okm.partial_fit(pts[i * OKM_BATCH:(i + 1) * OKM_BATCH])
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - tb) * 1e3 / OKM_BATCHES
+    before = okm.centers.tensor.clone()
+    _reset_counts(kk)
+    tr = time.perf_counter()
+    got = okm.refine(points, iters=OKM_REFINE).tensor
+    torch.cuda.synchronize()
+    refine_ms = (time.perf_counter() - tr) * 1e3
+    launches = kk.LAUNCHES
+    if launches != OKM_REFINE:
+        _fail(f"[streaming] refine launched the k-means kernel "
+              f"{launches} times, want {OKM_REFINE}")
+    want = _refine_plain(kk, pts, before, KM_K, OKM_REFINE)
+    diff = float((got - want).abs().max())
+    _say(f"[streaming] OnlineKMeans: {OKM_BATCHES} partial_fit of "
+         f"{OKM_BATCH}x{KM_D} ({fit_ms:.2f} ms each), refine "
+         f"{OKM_REFINE} iters over {pts.shape[0]}x{KM_D} ({refine_ms:.1f} "
+         f"ms, {launches} kernel launches): max |diff| vs the plain-driven "
+         f"refine {diff:.3g} (atol 1e-4) on {card}")
+    if not diff <= 1e-4:
+        _fail("[streaming] refine disagrees with the plain-driven run")
+
+    sw = streaming.SlidingWindowStats(SW_WINDOW, SW_DIM, device=dev)
+    pushed = []
+    tp = time.perf_counter()
+    for _ in range(SW_PUSHES):
+        rows = torch.randn((SW_PUSH, SW_DIM), generator=gen, device=dev)
+        sw.push(rows)
+        pushed.append(rows)
+    torch.cuda.synchronize()
+    push_ms = (time.perf_counter() - tp) * 1e3 / SW_PUSHES
+    ts = time.perf_counter()
+    mean, std = sw.stats()
+    torch.cuda.synchronize()
+    stats_ms = (time.perf_counter() - ts) * 1e3
+    window = torch.cat(pushed)[-SW_WINDOW:]
+    head = sw._head
+    ring = torch.cat([window[SW_WINDOW - head:], window[:SW_WINDOW - head]])
+    if not torch.equal(sw.buf.tensor, ring):
+        _fail("[streaming] the window does not hold the last pushed rows")
+    w64 = window.to(torch.float64)
+    m64 = w64.mean(0)
+    s64 = ((w64 - m64) ** 2).mean(0).sqrt()
+    _expect("streaming", _rel_t(mean.tensor, m64), 1e-5,
+            "SlidingWindowStats mean vs float64")
+    _expect("streaming", _rel_t(std.tensor, s64), 1e-5,
+            "SlidingWindowStats std vs float64")
+    _say(f"[streaming] SlidingWindowStats {SW_WINDOW}x{SW_DIM} f32: "
+         f"{SW_PUSHES} pushes of {SW_PUSH} rows ({push_ms:.2f} ms each), "
+         f"stats {stats_ms:.2f} ms on {card}")
+    del sw, pushed, window, ring, w64
+
+    n = PR_DENSE_N
+    a = torch.rand((n, n), generator=gen, device=dev)
+    a /= a.sum(1, keepdim=True)
+    pr = streaming.IncrementalPageRank(a, rebase_every=PR_INSERTS + 1)
+    a64 = a.to(torch.float64)
+    r0 = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)
+    d = pr.damping
+    inserts = [torch.rand((n, PR_INSERT_COLS), generator=gen,
+                          device=dev) / n for _ in range(PR_INSERTS)]
+    spans = [slice(j * PR_INSERT_COLS, (j + 1) * PR_INSERT_COLS)
+             for j in range(PR_INSERTS)]
+    # the port's calls alone in the timed window; the float64 reference
+    # runs after it
+    torch.cuda.synchronize()
+    tp = time.perf_counter()
+    steps = []
+    for cols, vals in zip(spans, inserts):
+        pr.insert_edges(cols, vals)
+        steps.append(pr.step().tensor)
+    before = pr.ranks.tensor
+    reb = pr.rebase(PR_REBASE).tensor
+    torch.cuda.synchronize()
+    pr_ms = (time.perf_counter() - tp) * 1e3
+    worst = 0.0
+    for cols, vals, got in zip(spans, inserts, steps):
+        a64[:, cols] = vals.to(torch.float64)
+        worst = max(worst, _rel_t(got, d * (r0 @ a64) + (1.0 - d) / n))
+    r = before.to(torch.float64)
+    for _ in range(PR_REBASE):
+        r = d * (r @ a64) + (1.0 - d) / n
+    _expect("streaming", worst, 1e-5,
+            f"IncrementalPageRank {PR_INSERTS} steps (worst) vs float64")
+    _expect("streaming", _rel_t(reb, r), 1e-5,
+            f"IncrementalPageRank rebase({PR_REBASE}) vs float64")
+    _say(f"[streaming] IncrementalPageRank dense {n}^2 f32: "
+         f"{PR_INSERTS} insert_edges of {PR_INSERT_COLS} columns with a "
+         f"step after each, then rebase({PR_REBASE}): {pr_ms:.1f} ms on "
+         f"{card}")
+    _say(f"[streaming] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return {"launches": launches}
+
+
 def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "--ckpt-child":
+        ckpt_child(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
               "the port on the card")
@@ -2360,6 +2899,15 @@ def main() -> None:
         vggr = phase_vgg(st, kk, kst, card, dev)
     phase_structure(st, card, dev)
     exr = phase_examples(st, kk, ks, nb, card, dev)
+    phase_masked(st, card, dev)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        phase_checkpoint(st, card, dev, kmr["padded"], workdir)
+        cklr = phase_ckpt_loop(st, kk, km, card, dev, kmr["points"],
+                               kmr["c0"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    strr = phase_streaming(st, kk, card, dev, kmr["points"], kmr["c0"])
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -2368,7 +2916,9 @@ def main() -> None:
         "ms": kmr["ms"], "plain_ms": kmr["plain_ms"],
         "bound_ms": kmr["bound_ms"], "bound_by": kmr["bound_by"],
         "library_ms": kmr["library_ms"],
-        "estimator_launches": exr["kmeans_launches"]}, {
+        "estimator_launches": exr["kmeans_launches"],
+        "ckpt_loop_launches": cklr["launches"],
+        "refine_launches": strr["launches"]}, {
         "name": "windowed_segsum", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:148",

@@ -8,6 +8,15 @@ tile map over the logical mesh, the same as the JAX package's at the
 same mesh shape. Creation functions take an explicit ``device`` (default
 device when None) and random fills take a seed for a
 ``torch.Generator``.
+
+``update`` is a functional region write: it returns a new array and
+leaves this one as it was. Donation (``donate()``,
+``evaluate(donate=...)``) releases the handle's tensor after the
+evaluation that consumes it: the memory is freed once nothing else holds
+the tensor, and any later use of the handle raises. The port never
+writes a donated tensor in place, so a cached plan, a loop closure or
+another handle that still holds it reads what it held. The incremental
+engine's lineage (``_record_mutation``) waits for that engine.
 """
 
 from __future__ import annotations
@@ -47,19 +56,66 @@ def _canonical_reducer(reducer: Any) -> str:
                      f"{sorted(k for k in REDUCERS if k)}")
 
 
+# update()'s combine step per canonical reducer (torch's bool add and
+# mul are logical or and and, as jnp's are)
+_COMBINE = {"add": torch.add, "multiply": torch.mul, "max": torch.maximum,
+            "min": torch.minimum}
+
+
 class DistArray:
     """A tensor on the mesh's device and its :class:`Tiling`."""
 
-    __slots__ = ("tensor", "tiling", "mesh")
+    __slots__ = ("_tensor", "tiling", "mesh", "_donate_next",
+                 "_donate_site")
 
     def __init__(self, tensor: torch.Tensor, tiling: Tiling,
                  mesh: Optional[Mesh] = None):
         if tiling.ndim != tensor.ndim:
             raise ValueError(
                 f"tiling rank {tiling.ndim} != array rank {tensor.ndim}")
-        self.tensor = tensor
+        self._tensor = tensor
+        self._donate_next = False
+        self._donate_site = None
         self.tiling = tiling
         self.mesh = mesh or mesh_mod.get_mesh()
+
+    # -- donation -------------------------------------------------------
+
+    @property
+    def tensor(self) -> torch.Tensor:
+        t = self._tensor
+        if t is None:
+            site = (f" (donated at {self._donate_site[0]}:"
+                    f"{self._donate_site[1]}, in {self._donate_site[2]})"
+                    if self._donate_site else "")
+            raise RuntimeError(
+                "DistArray used after donation: its tensor was released "
+                "to an evaluate(donate=...) / .donate() evaluation"
+                f"{site}; rebuild the array (or keep a copy) instead of "
+                "reusing the donated handle")
+        return t
+
+    def donate(self) -> "DistArray":
+        """Release this array's tensor to the next evaluation that
+        consumes it as a leaf; the handle is invalid afterwards. Returns
+        ``self`` for chaining: ``evaluate(step(c.donate()))``."""
+        from ..expr.base import _user_site
+
+        self._donate_next = True
+        if self._donate_site is None:
+            # the user line that asked, named by the use-after-donate error
+            self._donate_site = _user_site()
+        return self
+
+    @property
+    def is_donated(self) -> bool:
+        return self._tensor is None
+
+    def _release_donated(self) -> None:
+        """Called by ``evaluate`` after the evaluation that consumed a
+        donated leaf."""
+        self._tensor = None
+        self._donate_next = False
 
     # -- basic properties ----------------------------------------------
 
@@ -84,6 +140,8 @@ class DistArray:
         return self.tensor.device
 
     def __repr__(self) -> str:
+        if self._tensor is None:
+            return f"DistArray(<donated>, tiling={self.tiling})"
         return (f"DistArray(shape={self.shape}, dtype={self.dtype}, "
                 f"tiling={self.tiling}, device={self.device})")
 
@@ -104,6 +162,35 @@ class DistArray:
         if not isinstance(region, TileExtent):
             region = extent_mod.from_slice(region, self.shape)
         return dtypes.to_host(self.tensor[region.to_slice()])
+
+    def update(self, region: Any, data: Any,
+               reducer: Any = None) -> "DistArray":
+        """Functional region write: a new DistArray whose ``region`` (a
+        TileExtent or a slice/int index) holds ``reducer(existing, data)``
+        (default: overwrite); this array is unchanged. ``data`` is cast
+        to this array's dtype and broadcast to the region's shape; the
+        reducers combine in that dtype (integers wrap)."""
+        if not isinstance(region, TileExtent):
+            region = extent_mod.from_slice(region, self.shape)
+        op = REDUCERS[_canonical_reducer(reducer)]
+        x = self.tensor
+        d = _as_tensor(data, x.dtype, x.device)
+        sl = region.to_slice()
+        d = torch.broadcast_to(d, region.shape)
+        out = x.clone()
+        out[sl] = d if op == "set" else dtypes.call(_COMBINE[op], out[sl], d)
+        return DistArray(out, self.tiling, self.mesh)
+
+
+def _as_tensor(data: Any, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """``data`` (a DistArray, tensor, array or scalar) as a tensor of
+    ``dtype`` on ``device``, cast as ``jnp.asarray(data, dtype)`` casts."""
+    if isinstance(data, DistArray):
+        data = data.tensor
+    if not isinstance(data, torch.Tensor):
+        data = dtypes.from_host(np.array(data, order="C"))
+    return data.to(device=device, dtype=dtype)
 
 
 # -- creation -----------------------------------------------------------

@@ -21,8 +21,8 @@ SpMV paths (``spmv(x, impl=...)``):
   through ``ops/segment.segment_sum``.
 
 The entry-sharded ``sharded`` path and its ``psum`` merge wait for the
-multi-GPU slice; ``from_coo_device`` waits for the checkpoint layer, its
-only user.
+multi-GPU slice. ``from_coo_device`` canonicalises coordinate tensors on
+their device (the checkpoint loader's path).
 """
 
 from __future__ import annotations
@@ -49,6 +49,60 @@ def _contrib_segsum(data: torch.Tensor, rows: torch.Tensor,
     contrib = data * gathered if gathered.ndim == 1 \
         else data[:, None] * gathered
     return segment_sum(contrib, rows, n, impl=impl, sorted_ids=True)
+
+
+def _dedup(rows: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
+           n: int, m: int):
+    """COO canonicalisation on the tensors' device (the JAX package's
+    ``_dedup_kernel``): a lexicographic (row, col) sort by the int64 key
+    ``row * m + col``, the values of each run of one coordinate summed by
+    a pairwise tree in a fixed order, and every slot past the unique
+    count rewritten to the canonical out-of-range padding. Entries with
+    ``row >= n`` sort last and are not counted. Returns
+    (rows, cols, data, nnz).
+
+    The tree takes ceil(log2(longest run)) elementwise passes over the
+    entries: at pass ``s`` an entry whose offset in its run is a multiple
+    of ``2s`` adds the partial sum ``s`` places on, when that lies in the
+    same run. No pass scatters, so the sums are the same bits on every
+    run and on every device."""
+    nse = int(data.shape[0])
+    dev = data.device
+    key = rows.to(torch.int64) * max(m, 1) + cols.to(torch.int64)
+    key, order = torch.sort(key, stable=True)
+    r2, c2, d2 = rows[order], cols[order], data[order]
+    is_new = torch.ones(nse, dtype=torch.bool, device=dev)
+    is_new[1:] = key[1:] != key[:-1]
+    uid = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    pos = torch.arange(nse, device=dev)
+    starts = pos[is_new]
+    ends = torch.cat([starts[1:], starts.new_full((1,), nse)])
+    offset = pos - starts[uid]
+    left = ends[uid] - pos  # entries from this one to its run's end
+    run_max = int((ends - starts).max()) if nse else 0
+    dsum = d2
+    s = 1
+    while s < run_max:
+        ahead = torch.zeros_like(dsum)
+        ahead[:-s] = dsum[s:]
+        take = (offset % (2 * s) == 0) & (left > s)
+        dsum = torch.where(take, dsum + ahead, dsum)
+        s *= 2
+    rr = torch.zeros(nse, dtype=r2.dtype, device=dev)
+    cc = torch.zeros(nse, dtype=c2.dtype, device=dev)
+    dd = torch.zeros(nse, dtype=d2.dtype, device=dev)
+    nruns = int(starts.shape[0])
+    rr[:nruns] = r2[is_new]
+    cc[:nruns] = c2[is_new]
+    dd[:nruns] = dsum[is_new]
+    nnz = int((is_new & (r2 < n)).sum())
+    j = pos - nnz
+    valid = pos < nnz
+    rr = torch.where(valid, rr, (n + j // max(m, 1)).to(r2.dtype))
+    cc = torch.where(valid, cc, (j % max(m, 1)).to(c2.dtype))
+    dd = torch.where(valid, dd, torch.zeros((), dtype=d2.dtype,
+                                             device=dev))
+    return rr, cc, dd, nnz
 
 
 class SparseDistArray:
@@ -121,6 +175,38 @@ class SparseDistArray:
             cols = np.concatenate([cols, (j % max(m, 1)).astype(np.int32)])
             data = np.pad(data, (0, pad))
         return SparseDistArray._place(data, rows, cols, shape, nnz, mesh)
+
+    @staticmethod
+    def from_coo_device(rows: Any, cols: Any, data: Any,
+                        shape: Tuple[int, int], mesh: Optional[Mesh] = None,
+                        device: Optional[DeviceLike] = None
+                        ) -> "SparseDistArray":
+        """Construct from coordinate tensors without a host round trip
+        (the device twin of :meth:`from_coo`): the sort, the duplicate
+        sums and the canonical padding run on the mesh's device
+        (:func:`_dedup`); only counts come to the host (the entries,
+        the runs, the longest run). The inputs are padded with out-of-range rows first, so the entry
+        count divides the mesh, as in the JAX package."""
+        mesh = mesh or mesh_mod.mesh_on(device)
+        n, m = int(shape[0]), int(shape[1])
+
+        def put(a, dtype):
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.array(a, order="C"))
+            return a.to(device=mesh.device, dtype=dtype)
+
+        rows = put(rows, torch.int32)
+        cols = put(cols, torch.int32)
+        data = put(data, torch.float32)
+        nx, ny = mesh_mod.mesh_axis_sizes(mesh)
+        pad = -int(data.shape[0]) % (nx * ny)
+        if pad:
+            j = torch.arange(pad, dtype=torch.int32, device=mesh.device)
+            rows = torch.cat([rows, n + j // max(m, 1)])
+            cols = torch.cat([cols, j % max(m, 1)])
+            data = torch.cat([data, data.new_zeros((pad,))])
+        rr, cc, dd, nnz = _dedup(rows, cols, data, n, m)
+        return SparseDistArray(dd, rr, cc, (n, m), nnz, mesh)
 
     @staticmethod
     def from_reference(data: Any, rows: Any, cols: Any,

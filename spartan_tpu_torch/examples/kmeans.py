@@ -1,14 +1,18 @@
 """k-means clustering (port of ``spartan_tpu/examples/kmeans.py``).
 
-Two paths, as in the JAX package:
+One iteration, ``kmeans_step``, takes one of two forms:
 
-* the fused pass (``ops/kmeans.py``): whenever the kernel registry's
-  constraints hold, every iteration is one launch of the hand-written
-  CUDA kernel (its plain torch version for CPU tensors) plus the
-  division, with no host sync between iterations;
-* the expr path: one iteration is a ``map2`` (distances, argmin,
-  segment sums and counts) feeding a map (the division), and all
-  iterations run as one ``st.loop`` evaluation.
+* the fused pass (``ops/kmeans.py``, a :class:`KMeansStepExpr` node):
+  whenever the kernel registry's constraints hold, one launch of the
+  hand-written CUDA kernel (its plain torch version for CPU tensors)
+  plus the division;
+* the expr path: a ``map2`` (distances, argmin, segment sums and
+  counts) feeding a map (the division).
+
+``kmeans`` runs all iterations as one ``st.loop`` over it, with no host
+sync between iterations, and so does a user's own ``st.loop`` —
+checkpointed or not. The JAX package's ``kmeans`` calls its kernel's
+``run`` directly and its ``kmeans_step`` is always the map2 form.
 
 The two round differently: the expr path includes ``|p|^2`` in the
 distances, the kernel drops it. Each is tested against its own JAX
@@ -17,13 +21,14 @@ counterpart.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..array import tiling as tiling_mod
 from ..array.distarray import DistArray
+from ..array.tiling import Tiling
 from ..expr import builtins as bi
 from ..expr.base import Expr, ValExpr, as_expr
 from ..expr.loop import loop
@@ -54,8 +59,43 @@ def _assign_and_accumulate(k: int):
     return kern
 
 
+class KMeansStepExpr(Expr):
+    """One k-means update through the fused pass: the CUDA kernel for
+    CUDA tensors, its plain version for CPU tensors (``ops/kmeans.py``).
+    An empty cluster becomes the zero vector, as in the map2 form."""
+
+    def __init__(self, points: Expr, centers: Expr, k: int):
+        self.points = points
+        self.centers = centers
+        self.k = int(k)
+        super().__init__(centers.shape, np.float32)
+
+    def children(self) -> Tuple[Expr, ...]:
+        return (self.points, self.centers)
+
+    def replace_children(self, new_children) -> "KMeansStepExpr":
+        return KMeansStepExpr(new_children[0], new_children[1], self.k)
+
+    def _lower(self, env: Dict[int, Any]) -> Any:
+        return kmeans_kernel.step(self.points.lower(env),
+                                  self.centers.lower(env), self.k)
+
+    def _sig(self, ctx) -> Tuple:
+        return ("kmeans_step", self.k, ctx.of(self.points),
+                ctx.of(self.centers))
+
+    def _default_tiling(self) -> Tiling:
+        return tiling_mod.replicated(2)
+
+
 def kmeans_step(points: Expr, centers: Expr, k: int) -> Expr:
-    """One iteration: returns the new (k, d) centers as a lazy expr."""
+    """One iteration: returns the new (k, d) centers as a lazy expr (the
+    fused pass where the registry selects it, else the map2 form)."""
+    points, centers = as_expr(points), as_expr(centers)
+    n, d = points.shape
+    if (points.dtype == np.float32 and centers.dtype == np.float32
+            and _kernel_supports(n, d, k)):
+        return KMeansStepExpr(points, centers, k)
     acc = map2([points, centers], _assign_and_accumulate(k),
                out_tiling=tiling_mod.replicated(2))
     sums = acc[:, :-1]
@@ -94,10 +134,9 @@ def kmeans(points, k: int, num_iter: int = 10,
     """The whole k-means loop; returns the final (k, d) centers and the int32
     assignment of every point, both on the host.
 
-    ``fused`` (default) runs all iterations as one program: the fused
-    kernel pass when the registry selects it, else one ``st.loop``.
-    ``fused=False`` evaluates one step per Python iteration; each step
-    after the first hits the plan cache."""
+    ``fused`` (default) runs all iterations as one ``st.loop`` over
+    :func:`kmeans_step`. ``fused=False`` evaluates one step per Python
+    iteration; each step after the first hits the plan cache."""
     points = as_expr(points)
     n, d = points.shape
     if centers is None:
@@ -109,16 +148,7 @@ def kmeans(points, k: int, num_iter: int = 10,
         centers_e = as_expr(centers)  # e.g. from_reference() state
     else:
         centers_e = as_expr(np.asarray(centers, np.float32))
-    if fused and _kernel_supports(n, d, k):
-        pts = points.evaluate().tensor
-        npad = _kernel_pad(n)
-        if npad != n:
-            pts = torch.cat([pts, pts.new_zeros((npad - n, d))])
-        out = kmeans_kernel.run(pts, centers_e.evaluate().tensor, k,
-                                num_iter,
-                                valid_rows=n if npad != n else None)
-        centers_e = as_expr(out)
-    elif fused:
+    if fused:
         centers_e = ValExpr(loop(
             num_iter, lambda c: kmeans_step(points, c, k),
             centers_e).evaluate())

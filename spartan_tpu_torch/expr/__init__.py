@@ -9,6 +9,7 @@ from .builtins import __all__ as _builtin_all
 from .assign import WriteExpr, assign, write_array
 from .dot import DotExpr, dot
 from .filter import GatherExpr, filter
+from .fio import from_file, load, save
 from .loop import LoopExpr, LoopItemExpr, loop
 from .map import MapExpr, MapWithLocationExpr, map, map_with_location
 from .map2 import Map2Expr, map2
@@ -31,5 +32,5 @@ __all__ = ["Expr", "ValExpr", "ScalarExpr", "TupleExpr", "as_expr",
            "GeneralReduceExpr", "shuffle", "transpose", "reshape",
            "TransposeExpr", "ReshapeExpr", "ConcatExpr", "tuple_of",
            "ListExpr", "DictExpr", "dict_of", "lazify", "map_with_location",
-           "MapWithLocationExpr",
+           "MapWithLocationExpr", "from_file", "load", "save",
            ] + [n for n in _builtin_all if n != "dot"]

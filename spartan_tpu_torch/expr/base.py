@@ -156,8 +156,11 @@ class Expr:
 
     # -- evaluation -----------------------------------------------------
 
-    def evaluate(self) -> DistArray:
-        return evaluate(self)
+    def evaluate(self, donate: Sequence[Any] = ()) -> DistArray:
+        return evaluate(self, donate=donate)
+
+    def force(self, donate: Sequence[Any] = ()) -> DistArray:
+        return evaluate(self, donate=donate)
 
     def glom(self) -> np.ndarray:
         return self.evaluate().glom()
@@ -434,6 +437,15 @@ def as_expr(value: Any) -> Expr:
         return ValExpr(da.from_numpy(np.asarray(value)))
     if isinstance(value, torch.Tensor):
         return ValExpr(da.from_tensor(value))
+    from ..array.masked import MaskedDistArray
+
+    if isinstance(value, MaskedDistArray):
+        raise TypeError(
+            "this operation does not support MaskedDistArray operands "
+            "(the mask would be silently dropped). Use the mask-aware "
+            "ops — elementwise arithmetic / map, dot, sort, argsort, "
+            "median, concatenate, and the masked reductions — or pass "
+            ".filled(fill) / .data explicitly.")
     raise TypeError(f"cannot lift {type(value).__name__} into an Expr")
 
 
@@ -514,8 +526,11 @@ class DictExpr(Expr):
     def _sig(self, ctx: "_SigCtx") -> Tuple:
         return ("dict", self._keys, ctx.of(self._tuple))
 
-    def evaluate(self):  # type: ignore[override]
-        return dict(zip(self._keys, evaluate(self._tuple)))
+    def evaluate(self, donate: Sequence[Any] = ()):  # type: ignore[override]
+        return dict(zip(self._keys, evaluate(self._tuple, donate=donate)))
+
+    def force(self, donate: Sequence[Any] = ()):  # type: ignore[override]
+        return self.evaluate(donate=donate)
 
     def glom(self):  # type: ignore[override]
         return {k: v.glom() for k, v in self.evaluate().items()}
@@ -719,12 +734,43 @@ def _arg_order(raw_leaves: List[Expr],
     return tuple(order)
 
 
+def _norm_donate(donate: Sequence[Any]) -> List[DistArray]:
+    out: List[DistArray] = []
+    for d in donate:
+        if isinstance(d, DistArray):
+            out.append(d)
+        elif isinstance(d, ValExpr):
+            out.append(d.value)
+        elif isinstance(d, Expr) and isinstance(d._result, DistArray):
+            out.append(d._result)
+        else:
+            raise TypeError(
+                f"donate expects DistArrays (or evaluated exprs), got "
+                f"{type(d).__name__}")
+        if out[-1]._donate_site is None:
+            out[-1]._donate_site = _user_site()
+    return out
+
+
 def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
-         order: Tuple[int, ...], mesh) -> Any:
-    """Walk the plan's DAG with the leaf tensors and wrap the outputs."""
+         order: Tuple[int, ...], mesh,
+         donated: Sequence[DistArray] = ()) -> Any:
+    """Walk the plan's DAG with the leaf tensors, wrap the outputs, and
+    release the donated leaves (those marked by ``donate()`` or named in
+    ``donated``) once the walk is done."""
     env: Dict[int, Any] = {
         lid: _leaf_arg(leaves[i]) for lid, i in zip(plan.leaf_ids, order)}
+    released = []
+    for i in order:
+        arr = _leaf_array(leaves[i])
+        if arr is not None and (arr._donate_next or any(
+                arr is d for d in donated)) and \
+                not any(arr is r for r in released):
+            released.append(arr)
     out = plan.dag.lower(env)
+    del env
+    for arr in released:
+        arr._release_donated()
     outs = out if plan.is_tuple else (out,)
     wrapped = []
     for o, t in zip(outs, plan.out_tilings):
@@ -736,17 +782,24 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
     return result
 
 
-def evaluate(expr: Expr) -> Any:
+def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
     """Evaluate one root.
 
     Plan-cache hit: one raw-DAG traversal, then a walk of the cached
     optimized DAG — no optimizer rewrites, no re-signing. Miss:
     optimize, sign the optimized DAG, run it, and memoize the plan
-    under the raw signature."""
+    under the raw signature.
+
+    ``donate``: DistArrays (or their evaluated exprs) the caller releases
+    to this evaluation. Those that feed it as leaves are invalidated when
+    it is done (their tensors are freed once nothing else holds them),
+    and any later use raises. ``DistArray.donate()`` marks an array the
+    same way without an argument."""
     if expr._result is not None:
         return expr._result
     _count("evaluations")
     mesh = mesh_mod.get_mesh()
+    donated = _norm_donate(donate)
     rctx: Optional[_PlanSigCtx] = None
     plan_key: Optional[Tuple] = None
     if FLAGS.plan_cache:
@@ -754,7 +807,8 @@ def evaluate(expr: Expr) -> Any:
         plan = lookup_plan(plan_key)
         if plan is not None:
             _count("plan_hits")
-            return _run(expr, plan, rctx.leaves, plan.arg_order, mesh)
+            return _run(expr, plan, rctx.leaves, plan.arg_order, mesh,
+                        donated)
         _count("plan_misses")
 
     from .optimize import optimize
@@ -781,7 +835,7 @@ def evaluate(expr: Expr) -> Any:
                                        raw_order))
     plan = _Plan(dag, leaf_ids, out_tilings, is_tuple,
                  tuple(range(len(leaves))))
-    return _run(expr, plan, leaves, plan.arg_order, mesh)
+    return _run(expr, plan, leaves, plan.arg_order, mesh, donated)
 
 
 _eval_shape_cache: Dict[Tuple, Any] = {}

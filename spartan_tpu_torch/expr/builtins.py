@@ -5,7 +5,8 @@ sort, argsort, order statistics, top-k, bincount, histogram, unique,
 prefix scans), the statistics (var, std, ptp, norm), the matrix shape
 helpers (diag, diagonal, tril, triu, trace) and the contraction builtins
 (einsum, tensordot, matmul, inner, outer_product) over
-``expr/contract.py``. The masked-array branches wait for a later slice.
+``expr/contract.py``. ``dot``, ``sort``, ``argsort``, ``median`` and
+``concatenate`` take masked operands (``array/masked.py``).
 """
 
 from __future__ import annotations
@@ -593,7 +594,12 @@ def _distributed_sortable(x: Expr, axis: int) -> bool:
 def sort(x, axis: int = -1) -> Expr:
     """Sorted copy along an axis (``lax.sort`` order: NaN last, stable).
     Arrays tiled along the sort axis on a mesh of more than one row shard
-    run the sample sort; everything else is a local stable sort."""
+    run the sample sort; everything else is a local stable sort. Masked
+    operands sort valid-first, masked-last (``numpy.ma``)."""
+    from ..array.masked import MaskedDistArray, masked_sort
+
+    if isinstance(x, MaskedDistArray):
+        return masked_sort(x, axis=axis)
     x = as_expr(x)
     ax = _checked_axis(axis, x.ndim)
     if _distributed_sortable(x, ax):
@@ -605,7 +611,12 @@ def sort(x, axis: int = -1) -> Expr:
 
 def argsort(x, axis: int = -1) -> Expr:
     """int32 indices that sort ``x`` (stable); arrays tiled along the
-    sort axis run the distributed sample argsort (see :func:`sort`)."""
+    sort axis run the distributed sample argsort (see :func:`sort`).
+    Masked operands order valid elements first (``numpy.ma``)."""
+    from ..array.masked import MaskedDistArray, masked_argsort
+
+    if isinstance(x, MaskedDistArray):
+        return masked_argsort(x, axis=axis)
     x = as_expr(x)
     ax = _checked_axis(axis, x.ndim)
     if _distributed_sortable(x, ax):
@@ -680,7 +691,12 @@ def _quantile_local(v: torch.Tensor, q, axis) -> torch.Tensor:
 
 def median(x, axis=None) -> Expr:
     """Median; operands tiled along the reduction axis ride the sample
-    sort (two order statistics of the sorted result)."""
+    sort (two order statistics of the sorted result). Masked operands
+    take the median of the unmasked elements (fully masked slices NaN)."""
+    from ..array.masked import MaskedDistArray, masked_median
+
+    if isinstance(x, MaskedDistArray):
+        return masked_median(x, axis=axis)
     x = as_expr(x)
     ax = _axis_order_stat_path(x, axis)
     if ax is not None:

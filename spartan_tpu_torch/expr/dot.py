@@ -65,6 +65,11 @@ class DotExpr(Expr):
         return tiling_mod.replicated(0)
 
 
-def dot(a: Any, b: Any, precision: Optional[str] = None) -> DotExpr:
-    """``a @ b``."""
+def dot(a: Any, b: Any, precision: Optional[str] = None):
+    """``a @ b``; masked operands take the mask-aware GEMM
+    (``numpy.ma.dot``, ``array/masked.py``)."""
+    from ..array.masked import MaskedDistArray, masked_dot
+
+    if isinstance(a, MaskedDistArray) or isinstance(b, MaskedDistArray):
+        return masked_dot(a, b, precision=precision)
     return DotExpr(as_expr(a), as_expr(b), precision)

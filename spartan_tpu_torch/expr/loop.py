@@ -6,8 +6,13 @@ runs it ``n`` times — the JAX package's ``lax.fori_loop`` becomes a
 Python loop over the body DAG, with the carries rebound each step. The
 whole loop is still one ``evaluate()`` (one plan, one plan-cache entry),
 and the iteration count is a scalar leaf, so changing it does not
-re-plan. Nothing in the loop waits for the device. ``health`` and
-``early_exit`` wait for a later slice.
+re-plan. Nothing in the loop waits for the device.
+
+``donate_init`` releases the init arrays to the loop's evaluation, and
+``checkpoint_every`` / ``checkpoint_path`` / ``resume`` run the loop in
+snapshotted segments (``resilience/loop_ckpt.py``). ``health``,
+``early_exit`` and ``stall_tol`` need the numerics loop series, which is
+not ported (ROADMAP A4): they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
 from ..utils import dtypes
-from .base import Expr, TupleExpr, as_expr, evaluate
+from .base import Expr, TupleExpr, ValExpr, as_expr, evaluate
 
 
 class CarryExpr(Expr):
@@ -150,16 +155,21 @@ class LoopItemExpr(Expr):
         b = loop.body_roots[idx]
         super().__init__(b.shape, b.dtype)
 
-    def evaluate(self):
+    def evaluate(self, donate=()):
         if self._result is not None:
             return self._result
+        # donate_init: the init arrays feed only this loop and are
+        # released with its evaluation
+        donate = tuple(donate) + getattr(self.loop, "_donate_init", ())
         siblings = self.loop._items
         if len(siblings) > 1:
-            results = evaluate(TupleExpr(siblings))
+            results = evaluate(TupleExpr(siblings), donate=donate)
             for item, res in zip(siblings, results):
                 item._result = res
             return self._result
-        return evaluate(self)
+        return evaluate(self, donate=donate)
+
+    force = evaluate
 
     def children(self) -> Tuple[Expr, ...]:
         return (self.loop,)
@@ -179,7 +189,11 @@ class LoopItemExpr(Expr):
 
 
 def loop(n_iters: Any, body_fn: Callable, *init: Any,
-         with_index: bool = False):
+         with_index: bool = False, donate_init: bool = False,
+         health: bool = False, early_exit: bool = False,
+         stall_tol: float = 0.0, checkpoint_every: int = 0,
+         checkpoint_path: Optional[str] = None,
+         resume: Optional[str] = None):
     """Iterate ``body_fn`` ``n_iters`` times.
 
     ``body_fn`` receives one lazy expr per carried value (prepended with
@@ -188,7 +202,35 @@ def loop(n_iters: Any, body_fn: Callable, *init: Any,
     carried value (a single expr for a single carry). Example::
 
         w = st.loop(100, lambda w: w - 0.1 * grad(x, y, w), w0)
+
+    ``donate_init``: release the init DistArrays to the loop's
+    evaluation; using them afterwards raises.
+
+    ``checkpoint_every`` / ``checkpoint_path`` / ``resume``: run the loop
+    in segments of ``checkpoint_every`` iterations, snapshot the carries
+    to ``checkpoint_path`` after each, restore the last snapshot when a
+    segment fails with a transient or I/O error, and with
+    ``resume=path`` continue a killed run from its last snapshot. The
+    segments change no arithmetic: the final carries are the same bits as
+    the uninterrupted loop's. Checkpointed loops run when called and
+    return the final carries as ``ValExpr`` leaves.
+
+    ``health``, ``early_exit`` and ``stall_tol`` raise
+    ``NotImplementedError``: they need the numerics loop series
+    (ROADMAP A4).
     """
+    if health or early_exit or stall_tol:
+        raise NotImplementedError(
+            "st.loop(health=, early_exit=, stall_tol=) needs the numerics "
+            "loop series (obs/numerics.py), which the port does not have "
+            "yet (ROADMAP A4)")
+    if checkpoint_every or resume is not None:
+        from ..resilience.loop_ckpt import checkpointed_loop
+
+        return checkpointed_loop(
+            n_iters, body_fn, init, with_index=with_index,
+            donate_init=donate_init, every=int(checkpoint_every or 0),
+            path=checkpoint_path, resume=resume)
     init_exprs = tuple(as_expr(i) for i in init)
     if not init_exprs:
         raise ValueError("loop needs at least one carried value")
@@ -222,4 +264,7 @@ def loop(n_iters: Any, body_fn: Callable, *init: Any,
                   index_expr)
     items = tuple(LoopItemExpr(le, i) for i in range(len(init_exprs)))
     le._items = items  # sibling set for one-plan multi-carry forcing
+    if donate_init:
+        le._donate_init = tuple(
+            i.value for i in init_exprs if isinstance(i, ValExpr))
     return items[0] if len(items) == 1 else items

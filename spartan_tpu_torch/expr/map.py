@@ -2,7 +2,8 @@
 
 A ``MapExpr`` applies a fused ``LocalExpr`` tree to broadcast-aligned
 inputs; the optimizer's map fusion folds chains of maps into one tree.
-Masked operands (``MaskedDistArray``) are not ported yet.
+A user ``map`` over masked operands (``MaskedDistArray``) runs ``fn`` on
+the data and returns the union of the masks beside it.
 """
 
 from __future__ import annotations
@@ -69,9 +70,27 @@ def build_unop(name: str, a: Any) -> MapExpr:
     return MapExpr((as_expr(a),), LocalUfunc(name, (LocalInput(0),)))
 
 
-def map(fn: Callable, *args: Any, fn_kw: Optional[dict] = None) -> MapExpr:
+def map(fn: Callable, *args: Any, fn_kw: Optional[dict] = None):
     """User map: ``fn`` is a function of torch tensors applied to the
-    broadcast-aligned inputs."""
+    broadcast-aligned inputs.
+
+    Masked operands propagate: ``fn`` runs on the data and the result's
+    mask is the OR of the operands' masks (``numpy.ma``'s ufunc rule),
+    broadcast to the output shape."""
+    from ..array import masked as masked_mod
+
+    if any(isinstance(a, masked_mod.MaskedDistArray) for a in args):
+        out = map(fn, *(masked_mod._data_of(a) for a in args),
+                  fn_kw=fn_kw)
+        masks = [a.mask for a in args
+                 if isinstance(a, masked_mod.MaskedDistArray)]
+        mask = masks[0]
+        for m in masks[1:]:
+            mask = mask | m
+        if mask.shape != out.shape:
+            mask = map(lambda o, m: torch.broadcast_to(m.to(torch.bool),
+                                                       o.shape), out, mask)
+        return masked_mod.MaskedDistArray(out, mask)
     inputs = tuple(as_expr(a) for a in args)
     kw = tuple(sorted((fn_kw or {}).items()))
     op = LocalCall(fn, tuple(LocalInput(i) for i in range(len(inputs))), kw)

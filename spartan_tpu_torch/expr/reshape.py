@@ -4,7 +4,7 @@
 Each is a node whose output tiling differs from its input's; on one
 device the data movement is one torch copy (the JAX package leaves it to
 GSPMD's collectives). Results are materialized, never views of an input.
-The masked branch of ``concatenate`` waits for the masked-array port.
+``concatenate`` keeps the masks of masked operands (``array/masked.py``).
 """
 
 from __future__ import annotations
@@ -130,8 +130,14 @@ class ConcatExpr(Expr):
         return self.inputs[0].out_tiling().with_axis(self.axis, None)
 
 
-def concatenate(arrays: Sequence[Any], axis: int = 0) -> ConcatExpr:
-    """Join arrays along an axis."""
+def concatenate(arrays: Sequence[Any], axis: int = 0):
+    """Join arrays along an axis; masked operands keep their masks
+    (``numpy.ma.concatenate``)."""
+    from ..array.masked import MaskedDistArray, masked_concatenate
+
+    arrays = list(arrays)
+    if any(isinstance(a, MaskedDistArray) for a in arrays):
+        return masked_concatenate(arrays, axis)
     inputs = [as_expr(a) for a in arrays]
     if not inputs:
         raise ValueError("need at least one array")

@@ -2,7 +2,8 @@
 ``spartan_tpu/utils/config.py``, holding only the flags this package
 reads).
 
-Flags gate the optimizer passes, the plan cache and the kernel layer.
+Flags gate the optimizer passes, the plan cache and the kernel layer,
+and set the checkpointed loop's restore budget.
 Each flag takes its initial value from the environment variable
 ``SPARTAN_TPU_TORCH_<NAME>`` when that is set.
 """
@@ -59,6 +60,9 @@ class FlagRegistry:
     def define_str(self, name: str, default: str, help: str = "") -> Flag:
         return self.define(name, default, help, str)
 
+    def define_int(self, name: str, default: int, help: str = "") -> Flag:
+        return self.define(name, default, help, int)
+
     def __getattr__(self, name: str) -> Any:
         flags: Dict[str, Flag] = object.__getattribute__(self, "_flags")
         if name in flags:
@@ -95,3 +99,8 @@ FLAGS.define_str(
     "= the fused kernel module runs whenever its constraints hold "
     "(the CUDA kernel for CUDA tensors, its plain torch version for CPU "
     "tensors); off = the expr path always. Part of the plan cache key.")
+FLAGS.define_int(
+    "loop_restore_max", 3,
+    "Max checkpoint restores per checkpointed st.loop run before the "
+    "failure propagates (guards against a persistently failing segment "
+    "looping forever).")

@@ -8,6 +8,8 @@ runs on its own::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -799,3 +801,172 @@ def test_dtype_rules_on_card(card):
                                       bf.view(np.uint16))
     finally:
         mesh_mod.set_default_device(prev)
+
+
+# -- the state tier on the card ----------------------------------------
+
+
+@pytest.fixture()
+def on_card(card):
+    """The port's default device set to the card for one test."""
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    prev = mesh_mod.get_default_device()
+    mesh_mod.set_default_device(card)
+    yield card
+    mesh_mod.set_default_device(prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", ["pinned", "pageable"])
+def test_checkpoint_save_and_load_from_the_card(on_card, tmp_path, staging,
+                                                monkeypatch):
+    """Tiles staged through the cached page-locked buffer, or through
+    pageable memory when the array is above the cached size; blobs
+    through the pool; the load lands on the card bit-equal, and a
+    flipped byte raises."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.utils import checkpoint as ckpt
+
+    if staging == "pageable":
+        monkeypatch.setattr(ckpt, "_PINNED_KEEP", 0)
+    gen = torch.Generator(device=on_card)
+    gen.manual_seed(7)
+    x = torch.rand((4096, 256), generator=gen, device=on_card)
+    with st.use_mesh(st.build_mesh((8, 1))):
+        arr = from_tensor(x, tiling=st.Tiling(("x", None)))
+        ckpt.save(str(tmp_path / "c"), arr)
+        back = ckpt.load(str(tmp_path / "c"))
+        assert back.device.type == "cuda"
+        assert torch.equal(back.tensor, x)
+        blobs = sorted(p for p in os.listdir(tmp_path / "c")
+                       if p.endswith(".bin"))
+        assert len(blobs) == 8
+        with open(tmp_path / "c" / blobs[3], "r+b") as f:
+            f.seek(11)
+            b = f.read(1)
+            f.seek(11)
+            f.write(bytes([b[0] ^ 1]))
+        with pytest.raises(ValueError, match=blobs[3]):
+            ckpt.load(str(tmp_path / "c"))
+
+
+@pytest.mark.cuda
+def test_donation_frees_card_memory(on_card):
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    a = from_tensor(torch.ones((4096, 4096), device=on_card))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(on_card)
+    out = (st.as_expr(a) * 2.0).evaluate(donate=[a])
+    torch.cuda.synchronize()
+    # the result was allocated and the donated input released
+    assert torch.cuda.memory_allocated(on_card) == before
+    assert a.is_donated and float(out.tensor[0, 0]) == 2.0
+    with pytest.raises(RuntimeError, match="used after donation"):
+        a.glom()
+
+
+@pytest.mark.cuda
+def test_checkpointed_kmeans_loop_on_the_card(on_card, tmp_path):
+    """20 iterations in segments of 5 through the fused kernel: 20
+    launches, the uninterrupted loop's bits, and one restore after an
+    injected transient fault with the same bits."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples.kmeans import kmeans_step
+
+    pts_np, c0_np = _clustered(65536, 128, 16, seed=5)
+    pts = st.from_numpy(pts_np)
+
+    def body(c):
+        return kmeans_step(pts, c, 16)
+
+    ref = st.loop(20, body, st.from_numpy(c0_np)).glom()
+    before = kk.LAUNCHES
+    out = st.loop(20, body, st.from_numpy(c0_np), checkpoint_every=5,
+                  checkpoint_path=str(tmp_path / "a"))
+    got = out.glom()
+    assert kk.LAUNCHES - before == 20
+    np.testing.assert_array_equal(got, ref)
+    calls = [0]
+
+    def flaky(c):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise RuntimeError("UNAVAILABLE: injected")
+        return body(c)
+
+    out = st.loop(20, flaky, st.from_numpy(c0_np), checkpoint_every=5,
+                  checkpoint_path=str(tmp_path / "b"))
+    np.testing.assert_array_equal(out.glom(), ref)
+    assert out._resilience["restores"] == 1
+
+
+@pytest.mark.cuda
+def test_from_coo_device_on_the_card_matches_cpu(on_card):
+    from spartan_tpu_torch.array.sparse import SparseDistArray
+
+    rng = np.random.RandomState(3)
+    rows = torch.from_numpy(rng.randint(0, 5000, 200000).astype(np.int32))
+    cols = torch.from_numpy(rng.randint(0, 3000, 200000).astype(np.int32))
+    data = torch.from_numpy(rng.rand(200000).astype(np.float32))
+    cpu = SparseDistArray.from_coo_device(rows, cols, data, (4990, 3000),
+                                          device="cpu")
+    gpu = SparseDistArray.from_coo_device(rows, cols, data, (4990, 3000),
+                                          device=on_card)
+    assert gpu.nnz == cpu.nnz
+    for a, b in ((gpu.data, cpu.data), (gpu.rows, cpu.rows),
+                 (gpu.cols, cpu.cols)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_from_coo_device_heavy_duplicate_on_the_card_matches_cpu(on_card):
+    """One coordinate repeated 100,000 times: the pairwise sums are the
+    same bits on the card as on the CPU, and the same on a second run."""
+    from spartan_tpu_torch.array.sparse import SparseDistArray
+
+    rng = np.random.RandomState(4)
+    heavy, rest = 100_000, 5000
+    rows = np.concatenate([np.full(heavy, 17), rng.randint(0, 900, rest)])
+    cols = np.concatenate([np.full(heavy, 5), rng.randint(0, 700, rest)])
+    perm = rng.permutation(heavy + rest)
+    rows = torch.from_numpy(rows[perm].astype(np.int32))
+    cols = torch.from_numpy(cols[perm].astype(np.int32))
+    data = torch.from_numpy(rng.rand(heavy + rest).astype(np.float32))
+    cpu = SparseDistArray.from_coo_device(rows, cols, data, (900, 700),
+                                          device="cpu")
+    for _ in range(2):
+        gpu = SparseDistArray.from_coo_device(rows, cols, data, (900, 700),
+                                              device=on_card)
+        assert gpu.nnz == cpu.nnz
+        for a, b in ((gpu.data, cpu.data), (gpu.rows, cpu.rows),
+                     (gpu.cols, cpu.cols)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_masked_ops_on_the_card_match_cpu(on_card):
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.masked import MaskedDistArray
+
+    rng = np.random.RandomState(9)
+    d = rng.rand(64, 100).astype(np.float32)
+    d[rng.rand(64, 100) < 0.01] = np.nan
+    m = rng.rand(64, 100) < 0.05
+
+    def run(dev):
+        s = MaskedDistArray(st.from_numpy(d, device=dev),
+                            st.from_numpy(m, device=dev))
+        s = MaskedDistArray.masked_invalid(s.filled(np.nan))
+        return [st.median(s, axis=1).glom(), st.sort(s, axis=1).glom(),
+                st.argsort(s, axis=1).glom(), s.count(axis=1).glom()]
+
+    for g, c in zip(run(on_card), run("cpu")):
+        if isinstance(c, np.ma.MaskedArray):
+            np.testing.assert_array_equal(np.ma.getmaskarray(g),
+                                          np.ma.getmaskarray(c))
+            g, c = np.ma.getdata(g), np.ma.getdata(c)
+        np.testing.assert_array_equal(g, c)

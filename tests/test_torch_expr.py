@@ -416,6 +416,11 @@ def _port_sources():
 def test_port_imports_no_jax():
     files = _port_sources()
     assert len(files) > 20
+    for mod in ("array/masked.py", "utils/checkpoint.py", "utils/log.py",
+                "expr/fio.py", "native/__init__.py",
+                "resilience/classify.py", "resilience/loop_ckpt.py",
+                "examples/streaming.py"):
+        assert os.path.join(REPO, "spartan_tpu_torch", mod) in files
     bad = []
     for path in files:
         with open(path) as f:
