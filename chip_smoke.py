@@ -75,7 +75,18 @@ Phases, in order; any failure exits nonzero before the result line:
     refine), ``SlidingWindowStats`` over a 512 MiB window and
     ``IncrementalPageRank`` on a dense 16,384^2 transition, against
     float64;
-18. the ``kernels`` line (times, launches, bounds) and the result line.
+18. ``[planner]``: bench.py's dot chain (4096^2, K = 64) and BASELINE
+    config 3 k-means under logical (4, 2) and (8, 1) meshes with the
+    smart-tiling pass on and off: bit-equal results, exactly 20 k-means
+    launches each, the chosen tilings, one plan miss per structure and
+    hits after it, the planning ms per miss, GFLOPS and iterations per
+    second; k-means with spans and metrics on against both off; an
+    explicit redistribution (``apply_schedule``) of the k-means points
+    from rows to columns, bit-equal; and the host split (``sign``,
+    ``optimize``, ``build``, ``dispatch``) of one ``st.histogram`` call
+    and one VGG-block forward from the span ring, exported as a Chrome
+    trace and parsed back;
+19. the ``kernels`` line (times, launches, bounds) and the result line.
 
 ``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
 ``[ckpt_loop]``; it is not meant to be run by hand.
@@ -126,6 +137,9 @@ EX_QR_M, EX_QR_N, EX_QR_MESH = 131_072, 64, (8, 1)
 EX_ML_USERS, EX_ML_ITEMS, EX_ML_RATINGS, EX_ML_K = 943, 1682, 100_000, 16
 EX_LDA_DOCS, EX_LDA_WORDS, EX_LDA_K, EX_LDA_ITERS = 8192, 16_384, 4, 2
 EX_LSH_N, EX_LSH_D, EX_LSH_BITS, EX_LSH_PAIRS_N = 1_000_000, 128, 64, 4096
+# [planner]: the logical meshes the tiling DP plans for, timed reps, and
+# the steady-state calls the host split of a plan walk averages over
+PLAN_MESHES, PLAN_REPS, SPLIT_CALLS = ((4, 2), (8, 1)), 3, 5
 
 
 def _say(*args) -> None:
@@ -1103,10 +1117,15 @@ def _device_split(fn, label: str, card: str, top: int = 5) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+    # record_function ranges (the expr nodes' annotations under
+    # FLAGS.trace_annotations) carry the device time of the kernels
+    # inside them: count kernels only
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if e.self_device_time_total > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA]
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "Expr#" not in e.key and e.key != "st_loop_body"]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
@@ -2842,6 +2861,291 @@ def phase_streaming(st, kk, card: str, dev, points, c0_np) -> dict:
     return {"launches": launches}
 
 
+# -- phase 18 -------------------------------------------------------------
+
+
+def _bits(a) -> np.ndarray:
+    """The bit pattern of a float32 array or scalar."""
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
+def _plan_ms(prof) -> tuple:
+    """Planning ms recorded since the last reset: the ``pass:auto_tiling``
+    and ``tiling`` phase sums (spartan_tpu_torch.obs REGISTRY)."""
+    ps = prof.phase_seconds()
+    return (ps.get("pass:auto_tiling", 0.0) * 1e3,
+            ps.get("tiling", 0.0) * 1e3)
+
+
+def _plan_check(label: str, prof, runs: int) -> None:
+    stats = prof.plan_cache_stats()
+    if stats["plan_misses"] != 1 or stats["plan_hits"] != runs - 1:
+        _fail(f"[planner] {label}: want 1 plan miss and {runs - 1} hits "
+              f"over {runs} evaluations of one structure, got {stats}")
+
+
+def _explain(st, tc, expr, label: str) -> None:
+    """The tilings the DP committed on ``expr``'s optimized DAG (only
+    nodes with a committed tiling or GEMM plan, to keep it short)."""
+    dag = st.optimize(expr)
+    lines = tc.explain(dag).splitlines()
+    nodes = st.dag_nodes(dag)
+    keep = [ln for ln, n in zip(lines, nodes)
+            if n._forced_tiling is not None
+            or getattr(n, "_dot_plan", None) is not None]
+    plans = sorted({(type(n).__name__, n._dot_plan[0].axes, n._dot_plan[1])
+                    for n in nodes if getattr(n, "_dot_plan", None)})
+    _say(f"[planner] {label} tilings: {'; '.join(keep) or 'none forced'}"
+         f"; GEMM plans (grid, contraction axis): {plans}")
+
+
+def _dot_planned(st, prof, tc, ea_np, eb_np, mesh, on: bool, card: str):
+    """The dot chain on ``mesh`` with the pass on or off: its result
+    bits, GFLOPS (best of PLAN_REPS) and the planning ms of its miss."""
+    st.FLAGS.opt_auto_tiling = on
+    with st.use_mesh(st.build_mesh(mesh)):
+        ea, eb = st.from_numpy(ea_np), st.from_numpy(eb_np)
+        if on:
+            _explain(st, tc, _build_chain(st, ea, eb, DOT_K),
+                     f"dot chain {mesh}")
+        prof.reset_counters()
+        times, val = [], None
+        for _ in range(1 + PLAN_REPS):
+            t0 = time.perf_counter()
+            val = _build_chain(st, ea, eb, DOT_K).glom()
+            times.append(time.perf_counter() - t0)
+        _plan_check(f"dot chain {mesh} pass {'on' if on else 'off'}",
+                    prof, 1 + PLAN_REPS)
+        plan = _plan_ms(prof)
+    if not np.isfinite(val).all():
+        _fail(f"[planner] dot chain {mesh} result {val} is not finite")
+    gflops = 2.0 * DOT_N ** 3 * DOT_K / min(times[1:]) / 1e9
+    return _bits(val), gflops, plan, times[0]
+
+
+def _kmeans_planned(st, prof, tc, kk, km, pts, c0_np, mesh, on: bool):
+    """Config 3 k-means on ``mesh`` with the pass on or off: centers and
+    assignment, launches, iterations per second and the planning ms."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    st.FLAGS.opt_auto_tiling = on
+    with st.use_mesh(st.build_mesh(mesh)):
+        points = from_tensor(pts)
+        prof.reset_counters()
+        _reset_counts(kk)
+        centers, assign = km.kmeans(points, KM_K, num_iter=KM_ITERS,
+                                    centers=c0_np)
+        launches = kk.LAUNCHES
+        # kmeans() evaluates two structures: the loop and the assignment
+        misses = prof.plan_cache_stats()["plan_misses"]
+        plan = tuple(v / max(misses, 1) for v in _plan_ms(prof))
+        if launches != KM_ITERS:
+            _fail(f"[planner] k-means {mesh} pass {'on' if on else 'off'}:"
+                  f" {launches} kernel launches, want {KM_ITERS}")
+        c0_e = st.from_numpy(c0_np)
+        pe = st.as_expr(points)
+
+        def fit():
+            return st.loop(KM_ITERS, lambda c: km.kmeans_step(pe, c, KM_K),
+                           c0_e).evaluate()
+
+        if on:
+            _explain(st, tc, st.loop(KM_ITERS, lambda c: km.kmeans_step(
+                pe, c, KM_K), c0_e), f"k-means {mesh}")
+        ms = _wall_ms(fit, reps=PLAN_REPS)
+        stats = prof.plan_cache_stats()
+        if (misses, stats["plan_misses"], stats["plan_hits"]) != (
+                2, 2, 1 + PLAN_REPS):
+            _fail(f"[planner] k-means {mesh}: want one miss per structure "
+                  f"(2) and {1 + PLAN_REPS} hits of the loop after them, "
+                  f"got {misses} misses in kmeans(), then {stats}")
+    return (_bits(centers), assign), launches, KM_ITERS / (ms / 1e3), plan
+
+
+def _phase_means(events, calls: int) -> dict:
+    """Host ms per call of each evaluate phase in a span window."""
+    out = {}
+    for sp in events:
+        if sp.name in ("evaluate", "sign", "optimize", "build", "dispatch",
+                       "fetch"):
+            out[sp.name] = out.get(sp.name, 0.0) + sp.dur / 1e3 / calls
+    return out
+
+
+def _host_split(st, fn, label: str, card: str) -> None:
+    """Where one call's host time goes, from the span ring: a plan miss
+    (the plan cache cleared first), then SPLIT_CALLS steady calls."""
+    st.clear_plan_cache()
+    st.trace_clear()
+    fn()
+    torch.cuda.synchronize()
+    miss = _phase_means(st.trace_events(), 1)
+    fn()
+    torch.cuda.synchronize()
+    st.trace_clear()
+    t0 = time.perf_counter()
+    for _ in range(SPLIT_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / SPLIT_CALLS
+    hit = _phase_means(st.trace_events(), SPLIT_CALLS)
+    evals = sum(1 for sp in st.trace_events() if sp.name == "evaluate")
+    # host waits inside the walk: torch's sync debug mode warns once per
+    # synchronizing call (a .item(), a copy from pageable host memory)
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    torch.cuda.synchronize()
+
+    def fmt(d):
+        return ", ".join(f"{k} {d.get(k, 0.0):.4f}" for k in (
+            "evaluate", "sign", "optimize", "build", "dispatch"))
+
+    _say(f"[planner] host split of one {label} ({evals // SPLIT_CALLS} "
+         f"evaluate(s) a call), ms a call by host clock: steady {fmt(hit)}"
+         f"; wall with the device {wall:.4f}; plan miss {fmt(miss)}; "
+         f"synchronizing calls in one steady call: {syncs} on {card}")
+
+
+def phase_planner(st, kk, km, card: str, dev, points, c0_np) -> None:
+    """The planner tier at full width: the smart-tiling DP on and off
+    over bench.py's dot chain and config 3 k-means on logical (4, 2) and
+    (8, 1) meshes, the trace/metrics cost, an explicit redistribution
+    and the host split of two plan walks."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.expr import tiling_cost as tc
+    from spartan_tpu_torch.parallel import redistribute as rd
+    from spartan_tpu_torch.utils import profiling as prof
+
+    rng = np.random.RandomState(0)
+    a = rng.rand(DOT_N, DOT_N).astype(np.float32)
+    b = rng.rand(DOT_N, DOT_N).astype(np.float32)
+    pts = points.value.tensor
+    prev = st.FLAGS.opt_auto_tiling
+    try:
+        for mesh in PLAN_MESHES:
+            on = _dot_planned(st, prof, tc, a, b, mesh, True, card)
+            off = _dot_planned(st, prof, tc, a, b, mesh, False, card)
+            if not np.array_equal(on[0], off[0]):
+                _fail(f"[planner] dot chain {mesh}: pass on and off "
+                      f"differ in bits")
+            _say(f"[planner] dot chain {DOT_N}^2 K={DOT_K} on {mesh}: pass "
+                 f"on {on[1]:.1f} GFLOPS, off {off[1]:.1f} GFLOPS (best of "
+                 f"{PLAN_REPS}), bit-equal; planning per miss: "
+                 f"pass:auto_tiling {on[2][0]:.3f} ms, tiling "
+                 f"{on[2][1]:.3f} ms; first (miss) run {on[3] * 1e3:.1f} "
+                 f"ms; 1 miss then {PLAN_REPS} hits on {card}")
+            kon = _kmeans_planned(st, prof, tc, kk, km, pts, c0_np, mesh,
+                                  True)
+            koff = _kmeans_planned(st, prof, tc, kk, km, pts, c0_np, mesh,
+                                   False)
+            if not (np.array_equal(kon[0][0], koff[0][0])
+                    and np.array_equal(kon[0][1], koff[0][1])):
+                _fail(f"[planner] k-means {mesh}: pass on and off differ")
+            _say(f"[planner] k-means {KM_N}x{KM_D} k={KM_K} on {mesh}: "
+                 f"{kon[1]} and {koff[1]} kernel launches (pass on, off), "
+                 f"bit-equal centers and assignment; {kon[2]:.2f} iters/s "
+                 f"on, {koff[2]:.2f} off (st.loop, best of {PLAN_REPS}); "
+                 f"planning per miss: pass:auto_tiling {kon[3][0]:.3f} ms,"
+                 f" tiling {kon[3][1]:.3f} ms; 1 miss per structure, then "
+                 f"hits on {card}")
+        st.FLAGS.opt_auto_tiling = True
+
+        # spans and metrics on against both off, alternated
+        with st.use_mesh(st.build_mesh(PLAN_MESHES[0])):
+            pe = st.as_expr(from_tensor(pts))
+            c0_e = st.from_numpy(c0_np)
+
+            def fit():
+                return st.loop(KM_ITERS, lambda c: km.kmeans_step(
+                    pe, c, KM_K), c0_e).evaluate()
+
+            best = {True: float("inf"), False: float("inf")}
+            for _ in range(PLAN_REPS):
+                for obs_on in (True, False):
+                    st.FLAGS.trace = st.FLAGS.metrics = obs_on
+                    best[obs_on] = min(best[obs_on],
+                                       _wall_ms(fit, reps=PLAN_REPS))
+            st.FLAGS.trace = st.FLAGS.metrics = True
+        ips_on, ips_off = KM_ITERS / best[True] * 1e3, \
+            KM_ITERS / best[False] * 1e3
+        _say(f"[planner] k-means on {PLAN_MESHES[0]}: {ips_on:.2f} iters/s "
+             f"with trace and metrics on, {ips_off:.2f} with both off: "
+             f"{100.0 * (ips_off - ips_on) / ips_off:+.2f}% (budget 5%) "
+             f"on {card}")
+
+        # the redistribution planner: rows -> columns on (4, 2)
+        mesh = st.build_mesh(PLAN_MESHES[0])
+        src, dst = st.Tiling(("x", None)), st.Tiling((None, "x"))
+        st.FLAGS.redistribution_planner = True
+        try:
+            prof.reset_counters()
+            moved = rd.constrain(pts, dst, mesh, src=src)
+            torch.cuda.synchronize()
+            explicit = prof.counters().get("redistribute_explicit", 0)
+            if explicit != 1 or not torch.equal(moved, pts):
+                _fail(f"[planner] explicit redistribution: {explicit} "
+                      f"schedules run, bit-equal {torch.equal(moved, pts)}")
+            dec = rd.decide(src, dst, tuple(pts.shape), np.float32, mesh)
+            ms = _event_ms(lambda: rd.constrain(pts, dst, mesh, src=src),
+                           PLAN_REPS)
+        finally:
+            st.FLAGS.redistribution_planner = False
+        with st.use_mesh(mesh):
+            arr = from_tensor(pts, tiling=src)
+            if arr.retile(dst).tensor.data_ptr() != pts.data_ptr():
+                _fail("[planner] retile copied the tensor")
+        gbs = 2.0 * pts.numel() * 4 / (ms / 1e3) / 1e9
+        _say(f"[planner] redistribution of the k-means points {src.axes} "
+             f"-> {dst.axes} on {PLAN_MESHES[0]}: {dec.schedule.describe()}"
+             f" (explicit: {dec.reason}), redistribute_explicit "
+             f"{explicit}, bit-equal; {ms:.3f} ms ({gbs:.1f} GB/s read + "
+             f"written) on {card}; retile shares the tensor")
+    finally:
+        st.FLAGS.opt_auto_tiling = prev
+
+    # the host split of two plan walks (PERF.md section 7's question)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    keys = torch.rand(SORT_N, generator=gen, device=dev)
+    with st.use_mesh(st.build_mesh(SORT_MESH)):
+        X = from_tensor(keys)
+        _host_split(st, lambda: [e.evaluate() for e in st.histogram(
+            X, bins=HIST_BINS, range=(0.0, 1.0))],
+            f"st.histogram(x, {HIST_BINS}, range=(0, 1)) on {SORT_N} keys",
+            card)
+    del keys, X
+    x, params = _vgg_params(dev)
+    with st.use_mesh(st.build_mesh(VGG_MESH)):
+        XV = from_tensor(x, tiling=st.Tiling((None, "x", None, None)))
+        P = [(from_tensor(w), from_tensor(bb)) for w, bb in params]
+        _host_split(st, lambda: vgg_block1(st, XV, P).evaluate(),
+                    f"VGG-block forward (batch {VGG_N})", card)
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="chip_smoke_trace_")
+    os.close(fd)
+    try:
+        doc = st.trace_export(path)
+        with open(path) as f:
+            back = json.load(f)
+    finally:
+        os.unlink(path)
+    names = {e["name"] for e in back["traceEvents"]}
+    if back != json.loads(json.dumps(doc)) or not {
+            "evaluate", "sign", "build", "dispatch"} <= names:
+        _fail(f"[planner] the exported Chrome trace did not parse back: "
+              f"{sorted(names)[:10]}")
+    _say(f"[planner] Chrome trace of the split: {len(back['traceEvents'])} "
+         f"events, parsed back; span names {sorted(names)}")
+
+
 def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--ckpt-child":
         ckpt_child(sys.argv[2])
@@ -2908,6 +3212,7 @@ def main() -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     strr = phase_streaming(st, kk, card, dev, kmr["points"], kmr["c0"])
+    phase_planner(st, kk, km, card, dev, kmr["points"], kmr["c0"])
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",

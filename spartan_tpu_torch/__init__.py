@@ -3,8 +3,9 @@
 A lazy NumPy-like expression DAG (map / map2 / reduce / dot / slice /
 loop) over tiled arrays, evaluated eagerly with torch on one device,
 with masked arrays, region writes and donation, checkpoints and the
-checkpointed loop, and the Pallas kernels of the JAX package as
-hand-written CUDA kernels for Hopper.
+checkpointed loop, the smart-tiling optimizer and redistribution
+planner on a logical mesh, host spans and metrics, and the Pallas
+kernels of the JAX package as hand-written CUDA kernels for Hopper.
 This package imports torch and numpy only: never jax, never
 ``spartan_tpu``.
 
@@ -35,9 +36,13 @@ from .ops.stencil import avgpool, maxpool, stencil  # noqa: E402
 from .parallel.mesh import (build_mesh, get_default_device,  # noqa: E402
                             get_mesh, set_default_device, set_mesh,
                             use_mesh)
+from . import obs  # noqa: E402
+from .obs import (REGISTRY, Counter, Gauge, Histogram, Registry,  # noqa: E402
+                  Span, metrics, span, trace_clear, trace_events,
+                  trace_export)
 from . import resilience  # noqa: E402
 from .resilience.classify import FatalMeshError  # noqa: E402
-from .utils import checkpoint  # noqa: E402
+from .utils import checkpoint, profiling  # noqa: E402
 from .utils.config import FLAGS  # noqa: E402
 
 __version__ = "0.1.0"
@@ -47,5 +52,8 @@ __all__ = (["DistArray", "SparseDistArray", "MaskedDistArray", "TileExtent",
             "FatalMeshError",
             "build_mesh", "get_mesh", "set_mesh", "use_mesh",
             "set_default_device", "get_default_device",
-            "stencil", "maxpool", "avgpool"]
+            "stencil", "maxpool", "avgpool",
+            "obs", "profiling", "metrics", "trace_export", "trace_events",
+            "trace_clear", "span", "Span", "REGISTRY", "Registry",
+            "Counter", "Gauge", "Histogram"]
            + list(_expr_all))

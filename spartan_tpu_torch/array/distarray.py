@@ -21,7 +21,7 @@ engine's lineage (``_record_mutation``) waits for that engine.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -153,8 +153,13 @@ class DistArray:
     # -- data access ----------------------------------------------------
 
     def glom(self) -> np.ndarray:
-        """Fetch the whole array to the host."""
-        return dtypes.to_host(self.tensor)
+        """Fetch the whole array to the host (a ``fetch`` phase: the copy
+        waits for the device work that produced the tensor)."""
+        from ..utils import profiling as prof
+
+        with prof.phase("fetch") as sp:
+            sp.set(shape=self.shape, dtype=str(self.dtype))
+            return dtypes.to_host(self.tensor)
 
     def fetch(self, region: Any) -> np.ndarray:
         """Fetch a rectangular region (a TileExtent or a slice/int index)
@@ -179,6 +184,57 @@ class DistArray:
         d = torch.broadcast_to(d, region.shape)
         out = x.clone()
         out[sl] = d if op == "set" else dtypes.call(_COMBINE[op], out[sl], d)
+        return DistArray(out, self.tiling, self.mesh)
+
+
+    # -- retiling -------------------------------------------------------
+
+    def retile(self, new_tiling: Tiling) -> "DistArray":
+        """This array under ``new_tiling``. On the port's one-device
+        logical mesh a tiling is metadata, so the new handle shares the
+        tensor: nothing moves, and donating either handle leaves the
+        other valid (donation drops a handle, never the data another
+        handle holds). The JAX package's ``device_put`` to the new
+        sharding becomes a real move with the multi-process slice
+        (ROADMAP A3b); ``parallel/redistribute.apply_schedule`` is the
+        explicit per-shard form."""
+        if new_tiling == self.tiling:
+            return self
+        if new_tiling.ndim != self.ndim:
+            raise ValueError(f"tiling rank {new_tiling.ndim} != array "
+                             f"rank {self.ndim}")
+        return DistArray(self.tensor, new_tiling, self.mesh)
+
+    def replicate(self) -> "DistArray":
+        return self.retile(tiling_mod.replicated(self.ndim))
+
+    # -- per-shard execution (the foreach_tile analogue) ----------------
+
+    def map_shards(self, fn: Callable[[torch.Tensor], torch.Tensor]
+                   ) -> "DistArray":
+        """Apply a shape-preserving torch function to every logical
+        shard's block independently (owner-computes, no communication)
+        and reassemble the blocks, as the JAX package's ``shard_map``
+        does. Replicated mesh axes hold the same block on every shard,
+        so each distinct block runs once. Needs the tiling to divide
+        the shape, as ``shard_map`` does."""
+        if not self.tiling.divisible(self.shape, self.mesh):
+            raise ValueError(
+                f"map_shards needs a tiling that divides the shape: "
+                f"{self.tiling} over {self.shape} on {self.mesh}")
+        x = self.tensor
+        out = None
+        for ext in self.extents():
+            sl = ext.to_slice()
+            blk = fn(x[sl])
+            if tuple(blk.shape) != tuple(ext.shape):
+                raise ValueError(
+                    f"map_shards fn must preserve the block shape: "
+                    f"{tuple(ext.shape)} -> {tuple(blk.shape)}")
+            if out is None:
+                out = torch.empty(self.shape, dtype=blk.dtype,
+                                  device=x.device)
+            out[sl] = blk
         return DistArray(out, self.tiling, self.mesh)
 
 

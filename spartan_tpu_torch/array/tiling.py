@@ -46,6 +46,11 @@ class Tiling:
         axis = axis % self.ndim
         return Tiling(self.axes[:axis] + self.axes[axis + 1:])
 
+    def add_axis(self, axis: int,
+                 mesh_axis: Optional[str] = None) -> "Tiling":
+        axis = axis % (self.ndim + 1)
+        return Tiling(self.axes[:axis] + (mesh_axis,) + self.axes[axis:])
+
     def transpose(self, perm: Sequence[int]) -> "Tiling":
         return Tiling(tuple(self.axes[p] for p in perm))
 
@@ -77,6 +82,15 @@ class Tiling:
         over the mesh axes (the JAX package's shard order)."""
         return extent_mod.tile_grid(shape, self.tiles_per_dim(mesh))
 
+    def divisible(self, shape: Sequence[int],
+                  mesh: Optional[Mesh] = None) -> bool:
+        """True if every tiled axis divides evenly (what a per-shard
+        schedule and ``map_shards`` need)."""
+        for d, n in zip(shape, self.tiles_per_dim(mesh)):
+            if n > 1 and d % n != 0:
+                return False
+        return True
+
 
 # -- canonical tilings --------------------------------------------------
 
@@ -104,6 +118,28 @@ def block(ndim: int) -> Tiling:
     if ndim < 2:
         return row(ndim)
     return Tiling((AXIS_ROW, AXIS_COL) + (None,) * (ndim - 2))
+
+
+def row_t(ndim: int) -> Tiling:
+    """Transposed row tiling: the leading axis on the *col* mesh axis
+    (a smart-tiling candidate that lets a transpose line up)."""
+    if ndim == 0:
+        return Tiling(())
+    return Tiling((AXIS_COL,) + (None,) * (ndim - 1))
+
+
+def col_t(ndim: int) -> Tiling:
+    """Transposed col tiling: the second axis on the *row* mesh axis."""
+    if ndim < 2:
+        return replicated(ndim)
+    return Tiling((None, AXIS_ROW) + (None,) * (ndim - 2))
+
+
+def block_t(ndim: int) -> Tiling:
+    """Transposed block tiling: ``(y, x)``."""
+    if ndim < 2:
+        return row_t(ndim)
+    return Tiling((AXIS_COL, AXIS_ROW) + (None,) * (ndim - 2))
 
 
 def from_tile_hint(shape: Sequence[int], tile_hint: Sequence[int],

@@ -9,6 +9,14 @@ leaf order), so a structurally identical evaluate — the iterative
 applications' steady state — skips the optimizer and re-signing and walks
 the cached DAG with the new leaf tensors. There is no compile cache to
 mirror: torch runs eagerly.
+
+Each evaluate is one ``evaluate`` span with the JAX package's phases
+inside it (``sign``, ``optimize`` with its per-pass phases, ``build``,
+``dispatch``; ``utils/profiling.py``), and its counters
+(``evaluations``, ``plan_hits``, ``plan_misses``,
+``donated_dispatches``) live in ``obs.metrics.REGISTRY``. Spans read the
+host clock only: ``dispatch`` times the launches of a plan's kernels,
+never waits for them.
 """
 
 from __future__ import annotations
@@ -29,9 +37,15 @@ from ..array import tiling as tiling_mod
 from ..array.distarray import DistArray
 from ..array.tiling import Tiling
 from ..kernels import registry as kernels_mod
+from ..obs import trace as trace_mod
 from ..parallel import mesh as mesh_mod
+from ..parallel import redistribute as redistribute_mod
+from ..utils import config as config_mod
 from ..utils import dtypes
+from ..utils import profiling as prof
 from ..utils.config import FLAGS
+
+_ANNOTATE_FLAG = FLAGS.flag("trace_annotations")
 
 _ids = itertools.count()
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -130,7 +144,15 @@ class Expr:
     def lower(self, env: Dict[int, Any]) -> Any:
         if self._id not in env:
             try:
-                val = self._lower(env)
+                if _ANNOTATE_FLAG._value and trace_mod.profiler_active():
+                    # device profiles attribute this node's kernels to
+                    # it; a range per node costs microseconds, so only
+                    # while a profiler records
+                    with trace_mod.named_scope(
+                            f"{type(self).__name__}#{self._id}"):
+                        val = self._lower(env)
+                else:
+                    val = self._lower(env)
             except Exception as e:
                 if self._site and not getattr(e, "_expr_annotated", False):
                     e._expr_annotated = True  # annotate innermost only
@@ -138,6 +160,15 @@ class Expr:
                                f"built at {self._site[0]}:{self._site[1]} "
                                f"(in {self._site[2]})")
                 raise
+            if self._forced_tiling is not None:
+                # smart tiling chose this node's layout: the
+                # redistribution seam returns ``val`` itself unless the
+                # planner is on and predicts an explicit schedule from
+                # the node's natural layout (then it moves the logical
+                # shards and the values stay bit-equal)
+                val = redistribute_mod.constrain(
+                    val, self._forced_tiling, mesh_mod.get_mesh(),
+                    src=self._default_tiling())
             env[self._id] = val
         return env[self._id]
 
@@ -619,26 +650,20 @@ class _Plan:
 _PLAN_CACHE_MAX = 512
 _plan_cache: "OrderedDict[Tuple, _Plan]" = OrderedDict()
 _cache_lock = threading.Lock()
-_counters: Dict[str, int] = {"plan_hits": 0, "plan_misses": 0,
-                             "evaluations": 0}
+_PLAN_COUNTERS = ("plan_hits", "plan_misses", "evaluations")
 
 
 def plan_stats() -> Dict[str, int]:
     """Plan-cache counters: ``plan_hits``, ``plan_misses``,
-    ``evaluations`` (the JAX package's counters of the same names)."""
-    with _cache_lock:
-        return dict(_counters)
+    ``evaluations`` (the JAX package's counters of the same names, read
+    from ``obs.metrics.REGISTRY``)."""
+    c = prof.counters()
+    return {k: c.get(k, 0) for k in _PLAN_COUNTERS}
 
 
 def reset_plan_stats() -> None:
-    with _cache_lock:
-        for k in _counters:
-            _counters[k] = 0
-
-
-def _count(name: str) -> None:
-    with _cache_lock:
-        _counters[name] += 1
+    for k in _PLAN_COUNTERS:
+        prof.REGISTRY.counter(k)._reset()
 
 
 def plan_cache_size() -> int:
@@ -670,13 +695,36 @@ def store_plan(plan_key: Tuple, plan: _Plan) -> _Plan:
     return plan
 
 
+# _opt_flags_key memo: (flag-mutation count, registered passes) -> key.
+# Every input of the key is a flag, so it stays valid until a flag write.
+_opt_key_memo: Tuple[Tuple, Tuple] = ((), ())
+
+
 def _opt_flags_key() -> Tuple:
     """Everything the optimizer and lowering read that the raw signature
-    cannot see: a plan is reusable only under the same configuration."""
-    from .optimize import _PASSES
-
-    return (tuple(p.name for p in _PASSES if p.enabled()),
-            kernels_mod.policy_key())
+    cannot see: a plan is reusable only under the same configuration —
+    the enabled passes, the tiling cost weights, the redistribution
+    planner, loop-carry sharding and the kernel policy (JAX
+    ``base.py:1109-1117``)."""
+    global _opt_key_memo
+    # the module, not the package's ``optimize`` function of that name
+    optimize_mod = sys.modules[__package__ + ".optimize"]
+    # the smart-tiling pass registers itself on first use: it must be
+    # in the registry before the key is read
+    optimize_mod._ensure_tiling_pass()
+    passes = optimize_mod._PASSES
+    ver = (config_mod.mutation_count(), len(passes))
+    memo_ver, key = _opt_key_memo
+    if memo_ver != ver:
+        key = (tuple(p.name for p in passes if p.enabled()),
+               FLAGS.tiling_compute_weight, FLAGS.tiling_flop_weight,
+               FLAGS.tiling_operand_move_weight,
+               FLAGS.tiling_memory_weight,
+               bool(FLAGS.redistribution_planner),
+               bool(FLAGS.shard_loop_carries),
+               kernels_mod.policy_key())
+        _opt_key_memo = (ver, key)
+    return key
 
 
 def _mesh_key(mesh) -> Tuple:
@@ -758,27 +806,33 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
     """Walk the plan's DAG with the leaf tensors, wrap the outputs, and
     release the donated leaves (those marked by ``donate()`` or named in
     ``donated``) once the walk is done."""
-    env: Dict[int, Any] = {
-        lid: _leaf_arg(leaves[i]) for lid, i in zip(plan.leaf_ids, order)}
-    released = []
-    for i in order:
-        arr = _leaf_array(leaves[i])
-        if arr is not None and (arr._donate_next or any(
-                arr is d for d in donated)) and \
-                not any(arr is r for r in released):
-            released.append(arr)
-    out = plan.dag.lower(env)
+    with prof.phase("build"):
+        env: Dict[int, Any] = {
+            lid: _leaf_arg(leaves[i])
+            for lid, i in zip(plan.leaf_ids, order)}
+        released = []
+        for i in order:
+            arr = _leaf_array(leaves[i])
+            if arr is not None and (arr._donate_next or any(
+                    arr is d for d in donated)) and \
+                    not any(arr is r for r in released):
+                released.append(arr)
+    with prof.phase("dispatch"):
+        out = plan.dag.lower(env)
     del env
-    for arr in released:
-        arr._release_donated()
-    outs = out if plan.is_tuple else (out,)
-    wrapped = []
-    for o, t in zip(outs, plan.out_tilings):
-        if o.device != mesh.device:  # a scalar-only expression
-            o = o.to(mesh.device)
-        wrapped.append(DistArray(o, t, mesh))
-    result: Any = tuple(wrapped) if plan.is_tuple else wrapped[0]
-    expr._result = result
+    with prof.phase("build"):
+        for arr in released:
+            arr._release_donated()
+        if released:
+            prof.count("donated_dispatches")
+        outs = out if plan.is_tuple else (out,)
+        wrapped = []
+        for o, t in zip(outs, plan.out_tilings):
+            if o.device != mesh.device:  # a scalar-only expression
+                o = o.to(mesh.device)
+            wrapped.append(DistArray(o, t, mesh))
+        result: Any = tuple(wrapped) if plan.is_tuple else wrapped[0]
+        expr._result = result
     return result
 
 
@@ -797,45 +851,55 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
     same way without an argument."""
     if expr._result is not None:
         return expr._result
-    _count("evaluations")
+    prof.count("evaluations")
     mesh = mesh_mod.get_mesh()
     donated = _norm_donate(donate)
-    rctx: Optional[_PlanSigCtx] = None
-    plan_key: Optional[Tuple] = None
-    if FLAGS.plan_cache:
-        plan_key, rctx = plan_signature(expr, mesh)
-        plan = lookup_plan(plan_key)
-        if plan is not None:
-            _count("plan_hits")
-            return _run(expr, plan, rctx.leaves, plan.arg_order, mesh,
-                        donated)
-        _count("plan_misses")
+    with prof.span("evaluate") as esp:
+        if trace_mod._TRACE_FLAG._value:  # skip the label f-strings off
+            site = expr._site
+            esp.set(root=f"{type(expr).__name__}#{expr._id}",
+                    site=(f"{site[0]}:{site[1]}" if site else None))
+        rctx: Optional[_PlanSigCtx] = None
+        plan_key: Optional[Tuple] = None
+        if FLAGS.plan_cache:
+            with prof.phase("sign"):
+                plan_key, rctx = plan_signature(expr, mesh)
+            plan = lookup_plan(plan_key)
+            if plan is not None:
+                prof.count("plan_hits")
+                esp.set(cache="hit")
+                return _run(expr, plan, rctx.leaves, plan.arg_order, mesh,
+                            donated)
+            prof.count("plan_misses")
+            esp.set(cache="miss")
 
-    from .optimize import optimize
+        from .optimize import optimize
 
-    dag = optimize(expr)
-    if dag._result is not None:
-        # the optimizer collapsed the root onto an already-held result
-        expr._result = dag._result
-        return dag._result
-    ctx = _SigCtx()
-    ctx.of(dag)
-    leaves = ctx.leaves
-    is_tuple = isinstance(dag, TupleExpr)
-    if is_tuple:
-        out_tilings = dag.out_tilings()
-    else:
-        out_tilings = (tiling_mod.sanitize(dag.out_tiling(), dag.shape,
-                                           mesh),)
-    leaf_ids = tuple(leaf._id for leaf in leaves)
-    if rctx is not None:
-        raw_order = _arg_order(rctx.leaves, leaves)
-        if raw_order is not None:
-            store_plan(plan_key, _Plan(dag, leaf_ids, out_tilings, is_tuple,
-                                       raw_order))
-    plan = _Plan(dag, leaf_ids, out_tilings, is_tuple,
-                 tuple(range(len(leaves))))
-    return _run(expr, plan, leaves, plan.arg_order, mesh, donated)
+        with prof.phase("optimize"):
+            dag = optimize(expr)
+        if dag._result is not None:
+            # the optimizer collapsed the root onto an already-held result
+            expr._result = dag._result
+            return dag._result
+        with prof.phase("sign"):
+            ctx = _SigCtx()
+            ctx.of(dag)
+        leaves = ctx.leaves
+        is_tuple = isinstance(dag, TupleExpr)
+        if is_tuple:
+            out_tilings = dag.out_tilings()
+        else:
+            out_tilings = (tiling_mod.sanitize(dag.out_tiling(), dag.shape,
+                                               mesh),)
+        leaf_ids = tuple(leaf._id for leaf in leaves)
+        if rctx is not None:
+            raw_order = _arg_order(rctx.leaves, leaves)
+            if raw_order is not None:
+                store_plan(plan_key, _Plan(dag, leaf_ids, out_tilings,
+                                           is_tuple, raw_order))
+        plan = _Plan(dag, leaf_ids, out_tilings, is_tuple,
+                     tuple(range(len(leaves))))
+        return _run(expr, plan, leaves, plan.arg_order, mesh, donated)
 
 
 _eval_shape_cache: Dict[Tuple, Any] = {}

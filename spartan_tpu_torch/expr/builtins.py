@@ -228,11 +228,11 @@ def diagonal(x) -> Expr:
 
 
 def tril(x, k=0) -> Expr:
-    return map_expr(lambda v: torch.tril(v, k), as_expr(x))
+    return map_expr(lambda v: dtypes.call(torch.tril, v, k), as_expr(x))
 
 
 def triu(x, k=0) -> Expr:
-    return map_expr(lambda v: torch.triu(v, k), as_expr(x))
+    return map_expr(lambda v: dtypes.call(torch.triu, v, k), as_expr(x))
 
 
 def var(x, axis=None, ddof: int = 0, keepdims: bool = False) -> Expr:
@@ -242,7 +242,13 @@ def var(x, axis=None, ddof: int = 0, keepdims: bool = False) -> Expr:
     m = mean(x, axis=axis, keepdims=True)
     d = x - m
     n = x.size if axis is None else _axis_count(x.shape, axis)
-    return sum(d * d, axis=axis, keepdims=keepdims) / float(n - ddof)
+    out = sum(d * d, axis=axis, keepdims=keepdims) / float(n - ddof)
+    if out.ndim == 0 and out.dtype != d.dtype and \
+            np.dtype(d.dtype).itemsize < 4:
+        # a whole float16/bfloat16 sum is 0-d, and torch promotes it
+        # against the 0-d divisor; JAX's Python divisor is weak
+        out = astype(out, d.dtype)
+    return out
 
 
 def std(x, axis=None, ddof: int = 0, keepdims: bool = False) -> Expr:
@@ -266,12 +272,10 @@ def _axis_count(shape, axis) -> int:
 
 
 def _contract_whole(fn, *xs, **kw):
-    """``fn`` over the operands in their common torch dtype (``jnp``'s
-    promotion for the dtypes this package stores)."""
-    dt = xs[0].dtype
-    for x in xs[1:]:
-        dt = torch.promote_types(dt, x.dtype)
-    return dtypes.contract(fn, dt, *xs, **kw)
+    """``fn`` over the operands in their common dtype (``jnp``'s
+    promotion with 64-bit types off)."""
+    return dtypes.contract(fn, dtypes.result_type(*[x.dtype for x in xs]),
+                           *xs, **kw)
 
 
 def _einsum_whole(*xs, subscripts):
@@ -383,10 +387,13 @@ def matmul(a, b, precision=None) -> Expr:
 
 
 def _trace(v, offset):
+    """``jnp.trace``: integer sums are uint32 for unsigned and int32 for
+    signed operands (and bool), summed in int64 and wrapped."""
     d = torch.diagonal(v, offset, 0, 1)
     if d.dtype.is_floating_point or d.dtype.is_complex:
         return d.sum(-1)
-    return d.sum(-1, dtype=torch.int32)
+    acc = torch.uint32 if dtypes.is_unsigned(d.dtype) else torch.int32
+    return d.to(torch.int64).sum(-1).to(acc)
 
 
 def trace(x, offset: int = 0) -> Expr:
@@ -394,7 +401,7 @@ def trace(x, offset: int = 0) -> Expr:
 
 
 def _inner_whole(x, y):
-    return torch.inner(*_promoted(x, y))
+    return _contract_whole(torch.inner, x, y)
 
 
 def inner(a, b) -> Expr:
@@ -534,9 +541,12 @@ class SampleSortExpr(Expr):
         return Tiling(axes)
 
     def _lower(self, env) -> Any:
+        # uint16/uint32 keys sort as int64 (same order, exact values)
+        return dtypes.call(self._sort, self.x.lower(env))
+
+    def _sort(self, v: torch.Tensor) -> torch.Tensor:
         from ..ops import sort as sort_ops
 
-        v = self.x.lower(env)
         if self.x.ndim <= 1:
             fn = (sort_ops.sample_argsort if self.indices
                   else sort_ops.sample_sort)
@@ -606,7 +616,8 @@ def sort(x, axis: int = -1) -> Expr:
         return SampleSortExpr(x, axis=ax)
     from ..ops.sort import stable_argsort
 
-    return map_expr(lambda v: v.gather(ax, stable_argsort(v, ax)), x)
+    return map_expr(lambda v: dtypes.call(
+        lambda w: w.gather(ax, stable_argsort(w, ax)), v), x)
 
 
 def argsort(x, axis: int = -1) -> Expr:
@@ -683,8 +694,12 @@ def _order_stat_interp(x: Expr, ax: int, positions, rdt):
 
 def _quantile_local(v: torch.Tensor, q, axis) -> torch.Tensor:
     """``jnp.percentile``/``jnp.median`` on one tensor (linear
-    interpolation, NaN propagates), in the float result type."""
+    interpolation, NaN propagates), in ``jnp``'s result type: a float16
+    or bfloat16 operand keeps its type (interpolated in float32)."""
     rdt = dtypes.to_torch(_float_result(dtypes.to_numpy(v.dtype)))
+    if v.dtype in (torch.float16, torch.bfloat16):
+        qt = torch.tensor(q, dtype=rdt, device=v.device)
+        return torch.quantile(v.to(rdt), qt, dim=axis).to(v.dtype)
     qt = torch.tensor(q, dtype=rdt, device=v.device)
     return torch.quantile(v.to(rdt), qt, dim=axis)
 
@@ -776,7 +791,7 @@ class TopKExpr(Expr):
     def _lower(self, env) -> Any:
         from ..ops.sort import distributed_topk
 
-        return distributed_topk(self.x.lower(env), self.k,
+        return distributed_topk(dtypes.widen(self.x.lower(env)), self.k,
                                 largest=self.largest)[1]
 
     def _sig(self, ctx):
@@ -812,7 +827,8 @@ def topk(x, k: int, largest: bool = True):
             idx = si[:k]
     else:
         idx = TopKExpr(x, k, largest)
-    vals = map_expr(lambda v, i: v[i.to(torch.int64)], x, idx)
+    vals = map_expr(lambda v, i: dtypes.call(
+        lambda w: w[i.to(torch.int64)], v), x, idx)
     return vals, idx
 
 

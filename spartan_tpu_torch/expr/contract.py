@@ -4,11 +4,12 @@
 The whole two-operand contraction family -- einsum, tensordot, batched
 matmul, inner -- lowers through one ``ContractExpr`` node, and an
 N-operand einsum through a chain of them along ``np.einsum_path``'s
-greedy order. The JAX package's smart-tiling pass sets a node's
-``_dot_plan`` (output grid and contraction placement); that pass waits
-for the multi-GPU slice, so ``_dot_plan`` stays None here and the node
-is one ``torch.einsum`` (float32 products in full float32: TF32 is off,
-``spartan_tpu_torch/__init__.py``).
+greedy order. The smart-tiling pass sets a node's ``_dot_plan`` (output
+grid and contraction placement); its operand edges go through
+``parallel/redistribute.constrain`` and the plan joins the signature.
+The node is one ``torch.einsum`` whatever the plan (float32 products in
+full float32: TF32 is off, ``spartan_tpu_torch/__init__.py``); the
+k-split with a psum waits for the multi-process slice (ROADMAP A3b).
 
 Axis vocabulary (einsum labels):
   * batch labels -- in both operands and the output,
@@ -27,6 +28,8 @@ import torch
 
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
+from ..parallel import mesh as mesh_mod
+from ..parallel import redistribute as redist_mod
 from ..utils import dtypes
 from .base import Expr
 
@@ -67,9 +70,7 @@ class ContractExpr(Expr):
                 raise ValueError(f"output label {lab!r} not in operands")
         self._dims = dims
         shape = tuple(dims[lab] for lab in self.out_labels)
-        dtype = torch.promote_types(dtypes.to_torch(a.dtype),
-                                    dtypes.to_torch(b.dtype))
-        super().__init__(shape, dtypes.to_numpy(dtype))
+        super().__init__(shape, dtypes.result_type(a.dtype, b.dtype))
 
     @property
     def contraction_labels(self) -> Tuple[str, ...]:
@@ -89,6 +90,24 @@ class ContractExpr(Expr):
             f *= d
         return f
 
+    def plan_operand_tilings(self, out_t: Tiling,
+                             strategy: Optional[str]
+                             ) -> Tuple[Tiling, Tiling]:
+        """Operand layouts implied by an output grid + contraction
+        placement: each operand axis takes the output's mesh axis for
+        its label (batch/free), the strategy axis on the primary
+        contraction label, and None elsewhere."""
+        mesh_of = {lab: ax
+                   for lab, ax in zip(self.out_labels, out_t.axes)}
+        contraction = self.contraction_labels
+        primary = contraction[0] if (contraction and strategy) else None
+
+        def operand(labels: Tuple[str, ...]) -> Tiling:
+            return Tiling([strategy if lab == primary else mesh_of.get(lab)
+                           for lab in labels])
+
+        return operand(self.a_labels), operand(self.b_labels)
+
     def children(self) -> Tuple[Expr, ...]:
         return (self.a, self.b)
 
@@ -102,12 +121,23 @@ class ContractExpr(Expr):
                 + "->" + "".join(self.out_labels))
 
     def _lower(self, env: Dict[int, Any]) -> Any:
+        av = self.a.lower(env)
+        bv = self.b.lower(env)
+        if self._dot_plan is not None:
+            mesh = mesh_mod.get_mesh()
+            ta, tb = self.plan_operand_tilings(*self._dot_plan)
+            av = redist_mod.constrain(av, ta, mesh,
+                                      src=self.a.out_tiling())
+            bv = redist_mod.constrain(bv, tb, mesh,
+                                      src=self.b.out_tiling())
         return dtypes.contract(
             functools.partial(torch.einsum, self._subscripts()), self.dtype,
-            self.a.lower(env), self.b.lower(env))
+            av, bv)
 
     def _sig(self, ctx) -> Tuple:
-        return ("contract", self._subscripts(), self.precision, None,
+        plan = (None if self._dot_plan is None
+                else (self._dot_plan[0].axes, self._dot_plan[1]))
+        return ("contract", self._subscripts(), self.precision, plan,
                 ctx.of(self.a), ctx.of(self.b))
 
     def _default_tiling(self) -> Tiling:

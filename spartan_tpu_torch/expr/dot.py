@@ -5,19 +5,28 @@ The JAX package leaves the dense product to XLA; here it is
 import (see ``spartan_tpu_torch/__init__.py``), so a float32 product is
 IEEE float32 whatever ``precision`` says — the JAX package's
 ``precision="highest"``. ``precision`` stays in the signature for API
-parity. The explicit per-tile form (``DotShardMapExpr``) waits for the
-multi-GPU slice.
+parity.
+
+The smart-tiling pass records a GEMM's plan in ``_dot_plan``: the
+output grid and the contraction's placement (None: gathered; a mesh
+axis: split there and merged by a psum). The operand edges go through
+``parallel/redistribute.constrain`` and the plan joins the signature,
+as in the JAX package. On one card each product is still one
+``torch.matmul`` over whole operands, so the plan changes no bits; the
+k-split with a psum and ``DotShardMapExpr`` wait for the multi-process
+slice (ROADMAP A3b).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
+from ..parallel import mesh as mesh_mod
+from ..parallel import redistribute as redist_mod
 from ..utils import dtypes
 from .base import Expr, as_expr
 
@@ -33,6 +42,8 @@ class DotExpr(Expr):
         self.a = a
         self.b = b
         self.precision = precision
+        # smart-tiling plan (tiling_cost): (output Tiling, strategy)
+        self._dot_plan = None
         if a.ndim == 1 and b.ndim == 1:
             shape: Tuple[int, ...] = ()
         elif a.ndim == 1:
@@ -41,7 +52,10 @@ class DotExpr(Expr):
             shape = (a.shape[0],)
         else:
             shape = (a.shape[0], b.shape[1])
-        super().__init__(shape, np.result_type(a.dtype, b.dtype))
+        # JAX's promotion with 64-bit types off: float32 . int32 is
+        # float32 (numpy would say float64); both operands are cast to
+        # it before torch.matmul
+        super().__init__(shape, dtypes.result_type(a.dtype, b.dtype))
 
     def children(self) -> Tuple[Expr, ...]:
         return (self.a, self.b)
@@ -49,13 +63,35 @@ class DotExpr(Expr):
     def replace_children(self, new_children) -> "DotExpr":
         return DotExpr(new_children[0], new_children[1], self.precision)
 
+    @property
+    def _dot_strategy(self):
+        """Contraction placement from the plan (None = gathered)."""
+        return self._dot_plan[1] if self._dot_plan is not None else None
+
     def _lower(self, env: Dict[int, Any]) -> Any:
-        # torch.matmul takes one dtype; promote as numpy/JAX do
-        return dtypes.contract(torch.matmul, self.dtype, self.a.lower(env),
-                               self.b.lower(env))
+        av = self.a.lower(env)
+        bv = self.b.lower(env)
+        if (self.a.ndim == 2 and self.b.ndim == 2
+                and self._dot_plan is not None):
+            # the plan's operand layouts: A (m_r, k), B (k, m_c), from
+            # the children's committed tilings the DP priced
+            plan_t, k = self._dot_plan
+            m_r, m_c = plan_t.axes[:2]
+            mesh = mesh_mod.get_mesh()
+            av = redist_mod.constrain(av, Tiling((m_r, k)), mesh,
+                                      src=self.a.out_tiling())
+            bv = redist_mod.constrain(bv, Tiling((k, m_c)), mesh,
+                                      src=self.b.out_tiling())
+        # torch.matmul takes one dtype: both operands are cast to the
+        # result type first
+        return dtypes.contract(torch.matmul, self.dtype, av, bv)
 
     def _sig(self, ctx) -> Tuple:
-        return ("dot", self.precision, ctx.of(self.a), ctx.of(self.b))
+        # the plan changes the lowering, so it keys the plan cache
+        plan = (None if self._dot_plan is None
+                else (self._dot_plan[0].axes, self._dot_plan[1]))
+        return ("dot", self.precision, plan, ctx.of(self.a),
+                ctx.of(self.b))
 
     def _default_tiling(self) -> Tiling:
         if self.ndim == 2:

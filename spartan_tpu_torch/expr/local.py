@@ -40,6 +40,55 @@ def _subtract(a: Any, b: Any) -> Any:
     return torch.sub(a, b)
 
 
+def _bool_keeps(fn: Callable) -> Callable:
+    """``fn``, except that a bool tensor comes back as it is: torch has
+    no bool kernel for abs, ceil or floor, and JAX returns the bool."""
+    def op(v: Any) -> Any:
+        return v if _is_bool(v) else fn(v)
+
+    op.__name__ = fn.__name__
+    return op
+
+
+def _rint(v: Any) -> Any:
+    """``np.rint`` with JAX's dtypes: bool and integers round to float32
+    (their values), floats round half to even in their own type."""
+    if not (v.dtype.is_floating_point or v.dtype.is_complex):
+        return dtypes.call(lambda w: w.to(torch.float32), v)
+    return torch.round(v)
+
+
+def _square(v: Any) -> Any:
+    """``v * v``; a bool squares to int32, as JAX's does."""
+    if _is_bool(v):
+        return v.to(torch.int32)
+    return torch.square(v)
+
+
+def _power(a: Any, b: Any) -> Any:
+    """``a ** b``; two bool operands are int32 (JAX's promotion)."""
+    if _is_bool(a) and _is_bool(b):
+        a, b = a.to(torch.int32), b.to(torch.int32)
+    return torch.pow(a, b)
+
+
+def _mod(a: Any, b: Any) -> Any:
+    """``np.mod`` (the divisor's sign). Integer division by 0 (or False)
+    gives 0, as in JAX, where torch raises; two bools are int32."""
+    if _is_bool(a) and _is_bool(b):
+        a, b = a.to(torch.int32), b.to(torch.int32)
+    elif _is_bool(a):
+        a = _promote_bool(a, b)
+    elif _is_bool(b):
+        b = _promote_bool(b, a)
+    if a.dtype.is_floating_point or b.dtype.is_floating_point or \
+            a.dtype.is_complex or b.dtype.is_complex:
+        return torch.remainder(a, b)
+    zero = b == 0
+    out = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero.to(out.device), torch.zeros_like(out), out)
+
+
 # numpy ufunc name -> (torch fn, arity)
 UFUNCS: Dict[str, Tuple[Callable, int]] = {
     # binary arithmetic
@@ -49,8 +98,8 @@ UFUNCS: Dict[str, Tuple[Callable, int]] = {
     "divide": (torch.true_divide, 2),
     "true_divide": (torch.true_divide, 2),
     "floor_divide": (torch.floor_divide, 2),
-    "mod": (torch.remainder, 2),  # numpy sign convention (of divisor)
-    "power": (torch.pow, 2),
+    "mod": (_mod, 2),  # numpy sign convention (of divisor)
+    "power": (_power, 2),
     "maximum": (torch.maximum, 2),
     "minimum": (torch.minimum, 2),
     "arctan2": (torch.atan2, 2),
@@ -70,7 +119,7 @@ UFUNCS: Dict[str, Tuple[Callable, int]] = {
     "bitwise_xor": (torch.bitwise_xor, 2),
     # unary
     "negative": (torch.neg, 1),
-    "absolute": (torch.abs, 1),
+    "absolute": (_bool_keeps(torch.abs), 1),
     "exp": (torch.exp, 1),
     "log": (torch.log, 1),
     "log2": (torch.log2, 1),
@@ -78,7 +127,7 @@ UFUNCS: Dict[str, Tuple[Callable, int]] = {
     "log1p": (torch.log1p, 1),
     "expm1": (torch.expm1, 1),
     "sqrt": (torch.sqrt, 1),
-    "square": (torch.square, 1),
+    "square": (_square, 1),
     "sign": (torch.sign, 1),
     "sin": (torch.sin, 1),
     "cos": (torch.cos, 1),
@@ -89,9 +138,9 @@ UFUNCS: Dict[str, Tuple[Callable, int]] = {
     "sinh": (torch.sinh, 1),
     "cosh": (torch.cosh, 1),
     "tanh": (torch.tanh, 1),
-    "floor": (torch.floor, 1),
-    "ceil": (torch.ceil, 1),
-    "rint": (torch.round, 1),  # round half to even, like np.rint
+    "floor": (_bool_keeps(torch.floor), 1),
+    "ceil": (_bool_keeps(torch.ceil), 1),
+    "rint": (_rint, 1),  # round half to even, like np.rint
     "logical_not": (torch.logical_not, 1),
     "invert": (torch.bitwise_not, 1),
     "isnan": (torch.isnan, 1),

@@ -13,10 +13,18 @@ re-plan. Nothing in the loop waits for the device.
 snapshotted segments (``resilience/loop_ckpt.py``). ``health``,
 ``early_exit`` and ``stall_tol`` need the numerics loop series, which is
 not ported (ROADMAP A4): they raise ``NotImplementedError``.
+
+Forcing a loop is one ``loop`` span; with ``FLAGS.trace_loop_steps``
+each iteration adds a ``loop_step`` span (host marks between the
+iterations' launches). ``FLAGS.shard_loop_carries`` gives large
+replicated carries the default divisible tiling for the whole loop, as
+in the JAX package: the inits and every iteration's outputs pass
+through ``parallel/redistribute.constrain`` to that tiling.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -24,8 +32,32 @@ import torch
 
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
+from ..obs import trace as obs_trace
+from ..parallel import redistribute as redist_mod
 from ..utils import dtypes
+from ..utils import profiling as prof
+from ..utils.config import FLAGS
 from .base import Expr, TupleExpr, ValExpr, as_expr, evaluate
+
+
+def _carry_shard_tiling(ini: "Expr", shape: Tuple[int, ...],
+                        dtype: Any) -> Optional[Tiling]:
+    """The sharded layout a loop carry gets under
+    ``FLAGS.shard_loop_carries``, or None to keep the init's own
+    tiling: only replicated, large-enough carries with a divisible
+    axis are sharded (the default_tiling rule — largest divisible axis
+    onto the mesh row axis)."""
+    if not FLAGS.shard_loop_carries or not shape:
+        return None
+    if any(a is not None for a in ini.out_tiling().axes):
+        return None  # already tiled: the user/DP chose a layout
+    nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    if nbytes < FLAGS.shard_carry_min_bytes:
+        return None
+    t = tiling_mod.default_tiling(shape)
+    if all(a is None for a in t.axes):
+        return None  # nothing divides: replication is all there is
+    return t
 
 
 class CarryExpr(Expr):
@@ -33,10 +65,14 @@ class CarryExpr(Expr):
     Never evaluated on its own: ``LoopExpr`` seeds it each step."""
 
     def __init__(self, shape: Tuple[int, ...], dtype: Any, slot: int,
-                 tiling: Tiling):
+                 tiling: Tiling, sharded: bool = False):
         super().__init__(shape, dtype)
         self.slot = slot
         self._tiling = tiling
+        # True when FLAGS.shard_loop_carries overrode a replicated init:
+        # the loop constrains this carry to _tiling on entry and after
+        # every iteration
+        self.sharded = sharded
 
     def children(self) -> Tuple[Expr, ...]:
         return ()
@@ -106,12 +142,28 @@ class LoopExpr(Expr):
                         self.carries, tuple(new_children[1 + k:]),
                         self.index_expr)
 
+    def _constrain(self, vals: Tuple[Any, ...],
+                   srcs: Tuple[Tiling, ...]) -> Tuple[Any, ...]:
+        """Sharded carries to their loop tiling (a no-op on the value
+        unless the redistribution planner runs a schedule)."""
+        return tuple(
+            redist_mod.constrain(v, ce._tiling, src=t) if ce.sharded else v
+            for v, ce, t in zip(vals, self.carries, srcs))
+
     def _lower(self, env: Dict[int, Any]) -> Any:
         n = int(self.n_expr.lower(env))
         # cast inits to the body's (stable) carry dtypes
         carry = tuple(
             i.lower(env).to(dtypes.to_torch(b.dtype))
             for i, b in zip(self.init, self.body_roots))
+        sharded = any(c.sharded for c in self.carries)
+        if sharded:
+            carry = self._constrain(carry, tuple(i.out_tiling()
+                                                 for i in self.init))
+        trace_steps = FLAGS.trace_loop_steps
+        label = f"loop#{self._id}"
+        if trace_steps:
+            obs_trace.loop_steps_begin(label)  # anchor step 0's span
         for i in range(n):
             benv = dict(env)
             if self.index_expr is not None:
@@ -119,11 +171,25 @@ class LoopExpr(Expr):
                                                          dtype=torch.int32)
             for ce, cv in zip(self.carries, carry):
                 benv[ce._id] = cv
-            carry = tuple(b.lower(benv) for b in self.body_roots)
+            with obs_trace.named_scope("st_loop_body") \
+                    if obs_trace.profiler_active() \
+                    else contextlib.nullcontext():
+                carry = tuple(b.lower(benv) for b in self.body_roots)
+            if sharded:
+                carry = self._constrain(carry, tuple(
+                    b.out_tiling() for b in self.body_roots))
+            if trace_steps:
+                obs_trace.record_loop_step(label, i)
         return carry
 
     def _sig(self, ctx) -> Tuple:
-        head = (("loop", ctx.of(self.n_expr))
+        # the carry-sharding layout is structural: the chosen layouts
+        # are part of the signature (None when carry sharding is off)
+        shard = tuple(c._tiling.axes if c.sharded else None
+                      for c in self.carries) \
+            if any(c.sharded for c in self.carries) else None
+        head = (("loop", bool(FLAGS.trace_loop_steps), shard,
+                 ctx.of(self.n_expr))
                 + tuple(ctx.of(i) for i in self.init))
         # bind the carries for the body traversal (see CarryExpr._sig)
         frames = getattr(ctx, "_loop_binders", None)
@@ -161,13 +227,17 @@ class LoopItemExpr(Expr):
         # donate_init: the init arrays feed only this loop and are
         # released with its evaluation
         donate = tuple(donate) + getattr(self.loop, "_donate_init", ())
-        siblings = self.loop._items
-        if len(siblings) > 1:
-            results = evaluate(TupleExpr(siblings), donate=donate)
-            for item, res in zip(siblings, results):
-                item._result = res
-            return self._result
-        return evaluate(self, donate=donate)
+        n = self.loop.n_expr
+        label = f"loop#{self.loop._id}"
+        with prof.span("loop", loop=label, n=getattr(n, "pyvalue", None),
+                       carries=len(self.loop.init)):
+            siblings = self.loop._items
+            if len(siblings) > 1:
+                results = evaluate(TupleExpr(siblings), donate=donate)
+                for item, res in zip(siblings, results):
+                    item._result = res
+                return self._result
+            return evaluate(self, donate=donate)
 
     force = evaluate
 
@@ -185,6 +255,10 @@ class LoopItemExpr(Expr):
         return ("loopitem", self.idx, ctx.of(self.loop))
 
     def _default_tiling(self) -> Tiling:
+        carry = self.loop.carries[self.idx]
+        if carry.sharded:
+            # the loop keeps this carry in its sharded layout
+            return carry._tiling
         return self.loop.body_roots[self.idx].out_tiling()
 
 
@@ -237,10 +311,15 @@ def loop(n_iters: Any, body_fn: Callable, *init: Any,
     index_expr = LoopIndexExpr() if with_index else None
 
     def build(carry_specs: Tuple[Tuple[Tuple[int, ...], Any], ...]):
-        carries = tuple(
-            CarryExpr(shape, dtype, slot, ini.out_tiling())
-            for slot, ((shape, dtype), ini) in enumerate(
-                zip(carry_specs, init_exprs)))
+        carries = []
+        for slot, ((shape, dtype), ini) in enumerate(
+                zip(carry_specs, init_exprs)):
+            shard_t = _carry_shard_tiling(ini, shape, dtype)
+            carries.append(CarryExpr(
+                shape, dtype, slot,
+                shard_t if shard_t is not None else ini.out_tiling(),
+                sharded=shard_t is not None))
+        carries = tuple(carries)
         args = ((index_expr,) if with_index else ()) + carries
         out = body_fn(*args)
         if not isinstance(out, (tuple, list)):

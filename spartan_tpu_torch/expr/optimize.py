@@ -1,16 +1,18 @@
 """Optimizer passes over the expr DAG (port of
-``spartan_tpu/expr/optimize.py``): cached-expr collapsing, map fusion
-and reduce-map fusion, each behind its FLAGS toggle. The smart-tiling
-pass waits for the multi-GPU slice: on one device it changes no result
-and no time.
+``spartan_tpu/expr/optimize.py``): cached-expr collapsing, map fusion,
+reduce-map fusion and the smart-tiling pass (``tiling_pass.py``,
+registered on first use), each behind its FLAGS toggle. Smart tiling
+commits the JAX package's tilings and contraction plans on the logical
+mesh; on one card those are metadata over one tensor, so the pass
+changes no value (ROADMAP A3b gives them a device layout).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..array.distarray import DistArray
+from ..utils import profiling as prof
 from ..utils.config import FLAGS
 from .base import Expr, ValExpr
 from .local import LocalExpr, LocalInput
@@ -136,25 +138,47 @@ class ReduceFusionPass(Pass):
         return rewrite(root, visit)
 
 
-_PASSES: List[Pass] = [CollapseCachedPass(), MapFusionPass(),
-                       ReduceFusionPass()]
+_PASSES: List[Pass] = []
+
+
+def register_pass(p: Pass) -> None:
+    _PASSES.append(p)
+
+
+register_pass(CollapseCachedPass())
+register_pass(MapFusionPass())
+register_pass(ReduceFusionPass())
+
+_tiling_pass_loaded = False
+
+
+def _ensure_tiling_pass() -> None:
+    """Import ``tiling_pass`` (it registers itself) once; a flag read
+    after that, since the plan key reads the pass list per evaluate."""
+    global _tiling_pass_loaded
+    if _tiling_pass_loaded:
+        return
+    from . import tiling_pass  # noqa: F401  (self-registers on import)
+    _tiling_pass_loaded = True
 
 
 def optimize(root: Expr, report: Optional[List[Dict]] = None) -> Expr:
     """Run the enabled pass stack. Only plan-cache misses reach this.
+    Each pass runs in a ``pass:<name>`` phase (span and histogram).
 
     ``report``: optional list; one dict per enabled pass is appended
     (``name`` / ``nodes_before`` / ``nodes_after`` / ``seconds``), the
     JAX package's per-pass record."""
+    _ensure_tiling_pass()
     for p in _PASSES:
         if p.enabled():
             before = len(dag_nodes(root)) if report is not None else 0
-            t0 = time.perf_counter()
-            new_root = p.run(root)
+            with prof.phase("pass:" + p.name) as psp:
+                new_root = p.run(root)
             if report is not None:
                 report.append({"name": p.name, "nodes_before": before,
                                "nodes_after": len(dag_nodes(new_root)),
-                               "seconds": time.perf_counter() - t0})
+                               "seconds": psp.seconds})
             root = new_root
     return root
 

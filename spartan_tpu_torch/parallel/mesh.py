@@ -75,6 +75,10 @@ class Mesh:
         self.shape: Dict[str, int] = {AXIS_ROW: nx, AXIS_COL: ny}
         self.device = device
 
+    @property
+    def axis_names(self) -> Tuple[str, str]:
+        return (AXIS_ROW, AXIS_COL)
+
     def __repr__(self) -> str:
         return (f"Mesh(x={self.shape[AXIS_ROW]}, y={self.shape[AXIS_COL]}, "
                 f"device={self.device})")
@@ -136,3 +140,11 @@ def mesh_on(device: Optional[DeviceLike] = None) -> Mesh:
 def mesh_axis_sizes(mesh: Optional[Mesh] = None) -> Tuple[int, int]:
     mesh = mesh or get_mesh()
     return (mesh.shape[AXIS_ROW], mesh.shape[AXIS_COL])
+
+
+def device_count(mesh: Optional[Mesh] = None) -> int:
+    """Logical shards of the mesh (``x * y``): the JAX package's device
+    count at the same mesh shape, which the tiling cost model divides
+    by."""
+    nx, ny = mesh_axis_sizes(mesh)
+    return nx * ny

@@ -21,16 +21,25 @@ Failures (``resilience/classify.py``):
 * a deterministic error propagates at once;
 * ``fatal_mesh`` (a dead device, or CUDA's sticky errors, after which
   the process's CUDA context is unusable) and ``stale_mesh`` propagate
-  at once: the elastic recovery of the JAX package waits for the
-  resilience engine (ROADMAP A3/A5). ``resume=`` in a new process is
-  what recovers them;
+  at once: the elastic recovery of the JAX package waits for
+  ``rebuild_mesh`` and the resilience engine (ROADMAP A3b/A5).
+  ``resume=`` in a new process is what recovers them;
 * an I/O error while writing or reading a snapshot propagates (the
   previous snapshot stays whole).
 
 ``resume=path`` continues from the last snapshot under ``path`` (a fresh
 start when there is none). ``health`` / ``early_exit`` are not ported
-(ROADMAP A4), and neither are the metrics counters and profiler spans of
-the JAX package's loop, which wait for the observability layer (A4).
+(ROADMAP A4).
+
+Observability, as in the JAX package: a ``ckpt_loop`` span around the
+run, a ``loop_segment`` span per segment and a ``loop_checkpoint`` span
+per snapshot, and the ``REGISTRY`` counters
+``resilience_loop_checkpoints``, ``resilience_loop_resumes`` and
+``resilience_loop_restores``. The JAX package's
+``resilience_loop_elastic_resumes`` and
+``resilience_checkpoint_failures`` count branches the port does not
+have (elastic recovery, ROADMAP A3b/A5; a failed snapshot write
+propagates here).
 
 Layout under ``checkpoint_path`` (the JAX package's)::
 
@@ -50,12 +59,20 @@ import os
 import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..obs.metrics import METRICS_FLAG as _METRICS_FLAG
+from ..obs.metrics import REGISTRY
+from ..utils import profiling as prof
 from ..utils.config import FLAGS
 from ..utils.log import log_info, log_warn
 from . import classify as cls
 
 _LATEST = "LATEST.json"
 _KEEP_SNAPSHOTS = 2
+
+
+def _count(name: str, help_: str) -> None:
+    if _METRICS_FLAG._value:
+        REGISTRY.counter(name, help_).inc()
 
 
 def _step_dir(path: str, step: int) -> str:
@@ -70,17 +87,22 @@ def save_snapshot(path: str, step: int, carries: List[Any]) -> str:
 
     os.makedirs(path, exist_ok=True)
     final = _step_dir(path, step)
-    tmp = os.path.join(path, f".tmp_step_{step}_{os.getpid()}")
-    shutil.rmtree(tmp, ignore_errors=True)
-    ckpt.save_tree(tmp, {f"carry{i}": c for i, c in enumerate(carries)})
-    with open(os.path.join(tmp, "loop_meta.json"), "w") as f:
-        json.dump({"step": int(step), "carries": len(carries)}, f)
-    shutil.rmtree(final, ignore_errors=True)
-    os.replace(tmp, final)
-    ltmp = os.path.join(path, f".{_LATEST}.{os.getpid()}")
-    with open(ltmp, "w") as f:
-        json.dump({"step": int(step), "dir": os.path.basename(final)}, f)
-    os.replace(ltmp, os.path.join(path, _LATEST))
+    with prof.span("loop_checkpoint", step=step):
+        tmp = os.path.join(path, f".tmp_step_{step}_{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        ckpt.save_tree(tmp, {f"carry{i}": c
+                             for i, c in enumerate(carries)})
+        with open(os.path.join(tmp, "loop_meta.json"), "w") as f:
+            json.dump({"step": int(step), "carries": len(carries)}, f)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        ltmp = os.path.join(path, f".{_LATEST}.{os.getpid()}")
+        with open(ltmp, "w") as f:
+            json.dump({"step": int(step),
+                       "dir": os.path.basename(final)}, f)
+        os.replace(ltmp, os.path.join(path, _LATEST))
+    _count("resilience_loop_checkpoints",
+           "carry snapshots written by checkpointed st.loop")
     _prune(path, keep=_KEEP_SNAPSHOTS, newest=step)
     return final
 
@@ -153,6 +175,8 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
         latest = load_latest(resume) if os.path.isdir(resume) else None
         if latest is not None:
             start, carries = latest
+            _count("resilience_loop_resumes",
+                   "checkpointed loops resumed from a snapshot")
             log_info("st.loop resume: restored iteration %d from %s",
                      start, resume)
         else:
@@ -171,50 +195,59 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
     # ``path`` may still hold an earlier run's snapshots
     own = (start > 0 and path is not None
            and os.path.abspath(path) == os.path.abspath(resume))
-    while step < n:
-        seg = min(every, n - step)
-        if with_index:
-            def body(i, *cs, _off=step):
-                # the offset is a scalar leaf: the global index is right
-                # and the plan still hits
-                return body_fn(i + _off, *cs)
-        else:
-            body = body_fn
-        try:
-            items = _loop(seg, body, *[ValExpr(c) for c in carries],
-                          with_index=with_index, donate_init=donate_init)
-            tup = items if isinstance(items, tuple) else (items,)
-            results = [it.evaluate() for it in tup]
-        except Exception as e:
-            kind = cls.classify(e)
-            if kind in (cls.DETERMINISTIC, cls.FATAL_MESH, cls.STALE_MESH):
-                raise
-            rec["restores"] += 1
-            if rec["restores"] > FLAGS.loop_restore_max:
-                _add_note(e, f"{FLAGS.loop_restore_max} restores "
-                             f"exhausted at iteration {step}")
-                raise
-            latest = load_latest(path) if own else None
-            if latest is not None:
-                step, carries = latest
-                log_warn("st.loop: segment failed (%s: %s); restored "
-                         "iteration %d from checkpoint", kind,
-                         str(e)[:120], step)
+    with prof.span("ckpt_loop", n=n, every=every, start=start):
+        while step < n:
+            seg = min(every, n - step)
+            if with_index:
+                def body(i, *cs, _off=step):
+                    # the offset is a scalar leaf: the global index is
+                    # right and the plan still hits
+                    return body_fn(i + _off, *cs)
+            else:
+                body = body_fn
+            try:
+                with prof.span("loop_segment", step=step, seg=seg):
+                    items = _loop(seg, body,
+                                  *[ValExpr(c) for c in carries],
+                                  with_index=with_index,
+                                  donate_init=donate_init)
+                    tup = items if isinstance(items, tuple) else (items,)
+                    results = [it.evaluate() for it in tup]
+            except Exception as e:
+                kind = cls.classify(e)
+                if kind in (cls.DETERMINISTIC, cls.FATAL_MESH,
+                            cls.STALE_MESH):
+                    raise
+                rec["restores"] += 1
+                _count("resilience_loop_restores",
+                       "failed loop segments restored from the last good "
+                       "snapshot")
+                if rec["restores"] > FLAGS.loop_restore_max:
+                    _add_note(e, f"{FLAGS.loop_restore_max} restores "
+                                 f"exhausted at iteration {step}")
+                    raise
+                latest = load_latest(path) if own else None
+                if latest is not None:
+                    step, carries = latest
+                    log_warn("st.loop: segment failed (%s: %s); "
+                             "restored iteration %d from checkpoint",
+                             kind, str(e)[:120], step)
+                    continue
+                if any(c.is_donated for c in carries):
+                    _add_note(e, "no snapshot to restore and the "
+                                 "segment donated its carries: cannot "
+                                 "re-run")
+                    raise
+                log_warn("st.loop: segment failed (%s: %s); no snapshot "
+                         "yet, re-running from the held carries", kind,
+                         str(e)[:120])
                 continue
-            if any(c.is_donated for c in carries):
-                _add_note(e, "no snapshot to restore and the segment "
-                             "donated its carries: cannot re-run")
-                raise
-            log_warn("st.loop: segment failed (%s: %s); no snapshot yet, "
-                     "re-running from the held carries", kind,
-                     str(e)[:120])
-            continue
-        carries = results
-        rec["segments"] += 1
-        step += seg
-        if path is not None and (every < n or resume is not None):
-            save_snapshot(path, step, carries)
-            own = True
+            carries = results
+            rec["segments"] += 1
+            step += seg
+            if path is not None and (every < n or resume is not None):
+                save_snapshot(path, step, carries)
+                own = True
 
     out = []
     for c in carries:

@@ -102,6 +102,13 @@ def is_unsigned(dtype: torch.dtype) -> bool:
     return dtype in (torch.uint8,) + _NARROW_KERNELS
 
 
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """``t``, in int64 when it is uint16 or uint32 (same order, exact
+    values): for ops whose result is not of the operand's type, such as
+    the indices of a top-k."""
+    return t.to(_WIDE) if t.dtype in _NARROW_KERNELS else t
+
+
 def call(fn: Callable, *args: Any, **kw: Any) -> Any:
     """``fn(*args, **kw)``. Where a tensor operand is uint16 or uint32,
     which torch has few kernels for, every such operand is computed in
@@ -122,6 +129,47 @@ def call(fn: Callable, *args: Any, **kw: Any) -> Any:
     if isinstance(out, torch.Tensor) and out.dtype == _WIDE:
         return out.to(want)
     return out
+
+
+def _promote2(a: np.dtype, b: np.dtype) -> np.dtype:
+    """JAX's type-promotion lattice for two strong dtypes (64-bit types
+    included; :func:`result_type` canonicalizes the join)."""
+    if a == b:
+        return a
+    ka, kb = a.kind, b.kind
+    if ka == "b":
+        return b
+    if kb == "b":
+        return a
+    fa = ka in "fc" or _is_bf16(a)
+    fb = kb in "fc" or _is_bf16(b)
+    if fa and fb:
+        if {a.name, b.name} == {"float16", _BF16}:
+            return np.dtype(np.float32)
+        return a if a.itemsize >= b.itemsize else b
+    if fa or fb:
+        # an integer against a float: the float's type
+        return a if fa else b
+    if ka == kb:
+        return a if a.itemsize >= b.itemsize else b
+    u, s = (a, b) if ka == "u" else (b, a)
+    if s.itemsize > u.itemsize:
+        return s
+    if u.itemsize >= 8:
+        # uint64 with a signed integer has no integer join in JAX
+        return np.dtype(np.float64)
+    return np.dtype("int%d" % (16 * u.itemsize))
+
+
+def result_type(*dts: Any) -> np.dtype:
+    """The dtype JAX (64-bit types off) gives an operation over operands
+    of ``dts`` -- e.g. float32 for float32 and int32, float16 for
+    float16 and int32, int32 for int8 and uint32 -- where numpy would
+    widen to 64 bits. The port's stored dtypes never need more."""
+    out = to_numpy(dts[0])
+    for d in dts[1:]:
+        out = _promote2(out, to_numpy(d))
+    return canonical(out)
 
 
 def contract(fn: Callable, dtype: Any, *operands: torch.Tensor,

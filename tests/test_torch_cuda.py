@@ -970,3 +970,76 @@ def test_masked_ops_on_the_card_match_cpu(on_card):
                                           np.ma.getmaskarray(c))
             g, c = np.ma.getdata(g), np.ma.getdata(c)
         np.testing.assert_array_equal(g, c)
+
+
+# -- the planner tier on the card -------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(4, 2), (8, 1), (2, 4)])
+def test_explicit_redistribution_is_bit_exact_on_the_card(card, mesh):
+    from spartan_tpu_torch.array import tiling as tl
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.parallel import redistribute as rd
+
+    m = mesh_mod.build_mesh(mesh, card)
+    val = torch.randn((512, 256), device=card)
+    cands = [tl.row(2), tl.col(2), tl.block(2), tl.replicated(2),
+             tl.row_t(2), tl.col_t(2), tl.block_t(2)]
+    ran = 0
+    for s in cands:
+        for d in cands:
+            for sched in rd.schedules(s, d, m):
+                out = rd.apply_schedule(val, sched, s, d, m)
+                assert out.device == val.device and torch.equal(out, val)
+                ran += 1
+    assert ran > 0
+
+
+@pytest.mark.cuda
+def test_planned_chain_is_bit_equal_to_the_unplanned_on_the_card(card):
+    import spartan_tpu_torch as st
+
+    prev = st.get_default_device()
+    st.set_default_device(card)
+    try:
+        a = np.random.RandomState(3).rand(256, 256).astype(np.float32)
+
+        def chain():
+            x = st.from_numpy(a)
+            return (st.dot(st.transpose(x) + 1.0, x) * 0.5).glom()
+
+        with st.use_mesh(st.build_mesh((4, 2))):
+            st.FLAGS.opt_auto_tiling = False
+            off = chain()
+            st.FLAGS.opt_auto_tiling = True
+            on = chain()
+            st.FLAGS.redistribution_planner = True
+            try:
+                planned = chain()
+            finally:
+                st.FLAGS.redistribution_planner = False
+    finally:
+        st.set_default_device(prev)
+    np.testing.assert_array_equal(on, off)
+    np.testing.assert_array_equal(planned, off)
+
+
+@pytest.mark.cuda
+def test_map_shards_and_retile_on_the_card(card):
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    t = torch.arange(64 * 32, dtype=torch.float32, device=card).reshape(
+        64, 32)
+    with st.use_mesh(st.build_mesh((4, 2), card)):
+        x = from_tensor(t, tiling=st.Tiling(("x", "y")))
+        y = x.map_shards(lambda b: b - b.min())
+        r = x.retile(st.Tiling((None, "x")))
+    want = t.clone()
+    for i in range(4):
+        for j in range(2):
+            blk = want[i * 16:(i + 1) * 16, j * 16:(j + 1) * 16]
+            blk -= blk.min().clone()
+    assert torch.equal(y.tensor, want)
+    assert r.tensor.data_ptr() == t.data_ptr()

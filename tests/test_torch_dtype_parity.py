@@ -234,3 +234,203 @@ def test_integer_pooling(case):
         _same(got, want)
     else:
         _close(got, want)
+
+
+# -- C24: bool operands of unary ops, power and square --------------------------
+
+
+_BOOL_UNARY = ["abs", "absolute", "ceil", "floor", "rint", "square"]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("fn", _BOOL_UNARY)
+def test_bool_unary_ops(fn, mesh):
+    got, want = _both(lambda st, x: getattr(st, fn)(x),
+                      _inputs(np.bool_, seed=14), mesh=mesh)
+    _same(got, want)
+
+
+def test_bool_power_is_int32():
+    got, want = _both(lambda st, x, y: st.power(x, y),
+                      _inputs(np.bool_, seed=15), _inputs(np.bool_, seed=16))
+    assert want.dtype == np.int32
+    _same(got, want)
+
+
+def test_masked_abs_of_bool():
+    import numpy.ma as ma
+    from spartan_tpu.array import masked as masked_j
+    from spartan_tpu_torch.array import masked as masked_t
+
+    data = _inputs(np.bool_, seed=17)
+    mask = _inputs(np.bool_, seed=18)
+    with mesh_j.use_mesh(mesh_j.build_mesh(jax.devices(), shape=(4, 2))):
+        mj = abs(masked_j.MaskedDistArray.from_numpy(
+            ma.masked_array(data, mask)))
+        want_d, want_m = np.asarray(mj.data.glom()), np.asarray(
+            mj.mask.glom())
+    with mesh_t.use_mesh(mesh_t.build_mesh((4, 2))):
+        mt = abs(masked_t.MaskedDistArray.from_numpy(
+            ma.masked_array(data, mask)))
+        got_d, got_m = mt.data.glom(), mt.mask.glom()
+    _same(got_d, want_d)
+    _same(got_m, want_m)
+
+
+# -- C25: rint of integers is float32 ----------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.uint8,
+                                   np.uint16, np.uint32])
+def test_rint_of_integers_is_float32(dtype):
+    got, want = _both(lambda st, x: st.rint(x), _inputs(dtype, seed=19))
+    assert want.dtype == np.float32
+    _same(got, want)
+
+
+# -- C26: uint16/uint32 where torch has no kernel ------------------------------------
+
+
+_NARROW_SELECT = {
+    "sort0": lambda st, x: st.sort(x, axis=0),
+    "sort1": lambda st, x: st.sort(x, axis=1),
+    "tril": lambda st, x: st.tril(x),
+    "triu1": lambda st, x: st.triu(x, 1),
+    "percentile_axis1": lambda st, x: st.percentile(x, 30, axis=1),
+    "quantile_axis0": lambda st, x: st.quantile(x, 0.75, axis=0),
+    "topk": lambda st, x: st.topk(st.ravel(x), 5)[0],
+    "topk_idx": lambda st, x: st.topk(st.ravel(x), 5, largest=False)[1],
+}
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("case", sorted(_NARROW_SELECT))
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
+def test_unsigned_sort_select_and_triangles(dtype, case, mesh):
+    # distinct values: top-k ties would be legal in either order
+    rng = np.random.RandomState(20)
+    step = (60000 if dtype == np.uint16 else 2 ** 32 - 1) // 64
+    vals = np.arange(64, dtype=np.int64) * step + rng.randint(0, step, 64)
+    a = rng.permutation(vals).astype(dtype).reshape(8, 8)
+    got, want = _both(_NARROW_SELECT[case], a, mesh=mesh)
+    if case.startswith(("percentile", "quantile")):
+        _close(got, want)
+    else:
+        _same(got, want)
+
+
+_MIXED_CONTRACT = [(np.uint8, np.uint16), (np.int32, np.uint32),
+                   (np.int8, np.uint16), (np.uint16, np.float32),
+                   (np.uint32, np.int16)]
+
+
+@pytest.mark.parametrize("pair", _MIXED_CONTRACT,
+                         ids=lambda p: f"{np.dtype(p[0])}-{np.dtype(p[1])}")
+@pytest.mark.parametrize("fn", ["inner", "einsum"])
+def test_mixed_unsigned_inner_and_einsum(fn, pair):
+    rng = np.random.RandomState(21)
+    a = rng.randint(0, 5, size=(8, 4)).astype(pair[0])
+    b = rng.randint(0, 5, size=(6, 4)).astype(pair[1])
+    if fn == "inner":
+        build = lambda st, x, y: st.inner(x, y)  # noqa: E731
+    else:
+        build = lambda st, x, y: st.einsum("ij,kj->ik", x, y)  # noqa: E731
+    got, want = _both(build, a, b)
+    _same(got, want)
+
+
+# -- C27: result dtypes of trace and of float16 order statistics ----------------------
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])
+def test_unsigned_trace_is_uint32(dtype):
+    got, want = _both(lambda st, x: st.trace(x),
+                      _inputs(dtype, shape=(8, 8), seed=22))
+    assert want.dtype == np.uint32
+    _same(got, want)
+
+
+_F16_STATS = {
+    "median": lambda st, x, ax: st.median(x, axis=ax),
+    "quantile": lambda st, x, ax: st.quantile(x, 0.3, axis=ax),
+    "var": lambda st, x, ax: st.var(x, axis=ax),
+    "std": lambda st, x, ax: st.std(x, axis=ax),
+}
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("axis", [None, 0, 1])
+@pytest.mark.parametrize("fn", sorted(_F16_STATS))
+def test_float16_order_stats_and_moments(fn, axis, mesh):
+    a = np.random.RandomState(23).rand(8, 4).astype(np.float16)
+    got, want = _both(lambda st, x: _F16_STATS[fn](st, x, axis), a,
+                      mesh=mesh)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_allclose(got.astype(np.float32),
+                               want.astype(np.float32), rtol=2e-3)
+
+
+# -- C28: mixed-dtype dot/matmul promote as JAX does ----------------------------------
+
+
+_DOT_PAIRS = [(np.float32, np.int32), (np.float32, np.uint32),
+              (np.float16, np.int16), (np.float16, np.uint16),
+              (np.float16, np.int32), (np.float16, np.uint32),
+              (np.int8, np.uint32), (np.int16, np.uint32),
+              (np.int32, np.uint32)]
+
+
+@pytest.mark.parametrize("pair", _DOT_PAIRS,
+                         ids=lambda p: f"{np.dtype(p[0])}-{np.dtype(p[1])}")
+@pytest.mark.parametrize("fn", ["dot", "matmul"])
+def test_mixed_dot_matmul_promote_like_jax(fn, pair):
+    rng = np.random.RandomState(24)
+    a = (rng.randint(-4, 5, size=(8, 4)) if np.dtype(pair[0]).kind != "f"
+         else rng.rand(8, 4) * 2 - 1).astype(pair[0])
+    if np.dtype(pair[0]).kind == "u":
+        a = np.abs(a)
+    b = rng.randint(0, 5, size=(4, 6)).astype(pair[1])
+    got, want = _both(lambda st, x, y: getattr(st, fn)(x, y), a, b)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    if want.dtype.kind == "f":
+        tol = 2e-3 if want.dtype == np.float16 else 1e-6
+        np.testing.assert_allclose(got.astype(np.float32),
+                                   want.astype(np.float32), rtol=tol,
+                                   atol=tol)
+    else:
+        _same(got, want)
+
+
+# -- C29: integer mod by zero --------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("dtype", [np.int8, np.int32, np.uint8, np.uint16,
+                                   np.uint32])
+def test_integer_mod_by_zero_is_zero(dtype, mesh):
+    rng = np.random.RandomState(25)
+    x = rng.randint(0, 100, size=(8, 4)).astype(dtype)
+    y = rng.randint(0, 3, size=(8, 4)).astype(dtype)  # a third are 0
+    if np.dtype(dtype).kind == "i":
+        x = x - 50
+    got, want = _both(lambda st, a, b: st.mod(a, b), x, y, mesh=mesh)
+    _same(got, want)
+
+
+_MOD_BOOL = {
+    "bool-bool": (lambda st, a, b: st.mod(a, b), np.bool_),
+    "int-bool": (lambda st, a, b: a % b, np.int32),
+    "bool-int": (lambda st, a, b: b % a, np.int32),
+    "int-scalar0": (lambda st, a, b: b % 0, np.int32),
+    "int-False": (lambda st, a, b: b % False, np.int32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MOD_BOOL))
+def test_mod_by_false_and_of_bools(case):
+    build, other = _MOD_BOOL[case]
+    b = _inputs(np.bool_, seed=26)
+    o = (_inputs(np.bool_, seed=27) if other == np.bool_ else
+         np.random.RandomState(27).randint(-9, 9, size=(8, 4)).astype(other))
+    got, want = _both(build, b, o)
+    _same(got, want)

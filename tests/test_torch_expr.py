@@ -419,7 +419,10 @@ def test_port_imports_no_jax():
     for mod in ("array/masked.py", "utils/checkpoint.py", "utils/log.py",
                 "expr/fio.py", "native/__init__.py",
                 "resilience/classify.py", "resilience/loop_ckpt.py",
-                "examples/streaming.py"):
+                "examples/streaming.py", "obs/__init__.py",
+                "obs/metrics.py", "obs/trace.py", "utils/profiling.py",
+                "parallel/redistribute.py", "expr/tiling_cost.py",
+                "expr/tiling_pass.py"):
         assert os.path.join(REPO, "spartan_tpu_torch", mod) in files
     bad = []
     for path in files:

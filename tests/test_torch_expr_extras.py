@@ -18,6 +18,7 @@ import spartan_tpu_torch as st_t
 from spartan_tpu.parallel import mesh as mesh_j
 from spartan_tpu.utils.config import FLAGS as FLAGS_J
 from spartan_tpu_torch.parallel import mesh as mesh_t
+from spartan_tpu_torch.utils.config import FLAGS as FLAGS_T
 
 torch.set_num_threads(1)
 
@@ -138,8 +139,8 @@ def test_ndarray_accepts_reducer():
 
 
 def test_optimize_report_matches_jax():
-    """Pass names and node counts of the passes both packages run; the
-    JAX package's auto-tiling pass waits for the port's tiling DP."""
+    """Pass names and node counts of the four passes both packages run,
+    the smart-tiling pass (``auto_tiling``) on in both."""
     x, y = _rand(8, 6, seed=5), _rand(8, 6, seed=6)
 
     def build(st):
@@ -151,13 +152,9 @@ def test_optimize_report_matches_jax():
         return [(r["name"], r["nodes_before"], r["nodes_after"])
                 for r in report], [r["seconds"] for r in report]
 
-    prev = FLAGS_J.opt_auto_tiling
-    FLAGS_J.opt_auto_tiling = False
-    try:
-        (rep_j, _), (rep_t, secs) = _on_meshes((4, 2), build, build)
-    finally:
-        FLAGS_J.opt_auto_tiling = prev
+    assert FLAGS_J.opt_auto_tiling and FLAGS_T.opt_auto_tiling
+    (rep_j, _), (rep_t, secs) = _on_meshes((4, 2), build, build)
     assert rep_t == rep_j
     assert [r[0] for r in rep_t] == ["collapse_cached", "map_fusion",
-                                     "reduce_fusion"]
+                                     "reduce_fusion", "auto_tiling"]
     assert all(s >= 0.0 for s in secs)
