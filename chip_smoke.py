@@ -86,10 +86,32 @@ Phases, in order; any failure exits nonzero before the result line:
     ``optimize``, ``build``, ``dispatch``) of one ``st.histogram`` call
     and one VGG-block forward from the span ring, exported as a Chrome
     trace and parsed back;
-19. the ``kernels`` line (times, launches, bounds) and the result line.
+19. ``[spmd]``: the explicit SPMD layer. On the thread runner
+    (``parallel/shard_map.py``, one thread per position of a logical
+    mesh): ``dot_shardmap`` of bench.py's 4096^2 pair on (4, 2) against
+    float64, with GFLOPS beside ``st.dot``'s; ``shard_map2`` with a
+    per-row-block nearest-center argmin over the config-3 points on
+    (8, 1), equal to the whole-array kernel; every collective on (8, 1)
+    and (4, 2), bit-equal to its definition (sums to a left fold in
+    position order). Ring, Ulysses and blockwise attention at L = 16,384,
+    H = 16, D = 128 f32 on (8, 1), causal and not, against blockwise in
+    float64, with ms and peak memory. The GPipe pipeline (8 stages of
+    width 4096, 32 microbatches of 512 rows): ``pipeline_apply`` and
+    ``pipeline_grad`` against the sequential stack in float64. The group
+    runner: two processes sharing the card over gloo (``--spmd-child``)
+    run config-3 k-means (20 launches per rank, centers bit-equal across
+    ranks and to the thread runner's (2, 1) run), ``segment_sum_sharded``
+    at the naive-Bayes shape, ``bincount_sharded`` on 2^26 ids and the
+    VGG-16 block with H split over the ranks, each kernel launched once
+    per rank per call, with the host-staged collective counts; then a
+    one-rank nccl group in this process: every collective, nothing
+    staged, config-3 k-means bit-equal to the one-pass run;
+20. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
+    with their launches per rank on the group path) and the result line.
 
 ``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
-``[ckpt_loop]``; it is not meant to be run by hand.
+``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK`` one
+rank of ``[spmd]``'s group; they are not meant to be run by hand.
 
 Imports torch, numpy and the port only.
 """
@@ -140,6 +162,13 @@ EX_LSH_N, EX_LSH_D, EX_LSH_BITS, EX_LSH_PAIRS_N = 1_000_000, 128, 64, 4096
 # [planner]: the logical meshes the tiling DP plans for, timed reps, and
 # the steady-state calls the host split of a plan walk averages over
 PLAN_MESHES, PLAN_REPS, SPLIT_CALLS = ((4, 2), (8, 1)), 3, 5
+# [spmd]: the thread runner's meshes and collective blocks, attention,
+# the pipeline, and the group of processes sharing the card
+SPMD_DOT_MESH, SPMD_KM_MESH = (4, 2), (8, 1)
+SPMD_COLL_MESHES, SPMD_COLL_BLOCK = ((8, 1), (4, 2)), (1024, 1024)
+ATT_L, ATT_H, ATT_D, ATT_MESH, ATT_BLOCK = 16384, 16, 128, (8, 1), 512
+PIPE_STAGES, PIPE_WIDTH, PIPE_MICRO, PIPE_ROWS = 8, 4096, 32, 512
+GROUP_RANKS, GROUP_TIMEOUT_S = 2, 600
 
 
 def _say(*args) -> None:
@@ -3146,9 +3175,522 @@ def phase_planner(st, kk, km, card: str, dev, points, c0_np) -> None:
          f"events, parsed back; span names {sorted(names)}")
 
 
+# -- phase 19, [spmd] ------------------------------------------------------
+
+# the collectives of parallel/collectives.py as shard_map bodies, each
+# against its definition on the blocks of one line of positions
+_COLL_CASES = ("all_reduce_add", "all_reduce_mean", "all_reduce_max",
+               "all_reduce_min", "all_gather_0", "all_gather_1",
+               "reduce_scatter_0", "reduce_scatter_1", "all_to_all",
+               "ring_permute_fwd", "ring_permute_back")
+
+
+def _coll_body(coll, name: str, axis: str):
+    def body(v):
+        if name.startswith("all_reduce"):
+            out = coll.all_reduce(v, axis, name.split("_")[-1])
+        elif name.startswith("all_gather"):
+            out = coll.all_gather(v, axis, gather_axis=int(name[-1]))
+        elif name.startswith("reduce_scatter"):
+            out = coll.reduce_scatter(v, axis, scatter_axis=int(name[-1]))
+        elif name == "all_to_all":
+            out = coll.all_to_all(v, axis, split_axis=1, concat_axis=0)
+        else:
+            out = coll.ring_permute(v, axis, 1 if name.endswith("fwd")
+                                    else -1)
+        return out[None]
+    return body
+
+
+def _coll_expected(name: str, line, me: int) -> torch.Tensor:
+    """The definition: ``line`` is the blocks of the positions along the
+    axis in position order, ``me`` this position's index. Sums fold left
+    in position order."""
+    n = len(line)
+
+    def fold(op):
+        acc = line[0]
+        for v in line[1:]:
+            acc = op(acc, v)
+        return acc
+
+    if name == "all_reduce_add":
+        return fold(torch.add)
+    if name == "all_reduce_mean":
+        return fold(torch.add) / n if n > 1 else line[0]
+    if name == "all_reduce_max":
+        return fold(torch.maximum)
+    if name == "all_reduce_min":
+        return fold(torch.minimum)
+    if name.startswith("all_gather"):
+        return torch.cat(line, int(name[-1]))
+    if name.startswith("reduce_scatter"):
+        return fold(torch.add).chunk(n, int(name[-1]))[me]
+    if name == "all_to_all":
+        return torch.cat([v.chunk(n, 1)[me] for v in line], 0)
+    shift = 1 if name.endswith("fwd") else -1
+    return line[(me - shift) % n]
+
+
+def _check_collectives(st, coll, smap, mesh, dev, label: str) -> None:
+    """Every collective over both axes of ``mesh``, bit-equal to its
+    definition at every position."""
+    nx, ny = mesh.shape["x"], mesh.shape["y"]
+    rows, cols = SPMD_COLL_BLOCK
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(63)
+    x = torch.randn((nx * rows, ny * cols), generator=gen, device=dev)
+    blocks = [[x[i * rows:(i + 1) * rows, j * cols:(j + 1) * cols]
+               for j in range(ny)] for i in range(nx)]
+    t_in = st.Tiling(("x", "y"))
+    t_out = st.Tiling((("x", "y"), None, None))
+    checked = 0
+    t0 = time.perf_counter()
+    for axis in ("x", "y"):
+        for name in _COLL_CASES:
+            got = smap.shard_map(_coll_body(coll, name, axis), mesh, (t_in,),
+                                 t_out)(x)
+            for f in range(nx * ny):
+                i, j = divmod(f, ny)
+                if axis == "x":
+                    line, me = [blocks[a][j] for a in range(nx)], i
+                else:
+                    line, me = [blocks[i][b] for b in range(ny)], j
+                want = _coll_expected(name, line, me)
+                if not torch.equal(got[f], want):
+                    _fail(f"[spmd] {label} {name} over {axis!r} at position "
+                          f"({i}, {j}) differs from its definition")
+                checked += 1
+    torch.cuda.synchronize()
+    _say(f"[spmd] {label}: {len(_COLL_CASES)} collectives x 2 axes on "
+         f"{nx}x{ny} ({rows}x{cols} f32 blocks), {checked} position "
+         f"blocks bit-equal to their definitions (sums to a left fold in "
+         f"position order) in {time.perf_counter() - t0:.2f} s")
+
+
+def _spmd_dot(st, card: str, dev) -> None:
+    rng = np.random.RandomState(0)
+    a = rng.rand(DOT_N, DOT_N).astype(np.float32)
+    b = rng.rand(DOT_N, DOT_N).astype(np.float32)
+    ea, eb = st.from_numpy(a), st.from_numpy(b)
+    ref = (torch.from_numpy(a).to(dev).double()
+           @ torch.from_numpy(b).to(dev).double())
+    with st.use_mesh(st.build_mesh(SPMD_DOT_MESH)):
+        got = st.dot_shardmap(ea, eb).evaluate().tensor
+        rel = float((got.double() - ref).abs().max() / ref.abs().max())
+        smap_ms = _wall_ms(lambda: st.dot_shardmap(ea, eb).evaluate())
+        dot_ms = _wall_ms(lambda: st.dot(ea, eb).evaluate())
+    # the same blocks, products, folds and assembly from one thread: the
+    # work without the thread runner (the profiler does not see every
+    # worker thread's launches, so no device split here)
+    at, bt = ea.evaluate().tensor, eb.evaluate().tensor
+    nx, ny = SPMD_DOT_MESH
+    r, k = DOT_N // nx, DOT_N // ny
+
+    def serial():
+        rows = []
+        for i in range(nx):
+            acc = at[i * r:(i + 1) * r, :k] @ bt[:k]
+            for j in range(1, ny):
+                acc = acc + at[i * r:(i + 1) * r, j * k:(j + 1) * k] @ \
+                    bt[j * k:(j + 1) * k]
+            rows.append(acc)
+        return torch.cat(rows)
+
+    serial_ms = _wall_ms(serial)
+    flops = 2.0 * DOT_N ** 3
+    _say(f"[spmd] dot_shardmap {DOT_N}^2 f32 on a logical {SPMD_DOT_MESH} "
+         f"mesh (thread runner: A (x, y), B (y, None), all_reduce over y): "
+         f"max |err| / max |ref| {rel:.3g} against float64 (limit 1e-4); "
+         f"{flops / smap_ms / 1e6:.1f} GFLOPS ({smap_ms:.3f} ms) against "
+         f"st.dot's {flops / dot_ms / 1e6:.1f} GFLOPS ({dot_ms:.3f} ms) on "
+         f"the same pair (host clock to a synchronise, best of 3) on {card};"
+         f" the same block products, folds and assembly from one thread "
+         f"{serial_ms:.3f} ms: the thread runner adds "
+         f"{smap_ms - serial_ms:.3f} ms")
+    if not rel <= 1e-4:
+        _fail("[spmd] dot_shardmap disagrees with float64")
+
+
+def _nearest(p, c):
+    score = (c * c).sum(1)[None, :] - 2.0 * (p @ c.T)
+    return score.argmin(1).to(torch.int32)
+
+
+def _spmd_shard_map2(st, card: str, dev, points, c0_np) -> None:
+    c0 = st.from_numpy(c0_np)
+    with st.use_mesh(st.build_mesh(SPMD_KM_MESH)):
+        expr = st.shard_map2([points, c0], _nearest,
+                             [st.Tiling(("x", None)),
+                              st.Tiling((None, None))],
+                             st.Tiling(("x",)), (KM_N,), np.int32)
+        got = expr.evaluate().tensor
+        ms = _wall_ms(lambda: st.shard_map2(
+            [points, c0], _nearest,
+            [st.Tiling(("x", None)), st.Tiling((None, None))],
+            st.Tiling(("x",)), (KM_N,), np.int32).evaluate())
+    pts, cen = points.evaluate().tensor, c0.evaluate().tensor
+    want = _nearest(pts, cen)
+    whole_ms = _wall_ms(lambda: _nearest(pts, cen))
+    blocks = pts.chunk(SPMD_KM_MESH[0])
+    serial_ms = _wall_ms(lambda: torch.cat([_nearest(b, cen)
+                                            for b in blocks]))
+    if not torch.equal(got, want):
+        _fail(f"[spmd] shard_map2 nearest centers differ from the whole-array "
+              f"kernel at {int((got != want).sum())} rows")
+    _say(f"[spmd] shard_map2 per-row-block nearest-center argmin over the "
+         f"{KM_N}x{KM_D} config-3 points on {SPMD_KM_MESH}: equal to the "
+         f"whole-array kernel; {ms:.3f} ms against {whole_ms:.3f} ms whole "
+         f"and {serial_ms:.3f} ms for the same blocks from one thread "
+         f"(host clock, best of 3) on {card}")
+
+
+def phase_spmd_threads(st, card: str, dev, points, c0_np) -> None:
+    """[spmd], thread runner: dot_shardmap, shard_map2 and every
+    collective on logical meshes of the card."""
+    from spartan_tpu_torch.parallel import collectives as coll
+    from spartan_tpu_torch.parallel import shard_map as smap
+
+    _spmd_dot(st, card, dev)
+    _spmd_shard_map2(st, card, dev, points, c0_np)
+    for shape in SPMD_COLL_MESHES:
+        _check_collectives(st, coll, smap, st.build_mesh(shape), dev,
+                           f"thread runner {shape}")
+
+
+def phase_spmd_attention(st, card: str, dev) -> None:
+    """[spmd] attention at L = 16,384, H = 16, D = 128 f32 on (8, 1):
+    ring, Ulysses and blockwise against blockwise in float64."""
+    from spartan_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(60)
+    q, k, v = (torch.randn((ATT_L, ATT_H, ATT_D), generator=gen, device=dev)
+               for _ in range(3))
+    flops = 4.0 * ATT_L * ATT_L * ATT_H * ATT_D
+    with st.use_mesh(st.build_mesh(ATT_MESH)):
+        for causal in (False, True):
+            ref = att.blockwise_attention(q.double(), k.double(), v.double(),
+                                          ATT_BLOCK, causal)
+            for name, fn in (
+                    ("ring", lambda c=causal: att.ring_attention(q, k, v, c)),
+                    ("ulysses",
+                     lambda c=causal: att.ulysses_attention(q, k, v, c)),
+                    ("blockwise", lambda c=causal: att.blockwise_attention(
+                        q, k, v, ATT_BLOCK, c))):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                live = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = fn()
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+                err = float((out.double() - ref).abs().max())
+                del out
+                ms = _wall_ms(fn, reps=2, warm=False)
+                _say(f"[spmd] attention {name} causal={causal} L={ATT_L} "
+                     f"H={ATT_H} D={ATT_D} f32 on {ATT_MESH}: max |err| "
+                     f"{err:.3g} against float64 blockwise (limit 1e-4); "
+                     f"{ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
+                     f"dense product count), peak {peak:.2f} GiB above the "
+                     f"live set (host clock, best of 2) on {card}")
+                if not err <= 1e-4:
+                    _fail(f"[spmd] {name} attention (causal={causal}) "
+                          "disagrees with float64")
+            del ref
+
+
+def phase_spmd_pipeline(st, card: str, dev) -> None:
+    """[spmd] the GPipe pipeline: 8 tanh(x W + b) stages of width 4096 on
+    (8, 1), 32 microbatches of 512 rows, against the sequential stack in
+    float64."""
+    from spartan_tpu_torch.parallel import pipeline as pipe
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    s, w, m, r = PIPE_STAGES, PIPE_WIDTH, PIPE_MICRO, PIPE_ROWS
+    ws = torch.randn((s, w, w), generator=gen, device=dev) / w ** 0.5
+    bs = 0.1 * torch.randn((s, w), generator=gen, device=dev)
+    x = torch.randn((m, r, w), generator=gen, device=dev)
+    tgt = 0.1 * torch.randn((m, r, w), generator=gen, device=dev)
+
+    def stage(p, a):
+        return torch.tanh(a @ p[0] + p[1])
+
+    def sq(a, b):
+        return torch.mean((a - b) ** 2)
+
+    w64 = ws.double().requires_grad_(True)
+    b64 = bs.double().requires_grad_(True)
+    h = x.double().reshape(m * r, w)
+    for i in range(s):
+        h = torch.tanh(h @ w64[i] + b64[i])
+    loss64 = torch.mean((h - tgt.double().reshape(m * r, w)) ** 2)
+    loss64.backward()
+    ref = h.detach().reshape(m, r, w)
+    del h
+    with st.use_mesh(st.build_mesh((s, 1))):
+        out = pipe.pipeline_apply(stage, (ws, bs), x)
+        err = float((out.double() - ref).abs().max())
+        del out
+        loss, (gw, gb) = pipe.pipeline_grad(stage, sq, (ws, bs), x, tgt)
+        apply_ms = _wall_ms(lambda: pipe.pipeline_apply(stage, (ws, bs), x),
+                            reps=2, warm=False)
+        grad_ms = _wall_ms(lambda: pipe.pipeline_grad(stage, sq, (ws, bs),
+                                                      x, tgt),
+                           reps=2, warm=False)
+    gerr = max(float((gw.double() - w64.grad).abs().max()
+                     / w64.grad.abs().max()),
+               float((gb.double() - b64.grad).abs().max()
+                     / b64.grad.abs().max()))
+    lerr = abs(loss.item() - loss64.item()) / abs(loss64.item())
+    _say(f"[spmd] pipeline {s} stages x width {w}, {m} microbatches of {r} "
+         f"rows on ({s}, 1), {m + s - 1} ticks: pipeline_apply max |err| "
+         f"{err:.3g} (limit 1e-4), pipeline_grad loss rel err {lerr:.3g}, "
+         f"grads max |err| / max |grad| {gerr:.3g} (limit 1e-4) against "
+         f"the sequential stack in float64; apply {apply_ms:.1f} ms, grad "
+         f"{grad_ms:.1f} ms (host clock, best of 2) on {card}")
+    if not (err <= 1e-4 and lerr <= 1e-4 and gerr <= 1e-4):
+        _fail("[spmd] the pipeline disagrees with the float64 stack")
+
+
+def _child_device() -> torch.device:
+    """The card both ranks of the group share."""
+    return torch.device("cuda", 0)
+
+
+def spmd_child(workdir: str, rank: int) -> None:
+    """One rank of [spmd]'s two-process gloo group on the one card: the
+    group forms of the k-means, segment, histogram and stencil kernels,
+    each through the port's entry points; results to ``workdir``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.kernels import kmeans as kk
+    from spartan_tpu_torch.kernels import segment as ks
+    from spartan_tpu_torch.kernels import stencil as kst
+    from spartan_tpu_torch.obs.metrics import collective_totals
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = _child_device()
+    st.set_default_device(dev)
+    if not mesh_mod.initialize_distributed(
+            "file://" + os.path.join(workdir, "store"),
+            num_processes=GROUP_RANKS, process_id=rank, backend="gloo",
+            device=dev, timeout_s=GROUP_TIMEOUT_S):
+        _fail("[spmd] child: no process group")
+    res = {"rank": rank, "status": mesh_mod.status()["mesh"]}
+    points = from_tensor(torch.load(os.path.join(workdir, "points.pt"))
+                         .to(dev))
+    c0 = np.load(os.path.join(workdir, "c0.npy"))
+    kk.LAUNCHES = 0
+    centers, _ = km.kmeans(points, KM_K, num_iter=KM_ITERS, centers=c0)
+    res["km_launches"] = kk.LAUNCHES
+    np.save(os.path.join(workdir, f"centers{rank}.npy"), centers)
+    res["km_ms_per_iter"] = _wall_ms(lambda: st.loop(
+        KM_ITERS, lambda c: km.kmeans_step(points, c, KM_K),
+        st.from_numpy(c0)).evaluate(), reps=2) / KM_ITERS
+
+    x, yt, _ = _nb_data(dev)
+    ks.LAUNCHES["segment_sum_block"] = 0
+    tables = ks.segment_sum_sharded(x, yt, NB_CLASSES)
+    res["seg_launches"] = ks.LAUNCHES["segment_sum_block"]
+    np.save(os.path.join(workdir, f"seg{rank}.npy"), tables.cpu().numpy())
+    res["seg_ms"] = _wall_ms(lambda: ks.segment_sum_sharded(x, yt,
+                                                            NB_CLASSES))
+    del x, yt, tables
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(62)
+    ids = torch.randint(0, HIST_BINS, (SORT_N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    kh.LAUNCHES["bincount_block"] = 0
+    counts = kh.bincount_sharded(ids, HIST_BINS)
+    res["hist_launches"] = kh.LAUNCHES["bincount_block"]
+    res["hist_equal"] = bool(torch.equal(
+        counts.long(), torch.bincount(ids.long(), minlength=HIST_BINS)))
+    res["hist_ms"] = _wall_ms(lambda: kh.bincount_sharded(ids, HIST_BINS))
+    del ids
+
+    xv, params = _vgg_params(dev)
+    X = from_tensor(xv, tiling=st.Tiling((None, "x", None, None)))
+    P = [(from_tensor(w), from_tensor(b)) for w, b in params]
+    kst.LAUNCHES["conv_block"] = 0
+    out = vgg_block1(st, X, P).evaluate().tensor
+    res["vgg_launches"] = kst.LAUNCHES["conv_block"]
+    ref = _vgg_float64(xv[:2], params)
+    res["vgg_err"] = float((out[:2].double() - ref).abs().max())
+    res["vgg_ms"] = _wall_ms(lambda: vgg_block1(st, X, P).evaluate(),
+                             reps=2)
+    res["totals"] = collective_totals()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh_mod.shutdown()
+
+
+def phase_spmd_group(st, kk, ks, card: str, dev, kmr: dict,
+                     workdir: str) -> dict:
+    """[spmd] group runner: two processes on the one card over gloo."""
+    torch.save(kmr["points"].evaluate().tensor.cpu(),
+               os.path.join(workdir, "points.pt"))
+    np.save(os.path.join(workdir, "c0.npy"), kmr["c0"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--spmd-child", workdir, str(r)])
+             for r in range(GROUP_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=GROUP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _fail(f"[spmd] a group child did not finish in {GROUP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        _fail(f"[spmd] group children exited "
+              f"{[p.returncode for p in procs]}")
+    res = []
+    for r in range(GROUP_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    centers = [np.load(os.path.join(workdir, f"centers{r}.npy"))
+               for r in range(GROUP_RANKS)]
+    tables = [np.load(os.path.join(workdir, f"seg{r}.npy"))
+              for r in range(GROUP_RANKS)]
+
+    # the thread runner's (2, 1) run and the one-pass run, here
+    pts = kmr["points"].evaluate().tensor
+    c = torch.from_numpy(kmr["c0"]).to(dev)
+    mesh2 = st.build_mesh((GROUP_RANKS, 1))
+    for _ in range(KM_ITERS):
+        s, n = kk.assign_accumulate_sharded(pts, c, KM_K, None, mesh2)
+        c = s / torch.clamp_min(n, 1.0)[:, None]
+    thread = c.cpu().numpy()
+    x, yt, _ = _nb_data(dev)
+    one = ks.segment_sum_block(x, yt, NB_CLASSES).cpu().numpy()
+    del x, yt
+    for r, rr in enumerate(res):
+        for key, want in (("km_launches", KM_ITERS), ("seg_launches", 1),
+                          ("hist_launches", 1), ("vgg_launches", 2)):
+            if rr[key] != want:
+                _fail(f"[spmd] rank {r}: {key} {rr[key]}, want {want}")
+        if not rr["hist_equal"]:
+            _fail(f"[spmd] rank {r}: bincount_sharded differs from "
+                  "torch.bincount")
+        if not rr["vgg_err"] <= 1e-5:
+            _fail(f"[spmd] rank {r}: VGG block max |err| {rr['vgg_err']} "
+                  "against float64 (limit 1e-5)")
+    if not all(np.array_equal(c_, centers[0]) for c_ in centers[1:]):
+        _fail("[spmd] the ranks' k-means centers differ")
+    if not np.array_equal(centers[0], thread):
+        _fail("[spmd] the group's centers differ from the thread runner's "
+              f"(2, 1) run: max |diff| {np.abs(centers[0] - thread).max()}")
+    km_diff = float(np.abs(centers[0] - kmr["ref"]).max())
+    if not km_diff <= 1e-4:
+        _fail(f"[spmd] group k-means differs from the one-pass run by "
+              f"{km_diff} (atol 1e-4)")
+    if not (all(np.array_equal(t, tables[0]) for t in tables[1:])
+            and np.array_equal(tables[0], one)):
+        _fail("[spmd] segment_sum_sharded's tables differ across ranks or "
+              "from the one-launch kernel's (integer-valued sums: exact)")
+    staged = [rr["totals"]["collective_host_staged_calls"] for rr in res]
+    staged_b = [rr["totals"]["collective_host_staged_bytes"] for rr in res]
+    _say(f"[spmd] group runner: {GROUP_RANKS} processes on the one card over "
+         f"gloo ({wall:.1f} s with their start-up): config-3 k-means "
+         f"{KM_ITERS} launches per rank, centers bit-equal across ranks and "
+         f"to the thread runner's ({GROUP_RANKS}, 1) run, max |diff| "
+         f"{km_diff:.3g} to the one-pass run (atol 1e-4); "
+         f"segment_sum_sharded {NB_ROWS}x{NB_FEATURES}, {NB_CLASSES} classes:"
+         f" 1 launch per rank, tables bit-equal to the one-launch kernel's; "
+         f"bincount_sharded of {SORT_N} ids into {HIST_BINS}: 1 launch per "
+         f"rank,"
+         f" bit-equal to torch.bincount; VGG-16 block 1 (H split over the "
+         f"ranks): 2 conv_block launches per rank, max |err| "
+         f"{max(rr['vgg_err'] for rr in res):.3g} (limit 1e-5)")
+    for rr in res:
+        _say(f"[spmd] rank {rr['rank']}: k-means "
+             f"{rr['km_ms_per_iter']:.3f} ms per iteration, segment "
+             f"{rr['seg_ms']:.3f} ms, bincount {rr['hist_ms']:.3f} ms, VGG "
+             f"forward {rr['vgg_ms']:.1f} ms (host clock; two processes "
+             f"time-slice one card); collective calls "
+             f"{rr['totals']['collective_calls']}, staged through host "
+             f"memory {rr['totals']['collective_host_staged_calls']} calls "
+             f"{rr['totals']['collective_host_staged_bytes']} bytes on {card}")
+    return {"kmeans": res[0]["km_launches"], "segment": res[0]["seg_launches"],
+            "bincount": res[0]["hist_launches"],
+            "conv_block": res[0]["vgg_launches"], "staged": staged,
+            "staged_bytes": staged_b}
+
+
+def phase_spmd_nccl(st, kk, km, card: str, dev, kmr: dict,
+                    workdir: str) -> None:
+    """[spmd] a one-rank nccl group in this process: every collective,
+    no staging, and config-3 k-means through the group path bit-equal to
+    the one-pass run."""
+    from spartan_tpu_torch.obs.metrics import collective_totals
+    from spartan_tpu_torch.parallel import collectives as coll
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.parallel import shard_map as smap
+
+    if not mesh_mod.initialize_distributed(
+            "file://" + os.path.join(workdir, "nccl_store"),
+            num_processes=1, process_id=0, backend="nccl", device=dev,
+            timeout_s=300):
+        _fail("[spmd] no nccl group")
+    try:
+        mesh = st.get_mesh()
+        if not mesh.is_group or mesh_mod.backend(mesh) != "nccl":
+            _fail(f"[spmd] the ambient mesh is not an nccl group: {mesh}")
+        before = collective_totals()
+        _check_collectives(st, coll, smap, mesh, dev, "one-rank nccl group")
+        _reset_counts(kk)
+        centers, _ = km.kmeans(kmr["points"], KM_K, num_iter=KM_ITERS,
+                               centers=kmr["c0"])
+        launches = kk.LAUNCHES
+        after = collective_totals()
+    finally:
+        mesh_mod.shutdown()
+    staged = (after["collective_host_staged_calls"]
+              - before["collective_host_staged_calls"])
+    calls = after["collective_calls"] - before["collective_calls"]
+    if staged:
+        _fail(f"[spmd] {staged} collective calls staged on nccl")
+    if launches != KM_ITERS or not np.array_equal(centers, kmr["ref"]):
+        _fail(f"[spmd] nccl group k-means: {launches} launches, bit-equal "
+              f"{np.array_equal(centers, kmr['ref'])}")
+    _say(f"[spmd] one-rank nccl group: {calls} collective calls, 0 staged; "
+         f"config-3 k-means through the group path: {launches} launches, "
+         f"centers bit-equal to the one-pass run on {card}")
+
+
+def phase_spmd(st, kk, ks, km, card: str, dev, kmr: dict) -> dict:
+    t0 = time.perf_counter()
+    phase_spmd_threads(st, card, dev, kmr["points"], kmr["c0"])
+    phase_spmd_attention(st, card, dev)
+    phase_spmd_pipeline(st, card, dev)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    try:
+        group = phase_spmd_group(st, kk, ks, card, dev, kmr, workdir)
+        phase_spmd_nccl(st, kk, km, card, dev, kmr, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    _say(f"[spmd] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return group
+
+
 def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--ckpt-child":
         ckpt_child(sys.argv[2])
+        return
+    if len(sys.argv) == 4 and sys.argv[1] == "--spmd-child":
+        spmd_child(sys.argv[2], int(sys.argv[3]))
         return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -3213,6 +3755,7 @@ def main() -> None:
         shutil.rmtree(workdir, ignore_errors=True)
     strr = phase_streaming(st, kk, card, dev, kmr["points"], kmr["c0"])
     phase_planner(st, kk, km, card, dev, kmr["points"], kmr["c0"])
+    grp = phase_spmd(st, kk, ks, km, card, dev, kmr)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -3223,7 +3766,8 @@ def main() -> None:
         "library_ms": kmr["library_ms"],
         "estimator_launches": exr["kmeans_launches"],
         "ckpt_loop_launches": cklr["launches"],
-        "refine_launches": strr["launches"]}, {
+        "refine_launches": strr["launches"],
+        "group_launches_per_rank": grp["kmeans"]}, {
         "name": "windowed_segsum", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:148",
@@ -3240,7 +3784,8 @@ def main() -> None:
         "library_ms": abr["library_ms"], "naive_bayes_ms": nbr["ms"],
         "naive_bayes_bound_ms": nbr["bound_ms"],
         "naive_bayes_library_ms": nbr["library_ms"],
-        "estimator_launches": exr["nb_launches"]}, {
+        "estimator_launches": exr["nb_launches"],
+        "group_launches_per_rank": grp["segment"]}, {
         "name": "partition_pack", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/exchange.cu",
         "replaces": "spartan_tpu/kernels/exchange.py:31",
@@ -3263,7 +3808,8 @@ def main() -> None:
         "bound_ms": histr["bound_ms"], "bound_by": histr["bound_by"],
         "library_ms": histr["library_ms"], "unique_ms": histr["unique_ms"],
         "unique_bound_ms": histr["unique_bound_ms"],
-        "unique_library_ms": histr["unique_library_ms"]}, {
+        "unique_library_ms": histr["unique_library_ms"],
+        "group_launches_per_rank": grp["bincount"]}, {
         "name": "conv_block", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/stencil.cu",
         "replaces": "spartan_tpu/kernels/stencil.py:32",
@@ -3271,7 +3817,8 @@ def main() -> None:
         "ms": vggr["ms"], "plain_ms": vggr["plain_ms"],
         "bound_ms": vggr["bound_ms"], "bound_by": vggr["bound_by"],
         "bound_fp32_ms": vggr["bound_fp32_ms"],
-        "library_ms": vggr["library_ms"]}]}))
+        "library_ms": vggr["library_ms"],
+        "group_launches_per_rank": grp["conv_block"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")
     print(json.dumps({"ok": True, "device": {

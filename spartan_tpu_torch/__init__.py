@@ -4,8 +4,11 @@ A lazy NumPy-like expression DAG (map / map2 / reduce / dot / slice /
 loop) over tiled arrays, evaluated eagerly with torch on one device,
 with masked arrays, region writes and donation, checkpoints and the
 checkpointed loop, the smart-tiling optimizer and redistribution
-planner on a logical mesh, host spans and metrics, and the Pallas
-kernels of the JAX package as hand-written CUDA kernels for Hopper.
+planner on a logical mesh, host spans and metrics, the explicit SPMD
+layer (``shard_map`` bodies with collectives on a logical mesh or over
+the ranks of a ``torch.distributed`` group, ``initialize``), and the
+Pallas kernels of the JAX package as hand-written CUDA kernels for
+Hopper.
 This package imports torch and numpy only: never jax, never
 ``spartan_tpu``.
 
@@ -33,9 +36,11 @@ from .array.tiling import Tiling  # noqa: E402
 from .expr import *  # noqa: F401,F403,E402
 from .expr import __all__ as _expr_all  # noqa: E402
 from .ops.stencil import avgpool, maxpool, stencil  # noqa: E402
+from .parallel import collectives  # noqa: E402
+from .parallel import mesh as _mesh  # noqa: E402
 from .parallel.mesh import (build_mesh, get_default_device,  # noqa: E402
-                            get_mesh, set_default_device, set_mesh,
-                            use_mesh)
+                            get_mesh, initialize_distributed,
+                            set_default_device, set_mesh, use_mesh)
 from . import obs  # noqa: E402
 from .obs import (REGISTRY, Counter, Gauge, Histogram, Registry,  # noqa: E402
                   Span, metrics, span, trace_clear, trace_events,
@@ -51,9 +56,28 @@ __all__ = (["DistArray", "SparseDistArray", "MaskedDistArray", "TileExtent",
             "Tiling", "FLAGS", "from_reference", "checkpoint", "resilience",
             "FatalMeshError",
             "build_mesh", "get_mesh", "set_mesh", "use_mesh",
-            "set_default_device", "get_default_device",
+            "set_default_device", "get_default_device", "initialize",
+            "initialize_distributed", "shutdown", "collectives",
             "stencil", "maxpool", "avgpool",
             "obs", "profiling", "metrics", "trace_export", "trace_events",
             "trace_clear", "span", "Span", "REGISTRY", "Registry",
             "Counter", "Gauge", "Histogram"]
            + list(_expr_all))
+
+
+def initialize(argv=None):
+    """Parity with the reference's ``spartan.initialize()``: parse
+    ``--flag=value`` arguments into ``FLAGS``, bring up the process
+    group when an address or a launcher's environment is present
+    (``parallel/mesh.py::initialize_distributed``; nothing otherwise)
+    and install the ambient mesh. Returns the arguments no flag took."""
+    rest = FLAGS.parse_args(argv)
+    _mesh.initialize_distributed()
+    _mesh.get_mesh()
+    return rest
+
+
+def shutdown():
+    """Clear the ambient mesh, and destroy the process group when
+    ``initialize`` created it."""
+    _mesh.shutdown()

@@ -195,8 +195,8 @@ class DistArray:
         tensor: nothing moves, and donating either handle leaves the
         other valid (donation drops a handle, never the data another
         handle holds). The JAX package's ``device_put`` to the new
-        sharding becomes a real move with the multi-process slice
-        (ROADMAP A3b); ``parallel/redistribute.apply_schedule`` is the
+        sharding becomes a real move with local-shard storage (ROADMAP
+        A3b-ii); ``parallel/redistribute.apply_schedule`` is the
         explicit per-shard form."""
         if new_tiling == self.tiling:
             return self

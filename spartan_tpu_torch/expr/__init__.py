@@ -7,12 +7,12 @@ from .base import (DictExpr, Expr, ListExpr, ScalarExpr, TupleExpr, ValExpr,
 from .builtins import *  # noqa: F401,F403
 from .builtins import __all__ as _builtin_all
 from .assign import WriteExpr, assign, write_array
-from .dot import DotExpr, dot
+from .dot import DotExpr, DotShardMapExpr, dot, dot_shardmap
 from .filter import GatherExpr, filter
 from .fio import from_file, load, save
 from .loop import LoopExpr, LoopItemExpr, loop
 from .map import MapExpr, MapWithLocationExpr, map, map_with_location
-from .map2 import Map2Expr, map2
+from .map2 import Map2Expr, ShardMap2Expr, map2, shard_map2
 from .ndarray import CreateExpr, RandomExpr
 from .optimize import dag_nodes, optimize
 from .outer import OuterExpr, outer
@@ -33,4 +33,5 @@ __all__ = ["Expr", "ValExpr", "ScalarExpr", "TupleExpr", "as_expr",
            "TransposeExpr", "ReshapeExpr", "ConcatExpr", "tuple_of",
            "ListExpr", "DictExpr", "dict_of", "lazify", "map_with_location",
            "MapWithLocationExpr", "from_file", "load", "save",
+           "dot_shardmap", "DotShardMapExpr", "shard_map2", "ShardMap2Expr",
            ] + [n for n in _builtin_all if n != "dot"]

@@ -9,7 +9,8 @@ grid and contraction placement); its operand edges go through
 ``parallel/redistribute.constrain`` and the plan joins the signature.
 The node is one ``torch.einsum`` whatever the plan (float32 products in
 full float32: TF32 is off, ``spartan_tpu_torch/__init__.py``); the
-k-split with a psum waits for the multi-process slice (ROADMAP A3b).
+k-split with an all-reduce waits for local-shard storage (ROADMAP
+A3b-ii).
 
 Axis vocabulary (einsum labels):
   * batch labels -- in both operands and the output,

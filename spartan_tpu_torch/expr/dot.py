@@ -11,10 +11,14 @@ The smart-tiling pass records a GEMM's plan in ``_dot_plan``: the
 output grid and the contraction's placement (None: gathered; a mesh
 axis: split there and merged by a psum). The operand edges go through
 ``parallel/redistribute.constrain`` and the plan joins the signature,
-as in the JAX package. On one card each product is still one
-``torch.matmul`` over whole operands, so the plan changes no bits; the
-k-split with a psum and ``DotShardMapExpr`` wait for the multi-process
-slice (ROADMAP A3b).
+as in the JAX package. Each product is still one ``torch.matmul`` over
+whole operands, so the plan changes no bits; the k-split with an
+all-reduce waits for local-shard storage (ROADMAP A3b-ii).
+
+``DotShardMapExpr`` (``dot_shardmap``) is the explicit blocked GEMM
+under ``parallel/shard_map.py``: A split (x, y), B split (y, None), a
+partial ``torch.matmul`` at every position and an ``all_reduce`` over
+y; the result is row-tiled.
 """
 
 from __future__ import annotations
@@ -109,3 +113,58 @@ def dot(a: Any, b: Any, precision: Optional[str] = None):
     if isinstance(a, MaskedDistArray) or isinstance(b, MaskedDistArray):
         return masked_dot(a, b, precision=precision)
     return DotExpr(as_expr(a), as_expr(b), precision)
+
+
+class DotShardMapExpr(Expr):
+    """Explicit blocked GEMM under ``shard_map``: A split (x, y) on
+    (rows, contraction), B split (y,) on rows; each position computes
+    its partial product and ``all_reduce`` over y merges them — the
+    literal all-reduce lowering of the reference's reducer-merge. The
+    dtype is the JAX package's promotion with 64-bit types off (both
+    operands are cast to it), as ``DotExpr``'s is."""
+
+    def __init__(self, a: Expr, b: Expr):
+        if a.ndim != 2 or b.ndim != 2:
+            raise ValueError("dot_shardmap requires 2-D operands")
+        if a.shape[1] != b.shape[0]:
+            raise ValueError(f"shape mismatch {a.shape} x {b.shape}")
+        self.a = a
+        self.b = b
+        super().__init__((a.shape[0], b.shape[1]),
+                         dtypes.result_type(a.dtype, b.dtype))
+
+    def children(self) -> Tuple[Expr, ...]:
+        return (self.a, self.b)
+
+    def replace_children(self, new_children) -> "DotShardMapExpr":
+        return DotShardMapExpr(new_children[0], new_children[1])
+
+    def _lower(self, env: Dict[int, Any]) -> Any:
+        from ..parallel import collectives as coll
+        from ..parallel.shard_map import shard_map
+
+        mesh = mesh_mod.get_mesh()
+        a_t = Tiling((mesh_mod.AXIS_ROW, mesh_mod.AXIS_COL))
+        b_t = Tiling((mesh_mod.AXIS_COL, None))
+        av = redist_mod.constrain(self.a.lower(env), a_t, mesh,
+                                  src=self.a.out_tiling())
+        bv = redist_mod.constrain(self.b.lower(env), b_t, mesh,
+                                  src=self.b.out_tiling())
+        dt = self.dtype
+
+        def kernel(ab, bb):
+            return coll.all_reduce(dtypes.contract(torch.matmul, dt, ab, bb),
+                                   mesh_mod.AXIS_COL)
+
+        return shard_map(kernel, mesh, (a_t, b_t),
+                         tiling_mod.row(2))(av, bv)
+
+    def _sig(self, ctx) -> Tuple:
+        return ("dot_smap", ctx.of(self.a), ctx.of(self.b))
+
+    def _default_tiling(self) -> Tiling:
+        return tiling_mod.row(2)
+
+
+def dot_shardmap(a: Any, b: Any) -> DotShardMapExpr:
+    return DotShardMapExpr(as_expr(a), as_expr(b))

@@ -1,16 +1,21 @@
-"""map2: a kernel over whole arrays of different shapes (port of
-``spartan_tpu/expr/map2.py``).
+"""map2: a kernel over whole arrays of different shapes, and its
+per-tile form (port of ``spartan_tpu/expr/map2.py``).
 
-``fn`` receives the whole input tensors and returns one tensor. The
-explicit per-tile form (``shard_map2``) waits for the multi-GPU slice.
+``map2``'s ``fn`` receives the whole input tensors and returns one
+tensor. ``shard_map2``'s ``fn`` runs under ``parallel/shard_map.py`` at
+every mesh position on each input's block, and its blocks tile the
+result.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
+from ..parallel import mesh as mesh_mod
 from .base import Expr, as_expr, eval_shape_of, fn_key
 
 
@@ -56,3 +61,58 @@ def map2(arrays: Sequence[Any], fn: Callable,
     inputs = tuple(as_expr(a) for a in arrays)
     kw = tuple(sorted((fn_kw or {}).items()))
     return Map2Expr(inputs, fn, kw, out_tiling)
+
+
+class ShardMap2Expr(Expr):
+    """Per-block kernel under ``shard_map`` — the reference's true
+    per-tile kernel convention. ``in_tilings[i]`` names how input i is
+    blocked; ``out_tiling`` how the kernel's outputs tile the result.
+    Each operand goes through ``redistribute.constrain`` to its tiling
+    before the kernel runs, as in the JAX package."""
+
+    def __init__(self, inputs: Sequence[Expr], fn: Callable,
+                 in_tilings: Sequence[Tiling], out_tiling: Tiling,
+                 out_shape: Sequence[int], out_dtype: Any):
+        self.inputs = tuple(inputs)
+        self.fn = fn
+        self.in_tilings = tuple(in_tilings)
+        self._out_tiling = out_tiling
+        super().__init__(tuple(int(s) for s in out_shape), out_dtype)
+
+    def children(self) -> Tuple[Expr, ...]:
+        return self.inputs
+
+    def replace_children(self, new_children) -> "ShardMap2Expr":
+        return ShardMap2Expr(new_children, self.fn, self.in_tilings,
+                             self._out_tiling, self._shape, self._dtype)
+
+    def _lower(self, env: Dict[int, Any]) -> Any:
+        from ..parallel import redistribute as redist_mod
+        from ..parallel.shard_map import shard_map
+
+        mesh = mesh_mod.get_mesh()
+        vals = [redist_mod.constrain(c.lower(env), t, mesh,
+                                     src=c.out_tiling())
+                for c, t in zip(self.inputs, self.in_tilings)]
+        return shard_map(self.fn, mesh, self.in_tilings,
+                         self._out_tiling)(*vals)
+
+    def _sig(self, ctx) -> Tuple:
+        return (("smap2", fn_key(self.fn),
+                 tuple(t.axes for t in self.in_tilings),
+                 self._out_tiling.axes)
+                + tuple(ctx.of(c) for c in self.inputs))
+
+    def _default_tiling(self) -> Tiling:
+        return self._out_tiling
+
+
+def shard_map2(arrays: Sequence[Any], fn: Callable,
+               in_tilings: Sequence[Tiling], out_tiling: Tiling,
+               out_shape: Sequence[int], out_dtype: Any = np.float32
+               ) -> ShardMap2Expr:
+    inputs = tuple(as_expr(a) for a in arrays)
+    if len(inputs) != len(in_tilings):
+        raise ValueError("need one tiling per input")
+    return ShardMap2Expr(inputs, fn, in_tilings, out_tiling, out_shape,
+                         out_dtype)

@@ -4,7 +4,7 @@ reduce-map fusion and the smart-tiling pass (``tiling_pass.py``,
 registered on first use), each behind its FLAGS toggle. Smart tiling
 commits the JAX package's tilings and contraction plans on the logical
 mesh; on one card those are metadata over one tensor, so the pass
-changes no value (ROADMAP A3b gives them a device layout).
+changes no value (ROADMAP A3b-ii gives them a device layout).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ top-down commit pick the cheapest assignment, written as
 The candidate order, the ``_OP_MOVE_EPS`` tie-break and every weight
 are the JAX package's, so on the same logical mesh the port commits the
 same tilings. On one card the values do not change: a tiling is
-metadata over one tensor until the multi-process slice (ROADMAP A3b).
+metadata over one tensor until local-shard storage (ROADMAP A3b-ii).
 
 Cost model (per-shard bytes, ring collectives over n shards):
   * same tiling, or source replicated: 0
@@ -55,7 +55,7 @@ _COMPUTE_WEIGHT = 4.0
 # value is the JAX package's committed calibration for its 8-device CPU
 # mesh (so CPU plans match it); a one-process CUDA mesh has no
 # interconnect to time against, so "cuda" takes the fallback until the
-# multi-process slice can time a real NCCL gather (ROADMAP A3b).
+# local-shard storage can time a real NCCL gather (ROADMAP A3b-ii).
 # Override with --tiling_flop_weight.
 _FLOP_WEIGHT_DEFAULTS = {"cpu": 0.005}
 _FLOP_WEIGHT_FALLBACK = 1e-3
@@ -437,7 +437,7 @@ def _build_table(root: Expr, mesh) -> Dict:
 
 def assign_tilings(root: Expr) -> Expr:
     from .contract import ContractExpr
-    from .dot import DotExpr
+    from .dot import DotExpr, DotShardMapExpr
 
     mesh = mesh_mod.get_mesh()
     if _mesh_n(mesh) <= 1:
@@ -466,7 +466,8 @@ def assign_tilings(root: Expr) -> Expr:
         # without forcing a redundant *output* constraint when the
         # chosen grid equals the default.
         strategy = entry[2] if entry is not None else None
-        is_gemm = isinstance(node, (DotExpr, ContractExpr))
+        is_gemm = isinstance(node, (DotExpr, DotShardMapExpr,
+                                    ContractExpr))
         plans_operands = (isinstance(node, ContractExpr)
                           or (isinstance(node, DotExpr)
                               and node.a.ndim == 2 and node.b.ndim == 2))
@@ -622,7 +623,7 @@ def calibrate_flop_weight(n: int = 512, iters: int = 5,
     all-gather over its devices. The port's logical mesh lives in one
     process on one device, with no interconnect to time, so it returns
     :func:`_flop_weight` as the JAX package does on a one-device mesh;
-    the multi-process slice times a real gather (ROADMAP A3b)."""
+    local-shard storage times a real gather (ROADMAP A3b-ii)."""
     return _flop_weight(mesh)
 
 

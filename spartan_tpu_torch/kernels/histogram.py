@@ -195,24 +195,57 @@ def bincount_block(ids: torch.Tensor, length: int,
     return _launch(ids.reshape(-1).to(torch.int32).contiguous(), length)
 
 
+def _padded(ids: torch.Tensor, length: int, p: int) -> torch.Tensor:
+    """The id stream padded with ``length`` (dropped) to ``p`` whole
+    shards, as int32."""
+    e_pad = -ids.numel() % p
+    ids = ids.to(torch.int32)
+    if e_pad:
+        ids = torch.cat([ids, torch.full((e_pad,), length, dtype=torch.int32,
+                                         device=ids.device)])
+    return ids
+
+
+def bincount_group(ids: torch.Tensor, length: int,
+                   mesh: Optional[mesh_mod.Mesh] = None) -> torch.Tensor:
+    """The JAX package's ``shard_map`` form of ``bincount_sharded``: the
+    padded id stream row-split over the mesh's row axis,
+    :func:`bincount_block` per position, the count rows summed as f32
+    by an ``all_reduce``, then int32 (exact below 2**24 a bucket)."""
+    from ..parallel import collectives as coll
+    from ..parallel.shard_map import shard_map
+
+    length = _checked(ids, length)
+    mesh = mesh or mesh_mod.get_mesh()
+    axis = tiling_mod.AXIS_ROW
+    p = max(int(mesh.shape[axis]), 1)
+    ids = _padded(ids.reshape(-1), length, p)
+
+    def body(i):
+        part = bincount_block(i, length).to(torch.float32)
+        return coll.all_reduce(part, axis)
+
+    out = shard_map(body, mesh, (tiling_mod.row(1),),
+                    tiling_mod.replicated(1))(ids)
+    return out.to(torch.int32)
+
+
 def bincount_sharded(ids: torch.Tensor, length: int,
                      mesh: Optional[mesh_mod.Mesh] = None) -> torch.Tensor:
     """Distributed bincount over the mesh row axis: the 1-D id stream
     padded to p whole shards with ``length``, counted per shard, the
-    shards' counts summed. Returns int32 ``(length,)``. On the card all
-    shards are counted in one launch."""
+    shards' counts summed. Returns int32 ``(length,)``. On a logical
+    mesh on the card all shards are counted in one launch; on a group
+    mesh each rank counts its shard (:func:`bincount_group`)."""
     length = _checked(ids, length)
     mesh = mesh or mesh_mod.get_mesh()
+    if mesh.is_group:
+        return bincount_group(ids, length, mesh)
     p = max(int(mesh.shape.get(tiling_mod.AXIS_ROW, 1)), 1)
     ids = ids.reshape(-1)
     if build_mod.on_card(ids, "bincount_block"):
         return _launch(ids.to(torch.int32).contiguous(), length)
-    e_pad = -ids.numel() % p
-    if e_pad:
-        ids = torch.cat([ids.to(torch.int32),
-                         torch.full((e_pad,), length, dtype=torch.int32,
-                                    device=ids.device)])
-    shards = ids.reshape(p, -1)
+    shards = _padded(ids, length, p).reshape(p, -1)
     # the shards' rows merge as the psum does: f32 rows added, then int32
     total = torch.zeros((length,), dtype=torch.float32, device=ids.device)
     for i in range(p):

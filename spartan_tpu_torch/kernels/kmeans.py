@@ -11,8 +11,12 @@ runs :func:`assign_accumulate_plain`. There is no fallback: a CUDA
 tensor the kernel cannot take raises.
 
 The JAX package runs one kernel per row shard and merges with a
-``psum``; on one device the port runs one pass over all rows with the
-``valid_rows`` mask, which gives the same sums up to summation order.
+``psum``. On a logical mesh the port runs one pass over all rows with
+the ``valid_rows`` mask, which gives the same sums up to summation
+order. On a group mesh (``parallel/mesh.py``) :func:`step` takes
+:func:`assign_accumulate_sharded`, the JAX package's ``shard_map``
+form: each rank runs the pass on its row block, with its share of the
+``valid_rows`` limit, and an ``all_reduce`` merges the sums and counts.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from ..array import tiling as tiling_mod
+from ..parallel import mesh as mesh_mod
 from . import build as build_mod
 from . import registry
 
@@ -198,12 +203,50 @@ def assign_accumulate(points: torch.Tensor, centers: torch.Tensor, k: int,
     return _launch(points.contiguous(), centers.contiguous(), k, valid)
 
 
+def assign_accumulate_sharded(points: torch.Tensor, centers: torch.Tensor,
+                              k: int, valid_rows: Optional[int] = None,
+                              mesh: Optional[mesh_mod.Mesh] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``shard_map`` form of one pass: each position
+    of the mesh's row axis runs :func:`assign_accumulate` on its row
+    block, counting only its share of the first ``valid_rows`` rows,
+    and an ``all_reduce`` sums the (k, d) sums and (k,) counts. A row
+    count the row axis does not divide takes one pass over all rows, as
+    in the JAX package, and so does a logical mesh of one row position;
+    a group mesh of one row position still merges through its group."""
+    from ..parallel import collectives as coll
+    from ..parallel.shard_map import shard_map
+
+    mesh = mesh or mesh_mod.get_mesh()
+    n = points.shape[0]
+    valid = n if valid_rows is None else max(0, min(int(valid_rows), n))
+    axis = tiling_mod.AXIS_ROW
+    p = int(mesh.shape[axis])
+    if n % p or (p <= 1 and not mesh.is_group):
+        return assign_accumulate(points, centers, k, valid)
+    ms = n // p
+
+    def body(pts, c):
+        limit = min(max(valid - coll.axis_index(axis) * ms, 0), ms)
+        sums, cnt = assign_accumulate(pts, c, k, limit)
+        return coll.all_reduce(sums, axis), coll.all_reduce(cnt, axis)
+
+    return shard_map(body, mesh, (tiling_mod.row(2), None),
+                     (tiling_mod.replicated(2), tiling_mod.replicated(1)))(
+        points, centers)
+
+
 def step(points: torch.Tensor, centers: torch.Tensor, k: int,
          valid_rows: Optional[int] = None) -> torch.Tensor:
-    """One k-means update: new centers from one fused pass. An empty
-    cluster becomes the zero vector (sums / max(count, 1)), as in the
-    JAX package."""
-    sums, cnt = assign_accumulate(points, centers, k, valid_rows)
+    """One k-means update: new centers from one fused pass (per rank on
+    a group mesh). An empty cluster becomes the zero vector (sums /
+    max(count, 1)), as in the JAX package."""
+    group = mesh_mod.ambient_group()
+    if group is not None:
+        sums, cnt = assign_accumulate_sharded(points, centers, k,
+                                              valid_rows, group)
+    else:
+        sums, cnt = assign_accumulate(points, centers, k, valid_rows)
     return sums / torch.clamp_min(cnt, 1.0)[:, None]
 
 

@@ -95,8 +95,8 @@ def _sel_kmeans(shape, dtype, tiling, mesh, params) -> Selection:
         return _fallback(op, f"d {d} not a multiple of 128")
     if k > LANE:
         return _fallback(op, f"k {k} > 128 padded centers")
-    p = int(mesh.shape.get(tiling_mod.AXIS_ROW, 1))
-    if n % max(p, 1):
+    p = _row_shards(mesh)
+    if n % p:
         return _fallback(op, f"n {n} not divisible by {p} shards")
     block = int(params.get("block", 1024))
     if (n // max(p, 1)) % block:
@@ -125,7 +125,7 @@ def _sel_segment(shape, dtype, tiling, mesh, params) -> Selection:
     if len(shape) not in (1, 2):
         return _fallback(op, "only 1-D/2-D value streams")
     d = shape[1] if len(shape) == 2 else 1
-    p = max(int(mesh.shape.get(tiling_mod.AXIS_ROW, 1)), 1)
+    p = _row_shards(mesh)
     n_pad = -(-shape[0] // p) * p
     if n_pad == 0 or d == 0:
         return _fallback(op, "empty operand")
@@ -156,6 +156,10 @@ def _sel_segment(shape, dtype, tiling, mesh, params) -> Selection:
 
 
 def _row_shards(mesh) -> int:
+    """The collective size of a kernel's row-axis merge (the JAX
+    package's ``_collective_size``): the mesh's row-axis positions —
+    logical shards on a logical mesh, the ranks along the row axis on a
+    group mesh, where each rank runs the kernel on its own shard."""
     return max(int(mesh.shape.get(tiling_mod.AXIS_ROW, 1)), 1)
 
 

@@ -14,9 +14,11 @@ On CUDA tensors each wrapper launches its kernel in
 runs the plain version beside it; any other device raises. There is no
 fallback: a CUDA tensor the kernel cannot take raises.
 
-The JAX package's ``segment_sum_sharded`` (per-shard kernels merged by
-``psum_scatter``) has no counterpart yet: on one card it is the block
-kernel over all entries.
+:func:`segment_sum_sharded` is the JAX package's ``shard_map`` form
+(per-shard block sums merged by ``reduce_scatter`` and ``all_gather``
+where the shard count divides the segments, else by ``all_reduce``);
+``ops/segment.py`` takes it on a group mesh. On a logical mesh the block
+kernel runs once over all entries.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..array import tiling as tiling_mod
+from ..parallel import mesh as mesh_mod
 from . import build as build_mod
 
 # Kernel launches so far, per kernel: each wrapper adds one where it
@@ -233,3 +237,45 @@ def windowed_segsum(vals: torch.Tensor, ids2d: torch.Tensor,
     return _launch_windowed(vals.reshape(-1).to(torch.float32).contiguous(),
                             ids2d.contiguous(), starts.contiguous(),
                             int(rows_pad))
+
+
+def segment_sum_sharded(vals: torch.Tensor, ids: torch.Tensor,
+                        num_segments: int,
+                        mesh: Optional[mesh_mod.Mesh] = None,
+                        block_e: int = 512) -> torch.Tensor:
+    """The partitionable segment sum (the JAX package's
+    ``segment_sum_sharded``): the entry stream row-split over the mesh's
+    row axis (padded with dropped entries to whole shards),
+    :func:`segment_sum_block` per shard, and the partials merged by
+    ``reduce_scatter`` then ``all_gather`` when the shard count divides
+    ``num_segments``, else by ``all_reduce``. Every position ends with
+    the whole (replicated) result."""
+    from ..parallel import collectives as coll
+    from ..parallel.shard_map import shard_map
+
+    mesh = mesh or mesh_mod.get_mesh()
+    axis = tiling_mod.AXIS_ROW
+    p = int(mesh.shape[axis])
+    k = int(num_segments)
+    if p <= 1 and not mesh.is_group:
+        return segment_sum_block(vals, ids, k, block_e)
+    squeeze = vals.ndim == 1
+    if squeeze:
+        vals = vals[:, None]
+    e_pad = -vals.shape[0] % p
+    if e_pad:
+        vals = torch.cat([vals, vals.new_zeros((e_pad, vals.shape[1]))])
+        ids = torch.cat([ids, ids.new_full((e_pad,), k)])
+    scatter = k % p == 0
+
+    def body(v, i):
+        part = segment_sum_block(v, i, k, block_e)
+        if scatter:
+            # each position reduces its own k/p rows, then the gather
+            # makes the result whole: one all-reduce's bytes
+            return coll.all_gather(coll.reduce_scatter(part, axis), axis)
+        return coll.all_reduce(part, axis)
+
+    out = shard_map(body, mesh, (tiling_mod.row(2), tiling_mod.row(1)),
+                    tiling_mod.replicated(2))(vals, ids)
+    return out[:, 0] if squeeze else out

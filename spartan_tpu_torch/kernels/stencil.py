@@ -17,8 +17,10 @@ FMAs), C > 4 the tensor-core implicit GEMM (3xTF32 ``mma.sync``, about
 f32 accuracy). On CPU tensors it runs
 :func:`conv_block_plain`, the TPU kernel's formulation (KH*KW shifted
 slices, each a ``(rows, C) @ (C, O)`` product in f32); any other device
-raises. The halo copy is where a multi-card mesh would send and receive
-the boundary rows.
+raises. On a group mesh (``parallel/mesh.py``) :func:`halo_stencil`
+takes :func:`halo_stencil_sharded`, the JAX package's ``shard_map``
+form: the boundary rows travel by ``ring_permute`` and each rank runs
+one :func:`conv_block` on its own block.
 """
 
 from __future__ import annotations
@@ -200,13 +202,58 @@ def halo_exchange(x: torch.Tensor, kh: int, kw: int, p: int) -> torch.Tensor:
     return out
 
 
+def halo_stencil_sharded(x: torch.Tensor, w: torch.Tensor, tiling,
+                         mesh: Optional[mesh_mod.Mesh] = None
+                         ) -> torch.Tensor:
+    """The JAX package's ``shard_map`` form of :func:`halo_stencil`:
+    each position takes the previous position's last ``lo`` rows and the
+    next one's first ``hi`` rows by ``ring_permute`` (zeros at the ends,
+    which is SAME's zero pad), pads W with zeros and runs one
+    :func:`conv_block` on its block. Returns (N, H, W, O) f32, whole on
+    every position."""
+    from ..parallel import collectives as coll
+    from ..parallel.shard_map import shard_map
+
+    mesh = mesh or mesh_mod.get_mesh()
+    axis = tiling.axes[1]
+    p = int(mesh.shape[axis])
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    hlo, hhi = _same_pad(kh)
+    wlo, whi = _same_pad(kw)
+    if x.shape[1] % p or x.shape[1] // p < max(hlo, hhi):
+        raise ValueError(f"H {x.shape[1]} does not split into {p} shards "
+                         f"of at least {max(hlo, hhi)} halo rows")
+
+    def body(xl, wl):
+        hs = xl.shape[1]
+        me = coll.axis_index(axis)
+        parts = []
+        if hlo:
+            top = coll.ring_permute(xl[:, hs - hlo:].contiguous(), axis, 1)
+            parts.append(torch.zeros_like(top) if me == 0 else top)
+        parts.append(xl)
+        if hhi:
+            bot = coll.ring_permute(xl[:, :hhi].contiguous(), axis, -1)
+            parts.append(torch.zeros_like(bot) if me == p - 1 else bot)
+        xpad = torch.nn.functional.pad(torch.cat(parts, 1),
+                                       (0, 0, wlo, whi))
+        return conv_block(xpad, wl)
+
+    out_t = tiling.with_axis(2, None).with_axis(3, None)
+    return shard_map(body, mesh, (tiling, None), out_t)(
+        x, w.to(torch.float32))
+
+
 def halo_stencil(x: torch.Tensor, w: torch.Tensor, tiling,
                  mesh: Optional[mesh_mod.Mesh] = None) -> torch.Tensor:
     """SAME-padded stride-1 NHWC conv of ``x`` (N, H, W, C) with ``w``
-    (KH, KW, C, O), H tiled over ``tiling.axes[1]``: the halo exchange
-    feeding one :func:`conv_block` over all shards. Returns (N, H, W, O)
+    (KH, KW, C, O), H tiled over ``tiling.axes[1]``: on a logical mesh
+    the halo exchange feeding one :func:`conv_block` over all shards, on
+    a group mesh :func:`halo_stencil_sharded`. Returns (N, H, W, O)
     f32."""
     mesh = mesh or mesh_mod.get_mesh()
+    if mesh.is_group:
+        return halo_stencil_sharded(x, w, tiling, mesh)
     p = int(mesh.shape[tiling.axes[1]])
     kh, kw = int(w.shape[0]), int(w.shape[1])
     blocks = halo_exchange(x, kh, kw, p)

@@ -413,6 +413,42 @@ def _update_device_gauges() -> None:
             "devices)").set(agg["sum"])
 
 
+# -- collectives (parallel/collectives.py) --------------------------------
+
+
+def record_collective(op: str, nbytes: int) -> None:
+    """One collective call of ``op`` at one position, moving the
+    position's ``nbytes``: ``collective_calls{op=...}`` and
+    ``collective_bytes{op=...}``. Recorded whatever ``FLAGS.metrics``
+    says, as a direct instrument handle is."""
+    REGISTRY.counter(labeled("collective_calls", op=op),
+                     "collective calls by op").inc()
+    REGISTRY.counter(labeled("collective_bytes", op=op),
+                     "bytes into collectives by op").inc(int(nbytes))
+
+
+def record_staged(op: str, nbytes: int) -> None:
+    """A CUDA tensor of ``nbytes`` that a gloo group's ``op`` took
+    through a host buffer: ``collective_host_staged_calls{op=...}`` and
+    ``collective_host_staged_bytes{op=...}``."""
+    REGISTRY.counter(labeled("collective_host_staged_calls", op=op),
+                     "collective calls staged through host memory").inc()
+    REGISTRY.counter(labeled("collective_host_staged_bytes", op=op),
+                     "bytes staged through host memory").inc(int(nbytes))
+
+
+def collective_totals() -> Dict[str, int]:
+    """The four collective counters summed over ops."""
+    out = {"collective_calls": 0, "collective_bytes": 0,
+           "collective_host_staged_calls": 0,
+           "collective_host_staged_bytes": 0}
+    for key, v in REGISTRY.counter_values().items():
+        base, _ = split_labels(key)
+        if base in out:
+            out[base] += v
+    return out
+
+
 def snapshot(fmt: str = "json", reset: bool = False) -> Any:
     """The public ``st.metrics()``: registry snapshot plus derived
     plan-cache and device-memory views.

@@ -10,7 +10,8 @@ the JAX package's names (``FLAGS.segment_impl`` or ``impl=``):
 * ``onehot`` — ``onehot(ids)^T @ vals`` in IEEE f32;
 * ``pallas`` — the hand-written block kernel
   (``kernels/segment.py::segment_sum_block``), when the registry's
-  constraints hold, else ``onehot``;
+  constraints hold, else ``onehot``; on a group mesh its ``shard_map``
+  form ``segment_sum_sharded``, one kernel per rank;
 * ``auto`` — the registry decides: under ``FLAGS.native_kernels=auto``
   segment sums keep the library scatter (the JAX package's measured-off
   rule, ``kernels/registry.py``); ``native_kernels=on`` selects the
@@ -73,6 +74,9 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor, num_segments: int,
         impl = "pallas" if _select(vals, k).native else "xla"
     if impl == "pallas":
         if _select(vals, k, force=forced).native:
+            group = mesh_mod.ambient_group()
+            if group is not None:
+                return ksegment.segment_sum_sharded(vals, ids, k, group)
             return ksegment.segment_sum_block(vals, ids, k)
         impl = "onehot"  # a constraint failed (the selection's reason)
     if impl == "onehot":

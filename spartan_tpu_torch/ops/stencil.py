@@ -4,7 +4,8 @@
 HWIO filters. When ``kernels.select("stencil")`` picks the kernel (the
 operand's H axis tiled over more than one logical shard, stride 1, SAME
 padding, f32) it runs ``kernels/stencil.py::halo_stencil``: the halo
-exchange and the hand-written conv kernel on the card. Every other case
+exchange and the hand-written conv kernel on the card (on a group mesh,
+one kernel per rank after a real halo exchange). Every other case
 convolves with ``torch.nn.functional.conv2d`` under XLA's padding rule,
 as the JAX package's ``lax.conv_general_dilated`` does (cuDNN's TF32 is
 off, ``spartan_tpu_torch/__init__.py``). :func:`maxpool` and

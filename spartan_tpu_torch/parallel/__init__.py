@@ -1,1 +1,2 @@
-"""Logical mesh and device selection."""
+"""Meshes (logical and process-group), shard_map, collectives and the
+pipeline."""

@@ -1,12 +1,22 @@
-"""Logical device mesh and the default device.
+"""Device meshes, the default device and process-group bring-up.
 
 The JAX package shards every array over a mesh of devices with two
-named axes. This slice of the port runs on ONE device: a mesh is a
-*logical* ``(x, y)`` grid plus the one ``torch.device`` every array of
-the mesh lives on. The grid still decides tile extents (``Tiling``
-metadata), so extents match the JAX package's at the same mesh shape,
-and the applications pad rows to whole kernel blocks per logical row shard
-exactly as the JAX package's applications do.
+named axes. The port has two kinds of mesh:
+
+* **the logical mesh** (``Mesh(shape, device)``): a logical ``(x, y)``
+  grid plus the one ``torch.device`` every array of the mesh lives on.
+  The grid decides tile extents (``Tiling`` metadata), so extents match
+  the JAX package's at the same mesh shape, and ``shard_map`` runs one
+  thread per position on the device;
+* **the group mesh** (``Mesh(shape, device, group=...)``): one position
+  per rank of a ``torch.distributed`` process group, at coordinates
+  ``divmod(rank, y)`` (the JAX package's row-major device order), with
+  one sub-group per row and per column for the axis collectives.
+  Every rank holds each array's tensor whole; ``shard_map`` runs the
+  rank's own block and the collectives go through the group.
+
+:func:`initialize_distributed` builds the group and installs its mesh
+as the ambient one; :func:`shutdown` clears it.
 
 Mesh axes:
   * ``"x"`` — the primary tiling axis (rows / batch).
@@ -20,8 +30,12 @@ for the CPU explicitly, with ``set_default_device("cpu")`` or a
 
 from __future__ import annotations
 
+import datetime
+import math
+import os
 import threading
-from typing import Dict, Optional, Tuple, Union
+import time
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -33,7 +47,13 @@ DeviceLike = Union[str, torch.device]
 _state = threading.local()
 _default_device: torch.device = torch.device("cuda")
 _global_mesh: Optional["Mesh"] = None
+# the mesh initialize_distributed built over its process group
+_group_mesh: Optional["Mesh"] = None
+# True when initialize_distributed created the default process group
+# (shutdown destroys only a group it created)
+_created_group = False
 _lock = threading.Lock()
+_dist_lock = threading.Lock()
 
 
 def resolve_device(device: Optional[DeviceLike] = None) -> torch.device:
@@ -64,24 +84,77 @@ def get_default_device() -> torch.device:
 
 
 class Mesh:
-    """A logical ``(x, y)`` grid over one device."""
+    """A logical ``(x, y)`` grid over one device, or, with ``group``,
+    the grid of the ranks of a ``torch.distributed`` process group."""
 
-    __slots__ = ("shape", "device")
+    __slots__ = ("shape", "device", "group", "rank", "coords",
+                 "_axis_groups")
 
-    def __init__(self, shape: Tuple[int, int], device: torch.device):
+    def __init__(self, shape: Tuple[int, int], device: torch.device,
+                 group=None):
         nx, ny = (int(s) for s in shape)
         if nx < 1 or ny < 1:
             raise ValueError(f"mesh shape {shape} must be positive")
         self.shape: Dict[str, int] = {AXIS_ROW: nx, AXIS_COL: ny}
         self.device = device
+        self.group = group
+        self.rank = 0
+        self.coords: Dict[str, int] = {AXIS_ROW: 0, AXIS_COL: 0}
+        # axis -> (process group or None, ranks of my row/column)
+        self._axis_groups: Dict[str, Tuple[object, List[int]]] = {}
+        if group is not None:
+            self._join(group, nx, ny)
+
+    def _join(self, group, nx: int, ny: int) -> None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size(group)
+        if nx * ny != world:
+            raise ValueError(f"group mesh {nx}x{ny} needs {nx * ny} ranks; "
+                             f"the group has {world}")
+        ranks = dist.get_process_group_ranks(group)
+        self.rank = dist.get_rank(group)
+        i, j = divmod(self.rank, ny)
+        self.coords = {AXIS_ROW: i, AXIS_COL: j}
+        # every rank creates every sub-group, in one order (new_group is
+        # collective); a sub-group of all ranks is the group itself, one
+        # of one rank other than the group is not created (its
+        # collectives are local)
+        lines = {AXIS_ROW: [[ranks[a * ny + b] for a in range(nx)]
+                            for b in range(ny)],
+                 AXIS_COL: [[ranks[a * ny + b] for b in range(ny)]
+                            for a in range(nx)]}
+        mine = {AXIS_ROW: j, AXIS_COL: i}
+        for axis in (AXIS_ROW, AXIS_COL):
+            for k, members in enumerate(lines[axis]):
+                if len(members) == world:
+                    pg = group
+                elif len(members) == 1:
+                    pg = None
+                else:
+                    pg = dist.new_group(members)
+                if k == mine[axis]:
+                    self._axis_groups[axis] = (pg, members)
 
     @property
     def axis_names(self) -> Tuple[str, str]:
         return (AXIS_ROW, AXIS_COL)
 
+    @property
+    def is_group(self) -> bool:
+        """True for a mesh over the ranks of a process group."""
+        return self.group is not None
+
+    def axis_group(self, axis: str):
+        """(process group or None, member ranks) of this rank's line
+        along ``axis`` of a group mesh."""
+        return self._axis_groups[axis]
+
     def __repr__(self) -> str:
+        extra = (f", rank={self.rank} of a group" if self.group is not None
+                 else "")
         return (f"Mesh(x={self.shape[AXIS_ROW]}, y={self.shape[AXIS_COL]}, "
-                f"device={self.device})")
+                f"device={self.device}{extra})")
 
 
 def build_mesh(shape: Tuple[int, int] = (1, 1),
@@ -97,10 +170,13 @@ def set_mesh(mesh: Optional[Mesh]) -> None:
 
 def get_mesh() -> Mesh:
     """The ambient mesh: a thread-local pin (``use_mesh``/``set_mesh``),
-    else a 1x1 mesh on the default device."""
+    else the group mesh :func:`initialize_distributed` built, else a 1x1
+    mesh on the default device."""
     mesh = getattr(_state, "mesh", None)
     if mesh is not None:
         return mesh
+    if _group_mesh is not None:
+        return _group_mesh
     global _global_mesh
     with _lock:
         if _global_mesh is None:
@@ -148,3 +224,254 @@ def device_count(mesh: Optional[Mesh] = None) -> int:
     by."""
     nx, ny = mesh_axis_sizes(mesh)
     return nx * ny
+
+
+def ambient_group() -> Optional[Mesh]:
+    """The ambient mesh when it is a group mesh, else None; unlike
+    :func:`get_mesh` it never builds the default mesh (so code that
+    takes its group form only on a group mesh runs without a default
+    device)."""
+    mesh = getattr(_state, "mesh", None)
+    if mesh is not None:
+        return mesh if mesh.group is not None else None
+    return _group_mesh
+
+
+def pinned_mesh() -> Optional[Mesh]:
+    """This thread's pinned mesh, or None (the ``shard_map`` runner
+    carries it into its worker threads)."""
+    return getattr(_state, "mesh", None)
+
+
+def factor_2d(n: int) -> Tuple[int, int]:
+    """The most-square (rows, cols) grid of ``n`` positions, favouring
+    rows (the JAX package's default mesh shape)."""
+    best = (n, 1)
+    for c in range(1, int(math.isqrt(n)) + 1):
+        if n % c == 0:
+            best = (n // c, c)
+    return best
+
+
+# -- process-group bring-up ----------------------------------------------
+
+# transient connect failures worth a retry (a coordinator that is still
+# starting, or restarting)
+_TRANSIENT = ("connection refused", "connection reset", "timed out",
+              "timeout", "unavailable", "failed to connect",
+              "no such file")
+
+
+def _env_int(*names: str) -> Optional[int]:
+    for name in names:
+        v = os.environ.get(name)
+        if v not in (None, ""):
+            return int(v)
+    return None
+
+
+def _pick_backend(backend: Optional[str], device: torch.device,
+                  world: int) -> str:
+    """The process group's backend: ``backend`` if given, else ``nccl``
+    when every rank on this host has a card of its own, else ``gloo``.
+    The ranks on this host are ``LOCAL_WORLD_SIZE`` (a launcher sets
+    it); without it, a world no larger than this host's cards has a card
+    per rank, and a larger one (several hosts, or ranks sharing cards)
+    cannot be told apart, so it raises and asks for ``backend=``."""
+    import torch.distributed as dist
+    from ..utils.log import log_info
+
+    if backend is None:
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        local_world = _env_int("LOCAL_WORLD_SIZE")
+        if device.type != "cuda":
+            backend, why = "gloo", f"the mesh's device is {device}"
+        elif local_world is None and world > cards:
+            raise ValueError(
+                f"cannot choose a backend: {world} ranks, {cards} cards on "
+                "this host and no LOCAL_WORLD_SIZE to say how many ranks "
+                "share them; pass backend='nccl' (a card per rank) or "
+                "backend='gloo', or set LOCAL_WORLD_SIZE")
+        elif cards < (local_world or world):
+            backend, why = "gloo", (f"{local_world} local ranks share "
+                                    f"{cards} cards")
+        elif not dist.is_nccl_available():
+            backend, why = "gloo", "this torch build has no NCCL"
+        else:
+            backend, why = "nccl", (f"{local_world or world} local ranks, "
+                                    f"{cards} cards")
+        log_info("process group backend %s: %s", backend, why)
+    if backend == "nccl":
+        if not dist.is_nccl_available():
+            raise RuntimeError("backend 'nccl' was asked for, but this "
+                               "torch build has no NCCL")
+        if device.type != "cuda":
+            raise RuntimeError(f"backend 'nccl' needs CUDA devices, not "
+                               f"{device}")
+    elif backend == "gloo":
+        if not dist.is_gloo_available():
+            raise RuntimeError("backend 'gloo' was asked for, but this "
+                               "torch build has no gloo")
+    else:
+        raise ValueError(f"unknown backend {backend!r}: nccl or gloo")
+    return backend
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, *,
+                           backend: Optional[str] = None,
+                           device: Optional[DeviceLike] = None,
+                           timeout_s: float = 300.0,
+                           max_attempts: int = 3,
+                           backoff_s: float = 0.5) -> bool:
+    """Bring up a ``torch.distributed`` process group and install a
+    group mesh over its ranks as the ambient mesh.
+
+    Returns False, and does nothing, unless it is given an address
+    (``coordinator_address`` as ``host:port`` or a ``file://`` URL) or
+    finds ``COORDINATOR_ADDRESS`` (the same forms)
+    or a launcher's ``MASTER_ADDR``, ``WORLD_SIZE`` and ``RANK`` in the
+    environment. The world size and
+    rank come from the arguments, else ``NUM_PROCESSES``/``PROCESS_ID``,
+    else ``WORLD_SIZE``/``RANK``.
+
+    The backend is ``nccl`` when every local rank has its own card,
+    else ``gloo`` (see :func:`_pick_backend`); ``backend=`` wins, and
+    asking for one that is missing raises. The mesh's device is ``device=``, else the CPU when the
+    default device is the CPU, else ``cuda:LOCAL_RANK`` (modulo the
+    cards, so ranks that share a card use it). The mesh shape is the
+    most-square grid of the world size (:func:`factor_2d`); another
+    layout is ``Mesh(shape, device, group=...)``.
+
+    Re-entrant: a second call returns True without dialing again; a
+    default group the caller created itself (with the address or
+    environment above) is adopted, not dialed again. Transient connect
+    failures retry up to ``max_attempts`` times with doubling
+    ``backoff_s``; every ``init_process_group`` gets ``timeout_s``."""
+    global _group_mesh, _created_group
+    import torch.distributed as dist
+
+    env_coord = os.environ.get("COORDINATOR_ADDRESS")
+    launcher = all(os.environ.get(k) for k in ("MASTER_ADDR", "WORLD_SIZE",
+                                               "RANK"))
+    want = coordinator_address is not None or bool(env_coord) or launcher
+    if not want:
+        return False
+    with _dist_lock:
+        if _group_mesh is not None:
+            return True
+        if not dist.is_available():
+            raise RuntimeError("this torch build has no torch.distributed")
+        local_rank = _env_int("LOCAL_RANK") or 0
+        if device is not None:
+            dev = torch.device(device)
+            if dev.type == "cuda" and dev.index is None:
+                resolve_device(dev)
+                dev = torch.device("cuda", torch.cuda.current_device())
+        elif _default_device.type == "cpu":
+            dev = torch.device("cpu")
+        else:
+            resolve_device("cuda")
+            dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        if dev.type == "cuda":
+            resolve_device(dev)
+            torch.cuda.set_device(dev)
+        if not dist.is_initialized():
+            world = (num_processes if num_processes is not None
+                     else _env_int("NUM_PROCESSES", "WORLD_SIZE"))
+            rank = (process_id if process_id is not None
+                    else _env_int("PROCESS_ID", "RANK"))
+            if world is None or rank is None:
+                raise ValueError("initialize_distributed needs the world "
+                                 "size and rank: pass num_processes and "
+                                 "process_id, or set WORLD_SIZE and RANK")
+            addr = coordinator_address or env_coord
+            if not addr:
+                init_method = "env://"
+            else:
+                # host:port, or a URL such as file:///path/store
+                init_method = addr if "://" in addr else f"tcp://{addr}"
+            chosen = _pick_backend(backend, dev, int(world))
+            delay = backoff_s
+            for attempt in range(max(1, max_attempts)):
+                try:
+                    dist.init_process_group(
+                        chosen, init_method=init_method,
+                        world_size=int(world), rank=int(rank),
+                        timeout=datetime.timedelta(seconds=timeout_s))
+                    break
+                except (RuntimeError, ValueError, OSError) as e:
+                    text = str(e).lower()
+                    if (attempt + 1 < max(1, max_attempts)
+                            and any(m in text for m in _TRANSIENT)):
+                        from ..utils.log import log_warn
+
+                        log_warn("process group connect attempt %d/%d "
+                                 "failed (%s); retrying in %.2fs",
+                                 attempt + 1, max_attempts, str(e)[:120],
+                                 delay)
+                        time.sleep(delay)
+                        delay *= 2
+                        continue
+                    raise
+            _created_group = True
+        elif backend is not None and dist.get_backend() != backend:
+            raise RuntimeError(f"the process group is {dist.get_backend()!r}"
+                               f", not the {backend!r} asked for")
+        _group_mesh = Mesh(factor_2d(dist.get_world_size()), dev,
+                           group=dist.group.WORLD)
+        return True
+
+
+def backend(mesh: Optional[Mesh] = None) -> Optional[str]:
+    """The process group's backend of a group mesh; None for a logical
+    mesh."""
+    mesh = mesh or get_mesh()
+    if mesh.group is None:
+        return None
+    import torch.distributed as dist
+
+    return dist.get_backend(mesh.group)
+
+
+def shutdown() -> None:
+    """Clear the ambient mesh (this thread's pin and the group mesh) and
+    destroy the process group if :func:`initialize_distributed` created
+    it."""
+    global _group_mesh, _created_group
+    _state.mesh = None
+    with _dist_lock:
+        _group_mesh = None
+        if _created_group:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            _created_group = False
+
+
+def status() -> dict:
+    """A snapshot of the cluster view: this process's index and the
+    process count, the ambient mesh, and ``torch.cuda.memory_stats``
+    aggregated over the local cards (per key the max and the sum)."""
+    from ..obs.metrics import device_memory_aggregate
+
+    mesh = get_mesh()
+    index, count = 0, 1
+    if mesh.group is not None:
+        import torch.distributed as dist
+
+        index, count = dist.get_rank(), dist.get_world_size()
+    return {
+        "platform": "gpu" if mesh.device.type == "cuda" else "cpu",
+        "device": str(mesh.device),
+        "num_devices": device_count(mesh),
+        "num_local_devices": (torch.cuda.device_count()
+                              if torch.cuda.is_available() else 0),
+        "process_index": index,
+        "process_count": count,
+        "backend": backend(mesh),
+        "mesh": {k: int(v) for k, v in mesh.shape.items()},
+        "memory_stats": device_memory_aggregate(),
+    }

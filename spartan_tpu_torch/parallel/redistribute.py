@@ -28,8 +28,9 @@ The port's mesh is logical, on one device (``parallel/mesh.py``), so
 blocks of the one tensor: ``all_gather`` is a concatenation,
 ``all_to_all`` a split and re-concatenation and ``slice`` a block pick.
 Each step copies values and never computes, so the result is bit-equal
-to its input; the multi-process form swaps in ``torch.distributed``
-collectives under the same planner (ROADMAP A3b). With the planner off,
+to its input; with local-shard storage the multi-process form swaps
+in ``torch.distributed`` collectives under the same planner (ROADMAP
+A3b-ii). With the planner off,
 or with no predicted win, :func:`constrain` returns its input with no
 copy: the tensor already holds every shard's values.
 
@@ -38,7 +39,7 @@ flag read per constrained edge when off). The flag is in
 ``expr/base._opt_flags_key``, so planned and unplanned plans never
 alias in the plan cache. Calibration factors (``_cal_factors``) wait
 for the cost ledger (ROADMAP A4): until then every factor is 1.
-``plan_rehome`` waits for ``DistArray.rehome`` (ROADMAP A3b).
+``plan_rehome`` waits for ``DistArray.rehome`` (ROADMAP A3b-iii).
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ Failures (``resilience/classify.py``):
 * ``fatal_mesh`` (a dead device, or CUDA's sticky errors, after which
   the process's CUDA context is unusable) and ``stale_mesh`` propagate
   at once: the elastic recovery of the JAX package waits for
-  ``rebuild_mesh`` and the resilience engine (ROADMAP A3b/A5).
+  ``rebuild_mesh`` and the resilience engine (ROADMAP A3b-iii/A5).
   ``resume=`` in a new process is what recovers them;
 * an I/O error while writing or reading a snapshot propagates (the
   previous snapshot stays whole).
@@ -38,7 +38,7 @@ per snapshot, and the ``REGISTRY`` counters
 ``resilience_loop_restores``. The JAX package's
 ``resilience_loop_elastic_resumes`` and
 ``resilience_checkpoint_failures`` count branches the port does not
-have (elastic recovery, ROADMAP A3b/A5; a failed snapshot write
+have (elastic recovery, ROADMAP A3b-iii/A5; a failed snapshot write
 propagates here).
 
 Layout under ``checkpoint_path`` (the JAX package's)::

@@ -17,8 +17,8 @@ swaps it into place, so a failed or killed save leaves the previous
 checkpoint whole. ``load`` verifies each shard's CRC32 (a corrupt blob
 raises ``ValueError`` naming its file) and lands the whole array on the
 current mesh's device. The multi-process branch and the cross-mesh
-migration records wait for the multi-process parallel layer (ROADMAP
-A3b; the planner they price with, ``parallel/redistribute.
+migration records wait for elasticity (ROADMAP A3b-iii; the planner
+they price with, ``parallel/redistribute.
 plan_transition``, is ported).
 """
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import os
 import tempfile
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 # Bumped on every flag write: memoized keys over flag values (the plan
 # cache's optimizer-flag key, expr/base.py) stay valid until it moves.
@@ -106,6 +106,21 @@ class FlagRegistry:
             raise AttributeError(
                 f"undefined flag: {name}; call FLAGS.define() first")
         flags[name].value = value
+
+    def parse_args(self, argv: Optional[List[str]] = None) -> List[str]:
+        """Parse ``--flag=value`` / ``--flag value`` arguments for the
+        defined flags; returns the arguments it does not know."""
+        import argparse
+
+        parser = argparse.ArgumentParser(add_help=False)
+        for flag in self._flags.values():
+            parser.add_argument("--" + flag.name, type=str, default=None)
+        ns, rest = parser.parse_known_args(argv)
+        for flag in self._flags.values():
+            text = getattr(ns, flag.name, None)
+            if text is not None:
+                flag.value = flag.parser(text)
+        return rest
 
     def snapshot(self) -> Dict[str, Any]:
         return {f.name: f.value for f in self._flags.values()}

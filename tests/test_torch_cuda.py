@@ -1043,3 +1043,109 @@ def test_map_shards_and_retile_on_the_card(card):
             blk -= blk.min().clone()
     assert torch.equal(y.tensor, want)
     assert r.tensor.data_ptr() == t.data_ptr()
+
+
+# -- the explicit SPMD layer on the card --------------------------------
+
+
+@pytest.mark.cuda
+def test_thread_runner_collectives_on_the_card(card):
+    from spartan_tpu_torch.array.tiling import Tiling
+    from spartan_tpu_torch.parallel import collectives as coll
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.parallel import shard_map as smap
+
+    mesh = mesh_mod.build_mesh((8, 1), card)
+    x = torch.randn(8 * 64, 32, device=card,
+                    generator=torch.Generator(device=card).manual_seed(5))
+    blocks = list(x.chunk(8))
+    got = smap.shard_map(
+        lambda v: torch.stack([coll.all_reduce(v, "x"),
+                               coll.ring_permute(v, "x", 1),
+                               coll.all_gather(v, "x")[:64]])[None],
+        mesh, (Tiling(("x", None)),), Tiling(("x", None, None, None)))(x)
+    acc = blocks[0]
+    for b in blocks[1:]:
+        acc = acc + b
+    for i in range(8):
+        assert torch.equal(got[i, 0], acc)
+        assert torch.equal(got[i, 1], blocks[(i - 1) % 8])
+        assert torch.equal(got[i, 2], blocks[0])
+
+
+@pytest.mark.cuda
+def test_group_forms_launch_per_position_and_logical_once(card):
+    """Under the thread runner each position launches its own kernel;
+    the logical-mesh wrappers keep one launch over all shards."""
+    from spartan_tpu_torch.array.tiling import Tiling
+    from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.kernels import stencil as kst
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.build_mesh((4, 1), card)
+    pts, c0 = _clustered(4 * 1024, 128, 8, seed=12)
+    p, c = torch.from_numpy(pts).to(card), torch.from_numpy(c0).to(card)
+    before = kk.LAUNCHES
+    s_g, n_g = kk.assign_accumulate_sharded(p, c, 8, None, mesh)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES == before + 4
+    s_1, n_1 = kk.assign_accumulate(p, c, 8)
+    torch.testing.assert_close(n_g, n_1, rtol=0, atol=0)
+    torch.testing.assert_close(s_g, s_1, rtol=2e-5, atol=1e-3)
+
+    ids = torch.randint(0, 64, (1 << 20,), device=card, dtype=torch.int32)
+    before = kh.LAUNCHES["bincount_block"]
+    one = kh.bincount_sharded(ids, 64, mesh)
+    assert kh.LAUNCHES["bincount_block"] == before + 1
+    grp = kh.bincount_group(ids, 64, mesh)
+    assert kh.LAUNCHES["bincount_block"] == before + 5
+    assert torch.equal(one, grp)
+
+    x = torch.randn(2, 64, 16, 8, device=card)
+    w = torch.randn(3, 3, 8, 16, device=card)
+    t = Tiling((None, "x", None, None))
+    before = kst.LAUNCHES["conv_block"]
+    a = kst.halo_stencil(x, w, t, mesh)
+    assert kst.LAUNCHES["conv_block"] == before + 1
+    b = kst.halo_stencil_sharded(x, w, t, mesh)
+    assert kst.LAUNCHES["conv_block"] == before + 5
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group(card, tmp_path):
+    import torch.distributed as dist
+
+    from spartan_tpu_torch.array.tiling import Tiling
+    from spartan_tpu_torch.obs.metrics import collective_totals
+    from spartan_tpu_torch.parallel import collectives as coll
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.parallel import shard_map as smap
+
+    if not dist.is_nccl_available():
+        pytest.skip("this torch build has no NCCL")
+    assert mesh_mod.initialize_distributed(
+        f"file://{tmp_path / 'store'}", num_processes=1, process_id=0,
+        backend="nccl", device=card, timeout_s=120)
+    try:
+        mesh = mesh_mod.get_mesh()
+        assert mesh.is_group and mesh_mod.backend(mesh) == "nccl"
+        before = collective_totals()
+        x = torch.randn(16, 8, device=card)
+        t = Tiling(("x", "y"))
+        for body in (lambda v: coll.all_reduce(v, "x"),
+                     lambda v: coll.all_gather(v, "y", gather_axis=1),
+                     lambda v: coll.reduce_scatter(v, "x"),
+                     lambda v: coll.all_to_all(v, "x", split_axis=1,
+                                               concat_axis=0),
+                     lambda v: coll.ring_permute(v, "y", 1)):
+            assert torch.equal(smap.shard_map(body, mesh, (t,), t)(x), x)
+        after = collective_totals()
+        assert after["collective_host_staged_calls"] == \
+            before["collective_host_staged_calls"]
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            smap.shard_map(lambda v: coll.all_reduce(v, "x"), mesh, (t,),
+                           t)(x.cpu())
+    finally:
+        mesh_mod.shutdown()
+    assert not dist.is_initialized()

@@ -422,7 +422,9 @@ def test_port_imports_no_jax():
                 "examples/streaming.py", "obs/__init__.py",
                 "obs/metrics.py", "obs/trace.py", "utils/profiling.py",
                 "parallel/redistribute.py", "expr/tiling_cost.py",
-                "expr/tiling_pass.py"):
+                "expr/tiling_pass.py", "parallel/shard_map.py",
+                "parallel/collectives.py", "parallel/pipeline.py",
+                "ops/attention.py"):
         assert os.path.join(REPO, "spartan_tpu_torch", mod) in files
     bad = []
     for path in files:
