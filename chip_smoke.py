@@ -105,13 +105,35 @@ Phases, in order; any failure exits nonzero before the result line:
     VGG-16 block with H split over the ranks, each kernel launched once
     per rank per call, with the host-staged collective counts; then a
     one-rank nccl group in this process: every collective, nothing
-    staged, config-3 k-means bit-equal to the one-pass run;
-20. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
-    with their launches per rank on the group path) and the result line.
+    staged, config-3 k-means bit-equal to the one-pass run and a 4096^2
+    ``st.dot`` under local-shard storage bit-equal to the logical mesh's,
+    nothing gathered whole;
+20. ``[local]``: local-shard storage at full width, two processes
+    sharing the card over gloo (``--local-child``), each holding only
+    its blocks: config-3 k-means (1,000,448 x 128, k = 64, 20
+    iterations through ``st.from_numpy`` -> ``st.loop`` -> ``glom``):
+    the points' bytes on each rank (its 500,224 rows), 20 launches per
+    rank, centers bit-equal across ranks and within 1e-4 of the
+    one-process run; BASELINE config 2's 8192^2 ``st.dot`` under the
+    committed plan (the plan, the bytes received, the peak memory
+    against the one-process peak, GFLOPS, the error against float64 on
+    1024 rows); ``st.sort``/``st.argsort``/``st.topk(x, 128)`` of 2^26
+    keys bit-equal to ``torch.sort`` and the one-pass top-k, with 1, 2
+    and 1 kernel launches per rank; 10 PageRank iterations over the
+    sharded SpMV (10 ``windowed_segsum`` launches per rank) within 1e-6
+    of the one-process run; ``retile`` of a 4096^2 array between every
+    pair of {row, col, block, replicated}, bit-equal, with the bytes
+    each rank received; ``calibrate_flop_weight`` over the group. No
+    path gathers an array whole (``group_materialize_calls`` stays 0);
+21. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
+    with their launches per rank on the group path, rows 1, 2, 5 and 6
+    with their launches per rank under local-shard storage) and the
+    result line.
 
 ``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
-``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK`` one
-rank of ``[spmd]``'s group; they are not meant to be run by hand.
+``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK`` and
+``--local-child DIR RANK`` one rank of ``[spmd]``'s and ``[local]``'s
+groups; they are not meant to be run by hand.
 
 Imports torch, numpy and the port only.
 """
@@ -169,6 +191,14 @@ SPMD_COLL_MESHES, SPMD_COLL_BLOCK = ((8, 1), (4, 2)), (1024, 1024)
 ATT_L, ATT_H, ATT_D, ATT_MESH, ATT_BLOCK = 16384, 16, 128, (8, 1), 512
 PIPE_STAGES, PIPE_WIDTH, PIPE_MICRO, PIPE_ROWS = 8, 4096, 32, 512
 GROUP_RANKS, GROUP_TIMEOUT_S = 2, 600
+# [local]: BASELINE config 3's points padded to whole 1024-row blocks of
+# 8 row shards (1,000,448 rows, 500,224 a rank of 2), BASELINE config
+# 2's 8192^2 product, the retile array and its layouts on the 2 x 1
+# group mesh (block is ("x", "y") with one rank on y)
+LOCAL_KM_N, LOCAL_DOT_N, LOCAL_RETILE_N = 1_000_448, 8192, 4096
+LOCAL_LAYOUTS = {"row": ("x", None), "col": (None, "x"),
+                 "block": ("x", "y"), "rep": (None, None)}
+LOCAL_CAL_N = 1024
 
 
 def _say(*args) -> None:
@@ -1550,14 +1580,16 @@ def vgg_block1(st, x, params):
     return st.maxpool(h, 2)
 
 
-def _vgg_float64(x, params):
+def _vgg_float64(x, params, pool: bool = True, bias: bool = True):
     import torch.nn.functional as F
 
     h = x.double().permute(0, 3, 1, 2)
     for w, b in params:
-        h = F.conv2d(h, w.double().permute(3, 2, 0, 1), b.double(),
-                     padding=1).clamp_min(0.0)
-    return F.max_pool2d(h, 2).permute(0, 2, 3, 1)
+        h = F.conv2d(h, w.double().permute(3, 2, 0, 1),
+                     b.double() if bias else None, padding=1).clamp_min(0.0)
+    if pool:
+        h = F.max_pool2d(h, 2)
+    return h.permute(0, 2, 3, 1)
 
 
 def phase_vgg(st, kk, kst, card: str, dev) -> dict:
@@ -3462,7 +3494,8 @@ def _child_device() -> torch.device:
 def spmd_child(workdir: str, rank: int) -> None:
     """One rank of [spmd]'s two-process gloo group on the one card: the
     group forms of the k-means, segment, histogram and stencil kernels,
-    each through the port's entry points; results to ``workdir``."""
+    each through the port's entry points, on stored DistArray blocks and
+    on whole tensors (cut to the rank's block); results to ``workdir``."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import spartan_tpu_torch as st
     from spartan_tpu_torch.array.distarray import from_tensor
@@ -3482,8 +3515,8 @@ def spmd_child(workdir: str, rank: int) -> None:
             device=dev, timeout_s=GROUP_TIMEOUT_S):
         _fail("[spmd] child: no process group")
     res = {"rank": rank, "status": mesh_mod.status()["mesh"]}
-    points = from_tensor(torch.load(os.path.join(workdir, "points.pt"))
-                         .to(dev))
+    whole = torch.load(os.path.join(workdir, "points.pt")).to(dev)
+    points = from_tensor(whole)
     c0 = np.load(os.path.join(workdir, "c0.npy"))
     kk.LAUNCHES = 0
     centers, _ = km.kmeans(points, KM_K, num_iter=KM_ITERS, centers=c0)
@@ -3492,30 +3525,60 @@ def spmd_child(workdir: str, rank: int) -> None:
     res["km_ms_per_iter"] = _wall_ms(lambda: st.loop(
         KM_ITERS, lambda c: km.kmeans_step(points, c, KM_K),
         st.from_numpy(c0)).evaluate(), reps=2) / KM_ITERS
+    # one step on the whole tensor under the group: the rank's rows only
+    c0_t = torch.from_numpy(c0).to(dev)
+    kk.LAUNCHES = 0
+    step_t = kk.step(whole, c0_t, KM_K)
+    res["km_tensor_launches"] = kk.LAUNCHES
+    res["km_tensor_equal"] = bool(torch.equal(
+        step_t, kk.step(points, c0_t, KM_K)))
+    del whole, step_t
 
+    # the group forms on the blocks each rank stores (local-shard
+    # storage: from_tensor keeps the rank's rows), and on whole tensors
     x, yt, _ = _nb_data(dev)
     ks.LAUNCHES["segment_sum_block"] = 0
-    tables = ks.segment_sum_sharded(x, yt, NB_CLASSES)
+    tables_t = ks.segment_sum_sharded(x, yt, NB_CLASSES)
+    res["seg_tensor_launches"] = ks.LAUNCHES["segment_sum_block"]
+    xd = from_tensor(x, tiling=st.Tiling(("x", None)))
+    yd = from_tensor(yt, tiling=st.Tiling(("x",)))
+    del x, yt
+    ks.LAUNCHES["segment_sum_block"] = 0
+    tables = ks.segment_sum_sharded(xd, yd, NB_CLASSES)
     res["seg_launches"] = ks.LAUNCHES["segment_sum_block"]
+    res["seg_tensor_equal"] = bool(torch.equal(tables_t, tables))
     np.save(os.path.join(workdir, f"seg{rank}.npy"), tables.cpu().numpy())
-    res["seg_ms"] = _wall_ms(lambda: ks.segment_sum_sharded(x, yt,
+    res["seg_ms"] = _wall_ms(lambda: ks.segment_sum_sharded(xd, yd,
                                                             NB_CLASSES))
-    del x, yt, tables
+    del xd, yd, tables, tables_t
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(62)
     ids = torch.randint(0, HIST_BINS, (SORT_N,), generator=gen, device=dev,
                         dtype=torch.int32)
+    want = torch.bincount(ids.long(), minlength=HIST_BINS)
     kh.LAUNCHES["bincount_block"] = 0
-    counts = kh.bincount_sharded(ids, HIST_BINS)
+    counts_t = kh.bincount_sharded(ids, HIST_BINS)
+    res["hist_tensor_launches"] = kh.LAUNCHES["bincount_block"]
+    idd = from_tensor(ids, tiling=st.Tiling(("x",)))
+    kh.LAUNCHES["bincount_block"] = 0
+    counts = kh.bincount_sharded(idd, HIST_BINS)
     res["hist_launches"] = kh.LAUNCHES["bincount_block"]
-    res["hist_equal"] = bool(torch.equal(
-        counts.long(), torch.bincount(ids.long(), minlength=HIST_BINS)))
-    res["hist_ms"] = _wall_ms(lambda: kh.bincount_sharded(ids, HIST_BINS))
-    del ids
+    res["hist_equal"] = bool(torch.equal(counts.long(), want)
+                             and torch.equal(counts_t.long(), want))
+    res["hist_ms"] = _wall_ms(lambda: kh.bincount_sharded(idd, HIST_BINS))
+    del ids, idd, counts_t, want
 
     xv, params = _vgg_params(dev)
-    X = from_tensor(xv, tiling=st.Tiling((None, "x", None, None)))
+    h_tiling = st.Tiling((None, "x", None, None))
+    kst.LAUNCHES["conv_block"] = 0
+    conv_t = kst.halo_stencil(xv, params[0][0], h_tiling)
+    res["conv_tensor_launches"] = kst.LAUNCHES["conv_block"]
+    ref1 = _vgg_float64(xv[:2], params[:1], pool=False, bias=False)
+    res["conv_tensor_err"] = float((conv_t[:2].double().clamp_min(0.0)
+                                    - ref1).abs().max())
+    del conv_t, ref1
+    X = from_tensor(xv, tiling=h_tiling)
     P = [(from_tensor(w), from_tensor(b)) for w, b in params]
     kst.LAUNCHES["conv_block"] = 0
     out = vgg_block1(st, X, P).evaluate().tensor
@@ -3578,15 +3641,24 @@ def phase_spmd_group(st, kk, ks, card: str, dev, kmr: dict,
     del x, yt
     for r, rr in enumerate(res):
         for key, want in (("km_launches", KM_ITERS), ("seg_launches", 1),
-                          ("hist_launches", 1), ("vgg_launches", 2)):
+                          ("hist_launches", 1), ("vgg_launches", 2),
+                          ("km_tensor_launches", 1),
+                          ("seg_tensor_launches", 1),
+                          ("hist_tensor_launches", 1),
+                          ("conv_tensor_launches", 1)):
             if rr[key] != want:
                 _fail(f"[spmd] rank {r}: {key} {rr[key]}, want {want}")
         if not rr["hist_equal"]:
             _fail(f"[spmd] rank {r}: bincount_sharded differs from "
                   "torch.bincount")
-        if not rr["vgg_err"] <= 1e-5:
-            _fail(f"[spmd] rank {r}: VGG block max |err| {rr['vgg_err']} "
-                  "against float64 (limit 1e-5)")
+        if not (rr["km_tensor_equal"] and rr["seg_tensor_equal"]):
+            _fail(f"[spmd] rank {r}: a whole-tensor call differs from the "
+                  f"same call on stored blocks (k-means step "
+                  f"{rr['km_tensor_equal']}, segment {rr['seg_tensor_equal']})")
+        if not rr["vgg_err"] <= 1e-5 or not rr["conv_tensor_err"] <= 1e-5:
+            _fail(f"[spmd] rank {r}: VGG block max |err| {rr['vgg_err']}, "
+                  f"halo_stencil on the whole tensor "
+                  f"{rr['conv_tensor_err']}, against float64 (limit 1e-5)")
     if not all(np.array_equal(c_, centers[0]) for c_ in centers[1:]):
         _fail("[spmd] the ranks' k-means centers differ")
     if not np.array_equal(centers[0], thread):
@@ -3613,7 +3685,12 @@ def phase_spmd_group(st, kk, ks, card: str, dev, kmr: dict,
          f"rank,"
          f" bit-equal to torch.bincount; VGG-16 block 1 (H split over the "
          f"ranks): 2 conv_block launches per rank, max |err| "
-         f"{max(rr['vgg_err'] for rr in res):.3g} (limit 1e-5)")
+         f"{max(rr['vgg_err'] for rr in res):.3g} (limit 1e-5); on whole "
+         f"tensors (each rank keeps its block): one k-means step, the "
+         f"segment sum and the bincount 1 launch per rank, bit-equal to "
+         f"the stored blocks' and torch.bincount, halo_stencil conv1_1 1 "
+         f"launch per rank, max |err| "
+         f"{max(rr['conv_tensor_err'] for rr in res):.3g} (limit 1e-5)")
     for rr in res:
         _say(f"[spmd] rank {rr['rank']}: k-means "
              f"{rr['km_ms_per_iter']:.3f} ms per iteration, segment "
@@ -3639,6 +3716,10 @@ def phase_spmd_nccl(st, kk, km, card: str, dev, kmr: dict,
     from spartan_tpu_torch.parallel import mesh as mesh_mod
     from spartan_tpu_torch.parallel import shard_map as smap
 
+    rng = np.random.RandomState(5)
+    a = rng.rand(DOT_N, DOT_N).astype(np.float32)
+    b = rng.rand(DOT_N, DOT_N).astype(np.float32)
+    want = st.dot(st.from_numpy(a), st.from_numpy(b)).glom()
     if not mesh_mod.initialize_distributed(
             "file://" + os.path.join(workdir, "nccl_store"),
             num_processes=1, process_id=0, backend="nccl", device=dev,
@@ -3654,20 +3735,360 @@ def phase_spmd_nccl(st, kk, km, card: str, dev, kmr: dict,
         centers, _ = km.kmeans(kmr["points"], KM_K, num_iter=KM_ITERS,
                                centers=kmr["c0"])
         launches = kk.LAUNCHES
+        # local-shard storage: the blocks on the card, the dot planned
+        ea = st.from_numpy(a)
+        on_card = ea.value.local.device.type == "cuda"
+        prod = st.dot(ea, st.from_numpy(b)).glom()
         after = collective_totals()
     finally:
         mesh_mod.shutdown()
     staged = (after["collective_host_staged_calls"]
               - before["collective_host_staged_calls"])
     calls = after["collective_calls"] - before["collective_calls"]
-    if staged:
-        _fail(f"[spmd] {staged} collective calls staged on nccl")
+    gathered = (after["group_materialize_calls"]
+                - before["group_materialize_calls"])
+    if staged or gathered:
+        _fail(f"[spmd] {staged} collective calls staged and {gathered} "
+              "arrays gathered whole on nccl")
     if launches != KM_ITERS or not np.array_equal(centers, kmr["ref"]):
         _fail(f"[spmd] nccl group k-means: {launches} launches, bit-equal "
               f"{np.array_equal(centers, kmr['ref'])}")
-    _say(f"[spmd] one-rank nccl group: {calls} collective calls, 0 staged; "
-         f"config-3 k-means through the group path: {launches} launches, "
-         f"centers bit-equal to the one-pass run on {card}")
+    if not on_card or not np.array_equal(prod, want):
+        _fail(f"[spmd] nccl group dot: blocks on the card {on_card}, "
+              f"bit-equal to the logical mesh's {np.array_equal(prod, want)}")
+    _say(f"[spmd] one-rank nccl group, local-shard storage: {calls} "
+         f"collective calls, 0 staged, 0 gathered whole; config-3 k-means "
+         f"through the group path: {launches} launches, centers bit-equal "
+         f"to the one-pass run; {DOT_N}^2 st.dot bit-equal to the logical "
+         f"mesh's on {card}")
+
+
+def local_child(workdir: str, rank: int) -> None:
+    """One rank of [local]'s two-process gloo group on the one card,
+    with local-shard storage at full width: config-3 k-means through
+    ``st.from_numpy`` -> ``st.loop(kmeans_step)`` -> ``glom``, config
+    2's 8192^2 ``st.dot``, ``st.sort``/``st.argsort``/``st.topk`` of
+    2^26 keys, PageRank over the sharded SpMV, retile between every
+    pair of layouts and the FLOP-weight calibration; results to
+    ``workdir``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.examples import pagerank as pr
+    from spartan_tpu_torch.expr import tiling_cost as tc
+    from spartan_tpu_torch.kernels import exchange as kx
+    from spartan_tpu_torch.kernels import kmeans as kk
+    from spartan_tpu_torch.kernels import segment as ks
+    from spartan_tpu_torch.kernels import topk as kt
+    from spartan_tpu_torch.obs.metrics import (collective_totals,
+                                               materialize_sites)
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = _child_device()
+    st.set_default_device(dev)
+    if not mesh_mod.initialize_distributed(
+            "file://" + os.path.join(workdir, "store"),
+            num_processes=GROUP_RANKS, process_id=rank, backend="gloo",
+            device=dev, timeout_s=GROUP_TIMEOUT_S):
+        _fail("[local] child: no process group")
+    mesh = st.get_mesh()
+    res = {"rank": rank, "mesh": [mesh.shape["x"], mesh.shape["y"]]}
+
+    def total(key):
+        return collective_totals()[key]
+
+    def path(name, fn):
+        """``fn()`` with the materializations and received bytes it
+        caused."""
+        m0, r0 = total("group_materialize_calls"), total(
+            "group_received_bytes")
+        out = fn()
+        res[f"{name}_mat"] = total("group_materialize_calls") - m0
+        res[f"{name}_recv"] = total("group_received_bytes") - r0
+        return out
+
+    # config-3 k-means: the points' bytes on this rank, 20 launches
+    pts_np = np.load(os.path.join(workdir, "km_points.npy"), mmap_mode="r")
+    c0 = np.load(os.path.join(workdir, "km_c0.npy"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+
+    def kmeans():
+        points = st.from_numpy(pts_np)
+        torch.cuda.synchronize()
+        res["points_bytes"] = torch.cuda.memory_allocated(dev) - before
+        res["points_local"] = list(points.value.local.shape)
+        kk.LAUNCHES = 0
+        out = st.loop(KM_ITERS, lambda c: km.kmeans_step(points, c, KM_K),
+                      st.from_numpy(c0)).glom()
+        res["km_launches"] = kk.LAUNCHES
+        return points, out
+
+    points, centers = path("km", kmeans)
+    np.save(os.path.join(workdir, f"centers{rank}.npy"), centers)
+    res["km_ms"] = _wall_ms(lambda: st.loop(
+        KM_ITERS, lambda c: km.kmeans_step(points, c, KM_K),
+        st.from_numpy(c0)).evaluate(), reps=2) / KM_ITERS
+    del points
+
+    # BASELINE config 2's dot through st.dot and the committed plan
+    a_np = np.load(os.path.join(workdir, "dot_a.npy"), mmap_mode="r")
+    b_np = np.load(os.path.join(workdir, "dot_b.npy"), mmap_mode="r")
+    # the peak over what the operands and the product add
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ea, eb = st.from_numpy(a_np), st.from_numpy(b_np)
+    nodes = st.dag_nodes(st.optimize(st.dot(ea, eb)))
+    res["dot_plan"] = sorted(str((n._dot_plan[0].axes, n._dot_plan[1]))
+                             for n in nodes
+                             if getattr(n, "_dot_plan", None) is not None)
+    c0_calls = total("collective_bytes")
+    prod = path("dot", lambda: st.dot(ea, eb).evaluate())
+    torch.cuda.synchronize()
+    res["dot_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    res["dot_coll_bytes"] = total("collective_bytes") - c0_calls
+    best = _wall_ms(lambda: st.dot(ea, eb).evaluate(), reps=2) / 1e3
+    res["dot_gflops"] = 2.0 * LOCAL_DOT_N ** 3 / best / 1e9
+    c = prod.glom()
+    sl = np.asarray(a_np[:1024], np.float64)
+    ref = (torch.from_numpy(sl).to(dev)
+           @ torch.from_numpy(np.asarray(b_np, np.float64)).to(dev)).cpu()
+    res["dot_err"] = float((torch.from_numpy(c[:1024]).double() - ref)
+                           .abs().max() / ref.abs().max())
+    del ea, eb, prod, c, ref
+
+    # sort, argsort and top-k of 2^26 keys on the stored row blocks
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    keys = torch.rand(SORT_N, generator=gen, device=dev)
+    x = st.as_expr(from_tensor(keys))
+    for name, fn, want in (
+            ("sort", lambda: st.sort(x).glom(),
+             lambda: torch.sort(keys).values),
+            ("argsort", lambda: st.argsort(x).glom(),
+             lambda: torch.sort(keys, stable=True).indices.to(torch.int32))):
+        kx.LAUNCHES["partition_pack"] = 0
+        got = path(name, fn)
+        res[f"{name}_launches"] = kx.LAUNCHES["partition_pack"]
+        res[f"{name}_equal"] = bool(np.array_equal(
+            got.view(np.int32), want().cpu().numpy().view(np.int32)))
+        del got
+        res[f"{name}_ms"] = _wall_ms(
+            lambda: (st.sort if name == "sort" else st.argsort)(x)
+            .evaluate(), reps=2)
+    kt.LAUNCHES["shard_topk"] = 0
+    vals, idx = st.topk(x, TOPK_K)
+    # values and indices in one plan: one top-k, one launch a rank
+    tv, ti = path("topk", lambda: st.tuple_of(vals, idx).glom())
+    res["topk_launches"] = kt.LAUNCHES["shard_topk"]
+    wv, wi = kt.top_k(keys, TOPK_K)
+    res["topk_equal"] = bool(
+        np.array_equal(ti, wi.to(torch.int32).cpu().numpy())
+        and np.array_equal(tv.view(np.int32),
+                           wv.cpu().numpy().view(np.int32)))
+    res["topk_ms"] = _wall_ms(lambda: st.topk(x, TOPK_K)[1].evaluate(),
+                              reps=2)
+    del x, keys, vals, idx
+
+    # PageRank at the [pagerank] plan over the sharded SpMV
+    links = pagerank_links(st.SparseDistArray)
+    links.transition()._ensure_plan()
+    ks.LAUNCHES["windowed_segsum"] = 0
+    ranks = path("pagerank", lambda: pr.pagerank(links, num_iter=PR_ITERS))
+    res["pagerank_launches"] = ks.LAUNCHES["windowed_segsum"]
+    np.save(os.path.join(workdir, f"ranks{rank}.npy"), ranks)
+    res["pagerank_ms"] = _wall_ms(lambda: pr.pagerank(links,
+                                                      num_iter=PR_ITERS),
+                                  reps=2)
+    del links
+
+    # retile between every pair of layouts: each rank's block, bit-equal
+    gen.manual_seed(31)
+    whole = torch.rand(LOCAL_RETILE_N, LOCAL_RETILE_N, generator=gen,
+                       device=dev)
+    res["retile"] = {}
+    for s_name, s_axes in LOCAL_LAYOUTS.items():
+        src = from_tensor(whole, tiling=st.Tiling(s_axes))
+        for d_name, d_axes in LOCAL_LAYOUTS.items():
+            t = st.Tiling(d_axes)
+            r0 = total("group_received_bytes")
+            out = src.retile(t)
+            torch.cuda.synchronize()
+            recv = total("group_received_bytes") - r0
+            ext = t.block_extent(src.shape, mesh)
+            res["retile"][f"{s_name}->{d_name}"] = [
+                bool(torch.equal(out.local, whole[ext.to_slice()])), recv]
+    del whole, src, out
+
+    res["flop_weight"] = tc.calibrate_flop_weight(LOCAL_CAL_N, mesh=mesh)
+    # the plan the DP gives config 2's dot at the calibrated weight
+    # (planned only; every rank has the same weight)
+    prev = st.FLAGS.tiling_flop_weight
+    st.FLAGS.tiling_flop_weight = res["flop_weight"]
+    try:
+        za, zb = (st.zeros((LOCAL_DOT_N, LOCAL_DOT_N)) for _ in range(2))
+        res["dot_plan_calibrated"] = sorted(
+            str((n._dot_plan[0].axes, n._dot_plan[1]))
+            for n in st.dag_nodes(st.optimize(st.dot(za, zb)))
+            if getattr(n, "_dot_plan", None) is not None)
+        del za, zb
+    finally:
+        st.FLAGS.tiling_flop_weight = prev
+    res["sites"] = materialize_sites()
+    res["totals"] = collective_totals()
+    with open(os.path.join(workdir, f"local{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh_mod.shutdown()
+
+
+def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
+    """[local]: local-shard storage on two gloo processes sharing the
+    card, each holding only its blocks, against one-process runs here."""
+    t0 = time.perf_counter()
+    pts_np, c0_np, _ = _data(LOCAL_KM_N, KM_D, KM_K, "clustered", 0)
+    np.save(os.path.join(workdir, "km_points.npy"), pts_np)
+    np.save(os.path.join(workdir, "km_c0.npy"), c0_np)
+    rng = np.random.RandomState(2)
+    a_np = rng.rand(LOCAL_DOT_N, LOCAL_DOT_N).astype(np.float32)
+    b_np = rng.rand(LOCAL_DOT_N, LOCAL_DOT_N).astype(np.float32)
+    np.save(os.path.join(workdir, "dot_a.npy"), a_np)
+    np.save(os.path.join(workdir, "dot_b.npy"), b_np)
+    # the one-process runs on this process's logical 1 x 1 mesh
+    points = st.from_numpy(pts_np)
+    one_km = st.loop(KM_ITERS, lambda c: km.kmeans_step(points, c, KM_K),
+                     st.from_numpy(c0_np)).glom()
+    one_km_ms = _wall_ms(lambda: st.loop(
+        KM_ITERS, lambda c: km.kmeans_step(points, c, KM_K),
+        st.from_numpy(c0_np)).evaluate(), reps=2) / KM_ITERS
+    del points
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ea, eb = st.from_numpy(a_np), st.from_numpy(b_np)
+    st.dot(ea, eb).evaluate()
+    torch.cuda.synchronize()
+    one_dot_peak = torch.cuda.max_memory_allocated() - base
+    one_dot_gflops = 2.0 * LOCAL_DOT_N ** 3 / (_wall_ms(
+        lambda: st.dot(ea, eb).evaluate(), reps=2) / 1e3) / 1e9
+    del ea, eb, a_np, b_np, pts_np
+    one_ranks = pr.pagerank(links, num_iter=PR_ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--local-child", workdir, str(r)])
+             for r in range(GROUP_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=GROUP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _fail(f"[local] a group child did not finish in {GROUP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t1
+    if any(p.returncode != 0 for p in procs):
+        _fail(f"[local] group children exited "
+              f"{[p.returncode for p in procs]}")
+    res = []
+    for r in range(GROUP_RANKS):
+        with open(os.path.join(workdir, f"local{r}.json")) as f:
+            res.append(json.load(f))
+    centers = [np.load(os.path.join(workdir, f"centers{r}.npy"))
+               for r in range(GROUP_RANKS)]
+    ranks = [np.load(os.path.join(workdir, f"ranks{r}.npy"))
+             for r in range(GROUP_RANKS)]
+    block = LOCAL_KM_N // GROUP_RANKS * KM_D * 4
+    for r, rr in enumerate(res):
+        want = {"km_launches": KM_ITERS, "sort_launches": 1,
+                "argsort_launches": 2, "topk_launches": 1,
+                "pagerank_launches": PR_ITERS}
+        for key, n in want.items():
+            if rr[key] != n:
+                _fail(f"[local] rank {r}: {key} {rr[key]}, want {n}")
+        for name in ("km", "dot", "sort", "argsort", "topk", "pagerank"):
+            if rr[f"{name}_mat"] != 0:
+                _fail(f"[local] rank {r}: the {name} path gathered "
+                      f"{rr[f'{name}_mat']} arrays whole "
+                      f"({rr['sites']})")
+        if rr["points_bytes"] != block or rr["points_local"] != [
+                LOCAL_KM_N // GROUP_RANKS, KM_D]:
+            _fail(f"[local] rank {r} holds {rr['points_bytes']} bytes "
+                  f"{rr['points_local']} of the points, want its block of "
+                  f"{block}")
+        for key in ("sort_equal", "argsort_equal", "topk_equal"):
+            if not rr[key]:
+                _fail(f"[local] rank {r}: {key} is False")
+        if not rr["dot_err"] <= 1e-5:
+            _fail(f"[local] rank {r}: 8192^2 dot rel err {rr['dot_err']} "
+                  "against float64 (limit 1e-5)")
+        bad = [k for k, (ok, _) in rr["retile"].items() if not ok]
+        if bad:
+            _fail(f"[local] rank {r}: retile {bad} not bit-equal")
+    if len({(rr["flop_weight"], str(rr["dot_plan_calibrated"]))
+            for rr in res}) != 1:
+        _fail("[local] the ranks' calibrated FLOP weights or their plans "
+              "differ")
+    if not all(np.array_equal(c, centers[0]) for c in centers[1:]):
+        _fail("[local] the ranks' k-means centers differ")
+    km_diff = float(np.abs(centers[0] - one_km).max())
+    if not km_diff <= 1e-4:
+        _fail(f"[local] k-means differs from the one-process run by "
+              f"{km_diff} (atol 1e-4)")
+    pr_err = max(float(np.abs(rk - one_ranks).max()) for rk in ranks) \
+        / float(one_ranks.max())
+    if not pr_err <= 1e-6:
+        _fail(f"[local] PageRank differs from the one-process run by "
+              f"{pr_err} of the largest rank (limit 1e-6)")
+    r0 = res[0]
+    _say(f"[local] {GROUP_RANKS} gloo processes on the one card, mesh "
+         f"{tuple(r0['mesh'])}, local-shard storage ({wall:.1f} s with "
+         f"their start-up): config-3 k-means {LOCAL_KM_N}x{KM_D} k={KM_K}: "
+         f"each rank holds {r0['points_bytes']} bytes of points "
+         f"({r0['points_bytes'] / 1e6:.1f} MB, its {LOCAL_KM_N // 2} "
+         f"rows; whole storage held {2 * block / 1e6:.1f} MB), "
+         f"{KM_ITERS} launches per rank, 0 gathered whole, centers "
+         f"bit-equal across ranks, max |diff| {km_diff:.3g} to the "
+         f"one-process run (atol 1e-4)")
+    for rr in res:
+        _say(f"[local] rank {rr['rank']}: k-means {rr['km_ms']:.3f} ms per "
+             f"iteration (one process here: {one_km_ms:.3f} ms); dot "
+             f"{LOCAL_DOT_N}^2 plan {rr['dot_plan']}, {rr['dot_gflops']:.1f}"
+             f" GFLOPS (one process here: {one_dot_gflops:.1f}), received "
+             f"{rr['dot_recv']} bytes ({rr['dot_coll_bytes']} into "
+             f"collectives), peak over the operands and the product "
+             f"{rr['dot_peak'] / 1e6:.1f} MB (one process: "
+             f"{one_dot_peak / 1e6:.1f} MB), rel err "
+             f"{rr['dot_err']:.3g} vs float64 on 1024 rows; sort "
+             f"{rr['sort_ms']:.1f} ms (1 partition_pack launch), argsort "
+             f"{rr['argsort_ms']:.1f} ms (2), top-{TOPK_K} "
+             f"{rr['topk_ms']:.1f} ms (1 shard_topk launch), bit-equal to "
+             f"torch.sort and the one-pass top-k; PageRank "
+             f"{PR_ITERS} iterations {rr['pagerank_ms']:.1f} ms "
+             f"({PR_ITERS} windowed_segsum launches), max |diff| "
+             f"{pr_err:.3g} of the largest rank to the one-process run; "
+             f"0 gathered whole on each path (host clock; two processes "
+             f"time-slice one card) on {card}")
+        _say(f"[local] rank {rr['rank']}: retile {LOCAL_RETILE_N}^2 f32 "
+             f"between {list(LOCAL_LAYOUTS)} (bit-equal; bytes received): "
+             + ", ".join(f"{k} {v[1]}" for k, v in rr["retile"].items()))
+        _say(f"[local] rank {rr['rank']}: calibrate_flop_weight "
+             f"({LOCAL_CAL_N}^2 matmul against a row -> replicated gather "
+             f"over the gloo group, host-staged) = {rr['flop_weight']:.4g},"
+             f" the DP's plan for the {LOCAL_DOT_N}^2 dot at that weight "
+             f"{rr['dot_plan_calibrated']};"
+             f" gathered whole by site over the whole child: "
+             f"{rr['sites']}; staged through host memory "
+             f"{rr['totals']['collective_host_staged_calls']} calls "
+             f"{rr['totals']['collective_host_staged_bytes']} bytes")
+    _say(f"[local] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return {"kmeans": r0["km_launches"], "partition_pack": r0["sort_launches"],
+            "shard_topk": r0["topk_launches"],
+            "windowed_segsum": r0["pagerank_launches"]}
 
 
 def phase_spmd(st, kk, ks, km, card: str, dev, kmr: dict) -> dict:
@@ -3691,6 +4112,9 @@ def main() -> None:
         return
     if len(sys.argv) == 4 and sys.argv[1] == "--spmd-child":
         spmd_child(sys.argv[2], int(sys.argv[3]))
+        return
+    if len(sys.argv) == 4 and sys.argv[1] == "--local-child":
+        local_child(sys.argv[2], int(sys.argv[3]))
         return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -3756,6 +4180,11 @@ def main() -> None:
     strr = phase_streaming(st, kk, card, dev, kmr["points"], kmr["c0"])
     phase_planner(st, kk, km, card, dev, kmr["points"], kmr["c0"])
     grp = phase_spmd(st, kk, ks, km, card, dev, kmr)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_local_")
+    try:
+        loc = phase_local(st, kk, km, pr, links, card, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -3767,14 +4196,16 @@ def main() -> None:
         "estimator_launches": exr["kmeans_launches"],
         "ckpt_loop_launches": cklr["launches"],
         "refine_launches": strr["launches"],
-        "group_launches_per_rank": grp["kmeans"]}, {
+        "group_launches_per_rank": grp["kmeans"],
+        "local_launches_per_rank": loc["kmeans"]}, {
         "name": "windowed_segsum", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:148",
         "launches": prr["launches"], "max_abs_err": seg_err["windowed_err"],
         "ms": prr["ms"], "plain_ms": prr["plain_ms"],
         "bound_ms": prr["bound_ms"], "bound_by": prr["bound_by"],
-        "library_ms": prr["library_ms"]}, {
+        "library_ms": prr["library_ms"],
+        "local_launches_per_rank": loc["windowed_segsum"]}, {
         "name": "segment_sum_block", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:33",
@@ -3792,14 +4223,16 @@ def main() -> None:
         "launches": sortr["launches"], "max_abs_err": 0.0,
         "ms": sortr["ms"], "plain_ms": sortr["plain_ms"],
         "bound_ms": sortr["bound_ms"], "bound_by": sortr["bound_by"],
-        "library_ms": sortr["library_ms"]}, {
+        "library_ms": sortr["library_ms"],
+        "local_launches_per_rank": loc["partition_pack"]}, {
         "name": "shard_topk", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/topk.cu",
         "replaces": "spartan_tpu/kernels/topk.py:30",
         "launches": topkr["launches"], "max_abs_err": topk_err,
         "ms": topkr["ms"], "plain_ms": topkr["plain_ms"],
         "bound_ms": topkr["bound_ms"], "bound_by": topkr["bound_by"],
-        "library_ms": topkr["library_ms"]}, {
+        "library_ms": topkr["library_ms"],
+        "local_launches_per_rank": loc["shard_topk"]}, {
         "name": "bincount_block", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/histogram.cu",
         "replaces": "spartan_tpu/kernels/histogram.py:24",

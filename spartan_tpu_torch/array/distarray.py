@@ -1,22 +1,42 @@
-"""DistArray: one tensor on one device plus the Tiling that describes
-its tiles.
+"""DistArray: an array's data on the mesh plus the Tiling that
+describes its tiles.
 
 Port of ``spartan_tpu/array/distarray.py``. There a DistArray is a
-GSPMD-sharded ``jax.Array``; here the data is one ``torch.Tensor`` on
-the mesh's device, and the tiling is metadata: ``extents()`` gives the
-tile map over the logical mesh, the same as the JAX package's at the
-same mesh shape. Creation functions take an explicit ``device`` (default
-device when None) and random fills take a seed for a
-``torch.Generator``.
+GSPMD-sharded ``jax.Array`` and each device holds its shard. Here the
+storage follows the mesh (``parallel/mesh.py``):
+
+* on a **logical mesh** the data is one ``torch.Tensor`` on the mesh's
+  device and the tiling is metadata: ``extents()`` gives the tile map,
+  the same as the JAX package's at the same mesh shape;
+* on a **group mesh** each rank holds only its block, the
+  ``Tiling.block_extent`` of the rank's coordinates (a replicated mesh
+  axis holds the same block on every rank along it), and the global
+  ``shape`` and ``dtype`` are metadata. :attr:`DistArray.local` is the
+  block; :attr:`DistArray.tensor` gathers the whole array on every rank
+  and counts it (``group_materialize_calls``/``_bytes`` by site in
+  ``obs.metrics``), so nothing gathers silently. ``from_numpy`` and its
+  kin copy only the rank's block to the device (every rank passes the
+  whole host array, as every JAX process does for ``device_put``),
+  ``retile`` is a real move between the ranks
+  (``parallel/redistribute.relayout``), ``glom`` gathers to every rank,
+  ``fetch`` moves only the region, ``update`` writes where the region
+  meets the block and ``map_shards`` runs on the block.
+
+On the logical mesh ``local`` is the whole tensor. The constructor
+takes the WHOLE tensor on either mesh (a group rank keeps its block of
+it); :meth:`DistArray.from_local` wraps a block a rank already holds.
+Creation functions take an explicit ``device`` (default device when
+None) and random fills take a seed for a ``torch.Generator``.
 
 ``update`` is a functional region write: it returns a new array and
 leaves this one as it was. Donation (``donate()``,
-``evaluate(donate=...)``) releases the handle's tensor after the
+``evaluate(donate=...)``) releases the handle's data after the
 evaluation that consumes it: the memory is freed once nothing else holds
-the tensor, and any later use of the handle raises. The port never
-writes a donated tensor in place, so a cached plan, a loop closure or
-another handle that still holds it reads what it held. The incremental
-engine's lineage (``_record_mutation``) waits for that engine.
+the tensor, and any later use of the handle's data raises (its shape
+and dtype stay readable). The port never writes a donated tensor in
+place, so a cached plan, a loop closure or another handle that still
+holds it reads what it held. The incremental engine's lineage
+(``_record_mutation``) waits for that engine.
 """
 
 from __future__ import annotations
@@ -62,28 +82,68 @@ _COMBINE = {"add": torch.add, "multiply": torch.mul, "max": torch.maximum,
             "min": torch.minimum}
 
 
-class DistArray:
-    """A tensor on the mesh's device and its :class:`Tiling`."""
+def _owned_block(whole: torch.Tensor, ext: TileExtent,
+                 device: torch.device) -> torch.Tensor:
+    """``whole``'s block at ``ext`` on ``device``, in storage of its own
+    (a view would keep the whole tensor alive); the whole tensor itself
+    when the block is all of it."""
+    if tuple(ext.shape) == tuple(whole.shape):
+        return whole.to(device)
+    blk = whole[ext.to_slice()]
+    out = torch.empty(blk.shape, dtype=blk.dtype, device=device)
+    return out.copy_(blk)
 
-    __slots__ = ("_tensor", "tiling", "mesh", "_donate_next",
-                 "_donate_site")
+
+class DistArray:
+    """An array's data on the mesh and its :class:`Tiling`: the whole
+    tensor on a logical mesh, the rank's block on a group mesh."""
+
+    __slots__ = ("_local", "tiling", "mesh", "_shape", "_dtype",
+                 "_donate_next", "_donate_site")
 
     def __init__(self, tensor: torch.Tensor, tiling: Tiling,
                  mesh: Optional[Mesh] = None):
+        """Wrap the WHOLE ``tensor``; a group rank keeps its block."""
         if tiling.ndim != tensor.ndim:
             raise ValueError(
                 f"tiling rank {tiling.ndim} != array rank {tensor.ndim}")
-        self._tensor = tensor
+        mesh = mesh or mesh_mod.get_mesh()
+        shape = tuple(int(s) for s in tensor.shape)
+        if mesh.is_group:
+            tensor = _owned_block(tensor, tiling.block_extent(shape, mesh),
+                                  tensor.device)
+        self._set(tensor, tiling, mesh, shape)
+
+    def _set(self, local: torch.Tensor, tiling: Tiling, mesh: Mesh,
+             shape: tuple) -> None:
+        self._local = local
+        self._dtype = local.dtype
         self._donate_next = False
         self._donate_site = None
         self.tiling = tiling
-        self.mesh = mesh or mesh_mod.get_mesh()
+        self.mesh = mesh
+        self._shape = shape
+
+    @classmethod
+    def from_local(cls, block: torch.Tensor, tiling: Tiling, shape,
+                   mesh: Mesh) -> "DistArray":
+        """An array of global ``shape`` of which this rank holds ``block``
+        (its ``tiling.block_extent``; on a logical mesh, the whole)."""
+        shape = tuple(int(s) for s in shape)
+        want = (tiling.block_extent(shape, mesh).shape if mesh.is_group
+                else shape)
+        if tuple(block.shape) != tuple(want) or tiling.ndim != len(shape):
+            raise ValueError(f"block {tuple(block.shape)} is not the block "
+                             f"{tuple(want)} of {shape} under {tiling} on "
+                             f"{mesh}")
+        arr = cls.__new__(cls)
+        arr._set(block, tiling, mesh, shape)
+        return arr
 
     # -- donation -------------------------------------------------------
 
-    @property
-    def tensor(self) -> torch.Tensor:
-        t = self._tensor
+    def _data(self) -> torch.Tensor:
+        t = self._local
         if t is None:
             site = (f" (donated at {self._donate_site[0]}:"
                     f"{self._donate_site[1]}, in {self._donate_site[2]})"
@@ -94,6 +154,34 @@ class DistArray:
                 f"{site}; rebuild the array (or keep a copy) instead of "
                 "reusing the donated handle")
         return t
+
+    @property
+    def local(self) -> torch.Tensor:
+        """This rank's block (the whole tensor on a logical mesh)."""
+        return self._data()
+
+    @property
+    def tensor(self) -> torch.Tensor:
+        """The whole array. On a group mesh every rank gathers it, and
+        the gather is counted (site ``tensor``)."""
+        return self.materialize("tensor")
+
+    def materialize(self, site: str) -> torch.Tensor:
+        """The whole array on every rank; on a group mesh a gather over
+        the mesh axes that tile it, counted as
+        ``group_materialize_calls{site=site}`` (a replicated array
+        gathers nothing and is not counted)."""
+        t = self._data()
+        if not self.mesh.is_group:
+            return t
+        from ..parallel import collectives as coll
+
+        whole = coll.gather_whole(t, self.tiling, self._shape, self.mesh)
+        if self.is_split:
+            from ..obs.metrics import record_materialize
+
+            record_materialize(site, whole.numel() * whole.element_size())
+        return whole
 
     def donate(self) -> "DistArray":
         """Release this array's tensor to the next evaluation that
@@ -109,38 +197,38 @@ class DistArray:
 
     @property
     def is_donated(self) -> bool:
-        return self._tensor is None
+        return self._local is None
 
     def _release_donated(self) -> None:
         """Called by ``evaluate`` after the evaluation that consumed a
         donated leaf."""
-        self._tensor = None
+        self._local = None
         self._donate_next = False
 
-    # -- basic properties ----------------------------------------------
+    # -- basic properties (metadata: nothing is gathered) ----------------
 
     @property
     def shape(self) -> tuple:
-        return tuple(self.tensor.shape)
+        return self._shape
 
     @property
     def dtype(self) -> np.dtype:
-        return dtypes.to_numpy(self.tensor.dtype)
+        return dtypes.to_numpy(self._dtype)
 
     @property
     def ndim(self) -> int:
-        return self.tensor.ndim
+        return len(self._shape)
 
     @property
     def size(self) -> int:
-        return int(self.tensor.numel())
+        return int(np.prod(self._shape, dtype=np.int64))
 
     @property
     def device(self) -> torch.device:
-        return self.tensor.device
+        return self._data().device
 
     def __repr__(self) -> str:
-        if self._tensor is None:
+        if self._local is None:
             return f"DistArray(<donated>, tiling={self.tiling})"
         return (f"DistArray(shape={self.shape}, dtype={self.dtype}, "
                 f"tiling={self.tiling}, device={self.device})")
@@ -150,23 +238,66 @@ class DistArray:
     def extents(self) -> List[TileExtent]:
         return self.tiling.extents(self.shape, self.mesh)
 
+    @property
+    def is_split(self) -> bool:
+        """True when a mesh axis of more than one position tiles it (on a
+        group mesh the ranks then hold different blocks)."""
+        return any(tiling_mod.tile_count(a, self.mesh) > 1
+                   for a in self.tiling.axes)
+
+    def block_extent(self) -> TileExtent:
+        """The extent of :attr:`local` (the whole on a logical mesh)."""
+        if not self.mesh.is_group:
+            return TileExtent((0,) * self.ndim, self.shape, self.shape)
+        return self.tiling.block_extent(self.shape, self.mesh)
+
     # -- data access ----------------------------------------------------
 
     def glom(self) -> np.ndarray:
         """Fetch the whole array to the host (a ``fetch`` phase: the copy
-        waits for the device work that produced the tensor)."""
+        waits for the device work that produced the tensor). On a group
+        mesh every rank gathers the blocks (not a materialization: the
+        caller asked for the whole)."""
+        from ..parallel import collectives as coll
         from ..utils import profiling as prof
 
         with prof.phase("fetch") as sp:
             sp.set(shape=self.shape, dtype=str(self.dtype))
-            return dtypes.to_host(self.tensor)
+            t = self._data()
+            if self.mesh.is_group:
+                t = coll.gather_whole(t, self.tiling, self._shape, self.mesh)
+            return dtypes.to_host(t)
 
     def fetch(self, region: Any) -> np.ndarray:
         """Fetch a rectangular region (a TileExtent or a slice/int index)
-        to the host."""
+        to the host. On a group mesh each rank puts the part of the
+        region its block holds, and the one owner of each element (the
+        first position along the axes that replicate the array) sends
+        it: only the region's bytes move."""
         if not isinstance(region, TileExtent):
             region = extent_mod.from_slice(region, self.shape)
-        return dtypes.to_host(self.tensor[region.to_slice()])
+        t = self._data()
+        if not self.mesh.is_group or not self.is_split:
+            return dtypes.to_host(t[region.to_slice()])
+        from ..parallel import collectives as coll
+
+        out = torch.zeros(region.shape, dtype=t.dtype, device=t.device)
+        mine = self.block_extent()
+        part = region.intersection(mine) if region.size else None
+        if part is not None and self.is_first_copy:
+            out[part.offset_from(region).to_slice()] = \
+                t[part.offset_from(mine).to_slice()]
+        return dtypes.to_host(coll.combine_owned(
+            out, self.mesh.axis_names, self.mesh))
+
+    @property
+    def is_first_copy(self) -> bool:
+        """True at the first position along every mesh axis that does
+        not tile this array (the one that sends a replicated block)."""
+        used = {sub for a in self.tiling.axes
+                for sub in tiling_mod.mesh_axes_of(a)}
+        return not any(self.mesh.coords[a] for a in self.mesh.axis_names
+                       if a not in used)
 
     def update(self, region: Any, data: Any,
                reducer: Any = None) -> "DistArray":
@@ -174,36 +305,45 @@ class DistArray:
         TileExtent or a slice/int index) holds ``reducer(existing, data)``
         (default: overwrite); this array is unchanged. ``data`` is cast
         to this array's dtype and broadcast to the region's shape; the
-        reducers combine in that dtype (integers wrap)."""
+        reducers combine in that dtype (integers wrap). On a group mesh
+        each rank writes where the region meets its block."""
         if not isinstance(region, TileExtent):
             region = extent_mod.from_slice(region, self.shape)
         op = REDUCERS[_canonical_reducer(reducer)]
-        x = self.tensor
+        x = self._data()
         d = _as_tensor(data, x.dtype, x.device)
-        sl = region.to_slice()
         d = torch.broadcast_to(d, region.shape)
+        mine = self.block_extent()
         out = x.clone()
-        out[sl] = d if op == "set" else dtypes.call(_COMBINE[op], out[sl], d)
-        return DistArray(out, self.tiling, self.mesh)
-
+        part = region.intersection(mine) if region.size else None
+        if part is not None:
+            sl = part.offset_from(mine).to_slice()
+            dp = d[part.offset_from(region).to_slice()]
+            out[sl] = dp if op == "set" else dtypes.call(_COMBINE[op],
+                                                         out[sl], dp)
+        return DistArray.from_local(out, self.tiling, self.shape, self.mesh)
 
     # -- retiling -------------------------------------------------------
 
     def retile(self, new_tiling: Tiling) -> "DistArray":
-        """This array under ``new_tiling``. On the port's one-device
-        logical mesh a tiling is metadata, so the new handle shares the
-        tensor: nothing moves, and donating either handle leaves the
-        other valid (donation drops a handle, never the data another
-        handle holds). The JAX package's ``device_put`` to the new
-        sharding becomes a real move with local-shard storage (ROADMAP
-        A3b-ii); ``parallel/redistribute.apply_schedule`` is the
-        explicit per-shard form."""
+        """This array under ``new_tiling``. On a logical mesh a tiling is
+        metadata, so the new handle shares the tensor: nothing moves, and
+        donating either handle leaves the other valid (donation drops a
+        handle, never the data another handle holds). On a group mesh it
+        is the JAX package's ``device_put`` to the new sharding: a real
+        move between the ranks (``parallel/redistribute.relayout``: the
+        planner's schedule over the group, else an all-gather and a
+        slice)."""
         if new_tiling == self.tiling:
             return self
         if new_tiling.ndim != self.ndim:
             raise ValueError(f"tiling rank {new_tiling.ndim} != array "
                              f"rank {self.ndim}")
-        return DistArray(self.tensor, new_tiling, self.mesh)
+        if self.mesh.is_group:
+            from ..parallel import redistribute as redist_mod
+
+            return redist_mod.relayout(self, new_tiling)
+        return DistArray(self._data(), new_tiling, self.mesh)
 
     def replicate(self) -> "DistArray":
         return self.retile(tiling_mod.replicated(self.ndim))
@@ -216,26 +356,28 @@ class DistArray:
         shard's block independently (owner-computes, no communication)
         and reassemble the blocks, as the JAX package's ``shard_map``
         does. Replicated mesh axes hold the same block on every shard,
-        so each distinct block runs once. Needs the tiling to divide
-        the shape, as ``shard_map`` does."""
+        so each distinct block runs once; on a group mesh the rank runs
+        its own block. Needs the tiling to divide the shape, as
+        ``shard_map`` does."""
         if not self.tiling.divisible(self.shape, self.mesh):
             raise ValueError(
                 f"map_shards needs a tiling that divides the shape: "
                 f"{self.tiling} over {self.shape} on {self.mesh}")
-        x = self.tensor
+        x = self._data()
+        base = self.block_extent()
         out = None
-        for ext in self.extents():
-            sl = ext.to_slice()
+        for ext in [base] if self.mesh.is_group else self.extents():
+            sl = ext.offset_from(base).to_slice()
             blk = fn(x[sl])
             if tuple(blk.shape) != tuple(ext.shape):
                 raise ValueError(
                     f"map_shards fn must preserve the block shape: "
                     f"{tuple(ext.shape)} -> {tuple(blk.shape)}")
             if out is None:
-                out = torch.empty(self.shape, dtype=blk.dtype,
+                out = torch.empty(x.shape, dtype=blk.dtype,
                                   device=x.device)
             out[sl] = blk
-        return DistArray(out, self.tiling, self.mesh)
+        return DistArray.from_local(out, self.tiling, self.shape, self.mesh)
 
 
 def _as_tensor(data: Any, dtype: torch.dtype,
@@ -243,7 +385,7 @@ def _as_tensor(data: Any, dtype: torch.dtype,
     """``data`` (a DistArray, tensor, array or scalar) as a tensor of
     ``dtype`` on ``device``, cast as ``jnp.asarray(data, dtype)`` casts."""
     if isinstance(data, DistArray):
-        data = data.tensor
+        data = data.materialize("update")
     if not isinstance(data, torch.Tensor):
         data = dtypes.from_host(np.array(data, order="C"))
     return data.to(device=device, dtype=dtype)
@@ -266,8 +408,14 @@ def _resolve(shape: Sequence[int], tiling: Optional[Tiling],
 
 def from_tensor(t: torch.Tensor, tiling: Optional[Tiling] = None,
                 mesh: Optional[Mesh] = None) -> DistArray:
-    """Wrap a tensor (moved to the mesh's device when elsewhere)."""
+    """Wrap a whole tensor (moved to the mesh's device when elsewhere;
+    on a group mesh only the rank's block is kept and moved)."""
     tiling, mesh = _resolve(t.shape, tiling, None, mesh, None)
+    if mesh.is_group:
+        shape = tuple(int(s) for s in t.shape)
+        return DistArray.from_local(
+            _owned_block(t, tiling.block_extent(shape, mesh), mesh.device),
+            tiling, shape, mesh)
     if t.device != mesh.device:
         t = t.to(mesh.device)
     return DistArray(t, tiling, mesh)
@@ -277,13 +425,20 @@ def from_numpy(arr: Any, tiling: Optional[Tiling] = None,
                tile_hint: Optional[Sequence[int]] = None,
                mesh: Optional[Mesh] = None,
                device: Optional[DeviceLike] = None) -> DistArray:
+    """The host array on the mesh's device; on a group mesh every rank
+    passes the whole array and copies only its block."""
     arr = np.asarray(arr)
     tiling, mesh = _resolve(arr.shape, tiling, tile_hint, mesh, device)
+    shape = tuple(int(s) for s in arr.shape)
+    if mesh.is_group:
+        part = arr[tiling.block_extent(shape, mesh).to_slice()]
+    else:
+        part = arr
     # an owned, writable, C-ordered copy: the tensor never aliases the
     # caller's buffer (which may be read-only, e.g. a glommed array)
-    arr = np.array(arr, dtype=dtypes.canonical(arr.dtype), order="C")
-    t = dtypes.from_host(arr).to(mesh.device)
-    return DistArray(t, tiling, mesh)
+    part = np.array(part, dtype=dtypes.canonical(arr.dtype), order="C")
+    t = dtypes.from_host(part).to(mesh.device)
+    return DistArray.from_local(t, tiling, shape, mesh)
 
 
 def from_reference(values: np.ndarray,
@@ -306,10 +461,24 @@ def _filled(shape: Sequence[int], dtype: Any, make,
             tiling: Optional[Tiling], tile_hint: Optional[Sequence[int]],
             mesh: Optional[Mesh], device: Optional[DeviceLike]
             ) -> DistArray:
+    """A fill made whole (a group rank keeps its block): a seeded
+    generator's draws then equal a logical mesh's on the same device."""
     shape = tuple(int(s) for s in shape)
     tiling, mesh = _resolve(shape, tiling, tile_hint, mesh, device)
     return DistArray(make(shape, dtypes.to_torch(dtype), mesh.device),
                      tiling, mesh)
+
+
+def _filled_local(shape: Sequence[int], dtype: Any, make,
+                  tiling: Optional[Tiling],
+                  tile_hint: Optional[Sequence[int]], mesh: Optional[Mesh],
+                  device: Optional[DeviceLike]) -> DistArray:
+    """A constant fill: on a group mesh only the rank's block is made."""
+    shape = tuple(int(s) for s in shape)
+    tiling, mesh = _resolve(shape, tiling, tile_hint, mesh, device)
+    blk = tiling.block_extent(shape, mesh).shape if mesh.is_group else shape
+    return DistArray.from_local(make(blk, dtypes.to_torch(dtype),
+                                     mesh.device), tiling, shape, mesh)
 
 
 def zeros(shape: Sequence[int], dtype: Any = np.float32,
@@ -317,9 +486,10 @@ def zeros(shape: Sequence[int], dtype: Any = np.float32,
           tile_hint: Optional[Sequence[int]] = None,
           mesh: Optional[Mesh] = None,
           device: Optional[DeviceLike] = None) -> DistArray:
-    return _filled(shape, dtype,
-                   lambda s, dt, dev: torch.zeros(s, dtype=dt, device=dev),
-                   tiling, tile_hint, mesh, device)
+    return _filled_local(shape, dtype,
+                         lambda s, dt, dev: torch.zeros(s, dtype=dt,
+                                                        device=dev),
+                         tiling, tile_hint, mesh, device)
 
 
 def ones(shape: Sequence[int], dtype: Any = np.float32,
@@ -327,9 +497,10 @@ def ones(shape: Sequence[int], dtype: Any = np.float32,
          tile_hint: Optional[Sequence[int]] = None,
          mesh: Optional[Mesh] = None,
          device: Optional[DeviceLike] = None) -> DistArray:
-    return _filled(shape, dtype,
-                   lambda s, dt, dev: torch.ones(s, dtype=dt, device=dev),
-                   tiling, tile_hint, mesh, device)
+    return _filled_local(shape, dtype,
+                         lambda s, dt, dev: torch.ones(s, dtype=dt,
+                                                       device=dev),
+                         tiling, tile_hint, mesh, device)
 
 
 def full(shape: Sequence[int], fill_value: Any, dtype: Any = None,
@@ -339,10 +510,10 @@ def full(shape: Sequence[int], fill_value: Any, dtype: Any = None,
          device: Optional[DeviceLike] = None) -> DistArray:
     if dtype is None:
         dtype = dtypes.canonical(np.result_type(type(fill_value)))
-    return _filled(shape, dtype,
-                   lambda s, dt, dev: torch.full(s, fill_value, dtype=dt,
-                                                 device=dev),
-                   tiling, tile_hint, mesh, device)
+    return _filled_local(shape, dtype,
+                         lambda s, dt, dev: torch.full(s, fill_value,
+                                                       dtype=dt, device=dev),
+                         tiling, tile_hint, mesh, device)
 
 
 def arange(*args, dtype: Any = None, tiling: Optional[Tiling] = None,

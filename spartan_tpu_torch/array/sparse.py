@@ -20,9 +20,15 @@ SpMV paths (``spmv(x, impl=...)``):
 * ``xla`` | ``onehot`` | ``pallas`` — the segment-merge ablations
   through ``ops/segment.segment_sum``.
 
-The entry-sharded ``sharded`` path and its ``psum`` merge wait for the
-multi-GPU slice. ``from_coo_device`` canonicalises coordinate tensors on
-their device (the checkpoint loader's path).
+On a group mesh the windowed path is the JAX package's entry-sharded
+SpMV: the entries split over the mesh's row axis (the JAX package's
+``_entry_tiling``), each rank lays out a plan over its own entries and
+runs the windowed kernel on them (one launch a rank), and an all-reduce
+over the row axis merges the partial outputs. The COO tensors
+themselves stay whole on every rank: sparse arrays beyond the SpMV have
+no local rule yet. ``impl='sharded'`` names that path explicitly.
+``from_coo_device`` canonicalises coordinate tensors on their device
+(the checkpoint loader's path).
 """
 
 from __future__ import annotations
@@ -281,9 +287,10 @@ class SparseDistArray:
         copy to the host and back, at set-up)."""
         if self._plan is not None:
             return self._plan
-        rows = self.rows.cpu().numpy()
-        data = self.data.cpu().numpy()
-        cols = self.cols.cpu().numpy()
+        lo, hi = self._entry_range()
+        rows = self.rows[lo:hi].cpu().numpy()
+        data = self.data[lo:hi].cpu().numpy()
+        cols = self.cols[lo:hi].cpu().numpy()
         dev = self.device
         plan = SegmentPlan(rows, self.shape[0], device=dev)
         self._pdata = torch.from_numpy(plan.reorder(data)).to(dev)
@@ -291,6 +298,14 @@ class SparseDistArray:
             plan.reorder(cols, fill=0).astype(np.int32)).to(dev)
         self._plan = plan
         return plan
+
+    def _entry_range(self) -> Tuple[int, int]:
+        """The entries this rank's windowed plan covers: its block of the
+        entries split over the row axis on a group mesh, else all."""
+        if not self.mesh.is_group:
+            return 0, self.nse
+        ext = tiling_mod.row(1).block_extent((self.nse,), self.mesh)
+        return ext.ul[0], ext.lr[0]
 
     def _can_window(self) -> bool:
         """The windowed path runs on the one device the port uses, up to
@@ -311,12 +326,18 @@ class SparseDistArray:
         """Windowed matvec on a vector already on the device (the body of
         the fused PageRank loop)."""
         plan = self._ensure_plan()
-        return plan.segment_sum(self._pdata
-                                * torch.index_select(x, 0, self._pcols))
+        y = plan.segment_sum(self._pdata
+                             * torch.index_select(x, 0, self._pcols))
+        if self.mesh.is_group:
+            from ..parallel import collectives as coll
+
+            y = coll.reduce_over(y, (tiling_mod.AXIS_ROW,), "add",
+                                 self.mesh)
+        return y
 
     def _operand(self, x: Any) -> torch.Tensor:
         if isinstance(x, DistArray):
-            x = x.tensor
+            x = x.materialize("spmv")
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x, np.float32))
         return x.to(self.device)
@@ -331,9 +352,11 @@ class SparseDistArray:
         if impl is None:
             impl = self.default_impl(x.ndim)
         if impl == "sharded":
-            raise ValueError("impl='sharded' (entry shards merged by a "
-                             "psum) waits for the multi-GPU port; use "
-                             "impl='windowed' or 'bcoo'")
+            if not self.mesh.is_group:
+                raise ValueError("impl='sharded' (entry shards merged by "
+                                 "an all-reduce) runs on a multi-GPU group "
+                                 "mesh; use impl='windowed' or 'bcoo'")
+            impl = "windowed"
         if impl == "windowed":
             if x.ndim != 1:
                 raise ValueError(

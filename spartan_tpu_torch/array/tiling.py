@@ -1,10 +1,12 @@
 """Tiling vocabulary: which logical mesh axes split which array axes.
 
 Port of ``spartan_tpu/array/tiling.py``. There a ``Tiling`` also names
-a GSPMD ``PartitionSpec``; here it is pure metadata: ``axes[i]`` is the
-mesh axis splitting array axis ``i`` (or None), and ``extents()`` gives
-the tile grid it induces on a shape over the logical mesh. An array's
-data is one tensor on one device whatever its tiling.
+a GSPMD ``PartitionSpec``; here ``axes[i]`` is the mesh axis splitting
+array axis ``i`` (or None), ``extents()`` gives the tile grid it
+induces on a shape, and ``block_extent()`` the one block a mesh
+position holds. On a logical mesh an array's data is one tensor on one
+device whatever its tiling; on a group mesh each rank stores its
+``block_extent()`` (``array/distarray.py``).
 """
 
 from __future__ import annotations
@@ -82,6 +84,28 @@ class Tiling:
         over the mesh axes (the JAX package's shard order)."""
         return extent_mod.tile_grid(shape, self.tiles_per_dim(mesh))
 
+    def block_extent(self, shape: Sequence[int], mesh: Optional[Mesh] = None,
+                     coords: Optional[dict] = None) -> TileExtent:
+        """The block of ``shape`` this tiling gives the mesh position
+        ``coords`` (by default the group mesh's own rank): along each dim,
+        the tile that the position's index over the dim's mesh axes
+        (row-major over a tuple of axes) picks from
+        ``extent.compute_splits``. A replicated mesh axis gives every
+        position along it the same block; a position past a dim's last
+        tile (a dim shorter than its tile count) holds an empty block at
+        the dim's end."""
+        mesh = mesh or mesh_mod.get_mesh()
+        coords = mesh.coords if coords is None else coords
+        ul, lr = [], []
+        for d, a in zip(shape, self.axes):
+            d = int(d)
+            splits = extent_mod.compute_splits(d, tile_count(a, mesh))
+            i = tile_index(a, coords, mesh)
+            lo, hi = splits[i] if i < len(splits) else (d, d)
+            ul.append(lo)
+            lr.append(hi)
+        return TileExtent(ul, lr, shape)
+
     def divisible(self, shape: Sequence[int],
                   mesh: Optional[Mesh] = None) -> bool:
         """True if every tiled axis divides evenly (what a per-shard
@@ -90,6 +114,30 @@ class Tiling:
             if n > 1 and d % n != 0:
                 return False
         return True
+
+
+def mesh_axes_of(a) -> Tuple[str, ...]:
+    """The mesh axes of one tiling entry (None, an axis, or a tuple of
+    axes)."""
+    if a is None:
+        return ()
+    return tuple(a) if isinstance(a, tuple) else (a,)
+
+
+def tile_count(a, mesh: Mesh) -> int:
+    """Tiles along a dim split by the tiling entry ``a``."""
+    n = 1
+    for sub in mesh_axes_of(a):
+        n *= mesh.shape[sub]
+    return n
+
+
+def tile_index(a, coords: dict, mesh: Mesh) -> int:
+    """Row-major index of a position's tile along a dim split by ``a``."""
+    idx = 0
+    for sub in mesh_axes_of(a):
+        idx = idx * mesh.shape[sub] + coords[sub]
+    return idx
 
 
 # -- canonical tilings --------------------------------------------------

@@ -32,7 +32,7 @@ from ..array.tiling import Tiling
 from ..expr import builtins as bi
 from ..expr.base import Expr, ValExpr, as_expr
 from ..expr.loop import loop
-from ..expr.map2 import map2
+from ..expr.map2 import map2, shard_map2
 from ..ops import kmeans as kmeans_kernel
 from ..parallel import mesh as mesh_mod
 
@@ -80,6 +80,18 @@ class KMeansStepExpr(Expr):
         return kmeans_kernel.step(self.points.lower(env),
                                   self.centers.lower(env), self.k)
 
+    def _lower_local(self, env) -> Any:
+        """On a group mesh: the pass on each rank's stored row block and
+        an all-reduce of the sums and counts (one launch a rank)."""
+        from ..kernels import kmeans as kk
+
+        c = self.centers.lower_local(env).retile(tiling_mod.replicated(2))
+        sums, cnt = kk.assign_accumulate_local(
+            self.points.lower_local(env), c.local, self.k)
+        new = sums / torch.clamp_min(cnt, 1.0)[:, None]
+        return DistArray.from_local(new, tiling_mod.replicated(2),
+                                    self.shape, env.mesh)
+
     def _sig(self, ctx) -> Tuple:
         return ("kmeans_step", self.k, ctx.of(self.points),
                 ctx.of(self.centers))
@@ -110,7 +122,15 @@ def _assign_kern(p, c):
 
 
 def assign_points(points: Expr, centers: Expr) -> Expr:
-    """Cluster id (int32) per point."""
+    """Cluster id (int32) per point. On a group mesh whose row axis
+    divides the points, the per-row kernel runs on each rank's row
+    block (``shard_map2``) instead of on the whole points."""
+    group = mesh_mod.ambient_group()
+    n = points.shape[0]
+    if group is not None and n % group.shape[tiling_mod.AXIS_ROW] == 0:
+        return shard_map2([points, centers], _assign_kern,
+                          (tiling_mod.row(2), tiling_mod.replicated(2)),
+                          tiling_mod.row(1), (n,), np.int32)
     return map2([points, centers], _assign_kern,
                 out_tiling=tiling_mod.Tiling((points.out_tiling().axes[0],)))
 

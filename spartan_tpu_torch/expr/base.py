@@ -10,6 +10,19 @@ applications' steady state — skips the optimizer and re-signing and walks
 the cached DAG with the new leaf tensors. There is no compile cache to
 mirror: torch runs eagerly.
 
+On a group mesh (``parallel/mesh.py``) each rank holds only its blocks
+(``array/distarray.py``), and a plan walk runs on them: the env holds
+each node's local value, a ``DistArray`` of the rank's block under the
+tiling the node produced (:class:`GroupEnv`, :meth:`Expr.lower_local`).
+A node with a local rule (``_lower_local``) computes its block from its
+children's blocks, with the collectives its rule needs. Any other node
+reads its children whole (each gathered and counted at the node's
+class name, ``group_materialize_calls{site=...}``), runs its ``_lower``
+on every rank, and keeps its result's block: what GSPMD does with an op
+it cannot partition. Every branch of a local rule is decided from
+shapes, tilings and the plan, never from a rank's data or the size of
+its block, so every rank takes the same collectives.
+
 Each evaluate is one ``evaluate`` span with the JAX package's phases
 inside it (``sign``, ``optimize`` with its per-pass phases, ``build``,
 ``dispatch``; ``utils/profiling.py``), and its counters
@@ -141,7 +154,41 @@ class Expr:
         """Compute this node's tensor (children via ``c.lower(env)``)."""
         raise NotImplementedError
 
+    # the local rule on a group mesh: ``_lower_local(env)`` returns this
+    # node's local value from its children's (``c.lower_local(env)``), or
+    # NotImplemented where the inputs' metadata rules it out
+    _lower_local: Optional[Callable[..., Any]] = None
+
+    def lower_local(self, env: "GroupEnv") -> Any:
+        """This node's local value on a group mesh: a ``DistArray`` of
+        the rank's block (a tuple of them for a multi-output node)."""
+        if self._id not in env:
+            try:
+                val = (self._lower_local(env) if self._lower_local is not None
+                       else NotImplemented)
+                if val is NotImplemented:
+                    prev, env.site = env.site, type(self).__name__
+                    try:
+                        val = _wrap_whole(self._lower(env), self, env.mesh)
+                    finally:
+                        env.site = prev
+            except Exception as e:
+                if self._site and not getattr(e, "_expr_annotated", False):
+                    e._expr_annotated = True
+                    e.add_note(f"while evaluating {type(self).__name__} "
+                               f"built at {self._site[0]}:{self._site[1]} "
+                               f"(in {self._site[2]})")
+                raise
+            if self._forced_tiling is not None and isinstance(val,
+                                                              DistArray):
+                val = redistribute_mod.relayout(val, self._forced_tiling)
+            env[self._id] = val
+        return env[self._id]
+
     def lower(self, env: Dict[int, Any]) -> Any:
+        if type(env) is GroupEnv:
+            # a lowering without a local rule reads this child whole
+            return _whole(self.lower_local(env), env.site)
         if self._id not in env:
             try:
                 if _ANNOTATE_FLAG._value and trace_mod.profiler_active():
@@ -499,6 +546,9 @@ class TupleExpr(Expr):
     def _lower(self, env: Dict[int, Any]) -> Any:
         return tuple(e.lower(env) for e in self.elements)
 
+    def _lower_local(self, env) -> Any:
+        return tuple(e.lower_local(env) for e in self.elements)
+
     def _sig(self, ctx: "_SigCtx") -> Tuple:
         return ("tuple",) + tuple(ctx.of(e) for e in self.elements)
 
@@ -728,7 +778,9 @@ def _opt_flags_key() -> Tuple:
 
 
 def _mesh_key(mesh) -> Tuple:
-    return (tuple(sorted(mesh.shape.items())), str(mesh.device))
+    # a group mesh lowers on local blocks, a logical one on whole tensors
+    return (tuple(sorted(mesh.shape.items())), str(mesh.device),
+            mesh.is_group)
 
 
 def plan_signature(expr: Expr, mesh=None) -> Tuple[Tuple, _PlanSigCtx]:
@@ -747,6 +799,68 @@ def _leaf_arg(leaf: Expr) -> Any:
     if isinstance(leaf._result, DistArray):
         return leaf._result.tensor  # cached node signed as a Val leaf
     raise TypeError(f"unknown leaf {leaf!r}")
+
+
+class GroupEnv(dict):
+    """The env of a plan walk on a group mesh: node id -> the node's
+    local value. ``site`` names the node whose lowering (no local rule)
+    is reading its children whole; ``mesh`` is the group mesh."""
+
+    __slots__ = ("site", "mesh")
+
+    def __init__(self, mesh, items=()):
+        super().__init__(items)
+        self.site = "evaluate"
+        self.mesh = mesh
+
+    def copy(self) -> "GroupEnv":
+        out = GroupEnv(self.mesh, self)
+        out.site = self.site
+        return out
+
+
+def _whole(val: Any, site: str) -> Any:
+    """A local value gathered whole (counted at ``site``)."""
+    if isinstance(val, DistArray):
+        return val.materialize(site)
+    if isinstance(val, tuple):
+        return tuple(_whole(v, site) for v in val)
+    return val
+
+
+def _wrap_whole(val: Any, node: Optional[Expr], mesh) -> Any:
+    """A whole value every rank computed, as local values: a tensor of
+    the node's shape keeps its block under the node's (sanitized)
+    tiling, anything else its whole, replicated."""
+    if isinstance(val, torch.Tensor):
+        if node is not None and tuple(val.shape) == node.shape:
+            t = tiling_mod.sanitize(node.out_tiling(), node.shape, mesh)
+        else:
+            t = tiling_mod.replicated(val.ndim)
+        return DistArray(val, t, mesh)
+    if isinstance(val, tuple):
+        return tuple(_wrap_whole(v, None, mesh) for v in val)
+    return val
+
+
+def local_scalar(value: torch.Tensor, mesh) -> DistArray:
+    """A 0-d tensor as a replicated local value."""
+    return DistArray.from_local(value, tiling_mod.replicated(0), (), mesh)
+
+
+def _leaf_local(leaf: Expr, mesh) -> Any:
+    """A leaf's local value on the group mesh ``mesh``."""
+    if isinstance(leaf, ScalarExpr):
+        return local_scalar(torch.tensor(leaf.pyvalue, dtype=leaf.tdtype),
+                            mesh)
+    arr = _leaf_array(leaf)
+    if arr is None:
+        raise TypeError(f"unknown leaf {leaf!r}")
+    if not arr.mesh.is_group:
+        # an array made on a logical mesh: the rank keeps its block
+        return DistArray(arr.tensor, arr.tiling, mesh)
+    arr.local  # a donated leaf raises here
+    return arr
 
 
 def _leaf_array(leaf: Expr) -> Optional[DistArray]:
@@ -806,10 +920,15 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
     """Walk the plan's DAG with the leaf tensors, wrap the outputs, and
     release the donated leaves (those marked by ``donate()`` or named in
     ``donated``) once the walk is done."""
+    group = mesh.is_group
     with prof.phase("build"):
-        env: Dict[int, Any] = {
-            lid: _leaf_arg(leaves[i])
-            for lid, i in zip(plan.leaf_ids, order)}
+        if group:
+            env: Dict[int, Any] = GroupEnv(mesh, (
+                (lid, _leaf_local(leaves[i], mesh))
+                for lid, i in zip(plan.leaf_ids, order)))
+        else:
+            env = {lid: _leaf_arg(leaves[i])
+                   for lid, i in zip(plan.leaf_ids, order)}
         released = []
         for i in order:
             arr = _leaf_array(leaves[i])
@@ -818,7 +937,7 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
                     not any(arr is r for r in released):
                 released.append(arr)
     with prof.phase("dispatch"):
-        out = plan.dag.lower(env)
+        out = plan.dag.lower_local(env) if group else plan.dag.lower(env)
     del env
     with prof.phase("build"):
         for arr in released:
@@ -828,6 +947,13 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
         outs = out if plan.is_tuple else (out,)
         wrapped = []
         for o, t in zip(outs, plan.out_tilings):
+            if group:
+                o = redistribute_mod.relayout(o, t)
+                if o.local.device != mesh.device:  # a scalar-only expr
+                    o = DistArray.from_local(o.local.to(mesh.device), t,
+                                             o.shape, mesh)
+                wrapped.append(o)
+                continue
             if o.device != mesh.device:  # a scalar-only expression
                 o = o.to(mesh.device)
             wrapped.append(DistArray(o, t, mesh))

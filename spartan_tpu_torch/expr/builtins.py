@@ -20,7 +20,7 @@ import torch
 from ..array import distarray as da
 from ..utils import dtypes
 from .base import Expr, ValExpr, as_expr
-from .local import LocalInput, LocalUfunc
+from .local import LocalCall, LocalInput, LocalUfunc
 from .map import MapExpr, build_binop, build_unop, map as map_expr
 from .map2 import map2
 from .ndarray import CreateExpr, RandomExpr, ndarray
@@ -177,7 +177,9 @@ def clip(x, lo, hi) -> Expr:
 
 def astype(x, dtype) -> Expr:
     tdt = dtypes.to_torch(dtypes.canonical(dtype))
-    return map_expr(lambda v: v.to(tdt), as_expr(x))
+    return MapExpr((as_expr(x),), LocalCall(lambda v: v.to(tdt),
+                                            (LocalInput(0),),
+                                            elementwise=True))
 
 
 def dot(a, b, precision=None) -> Expr:
@@ -472,6 +474,30 @@ class BincountExpr(Expr):
             return khist.bincount_sharded(v.reshape(-1), self.length)
         return _bincount_expr_path(v, self.length)
 
+    def _lower_local(self, env) -> Any:
+        """A 1-D bincount on a group mesh: each rank counts its stored
+        row block (the kernel's group form where selected, else the
+        scatter-add) and the counts are summed over the row axis."""
+        if self.x.ndim != 1:
+            return NotImplemented
+        from ..array import tiling as tiling_mod
+        from ..array.distarray import DistArray
+        from ..kernels import registry as kernels_mod
+        from ..parallel import collectives as coll
+
+        xv = self.x.lower_local(env)
+        if kernels_mod.node_selection(self).native:
+            from ..kernels import histogram as khist
+
+            out = khist.bincount_local(xv, self.length)
+        else:
+            xv = xv.retile(tiling_mod.row(1))
+            out = coll.reduce_over(
+                _bincount_expr_path(xv.local, self.length),
+                (tiling_mod.AXIS_ROW,), "add", env.mesh)
+        return DistArray.from_local(out, tiling_mod.replicated(1),
+                                    self.shape, env.mesh)
+
     def _sig(self, ctx):
         return ("bincount", self.length, ctx.of(self.x))
 
@@ -559,6 +585,17 @@ class SampleSortExpr(Expr):
         if self.axis != last:
             out = torch.movedim(out, last, self.axis)
         return out
+
+    def _lower_local(self, env) -> Any:
+        """A 1-D sort on a group mesh: the program once per rank on the
+        stored row blocks (``ops/sort.sample_sort_local``). A batched
+        sort reads its operand whole."""
+        if self.x.ndim != 1:
+            return NotImplemented
+        from ..ops import sort as sort_ops
+
+        return sort_ops.sample_sort_local(self.x.lower_local(env),
+                                          with_indices=self.indices)
 
     def _sig(self, ctx):
         return ("sample_sort", self.indices, self.axis, ctx.of(self.x))
@@ -794,8 +831,78 @@ class TopKExpr(Expr):
         return distributed_topk(dtypes.widen(self.x.lower(env)), self.k,
                                 largest=self.largest)[1]
 
+    def _lower_local(self, env) -> Any:
+        """On a group mesh: each rank's candidates from its stored block
+        (``ops/sort.distributed_topk_local``)."""
+        from ..array import tiling as tiling_mod
+        from ..array.distarray import DistArray
+        from ..ops.sort import distributed_topk_local
+
+        xv = self.x.lower_local(env)
+        if xv.local.dtype != dtypes.widen(xv.local).dtype:
+            xv = DistArray.from_local(dtypes.widen(xv.local), xv.tiling,
+                                      xv.shape, env.mesh)
+        _, idx = distributed_topk_local(xv, self.k, largest=self.largest)
+        return DistArray.from_local(idx, tiling_mod.replicated(1),
+                                    self.shape, env.mesh)
+
     def _sig(self, ctx):
         return ("topk", self.k, self.largest, ctx.of(self.x))
+
+    def _default_tiling(self):
+        from ..array import tiling as tiling_mod
+
+        return tiling_mod.replicated(1)
+
+
+class TakeExpr(Expr):
+    """``x[idx]``: the elements of a 1-D ``x`` at the int positions of a
+    1-D ``idx`` (a top-k's values). On a group mesh each rank reads the
+    positions its block of ``x`` holds, and the owners' values are
+    combined exactly (bits summed as integers, one owner each); the
+    result is replicated."""
+
+    def __init__(self, x: Expr, idx: Expr):
+        self.x = x
+        self.idx = idx
+        super().__init__(idx.shape, x.dtype)
+
+    def children(self):
+        return (self.x, self.idx)
+
+    def replace_children(self, new_children) -> "TakeExpr":
+        return TakeExpr(new_children[0], new_children[1])
+
+    def _lower(self, env) -> Any:
+        i = self.idx.lower(env).to(torch.int64)
+        return dtypes.call(lambda w: w[i], self.x.lower(env))
+
+    def _lower_local(self, env) -> Any:
+        from ..array import tiling as tiling_mod
+        from ..array.distarray import DistArray
+        from ..parallel import collectives as coll
+
+        mesh = env.mesh
+        rep = tiling_mod.replicated(1)
+        xv = self.x.lower_local(env)
+        i = self.idx.lower_local(env).retile(rep).local.to(torch.int64)
+        ext = xv.block_extent()
+        lo, hi = ext.ul[0], ext.lr[0]
+        x = xv.local
+        if hi > lo:
+            got = dtypes.call(lambda w: w[(i - lo).clamp(0, hi - lo - 1)], x)
+        else:
+            got = torch.zeros(i.shape, dtype=x.dtype, device=x.device)
+        if xv.is_split:
+            mine = (i >= lo) & (i < hi) & xv.is_first_copy
+            got = coll.combine_owned(
+                torch.where(mine, got, torch.zeros((), dtype=got.dtype,
+                                                   device=got.device)),
+                mesh.axis_names, mesh)
+        return DistArray.from_local(got, rep, self.shape, mesh)
+
+    def _sig(self, ctx):
+        return ("take", ctx.of(self.x), ctx.of(self.idx))
 
     def _default_tiling(self):
         from ..array import tiling as tiling_mod
@@ -827,8 +934,7 @@ def topk(x, k: int, largest: bool = True):
             idx = si[:k]
     else:
         idx = TopKExpr(x, k, largest)
-    vals = map_expr(lambda v, i: dtypes.call(
-        lambda w: w[i.to(torch.int64)], v), x, idx)
+    vals = TakeExpr(x, idx)
     return vals, idx
 
 

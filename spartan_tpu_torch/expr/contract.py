@@ -7,10 +7,13 @@ N-operand einsum through a chain of them along ``np.einsum_path``'s
 greedy order. The smart-tiling pass sets a node's ``_dot_plan`` (output
 grid and contraction placement); its operand edges go through
 ``parallel/redistribute.constrain`` and the plan joins the signature.
-The node is one ``torch.einsum`` whatever the plan (float32 products in
-full float32: TF32 is off, ``spartan_tpu_torch/__init__.py``); the
-k-split with an all-reduce waits for local-shard storage (ROADMAP
-A3b-ii).
+On a logical mesh the node is one ``torch.einsum`` whatever the plan
+(float32 products in full float32: TF32 is off,
+``spartan_tpu_torch/__init__.py``). On a group mesh the plan is carried
+out: the operands move to the plan's layouts, each rank contracts its
+blocks, and a split contraction ends in an all-reduce over its mesh
+axis. A node without a plan takes its output's tiling with the
+contraction gathered.
 
 Axis vocabulary (einsum labels):
   * batch labels -- in both operands and the output,
@@ -134,6 +137,30 @@ class ContractExpr(Expr):
         return dtypes.contract(
             functools.partial(torch.einsum, self._subscripts()), self.dtype,
             av, bv)
+
+    def _lower_local(self, env) -> Any:
+        from ..array.distarray import DistArray
+        from ..parallel import collectives as coll
+
+        if self._dot_plan is not None:
+            out_t, strategy = self._dot_plan
+        else:
+            out_t = tiling_mod.sanitize(self.out_tiling(), self.shape,
+                                        env.mesh)
+            strategy = None
+        used = [a for a in out_t.axes if a is not None]
+        if len(set(used)) != len(used) or any(
+                isinstance(a, tuple) for a in used) or strategy in used:
+            return NotImplemented
+        ta, tb = self.plan_operand_tilings(out_t, strategy)
+        ab = redist_mod.relayout(self.a.lower_local(env), ta).local
+        bb = redist_mod.relayout(self.b.lower_local(env), tb).local
+        out = dtypes.contract(
+            functools.partial(torch.einsum, self._subscripts()), self.dtype,
+            ab, bb)
+        if strategy is not None and self.contraction_labels:
+            out = coll.reduce_over(out, (strategy,), "add", env.mesh)
+        return DistArray.from_local(out, out_t, self.shape, env.mesh)
 
     def _sig(self, ctx) -> Tuple:
         plan = (None if self._dot_plan is None

@@ -11,9 +11,13 @@ The smart-tiling pass records a GEMM's plan in ``_dot_plan``: the
 output grid and the contraction's placement (None: gathered; a mesh
 axis: split there and merged by a psum). The operand edges go through
 ``parallel/redistribute.constrain`` and the plan joins the signature,
-as in the JAX package. Each product is still one ``torch.matmul`` over
-whole operands, so the plan changes no bits; the k-split with an
-all-reduce waits for local-shard storage (ROADMAP A3b-ii).
+as in the JAX package. On a logical mesh the product is one
+``torch.matmul`` over whole operands, so the plan changes no bits. On a
+group mesh the plan is carried out: each operand moves to the plan's
+layout (A ``(m_r, k)``, B ``(k, m_c)``), each rank multiplies its
+blocks, and a k-split ends in an all-reduce over the contraction's mesh
+axis, which changes the order of the sum. A node without a plan takes
+the operands' own placements (:func:`local_plan`).
 
 ``DotShardMapExpr`` (``dot_shardmap``) is the explicit blocked GEMM
 under ``parallel/shard_map.py``: A split (x, y), B split (y, None), a
@@ -90,6 +94,38 @@ class DotExpr(Expr):
         # result type first
         return dtypes.contract(torch.matmul, self.dtype, av, bv)
 
+    def _lower_local(self, env) -> Any:
+        """The plan on the ranks' blocks: 1-D operands take part as a
+        row (A) or a column (B) of a 2-D product."""
+        from ..array.distarray import DistArray
+        from ..parallel import collectives as coll
+
+        av, bv = self.a.lower_local(env), self.b.lower_local(env)
+        a2 = av.tiling.axes if av.ndim == 2 else (None,) + av.tiling.axes
+        b2 = bv.tiling.axes if bv.ndim == 2 else bv.tiling.axes + (None,)
+        if self.a.ndim == 2 and self.b.ndim == 2 \
+                and self._dot_plan is not None:
+            (m_r, m_c), k = self._dot_plan[0].axes[:2], self._dot_plan[1]
+        else:
+            m_r, k, m_c = local_plan(a2, b2)
+        if self.a.ndim == 1:
+            m_r = None
+        if self.b.ndim == 1:
+            m_c = None
+        if k is not None and k in (m_r, m_c) or \
+                (m_r is not None and m_r == m_c):
+            return NotImplemented
+        ab = redist_mod.relayout(av, Tiling(((m_r,) if av.ndim == 2 else ())
+                                            + (k,))).local
+        bb = redist_mod.relayout(bv, Tiling((k,) + ((m_c,) if bv.ndim == 2
+                                                    else ()))).local
+        out = dtypes.contract(torch.matmul, self.dtype, ab, bb)
+        if k is not None:
+            out = coll.reduce_over(out, (k,), "add", env.mesh)
+        axes = ((m_r,) if self.a.ndim == 2 else ()) + \
+            ((m_c,) if self.b.ndim == 2 else ())
+        return DistArray.from_local(out, Tiling(axes), self.shape, env.mesh)
+
     def _sig(self, ctx) -> Tuple:
         # the plan changes the lowering, so it keys the plan cache
         plan = (None if self._dot_plan is None
@@ -103,6 +139,20 @@ class DotExpr(Expr):
         if self.ndim == 1:
             return tiling_mod.row(1)
         return tiling_mod.replicated(0)
+
+
+def local_plan(a_axes, b_axes) -> Tuple[Any, Any, Any]:
+    """(m_r, k, m_c) for a product without a committed plan: the rows
+    keep A's placement, the columns B's, and the contraction is split
+    where either operand already splits it (A's placement first), so
+    operands already in place do not move."""
+    m_r, m_c = a_axes[0], b_axes[1]
+    if m_c == m_r:
+        m_c = None
+    k = a_axes[1] if a_axes[1] is not None else b_axes[0]
+    if k is not None and k in (m_r, m_c):
+        k = None
+    return m_r, k, m_c
 
 
 def dot(a: Any, b: Any, precision: Optional[str] = None):

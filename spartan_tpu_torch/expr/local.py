@@ -237,15 +237,19 @@ class LocalUfunc(LocalExpr):
 
 class LocalCall(LocalExpr):
     """A user-supplied function of torch tensors over the inputs (the
-    reference's ``FnCallExpr``); its identity is part of the plan key."""
+    reference's ``FnCallExpr``); its identity is part of the plan key.
+    ``elementwise`` marks a function the package knows to act on each
+    element alone (a cast), which may then run on any block."""
 
-    __slots__ = ("fn", "args", "fn_kw")
+    __slots__ = ("fn", "args", "fn_kw", "elementwise")
 
     def __init__(self, fn: Callable, args: Sequence[LocalExpr],
-                 fn_kw: Tuple[Tuple[str, Any], ...] = ()):
+                 fn_kw: Tuple[Tuple[str, Any], ...] = (),
+                 elementwise: bool = False):
         self.fn = fn
         self.args = tuple(args)
         self.fn_kw = tuple(fn_kw)
+        self.elementwise = elementwise
 
     def emit(self, inputs):
         return self.fn(*[a.emit(inputs) for a in self.args],
@@ -259,7 +263,7 @@ class LocalCall(LocalExpr):
 
     def remap(self, mapping):
         return LocalCall(self.fn, [a.remap(mapping) for a in self.args],
-                         self.fn_kw)
+                         self.fn_kw, self.elementwise)
 
     def __repr__(self):
         name = getattr(self.fn, "__name__", "fn")

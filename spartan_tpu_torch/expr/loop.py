@@ -182,6 +182,43 @@ class LoopExpr(Expr):
                 obs_trace.record_loop_step(label, i)
         return carry
 
+    def _lower_local(self, env) -> Any:
+        """The loop on a group mesh: the carries stay local blocks
+        between iterations, in the layout the body produced them in
+        (consumers move what they need), and a ``shard_loop_carries``
+        carry is held in its loop tiling."""
+        from ..array.distarray import DistArray
+        from .base import local_scalar
+
+        n = int(self.n_expr.lower_local(env).local)
+
+        def held(v, ce, dtype):
+            if v.local.dtype != dtype:
+                v = DistArray.from_local(v.local.to(dtype), v.tiling,
+                                         v.shape, env.mesh)
+            return redist_mod.relayout(v, ce._tiling) if ce.sharded else v
+
+        carry = tuple(
+            held(i.lower_local(env), ce, dtypes.to_torch(b.dtype))
+            for i, ce, b in zip(self.init, self.carries, self.body_roots))
+        trace_steps = FLAGS.trace_loop_steps
+        label = f"loop#{self._id}"
+        if trace_steps:
+            obs_trace.loop_steps_begin(label)
+        for i in range(n):
+            benv = env.copy()
+            if self.index_expr is not None:
+                benv[self.index_expr._id] = local_scalar(
+                    torch.tensor(i, dtype=torch.int32), env.mesh)
+            for ce, cv in zip(self.carries, carry):
+                benv[ce._id] = cv
+            carry = tuple(
+                held(b.lower_local(benv), ce, cv.local.dtype)
+                for b, ce, cv in zip(self.body_roots, self.carries, carry))
+            if trace_steps:
+                obs_trace.record_loop_step(label, i)
+        return carry
+
     def _sig(self, ctx) -> Tuple:
         # the carry-sharding layout is structural: the chosen layouts
         # are part of the signature (None when carry sharding is off)
@@ -250,6 +287,9 @@ class LoopItemExpr(Expr):
 
     def _lower(self, env: Dict[int, Any]) -> Any:
         return self.loop.lower(env)[self.idx]
+
+    def _lower_local(self, env) -> Any:
+        return self.loop.lower_local(env)[self.idx]
 
     def _sig(self, ctx) -> Tuple:
         return ("loopitem", self.idx, ctx.of(self.loop))

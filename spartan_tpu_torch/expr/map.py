@@ -4,6 +4,14 @@ A ``MapExpr`` applies a fused ``LocalExpr`` tree to broadcast-aligned
 inputs; the optimizer's map fusion folds chains of maps into one tree.
 A user ``map`` over masked operands (``MaskedDistArray``) runs ``fn`` on
 the data and returns the union of the masks beside it.
+
+On a group mesh a tree of ufuncs runs on the ranks' blocks: each
+operand comes to the output's tiling (a scalar as it is, a broadcast
+dim whole, any other layout through ``redistribute.relayout``) and the
+tree runs on the aligned blocks. A tree with a user function
+(``LocalCall``, but a cast) may not be elementwise (``diag``, a sort
+along an axis), so it reads its operands whole. ``map_with_location`` runs
+``fn`` on the rank's block with its global offset.
 """
 
 from __future__ import annotations
@@ -18,6 +26,49 @@ from ..array.tiling import Tiling
 from ..parallel import mesh as mesh_mod
 from .base import Expr, as_expr, eval_shape_of, fn_key
 from .local import LocalCall, LocalExpr, LocalInput, LocalUfunc
+
+
+def elementwise(op: LocalExpr) -> bool:
+    """True for a tree of ufuncs, inputs, constants and casts (no user
+    function): it runs on any block of its broadcast-aligned inputs."""
+    if isinstance(op, LocalUfunc):
+        return all(elementwise(a) for a in op.args)
+    if isinstance(op, LocalCall):
+        return op.elementwise and all(elementwise(a) for a in op.args)
+    return True
+
+
+def aligned_blocks(vals: Sequence[Any], shape: Tuple[int, ...],
+                   tiling: Tiling) -> list:
+    """Each local value's block aligned with the block ``tiling`` gives
+    this rank of an array of ``shape`` (the values broadcast to it): a
+    0-d value as it is; otherwise the value comes to the tiling of its
+    own dims (a broadcast dim of size 1 whole), moving where its layout
+    differs."""
+    from ..parallel import redistribute as redist_mod
+
+    out = []
+    for v in vals:
+        if v.ndim == 0:
+            out.append(v.local)
+            continue
+        off = len(shape) - v.ndim
+        want = Tiling([None if d == 1 and shape[i + off] != 1
+                       else tiling.axes[i + off]
+                       for i, d in enumerate(v.shape)])
+        out.append(redist_mod.relayout(v, want).local)
+    return out
+
+
+def broadcasts_to(vals: Sequence[Any], shape: Tuple[int, ...]) -> bool:
+    """True when every value broadcasts to ``shape`` (numpy rules)."""
+    for v in vals:
+        if v.ndim > len(shape):
+            return False
+        off = len(shape) - v.ndim
+        if any(d not in (1, shape[i + off]) for i, d in enumerate(v.shape)):
+            return False
+    return True
 
 
 class MapExpr(Expr):
@@ -38,6 +89,21 @@ class MapExpr(Expr):
 
     def _lower(self, env: Dict[int, Any]) -> Any:
         return self.op.emit([c.lower(env) for c in self.inputs])
+
+    def _lower_local(self, env) -> Any:
+        if not elementwise(self.op) or not broadcasts_to(self.inputs,
+                                                         self.shape):
+            return NotImplemented
+        from ..array.distarray import DistArray
+
+        t = self.out_tiling()
+        blocks = aligned_blocks([c.lower_local(env) for c in self.inputs],
+                                self.shape, t)
+        blk = self.op.emit(blocks)
+        want = t.block_extent(self.shape, env.mesh).shape
+        if tuple(blk.shape) != tuple(want):  # every operand a scalar
+            blk = torch.broadcast_to(blk, want).clone()
+        return DistArray.from_local(blk, t, self.shape, env.mesh)
 
     def _sig(self, ctx) -> Tuple:
         return (("map", self.op.key())
@@ -148,6 +214,18 @@ class MapWithLocationExpr(Expr):
                                   device=blk.device)
             out[sl] = blk
         return out
+
+    def _lower_local(self, env) -> Any:
+        t = self.input.out_tiling()
+        if not t.divisible(self.shape, env.mesh):
+            return NotImplemented  # one block at (0, ...): whole
+        from ..array.distarray import DistArray
+        from ..parallel import redistribute as redist_mod
+
+        x = redist_mod.relayout(self.input.lower_local(env), t)
+        ext = t.block_extent(self.shape, env.mesh)
+        blk = self.fn(x.local, ext.ul, **dict(self.fn_kw))
+        return DistArray.from_local(blk, t, self.shape, env.mesh)
 
     def _sig(self, ctx) -> Tuple:
         return ("maploc", fn_key(self.fn), self.fn_kw,

@@ -5,6 +5,11 @@ per-tile form (port of ``spartan_tpu/expr/map2.py``).
 tensor. ``shard_map2``'s ``fn`` runs under ``parallel/shard_map.py`` at
 every mesh position on each input's block, and its blocks tile the
 result.
+
+On a group mesh ``map2`` reads its inputs whole (its ``fn`` sees whole
+arrays), while ``shard_map2`` runs on the blocks the ranks store
+(``shard_map_local``): each operand moves to its tiling and each rank
+keeps its output block.
 """
 
 from __future__ import annotations
@@ -96,6 +101,24 @@ class ShardMap2Expr(Expr):
                 for c, t in zip(self.inputs, self.in_tilings)]
         return shard_map(self.fn, mesh, self.in_tilings,
                          self._out_tiling)(*vals)
+
+    def _lower_local(self, env) -> Any:
+        from ..array.distarray import DistArray
+        from ..parallel import redistribute as redist_mod
+        from ..parallel.shard_map import shard_map_local
+
+        mesh = env.mesh
+        tilings = [t if t is not None else tiling_mod.replicated(c.ndim)
+                   for c, t in zip(self.inputs, self.in_tilings)]
+        if not all(t.divisible(c.shape, mesh)
+                   for c, t in zip(self.inputs, tilings)) or \
+                not self._out_tiling.divisible(self.shape, mesh):
+            return NotImplemented  # the whole path raises as shard_map does
+        blocks = [redist_mod.relayout(c.lower_local(env), t).local
+                  for c, t in zip(self.inputs, tilings)]
+        blk = shard_map_local(self.fn, mesh, tilings,
+                              self._out_tiling)(*blocks)
+        return DistArray.from_local(blk, self._out_tiling, self.shape, mesh)
 
     def _sig(self, ctx) -> Tuple:
         return (("smap2", fn_key(self.fn),

@@ -2,9 +2,9 @@
 ``spartan_tpu/expr/optimize.py``): cached-expr collapsing, map fusion,
 reduce-map fusion and the smart-tiling pass (``tiling_pass.py``,
 registered on first use), each behind its FLAGS toggle. Smart tiling
-commits the JAX package's tilings and contraction plans on the logical
-mesh; on one card those are metadata over one tensor, so the pass
-changes no value (ROADMAP A3b-ii gives them a device layout).
+commits the JAX package's tilings and contraction plans: on a logical
+mesh those are metadata over one tensor, so the pass changes no value;
+on a group mesh they are the layouts the ranks' blocks move to.
 """
 
 from __future__ import annotations

@@ -8,10 +8,21 @@ give bool, and argmin/argmax give int32 with the first index winning
 ties (bool compared as int32). ``GeneralReduceExpr`` is the
 reference's user reduction: a torch ``local_reduce_fn(block, axis=...)``
 applied to the whole tensor.
+
+On a group mesh a ``ReduceExpr`` whose pre-reduce tree is elementwise
+reduces the rank's block and combines the partials over the mesh axes
+that tile a reduced dim, and only those (a replicated axis would count
+a block twice): sums and products through an all-reduce (integers in
+int64, so int32 wraps as in one pass), max/min/all/any through max/min,
+``mean`` as a sum over the global count, and argmax/argmin as (value,
+global index) pairs gathered and merged with the lowest index winning
+ties and NaN winning as in one pass. An empty block (a dim shorter than
+its tiles) contributes the op's identity.
 """
 
 from __future__ import annotations
 
+import builtins
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -146,6 +157,56 @@ class ReduceExpr(Expr):
     def _lower(self, env: Dict[int, Any]) -> Any:
         return self._emit([c.lower(env) for c in self.inputs])
 
+    def _lower_local(self, env) -> Any:
+        from .map import aligned_blocks, broadcasts_to, elementwise
+
+        if not elementwise(self.pre) or not broadcasts_to(self.inputs,
+                                                          self._pre_shape):
+            return NotImplemented
+        from ..array.distarray import DistArray
+        from ..parallel import collectives as coll
+
+        mesh = env.mesh
+        shape = self._pre_shape
+        tp = self._pre_tiling()
+        ext = tp.block_extent(shape, mesh)
+        x = self.pre.emit(aligned_blocks(
+            [c.lower_local(env) for c in self.inputs], shape, tp))
+        if tuple(x.shape) != tuple(ext.shape):  # a scalar-only tree
+            x = torch.broadcast_to(x, ext.shape)
+        dims = tuple(range(len(shape))) if self.axis is None else self.axis
+        over = [sub for d in dims for sub in tiling_mod.mesh_axes_of(
+            tp.axes[d])]
+        empty = builtins.any(ext.shape[d] == 0 for d in dims)
+        op = self.op
+        if op in _NO_KEEPDIMS:
+            out = _arg_local(op, x, self.axis, ext, shape, over, mesh, empty)
+        elif op == "mean":
+            xs = x.to(torch.float32) if not (x.dtype.is_floating_point
+                                             or x.dtype.is_complex) else x
+            part = coll.reduce_over(torch.sum(xs, dim=dims, keepdim=True),
+                                    over, "add", mesh)
+            count = int(np.prod([shape[d] for d in dims], dtype=np.int64))
+            out = part / count
+        else:
+            if empty and op in ("max", "min"):
+                keep = [1 if d in dims else n for d, n in
+                        enumerate(ext.shape)]
+                part = torch.full(keep, _identity(op, x.dtype),
+                                  dtype=x.dtype, device=x.device)
+            else:
+                part = reduce_tensor(op, x, dims, True)
+            comb = {"sum": "add", "prod": "prod", "max": "max", "min": "min",
+                    "all": "min", "any": "max"}[op]
+            out = coll.reduce_over(part, over, comb, mesh)
+        if not (self.keepdims and op not in _NO_KEEPDIMS):
+            out = out.reshape([n for d, n in enumerate(out.shape)
+                               if d not in dims])
+        if self.req_dtype is not None:
+            out = out.to(dtypes.to_torch(self.req_dtype))
+        t = self._default_tiling()
+        return DistArray.from_local(out, t, self.shape, mesh)
+
     def _sig(self, ctx) -> Tuple:
         return (("reduce", self.op, self.axis, self.keepdims,
                  str(self.req_dtype), self.pre.key())
@@ -176,6 +237,82 @@ class ReduceExpr(Expr):
         for a in reversed(self.axis):
             t = t.drop_axis(a)
         return t
+
+
+def _identity(op: str, dtype: torch.dtype):
+    """The value an empty block contributes to a max (min)."""
+    lo = op in ("max", "argmax")
+    if dtype == torch.bool:
+        return not lo
+    if dtype.is_floating_point:
+        return float("-inf") if lo else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if lo else info.max
+
+
+def _better(op: str, v: torch.Tensor, i: torch.Tensor, bv: torch.Tensor,
+            bi: torch.Tensor) -> torch.Tensor:
+    """Where (v, i) beats the best (bv, bi) so far: a larger (smaller)
+    value, a NaN over a number, and the lower index among equals."""
+    strict = v > bv if op == "argmax" else v < bv
+    tie = (v == bv) & (i < bi)
+    if v.dtype.is_floating_point:
+        vn, bn = torch.isnan(v), torch.isnan(bv)
+        return (strict & ~bn) | (tie & ~bn) | (vn & ~bn) | (vn & bn
+                                                            & (i < bi))
+    return strict | tie
+
+
+def _arg_local(op: str, x: torch.Tensor, axis, ext, shape, over, mesh,
+               empty: bool) -> torch.Tensor:
+    """argmax/argmin of the rank's block as (value, global index) pairs,
+    merged over the axes ``over``; returns the int32 global index with
+    the reduced dim(s) kept as size 1 (the flattened index, 0-d, for
+    ``axis=None``)."""
+    from ..parallel import collectives as coll
+
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)
+    fn = torch.argmax if op == "argmax" else torch.argmin
+    big = torch.iinfo(torch.int64).max
+    if axis is None:
+        if empty:
+            v = torch.full((), _identity(op, x.dtype), dtype=x.dtype,
+                           device=x.device)
+            gi = torch.full((), big, dtype=torch.int64, device=x.device)
+        else:
+            flat = x.reshape(-1)
+            li = dtypes.call(fn, flat)
+            v = flat[li]
+            # the block's flat index to the global flat index
+            gi = torch.zeros((), dtype=torch.int64, device=x.device)
+            rest = li.to(torch.int64)
+            stride = 1
+            for d in reversed(range(x.ndim)):
+                c = rest % ext.shape[d] + ext.ul[d]
+                rest = rest // ext.shape[d]
+                gi = gi + c * stride
+                stride *= int(shape[d])
+    else:
+        a = axis[0]
+        if empty:
+            keep = [1 if d == a else n for d, n in enumerate(ext.shape)]
+            v = torch.full(keep, _identity(op, x.dtype), dtype=x.dtype,
+                           device=x.device)
+            gi = torch.full(keep, big, dtype=torch.int64, device=x.device)
+        else:
+            li = dtypes.call(fn, x, dim=a, keepdim=True)
+            v = x.gather(a, li)
+            gi = li.to(torch.int64) + ext.ul[a]
+    for sub in over:
+        vs, ids = coll.stack_over(v, sub, mesh), coll.stack_over(gi, sub,
+                                                                 mesh)
+        v, gi = vs[0], ids[0]
+        for k in range(1, vs.shape[0]):
+            take = _better(op, vs[k], ids[k], v, gi)
+            v = torch.where(take, vs[k], v)
+            gi = torch.where(take, ids[k], gi)
+    return gi.to(torch.int32)
 
 
 def _make(op: str):

@@ -12,8 +12,9 @@ top-down commit pick the cheapest assignment, written as
 
 The candidate order, the ``_OP_MOVE_EPS`` tie-break and every weight
 are the JAX package's, so on the same logical mesh the port commits the
-same tilings. On one card the values do not change: a tiling is
-metadata over one tensor until local-shard storage (ROADMAP A3b-ii).
+same tilings. On a logical mesh the values do not change (a tiling is
+metadata over one tensor); on a group mesh the committed tilings and
+GEMM plans are carried out on the ranks' blocks.
 
 Cost model (per-shard bytes, ring collectives over n shards):
   * same tiling, or source replicated: 0
@@ -25,9 +26,11 @@ Cost model (per-shard bytes, ring collectives over n shards):
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
@@ -53,9 +56,8 @@ _COMPUTE_WEIGHT = 4.0
 # Bytes-equivalent cost of one contraction FLOP: (sec/FLOP) divided by
 # (sec/interconnect-byte), keyed by the mesh device's type. The cpu
 # value is the JAX package's committed calibration for its 8-device CPU
-# mesh (so CPU plans match it); a one-process CUDA mesh has no
-# interconnect to time against, so "cuda" takes the fallback until the
-# local-shard storage can time a real NCCL gather (ROADMAP A3b-ii).
+# mesh (so CPU plans match it); "cuda" takes the fallback, and
+# calibrate_flop_weight measures the value on a group of ranks.
 # Override with --tiling_flop_weight.
 _FLOP_WEIGHT_DEFAULTS = {"cpu": 0.005}
 _FLOP_WEIGHT_FALLBACK = 1e-3
@@ -618,13 +620,61 @@ def class_components(root: Expr, mesh=None) -> Dict[str, float]:
 
 def calibrate_flop_weight(n: int = 512, iters: int = 5,
                           mesh=None) -> float:
-    """The bytes-equivalent cost of one FLOP on this mesh: the JAX
-    package times an ``n x n`` matmul against a row->replicated
-    all-gather over its devices. The port's logical mesh lives in one
-    process on one device, with no interconnect to time, so it returns
-    :func:`_flop_weight` as the JAX package does on a one-device mesh;
-    local-shard storage times a real gather (ROADMAP A3b-ii)."""
-    return _flop_weight(mesh)
+    """Measure the bytes-equivalent cost of one FLOP on this mesh, as
+    the JAX package does: a one-rank ``n x n`` matmul (``2n^3`` FLOPs)
+    timed against a row -> replicated gather of the same matrix over
+    the group (``n^2 * itemsize * (p - 1) / p`` bytes a rank receives),
+    returning ``(t_mm / flops) / (t_ag / bytes)``. On a group mesh of
+    more than one rank the gather is a real one (``DistArray.retile``
+    through ``torch.distributed``; on a gloo group of CUDA ranks that
+    includes the host staging). A logical mesh lives in one process
+    with no interconnect to time, and a one-rank group has nothing to
+    gather: both return :func:`_flop_weight`, as the JAX package does on
+    one device. Every rank of the group must call it, and every rank
+    returns the same value (each time is the slowest rank's), so ranks
+    that plan with it plan alike."""
+    from ..array import distarray as da
+    from ..parallel import collectives as coll
+
+    mesh = mesh or mesh_mod.get_mesh()
+    p = _mesh_n(mesh)
+    if not mesh.is_group or p <= 1:
+        return _flop_weight(mesh)
+    dev = mesh.device
+
+    def wait():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    x = np.random.RandomState(0).rand(n, n).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    wait()
+    xt @ xt
+    wait()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        xt @ xt
+    wait()
+    t_mm = (time.perf_counter() - t0) / iters
+    rows = da.from_numpy(x, tiling=tiling_mod.row(2), mesh=mesh)
+    rep = tiling_mod.replicated(2)
+    rows.retile(rep)
+    wait()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        rows.retile(rep)
+    wait()
+    t_ag = (time.perf_counter() - t0) / iters
+    # ranks time differently; a weight that differed between them could
+    # give them different plans, and so different collectives
+    t_mm, t_ag = coll.reduce_over(
+        torch.tensor([t_mm, t_ag], dtype=torch.float64, device=dev),
+        tuple(mesh.shape), "max", mesh).tolist()
+    if t_ag <= 0:
+        return _flop_weight(mesh)
+    flops = 2.0 * n * n * n
+    ag_bytes = float(n) * n * x.dtype.itemsize * (p - 1) / p
+    return float((t_mm / flops) / (t_ag / ag_bytes))
 
 
 def explain(root: Expr) -> str:

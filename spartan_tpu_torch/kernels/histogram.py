@@ -211,12 +211,20 @@ def bincount_group(ids: torch.Tensor, length: int,
     """The JAX package's ``shard_map`` form of ``bincount_sharded``: the
     padded id stream row-split over the mesh's row axis,
     :func:`bincount_block` per position, the count rows summed as f32
-    by an ``all_reduce``, then int32 (exact below 2**24 a bucket)."""
+    by an ``all_reduce``, then int32 (exact below 2**24 a bucket). On a
+    group mesh each rank keeps only its row block of the stream and
+    counts it (:func:`bincount_local`)."""
     from ..parallel import collectives as coll
     from ..parallel.shard_map import shard_map
 
     length = _checked(ids, length)
     mesh = mesh or mesh_mod.get_mesh()
+    if mesh.is_group:
+        from ..array.distarray import from_tensor
+
+        # each rank keeps its row block of the whole stream
+        return bincount_local(from_tensor(ids.reshape(-1),
+                                          tiling_mod.row(1), mesh), length)
     axis = tiling_mod.AXIS_ROW
     p = max(int(mesh.shape[axis]), 1)
     ids = _padded(ids.reshape(-1), length, p)
@@ -230,13 +238,35 @@ def bincount_group(ids: torch.Tensor, length: int,
     return out.to(torch.int32)
 
 
+def bincount_local(ids, length: int) -> torch.Tensor:
+    """Per-rank bincount of a 1-D group mesh ``DistArray`` of ids as the
+    ranks store them (moved to rows first): :func:`bincount_block` a
+    rank on its block, the count rows summed as f32 by an all-reduce
+    over the row axis, then int32. Returns the whole (length,) counts
+    on every rank."""
+    from ..parallel import collectives as coll
+    from ..parallel import redistribute as redist_mod
+
+    ids = redist_mod.relayout(ids, tiling_mod.row(1))
+    length = _checked(ids.local, length)
+    part = bincount_block(ids.local.to(torch.int32), length).to(
+        torch.float32)
+    return coll.reduce_over(part, (tiling_mod.AXIS_ROW,), "add",
+                            ids.mesh).to(torch.int32)
+
+
 def bincount_sharded(ids: torch.Tensor, length: int,
                      mesh: Optional[mesh_mod.Mesh] = None) -> torch.Tensor:
     """Distributed bincount over the mesh row axis: the 1-D id stream
     padded to p whole shards with ``length``, counted per shard, the
     shards' counts summed. Returns int32 ``(length,)``. On a logical
     mesh on the card all shards are counted in one launch; on a group
-    mesh each rank counts its shard (:func:`bincount_group`)."""
+    mesh each rank counts the block it stores (:func:`bincount_local`;
+    of a whole tensor, its row block)."""
+    if getattr(ids, "mesh", None) is not None:  # a DistArray
+        if ids.mesh.is_group:
+            return bincount_local(ids, length)
+        ids = ids.local
     length = _checked(ids, length)
     mesh = mesh or mesh_mod.get_mesh()
     if mesh.is_group:

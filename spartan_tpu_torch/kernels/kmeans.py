@@ -13,10 +13,14 @@ tensor the kernel cannot take raises.
 The JAX package runs one kernel per row shard and merges with a
 ``psum``. On a logical mesh the port runs one pass over all rows with
 the ``valid_rows`` mask, which gives the same sums up to summation
-order. On a group mesh (``parallel/mesh.py``) :func:`step` takes
-:func:`assign_accumulate_sharded`, the JAX package's ``shard_map``
-form: each rank runs the pass on its row block, with its share of the
-``valid_rows`` limit, and an ``all_reduce`` merges the sums and counts.
+order. :func:`assign_accumulate_sharded` is the JAX package's
+``shard_map`` form: each position runs the pass on its row block, with
+its share of the ``valid_rows`` limit, and an ``all_reduce`` merges the
+sums and counts. On a group mesh (``parallel/mesh.py``) :func:`step`
+takes it, and each rank runs the pass on the row block it stores
+(local-shard storage, ``array/distarray.py``): a ``DistArray``'s with
+no whole tensor and no slicing, a whole tensor's cut to the rank's rows
+(:func:`assign_accumulate_local`).
 """
 
 from __future__ import annotations
@@ -203,7 +207,31 @@ def assign_accumulate(points: torch.Tensor, centers: torch.Tensor, k: int,
     return _launch(points.contiguous(), centers.contiguous(), k, valid)
 
 
-def assign_accumulate_sharded(points: torch.Tensor, centers: torch.Tensor,
+def assign_accumulate_local(points, centers: torch.Tensor, k: int,
+                            valid_rows: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pass over a group mesh ``DistArray`` of points as it is
+    stored: each rank runs :func:`assign_accumulate` on its row block
+    (its share of the first ``valid_rows`` rows), and an all-reduce over
+    the row axis merges the (k, d) sums and (k,) counts. Points under
+    another layout first move to rows (``redistribute.relayout``)."""
+    from ..parallel import collectives as coll
+    from ..parallel import redistribute as redist_mod
+
+    rows = tiling_mod.row(2)
+    points = redist_mod.relayout(points, rows)
+    n = points.shape[0]
+    valid = n if valid_rows is None else max(0, min(int(valid_rows), n))
+    ext = rows.block_extent(points.shape, points.mesh)
+    blk = points.local
+    limit = min(max(valid - ext.ul[0], 0), blk.shape[0])
+    sums, cnt = assign_accumulate(blk, centers, k, limit)
+    axes = (tiling_mod.AXIS_ROW,)
+    return (coll.reduce_over(sums, axes, "add", points.mesh),
+            coll.reduce_over(cnt, axes, "add", points.mesh))
+
+
+def assign_accumulate_sharded(points, centers: torch.Tensor,
                               k: int, valid_rows: Optional[int] = None,
                               mesh: Optional[mesh_mod.Mesh] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -212,17 +240,27 @@ def assign_accumulate_sharded(points: torch.Tensor, centers: torch.Tensor,
     block, counting only its share of the first ``valid_rows`` rows,
     and an ``all_reduce`` sums the (k, d) sums and (k,) counts. A row
     count the row axis does not divide takes one pass over all rows, as
-    in the JAX package, and so does a logical mesh of one row position;
-    a group mesh of one row position still merges through its group."""
+    in the JAX package, and so does a mesh of one row position. On a
+    group mesh the pass runs on the row blocks the ranks store
+    (:func:`assign_accumulate_local`): of a group mesh ``DistArray`` as
+    it is stored, of a whole tensor each rank's row block."""
     from ..parallel import collectives as coll
     from ..parallel.shard_map import shard_map
 
+    if getattr(points, "mesh", None) is not None and points.mesh.is_group:
+        return assign_accumulate_local(points, centers, k, valid_rows)
     mesh = mesh or mesh_mod.get_mesh()
+    if mesh.is_group:
+        from ..array.distarray import from_tensor
+
+        return assign_accumulate_local(
+            from_tensor(points, tiling_mod.row(2), mesh), centers, k,
+            valid_rows)
     n = points.shape[0]
     valid = n if valid_rows is None else max(0, min(int(valid_rows), n))
     axis = tiling_mod.AXIS_ROW
     p = int(mesh.shape[axis])
-    if n % p or (p <= 1 and not mesh.is_group):
+    if n % p or p <= 1:
         return assign_accumulate(points, centers, k, valid)
     ms = n // p
 

@@ -17,8 +17,9 @@ fallback: a CUDA tensor the kernel cannot take raises.
 :func:`segment_sum_sharded` is the JAX package's ``shard_map`` form
 (per-shard block sums merged by ``reduce_scatter`` and ``all_gather``
 where the shard count divides the segments, else by ``all_reduce``);
-``ops/segment.py`` takes it on a group mesh. On a logical mesh the block
-kernel runs once over all entries.
+``ops/segment.py`` takes it on a group mesh, where each rank runs the
+block kernel on the rows it stores. On a logical mesh the block kernel
+runs once over all entries.
 """
 
 from __future__ import annotations
@@ -249,15 +250,39 @@ def segment_sum_sharded(vals: torch.Tensor, ids: torch.Tensor,
     :func:`segment_sum_block` per shard, and the partials merged by
     ``reduce_scatter`` then ``all_gather`` when the shard count divides
     ``num_segments``, else by ``all_reduce``. Every position ends with
-    the whole (replicated) result."""
-    from ..parallel import collectives as coll
-    from ..parallel.shard_map import shard_map
+    the whole (replicated) result. On a group mesh each rank runs on the
+    row blocks it stores (local-shard storage): of group mesh
+    ``DistArray``s as they are stored, of whole tensors each rank's rows."""
+    from ..parallel.shard_map import shard_map, shard_map_local
 
+    if getattr(vals, "mesh", None) is None:  # whole tensors
+        mesh = mesh or mesh_mod.get_mesh()
+        if mesh.is_group:
+            from ..array.distarray import from_tensor
+
+            vals = from_tensor(vals, tiling_mod.row(vals.ndim), mesh)
+            ids = from_tensor(ids, tiling_mod.row(1), mesh)
+    elif not vals.mesh.is_group:
+        vals, ids = vals.local, ids.local  # logical mesh DistArrays
+    if getattr(vals, "mesh", None) is not None:
+        # group mesh DistArrays: the blocks the ranks store, moved to
+        # rows where they lie otherwise
+        from ..parallel import redistribute as redist_mod
+
+        mesh = vals.mesh
+        k = int(num_segments)
+        v = redist_mod.relayout(vals, tiling_mod.row(vals.ndim)).local
+        i = redist_mod.relayout(ids, tiling_mod.row(1)).local
+        squeeze = v.ndim == 1
+        out = shard_map_local(
+            _segment_body(k, block_e, mesh), mesh,
+            (tiling_mod.row(2), tiling_mod.row(1)),
+            tiling_mod.replicated(2))(v[:, None] if squeeze else v, i)
+        return out[:, 0] if squeeze else out
     mesh = mesh or mesh_mod.get_mesh()
-    axis = tiling_mod.AXIS_ROW
-    p = int(mesh.shape[axis])
+    p = int(mesh.shape[tiling_mod.AXIS_ROW])
     k = int(num_segments)
-    if p <= 1 and not mesh.is_group:
+    if p <= 1:
         return segment_sum_block(vals, ids, k, block_e)
     squeeze = vals.ndim == 1
     if squeeze:
@@ -266,7 +291,21 @@ def segment_sum_sharded(vals: torch.Tensor, ids: torch.Tensor,
     if e_pad:
         vals = torch.cat([vals, vals.new_zeros((e_pad, vals.shape[1]))])
         ids = torch.cat([ids, ids.new_full((e_pad,), k)])
-    scatter = k % p == 0
+    out = shard_map(_segment_body(k, block_e, mesh), mesh,
+                    (tiling_mod.row(2), tiling_mod.row(1)),
+                    tiling_mod.replicated(2))(vals, ids)
+    return out[:, 0] if squeeze else out
+
+
+def _segment_body(k: int, block_e: int, mesh: mesh_mod.Mesh):
+    """One position's part of the sharded segment sum: its block through
+    :func:`segment_sum_block`, merged by ``reduce_scatter`` then
+    ``all_gather`` when the row axis divides ``k``, else ``all_reduce``
+    (every position's (k, d) part has one shape, whatever its block)."""
+    from ..parallel import collectives as coll
+
+    axis = tiling_mod.AXIS_ROW
+    scatter = k % int(mesh.shape[axis]) == 0
 
     def body(v, i):
         part = segment_sum_block(v, i, k, block_e)
@@ -276,6 +315,4 @@ def segment_sum_sharded(vals: torch.Tensor, ids: torch.Tensor,
             return coll.all_gather(coll.reduce_scatter(part, axis), axis)
         return coll.all_reduce(part, axis)
 
-    out = shard_map(body, mesh, (tiling_mod.row(2), tiling_mod.row(1)),
-                    tiling_mod.replicated(2))(vals, ids)
-    return out[:, 0] if squeeze else out
+    return body

@@ -17,10 +17,11 @@ FMAs), C > 4 the tensor-core implicit GEMM (3xTF32 ``mma.sync``, about
 f32 accuracy). On CPU tensors it runs
 :func:`conv_block_plain`, the TPU kernel's formulation (KH*KW shifted
 slices, each a ``(rows, C) @ (C, O)`` product in f32); any other device
-raises. On a group mesh (``parallel/mesh.py``) :func:`halo_stencil`
-takes :func:`halo_stencil_sharded`, the JAX package's ``shard_map``
-form: the boundary rows travel by ``ring_permute`` and each rank runs
-one :func:`conv_block` on its own block.
+raises. :func:`halo_stencil_sharded` is the JAX package's ``shard_map``
+form: the boundary rows travel by ``ring_permute`` and each position
+runs one :func:`conv_block` on its own block. On a group mesh
+(``parallel/mesh.py``) :func:`halo_stencil` keeps only each rank's
+block and runs that body on it (:func:`halo_stencil_local`).
 """
 
 from __future__ import annotations
@@ -202,26 +203,20 @@ def halo_exchange(x: torch.Tensor, kh: int, kw: int, p: int) -> torch.Tensor:
     return out
 
 
-def halo_stencil_sharded(x: torch.Tensor, w: torch.Tensor, tiling,
-                         mesh: Optional[mesh_mod.Mesh] = None
-                         ) -> torch.Tensor:
-    """The JAX package's ``shard_map`` form of :func:`halo_stencil`:
-    each position takes the previous position's last ``lo`` rows and the
-    next one's first ``hi`` rows by ``ring_permute`` (zeros at the ends,
-    which is SAME's zero pad), pads W with zeros and runs one
-    :func:`conv_block` on its block. Returns (N, H, W, O) f32, whole on
-    every position."""
+def _halo_body(w: torch.Tensor, tiling, mesh: mesh_mod.Mesh, h: int):
+    """The per-position body of the sharded stencil over an H of ``h``
+    rows: the previous position's last ``lo`` rows and the next one's
+    first ``hi`` rows by ``ring_permute`` (zeros at the ends, which is
+    SAME's zero pad), W padded with zeros, one :func:`conv_block`."""
     from ..parallel import collectives as coll
-    from ..parallel.shard_map import shard_map
 
-    mesh = mesh or mesh_mod.get_mesh()
     axis = tiling.axes[1]
     p = int(mesh.shape[axis])
     kh, kw = int(w.shape[0]), int(w.shape[1])
     hlo, hhi = _same_pad(kh)
     wlo, whi = _same_pad(kw)
-    if x.shape[1] % p or x.shape[1] // p < max(hlo, hhi):
-        raise ValueError(f"H {x.shape[1]} does not split into {p} shards "
+    if h % p or h // p < max(hlo, hhi):
+        raise ValueError(f"H {h} does not split into {p} shards "
                          f"of at least {max(hlo, hhi)} halo rows")
 
     def body(xl, wl):
@@ -239,9 +234,39 @@ def halo_stencil_sharded(x: torch.Tensor, w: torch.Tensor, tiling,
                                        (0, 0, wlo, whi))
         return conv_block(xpad, wl)
 
+    return body
+
+
+def halo_stencil_sharded(x: torch.Tensor, w: torch.Tensor, tiling,
+                         mesh: Optional[mesh_mod.Mesh] = None
+                         ) -> torch.Tensor:
+    """The JAX package's ``shard_map`` form of :func:`halo_stencil`:
+    each position exchanges its halo rows with its neighbours and runs
+    one :func:`conv_block` on its block (:func:`_halo_body`). Returns
+    (N, H, W, O) f32, whole on every position."""
+    from ..parallel.shard_map import shard_map
+
+    mesh = mesh or mesh_mod.get_mesh()
     out_t = tiling.with_axis(2, None).with_axis(3, None)
-    return shard_map(body, mesh, (tiling, None), out_t)(
-        x, w.to(torch.float32))
+    return shard_map(_halo_body(w, tiling, mesh, int(x.shape[1])), mesh,
+                     (tiling, None), out_t)(x, w.to(torch.float32))
+
+
+def halo_stencil_local(x, w: torch.Tensor, tiling):
+    """The sharded stencil on a group mesh ``DistArray`` of images as the
+    ranks store them (moved to ``tiling`` first): one
+    :func:`conv_block` a rank on its block and its neighbours' halo
+    rows. Returns the rank's (n, h, W, O) block of the output, tiled as
+    ``tiling`` with W and O whole."""
+    from ..parallel import redistribute as redist_mod
+    from ..parallel.shard_map import shard_map_local
+
+    mesh = x.mesh
+    x = redist_mod.relayout(x, tiling)
+    out_t = tiling.with_axis(2, None).with_axis(3, None)
+    return shard_map_local(_halo_body(w, tiling, mesh, int(x.shape[1])),
+                           mesh, (tiling, None), out_t)(
+        x.local, w.to(torch.float32))
 
 
 def halo_stencil(x: torch.Tensor, w: torch.Tensor, tiling,
@@ -249,11 +274,17 @@ def halo_stencil(x: torch.Tensor, w: torch.Tensor, tiling,
     """SAME-padded stride-1 NHWC conv of ``x`` (N, H, W, C) with ``w``
     (KH, KW, C, O), H tiled over ``tiling.axes[1]``: on a logical mesh
     the halo exchange feeding one :func:`conv_block` over all shards, on
-    a group mesh :func:`halo_stencil_sharded`. Returns (N, H, W, O)
-    f32."""
+    a group mesh :func:`halo_stencil_local` on the rank's block of ``x``
+    and the blocks gathered. Returns (N, H, W, O) f32."""
     mesh = mesh or mesh_mod.get_mesh()
     if mesh.is_group:
-        return halo_stencil_sharded(x, w, tiling, mesh)
+        from ..array.distarray import from_tensor
+        from ..parallel import collectives as coll
+
+        blk = halo_stencil_local(from_tensor(x, tiling, mesh), w, tiling)
+        shape = tuple(x.shape[:3]) + (int(w.shape[3]),)
+        return coll.gather_whole(
+            blk, tiling.with_axis(2, None).with_axis(3, None), shape, mesh)
     p = int(mesh.shape[tiling.axes[1]])
     kh, kw = int(w.shape[0]), int(w.shape[1])
     blocks = halo_exchange(x, kh, kw, p)

@@ -437,11 +437,43 @@ def record_staged(op: str, nbytes: int) -> None:
                      "bytes staged through host memory").inc(int(nbytes))
 
 
+def record_received(op: str, nbytes: int) -> None:
+    """Bytes a rank received from the other ranks of a group in one
+    ``op`` that moved local blocks: ``group_received_bytes{op=...}``."""
+    REGISTRY.counter(labeled("group_received_bytes", op=op),
+                     "bytes received from other ranks by op").inc(int(nbytes))
+
+
+def record_materialize(site: str, nbytes: int) -> None:
+    """One whole array gathered on a group mesh for ``site`` (an expr
+    node with no local rule, or a caller of ``DistArray.tensor``), of
+    ``nbytes``: ``group_materialize_calls{site=...}`` and
+    ``group_materialize_bytes{site=...}``."""
+    REGISTRY.counter(labeled("group_materialize_calls", site=site),
+                     "whole arrays gathered on a group mesh").inc()
+    REGISTRY.counter(labeled("group_materialize_bytes", site=site),
+                     "bytes of whole arrays gathered").inc(int(nbytes))
+
+
+def materialize_sites() -> Dict[str, int]:
+    """``group_materialize_calls`` by site."""
+    out: Dict[str, int] = {}
+    for key, v in REGISTRY.counter_values().items():
+        base, labels = parse_labels(key)
+        if base == "group_materialize_calls" and v:
+            site = labels.get("site", "")
+            out[site] = out.get(site, 0) + v
+    return out
+
+
 def collective_totals() -> Dict[str, int]:
-    """The four collective counters summed over ops."""
+    """The collective, host-staging, received and materialize counters,
+    each summed over its labels."""
     out = {"collective_calls": 0, "collective_bytes": 0,
            "collective_host_staged_calls": 0,
-           "collective_host_staged_bytes": 0}
+           "collective_host_staged_bytes": 0,
+           "group_received_bytes": 0,
+           "group_materialize_calls": 0, "group_materialize_bytes": 0}
     for key, v in REGISTRY.counter_values().items():
         base, _ = split_labels(key)
         if base in out:

@@ -17,11 +17,17 @@ static-shape shard_map program per shard:
    gathered, each shard cuts its bucket at the output shards' bounds,
    and a second all_to_all delivers the chunks.
 
-Here the p logical shards are the rows of one tensor on one card, the
-all_to_all is a transpose of the (sender, receiver) axes and the
+On a logical mesh the p shards are the rows of one tensor on one card,
+the all_to_all is a transpose of the (sender, receiver) axes and the
 all_gather a view; every step keeps the JAX program's static shapes (no
-host sync). Batched sorts (an N-d array along its last axis) stack the
-rows of every batch position. The send buffer is packed by the
+host sync). On a group mesh (local-shard storage, ``array/distarray.py``)
+:func:`sample_sort_local` runs the same program once per rank on the
+row block the rank stores, with a real ``all_gather`` of the samples
+and bucket sizes and a real ``all_to_all`` of the send buffers over the
+row axis, and rebalances to the row tiling's blocks;
+:func:`distributed_topk_local` takes each rank's candidates from its
+block and gathers the p * k of them. Batched sorts (an N-d array along
+its last axis) stack the rows of every batch position. The send buffer is packed by the
 ``partition_pack`` kernel when ``kernels.select("sort_exchange")`` picks
 it, else by the scatter the JAX package's expr path lowers through. The
 JAX package's ragged transport (``lax.ragged_all_to_all``, its own
@@ -101,15 +107,15 @@ def _pack_scatter(xs_sorted: torch.Tensor, dst: torch.Tensor,
                   starts: torch.Tensor, p: int) -> torch.Tensor:
     """The expr path's send buffer: element t of a shard scattered to
     (dst[t], t - starts[dst[t]]); padding (dst == p) to a dropped slot.
-    Returns (R, p, p, m)."""
-    r, _, m = xs_sorted.shape
+    Returns (R, S, p, m) for the S shards of ``xs_sorted`` (R, S, m)."""
+    r, shards, m = xs_sorted.shape
     dc = dst.clamp(max=p - 1)
     pos = torch.arange(m, device=dst.device) - starts.gather(-1, dc)
     flat = torch.where(dst < p, dc * m + pos, p * m)
-    out = torch.zeros((r, p, p * m + 1), dtype=xs_sorted.dtype,
+    out = torch.zeros((r, shards, p * m + 1), dtype=xs_sorted.dtype,
                       device=xs_sorted.device)
     out.scatter_(-1, flat, xs_sorted)
-    return out[..., :p * m].reshape(r, p, p, m)
+    return out[..., :p * m].reshape(r, shards, p, m)
 
 
 def _kernel(xs: torch.Tensor, p: int, s: int, n: int,
@@ -346,3 +352,175 @@ def distributed_topk(x: torch.Tensor, k: int, largest: bool = True,
     gi = gidx.gather(1, li).reshape(-1)
     _, win = ktopk.top_k(lk.reshape(-1), k)
     return gv[win], gi[win].to(torch.int32)
+
+
+# -- the group mesh: one program per rank on the stored row blocks -------
+
+
+def _pack_runs(xs_sorted: torch.Tensor, dst: torch.Tensor,
+               starts: torch.Tensor, counts: torch.Tensor, p: int,
+               pack: bool) -> torch.Tensor:
+    """One rank's (p, m) send buffer: run j of its sorted stream in row
+    j; the ``partition_pack`` kernel when selected (one launch), else
+    the expr path's scatter."""
+    from ..kernels import exchange as kexchange
+
+    if pack:
+        return kexchange.partition_pack(
+            xs_sorted[None], starts[None].to(torch.int32),
+            counts[None].to(torch.int32))[0]
+    return _pack_scatter(xs_sorted[None, None], dst[None, None],
+                         starts[None, None], p)[0, 0]
+
+
+def sample_sort_local(arr, with_indices: bool = False):
+    """The sample sort (or argsort: int32 global indices) of a 1-D group
+    mesh ``DistArray`` over the row axis, on the row blocks the ranks
+    store: each rank sorts its block, the samples are gathered into
+    p - 1 splitters, each rank packs its runs into a (p, m) send buffer
+    (one ``partition_pack`` launch a rank where the registry selects
+    it, two for an argsort) and one ``all_to_all`` delivers them, each
+    rank merges its bucket, and a second ``all_to_all`` rebalances the
+    buckets to the blocks of the row tiling. Returns the result under
+    that tiling. Static shapes throughout: no host sync."""
+    from ..array import extent as extent_mod
+    from ..array.distarray import DistArray
+    from ..kernels import registry as kernels_mod
+    from ..parallel import collectives as coll
+    from ..parallel import redistribute as redist_mod
+
+    mesh = arr.mesh
+    name = tiling_mod.AXIS_ROW
+    p = int(mesh.shape[name])
+    n = int(arr.shape[0])
+    t = tiling_mod.Tiling((name,))
+    arr = redist_mod.relayout(arr, t)
+    orig = arr.local.dtype
+    x = dtypes.widen(arr.local)
+    ext = t.block_extent((n,), mesh)
+    lo, ln = ext.ul[0], ext.shape[0]
+    dev = x.device
+    if p <= 1 or n == 0:
+        order = stable_argsort(x)
+        out = order.to(torch.int32) if with_indices \
+            else x.gather(-1, order).to(orig)
+        return DistArray.from_local(out, t, (n,), mesh)
+    m = -(-n // p)
+    sel = kernels_mod.select("sort_exchange", (n,), dtypes.to_numpy(x.dtype),
+                             t, mesh, p=p, m=m)
+    tpos = torch.arange(m, dtype=torch.int64, device=dev)
+    if ln < m:
+        x = torch.cat([x, x.new_zeros(m - ln)])
+    inv = tpos >= ln
+    # 1. local two-key sort: padding behind every value, stable
+    order = _lexsort(inv, sort_key(x))
+    xs_sorted = x.gather(0, order)
+    src_idx = (lo + order).to(torch.int32) if with_indices else None
+    # 2. splitters from s evenly spaced samples of each valid prefix
+    s = min(_SAMPLES, m)
+    samp = ((torch.arange(s, device=dev) * ln) // s).clamp(0, m - 1)
+    alls = coll.stack_over(xs_sorted[samp], name, mesh).reshape(p * s)
+    alls = alls.gather(0, stable_argsort(alls))
+    splitters = alls[torch.arange(1, p, device=dev) * s]
+    # 3. bucket exchange: runs are contiguous in the sorted stream
+    dst = torch.searchsorted(sort_key(splitters).contiguous(),
+                             sort_key(xs_sorted), right=True)
+    dst = torch.where(inv, p, dst)
+    bounds = torch.searchsorted(dst, torch.arange(p + 1, device=dev))
+    starts, counts = bounds[:p], bounds[1:] - bounds[:p]
+    vals = coll.exchange(_pack_runs(xs_sorted, dst, starts, counts, p,
+                                    sel.native), name, 0, 0, mesh)
+    rvalid = coll.exchange(tpos[None, :] < counts[:, None], name, 0, 0,
+                           mesh).reshape(p * m)
+    if with_indices:
+        ridx = coll.exchange(_pack_runs(src_idx, dst, starts, counts, p,
+                                        sel.native), name, 0, 0, mesh)
+    # 4. local merge: (invalid, value), stable
+    order2 = _lexsort(~rvalid, sort_key(vals.reshape(p * m)))
+    bucket = (ridx if with_indices else vals).reshape(p * m).gather(
+        0, order2)
+    # 5. rebalance to the row tiling's blocks
+    ks = coll.stack_over(rvalid.sum().reshape(1), name, mesh).reshape(p)
+    off = torch.cumsum(ks, 0) - ks
+    me = mesh.coords[name]
+    bnd = torch.tensor(extent_mod.compute_splits(n, p), dtype=torch.int64,
+                       device=dev)
+    if bnd.shape[0] < p:  # fewer elements than ranks: empty tail blocks
+        bnd = torch.cat([bnd, bnd.new_full((p - bnd.shape[0], 2), n)])
+    lo_j = torch.maximum(off[me], bnd[:, 0])
+    hi_j = torch.minimum(off[me] + ks[me], bnd[:, 1])
+    cnt = (hi_j - lo_j).clamp(min=0)
+    st = (lo_j - bnd[:, 0]).clamp(0, m)
+    gidx = ((lo_j - off[me])[:, None] + tpos[None, :]).clamp(0, p * m - 1)
+    recv = coll.exchange(bucket[gidx], name, 0, 0, mesh)
+    rcnt = coll.exchange(cnt[:, None], name, 0, 0, mesh)
+    rst = coll.exchange(st[:, None], name, 0, 0, mesh)
+    positions = torch.where(tpos[None, :] < rcnt, rst + tpos[None, :], ln)
+    out = torch.zeros(ln + 1, dtype=recv.dtype, device=dev)
+    out.scatter_(0, positions.reshape(-1), recv.reshape(-1))
+    out = out[:ln]
+    return DistArray.from_local(out if with_indices else out.to(orig), t,
+                                (n,), mesh)
+
+
+def distributed_topk_local(arr, k: int, largest: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, int32 indices) of the k largest (smallest) elements of a
+    1-D group mesh ``DistArray``, best first, on the row blocks the
+    ranks store: each rank's top-k candidates of its block (one
+    ``shard_topk`` launch a rank where the registry selects it), an
+    ``all_gather`` of the p * k candidates and their global indices,
+    and a final top-k with ties to the lowest index (``lax.top_k``'s
+    order, C3). Padding slots of a short block carry the sentinel and
+    an index past ``n``, and their candidates go behind every real one,
+    as the single-process program keeps its padding at the global tail.
+    Requires ``k <= ceil(n / p)``. Every rank returns the same whole
+    result."""
+    from ..kernels import registry as kernels_mod
+    from ..kernels import topk as ktopk
+    from ..parallel import collectives as coll
+    from ..parallel import redistribute as redist_mod
+
+    mesh = arr.mesh
+    name = tiling_mod.AXIS_ROW
+    p = int(mesh.shape[name])
+    n = int(arr.shape[0])
+    k = int(k)
+    if not 1 <= k <= n:
+        raise ValueError(f"topk needs 1 <= k <= {n}, got {k}")
+    t = tiling_mod.Tiling((name,))
+    arr = redist_mod.relayout(arr, t)
+    x = arr.local
+    if p <= 1:
+        _, idx = ktopk.top_k(x if largest else _flip_key(x), k)
+        return x[idx], idx.to(torch.int32)
+    m = -(-n // p)
+    if k > m:
+        raise ValueError(
+            f"distributed_topk requires k <= shard size {m}; got {k}")
+    ext = t.block_extent((n,), mesh)
+    lo, ln = ext.ul[0], ext.shape[0]
+    dev = x.device
+    sentinel = _extreme(x.dtype, lo=largest)
+    sel = kernels_mod.select("topk", (n,), dtypes.to_numpy(x.dtype),
+                             tiling_mod.row(1), mesh, k=k)
+    tpos = torch.arange(m, dtype=torch.int64, device=dev)
+    if ln < m:
+        x = torch.cat([x, x.new_zeros(m - ln)])
+    real = tpos < ln
+    vv = torch.where(real, x, torch.full((), sentinel, dtype=x.dtype,
+                                         device=dev))
+    gidx = torch.where(real, lo + tpos, n + tpos)
+    key = vv if largest else _flip_key(vv)
+    if sel.native:
+        lk, li = ktopk.shard_topk(key[None], k, _extreme(key.dtype, lo=True))
+        lk, li = lk[0], li[0].to(torch.int64)
+    else:
+        lk, li = ktopk.top_k(key, k)
+    ck = coll.stack_over(lk, name, mesh).reshape(-1)
+    cv = coll.stack_over(vv[li], name, mesh).reshape(-1)
+    ci = coll.stack_over(gidx[li], name, mesh).reshape(-1)
+    back = torch.sort((ci >= n).to(torch.int8), stable=True).indices
+    ck, cv, ci = ck[back], cv[back], ci[back]
+    _, win = ktopk.top_k(ck, k)
+    return cv[win], ci[win].to(torch.int32)

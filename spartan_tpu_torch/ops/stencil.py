@@ -116,6 +116,26 @@ class StencilExpr(Expr):
             return kstencil.halo_stencil(xv, wv, self.x.out_tiling())
         return self._conv(xv, wv)
 
+    def _lower_local(self, env) -> Any:
+        """On a group mesh, where the kernel path is selected: each rank
+        runs one ``conv_block`` on its stored block with its neighbours'
+        halo rows (``kernels/stencil.halo_stencil_local``)."""
+        from ..kernels import registry as kernels_mod
+
+        t = self.x.out_tiling()
+        if t.axes[1] is None or not t.divisible(self.x.shape, env.mesh) \
+                or not kernels_mod.node_selection(self).native:
+            return NotImplemented
+        from ..array.distarray import DistArray
+        from ..array import tiling as tiling_mod
+        from ..kernels import stencil as kstencil
+
+        w = self.w.lower_local(env).retile(
+            tiling_mod.replicated(self.w.ndim)).local
+        blk = kstencil.halo_stencil_local(self.x.lower_local(env), w, t)
+        out_t = t.with_axis(2, None).with_axis(3, None)
+        return DistArray.from_local(blk, out_t, self.shape, env.mesh)
+
     def _sig(self, ctx) -> Tuple:
         return ("stencil", self.stride, self.padding,
                 ctx.of(self.x), ctx.of(self.w))

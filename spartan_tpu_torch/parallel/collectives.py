@@ -37,7 +37,8 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from ..array.tiling import Tiling
-from ..obs.metrics import record_collective, record_staged
+from ..obs.metrics import (record_collective, record_received,
+                           record_staged)
 from . import mesh as mesh_mod
 from . import shard_map as smap
 
@@ -303,6 +304,167 @@ class GroupRunner:
                                lambda g: self._permute(g, axis, -shift))
 
 
+# -- local blocks on a group mesh (outside shard_map) ---------------------
+#
+# Storage on a group mesh keeps each array's block on its rank
+# (array/distarray.py). These moves of whole blocks between the ranks
+# run outside any shard_map body, through the mesh's GroupRunner; each
+# records collective_calls/_bytes and the bytes the rank needs from the
+# other positions (group_received_bytes: the peers' blocks of a gather
+# or all-reduce, the peers' chunks of an all-to-all).
+
+# collectives carry these dtypes as a same-width integer view (the
+# backends have no sum or transport for some of them)
+_WIRE = {torch.bool: torch.uint8, torch.uint16: torch.int16,
+         torch.uint32: torch.int32, torch.uint64: torch.int64,
+         torch.bfloat16: torch.int16}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _to_wire(t: torch.Tensor):
+    """(``t`` as the backends move it, the dtype to view the result back
+    as, or None when it travels as it is)."""
+    wire = _WIRE.get(t.dtype)
+    if wire is None:
+        return t.contiguous(), None
+    return t.contiguous().view(wire), t.dtype
+
+
+def _from_wire(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t if dtype is None else t.view(dtype)
+
+
+def group_runner(mesh: mesh_mod.Mesh) -> GroupRunner:
+    """The group mesh's runner for collectives outside shard_map."""
+    if mesh.runner is None:
+        mesh.runner = GroupRunner(mesh)
+    return mesh.runner
+
+
+def _live_axes(axes, mesh: mesh_mod.Mesh) -> List[str]:
+    return [a for a in axes if mesh.shape[a] > 1]
+
+
+def gather_dim(block: torch.Tensor, dim: int, entry, size: int,
+               mesh: mesh_mod.Mesh) -> torch.Tensor:
+    """The whole of dim ``dim`` (of extent ``size``) from the blocks of
+    the positions along the mesh axes of the tiling entry ``entry``:
+    each block is padded to the largest tile (``all_gather`` takes equal
+    sizes), gathered over the inner axis of a tuple first (row-major
+    tile order), and the padding is cut after."""
+    from ..array import extent as extent_mod
+    from ..array import tiling as tiling_mod
+
+    n = tiling_mod.tile_count(entry, mesh)
+    if n == 1:
+        return block
+    splits = extent_mod.compute_splits(size, n)
+    lens = [hi - lo for lo, hi in splits] + [0] * (n - len(splits))
+    mx = max(lens)
+    if mx == 0:
+        return block
+    if block.shape[dim] < mx:
+        pad = list(block.shape)
+        pad[dim] = mx - block.shape[dim]
+        block = torch.cat([block, block.new_zeros(pad)], dim)
+    out, dtype = _to_wire(block)
+    runner = group_runner(mesh)
+    for sub in reversed(_live_axes(tiling_mod.mesh_axes_of(entry), mesh)):
+        before = _nbytes(out)
+        out = runner.all_gather(out, sub, dim)
+        record_collective("all_gather", before)
+        record_received("all_gather", _nbytes(out) - before)
+    out = _from_wire(out, dtype)
+    if all(ln == mx for ln in lens):
+        return out
+    return torch.cat([out.narrow(dim, i * mx, ln)
+                      for i, ln in enumerate(lens) if ln], dim)
+
+
+def gather_whole(block: torch.Tensor, tiling: Tiling, shape,
+                 mesh: mesh_mod.Mesh) -> torch.Tensor:
+    """The whole array from the ranks' blocks under ``tiling``."""
+    for dim, a in enumerate(tiling.axes):
+        block = gather_dim(block, dim, a, int(shape[dim]), mesh)
+    return block
+
+
+def stack_over(t: torch.Tensor, axis: str,
+               mesh: mesh_mod.Mesh) -> torch.Tensor:
+    """Every position's ``t`` along ``axis``, stacked on a new leading
+    dim in position order."""
+    if mesh.shape[axis] == 1:
+        return t[None]
+    w, dtype = _to_wire(t)
+    out = group_runner(mesh).all_gather(w, axis, 0, tiled=False)
+    record_collective("all_gather", _nbytes(w))
+    record_received("all_gather", _nbytes(out) - _nbytes(w))
+    return _from_wire(out, dtype)
+
+
+def reduce_over(t: torch.Tensor, axes, op: str,
+                mesh: mesh_mod.Mesh) -> torch.Tensor:
+    """``t`` combined by ``op`` (``add``, ``prod``, ``max``, ``min``)
+    over the positions along each mesh axis of ``axes``. Integers sum
+    and multiply as int64 and come back to their dtype (so int32 wraps
+    as it would in one pass); bools combine as uint8."""
+    live = _live_axes(axes, mesh)
+    if not live:
+        return t
+    import torch.distributed as dist
+
+    dtype = t.dtype
+    if dtype == torch.bool:
+        t = t.to(torch.uint8)
+    elif not (dtype.is_floating_point or dtype.is_complex) \
+            and op in ("add", "prod"):
+        t = t.to(torch.int64)
+    red = {"add": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+    runner = group_runner(mesh)
+    for axis in live:
+        pg, n, _ = runner._line(axis)
+
+        def call(buf, pg=pg):
+            buf = buf.clone()
+            dist.all_reduce(buf, op=red, group=pg)
+            return buf
+
+        record_collective("all_reduce", _nbytes(t))
+        record_received("all_reduce", _nbytes(t) * (n - 1))
+        t = runner._transport("all_reduce", t, call)
+    return t.to(dtype) if t.dtype != dtype else t
+
+
+def combine_owned(t: torch.Tensor, axes, mesh: mesh_mod.Mesh
+                  ) -> torch.Tensor:
+    """Exact combine of values that one position along ``axes`` holds
+    and every other position leaves zero: the bits are summed as
+    integers, so every value (-0.0 and NaN payloads included) arrives
+    as its owner wrote it."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = t.contiguous().view(ints[t.element_size()])
+    return reduce_over(bits, axes, "add", mesh).view(t.dtype)
+
+
+def exchange(t: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
+             mesh: mesh_mod.Mesh) -> torch.Tensor:
+    """``all_to_all`` of a local block over ``axis``: chunk ``j`` of
+    ``split_dim`` goes to position ``j``; the chunks received are
+    concatenated along ``concat_dim`` in position order."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return t
+    w, dtype = _to_wire(t)
+    record_collective("all_to_all", _nbytes(w))
+    record_received("all_to_all", _nbytes(w) * (n - 1) // n)
+    return _from_wire(group_runner(mesh)._all_to_all(w, axis, split_dim,
+                                                     concat_dim), dtype)
+
+
 # -- in-kernel collectives (call inside shard_map) ------------------------
 
 
@@ -369,9 +531,11 @@ def axis_size(axis: str = mesh_mod.AXIS_ROW) -> int:
 
 
 def reshard(arr: Any, tiling: Tiling):
-    """``arr`` (a DistArray or a tensor) under ``tiling``, as a
-    DistArray. Every rank and every logical position reads the same
-    whole tensor, so only the tiling changes."""
+    """``arr`` (a DistArray or a whole tensor) under ``tiling``, as a
+    DistArray. On a logical mesh only the tiling changes; on a group
+    mesh each rank ends with its block under ``tiling`` (a DistArray
+    moves between the ranks, ``DistArray.retile``; a whole tensor is
+    cut to the rank's block)."""
     from ..array.distarray import DistArray, from_tensor
 
     if isinstance(arr, DistArray):
@@ -386,7 +550,7 @@ def ulysses_swap(arr: torch.Tensor, seq_axis: int, head_axis: int,
     from ..array.distarray import DistArray
 
     if isinstance(arr, DistArray):
-        arr = arr.tensor
+        arr = arr.materialize("ulysses_swap")
     ndim = arr.ndim
     in_axes: List[Optional[str]] = [None] * ndim
     in_axes[seq_axis] = mesh_axis

@@ -12,8 +12,13 @@ named axes. The port has two kinds of mesh:
   per rank of a ``torch.distributed`` process group, at coordinates
   ``divmod(rank, y)`` (the JAX package's row-major device order), with
   one sub-group per row and per column for the axis collectives.
-  Every rank holds each array's tensor whole; ``shard_map`` runs the
-  rank's own block and the collectives go through the group.
+  Each rank holds only its block of every array (``DistArray.local``,
+  the ``Tiling.block_extent`` of its coordinates; a replicated mesh
+  axis holds the same block on every rank along it), plan walks run on
+  the blocks, and what has no local rule gathers its inputs whole,
+  counted in ``group_materialize_calls`` (``array/distarray.py``,
+  ``expr/base.py``). ``shard_map`` runs the rank's own block and the
+  collectives go through the group.
 
 :func:`initialize_distributed` builds the group and installs its mesh
 as the ambient one; :func:`shutdown` clears it.
@@ -88,7 +93,7 @@ class Mesh:
     the grid of the ranks of a ``torch.distributed`` process group."""
 
     __slots__ = ("shape", "device", "group", "rank", "coords",
-                 "_axis_groups")
+                 "_axis_groups", "runner")
 
     def __init__(self, shape: Tuple[int, int], device: torch.device,
                  group=None):
@@ -102,6 +107,9 @@ class Mesh:
         self.coords: Dict[str, int] = {AXIS_ROW: 0, AXIS_COL: 0}
         # axis -> (process group or None, ranks of my row/column)
         self._axis_groups: Dict[str, Tuple[object, List[int]]] = {}
+        # the group's collectives outside shard_map (parallel/collectives
+        # GroupRunner), made at first use
+        self.runner = None
         if group is not None:
             self._join(group, nx, ny)
 

@@ -23,16 +23,25 @@ of reshard edges (port of ``spartan_tpu/parallel/redistribute.py``).
    :func:`constrain` runs the schedule (:func:`apply_schedule`);
    otherwise it returns the tensor it was given.
 
-The port's mesh is logical, on one device (``parallel/mesh.py``), so
+On a logical mesh (one device, ``parallel/mesh.py``)
 :func:`apply_schedule` runs the schedule over a list of per-logical-shard
 blocks of the one tensor: ``all_gather`` is a concatenation,
 ``all_to_all`` a split and re-concatenation and ``slice`` a block pick.
-Each step copies values and never computes, so the result is bit-equal
-to its input; with local-shard storage the multi-process form swaps
-in ``torch.distributed`` collectives under the same planner (ROADMAP
-A3b-ii). With the planner off,
-or with no predicted win, :func:`constrain` returns its input with no
-copy: the tensor already holds every shard's values.
+With the planner off, or with no predicted win, :func:`constrain`
+returns its input with no copy: the tensor already holds every shard's
+values.
+
+On a group mesh each rank holds only its block (``array/distarray.py``),
+so a layout change is a real move: :func:`relayout` runs the cheapest
+schedule with :func:`apply_schedule_group`, whose ``all_gather`` and
+``all_to_all`` steps are ``torch.distributed`` collectives over the
+step's mesh-axis sub-group and whose ``slice`` is local; where no
+schedule applies (a tuple-sharded axis, an uneven intermediate) it
+gathers the source's tiled dims and slices the destination's block.
+:func:`constrain` takes and returns such a local block (a
+``DistArray``) whatever the planner flag says: the consumer reads the
+blocks of the layout it asked for. Every step copies values and never
+computes, so both forms are bit-equal to their input.
 
 Everything is behind ``FLAGS.redistribution_planner`` (default off; one
 flag read per constrained edge when off). The flag is in
@@ -661,6 +670,72 @@ def apply_schedule(val: torch.Tensor, schedule: Schedule, src: Tiling,
     return out
 
 
+def _best(src: Tiling, dst: Tiling, shape: Tuple[int, ...], dtype: Any,
+          mesh) -> Optional[Schedule]:
+    """The cheapest schedule of ``src -> dst`` (``decide``'s pick) when
+    every state it passes through divides ``shape``, else None."""
+    scheds = schedules(src, dst, mesh)
+    if not scheds:
+        return None
+    nbytes = float(int(np.prod(shape)) if shape else 1) \
+        * np.dtype(dtype).itemsize
+    best = min(scheds, key=lambda s: (s.cost(nbytes), len(s.steps),
+                                      s.describe()))
+    for state in (src.axes,) + best.states:
+        if not Tiling(state).divisible(shape, mesh):
+            return None
+    return best
+
+
+def apply_schedule_group(block: torch.Tensor, schedule: Schedule,
+                         shape: Tuple[int, ...], mesh) -> torch.Tensor:
+    """Run one schedule on this rank's block of a group mesh array:
+    ``all_gather`` gathers the step's array axis over its mesh-axis
+    sub-group, ``all_to_all`` sends chunk ``j`` of the destination axis
+    to position ``j`` and concatenates the chunks received along the
+    source axis, and ``slice`` keeps this rank's chunk. Returns the
+    rank's block under the schedule's destination tiling. Callers check
+    divisibility (:func:`relayout` does)."""
+    from . import collectives as coll
+
+    for step in schedule.steps:
+        m = step.mesh_axis
+        if step.kind == "all_gather":
+            block = coll.gather_dim(block, step.axis, m,
+                                    int(shape[step.axis]), mesh)
+        elif step.kind == "all_to_all":
+            block = coll.exchange(block, m, step.to_axis, step.axis, mesh)
+        else:  # slice: this rank's chunk, in storage of its own
+            block = block.chunk(mesh.shape[m], step.axis)[
+                mesh.coords[m]].clone()
+    return block
+
+
+def relayout(arr: Any, dst: Tiling) -> Any:
+    """``arr`` (a DistArray on a group mesh) under ``dst``: each rank
+    ends with its ``dst`` block. The cheapest schedule runs over the
+    group (:func:`apply_schedule_group`); without one, each rank
+    gathers the source's tiled dims and slices its destination block
+    (a replicated source slices without moving a byte)."""
+    from ..array.distarray import DistArray
+    from . import collectives as coll
+
+    src = arr.tiling
+    if src == dst:
+        return arr
+    mesh, shape = arr.mesh, arr.shape
+    sched = _best(src, dst, shape, arr.dtype, mesh)
+    if sched is not None:
+        block = apply_schedule_group(arr.local, sched, shape, mesh)
+    else:
+        whole = coll.gather_whole(arr.local, src, shape, mesh)
+        ext = dst.block_extent(shape, mesh)
+        block = whole[ext.to_slice()]
+        if block.numel() != whole.numel():
+            block = block.clone()
+    return DistArray.from_local(block, dst, shape, mesh)
+
+
 def constrain(val: Any, tiling: Tiling, mesh=None,
               src: Optional[Tiling] = None) -> Any:
     """The tiling seam: request ``tiling`` for the value ``val`` whose
@@ -669,7 +744,12 @@ def constrain(val: Any, tiling: Tiling, mesh=None,
     runs its schedule (:func:`apply_schedule`, counted
     ``redistribute_explicit``); an edge without a win counts
     ``redistribute_fallback``. Otherwise — planner off, unknown source,
-    the same layout — ``val`` comes back as it is, with no copy."""
+    the same layout — ``val`` comes back as it is, with no copy.
+
+    On a group mesh ``val`` is a local block (a ``DistArray``) and
+    comes back under ``tiling`` by a real move (:func:`relayout`)."""
+    if getattr(val, "mesh", None) is not None and val.mesh.is_group:
+        return relayout(val, tiling)
     if _PLANNER_FLAG._value and src is not None \
             and src.axes != tiling.axes:
         if mesh is None:

@@ -21,12 +21,13 @@ Two runners carry it out:
   thread-local state: the pinned mesh, the span depth, grad and
   inference mode, the current CUDA device and stream.
 * **the group runner** (a group mesh, ``parallel/mesh.py``): ``fn``
-  runs once in each rank, on the rank's block sliced from the whole
-  tensor the rank holds (the storage of this slice: every rank holds
-  every array whole). The collectives go through ``torch.distributed``
-  on the axis sub-groups, and each output is assembled with an
-  ``all_gather`` over the axes that tile it, so every rank ends with
-  the whole result.
+  runs once in each rank. Given whole tensors, it takes the rank's
+  block of each and assembles each output with an ``all_gather`` over
+  the axes that tile it, so every rank ends with the whole result.
+  :func:`shard_map_local` is the form for local-shard storage
+  (``array/distarray.py``): it takes the blocks the rank stores and
+  returns the rank's output blocks, with nothing gathered. The
+  collectives go through ``torch.distributed`` on the axis sub-groups.
 
 A replicated output (an axis of the mesh that does not tile it) takes
 position 0's block on both runners: the group runner broadcasts it from
@@ -48,7 +49,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..array.tiling import Tiling, replicated
+from ..array.tiling import (Tiling, mesh_axes_of, replicated,
+                            tile_count, tile_index)
 from . import mesh as mesh_mod
 from .mesh import AXIS_COL, AXIS_ROW, Mesh
 
@@ -95,28 +97,6 @@ def inside() -> bool:
 # -- blocks of a tiling ------------------------------------------------
 
 
-def _axes_of(a) -> Tuple[str, ...]:
-    if a is None:
-        return ()
-    return tuple(a) if isinstance(a, tuple) else (a,)
-
-
-def _tiles(a, mesh: Mesh) -> int:
-    n = 1
-    for sub in _axes_of(a):
-        n *= mesh.shape[sub]
-    return n
-
-
-def _tile_index(a, coords: Dict[str, int], mesh: Mesh) -> int:
-    """Row-major index of a position's tile along a dim split by ``a``
-    (one mesh axis or a tuple of them)."""
-    idx = 0
-    for sub in _axes_of(a):
-        idx = idx * mesh.shape[sub] + coords[sub]
-    return idx
-
-
 def _as_tilings(tilings, n: int, what: str) -> List[Optional[Tiling]]:
     if isinstance(tilings, Tiling) or tilings is None:
         tilings = [tilings] * n if what == "in" else [tilings]
@@ -133,7 +113,7 @@ def _check_divides(t: Tiling, shape: Sequence[int], mesh: Mesh,
         raise ValueError(f"shard_map: {what} tiling {t} has rank {t.ndim}, "
                          f"the value has shape {tuple(shape)}")
     for dim, a in enumerate(t.axes):
-        n = _tiles(a, mesh)
+        n = tile_count(a, mesh)
         if shape[dim] % n:
             raise ValueError(
                 f"shard_map: {what} dim {dim} of extent {shape[dim]} does "
@@ -145,16 +125,16 @@ def _block_slices(t: Tiling, shape: Sequence[int], coords: Dict[str, int],
                   mesh: Mesh) -> Tuple[slice, ...]:
     out = []
     for dim, a in enumerate(t.axes):
-        n = _tiles(a, mesh)
+        n = tile_count(a, mesh)
         ext = shape[dim] // n
-        i = _tile_index(a, coords, mesh)
+        i = tile_index(a, coords, mesh)
         out.append(slice(i * ext, (i + 1) * ext))
     return tuple(out)
 
 
 def _replicated_axes(t: Tiling, mesh: Mesh) -> List[str]:
     """The mesh axes of more than one position that do not tile ``t``."""
-    used = {sub for a in t.axes for sub in _axes_of(a)}
+    used = {sub for a in t.axes for sub in mesh_axes_of(a)}
     return [axis for axis in (AXIS_ROW, AXIS_COL)
             if axis not in used and mesh.shape[axis] > 1]
 
@@ -411,15 +391,15 @@ def _thread_outputs(results: List[Any], tilings: List[Tiling],
     outs = []
     for k, t in enumerate(tilings):
         blocks: Dict[Tuple[int, ...], torch.Tensor] = {}
-        used = {sub for a in t.axes for sub in _axes_of(a)}
+        used = {sub for a in t.axes for sub in mesh_axes_of(a)}
         for flat, res in enumerate(results):
             coords = _coords_of(mesh, flat)
             if any(coords[a] for a in (AXIS_ROW, AXIS_COL) if a not in used):
                 continue  # a replicated copy: position 0's block wins
             blk = res if single else res[k]
-            key = tuple(_tile_index(a, coords, mesh) for a in t.axes)
+            key = tuple(tile_index(a, coords, mesh) for a in t.axes)
             blocks[key] = blk
-        grid = tuple(_tiles(a, mesh) for a in t.axes)
+        grid = tuple(tile_count(a, mesh) for a in t.axes)
         outs.append(_assemble(blocks, grid))
     return outs[0] if single else tuple(outs)
 
@@ -443,7 +423,7 @@ class _SliceIn(torch.autograd.Function):
         g = g.contiguous()
         used = set()
         for dim, a in enumerate(t.axes):
-            for sub in reversed(_axes_of(a)):
+            for sub in reversed(mesh_axes_of(a)):
                 g = runner.all_gather(g, sub, dim)
                 used.add(sub)
         for axis in (AXIS_ROW, AXIS_COL):
@@ -483,14 +463,14 @@ def _gather_whole(block: torch.Tensor, t: Tiling, pos: Position,
             out = pos.runner.broadcast_first(out, axis)
     for dim, a in enumerate(t.axes):
         # the inner axis of a tuple split first: row-major tile order
-        for sub in reversed(_axes_of(a)):
+        for sub in reversed(mesh_axes_of(a)):
             out = pos.runner.all_gather(out, sub, dim)
     return out
 
 
 def _run_group(fn: Callable, mesh: Mesh, args: Sequence[Any],
                in_t: List[Optional[Tiling]], out_t: List[Tiling],
-               single: bool) -> Any:
+               single: bool, local: bool = False) -> Any:
     from .collectives import GroupRunner
 
     if inside():
@@ -499,8 +479,8 @@ def _run_group(fn: Callable, mesh: Mesh, args: Sequence[Any],
     track = grad and any(isinstance(x, torch.Tensor) and x.requires_grad
                          for x in args)
     pos = Position(mesh, dict(mesh.coords), GroupRunner(mesh, track))
-    blocks = []
-    for x, t in zip(args, in_t):
+    blocks = [] if not local else list(args)
+    for x, t in zip([] if local else args, in_t):
         if not isinstance(x, torch.Tensor):
             blocks.append(x)
             continue
@@ -527,7 +507,14 @@ def _run_group(fn: Callable, mesh: Mesh, args: Sequence[Any],
                          f"for {len(out_t)} out tilings")
     outs = []
     for blk, t in zip(res_list, out_t):
-        if grad and blk.requires_grad:
+        if local:
+            # the rank's output block; a replicated axis holds position
+            # 0's block unless the body made it equal there already
+            for axis in _replicated_axes(t, mesh):
+                if axis not in same_over(blk):
+                    blk = pos.runner.broadcast_first(blk.contiguous(), axis)
+            outs.append(blk)
+        elif grad and blk.requires_grad:
             outs.append(_AssembleOut.apply(blk, t, pos, same_over(blk)))
         else:
             outs.append(_gather_whole(blk, t, pos, same_over(blk)))
@@ -535,6 +522,24 @@ def _run_group(fn: Callable, mesh: Mesh, args: Sequence[Any],
 
 
 # -- the entry point ------------------------------------------------------
+
+
+def shard_map_local(fn: Callable, mesh: Mesh, in_tilings: Any,
+                    out_tilings: Any) -> Callable:
+    """``fn`` over the ranks of a group mesh, on the blocks each rank
+    stores: the returned function takes each input's local block (under
+    its tiling in ``in_tilings``; a non-tensor as it is) and returns the
+    rank's output blocks under ``out_tilings``. The caller checks that
+    the tilings divide the global shapes."""
+
+    def mapped(*blocks):
+        single = isinstance(out_tilings, Tiling)
+        out_t = [out_tilings] if single else list(out_tilings)
+        return _run_group(fn, mesh, blocks,
+                          _as_tilings(in_tilings, len(blocks), "in"),
+                          out_t, single, local=True)
+
+    return mapped
 
 
 def shard_map(fn: Callable, mesh: Optional[Mesh] = None,

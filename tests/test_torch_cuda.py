@@ -1149,3 +1149,57 @@ def test_one_rank_nccl_group(card, tmp_path):
     finally:
         mesh_mod.shutdown()
     assert not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_local_storage(card, tmp_path):
+    """Local-shard storage on a one-rank nccl group: the arrays' blocks
+    live on the card, and config-3-shaped k-means through ``st.loop``
+    and a GEMM through ``st.dot`` equal the logical mesh's bit for bit,
+    with nothing gathered whole and nothing staged through the host."""
+    import torch.distributed as dist
+
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_numpy
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.obs.metrics import collective_totals
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    if not dist.is_nccl_available():
+        pytest.skip("this torch build has no NCCL")
+    pts, c0 = _clustered(16384, 128, 16, seed=13)
+    rng = np.random.RandomState(14)
+    a = rng.rand(512, 384).astype(np.float32)
+    b = rng.rand(384, 256).astype(np.float32)
+
+    def run():
+        p = st.as_expr(from_numpy(pts))
+        centers = st.loop(5, lambda c: km.kmeans_step(p, c, 16),
+                          from_numpy(c0)).glom()
+        return centers, st.dot(from_numpy(a), from_numpy(b)).glom()
+
+    prev = mesh_mod.get_default_device()
+    mesh_mod.set_default_device(card)
+    try:
+        with mesh_mod.use_mesh(mesh_mod.build_mesh((1, 1), card)):
+            want = run()
+        assert mesh_mod.initialize_distributed(
+            f"file://{tmp_path / 'store'}", num_processes=1, process_id=0,
+            backend="nccl", device=card, timeout_s=120)
+        try:
+            mesh = mesh_mod.get_mesh()
+            assert mesh.is_group and mesh_mod.backend(mesh) == "nccl"
+            assert from_numpy(pts).local.device.type == "cuda"
+            before = collective_totals()
+            launches = kk.LAUNCHES
+            got = run()
+            after = collective_totals()
+            assert kk.LAUNCHES == launches + 5
+        finally:
+            mesh_mod.shutdown()
+    finally:
+        mesh_mod.set_default_device(prev)
+    for key in ("group_materialize_calls", "collective_host_staged_calls"):
+        assert after[key] == before[key], key
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

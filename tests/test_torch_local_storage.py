@@ -1,0 +1,680 @@
+"""Local-shard storage on a group mesh: each rank holds only its blocks.
+
+Gloo groups of 2 and 4 CPU processes (meshes 2x1 and 2x2), launched as
+tests/test_torch_distributed.py launches them: a ``file://`` store under
+``tmp_path`` and one child run per world size that does every case. The
+children import torch and the port only. Each case's result is held
+against the JAX package on the 8-device CPU mesh cut to the group's
+shape, and against the port's logical mesh of that shape (the same
+cases, run here in the parent).
+
+The cases: ``from_numpy``/``glom`` round trips under even and uneven
+tilings, each rank's ``local`` of exactly its extent's shape and bytes
+(and ``shape``/``dtype``/``ndim``/``size`` calling no collective);
+map, map2 (``shard_map2``) and reduce (``sum``, ``max``, ``argmax``,
+``mean``, ``min``, ``argmin``) along each axis; ``dot`` under forced
+plans of each strategy (a k-split must all-reduce); an ``einsum``
+through ``ContractExpr`` under its committed plan and forced ones; ``retile`` through every pair of layouts;
+``st.loop``; config-3-shaped k-means; the sample sort and argsort; the
+top-k with ties and with C4's NaN keys; PageRank over the sharded SpMV;
+``update``, ``fetch`` and donation; the group forms of the bincount,
+segment-sum, k-means and stencil kernels on the stored blocks and on
+whole tensors (each rank keeps its block); and two ops with no local
+rule: a transpose, which gives the right value and raises
+``group_materialize_calls`` by one, and ``map2``, which gathers each of
+its split inputs once (site ``Map2Expr``). On the main-path cases
+``group_materialize_calls`` stays 0. ``calibrate_flop_weight`` gives
+every rank the same weight.
+
+Tolerances: data movement, sort, top-k and integer sums bit-equal;
+float sums and ``map2`` 1e-6 relative (XLA fuses ``a * b + b`` into
+one rounding); GEMMs 1e-4 relative (the k-split changes the order of
+the sum); k-means centers and steps rtol 2e-5 (atol 1e-6); PageRank
+1e-6 of the largest rank; the stencil rtol 1e-4 / atol 1e-5 against
+the JAX package and 1e-5 / 1e-6 against the logical mesh. C12's
+NaN-in-max, C13's unique and C30's negative powers stay out of the
+cases.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import spartan_tpu as st_j
+from spartan_tpu.array import tiling as tiling_j
+from spartan_tpu.array.sparse import SparseDistArray as SpJ
+from spartan_tpu.examples.pagerank import pagerank as pagerank_j
+from spartan_tpu.kernels import histogram as khist_j
+from spartan_tpu.kernels import kmeans as kk_j
+from spartan_tpu.kernels import registry as reg_j
+from spartan_tpu.kernels import segment as kseg_j
+from spartan_tpu.parallel import mesh as mesh_j
+from spartan_tpu.utils.config import FLAGS as FLAGS_J
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JOIN_TIMEOUT_S = 150
+
+# The port's side of every case, run by each rank of a group and, in the
+# parent, on a logical mesh of the group's shape. Defines
+# run_cases(inputs) -> (results, materializations per main-path case).
+_PORT_CASES = r'''
+import numpy as np
+import torch
+import spartan_tpu_torch as st
+from spartan_tpu_torch.array.distarray import from_numpy
+from spartan_tpu_torch.array.sparse import SparseDistArray
+from spartan_tpu_torch.array.tiling import Tiling
+from spartan_tpu_torch.examples import kmeans as km
+from spartan_tpu_torch.examples.pagerank import pagerank
+from spartan_tpu_torch.obs.metrics import collective_totals
+
+LAYOUTS = {"row": ("x", None), "col": (None, "y"), "block": ("x", "y"),
+           "block_t": ("y", "x"), "rep": (None, None),
+           "flat": (("x", "y"), None), "row_t": ("y", None)}
+PLANS = [(("x", None), None), ((None, "x"), None), (("x", "y"), None),
+         (("y", "x"), None), ((None, None), "x"), ((None, None), "y"),
+         (("x", None), "y"), ((None, "y"), "x")]
+
+
+def run_cases(inputs):
+    out, mat = {}, {}
+    mesh = st.get_mesh()
+
+    def count(key):
+        return collective_totals()[key]
+
+    def main(name, fn):
+        before = count("group_materialize_calls")
+        out[name] = fn()
+        mat[name] = count("group_materialize_calls") - before
+
+    a = inputs["rt"]
+    for name, axes in LAYOUTS.items():
+        d = from_numpy(a, tiling=Tiling(axes))
+        calls = count("collective_calls")
+        meta = (d.shape, d.dtype, d.ndim, d.size)
+        out[f"meta_calls_{name}"] = np.array(count("collective_calls")
+                                             - calls)
+        assert meta == (a.shape, np.dtype(np.float32), 2, a.size)
+        out[f"local_shape_{name}"] = np.array(d.local.shape)
+        out[f"local_bytes_{name}"] = np.array(
+            d.local.numel() * d.local.element_size())
+        main(f"rt_{name}", d.glom)
+
+    x = st.as_expr(from_numpy(inputs["x"]))
+    y = st.as_expr(from_numpy(inputs["y"], tiling=Tiling((None, "y"))))
+    v = st.as_expr(from_numpy(inputs["v"]))
+    main("map_add", lambda: (x + y).glom())
+    main("map_bcast", lambda: (x * v + 1.0).glom())
+    main("map_exp", lambda: st.exp(x - y).glom())
+    main("smap2", lambda: st.shard_map2(
+        [x, v], lambda b, w: b * w, (Tiling(("x", None)), Tiling((None,))),
+        Tiling(("x", None)), x.shape).glom())
+    xi = st.as_expr(from_numpy(inputs["xi"]))
+    for op in ("sum", "max", "argmax", "mean", "min", "argmin"):
+        for axis in (None, 0, 1):
+            main(f"red_{op}_{axis}",
+                 lambda: getattr(x, op)(axis=axis).glom())
+    for axis in (None, 0, 1):
+        main(f"ired_{axis}", lambda: xi.sum(axis=axis).glom())
+    main("astype_sum", lambda: (xi.astype(np.float32) * x).sum(
+        axis=0).glom())
+
+    A = st.as_expr(from_numpy(inputs["A"]))
+    B = st.as_expr(from_numpy(inputs["B"], tiling=Tiling((None, "x"))))
+    st.FLAGS.opt_auto_tiling = False
+    try:
+        for i, (axes, k) in enumerate(PLANS):
+            e = st.dot(A, B)
+            e._dot_plan = (Tiling(axes), k)
+            calls = count("collective_calls")
+            main(f"dot_{i}", e.glom)
+            out[f"dot_calls_{i}"] = np.array(count("collective_calls")
+                                             - calls)
+        main("dot_noplan", lambda: st.dot(A, B).glom())
+        main("matvec", lambda: st.dot(A, st.as_expr(
+            from_numpy(inputs["B"][:, 0]))).glom())
+    finally:
+        st.FLAGS.opt_auto_tiling = True
+    main("dot_planned", lambda: st.dot(A, B).glom())
+    P = st.as_expr(from_numpy(inputs["P"]))
+    Q = st.as_expr(from_numpy(inputs["Q"]))
+    main("einsum", lambda: st.einsum("bij,bjk->bik", P, Q).glom())
+    st.FLAGS.opt_auto_tiling = False
+    try:
+        for i, plan in enumerate([(("x", None, None), None),
+                                  ((None, None, None), "x")]):
+            e = st.einsum("bij,bjk->bik", P, Q)
+            assert type(e).__name__ == "ContractExpr"
+            e._dot_plan = (Tiling(plan[0]), plan[1])
+            calls = count("collective_calls")
+            main(f"einsum_{i}", e.glom)
+            out[f"einsum_calls_{i}"] = np.array(count("collective_calls")
+                                                - calls)
+    finally:
+        st.FLAGS.opt_auto_tiling = True
+
+    R = inputs["R"]
+    for s_name, s_axes in LAYOUTS.items():
+        src = from_numpy(R, tiling=Tiling(s_axes))
+        for d_name, d_axes in LAYOUTS.items():
+            got = count("group_received_bytes")
+            r = src.retile(Tiling(d_axes))
+            out[f"retile_shape_{s_name}_{d_name}"] = np.array(r.local.shape)
+            out[f"retile_recv_{s_name}_{d_name}"] = np.array(
+                count("group_received_bytes") - got)
+            main(f"retile_{s_name}_{d_name}", r.glom)
+
+    main("loop", lambda: st.loop(3, lambda c: c * 0.5 + x, x).glom())
+
+    pts = st.as_expr(from_numpy(inputs["km_pts"]))
+    c0 = inputs["km_c0"]
+    k = c0.shape[0]
+    main("km_loop", lambda: st.loop(
+        4, lambda c: km.kmeans_step(pts, c, k), from_numpy(c0)).glom())
+    out["km_centers"], out["km_assign"] = km.kmeans(
+        pts, k, num_iter=4, centers=c0)
+
+    for flag in ("on", "off"):  # the packing kernel, the scatter
+        st.FLAGS.native_kernels = flag
+        try:
+            for name in ("keys", "keys_odd", "ties"):
+                kx = st.as_expr(from_numpy(inputs[name]))
+                main(f"sort_{flag}_{name}", lambda: st.sort(kx).glom())
+                main(f"argsort_{flag}_{name}",
+                     lambda: st.argsort(kx).glom())
+        finally:
+            st.FLAGS.native_kernels = "auto"
+    for flag in ("on", "off"):
+        st.FLAGS.native_kernels = flag
+        try:
+            for name, kk in (("ties", 5), ("keys_odd", 6), ("nan", 7)):
+                kx = st.as_expr(from_numpy(inputs[name]))
+                for largest in (True, False):
+                    vals, idx = st.topk(kx, kk, largest=largest)
+                    key = f"topk_{flag}_{name}_{largest}"
+                    main(key + "_v", vals.glom)
+                    main(key + "_i", idx.glom)
+        finally:
+            st.FLAGS.native_kernels = "auto"
+
+    rows, cols = inputs["pr_rows"], inputs["pr_cols"]
+    n = int(inputs["pr_n"])
+    links = SparseDistArray.from_coo(rows, cols,
+                                     np.ones(rows.shape[0], np.float32),
+                                     (n, n))
+    main("pagerank", lambda: pagerank(links, num_iter=20))
+
+    U = from_numpy(R, tiling=Tiling(("x", "y")))
+    region = (slice(3, 11), slice(2, 9))
+    main("update_add", lambda: U.update(region, 7.0, "add").glom())
+    main("update_set", lambda: U.update(region, inputs["upd"]).glom())
+    main("fetch", lambda: U.fetch((slice(5, 14), slice(1, 12))))
+    D = from_numpy(R, tiling=Tiling(("x", None)))
+    main("donate", lambda: (st.as_expr(D) * 2.0).evaluate(
+        donate=[D]).glom())
+    out["donated"] = np.array(D.is_donated)
+    try:
+        D.glom()
+        out["donated_raises"] = np.array(False)
+    except RuntimeError:
+        out["donated_raises"] = np.array(True)
+
+    # the group forms of rows 3, 4 and 7 on the blocks the ranks store
+    from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.kernels import segment as ks
+
+    ids = inputs["seg_ids"]
+    main("bincount", lambda: st.bincount(
+        st.as_expr(from_numpy(inputs["hist_ids"])), length=64).glom())
+    main("bincount_sharded", lambda: kh.bincount_sharded(
+        from_numpy(inputs["hist_ids"]), 64).numpy())
+    for kseg in (12, 16):
+        main(f"segment_{kseg}", lambda: ks.segment_sum_sharded(
+            from_numpy(inputs["seg_vals"], tiling=Tiling(("x", None))),
+            from_numpy(ids, tiling=Tiling(("x",))), kseg).numpy())
+    st.FLAGS.native_kernels = "on"
+    try:
+        img = from_numpy(inputs["st_img"], tiling=Tiling((None, "x", None,
+                                                          None)))
+        main("stencil", lambda: st.stencil(st.as_expr(img), st.as_expr(
+            from_numpy(inputs["st_flt"]))).glom())
+    finally:
+        st.FLAGS.native_kernels = "auto"
+
+    # the same kernels' wrappers given whole tensors: on a group mesh
+    # each rank keeps its block of them
+    from spartan_tpu_torch.kernels import kmeans as kk
+    from spartan_tpu_torch.kernels import stencil as kst
+
+    main("bincount_tensor", lambda: kh.bincount_sharded(
+        torch.from_numpy(inputs["hist_ids"]), 64).numpy())
+    for kseg in (12, 16):
+        main(f"segment_tensor_{kseg}", lambda: ks.segment_sum_sharded(
+            torch.from_numpy(inputs["seg_vals"]), torch.from_numpy(ids),
+            kseg).numpy())
+    main("km_step_tensor", lambda: kk.step(
+        torch.from_numpy(inputs["km_pts"]), torch.from_numpy(c0),
+        k).numpy())
+    main("stencil_tensor", lambda: kst.halo_stencil(
+        torch.from_numpy(inputs["st_img"]), torch.from_numpy(
+            inputs["st_flt"]), Tiling((None, "x", None, None))).numpy())
+
+    from spartan_tpu_torch.expr import tiling_cost as tc
+
+    # one weight on every rank (the cross-rank check below)
+    out["flop_weight"] = np.array(tc.calibrate_flop_weight(32, iters=1))
+
+    main("transpose", lambda: x.T.glom())
+    before = count("group_materialize_calls")
+    out["map2"] = st.map2([x, y], lambda a, b: a * b + b).glom()
+    out["map2_gathers"] = np.array(count("group_materialize_calls") - before)
+    return out, mat
+'''
+
+_CHILD = r"""
+import os, sys
+sys.path.insert(0, os.environ["REPO"])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import spartan_tpu_torch as st
+
+st.set_default_device("cpu")
+inputs = dict(np.load(os.environ["INPUTS"]))
+assert st.initialize_distributed() is True
+mesh = st.get_mesh()
+assert mesh.is_group
+ns = {}
+exec(os.environ["CASES"], ns)
+out, mat = ns["run_cases"](inputs)
+out["mesh"] = np.array([mesh.shape["x"], mesh.shape["y"], mesh.coords["x"],
+                        mesh.coords["y"]])
+for name, n in mat.items():
+    out["mat_" + name] = np.array(n)
+st.shutdown()
+np.savez(os.path.join(os.environ["OUT"], f"rank{mesh.rank}.npz"), **out)
+print("CHILD_OK", mesh.rank, flush=True)
+"""
+
+
+def _shape(world: int):
+    return (2, 1) if world == 2 else (2, 2)
+
+
+def _inputs(world: int) -> dict:
+    rng = np.random.RandomState(100 + world)
+    true = (rng.rand(4, 128) * 4.0).astype(np.float32)
+    lab = rng.randint(0, 4, 2048)
+    n = 512
+    nan = np.array([0.0, -0.0, 1.0, np.nan, -np.nan, 1.0, -np.inf, np.nan]
+                   * 40, np.float32)
+    return {
+        "rt": rng.rand(13, 7).astype(np.float32),
+        "x": rng.rand(12, 8).astype(np.float32),
+        "y": rng.rand(12, 8).astype(np.float32),
+        "v": rng.rand(8).astype(np.float32),
+        "xi": rng.randint(-9, 10, (12, 8)).astype(np.int32),
+        "A": rng.rand(16, 12).astype(np.float32),
+        "B": rng.rand(12, 10).astype(np.float32),
+        "P": rng.rand(4, 6, 5).astype(np.float32),
+        "Q": rng.rand(4, 5, 3).astype(np.float32),
+        "R": rng.rand(16, 12).astype(np.float32),
+        "upd": rng.rand(8, 7).astype(np.float32),
+        "km_pts": (true[lab] + 0.05 * rng.randn(2048, 128)).astype(
+            np.float32),
+        "km_c0": (true + 0.05 * rng.randn(4, 128)).astype(np.float32),
+        "km_labels": lab,
+        "keys": rng.rand(1000).astype(np.float32),
+        "keys_odd": rng.randn(1001).astype(np.float32),
+        "ties": rng.randint(0, 20, 999).astype(np.int32),
+        "nan": nan,
+        "pr_rows": np.repeat(np.arange(n), 8),
+        "pr_cols": rng.randint(0, n, n * 8),
+        "pr_n": np.array(n),
+        "hist_ids": rng.randint(-4, 70, 10_003).astype(np.int32),
+        "seg_vals": rng.randint(-8, 9, (1001, 16)).astype(np.float32),
+        "seg_ids": rng.randint(-2, 20, 1001).astype(np.int32),
+        "st_img": rng.rand(2, 32, 12, 8).astype(np.float32),
+        "st_flt": rng.rand(3, 3, 8, 4).astype(np.float32),
+    }
+
+
+def _launch(world: int, tmp_path):
+    inputs = _inputs(world)
+    path = tmp_path / "inputs.npz"
+    np.savez(path, **inputs)
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, REPO=REPO, INPUTS=str(path), OUT=str(tmp_path),
+                   CASES=_PORT_CASES,
+                   COORDINATOR_ADDRESS=f"file://{tmp_path / 'store'}",
+                   WORLD_SIZE=str(world), RANK=str(rank),
+                   OMP_NUM_THREADS="1")
+        for key in ("MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+            env.pop(key, None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _CHILD], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+
+    def join() -> list:
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=JOIN_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0 and f"CHILD_OK {rank}" in log, \
+                log[-3000:]
+        return [dict(np.load(tmp_path / f"rank{r}.npz"))
+                for r in range(world)]
+
+    return inputs, join
+
+
+def _logical(inputs: dict, world: int):
+    """The same cases on the port's logical mesh of the group's shape."""
+    from spartan_tpu_torch.parallel import mesh as mesh_t
+
+    prev = mesh_t.get_default_device()
+    mesh_t.set_default_device("cpu")
+    try:
+        with mesh_t.use_mesh(mesh_t.build_mesh(_shape(world), "cpu")):
+            ns = {}
+            exec(_PORT_CASES, ns)
+            return ns["run_cases"](inputs)[0]
+    finally:
+        mesh_t.set_default_device(prev)
+
+
+def _jax(inputs: dict, world: int) -> dict:
+    """The JAX package's results on the 8-device CPU mesh cut to the
+    group's shape."""
+    mj = mesh_j.build_mesh(jax.devices()[:world], shape=_shape(world))
+    want = {}
+    with mesh_j.use_mesh(mj):
+        x = st_j.from_numpy(inputs["x"])
+        y = st_j.from_numpy(inputs["y"])
+        v = st_j.from_numpy(inputs["v"])
+        want["map_add"] = (x + y).glom()
+        want["map_bcast"] = (x * v + 1.0).glom()
+        want["map_exp"] = st_j.exp(x - y).glom()
+        for op in ("sum", "max", "argmax", "mean", "min", "argmin"):
+            for axis in (None, 0, 1):
+                want[f"red_{op}_{axis}"] = getattr(x, op)(axis=axis).glom()
+        xi = st_j.from_numpy(inputs["xi"])
+        for axis in (None, 0, 1):
+            want[f"ired_{axis}"] = xi.sum(axis=axis).glom()
+        want["astype_sum"] = (xi.astype(np.float32) * x).sum(axis=0).glom()
+        A, B = st_j.from_numpy(inputs["A"]), st_j.from_numpy(inputs["B"])
+        want["dot"] = st_j.dot(A, B).glom()
+        want["matvec"] = st_j.dot(A, st_j.from_numpy(
+            inputs["B"][:, 0])).glom()
+        want["einsum"] = st_j.einsum("bij,bjk->bik",
+                                     st_j.from_numpy(inputs["P"]),
+                                     st_j.from_numpy(inputs["Q"])).glom()
+        want["loop"] = st_j.loop(3, lambda c: c * 0.5 + x, x).glom()
+        for name in ("keys", "keys_odd", "ties"):
+            kx = st_j.from_numpy(inputs[name])
+            want[f"sort_{name}"] = st_j.sort(kx).glom()
+            want[f"argsort_{name}"] = st_j.argsort(kx).glom()
+        FLAGS_J.native_kernels = "off"  # lax.top_k's order (C4)
+        try:
+            for name, kk in (("ties", 5), ("keys_odd", 6), ("nan", 7)):
+                kx = st_j.from_numpy(inputs[name])
+                for largest in (True, False):
+                    vals, idx = st_j.topk(kx, kk, largest=largest)
+                    want[f"topk_{name}_{largest}_v"] = np.asarray(vals.glom())
+                    want[f"topk_{name}_{largest}_i"] = np.asarray(idx.glom())
+        finally:
+            FLAGS_J.native_kernels = "auto"
+        FLAGS_J.native_kernels = "on"
+        try:
+            pts = jnp.asarray(inputs["km_pts"])
+            c = jnp.asarray(inputs["km_c0"])
+            for _ in range(4):
+                c = kk_j.step(pts, c, c.shape[0])
+            want["km_loop"] = np.asarray(c)
+        finally:
+            FLAGS_J.native_kernels = "auto"
+        FLAGS_J.native_kernels = "on"
+        try:
+            xe = st_j.as_expr(inputs["st_img"])
+            xe._forced_tiling = tiling_j.Tiling((None, "x", None, None))
+            want["stencil"] = np.asarray(st_j.stencil(
+                xe, inputs["st_flt"]).glom())
+        finally:
+            FLAGS_J.native_kernels = "auto"
+        n = int(inputs["pr_n"])
+        rows = inputs["pr_rows"]
+        want["pagerank"] = np.asarray(pagerank_j(SpJ.from_coo(
+            rows, inputs["pr_cols"], np.ones(rows.shape[0], np.float32),
+            (n, n)), num_iter=20))
+        want["map2"] = st_j.map2([x, y], lambda a, b: a * b + b).glom()
+        U = st_j.from_numpy(inputs["R"],
+                            tiling=tiling_j.Tiling(("x", "y"))).evaluate()
+        region = (slice(3, 11), slice(2, 9))
+        want["update_add"] = U.update(region, 7.0, "add").glom()
+        want["update_set"] = U.update(region, inputs["upd"]).glom()
+        want["fetch"] = U.fetch((slice(5, 14), slice(1, 12)))
+        want["donate"] = (st_j.as_expr(U) * 2.0).glom()
+        ids = inputs["hist_ids"]
+        want["bincount"] = st_j.bincount(st_j.from_numpy(ids),
+                                         length=64).glom()
+        FLAGS_J.native_kernels = "on"
+        try:
+            sel = reg_j.select("bincount", ids.shape, ids.dtype,
+                               tiling_j.row(1), mj, length=64)
+            assert sel.pallas
+            want["bincount_sharded"] = np.asarray(khist_j.bincount_sharded(
+                jnp.asarray(ids), 64, sel, mesh=mj))
+            vals = inputs["seg_vals"]
+            for kseg in (12, 16):
+                sel = reg_j.select("segment_sum", vals.shape, vals.dtype,
+                                   tiling_j.row(2), mj, force=True,
+                                   num_segments=kseg)
+                assert sel.pallas
+                want[f"segment_{kseg}"] = np.asarray(
+                    kseg_j.segment_sum_sharded(
+                        jnp.asarray(vals), jnp.asarray(inputs["seg_ids"]),
+                        kseg, sel, mesh=mj))
+            want["km_step"] = np.asarray(kk_j.step(
+                jnp.asarray(inputs["km_pts"]), jnp.asarray(inputs["km_c0"]),
+                inputs["km_c0"].shape[0]))
+        finally:
+            FLAGS_J.native_kernels = "auto"
+    return want
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _check(r, want, logical, inputs):
+    rt = inputs["rt"]
+    from spartan_tpu_torch.array.tiling import Tiling
+    from spartan_tpu_torch.parallel import mesh as mesh_t
+
+    nx, ny, cx, cy = (int(v) for v in r["mesh"])
+    lm = mesh_t.Mesh((nx, ny), torch.device("cpu"))
+    coords = {"x": cx, "y": cy}
+    layouts = {"row": ("x", None), "col": (None, "y"), "block": ("x", "y"),
+               "block_t": ("y", "x"), "rep": (None, None),
+               "flat": (("x", "y"), None), "row_t": ("y", None)}
+    for name, axes in layouts.items():
+        ext = Tiling(axes).block_extent(rt.shape, lm, coords)
+        np.testing.assert_array_equal(r[f"local_shape_{name}"], ext.shape)
+        assert int(r[f"local_bytes_{name}"]) == 4 * ext.size, name
+        assert int(r[f"meta_calls_{name}"]) == 0, name
+        np.testing.assert_array_equal(r[f"rt_{name}"], rt)
+        for d_name, d_axes in layouts.items():
+            key = f"retile_{name}_{d_name}"
+            np.testing.assert_array_equal(r[key], inputs["R"], key)
+            dext = Tiling(d_axes).block_extent(inputs["R"].shape, lm, coords)
+            np.testing.assert_array_equal(r[f"retile_shape_{name}_{d_name}"],
+                                          dext.shape, key)
+        # a move from a split layout to the replicated one receives the
+        # other ranks' part of the array
+        if name not in ("rep", "col") or ny > 1:
+            split = Tiling(axes).block_extent(inputs["R"].shape, lm,
+                                              coords).size
+            if split < inputs["R"].size:
+                assert int(r[f"retile_recv_{name}_rep"]) > 0, name
+
+    # every main-path case gathered nothing whole
+    gathered = {key: int(val) for key, val in r.items()
+                if key.startswith("mat_") and key != "mat_transpose"
+                and int(val)}
+    assert not gathered
+    assert int(r["mat_transpose"]) == 1
+    np.testing.assert_array_equal(r["transpose"], inputs["x"].T)
+    assert float(r["flop_weight"]) > 0
+    # map2 has no local rule: x (split over x) is gathered, and y (split
+    # over y) where y has more than one position
+    assert int(r["map2_gathers"]) == 1 + (ny > 1)
+    assert int(logical["map2_gathers"]) == 0
+    np.testing.assert_array_equal(r["map2"], logical["map2"])
+    # XLA fuses a * b + b into one rounding; torch rounds twice
+    np.testing.assert_allclose(r["map2"], want["map2"], rtol=1e-6)
+
+    # against the JAX package, then the port's logical mesh
+    for key in ("map_add", "map_bcast", "smap2"):
+        np.testing.assert_array_equal(r[key], logical[key], key)
+    np.testing.assert_array_equal(r["map_add"], want["map_add"])
+    # XLA fuses x * v + 1 into one rounding; torch rounds twice
+    for key in ("map_bcast", "map_exp"):
+        np.testing.assert_allclose(r[key], want[key], rtol=1e-6, err_msg=key)
+    np.testing.assert_allclose(r["smap2"], inputs["x"] * inputs["v"],
+                               rtol=1e-6)
+    for op in ("sum", "max", "argmax", "mean", "min", "argmin"):
+        for axis in (None, 0, 1):
+            key = f"red_{op}_{axis}"
+            if op in ("argmax", "argmin", "max", "min"):
+                np.testing.assert_array_equal(r[key], want[key], key)
+                np.testing.assert_array_equal(r[key], logical[key], key)
+            else:
+                assert _rel(r[key], want[key]) <= 1e-6, key
+                assert _rel(r[key], logical[key]) <= 1e-6, key
+    for axis in (None, 0, 1):
+        np.testing.assert_array_equal(r[f"ired_{axis}"], want[f"ired_{axis}"])
+    assert _rel(r["astype_sum"], want["astype_sum"]) <= 1e-6
+    assert _rel(r["astype_sum"], logical["astype_sum"]) <= 1e-6
+    ab = inputs["A"] @ inputs["B"]
+    for i in range(8):
+        assert _rel(r[f"dot_{i}"], want["dot"]) <= 1e-4, i
+        assert _rel(r[f"dot_{i}"], ab) <= 1e-4, i
+    # plans that split the contraction over an axis of more than one
+    # rank all-reduce over it
+    for i, (_, k) in enumerate([(None, None)] * 4 + [(None, "x"),
+                                                     (None, "y"),
+                                                     (None, "y"),
+                                                     (None, "x")]):
+        if k is not None and {"x": nx, "y": ny}[k] > 1:
+            assert int(r[f"dot_calls_{i}"]) > 0, i
+    for key in ("dot_noplan", "dot_planned"):
+        assert _rel(r[key], want["dot"]) <= 1e-4, key
+    assert _rel(r["matvec"], want["matvec"]) <= 1e-4
+    assert _rel(r["einsum"], want["einsum"]) <= 1e-4
+    for i in range(2):
+        assert _rel(r[f"einsum_{i}"], want["einsum"]) <= 1e-4, i
+    # the forced k-split over x all-reduces
+    assert int(r["einsum_calls_1"]) > 0
+    assert _rel(r["loop"], want["loop"]) <= 1e-6
+    np.testing.assert_allclose(r["km_loop"], want["km_loop"], rtol=2e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(r["km_loop"], logical["km_loop"], rtol=2e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(r["km_assign"], inputs["km_labels"])
+    np.testing.assert_array_equal(r["km_assign"], logical["km_assign"])
+    for flag in ("on", "off"):
+        for name in ("keys", "keys_odd", "ties"):
+            for op in ("sort", "argsort"):
+                key = f"{op}_{flag}_{name}"
+                np.testing.assert_array_equal(r[key], want[f"{op}_{name}"],
+                                              key)
+                np.testing.assert_array_equal(r[key], logical[key], key)
+    for flag in ("on", "off"):
+        for name in ("ties", "keys_odd", "nan"):
+            for largest in (True, False):
+                key = f"topk_{flag}_{name}_{largest}"
+                ref = f"topk_{name}_{largest}"
+                np.testing.assert_array_equal(r[key + "_i"], want[ref + "_i"],
+                                              key)
+                np.testing.assert_array_equal(
+                    r[key + "_v"].view(np.uint32 if r[key + "_v"].dtype
+                                       == np.float32 else np.int32),
+                    want[ref + "_v"].view(np.uint32 if want[ref + "_v"].dtype
+                                          == np.float32 else np.int32), key)
+                np.testing.assert_array_equal(r[key + "_i"],
+                                              logical[key + "_i"], key)
+    pr = want["pagerank"]
+    assert np.abs(r["pagerank"] - pr).max() <= 1e-6 * pr.max()
+    assert np.abs(r["pagerank"] - logical["pagerank"]).max() \
+        <= 1e-6 * pr.max()
+    R = inputs["R"]
+    upd = R.copy()
+    upd[3:11, 2:9] += np.float32(7.0)
+    np.testing.assert_array_equal(r["update_add"], upd)
+    upd = R.copy()
+    upd[3:11, 2:9] = inputs["upd"]
+    np.testing.assert_array_equal(r["update_set"], upd)
+    np.testing.assert_array_equal(r["fetch"], R[5:14, 1:12])
+    np.testing.assert_array_equal(r["donate"], R * 2.0)
+    for key in ("update_add", "update_set", "fetch", "donate"):
+        np.testing.assert_array_equal(r[key], want[key], key)
+        np.testing.assert_array_equal(r[key], logical[key], key)
+    assert bool(r["donated"]) and bool(r["donated_raises"])
+    hist = np.bincount(np.maximum(inputs["hist_ids"], 0), minlength=70)[:64]
+    for key in ("bincount", "bincount_sharded", "bincount_tensor"):
+        np.testing.assert_array_equal(r[key], hist, key)
+        np.testing.assert_array_equal(r[key], logical[key], key)
+        np.testing.assert_array_equal(
+            r[key], want["bincount" if key == "bincount"
+                         else "bincount_sharded"], key)
+    for kseg in (12, 16):
+        keep = (inputs["seg_ids"] >= 0) & (inputs["seg_ids"] < kseg)
+        seg = np.zeros((kseg, 16), np.float32)
+        np.add.at(seg, inputs["seg_ids"][keep], inputs["seg_vals"][keep])
+        for key in (f"segment_{kseg}", f"segment_tensor_{kseg}"):
+            np.testing.assert_array_equal(r[key], seg, key)
+            np.testing.assert_array_equal(r[key], want[f"segment_{kseg}"],
+                                          key)
+            np.testing.assert_array_equal(r[key], logical[key], key)
+    np.testing.assert_allclose(r["km_step_tensor"], want["km_step"],
+                               rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(r["km_step_tensor"], logical["km_step_tensor"],
+                               rtol=2e-5, atol=1e-6)
+    for key in ("stencil", "stencil_tensor"):
+        np.testing.assert_allclose(r[key], want["stencil"], rtol=1e-4,
+                                   atol=1e-5, err_msg=key)
+        np.testing.assert_allclose(r[key], logical[key], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_local_storage_matches_jax_and_the_logical_mesh(world, tmp_path):
+    inputs, join = _launch(world, tmp_path)
+    want = _jax(inputs, world)  # while the children run
+    logical = _logical(inputs, world)
+    outs = join()
+    for r in outs:
+        _check(r, want, logical, inputs)
+    # results every rank gathers or computes whole are the same bits
+    for other in outs[1:]:
+        for key, val in outs[0].items():
+            if key == "mesh" or key.startswith(("local_", "retile_shape",
+                                                "retile_recv", "mat_",
+                                                "meta_")):
+                continue
+            np.testing.assert_array_equal(other[key], val, err_msg=key)
