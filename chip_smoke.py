@@ -125,15 +125,36 @@ Phases, in order; any failure exits nonzero before the result line:
     pair of {row, col, block, replicated}, bit-equal, with the bytes
     each rank received; ``calibrate_flop_weight`` over the group. No
     path gathers an array whole (``group_materialize_calls`` stays 0);
-21. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
+21. ``[resilience]``: config 3 (1,000,448 x 128, k = 64, 20 iterations,
+    a snapshot every 5) on a logical (4, 2) mesh under ``st.chaos``:
+    ``transient@1`` retried by the policy engine (bit-equal),
+    ``oom@1`` through the ladder's ``finer_tiling`` rung (within 1e-5),
+    one real ``torch.cuda.OutOfMemoryError`` inside an evaluate
+    (classified ``oom``; the next evaluate succeeds) and
+    ``device_loss@2``: the mesh rebuilt to (7, 1) at epoch 1, the
+    points rehomed through ``plan_rehome`` (route and modelled bytes
+    printed), the loop resumed from its iteration-10 snapshot, bit-equal
+    to a clean resume of a copy of it on (7, 1), with the k-means
+    launches of both counted and the recovery's spans in ms;
+22. ``[elastic_group]``: two gloo ranks sharing the card
+    (``--elastic-child``, local storage) run config 3 with its labels as
+    a second carry, checkpointed every 5; rank 1 is SIGKILLed once
+    ``LATEST.json`` reads step 10, rank 0 must exit nonzero within the
+    group's timeout with the failure classified ``fatal_mesh``; the
+    snapshot holds a blob of each rank and no gather at site
+    ``checkpoint``; a one-process survivor world resumes it (a
+    ``restore`` migration from {x: 2, y: 1} to {x: 1, y: 1}, 10 k-means
+    launches), bit-equal to a clean one-process resume of a copy;
+23. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
     with their launches per rank on the group path, rows 1, 2, 5 and 6
-    with their launches per rank under local-shard storage) and the
-    result line.
+    with their launches per rank under local-shard storage, row 1 with
+    the faulted run's and the survivor's launches) and the result line.
 
 ``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
-``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK`` and
-``--local-child DIR RANK`` one rank of ``[spmd]``'s and ``[local]``'s
-groups; they are not meant to be run by hand.
+``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK``,
+``--local-child DIR RANK`` and ``--elastic-child DIR RANK`` one rank of
+``[spmd]``'s, ``[local]``'s and ``[elastic_group]``'s groups; they are
+not meant to be run by hand.
 
 Imports torch, numpy and the port only.
 """
@@ -199,6 +220,12 @@ LOCAL_KM_N, LOCAL_DOT_N, LOCAL_RETILE_N = 1_000_448, 8192, 4096
 LOCAL_LAYOUTS = {"row": ("x", None), "col": (None, "x"),
                  "block": ("x", "y"), "rep": (None, None)}
 LOCAL_CAL_N = 1024
+# [resilience]: config 3 on a logical (4, 2) mesh; [elastic_group]: the
+# gloo group's timeout, the parent's wait for a world, and the sleep
+# each dispatch of the world that loses a rank takes (so the kill lands
+# inside the loop)
+RES_MESH = (4, 2)
+ELASTIC_TIMEOUT_S, ELASTIC_JOIN_S, ELASTIC_SLOW_S = 60, 240, 0.5
 
 
 def _say(*args) -> None:
@@ -4091,6 +4118,394 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
             "windowed_segsum": r0["pagerank_launches"]}
 
 
+# -- [resilience] and [elastic_group] -------------------------------------
+
+
+def _counter(st, name: str) -> int:
+    return st.metrics()["counters"].get(name, 0)
+
+
+def _span_ms(st, names) -> dict:
+    """ms by the host clock of the last span of each name in the ring."""
+    out = {}
+    for sp in st.trace_events():
+        if sp.name in names:
+            out[sp.name] = sp.seconds * 1e3
+    return out
+
+
+def _copy_snapshot(src: str, dst: str, step: int) -> None:
+    """A copy of a loop's snapshot directory that stops at ``step``."""
+    shutil.copytree(src, dst)
+    for d in os.listdir(dst):
+        if d.startswith("step_") and int(d[5:]) > step:
+            shutil.rmtree(os.path.join(dst, d))
+    with open(os.path.join(dst, "LATEST.json"), "w") as f:
+        json.dump({"step": step, "dir": f"step_{step:08d}"}, f)
+
+
+def phase_resilience(st, kk, km, card: str, dev, workdir: str) -> dict:
+    """[resilience]: BASELINE config 3 (1,000,448 x 128, k = 64, 20
+    iterations, a snapshot every 5) on a logical (4, 2) mesh through
+    ``st.chaos``: a transient fault (retried, bit-equal), an OOM (the
+    ladder's finer_tiling rung, within 1e-5), a real
+    ``torch.cuda.OutOfMemoryError`` inside an evaluate (classified oom),
+    and a device loss (the mesh rebuilt to (7, 1) at epoch 1, the points
+    rehomed through the migration planner, the loop resumed from its
+    iteration-10 snapshot, bit-equal to a clean resume of a copy of that
+    snapshot on (7, 1)). Ends at epoch 0."""
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import classify as cls
+    from spartan_tpu_torch.resilience import elastic, loop_ckpt
+
+    t0 = time.perf_counter()
+    pts_np, c0_np, _ = _data(LOCAL_KM_N, KM_D, KM_K, "clustered", 0)
+    keep = loop_ckpt._KEEP_SNAPSHOTS
+    loop_ckpt._KEEP_SNAPSHOTS = 16  # keep the iteration-10 restore point
+    try:
+        with st.use_mesh(st.build_mesh(RES_MESH)):
+            points = st.from_numpy(pts_np)
+
+            def run(tag, pts=None, **kw):
+                """The loop writing snapshots under ``tag``, or resuming
+                ``resume=`` when given."""
+                p = pts if pts is not None else points
+                if tag is not None:
+                    kw["checkpoint_path"] = os.path.join(workdir, tag)
+                return st.loop(KM_ITERS, lambda c: km.kmeans_step(p, c, KM_K),
+                               st.from_numpy(c0_np),
+                               checkpoint_every=CKL_EVERY, **kw)
+
+            _reset_counts(kk)
+            ref = run("clean").glom()
+            if kk.LAUNCHES != KM_ITERS:
+                _fail(f"[resilience] clean loop: {kk.LAUNCHES} launches")
+
+            r0 = _counter(st, "resilience_retries")
+            _reset_counts(kk)
+            with st.chaos("transient@1") as plan:
+                out = run("transient")
+                got = out.glom()
+            retries = _counter(st, "resilience_retries") - r0
+            if (kk.LAUNCHES != KM_ITERS or retries < 1
+                    or not np.array_equal(got, ref)):
+                _fail(f"[resilience] transient@1: {kk.LAUNCHES} launches, "
+                      f"{retries} retries, bit-equal "
+                      f"{np.array_equal(got, ref)}")
+            _say(f"[resilience] transient@1 ({plan.fired}): "
+                 f"{retries} retry, {kk.LAUNCHES} launches, centers "
+                 "bit-equal to the clean loop's")
+
+            d0 = _counter(st, "resilience_degrade_finer_tiling")
+            _reset_counts(kk)
+            with st.chaos("oom@1") as plan:
+                out = run("oom")
+                got = out.glom()
+            rung = out._resilience["rung"]
+            err = float(np.abs(got - ref).max() / np.abs(ref).max())
+            if (rung != "finer_tiling" or not err <= 1e-5
+                    or _counter(st, "resilience_degrade_finer_tiling") != d0 + 1
+                    or kk.LAUNCHES != KM_ITERS):
+                _fail(f"[resilience] oom@1: rung {rung}, rel err {err}, "
+                      f"{kk.LAUNCHES} launches")
+            _say(f"[resilience] oom@1 ({plan.fired}): the ladder took "
+                 f"{rung}, {kk.LAUNCHES} launches, max rel diff {err:.3g} "
+                 "to the clean loop (limit 1e-5)")
+
+            armed = [True]
+
+            def grab(t):
+                # one allocation larger than the card (so larger than its
+                # free memory and the allocator's cache) on the first real
+                # run: the build calls it on meta tensors
+                if armed[0] and t.device.type != "meta":
+                    armed[0] = False
+                    _, total = torch.cuda.mem_get_info(t.device)
+                    torch.empty(total + (1 << 30), dtype=torch.uint8,
+                                device=t.device)
+                return t * 2.0
+
+            small = st.from_numpy(c0_np)
+            e = st.map(grab, small)
+            got = e.glom()
+            rec = e._resilience
+            first = rec["faults"][0]
+            if (first["class"] != cls.OOM
+                    or "OutOfMemoryError" not in first["error"]
+                    or not np.array_equal(got, c0_np * 2.0)):
+                _fail(f"[resilience] real OOM: {rec}")
+            again = st.map(grab, st.from_numpy(c0_np)).glom()
+            if not np.array_equal(again, c0_np * 2.0):
+                _fail("[resilience] the evaluate after the real OOM differs")
+            _say(f"[resilience] a real torch.cuda.OutOfMemoryError inside an "
+                 f"evaluate: classified {first['class']}, the ladder took "
+                 f"{rec['rung']}; the next evaluate succeeded")
+
+            st.trace_clear()
+            ev0 = _counter(st, "elastic_plans_evicted")
+            _reset_counts(kk)
+            with st.chaos("device_loss@2") as plan:
+                t1 = time.perf_counter()
+                out = run("loss")
+                got = out.glom()
+                loss_s = time.perf_counter() - t1
+            launches = kk.LAUNCHES
+            rec = out._resilience
+            mesh = mesh_mod.get_mesh()
+            spans = _span_ms(st, ("drain", "rebuild", "evict", "migrate",
+                                  "elastic_recover", "elastic_rehome"))
+            evicted = _counter(st, "elastic_plans_evicted") - ev0
+            rehomed = elastic.last_rehome_report()
+            if (dict(mesh.shape) != {"x": 7, "y": 1}
+                    or mesh_mod.mesh_epoch() != 1 or not rec["mesh_rebuilt"]
+                    or rec["restores"] != 1 or launches != KM_ITERS
+                    or len(rehomed) != 1):
+                _fail(f"[resilience] device_loss@2: mesh {mesh}, epoch "
+                      f"{mesh_mod.mesh_epoch()}, record {rec}, {launches} "
+                      f"launches, rehomed {rehomed}")
+            ref_dir = os.path.join(workdir, "loss_ref")
+            _copy_snapshot(os.path.join(workdir, "loss"), ref_dir,
+                           2 * CKL_EVERY)
+            points2 = st.from_numpy(pts_np)
+            _reset_counts(kk)
+            ref2 = run(None, pts=points2, resume=ref_dir).glom()
+            ref_launches = kk.LAUNCHES
+            if ref_launches != KM_ITERS - 2 * CKL_EVERY or \
+                    not np.array_equal(got, ref2):
+                _fail(f"[resilience] device_loss@2: clean resume "
+                      f"{ref_launches} launches, bit-equal "
+                      f"{np.array_equal(got, ref2)}")
+            mig = rehomed[0]
+            _say(f"[resilience] device_loss@2 ({plan.fired}): mesh "
+                 f"{RES_MESH} -> (7, 1) at epoch {mesh_mod.mesh_epoch()}; the "
+                 f"points rehomed through plan_rehome: route {mig['route']}, "
+                 f"{mig['bytes']} modeled wire bytes ({mig['schedule']}; the "
+                 f"logical positions share the card, so no byte moved); "
+                 f"restored from the iteration-{2 * CKL_EVERY} snapshot "
+                 f"({len(rec.get('migrations', []))} carry migration "
+                 f"record, {rec['migrations'][0]['route']}); {launches} "
+                 f"k-means launches in the faulted run, {ref_launches} in the "
+                 f"clean resume of a copy on (7, 1): centers bit-equal; "
+                 f"{loss_s:.2f} s for the faulted run")
+            _say(f"[resilience] recovery spans (ms, host clock): drain "
+                 f"{spans.get('drain', 0):.3f}, rebuild "
+                 f"{spans.get('rebuild', 0):.3f}, evict "
+                 f"{spans.get('evict', 0):.3f} ({evicted} plans evicted), "
+                 f"migrate {spans.get('migrate', 0):.3f}; elastic_recover "
+                 f"{spans.get('elastic_recover', 0):.3f}, elastic_rehome "
+                 f"{spans.get('elastic_rehome', 0):.3f} on {card}")
+    finally:
+        st.chaos_clear()
+        loop_ckpt._KEEP_SNAPSHOTS = keep
+        mesh_mod.reset_epoch_for_tests()
+    _say(f"[resilience] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return {"launches": launches, "ref_launches": ref_launches}
+
+
+def elastic_child(workdir: str, rank: int) -> None:
+    """One rank of an [elastic_group] world on the card (gloo, local
+    storage): config-3 k-means with its labels as a second carry,
+    checkpointed every 5 under ``job.json``'s ``mode`` (``run`` writes
+    the snapshots, ``resume`` resumes them). A failure prints its class
+    and exits 3."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.kernels import kmeans as kk
+    from spartan_tpu_torch.obs.metrics import materialize_sites
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import classify as cls
+
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = json.load(f)
+    dev = _child_device()
+    st.set_default_device(dev)
+    if not mesh_mod.initialize_distributed(
+            "file://" + os.path.join(workdir, "store"),
+            num_processes=job["world"], process_id=rank, backend="gloo",
+            device=dev, timeout_s=ELASTIC_TIMEOUT_S):
+        _fail("[elastic_group] child: no process group")
+    pts_np = np.load(job["points"], mmap_mode="r")
+    points = st.from_numpy(pts_np)
+    labels0 = st.from_numpy(np.zeros(pts_np.shape[0], np.int32))
+    c0 = st.from_numpy(np.load(job["c0"]))
+    if job.get("slow"):
+        st.chaos(f"slow:1.0={job['slow']}")
+    kw = ({"resume": job["ck"]} if job["mode"] == "resume"
+          else {"checkpoint_path": job["ck"]})
+    kk.LAUNCHES = 0
+    t = time.perf_counter()
+    try:
+        c, lab = st.loop(
+            KM_ITERS, lambda c, lab: (km.kmeans_step(points, c, KM_K),
+                                      km.assign_points(points, c)),
+            c0, labels0, checkpoint_every=CKL_EVERY, **kw)
+        centers, labels = c.glom(), lab.glom()
+        torch.cuda.synchronize()
+    except Exception as exc:
+        print(f"[elastic_group] rank {rank}: {type(exc).__name__} "
+              f"classified {cls.classify(exc)}; gathers at site checkpoint "
+              f"{materialize_sites().get('checkpoint', 0)}: "
+              f"{str(exc)[:160]}", flush=True)
+        os._exit(3)
+    secs = time.perf_counter() - t
+    rec = c._resilience
+    spans = {name: [round(sp.seconds * 1e3, 3) for sp in st.trace_events()
+                    if sp.name == name]
+             for name in ("loop_segment", "loop_checkpoint")}
+    np.save(os.path.join(workdir, f"centers{rank}.npy"), centers)
+    np.save(os.path.join(workdir, f"labels{rank}.npy"), labels)
+    with open(os.path.join(workdir, f"result{rank}.json"), "w") as f:
+        json.dump({"launches": kk.LAUNCHES, "seconds": secs,
+                   "segment_ms": spans["loop_segment"],
+                   "snapshot_ms": spans["loop_checkpoint"],
+                   "resumed_from": rec["resumed_from"],
+                   "migrations": [{k: m[k] for k in ("route", "src_mesh",
+                                                     "dst_mesh", "bytes")}
+                                  for m in rec.get("migrations", [])],
+                   "checkpoint_gathers": materialize_sites().get(
+                       "checkpoint", 0)}, f)
+    st.shutdown()
+
+
+def _elastic_world(workdir: str, job: dict) -> list:
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump(job, f)
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--elastic-child", workdir, str(r)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for r in range(job["world"])]
+
+
+def _elastic_join(procs: list, label: str) -> list:
+    try:
+        logs = [p.communicate(timeout=ELASTIC_JOIN_S)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        _fail(f"[elastic_group] {label}: a child did not finish in "
+              f"{ELASTIC_JOIN_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return logs
+
+
+def phase_elastic_group(st, card: str, workdir: str) -> dict:
+    """[elastic_group]: two gloo ranks sharing the card run config-3
+    k-means checkpointed every 5 with local storage; rank 1 is SIGKILLed
+    once ``LATEST.json`` reads step 10, and rank 0 must exit nonzero
+    within the group's timeout with the failure classified fatal_mesh. A
+    one-process survivor world resumes the snapshot (a ``restore``
+    migration from (2, 1) to (1, 1), 10 k-means launches), bit-equal to a
+    clean one-process resume of a copy of it."""
+    import signal
+
+    t0 = time.perf_counter()
+    pts_np, c0_np, _ = _data(LOCAL_KM_N, KM_D, KM_K, "clustered", 0)
+    pts_path = os.path.join(workdir, "points.npy")
+    np.save(pts_path, pts_np)
+    np.save(os.path.join(workdir, "c0.npy"), c0_np)
+    del pts_np
+    base = {"points": pts_path, "c0": os.path.join(workdir, "c0.npy")}
+    ck = os.path.join(workdir, "ck")
+    victim_dir = os.path.join(workdir, "victim")
+    procs = _elastic_world(victim_dir, dict(base, world=2, mode="run", ck=ck,
+                                            slow=ELASTIC_SLOW_S))
+    marker = os.path.join(ck, "LATEST.json")
+    deadline = time.monotonic() + ELASTIC_JOIN_S
+    killed_at = None
+    while time.monotonic() < deadline and all(p.poll() is None
+                                              for p in procs):
+        try:
+            with open(marker) as f:
+                if json.load(f)["step"] >= 2 * CKL_EVERY:
+                    procs[1].send_signal(signal.SIGKILL)
+                    killed_at = time.monotonic()
+                    break
+        except (OSError, ValueError, KeyError):
+            pass
+        time.sleep(0.02)
+    logs = _elastic_join(procs, "the victim world")
+    if killed_at is None:
+        _fail(f"[elastic_group] rank 1 was not killed at step 10 "
+              f"(exit codes {[p.returncode for p in procs]}):\n"
+              f"{logs[0][-2000:]}\n{logs[1][-2000:]}")
+    exit_s = time.monotonic() - killed_at
+    line = [ln for ln in logs[0].splitlines() if "classified" in ln]
+    if (procs[0].returncode == 0 or not line
+            or "classified fatal_mesh" not in line[-1]
+            or "site checkpoint 0" not in line[-1]
+            or exit_s > ELASTIC_TIMEOUT_S):
+        _fail(f"[elastic_group] rank 0 exited {procs[0].returncode} after "
+              f"{exit_s:.1f} s:\n{logs[0][-3000:]}")
+    with open(marker) as f:
+        step = json.load(f)["step"]
+    if step != 2 * CKL_EVERY:
+        _fail(f"[elastic_group] LATEST.json names step {step}")
+    snap = os.path.join(ck, f"step_{step:08d}", "carry1")
+    with open(os.path.join(snap, "manifest.json")) as f:
+        shards = json.load(f)["shards"]
+    if (len(shards) != 2 or not all(os.path.exists(os.path.join(
+            snap, r["file"])) for r in shards)
+            or sum("crc32" in r for r in shards) != 1):
+        _fail(f"[elastic_group] the labels' snapshot is not one blob per "
+              f"rank: {shards}")
+    _say(f"[elastic_group] 2 gloo ranks on the card, rank 1 SIGKILLed after "
+         f"the iteration-{step} snapshot; rank 0 exited "
+         f"{procs[0].returncode} {exit_s:.2f} s later: {line[-1].strip()}")
+    _say(f"[elastic_group] snapshot at step {step}: the labels' 2 blobs, "
+         f"one written by each rank (rank 1's without a CRC, as in the JAX "
+         f"package's multi-process writer), 0 gathers at site checkpoint")
+    ref_ck = os.path.join(workdir, "ref_ck")
+    _copy_snapshot(ck, ref_ck, step)
+    surv_dir = os.path.join(workdir, "survivor")
+    clean_dir = os.path.join(workdir, "clean")
+    survivor = _elastic_world(surv_dir, dict(base, world=1, mode="resume",
+                                             ck=ck))
+    clean = _elastic_world(clean_dir, dict(base, world=1, mode="resume",
+                                           ck=ref_ck))
+    s_log = _elastic_join(survivor, "the survivor world")
+    c_log = _elastic_join(clean, "the clean world")
+    res = {}
+    for tag, d, p, log in (("survivor", surv_dir, survivor, s_log),
+                           ("clean", clean_dir, clean, c_log)):
+        if p[0].returncode != 0:
+            _fail(f"[elastic_group] the {tag} world exited "
+                  f"{p[0].returncode}:\n{log[0][-3000:]}")
+        with open(os.path.join(d, "result0.json")) as f:
+            res[tag] = json.load(f)
+        res[tag]["centers"] = np.load(os.path.join(d, "centers0.npy"))
+        res[tag]["labels"] = np.load(os.path.join(d, "labels0.npy"))
+    sv = res["survivor"]
+    want = {"route": "restore", "src_mesh": {"x": 2, "y": 1},
+            "dst_mesh": {"x": 1, "y": 1}}
+    migs = [{k: m[k] for k in want} for m in sv["migrations"]]
+    if (sv["resumed_from"] != step or want not in migs
+            or sv["launches"] != KM_ITERS - step
+            or sv["checkpoint_gathers"] != 0):
+        _fail(f"[elastic_group] survivor: {sv}")
+    if not (np.array_equal(sv["centers"], res["clean"]["centers"])
+            and np.array_equal(sv["labels"], res["clean"]["labels"])):
+        _fail("[elastic_group] the survivor's centers or labels differ from "
+              "the clean resume's")
+    its = (KM_ITERS - step) / sv["seconds"]
+    _say(f"[elastic_group] one-process survivor world resumed from step "
+         f"{sv['resumed_from']}: migration records "
+         f"{sv['migrations']}, {sv['launches']} k-means launches, "
+         f"{its:.2f} iterations/s over its {KM_ITERS - step} iterations "
+         f"(the resume's load, snapshots at 15 and 20 and the final glom "
+         f"included, host clock): segments {sv['segment_ms']} ms, "
+         f"snapshots {sv['snapshot_ms']} ms (the first segment plans and "
+         f"warms a fresh process); centers and labels bit-equal to a clean "
+         f"one-process resume of a copy of the snapshot, on {card}")
+    _say(f"[elastic_group] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return {"survivor_launches": sv["launches"],
+            "survivor_its": its, "exit_s": exit_s}
+
+
 def phase_spmd(st, kk, ks, km, card: str, dev, kmr: dict) -> dict:
     t0 = time.perf_counter()
     phase_spmd_threads(st, card, dev, kmr["points"], kmr["c0"])
@@ -4115,6 +4530,9 @@ def main() -> None:
         return
     if len(sys.argv) == 4 and sys.argv[1] == "--local-child":
         local_child(sys.argv[2], int(sys.argv[3]))
+        return
+    if len(sys.argv) == 4 and sys.argv[1] == "--elastic-child":
+        elastic_child(sys.argv[2], int(sys.argv[3]))
         return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -4185,6 +4603,12 @@ def main() -> None:
         loc = phase_local(st, kk, km, pr, links, card, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        resr = phase_resilience(st, kk, km, card, dev, workdir)
+        elr = phase_elastic_group(st, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -4197,7 +4621,9 @@ def main() -> None:
         "ckpt_loop_launches": cklr["launches"],
         "refine_launches": strr["launches"],
         "group_launches_per_rank": grp["kmeans"],
-        "local_launches_per_rank": loc["kmeans"]}, {
+        "local_launches_per_rank": loc["kmeans"],
+        "resilience_launches": resr["launches"],
+        "elastic_survivor_launches": elr["survivor_launches"]}, {
         "name": "windowed_segsum", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:148",

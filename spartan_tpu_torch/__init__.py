@@ -38,15 +38,18 @@ from .expr import __all__ as _expr_all  # noqa: E402
 from .ops.stencil import avgpool, maxpool, stencil  # noqa: E402
 from .parallel import collectives  # noqa: E402
 from .parallel import mesh as _mesh  # noqa: E402
-from .parallel.mesh import (build_mesh, get_default_device,  # noqa: E402
-                            get_mesh, initialize_distributed,
-                            set_default_device, set_mesh, use_mesh)
+from .parallel.mesh import (StaleMeshError, build_mesh,  # noqa: E402
+                            get_default_device, get_mesh,
+                            initialize_distributed, mesh_epoch,
+                            rebuild_mesh, set_default_device, set_mesh,
+                            use_mesh)
 from . import obs  # noqa: E402
 from .obs import (REGISTRY, Counter, Gauge, Histogram, Registry,  # noqa: E402
                   Span, metrics, span, trace_clear, trace_events,
                   trace_export)
 from . import resilience  # noqa: E402
 from .resilience.classify import FatalMeshError  # noqa: E402
+from .resilience.faults import ChaosPlan, chaos, chaos_clear  # noqa: E402
 from .utils import checkpoint, profiling  # noqa: E402
 from .utils.config import FLAGS  # noqa: E402
 
@@ -54,7 +57,8 @@ __version__ = "0.1.0"
 
 __all__ = (["DistArray", "SparseDistArray", "MaskedDistArray", "TileExtent",
             "Tiling", "FLAGS", "from_reference", "checkpoint", "resilience",
-            "FatalMeshError",
+            "FatalMeshError", "chaos", "chaos_clear", "ChaosPlan",
+            "rebuild_mesh", "mesh_epoch", "StaleMeshError",
             "build_mesh", "get_mesh", "set_mesh", "use_mesh",
             "set_default_device", "get_default_device", "initialize",
             "initialize_distributed", "shutdown", "collectives",
@@ -74,6 +78,7 @@ def initialize(argv=None):
     rest = FLAGS.parse_args(argv)
     _mesh.initialize_distributed()
     _mesh.get_mesh()
+    resilience.faults.install_from_flags()
     return rest
 
 

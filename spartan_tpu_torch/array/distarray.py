@@ -99,7 +99,7 @@ class DistArray:
     tensor on a logical mesh, the rank's block on a group mesh."""
 
     __slots__ = ("_local", "tiling", "mesh", "_shape", "_dtype",
-                 "_donate_next", "_donate_site")
+                 "_donate_next", "_donate_site", "_epoch", "_migration")
 
     def __init__(self, tensor: torch.Tensor, tiling: Tiling,
                  mesh: Optional[Mesh] = None):
@@ -123,6 +123,10 @@ class DistArray:
         self.tiling = tiling
         self.mesh = mesh
         self._shape = shape
+        # the mesh epoch this array was made in (parallel/mesh.py): one
+        # of an earlier epoch raises StaleMeshError until rehome()
+        self._epoch = mesh_mod._EPOCH
+        self._migration = None  # the last planned cross-mesh move
 
     @classmethod
     def from_local(cls, block: torch.Tensor, tiling: Tiling, shape,
@@ -347,6 +351,45 @@ class DistArray:
 
     def replicate(self) -> "DistArray":
         return self.retile(tiling_mod.replicated(self.ndim))
+
+    def rehome(self) -> "DistArray":
+        """Move this array, in place, onto the current mesh epoch after a
+        ``rebuild_mesh`` (in place so that every holder of the handle,
+        such as a loop body's closure, sees the move).
+
+        The move is planned (``parallel/redistribute.plan_rehome``): the
+        destination tiling is the source's sanitized for the survivor
+        grid, and the route, schedule, modelled wire bytes and reason
+        land on ``self._migration``. On a logical mesh the tensor stays
+        on its device and only the tiling changes, so no bytes move; the
+        record's ``bytes`` is the planner's model of what a mesh of
+        separate devices would move. A donated handle is skipped with a
+        labelled reason. A group mesh is never rebuilt in its
+        processes, so an array of one is never stale."""
+        if self._local is None:
+            self._migration = {"route": "skipped", "bytes": 0,
+                               "reason": "buffer invalidated by donation"}
+            return self
+        if self._epoch == mesh_mod._EPOCH:
+            return self
+        from ..parallel import redistribute as redist_mod
+
+        mesh = mesh_mod.get_mesh()
+        t, dec = redist_mod.plan_rehome(self, mesh)
+        self._migration = {
+            "route": dec.route, "bytes": int(dec.bytes),
+            "schedule": (dec.schedule.describe()
+                         if dec.schedule is not None else None),
+            "reason": dec.reason, "shape": self.shape,
+            "src_tiling": self.tiling.axes, "dst_tiling": t.axes,
+            "from_epoch": self._epoch, "to_epoch": mesh_mod._EPOCH,
+        }
+        if self._local.device != mesh.device:
+            self._local = self._local.to(mesh.device)
+        self.tiling = t
+        self.mesh = mesh
+        self._epoch = mesh_mod._EPOCH
+        return self
 
     # -- per-shard execution (the foreach_tile analogue) ----------------
 

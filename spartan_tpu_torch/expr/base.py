@@ -30,6 +30,14 @@ inside it (``sign``, ``optimize`` with its per-pass phases, ``build``,
 ``donated_dispatches``) live in ``obs.metrics.REGISTRY``. Spans read the
 host clock only: ``dispatch`` times the launches of a plan's kernels,
 never waits for them.
+
+A failed run of a plan goes to the resilience policy engine
+(``resilience/engine.py``): retry, the OOM ladder, elastic recovery or
+fail fast, by the classifier's verdict. The chaos seams
+(``resilience/faults.py``) fire before each run, at ``compile`` on a
+plan's first run and ``dispatch`` on later ones. Plan keys lead with the
+mesh epoch (``parallel/mesh.py``), and a leaf of an earlier epoch raises
+``StaleMeshError`` before anything runs.
 """
 
 from __future__ import annotations
@@ -53,6 +61,8 @@ from ..kernels import registry as kernels_mod
 from ..obs import trace as trace_mod
 from ..parallel import mesh as mesh_mod
 from ..parallel import redistribute as redistribute_mod
+from ..resilience import degrade as degrade_mod
+from ..resilience import faults as faults_mod
 from ..utils import config as config_mod
 from ..utils import dtypes
 from ..utils import profiling as prof
@@ -242,6 +252,11 @@ class Expr:
 
     def glom(self) -> np.ndarray:
         return self.evaluate().glom()
+
+    def invalidate(self) -> None:
+        """Drop this node's cached result; the next evaluate recomputes
+        it from the DAG (its lineage)."""
+        self._result = None
 
     def __array__(self, dtype=None, copy=None):
         out = self.glom()
@@ -681,18 +696,26 @@ class _Plan:
     """The steady-state recipe for one raw-DAG signature: the optimized
     DAG, the ids of its leaves (the env slots a run seeds), the output
     tilings, and ``arg_order`` mapping each optimized leaf to the
-    position of the raw leaf that feeds it."""
+    position of the raw leaf that feeds it. ``key`` is the plan key,
+    ``report`` the plan's record (its key digest, root and build site,
+    and the resilience record of its failures), ``warm`` whether a run
+    of it has succeeded (the chaos seam's ``compile`` vs ``dispatch``)."""
 
-    __slots__ = ("dag", "leaf_ids", "out_tilings", "is_tuple", "arg_order")
+    __slots__ = ("dag", "leaf_ids", "out_tilings", "is_tuple", "arg_order",
+                 "key", "report", "warm")
 
     def __init__(self, dag: Expr, leaf_ids: Tuple[int, ...],
                  out_tilings: Tuple[Tiling, ...], is_tuple: bool,
-                 arg_order: Tuple[int, ...]):
+                 arg_order: Tuple[int, ...], key: Optional[Tuple] = None,
+                 report: Optional[Dict[str, Any]] = None):
         self.dag = dag
         self.leaf_ids = leaf_ids
         self.out_tilings = out_tilings
         self.is_tuple = is_tuple
         self.arg_order = arg_order
+        self.key = key
+        self.report = report
+        self.warm = False
 
 
 # The plan cache is an LRU shared by every thread that evaluates;
@@ -774,13 +797,31 @@ def _opt_flags_key() -> Tuple:
                bool(FLAGS.shard_loop_carries),
                kernels_mod.policy_key())
         _opt_key_memo = (ver, key)
-    return key
+    # the OOM ladder's rung (thread-local, outside the memo): a degraded
+    # plan never aliases the normal one (JAX ``base.py:1119``)
+    return key + (getattr(degrade_mod._TLS, "rung", None),)
 
 
 def _mesh_key(mesh) -> Tuple:
-    # a group mesh lowers on local blocks, a logical one on whole tensors
-    return (tuple(sorted(mesh.shape.items())), str(mesh.device),
-            mesh.is_group)
+    # led by the mesh epoch, so a dead mesh's plans miss after a
+    # rebuild_mesh and evict_stale_plans finds them; a group mesh lowers
+    # on local blocks, a logical one on whole tensors
+    return ((mesh_mod._EPOCH,) + tuple(sorted(mesh.shape.items())),
+            str(mesh.device), mesh.is_group)
+
+
+def evict_stale_plans() -> int:
+    """Drop every plan keyed under a mesh epoch older than the current
+    one (elastic recovery calls it after ``rebuild_mesh``). Returns the
+    number of plans evicted."""
+    epoch = mesh_mod._EPOCH
+    with _cache_lock:
+        stale = [k for k in _plan_cache if k[2][0][0] != epoch]
+        for k in stale:
+            del _plan_cache[k]
+    if stale:
+        prof.count("plan_evictions", len(stale))
+    return len(stale)
 
 
 def plan_signature(expr: Expr, mesh=None) -> Tuple[Tuple, _PlanSigCtx]:
@@ -914,6 +955,58 @@ def _norm_donate(donate: Sequence[Any]) -> List[DistArray]:
     return out
 
 
+def _check_epochs(leaves: List[Expr], order: Tuple[int, ...]) -> None:
+    """Raise ``StaleMeshError``, naming every stale leaf, when a leaf
+    array was made in an earlier mesh epoch (before a ``rebuild_mesh``)."""
+    epoch = mesh_mod._EPOCH
+    stale: List[DistArray] = []
+    for i in order:
+        arr = _leaf_array(leaves[i])
+        if arr is not None and arr._epoch != epoch and \
+                not any(arr is s for s in stale):
+            stale.append(arr)
+    if stale:
+        raise mesh_mod.StaleMeshError(
+            f"{len(stale)} input DistArray(s) belong to mesh epoch "
+            f"{stale[0]._epoch} but the mesh was rebuilt (current epoch "
+            f"{epoch}, e.g. after device loss). Re-create them, or call "
+            ".rehome() / resilience.elastic.rehome() to migrate them.",
+            arrays=stale)
+
+
+def _dispatch(expr: Expr, plan: _Plan, leaves: List[Expr],
+              order: Tuple[int, ...], donated: List[DistArray],
+              mesh) -> Any:
+    """One run of a plan: the epoch check, the chaos seam (``compile``
+    on the plan's first run, ``dispatch`` after), the walk."""
+    _check_epochs(leaves, order)
+    if faults_mod._ACTIVE is not None:
+        faults_mod.fire("dispatch" if plan.warm else "compile")
+    result = _run(expr, plan, leaves, order, mesh, donated)
+    plan.warm = True
+    return result
+
+
+def _handle_failure(exc: Exception, expr: Expr, plan: _Plan,
+                    leaves: List[Expr], order: Tuple[int, ...],
+                    donated: List[DistArray], mesh) -> Any:
+    """Route a failed run into the resilience policy engine (imported
+    here: failures are the cold path)."""
+    from ..resilience import engine
+
+    return engine.handle_failure(exc, expr, plan, leaves, order, donated,
+                                 mesh)
+
+
+def _report(expr: Expr, plan_key: Optional[Tuple]) -> Dict[str, Any]:
+    from ..resilience.engine import key_hash
+
+    site = expr._site
+    return {"plan_key": key_hash(plan_key),
+            "root": f"{type(expr).__name__}#{expr._id}",
+            "site": f"{site[0]}:{site[1]}" if site else None}
+
+
 def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
          order: Tuple[int, ...], mesh,
          donated: Sequence[DistArray] = ()) -> Any:
@@ -994,8 +1087,12 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
             if plan is not None:
                 prof.count("plan_hits")
                 esp.set(cache="hit")
-                return _run(expr, plan, rctx.leaves, plan.arg_order, mesh,
-                            donated)
+                try:
+                    return _dispatch(expr, plan, rctx.leaves,
+                                     plan.arg_order, donated, mesh)
+                except Exception as e:
+                    return _handle_failure(e, expr, plan, rctx.leaves,
+                                           plan.arg_order, donated, mesh)
             prof.count("plan_misses")
             esp.set(cache="miss")
 
@@ -1007,6 +1104,10 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
             # the optimizer collapsed the root onto an already-held result
             expr._result = dag._result
             return dag._result
+        if getattr(degrade_mod._TLS, "rung", None) in ("finer_tiling",
+                                                       "fusion_off"):
+            # the OOM ladder: the finest divisible tilings on a clone
+            degrade_mod.force_finer(dag, mesh)
         with prof.phase("sign"):
             ctx = _SigCtx()
             ctx.of(dag)
@@ -1018,14 +1119,26 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
             out_tilings = (tiling_mod.sanitize(dag.out_tiling(), dag.shape,
                                                mesh),)
         leaf_ids = tuple(leaf._id for leaf in leaves)
+        report = _report(expr, plan_key)
+        stored: Optional[_Plan] = None
         if rctx is not None:
             raw_order = _arg_order(rctx.leaves, leaves)
             if raw_order is not None:
-                store_plan(plan_key, _Plan(dag, leaf_ids, out_tilings,
-                                           is_tuple, raw_order))
+                stored = store_plan(plan_key, _Plan(
+                    dag, leaf_ids, out_tilings, is_tuple, raw_order,
+                    plan_key, report))
+                report = stored.report
         plan = _Plan(dag, leaf_ids, out_tilings, is_tuple,
-                     tuple(range(len(leaves))))
-        return _run(expr, plan, leaves, plan.arg_order, mesh, donated)
+                     tuple(range(len(leaves))), plan_key, report)
+        try:
+            result = _dispatch(expr, plan, leaves, plan.arg_order, donated,
+                               mesh)
+        except Exception as e:
+            result = _handle_failure(e, expr, plan, leaves, plan.arg_order,
+                                     donated, mesh)
+        if stored is not None and plan.warm:
+            stored.warm = True
+        return result
 
 
 _eval_shape_cache: Dict[Tuple, Any] = {}

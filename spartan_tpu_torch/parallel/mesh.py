@@ -23,6 +23,17 @@ named axes. The port has two kinds of mesh:
 :func:`initialize_distributed` builds the group and installs its mesh
 as the ambient one; :func:`shutdown` clears it.
 
+Every logical position has an id, row-major over the grid (the JAX
+package's device ids at the same mesh shape). The **mesh epoch** is a
+process-wide generation counter that :func:`rebuild_mesh` bumps when a
+lost position is excluded: the survivors form a new logical mesh
+(:func:`factor_2d` of their count, on the same device), DistArrays and
+plan keys record the epoch they were made under, and an array of an
+older epoch raises :class:`StaleMeshError` instead of running. A group
+mesh is not rebuilt in its process: there a lost rank ends the world,
+and a smaller world started anew resumes from the last snapshot
+(``resilience/loop_ckpt.py``).
+
 Mesh axes:
   * ``"x"`` — the primary tiling axis (rows / batch).
   * ``"y"`` — the secondary tiling axis (cols).
@@ -60,6 +71,42 @@ _created_group = False
 _lock = threading.Lock()
 _dist_lock = threading.Lock()
 
+# -- mesh epoch (elastic recovery) ---------------------------------------
+#
+# Bumped by every rebuild_mesh. DistArrays record it at birth and plan
+# keys lead with it (expr/base._mesh_key), so nothing made for a dead
+# mesh runs on the rebuilt one. Reads are unlocked (one module-attribute
+# load on the hot path); writes hold _lock.
+_EPOCH = 0
+_excluded_ids: Tuple[int, ...] = ()
+# the (position ids, device) the first rebuild shrank: later rebuilds
+# exclude from it cumulatively, as the JAX package's from jax.devices()
+_universe: Optional[Tuple[Tuple[int, ...], torch.device]] = None
+# epoch -> {axis: size} of the mesh that generation ran on (both sides
+# of every rebuild), for migration records of arrays whose mesh is gone
+_shape_history: Dict[int, Dict[str, int]] = {}
+
+
+def mesh_epoch() -> int:
+    """The current mesh generation (bumped by :func:`rebuild_mesh`)."""
+    return _EPOCH
+
+
+def mesh_shape_at(epoch: int) -> Optional[dict]:
+    """The {axis: size} grid of mesh generation ``epoch``, when known
+    (:func:`rebuild_mesh` records both sides of every transition)."""
+    return _shape_history.get(int(epoch))
+
+
+class StaleMeshError(RuntimeError):
+    """An array of an earlier mesh epoch was used after
+    :func:`rebuild_mesh`. ``arrays`` holds the offending arrays, so
+    ``resilience/elastic.rehome`` can move them onto the rebuilt mesh."""
+
+    def __init__(self, msg: str, arrays=()):
+        super().__init__(msg)
+        self.arrays = list(arrays)
+
 
 def resolve_device(device: Optional[DeviceLike] = None) -> torch.device:
     """The ``torch.device`` to run on: ``device`` if given, else the
@@ -82,6 +129,7 @@ def set_default_device(device: DeviceLike) -> None:
         _default_device = torch.device(device)
         _global_mesh = None
     _state.mesh = None
+    _state.epoch = _EPOCH
 
 
 def get_default_device() -> torch.device:
@@ -93,14 +141,21 @@ class Mesh:
     the grid of the ranks of a ``torch.distributed`` process group."""
 
     __slots__ = ("shape", "device", "group", "rank", "coords",
-                 "_axis_groups", "runner")
+                 "_axis_groups", "runner", "ids")
 
     def __init__(self, shape: Tuple[int, int], device: torch.device,
-                 group=None):
+                 group=None, ids: Optional[Tuple[int, ...]] = None):
         nx, ny = (int(s) for s in shape)
         if nx < 1 or ny < 1:
             raise ValueError(f"mesh shape {shape} must be positive")
         self.shape: Dict[str, int] = {AXIS_ROW: nx, AXIS_COL: ny}
+        # the positions' ids, row-major (the JAX package's device ids):
+        # 0..n-1, or the survivors' ids on a rebuilt mesh
+        self.ids: Tuple[int, ...] = (tuple(range(nx * ny)) if ids is None
+                                     else tuple(int(i) for i in ids))
+        if len(self.ids) != nx * ny:
+            raise ValueError(f"{len(self.ids)} position ids for a "
+                             f"{nx}x{ny} mesh")
         self.device = device
         self.group = group
         self.rank = 0
@@ -174,13 +229,25 @@ def build_mesh(shape: Tuple[int, int] = (1, 1),
 
 def set_mesh(mesh: Optional[Mesh]) -> None:
     _state.mesh = mesh
+    _state.epoch = _EPOCH
+
+
+def _pin() -> Optional[Mesh]:
+    """This thread's pinned mesh when it was pinned in the current
+    epoch; a pin from before a :func:`rebuild_mesh` is ignored."""
+    mesh = getattr(_state, "mesh", None)
+    if mesh is not None and getattr(_state, "epoch", 0) == _EPOCH:
+        return mesh
+    return None
 
 
 def get_mesh() -> Mesh:
-    """The ambient mesh: a thread-local pin (``use_mesh``/``set_mesh``),
-    else the group mesh :func:`initialize_distributed` built, else a 1x1
-    mesh on the default device."""
-    mesh = getattr(_state, "mesh", None)
+    """The ambient mesh: a thread-local pin (``use_mesh``/``set_mesh``)
+    of the current epoch, else the group mesh
+    :func:`initialize_distributed` built, else the default mesh: the
+    survivors' mesh after a :func:`rebuild_mesh`, a 1x1 mesh on the
+    default device before one."""
+    mesh = _pin()
     if mesh is not None:
         return mesh
     if _group_mesh is not None:
@@ -188,24 +255,109 @@ def get_mesh() -> Mesh:
     global _global_mesh
     with _lock:
         if _global_mesh is None:
-            _global_mesh = build_mesh()
+            _global_mesh = _build_surviving()
         return _global_mesh
 
 
 class use_mesh:
-    """Context manager pinning the ambient mesh for this thread."""
+    """Context manager pinning the ambient mesh for this thread. The pin
+    is epoch-scoped: once :func:`rebuild_mesh` runs, :func:`get_mesh`
+    stops returning the pinned (now dead) mesh."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self._prev: Optional[Mesh] = None
+        self._prev_epoch = 0
 
     def __enter__(self) -> Mesh:
         self._prev = getattr(_state, "mesh", None)
+        self._prev_epoch = getattr(_state, "epoch", _EPOCH)
         _state.mesh = self.mesh
+        _state.epoch = _EPOCH
         return self.mesh
 
     def __exit__(self, *exc) -> None:
         _state.mesh = self._prev
+        _state.epoch = self._prev_epoch
+
+
+def _build_surviving() -> Mesh:
+    """The default mesh: over the positions no :func:`rebuild_mesh` has
+    excluded, when one ran, else a 1x1 mesh on the default device.
+    Hold ``_lock``."""
+    if _universe is None:
+        return build_mesh()
+    ids, device = _universe
+    survivors = tuple(i for i in ids if i not in _excluded_ids)
+    if not survivors:
+        raise RuntimeError("rebuild_mesh excluded every position")
+    return Mesh(factor_2d(len(survivors)), device, ids=survivors)
+
+
+def rebuild_mesh(exclude_devices=(), shape=None) -> Mesh:
+    """Shrink the logical mesh after the loss of positions, and bump the
+    mesh epoch.
+
+    ``exclude_devices`` are position ids (or anything with an ``id``)
+    removed from the survivor set, cumulatively with earlier rebuilds;
+    the survivors form a :func:`factor_2d` grid (or ``shape``) on the
+    current mesh's device. The bump fences everything made before it:
+    plan keys lead with the epoch (stale plans miss), DistArrays record
+    their birth epoch (a stale one raises :class:`StaleMeshError`), and
+    pins of the old mesh stop counting. The caller
+    (``resilience/elastic``) evicts the dead epoch's plans after.
+
+    A group mesh is refused: its positions are processes, and one that
+    is lost takes its collectives with it. The surviving ranks exit,
+    and a smaller world restarts and resumes from its last snapshot
+    (``st.loop(..., resume=path)``)."""
+    global _EPOCH, _global_mesh, _excluded_ids, _universe
+    cur = get_mesh()
+    if cur.is_group:
+        raise RuntimeError(
+            "rebuild_mesh cannot shrink a group mesh in its processes: "
+            "a lost rank ends the process group. The surviving world "
+            "restarts with fewer ranks and resumes from its last "
+            "snapshot (st.loop(..., resume=path)).")
+    with _lock:
+        if _universe is None:
+            _universe = (cur.ids, cur.device)
+        _shape_history.setdefault(_EPOCH, dict(cur.shape))
+        excluded = set(_excluded_ids)
+        for d in exclude_devices:
+            excluded.add(int(d) if isinstance(d, int) else int(d.id))
+        _excluded_ids = tuple(sorted(excluded))
+        ids, device = _universe
+        survivors = tuple(i for i in ids if i not in _excluded_ids)
+        if not survivors:
+            raise RuntimeError("rebuild_mesh excluded every position")
+        _EPOCH += 1
+        _global_mesh = Mesh(shape or factor_2d(len(survivors)), device,
+                            ids=survivors)
+        _shape_history[_EPOCH] = dict(_global_mesh.shape)
+        _state.mesh = _global_mesh
+        _state.epoch = _EPOCH
+        mesh = _global_mesh
+    from ..utils.log import log_warn
+
+    log_warn("mesh epoch %d: rebuilt over %d surviving position(s)%s",
+             _EPOCH, len(mesh.ids),
+             f" (excluded ids {_excluded_ids})" if _excluded_ids else "")
+    return mesh
+
+
+def reset_epoch_for_tests() -> None:
+    """Restore the epoch-0 world with no position excluded (test
+    isolation only: epochs only grow otherwise)."""
+    global _EPOCH, _global_mesh, _excluded_ids, _universe
+    with _lock:
+        _EPOCH = 0
+        _global_mesh = None
+        _excluded_ids = ()
+        _universe = None
+        _shape_history.clear()
+        _state.mesh = None
+        _state.epoch = 0
 
 
 def mesh_on(device: Optional[DeviceLike] = None) -> Mesh:
@@ -214,7 +366,7 @@ def mesh_on(device: Optional[DeviceLike] = None) -> Mesh:
     if device is None:
         return get_mesh()
     dev = resolve_device(device)
-    pinned = getattr(_state, "mesh", None)
+    pinned = _pin()
     if pinned is not None and pinned.device == dev:
         return pinned
     return Mesh(mesh_axis_sizes(pinned) if pinned is not None else (1, 1),
@@ -239,7 +391,7 @@ def ambient_group() -> Optional[Mesh]:
     :func:`get_mesh` it never builds the default mesh (so code that
     takes its group form only on a group mesh runs without a default
     device)."""
-    mesh = getattr(_state, "mesh", None)
+    mesh = _pin()
     if mesh is not None:
         return mesh if mesh.group is not None else None
     return _group_mesh
@@ -248,7 +400,7 @@ def ambient_group() -> Optional[Mesh]:
 def pinned_mesh() -> Optional[Mesh]:
     """This thread's pinned mesh, or None (the ``shard_map`` runner
     carries it into its worker threads)."""
-    return getattr(_state, "mesh", None)
+    return _pin()
 
 
 def factor_2d(n: int) -> Tuple[int, int]:

@@ -48,7 +48,11 @@ flag read per constrained edge when off). The flag is in
 ``expr/base._opt_flags_key``, so planned and unplanned plans never
 alias in the plan cache. Calibration factors (``_cal_factors``) wait
 for the cost ledger (ROADMAP A4): until then every factor is 1.
-``plan_rehome`` waits for ``DistArray.rehome`` (ROADMAP A3b-iii).
+
+Across meshes of different shapes (elastic recovery, a checkpoint
+restored onto another grid), :func:`plan_transition` prices the
+migration on the two grids and :func:`plan_rehome` plans one live
+array's move onto a rebuilt mesh (``DistArray.rehome``).
 """
 
 from __future__ import annotations
@@ -604,6 +608,22 @@ def plan_transition(src: Tiling, dst: Tiling,
         best, "direct", best.cost(nbytes, factors), moved,
         f"planned {best.describe()} "
         f"(~{int(moved)} modeled wire bytes)")
+
+
+def plan_rehome(arr: Any, dst_mesh) -> Tuple[Tiling, MigrationDecision]:
+    """Plan one live array's migration onto ``dst_mesh`` (elastic
+    recovery): the destination tiling is the source tiling sanitized for
+    the survivor grid (axes that no longer divide are dropped), the
+    decision :func:`plan_transition` under the calibration factors."""
+    from ..array import tiling as tiling_mod
+
+    shape = tuple(int(s) for s in arr.shape)
+    dst_t = tiling_mod.sanitize(arr.tiling, shape, dst_mesh)
+    dec = plan_transition(
+        arr.tiling, dst_t, {k: int(v) for k, v in arr.mesh.shape.items()},
+        {k: int(v) for k, v in dst_mesh.shape.items()},
+        shape, arr.dtype, _cal_factors())
+    return dst_t, dec
 
 
 def _coords(mesh) -> List[Dict[str, int]]:

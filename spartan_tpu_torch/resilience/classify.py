@@ -5,31 +5,38 @@ and CUDA raise).
 ==================  ======================================  ================
 class               what it covers                          policy
 ==================  ======================================  ================
-``transient``       UNAVAILABLE / DEADLINE_EXCEEDED /       retry; the
-                    ABORTED / CANCELLED, preemption,        checkpointed
-                    socket and connection drops, NCCL       loop restores
-                    network errors                          its snapshot
-``oom``             ``torch.cuda.OutOfMemoryError``,        restore (the
-                    ``MemoryError``, allocator messages     degradation
-                                                            ladder waits)
-``io``              ``OSError`` (the checkpoint layer)      restore / retry
-``fatal_mesh``      a dead device: DATA_LOSS, halted        re-raise at once
-                    devices, and CUDA's *sticky* errors     (elastic
-                    (illegal memory access, device-side     recovery waits);
-                    assert, unspecified launch failure /    resume in a new
-                    ``cudaErrorLaunchFailure``)             process
-``stale_mesh``      an array of a rebuilt mesh (the port    re-raise
-                    has no mesh rebuild yet: never raised)
-``sdc``             a failed integrity check                restore
-``deterministic``   everything else: ValueError, TypeError, re-raise
+``transient``       UNAVAILABLE / DEADLINE_EXCEEDED /       retry with
+                    ABORTED / CANCELLED, preemption,        backoff
+                    socket and connection drops             (``engine``)
+``oom``             ``torch.cuda.OutOfMemoryError``,        the OOM ladder
+                    ``MemoryError``, allocator messages     (``degrade``)
+``io``              ``OSError`` (the checkpoint layer)      retry
+``fatal_mesh``      a dead device or peer: DATA_LOSS,       elastic
+                    halted devices, CUDA's *sticky* errors  recovery
+                    (illegal memory access, device-side     (``elastic``)
+                    assert, unspecified launch failure /
+                    ``cudaErrorLaunchFailure``), a lost
+                    ``torch.distributed`` peer
+                    (``DistNetworkError``,
+                    ``DistBackendError``, gloo's "Connection
+                    closed/reset by peer" and collective
+                    timeouts, NCCL's "remote process
+                    exited")
+``stale_mesh``      an array of a rebuilt mesh              fail fast; the
+                    (``StaleMeshError``)                    loop rehomes
+``sdc``             a failed integrity check                retry
+``deterministic``   everything else: ValueError, TypeError, fail fast
                     shape and dtype errors, compile errors
 ==================  ======================================  ================
 
 A sticky CUDA error leaves the process's CUDA context unusable: every
 later call on the card fails, so no restore inside the process can
-succeed. Those errors classify ``fatal_mesh`` so that the checkpointed
-loop re-raises at once; ``st.loop(..., resume=path)`` in a new process
-recovers from the last snapshot.
+succeed. Those errors classify ``fatal_mesh``, and elastic recovery
+rebuilds nothing for them (every logical position shares the one dead
+context): ``st.loop(..., resume=path)`` in a new process recovers from
+the last snapshot. A lost peer of a process group is ``fatal_mesh``
+too: the group's collectives cannot complete again, so a retry would
+only wait on the dead rank.
 
 Classification is by exception type first (``OSError`` is ``io``,
 ``torch.cuda.OutOfMemoryError`` and ``MemoryError`` are ``oom``) and by
@@ -81,6 +88,18 @@ _FATAL_MESH_MARKERS = (
     "device unhealthy", "hardware failure", "missing device",
 )
 
+# a torch.distributed peer that is gone: gloo reports the closed socket
+# (or the peer's reset) and a collective that timed out waiting for it,
+# NCCL the remote exit. Checked before the transient table, whose
+# "connection reset" and "network" would otherwise retry into a dead
+# group.
+_PEER_LOSS_MARKERS = (
+    "connection closed by peer", "connection reset by peer",
+    "remote process exited", "broken pipe",
+)
+_COLLECTIVE_TIMEOUT_MARKERS = ("for recv operation to complete",
+                               "for send operation to complete")
+
 # CUDA's sticky errors: the context is unusable for the rest of the
 # process (cudaErrorIllegalAddress, cudaErrorAssert,
 # cudaErrorLaunchFailure, cudaErrorIllegalInstruction,
@@ -97,6 +116,25 @@ _SDC_MARKERS = ("integrity violation", "silent data corruption",
                 "checksum mismatch")
 
 
+def _dist_errors() -> tuple:
+    import torch.distributed as dist
+
+    return tuple(c for c in (getattr(dist, "DistNetworkError", None),
+                             getattr(dist, "DistBackendError", None))
+                 if c is not None)
+
+
+# torch.distributed's own peer-loss exceptions (classified by type)
+_DIST_ERRORS = _dist_errors()
+
+
+def is_sticky_cuda(exc: BaseException) -> bool:
+    """True for CUDA's sticky errors: the process's CUDA context is
+    unusable, so no position of a logical mesh on that card survives."""
+    return isinstance(exc, RuntimeError) and _match(
+        str(exc).lower(), _STICKY_CUDA_MARKERS)
+
+
 def _match(text: str, markers: tuple) -> bool:
     return any(m in text for m in markers)
 
@@ -111,14 +149,22 @@ def classify(exc: BaseException) -> str:
                 }.get(kind, DETERMINISTIC)
     if isinstance(exc, FatalMeshError):
         return FATAL_MESH
+    from ..parallel.mesh import StaleMeshError
+
+    if isinstance(exc, StaleMeshError):
+        return STALE_MESH
+    if isinstance(exc, _DIST_ERRORS):
+        return FATAL_MESH
     if isinstance(exc, OSError):
         return IO
     if isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError)):
         return OOM
     if isinstance(exc, RuntimeError):
         text = str(exc).lower()
-        if _match(text, _STICKY_CUDA_MARKERS) or _match(
-                text, _FATAL_MESH_MARKERS):
+        if (_match(text, _STICKY_CUDA_MARKERS)
+                or _match(text, _FATAL_MESH_MARKERS)
+                or _match(text, _PEER_LOSS_MARKERS)
+                or _match(text, _COLLECTIVE_TIMEOUT_MARKERS)):
             return FATAL_MESH
         if text.startswith("internal") and _match(
                 text, _INTERNAL_DEVICE_MARKERS):

@@ -19,13 +19,28 @@ Failures (``resilience/classify.py``):
   held carries) and re-runs, at most ``FLAGS.loop_restore_max`` times,
   after which the failure propagates;
 * a deterministic error propagates at once;
-* ``fatal_mesh`` (a dead device, or CUDA's sticky errors, after which
-  the process's CUDA context is unusable) and ``stale_mesh`` propagate
-  at once: the elastic recovery of the JAX package waits for
-  ``rebuild_mesh`` and the resilience engine (ROADMAP A3b-iii/A5).
-  ``resume=`` in a new process is what recovers them;
+* ``fatal_mesh`` after which elastic recovery rebuilt the logical mesh
+  (the epoch advanced: ``resilience/elastic.py``) restores the last
+  snapshot onto the rebuilt mesh and re-enters the loop there
+  (``mesh_rebuilt`` in the record, ``resilience_loop_elastic_resumes``).
+  A ``fatal_mesh`` that rebuilt nothing (a sticky CUDA error, a lost
+  rank of a group mesh, elastic recovery off) propagates at once:
+  ``resume=`` in a new process, or in a smaller world, recovers it;
+* ``stale_mesh`` (a leaf the body captured, made before the rebuild)
+  rehomes the arrays the error names (``elastic.rehome``) and re-runs
+  the segment, at most 8 passes;
 * an I/O error while writing or reading a snapshot propagates (the
   previous snapshot stays whole).
+
+On a **group mesh** every rank writes only its blocks' blobs, straight
+into the step directory (``utils/checkpoint.save``: no gather, rank 0
+writes each manifest after a barrier), and rank 0 alone writes
+``loop_meta.json`` and then ``LATEST.json``, the commit marker: a rank
+killed between its blobs and the marker leaves ``LATEST.json`` at the
+previous snapshot. A peer lost during a snapshot raises
+``FatalMeshError``. A snapshot restored onto another grid (a rebuilt
+mesh, a smaller world) records each carry's planned migration in the
+loop's record (``migrations``) and the ``elastic_*`` counters.
 
 ``resume=path`` continues from the last snapshot under ``path`` (a fresh
 start when there is none). ``health`` / ``early_exit`` are not ported
@@ -34,12 +49,10 @@ start when there is none). ``health`` / ``early_exit`` are not ported
 Observability, as in the JAX package: a ``ckpt_loop`` span around the
 run, a ``loop_segment`` span per segment and a ``loop_checkpoint`` span
 per snapshot, and the ``REGISTRY`` counters
-``resilience_loop_checkpoints``, ``resilience_loop_resumes`` and
-``resilience_loop_restores``. The JAX package's
-``resilience_loop_elastic_resumes`` and
-``resilience_checkpoint_failures`` count branches the port does not
-have (elastic recovery, ROADMAP A3b-iii/A5; a failed snapshot write
-propagates here).
+``resilience_loop_checkpoints``, ``resilience_loop_resumes``,
+``resilience_loop_restores`` and ``resilience_loop_elastic_resumes``.
+The JAX package's ``resilience_checkpoint_failures`` counts a branch the
+port does not have (a failed snapshot write propagates here).
 
 Layout under ``checkpoint_path`` (the JAX package's)::
 
@@ -79,31 +92,51 @@ def _step_dir(path: str, step: int) -> str:
     return os.path.join(path, f"step_{step:08d}")
 
 
+def _commit(path: str, final: str, step: int) -> None:
+    """Write ``LATEST.json`` (atomically): the snapshot commit marker."""
+    ltmp = os.path.join(path, f".{_LATEST}.{os.getpid()}")
+    with open(ltmp, "w") as f:
+        json.dump({"step": int(step), "dir": os.path.basename(final)}, f)
+    os.replace(ltmp, os.path.join(path, _LATEST))
+
+
 def save_snapshot(path: str, step: int, carries: List[Any]) -> str:
-    """Atomically snapshot the carries after iteration ``step``; the
-    ``LATEST.json`` marker is written (atomically) only after the
-    snapshot directory is in place."""
+    """Snapshot the carries after iteration ``step``; the ``LATEST.json``
+    marker is written (atomically) only after the snapshot is whole.
+
+    One process: the snapshot is written into a temporary directory and
+    swapped into place. A group mesh: every rank writes its blocks'
+    blobs straight into the step directory (``checkpoint.save`` barriers
+    per carry), and rank 0 alone writes ``loop_meta.json`` and the
+    marker."""
+    from ..parallel import mesh as mesh_mod
     from ..utils import checkpoint as ckpt
 
     os.makedirs(path, exist_ok=True)
+    mesh = mesh_mod.get_mesh()
     final = _step_dir(path, step)
+    tree = {f"carry{i}": c for i, c in enumerate(carries)}
+    meta = {"step": int(step), "carries": len(carries)}
     with prof.span("loop_checkpoint", step=step):
-        tmp = os.path.join(path, f".tmp_step_{step}_{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        ckpt.save_tree(tmp, {f"carry{i}": c
-                             for i, c in enumerate(carries)})
-        with open(os.path.join(tmp, "loop_meta.json"), "w") as f:
-            json.dump({"step": int(step), "carries": len(carries)}, f)
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
-        ltmp = os.path.join(path, f".{_LATEST}.{os.getpid()}")
-        with open(ltmp, "w") as f:
-            json.dump({"step": int(step),
-                       "dir": os.path.basename(final)}, f)
-        os.replace(ltmp, os.path.join(path, _LATEST))
+        if mesh.is_group:
+            ckpt.save_tree(final, tree)
+            if mesh.rank == 0:
+                with open(os.path.join(final, "loop_meta.json"), "w") as f:
+                    json.dump(meta, f)
+                _commit(path, final, step)
+        else:
+            tmp = os.path.join(path, f".tmp_step_{step}_{os.getpid()}")
+            shutil.rmtree(tmp, ignore_errors=True)
+            ckpt.save_tree(tmp, tree)
+            with open(os.path.join(tmp, "loop_meta.json"), "w") as f:
+                json.dump(meta, f)
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            _commit(path, final, step)
     _count("resilience_loop_checkpoints",
            "carry snapshots written by checkpointed st.loop")
-    _prune(path, keep=_KEEP_SNAPSHOTS, newest=step)
+    if mesh.rank == 0:
+        _prune(path, keep=_KEEP_SNAPSHOTS, newest=step)
     return final
 
 
@@ -138,6 +171,25 @@ def load_latest(path: str) -> Optional[Tuple[int, List[Any]]]:
                                for i in range(int(meta["carries"]))]
 
 
+def _note_restore_migrations(carries: List[Any],
+                             rec: Dict[str, Any]) -> None:
+    """Fold the restored carries' planned migrations (the snapshot was
+    written on another grid) into the loop's record and the
+    ``elastic_*`` counters."""
+    migs = [m for m in (getattr(c, "_migration", None) for c in carries)
+            if m]
+    if not migs:
+        return
+    from . import elastic
+
+    rec.setdefault("migrations", []).extend(migs)
+    elastic.note_migrations(migs)
+    log_info("st.loop restore: %d carr%s re-tiled through the migration "
+             "planner (%d modeled wire bytes)", len(migs),
+             "y" if len(migs) == 1 else "ies",
+             sum(int(m.get("bytes", 0)) for m in migs))
+
+
 def _add_note(e: BaseException, note: str) -> None:
     e.add_note(f"checkpointed st.loop: {note}")
 
@@ -169,12 +221,16 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
             "st.loop(checkpoint_every=...) needs checkpoint_path= "
             "(or resume=) to write snapshots to")
 
+    from ..parallel import mesh as mesh_mod
+
     start = 0
     carries: Optional[List[Any]] = None
+    restored: List[Any] = []
     if resume is not None:
         latest = load_latest(resume) if os.path.isdir(resume) else None
         if latest is not None:
             start, carries = latest
+            restored = carries
             _count("resilience_loop_resumes",
                    "checkpointed loops resumed from a snapshot")
             log_info("st.loop resume: restored iteration %d from %s",
@@ -188,9 +244,11 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
     rec: Dict[str, Any] = {
         "loop": True, "n": n, "checkpoint_every": every,
         "resumed_from": start if start else None,
-        "restores": 0, "segments": 0,
+        "restores": 0, "segments": 0, "retries": 0, "rung": None,
     }
+    _note_restore_migrations(restored, rec)
     step = start
+    rehome_passes = 0
     # restore only from a snapshot of this run (or the one it resumed):
     # ``path`` may still hold an earlier run's snapshots
     own = (start > 0 and path is not None
@@ -205,6 +263,7 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
                     return body_fn(i + _off, *cs)
             else:
                 body = body_fn
+            epoch = mesh_mod.mesh_epoch()
             try:
                 with prof.span("loop_segment", step=step, seg=seg):
                     items = _loop(seg, body,
@@ -215,9 +274,47 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
                     results = [it.evaluate() for it in tup]
             except Exception as e:
                 kind = cls.classify(e)
-                if kind in (cls.DETERMINISTIC, cls.FATAL_MESH,
-                            cls.STALE_MESH):
+                if kind == cls.DETERMINISTIC:
                     raise
+                if kind == cls.STALE_MESH:
+                    # after a rebuild, leaves the body captured (the
+                    # k-means points) still belong to the dead epoch:
+                    # rehome them and re-run the segment. Each pass heals
+                    # every array the error names.
+                    from . import elastic
+
+                    rehome_passes += 1
+                    if rehome_passes > 8:
+                        raise
+                    try:
+                        healed = elastic.rehome(getattr(e, "arrays", ()))
+                    except Exception as re_exc:
+                        # a transient fault inside the rehome pass (the
+                        # `recover` chaos seam): the re-run raises
+                        # StaleMeshError again and the next pass heals
+                        if cls.classify(re_exc) == cls.DETERMINISTIC:
+                            raise
+                        log_warn("st.loop: rehome pass failed (%s); "
+                                 "re-entering recovery", str(re_exc)[:120])
+                        continue
+                    if not healed:
+                        raise
+                    rec["rehomed"] = rec.get("rehomed", 0) + len(e.arrays)
+                    log_warn("st.loop: rehomed %d stale leaf array(s); "
+                             "re-running the segment at iteration %d",
+                             len(e.arrays), step)
+                    continue
+                if kind == cls.FATAL_MESH:
+                    if mesh_mod.mesh_epoch() == epoch:
+                        # nothing was rebuilt in this process: resume=
+                        # in a new process (or a smaller world) recovers
+                        raise
+                    # elastic recovery rebuilt the mesh: restore the
+                    # last snapshot onto it and re-enter the loop
+                    rec["mesh_rebuilt"] = True
+                    _count("resilience_loop_elastic_resumes",
+                           "checkpointed loops re-entered on a rebuilt "
+                           "mesh after device loss")
                 rec["restores"] += 1
                 _count("resilience_loop_restores",
                        "failed loop segments restored from the last good "
@@ -229,6 +326,9 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
                 latest = load_latest(path) if own else None
                 if latest is not None:
                     step, carries = latest
+                    # carries written on the pre-loss grid restore as
+                    # planned migrations onto the rebuilt mesh
+                    _note_restore_migrations(carries, rec)
                     log_warn("st.loop: segment failed (%s: %s); "
                              "restored iteration %d from checkpoint",
                              kind, str(e)[:120], step)
@@ -242,11 +342,32 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
                          "yet, re-running from the held carries", kind,
                          str(e)[:120])
                 continue
+            # the retries and the rung the policy engine took inside the
+            # segment's evaluation
+            for it in tup:
+                r = getattr(it, "_resilience", None)
+                if r:
+                    rec["retries"] += r.get("retries", 0)
+                    if r.get("rung"):
+                        rec["rung"] = r["rung"]
             carries = results
             rec["segments"] += 1
             step += seg
             if path is not None and (every < n or resume is not None):
-                save_snapshot(path, step, carries)
+                try:
+                    save_snapshot(path, step, carries)
+                except Exception as e:
+                    if (mesh_mod.get_mesh().is_group
+                            and cls.classify(e) == cls.FATAL_MESH):
+                        # a peer died during the snapshot's barriers
+                        raise cls.FatalMeshError(
+                            f"a rank of the group was lost while "
+                            f"writing the iteration-{step} snapshot "
+                            f"({type(e).__name__}: {str(e)[:200]}); the "
+                            "last committed snapshot is the one "
+                            "LATEST.json names: resume from it in a "
+                            "smaller world") from e
+                    raise
                 own = True
 
     out = []

@@ -16,10 +16,27 @@ memory freed after the call. It writes into a temporary directory and
 swaps it into place, so a failed or killed save leaves the previous
 checkpoint whole. ``load`` verifies each shard's CRC32 (a corrupt blob
 raises ``ValueError`` naming its file) and lands the whole array on the
-current mesh's device. The multi-process branch and the cross-mesh
-migration records wait for elasticity (ROADMAP A3b-iii; the planner
-they price with, ``parallel/redistribute.
-plan_transition``, is ported).
+current mesh's device.
+
+On a **group mesh** (``parallel/mesh.py``) nothing is gathered: each
+rank writes the blobs of its block when it holds the block's first copy
+(``DistArray.is_first_copy``, so a replicated block is written once),
+straight into ``path``; rank 0 writes the manifest after a barrier, and
+a second barrier keeps every rank from returning before the manifest
+exists. The manifest and the blobs keep the JAX package's format: the
+manifest lists every shard, and only rank 0's own blobs carry a CRC, as
+in the JAX package's multi-process writer. ``load`` on a group mesh reads
+only the blobs that meet the rank's block.
+
+A checkpoint written on another grid (an elastic shrink, or a world of
+another size) loads as a planned migration: ``load`` prices the move
+from the saved tiling on the saved grid to the tiling on the current
+grid (``parallel/redistribute.plan_transition``) and records the route
+(``restore``), schedule, modelled bytes and reason on the array's
+``_migration``.
+
+The ``checkpoint`` chaos seam (``resilience/faults.py``) fires once per
+``save`` and per ``load``.
 """
 
 from __future__ import annotations
@@ -45,6 +62,21 @@ from ..parallel import mesh as mesh_mod
 from ..utils import dtypes
 
 _MANIFEST = "manifest.json"
+
+
+def _fire_checkpoint_fault() -> None:
+    """The ``checkpoint`` chaos seam: an installed plan's ``io`` tokens
+    raise OSError here. One module-attribute read when none is."""
+    from ..resilience import faults as faults_mod
+
+    if faults_mod._ACTIVE is not None:
+        faults_mod.fire("checkpoint")
+
+
+def _barrier(mesh) -> None:
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.group)
 
 # At most this many bytes of page-locked staging outlive a call: one
 # cached buffer grows to the largest save or load up to this size. A
@@ -155,9 +187,11 @@ def save(path: str, array: Any, nthreads: int = 8) -> None:
             array = array.evaluate()
         else:
             array = da.from_numpy(np.asarray(array))
-    # a group mesh gathers the whole array (counted); the multi-process
-    # writer that keeps local blocks is ROADMAP A3b-iii
-    t = array.materialize("checkpoint")
+    _fire_checkpoint_fault()
+    if array.mesh.is_group:
+        _save_group(path, array, nthreads)
+        return
+    t = array.local
     dest = os.path.abspath(path) + f".tmp-{os.getpid()}"
     shutil.rmtree(dest, ignore_errors=True)
     os.makedirs(dest)
@@ -177,41 +211,100 @@ def save(path: str, array: Any, nthreads: int = 8) -> None:
             files = [_shard_name(e) for e in exts]
             native.write_blobs([os.path.join(dest, f) for f in files],
                                bufs, nthreads)
-        manifest = {
-            "shape": list(array.shape),
-            "dtype": str(array.dtype),
-            "tiling": _axes_to_json(array.tiling.axes),
-            "mesh": {k: int(v) for k, v in array.mesh.shape.items()},
-            "shards": [{"ul": list(e.ul), "lr": list(e.lr), "file": f,
-                        "crc32": c} for e, f, c in zip(exts, files, crcs)],
-        }
         with open(os.path.join(dest, _MANIFEST), "w") as f:
-            json.dump(manifest, f)
+            json.dump(_manifest(array, files, crcs), f)
         _swap_into_place(dest, path)
     except BaseException:
         shutil.rmtree(dest, ignore_errors=True)
         raise
 
 
-def _read(path: str, device: torch.device,
-          nthreads: int = 8) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """A checkpoint's data as one tensor on ``device``, CRCs verified."""
+def _manifest(array: DistArray, files: List[str],
+              crcs: List[Optional[int]]) -> Dict[str, Any]:
+    exts = array.extents()
+    shards = []
+    for e, f, c in zip(exts, files, crcs):
+        rec = {"ul": list(e.ul), "lr": list(e.lr), "file": f}
+        if c is not None:
+            rec["crc32"] = c
+        shards.append(rec)
+    return {"shape": list(array.shape), "dtype": str(array.dtype),
+            "tiling": _axes_to_json(array.tiling.axes),
+            "mesh": {k: int(v) for k, v in array.mesh.shape.items()},
+            "shards": shards}
+
+
+def _save_group(path: str, array: DistArray, nthreads: int) -> None:
+    """The group mesh's writer: each rank writes its block's blob when it
+    holds the block's first copy, in place under ``path``; rank 0 writes
+    the manifest (CRCs of its own blobs only) after a barrier, and a
+    second barrier holds every rank until the manifest is written."""
+    mesh = array.mesh
+    os.makedirs(path, exist_ok=True)
+    mine = array.block_extent()
+    crc = None
+    if array.is_first_copy:
+        blk = array.local
+        offs, sizes, total = _layout([mine], blk.element_size())
+        with _staging(total, blk.device) as host:
+            torch.from_numpy(host)[:total].view(blk.dtype).view(
+                mine.shape).copy_(blk)
+            buf = host[:total]
+            if mesh.rank == 0:
+                crc = zlib.crc32(buf)
+            native.write_blobs([os.path.join(path, _shard_name(mine))],
+                               [buf], nthreads)
+    # the manifest commits the checkpoint: not before every rank's blobs
+    _barrier(mesh)
+    if mesh.rank == 0:
+        exts = array.extents()
+        files = [_shard_name(e) for e in exts]
+        crcs = [crc if (crc is not None and tuple(e.ul) == tuple(mine.ul)
+                        and tuple(e.lr) == tuple(mine.lr)) else None
+                for e in exts]
+        tmp = os.path.join(path, f".{_MANIFEST}.{os.getpid()}")
+        with open(tmp, "w") as f:
+            json.dump(_manifest(array, files, crcs), f)
+        os.replace(tmp, os.path.join(path, _MANIFEST))
+    # no rank returns before the manifest exists
+    _barrier(mesh)
+
+
+def _read_manifest(path: str) -> Dict[str, Any]:
     with open(os.path.join(path, _MANIFEST)) as f:
-        manifest = json.load(f)
+        return json.load(f)
+
+
+def _read(path: str, device: torch.device, nthreads: int = 8,
+          manifest: Optional[Dict[str, Any]] = None,
+          region: Optional[TileExtent] = None
+          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """A checkpoint's data on ``device``, CRCs verified: the whole array,
+    or with ``region`` only that region, read from the blobs that meet
+    it."""
+    if manifest is None:
+        manifest = _read_manifest(path)
     shape = tuple(int(s) for s in manifest["shape"])
     tdt = _torch_dtype(manifest["dtype"])
     itemsize = torch.empty((), dtype=tdt).element_size()
-    exts = [TileExtent(r["ul"], r["lr"], shape) for r in manifest["shards"]]
+    if region is None:
+        region = TileExtent((0,) * len(shape), shape, shape)
+    recs, exts = [], []
+    for r in manifest["shards"]:
+        e = TileExtent(r["ul"], r["lr"], shape)
+        if region.size == 0 or e.intersection(region) is not None:
+            recs.append(r)
+            exts.append(e)
     offs, sizes, total = _layout(exts, itemsize)
     on_card = device.type == "cuda"
-    out = torch.empty(shape, dtype=tdt, device=device)
+    out = torch.empty(region.shape, dtype=tdt, device=device)
     with _staging(total, device) as host:
         stage = torch.from_numpy(host)
         bufs = [host[off:off + nb] for off, nb in zip(offs, sizes)]
-        native.read_blobs([os.path.join(path, r["file"])
-                           for r in manifest["shards"]], bufs, nthreads)
+        native.read_blobs([os.path.join(path, r["file"]) for r in recs],
+                          bufs, nthreads)
         got = _crcs(bufs, nthreads)
-        for rec, crc in zip(manifest["shards"], got):
+        for rec, crc in zip(recs, got):
             want = rec.get("crc32")
             if want is not None and crc != want:
                 raise ValueError(
@@ -219,8 +312,12 @@ def _read(path: str, device: torch.device,
                     f"failed CRC32 verification (manifest {want}, "
                     f"read {crc}): the blob is corrupt or truncated")
         for e, off, nb in zip(exts, offs, sizes):
+            part = e.intersection(region)
+            if part is None:
+                continue
             src = stage[off:off + nb].view(tdt).view(e.shape)
-            out[e.to_slice()].copy_(src, non_blocking=on_card)
+            out[part.offset_from(region).to_slice()].copy_(
+                src[part.offset_from(e).to_slice()], non_blocking=on_card)
     return out, manifest
 
 
@@ -234,24 +331,55 @@ def _load_host(path: str, nthreads: int = 8) -> Tuple[np.ndarray,
 def load(path: str, tiling: Optional[tiling_mod.Tiling] = None,
          nthreads: int = 8) -> DistArray:
     """Read a checkpoint onto the current mesh's device, under its saved
-    tiling (sanitized for the current mesh) or ``tiling``. Every shard's
-    CRC32 is verified as read."""
+    tiling (sanitized for the current mesh) or ``tiling``. Every shard
+    that carries a CRC32 is verified as read. On a group mesh each rank
+    reads only the blobs that meet its block. A checkpoint of another
+    grid records its planned migration on the array's ``_migration``."""
+    _fire_checkpoint_fault()
     mesh = mesh_mod.get_mesh()
-    t, manifest = _read(path, mesh.device, nthreads)
+    manifest = _read_manifest(path)
+    shape = tuple(int(s) for s in manifest["shape"])
+    saved_axes = _axes_from_json(manifest["tiling"])
     if tiling is None:
-        tiling = tiling_mod.sanitize(
-            tiling_mod.Tiling(_axes_from_json(manifest["tiling"])),
-            t.shape, mesh)
-    return DistArray(t, tiling, mesh)
+        tiling = tiling_mod.sanitize(tiling_mod.Tiling(saved_axes), shape,
+                                     mesh)
+    if mesh.is_group:
+        blk, _ = _read(path, mesh.device, nthreads, manifest,
+                       tiling.block_extent(shape, mesh))
+        arr = DistArray.from_local(blk, tiling, shape, mesh)
+    else:
+        t, _ = _read(path, mesh.device, nthreads, manifest)
+        arr = DistArray(t, tiling, mesh)
+    saved_mesh = {k: int(v) for k, v in (manifest.get("mesh") or {}).items()}
+    cur_mesh = {k: int(v) for k, v in mesh.shape.items()}
+    if saved_mesh and saved_mesh != cur_mesh:
+        from ..parallel import redistribute as redist_mod
+
+        dec = redist_mod.plan_transition(
+            tiling_mod.Tiling(saved_axes), arr.tiling, saved_mesh,
+            cur_mesh, shape, arr.dtype)
+        arr._migration = {
+            "route": "restore", "bytes": int(dec.bytes),
+            "schedule": (dec.schedule.describe()
+                         if dec.schedule is not None else None),
+            "planned_route": dec.route, "reason": dec.reason,
+            "shape": shape, "src_tiling": saved_axes,
+            "dst_tiling": arr.tiling.axes, "src_mesh": saved_mesh,
+            "dst_mesh": cur_mesh,
+        }
+    return arr
 
 
 def save_tree(path: str, arrays: Dict[str, Any], nthreads: int = 8) -> None:
-    """Save a named collection (an application's state dict)."""
+    """Save a named collection (an application's state dict). On a group
+    mesh every rank writes its blobs (``save`` barriers per array) and
+    rank 0 alone writes ``tree.json``."""
     os.makedirs(path, exist_ok=True)
     for name, arr in arrays.items():
         save(os.path.join(path, name), arr, nthreads)
-    with open(os.path.join(path, "tree.json"), "w") as f:
-        json.dump({"names": sorted(arrays)}, f)
+    if mesh_mod.get_mesh().rank == 0:
+        with open(os.path.join(path, "tree.json"), "w") as f:
+            json.dump({"names": sorted(arrays)}, f)
 
 
 def load_tree(path: str, nthreads: int = 8) -> Dict[str, DistArray]:

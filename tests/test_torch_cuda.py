@@ -1203,3 +1203,107 @@ def test_one_rank_nccl_group_local_storage(card, tmp_path):
         assert after[key] == before[key], key
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_chaos_on_the_card_retries_degrades_and_rebuilds(card, tmp_path):
+    """The resilience ladder on the card: a transient fault is retried
+    (the k-means kernel still runs every iteration, centers bit-equal),
+    an injected OOM takes the finer_tiling rung, and a device loss
+    rebuilds the logical (4, 2) mesh to (7, 1) and resumes the
+    checkpointed loop bit-equal to a clean resume on (7, 1)."""
+    import json
+    import shutil
+
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import loop_ckpt
+
+    pts, c0 = _clustered(65536, 128, 16, seed=15)
+    prev = mesh_mod.get_default_device()
+    keep = loop_ckpt._KEEP_SNAPSHOTS
+    mesh_mod.set_default_device(card)
+    loop_ckpt._KEEP_SNAPSHOTS = 16
+    try:
+        with mesh_mod.use_mesh(mesh_mod.build_mesh((4, 2), card)):
+            p = st.from_numpy(pts)
+
+            def run(path, points=p, **kw):
+                return st.loop(20, lambda c: km.kmeans_step(points, c, 16),
+                               st.from_numpy(c0), checkpoint_every=5,
+                               checkpoint_path=path, **kw)
+
+            ref = run(str(tmp_path / "clean")).glom()
+            launches = kk.LAUNCHES
+            with st.chaos("transient@1"):
+                got = run(str(tmp_path / "t")).glom()
+            assert kk.LAUNCHES == launches + 20
+            np.testing.assert_array_equal(got, ref)
+            with st.chaos("oom@1"):
+                out = run(str(tmp_path / "o"))
+                got = out.glom()
+            assert out._resilience["rung"] == "finer_tiling"
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+            loss = tmp_path / "loss"
+            with st.chaos("device_loss@2"):
+                got = run(str(loss)).glom()
+            assert dict(mesh_mod.get_mesh().shape) == {"x": 7, "y": 1}
+            ref_dir = tmp_path / "ref"
+            shutil.copytree(loss, ref_dir)
+            for d in os.listdir(ref_dir):
+                if d.startswith("step_") and int(d[5:]) > 10:
+                    shutil.rmtree(ref_dir / d)
+            (ref_dir / "LATEST.json").write_text(
+                json.dumps({"step": 10, "dir": "step_00000010"}))
+            p2 = st.from_numpy(pts)
+            launches = kk.LAUNCHES
+            ref2 = run(str(ref_dir), points=p2, resume=str(ref_dir)).glom()
+            assert kk.LAUNCHES == launches + 10
+            np.testing.assert_array_equal(got, ref2)
+    finally:
+        st.chaos_clear()
+        loop_ckpt._KEEP_SNAPSHOTS = keep
+        mesh_mod.reset_epoch_for_tests()
+        mesh_mod.set_default_device(prev)
+
+
+@pytest.mark.cuda
+def test_real_out_of_memory_is_classified_oom(card):
+    """An allocation larger than the card inside an
+    evaluate raises torch.cuda.OutOfMemoryError, which the classifier
+    calls oom and the ladder recovers; the next evaluate succeeds."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import classify as cls
+
+    prev = mesh_mod.get_default_device()
+    mesh_mod.set_default_device(card)
+    armed = [True]
+    caught = []
+
+    def grab(t):
+        if armed[0] and t.device.type != "meta":
+            armed[0] = False
+            # larger than the card, so larger than its free memory and
+            # the allocator's cache
+            _, total = torch.cuda.mem_get_info(t.device)
+            try:
+                torch.empty(total + (1 << 30), dtype=torch.uint8,
+                            device=t.device)
+            except torch.cuda.OutOfMemoryError as e:
+                caught.append(cls.classify(e))
+                raise
+        return t + 1.0
+
+    try:
+        x = np.arange(64, dtype=np.float32).reshape(8, 8)
+        e = st.map(grab, st.from_numpy(x))
+        np.testing.assert_array_equal(e.glom(), x + 1.0)
+        assert caught == ["oom"]
+        assert e._resilience["faults"][0]["class"] == "oom"
+        assert e._resilience["rung"] == "finer_tiling"
+        np.testing.assert_array_equal(
+            st.map(grab, st.from_numpy(x)).glom(), x + 1.0)
+    finally:
+        mesh_mod.set_default_device(prev)

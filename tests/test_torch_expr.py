@@ -419,6 +419,9 @@ def test_port_imports_no_jax():
     for mod in ("array/masked.py", "utils/checkpoint.py", "utils/log.py",
                 "expr/fio.py", "native/__init__.py",
                 "resilience/classify.py", "resilience/loop_ckpt.py",
+                "resilience/faults.py", "resilience/engine.py",
+                "resilience/degrade.py", "resilience/elastic.py",
+                "utils/recovery.py",
                 "examples/streaming.py", "obs/__init__.py",
                 "obs/metrics.py", "obs/trace.py", "utils/profiling.py",
                 "parallel/redistribute.py", "expr/tiling_cost.py",

@@ -427,7 +427,7 @@ CLASSIFY = [
     (RuntimeError("UNAVAILABLE: connection"), "transient"),
     (RuntimeError("DEADLINE_EXCEEDED"), "transient"),
     (RuntimeError("NCCL error: remote process exited or there was a "
-                  "network error"), "transient"),
+                  "network error"), "fatal_mesh"),
     (RuntimeError("integrity violation in shard 3"), "sdc"),
     (ValueError("shape mismatch"), "deterministic"),
     (TypeError("bad operand"), "deterministic"),
@@ -444,7 +444,7 @@ def test_classify_table(exc, kind):
 def test_classify_agrees_with_jax_on_shared_message_forms():
     for exc, kind in CLASSIFY:
         if isinstance(exc, cls_t.FatalMeshError) or "CUDA" in str(exc) \
-                or "cuda" in str(exc) or isinstance(
+                or "cuda" in str(exc) or "NCCL" in str(exc) or isinstance(
                     exc, torch.cuda.OutOfMemoryError):
             continue  # torch's own forms
         assert cls_j.classify(exc) == kind, exc
