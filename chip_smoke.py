@@ -86,6 +86,22 @@ Phases, in order; any failure exits nonzero before the result line:
     ``optimize``, ``build``, ``dispatch``) of one ``st.histogram`` call
     and one VGG-block forward from the span ring, exported as a Chrome
     trace and parsed back;
+18a. ``[obs]``: observability on config 3 (the ``[kmeans]`` points) on
+    a logical (4, 2) mesh: ``st.explain`` of one ``kmeans_step`` (the
+    kernel node on ``cuda``, the committed tilings, the counted
+    ``cost_analysis`` whose kernel share must equal ``[kmeans]``'s
+    count) and of the 4096^2 chain's first miss; ``st.profile`` of the
+    step in the capture and replay tiers (the k-means node within 25% of
+    ``[kmeans]``'s CUDA-event time; the captures, of the step and of the
+    VGG forward, in a young child process, which must answer from the
+    profiler's device records) and of the VGG forward (each
+    ``conv_block`` in its node within 25% of the ``[stencil]`` time);
+    ``st.audit`` clean and with one planted NaN (named at its leaf);
+    ``st.loop(health=True)`` over 20 iterations (20 launches, bit-equal,
+    a 20-long series) and ``early_exit`` at a ``stall_tol`` set from that
+    series; config-3 iterations/s with trace + metrics + ledger on
+    against off (at most 5% apart) and at ``profile_sample_every=10``;
+    a calibration from the ledger (one plan miss, bit-equal);
 19. ``[spmd]``: the explicit SPMD layer. On the thread runner
     (``parallel/shard_map.py``, one thread per position of a logical
     mesh): ``dot_shardmap`` of bench.py's 4096^2 pair on (4, 2) against
@@ -153,8 +169,9 @@ Phases, in order; any failure exits nonzero before the result line:
 ``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
 ``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK``,
 ``--local-child DIR RANK`` and ``--elastic-child DIR RANK`` one rank of
-``[spmd]``'s, ``[local]``'s and ``[elastic_group]``'s groups; they are
-not meant to be run by hand.
+``[spmd]``'s, ``[local]``'s and ``[elastic_group]``'s groups, and
+``--obs-child DIR`` the process of ``[obs]``'s captures; they are not
+meant to be run by hand.
 
 Imports torch, numpy and the port only.
 """
@@ -171,6 +188,8 @@ import time
 
 import numpy as np
 import torch
+
+_T_IMPORT = time.perf_counter()  # the process's age, less its start-up
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # FP32 outside the tensor cores, HBM bandwidth, TF32 on the tensor cores.
@@ -560,8 +579,9 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
         lambda: kk.assign_accumulate_plain(p, c0, KM_K, KM_N), 20)
     lib_ms = _event_ms(lambda: _library(p, c0, KM_K, KM_N), 20)
     flops_peak, bw_peak = _peaks(card)
-    ops = 2.0 * KM_N * KM_K * KM_D + KM_N * KM_D
-    nbytes = 4.0 * (KM_N * KM_D + KM_K * KM_D + KM_K * KM_D + KM_K)
+    # the kernel's own count (kernels/kmeans.cost), which st.explain's
+    # cost_analysis reports for the k-means node too
+    ops, nbytes = kk.cost(KM_N, KM_D, KM_K)
     t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
     bound_ms = max(t_ops, t_bytes)
     _say(f"[kmeans] {ips:.2f} iters/s ({KM_ITERS}-iteration loop, best of 3); "
@@ -576,6 +596,7 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "nbytes": nbytes, "loop_ips": loop_ips,
             "points": points, "padded": p, "c0": c0_np, "ref": centers}
 
 
@@ -1699,9 +1720,9 @@ def phase_vgg(st, kk, kst, card: str, dev) -> dict:
         wc = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         lib = _event_ms(lambda: F.conv2d(xc, wc), 10)
-        ho, wo = blocks.shape[2] - kh + 1, blocks.shape[3] - kw + 1
-        flops = 2.0 * p * n * ho * wo * o * kh * kw * c
-        nbytes = 4.0 * (blocks.numel() + w.numel() + p * n * ho * wo * o)
+        # the launch's own count (kernels/stencil.cost), which
+        # st.explain's cost_analysis reports for the stencil node too
+        flops, nbytes = kst.cost(tuple(blocks.shape), tuple(w.shape))
         # f32-accurate operations: FP32 FMAs on the CUDA cores, or on the
         # tensor-core route three TF32 products per product (3xTF32)
         route = kst.route(c)
@@ -1724,6 +1745,8 @@ def phase_vgg(st, kk, kst, card: str, dev) -> dict:
         del blocks, flat, xc
     res = dict(per_width[-1])
     res["launches"] = launches
+    # [obs] profiles this forward: its inputs and each width's kernel ms
+    res["conv_ms"] = [pw["ms"] for pw in per_width]
     return res
 
 
@@ -4506,6 +4529,379 @@ def phase_elastic_group(st, card: str, workdir: str) -> dict:
             "survivor_its": its, "exit_s": exit_s}
 
 
+# -- phase [obs] ----------------------------------------------------------
+
+
+def _within(label: str, got: float, want: float, tol: float) -> None:
+    """Fail unless ``got`` is within ``tol`` (relative) of ``want``."""
+    rel = abs(got - want) / want
+    _say(f"[obs] {label}: {got:.4f} ms against {want:.4f} ms "
+         f"({100.0 * rel:.1f}% off; limit +/-{100.0 * tol:.0f}%)")
+    if not rel <= tol:
+        _fail(f"[obs] {label} is {100.0 * rel:.1f}% off its CUDA-event "
+              f"time")
+
+
+# how far a replay's per-node times may sum past its measured walk: each
+# node and the walk are timed apart with CUDA events, best of 3, and a
+# kernel's time spreads by about 1% from call to call on the card; a
+# capture's kernels lie inside its walk, so its sum is held to the wall
+REPLAY_SUM_TOL = 0.05
+
+
+def _kernel_ms(prof: dict, node_prefix: str, names) -> list:
+    """Per node of ``prof`` (``DeviceProfile.to_dict()``) whose label
+    starts with ``node_prefix``, in walk order: the ms of its device
+    events whose name contains one of ``names`` (the capture tier: the
+    kernels the wrapper launches), else the node's ms (the replay
+    tier)."""
+    out = []
+    for n in sorted((n for n in prof["nodes"]
+                     if n["node"].startswith(node_prefix)),
+                    key=lambda n: n.get("topo", 0)):
+        ks = n.get("kernels")
+        if ks:
+            out.append(sum(s for k, s in ks.items()
+                           if any(p in k for p in names)) * 1e3)
+        else:
+            out.append(n["seconds"] * 1e3)
+    return out
+
+
+def _show_profile(prof: dict, label: str, top: int = 4) -> None:
+    """Print a profile's top nodes and hold its per-node sum to its wall
+    (exactly for a capture, within ``REPLAY_SUM_TOL`` for a replay)."""
+    rows = ", ".join(f"{n['node']} {n['seconds'] * 1e3:.4f} ms"
+                     for n in prof["nodes"][:top])
+    tol = REPLAY_SUM_TOL if prof["tier"] == "replay" else 0.0
+    _say(f"[obs] {label} profile [{prof['tier']}]: wall "
+         f"{prof['wall_s'] * 1e3:.4f} ms, attributed "
+         f"{prof['attributed_s'] * 1e3:.4f} ms "
+         f"({100.0 * prof['attributed_fraction']:.1f}%, past the wall by "
+         f"{prof['excess_s'] * 1e3:.4f} ms; limit {100.0 * tol:.0f}% of "
+         f"the wall); top: {rows}"
+         + (f"; note: {prof['note']}" if prof["note"] else ""))
+    # node seconds are kept to the nanosecond (DeviceProfile rounds them)
+    if prof["excess_s"] > tol * prof["wall_s"] + 1e-9 * len(prof["nodes"]):
+        _fail(f"[obs] {label}: the per-node sum exceeds the wall time")
+
+
+def _capture_dict(prof, capture_s: float, age_s: float) -> dict:
+    """A capture's report for the parent: the profile's fields, how many
+    device events it joined, its host cost and the process's age."""
+    return dict(prof.to_dict(), events=len(prof.events),
+                capture_s=capture_s, age_s=age_s)
+
+
+def obs_child(workdir: str) -> None:
+    """The ``[obs]`` phase's captures in a young process, where the
+    profiler keeps the device records (PERF.md section 7): one config-3
+    ``kmeans_step`` on ``RES_MESH`` and the VGG-16 block-1 forward on
+    ``VGG_MESH``, each through ``st.profile(tier="capture")``, their
+    reports written to ``workdir/obs.json``."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.examples import kmeans as km
+
+    dev = _child_device()
+    st.set_default_device(dev)
+    pts_np, c0_np, _ = _data(KM_N, KM_D, KM_K, "clustered", 0)
+    points = st.from_numpy(pts_np)
+    c0 = st.from_numpy(c0_np)
+    out = {}
+    with st.use_mesh(st.build_mesh(RES_MESH)):
+        step = km.kmeans_step(points, c0, KM_K)
+        step.evaluate()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = st.profile(step, tier="capture")
+        out["kmeans"] = _capture_dict(prof, time.perf_counter() - t0,
+                                      t0 - t_start)
+    x, params = _vgg_params(dev)
+    X = from_tensor(x, tiling=st.Tiling((None, "x", None, None)))
+    P = [(from_tensor(w), from_tensor(b)) for w, b in params]
+    with st.use_mesh(st.build_mesh(VGG_MESH)):
+        vgg_block1(st, X, P).evaluate()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = st.profile(vgg_block1(st, X, P), tier="capture")
+        out["vgg"] = _capture_dict(prof, time.perf_counter() - t0,
+                                   t0 - t_start)
+    with open(os.path.join(workdir, "obs.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _obs_captures() -> dict:
+    """Run :func:`obs_child` and return its reports."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--obs-child",
+             workdir], capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            _fail(f"[obs] the capture child exited {res.returncode}: "
+                  f"{(res.stdout + res.stderr)[-2000:]}")
+        with open(os.path.join(workdir, "obs.json")) as f:
+            caps = json.load(f)
+        _say(f"[obs] the capture child ran in "
+             f"{time.perf_counter() - t0:.1f} s; its captures at "
+             f"{caps['kmeans']['age_s']:.1f} s and "
+             f"{caps['vgg']['age_s']:.1f} s of its age")
+        return caps
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _hold_capture(cap: dict, label: str) -> None:
+    """Fail unless the capture tier answered from the profiler's device
+    records: tier 'capture', no note, device events joined."""
+    if cap["tier"] != "capture" or cap["note"] is not None or \
+            not cap["events"]:
+        _fail(f"[obs] {label}: the capture tier did not answer from the "
+              f"profiler's device records: tier {cap['tier']}, note "
+              f"{cap['note']}, {cap['events']} device events")
+
+
+def _loop_ips(st, km, points, c0, reps: int = 3) -> float:
+    """Config-3 iterations per second of one 20-iteration st.loop
+    evaluation (host clock to a synchronise), best of ``reps``."""
+    ms = _wall_ms(lambda: st.loop(KM_ITERS, lambda c: km.kmeans_step(
+        points, c, KM_K), c0).evaluate(), reps=reps)
+    return KM_ITERS / (ms / 1e3)
+
+
+def phase_obs(st, kk, km, card: str, kmr: dict, vggr: dict) -> None:
+    """Observability and static analysis on the card: st.explain with
+    its counted cost, st.profile in both tiers, st.audit, the loop's
+    health series and early exit, the instrumentation's cost, and a
+    calibration from the ledger."""
+    from spartan_tpu_torch.obs import ledger as led
+    from spartan_tpu_torch.obs import numerics as num
+    from spartan_tpu_torch.obs import profile as oprof
+    from spartan_tpu_torch.utils import profiling as prof
+
+    t_phase = time.perf_counter()
+    points = kmr["points"]
+    c0 = st.from_numpy(kmr["c0"])
+    flags = st.FLAGS
+    with st.use_mesh(st.build_mesh(RES_MESH)):
+        # -- explain: the kernel node, the tilings, the counted cost
+        rep = st.explain(km.kmeans_step(points, c0, KM_K))
+        kern = [k for k in rep.kernels or () if k["op"] == "kmeans"]
+        _say(f"[obs] explain kmeans_step on {RES_MESH}: kernel nodes "
+             f"{rep.kernels}; tilings "
+             f"{[(t['node'], t['tiling']) for t in rep.tilings]}")
+        if [k["backend"] for k in kern] != ["cuda"]:
+            _fail(f"[obs] the k-means step's kernel node is not on the "
+                  f"cuda backend: {rep.kernels}")
+        ca = rep.cost_analysis
+        node = [n for n in ca["nodes"] if "kernel" in n]
+        _say(f"[obs] cost_analysis: {ca['flops']:.6g} FLOPs, "
+             f"{ca['bytes accessed']:.6g} bytes per device of "
+             f"{ca['devices']}; program {ca['program']['flops']:.6g} FLOPs,"
+             f" {ca['program']['bytes accessed']:.6g} bytes; kernel node "
+             f"{node[0]['kernel'] if node else None} against [kmeans]'s "
+             f"ops {kmr['ops']!r} nbytes {kmr['nbytes']!r} (limit: equal)")
+        if len(node) != 1 or node[0]["kernel"]["flops"] != kmr["ops"] or \
+                node[0]["kernel"]["bytes accessed"] != kmr["nbytes"]:
+            _fail("[obs] the k-means node's cost_analysis is not the "
+                  "kernel's count")
+        rng = np.random.RandomState(0)
+        ea = st.from_numpy(rng.rand(DOT_N, DOT_N).astype(np.float32))
+        eb = st.from_numpy(rng.rand(DOT_N, DOT_N).astype(np.float32))
+        drep = st.explain(_build_chain(st, ea, eb, DOT_K))
+        _say(f"[obs] explain of the {DOT_N}^2 dot chain [cache "
+             f"{drep.cache}]: passes "
+             f"{[(p['name'], p['nodes_before'], p['nodes_after']) for p in drep.passes]}"
+             f"; dp_cost {drep.dp_cost!r} {drep.cost_components}")
+        if drep.cache != "miss" or not drep.passes:
+            _fail("[obs] the dot chain's explain is not a first miss")
+
+    # -- profile: the kernel node's device ms in both tiers; the
+    # captures run in a young child process
+    caps = _obs_captures()
+    with st.use_mesh(st.build_mesh(RES_MESH)):
+        step = km.kmeans_step(points, c0, KM_K)
+        t0 = time.perf_counter()
+        prep = st.profile(step, tier="replay").to_dict()
+        rep_s = time.perf_counter() - t0
+        walk_ms = _wall_ms(lambda: km.kmeans_step(points, c0,
+                                                  KM_K).evaluate())
+        # what answers in this aged process (a report, not a check)
+        aged = st.profile(step, tier="auto")
+        _say(f"[obs] the step profiled with tier='auto' in this process "
+             f"at {time.perf_counter() - _T_IMPORT:.1f} s of its age: the "
+             f"{aged.tier} tier answered, {len(aged.events)} device events "
+             f"joined")
+    pcap, pv = caps["kmeans"], caps["vgg"]
+    _say(f"[obs] host time of a capture: the child's first (the step, "
+         f"the profiler's start-up in the process included) "
+         f"{pcap['capture_s'] * 1e3:.1f} ms, its second (the VGG forward) "
+         f"{pv['capture_s'] * 1e3:.1f} ms; a replay of the step "
+         f"{rep_s * 1e3:.1f} ms, against {walk_ms:.4f} ms for one step "
+         f"evaluated")
+    _hold_capture(pcap, "kmeans_step")
+    for p, label in ((pcap, "capture"), (prep, "replay")):
+        _show_profile(p, f"kmeans_step ({label})")
+        # the wrapper's two launches, which [kmeans]'s CUDA events
+        # time together
+        got = _kernel_ms(p, "KMeansStepExpr",
+                         ("assign_accumulate", "reduce_partials"))
+        if len(got) != 1:
+            _fail(f"[obs] the {label} tier did not attribute the "
+                  f"k-means node: {p['nodes']}")
+        _within(f"kmeans node ({label} tier)", got[0], kmr["ms"], 0.25)
+    _hold_capture(pv, "VGG-16 block 1 forward")
+    _show_profile(pv, "VGG-16 block 1 forward", top=6)
+    convs = _kernel_ms(pv, "StencilExpr", ("conv_kernel",
+                                           "conv_mma_kernel"))
+    if len(convs) != 2:
+        _fail(f"[obs] the VGG profile holds {len(convs)} conv nodes")
+    for got, want, name in zip(convs, vggr["conv_ms"],
+                               ("conv1_1", "conv1_2")):
+        _within(f"{name} conv_block in its StencilExpr node", got,
+                want, 0.25)
+    other = pv["wall_s"] * 1e3 - sum(convs)
+    _say(f"[obs] VGG forward outside the two conv kernels: "
+         f"{other:.4f} ms of its {pv['wall_s'] * 1e3:.4f} ms device wall")
+
+    with st.use_mesh(st.build_mesh(RES_MESH)):
+        # -- audit: clean points, then one NaN in a copy of them
+        ms_plain = _wall_ms(lambda: km.kmeans_step(points, c0,
+                                                   KM_K).evaluate())
+        arep = st.audit(km.kmeans_step(points, c0, KM_K))
+        ms_audit = _wall_ms(lambda: st.audit(km.kmeans_step(points, c0,
+                                                            KM_K)))
+        _say(f"[obs] audit of the clean step: {len(arep.records)} health "
+             f"words, ok={arep.ok}; audited step {ms_audit:.4f} ms against "
+             f"{ms_plain:.4f} ms plain")
+        if not arep.ok or not arep.records:
+            _fail("[obs] the clean k-means step audits unhealthy")
+        from spartan_tpu_torch.array.distarray import from_tensor
+
+        bad_t = points.value.tensor.clone()
+        bad_t[KM_N // 8 + 1, 17] = float("nan")
+        bad = st.as_expr(from_tensor(bad_t))
+        brep = st.audit(km.kmeans_step(bad, c0, KM_K))
+        fb = brep.first_bad
+        want = f"ValExpr#{bad._id}"
+        _say(f"[obs] audit with one NaN planted: first_bad "
+             f"{fb and fb['node']} (want {want}), nan_count "
+             f"{fb and fb['nan_count']}")
+        if fb is None or fb["node"] != want or fb["nan_count"] != 1:
+            _fail("[obs] the planted NaN was not named at its leaf")
+        del bad_t, bad
+
+        # -- the loop's health series over 20 k-means iterations
+        def km_loop(n, **kw):
+            return st.loop(n, lambda c: km.kmeans_step(points, c, KM_K),
+                           c0, **kw)
+
+        _reset_counts(kk)
+        hl = km_loop(KM_ITERS, health=True)
+        hc = hl.glom()
+        launches = kk.LAUNCHES
+        series = num.loop_health(hl.loop.label)
+        plain = km_loop(KM_ITERS).glom()
+        _say(f"[obs] st.loop(health=True) over {KM_ITERS} iterations: "
+             f"{launches} launches (want {KM_ITERS}), series of "
+             f"{len(series)}, carries bit-equal to health=False: "
+             f"{np.array_equal(_bits(hc), _bits(plain))}; update norms "
+             f"{[round(r['update_norm'], 6) for r in series]}")
+        if launches != KM_ITERS or len(series) != KM_ITERS or \
+                not np.array_equal(_bits(hc), _bits(plain)):
+            _fail("[obs] the health loop is not the plain loop")
+        un = [r["update_norm"] for r in series]
+        stop = next((j for j in range(1, len(un))
+                     if un[j] * 2.0 <= min(un[:j])), None)
+        if stop is None:
+            _fail(f"[obs] no well-separated update norm in {un}")
+        tol = (min(un[:stop]) + un[stop]) / 2.0
+        _reset_counts(kk)
+        el = km_loop(KM_ITERS, early_exit=True, stall_tol=tol)
+        ec = el.glom()
+        e_launch = kk.LAUNCHES
+        e_series = num.loop_health(el.loop.label)
+        ref = km_loop(stop + 1).glom()
+        _say(f"[obs] early_exit with stall_tol {tol:.6g} (midpoint of "
+             f"{min(un[:stop]):.6g} and {un[stop]:.6g}): stopped after "
+             f"{len(e_series)} iterations (want {stop + 1}) with "
+             f"{e_launch} launches, carries bit-equal to a "
+             f"{stop + 1}-iteration loop: "
+             f"{np.array_equal(_bits(ec), _bits(ref))}")
+        if len(e_series) != stop + 1 or e_launch != stop + 1 or \
+                not np.array_equal(_bits(ec), _bits(ref)):
+            _fail("[obs] early_exit did not stop where its series says")
+
+        # -- what the instrumentation costs (config-3 iterations/s)
+        knobs = ("trace", "metrics", "cost_ledger")
+        prev = {k: getattr(flags, k) for k in knobs}
+        prev["profile_sample_every"] = flags.profile_sample_every
+
+        def setting(on: bool, ledger_only: bool = False, sample: int = 0):
+            for k in knobs:
+                setattr(flags, k, on if not ledger_only
+                        else k == "cost_ledger")
+            flags.profile_sample_every = sample
+
+        ips = {"off": 0.0, "ledger": 0.0, "all": 0.0}
+        for _ in range(3):  # alternate, best of 3
+            for name in ("off", "ledger", "all"):
+                setting(name != "off", ledger_only=name == "ledger")
+                ips[name] = max(ips[name], _loop_ips(st, km, points, c0,
+                                                     reps=1))
+        setting(True, sample=10)
+        # 11 evaluations: the 10th is sampled
+        t0 = time.perf_counter()
+        for _ in range(11):
+            st.loop(KM_ITERS, lambda c: km.kmeans_step(points, c, KM_K),
+                    c0).evaluate()
+        torch.cuda.synchronize()
+        sampled = (time.perf_counter() - t0) / 11
+        for k, v in prev.items():
+            setattr(flags, k, v)
+        cost = 1.0 - ips["all"] / ips["off"]
+        _say(f"[obs] config-3 iterations/s: all off {ips['off']:.2f}, "
+             f"ledger only {ips['ledger']:.2f}, trace+metrics+ledger+"
+             f"profile_sample_every=0 {ips['all']:.2f}: cost "
+             f"{100.0 * cost:.2f}% (limit 5%); profile_sample_every=10 "
+             f"{KM_ITERS / sampled:.2f} iters/s on average over 11 "
+             f"evaluations, {100.0 * (1.0 - KM_ITERS / sampled / ips['all']):.1f}"
+             f"% below all on, on {card}")
+        if cost > 0.05:
+            _fail("[obs] trace + metrics + ledger cost more than 5% of "
+                  "config-3 iterations/s")
+
+        # -- calibration from the ledger
+        fit = led.fit_profile()
+        if fit is None:
+            _fail("[obs] fit_profile found nothing in the ledger")
+        base = km_loop(KM_ITERS).glom()
+        led.set_profile(fit)
+        flags.cost_calibration = True
+        try:
+            prof.reset_counters()
+            cal = km_loop(KM_ITERS).glom()
+            misses = prof.plan_cache_stats()["plan_misses"]
+            crep = st.explain(km.kmeans_step(points, c0, KM_K), cost=False)
+        finally:
+            flags.cost_calibration = False
+            led.set_profile(None)
+        _say(f"[obs] calibration {fit} (source {fit.meta['source']}, "
+             f"{fit.meta['fitted_from_plans']} rows): {misses} plan miss "
+             f"(want 1), committed tilings "
+             f"{[(t['node'], t['tiling']) for t in crep.tilings]}, carries "
+             f"bit-equal: {np.array_equal(_bits(cal), _bits(base))}")
+        if misses != 1 or not np.array_equal(_bits(cal), _bits(base)):
+            _fail("[obs] calibration did not re-key the plan or changed "
+                  "a value")
+        oprof.reset()
+    _say(f"[obs] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def phase_spmd(st, kk, ks, km, card: str, dev, kmr: dict) -> dict:
     t0 = time.perf_counter()
     phase_spmd_threads(st, card, dev, kmr["points"], kmr["c0"])
@@ -4533,6 +4929,9 @@ def main() -> None:
         return
     if len(sys.argv) == 4 and sys.argv[1] == "--elastic-child":
         elastic_child(sys.argv[2], int(sys.argv[3]))
+        return
+    if len(sys.argv) == 3 and sys.argv[1] == "--obs-child":
+        obs_child(sys.argv[2])
         return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -4597,6 +4996,7 @@ def main() -> None:
         shutil.rmtree(workdir, ignore_errors=True)
     strr = phase_streaming(st, kk, card, dev, kmr["points"], kmr["c0"])
     phase_planner(st, kk, km, card, dev, kmr["points"], kmr["c0"])
+    phase_obs(st, kk, km, card, kmr, vggr)
     grp = phase_spmd(st, kk, ks, km, card, dev, kmr)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_local_")
     try:

@@ -44,9 +44,13 @@ from .parallel.mesh import (StaleMeshError, build_mesh,  # noqa: E402
                             rebuild_mesh, set_default_device, set_mesh,
                             use_mesh)
 from . import obs  # noqa: E402
-from .obs import (REGISTRY, Counter, Gauge, Histogram, Registry,  # noqa: E402
-                  Span, metrics, span, trace_clear, trace_events,
-                  trace_export)
+from .analysis import check, lint  # noqa: E402
+from .obs import (REGISTRY, AuditReport, CalibrationProfile,  # noqa: E402
+                  Counter, DeviceProfile, ExplainReport, Gauge, Histogram,
+                  Registry, Span, Watchpoint, audit, dump_crash, explain,
+                  fit_profile, load_profile, loop_health, metrics,
+                  profile_export, save_profile, span, trace_clear,
+                  trace_events, trace_export, unwatch, watch)
 from . import resilience  # noqa: E402
 from .resilience.classify import FatalMeshError  # noqa: E402
 from .resilience.faults import ChaosPlan, chaos, chaos_clear  # noqa: E402
@@ -65,7 +69,11 @@ __all__ = (["DistArray", "SparseDistArray", "MaskedDistArray", "TileExtent",
             "stencil", "maxpool", "avgpool",
             "obs", "profiling", "metrics", "trace_export", "trace_events",
             "trace_clear", "span", "Span", "REGISTRY", "Registry",
-            "Counter", "Gauge", "Histogram"]
+            "Counter", "Gauge", "Histogram", "check", "lint", "explain",
+            "ExplainReport", "ledger", "CalibrationProfile", "fit_profile",
+            "save_profile", "load_profile", "profile", "profile_export",
+            "DeviceProfile", "audit", "AuditReport", "watch", "unwatch",
+            "Watchpoint", "loop_health", "dump_crash"]
            + list(_expr_all))
 
 
@@ -86,3 +94,20 @@ def shutdown():
     """Clear the ambient mesh, and destroy the process group when
     ``initialize`` created it."""
     _mesh.shutdown()
+
+
+def ledger(validate=False):
+    """The cost ledger: per-plan predicted-vs-measured ratios of the
+    tiling DP, per-model aggregates and drift counts, and the active
+    calibration state (``obs/ledger.snapshot``)."""
+    return obs.ledger_snapshot(validate=validate)
+
+
+def profile(expr, tier=None, reps=None):
+    """Device-time attribution: one profiled walk of ``expr``'s plan,
+    per-expr-node device seconds keyed by each node's structural
+    digest, next to the tiling DP's modeled cost. ``tier``: 'auto'
+    (default) tries the ``torch.profiler`` capture and falls back to
+    replay; 'capture' / 'replay' force one. Continuous sampling:
+    ``FLAGS.profile_sample_every = N``."""
+    return obs.profile.profile(expr, tier=tier, reps=reps)

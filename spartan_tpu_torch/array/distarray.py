@@ -294,6 +294,30 @@ class DistArray:
         return dtypes.to_host(coll.combine_owned(
             out, self.mesh.axis_names, self.mesh))
 
+    # -- data health (obs/numerics.py, the numerics sentinel) -----------
+
+    def health(self) -> dict:
+        """One-shot device-side health word: NaN/Inf counts, absmax, zero
+        fraction (a few reductions on the device and one read back)."""
+        from ..obs import numerics
+
+        return numerics.array_health(self)
+
+    def tile_health(self) -> list:
+        """Per-tile (per logical shard) health stats — names the
+        poisoned tile, not just the array."""
+        from ..obs import numerics
+
+        return numerics.tile_stats(self)
+
+    def watch(self, label: Optional[str] = None):
+        """Install a persistent numerics watchpoint on this array
+        (``st.watch(arr)``): checked now, after every ``evaluate()``, and
+        via ``.check()`` / ``.update(new_arr)``."""
+        from ..obs import numerics
+
+        return numerics.watch(self, label)
+
     @property
     def is_first_copy(self) -> bool:
         """True at the first position along every mesh axis that does

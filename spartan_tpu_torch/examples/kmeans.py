@@ -96,6 +96,18 @@ class KMeansStepExpr(Expr):
         return ("kmeans_step", self.k, ctx.of(self.points),
                 ctx.of(self.centers))
 
+    def cost(self) -> Dict[str, float]:
+        """The fused pass's own count (``kernels/kmeans.cost``, under
+        ``kernel``) plus the division: k·d FLOPs reading the (k, d) sums
+        and (k,) counts and writing the (k, d) centers."""
+        n, d = self.points.shape
+        k = self.k
+        kf, kb = kmeans_kernel.cost(n, d, k)
+        return {"flops": kf + float(k * d), "transcendentals": 0.0,
+                "bytes accessed": kb + 4.0 * (2 * k * d + k),
+                "kernel": {"name": "kmeans_assign_accumulate",
+                           "flops": kf, "bytes accessed": kb}}
+
     def _default_tiling(self) -> Tiling:
         return tiling_mod.replicated(2)
 

@@ -58,7 +58,11 @@ from ..array import tiling as tiling_mod
 from ..array.distarray import DistArray
 from ..array.tiling import Tiling
 from ..kernels import registry as kernels_mod
+from ..obs import ledger as ledger_mod
+from ..obs import numerics as numerics_mod
+from ..obs import profile as profile_mod
 from ..obs import trace as trace_mod
+from ..obs.explain import build_plan_report, scope_digest_table
 from ..parallel import mesh as mesh_mod
 from ..parallel import redistribute as redistribute_mod
 from ..resilience import degrade as degrade_mod
@@ -89,6 +93,20 @@ def _user_site() -> Optional[Tuple[str, int, str]]:
 class ExprError(RuntimeError):
     """Evaluation error annotated with the user line that built the
     failing expression."""
+
+
+def nbytes_of(e: "Expr") -> float:
+    """Bytes of one node's value (size x itemsize)."""
+    return float(e.size) * np.dtype(e.dtype).itemsize
+
+
+def io_bytes(inputs: Sequence["Expr"], out: Optional["Expr"]) -> float:
+    """Bytes a node reads and writes: each distinct input once (a scalar
+    leaf at its itemsize, as XLA counts a scalar parameter), its output
+    once."""
+    seen = {c._id: c for c in inputs}
+    return (sum(nbytes_of(c) for c in seen.values())
+            + (nbytes_of(out) if out is not None else 0.0))
 
 
 def fn_key(fn: Any) -> Any:
@@ -174,14 +192,13 @@ class Expr:
         the rank's block (a tuple of them for a multi-output node)."""
         if self._id not in env:
             try:
-                val = (self._lower_local(env) if self._lower_local is not None
-                       else NotImplemented)
-                if val is NotImplemented:
-                    prev, env.site = env.site, type(self).__name__
-                    try:
-                        val = _wrap_whole(self._lower(env), self, env.mesh)
-                    finally:
-                        env.site = prev
+                if _ANNOTATE_FLAG._value and trace_mod.profiler_active():
+                    # each rank's profile attributes its kernels to the
+                    # node, as Expr.lower's range does
+                    with trace_mod.named_scope(profile_mod.scope_name(self)):
+                        val = self._lower_local_value(env)
+                else:
+                    val = self._lower_local_value(env)
             except Exception as e:
                 if self._site and not getattr(e, "_expr_annotated", False):
                     e._expr_annotated = True
@@ -192,8 +209,24 @@ class Expr:
             if self._forced_tiling is not None and isinstance(val,
                                                               DistArray):
                 val = redistribute_mod.relayout(val, self._forced_tiling)
+            if numerics_mod._PROBING:
+                # numerics sentinel: the rank's block's health word
+                numerics_mod.probe(self, val)
             env[self._id] = val
         return env[self._id]
+
+    def _lower_local_value(self, env: "GroupEnv") -> Any:
+        """The node's local rule, or its whole lowering kept as the
+        rank's block where it has none."""
+        val = (self._lower_local(env) if self._lower_local is not None
+               else NotImplemented)
+        if val is NotImplemented:
+            prev, env.site = env.site, type(self).__name__
+            try:
+                val = _wrap_whole(self._lower(env), self, env.mesh)
+            finally:
+                env.site = prev
+        return val
 
     def lower(self, env: Dict[int, Any]) -> Any:
         if type(env) is GroupEnv:
@@ -204,9 +237,10 @@ class Expr:
                 if _ANNOTATE_FLAG._value and trace_mod.profiler_active():
                     # device profiles attribute this node's kernels to
                     # it; a range per node costs microseconds, so only
-                    # while a profiler records
-                    with trace_mod.named_scope(
-                            f"{type(self).__name__}#{self._id}"):
+                    # while a profiler records. Inside a naming session
+                    # (st.profile) the range also carries the node's
+                    # _sig digest, the capture tier's join key
+                    with trace_mod.named_scope(profile_mod.scope_name(self)):
                         val = self._lower(env)
                 else:
                     val = self._lower(env)
@@ -217,6 +251,10 @@ class Expr:
                                f"built at {self._site[0]}:{self._site[1]} "
                                f"(in {self._site[2]})")
                 raise
+            if numerics_mod._PROBING:
+                # numerics sentinel (st.audit / FLAGS.audit_numerics): a
+                # health word of this node's value, kept on the device
+                numerics_mod.probe(self, val)
             if self._forced_tiling is not None:
                 # smart tiling chose this node's layout: the
                 # redistribution seam returns ``val`` itself unless the
@@ -241,6 +279,15 @@ class Expr:
 
     def _default_tiling(self) -> Tiling:
         raise NotImplementedError
+
+    def cost(self) -> Dict[str, float]:
+        """This node's own FLOPs and bytes accessed, counted from shapes
+        by the rules XLA's cost analysis applies (``st.explain``'s
+        ``cost_analysis``, obs/explain.py). By default a node moves data
+        and computes nothing: no FLOP, each child read once and the
+        output written once."""
+        return {"flops": 0.0, "transcendentals": 0.0,
+                "bytes accessed": io_bytes(self.children(), self)}
 
     # -- evaluation -----------------------------------------------------
 
@@ -564,6 +611,9 @@ class TupleExpr(Expr):
     def _lower_local(self, env) -> Any:
         return tuple(e.lower_local(env) for e in self.elements)
 
+    def cost(self) -> Dict[str, float]:
+        return {"flops": 0.0, "transcendentals": 0.0, "bytes accessed": 0.0}
+
     def _sig(self, ctx: "_SigCtx") -> Tuple:
         return ("tuple",) + tuple(ctx.of(e) for e in self.elements)
 
@@ -702,7 +752,7 @@ class _Plan:
     of it has succeeded (the chaos seam's ``compile`` vs ``dispatch``)."""
 
     __slots__ = ("dag", "leaf_ids", "out_tilings", "is_tuple", "arg_order",
-                 "key", "report", "warm")
+                 "key", "report", "warm", "stored", "__weakref__")
 
     def __init__(self, dag: Expr, leaf_ids: Tuple[int, ...],
                  out_tilings: Tuple[Tiling, ...], is_tuple: bool,
@@ -716,6 +766,7 @@ class _Plan:
         self.key = key
         self.report = report
         self.warm = False
+        self.stored: Optional["_Plan"] = None
 
 
 # The plan cache is an LRU shared by every thread that evaluates;
@@ -789,10 +840,19 @@ def _opt_flags_key() -> Tuple:
     ver = (config_mod.mutation_count(), len(passes))
     memo_ver, key = _opt_key_memo
     if memo_ver != ver:
+        # cost calibration re-weights the tiling DP's terms (the active
+        # profile of obs/ledger -> tiling_cost._cal_factors): a
+        # calibrated plan never aliases an uncalibrated one, and each
+        # profile keys apart by its fingerprint (set_profile writes the
+        # fingerprint flag, which moves the memo's version). The audit
+        # flag (obs/numerics) is NOT here: an audited walk runs the same
+        # plan and only adds health words beside it
+        cal = ((FLAGS.cost_calibration_fingerprint or "on")
+               if FLAGS.cost_calibration else None)
         key = (tuple(p.name for p in passes if p.enabled()),
                FLAGS.tiling_compute_weight, FLAGS.tiling_flop_weight,
                FLAGS.tiling_operand_move_weight,
-               FLAGS.tiling_memory_weight,
+               FLAGS.tiling_memory_weight, cal,
                bool(FLAGS.redistribution_planner),
                bool(FLAGS.shard_loop_carries),
                kernels_mod.policy_key())
@@ -998,22 +1058,20 @@ def _handle_failure(exc: Exception, expr: Expr, plan: _Plan,
                                  mesh)
 
 
-def _report(expr: Expr, plan_key: Optional[Tuple]) -> Dict[str, Any]:
-    from ..resilience.engine import key_hash
-
-    site = expr._site
-    return {"plan_key": key_hash(plan_key),
-            "root": f"{type(expr).__name__}#{expr._id}",
-            "site": f"{site[0]}:{site[1]}" if site else None}
-
-
 def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
          order: Tuple[int, ...], mesh,
          donated: Sequence[DistArray] = ()) -> Any:
     """Walk the plan's DAG with the leaf tensors, wrap the outputs, and
     release the donated leaves (those marked by ``donate()`` or named in
-    ``donated``) once the walk is done."""
+    ``donated``) once the walk is done.
+
+    Around the walk: the dispatch watchdog (``FLAGS.dispatch_timeout_s``),
+    and under ``FLAGS.audit_numerics`` a probe session (the leaves'
+    health words, then each node's). After it: the ``dispatch`` phase's
+    seconds into the cost ledger, the sampled profiler
+    (``FLAGS.profile_sample_every``), and the watchpoints."""
     group = mesh.is_group
+    warm = plan.warm
     with prof.phase("build"):
         if group:
             env: Dict[int, Any] = GroupEnv(mesh, (
@@ -1023,20 +1081,39 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
             env = {lid: _leaf_arg(leaves[i])
                    for lid, i in zip(plan.leaf_ids, order)}
         released = []
-        for i in order:
+        dpos = []
+        for j, i in enumerate(order):
             arr = _leaf_array(leaves[i])
             if arr is not None and (arr._donate_next or any(
-                    arr is d for d in donated)) and \
-                    not any(arr is r for r in released):
-                released.append(arr)
-    with prof.phase("dispatch"):
-        out = plan.dag.lower_local(env) if group else plan.dag.lower(env)
+                    arr is d for d in donated)):
+                dpos.append(j)
+                if not any(arr is r for r in released):
+                    released.append(arr)
+    pctx = prof.phase("dispatch")
+    with pctx, numerics_mod.watchdog("dispatch", plan.report):
+        if numerics_mod._AUDIT_FLAG._value:
+            # leaves first (a poisoned input names the LEAF, not its
+            # first consumer), then every node as its lowering returns
+            with numerics_mod.probe_session(mesh):
+                for lid, i in zip(plan.leaf_ids, order):
+                    numerics_mod.probe(leaves[i], env[lid], kind="leaf")
+                out = plan.dag.lower_local(env) if group \
+                    else plan.dag.lower(env)
+        else:
+            out = plan.dag.lower_local(env) if group else plan.dag.lower(env)
     del env
     with prof.phase("build"):
         for arr in released:
             arr._release_donated()
         if released:
             prof.count("donated_dispatches")
+        if plan.report is not None:
+            don = plan.report.get("donation")
+            if don is not None:
+                don["last_donated_args"] = dpos
+                if released:
+                    don["donated_dispatches"] = (
+                        don.get("donated_dispatches", 0) + 1)
         outs = out if plan.is_tuple else (out,)
         wrapped = []
         for o, t in zip(outs, plan.out_tilings):
@@ -1052,6 +1129,22 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
             wrapped.append(DistArray(o, t, mesh))
         result: Any = tuple(wrapped) if plan.is_tuple else wrapped[0]
         expr._result = result
+    if ledger_mod._LEDGER_FLAG._value and plan.report is not None:
+        # cost ledger: this walk's host seconds (the launches; nothing
+        # waits for the card) next to the plan's predicted DP cost
+        ledger_mod.note_dispatch(plan.report.get("plan_key"), "dispatch",
+                                 pctx.seconds)
+    if profile_mod._SAMPLE_FLAG._value > 0:
+        # sampled continuous profiling: every Nth warm walk of a plan is
+        # profiled after it, off the result path (the result above is
+        # the unprofiled walk's)
+        profile_mod.maybe_sample(expr, plan,
+                                 "dispatch" if warm else "first",
+                                 pctx.seconds, leaves, order,
+                                 bool(released), mesh)
+    if numerics_mod._WATCHPOINTS:
+        # persistent watchpoints (st.watch): re-checked after every walk
+        numerics_mod.poll_watchpoints()
     return result
 
 
@@ -1061,7 +1154,8 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
     Plan-cache hit: one raw-DAG traversal, then a walk of the cached
     optimized DAG — no optimizer rewrites, no re-signing. Miss:
     optimize, sign the optimized DAG, run it, and memoize the plan
-    under the raw signature.
+    under the raw signature (``_build_plan``, which ``st.explain`` and
+    ``st.profile`` share).
 
     ``donate``: DistArrays (or their evaluated exprs) the caller releases
     to this evaluation. Those that feed it as leaves are invalidated when
@@ -1096,49 +1190,90 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
             prof.count("plan_misses")
             esp.set(cache="miss")
 
-        from .optimize import optimize
+        if FLAGS.verify_evaluate:
+            # static sanity on the MISS path only (hits stay walk-bound):
+            # well-formedness + donation/tiling lints, raising with the
+            # user's build site before anything runs
+            from ..analysis import check as _check
 
-        with prof.phase("optimize"):
-            dag = optimize(expr)
-        if dag._result is not None:
+            with prof.phase("verify"):
+                _check(expr, donate=donated)
+
+        plan, dag, leaves = _build_plan(expr, mesh, rctx, plan_key)
+        if plan is None:
             # the optimizer collapsed the root onto an already-held result
             expr._result = dag._result
             return dag._result
-        if getattr(degrade_mod._TLS, "rung", None) in ("finer_tiling",
-                                                       "fusion_off"):
-            # the OOM ladder: the finest divisible tilings on a clone
-            degrade_mod.force_finer(dag, mesh)
-        with prof.phase("sign"):
-            ctx = _SigCtx()
-            ctx.of(dag)
-        leaves = ctx.leaves
-        is_tuple = isinstance(dag, TupleExpr)
-        if is_tuple:
-            out_tilings = dag.out_tilings()
-        else:
-            out_tilings = (tiling_mod.sanitize(dag.out_tiling(), dag.shape,
-                                               mesh),)
-        leaf_ids = tuple(leaf._id for leaf in leaves)
-        report = _report(expr, plan_key)
-        stored: Optional[_Plan] = None
-        if rctx is not None:
-            raw_order = _arg_order(rctx.leaves, leaves)
-            if raw_order is not None:
-                stored = store_plan(plan_key, _Plan(
-                    dag, leaf_ids, out_tilings, is_tuple, raw_order,
-                    plan_key, report))
-                report = stored.report
-        plan = _Plan(dag, leaf_ids, out_tilings, is_tuple,
-                     tuple(range(len(leaves))), plan_key, report)
         try:
             result = _dispatch(expr, plan, leaves, plan.arg_order, donated,
                                mesh)
         except Exception as e:
             result = _handle_failure(e, expr, plan, leaves, plan.arg_order,
                                      donated, mesh)
-        if stored is not None and plan.warm:
-            stored.warm = True
+        if plan.stored is not None and plan.warm:
+            plan.stored.warm = True
         return result
+
+
+def _build_plan(expr: Expr, mesh, rctx: Optional[_PlanSigCtx],
+                plan_key: Optional[Tuple]
+                ) -> Tuple[Optional[_Plan], Expr, Optional[List[Expr]]]:
+    """The plan-cache MISS pipeline, shared by ``evaluate()``,
+    ``st.explain`` and ``st.profile``: optimize -> sign the optimized DAG
+    -> output tilings -> the plan report -> memoize the plan under the
+    raw signature.
+
+    Returns ``(plan, dag, leaves)`` where ``plan.arg_order`` is the
+    identity over the OPTIMIZED leaves (the first run's order) and
+    ``plan.stored`` the cached plan (raw order), or None when the plan is
+    not cacheable; ``(None, dag, None)`` when the optimized DAG already
+    carries a result and there is nothing to run."""
+    from .optimize import optimize
+
+    passes_report: List[Dict[str, Any]] = []
+    with prof.phase("optimize"):
+        dag = optimize(expr, report=passes_report)
+    if dag._result is not None:
+        return None, dag, None
+    if getattr(degrade_mod._TLS, "rung", None) in ("finer_tiling",
+                                                   "fusion_off"):
+        # the OOM ladder: the finest divisible tilings on a clone
+        degrade_mod.force_finer(dag, mesh)
+    with prof.phase("sign"):
+        ctx = _SigCtx()
+        ctx.of(dag)
+    leaves = ctx.leaves
+    is_tuple = isinstance(dag, TupleExpr)
+    if is_tuple:
+        out_tilings = dag.out_tilings()
+    else:
+        out_tilings = (tiling_mod.sanitize(dag.out_tiling(), dag.shape,
+                                           mesh),)
+    leaf_ids = tuple(leaf._id for leaf in leaves)
+    raw_order: Optional[Tuple[int, ...]] = None
+    if rctx is not None:
+        raw_order = _arg_order(rctx.leaves, leaves)
+    report = build_plan_report(expr, dag, leaves, plan_key, passes_report,
+                               out_tilings, raw_order)
+    stored: Optional[_Plan] = None
+    if rctx is not None:
+        if raw_order is not None:
+            # the winner of a store race is what later lookups see
+            stored = store_plan(plan_key, _Plan(
+                dag, leaf_ids, out_tilings, is_tuple, raw_order, plan_key,
+                report))
+            report = stored.report
+        else:
+            prof.count("plan_uncacheable")
+    plan = _Plan(dag, leaf_ids, out_tilings, is_tuple,
+                 tuple(range(len(leaves))), plan_key, report)
+    plan.stored = stored
+    # cost ledger: this plan's predictions (DP cost + per-class
+    # components), so measured walks land next to them. Miss path only
+    ledger_mod.note_plan(stored if stored is not None else plan)
+    # the digest -> node table, computed LAST, from the final node state
+    report["scope_digests"] = scope_digest_table(dag)
+    return plan, dag, leaves
 
 
 _eval_shape_cache: Dict[Tuple, Any] = {}

@@ -970,6 +970,19 @@ def _hist_expand(lo: torch.Tensor, hi: torch.Tensor):
             torch.where(hi > lo, hi, hi + 0.5))
 
 
+def _hist_guard_range(lo: torch.Tensor, hi: torch.Tensor) -> None:
+    """np.histogram raises on a non-finite autodetected range; the range
+    is found on the device inside the walk, so the check rides the
+    numerics sentinel (``obs/numerics.guard_finite``): under ``st.audit``
+    a non-finite range raises numpy's ``ValueError``, and otherwise the
+    guard costs a None check. Module level: a per-call closure would
+    change the bucketing function's plan key."""
+    from ..obs import numerics as _numerics
+
+    _numerics.guard_finite("histogram.range", torch.stack([lo, hi]),
+                           "autodetected range of [%g, %g] is not finite")
+
+
 def _search_right(edges: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``jnp.searchsorted(edges, v, side="right")``: compared in
     ``lax.sort`` order, so NaN lies above every edge."""
@@ -985,8 +998,9 @@ def histogram(x, bins: int = 10, range=None):
     computed in the same plan. With an explicit ``range`` values outside
     it are dropped; a degenerate range or constant data expands by
     +/- 0.5, as numpy does. Non-finite data with ``range=None`` gives
-    non-finite edges (numpy raises; the JAX package's guard for this
-    runs only under its numerics audit)."""
+    non-finite edges; numpy raises, and so does ``st.audit`` of the
+    histogram (the range's finiteness guard, :func:`_hist_guard_range`,
+    runs only under the numerics audit, as in the JAX package)."""
     x = as_expr(x)
     bins = int(bins)
     if bins <= 0:
@@ -1024,7 +1038,9 @@ def histogram(x, bins: int = 10, range=None):
     lo_e, hi_e = _rmin(x), _rmax(x)
 
     def bucket2(v, lo, hi):
-        lo, hi = _hist_expand(lo.to(torch.float32), hi.to(torch.float32))
+        lo, hi = lo.to(torch.float32), hi.to(torch.float32)
+        _hist_guard_range(lo, hi)
+        lo, hi = _hist_expand(lo, hi)
         e = _hist_edges(lo, hi, bins)
         idx = _search_right(e, v.to(torch.float32)) - 1
         return idx.clamp(0, bins - 1).to(torch.int32)
@@ -1032,7 +1048,9 @@ def histogram(x, bins: int = 10, range=None):
     counts = bincount(map_expr(bucket2, x, lo_e, hi_e), length=bins)
 
     def edges_fn(lo, hi):
-        lo, hi = _hist_expand(lo.to(torch.float32), hi.to(torch.float32))
+        lo, hi = lo.to(torch.float32), hi.to(torch.float32)
+        _hist_guard_range(lo, hi)
+        lo, hi = _hist_expand(lo, hi)
         return _hist_edges(lo, hi, bins)
 
     edges = map_expr(edges_fn, lo_e, hi_e)

@@ -94,6 +94,14 @@ class ContractExpr(Expr):
             f *= d
         return f
 
+    def cost(self) -> Dict[str, float]:
+        """:meth:`flops`; the operands read once, the output written
+        once."""
+        from .base import io_bytes
+
+        return {"flops": self.flops(), "transcendentals": 0.0,
+                "bytes accessed": io_bytes(self.children(), self)}
+
     def plan_operand_tilings(self, out_t: Tiling,
                              strategy: Optional[str]
                              ) -> Tuple[Tiling, Tiling]:

@@ -126,6 +126,17 @@ class DotExpr(Expr):
             ((m_c,) if self.b.ndim == 2 else ())
         return DistArray.from_local(out, Tiling(axes), self.shape, env.mesh)
 
+    def cost(self) -> Dict[str, float]:
+        """2·m·n·k FLOPs (a 1-D operand is one row or column); the
+        operands read once, the output written once."""
+        from .base import io_bytes
+
+        m = self.a.shape[0] if self.a.ndim == 2 else 1
+        n = self.b.shape[1] if self.b.ndim == 2 else 1
+        k = self.a.shape[-1]
+        return {"flops": 2.0 * m * n * k, "transcendentals": 0.0,
+                "bytes accessed": io_bytes((self.a, self.b), self)}
+
     def _sig(self, ctx) -> Tuple:
         # the plan changes the lowering, so it keys the plan cache
         plan = (None if self._dot_plan is None

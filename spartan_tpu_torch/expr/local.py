@@ -269,3 +269,28 @@ class LocalCall(LocalExpr):
         name = getattr(self.fn, "__name__", "fn")
         return f"{name}({', '.join(map(repr, self.args))})"
 
+
+
+# ufuncs XLA's cost analysis counts as transcendentals (its exp, expm1,
+# log, log1p, sqrt, power, sin, cos, tan, tanh and atan2 opcodes)
+TRANSCENDENTAL = frozenset(("exp", "expm1", "log", "log1p", "sqrt",
+                            "power", "sin", "cos", "tan", "tanh",
+                            "arctan2"))
+
+
+def op_counts(tree: LocalExpr) -> Tuple[int, int]:
+    """(FLOPs, transcendentals) per output element of a fused tree: one
+    per ufunc, a transcendental one under the second count. A cast
+    (an elementwise call) counts one FLOP; a user function is not
+    counted (its operations are unknown here)."""
+    if isinstance(tree, LocalUfunc):
+        f, t = (0, 1) if tree.name in TRANSCENDENTAL else (1, 0)
+    elif isinstance(tree, LocalCall):
+        f, t = (1 if tree.elementwise else 0), 0
+    else:
+        return 0, 0
+    for a in tree.args:
+        af, at = op_counts(a)
+        f += af
+        t += at
+    return f, t

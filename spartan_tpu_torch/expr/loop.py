@@ -10,9 +10,13 @@ re-plan. Nothing in the loop waits for the device.
 
 ``donate_init`` releases the init arrays to the loop's evaluation, and
 ``checkpoint_every`` / ``checkpoint_path`` / ``resume`` run the loop in
-snapshotted segments (``resilience/loop_ckpt.py``). ``health``,
-``early_exit`` and ``stall_tol`` need the numerics loop series, which is
-not ported (ROADMAP A4): they raise ``NotImplementedError``.
+snapshotted segments (``resilience/loop_ckpt.py``). ``health=True``
+keeps a per-iteration carry-norm / update-norm series on the device and
+reads it once when the loop ends (``obs/numerics.loop_health``);
+``early_exit=True`` reads one stop flag per iteration and stops after
+the iteration whose carry went non-finite or whose update norm fell
+below ``stall_tol`` — the JAX package's device ``while_loop`` becomes a
+host loop with that one read.
 
 Forcing a loop is one ``loop`` span; with ``FLAGS.trace_loop_steps``
 each iteration adds a ``loop_step`` span (host marks between the
@@ -115,7 +119,9 @@ class LoopExpr(Expr):
     def __init__(self, n_expr: Expr, init: Tuple[Expr, ...],
                  carries: Tuple[CarryExpr, ...],
                  body_roots: Tuple[Expr, ...],
-                 index_expr: Optional[LoopIndexExpr]):
+                 index_expr: Optional[LoopIndexExpr],
+                 health: bool = False, early_exit: bool = False,
+                 stall_tol: float = 0.0, label: Optional[str] = None):
         if len(init) != len(body_roots):
             raise ValueError(
                 f"loop body returned {len(body_roots)} values for "
@@ -130,8 +136,13 @@ class LoopExpr(Expr):
         self.carries = carries
         self.body_roots = body_roots
         self.index_expr = index_expr
+        self.health = bool(health or early_exit)
+        self.early_exit = bool(early_exit)
+        self.stall_tol = float(stall_tol)
         self._items: Tuple["LoopItemExpr", ...] = ()
         super().__init__((), body_roots[0].dtype)
+        # the health series' default label; a rewrite keeps the original's
+        self.label = label or f"loop#{self._id}"
 
     def children(self) -> Tuple[Expr, ...]:
         return (self.n_expr,) + self.init + self.body_roots
@@ -140,7 +151,56 @@ class LoopExpr(Expr):
         k = len(self.init)
         return LoopExpr(new_children[0], tuple(new_children[1:1 + k]),
                         self.carries, tuple(new_children[1 + k:]),
-                        self.index_expr)
+                        self.index_expr, self.health, self.early_exit,
+                        self.stall_tol, self.label)
+
+    def cost(self) -> Dict[str, float]:
+        # the body's nodes are counted once (they are in the DAG), as
+        # XLA's cost analysis counts a while loop's body
+        return {"flops": 0.0, "transcendentals": 0.0, "bytes accessed": 0.0}
+
+    @staticmethod
+    def _carry_norm(vals: Tuple[Any, ...]) -> torch.Tensor:
+        """The inf-norm of the carries in float32, on their device (not
+        L2: squaring overflows float32 for |carry| > ~2e19 and would flag
+        healthy large carries). A NaN anywhere makes it NaN."""
+        m = None
+        nan = None
+        for v in vals:
+            vf = v.to(torch.float32)
+            a = vf.abs().amax() if vf.numel() else vf.new_zeros(())
+            n_ = torch.isnan(vf).any()
+            m = a if m is None else torch.maximum(m, a)
+            nan = n_ if nan is None else nan | n_
+        return torch.where(nan, torch.full_like(m, float("nan")),
+                           torch.clamp_min(m, 0.0))
+
+    def _health_of(self, old: Tuple[Any, ...],
+                   new: Tuple[Any, ...]) -> torch.Tensor:
+        """[carry norm, update norm] of one iteration, on the device."""
+        un = self._carry_norm(tuple(a.to(torch.float32) - b.to(torch.float32)
+                                    for a, b in zip(new, old)))
+        return torch.stack([self._carry_norm(new), un])
+
+    def _stop(self, h: torch.Tensor) -> bool:
+        """``early_exit``'s one host read per iteration: stop when the
+        carry or the update went non-finite, or the update norm fell
+        below ``stall_tol``."""
+        alive = torch.isfinite(h).all()
+        if self.stall_tol > 0:
+            alive = alive & (h[1] >= self.stall_tol)
+        return not bool(alive.item())
+
+    def _file_health(self, label: str, hs: list) -> None:
+        """Read the iterations' [norm, update] pairs back in one copy and
+        file them as the loop's health series."""
+        from ..obs import numerics
+
+        if not hs:
+            return
+        host = torch.stack(hs).cpu().tolist()
+        for i, (norm, un) in enumerate(host):
+            numerics.record_loop_health(label, i, norm, un)
 
     def _constrain(self, vals: Tuple[Any, ...],
                    srcs: Tuple[Tiling, ...]) -> Tuple[Any, ...]:
@@ -164,6 +224,7 @@ class LoopExpr(Expr):
         label = f"loop#{self._id}"
         if trace_steps:
             obs_trace.loop_steps_begin(label)  # anchor step 0's span
+        hs: list = []
         for i in range(n):
             benv = dict(env)
             if self.index_expr is not None:
@@ -174,13 +235,25 @@ class LoopExpr(Expr):
             with obs_trace.named_scope("st_loop_body") \
                     if obs_trace.profiler_active() \
                     else contextlib.nullcontext():
-                carry = tuple(b.lower(benv) for b in self.body_roots)
+                new = tuple(b.lower(benv) for b in self.body_roots)
             if sharded:
-                carry = self._constrain(carry, tuple(
+                new = self._constrain(new, tuple(
                     b.out_tiling() for b in self.body_roots))
+            if self.health:
+                hs.append(self._health_of(carry, new))
+            carry = new
             if trace_steps:
                 obs_trace.record_loop_step(label, i)
+            if self.early_exit and self._stop(hs[-1]):
+                break
+        if self.health:
+            self._file_health(self._claim_label(), hs)
         return carry
+
+    def _claim_label(self) -> str:
+        from ..obs import numerics
+
+        return numerics.claim_loop_label(self.label)
 
     def _lower_local(self, env) -> Any:
         """The loop on a group mesh: the carries stay local blocks
@@ -205,6 +278,7 @@ class LoopExpr(Expr):
         label = f"loop#{self._id}"
         if trace_steps:
             obs_trace.loop_steps_begin(label)
+        hs: list = []
         for i in range(n):
             benv = env.copy()
             if self.index_expr is not None:
@@ -212,12 +286,46 @@ class LoopExpr(Expr):
                     torch.tensor(i, dtype=torch.int32), env.mesh)
             for ce, cv in zip(self.carries, carry):
                 benv[ce._id] = cv
-            carry = tuple(
+            new = tuple(
                 held(b.lower_local(benv), ce, cv.local.dtype)
                 for b, ce, cv in zip(self.body_roots, self.carries, carry))
+            if self.health:
+                hs.append(self._group_health(carry, new, env.mesh,
+                                             fold=self.early_exit))
+            carry = new
             if trace_steps:
                 obs_trace.record_loop_step(label, i)
+            if self.early_exit and self._stop(hs[-1]):
+                break
+        if self.health:
+            if not self.early_exit and hs:
+                # one fold of the whole series over the ranks
+                hs = list(self._fold(torch.stack(hs), env.mesh))
+            self._file_health(self._claim_label(), hs)
         return carry
+
+    def _group_health(self, old, new, mesh, fold: bool) -> torch.Tensor:
+        """A group rank's [norm, update] of its blocks; folded over the
+        ranks at once when ``fold`` (early exit reads it every
+        iteration), else left for one fold of the series."""
+        h = self._health_of(tuple(v.local for v in old),
+                            tuple(v.local for v in new))
+        return self._fold(h[None], mesh)[0] if fold else h
+
+    @staticmethod
+    def _fold(hs: torch.Tensor, mesh) -> torch.Tensor:
+        """Max-fold rows of [norm, update] over the group's ranks, a NaN
+        anywhere kept (a max all-reduce does not carry NaN reliably)."""
+        from ..parallel import collectives as coll
+
+        isnan = torch.isnan(hs)
+        packed = torch.cat([torch.where(isnan, 0.0, hs),
+                            isnan.to(hs.dtype)], dim=1)
+        packed = coll.reduce_over(packed, tuple(mesh.axis_names), "max",
+                                  mesh)
+        return torch.where(packed[:, 2:] > 0,
+                           torch.full_like(packed[:, :2], float("nan")),
+                           packed[:, :2])
 
     def _sig(self, ctx) -> Tuple:
         # the carry-sharding layout is structural: the chosen layouts
@@ -225,7 +333,8 @@ class LoopExpr(Expr):
         shard = tuple(c._tiling.axes if c.sharded else None
                       for c in self.carries) \
             if any(c.sharded for c in self.carries) else None
-        head = (("loop", bool(FLAGS.trace_loop_steps), shard,
+        head = (("loop", bool(FLAGS.trace_loop_steps), self.health,
+                 self.early_exit, self.stall_tol, shard,
                  ctx.of(self.n_expr))
                 + tuple(ctx.of(i) for i in self.init))
         # bind the carries for the body traversal (see CarryExpr._sig)
@@ -265,9 +374,17 @@ class LoopItemExpr(Expr):
         # released with its evaluation
         donate = tuple(donate) + getattr(self.loop, "_donate_init", ())
         n = self.loop.n_expr
-        label = f"loop#{self.loop._id}"
+        label = self.loop.label
+        health = contextlib.nullcontext()
+        if self.loop.health:
+            from ..obs import numerics
+
+            numerics.loop_health_begin(label)  # a fresh series
+            # filed under this loop's label whichever cached plan's loop
+            # node the walk runs
+            health = numerics.loop_label_scope(label)
         with prof.span("loop", loop=label, n=getattr(n, "pyvalue", None),
-                       carries=len(self.loop.init)):
+                       carries=len(self.loop.init)), health:
             siblings = self.loop._items
             if len(siblings) > 1:
                 results = evaluate(TupleExpr(siblings), donate=donate)
@@ -277,6 +394,9 @@ class LoopItemExpr(Expr):
             return evaluate(self, donate=donate)
 
     force = evaluate
+
+    def cost(self) -> Dict[str, float]:
+        return {"flops": 0.0, "transcendentals": 0.0, "bytes accessed": 0.0}
 
     def children(self) -> Tuple[Expr, ...]:
         return (self.loop,)
@@ -329,22 +449,24 @@ def loop(n_iters: Any, body_fn: Callable, *init: Any,
     the uninterrupted loop's. Checkpointed loops run when called and
     return the final carries as ``ValExpr`` leaves.
 
-    ``health``, ``early_exit`` and ``stall_tol`` raise
-    ``NotImplementedError``: they need the numerics loop series
-    (ROADMAP A4).
+    ``health``: keep a per-iteration carry-norm / update-norm series (the
+    carries' inf-norm in float32, and that of their change) on the device,
+    read once when the loop ends (``st.obs.numerics.loop_health(label)``,
+    ``label`` = ``loop#<id>`` of the returned items' ``.loop``), with
+    divergence counted in the metrics registry. ``early_exit`` (implies
+    ``health``) reads one stop flag per iteration and stops after the
+    iteration whose carry or update went non-finite or, with
+    ``stall_tol > 0``, whose update norm fell below ``stall_tol``; the
+    carries returned are that iteration's.
     """
-    if health or early_exit or stall_tol:
-        raise NotImplementedError(
-            "st.loop(health=, early_exit=, stall_tol=) needs the numerics "
-            "loop series (obs/numerics.py), which the port does not have "
-            "yet (ROADMAP A4)")
     if checkpoint_every or resume is not None:
         from ..resilience.loop_ckpt import checkpointed_loop
 
         return checkpointed_loop(
             n_iters, body_fn, init, with_index=with_index,
             donate_init=donate_init, every=int(checkpoint_every or 0),
-            path=checkpoint_path, resume=resume)
+            path=checkpoint_path, resume=resume, health=health,
+            early_exit=early_exit, stall_tol=stall_tol)
     init_exprs = tuple(as_expr(i) for i in init)
     if not init_exprs:
         raise ValueError("loop needs at least one carried value")
@@ -380,7 +502,8 @@ def loop(n_iters: Any, body_fn: Callable, *init: Any,
                 f"{out_specs} -> {specs2}")
 
     le = LoopExpr(as_expr(n_iters), init_exprs, carries, body_roots,
-                  index_expr)
+                  index_expr, health=health, early_exit=early_exit,
+                  stall_tol=stall_tol)
     items = tuple(LoopItemExpr(le, i) for i in range(len(init_exprs)))
     le._items = items  # sibling set for one-plan multi-carry forcing
     if donate_init:

@@ -109,6 +109,18 @@ class MapExpr(Expr):
         return (("map", self.op.key())
                 + tuple(ctx.of(c) for c in self.inputs))
 
+    def cost(self) -> Dict[str, float]:
+        """One FLOP per fused op per output element (a transcendental op
+        under ``transcendentals``); each input read once, the output
+        written once."""
+        from .base import io_bytes
+        from .local import op_counts
+
+        f, t = op_counts(self.op)
+        return {"flops": float(f) * self.size,
+                "transcendentals": float(t) * self.size,
+                "bytes accessed": io_bytes(self.inputs, self)}
+
     def _default_tiling(self) -> Tiling:
         # the largest same-shaped input donates its tiling (the reference
         # evaluated on the owner of the largest input's tiles)

@@ -48,6 +48,10 @@ def default_visit(n: Expr, new_kids: Tuple[Expr, ...]) -> Expr:
 class Pass:
     name = "base"
     flag = ""
+    # the pass checker's invariant (analysis/passes.py, under
+    # FLAGS.verify_passes): a pass that prunes sub-DAGs, and with them
+    # their leaves, opts out of strict leaf preservation
+    preserves_leaves = True
 
     def enabled(self) -> bool:
         return not self.flag or getattr(FLAGS, self.flag)
@@ -62,6 +66,9 @@ class CollapseCachedPass(Pass):
 
     name = "collapse_cached"
     flag = "opt_collapse_cached"
+    # collapsing a cached node prunes its whole sub-DAG: the leaves
+    # below it disappear into the substituted Val leaf
+    preserves_leaves = False
 
     def run(self, root: Expr) -> Expr:
         def visit(n: Expr, kids: Tuple[Expr, ...]) -> Expr:
@@ -168,8 +175,20 @@ def optimize(root: Expr, report: Optional[List[Dict]] = None) -> Expr:
 
     ``report``: optional list; one dict per enabled pass is appended
     (``name`` / ``nodes_before`` / ``nodes_after`` / ``seconds``), the
-    JAX package's per-pass record."""
+    JAX package's per-pass record.
+
+    With ``FLAGS.verify_passes`` every pass is bracketed by the
+    invariant checker (``analysis/passes.py``) in a ``verify`` phase:
+    shape/dtype/leaf preservation and DAG well-formedness, a failure
+    naming the offending pass."""
     _ensure_tiling_pass()
+    verify = FLAGS.verify_passes
+    snap = None
+    if verify:
+        from ..analysis import passes as checkmod
+
+        with prof.phase("verify"):
+            snap = checkmod.snapshot(root)
     for p in _PASSES:
         if p.enabled():
             before = len(dag_nodes(root)) if report is not None else 0
@@ -179,6 +198,9 @@ def optimize(root: Expr, report: Optional[List[Dict]] = None) -> Expr:
                 report.append({"name": p.name, "nodes_before": before,
                                "nodes_after": len(dag_nodes(new_root)),
                                "seconds": psp.seconds})
+            if verify:
+                with prof.phase("verify"):
+                    snap = checkmod.check_pass(p, snap, new_root)
             root = new_root
     return root
 

@@ -157,6 +157,23 @@ class ReduceExpr(Expr):
     def _lower(self, env: Dict[int, Any]) -> Any:
         return self._emit([c.lower(env) for c in self.inputs])
 
+    def cost(self) -> Dict[str, float]:
+        """The fused pre-reduce tree's ops per element of its output,
+        then one FLOP per element folded away (``n - 1`` for a whole
+        reduction of ``n``; a mean adds its divide per output element);
+        each input read once, the output written once."""
+        from .base import io_bytes
+        from .local import op_counts
+
+        pre = int(np.prod(self._pre_shape)) if self._pre_shape else 1
+        f, t = op_counts(self.pre)
+        red = float(pre - self.size)
+        if self.op == "mean":
+            red += self.size
+        return {"flops": float(f) * pre + red,
+                "transcendentals": float(t) * pre,
+                "bytes accessed": io_bytes(self.inputs, self)}
+
     def _lower_local(self, env) -> Any:
         from .map import aligned_blocks, broadcasts_to, elementwise
 

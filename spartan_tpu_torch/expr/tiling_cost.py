@@ -105,9 +105,14 @@ def op_class(node: Expr) -> str:
 
 
 def _cal_factors() -> Optional[Dict[str, float]]:
-    """The active calibration profile's per-op-class factors: None
-    (identity) until the cost ledger is ported (ROADMAP A4)."""
-    return None
+    """The active calibration profile's per-op-class factors, or None
+    when ``FLAGS.cost_calibration`` is off or no profile is installed
+    (obs/ledger owns the profile; one read per table build). The
+    profile's fingerprint is part of ``_opt_flags_key``, so calibrated
+    and uncalibrated plans never alias."""
+    from ..obs import ledger
+
+    return ledger.factors()
 
 
 def _parallelism(t: Tiling, mesh) -> int:

@@ -295,3 +295,14 @@ def run(points: torch.Tensor, centers: torch.Tensor, k: int, iters: int,
     for _ in range(int(iters)):
         c = step(points, c, k, valid_rows)
     return c
+
+
+def cost(n: int, d: int, k: int) -> Tuple[float, float]:
+    """(operations, bytes) of one pass over ``n`` valid rows of ``d``
+    dims against ``k`` centers: 2·n·k·d FLOPs of distance products plus
+    n·d adds into the sums; the points read once, the centers read and
+    the sums written (k, d), the counts written (k,), in float32. The
+    count ``chip_smoke.py`` divides by the card's rates for the kernel's
+    bound, and the k-means node's ``cost_analysis`` (``st.explain``)."""
+    return (2.0 * n * k * d + float(n) * d,
+            4.0 * (n * d + 2.0 * k * d + k))

@@ -324,6 +324,18 @@ def node_selection(node: Any) -> Optional[Selection]:
     sample sort's exchange is always the padded, packed one."""
     name = type(node).__name__
     mesh = mesh_mod.get_mesh()
+    if name == "KMeansStepExpr":
+        # the fused pass the port's kmeans_step takes (examples/kmeans.py;
+        # the JAX package's kmeans_step is always its map2 form)
+        from . import kmeans as kmeans_kernel
+
+        n, d = node.points.shape
+        # rows padded to whole point blocks per row shard, as kmeans_step
+        # asks (examples/kmeans._kernel_pad)
+        q = _row_shards(mesh) * kmeans_kernel._BLOCK
+        return select("kmeans", (-(-n // q) * q, d), np.float32,
+                      tiling_mod.row(2), mesh, k=node.k,
+                      block=kmeans_kernel._BLOCK)
     if name == "TopKExpr":
         return select("topk", node.x.shape, node.x.dtype, tiling_mod.row(1),
                       mesh, k=node.k)
@@ -347,3 +359,31 @@ def node_selection(node: Any) -> Optional[Selection]:
                       padding=node.padding, kshape=node.w.shape[:2],
                       out_channels=node.w.shape[3])
     return None
+
+
+def plan_entries(dag: Any) -> list:
+    """Kernel-selection entries for every kernel-eligible node of an
+    optimized DAG — the ``kernels`` section of the plan report
+    (obs/explain.py), from the same :func:`select` the lowering calls.
+    ``backend`` is ``cuda`` where the JAX package says ``pallas`` (the
+    hand-written kernel launches on the card), ``plain`` where the mesh's
+    device is the CPU (the kernel module runs its plain torch version, as
+    ``interpret=True`` does in the JAX package), and ``expr`` for a
+    fallback, with its ``reason``."""
+    from ..expr.optimize import dag_nodes
+
+    dev = mesh_mod.get_mesh().device
+    out = []
+    for n in dag_nodes(dag):
+        sel = node_selection(n)
+        if sel is None:
+            continue
+        entry: Dict[str, Any] = {"node": f"{type(n).__name__}#{n._id}",
+                                 "op": sel.op}
+        if sel.native:
+            entry["backend"] = "cuda" if dev.type == "cuda" else "plain"
+        else:
+            entry["backend"] = "expr"
+            entry["reason"] = sel.reason
+        out.append(entry)
+    return out

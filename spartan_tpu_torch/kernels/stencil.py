@@ -289,3 +289,27 @@ def halo_stencil(x: torch.Tensor, w: torch.Tensor, tiling,
     kh, kw = int(w.shape[0]), int(w.shape[1])
     blocks = halo_exchange(x, kh, kw, p)
     return conv_block(blocks, w.to(torch.float32))
+
+
+def cost(blocks_shape: Tuple[int, ...], w_shape: Tuple[int, ...]
+         ) -> Tuple[float, float]:
+    """(operations, bytes) of one :func:`conv_block` launch over halo
+    blocks of ``blocks_shape`` (p, N, Hp, Wp, C) with a (KH, KW, C, O)
+    filter: 2·KH·KW·C FLOPs per output element; the blocks and the filter
+    read once, the output written once, in float32. The count
+    ``chip_smoke.py`` divides by the card's rates for the kernel's bound,
+    and the stencil node's ``cost_analysis`` (``st.explain``)."""
+    p, n, hp, wp, c = (int(s) for s in blocks_shape)
+    kh, kw, _, o = (int(s) for s in w_shape)
+    ho, wo = hp - kh + 1, wp - kw + 1
+    out = p * n * ho * wo * o
+    return (2.0 * out * kh * kw * c,
+            4.0 * (p * n * hp * wp * c + kh * kw * c * o + out))
+
+
+def halo_blocks_shape(x_shape: Tuple[int, ...], kh: int, kw: int,
+                      p: int) -> Tuple[int, ...]:
+    """The shape :func:`halo_exchange` gives ``p`` H-shards of an (N, H,
+    W, C) operand."""
+    n, h, w, c = (int(s) for s in x_shape)
+    return (p, n, h // p + kh - 1, w + kw - 1, c)

@@ -1,4 +1,4 @@
-"""Observability: spans and metrics (port of ``spartan_tpu/obs``).
+"""Observability (port of ``spartan_tpu/obs``).
 
 * :mod:`trace` — nested host-side spans for the plan lifecycle
   (evaluate -> sign -> optimize -> per-pass -> tiling -> build ->
@@ -8,26 +8,55 @@
   p50/p95/max, plan-cache hit ratio, device memory high-water.
   ``st.metrics()`` snapshots as JSON; ``st.metrics(fmt="prometheus")``
   renders Prometheus text format.
+* :mod:`explain` — ``st.explain(expr)``: passes, tilings, kernel nodes,
+  reshard edges and the counted ``cost_analysis`` of a plan.
+* :mod:`ledger` — ``st.ledger()``: the tiling DP's predictions next to
+  measured walks and device profiles; ``fit_profile`` / ``save_profile``
+  / ``load_profile`` calibrate the DP from them.
+* :mod:`numerics` — ``st.audit`` (per-node device health words),
+  ``st.watch`` watchpoints, ``st.loop(health=...)`` series, the dispatch
+  watchdog and ``dump_crash``.
+* :mod:`profile` — ``st.profile(expr)``: per-node device seconds (a
+  ``torch.profiler`` capture on the card, replay elsewhere);
+  ``st.profile_export`` merges them with the host spans.
 
-The JAX package's ``explain``, ``numerics``, ``ledger``, ``profile``,
-``flight``, ``skew``, ``slo`` and ``monitor`` modules are not ported
-yet (ROADMAP A4-A6).
+The JAX package's ``flight`` (with ``serve/``, ROADMAP A5), ``skew``,
+``slo`` and ``monitor`` (ROADMAP A6) are not ported yet.
 
 Import discipline: ``obs`` sits below the expr and array layers (only
 ``utils/config`` above it), so every subsystem can emit spans and
 metrics without import cycles.
 """
 
+from . import ledger as _ledger_mod
 from . import metrics as _metrics_mod
+from . import numerics
+from . import profile
 from . import trace as _trace_mod
+from .explain import ExplainReport, explain
+from .ledger import (CalibrationProfile, fit_profile, load_profile,
+                     save_profile)
 from .metrics import REGISTRY, Counter, Gauge, Histogram, Registry
+from .numerics import (AuditReport, Watchpoint, audit, dump_crash,
+                       loop_health, unwatch, watch, watchpoints)
+from .profile import DeviceProfile
 from .trace import Span, span
 
+# the module stays importable as obs.ledger; the snapshot is
+# ledger_snapshot (spartan_tpu_torch/__init__ wraps it as st.ledger())
+ledger = _ledger_mod
 metrics = _metrics_mod.snapshot
+ledger_snapshot = _ledger_mod.snapshot
+profile_export = profile.export_merged
 trace_export = _trace_mod.export
 trace_events = _trace_mod.events
 trace_clear = _trace_mod.clear
 
 __all__ = ["span", "Span", "trace_export", "trace_events", "trace_clear",
            "metrics", "REGISTRY", "Registry", "Counter", "Gauge",
-           "Histogram"]
+           "Histogram", "explain", "ExplainReport", "numerics",
+           "audit", "AuditReport", "watch", "unwatch", "watchpoints",
+           "Watchpoint", "loop_health", "dump_crash",
+           "ledger", "ledger_snapshot", "CalibrationProfile",
+           "fit_profile", "save_profile", "load_profile", "profile",
+           "profile_export", "DeviceProfile"]

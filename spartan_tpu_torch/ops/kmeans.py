@@ -5,7 +5,8 @@ the applications import ``supports`` / ``assign_accumulate`` / ``step`` /
 from __future__ import annotations
 
 from ..kernels.kmeans import (_BLOCK, assign_accumulate,
-                              assign_accumulate_plain, run, step, supports)
+                              assign_accumulate_plain, cost, run, step,
+                              supports)
 
 __all__ = ["supports", "assign_accumulate", "assign_accumulate_plain",
-           "step", "run", "_BLOCK"]
+           "step", "run", "cost", "_BLOCK"]

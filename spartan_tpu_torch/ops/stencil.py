@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -139,6 +140,33 @@ class StencilExpr(Expr):
     def _sig(self, ctx) -> Tuple:
         return ("stencil", self.stride, self.padding,
                 ctx.of(self.x), ctx.of(self.w))
+
+    def cost(self) -> Dict[str, float]:
+        """2·KH·KW·C FLOPs per output element. On the kernel route the
+        ``conv_block`` launch's own count (``kernels/stencil.cost``,
+        under ``kernel``) plus the halo exchange's copy (the operand read,
+        the halo blocks written); else the operands read once and the
+        output written once."""
+        from ..expr.base import io_bytes
+        from ..kernels import registry as kernels_mod
+
+        kh, kw, c, o = self.w.shape
+        flops = 2.0 * self.size * kh * kw * c
+        out = {"flops": flops, "transcendentals": 0.0,
+               "bytes accessed": io_bytes((self.x, self.w), self)}
+        sel = kernels_mod.node_selection(self)
+        if sel is not None and sel.native:
+            from ..kernels import stencil as kstencil
+            from ..parallel import mesh as mesh_mod
+
+            p = int(mesh_mod.get_mesh().shape[self.x.out_tiling().axes[1]])
+            blocks = kstencil.halo_blocks_shape(self.x.shape, kh, kw, p)
+            kf, kb = kstencil.cost(blocks, self.w.shape)
+            halo = 4.0 * (self.x.size + float(np.prod(blocks)))
+            out.update({"flops": kf, "bytes accessed": kb + halo,
+                        "kernel": {"name": "conv_block", "flops": kf,
+                                   "bytes accessed": kb}})
+        return out
 
     def _default_tiling(self) -> Tiling:
         # batch and H tilings carry through (the halo path keeps them);

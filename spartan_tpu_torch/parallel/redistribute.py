@@ -46,8 +46,9 @@ computes, so both forms are bit-equal to their input.
 Everything is behind ``FLAGS.redistribution_planner`` (default off; one
 flag read per constrained edge when off). The flag is in
 ``expr/base._opt_flags_key``, so planned and unplanned plans never
-alias in the plan cache. Calibration factors (``_cal_factors``) wait
-for the cost ledger (ROADMAP A4): until then every factor is 1.
+alias in the plan cache. Calibration factors (``_cal_factors``) come
+from the cost ledger's active profile (``obs/ledger.factors``) under
+``FLAGS.cost_calibration``; every factor is 1 otherwise.
 
 Across meshes of different shapes (elastic recovery, a checkpoint
 restored onto another grid), :func:`plan_transition` prices the
@@ -396,9 +397,11 @@ def staging_frac(src: Tiling, dst: Tiling, mesh) -> Optional[float]:
 
 
 def _cal_factors() -> Optional[Dict[str, float]]:
-    """The active calibration profile's per-collective factors: None
-    (every factor 1) until the cost ledger is ported (ROADMAP A4)."""
-    return None
+    """The active calibration profile's factors (lazy import: obs sits
+    beside, not below, the parallel layer)."""
+    from ..obs import ledger
+
+    return ledger.factors()
 
 
 # -- cross-MESH-SHAPE transitions (elastic re-tiling) ---------------------

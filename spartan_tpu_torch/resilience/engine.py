@@ -24,20 +24,21 @@
 * **deterministic** — fail fast, with the plan's key, root and build
   site attached as a note.
 
-Exhausted retries and ladders log a crash record (:func:`_dump`) before
-re-raising; the JAX package's flight recorder (``dump_crash``) waits
-for ROADMAP A4. :func:`retry_evaluate` is the caller-level loop behind
+Exhausted retries and ladders write a crash dump (:func:`_dump`,
+``obs/numerics.dump_crash``) before re-raising; its flight-recorder
+section waits for ``obs/flight.py`` (ROADMAP A5, with ``serve/``).
+:func:`retry_evaluate` is the caller-level loop behind
 the deprecated ``utils/recovery.evaluate_with_recovery``.
 """
 
 from __future__ import annotations
 
-import json
 import random
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..obs.explain import key_hash
 from ..obs.metrics import METRICS_FLAG as _METRICS_FLAG
 from ..obs.metrics import REGISTRY, labeled
 from ..utils import profiling as prof
@@ -87,14 +88,6 @@ _TENANT_TLS = threading.local()
 
 # the last crash record _dump wrote (reason and resilience record)
 _last_dump: Optional[Dict[str, Any]] = None
-
-
-def key_hash(key: Any) -> Optional[str]:
-    """Short printable digest of a plan key (the JAX package's
-    ``obs/explain.key_hash``)."""
-    if key is None:
-        return None
-    return format(hash(key) & 0xFFFFFFFFFFFF, "012x")
 
 
 class tenant_scope:
@@ -169,20 +162,25 @@ def _sleep_backoff(attempt: int) -> float:
 
 
 def _dump(reason: str, plan: Any, rec: Dict[str, Any]) -> None:
-    """Log the crash record of a terminal failure (the reason, the plan
-    report and the resilience record) and keep it as ``_last_dump``;
-    never raises."""
+    """Write the crash record of a terminal failure through
+    ``obs/numerics.dump_crash`` (the reason, the plan report, the
+    resilience record, spans, health, ledger and metrics) and keep its
+    summary as ``_last_dump``; never raises."""
     global _last_dump
+    from ..obs import numerics as numerics_mod
+
     try:
+        report = plan.report if plan is not None and plan.report else None
         doc = {"reason": reason,
-               "plan_report": ({k: v for k, v in plan.report.items()
+               "plan_report": ({k: v for k, v in report.items()
                                 if k != "resilience"}
-                               if plan is not None and plan.report
-                               else None),
-               "resilience": dict(rec)}
+                               if report is not None else None),
+               "resilience": dict(rec), "path": None}
         _last_dump = doc
-        log_warn("resilience: %s; crash record %s", reason,
-                 json.dumps(doc, default=str)[:2000])
+        doc["path"] = numerics_mod.dump_crash(
+            reason=reason, plan_report=doc["plan_report"],
+            extra={"resilience": dict(rec)})
+        log_warn("resilience: %s; crash dump at %s", reason, doc["path"])
     except Exception:
         pass  # forensics must never mask the real failure
 

@@ -43,8 +43,9 @@ mesh, a smaller world) records each carry's planned migration in the
 loop's record (``migrations``) and the ``elastic_*`` counters.
 
 ``resume=path`` continues from the last snapshot under ``path`` (a fresh
-start when there is none). ``health`` / ``early_exit`` are not ported
-(ROADMAP A4).
+start when there is none). ``health`` / ``early_exit`` / ``stall_tol``
+go to every segment; a segment that exits early ends the loop at that
+iteration's snapshot.
 
 Observability, as in the JAX package: a ``ckpt_loop`` span around the
 run, a ``loop_segment`` span per segment and a ``loop_checkpoint`` span
@@ -196,13 +197,18 @@ def _add_note(e: BaseException, note: str) -> None:
 
 def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
                       with_index: bool, donate_init: bool, every: int,
-                      path: Optional[str], resume: Optional[str]) -> Any:
+                      path: Optional[str], resume: Optional[str],
+                      health: bool = False, early_exit: bool = False,
+                      stall_tol: float = 0.0) -> Any:
     """The loop behind ``st.loop(..., checkpoint_every=...)``.
 
     Runs when called and returns the final carries as ``ValExpr``s, so
     the call site keeps the lazy-loop surface (``.glom()``,
     ``.evaluate()``). Each carry's ``_resilience`` holds the run's record
-    (segments, restores, the step it resumed from)."""
+    (segments, restores, the step it resumed from). ``health`` /
+    ``early_exit`` / ``stall_tol`` go to every segment, and a segment
+    that exited early ends the whole loop at its snapshot."""
+    from ..obs import numerics as obs_numerics
     from ..expr.base import ScalarExpr, ValExpr, as_expr
     from ..expr.loop import loop as _loop
 
@@ -253,8 +259,10 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
     # ``path`` may still hold an earlier run's snapshots
     own = (start > 0 and path is not None
            and os.path.abspath(path) == os.path.abspath(resume))
+    track_health = bool(health or early_exit)  # early_exit implies it
+    stopped_early = False
     with prof.span("ckpt_loop", n=n, every=every, start=start):
-        while step < n:
+        while step < n and not stopped_early:
             seg = min(every, n - step)
             if with_index:
                 def body(i, *cs, _off=step):
@@ -269,7 +277,9 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
                     items = _loop(seg, body,
                                   *[ValExpr(c) for c in carries],
                                   with_index=with_index,
-                                  donate_init=donate_init)
+                                  donate_init=donate_init, health=health,
+                                  early_exit=early_exit,
+                                  stall_tol=stall_tol)
                     tup = items if isinstance(items, tuple) else (items,)
                     results = [it.evaluate() for it in tup]
             except Exception as e:
@@ -352,7 +362,15 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
                         rec["rung"] = r["rung"]
             carries = results
             rec["segments"] += 1
-            step += seg
+            executed = seg
+            if track_health:
+                # the segment's series (read back when its loop ended)
+                # says how many iterations ran
+                series = obs_numerics.loop_health(tup[0].loop.label)
+                if early_exit and series and len(series) < seg:
+                    executed = len(series)
+                    stopped_early = True
+            step += executed
             if path is not None and (every < n or resume is not None):
                 try:
                     save_snapshot(path, step, carries)

@@ -221,3 +221,14 @@ FLAGS.define_bool(
 FLAGS.define_int(
     "shard_carry_min_bytes", 1 << 16,
     "Minimum carry size (bytes) for shard_loop_carries to shard it.")
+FLAGS.define_bool(
+    "verify_passes", False,
+    "Bracket every optimizer pass with the invariant checker "
+    "(analysis/passes.py): shape/dtype/leaf preservation + DAG "
+    "well-formedness, failures naming the offending pass. Runs only "
+    "on plan-cache misses (env SPARTAN_TPU_TORCH_VERIFY_PASSES).")
+FLAGS.define_bool(
+    "verify_evaluate", False,
+    "Run st.check (DAG verifier + plan-time lints: use-after-donate, "
+    "double-donation, tiling consistency) on evaluate()'s plan-cache "
+    "MISS path, before the optimizer. Hits stay dispatch-bound.")

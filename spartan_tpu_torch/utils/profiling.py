@@ -14,9 +14,10 @@ a kernel launch times the launch, never the kernel, and no phase
 synchronises the device. Device time comes from :func:`profile_trace`
 (a ``torch.profiler`` capture) or CUDA events around the work.
 
-``cost_analysis`` and ``hlo_text`` read XLA's compiled program in the
-JAX package; the port has no compiled program, and their counterpart
-is designed with the explain layer (ROADMAP A4).
+``cost_analysis`` reads XLA's compiled program in the JAX package; the
+port has no compiled program and counts it (``st.explain``'s
+``cost_analysis``). ``hlo_text`` raises: its counterpart is the plan
+audit (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -176,21 +177,23 @@ def profile_trace(trace_dir: Optional[str] = None) -> Iterator[Any]:
     log_info("profiler trace written to %s", trace_dir)
 
 
-def cost_analysis(expr) -> Dict[str, float]:
-    """The JAX package reads FLOPs and bytes from XLA's compiled
-    program; the port compiles none."""
-    raise NotImplementedError(
-        "cost_analysis reads XLA's compiled program in the JAX package; "
-        "its counterpart for the port's eager plans is designed with the "
-        "explain layer (ROADMAP A4)")
+def cost_analysis(expr) -> Dict[str, Any]:
+    """FLOPs / bytes-accessed of an expr's plan: the counted
+    ``cost_analysis`` of ``st.explain`` (``obs/explain.count_cost``; per
+    device, as the JAX package's XLA read-out, with the whole plan's
+    totals under ``program``)."""
+    from ..obs.explain import explain
+
+    return explain(expr, cost=True).cost_analysis
 
 
 def hlo_text(expr) -> str:
     """The JAX package returns the compiled HLO; the port has none."""
     raise NotImplementedError(
-        "hlo_text returns XLA's compiled HLO in the JAX package; the "
-        "port runs no XLA program, and its counterpart is designed with "
-        "the explain layer (ROADMAP A4)")
+        "hlo_text returns XLA's compiled HLO in the JAX package; the port "
+        "runs no XLA program. Its counterpart is the plan audit's static "
+        "list of the collectives a group walk issues, each attributed to "
+        "its node (ROADMAP A4, plan_audit)")
 
 
 def benchmark(fn: Callable[[], Any], iters: int = 5,

@@ -1307,3 +1307,67 @@ def test_real_out_of_memory_is_classified_oom(card):
             st.map(grab, st.from_numpy(x)).glom(), x + 1.0)
     finally:
         mesh_mod.set_default_device(prev)
+
+
+# -- observability on the card (obs/profile.py, obs/numerics.py) -----------
+
+
+@pytest.mark.cuda
+def test_capture_tier_names_the_kmeans_kernels_node(card):
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    pts, c0 = _clustered(65536, 128, 16, seed=3)
+    with mesh_mod.use_mesh(mesh_mod.build_mesh((4, 2), device=card)):
+        step = km.kmeans_step(st.from_numpy(pts), st.from_numpy(c0), 16)
+        prof = st.profile(step, tier="capture")
+    # answered from the profiler's device records, joined to the node
+    assert prof.tier == "capture" and prof.note is None
+    node = prof.node("KMeansStepExpr")
+    assert len(node) == 1 and node[0]["seconds"] > 0
+    assert any("assign_accumulate" in k for k in node[0]["kernels"])
+    assert any("assign_accumulate" in e["name"]
+               and e["node"] == node[0]["node"] for e in prof.events)
+    assert prof.attributed_s <= prof.wall_s + 1e-9
+
+
+@pytest.mark.cuda
+def test_health_words_on_the_card_equal_the_cpus(card):
+    from spartan_tpu_torch.obs import numerics
+
+    rng = np.random.RandomState(4)
+    for dtype in (np.float32, np.float16, np.int32, np.bool_):
+        a = (rng.rand(257, 33) * 10 - 5).astype(dtype)
+        if dtype in (np.float32, np.float16):
+            a[3, 4], a[7, 1], a[9, 9] = np.nan, np.inf, 0
+        t = torch.from_numpy(a)
+        w_cpu = numerics._health_word(t).numpy()
+        w_card = numerics._health_word(t.to(card)).cpu().numpy()
+        np.testing.assert_array_equal(w_card, w_cpu)
+
+
+@pytest.mark.cuda
+def test_early_exit_reads_once_an_iteration_and_health_never(card,
+                                                             monkeypatch):
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    calls = []
+    real = torch.Tensor.item
+
+    def counted(self):
+        calls.append(1)
+        return real(self)
+
+    monkeypatch.setattr(torch.Tensor, "item", counted)
+    w0 = np.linspace(0.5, 1.5, 4096).astype(np.float32)
+    with mesh_mod.use_mesh(mesh_mod.build_mesh((1, 1), device=card)):
+        st.loop(20, lambda w: w * 0.5, st.from_numpy(w0),
+                health=True).glom()
+        health_reads = len(calls)
+        del calls[:]
+        st.loop(20, lambda w: w * 0.5, st.from_numpy(w0),
+                early_exit=True).glom()
+    assert health_reads == 0
+    assert len(calls) == 20

@@ -427,7 +427,10 @@ def test_port_imports_no_jax():
                 "parallel/redistribute.py", "expr/tiling_cost.py",
                 "expr/tiling_pass.py", "parallel/shard_map.py",
                 "parallel/collectives.py", "parallel/pipeline.py",
-                "ops/attention.py"):
+                "ops/attention.py", "analysis/__init__.py",
+                "analysis/verify.py", "analysis/passes.py",
+                "analysis/lints.py", "obs/explain.py", "obs/ledger.py",
+                "obs/numerics.py", "obs/profile.py"):
         assert os.path.join(REPO, "spartan_tpu_torch", mod) in files
     bad = []
     for path in files:

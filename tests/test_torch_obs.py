@@ -8,8 +8,9 @@ trace of the same schema. Phases the port lacks, and why:
 * ``compile``: torch runs eagerly, so a plan's first walk is a
   ``dispatch`` like every later one (and ``plan_cache_stats()`` counts
   no compiles);
-* ``verify``: the JAX package's pass checker (``analysis/passes.py``,
-  on under its test suite) is not ported (ROADMAP A4);
+* ``verify``: the pass checker (``analysis/passes.py``) runs under
+  ``FLAGS.verify_passes``, which the JAX package's test suite turns on
+  and the port's leaves at its default, off;
 * ``memory_model``: the memory governor's peak model
   (``resilience/memory.py``) is not ported (ROADMAP A5).
 """
@@ -246,10 +247,29 @@ def test_metrics_flag_gates_the_profiling_layer():
 
 
 def test_xla_readouts_raise_naming_the_roadmap_item():
+    # hlo_text alone still raises: the port runs no XLA program, and its
+    # counterpart is the plan audit (ROADMAP A4's next part)
     e = st_t.from_numpy(np.ones(4, np.float32)) + 1.0
-    for fn in (prof_t.cost_analysis, prof_t.hlo_text):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            fn(e)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4, plan_audit"):
+        prof_t.hlo_text(e)
+
+
+def test_cost_analysis_counts_the_plan_like_xla():
+    # utils/profiling.cost_analysis is st.explain's counted
+    # cost_analysis: exact against the JAX package's XLA read-out for a
+    # dot on one device (2*m*n*k FLOPs; operands + output bytes)
+    rng = np.random.RandomState(0)
+    a = rng.rand(64, 32).astype(np.float32)
+    b = rng.rand(32, 16).astype(np.float32)
+    one_j = mesh_j.build_mesh(jax.devices()[:1], (1, 1))
+    with mesh_j.use_mesh(one_j), mesh_t.use_mesh(mesh_t.build_mesh((1, 1))):
+        cj = prof_j.cost_analysis(st_j.dot(st_j.from_numpy(a),
+                                           st_j.from_numpy(b)))
+        ct = prof_t.cost_analysis(st_t.dot(st_t.from_numpy(a),
+                                           st_t.from_numpy(b)))
+    assert ct["flops"] == cj["flops"] == 65536.0
+    assert ct["bytes accessed"] == cj["bytes accessed"] == 14336.0
+    assert ct["program"]["flops"] == 65536.0 and ct["devices"] == 1
 
 
 def test_profile_trace_and_annotations_capture_on_the_cpu(tmp_path):

@@ -403,9 +403,13 @@ def test_checkpointed_loop_argument_errors(tmp_path):
 @pytest.mark.parametrize("kw", [{"health": True}, {"early_exit": True},
                                 {"stall_tol": 1e-3}])
 def test_unported_loop_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        st_t.loop(3, lambda w: w + 1.0,
-                  st_t.from_numpy(np.zeros(2, np.float32)), **kw)
+    # the loop-health options raised NotImplementedError until the
+    # numerics sentinel was ported (obs/numerics.py); they now run, and a
+    # loop that neither diverges nor stalls gives the plain loop's carry
+    # (tests/test_torch_numerics.py holds them against the JAX package)
+    w0 = st_t.from_numpy(np.zeros(2, np.float32))
+    got = st_t.loop(3, lambda w: w + 1.0, w0, **kw).glom()
+    np.testing.assert_array_equal(got, np.full(2, 3.0, np.float32))
 
 
 # -- the classifier ---------------------------------------------------------
