@@ -161,17 +161,47 @@ Phases, in order; any failure exits nonzero before the result line:
     ``checkpoint``; a one-process survivor world resumes it (a
     ``restore`` migration from {x: 2, y: 1} to {x: 1, y: 1}, 10 k-means
     launches), bit-equal to a clean one-process resume of a copy;
-23. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
+23. ``[guards]``, the plan guards. ``[audit]``: two gloo ranks sharing
+    the card (``--guards-child``) audit config 2's 8192^2 ``st.dot``,
+    ``st.sort`` of 2^26 keys and a config-3 k-means step; each audit's
+    collectives and operand bytes must equal what the walk then counts
+    in ``collective_calls``/``collective_bytes``, its ``full_gather``
+    findings the walk's ``group_materialize_calls`` sites (none for
+    k-means). ``[memory]``: predicted ``peak_bytes_card`` against the
+    measured walk (within 25%) for the dot on each rank, a config-3
+    ``kmeans_step`` on (4, 2), the 4096^2 chain's first plan, the 8192^2
+    dot on a logical (4, 2) mesh and the VGG-16 block-1 forward, each
+    walk measured keeping every value and freeing each at its last
+    consumer; then on the ranks a budget between the dot's predicted
+    peak and the ``finer_tiling`` rung's: the governor takes the rung
+    before the walk, no OOM raised, bit-equal to the rung forced.
+    ``[persist]``: three fresh processes on one store
+    (``--persist-child``) each run the 4096^2 chain and config-3
+    ``kmeans()`` on (4, 2) and (8, 1): the first stores, the second
+    reads every plan back with 0 DP runs, bit-equal (planning ms cold
+    and warm), and after one stored file is corrupted the third rejects
+    that entry (``crc``) and plans it again, bit-equal.
+    ``[integrity]``: config-3 k-means on (4, 2) under
+    ``FLAGS.integrity_check`` (every 5th walk re-walked on a rotated
+    mesh) with position 6 corrupting three sampled walks: each caught,
+    no corrupt result returned, the position quarantined at 3 strikes,
+    the arrays rehomed, the centers bit-equal to a clean run through the
+    same quarantine, the k-means launches equal to walks + re-walks;
+    iterations/s with the check on and off;
+24. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
     with their launches per rank on the group path, rows 1, 2, 5 and 6
     with their launches per rank under local-shard storage, row 1 with
-    the faulted run's and the survivor's launches) and the result line.
+    the faulted run's, the survivor's and the integrity run's launches)
+    and the result line.
 
 ``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
 ``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK``,
-``--local-child DIR RANK`` and ``--elastic-child DIR RANK`` one rank of
-``[spmd]``'s, ``[local]``'s and ``[elastic_group]``'s groups, and
-``--obs-child DIR`` the process of ``[obs]``'s captures; they are not
-meant to be run by hand.
+``--local-child DIR RANK``, ``--elastic-child DIR RANK`` and
+``--guards-child DIR RANK`` one rank of ``[spmd]``'s, ``[local]``'s,
+``[elastic_group]``'s and ``[guards]``'s groups, ``--obs-child DIR``
+the process of ``[obs]``'s captures and ``--persist-child DIR I`` one
+of ``[guards]``'s store processes; they are not meant to be run by
+hand.
 
 Imports torch, numpy and the port only.
 """
@@ -245,6 +275,16 @@ LOCAL_CAL_N = 1024
 # inside the loop)
 RES_MESH = (4, 2)
 ELASTIC_TIMEOUT_S, ELASTIC_JOIN_S, ELASTIC_SLOW_S = 60, 240, 0.5
+# [guards]: the memory model's gate (|predicted / measured - 1| of a
+# card peak, the JAX package's tests/test_memory_governor.py:72-100), the
+# integrity sentinel's cadence, strike count and corrupting position; the
+# cadence samples the k-means step plan's 5th, 10th and 15th runs, and a
+# violation's retry is a run, so walk occurrences 4, 9 and 14 are sampled
+GUARD_MEM_TOL = 0.25
+GUARD_SAMPLE, GUARD_STRIKES, GUARD_VICTIM = 5, 3, 6
+GUARD_SDC = "sdc@4#6,sdc@9#6,sdc@14#6"
+# pairs of 20-iteration runs, check off then on, for its cost
+GUARD_IPS_PAIRS = 5
 
 
 def _say(*args) -> None:
@@ -4902,6 +4942,571 @@ def phase_obs(st, kk, km, card: str, kmr: dict, vggr: dict) -> None:
     _say(f"[obs] phase {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# -- [guards]: the plan audit, the memory governor, the warm-start store
+# -- and the integrity sentinel ---------------------------------------------
+
+_KIND_OF = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+            "all_to_all": "all-to-all", "ring_permute": "collective-permute",
+            "reduce_scatter": "reduce-scatter"}
+
+
+def _counted(metrics_mod, fn):
+    """``fn()`` and what it added to ``collective_calls``/``_bytes`` (by
+    the audit's kind names) and ``group_materialize_calls`` (by site)."""
+    before = dict(metrics_mod.REGISTRY.counter_values())
+    out = fn()
+    torch.cuda.synchronize()
+    got = {"calls": {}, "bytes": {}, "sites": {}}
+    names = {"collective_calls": "calls", "collective_bytes": "bytes",
+             "group_materialize_calls": "sites"}
+    for key, v in metrics_mod.REGISTRY.counter_values().items():
+        d = v - before.get(key, 0)
+        base, labels = metrics_mod.parse_labels(key)
+        if d and base in names:
+            lab = labels.get("op", labels.get("site", ""))
+            got[names[base]][_KIND_OF.get(lab, lab)] = d
+    return out, got
+
+
+def _audit_record(audit) -> dict:
+    gathers = {}
+    for f in audit.findings:
+        if f.kind == "full_gather":
+            site = f.message.split(" for ")[1].split(",")[0]
+            gathers[site] = gathers.get(site, 0) + 1
+    return {"multiset": audit.multiset, "operand_bytes": audit.operand_bytes(),
+            "comm_bytes": audit.comm_bytes, "gathers": gathers,
+            "findings": [str(f) for f in audit.findings]}
+
+
+def _plan_of(st, expr):
+    """The plan ``expr`` evaluates with, built (not run) on a miss."""
+    from spartan_tpu_torch.expr import base
+
+    mesh = st.get_mesh()
+    key, rctx = base.plan_signature(expr, mesh)
+    plan = base.lookup_plan(key)
+    if plan is None:
+        plan, _, _ = base._build_plan(expr, mesh, rctx, key)
+    return plan
+
+
+def guards_child(workdir: str, rank: int) -> None:
+    """One rank of [guards]'s two-process gloo group on the one card:
+    the plan audit of config 2's 8192^2 ``st.dot``, ``st.sort`` of 2^26
+    keys and a config-3 k-means step against the collectives and whole
+    gathers their walks count; the dot's predicted card peak against
+    its measured walk; the governor picking a rung under a budget set
+    between the dot's and the rung's predicted peaks; results to
+    ``workdir``."""
+    import importlib
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import degrade, memory
+
+    metrics_mod = importlib.import_module("spartan_tpu_torch.obs.metrics")
+    dev = _child_device()
+    st.set_default_device(dev)
+    if not mesh_mod.initialize_distributed(
+            "file://" + os.path.join(workdir, "store"),
+            num_processes=GROUP_RANKS, process_id=rank, backend="gloo",
+            device=dev, timeout_s=GROUP_TIMEOUT_S):
+        _fail("[guards] child: no process group")
+    res = {"rank": rank, "audit": {}}
+    a_np = np.load(os.path.join(workdir, "dot_a.npy"), mmap_mode="r")
+    b_np = np.load(os.path.join(workdir, "dot_b.npy"), mmap_mode="r")
+    ea, eb = st.from_numpy(a_np), st.from_numpy(b_np)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    keys = st.as_expr(from_tensor(torch.rand(SORT_N, generator=gen,
+                                             device=dev)))
+    pts = st.from_numpy(np.load(os.path.join(workdir, "km_points.npy"),
+                                mmap_mode="r"))
+    c0 = st.from_numpy(np.load(os.path.join(workdir, "km_c0.npy")))
+    cases = {"dot": lambda: st.dot(ea, eb), "sort": lambda: st.sort(keys),
+             "kmeans": lambda: km.kmeans_step(pts, c0, KM_K)}
+    for name, build in cases.items():
+        audit = st.audit_plan(build())
+        _, got = _counted(metrics_mod, lambda: build().evaluate())
+        res["audit"][name] = dict(_audit_record(audit), counted=got)
+    del keys, pts, c0
+
+    # the dot's card peak, predicted and measured on this rank
+    plan = _plan_of(st, st.dot(ea, eb))
+    val = memory.validate_plan(plan)
+    res["dot_mem"] = dict(val or {}, peak_bytes_per_chip=plan.report[
+        "memory"]["peak_bytes_per_chip"])
+    # the governor: a budget below the dot's predicted peak and above
+    # the finer_tiling rung's
+    normal = plan.report["memory"]["peak_bytes_card"]
+    finer = memory._rung_estimate(st.dot(ea, eb), "finer_tiling",
+                                  st.get_mesh())[1]
+    budget = (normal + finer) // 2
+    base.clear_plan_cache()  # the governor judges a plan on its miss
+    oom0 = _counter(st, "resilience_oom_events")
+    st.FLAGS.hbm_budget_bytes = budget
+    try:
+        e = st.dot(ea, eb)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = e.evaluate()
+        torch.cuda.synchronize()
+        rec = getattr(e, "_resilience", None) or {}
+        # the rung's walk over what was resident, plus the operands
+        gov_peak = (torch.cuda.max_memory_allocated(dev) - resident
+                    + plan.report["memory"]["card_args_bytes"])
+        got = out.glom()
+    finally:
+        st.FLAGS.hbm_budget_bytes = 0
+    with degrade._RungCtx("finer_tiling"):
+        forced = base.evaluate(degrade.clone_for_replan(
+            st.dot(ea, eb))).glom()
+    res["governor"] = {
+        "normal": normal, "finer": finer, "budget": budget,
+        "rung": rec.get("rung"), "origin": rec.get("origin"),
+        "rung_predicted": rec.get("rung_predicted_bytes"),
+        "oom": _counter(st, "resilience_oom_events") - oom0,
+        "bit_equal": bool(np.array_equal(got, forced)),
+        "measured_peak": int(gov_peak)}
+    with open(os.path.join(workdir, f"guards{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh_mod.shutdown()
+
+
+def _guards_group(st, card: str, workdir: str) -> None:
+    """[audit] and the group half of [memory]: two gloo processes."""
+    pts_np, c0_np, _ = _data(LOCAL_KM_N, KM_D, KM_K, "clustered", 0)
+    np.save(os.path.join(workdir, "km_points.npy"), pts_np)
+    np.save(os.path.join(workdir, "km_c0.npy"), c0_np)
+    del pts_np
+    rng = np.random.RandomState(2)
+    for name in ("dot_a", "dot_b"):
+        np.save(os.path.join(workdir, f"{name}.npy"),
+                rng.rand(LOCAL_DOT_N, LOCAL_DOT_N).astype(np.float32))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--guards-child", workdir, str(r)])
+             for r in range(GROUP_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=GROUP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _fail(f"[guards] a group child did not finish in "
+              f"{GROUP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        _fail(f"[guards] group children exited "
+              f"{[p.returncode for p in procs]}")
+    res = []
+    for r in range(GROUP_RANKS):
+        with open(os.path.join(workdir, f"guards{r}.json")) as f:
+            res.append(json.load(f))
+    for rr in res:
+        r = rr["rank"]
+        for name, a in rr["audit"].items():
+            c = a["counted"]
+            if a["multiset"] != c["calls"] or \
+                    a["operand_bytes"] != c["bytes"]:
+                _fail(f"[audit] rank {r} {name}: audit {a['multiset']} "
+                      f"{a['operand_bytes']} against counted {c['calls']} "
+                      f"{c['bytes']}")
+            if a["gathers"] != c["sites"]:
+                _fail(f"[audit] rank {r} {name}: full_gather findings "
+                      f"{a['gathers']} against group_materialize_calls "
+                      f"{c['sites']}")
+            _say(f"[audit] rank {r} {name}: {a['multiset']} with operand "
+                 f"bytes {a['operand_bytes']}, equal to the walk's "
+                 f"collective_calls/collective_bytes (limit: equal); "
+                 f"full_gather {a['gathers']} = group_materialize_calls "
+                 f"{c['sites']}; comm_bytes {a['comm_bytes']:.0f} modeled "
+                 f"per rank")
+        if rr["audit"]["kmeans"]["gathers"]:
+            _fail(f"[audit] rank {r}: config-3 k-means gathers whole "
+                  f"arrays: {rr['audit']['kmeans']['findings']}")
+        if rr["audit"]["dot"]["multiset"].get("all-reduce", 0) < 1 or \
+                rr["audit"]["sort"]["multiset"].get("all-to-all", 0) < 2:
+            _fail(f"[audit] rank {r}: want the dot's k-split all-reduce "
+                  f"and the sort's exchanges, got {rr['audit']}")
+        m = rr["dot_mem"]
+        if not m.get("measured_peak_bytes"):
+            _fail(f"[memory] rank {r}: the dot's walk was not measured")
+        ratio = m["predicted_bytes"] / m["measured_peak_bytes"]
+        _say(f"[memory] {LOCAL_DOT_N}^2 st.dot, gloo rank {r} of "
+             f"{GROUP_RANKS}: predicted peak_bytes_card "
+             f"{m['predicted_bytes']}, measured {m['measured_peak_bytes']}"
+             f" (ratio {ratio:.4f}, limit 1 +- {GUARD_MEM_TOL}); the JAX "
+             f"model's peak_bytes_per_chip {m['peak_bytes_per_chip']}")
+        if abs(ratio - 1.0) > GUARD_MEM_TOL:
+            _fail(f"[memory] rank {r}: predicted/measured {ratio:.4f}")
+        g = rr["governor"]
+        if (g["rung"] != "finer_tiling" or g["origin"] != "predictive"
+                or g["oom"] != 0 or not g["bit_equal"]):
+            _fail(f"[memory] rank {r}: governor {g}")
+        _say(f"[memory] rank {r}: budget {g['budget']} between the dot's "
+             f"predicted {g['normal']} and finer_tiling's {g['finer']}: "
+             f"the governor took {g['rung']} before the walk, 0 OOM "
+             f"raised (limit 0), result bit-equal to the rung forced; the "
+             f"rung's walk measured {g['measured_peak']}")
+    _say(f"[guards] group children {time.perf_counter() - t0:.1f} s on "
+         f"{card}")
+
+
+def _walk_peak(st, memory, plan, free: bool):
+    from spartan_tpu_torch.expr import base
+
+    prev = base.FREE_AT_LAST_USE
+    base.FREE_AT_LAST_USE = free
+    try:
+        val = memory.validate_plan(plan)
+    finally:
+        base.FREE_AT_LAST_USE = prev
+    if val is None:
+        _fail("[memory] the walk was not measured on the card")
+    return val
+
+
+def _guards_memory(st, km, card: str) -> None:
+    """[memory] in this process: four plans' predicted card peaks
+    against their measured walks, the walk keeping every value and
+    freeing each at its last consumer."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.resilience import memory
+
+    dev = torch.device("cuda")
+    pts_np, c0_np, _ = _data(KM_N, KM_D, KM_K, "clustered", 0)
+    rng = np.random.RandomState(0)
+    cases = []
+    with st.use_mesh(st.build_mesh(RES_MESH)) as mesh:
+        points = st.from_numpy(pts_np)
+        cases.append((f"config-3 kmeans_step {RES_MESH}",
+                      _plan_of(st, km.kmeans_step(
+                          points, st.from_numpy(c0_np), KM_K)), mesh))
+    del pts_np
+    ea = st.from_numpy(rng.rand(DOT_N, DOT_N).astype(np.float32))
+    eb = st.from_numpy(rng.rand(DOT_N, DOT_N).astype(np.float32))
+    cases.append((f"{DOT_N}^2 chain (K={DOT_K}) first plan",
+                   _plan_of(st, _build_chain(st, ea, eb, DOT_K)),
+                   st.get_mesh()))
+    with st.use_mesh(st.build_mesh(RES_MESH)) as mesh:
+        a = st.from_numpy(np.random.RandomState(2).rand(
+            LOCAL_DOT_N, LOCAL_DOT_N).astype(np.float32))
+        cases.append((f"{LOCAL_DOT_N}^2 st.dot {RES_MESH}",
+                      _plan_of(st, st.dot(a, a)), mesh))
+    x, params = _vgg_params(dev)
+    with st.use_mesh(st.build_mesh(VGG_MESH)) as mesh:
+        X = from_tensor(x, tiling=st.Tiling((None, "x", None, None)))
+        P = [(from_tensor(w), from_tensor(b)) for w, b in params]
+        cases.append(("VGG-16 block-1 forward", _plan_of(
+            st, vgg_block1(st, X, P)), mesh))
+    for label, plan, mesh in cases:
+        with st.use_mesh(mesh):
+            keep = _walk_peak(st, memory, plan, False)
+            free = _walk_peak(st, memory, plan, True)
+        pred = free["predicted_bytes"]
+        ratio = pred / free["measured_peak_bytes"]
+        _say(f"[memory] {label}: predicted peak_bytes_card {pred}, "
+             f"measured {free['measured_peak_bytes']} freeing at the last "
+             f"consumer (ratio {ratio:.4f}, limit 1 +- {GUARD_MEM_TOL}), "
+             f"{keep['measured_peak_bytes']} keeping every value; the JAX "
+             f"model's peak_bytes_per_chip "
+             f"{plan.report['memory']['peak_bytes_per_chip']} on {card}")
+        if abs(ratio - 1.0) > GUARD_MEM_TOL:
+            _fail(f"[memory] {label}: predicted/measured {ratio:.4f}")
+    del cases, points, ea, eb, a, X, P, x, params
+    torch.cuda.empty_cache()
+
+
+def persist_child(workdir: str, idx: int) -> None:
+    """One fresh process on [guards]'s store: the 4096^2 chain and
+    config-3 ``kmeans()`` on (4, 2) and (8, 1); results, DP runs,
+    planning ms and the store's counters to ``workdir``."""
+    import hashlib
+    import importlib
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.utils import profiling as prof
+
+    metrics_mod = importlib.import_module("spartan_tpu_torch.obs.metrics")
+    dev = torch.device("cuda")
+    st.set_default_device(dev)
+    st.FLAGS.persist_cache_dir = os.path.join(workdir, "plans")
+    rng = np.random.RandomState(0)
+    a_np = rng.rand(DOT_N, DOT_N).astype(np.float32)
+    b_np = rng.rand(DOT_N, DOT_N).astype(np.float32)
+    pts_np, c0_np, _ = _data(KM_N, KM_D, KM_K, "clustered", 0)
+    res = {"bits": {}, "plan_ms": {}}
+
+    def planning(fn):
+        """``fn()`` and the planning ms of its misses."""
+        before = _plan_ms(prof)
+        out = fn()
+        after = _plan_ms(prof)
+        return out, [a - b for a, b in zip(after, before)]
+
+    for shape in PLAN_MESHES:
+        with st.use_mesh(st.build_mesh(shape)):
+            ea, eb = st.from_numpy(a_np), st.from_numpy(b_np)
+            val, res["plan_ms"][f"chain{shape}"] = planning(
+                lambda: _build_chain(st, ea, eb, DOT_K).glom())
+            res["bits"][f"chain{shape}"] = _bits(val).tolist()
+            points = st.from_numpy(pts_np)
+            (centers, assign), res["plan_ms"][f"kmeans{shape}"] = planning(
+                lambda: km.kmeans(points, KM_K, num_iter=KM_ITERS,
+                                  centers=c0_np))
+            res["bits"][f"kmeans{shape}"] = hashlib.sha256(
+                _bits(centers).tobytes() + assign.tobytes()).hexdigest()
+            del points
+    res["dp_runs"] = metrics_mod.REGISTRY.counter_values().get(
+        "tiling_dp_runs", 0)
+    res["persist"] = {k: v for k, v in
+                      metrics_mod.REGISTRY.counter_values().items()
+                      if k.startswith("persist")}
+    with open(os.path.join(workdir, f"persist{idx}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _persist_run(workdir: str, idx: int) -> dict:
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--persist-child", workdir, str(idx)],
+                       timeout=GROUP_TIMEOUT_S)
+    if p.returncode != 0:
+        _fail(f"[persist] child {idx} exited {p.returncode}")
+    with open(os.path.join(workdir, f"persist{idx}.json")) as f:
+        return json.load(f)
+
+
+def _guards_persist(card: str, workdir: str) -> None:
+    """[persist]: a cold child builds and stores, a warm one reads every
+    plan back with no DP run, and after one stored file is corrupted a
+    third rejects that entry and plans it again, all bit-equal."""
+    import zlib
+
+    t0 = time.perf_counter()
+    cold = _persist_run(workdir, 0)
+    warm = _persist_run(workdir, 1)
+    if warm["bits"] != cold["bits"]:
+        _fail("[persist] the warm child's results differ from the cold's")
+    hits = warm["persist"].get("persist_hits", 0)
+    errors = {k: v for k, v in warm["persist"].items() if "errors" in k}
+    stores = cold["persist"].get("persist_stores", 0)
+    if (warm["dp_runs"] != 0 or cold["dp_runs"] != stores or hits != stores
+            or errors):
+        _fail(f"[persist] DP runs cold {cold['dp_runs']} warm "
+              f"{warm['dp_runs']}, warm counters {warm['persist']}")
+    for key in cold["plan_ms"]:
+        c, w = cold["plan_ms"][key], warm["plan_ms"][key]
+        _say(f"[persist] {key}: pass:auto_tiling {c[0]:.3f} ms cold, "
+             f"{w[0]:.3f} ms warm; tiling {c[1]:.3f} ms cold, {w[1]:.3f} "
+             f"ms warm (the planning of its misses) on {card}")
+    store = os.path.join(workdir, "plans")
+    entries = sorted(e for e in os.listdir(store) if e.startswith("entry_")
+                     and "." not in e)
+    _say(f"[persist] warm child: {hits} disk hits, {warm['dp_runs']} DP "
+         f"runs (limit 0; the cold child ran {cold['dp_runs']}), results "
+         f"bit-equal; {len(entries)} entries stored")
+    # corrupt one CRC'd file: a byte of the first entry's plan
+    path = os.path.join(store, entries[0], "plan.json")
+    with open(path, "r+b") as f:
+        head = f.read(1)
+        f.seek(0)
+        f.write(bytes([head[0] ^ 0x20]))
+    with open(path, "rb") as f:
+        if zlib.crc32(f.read()) == json.load(open(os.path.join(
+                store, entries[0], "manifest.json")))["files"][
+                    "plan.json"]["crc32"]:
+            _fail("[persist] the corrupted file still passes its CRC")
+    third = _persist_run(workdir, 2)
+    crc = {k: v for k, v in third["persist"].items() if "errors" in k}
+    if third["bits"] != cold["bits"] or list(crc.values()) != [1] or \
+            "crc" not in next(iter(crc)) or third["dp_runs"] != 1:
+        _fail(f"[persist] after the corruption: {third['persist']}, DP "
+              f"runs {third['dp_runs']}, bit-equal "
+              f"{third['bits'] == cold['bits']}")
+    _say(f"[persist] one corrupted plan.json: rejected ({crc}), planned "
+         f"again (1 DP run), results bit-equal; the three children "
+         f"{time.perf_counter() - t0:.1f} s on {card}")
+
+
+def _km_steps(st, km, pe, c, first: int, last: int):
+    """Iterations ``first``..``last - 1`` of k-means, one evaluate each."""
+    for _ in range(first, last):
+        c = km.kmeans_step(pe, c, KM_K).evaluate()
+    return c
+
+
+def _guards_integrity(st, kk, km, card: str) -> int:
+    """[integrity]: config-3 k-means on (4, 2) under the sentinel with
+    position GUARD_VICTIM corrupting sampled walks: caught every time,
+    quarantined at the strike count, the caller rehomes its arrays and
+    finishes bit-equal to a clean run through the same quarantine.
+    Returns the k-means launches of the checked run."""
+    import importlib
+
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import elastic, integrity
+
+    profile_mod = importlib.import_module("spartan_tpu_torch.obs.profile")
+    pts_np, c0_np, _ = _data(LOCAL_KM_N, KM_D, KM_K, "clustered", 0)
+    names = ("integrity_check", "profile_sample_every",
+             "sdc_quarantine_strikes", "retry_backoff_s")
+    saved = {n: getattr(st.FLAGS, n) for n in names}
+
+    def run(chaos: bool):
+        mesh_mod.reset_epoch_for_tests()
+        base.clear_plan_cache()
+        integrity.reset()
+        with st.use_mesh(st.build_mesh(RES_MESH)):
+            pe = st.from_numpy(pts_np).evaluate()
+            # the centers in the step's output tiling: every step walks
+            # one plan, whose runs the cadence counts
+            c = st.from_numpy(c0_np, tiling=st.Tiling(("x", "y"))).evaluate()
+            if not chaos:
+                c = _km_steps(st, km, pe, c, 0, 12)
+                elastic.quarantine_device(GUARD_VICTIM, reason="sdc")
+                elastic.rehome([pe, c])
+                return _km_steps(st, km, pe, c, 12, KM_ITERS).glom(), None
+            with st.chaos(GUARD_SDC, seed=3) as plan:
+                c = _km_steps(st, km, pe, c, 0, 12)
+                try:
+                    _km_steps(st, km, pe, c, 12, 13)
+                    _fail("[integrity] no quarantine at the third strike")
+                except mesh_mod.StaleMeshError:
+                    pass
+                elastic.rehome([pe, c])
+                out = _km_steps(st, km, pe, c, 12, KM_ITERS).glom()
+            return out, plan
+
+    try:
+        st.FLAGS.retry_backoff_s = 0.0
+        st.FLAGS.integrity_check = False
+        clean, _ = run(False)
+        st.FLAGS.integrity_check = True
+        st.FLAGS.profile_sample_every = GUARD_SAMPLE
+        st.FLAGS.sdc_quarantine_strikes = GUARD_STRIKES
+        v0 = _counter(st, "integrity_violations")
+        # the cadence also samples the profiler (every 5th successful
+        # warm walk of a plan): its walks' launches are counted apart
+        sampled = [0, 0]
+        impl = profile_mod._profile_impl
+
+        def counted_impl(*a, **kw):
+            before = kk.LAUNCHES
+            try:
+                return impl(*a, **kw)
+            finally:
+                sampled[0] += 1
+                sampled[1] += kk.LAUNCHES - before
+
+        profile_mod._profile_impl = counted_impl
+        _reset_counts(kk)
+        try:
+            got, plan = run(True)
+        finally:
+            profile_mod._profile_impl = impl
+        launches = kk.LAUNCHES
+        status = integrity.status()
+        hist = integrity.quarantine_history()
+        walks = plan.counts()["dispatch"]
+        # the step plan runs 12 iterations plus one retry per clean
+        # violation and the quarantined run; the rebuilt mesh's plan
+        # runs the last KM_ITERS - 12; each plan re-walks every
+        # GUARD_SAMPLE-th of its runs
+        old, new = 12 + GUARD_STRIKES, KM_ITERS - 12
+        want_walks = old + new
+        want_checks = old // GUARD_SAMPLE + new // GUARD_SAMPLE
+        # the profiler samples successful walks after each plan's first
+        want_samples = ((old - 1 - GUARD_STRIKES) // GUARD_SAMPLE
+                        + (new - 1) // GUARD_SAMPLE)
+        if (walks != want_walks or status["checks"] != want_checks
+                or sampled[0] != want_samples
+                or launches != walks + status["checks"] + sampled[1]):
+            _fail(f"[integrity] {walks} walks (want {want_walks}), "
+                  f"{status['checks']} checks (want {want_checks}), "
+                  f"{sampled[0]} profiler samples (want {want_samples}), "
+                  f"{launches} k-means launches (want walks + checks + "
+                  f"the samples' {sampled[1]})")
+        if (_counter(st, "integrity_violations") - v0 != GUARD_STRIKES
+                or [h["device"] for h in hist] != [GUARD_VICTIM]
+                or [f["kind"] for f in plan.fired] != ["sdc"] * 3):
+            _fail(f"[integrity] violations/quarantine: {status}, {hist}, "
+                  f"fired {plan.fired}")
+        if not np.array_equal(_bits(got), _bits(clean)):
+            _fail("[integrity] the centers differ from the clean run's")
+        _say(f"[integrity] config-3 k-means {LOCAL_KM_N}x{KM_D} on "
+             f"{RES_MESH} with {GUARD_SDC}: {GUARD_STRIKES} violations "
+             f"caught at sampled walks (every {GUARD_SAMPLE}th), no "
+             f"corrupt result returned, position {GUARD_VICTIM} "
+             f"quarantined at {hist[0]['strikes']} strikes (limit "
+             f"{GUARD_STRIKES}), mesh epoch {hist[0]['epoch_from']} -> "
+             f"{hist[0]['epoch_to']}; final centers bit-equal to a clean "
+             f"run through the same quarantine; {launches} k-means "
+             f"launches = {walks} walks + {status['checks']} re-walks + "
+             f"{sampled[1]} in the profiler's {sampled[0]} samples at the "
+             f"same cadence (limit: equal)")
+
+        # the check on and off, alternated over one plan (the flag is
+        # not in the plan key), with the profiler sampling alike in both
+        mesh_mod.reset_epoch_for_tests()
+        base.clear_plan_cache()
+        integrity.reset()
+        ips = {False: [], True: []}
+        with st.use_mesh(st.build_mesh(RES_MESH)):
+            pe = st.from_numpy(pts_np).evaluate()
+            c0 = st.from_numpy(c0_np,
+                               tiling=st.Tiling(("x", "y"))).evaluate()
+            _km_steps(st, km, pe, c0, 0, 2)
+            for _ in range(GUARD_IPS_PAIRS):
+                for check in (False, True):
+                    st.FLAGS.integrity_check = check
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    _km_steps(st, km, pe, c0, 0, KM_ITERS)
+                    torch.cuda.synchronize()
+                    ips[check].append(KM_ITERS / (time.perf_counter() - t1))
+        off, on = (float(np.median(ips[k])) for k in (False, True))
+        _say(f"[integrity] k-means iters/s (one evaluate an iteration, "
+             f"{GUARD_IPS_PAIRS} alternated pairs, medians): check off "
+             f"{off:.2f}, on with no chaos {on:.2f} "
+             f"({(1 - on / off) * 100:.1f}% lower; every "
+             f"{GUARD_SAMPLE}th walk re-walked, the profiler sampling "
+             f"alike in both); off {[round(v, 2) for v in ips[False]]}, "
+             f"on {[round(v, 2) for v in ips[True]]} on {card}")
+    finally:
+        for n, v in saved.items():
+            setattr(st.FLAGS, n, v)
+        mesh_mod.reset_epoch_for_tests()
+        base.clear_plan_cache()
+        integrity.reset()
+    return launches
+
+
+def phase_guards(st, kk, km, card: str, workdir: str) -> dict:
+    """[guards]: the plan guards on the card — [audit], [memory],
+    [persist] and [integrity] (module docstring)."""
+    t0 = time.perf_counter()
+    _guards_group(st, card, workdir)
+    _guards_memory(st, km, card)
+    _guards_persist(card, workdir)
+    launches = _guards_integrity(st, kk, km, card)
+    _say(f"[guards] {time.perf_counter() - t0:.1f} s")
+    return {"integrity_launches": launches}
+
+
 def phase_spmd(st, kk, ks, km, card: str, dev, kmr: dict) -> dict:
     t0 = time.perf_counter()
     phase_spmd_threads(st, card, dev, kmr["points"], kmr["c0"])
@@ -4932,6 +5537,12 @@ def main() -> None:
         return
     if len(sys.argv) == 3 and sys.argv[1] == "--obs-child":
         obs_child(sys.argv[2])
+        return
+    if len(sys.argv) == 4 and sys.argv[1] == "--guards-child":
+        guards_child(sys.argv[2], int(sys.argv[3]))
+        return
+    if len(sys.argv) == 4 and sys.argv[1] == "--persist-child":
+        persist_child(sys.argv[2], int(sys.argv[3]))
         return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -5009,6 +5620,11 @@ def main() -> None:
         elr = phase_elastic_group(st, card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_guards_")
+    try:
+        guard = phase_guards(st, kk, km, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -5023,7 +5639,8 @@ def main() -> None:
         "group_launches_per_rank": grp["kmeans"],
         "local_launches_per_rank": loc["kmeans"],
         "resilience_launches": resr["launches"],
-        "elastic_survivor_launches": elr["survivor_launches"]}, {
+        "elastic_survivor_launches": elr["survivor_launches"],
+        "integrity_launches": guard["integrity_launches"]}, {
         "name": "windowed_segsum", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:148",

@@ -44,16 +44,18 @@ from .parallel.mesh import (StaleMeshError, build_mesh,  # noqa: E402
                             rebuild_mesh, set_default_device, set_mesh,
                             use_mesh)
 from . import obs  # noqa: E402
-from .analysis import check, lint  # noqa: E402
+from .analysis import PlanAudit, audit_plan, check, lint  # noqa: E402
 from .obs import (REGISTRY, AuditReport, CalibrationProfile,  # noqa: E402
                   Counter, DeviceProfile, ExplainReport, Gauge, Histogram,
                   Registry, Span, Watchpoint, audit, dump_crash, explain,
                   fit_profile, load_profile, loop_health, metrics,
                   profile_export, save_profile, span, trace_clear,
                   trace_events, trace_export, unwatch, watch)
+from . import persist  # noqa: E402
 from . import resilience  # noqa: E402
 from .resilience.classify import FatalMeshError  # noqa: E402
 from .resilience.faults import ChaosPlan, chaos, chaos_clear  # noqa: E402
+from .resilience.integrity import IntegrityError  # noqa: E402
 from .utils import checkpoint, profiling  # noqa: E402
 from .utils.config import FLAGS  # noqa: E402
 
@@ -61,15 +63,18 @@ __version__ = "0.1.0"
 
 __all__ = (["DistArray", "SparseDistArray", "MaskedDistArray", "TileExtent",
             "Tiling", "FLAGS", "from_reference", "checkpoint", "resilience",
-            "FatalMeshError", "chaos", "chaos_clear", "ChaosPlan",
+            "FatalMeshError", "IntegrityError", "chaos", "chaos_clear",
+            "ChaosPlan",
             "rebuild_mesh", "mesh_epoch", "StaleMeshError",
             "build_mesh", "get_mesh", "set_mesh", "use_mesh",
             "set_default_device", "get_default_device", "initialize",
             "initialize_distributed", "shutdown", "collectives",
             "stencil", "maxpool", "avgpool",
-            "obs", "profiling", "metrics", "trace_export", "trace_events",
+            "obs", "persist", "profiling", "metrics", "trace_export",
+            "trace_events",
             "trace_clear", "span", "Span", "REGISTRY", "Registry",
-            "Counter", "Gauge", "Histogram", "check", "lint", "explain",
+            "Counter", "Gauge", "Histogram", "check", "lint", "audit_plan",
+            "PlanAudit", "explain",
             "ExplainReport", "ledger", "CalibrationProfile", "fit_profile",
             "save_profile", "load_profile", "profile", "profile_export",
             "DeviceProfile", "audit", "AuditReport", "watch", "unwatch",

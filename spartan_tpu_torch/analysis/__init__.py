@@ -16,10 +16,12 @@ pipeline. Nothing here runs a kernel.
   before anything runs, the sample sort's declared tiling against the
   tiling its exchange produces, and unresolvable/degenerate tilings.
 
-The JAX package's static communication audit (``plan_audit``/``hlo``,
-``st.audit_plan``) reads post-GSPMD HLO; its counterpart for the port —
-a static list of the collectives a group walk issues — is ROADMAP A4's
-next part.
+* :mod:`plan_audit` (with :mod:`hlo`'s records and byte model) — the
+  static communication audit, ``st.audit_plan``: the collectives a
+  group walk of the plan issues, listed by a dry walk on shapes alone
+  (the JAX package reads them out of post-GSPMD HLO), with
+  ``full_gather`` / ``replicated_intermediate`` / ``missed_donation``
+  findings.
 
 Public surface (``st.check`` / ``st.lint``):
 
@@ -33,11 +35,13 @@ from typing import Any, List, Sequence
 
 from .lints import LintFinding, LintWarning, lint
 from .passes import PassInvariantError
+from .plan_audit import AuditFinding, PlanAudit, audit_plan
 from .verify import VerificationError, Violation, verify_dag, walk
 
 __all__ = ["check", "lint", "verify_dag", "walk", "Violation",
            "LintFinding", "LintWarning", "VerificationError",
-           "PassInvariantError"]
+           "PassInvariantError", "audit_plan", "PlanAudit",
+           "AuditFinding"]
 
 
 def check(expr: Any, donate: Sequence[Any] = ()) -> List[LintFinding]:

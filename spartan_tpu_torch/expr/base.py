@@ -65,8 +65,11 @@ from ..obs import trace as trace_mod
 from ..obs.explain import build_plan_report, scope_digest_table
 from ..parallel import mesh as mesh_mod
 from ..parallel import redistribute as redistribute_mod
+from .. import persist as persist_mod
 from ..resilience import degrade as degrade_mod
 from ..resilience import faults as faults_mod
+from ..resilience import integrity as integrity_mod
+from ..resilience import memory as memory_mod
 from ..utils import config as config_mod
 from ..utils import dtypes
 from ..utils import profiling as prof
@@ -191,29 +194,45 @@ class Expr:
         """This node's local value on a group mesh: a ``DistArray`` of
         the rank's block (a tuple of them for a multi-output node)."""
         if self._id not in env:
-            try:
-                if _ANNOTATE_FLAG._value and trace_mod.profiler_active():
-                    # each rank's profile attributes its kernels to the
-                    # node, as Expr.lower's range does
-                    with trace_mod.named_scope(profile_mod.scope_name(self)):
-                        val = self._lower_local_value(env)
-                else:
-                    val = self._lower_local_value(env)
-            except Exception as e:
-                if self._site and not getattr(e, "_expr_annotated", False):
-                    e._expr_annotated = True
-                    e.add_note(f"while evaluating {type(self).__name__} "
-                               f"built at {self._site[0]}:{self._site[1]} "
-                               f"(in {self._site[2]})")
-                raise
-            if self._forced_tiling is not None and isinstance(val,
-                                                              DistArray):
-                val = redistribute_mod.relayout(val, self._forced_tiling)
-            if numerics_mod._PROBING:
-                # numerics sentinel: the rank's block's health word
-                numerics_mod.probe(self, val)
-            env[self._id] = val
+            nodes = env.nodes
+            if nodes is not None:
+                # the plan audit's dry walk: collectives are attributed
+                # to the innermost node being lowered
+                nodes.append(self)
+                try:
+                    return self._lower_local_node(env)
+                finally:
+                    nodes.pop()
+            return self._lower_local_node(env)
         return env[self._id]
+
+    def _lower_local_node(self, env: "GroupEnv") -> Any:
+        """Lower this node on a group mesh and memoize its value."""
+        try:
+            if _ANNOTATE_FLAG._value and trace_mod.profiler_active():
+                # each rank's profile attributes its kernels to the
+                # node, as Expr.lower's range does
+                with trace_mod.named_scope(profile_mod.scope_name(self)):
+                    val = self._lower_local_value(env)
+            else:
+                val = self._lower_local_value(env)
+        except Exception as e:
+            if self._site and not getattr(e, "_expr_annotated", False):
+                e._expr_annotated = True
+                e.add_note(f"while evaluating {type(self).__name__} "
+                           f"built at {self._site[0]}:{self._site[1]} "
+                           f"(in {self._site[2]})")
+            raise
+        if self._forced_tiling is not None and isinstance(val,
+                                                          DistArray):
+            val = redistribute_mod.relayout(val, self._forced_tiling)
+        if numerics_mod._PROBING:
+            # numerics sentinel: the rank's block's health word
+            numerics_mod.probe(self, val)
+        env[self._id] = val
+        if env.release:
+            env.consumed(env.release.get(self._id))
+        return val
 
     def _lower_local_value(self, env: "GroupEnv") -> Any:
         """The node's local rule, or its whole lowering kept as the
@@ -265,6 +284,10 @@ class Expr:
                     val, self._forced_tiling, mesh_mod.get_mesh(),
                     src=self._default_tiling())
             env[self._id] = val
+            rel = getattr(env, "release", None)
+            if rel:
+                env.consumed(rel.get(self._id))
+            return val
         return env[self._id]
 
     def _sig(self, ctx: "_SigCtx") -> Tuple:
@@ -752,7 +775,8 @@ class _Plan:
     of it has succeeded (the chaos seam's ``compile`` vs ``dispatch``)."""
 
     __slots__ = ("dag", "leaf_ids", "out_tilings", "is_tuple", "arg_order",
-                 "key", "report", "warm", "stored", "__weakref__")
+                 "key", "report", "warm", "stored", "release",
+                 "governed_rung", "persist_digest", "__weakref__")
 
     def __init__(self, dag: Expr, leaf_ids: Tuple[int, ...],
                  out_tilings: Tuple[Tiling, ...], is_tuple: bool,
@@ -767,6 +791,14 @@ class _Plan:
         self.report = report
         self.warm = False
         self.stored: Optional["_Plan"] = None
+        # (consumers, release) of _release_map: the walk frees each
+        # value at its last consumer (_FreeingEnv)
+        self.release: Optional[Tuple[Dict[int, int],
+                                     Dict[int, Tuple[int, ...]]]] = None
+        # the memory governor's rung for an over-budget plan
+        self.governed_rung: Optional[str] = None
+        # the persist store's address of this plan
+        self.persist_digest: Optional[str] = None
 
 
 # The plan cache is an LRU shared by every thread that evaluates;
@@ -902,21 +934,101 @@ def _leaf_arg(leaf: Expr) -> Any:
     raise TypeError(f"unknown leaf {leaf!r}")
 
 
-class GroupEnv(dict):
+# The walk frees each value at its last consumer (False: every value
+# lives until the walk ends, as before the memory governor; a switch for
+# measuring the difference)
+FREE_AT_LAST_USE = True
+
+
+def _release_map(dag: Expr, leaf_ids: Sequence[int]
+                 ) -> Tuple[Dict[int, int], Dict[int, Tuple[int, ...]]]:
+    """(consumers, release) of a plan: each interior node's count of
+    distinct parents, and for each node the children it may be the last
+    consumer of. Leaves and roots are never freed by the walk."""
+    from .optimize import dag_nodes
+
+    keep = set(leaf_ids) | {dag._id}
+    if isinstance(dag, TupleExpr):
+        keep.update(e._id for e in dag.elements)
+    consumers: Dict[int, int] = {}
+    release: Dict[int, Tuple[int, ...]] = {}
+    for n in dag_nodes(dag):
+        kids = tuple({c._id: None for c in n.children()
+                      if c._id not in keep})
+        for k in kids:
+            consumers[k] = consumers.get(k, 0) + 1
+        if kids:
+            release[n._id] = kids
+    return consumers, release
+
+
+class _Freeing:
+    """The walk's freeing of values at their last consumer: ``release``
+    maps a node to the children it may be the last reader of, and
+    ``remaining`` counts each child's consumers still to run."""
+
+    __slots__ = ()
+
+    def consumed(self, kids: Optional[Tuple[int, ...]]) -> None:
+        if not kids:
+            return
+        rem = self.remaining
+        for k in kids:
+            r = rem.get(k, 0) - 1
+            rem[k] = r
+            if r <= 0:
+                self.pop(k, None)
+
+
+class _FreeingEnv(_Freeing, dict):
+    """The env of a plan walk on a logical mesh that frees values at
+    their last consumer (``plan.release``). A loop body walks each
+    iteration in a :meth:`fork`, which frees the same way."""
+
+    __slots__ = ("release", "consumers", "remaining")
+
+    def __init__(self, items, release, consumers):
+        dict.__init__(self, items)
+        self.release = release
+        self.consumers = consumers
+        self.remaining = dict(consumers)
+
+    def fork(self) -> "_FreeingEnv":
+        """A copy with every consumer still to run (a loop iteration)."""
+        return _FreeingEnv(self, self.release, self.consumers)
+
+
+class GroupEnv(_Freeing, dict):
     """The env of a plan walk on a group mesh: node id -> the node's
     local value. ``site`` names the node whose lowering (no local rule)
-    is reading its children whole; ``mesh`` is the group mesh."""
+    is reading its children whole; ``mesh`` is the group mesh;
+    ``nodes`` the audit's stack of nodes being lowered; ``release`` and
+    ``remaining`` free values at their last consumer, as
+    :class:`_FreeingEnv` does."""
 
-    __slots__ = ("site", "mesh")
+    __slots__ = ("site", "mesh", "nodes", "release", "consumers",
+                 "remaining")
 
     def __init__(self, mesh, items=()):
-        super().__init__(items)
+        dict.__init__(self, items)
         self.site = "evaluate"
         self.mesh = mesh
+        # the stack of nodes being lowered, kept only by the plan
+        # audit's dry walk (None on a real walk)
+        self.nodes: Optional[List[Expr]] = None
+        self.release: Optional[Dict[int, Tuple[int, ...]]] = None
+        self.consumers: Dict[int, int] = {}
+        self.remaining: Dict[int, int] = {}
 
     def copy(self) -> "GroupEnv":
+        """A copy (a loop iteration's env) with every consumer still to
+        run."""
         out = GroupEnv(self.mesh, self)
         out.site = self.site
+        out.nodes = self.nodes
+        out.release = self.release
+        out.consumers = self.consumers
+        out.remaining = dict(self.consumers)
         return out
 
 
@@ -1034,6 +1146,37 @@ def _check_epochs(leaves: List[Expr], order: Tuple[int, ...]) -> None:
             arrays=stale)
 
 
+def plan_leaves(plan: _Plan) -> List[Expr]:
+    """The leaves of a plan's optimized DAG, in ``plan.leaf_ids``
+    order (the leaves its first run was seeded with)."""
+    from .optimize import dag_nodes
+
+    by_id = {n._id: n for n in dag_nodes(plan.dag)}
+    return [by_id[lid] for lid in plan.leaf_ids]
+
+
+def walk_env(plan: _Plan, leaves: Sequence[Expr], mesh) -> Dict[int, Any]:
+    """The env a walk of ``plan`` starts from: each of ``leaves`` (in
+    ``plan.leaf_ids`` order) seeded as its tensor, or its local value
+    on a group mesh; the walk frees each value at its last consumer
+    (``FREE_AT_LAST_USE``)."""
+    free = plan.release if FREE_AT_LAST_USE else None
+    if mesh.is_group:
+        env: Dict[int, Any] = GroupEnv(mesh, (
+            (lid, _leaf_local(leaf, mesh))
+            for lid, leaf in zip(plan.leaf_ids, leaves)))
+        if free is not None:
+            env.consumers = free[0]
+            env.remaining = dict(free[0])
+            env.release = free[1]
+        return env
+    seeds = ((lid, _leaf_arg(leaf))
+             for lid, leaf in zip(plan.leaf_ids, leaves))
+    if free is None:
+        return dict(seeds)
+    return _FreeingEnv(seeds, free[1], free[0])
+
+
 def _dispatch(expr: Expr, plan: _Plan, leaves: List[Expr],
               order: Tuple[int, ...], donated: List[DistArray],
               mesh) -> Any:
@@ -1073,13 +1216,7 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
     group = mesh.is_group
     warm = plan.warm
     with prof.phase("build"):
-        if group:
-            env: Dict[int, Any] = GroupEnv(mesh, (
-                (lid, _leaf_local(leaves[i], mesh))
-                for lid, i in zip(plan.leaf_ids, order)))
-        else:
-            env = {lid: _leaf_arg(leaves[i])
-                   for lid, i in zip(plan.leaf_ids, order)}
+        env = walk_env(plan, [leaves[i] for i in order], mesh)
         released = []
         dpos = []
         for j, i in enumerate(order):
@@ -1102,6 +1239,16 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
         else:
             out = plan.dag.lower_local(env) if group else plan.dag.lower(env)
     del env
+    if faults_mod._ACTIVE is not None:
+        # the chaos sdc seam: a flip armed by this walk's fire() lands
+        # on its result; detecting it is the integrity sentinel's job
+        out = faults_mod.corrupt_output(out, plan.out_tilings, mesh)
+    if integrity_mod._CHECK_FLAG._value:
+        # the SDC sentinel: every Nth walk of a plan is checked against
+        # a re-walk on a rotated mesh; a corrupt result raises here,
+        # before it is wrapped, cached or returned
+        integrity_mod.maybe_check(plan, out, [leaves[i] for i in order],
+                                  bool(released), mesh)
     with prof.phase("build"):
         for arr in released:
             arr._release_donated()
@@ -1181,6 +1328,13 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
             if plan is not None:
                 prof.count("plan_hits")
                 esp.set(cache="hit")
+                if plan.governed_rung is not None:
+                    # a plan the memory governor judged over budget
+                    # runs its rung again
+                    gov = memory_mod.redirect_governed(expr, plan,
+                                                       donated, mesh)
+                    if gov is not memory_mod.NOT_HANDLED:
+                        return gov
                 try:
                     return _dispatch(expr, plan, rctx.leaves,
                                      plan.arg_order, donated, mesh)
@@ -1199,11 +1353,31 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
             with prof.phase("verify"):
                 _check(expr, donate=donated)
 
-        plan, dag, leaves = _build_plan(expr, mesh, rctx, plan_key)
+        plan, dag, leaves = _build_plan(expr, mesh, rctx, plan_key,
+                                        store=False)
         if plan is None:
             # the optimizer collapsed the root onto an already-held result
             expr._result = dag._result
             return dag._result
+        if FLAGS.verify_evaluate:
+            # the static communication audit (analysis/plan_audit.py),
+            # miss path only like the DAG check above: findings are
+            # logged and counted, never raised; a persist-restored
+            # verdict is a dict read
+            from ..analysis import plan_audit as plan_audit_mod
+
+            with prof.phase("audit_plan"):
+                plan_audit_mod.audit_on_miss(plan, mesh)
+        # a new plan's decisions (and its audit) go to the store
+        _persist(plan, mesh)
+        if plan.report is not None:
+            # the predictive memory governor: past the budget, the
+            # cheapest sufficient ladder rung runs now, before this
+            # plan's first walk
+            gov = memory_mod.maybe_degrade(expr, plan, plan_key, donated,
+                                           mesh)
+            if gov is not memory_mod.NOT_HANDLED:
+                return gov
         try:
             result = _dispatch(expr, plan, leaves, plan.arg_order, donated,
                                mesh)
@@ -1215,8 +1389,18 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
         return result
 
 
+def _persist(plan: _Plan, mesh) -> None:
+    """Write a new plan to the warm-start store (atomic,
+    lease-arbitrated, no-raise; nothing when the store is off)."""
+    if plan.persist_digest is not None:
+        persist_mod.maybe_store(plan, mesh)
+        plan.persist_digest = None
+        if plan.stored is not None:
+            plan.stored.persist_digest = None
+
+
 def _build_plan(expr: Expr, mesh, rctx: Optional[_PlanSigCtx],
-                plan_key: Optional[Tuple]
+                plan_key: Optional[Tuple], store: bool = True
                 ) -> Tuple[Optional[_Plan], Expr, Optional[List[Expr]]]:
     """The plan-cache MISS pipeline, shared by ``evaluate()``,
     ``st.explain`` and ``st.profile``: optimize -> sign the optimized DAG
@@ -1228,11 +1412,23 @@ def _build_plan(expr: Expr, mesh, rctx: Optional[_PlanSigCtx],
     ``plan.stored`` the cached plan (raw order), or None when the plan is
     not cacheable; ``(None, dag, None)`` when the optimized DAG already
     carries a result and there is nothing to run."""
+    from . import tiling_pass
     from .optimize import optimize
 
+    # the warm-start store (persist/): before the optimizer, look this
+    # raw signature up on disk. A hit's plan decisions replace the
+    # tiling DP; a rejected entry degrades to a normal build with the
+    # reason on the report. One flag read when the store is off
+    p_entry = p_digest = p_reason = None
+    if rctx is not None and plan_key is not None:
+        p_entry, p_digest, p_reason = persist_mod.lookup(plan_key, mesh)
     passes_report: List[Dict[str, Any]] = []
-    with prof.phase("optimize"):
-        dag = optimize(expr, report=passes_report)
+    tiling_pass.begin(p_entry, p_digest is not None)
+    try:
+        with prof.phase("optimize"):
+            dag = optimize(expr, report=passes_report)
+    finally:
+        p_pass = tiling_pass.end()
     if dag._result is not None:
         return None, dag, None
     if getattr(degrade_mod._TLS, "rung", None) in ("finer_tiling",
@@ -1255,24 +1451,64 @@ def _build_plan(expr: Expr, mesh, rctx: Optional[_PlanSigCtx],
         raw_order = _arg_order(rctx.leaves, leaves)
     report = build_plan_report(expr, dag, leaves, plan_key, passes_report,
                                out_tilings, raw_order)
+    restored = (p_entry is not None and p_pass["outcome"] == "restored"
+                and p_entry.matches(out_tilings, is_tuple, raw_order,
+                                    len(raw_order or ())))
+    if restored and p_entry.memory is not None:
+        # the stored memory verdict (its budget is this process's)
+        report["memory"] = dict(p_entry.memory,
+                                budget_bytes=memory_mod.hbm_budget_bytes())
+    else:
+        with prof.phase("memory_model"):
+            # the memory governor's input: the modeled peaks of this
+            # plan (resilience/memory.py), on the miss path only
+            report["memory"] = memory_mod.estimate_report(
+                dag, out_tilings, mesh)
+    if p_digest is not None or p_reason is not None:
+        rec: Dict[str, Any] = {"source": "plan", "digest": p_digest}
+        if p_reason:
+            rec["reason"] = p_reason
+        if restored:
+            persist_mod.note_hit()
+            rec = {"source": "disk", "digest": p_digest}
+            if p_entry.audit is not None:
+                # a warm restart reads the stored audit, never re-walks
+                report["audit"] = p_entry.audit
+        elif p_entry is not None:
+            persist_mod.reject_entry(p_entry, "meta_mismatch")
+            rec["reason"] = "meta_mismatch"
+        if p_pass["last"] is not None:
+            rec.update(p_pass["last"])
+        report["persist"] = rec
+        persist_mod.note_build(rec["source"], p_digest, rec.get("reason"))
+    release = _release_map(dag, leaf_ids)
     stored: Optional[_Plan] = None
     if rctx is not None:
         if raw_order is not None:
             # the winner of a store race is what later lookups see
-            stored = store_plan(plan_key, _Plan(
-                dag, leaf_ids, out_tilings, is_tuple, raw_order, plan_key,
-                report))
+            fresh = _Plan(dag, leaf_ids, out_tilings, is_tuple, raw_order,
+                          plan_key, report)
+            fresh.release = release
+            stored = store_plan(plan_key, fresh)
             report = stored.report
+            if p_digest is not None and not restored:
+                # written to the store once built (_persist)
+                stored.persist_digest = p_digest
         else:
             prof.count("plan_uncacheable")
     plan = _Plan(dag, leaf_ids, out_tilings, is_tuple,
                  tuple(range(len(leaves))), plan_key, report)
+    plan.release = release
     plan.stored = stored
+    if stored is not None:
+        plan.persist_digest = stored.persist_digest
     # cost ledger: this plan's predictions (DP cost + per-class
     # components), so measured walks land next to them. Miss path only
     ledger_mod.note_plan(stored if stored is not None else plan)
     # the digest -> node table, computed LAST, from the final node state
     report["scope_digests"] = scope_digest_table(dag)
+    if store:
+        _persist(plan, mesh)
     return plan, dag, leaves
 
 

@@ -12,7 +12,7 @@ helpers (diag, diagonal, tril, triu, trace) and the contraction builtins
 from __future__ import annotations
 
 import functools
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1184,6 +1184,39 @@ class BlockedScanExpr(Expr):
         t = scan_ops.scan_axes(self.x.out_tiling().axes, self.ndim)
         return tiling_mod.sanitize(t, self.shape)
 
+    def cost(self) -> Dict[str, float]:
+        """The scan as one device would count it (XLA's reduce-window
+        count per column, ``ops/scan.xla_scan_flops``); each input read
+        once, the output written once. The per-device count is the
+        blocked program's (:meth:`cost_per_device`)."""
+        from ..ops import scan as scan_ops
+        from .base import io_bytes
+
+        n = self.shape[0]
+        return {"flops": scan_ops.xla_scan_flops(n)
+                * (self.size // n if n else 0),
+                "transcendentals": 0.0,
+                "bytes accessed": io_bytes(self.children(), self)}
+
+    def cost_per_device(self, mesh) -> Tuple[float, float, float]:
+        """One device's (FLOPs, transcendentals, bytes) of the JAX
+        package's blocked program (``ops/scan.blocked_scan_flops``)."""
+        from ..array import tiling as tiling_mod
+        from ..ops import scan as scan_ops
+        from ..parallel import mesh as mesh_mod
+
+        tiles = tiling_mod.sanitize(self.out_tiling(), self.shape,
+                                    mesh).tiles_per_dim(mesh)
+        p = int(tiles[0])
+        rows = self.shape[0] // p
+        cols = 1
+        for d, t in zip(self.shape[1:], tiles[1:]):
+            cols *= int(d) // int(t)
+        ndev = mesh_mod.device_count(mesh)
+        nbytes = 2.0 * rows * cols * self.dtype.itemsize
+        return (scan_ops.blocked_scan_flops(rows, cols, p, ndev), 0.0,
+                nbytes)
+
 
 def _blocked_scannable(x: Expr, axis: int, op: str) -> bool:
     """The blocked scan's guard: the leading axis, a length that splits
@@ -1217,12 +1250,9 @@ def scan(x, axis: Optional[int] = 0, op: str = "add") -> Expr:
     x = as_expr(x)
     if op not in scan_ops._LOCAL:
         raise ValueError(f"unknown scan op {op!r}")
-    fn = scan_ops._LOCAL[op]
-    if axis is None:
-        return map_expr(lambda v: fn(v.reshape(-1), 0), x)
-    if _blocked_scannable(x, axis, op):
+    if axis is not None and _blocked_scannable(x, axis, op):
         return BlockedScanExpr(x, op)
-    return map_expr(lambda v: fn(v, axis), x)
+    return map_expr(scan_ops.LocalScan(op, axis), x)
 
 
 def cumsum(x, axis: Optional[int] = 0) -> Expr:

@@ -278,6 +278,19 @@ TRANSCENDENTAL = frozenset(("exp", "expm1", "log", "log1p", "sqrt",
                             "arctan2"))
 
 
+def call_flops(tree: LocalExpr, shape: Tuple[int, ...]) -> float:
+    """FLOPs of the calls in a fused tree whose function knows its own
+    count (``fn.flops(shape)``, e.g. ``ops/scan.LocalScan``), over an
+    output of ``shape``."""
+    if isinstance(tree, LocalCall):
+        f = getattr(tree.fn, "flops", None)
+        own = float(f(shape)) if callable(f) else 0.0
+        return own + sum(call_flops(a, shape) for a in tree.args)
+    if isinstance(tree, LocalUfunc):
+        return sum(call_flops(a, shape) for a in tree.args)
+    return 0.0
+
+
 def op_counts(tree: LocalExpr) -> Tuple[int, int]:
     """(FLOPs, transcendentals) per output element of a fused tree: one
     per ufunc, a transcendental one under the second count. A cast

@@ -225,8 +225,11 @@ class LoopExpr(Expr):
         if trace_steps:
             obs_trace.loop_steps_begin(label)  # anchor step 0's span
         hs: list = []
+        # the walk's env frees values at their last consumer; each
+        # iteration walks the body in a fork of it that frees the same way
+        fork = getattr(env, "fork", None)
         for i in range(n):
-            benv = dict(env)
+            benv = fork() if fork is not None else dict(env)
             if self.index_expr is not None:
                 benv[self.index_expr._id] = torch.tensor(i,
                                                          dtype=torch.int32)

@@ -114,10 +114,11 @@ class MapExpr(Expr):
         under ``transcendentals``); each input read once, the output
         written once."""
         from .base import io_bytes
-        from .local import op_counts
+        from .local import call_flops, op_counts
 
         f, t = op_counts(self.op)
-        return {"flops": float(f) * self.size,
+        return {"flops": float(f) * self.size
+                + call_flops(self.op, self.shape),
                 "transcendentals": float(t) * self.size,
                 "bytes accessed": io_bytes(self.inputs, self)}
 

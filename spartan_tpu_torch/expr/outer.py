@@ -42,6 +42,16 @@ class OuterExpr(Expr):
         return ("outer", None if self.fn is None else fn_key(self.fn),
                 ctx.of(self.a), ctx.of(self.b))
 
+    def cost(self) -> Dict[str, float]:
+        """One multiply per output element (a user ``fn``'s operations
+        are not counted, as for a user map); each operand read once,
+        the output written once."""
+        from .base import io_bytes
+
+        return {"flops": float(self.size) if self.fn is None else 0.0,
+                "transcendentals": 0.0,
+                "bytes accessed": io_bytes(self.children(), self)}
+
     def _default_tiling(self) -> Tiling:
         return tiling_mod.block(2)
 

@@ -123,6 +123,7 @@ class ReduceExpr(Expr):
                                 *self.inputs,
                                 cache_key=("reduce_pre", self.pre.key()))
         self._pre_shape = pre_out.shape
+        self._pre_dtype = pre_out.dtype
         self.axis = _norm_axis(axis, len(pre_out.shape))
         self.keepdims = bool(keepdims)
         self.req_dtype = np.dtype(dtype) if dtype is not None else None
@@ -160,7 +161,9 @@ class ReduceExpr(Expr):
     def cost(self) -> Dict[str, float]:
         """The fused pre-reduce tree's ops per element of its output,
         then one FLOP per element folded away (``n - 1`` for a whole
-        reduction of ``n``; a mean adds its divide per output element);
+        reduction of ``n``; nine for an argmax or argmin, XLA's
+        compare-and-select of a value and an index; a mean adds its
+        divide per output element);
         each input read once, the output written once."""
         from .base import io_bytes
         from .local import op_counts
@@ -168,6 +171,9 @@ class ReduceExpr(Expr):
         pre = int(np.prod(self._pre_shape)) if self._pre_shape else 1
         f, t = op_counts(self.pre)
         red = float(pre - self.size)
+        if self.op in ("argmax", "argmin"):
+            # XLA's variadic (value, index) reduce: 9 ops a compare
+            red *= 9.0
         if self.op == "mean":
             red += self.size
         return {"flops": float(f) * pre + red,
@@ -382,6 +388,16 @@ class GeneralReduceExpr(Expr):
         return ("greduce", fn_key(self.local_reduce_fn),
                 fn_key(self.accumulate_fn) if self.accumulate_fn else None,
                 self.axis, str(self.dtype), ctx.of(self.input))
+
+    def cost(self) -> Dict[str, float]:
+        """One FLOP per element folded away, as XLA counts a reduce of
+        one binary op (the user's function is not seen here); the input
+        read once, the output written once."""
+        from .base import io_bytes
+
+        return {"flops": float(self.input.size - self.size),
+                "transcendentals": 0.0,
+                "bytes accessed": io_bytes(self.children(), self)}
 
     def _default_tiling(self) -> Tiling:
         t = self.input.out_tiling()

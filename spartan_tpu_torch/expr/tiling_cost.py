@@ -449,6 +449,9 @@ def assign_tilings(root: Expr) -> Expr:
     mesh = mesh_mod.get_mesh()
     if _mesh_n(mesh) <= 1:
         return root  # single device: everything is replicated anyway
+    from ..utils import profiling as prof
+
+    prof.count("tiling_dp_runs")
     table = _build_table(root, mesh)
 
     def commit(node: Expr, t: Tiling, force: bool) -> None:

@@ -123,11 +123,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed with CUDA error {err}")
 
 
+class _ShapesOnly(threading.local):
+    on = False
+
+
+# set by the plan audit's dry walk (analysis/plan_audit.py) on its
+# thread: there a wrapper given a ``meta`` tensor runs its plain version
+# on shapes alone, and computes no value
+SHAPES_ONLY = _ShapesOnly()
+
+
 def on_card(t, what: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); raises for any other device."""
+    (run the plain version); raises for any other device, except a
+    ``meta`` tensor inside the plan audit's dry walk."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type == "cpu" or (t.device.type == "meta"
+                                  and SHAPES_ONLY.on):
         return False
     raise ValueError(f"no {what} kernel for device {t.device}")

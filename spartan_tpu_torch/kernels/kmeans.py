@@ -200,10 +200,8 @@ def assign_accumulate(points: torch.Tensor, centers: torch.Tensor, k: int,
         raise ValueError("points and centers must be on one device")
     n = points.shape[0]
     valid = n if valid_rows is None else max(0, min(int(valid_rows), n))
-    if points.device.type == "cpu":
+    if not build_mod.on_card(points, "k-means"):
         return assign_accumulate_plain(points, centers, k, valid)
-    if points.device.type != "cuda":
-        raise ValueError(f"no k-means kernel for device {points.device}")
     return _launch(points.contiguous(), centers.contiguous(), k, valid)
 
 

@@ -185,6 +185,18 @@ def _reshard_edges(dag: Any) -> List[Dict[str, Any]]:
 # -- the counted cost analysis -------------------------------------------
 
 
+def _fmt_bytes(n: Any) -> str:
+    if n is None:
+        return "?"
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return (f"{n:.0f}{unit}" if unit == "B"
+                    else f"{n:.1f}{unit}")
+        n /= 1024.0
+    return f"{n:.1f}GiB"
+
+
 def _parallelism(tiling: Any, mesh: Any) -> int:
     p = 1
     for n in tiling.tiles_per_dim(mesh):
@@ -200,10 +212,20 @@ def _per_device(n: Any, c: Dict[str, float], mesh: Any
     block of the work (whole when it broadcasts), a scalar whole. A 2-D
     product under a plan computes its (m/r, k/s) x (k/s, n/c) block and,
     with the contraction split, adds the partial sums with an all-reduce
-    that XLA counts as one FLOP per output element read and written."""
+    that XLA counts as one FLOP per output element read and written. A
+    ``ContractExpr`` under its plan splits the same way: its output grid
+    by the plan's tiling, its primary contraction label by the strategy
+    axis. A node with its own per-device program (the blocked scan)
+    counts it (``cost_per_device``)."""
     from ..expr.base import ScalarExpr
+    from ..expr.contract import ContractExpr
 
+    own = getattr(n, "cost_per_device", None)
+    if own is not None:
+        return own(mesh)
     plan = getattr(n, "_dot_plan", None)
+    if plan is not None and isinstance(n, ContractExpr):
+        return _contract_per_device(n, plan, mesh)
     if plan is not None and getattr(n, "a", None) is not None \
             and n.a.ndim == 2 and n.b.ndim == 2:
         grid, k_ax = plan
@@ -243,6 +265,42 @@ def _per_device(n: Any, c: Dict[str, float], mesh: Any
     nbytes += max(0.0, own) / p
     return (c["flops"] / p, float(c.get("transcendentals", 0.0)) / p,
             nbytes)
+
+
+def _contract_per_device(n: Any, plan: Any, mesh: Any
+                         ) -> Tuple[float, float, float]:
+    """One position's share of a planned ``ContractExpr``: the block
+    product of its output block over its share of the contraction (the
+    primary label split by the strategy axis), plus the all-reduce's one
+    FLOP per output element read and written when the strategy splits
+    it; each operand read in its block, the output written in its."""
+    out_t, strategy = plan
+    size = (lambda ax: 1 if ax is None else
+            _parallelism(_one_axis(ax), mesh))
+
+    def block(shape: Tuple[int, ...], axes: Tuple[Any, ...]) -> float:
+        b = 1.0
+        for d, ax in zip(shape, axes):
+            b *= d / size(ax)
+        return b
+
+    labels = n.contraction_labels
+    s = size(strategy) if (strategy and labels) else 1
+    contr = 1.0
+    for lab in labels:
+        contr *= n.label_size(lab)
+    contr /= s
+    out_blk = block(n.shape, out_t.axes)
+    ta, tb = n.plan_operand_tilings(out_t, strategy)
+    it = n.dtype.itemsize
+    flops = 2.0 * out_blk * contr
+    nbytes = (n.a.dtype.itemsize * block(n.a.shape, ta.axes)
+              + n.b.dtype.itemsize * block(n.b.shape, tb.axes)
+              + it * out_blk)
+    if s > 1:
+        flops += out_blk
+        nbytes += 2.0 * it * out_blk
+    return flops, 0.0, nbytes
 
 
 def _one_axis(ax: Any) -> Any:
@@ -484,6 +542,14 @@ class ExplainReport:
                 if m.get("reason"):
                     line += f" ({m['reason']})"
                 lines.append(line)
+        aud = d.get("audit")
+        if aud:
+            # the static communication audit (analysis/plan_audit.py):
+            # the per-node collective table and its findings
+            from ..analysis.plan_audit import PlanAudit
+
+            for ln in str(PlanAudit.from_dict(aud)).splitlines():
+                lines.append("  " + ln)
         dp = d.get("device_profile")
         if dp:
             lines.append(
@@ -510,11 +576,41 @@ class ExplainReport:
             lines.append(
                 f"  donation: args {don['last_donated_args']} donated "
                 f"({don['donated_dispatches']} donated dispatch(es))")
+        mem = d.get("memory")
+        if mem:
+            line = (f"  memory: predicted peak "
+                    f"{_fmt_bytes(mem.get('peak_bytes_card'))} on the card, "
+                    f"{_fmt_bytes(mem.get('peak_bytes_per_chip'))}/chip "
+                    "by the JAX package's model")
+            if mem.get("budget_bytes"):
+                line += f" (budget {_fmt_bytes(mem['budget_bytes'])})"
+            if mem.get("governed_rung"):
+                line += f", GOVERNED -> rung {mem['governed_rung']}"
+                if mem.get("governed_peak_bytes"):
+                    line += (f" predicted "
+                             f"{_fmt_bytes(mem['governed_peak_bytes'])}")
+            lines.append(line)
+            for top in (mem.get("card_top") or [])[:5]:
+                lines.append(f"    {top['node']:<28} "
+                             f"{_fmt_bytes(top['bytes'])}")
+            val = mem.get("validation")
+            if val:
+                lines.append(
+                    f"    validated: measured peak "
+                    f"{_fmt_bytes(val.get('measured_peak_bytes'))}, "
+                    f"predicted/measured {val.get('error_ratio')}")
         res = d.get("resilience")
         if res:
             line = f"  resilience: retries={res.get('retries', 0)}"
             if res.get("rung"):
                 line += f", degraded rung={res['rung']}"
+                # a predictive pick (the memory governor, before any
+                # walk) apart from a reactive one (after a real OOM)
+                line += f" ({res.get('origin', 'reactive')}"
+                if res.get("rung_predicted_bytes") is not None:
+                    line += (", predicted "
+                             f"{_fmt_bytes(res['rung_predicted_bytes'])}")
+                line += ")"
             if res.get("restores"):
                 line += f", loop restores={res['restores']}"
             if res.get("resumed_from") is not None:

@@ -20,8 +20,9 @@ module records it next to what the card did and closes the loop:
    kernels, never the kernels (nothing synchronises): on the card that
    is a launch time, and the device columns are where device time
    lands. The peak-memory columns (``peak_hbm``, ``snapshot(
-   validate=True)``) read the memory governor's model, which is not
-   ported (ROADMAP A5): they stay None. ``note_skew`` records nothing
+   validate=True)``) hold the memory governor's modeled card peak
+   (``resilience/memory.py``) and, once validated on the card, the
+   measured one. ``note_skew`` records nothing
    until ``obs/skew`` is ported (ROADMAP A6), and ``note_service`` has
    no caller until ``serve/`` is (A5).
 
@@ -215,7 +216,7 @@ def note_plan(plan: Any) -> None:
         e.root = report.get("root")
         e.dp_cost = report.get("dp_cost")
         e.components = report.get("cost_components")
-        e.pred_peak_bytes = mem.get("peak_bytes_per_chip")
+        e.pred_peak_bytes = mem.get("peak_bytes_card")
         try:
             e.plan_ref = weakref.ref(plan)
         except TypeError:
@@ -273,9 +274,8 @@ def note_service(digest: Optional[str], predicted_s: float,
 
 def note_memory_actual(digest: Optional[str], predicted: Any,
                        actual: Any) -> None:
-    """The memory governor's hook (``resilience/memory.validate_plan``
-    in the JAX package; not ported, ROADMAP A5): a predicted peak next
-    to a measured one."""
+    """The memory governor's hook (``resilience/memory.validate_plan``):
+    a predicted peak next to the one measured on the card."""
     if digest is None or not actual:
         return
     with _lock:
@@ -389,10 +389,24 @@ def components_of(digest: Optional[str]) -> Optional[Dict[str, float]]:
 
 
 def _validate_missing() -> int:
-    """The JAX package runs the memory governor's validation for every
-    live plan without memory actuals; the governor is not ported
-    (ROADMAP A5), so nothing is validated and the columns stay None."""
-    return 0
+    """Run ``resilience.memory.validate_plan`` for every live plan that
+    has no memory actuals yet (one measured walk each, on the card;
+    nothing on the CPU)."""
+    with _lock:
+        todo = [(e.plan_ref() if e.plan_ref is not None else None)
+                for e in _entries.values() if e.xla_peak_bytes is None]
+    done = 0
+    for plan in todo:
+        if plan is None:
+            continue
+        try:
+            from ..resilience import memory as memory_mod  # lazy: obs
+            # sits below resilience in the layer order
+            if memory_mod.validate_plan(plan) is not None:
+                done += 1
+        except Exception:  # noqa: BLE001 - validation is advisory
+            continue
+    return done
 
 
 def snapshot(validate: bool = False) -> Dict[str, Any]:
@@ -401,8 +415,7 @@ def snapshot(validate: bool = False) -> Dict[str, Any]:
     mean ratio, worst |log| deviation, drift counts), and the active
     calibration state. Updates the Prometheus
     ``calibration_error_ratio{model=...}`` gauges. ``validate=True``
-    validates nothing until the memory governor is ported (ROADMAP
-    A5)."""
+    first measures the card peak of plans missing one."""
     if validate:
         _validate_missing()
     with _lock:

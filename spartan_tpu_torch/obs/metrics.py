@@ -416,11 +416,27 @@ def _update_device_gauges() -> None:
 # -- collectives (parallel/collectives.py) --------------------------------
 
 
-def record_collective(op: str, nbytes: int) -> None:
+class _Tap(threading.local):
+    """The plan audit's dry walk (``analysis/plan_audit.py``) installs a
+    recorder here: while one is set, the collective, received and
+    materialize records of this thread go to it and not to REGISTRY."""
+
+    rec: Any = None
+
+
+TAP = _Tap()
+
+
+def record_collective(op: str, nbytes: int, group: int = 0) -> None:
     """One collective call of ``op`` at one position, moving the
-    position's ``nbytes``: ``collective_calls{op=...}`` and
-    ``collective_bytes{op=...}``. Recorded whatever ``FLAGS.metrics``
-    says, as a direct instrument handle is."""
+    position's ``nbytes`` over a line of ``group`` positions:
+    ``collective_calls{op=...}`` and ``collective_bytes{op=...}``.
+    Recorded whatever ``FLAGS.metrics`` says, as a direct instrument
+    handle is."""
+    rec = TAP.rec
+    if rec is not None:
+        rec.collective(op, int(nbytes), int(group))
+        return
     REGISTRY.counter(labeled("collective_calls", op=op),
                      "collective calls by op").inc()
     REGISTRY.counter(labeled("collective_bytes", op=op),
@@ -440,6 +456,8 @@ def record_staged(op: str, nbytes: int) -> None:
 def record_received(op: str, nbytes: int) -> None:
     """Bytes a rank received from the other ranks of a group in one
     ``op`` that moved local blocks: ``group_received_bytes{op=...}``."""
+    if TAP.rec is not None:
+        return
     REGISTRY.counter(labeled("group_received_bytes", op=op),
                      "bytes received from other ranks by op").inc(int(nbytes))
 
@@ -449,6 +467,10 @@ def record_materialize(site: str, nbytes: int) -> None:
     node with no local rule, or a caller of ``DistArray.tensor``), of
     ``nbytes``: ``group_materialize_calls{site=...}`` and
     ``group_materialize_bytes{site=...}``."""
+    rec = TAP.rec
+    if rec is not None:
+        rec.materialize(site, int(nbytes))
+        return
     REGISTRY.counter(labeled("group_materialize_calls", site=site),
                      "whole arrays gathered on a group mesh").inc()
     REGISTRY.counter(labeled("group_materialize_bytes", site=site),

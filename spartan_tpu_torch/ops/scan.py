@@ -61,6 +61,67 @@ _COMBINE = {op: functools.partial(dtypes.call, fn) for op, fn in
 _IDENTITY = {"add": 0.0, "mul": 1.0, "max": -np.inf, "min": np.inf}
 
 
+def xla_scan_flops(n: int) -> float:
+    """The FLOPs XLA's cost analysis counts for an inclusive scan of
+    length ``n`` along one column: a reduce-window of size n (n - 1 per
+    element) up to 16; past 16, XLA's rewrite pads to 16-element blocks
+    (240 each), adds each block's offset (one per padded element) and
+    scans the b block totals (a window of b over b + 1 outputs, or the
+    same rewrite again past 16 blocks)."""
+    if n <= 16:
+        return float(n * (n - 1))
+    b = -(-n // 16)
+    tail = float((b + 1) * (b - 1)) if b <= 16 else xla_scan_flops(b)
+    return 240.0 * b + 16.0 * b + tail
+
+
+class LocalScan:
+    """The cumulative op along one axis as a map function (a scan the
+    blocked scan does not take); ``axis=None`` scans the flattened
+    array, as ``jnp.cumsum`` does. Equal for equal (op, axis), so a
+    rebuilt scan keys the same plan."""
+
+    __slots__ = ("op", "axis")
+
+    def __init__(self, op: str, axis):
+        self.op = op
+        self.axis = axis
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        if self.axis is None:
+            return _LOCAL[self.op](v.reshape(-1), 0)
+        return _LOCAL[self.op](v, self.axis)
+
+    def __eq__(self, other) -> bool:
+        return (type(other) is LocalScan and other.op == self.op
+                and other.axis == self.axis)
+
+    def __hash__(self) -> int:
+        return hash(("scan", self.op, self.axis))
+
+    def stable_key(self):
+        return ("LocalScan", self.op, self.axis)
+
+    def flops(self, shape) -> float:
+        """XLA's count of the scan over an output of ``shape``."""
+        size = int(np.prod(shape)) if shape else 1
+        n = size if self.axis is None else int(shape[self.axis])
+        return xla_scan_flops(n) * (size // max(1, n))
+
+
+def blocked_scan_flops(rows: int, cols: int, p: int, ndev: int) -> float:
+    """One device's FLOPs of the JAX package's blocked scan as XLA
+    counts them: the local scan of its (rows, cols) block, the scan of
+    the p shards' totals, the combine with its offset (and past 16 rows
+    the rewrite's offset add a second time, fused into the combine),
+    and the scalar arithmetic of the shard index (5 ops, 6 where the
+    row axis is not the whole mesh)."""
+    dup = 16 * -(-rows // 16) if rows > 16 else 0
+    idx = 5.0 if ndev == p else 6.0
+    return (xla_scan_flops(rows) + xla_scan_flops(p) + rows + dup) * cols \
+        + idx
+
+
 def _identity_for(op: str, dtype):
     dt = dtypes.to_numpy(dtype)
     if op in ("max", "min") and np.issubdtype(dt, np.integer):

@@ -45,8 +45,9 @@ from . import shard_map as smap
 _OPS = ("add", "max", "min", "mean")
 
 
-def _count(op: str, x: torch.Tensor) -> None:
-    record_collective(op, x.numel() * x.element_size())
+def _count(op: str, x: torch.Tensor, axis: str) -> None:
+    record_collective(op, x.numel() * x.element_size(),
+                      smap.current().size(axis))
 
 
 def _check_op(op: str) -> None:
@@ -337,10 +338,18 @@ def _from_wire(t: torch.Tensor, dtype) -> torch.Tensor:
     return t if dtype is None else t.view(dtype)
 
 
+def new_runner(mesh: mesh_mod.Mesh, track: bool = False) -> GroupRunner:
+    """A runner of ``mesh``'s collectives: the group's own, or the one
+    its group object names (the plan audit's dry group, whose calls
+    move nothing)."""
+    cls = getattr(mesh.group, "runner_cls", None) or GroupRunner
+    return cls(mesh, track)
+
+
 def group_runner(mesh: mesh_mod.Mesh) -> GroupRunner:
     """The group mesh's runner for collectives outside shard_map."""
     if mesh.runner is None:
-        mesh.runner = GroupRunner(mesh)
+        mesh.runner = new_runner(mesh)
     return mesh.runner
 
 
@@ -375,7 +384,7 @@ def gather_dim(block: torch.Tensor, dim: int, entry, size: int,
     for sub in reversed(_live_axes(tiling_mod.mesh_axes_of(entry), mesh)):
         before = _nbytes(out)
         out = runner.all_gather(out, sub, dim)
-        record_collective("all_gather", before)
+        record_collective("all_gather", before, mesh.shape[sub])
         record_received("all_gather", _nbytes(out) - before)
     out = _from_wire(out, dtype)
     if all(ln == mx for ln in lens):
@@ -400,7 +409,7 @@ def stack_over(t: torch.Tensor, axis: str,
         return t[None]
     w, dtype = _to_wire(t)
     out = group_runner(mesh).all_gather(w, axis, 0, tiled=False)
-    record_collective("all_gather", _nbytes(w))
+    record_collective("all_gather", _nbytes(w), mesh.shape[axis])
     record_received("all_gather", _nbytes(out) - _nbytes(w))
     return _from_wire(out, dtype)
 
@@ -414,8 +423,8 @@ def reduce_over(t: torch.Tensor, axes, op: str,
     live = _live_axes(axes, mesh)
     if not live:
         return t
-    import torch.distributed as dist
-
+    runner = group_runner(mesh)
+    dist = runner.dist
     dtype = t.dtype
     if dtype == torch.bool:
         t = t.to(torch.uint8)
@@ -424,7 +433,6 @@ def reduce_over(t: torch.Tensor, axes, op: str,
         t = t.to(torch.int64)
     red = {"add": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT,
            "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
-    runner = group_runner(mesh)
     for axis in live:
         pg, n, _ = runner._line(axis)
 
@@ -433,7 +441,7 @@ def reduce_over(t: torch.Tensor, axes, op: str,
             dist.all_reduce(buf, op=red, group=pg)
             return buf
 
-        record_collective("all_reduce", _nbytes(t))
+        record_collective("all_reduce", _nbytes(t), n)
         record_received("all_reduce", _nbytes(t) * (n - 1))
         t = runner._transport("all_reduce", t, call)
     return t.to(dtype) if t.dtype != dtype else t
@@ -459,7 +467,7 @@ def exchange(t: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
     if n == 1:
         return t
     w, dtype = _to_wire(t)
-    record_collective("all_to_all", _nbytes(w))
+    record_collective("all_to_all", _nbytes(w), n)
     record_received("all_to_all", _nbytes(w) * (n - 1) // n)
     return _from_wire(group_runner(mesh)._all_to_all(w, axis, split_dim,
                                                      concat_dim), dtype)
@@ -473,7 +481,7 @@ def all_reduce(x: torch.Tensor, axis: str = mesh_mod.AXIS_ROW,
     """The lowering of the reference's reducer-merge."""
     _check_op(op)
     pos = smap.current()
-    _count("all_reduce", x)
+    _count("all_reduce", x, axis)
     return pos.runner.all_reduce(x, axis, op)
 
 
@@ -483,7 +491,7 @@ def all_gather(x: torch.Tensor, axis: str = mesh_mod.AXIS_ROW, *,
     the positions along ``axis`` concatenated (``tiled``) or stacked
     along ``gather_axis``."""
     pos = smap.current()
-    _count("all_gather", x)
+    _count("all_gather", x, axis)
     return pos.runner.all_gather(x, axis, gather_axis % max(x.ndim, 1)
                                  if tiled else gather_axis, tiled)
 
@@ -493,7 +501,7 @@ def reduce_scatter(x: torch.Tensor, axis: str = mesh_mod.AXIS_ROW, *,
     """The sum over ``axis``, of which each position keeps its own
     block along ``scatter_axis`` (``psum_scatter``, tiled)."""
     pos = smap.current()
-    _count("reduce_scatter", x)
+    _count("reduce_scatter", x, axis)
     return pos.runner.reduce_scatter(x, axis, scatter_axis % x.ndim)
 
 
@@ -503,7 +511,7 @@ def all_to_all(x: torch.Tensor, axis: str = mesh_mod.AXIS_ROW, *,
     ``split_axis`` goes to position ``j``; the blocks received are
     concatenated along ``concat_axis`` in position order."""
     pos = smap.current()
-    _count("all_to_all", x)
+    _count("all_to_all", x, axis)
     return pos.runner.all_to_all(x, axis, split_axis % x.ndim,
                                  concat_axis % x.ndim)
 
@@ -513,7 +521,7 @@ def ring_permute(x: torch.Tensor, axis: str = mesh_mod.AXIS_ROW,
     """Rotate blocks around the ring (the substrate of ring attention
     and pipeline stages): ``shift=+1`` sends to the next position."""
     pos = smap.current()
-    _count("ring_permute", x)
+    _count("ring_permute", x, axis)
     return pos.runner.ring_permute(x, axis, shift)
 
 

@@ -294,6 +294,29 @@ def _build_surviving() -> Mesh:
     return Mesh(factor_2d(len(survivors)), device, ids=survivors)
 
 
+def rotated_mesh(mesh: Optional[Mesh] = None, k: int = 1
+                 ) -> Optional[Mesh]:
+    """A mesh of the same shape whose position ids are rotated by ``k``:
+    every logical coordinate is held by another position. The
+    integrity sentinel (``resilience/integrity.py``) re-walks sampled
+    plans on it. On one card the positions are logical: the rotated
+    mesh is a permutation of position ids over the same device, and a
+    walk on it computes the same values. None for a one-position mesh
+    (no rotation exists). Never installed or cached."""
+    mesh = mesh or get_mesh()
+    if mesh.is_group:
+        raise NotImplementedError(
+            "a rotated group mesh would move every block to another "
+            "rank; the integrity check does not run on a group mesh")
+    ids = list(mesh.ids)
+    n = len(ids)
+    if n < 2:
+        return None
+    k = k % n or 1
+    return Mesh((mesh.shape[AXIS_ROW], mesh.shape[AXIS_COL]), mesh.device,
+                ids=ids[k:] + ids[:k])
+
+
 def rebuild_mesh(exclude_devices=(), shape=None) -> Mesh:
     """Shrink the logical mesh after the loss of positions, and bump the
     mesh epoch.

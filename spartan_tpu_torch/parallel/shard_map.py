@@ -471,14 +471,14 @@ def _gather_whole(block: torch.Tensor, t: Tiling, pos: Position,
 def _run_group(fn: Callable, mesh: Mesh, args: Sequence[Any],
                in_t: List[Optional[Tiling]], out_t: List[Tiling],
                single: bool, local: bool = False) -> Any:
-    from .collectives import GroupRunner
+    from .collectives import new_runner
 
     if inside():
         raise RuntimeError("shard_map does not nest")
     grad = torch.is_grad_enabled()
     track = grad and any(isinstance(x, torch.Tensor) and x.requires_grad
                          for x in args)
-    pos = Position(mesh, dict(mesh.coords), GroupRunner(mesh, track))
+    pos = Position(mesh, dict(mesh.coords), new_runner(mesh, track))
     blocks = [] if not local else list(args)
     for x, t in zip([] if local else args, in_t):
         if not isinstance(x, torch.Tensor):

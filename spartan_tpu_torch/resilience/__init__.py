@@ -19,12 +19,19 @@
   checkpoint_path=p, resume=p)``: snapshots, restore on failure, resume
   on a rebuilt mesh or in a smaller world.
 
-``integrity`` (the silent-corruption sentinel, ``IntegrityError``) and
-``memory`` (the predictive memory governor) are not ported (ROADMAP
-A5). This package imports no expr module at import time.
+* :mod:`memory` — the predictive memory governor: a plan's modeled
+  peak (the JAX package's per-chip figure and the port's card peak),
+  admission against ``FLAGS.hbm_budget_bytes``, a ladder rung chosen
+  before the first walk.
+* :mod:`integrity` — the silent-corruption sentinel
+  (``IntegrityError``): block checksums against a re-walk on a rotated
+  mesh, strikes, quarantine.
+
+This package imports no expr module at import time.
 """
 
-from . import classify, degrade, elastic, engine, faults, loop_ckpt
+from . import (classify, degrade, elastic, engine, faults, integrity,
+               loop_ckpt, memory)
 from .classify import (DETERMINISTIC, FATAL_MESH, IO, OOM, SDC,
                        STALE_MESH, TRANSIENT, FatalMeshError,
                        classify as classify_error)
@@ -32,13 +39,15 @@ from .faults import (ChaosPlan, InjectedCheckpointError,
                      InjectedCompileError, InjectedDeviceLossError,
                      InjectedOOMError, InjectedTransientError, chaos,
                      chaos_clear)
+from .integrity import IntegrityError
 
 __all__ = [
     "chaos", "chaos_clear", "ChaosPlan", "classify_error",
     "TRANSIENT", "OOM", "IO", "DETERMINISTIC", "FATAL_MESH",
-    "STALE_MESH", "SDC", "FatalMeshError",
+    "STALE_MESH", "SDC", "FatalMeshError", "IntegrityError",
     "InjectedTransientError", "InjectedOOMError",
     "InjectedCompileError", "InjectedCheckpointError",
     "InjectedDeviceLossError",
-    "classify", "degrade", "elastic", "engine", "faults", "loop_ckpt",
+    "classify", "degrade", "elastic", "engine", "faults", "integrity",
+    "loop_ckpt", "memory",
 ]

@@ -23,7 +23,10 @@ mutated.
 On a logical mesh a tiling is metadata over the one tensor, so the
 first two rungs change the plan (and, through the kernels' selection,
 the code path) rather than the bytes a device holds; the chunked rung
-does bound them.
+does bound them. On a group mesh ``finer_tiling`` shrinks what a rank
+holds: each node keeps a finer block, and a product re-planned at the
+finer output grid computes its block with the contraction whole, with
+no k-split partial product and all-reduce copy.
 """
 
 from __future__ import annotations
@@ -144,6 +147,11 @@ def force_finer(dag: Any, mesh) -> int:
         if (tiling_cost._parallelism(best, mesh)
                 > tiling_cost._parallelism(cur, mesh)):
             n._forced_tiling = best
+            if getattr(n, "_dot_plan", None) is not None:
+                # the product computes its finer output block directly,
+                # with its contraction whole (no partial product and no
+                # all-reduce copy a rank would hold beside it)
+                n._dot_plan = (best, None)
             forced += 1
     return forced
 
@@ -160,11 +168,15 @@ def _replan_evaluate(expr: Any, donated: List[Any], rung: str) -> Any:
 
 
 def rung_predicted_bytes(expr: Any, rung: str, mesh) -> Optional[int]:
-    """The memory governor's modelled peak for ``rung``'s re-plan of
-    ``expr``. The governor (``resilience/memory.py``) is not ported
-    (ROADMAP A5), so no plan carries a memory model and this returns
-    None; the ladder then records no prediction beside the rung."""
-    return None
+    """The memory governor's modelled card peak for ``rung``'s re-plan
+    of ``expr`` (``resilience/memory.py``; the re-plan is a plan-cache
+    hit after the rung ran), or None when no model is available."""
+    from .memory import _rung_estimate
+
+    try:
+        return _rung_estimate(expr, rung, mesh)[1]
+    except Exception:  # noqa: BLE001 - the prediction is a record only
+        return None
 
 
 def _chunk_bounds(n_rows: int, chunks: int) -> List[int]:

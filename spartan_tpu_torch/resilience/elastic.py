@@ -143,12 +143,16 @@ def _notify_monitor() -> None:
 
 
 def _evict() -> int:
-    """Drop the dead epochs' plans. The JAX package also purges the
-    warm-start store's entries on disk, which is not ported
-    (``persist/``, ROADMAP A5)."""
+    """Drop the dead epochs' plans, in memory and in the warm-start
+    store on disk (``persist.evict_stale``: a restart must not bring
+    back plans of a mesh that no longer exists). Returns the plans
+    evicted from memory."""
+    from .. import persist
     from ..expr import base as expr_base
 
-    return expr_base.evict_stale_plans()
+    n = expr_base.evict_stale_plans()
+    persist.evict_stale()
+    return n
 
 
 def _not_rebuilt(exc: BaseException, why: str) -> cls.FatalMeshError:

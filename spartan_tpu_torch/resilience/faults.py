@@ -36,8 +36,11 @@ tokens, the JAX package's:
  ``=S``     duration in seconds (``slow`` only; default 0.05)
 =========  ==============================================================
 
-``sdc`` (silent corruption) needs the integrity sentinel, which is not
-ported (ROADMAP A5): a spec that names it raises ``NotImplementedError``.
+``sdc@N[#D]`` silently corrupts the result of walk occurrence ``N``:
+one seeded bit flipped in position ``D``'s unit (default: the highest
+id in the mesh) after the walk, through ``resilience/integrity.
+flip_bit``. Nothing raises: the corruption reaches the caller unless
+the integrity sentinel (``FLAGS.integrity_check``) catches it.
 
 Injected exceptions carry ``injected=True`` and the real-world message
 patterns, so they go through the same classifier
@@ -192,11 +195,6 @@ class FaultSpec:
                 f"kind[@N][xCOUNT][#DEV][:PROB][=DUR] with kind in "
                 f"{_KINDS}")
         self.kind = m.group("kind")
-        if self.kind == "sdc":
-            raise NotImplementedError(
-                f"fault token {token!r}: the sdc kind corrupts a result "
-                "for the integrity sentinel to catch, and "
-                "resilience/integrity.py is not ported (ROADMAP A5)")
         self.at = int(m.group("at")) if m.group("at") is not None else None
         self.count = int(m.group("count") or 1)
         self.dev = (int(m.group("dev")) if m.group("dev") is not None
@@ -246,6 +244,9 @@ class ChaosPlan:
         self._n_compile = 0
         self._n_checkpoint = 0
         self._n_recover = 0
+        # an armed sdc corruption: (spec, occurrence), set by fire() and
+        # consumed after the walk by corrupt_output()
+        self._pending_sdc: Optional[Any] = None
 
     def counts(self) -> Dict[str, int]:
         with self._lock:
@@ -300,10 +301,40 @@ class ChaosPlan:
             if spec.kind == "slow":
                 time.sleep(spec.dur)
                 continue
+            if spec.kind == "sdc":
+                # silent corruption raises nothing here: arm the flip
+                # corrupt_output() applies to this walk's result
+                with self._lock:
+                    self._pending_sdc = (spec, idx)
+                continue
             exc_type, msg = _EXC[spec.kind]
             if spec.kind == "device_loss":
                 raise _make_device_loss(msg, site, idx, spec.dev)
             raise exc_type(msg.format(site=site, idx=idx))
+
+    def corrupt_output(self, out: Any, tilings: Any, mesh: Any) -> Any:
+        """Apply an armed ``sdc`` corruption to a walk's result: one
+        seeded bit flipped in the victim position's unit
+        (``integrity.flip_bit``). Consumes the armed record; ``out``
+        unchanged when nothing is armed or the victim left the mesh."""
+        with self._lock:
+            pending, self._pending_sdc = self._pending_sdc, None
+        if pending is None:
+            return out
+        if mesh.is_group:
+            raise NotImplementedError(
+                "the sdc chaos kind corrupts a logical position's unit; "
+                "on a group mesh the integrity check does not run "
+                "(ROADMAP A10)")
+        spec, idx = pending
+        try:
+            victim = _pick_victim(spec.dev)
+        except ValueError:
+            return out  # the victim was quarantined: nothing to corrupt
+        from . import integrity as integrity_mod
+
+        return integrity_mod.flip_bit(out, victim, self.seed, idx, tilings,
+                                      mesh)
 
     def install(self) -> "ChaosPlan":
         global _ACTIVE
@@ -375,3 +406,12 @@ def fire(site: str) -> None:
     plan = _ACTIVE
     if plan is not None:
         plan.fire(site)
+
+
+def corrupt_output(out: Any, tilings: Any, mesh: Any) -> Any:
+    """The post-walk hook of the ``sdc`` kind (``expr/base.py::_run``,
+    which reads ``_ACTIVE`` first: one attribute read with chaos off)."""
+    plan = _ACTIVE
+    if plan is None:
+        return out
+    return plan.corrupt_output(out, tilings, mesh)

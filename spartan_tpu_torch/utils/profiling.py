@@ -17,7 +17,7 @@ synchronises the device. Device time comes from :func:`profile_trace`
 ``cost_analysis`` reads XLA's compiled program in the JAX package; the
 port has no compiled program and counts it (``st.explain``'s
 ``cost_analysis``). ``hlo_text`` raises: its counterpart is the plan
-audit (ROADMAP A4).
+audit, ``st.audit_plan``.
 """
 
 from __future__ import annotations
@@ -191,9 +191,9 @@ def hlo_text(expr) -> str:
     """The JAX package returns the compiled HLO; the port has none."""
     raise NotImplementedError(
         "hlo_text returns XLA's compiled HLO in the JAX package; the port "
-        "runs no XLA program. Its counterpart is the plan audit's static "
-        "list of the collectives a group walk issues, each attributed to "
-        "its node (ROADMAP A4, plan_audit)")
+        "runs no XLA program. Its counterpart is st.audit_plan(expr): the "
+        "collectives a group walk of the plan issues, each attributed to "
+        "its node")
 
 
 def benchmark(fn: Callable[[], Any], iters: int = 5,

@@ -1371,3 +1371,79 @@ def test_early_exit_reads_once_an_iteration_and_health_never(card,
                 early_exit=True).glom()
     assert health_reads == 0
     assert len(calls) == 20
+
+
+@pytest.mark.cuda
+def test_validate_plan_measures_the_card_peak(card):
+    """The memory governor's validation on the card: a map-and-reduce
+    plan's measured walk against its predicted card peak (the fused
+    map's intermediate and output beside the operands)."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import memory
+
+    rng = np.random.RandomState(8)
+    x = rng.rand(2048, 1024).astype(np.float32)
+    with mesh_mod.use_mesh(mesh_mod.build_mesh((4, 2), card)) as mesh:
+        a, b = st.from_numpy(x), st.from_numpy(x * 2.0)
+        e = (a + b) * 3.0 - a
+        key, rctx = base.plan_signature(e, mesh)
+        plan, _, _ = base._build_plan(e, mesh, rctx, key)
+        val = memory.validate_plan(plan, mesh)
+    assert val is not None and val["measured_peak_bytes"] > 0
+    assert 0.75 <= val["error_ratio"] <= 1.25, val
+    assert plan.report["memory"]["validation"] is val
+
+
+@pytest.mark.cuda
+def test_governor_picks_a_rung_on_the_card_without_oom(card):
+    """A budget below the plan's predicted card peak: the governor takes
+    the chunked rung before the walk (the only rung that changes what
+    one card holds for a map), no OOM raised, bit-equal to the rung
+    forced."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import degrade, memory
+
+    x = np.random.RandomState(9).rand(4096, 512).astype(np.float32)
+    prev = st.FLAGS.hbm_budget_bytes
+    with mesh_mod.use_mesh(mesh_mod.build_mesh((4, 2), card)):
+        a = st.from_numpy(x)
+        need = memory.predict((a + 1.0) * 2.0)["peak_bytes_card"]
+        base.clear_plan_cache()
+        oom0 = st.metrics()["counters"].get("resilience_oom_events", 0)
+        st.FLAGS.hbm_budget_bytes = need - 1
+        try:
+            e = (a + 1.0) * 2.0
+            got = e.glom()
+        finally:
+            st.FLAGS.hbm_budget_bytes = prev
+        assert e._resilience["rung"] == "chunked"
+        assert e._resilience["origin"] == "predictive"
+        assert st.metrics()["counters"].get("resilience_oom_events",
+                                            0) == oom0
+        forced = degrade._chunked_evaluate((a + 1.0) * 2.0,
+                                           mesh_mod.get_mesh()).glom()
+    np.testing.assert_array_equal(got, forced)
+
+
+@pytest.mark.cuda
+def test_block_checksums_on_the_card_equal_the_cpus(card):
+    from spartan_tpu_torch.array import tiling as tiling_mod
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import integrity
+
+    t = torch.from_numpy(np.random.RandomState(10).rand(64, 48)
+                         .astype(np.float32))
+    for shape, axes in (((8, 1), ("x", None)), ((4, 2), ("x", "y")),
+                        ((4, 2), (None, None))):
+        mesh = mesh_mod.build_mesh(shape, "cpu")
+        tl = tiling_mod.Tiling(axes)
+        assert integrity.shard_checksums(t.to(card), tl, mesh) == \
+            integrity.shard_checksums(t, tl, mesh)
+        flip = integrity.flip_bit(t.to(card), 3, 5, 1, [tl], mesh)
+        np.testing.assert_array_equal(
+            flip.cpu().numpy(),
+            integrity.flip_bit(t, 3, 5, 1, [tl], mesh).numpy())

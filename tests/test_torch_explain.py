@@ -167,8 +167,51 @@ def test_explain_report_matches_jax(dag, shape):
                            "donated_dispatches": 0}
 
 
+V48 = RNG.rand(48).astype(np.float32)
+W48 = RNG.rand(48).astype(np.float32)
+M48 = RNG.rand(64, 48).astype(np.float32)
+T1 = RNG.rand(8, 16, 8).astype(np.float32)
+T2 = RNG.rand(8, 16, 8).astype(np.float32)
+B1 = RNG.rand(8, 16, 8).astype(np.float32)
+B2 = RNG.rand(8, 8, 16).astype(np.float32)
+
+
+def outer48(st):
+    return st.outer(st.from_numpy(V48), st.from_numpy(W48))
+
+
+def cumsum_rows(st):
+    return st.cumsum(st.from_numpy(M48), axis=0)
+
+
+def tensordot3(st):
+    # the contracted 16 divides every mesh's strategy axis (C34: XLA
+    # pads a shape that does not)
+    return st.tensordot(st.from_numpy(T1), st.from_numpy(T2),
+                        axes=([1, 2], [1, 2]))
+
+
+def einsum_gram(st):
+    m = st.from_numpy(M48)
+    return st.einsum("ij,ik->jk", m, m)
+
+
+def einsum_batched(st):
+    return st.einsum("bij,bjk->bik", st.from_numpy(B1), st.from_numpy(B2))
+
+
+def argmax_rows(st):
+    return st.argmax(st.from_numpy(C), axis=1)
+
+
+# the last six are the DAGs of ROADMAP C33: outer and the blocked scan
+# counted, a planned contraction split by its strategy axis, argmax at
+# XLA's nine ops a compare
 COST_EXACT = [(dot, True), (map_chain, True), (exp_map, True),
-              (map_reduce, False), (map_reduce_axis, False)]
+              (map_reduce, False), (map_reduce_axis, False),
+              (outer48, False), (cumsum_rows, False), (tensordot3, False),
+              (einsum_gram, False), (einsum_batched, True),
+              (argmax_rows, False)]
 
 
 @pytest.mark.parametrize("shape", [(1, 1)] + MESHES)

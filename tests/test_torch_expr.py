@@ -430,7 +430,11 @@ def test_port_imports_no_jax():
                 "ops/attention.py", "analysis/__init__.py",
                 "analysis/verify.py", "analysis/passes.py",
                 "analysis/lints.py", "obs/explain.py", "obs/ledger.py",
-                "obs/numerics.py", "obs/profile.py"):
+                "obs/numerics.py", "obs/profile.py",
+                "analysis/hlo.py", "analysis/plan_audit.py",
+                "resilience/memory.py", "resilience/integrity.py",
+                "persist/__init__.py", "persist/store.py",
+                "persist/fingerprint.py"):
         assert os.path.join(REPO, "spartan_tpu_torch", mod) in files
     bad = []
     for path in files:

@@ -10,9 +10,7 @@ trace of the same schema. Phases the port lacks, and why:
   no compiles);
 * ``verify``: the pass checker (``analysis/passes.py``) runs under
   ``FLAGS.verify_passes``, which the JAX package's test suite turns on
-  and the port's leaves at its default, off;
-* ``memory_model``: the memory governor's peak model
-  (``resilience/memory.py``) is not ported (ROADMAP A5).
+  and the port's leaves at its default, off.
 """
 
 import importlib
@@ -41,7 +39,7 @@ metrics_t = importlib.import_module("spartan_tpu_torch.obs.metrics")
 
 torch.set_num_threads(1)
 
-_PORT_LACKS = {"compile", "verify", "memory_model"}
+_PORT_LACKS = {"compile", "verify"}
 
 
 @pytest.fixture(autouse=True)
@@ -101,7 +99,7 @@ def test_one_miss_one_hit_same_stats_and_span_names():
     assert stats_j["compiles"] >= 1 and stats_t["compiles"] == 0
     # the JAX package's first run is a "compile"; the port's a dispatch
     want_miss = ["dispatch" if n == "compile" else n for n in miss_j
-                 if n not in ("verify", "memory_model")]
+                 if n != "verify"]
     assert miss_t == want_miss
     assert hit_t == [n for n in hit_j if n not in _PORT_LACKS]
     for name in ("evaluate", "sign", "optimize", "pass:auto_tiling",
@@ -248,9 +246,9 @@ def test_metrics_flag_gates_the_profiling_layer():
 
 def test_xla_readouts_raise_naming_the_roadmap_item():
     # hlo_text alone still raises: the port runs no XLA program, and its
-    # counterpart is the plan audit (ROADMAP A4's next part)
+    # counterpart is the plan audit, st.audit_plan
     e = st_t.from_numpy(np.ones(4, np.float32)) + 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A4, plan_audit"):
+    with pytest.raises(NotImplementedError, match=r"st\.audit_plan\(expr\)"):
         prof_t.hlo_text(e)
 
 

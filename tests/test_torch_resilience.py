@@ -173,8 +173,29 @@ def test_chaos_bad_tokens_raise_like_jax(tok, err):
 
 
 def test_chaos_sdc_waits_for_integrity():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        faults_t.ChaosPlan("sdc@5", 0)
+    # the sdc kind is accepted now that the integrity sentinel is
+    # ported: its seeded flip is the JAX package's, byte and bit
+    import jax
+
+    from spartan_tpu.array import tiling as tiling_j
+    from spartan_tpu.resilience import integrity as integrity_j
+    from spartan_tpu_torch.array import tiling as tiling_t
+    from spartan_tpu_torch.resilience import integrity as integrity_t
+
+    for mod in (faults_j, faults_t):
+        spec = mod.ChaosPlan("sdc@5x2#3", 0).specs[0]
+        assert (spec.kind, spec.at, spec.count, spec.dev) == \
+            ("sdc", 5, 2, 3)
+    a = np.arange(64, dtype=np.float32).reshape(8, 8)
+    with mesh_j.use_mesh(mesh_j.build_mesh(jax.devices(), shape=(8, 1))):
+        xj = st_j.from_numpy(a, tiling=tiling_j.row(2)).evaluate()
+        want = np.asarray(integrity_j.flip_bit(xj._jax, victim=5, seed=7,
+                                               occurrence=2))
+    mesh = mesh_t.build_mesh((8, 1), "cpu")
+    got = integrity_t.flip_bit(torch.from_numpy(a.copy()), 5, 7, 2,
+                               [tiling_t.row(2)], mesh)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int((got.numpy() != a).sum()) == 1
 
 
 @pytest.mark.parametrize("seed", [0, 42])
