@@ -188,17 +188,43 @@ Phases, in order; any failure exits nonzero before the result line:
     the arrays rehomed, the centers bit-equal to a clean run through the
     same quarantine, the k-means launches equal to walks + re-walks;
     iterations/s with the check on and off;
+23a. ``[serve]``, the serving front end. 16 client threads each submit
+    4 config-3 ``kmeans_step`` requests (the ``[kmeans]`` points, shared;
+    each client's centers the initial centers plus a seeded
+    perturbation) through one ``ServeEngine``: every served result
+    bit-equal to its serial ``evaluate()``, the plan still in ``vmap``
+    mode with no demotion or solo fallback, every batch of a
+    power-of-two size, and exactly one k-means launch per served
+    request in the served window (the operator's batching rule). The
+    4096^2 dot chain's ``(x @ y).sum() * s`` with shared ``x``, ``y`` and
+    a scalar per request, served and in a serial loop: values bit-equal,
+    requests/s of each and their ratio, and the p50/p99 of each
+    request's queue wait, coalesce wait, dispatch and fetch seconds from
+    the flight records (printed, not gated). Admission: ``Backpressure``
+    past the high-water mark (with a positive ``retry_after_s``), a
+    memory reject under a budget below the k-means plan's
+    ``request_bytes``, a shed at a 1 us deadline and a
+    ``CommBudgetExceeded`` for an audited k-split dot at
+    ``comm_budget_bytes = 1``, each named in its flight record. The
+    elastic drain: ``device_loss`` chaos on a logical (4, 2) mesh fails
+    the queued requests with ``MeshReconfiguring``; resubmitted on the
+    rehomed inputs they equal a clean serial run on the rebuilt mesh.
+    ``st.skew`` of a config-3 step on a logical (8, 1) mesh and in two
+    gloo ranks sharing the card (``--skew-child``), each rank's seconds
+    folded: per-position seconds, the imbalance ratio and the points'
+    data skew;
 24. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
     with their launches per rank on the group path, rows 1, 2, 5 and 6
     with their launches per rank under local-shard storage, row 1 with
-    the faulted run's, the survivor's and the integrity run's launches)
-    and the result line.
+    the faulted run's, the survivor's, the integrity run's and the
+    served window's launches) and the result line.
 
 ``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
 ``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK``,
-``--local-child DIR RANK``, ``--elastic-child DIR RANK`` and
-``--guards-child DIR RANK`` one rank of ``[spmd]``'s, ``[local]``'s,
-``[elastic_group]``'s and ``[guards]``'s groups, ``--obs-child DIR``
+``--local-child DIR RANK``, ``--elastic-child DIR RANK``,
+``--guards-child DIR RANK`` and ``--skew-child DIR RANK`` one rank of
+``[spmd]``'s, ``[local]``'s, ``[elastic_group]``'s, ``[guards]``'s and
+``[serve]``'s groups, ``--obs-child DIR``
 the process of ``[obs]``'s captures and ``--persist-child DIR I`` one
 of ``[guards]``'s store processes; they are not meant to be run by
 hand.
@@ -285,6 +311,9 @@ GUARD_SAMPLE, GUARD_STRIKES, GUARD_VICTIM = 5, 3, 6
 GUARD_SDC = "sdc@4#6,sdc@9#6,sdc@14#6"
 # pairs of 20-iteration runs, check off then on, for its cost
 GUARD_IPS_PAIRS = 5
+# [serve]: client threads and requests each (k-means, then the dot), the
+# waits of a served request and of the gloo children
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_WAIT_S = 16, 4, 300
 
 
 def _say(*args) -> None:
@@ -5507,6 +5536,513 @@ def phase_guards(st, kk, km, card: str, workdir: str) -> dict:
     return {"integrity_launches": launches}
 
 
+# -- [serve] -------------------------------------------------------------
+
+
+def _serve_parked(st, **kw):
+    """A ``ServeEngine`` whose workers are held off: ``submit`` starts
+    workers unless the engine looks running, so it is given one finished
+    thread; submissions stay queued until ``_serve_unpark``."""
+    import threading
+
+    eng = st.ServeEngine(**kw)
+    t = threading.Thread(target=lambda: None)
+    t.start()
+    t.join()
+    eng._threads.append(t)
+    return eng
+
+
+def _serve_unpark(eng) -> None:
+    eng._threads.clear()
+    eng.start()
+
+
+def _serve_clients(st, eng, builds, label: str) -> list:
+    """``SERVE_CLIENTS`` threads, client ``c`` submitting ``builds[c]``
+    (a list of zero-argument expression builders) back to back, then
+    fetching each; returns the fetched values in the same nesting."""
+    import threading
+
+    out = [[None] * len(b) for b in builds]
+    futs = [[None] * len(b) for b in builds]
+    errors = []
+    barrier = threading.Barrier(len(builds))
+
+    def client(c):
+        try:
+            barrier.wait()
+            fs = [eng.submit(build()) for build in builds[c]]
+            for i, f in enumerate(fs):
+                futs[c][i] = f
+                out[c][i] = f.glom(timeout=SERVE_WAIT_S)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(builds))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=2 * SERVE_WAIT_S)
+    if errors or any(t.is_alive() for t in threads):
+        _fail(f"[serve] {label}: client errors {errors[:3]}, "
+              f"{sum(t.is_alive() for t in threads)} client(s) stuck")
+    return out, futs
+
+
+def _serve_kmeans(st, kk, km, card: str, dev, kmr: dict) -> dict:
+    """16 clients x 4 config-3 k-means steps through one engine."""
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.obs import flight
+    from spartan_tpu_torch.serve import coalesce
+
+    points = kmr["points"]
+    c0 = torch.from_numpy(kmr["c0"]).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    centers = [[st.as_expr(c0 + 0.05 * torch.randn(
+        c0.shape, generator=gen, device=dev))
+        for _ in range(SERVE_PER_CLIENT)] for _ in range(SERVE_CLIENTS)]
+    probe = km.kmeans_step(points, centers[0][0], KM_K)
+    if type(probe).__name__ != "KMeansStepExpr":
+        _fail(f"[serve] kmeans_step is {type(probe).__name__}, not the "
+              "fused node")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [[km.kmeans_step(points, c, KM_K).evaluate().glom()
+               for c in row] for row in centers]
+    serial_s = time.perf_counter() - t0
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    dem0 = _counter(st, "serve_mode_demotions")
+    fb0 = _counter(st, "serve_solo_fallbacks")
+    flight.clear()
+    builds = [[(lambda c=c: km.kmeans_step(points, c, KM_K)) for c in row]
+              for row in centers]
+    with st.ServeEngine() as eng:
+        _reset_counts(kk)
+        t0 = time.perf_counter()
+        got, futs = _serve_clients(st, eng, builds, "k-means")
+        served_s = time.perf_counter() - t0
+        launches = kk.LAUNCHES
+    plan = base.lookup_plan(base.plan_signature(probe)[0])
+    mode = coalesce.mode_for(plan)
+    sv = plan.report.get("serve") or {}
+    equal = sum(np.array_equal(a, b) for ra, rb in zip(serial, got)
+                for a, b in zip(ra, rb))
+    batches = _serve_flight(st, futs, "k-means", card)
+    sizes = sorted({b for b in batches})
+    _say(f"[serve] k-means {KM_N}x{KM_D} k={KM_K}: {n} requests from "
+         f"{SERVE_CLIENTS} clients: {equal}/{n} bit-equal to serial "
+         f"evaluate() (limit: all); mode {mode} (report {sv.get('mode')}, "
+         f"{sv.get('batches')} batch(es)); batch sizes {sizes} (limit: "
+         f"powers of two); {launches} kernel launches in the served "
+         f"window (limit: {n}); demotions "
+         f"{_counter(st, 'serve_mode_demotions') - dem0}, solo fallbacks "
+         f"{_counter(st, 'serve_solo_fallbacks') - fb0} (limit 0)")
+    _say(f"[serve] k-means served {n / served_s:.1f} requests/s, serial "
+         f"evaluate() {n / serial_s:.1f} requests/s (host clock, fetch "
+         f"included) on {card}")
+    if equal != n:
+        _fail("[serve] served k-means steps differ from the serial ones")
+    if mode != "vmap" or sv.get("mode") != "vmap":
+        _fail(f"[serve] the k-means plan left vmap mode: {mode}, {sv}")
+    if any(b & (b - 1) for b in batches):
+        _fail(f"[serve] a batch is not a power of two: {sizes}")
+    if launches != n:
+        _fail(f"[serve] {launches} k-means launches for {n} served "
+              "requests")
+    if _counter(st, "serve_mode_demotions") != dem0 or \
+            _counter(st, "serve_solo_fallbacks") != fb0:
+        _fail("[serve] a k-means batch fell back or demoted")
+    if not any(b > 1 for b in batches):
+        _fail("[serve] no k-means request was coalesced")
+    _serve_batch_alone(st, [b for row in builds for b in row][:32],
+                       "k-means", card)
+    return {"launches": launches}
+
+
+def _serve_batch_alone(st, builds, label: str, card: str) -> None:
+    """One coalesced batch of ``builds`` through ``dispatch_batch`` on
+    this thread, with no client thread running: the walk's host time,
+    its time to a synchronise, and the synchronising calls torch's sync
+    debug mode flags inside it (the served window's ``dispatch``
+    seconds hold this walk stretched by the clients' threads)."""
+    import warnings
+
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.serve import coalesce
+    from spartan_tpu_torch.serve import engine as serve_engine
+
+    def requests():
+        return [serve_engine._Request(b(), [], None, None, st.get_mesh())
+                for b in builds]
+
+    reqs = requests()
+    plan = base.lookup_plan(reqs[0].plan_key)
+    coalesce.dispatch_batch(plan, reqs, st.get_mesh())  # the variant
+    reqs = requests()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            coalesce.dispatch_batch(plan, reqs, st.get_mesh())
+            host = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = [w for w in caught if "ynchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    _say(f"[serve] {label}: one batch of {len(builds)} alone: host "
+         f"{host * 1e3:.3f} ms, {wall * 1e3:.3f} ms to a synchronise, "
+         f"{len(syncs)} synchronising call(s) flagged by torch's sync "
+         f"debug mode on {card}")
+
+
+def _pct(vals, q: float) -> float:
+    return float(np.percentile(np.asarray(vals, np.float64), q))
+
+
+def _serve_flight(st, futs, label: str, card: str) -> list:
+    """Print the p50/p99 of each served request's queue-wait,
+    coalesce-wait, dispatch and fetch seconds from its flight record,
+    and the batches by dispatch span; returns the requests' batch
+    sizes."""
+    rec = st.flightrec()["requests"]
+    reqs = [rec[f.rid] for row in futs for f in row]
+    phases = {k: [q[k] for q in reqs if q.get(k) is not None]
+              for k in ("queue_wait_s", "coalesce_wait_s", "dispatch_s",
+                        "fetch_s")}
+    spans = {}
+    for q in reqs:
+        spans[q.get("dispatch_span")] = q.get("batch")
+    _say(f"[serve] {label} flight records, p50/p99 ms: " + ", ".join(
+        f"{k[:-2]} {_pct(v, 50) * 1e3:.3f}/{_pct(v, 99) * 1e3:.3f}"
+        for k, v in phases.items())
+        + f"; {len(spans)} dispatches of "
+        f"{sorted(spans.values(), reverse=True)} requests on {card}")
+    return [q["batch"] for q in reqs]
+
+
+def _serve_dot(st, card: str, dev) -> None:
+    """``(x @ y).sum() * s`` at DOT_N, served and in a serial loop."""
+    from spartan_tpu_torch.obs import flight
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    ex = st.as_expr(torch.rand((DOT_N, DOT_N), generator=gen, device=dev))
+    ey = st.as_expr(torch.rand((DOT_N, DOT_N), generator=gen, device=dev))
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    scales = [float(v) for v in np.random.RandomState(27).rand(n) + 0.5]
+    float(((ex @ ey).sum() * 1.0).glom())  # the plan, built once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [float(((ex @ ey).sum() * s).glom()) for s in scales]
+    serial_s = time.perf_counter() - t0
+    flight.clear()
+    builds = [[(lambda s=scales[c * SERVE_PER_CLIENT + i]:
+                (ex @ ey).sum() * s) for i in range(SERVE_PER_CLIENT)]
+              for c in range(SERVE_CLIENTS)]
+    with st.ServeEngine() as eng:
+        t0 = time.perf_counter()
+        got, futs = _serve_clients(st, eng, builds, "dot")
+        served_s = time.perf_counter() - t0
+    flat = [float(v) for row in got for v in row]
+    diff = [abs(a - b) for a, b in zip(flat, serial)]
+    _say(f"[serve] dot ({DOT_N}^2 @ {DOT_N}^2).sum() * s: {n} requests, "
+         f"max |served - serial| {max(diff)!r} (limit 0)")
+    _say(f"[serve] dot served {n / served_s:.1f} requests/s, serial loop "
+         f"{n / serial_s:.1f} requests/s, ratio "
+         f"{serial_s / served_s:.2f} (host clock, fetch included) on "
+         f"{card}")
+    _serve_flight(st, futs, "dot", card)
+    _serve_batch_alone(st, [b for row in builds for b in row][:32], "dot",
+                       card)
+    if max(diff) != 0.0:
+        _fail("[serve] served dot values differ from the serial loop's")
+
+
+def _last_reject(st) -> dict:
+    from spartan_tpu_torch.obs import flight
+
+    ev = [e for e in flight.events() if e.kind in ("reject", "shed")]
+    return dict(ev[-1].args or {}, kind=ev[-1].kind) if ev else {}
+
+
+def _serve_admission(st, km, card: str, dev, kmr: dict) -> None:
+    """The four admission refusals, each named in its flight record."""
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.resilience import memory
+    from spartan_tpu_torch.serve import CommBudgetExceeded
+
+    points = kmr["points"]
+    c0 = st.from_numpy(kmr["c0"])
+
+    def step():
+        return km.kmeans_step(points, c0, KM_K)
+
+    # Backpressure past the high-water mark
+    eng = _serve_parked(st, queue_max=4)
+    for _ in range(4):
+        eng.submit(step())
+    try:
+        eng.submit(step())
+        _fail("[serve] a submission past the high-water mark was admitted")
+    except st.Backpressure as e:
+        bp = e
+    why = _last_reject(st)
+    eng.stop()
+    _say(f"[serve] admission: the 5th submission on a 4-deep queue raised "
+         f"Backpressure(retry_after_s={bp.retry_after_s:.6f}) (limit > 0), "
+         f"flight record {why.get('kind')}/{why.get('reason')}")
+    if not bp.retry_after_s > 0 or why.get("reason") != "backpressure":
+        _fail(f"[serve] backpressure: {bp.retry_after_s}, {why}")
+
+    # memory: a budget below the k-means plan's request_bytes
+    key, ctx = base.plan_signature(step())
+    need = memory.request_bytes(base.lookup_plan(key), ctx.leaves,
+                                st.get_mesh())
+    st.FLAGS.hbm_budget_bytes = need - 1
+    try:
+        with st.ServeEngine() as eng:
+            try:
+                eng.submit(step())
+                _fail("[serve] a request over the memory budget was "
+                      "admitted")
+            except st.Backpressure:
+                pass
+    finally:
+        st.FLAGS.hbm_budget_bytes = 0
+    why = _last_reject(st)
+    _say(f"[serve] admission: memory_governor on, hbm_budget_bytes "
+         f"{need - 1} below the k-means plan's request_bytes {need}: "
+         f"Backpressure, flight record {why.get('kind')}/"
+         f"{why.get('reason')}")
+    if why.get("reason") != "memory":
+        _fail(f"[serve] memory admission: {why}")
+
+    # a 1 us deadline
+    with st.ServeEngine() as eng:
+        fut = eng.submit(step(), deadline_s=1e-6)
+        try:
+            fut.result(timeout=SERVE_WAIT_S)
+            _fail("[serve] a request past its 1 us deadline was served")
+        except st.DeadlineExceeded:
+            pass
+    why = st.flightrec()["requests"][fut.rid]
+    _say(f"[serve] admission: a 1 us deadline: DeadlineExceeded, flight "
+         f"record {why.get('status')}/{why.get('reason')}")
+    if why.get("status") != "shed" or \
+            why.get("reason") not in ("deadline", "predicted"):
+        _fail(f"[serve] deadline shed: {why}")
+
+    # the communication budget: an audited k-split dot on (8, 1)
+    with st.use_mesh(st.build_mesh((8, 1))):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(28)
+        a = st.as_expr(st.DistArray(torch.rand(
+            (1024, 4096), generator=gen, device=dev),
+            st.Tiling((None, "x")), st.get_mesh()))
+        b = st.as_expr(st.DistArray(torch.rand(
+            (4096, 1024), generator=gen, device=dev),
+            st.Tiling(("x", None)), st.get_mesh()))
+        audit = st.audit_plan(st.dot(a, b))
+        st.FLAGS.comm_budget_bytes = 1
+        try:
+            with st.ServeEngine() as eng:
+                try:
+                    eng.submit(st.dot(a, b))
+                    _fail("[serve] a plan over the communication budget "
+                          "was admitted")
+                except CommBudgetExceeded as e:
+                    cb = e
+        finally:
+            st.FLAGS.comm_budget_bytes = 0
+    why = _last_reject(st)
+    _say(f"[serve] admission: the audited k-split dot "
+         f"({audit.multiset}, ~{audit.comm_bytes:.0f} bytes/position "
+         f"modeled) at comm_budget_bytes=1: CommBudgetExceeded, flight "
+         f"record {why.get('kind')}/{why.get('reason')} ({why.get('finding')})")
+    if not audit.comm_bytes > 0 or why.get("reason") != "comm_budget" or \
+            cb.comm_bytes != audit.comm_bytes:
+        _fail(f"[serve] communication admission: {audit.multiset}, {why}")
+
+
+def _serve_drain(st, card: str, dev) -> None:
+    """``device_loss`` chaos while requests are queued on the default
+    engine: they fail with MeshReconfiguring; resubmitted after the
+    rebuild they equal a clean serial run on the rebuilt mesh."""
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import elastic
+    from spartan_tpu_torch.serve import engine as serve_engine
+
+    st.serve.shutdown_default()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    try:
+        with st.use_mesh(st.build_mesh(RES_MESH)):
+            mesh0 = st.get_mesh()
+            xa = st.DistArray(torch.rand((2048, 2048), generator=gen,
+                                         device=dev), st.Tiling(("x", "y")),
+                              mesh0)
+            ya = st.DistArray(torch.rand((2048, 2048), generator=gen,
+                                         device=dev), st.Tiling(("x", "y")),
+                              mesh0)
+
+            def req(i):
+                return (st.dot(st.as_expr(xa), st.as_expr(ya)).sum()
+                        * float(i + 1))
+
+            eng = _serve_parked(st)
+            serve_engine._default = eng  # the engine recovery drains
+            queued = [eng.submit(req(i)) for i in range(4)]
+            with st.chaos("device_loss@0") as plan:
+                try:
+                    (st.as_expr(xa) * 2.0).sum().evaluate()
+                except Exception:  # noqa: BLE001 - stale inputs raise
+                    pass
+            errs = [f.exception(timeout=SERVE_WAIT_S) for f in queued]
+            rec = st.flightrec()["requests"]
+            reasons = {rec[f.rid].get("reason") for f in queued}
+            epoch = mesh_mod.mesh_epoch()
+            if epoch != 1 or not all(
+                    isinstance(e, st.MeshReconfiguring)
+                    and e.retry_after_s > 0 for e in errs) or \
+                    reasons != {"reconfiguring"}:
+                _fail(f"[serve] drain: epoch {epoch}, {errs}, {reasons}")
+            _serve_unpark(eng)
+            elastic.rehome([xa, ya])
+            rebuilt = st.get_mesh()
+            clean = [float(req(i).glom()) for i in range(4)]
+            again = [float(eng.submit(req(i)).glom(timeout=SERVE_WAIT_S))
+                     for i in range(4)]
+            eng.stop()
+        _say(f"[serve] drain ({plan.fired}): {len(queued)} queued requests "
+             f"failed with MeshReconfiguring(retry_after_s="
+             f"{errs[0].retry_after_s}), flight reason {reasons}; mesh "
+             f"{dict(mesh0.shape)} -> {dict(rebuilt.shape)} at epoch "
+             f"{epoch}; resubmitted on the rehomed inputs: "
+             f"{sum(a == b for a, b in zip(clean, again))}/4 equal to a "
+             f"clean serial run on the rebuilt mesh (limit: all)")
+        if clean != again:
+            _fail("[serve] resubmitted requests differ from the clean run")
+    finally:
+        serve_engine._default = None
+        st.chaos_clear()
+        mesh_mod.reset_epoch_for_tests()
+
+
+def skew_child(workdir: str, rank: int) -> None:
+    """One rank of [serve]'s two-process gloo group on the one card:
+    ``st.skew`` of a config-3 k-means step, each rank holding its row
+    block; results to ``workdir``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = _child_device()
+    st.set_default_device(dev)
+    if not mesh_mod.initialize_distributed(
+            "file://" + os.path.join(workdir, "store"),
+            num_processes=GROUP_RANKS, process_id=rank, backend="gloo",
+            device=dev, timeout_s=GROUP_TIMEOUT_S):
+        _fail("[serve] skew child: no process group")
+    pts = st.from_numpy(np.load(os.path.join(workdir, "km_points.npy"),
+                                mmap_mode="r"))
+    c0 = st.from_numpy(np.load(os.path.join(workdir, "km_c0.npy")))
+    rep = st.skew(km.kmeans_step(pts, c0, KM_K), tier="replay")
+    d = rep.to_dict()
+    with open(os.path.join(workdir, f"skew{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "totals": d["device_totals"],
+                   "ratio": d["imbalance_ratio"],
+                   "nodes": [{k: n[k] for k in ("node", "ratio",
+                                                "straggler", "devices")}
+                             for n in d["nodes"]],
+                   "data": d["data"]}, f)
+    mesh_mod.shutdown()
+
+
+def _serve_skew(st, km, card: str, dev, kmr: dict, workdir: str) -> None:
+    """``st.skew`` of a config-3 step on (8, 1) and on two gloo ranks."""
+    c0 = st.from_numpy(kmr["c0"])
+    with st.use_mesh(st.build_mesh((8, 1))):
+        pts8 = st.as_expr(st.DistArray(kmr["points"].value.tensor,
+                                       st.Tiling(("x", None)),
+                                       st.get_mesh()))
+        t0 = time.perf_counter()
+        rep = st.skew(km.kmeans_step(pts8, c0, KM_K), tier="replay")
+        skew_s = time.perf_counter() - t0
+    d = rep.to_dict()
+    data = [r for r in d["data"] if r["shape"] == [KM_N, KM_D]]
+    _say(f"[serve] st.skew of a config-3 step on (8, 1) (per-block "
+         f"replay, {skew_s:.2f} s): per-position ms " + ", ".join(
+             f"{k.split('/')[-1]} {v * 1e3:.3f}"
+             for k, v in sorted(d["device_totals"].items()))
+         + f"; imbalance ratio {d['imbalance_ratio']}; points data skew: "
+         f"{data[0]['shards'] if data else '?'} blocks, size ratio "
+         f"{data[0]['size_ratio'] if data else '?'}, nnz ratio "
+         f"{data[0]['nnz_ratio'] if data else '?'} on {card}")
+    if len(d["device_totals"]) != 8 or d["imbalance_ratio"] is None or \
+            not data:
+        _fail(f"[serve] skew on (8, 1): {d['device_totals']}, "
+              f"{d['imbalance_ratio']}, {d['data']}")
+    pts_np, c0_np, _ = _data(KM_N, KM_D, KM_K, "clustered", 0)
+    np.save(os.path.join(workdir, "km_points.npy"), pts_np)
+    np.save(os.path.join(workdir, "km_c0.npy"), c0_np)
+    del pts_np
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--skew-child", workdir, str(r)])
+             for r in range(GROUP_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=GROUP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _fail(f"[serve] a skew child did not finish in {GROUP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        _fail(f"[serve] skew children exited {[p.returncode for p in procs]}")
+    res = []
+    for r in range(GROUP_RANKS):
+        with open(os.path.join(workdir, f"skew{r}.json")) as f:
+            res.append(json.load(f))
+    want = sorted(f"{_child_device()}/rank{r}" for r in range(GROUP_RANKS))
+    for rr in res:
+        _say(f"[serve] st.skew on gloo rank {rr['rank']} of {GROUP_RANKS}: "
+             f"per-rank ms " + ", ".join(
+                 f"{k.split('/')[-1]} {v * 1e3:.3f}"
+                 for k, v in sorted(rr["totals"].items()))
+             + f"; imbalance ratio {rr['ratio']}; the rank's points block: "
+             f"{[(r['shape'], r['shards'], r['nnz_ratio']) for r in rr['data']]}")
+        if sorted(rr["totals"]) != want or rr["ratio"] is None:
+            _fail(f"[serve] skew rank {rr['rank']}: {rr['totals']}")
+    if res[0]["totals"] != res[1]["totals"]:
+        _fail("[serve] the ranks folded different seconds")
+    _say(f"[serve] skew children {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def phase_serve(st, kk, km, card: str, dev, kmr: dict, workdir: str) -> dict:
+    """[serve]: the serving front end on the card (module docstring)."""
+    t0 = time.perf_counter()
+    out = _serve_kmeans(st, kk, km, card, dev, kmr)
+    _serve_dot(st, card, dev)
+    _serve_admission(st, km, card, dev, kmr)
+    _serve_drain(st, card, dev)
+    _serve_skew(st, km, card, dev, kmr, workdir)
+    _say(f"[serve] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
 def phase_spmd(st, kk, ks, km, card: str, dev, kmr: dict) -> dict:
     t0 = time.perf_counter()
     phase_spmd_threads(st, card, dev, kmr["points"], kmr["c0"])
@@ -5543,6 +6079,9 @@ def main() -> None:
         return
     if len(sys.argv) == 4 and sys.argv[1] == "--persist-child":
         persist_child(sys.argv[2], int(sys.argv[3]))
+        return
+    if len(sys.argv) == 4 and sys.argv[1] == "--skew-child":
+        skew_child(sys.argv[2], int(sys.argv[3]))
         return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -5625,6 +6164,11 @@ def main() -> None:
         guard = phase_guards(st, kk, km, card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        serve = phase_serve(st, kk, km, card, dev, kmr, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",
@@ -5640,7 +6184,8 @@ def main() -> None:
         "local_launches_per_rank": loc["kmeans"],
         "resilience_launches": resr["launches"],
         "elastic_survivor_launches": elr["survivor_launches"],
-        "integrity_launches": guard["integrity_launches"]}, {
+        "integrity_launches": guard["integrity_launches"],
+        "serve_launches": serve["launches"]}, {
         "name": "windowed_segsum", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:148",

@@ -47,7 +47,8 @@ from . import obs  # noqa: E402
 from .analysis import PlanAudit, audit_plan, check, lint  # noqa: E402
 from .obs import (REGISTRY, AuditReport, CalibrationProfile,  # noqa: E402
                   Counter, DeviceProfile, ExplainReport, Gauge, Histogram,
-                  Registry, Span, Watchpoint, audit, dump_crash, explain,
+                  Registry, SkewReport, Span, Watchpoint, audit,
+                  dump_crash, explain,
                   fit_profile, load_profile, loop_health, metrics,
                   profile_export, save_profile, span, trace_clear,
                   trace_events, trace_export, unwatch, watch)
@@ -56,6 +57,9 @@ from . import resilience  # noqa: E402
 from .resilience.classify import FatalMeshError  # noqa: E402
 from .resilience.faults import ChaosPlan, chaos, chaos_clear  # noqa: E402
 from .resilience.integrity import IntegrityError  # noqa: E402
+from . import serve  # noqa: E402
+from .serve import (Backpressure, DeadlineExceeded, EvalFuture,  # noqa: E402
+                    MeshReconfiguring, ServeEngine, evaluate_async)
 from .utils import checkpoint, profiling  # noqa: E402
 from .utils.config import FLAGS  # noqa: E402
 
@@ -78,7 +82,10 @@ __all__ = (["DistArray", "SparseDistArray", "MaskedDistArray", "TileExtent",
             "ExplainReport", "ledger", "CalibrationProfile", "fit_profile",
             "save_profile", "load_profile", "profile", "profile_export",
             "DeviceProfile", "audit", "AuditReport", "watch", "unwatch",
-            "Watchpoint", "loop_health", "dump_crash"]
+            "Watchpoint", "loop_health", "dump_crash", "flightrec",
+            "skew", "SkewReport", "serve", "ServeEngine", "EvalFuture",
+            "evaluate_async", "Backpressure", "DeadlineExceeded",
+            "MeshReconfiguring"]
            + list(_expr_all))
 
 
@@ -116,3 +123,19 @@ def profile(expr, tier=None, reps=None):
     replay; 'capture' / 'replay' force one. Continuous sampling:
     ``FLAGS.profile_sample_every = N``."""
     return obs.profile.profile(expr, tier=tier, reps=reps)
+
+
+def flightrec(limit=None):
+    """The serve path's flight recorder: recent per-request events
+    (submit -> queue -> coalesce -> dispatch -> resolve -> fetch),
+    reconstructed request timelines, and per-tenant latency
+    decomposition histograms."""
+    return obs.flightrec(limit=limit)
+
+
+def skew(expr, tier=None, reps=None):
+    """Shard-level skew report: per-position time skew with a collective
+    wait decomposition, per-block data skew over the expression's
+    leaves, and an advisory re-tiling when the imbalance ratio exceeds
+    ``FLAGS.skew_warn_ratio`` (report-only)."""
+    return obs.skew.skew(expr, tier=tier, reps=reps)

@@ -4,9 +4,10 @@ Each class keeps its state in DistArray handles and applies new data
 through ``DistArray.update`` (a functional region write), so the
 per-step DAGs keep their structure and hit the plan cache. Their results
 equal a full recompute: the JAX package's incremental engine, which
-would recompute only what a batch dirtied, is not ported (ROADMAP A6),
-and neither are the ``serve/`` entry points ``step_async`` and
-``stats_async`` (A5).
+would recompute only what a batch dirtied, is not ported yet (ROADMAP).
+The ``*_async`` entry points (``step_async``, ``stats_async``) submit
+through ``serve/`` (``evaluate_async``: admission control, coalescing,
+flight recording).
 
 * :class:`IncrementalPageRank`: dense-transition PageRank over column
   (in-link) batches, with a damped correction against a fixed base
@@ -21,7 +22,7 @@ and neither are the ``serve/`` entry points ``step_async`` and
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +78,12 @@ class IncrementalPageRank:
 
         prod = DotExpr(lazify(self._base), lazify(self.A))
         return prod * self.damping + (1.0 - self.damping) / self.n
+
+    def step_async(self, tenant: Optional[str] = None):
+        """The serve/ route: submit the correction step to the
+        concurrent engine (admission, flight recording); returns its
+        ``EvalFuture``."""
+        return self._step_expr().evaluate_async(tenant=tenant)
 
     def insert_edges(self, cols: slice, values: Any) -> None:
         """Replace the in-link columns ``A[:, cols]``: one region
@@ -213,6 +220,11 @@ class SlidingWindowStats:
         var = expr_base.evaluate(((x - lazify(mean)) ** 2).mean(axis=0))
         std = expr_base.evaluate(lazify(var) ** 0.5)
         return mean, std
+
+    def stats_async(self, tenant: Optional[str] = None):
+        """serve/ route for read-heavy monitors: the mean through the
+        concurrent engine (identical concurrent readers coalesce)."""
+        return lazify(self.buf).mean(axis=0).evaluate_async(tenant=tenant)
 
     def normalized(self, mean: DistArray, std: DistArray) -> DistArray:
         """(window - mean) / std, elementwise over the window."""

@@ -274,7 +274,8 @@ class Expr:
                 # numerics sentinel (st.audit / FLAGS.audit_numerics): a
                 # health word of this node's value, kept on the device
                 numerics_mod.probe(self, val)
-            if self._forced_tiling is not None:
+            if (self._forced_tiling is not None
+                    and not profile_mod.shard_local_lowering()):
                 # smart tiling chose this node's layout: the
                 # redistribution seam returns ``val`` itself unless the
                 # planner is on and predicts an explicit schedule from
@@ -316,6 +317,18 @@ class Expr:
 
     def evaluate(self, donate: Sequence[Any] = ()) -> DistArray:
         return evaluate(self, donate=donate)
+
+    def evaluate_async(self, donate: Sequence[Any] = (),
+                       tenant: Optional[str] = None,
+                       deadline_s: Optional[float] = None):
+        """Submit this expr to the concurrent serving engine
+        (``spartan_tpu_torch/serve``): returns an ``EvalFuture`` at once;
+        identical-signature requests from concurrent callers coalesce
+        into one batched walk."""
+        from ..serve import evaluate_async as _ea
+
+        return _ea(self, donate=donate, tenant=tenant,
+                   deadline_s=deadline_s)
 
     def force(self, donate: Sequence[Any] = ()) -> DistArray:
         return evaluate(self, donate=donate)
@@ -801,12 +814,87 @@ class _Plan:
         self.persist_digest: Optional[str] = None
 
 
-# The plan cache is an LRU shared by every thread that evaluates;
-# _cache_lock guards the dict operations only, never a DAG walk.
-_PLAN_CACHE_MAX = 512
+# The plan cache is an LRU shared by every thread that evaluates (and the
+# serve engine's workers); _cache_lock guards it and the variant cache
+# (they evict together), for dict operations only, never a DAG walk.
+# Other modules go through lookup_plan / store_plan / cached_executable.
+_PLAN_CACHE_MAX_FLAG = FLAGS.define_int(
+    "plan_cache_max", 512,
+    "Maximum plans retained in the evaluate() plan cache; beyond it "
+    "the least-recently-used plan is evicted together with every "
+    "variant keyed under it (the serve coalescer's batched walks). "
+    "0 = unbounded (and the hot path skips the LRU reordering). "
+    "Eviction counts land on the plan_evictions metric.")
 _plan_cache: "OrderedDict[Tuple, _Plan]" = OrderedDict()
 _cache_lock = threading.Lock()
 _PLAN_COUNTERS = ("plan_hits", "plan_misses", "evaluations")
+
+
+class _Exec:
+    """A variant of a plan (the serve coalescer's batched walk): the
+    function and whether a call of it has succeeded (the chaos seam's
+    ``compile`` vs ``dispatch``)."""
+
+    __slots__ = ("fn", "warm")
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.warm = False
+
+
+# variant key (a plan key plus the variant's own fields) -> _Exec
+_compile_cache: Dict[Tuple, _Exec] = {}
+
+# -- walk serialization --------------------------------------------------
+#
+# A walk on the CPU runs its torch ops on the calling thread, and on a
+# group mesh it issues collectives: two threads walking at once on a
+# group mesh would pair the wrong collective calls across ranks. The
+# serve engine's workers and concurrent evaluate() callers therefore
+# serialize the walk (not the planning) where it needs it. Walks on the
+# card only launch work onto the device's stream, so 'auto' leaves a
+# logical mesh on the card unguarded.
+
+_DISPATCH_SERIALIZE_FLAG = FLAGS.define_str(
+    "dispatch_serialize", "auto",
+    "Serialize plan walks across threads: 'auto' (serialize on the cpu "
+    "and on a group mesh, whose collectives would pair the wrong calls "
+    "across ranks under concurrent walks; leave a logical mesh on the "
+    "card unserialized), 'on', or 'off'. Planning, leaf gathering and "
+    "result wrapping always run concurrently — only the walk is "
+    "guarded.")
+
+# reentrant: a lowering may evaluate another expression on the walking
+# thread (a user function of st.map that calls evaluate())
+_launch_lock = threading.RLock()
+
+
+class _NullGuard:
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullGuard":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        pass
+
+
+_NULL_GUARD = _NullGuard()
+
+
+def launch_guard(mesh=None):
+    """The serialization context for one plan walk, shared by ``_run``
+    and the serve coalescer: the process's walk lock where
+    ``FLAGS.dispatch_serialize`` asks for it (see the flag), else a
+    no-op. One flag read on the hot path."""
+    v = _DISPATCH_SERIALIZE_FLAG._value
+    if v == "off":
+        return _NULL_GUARD
+    if v != "on":
+        mesh = mesh or mesh_mod.get_mesh()
+        if mesh.device.type != "cpu" and not mesh.is_group:
+            return _NULL_GUARD
+    return _launch_lock
 
 
 def plan_stats() -> Dict[str, int]:
@@ -826,29 +914,79 @@ def plan_cache_size() -> int:
     return len(_plan_cache)
 
 
+def compile_cache_size() -> int:
+    return len(_compile_cache)
+
+
 def clear_plan_cache() -> None:
     with _cache_lock:
         _plan_cache.clear()
 
 
+def clear_compile_cache() -> None:
+    """Drop every plan and every variant (the variants are keyed under
+    their plans, so the two clear together)."""
+    with _cache_lock:
+        _compile_cache.clear()
+        _plan_cache.clear()
+
+
+def _drop_variants(plan_key: Tuple) -> None:
+    """Remove every variant keyed under ``plan_key`` (caller holds
+    ``_cache_lock``)."""
+    n = len(plan_key)
+    for k in [k for k in _compile_cache if k[:n] == plan_key]:
+        del _compile_cache[k]
+
+
 def lookup_plan(plan_key: Tuple) -> Optional[_Plan]:
+    """Plan-cache read (the only read path: serve/, obs/ and analysis/
+    go through here). A hit refreshes LRU recency when the cache is
+    bounded; unbounded (``plan_cache_max=0``) skips the reorder."""
     with _cache_lock:
         plan = _plan_cache.get(plan_key)
-        if plan is not None:
+        if plan is not None and _PLAN_CACHE_MAX_FLAG._value > 0:
             _plan_cache.move_to_end(plan_key)
         return plan
 
 
 def store_plan(plan_key: Tuple, plan: _Plan) -> _Plan:
-    """Insert with LRU eviction; the first writer wins a race."""
+    """Insert with LRU eviction (``FLAGS.plan_cache_max``): an evicted
+    plan takes every variant keyed under it (``plan.key + ...``, the
+    serve coalescer's batched walks) out of the variant cache with it,
+    so an unbounded stream of plans cannot pin their dead variants.
+    The first writer wins a race (the existing plan is returned)."""
+    evicted = 0
     with _cache_lock:
         cur = _plan_cache.get(plan_key)
         if cur is not None:
             return cur
         _plan_cache[plan_key] = plan
-        while len(_plan_cache) > _PLAN_CACHE_MAX:
-            _plan_cache.popitem(last=False)
+        maxn = _PLAN_CACHE_MAX_FLAG._value
+        while maxn and maxn > 0 and len(_plan_cache) > maxn:
+            old_key, _old = _plan_cache.popitem(last=False)
+            _drop_variants(old_key)
+            evicted += 1
+    if evicted:
+        prof.count("plan_evictions", evicted)
     return plan
+
+
+def cached_executable(key: Tuple, make: Callable[[], Callable]) -> _Exec:
+    """Get-or-create a plan variant under ``key`` (a plan key plus the
+    variant's fields): ``make()`` builds the function on a miss, outside
+    the lock, and the first writer wins. The serve coalescer keys its
+    batched walks here, so they share the plan's eviction, and each
+    miss counts on ``compiles``."""
+    with _cache_lock:
+        ex = _compile_cache.get(key)
+    if ex is None:
+        mine = _Exec(make())
+        with _cache_lock:
+            ex = _compile_cache.setdefault(key, mine)
+        if ex is mine:
+            prof.count("compiles")
+    return ex
 
 
 # _opt_flags_key memo: (flag-mutation count, registered passes) -> key.
@@ -911,6 +1049,7 @@ def evict_stale_plans() -> int:
         stale = [k for k in _plan_cache if k[2][0][0] != epoch]
         for k in stale:
             del _plan_cache[k]
+            _drop_variants(k)
     if stale:
         prof.count("plan_evictions", len(stale))
     return len(stale)
@@ -1227,7 +1366,8 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
                 if not any(arr is r for r in released):
                     released.append(arr)
     pctx = prof.phase("dispatch")
-    with pctx, numerics_mod.watchdog("dispatch", plan.report):
+    with pctx, numerics_mod.watchdog("dispatch", plan.report), \
+            launch_guard(mesh):
         if numerics_mod._AUDIT_FLAG._value:
             # leaves first (a poisoned input names the LEAF, not its
             # first consumer), then every node as its lowering returns
@@ -1261,21 +1401,7 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
                 if released:
                     don["donated_dispatches"] = (
                         don.get("donated_dispatches", 0) + 1)
-        outs = out if plan.is_tuple else (out,)
-        wrapped = []
-        for o, t in zip(outs, plan.out_tilings):
-            if group:
-                o = redistribute_mod.relayout(o, t)
-                if o.local.device != mesh.device:  # a scalar-only expr
-                    o = DistArray.from_local(o.local.to(mesh.device), t,
-                                             o.shape, mesh)
-                wrapped.append(o)
-                continue
-            if o.device != mesh.device:  # a scalar-only expression
-                o = o.to(mesh.device)
-            wrapped.append(DistArray(o, t, mesh))
-        result: Any = tuple(wrapped) if plan.is_tuple else wrapped[0]
-        expr._result = result
+        result = _wrap_result(expr, plan, out, mesh)
     if ledger_mod._LEDGER_FLAG._value and plan.report is not None:
         # cost ledger: this walk's host seconds (the launches; nothing
         # waits for the card) next to the plan's predicted DP cost
@@ -1293,6 +1419,37 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
         # persistent watchpoints (st.watch): re-checked after every walk
         numerics_mod.poll_watchpoints()
     return result
+
+
+def _wrap_result(expr: Expr, plan: _Plan, out: Any, mesh) -> Any:
+    """A walk's outputs as DistArrays under the plan's output tilings,
+    seeded into ``expr``'s result cache. Shared by ``_run`` and the
+    serve coalescer (one call per request of a batch)."""
+    outs = out if plan.is_tuple else (out,)
+    wrapped = []
+    for o, t in zip(outs, plan.out_tilings):
+        if mesh.is_group:
+            o = redistribute_mod.relayout(o, t)
+            if o.local.device != mesh.device:  # a scalar-only expr
+                o = DistArray.from_local(o.local.to(mesh.device), t,
+                                         o.shape, mesh)
+            wrapped.append(o)
+            continue
+        if o.device != mesh.device:  # a scalar-only expression
+            o = o.to(mesh.device)
+        wrapped.append(DistArray(o, t, mesh))
+    result: Any = tuple(wrapped) if plan.is_tuple else wrapped[0]
+    expr._result = result
+    return result
+
+
+def leaf_args(leaves: Sequence[Expr], order: Tuple[int, ...]) -> List[Any]:
+    """One request's walk seeds on a logical mesh: the tensor of each
+    leaf in ``order`` (a scalar leaf as a 0-d CPU tensor). The serve
+    coalescer gathers these per request; the epoch check comes first,
+    as in ``_dispatch``."""
+    _check_epochs(list(leaves), order)
+    return [_leaf_arg(leaves[i]) for i in order]
 
 
 def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:

@@ -38,6 +38,18 @@ BUILD_LOG: Dict[str, str] = {}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
+# held by every kernel module's launch counter (its ``LAUNCHES``): the
+# serve engine's workers launch from several threads, and a bare
+# read-modify-write would lose increments between them
+COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]`` (a kernel module's ``LAUNCHES``)
+    under :data:`COUNT_LOCK`."""
+    with COUNT_LOCK:
+        counts[name] += 1
+
 
 def sources() -> List[str]:
     """Names of every CUDA source in ``csrc/`` (file names without

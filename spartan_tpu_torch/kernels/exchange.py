@@ -88,7 +88,7 @@ def _launch(xs: torch.Tensor, starts: torch.Tensor,
             xs.data_ptr(), starts.data_ptr(), counts.data_ptr(),
             out.data_ptr(), b, p, m, stream)
     build_mod.check(err, "partition_pack kernel launch")
-    LAUNCHES["partition_pack"] += 1
+    build_mod.count_launch(LAUNCHES, "partition_pack")
     return out
 
 

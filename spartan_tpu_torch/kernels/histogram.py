@@ -170,7 +170,7 @@ def _launch(ids: torch.Tensor, length: int) -> torch.Tensor:
             ids.data_ptr(), plan.head, plan.nvec, plan.tail, length,
             out.data_ptr(), plan.copies, plan.ctas, stream)
     build_mod.check(err, "bincount_block kernel launch")
-    LAUNCHES["bincount_block"] += 1
+    build_mod.count_launch(LAUNCHES, "bincount_block")
     return out
 
 

@@ -46,7 +46,8 @@ _MAX_D = 1024
 _SMEM_LIMIT = build_mod.SMEM_PER_BLOCK
 
 # Kernel launches so far: the wrapper adds one per launch of the CUDA
-# kernel and nowhere else (the plain version does not count).
+# kernel and nowhere else (the plain version does not count), under
+# build.COUNT_LOCK, so concurrent serve workers lose no increment.
 LAUNCHES = 0
 
 _occupancy: Dict[Tuple[int, int, int], int] = {}
@@ -180,8 +181,59 @@ def _launch(points: torch.Tensor, centers: torch.Tensor, k: int,
             part_cnt.data_ptr(), sums.data_ptr(), cnt.data_ptr(), m, d, k,
             valid, grid, stream)
     _check(err, "launch")
-    LAUNCHES += 1
+    with build_mod.COUNT_LOCK:
+        LAUNCHES += 1
     return sums, cnt
+
+
+# -- the operator and its batching rule ---------------------------------
+#
+# The pass is a torch custom operator, so that ``torch.func.vmap`` (the
+# serve coalescer's batched walk, serve/coalesce.py) reaches the kernel
+# through a batching rule instead of tracing into the ctypes call, which
+# cannot take a batched tensor: the counterpart of ``pallas_call``'s
+# batching rule in the JAX package. The rule launches the kernel once
+# per client on that client's slice (the same kernel, inputs and grid as
+# a solo call), so a batched walk is bit-equal to the solo walks and
+# counts one launch per client. One launch for the whole batch, with a
+# client axis in the grid, is later work (ROADMAP).
+
+
+@torch.library.custom_op("spartan_tpu_torch::kmeans_assign_accumulate",
+                         mutates_args=())
+def _pass_op(points: torch.Tensor, centers: torch.Tensor, k: int,
+             valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pass: the CUDA kernel on the card, the plain version on the
+    CPU."""
+    if build_mod.on_card(points, "k-means"):
+        return _launch(points.contiguous(), centers.contiguous(), k, valid)
+    return assign_accumulate_plain(points, centers, k, valid)
+
+
+@_pass_op.register_fake
+def _pass_fake(points, centers, k, valid):
+    d = points.shape[1]
+    return (points.new_empty((k, d)), points.new_empty((k,)))
+
+
+def _client(t: torch.Tensor, dim: Optional[int], i: int) -> torch.Tensor:
+    """Client ``i``'s operand: the whole tensor where it is shared."""
+    return t if dim is None else t.select(dim, i)
+
+
+def _pass_vmap(info, in_dims, points, centers, k, valid):
+    """The batching rule: one pass a client, outputs stacked on a new
+    leading axis. A client's slice of a contiguous stack along its batch
+    axis is contiguous, and 16-byte aligned since the kernel takes d in
+    multiples of 128."""
+    pd, cd = in_dims[0], in_dims[1]
+    outs = [_pass_op(_client(points, pd, i), _client(centers, cd, i), k,
+                     valid) for i in range(info.batch_size)]
+    return ((torch.stack([o[0] for o in outs]),
+             torch.stack([o[1] for o in outs])), (0, 0))
+
+
+_pass_op.register_vmap(_pass_vmap)
 
 
 # -- the wrapper -------------------------------------------------------
@@ -200,9 +252,8 @@ def assign_accumulate(points: torch.Tensor, centers: torch.Tensor, k: int,
         raise ValueError("points and centers must be on one device")
     n = points.shape[0]
     valid = n if valid_rows is None else max(0, min(int(valid_rows), n))
-    if not build_mod.on_card(points, "k-means"):
-        return assign_accumulate_plain(points, centers, k, valid)
-    return _launch(points.contiguous(), centers.contiguous(), k, valid)
+    build_mod.on_card(points, "k-means")  # raises for another device
+    return _pass_op(points, centers, k, valid)
 
 
 def assign_accumulate_local(points, centers: torch.Tensor, k: int,

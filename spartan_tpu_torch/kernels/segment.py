@@ -145,7 +145,7 @@ def _launch_block(vals: torch.Tensor, ids: torch.Tensor,
             part.data_ptr(), out.data_ptr(), e, d, k, d_tile, threads,
             n_chunks, chunk_rows, stream)
     build_mod.check(err, "segment_sum_block kernel launch")
-    LAUNCHES["segment_sum_block"] += 1
+    build_mod.count_launch(LAUNCHES, "segment_sum_block")
     return out
 
 
@@ -169,7 +169,7 @@ def _launch_windowed(vals: torch.Tensor, ids: torch.Tensor,
             vals.data_ptr(), ids.data_ptr(), starts.data_ptr(),
             out.data_ptr(), n_windows, n_out, stream)
     build_mod.check(err, "windowed_segsum kernel launch")
-    LAUNCHES["windowed_segsum"] += 1
+    build_mod.count_launch(LAUNCHES, "windowed_segsum")
     return out
 
 

@@ -145,9 +145,9 @@ def _launch(x5: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         err = fn(x5.data_ptr(), w.data_ptr(), out.data_ptr(), p * n, n, hp,
                  wp, c, kh, kw, o, stream)
     build_mod.check(err, "conv_block kernel launch")
-    LAUNCHES["conv_block"] += 1
+    build_mod.count_launch(LAUNCHES, "conv_block")
     if mma:
-        LAUNCHES["conv_block_mma"] += 1
+        build_mod.count_launch(LAUNCHES, "conv_block_mma")
     return out
 
 

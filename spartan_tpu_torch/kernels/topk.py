@@ -157,7 +157,7 @@ def _launch(key: torch.Tensor, k: int, sentinel):
             int(key.dtype == torch.float32), chunk, chunks,
             _sentinel_bits(sentinel, key.dtype), stream)
     build_mod.check(err, "shard_topk kernel launch")
-    LAUNCHES["shard_topk"] += 1
+    build_mod.count_launch(LAUNCHES, "shard_topk")
     return out_keys, out_idx
 
 

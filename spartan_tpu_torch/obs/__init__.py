@@ -20,18 +20,30 @@
   ``torch.profiler`` capture on the card, replay elsewhere);
   ``st.profile_export`` merges them with the host spans.
 
-The JAX package's ``flight`` (with ``serve/``, ROADMAP A5), ``skew``,
-``slo`` and ``monitor`` (ROADMAP A6) are not ported yet.
+* :mod:`flight` — ``st.flightrec()``: the serve path's per-request
+  flight recorder (submit -> queue -> coalesce -> dispatch -> resolve ->
+  fetch) with per-tenant latency decompositions.
+* :mod:`slo` — per-tenant latency SLO classes for the serve path
+  (``FLAGS.serve_slo_classes``): windowed violation tracking and the
+  ``slo_burn_rate{slo_class=...}`` gauges.
+* :mod:`skew` — ``st.skew(expr)``: per-position time skew with a
+  collective wait decomposition, per-block data skew, and an advisory
+  re-tiling, sampled on the profiler's cadence.
+
+The JAX package's ``monitor`` is not ported yet.
 
 Import discipline: ``obs`` sits below the expr and array layers (only
 ``utils/config`` above it), so every subsystem can emit spans and
 metrics without import cycles.
 """
 
+from . import flight
 from . import ledger as _ledger_mod
 from . import metrics as _metrics_mod
 from . import numerics
 from . import profile
+from . import skew
+from . import slo
 from . import trace as _trace_mod
 from .explain import ExplainReport, explain
 from .ledger import (CalibrationProfile, fit_profile, load_profile,
@@ -40,6 +52,7 @@ from .metrics import REGISTRY, Counter, Gauge, Histogram, Registry
 from .numerics import (AuditReport, Watchpoint, audit, dump_crash,
                        loop_health, unwatch, watch, watchpoints)
 from .profile import DeviceProfile
+from .skew import SkewReport
 from .trace import Span, span
 
 # the module stays importable as obs.ledger; the snapshot is
@@ -47,6 +60,7 @@ from .trace import Span, span
 ledger = _ledger_mod
 metrics = _metrics_mod.snapshot
 ledger_snapshot = _ledger_mod.snapshot
+flightrec = flight.snapshot
 profile_export = profile.export_merged
 trace_export = _trace_mod.export
 trace_events = _trace_mod.events
@@ -59,4 +73,5 @@ __all__ = ["span", "Span", "trace_export", "trace_events", "trace_clear",
            "Watchpoint", "loop_health", "dump_crash",
            "ledger", "ledger_snapshot", "CalibrationProfile",
            "fit_profile", "save_profile", "load_profile", "profile",
-           "profile_export", "DeviceProfile"]
+           "profile_export", "DeviceProfile", "flight", "flightrec",
+           "skew", "SkewReport", "slo"]

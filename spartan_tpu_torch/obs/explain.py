@@ -568,6 +568,34 @@ class ExplainReport:
             if len(nodes) > len(shown):
                 lines.append(f"    ... ({len(nodes) - len(shown)} more "
                              "attributed node(s))")
+        sk = d.get("skew")
+        if sk:
+            # shard-level skew (obs/skew.py: st.skew or the sampler): the
+            # per-position view under the per-node seconds above
+            line = (f"  shard skew [{sk.get('tier')}]: imbalance "
+                    f"max/mean {sk.get('imbalance_ratio') or 'n/a'}")
+            hs = sk.get("hottest_shard")
+            if hs:
+                line += (f", hottest shard {hs['device']} "
+                         f"({hs['seconds'] * 1e3:.3f}ms)")
+            lines.append(line)
+            for r in (sk.get("nodes") or [])[:3]:
+                lines.append(
+                    f"    {r['node']:<24} ratio {r['ratio']:<7} wait "
+                    f"{r['wait_s'] * 1e3:8.3f}ms  straggler "
+                    f"{r['straggler']}")
+            for e in (sk.get("straggler_edges") or [])[:3]:
+                kinds = ", ".join(f"{k}x{n}" if n > 1 else k
+                                  for k, n in sorted(e["kinds"].items()))
+                lines.append(
+                    f"    edge {e['node']:<19} {kinds:<18} wait "
+                    f"{e['wait_s'] * 1e3:8.3f}ms")
+            adv = sk.get("advisory")
+            if adv:
+                lines.append(
+                    f"    ADVISORY: re-tile {adv['src']} -> "
+                    f"{adv['dst']} ~cost {adv['modeled_cost']} "
+                    f"via {adv['schedule']} (report-only)")
         if d.get("leaves") is not None:
             lines.append(f"  leaves: {len(d['leaves'])} "
                          f"(arg order {d.get('arg_order')})")
@@ -616,6 +644,13 @@ class ExplainReport:
             if res.get("resumed_from") is not None:
                 line += f", resumed from iteration {res['resumed_from']}"
             lines.append(line)
+        sv = d.get("serve")
+        if sv:
+            lines.append(
+                f"  serve: coalesced {sv.get('batches', 0)} batch(es), "
+                f"last batch={sv.get('last_batch')} client(s) "
+                f"[{sv.get('mode')}], {sv.get('requests', 0)} "
+                f"request(s) total")
         ca = d.get("cost_analysis")
         if ca:
             lines.append(

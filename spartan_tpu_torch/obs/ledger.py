@@ -22,9 +22,9 @@ module records it next to what the card did and closes the loop:
    lands. The peak-memory columns (``peak_hbm``, ``snapshot(
    validate=True)``) hold the memory governor's modeled card peak
    (``resilience/memory.py``) and, once validated on the card, the
-   measured one. ``note_skew`` records nothing
-   until ``obs/skew`` is ported (ROADMAP A6), and ``note_service`` has
-   no caller until ``serve/`` is (A5).
+   measured one. ``note_skew`` fills the skew columns from
+   ``obs/skew``, and ``note_service`` the service rows from the serve
+   engine's workers (``serve/engine.py``).
 
 2. **Profile-guided calibration** — :func:`fit_profile` least-squares
    per-op-class correction factors (map / reduce / transpose / slice /
@@ -330,10 +330,22 @@ def note_device_profile(digest: Optional[str], tier: str,
 
 def note_skew(digest: Optional[str], imbalance_ratio: Optional[float],
               straggler_wait_s: Optional[float]) -> None:
-    """``obs/skew``'s hook in the JAX package (one shard-skew measurement
-    per plan). Records nothing until ``obs/skew`` is ported (ROADMAP
-    A6): the skew columns stay empty."""
-    return None
+    """``obs/skew``'s hook: one shard-skew measurement for the plan —
+    the worst per-node max/mean position-seconds ratio and the total
+    barrier wait. Kept next to the device columns so
+    :func:`fit_profile` (and ``st.ledger``) can tell calibration rows
+    measured under a dragging shard from balanced ones."""
+    if not _LEDGER_FLAG._value or digest is None \
+            or imbalance_ratio is None:
+        return
+    with _lock:
+        e = _get_or_create(digest)
+        e.skew_samples += 1
+        e.skew_ratio_last = float(imbalance_ratio)
+        if e.skew_ratio_max is None \
+                or imbalance_ratio > e.skew_ratio_max:
+            e.skew_ratio_max = float(imbalance_ratio)
+        e.skew_wait_total_s += max(0.0, float(straggler_wait_s or 0.0))
 
 
 def ingest(digest: str, components: Dict[str, float],

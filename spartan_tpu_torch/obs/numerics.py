@@ -624,8 +624,11 @@ def _index_str(ext: Any, tiles: Sequence[int]) -> str:
 
 def tile_stats(arr: Any) -> List[Dict[str, Any]]:
     """Per-tile (per logical shard, row-major over the mesh positions —
-    the JAX package's device order) health stats, host-computed. On a
-    group mesh the rank reports the block it holds."""
+    the JAX package's device order) health stats. Each real block's
+    counts and absmax are reduced on its device (``_health_word``) and
+    read back together, one small copy for the array; a complex block is
+    reduced on the host (numpy's magnitude). On a group mesh the rank
+    reports the block it holds."""
     from ..parallel import redistribute as redist_mod
 
     arr = _as_array(arr)
@@ -641,26 +644,33 @@ def tile_stats(arr: Any) -> List[Dict[str, Any]]:
             sl = tuple(slice(lo, hi) for lo, hi in zip(ext.ul, ext.lr))
             blocks.append((f"{mesh.device}/shard{i}", ext, whole[sl]))
     tiles = arr.tiling.tiles_per_dim(mesh)
+    words = [None if t.is_complex() else _health_word(t.detach())
+             for _dev, _ext, t in blocks]
+    dev_words = [w for w in words if w is not None]
+    host = (iter(torch.stack(dev_words).cpu().numpy()) if dev_words
+            else iter(()))
     out: List[Dict[str, Any]] = []
-    for dev, ext, t in blocks:
-        d = t.detach().cpu()
-        d = d.to(torch.float64) if not (d.is_floating_point()
-                                        or d.is_complex()) else d
-        d = d.numpy() if d.dtype != torch.bfloat16 else \
-            d.to(torch.float32).numpy()
+    for (dev, ext, t), w in zip(blocks, words):
         rec: Dict[str, Any] = {"device": dev,
                                "index": _index_str(ext, tiles)}
-        if d.size == 0:
+        if t.numel() == 0:
             rec.update(nan_count=0, inf_count=0, absmax=0.0, zero_frac=0.0,
                        size=0, nbytes=0, nnz=0)
             out.append(rec)
             continue
-        zero_frac = float(np.mean(d == 0))
-        rec.update(nan_count=int(np.isnan(d).sum()),
-                   inf_count=int(np.isinf(d).sum()),
-                   absmax=float(np.max(np.abs(d))), zero_frac=zero_frac,
-                   size=int(d.size), nbytes=int(t.numel() * t.element_size()),
-                   nnz=int(round(d.size * (1.0 - zero_frac))))
+        if w is not None:
+            nan, inf, absmax, zeros, _size = next(host)
+        else:
+            d = t.detach().cpu().numpy()
+            nan, inf = np.isnan(d).sum(), np.isinf(d).sum()
+            absmax, zeros = np.max(np.abs(d)), np.count_nonzero(d == 0)
+        size = int(t.numel())
+        # numpy's mean of the zero mask: the exact count over the size
+        zero_frac = float(zeros) / size
+        rec.update(nan_count=int(nan), inf_count=int(inf),
+                   absmax=float(absmax), zero_frac=zero_frac, size=size,
+                   nbytes=int(t.numel() * t.element_size()),
+                   nnz=int(round(size * (1.0 - zero_frac))))
         out.append(rec)
     return out
 
@@ -866,10 +876,10 @@ def dump_crash(path: Optional[str] = None, reason: str = "",
     """Write a JSON crash report: in-flight span tree, recent completed
     spans, last health word, loop-health tails, watchpoint states, the
     cost ledger, a metrics snapshot, and (optionally) the full Chrome
-    trace document. Returns the path written. The JAX package's
-    ``flightrec`` and ``monitor`` sections are None until the flight
-    recorder (with ``serve/``, ROADMAP A5) and the monitor (A6) are
-    ported."""
+    trace document. Returns the path written. The flight recorder's
+    last 128 events ride along (``flightrec``: which requests were in
+    flight); the JAX package's ``monitor`` section is None until the
+    monitor is ported."""
     from .metrics import snapshot as metrics_snapshot
 
     path = path or _CRASH_FLAG._value or _default_crash_path()
@@ -890,6 +900,13 @@ def dump_crash(path: Optional[str] = None, reason: str = "",
                for w in _WATCHPOINTS]
     from . import ledger as ledger_mod
 
+    from . import flight as flight_mod
+
+    try:
+        flightrec: Optional[Dict[str, Any]] = flight_mod.snapshot(
+            limit=128)
+    except Exception:  # noqa: BLE001 - forensics are best-effort
+        flightrec = None
     try:
         ledger: Optional[Dict[str, Any]] = ledger_mod.snapshot()
     except Exception:  # noqa: BLE001 - forensics are best-effort
@@ -897,7 +914,7 @@ def dump_crash(path: Optional[str] = None, reason: str = "",
     doc: Dict[str, Any] = {
         "reason": reason,
         "pid": os.getpid(),
-        "flightrec": None,
+        "flightrec": flightrec,
         "ledger": ledger,
         "monitor": None,
         # the non-default FLAGS in force when the process died

@@ -35,9 +35,19 @@ loses the device records of every captured walk, or the capture
 attributes less than half the walk; ``tier="capture"`` raises instead
 (``"xplane"`` is accepted as its JAX-package name).
 
-On a group mesh each rank profiles its own walk (its blocks, its
-collectives); the cross-rank fold of ``device_seconds`` per device waits
-for ``obs/skew`` (ROADMAP A6).
+**Per-position seconds** (the skew observatory, ``obs/skew``): each
+profiled node may carry ``device_seconds``, ``{position label:
+seconds}``. On a logical mesh of more than one position every position
+shares the one card, so the capture has one device track: the hottest
+``_SKEW_NODE_BUDGET`` nodes and the root are re-run on each position's
+block of the leaves (the per-block replay, the JAX package's
+shard-local re-time; labels ``<device>/shard<i>``, row-major as
+``tile_stats`` names blocks), and a node whose lowering cannot run on
+blocks is left out. On a one-position mesh a node has one entry, for
+the card. On a group mesh each rank profiles its own walk (its blocks,
+its collectives), and the ranks' node seconds are folded with one
+gather (``torch.distributed.all_gather_object``): every rank's report
+carries every rank's seconds, labelled ``<device>/rank<r>``.
 
 **Sampled continuous profiling.** ``FLAGS.profile_sample_every=N``
 profiles every Nth warm dispatch of a plan after the real walk, off the
@@ -72,6 +82,7 @@ import threading
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.config import FLAGS
@@ -691,6 +702,116 @@ def _capture_times(attr: _Attribution, leaves: List[Any], order: Any,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# per-block replay budget: each timed node costs reps walks of its
+# sub-DAG per position, so only the hottest few (plus the root) get it
+_SKEW_NODE_BUDGET = 4
+
+
+def shard_local_lowering() -> bool:
+    """True while this thread re-runs nodes on one position's blocks
+    (the per-block replay): ``Expr.lower`` then skips a node's forced
+    tiling seam, which would lay a block-sized value out across the
+    whole mesh."""
+    return bool(getattr(_tls, "shard_local", False))
+
+
+def _block_seeds(attr: _Attribution, leaves: List[Any], order: Any,
+                 mesh: Any) -> List[Tuple[str, Dict[int, Any]]]:
+    """Per position of a logical mesh: its label and the walk seeds cut
+    to its block of each leaf (a scalar whole)."""
+    from ..expr import base
+    from ..parallel import redistribute as redist_mod
+
+    out = []
+    for i, c in enumerate(redist_mod._coords(mesh)):
+        seeds: Dict[int, Any] = {}
+        for lid, j in zip(attr.leaf_ids, order):
+            val = base._leaf_arg(leaves[j])
+            arr = base._leaf_array(leaves[j])
+            if arr is not None and val.ndim:
+                ext = arr.tiling.block_extent(arr.shape, mesh, coords=c)
+                val = val[tuple(slice(lo, hi)
+                                for lo, hi in zip(ext.ul, ext.lr))]
+            seeds[lid] = val
+        out.append((f"{mesh.device}/shard{i}", seeds))
+    return out
+
+
+def _block_times(attr: _Attribution, node_ids: List[int],
+                 leaves: List[Any], order: Any, mesh: Any,
+                 reps: int) -> Dict[int, Dict[str, float]]:
+    """The per-block replay: each node's sub-DAG re-run on each
+    position's block of the leaves, timed alone (best of ``reps``)."""
+    per_pos = _block_seeds(attr, leaves, order, mesh)
+    cuda = _on_card(mesh)
+    by_id = {n._id: n for n in attr.nodes}
+    out: Dict[int, Dict[str, float]] = {}
+    for nid in node_ids:
+        node = by_id.get(nid)
+        if node is None:
+            continue
+
+        def one(env: Dict[int, Any], node=node) -> None:
+            _tls.shard_local = True
+            try:
+                with _use_naming(attr.naming):
+                    node.lower(env)
+            finally:
+                _tls.shard_local = False
+
+        secs: Dict[str, float] = {}
+        try:
+            for label, seeds in per_pos:
+                secs[label] = _time_call(one, lambda s=seeds: dict(s),
+                                         reps, cuda)
+        except Exception:  # noqa: BLE001 - not runnable on blocks
+            continue
+        out[nid] = secs
+    return out
+
+
+def _fold_ranks(attr: _Attribution, node_secs: Dict[int, float],
+                mesh: Any) -> Dict[int, Dict[str, float]]:
+    """Every rank's seconds per node of a group mesh, by one gather of
+    each rank's ``{(walk position, class): seconds}``: node ids and
+    signature digests are per process, and every rank walks the same
+    plan, so a node's position in the walk names it on every rank."""
+    import torch.distributed as dist
+
+    def key(nid: int) -> Tuple[int, str]:
+        meta = attr.meta[nid]
+        return (meta["topo"], meta["node"].split("#")[0])
+
+    mine = {key(nid): s for nid, s in node_secs.items()}
+    got: List[Any] = [None] * dist.get_world_size(mesh.group)
+    dist.all_gather_object(got, (f"{mesh.device}/rank{mesh.rank}", mine),
+                           group=mesh.group)
+    out: Dict[int, Dict[str, float]] = {}
+    for nid in node_secs:
+        k = key(nid)
+        out[nid] = {label: float(secs[k]) for label, secs in got
+                    if k in secs}
+    return out
+
+
+def _device_seconds(attr: _Attribution, node_secs: Dict[int, float],
+                    leaves: List[Any], order: Any, mesh: Any,
+                    reps: int) -> Dict[int, Dict[str, float]]:
+    """``device_seconds`` per node (module docstring, per-position
+    seconds)."""
+    if mesh.is_group:
+        return _fold_ranks(attr, node_secs, mesh)
+    if int(np.prod(list(mesh.shape.values()))) < 2:
+        return {nid: {str(mesh.device): s}
+                for nid, s in node_secs.items()}
+    hot = sorted((nid for nid, s in node_secs.items() if s > 0),
+                 key=lambda nid: -node_secs[nid])
+    want = hot[:_SKEW_NODE_BUDGET]
+    if attr.dag._id in node_secs and attr.dag._id not in want:
+        want.append(attr.dag._id)
+    return _block_times(attr, want, leaves, order, mesh, reps)
+
+
 def _profile_impl(attr: _Attribution, leaves: List[Any], order: Any,
                   mesh: Any, tier: str, reps: int,
                   digest: Optional[str]) -> DeviceProfile:
@@ -719,6 +840,7 @@ def _profile_impl(attr: _Attribution, leaves: List[Any], order: Any,
         node_secs, wall_s, skipped = _replay_times(attr, leaves, order,
                                                    mesh, reps)
         chosen = "replay"
+    node_dev = _device_seconds(attr, node_secs, leaves, order, mesh, reps)
     nodes: List[Dict[str, Any]] = []
     total = sum(node_secs.values()) or 1.0
     for nid, secs in node_secs.items():
@@ -727,6 +849,10 @@ def _profile_impl(attr: _Attribution, leaves: List[Any], order: Any,
         rec = dict(attr.meta[nid])
         rec["seconds"] = round(secs, 9)
         rec["share"] = round(secs / total, 4)
+        dev = node_dev.get(nid)
+        if dev:
+            rec["device_seconds"] = {d: round(v, 9)
+                                     for d, v in dev.items()}
         if kernels.get(nid):
             rec["kernels"] = {k: round(v, 9)
                               for k, v in kernels[nid].items()}
@@ -877,6 +1003,11 @@ def maybe_sample(expr: Any, plan: Any, phase_name: str, seconds: float,
             tier = _norm_tier(None)
             prof = _profile_impl(attr, leaves, order, mesh, tier, 1, digest)
         _record(prof, plan)
+        # the skew observatory rides the same cadence: per-position
+        # seconds and a bounded data-skew walk, off the result path
+        from . import skew as skew_mod
+
+        skew_mod.note_sampled(prof, plan, leaves)
         _tls.last_sample = {
             "plan": digest, "tier": prof.tier,
             "device_s": round(prof.attributed_s, 6),

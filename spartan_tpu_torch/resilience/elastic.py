@@ -9,9 +9,10 @@ breaks both:
    statuses, a lost ``torch.distributed`` peer, CUDA's sticky errors
    and the injected ``device_loss`` fault to ``fatal_mesh``; the policy
    engine routes that class here.
-2. **drain** — stop the serve engine admitting. The serve engine is not
-   ported (ROADMAP A5), so the drain is the JAX package's behaviour
-   without a running engine: nothing to drain.
+2. **drain** — stop the default serve engine admitting and fail its
+   queued requests with the retryable ``MeshReconfiguring`` (with
+   ``FLAGS.elastic_retry_after_s``); admission reopens after the
+   rebuild, and clients resubmit onto the rebuilt mesh.
 3. **rebuild** — ``parallel.mesh.rebuild_mesh(exclude_devices=...)``
    shrinks the logical mesh to the surviving positions and bumps the
    mesh epoch.
@@ -128,13 +129,26 @@ def infer_failed_devices(exc: BaseException) -> List[int]:
 
 
 def _drain_serve(retry_after_s: float) -> int:
-    """Stop a serve engine admitting and fail its backlog. The serve
-    engine is not ported (ROADMAP A5): nothing runs, nothing drains."""
-    return 0
+    """Stop the default serve engine admitting and fail its queued
+    backlog with MeshReconfiguring (in-flight dispatches fail on their
+    own and are mapped by the worker). No-op without a running engine.
+    Returns requests drained."""
+    from ..serve import engine as serve_engine
+
+    eng = serve_engine.peek_default()
+    if eng is None or not eng.running:
+        return 0
+    return eng.drain_reconfiguring(retry_after_s)
 
 
 def _resume_serve() -> None:
-    """Reopen serve admission after a recovery (ROADMAP A5)."""
+    """Reopen the default serve engine's admission after the rebuild
+    (idempotent)."""
+    from ..serve import engine as serve_engine
+
+    eng = serve_engine.peek_default()
+    if eng is not None:
+        eng.resume_admission()
 
 
 def _notify_monitor() -> None:

@@ -25,8 +25,8 @@
   site attached as a note.
 
 Exhausted retries and ladders write a crash dump (:func:`_dump`,
-``obs/numerics.dump_crash``) before re-raising; its flight-recorder
-section waits for ``obs/flight.py`` (ROADMAP A5, with ``serve/``).
+``obs/numerics.dump_crash``) before re-raising, with the flight
+recorder's recent requests (``obs/flight.py``).
 :func:`retry_evaluate` is the caller-level loop behind
 the deprecated ``utils/recovery.evaluate_with_recovery``.
 """

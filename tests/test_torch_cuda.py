@@ -1447,3 +1447,64 @@ def test_block_checksums_on_the_card_equal_the_cpus(card):
         np.testing.assert_array_equal(
             flip.cpu().numpy(),
             integrity.flip_bit(t, 3, 5, 1, [tl], mesh).numpy())
+
+
+@pytest.mark.cuda
+def test_kmeans_vmap_rule_bit_equal_to_solo_launches(card):
+    """``torch.func.vmap`` over the pass reaches the kernel through the
+    operator's batching rule: one launch a client, each bit-equal to the
+    solo launch on that client's centers."""
+    pts, c0 = _clustered(65536, 128, 16, seed=71)
+    p = torch.from_numpy(pts).to(card)
+    g = torch.Generator(device=card)
+    g.manual_seed(72)
+    cs = (torch.from_numpy(c0).to(card)[None]
+          + 0.1 * torch.randn((6, 16, 128), generator=g, device=card))
+    solo = [kk.assign_accumulate(p, cs[i], 16, 60000) for i in range(6)]
+    before = kk.LAUNCHES
+    sums, cnt = torch.func.vmap(
+        lambda c: kk.assign_accumulate(p, c, 16, 60000))(cs)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES - before == 6
+    for i in range(6):
+        assert torch.equal(sums[i], solo[i][0])
+        assert torch.equal(cnt[i], solo[i][1])
+
+
+@pytest.mark.cuda
+def test_one_served_kmeans_batch_on_the_card(card):
+    """A coalesced batch of k-means steps through one ``ServeEngine``:
+    mode ``vmap``, one launch a request, each bit-equal to its serial
+    ``evaluate()``."""
+    import threading
+
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.serve import coalesce
+
+    st.set_default_device(card)
+    pts, c0 = _clustered(131072, 128, 16, seed=73)
+    points = st.from_numpy(pts)
+    rng = np.random.RandomState(74)
+    cs = [st.from_numpy((c0 + 0.1 * rng.randn(*c0.shape))
+                        .astype(np.float32)) for _ in range(8)]
+    serial = [km.kmeans_step(points, c, 16).glom() for c in cs]
+    eng = st.ServeEngine(workers=1, batch_window_s=0.05, max_batch=8)
+    park = threading.Thread(target=lambda: None)
+    park.start()
+    park.join()
+    eng._threads.append(park)  # queue the whole batch first
+    futs = [eng.submit(km.kmeans_step(points, c, 16)) for c in cs]
+    eng._threads.clear()
+    before = kk.LAUNCHES
+    with eng:
+        got = [f.glom(timeout=120) for f in futs]
+    assert kk.LAUNCHES - before == 8
+    assert [f.coalesced for f in futs] == [8] * 8
+    for a, b in zip(serial, got):
+        np.testing.assert_array_equal(a, b)
+    plan = base.lookup_plan(base.plan_signature(
+        km.kmeans_step(points, cs[0], 16))[0])
+    assert coalesce.mode_for(plan) == "vmap"
+    assert plan.report["serve"]["mode"] == "vmap"

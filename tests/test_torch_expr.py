@@ -434,7 +434,10 @@ def test_port_imports_no_jax():
                 "analysis/hlo.py", "analysis/plan_audit.py",
                 "resilience/memory.py", "resilience/integrity.py",
                 "persist/__init__.py", "persist/store.py",
-                "persist/fingerprint.py"):
+                "persist/fingerprint.py", "serve/__init__.py",
+                "serve/future.py", "serve/queue.py", "serve/coalesce.py",
+                "serve/engine.py", "obs/flight.py", "obs/slo.py",
+                "obs/skew.py"):
         assert os.path.join(REPO, "spartan_tpu_torch", mod) in files
     bad = []
     for path in files:

@@ -316,7 +316,11 @@ def test_dump_crash_and_the_watchdog(tmp_path):
                 "flags_nondefault"):
         assert key in doc
     assert doc["reason"] == "test" and doc["x"] == 1
-    assert doc["flightrec"] is None and doc["monitor"] is None
+    # the flight recorder's window rides the dump (the JAX package's
+    # section); the monitor's stays None until it is ported
+    assert set(doc["flightrec"]) == {"events", "requests", "tenants",
+                                     "incremental"}
+    assert doc["monitor"] is None
     assert doc["last_health"]["op"] == "ReduceExpr"
     assert num_t.watchdog("dispatch") is num_t._NULL_WD
     FLAGS_T.dispatch_timeout_s = 5.0
