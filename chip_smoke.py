@@ -213,7 +213,40 @@ Phases, in order; any failure exits nonzero before the result line:
     gloo ranks sharing the card (``--skew-child``), each rank's seconds
     folded: per-position seconds, the imbalance ratio and the points'
     data skew;
-24. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
+24. ``[incremental]``, the delta-aware engine (``FLAGS.incremental``,
+    ``result_cache_bytes`` raised to hold a 4 GiB leaf): first the card's
+    answer to ``incremental.order_granule`` (restricted vector-matrix
+    and 4096^2 matrix products against the full products' bits).
+    Edge-insert PageRank through ``streaming.IncrementalPageRank`` on
+    dense transitions at n = 16,384 and 32,768: 8 batches rewriting 1%
+    of the columns through ``update()`` with a step after each, the
+    flag on then off on the same stream, the seam write synchronised
+    and timed outside the step windows; median step ms of each arm,
+    their ratio, the on arm's ``incremental_*`` counter deltas and
+    modes (a counted ``contraction-order`` fallback where the card's
+    product cannot keep the order), final ranks bit-equal to the off
+    arm. The delta curve at 0.1%, 1% and 10% dirty for n = 16,384. A
+    1,048,576 x 128 window normalized with fixed statistics after each
+    1% push (served incrementally, bit-equal). ``OnlineKMeans.refine
+    (iters=5)`` twice under the flag: 5 row-1 launches each, bit-equal
+    to the flag-off run, the loop node a counted fallback. The flag-off
+    cost: config-3 ``kmeans_step`` iterations/s with ``expr.base``'s
+    ``incremental_mod`` against a null shim (the JAX package's gate:
+    1%);
+25. ``[monitor]``, the continuous monitor: config-3 steps with
+    ``FLAGS.monitor`` on at a 0.05 s interval against off, alternated,
+    best of 3 (overhead, ticks, mean tick us); a planted 4x calibration
+    drift fed until the drift anomaly fires, the autotune daemon's
+    refit and swap or revert (its warm-up launching row 1, the step
+    bit-equal); the ``sdc`` anomaly of ``[guards]``' quarantine and the
+    epoch fences of the rebuilds; ``st.status()``; ``st.fleet_status()``
+    over two gloo ranks (``--monitor-child``);
+26. ``[benchguard]``: the run's steady figures (dot GFLOPS, config-3
+    k-means, PageRank and logreg iterations/s, SSVD s, the naive-Bayes
+    fit's ms and each kernel row's ms) against ``spartan_tpu_torch/utils/thresholds.json``; a
+    breach names the figure, its value and its bound and fails the run;
+    on a card other than the file's, ``ungraded: <card>``;
+27. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
     with their launches per rank on the group path, rows 1, 2, 5 and 6
     with their launches per rank under local-shard storage, row 1 with
     the faulted run's, the survivor's, the integrity run's and the
@@ -222,9 +255,10 @@ Phases, in order; any failure exits nonzero before the result line:
 ``python3 chip_smoke.py --ckpt-child DIR`` is the child process of
 ``[ckpt_loop]``, and ``python3 chip_smoke.py --spmd-child DIR RANK``,
 ``--local-child DIR RANK``, ``--elastic-child DIR RANK``,
-``--guards-child DIR RANK`` and ``--skew-child DIR RANK`` one rank of
-``[spmd]``'s, ``[local]``'s, ``[elastic_group]``'s, ``[guards]``'s and
-``[serve]``'s groups, ``--obs-child DIR``
+``--guards-child DIR RANK``, ``--skew-child DIR RANK`` and
+``--monitor-child DIR RANK`` one rank of ``[spmd]``'s, ``[local]``'s,
+``[elastic_group]``'s, ``[guards]``'s, ``[serve]``'s and ``[monitor]``'s
+groups, ``--obs-child DIR``
 the process of ``[obs]``'s captures and ``--persist-child DIR I`` one
 of ``[guards]``'s store processes; they are not meant to be run by
 hand.
@@ -526,7 +560,7 @@ def _build_chain(st, ea, eb, k):
     return st.loop(k, body, ea).sum()
 
 
-def phase_dot(st, card: str) -> None:
+def phase_dot(st, card: str) -> dict:
     rng = np.random.RandomState(0)
     a = rng.rand(DOT_N, DOT_N).astype(np.float32)
     b = rng.rand(DOT_N, DOT_N).astype(np.float32)
@@ -563,6 +597,7 @@ def phase_dot(st, card: str) -> None:
     _say(f"[dot] {DOT_N}^2 f32 chain K={DOT_K}: {gflops:.1f} GFLOPS "
          f"(best of 3, {best * 1e3:.1f} ms) on {card}; plan hits "
          f"{stats['plan_hits']} misses {stats['plan_misses']}")
+    return {"gflops": gflops}
 
 
 # -- phase 5 ------------------------------------------------------------
@@ -665,7 +700,7 @@ def phase_kmeans(st, kk, km, card: str, dev) -> dict:
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "nbytes": nbytes, "loop_ips": loop_ips,
+            "ops": ops, "nbytes": nbytes, "loop_ips": loop_ips, "ips": ips,
             "points": points, "padded": p, "c0": c0_np, "ref": centers}
 
 
@@ -908,7 +943,8 @@ def phase_pagerank(kk, ks, pr, links, card: str, dev) -> dict:
          f"library_ms {lib_ms:.4f} (index_add_) bound_ms {bound_ms:.4f} "
          f"(bytes: {nbytes / 1e6:.1f} MB) on {card}")
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "ips": ips}
 
 
 # -- phase 7, naive Bayes ---------------------------------------------------
@@ -994,7 +1030,7 @@ def phase_naive_bayes(st, kk, ks, nb, card: str, dev) -> dict:
     finally:
         st.FLAGS.native_kernels, st.FLAGS.segment_impl = prev
     return {"launches": launches, "ms": ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms}
+            "bound_ms": bound_ms, "fit_ms": best * 1e3}
 
 
 # -- phase 8, segment A/B ---------------------------------------------------
@@ -6058,6 +6094,578 @@ def phase_spmd(st, kk, ks, km, card: str, dev, kmr: dict) -> dict:
     return group
 
 
+# -- phases 24-26: the incremental engine, the monitor, the guard ---------
+
+# [incremental]: edge-insert PageRank on dense transitions, 1% of the
+# columns rewritten a batch, 8 batches with a step after each, flag on
+# then off on the same stream; the delta curve's dirty fractions at the
+# first size; the sliding window the elementwise stream normalizes
+INC_NS, INC_BATCHES, INC_FRAC = (16_384, 32_768), 8, 0.01
+INC_CURVE, INC_CURVE_STEPS = (0.001, 0.01, 0.1), 3
+INC_SW_ROWS, INC_SW_DIM, INC_SW_PUSH = 1_048_576, 128, 10_486
+INC_CACHE_BYTES = 16 << 30  # room for the cached result and leaf pins
+INC_OFF_ITERS, INC_OFF_REPS = 200, 3
+# [monitor]: the sampler's cadence, the per-evaluate k-means run each arm
+# times, and the planted calibration drift
+MON_INTERVAL_S, MON_ITERS, MON_REPS, MON_DRIFT = 0.05, 200, 3, 4.0
+
+
+def _inc_counters(st) -> dict:
+    c = st.metrics()["counters"]
+    return {k: int(c.get(k, 0)) for k in (
+        "incremental_hits", "incremental_fallbacks",
+        "incremental_recomputed_tiles")}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k.replace("incremental_", ""): after[k] - before[k]
+            for k in after}
+
+
+def _inc_report(st, expr) -> dict:
+    from spartan_tpu_torch.expr import base
+
+    plan = base.lookup_plan(base.plan_signature(expr)[0])
+    return dict((plan.report or {}).get("incremental") or {}) \
+        if plan is not None else {}
+
+
+def _inc_pagerank_arm(st, streaming, a, starts, width: int, on: bool):
+    """One arm of the edge-insert stream: per batch the seam write (its
+    own ms, synchronised outside the step window), then one step."""
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    FLAGS.incremental = on
+    n = a.shape[0]
+    gen = torch.Generator(device=a.device)
+    gen.manual_seed(80)
+    pr = streaming.IncrementalPageRank(a.clone(),
+                                       rebase_every=len(starts) + 1)
+    pr.step()  # the cold step: a plan miss, and the cache's seed
+    torch.cuda.synchronize()
+    c0 = _inc_counters(st)
+    seam, steps, reasons = [], [], []
+    for j in starts:
+        vals = torch.rand((n, width), generator=gen, device=a.device) / n
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pr.insert_edges(slice(j, j + width), vals)
+        torch.cuda.synchronize()
+        seam.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        pr.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+        rep = _inc_report(st, pr._step_expr())
+        reasons.append(rep.get("fallback") or rep.get("mode"))
+    cnt = _delta(_inc_counters(st), c0)
+    FLAGS.incremental = False
+    return pr.ranks.tensor, seam, steps, cnt, reasons
+
+
+def _inc_order_check(n: int, dev) -> str:
+    """The card's answer to ``incremental.order_granule``: do restricted
+    vector-matrix products give the full product's bits?"""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(81)
+    r = torch.rand(n, generator=gen, device=dev)
+    a = torch.rand((n, n), generator=gen, device=dev)
+    full = r @ a
+    out = []
+    for g in (1, 64, 1024):
+        held = tries = 0
+        for c0, w in ((777, 164), (3001, 328), (n - 300, 300)):
+            lo, hi = (c0 // g) * g, min(n, -(-(c0 + w) // g) * g)
+            tries += 1
+            held += int(torch.equal(full[lo:hi], r @ a[:, lo:hi]))
+        out.append(f"window granule {g}: {held}/{tries}")
+    m = 4096  # matrix products: row and column windows of a @ b
+    x, y = a[:m, :m].contiguous(), a[m:2 * m, :m].contiguous()
+    del a
+    f = x @ y
+    for g in (1, 256):
+        held = tries = 0
+        for lo, w in ((30, 2), (128, 128), (10, 41)):
+            lo, hi = (lo // g) * g, min(m, -(-(lo + w) // g) * g)
+            held += int(torch.equal(f[lo:hi], x[lo:hi] @ y))
+            held += int(torch.equal(f[:, lo:hi], x @ y[:, lo:hi]))
+            tries += 2
+        out.append(f"{m}^2 matmul rows/cols granule {g}: {held}/{tries}")
+    return ", ".join(out)
+
+
+def _step_ips(st, km, points, c0, iters: int) -> float:
+    """Config-3 iterations per second, one evaluate an iteration (the
+    plan-cache hit path each time), host clock to a synchronise."""
+    c = c0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        c = km.kmeans_step(points, c, KM_K).evaluate()
+    torch.cuda.synchronize()
+    return iters / (time.perf_counter() - t)
+
+
+class _NullIncremental:
+    """A stand-in for expr/base's ``incremental_mod`` binding with the
+    flag constant off: the arm that prices the flag read itself."""
+
+    class _Flag:
+        _value = False
+
+    _INC_FLAG = _Flag()
+    NOT_HANDLED = object()
+
+    @staticmethod
+    def evict_stale() -> int:
+        return 0
+
+
+def _inc_off_path(st, km, card: str, kmr: dict) -> dict:
+    """The flag-off cost: config-3 steps with the real binding against
+    the null shim, alternated, best of INC_OFF_REPS each."""
+    from spartan_tpu_torch.expr import base
+
+    real = base.incremental_mod
+    pts, c0 = kmr["points"], st.from_numpy(kmr["c0"])
+    _step_ips(st, km, pts, c0, 20)  # warm the plan
+    real_ips, shim_ips = [], []
+    try:
+        for _ in range(INC_OFF_REPS):
+            base.incremental_mod = real
+            real_ips.append(_step_ips(st, km, pts, c0, INC_OFF_ITERS))
+            base.incremental_mod = _NullIncremental
+            shim_ips.append(_step_ips(st, km, pts, c0, INC_OFF_ITERS))
+    finally:
+        base.incremental_mod = real
+    cost = max(real_ips) and (max(shim_ips) / max(real_ips) - 1.0)
+    _say(f"[incremental] flag-off cost: config-3 kmeans_step "
+         f"{max(real_ips):.2f} iters/s with the real binding, "
+         f"{max(shim_ips):.2f} with the null shim (best of "
+         f"{INC_OFF_REPS}, {INC_OFF_ITERS} evaluates each): "
+         f"{100 * cost:.2f}% (the JAX package's gate: <= 1%) on {card}")
+    return {"off_path_cost": cost}
+
+
+def _inc_refine(st, kk, card: str, dev, kmr: dict) -> None:
+    """``OnlineKMeans.refine(iters=5)`` under the flag: 5 row-1 launches a
+    refine, bit-equal to the flag-off run; the loop node's dirt is
+    whole-node, its fallback counted."""
+    from spartan_tpu_torch.examples import streaming
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    out = {}
+    for on in (True, False):
+        FLAGS.incremental = on
+        okm = streaming.OnlineKMeans(torch.from_numpy(kmr["c0"]).to(dev))
+        launches = []
+        c0 = _inc_counters(st)
+        for _ in range(2):  # a miss, then a warm hit on moved centers
+            _reset_counts(kk)
+            okm.refine(kmr["points"], iters=OKM_REFINE)
+            torch.cuda.synchronize()
+            launches.append(kk.LAUNCHES)
+        out[on] = (okm.centers.tensor.clone(), launches,
+                   _delta(_inc_counters(st), c0))
+    FLAGS.incremental = False
+    (c_on, l_on, d_on), (c_off, l_off, _) = out[True], out[False]
+    _say(f"[incremental] OnlineKMeans.refine(iters={OKM_REFINE}) twice, "
+         f"flag on: row-1 launches {l_on} (flag off {l_off}), counters "
+         f"{d_on}, centers bit-equal to the flag-off run: "
+         f"{torch.equal(c_on, c_off)} on {card}")
+    if l_on != [OKM_REFINE] * 2 or l_off != [OKM_REFINE] * 2:
+        _fail(f"[incremental] refine launched {l_on} / {l_off}, want "
+              f"{OKM_REFINE} a refine")
+    if not torch.equal(c_on, c_off):
+        _fail("[incremental] refine under the flag is not bit-equal")
+    if d_on["fallbacks"] < 1 or d_on["hits"] != 0:
+        _fail(f"[incremental] the loop node was not a counted fallback: "
+              f"{d_on}")
+
+
+def _inc_window(st, card: str, dev) -> None:
+    """The elementwise stream: a 1,048,576 x 128 window normalized with
+    fixed statistics after each 1% push; the restricted map serves it."""
+    from spartan_tpu_torch.examples import streaming
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(82)
+    first = torch.randn((INC_SW_ROWS, INC_SW_DIM), generator=gen,
+                        device=dev)
+    rows = [torch.randn((INC_SW_PUSH, INC_SW_DIM), generator=gen,
+                        device=dev) for _ in range(INC_BATCHES)]
+    res = {}
+    for on in (True, False):
+        FLAGS.incremental = on
+        sw = streaming.SlidingWindowStats(INC_SW_ROWS, INC_SW_DIM,
+                                          device=dev)
+        sw.push(first)
+        mean, std = sw.stats()
+        sw.normalized(mean, std)  # seed
+        c0 = _inc_counters(st)
+        ms = []
+        for r in rows:
+            sw.push(r)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = sw.normalized(mean, std)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        res[on] = (out.tensor.clone(), float(np.median(ms)),
+                   _delta(_inc_counters(st), c0))
+        del sw, out
+    FLAGS.incremental = False
+    (o_on, m_on, d_on), (o_off, m_off, _) = res[True], res[False]
+    _say(f"[incremental] window {INC_SW_ROWS}x{INC_SW_DIM} f32, "
+         f"{INC_BATCHES} pushes of {INC_SW_PUSH} rows, normalized() with "
+         f"fixed statistics: median {m_on:.3f} ms on, {m_off:.3f} ms off "
+         f"(x{m_off / m_on:.2f}); counters {d_on}; bit-equal "
+         f"{torch.equal(o_on, o_off)} on {card}")
+    if not torch.equal(o_on, o_off):
+        _fail("[incremental] the window stream is not bit-equal")
+    if d_on["hits"] != INC_BATCHES or d_on["fallbacks"] != 0:
+        _fail(f"[incremental] the window stream was not served "
+              f"incrementally: {d_on}")
+
+
+def phase_incremental(st, kk, km, card: str, dev, kmr: dict) -> dict:
+    """[incremental]: the delta-aware engine on the card (module
+    docstring)."""
+    from spartan_tpu_torch.examples import streaming
+    from spartan_tpu_torch.expr import incremental as inc
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    t0 = time.perf_counter()
+    prev_budget = FLAGS.result_cache_bytes
+    FLAGS.result_cache_bytes = INC_CACHE_BYTES
+    out = {}
+    try:
+        _say(f"[incremental] order_granule({dev.type}) = "
+             f"{inc.order_granule(dev)}; restricted r @ A[:, window] "
+             f"against the full product's bits at n = {INC_NS[0]}: "
+             f"{_inc_order_check(INC_NS[0], dev)} on {card}")
+        for n in INC_NS:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(83)
+            a = torch.rand((n, n), generator=gen, device=dev)
+            a /= a.sum(1, keepdim=True)
+            width = -(-n * int(INC_FRAC * 1000) // 1000)
+            starts = [(j * 7919 * width) % (n - width)
+                      for j in range(1, INC_BATCHES + 1)]
+            on = _inc_pagerank_arm(st, streaming, a, starts, width, True)
+            off = _inc_pagerank_arm(st, streaming, a, starts, width, False)
+            del a
+            torch.cuda.empty_cache()
+            s_on, s_off = float(np.median(on[2])), float(np.median(off[2]))
+            equal = torch.equal(on[0], off[0])
+            _say(f"[incremental] PageRank dense {n}^2 f32, {INC_BATCHES} "
+                 f"batches of {width} columns: seam write median "
+                 f"{np.median(on[1] + off[1]):.3f} ms; step median "
+                 f"{s_on:.3f} ms on, {s_off:.3f} ms off (x"
+                 f"{s_off / s_on:.2f}); counters on {on[3]}, off "
+                 f"{off[3]}; the on arm's modes {sorted(set(on[4]))}; "
+                 f"final ranks bit-equal {equal} on {card}")
+            if not equal:
+                _fail(f"[incremental] PageRank at {n} is not bit-equal")
+            served = on[3]["hits"] + on[3]["fallbacks"]
+            if served != INC_BATCHES or off[3]["hits"] + off[3][
+                    "fallbacks"] != 0:
+                _fail(f"[incremental] the engine saw {on[3]} / {off[3]}")
+            if on[3]["fallbacks"] and inc.order_granule(dev) is not None:
+                _fail(f"[incremental] PageRank fell back: {on[4]}")
+            out[n] = {"on_ms": s_on, "off_ms": s_off, "counters": on[3],
+                      "modes": sorted(set(on[4]))}
+        n = INC_NS[0]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(84)
+        a = torch.rand((n, n), generator=gen, device=dev)
+        a /= a.sum(1, keepdim=True)
+        curve = []
+        for frac in INC_CURVE:
+            width = max(1, int(round(n * frac)))
+            starts = [(j * 4099 * width) % (n - width)
+                      for j in range(1, INC_CURVE_STEPS + 1)]
+            on = _inc_pagerank_arm(st, streaming, a, starts, width, True)
+            off = _inc_pagerank_arm(st, streaming, a, starts, width, False)
+            if not torch.equal(on[0], off[0]):
+                _fail(f"[incremental] curve at {frac} is not bit-equal")
+            curve.append(f"{100 * frac:g}% ({width} columns) "
+                         f"{np.median(on[2]):.3f} ms on / "
+                         f"{np.median(off[2]):.3f} off, {on[3]}")
+        del a
+        torch.cuda.empty_cache()
+        _say(f"[incremental] delta curve at {n}: " + "; ".join(curve)
+             + f" on {card}")
+        _inc_window(st, card, dev)
+        _inc_refine(st, kk, card, dev, kmr)
+        out.update(_inc_off_path(st, km, card, kmr))
+    finally:
+        FLAGS.incremental = False
+        FLAGS.result_cache_bytes = prev_budget
+        inc.clear()
+    _say(f"[incremental] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
+def monitor_child(workdir: str, rank: int) -> None:
+    """One rank of [monitor]'s two-process gloo group on the one card:
+    each rank burns its own SLO class, then ``st.fleet_status()`` over a
+    shared fleet directory after a barrier."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.obs import slo
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    dev = _child_device()
+    st.set_default_device(dev)
+    if not mesh_mod.initialize_distributed(
+            "file://" + os.path.join(workdir, "store"),
+            num_processes=GROUP_RANKS, process_id=rank, backend="gloo",
+            device=dev, timeout_s=GROUP_TIMEOUT_S):
+        _fail("[monitor] child: no process group")
+    import torch.distributed as dist
+
+    FLAGS.monitor_fleet_dir = os.path.join(workdir, "fleet")
+    FLAGS.serve_slo_classes = "gold=0.001@0.9"
+    FLAGS.serve_slo_tenants = "hot=gold"
+    for _ in range(4 + 4 * rank):  # rank 1 burns more
+        slo.observe("hot", 1.0)
+    for _ in range(6 - 2 * rank):
+        slo.observe("hot", 0.0)
+    st.fleet_status()  # publish
+    dist.barrier()
+    fs = st.fleet_status()
+    dist.barrier()
+    with open(os.path.join(workdir, f"fleet{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "process_count": fs["process_count"],
+                   "ranks_reporting": fs["ranks_reporting"],
+                   "slo_worst": fs["slo_worst"],
+                   "anomalies_total": fs["anomalies_total"]}, f)
+    mesh_mod.shutdown()
+
+
+def _mon_overhead(st, km, card: str, kmr: dict) -> dict:
+    from spartan_tpu_torch.obs import monitor
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    pts, c0 = kmr["points"], st.from_numpy(kmr["c0"])
+    _step_ips(st, km, pts, c0, 20)
+    prev = (FLAGS.monitor, FLAGS.monitor_interval_s)
+    on_ips, off_ips, ticks = [], [], []
+    try:
+        for _ in range(MON_REPS):
+            FLAGS.monitor = False
+            off_ips.append(_step_ips(st, km, pts, c0, MON_ITERS))
+            FLAGS.monitor, FLAGS.monitor_interval_s = True, MON_INTERVAL_S
+            s0 = monitor.MONITOR.health()["samples"]
+            monitor.start()
+            on_ips.append(_step_ips(st, km, pts, c0, MON_ITERS))
+            monitor.stop()
+            h = monitor.MONITOR.health()
+            ticks.append((h["samples"] - s0, h["tick_us_mean"]))
+    finally:
+        monitor.stop()
+        FLAGS.monitor, FLAGS.monitor_interval_s = prev
+    cost = 1.0 - max(on_ips) / max(off_ips)
+    seen = [(a["kind"], a["key"], a["value"])
+            for a in monitor.recent_anomalies(64)]
+    _say(f"[monitor] anomalies so far (the earlier phases' records): "
+         f"{seen} on {card}")
+    _say(f"[monitor] config-3 kmeans_step {max(off_ips):.2f} iters/s with "
+         f"the monitor off, {max(on_ips):.2f} on at interval "
+         f"{MON_INTERVAL_S} s (best of {MON_REPS}, {MON_ITERS} evaluates "
+         f"each, alternated): overhead {100 * cost:.2f}%; ticks a run and "
+         f"sample_tick_us (mean) {ticks} on {card}")
+    if not all(n >= 1 for n, _ in ticks):
+        _fail(f"[monitor] the sampler did not tick: {ticks}")
+    return {"monitor_overhead": cost, "sample_tick_us": ticks[-1][1]}
+
+
+def _mon_drift(st, kk, km, card: str, kmr: dict) -> None:
+    """A planted 4x calibration drift: the detector fires, the daemon
+    refits and swaps or reverts; a swap's warm-up evaluates the k-means
+    step on the card (row 1 launches) and the step stays bit-equal."""
+    from spartan_tpu_torch.obs import ledger, monitor
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    saved = {k: getattr(FLAGS, k) for k in (
+        "monitor_autotune", "monitor_drift_patience", "monitor_cooldown_s",
+        "monitor_swap_margin", "cost_ledger", "cost_calibration",
+        "calibration_drift_tol")}
+    try:
+        FLAGS.cost_ledger = True
+        FLAGS.monitor_autotune = True
+        FLAGS.monitor_drift_patience = 2
+        FLAGS.monitor_cooldown_s = 0.0
+        # margin 0: the daemon keeps any candidate that models no loss,
+        # so the phase drives the swap path and its warm-up
+        FLAGS.monitor_swap_margin = 0.0
+        FLAGS.calibration_drift_tol = 0.693
+        from spartan_tpu_torch.expr import base
+
+        # the earlier phases' records (the served window's service times
+        # among them) would dilute the planted drift: start the ledger
+        # afresh, and make the k-means step's plan a miss again
+        ledger.reset()
+        base.clear_plan_cache()
+        # the overhead runs' ticks may already have a streak on the
+        # served window's service times: the planted drift starts one
+        monitor.MONITOR.drift.reset()
+        with st.use_mesh(st.build_mesh((4, 2))):
+            c0 = st.from_numpy(kmr["c0"])
+            pts = st.as_expr(st.DistArray(kmr["points"].value.tensor,
+                                          st.Tiling(("x", None)),
+                                          st.get_mesh()))
+            before = km.kmeans_step(pts, c0, KM_K).evaluate().tensor.clone()
+            if not monitor.MONITOR.autotune.templates():
+                _fail("[monitor] the miss registered no hot-plan template")
+            # the installed profile prices every class 4x off, and the
+            # measured service times run 4x under the prediction
+            cls = ("map", "contraction", "reshard", "psum", "reduce")
+            ledger.set_profile(ledger.CalibrationProfile(
+                {c: MON_DRIFT for c in cls}))
+            FLAGS.cost_calibration = True
+            rng = np.random.RandomState(85)
+            for i in range(12):
+                comp = {c: float(rng.uniform(10.0, 100.0)) for c in cls}
+                ledger.ingest(f"drift-{i}", comp, 1e-6 * sum(
+                    (4.0 if c == "psum" else 1.0) * v
+                    for c, v in comp.items()))
+            fired, t = [], 0.0
+            _reset_counts(kk)
+            while not fired and t < 20:
+                ledger.note_service("drifting-plan", MON_DRIFT * 1e-3,
+                                    1e-3)
+                fired = [a for a in monitor.sample(t)
+                         if a.kind == "calibration_drift"]
+                t += 1.0
+            torch.cuda.synchronize()
+            warm_launches = kk.LAUNCHES
+            events = [e for e in monitor.MONITOR.autotune.events
+                      if e["event"] in ("refit", "swap", "revert", "skip")]
+            after = km.kmeans_step(pts, c0, KM_K).evaluate().tensor
+            equal = torch.equal(before, after)
+        _say(f"[monitor] planted {MON_DRIFT:g}x drift: anomaly "
+             f"{fired[0] if fired else None} after {int(t)} samples; "
+             f"daemon {[(e['event'], e.get('modeled_win'), e.get('warmed'), e.get('reason')) for e in events]}"
+             f"; row-1 launches in the warm-up {warm_launches}; the step "
+             f"bit-equal after the decision: {equal} on {card}")
+        if not fired:
+            _fail("[monitor] the drift anomaly did not fire")
+        last = events[-1]["event"] if events else None
+        if last not in ("swap", "revert"):
+            _fail(f"[monitor] the daemon decided nothing: {events}")
+        if last == "swap" and (warm_launches < 1
+                               or not events[-1].get("warmed")):
+            _fail("[monitor] the swap's warm-up launched no k-means step")
+        if not equal:
+            _fail("[monitor] the k-means step moved under the new profile")
+    finally:
+        ledger.set_profile(None)
+        for k, v in saved.items():
+            setattr(FLAGS, k, v)
+        monitor.MONITOR.autotune.reset()
+
+
+def _mon_surfaces(st, card: str, workdir: str) -> None:
+    """The ``sdc`` anomaly of [guards]' quarantine, the fence of
+    [resilience]'s rebuild, ``st.status()``, and ``st.fleet_status()``
+    over two gloo ranks."""
+    from spartan_tpu_torch.obs import monitor
+
+    anoms = monitor.recent_anomalies(64)
+    sdc = [a for a in anoms if a["kind"] == "sdc"]
+    fences = st.REGISTRY.counter("monitor_epoch_fences").value
+    s = st.status()
+    _say(f"[monitor] sdc anomalies from [guards]' quarantine: "
+         f"{[(a['key'], a['value'], a['threshold']) for a in sdc]}; epoch "
+         f"fences since [resilience]'s rebuild {fences}; st.status(): "
+         f"platform {s['platform']}, mesh {s['mesh']}, daemon "
+         f"{s['daemon']['state']}, {len(s['anomalies'])} anomalies, "
+         f"integrity {(s['integrity'] or {}).get('quarantined')}, monitor "
+         f"{s['monitor']} on {card}")
+    if not sdc:
+        _fail("[monitor] no sdc anomaly from [guards]' quarantine")
+    if fences < 1:
+        _fail("[monitor] [resilience]'s rebuild fenced no monitor")
+    # [guards] resets the sentinel after its run, so the integrity line
+    # is None here; its quarantine lives on as the sdc anomaly above
+    want = {"platform", "mesh", "serve", "slo", "anomalies", "daemon",
+            "calibration", "skew", "integrity", "monitor"}
+    if not s["anomalies"] or not want <= set(s) or \
+            s["monitor"]["samples"] < 1:
+        _fail(f"[monitor] st.status() is not filled: {sorted(s)}")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--monitor-child", workdir, str(r)])
+             for r in range(GROUP_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=GROUP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _fail(f"[monitor] a child did not finish in {GROUP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        _fail(f"[monitor] children exited {[p.returncode for p in procs]}")
+    res = []
+    for r in range(GROUP_RANKS):
+        with open(os.path.join(workdir, f"fleet{r}.json")) as f:
+            res.append(json.load(f))
+    _say(f"[monitor] st.fleet_status() on {GROUP_RANKS} gloo ranks: "
+         + "; ".join(f"rank {d['rank']}: process_count "
+                     f"{d['process_count']}, ranks reporting "
+                     f"{d['ranks_reporting']}, worst burn {d['slo_worst']}"
+                     for d in res)
+         + f" ({time.perf_counter() - t0:.1f} s) on {card}")
+    for d in res:
+        w = d["slo_worst"].get("gold") or {}
+        if (d["process_count"] != GROUP_RANKS
+                or d["ranks_reporting"] != GROUP_RANKS or w.get("rank") != 1):
+            _fail(f"[monitor] fleet view of rank {d['rank']}: {d}")
+
+
+def phase_monitor(st, kk, km, card: str, kmr: dict, workdir: str) -> dict:
+    """[monitor]: the continuous monitor on the card (module docstring)."""
+    t0 = time.perf_counter()
+    out = _mon_overhead(st, km, card, kmr)
+    _mon_drift(st, kk, km, card, kmr)
+    _mon_surfaces(st, card, workdir)
+    _say(f"[monitor] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
+def phase_benchguard(card: str, figures: dict) -> None:
+    """[benchguard]: the run's steady figures against
+    ``spartan_tpu_torch/utils/thresholds.json``'s ``cuda`` entry, graded
+    only on the card (``nvidia-smi``'s name and power limit, ``card``)
+    that file names."""
+    from spartan_tpu_torch.utils import benchguard
+
+    want = benchguard.load_thresholds("cuda").get("card") or {}
+    if want.get("nvidia_smi") != card:
+        _say(f"[benchguard] ungraded: {card} (the thresholds file names "
+             f"{want.get('nvidia_smi')})")
+        return
+    g = benchguard.check(figures, "cuda")
+    for name, r in sorted(g["results"].items()):
+        bound = (f">= {r['min']}" if "min" in r else
+                 f"<= {r['max']}" if "max" in r else "unchecked")
+        _say(f"[benchguard] {name} {r['value']!r} {bound}: "
+             f"{'ok' if r['pass'] else 'BREACH' if r['pass'] is False else '-'}")
+    _say(f"[benchguard] {g['checked']} figures graded on {card}: "
+         f"{'pass' if g['pass'] else 'FAIL'}")
+    if not g["pass"]:
+        bad = [f"{k} {r['value']!r} (bound {r.get('min', r.get('max'))})"
+               for k, r in g["results"].items() if r["pass"] is False]
+        _fail(f"[benchguard] regression: {', '.join(bad)}")
+
+
 def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--ckpt-child":
         ckpt_child(sys.argv[2])
@@ -6082,6 +6690,9 @@ def main() -> None:
         return
     if len(sys.argv) == 4 and sys.argv[1] == "--skew-child":
         skew_child(sys.argv[2], int(sys.argv[3]))
+        return
+    if len(sys.argv) == 4 and sys.argv[1] == "--monitor-child":
+        monitor_child(sys.argv[2], int(sys.argv[3]))
         return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
@@ -6119,7 +6730,7 @@ def main() -> None:
     _say(f"[pagerank] set-up (from_coo, transition, plan) "
          f"{time.perf_counter() - t0:.2f} s")
     seg_err = phase_segment_kernels(ks, seg, links.transition(), dev)
-    phase_dot(st, card)
+    dotr = phase_dot(st, card)
     kmr = phase_kmeans(st, kk, km, card, dev)
     prr = phase_pagerank(kk, ks, pr, links, card, dev)
     nbr = phase_naive_bayes(st, kk, ks, nb, card, dev)
@@ -6169,6 +6780,25 @@ def main() -> None:
         serve = phase_serve(st, kk, km, card, dev, kmr, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    incr = phase_incremental(st, kk, km, card, dev, kmr)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_monitor_")
+    try:
+        phase_monitor(st, kk, km, card, kmr, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    figures = {
+        "dot_gflops": dotr["gflops"], "kmeans_iters_per_sec": kmr["ips"],
+        "pagerank_iters_per_sec": prr["ips"],
+        "logreg_iters_per_sec": exr["logreg_iters_per_sec"],
+        "ssvd_seconds": exr["ssvd_s"], "naive_bayes_fit_ms": nbr["fit_ms"],
+        "kernel_ms:kmeans_assign_accumulate": kmr["ms"],
+        "kernel_ms:windowed_segsum": prr["ms"],
+        "kernel_ms:segment_sum_block": abr["ms"],
+        "kernel_ms:partition_pack": sortr["ms"],
+        "kernel_ms:shard_topk": topkr["ms"],
+        "kernel_ms:bincount_block": histr["ms"],
+        "kernel_ms:conv_block": vggr["ms"]}
+    phase_benchguard(card, figures)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/kmeans.cu",

@@ -52,6 +52,8 @@ from .obs import (REGISTRY, AuditReport, CalibrationProfile,  # noqa: E402
                   fit_profile, load_profile, loop_health, metrics,
                   profile_export, save_profile, span, trace_clear,
                   trace_events, trace_export, unwatch, watch)
+from .obs import fleet_status, status  # noqa: E402
+from .expr.base import clear_compile_cache, compile_cache_size  # noqa: E402
 from . import persist  # noqa: E402
 from . import resilience  # noqa: E402
 from .resilience.classify import FatalMeshError  # noqa: E402
@@ -72,7 +74,9 @@ __all__ = (["DistArray", "SparseDistArray", "MaskedDistArray", "TileExtent",
             "rebuild_mesh", "mesh_epoch", "StaleMeshError",
             "build_mesh", "get_mesh", "set_mesh", "use_mesh",
             "set_default_device", "get_default_device", "initialize",
-            "initialize_distributed", "shutdown", "collectives",
+            "initialize_distributed", "shutdown", "status",
+            "fleet_status", "compile_cache_size", "clear_compile_cache",
+            "collectives",
             "stencil", "maxpool", "avgpool",
             "obs", "persist", "profiling", "metrics", "trace_export",
             "trace_events",

@@ -35,13 +35,18 @@ evaluation that consumes it: the memory is freed once nothing else holds
 the tensor, and any later use of the handle's data raises (its shape
 and dtype stay readable). The port never writes a donated tensor in
 place, so a cached plan, a loop closure or another handle that still
-holds it reads what it held. The incremental engine's lineage
-(``_record_mutation``) waits for that engine.
+holds it reads what it held.
+
+``update`` is also the mutation seam of the incremental engine
+(``expr/incremental.py``): the new array shares this array's
+:class:`Lineage` with the written region logged, and for an overwrite
+the post-write values of the region are stashed, so a warm evaluate can
+recompute only what the write touched.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +87,106 @@ _COMBINE = {"add": torch.add, "multiply": torch.mul, "max": torch.maximum,
             "min": torch.minimum}
 
 
+_MUTLOG_MAX = 256  # mutation-log cap: overflow collapses to whole-array
+
+
+def _stash_enabled() -> bool:
+    from ..utils.config import FLAGS
+
+    return bool(getattr(FLAGS, "incremental", False))
+
+
+class Lineage:
+    """Shared mutation history of a family of :class:`DistArray` handles.
+
+    ``update()`` is functional — it returns a NEW DistArray — but the
+    returned array shares its parent's ``Lineage`` so the incremental
+    engine can tell what moved between the leaf a result-cache entry
+    recorded and the leaf a later evaluate sees: same lineage and a
+    higher version means "this array, with exactly the extents logged in
+    between dirty"; anything else is a new identity and the engine
+    recomputes in full. The log is bounded: past ``_MUTLOG_MAX`` entries
+    it collapses to one whole-array marker (``None`` extent), the
+    conservative over-approximation."""
+
+    __slots__ = ("log", "latest", "stash", "stash_bytes")
+
+    # post-write region values kept per logged entry: the engine serves
+    # a restricted leaf from them instead of slicing the parent
+    _STASH_MAX_BYTES = 64 << 20
+
+    def __init__(self) -> None:
+        # log: [(version, TileExtent | None)]; None means whole array
+        self.log: List[Tuple[int, Optional[TileExtent]]] = []
+        self.latest = 0
+        self.stash: dict = {}  # version -> torch.Tensor (region values)
+        self.stash_bytes = 0
+
+    def note(self, ext: Optional[TileExtent],
+             value: Optional[torch.Tensor] = None) -> int:
+        self.latest += 1
+        if len(self.log) >= _MUTLOG_MAX:
+            self.log = [(self.latest, None)]
+            self.stash.clear()
+            self.stash_bytes = 0
+        else:
+            self.log.append((self.latest, ext))
+            if value is not None and ext is not None:
+                nb = value.numel() * value.element_size()
+                if nb <= self._STASH_MAX_BYTES:
+                    self.stash[self.latest] = value
+                    self.stash_bytes += nb
+                    while self.stash_bytes > self._STASH_MAX_BYTES:
+                        old = self.stash.pop(next(iter(self.stash)))
+                        self.stash_bytes -= (old.numel()
+                                             * old.element_size())
+        return self.latest
+
+    def stashed_between(self, v0: int, v1: int
+                        ) -> Optional[Tuple[TileExtent, torch.Tensor]]:
+        """The post-write values of the delta: available iff EXACTLY one
+        write landed in ``v0 < version <= v1`` and its values were
+        stashed whole (stashes of sequential writes do not compose: the
+        later region may overlap the earlier; on a group mesh a rank
+        stashes only where the region meets its block)."""
+        found = None
+        for v, ext in self.log:
+            if v0 < v <= v1:
+                if found is not None:
+                    return None
+                found = (v, ext)
+        if found is None:
+            return None
+        v, ext = found
+        val = self.stash.get(v)
+        if ext is None or val is None or tuple(val.shape) != ext.shape:
+            return None
+        return ext, val
+
+    def dirty_between(self, v0: int, v1: int,
+                      shape: tuple) -> Optional[TileExtent]:
+        """Bounding box of the extents logged with ``v0 < version <=
+        v1``; ``None`` means the whole array (a full marker, a dropped
+        entry)."""
+        box: Optional[TileExtent] = None
+        seen = 0
+        for v, ext in self.log:
+            if v0 < v <= v1:
+                seen += 1
+                if ext is None:
+                    return None
+                if box is None:
+                    box = ext
+                else:
+                    box = TileExtent(
+                        tuple(min(a, b) for a, b in zip(box.ul, ext.ul)),
+                        tuple(max(a, b) for a, b in zip(box.lr, ext.lr)),
+                        shape)
+        if seen == 0 and v1 > v0:
+            return None  # versions fell off the bounded log
+        return box
+
+
 def _owned_block(whole: torch.Tensor, ext: TileExtent,
                  device: torch.device) -> torch.Tensor:
     """``whole``'s block at ``ext`` on ``device``, in storage of its own
@@ -99,7 +204,8 @@ class DistArray:
     tensor on a logical mesh, the rank's block on a group mesh."""
 
     __slots__ = ("_local", "tiling", "mesh", "_shape", "_dtype",
-                 "_donate_next", "_donate_site", "_epoch", "_migration")
+                 "_donate_next", "_donate_site", "_epoch", "_migration",
+                 "_lineage", "_version")
 
     def __init__(self, tensor: torch.Tensor, tiling: Tiling,
                  mesh: Optional[Mesh] = None):
@@ -127,6 +233,8 @@ class DistArray:
         # of an earlier epoch raises StaleMeshError until rehome()
         self._epoch = mesh_mod._EPOCH
         self._migration = None  # the last planned cross-mesh move
+        self._lineage: Optional[Lineage] = None  # update/assign seam
+        self._version = 0
 
     @classmethod
     def from_local(cls, block: torch.Tensor, tiling: Tiling, shape,
@@ -242,6 +350,12 @@ class DistArray:
     def extents(self) -> List[TileExtent]:
         return self.tiling.extents(self.shape, self.mesh)
 
+    def tile_shape(self) -> tuple:
+        """Shape of the largest tile."""
+        exts = self.extents()
+        return max((e.shape for e in exts),
+                   key=lambda s: np.prod(s or (1,)))
+
     @property
     def is_split(self) -> bool:
         """True when a mesh axis of more than one position tiles it (on a
@@ -334,7 +448,13 @@ class DistArray:
         (default: overwrite); this array is unchanged. ``data`` is cast
         to this array's dtype and broadcast to the region's shape; the
         reducers combine in that dtype (integers wrap). On a group mesh
-        each rank writes where the region meets its block."""
+        each rank writes where the region meets its block.
+
+        The new array shares this array's :class:`Lineage` with
+        ``region`` logged as its delta; an overwrite with
+        ``FLAGS.incremental`` on also stashes the post-write values of
+        the region (a rank's part of it on a group mesh), which the
+        incremental engine serves a restricted leaf from."""
         if not isinstance(region, TileExtent):
             region = extent_mod.from_slice(region, self.shape)
         op = REDUCERS[_canonical_reducer(reducer)]
@@ -344,12 +464,43 @@ class DistArray:
         mine = self.block_extent()
         out = x.clone()
         part = region.intersection(mine) if region.size else None
+        stash = None
         if part is not None:
             sl = part.offset_from(mine).to_slice()
             dp = d[part.offset_from(region).to_slice()]
             out[sl] = dp if op == "set" else dtypes.call(_COMBINE[op],
                                                          out[sl], dp)
-        return DistArray.from_local(out, self.tiling, self.shape, self.mesh)
+            if op == "set" and _stash_enabled():
+                stash = out[sl].clone()
+        res = DistArray.from_local(out, self.tiling, self.shape, self.mesh)
+        self._record_mutation(res, region, stash)
+        return res
+
+    def _record_mutation(self, child: "DistArray",
+                         region: Optional[TileExtent],
+                         value: Optional[torch.Tensor] = None) -> None:
+        """Thread this array's lineage through a functionally updated
+        child: ``region`` (the whole array when ``None``) becomes the
+        delta between ``self``'s version and ``child``'s, with the
+        post-write region ``value`` stashed when given.
+
+        A Lineage log is linear, but ``update()`` may branch: two
+        children cut from one parent diverge, and if both shared one log
+        the engine would read a sibling's writes as part of the other
+        child's delta. So a child cut from a handle that is not the
+        lineage tip gets a FRESH Lineage: the engine's same-lineage check
+        fails, it recomputes once in full, and the new lineage serves the
+        branch's own deltas from then on."""
+        lin = self._lineage
+        if lin is None:
+            lin = Lineage()
+            lin.latest = self._version
+            self._lineage = lin
+        elif self._version != lin.latest:
+            lin = Lineage()  # branch point: ``self`` is an interior handle
+            lin.latest = self._version
+        child._lineage = lin
+        child._version = lin.note(region, value)
 
     # -- retiling -------------------------------------------------------
 

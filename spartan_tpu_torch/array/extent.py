@@ -5,7 +5,11 @@ JAX package's native ctypes twin is not carried).
 ``TileExtent(ul, lr, array_shape)`` is a half-open region; ``tile_grid``
 gives the regular grid of extents a tiling induces on a shape;
 ``from_slice``, ``intersection`` and the local-offset methods are the
-region algebra of ``assign``/``write_array`` and ``shuffle``. Metadata
+region algebra of ``assign``/``write_array`` and ``shuffle``;
+``drop_axis``/``add_axis`` carry a region through a reduction (the
+incremental engine's dirt propagation); ``find_overlapping``,
+``all_nonoverlapping``, ``is_complete``, ``tiles_like_hint`` and
+``index_for`` are the tile-map algebra of the reference. Metadata
 only: the data of an array is one torch tensor whatever its tiles.
 Extents are immutable and hashable.
 """
@@ -13,7 +17,7 @@ Extents are immutable and hashable.
 from __future__ import annotations
 
 import itertools
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -77,6 +81,38 @@ class TileExtent:
     def to_slice(self) -> Tuple[slice, ...]:
         return tuple(slice(u, l) for u, l in zip(self.ul, self.lr))
 
+    def to_global(self, local_idx: Sequence[int]) -> Coord:
+        return tuple(u + i for u, i in zip(self.ul, local_idx))
+
+    def to_local(self, global_idx: Sequence[int]) -> Coord:
+        return tuple(i - u for u, i in zip(self.ul, global_idx))
+
+    def ravelled_pos(self) -> int:
+        """Linear offset of ``ul`` within the full array (C order)."""
+        if self.array_shape is None:
+            raise ValueError("ravelled_pos requires array_shape")
+        pos = 0
+        for u, s in zip(self.ul, self.array_shape):
+            pos = pos * s + u
+        return pos
+
+    def drop_axis(self, axis: int) -> "TileExtent":
+        """Remove one axis (the extent of a reduction's output region)."""
+        axis = axis % self.ndim
+        ul = self.ul[:axis] + self.ul[axis + 1:]
+        lr = self.lr[:axis] + self.lr[axis + 1:]
+        shape = (None if self.array_shape is None else
+                 self.array_shape[:axis] + self.array_shape[axis + 1:])
+        return TileExtent(ul, lr, shape)
+
+    def add_axis(self, axis: int, dim: int = 1) -> "TileExtent":
+        axis = axis % (self.ndim + 1)
+        ul = self.ul[:axis] + (0,) + self.ul[axis:]
+        lr = self.lr[:axis] + (dim,) + self.lr[axis:]
+        shape = (None if self.array_shape is None else
+                 self.array_shape[:axis] + (dim,) + self.array_shape[axis:])
+        return TileExtent(ul, lr, shape)
+
     def intersection(self, other: "TileExtent") -> Optional["TileExtent"]:
         """The overlap of two extents, or None when they do not overlap;
         the result keeps whichever array_shape is known."""
@@ -105,6 +141,15 @@ class TileExtent:
         """The slice selecting ``inner`` out of a buffer shaped like
         ``self``."""
         return inner.offset_from(self).to_slice()
+
+
+def create(ul: Sequence[int], lr: Sequence[int],
+           array_shape: Optional[Sequence[int]] = None) -> TileExtent:
+    return TileExtent(ul, lr, array_shape)
+
+
+def from_shape(shape: Sequence[int]) -> TileExtent:
+    return TileExtent((0,) * len(shape), shape, shape)
 
 
 def from_slice(idx, shape: Sequence[int]) -> TileExtent:
@@ -144,6 +189,29 @@ def intersection(a: TileExtent, b: TileExtent) -> Optional[TileExtent]:
     return a.intersection(b)
 
 
+def find_overlapping(extents: Sequence[TileExtent],
+                     region: TileExtent) -> List[TileExtent]:
+    """All extents intersecting ``region`` (the tile lookup of region
+    fetch/update)."""
+    return [e for e in extents if e.intersection(region) is not None]
+
+
+def all_nonoverlapping(extents: Sequence[TileExtent]) -> bool:
+    for i, a in enumerate(extents):
+        for b in extents[i + 1:]:
+            if a.intersection(b) is not None:
+                return False
+    return True
+
+
+def is_complete(shape: Sequence[int], extents: Sequence[TileExtent]) -> bool:
+    """Do the (non-overlapping) extents exactly cover an array of
+    ``shape``?"""
+    total = int(np.prod([int(s) for s in shape])) if len(shape) else 1
+    return (sum(e.size for e in extents) == total
+            and all_nonoverlapping(extents))
+
+
 def compute_splits(dim: int, n: int) -> List[Tuple[int, int]]:
     """Split ``dim`` into ``n`` contiguous chunks, remainder spread over the
     leading chunks (an even split when dim % n == 0)."""
@@ -170,3 +238,17 @@ def tile_grid(shape: Sequence[int],
         lr = tuple(c[1] for c in combo)
         out.append(TileExtent(ul, lr, shape))
     return out
+
+
+def tiles_like_hint(shape: Sequence[int], tile_hint: Sequence[int]
+                    ) -> List[TileExtent]:
+    """Grid from a tile-size hint (the reference's ``tile_hint``: the
+    desired per-tile shape)."""
+    shape = tuple(int(s) for s in shape)
+    tiles_per_dim = [max(1, -(-d // max(1, int(t))))
+                     for d, t in zip(shape, tile_hint)]
+    return tile_grid(shape, tiles_per_dim)
+
+
+def index_for(extents: Sequence[TileExtent]) -> Dict[TileExtent, int]:
+    return {e: i for i, e in enumerate(extents)}

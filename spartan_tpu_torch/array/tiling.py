@@ -56,6 +56,9 @@ class Tiling:
     def transpose(self, perm: Sequence[int]) -> "Tiling":
         return Tiling(tuple(self.axes[p] for p in perm))
 
+    def mesh_axis_of(self, array_axis: int) -> Optional[str]:
+        return self.axes[array_axis]
+
     def with_axis(self, axis: int, mesh_axis: Optional[str]) -> "Tiling":
         axes = list(self.axes)
         axes[axis] = mesh_axis

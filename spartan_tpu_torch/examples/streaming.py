@@ -1,10 +1,29 @@
 """Streaming state (port of ``spartan_tpu/examples/streaming.py``).
 
 Each class keeps its state in DistArray handles and applies new data
-through ``DistArray.update`` (a functional region write), so the
-per-step DAGs keep their structure and hit the plan cache. Their results
-equal a full recompute: the JAX package's incremental engine, which
-would recompute only what a batch dirtied, is not ported yet (ROADMAP).
+through ``DistArray.update`` (a functional region write, the mutation
+seam), so the per-step DAGs keep their structure and hit the plan cache,
+and the incremental engine (``FLAGS.incremental``, expr/incremental.py)
+can serve a warm step from its result cache, recomputing only what the
+batch dirtied; every result equals a full recompute bit for bit.
+
+What is delta-scaled:
+
+* :class:`IncrementalPageRank` — the correction step after
+  ``insert_edges`` holds the base vector fixed, so only the transition
+  matrix's dirty columns changed since the cached step and the engine
+  restricts the product to them where the device's product keeps its
+  per-element order for a narrower output (``incremental.order_granule``:
+  the CPU on one thread); elsewhere (cuBLAS) the step recomputes in full
+  with the reason ``contraction-order`` counted.
+* :class:`OnlineKMeans` — every batch is new data (whole-batch dirty),
+  so its steps are full evaluations; ``refine`` is one ``st.loop``.
+* :class:`SlidingWindowStats` — ``stats()`` after a push is a full
+  (small-output) reduction, but repeated reads between pushes are
+  all-clean result-cache hits (no walk), and ``normalized(mean, std)``
+  (elementwise over the window) called again with the same ``mean`` and
+  ``std`` handles recomputes only the rows pushed since.
+
 The ``*_async`` entry points (``step_async``, ``stats_async``) submit
 through ``serve/`` (``evaluate_async``: admission control, coalescing,
 flight recording).

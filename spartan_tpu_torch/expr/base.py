@@ -59,6 +59,7 @@ from ..array.distarray import DistArray
 from ..array.tiling import Tiling
 from ..kernels import registry as kernels_mod
 from ..obs import ledger as ledger_mod
+from ..obs import monitor as monitor_mod
 from ..obs import numerics as numerics_mod
 from ..obs import profile as profile_mod
 from ..obs import trace as trace_mod
@@ -336,10 +337,22 @@ class Expr:
     def glom(self) -> np.ndarray:
         return self.evaluate().glom()
 
+    def optimized(self) -> "Expr":
+        """The optimizer's rewrite of this DAG (nothing is evaluated)."""
+        from .optimize import optimize
+
+        return optimize(self)
+
     def invalidate(self) -> None:
         """Drop this node's cached result; the next evaluate recomputes
         it from the DAG (its lineage)."""
         self._result = None
+
+    def recompute(self) -> DistArray:
+        """Lineage-based recovery: re-evaluate this expr from its
+        (deterministic) DAG, ignoring the cached result."""
+        self.invalidate()
+        return evaluate(self)
 
     def __array__(self, dtype=None, copy=None):
         out = self.glom()
@@ -1052,6 +1065,9 @@ def evict_stale_plans() -> int:
             _drop_variants(k)
     if stale:
         prof.count("plan_evictions", len(stale))
+    # the incremental engine's result cache holds tensors keyed by plan:
+    # entries born under a dead epoch go with the plans
+    incremental_mod.evict_stale()
     return len(stale)
 
 
@@ -1404,8 +1420,11 @@ def _run(expr: Expr, plan: _Plan, leaves: List[Expr],
         result = _wrap_result(expr, plan, out, mesh)
     if ledger_mod._LEDGER_FLAG._value and plan.report is not None:
         # cost ledger: this walk's host seconds (the launches; nothing
-        # waits for the card) next to the plan's predicted DP cost
-        ledger_mod.note_dispatch(plan.report.get("plan_key"), "dispatch",
+        # waits for the card) next to the plan's predicted DP cost; a
+        # plan's first walk (its one-time costs: the JAX package's
+        # compile) is kept apart, so calibration fits warm walks only
+        ledger_mod.note_dispatch(plan.report.get("plan_key"),
+                                 "dispatch" if warm else "compile",
                                  pctx.seconds)
     if profile_mod._SAMPLE_FLAG._value > 0:
         # sampled continuous profiling: every Nth warm walk of a plan is
@@ -1440,7 +1459,34 @@ def _wrap_result(expr: Expr, plan: _Plan, out: Any, mesh) -> Any:
         wrapped.append(DistArray(o, t, mesh))
     result: Any = tuple(wrapped) if plan.is_tuple else wrapped[0]
     expr._result = result
+    if not plan.is_tuple:
+        _maybe_record_write(expr, result)
     return result
+
+
+_write_expr_cls = None  # lazily bound assign.WriteExpr (import cycle)
+
+
+def _maybe_record_write(expr: Expr, result: Any) -> None:
+    """The assign-expr mutation seam: evaluating ``st.assign(arr, idx,
+    v)`` (a WriteExpr over a concrete array) is a functional update of
+    that array — stamp the result into the source's Lineage exactly as
+    ``DistArray.update()`` does, so the incremental engine sees the
+    written region as the only delta."""
+    global _write_expr_cls
+    if _write_expr_cls is None:
+        if type(expr).__name__ != "WriteExpr":
+            return
+        from .assign import WriteExpr
+
+        _write_expr_cls = WriteExpr
+    if not isinstance(expr, _write_expr_cls):
+        return
+    dst = expr.dst
+    if (isinstance(dst, ValExpr) and isinstance(dst.value, DistArray)
+            and isinstance(result, DistArray)
+            and result.shape == dst.value.shape):
+        dst.value._record_mutation(result, expr.region)
 
 
 def leaf_args(leaves: Sequence[Expr], order: Tuple[int, ...]) -> List[Any]:
@@ -1492,12 +1538,28 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
                                                        donated, mesh)
                     if gov is not memory_mod.NOT_HANDLED:
                         return gov
+                if incremental_mod._INC_FLAG._value:
+                    # delta-aware path (expr/incremental.py): serve from
+                    # the result cache + a dirty sub-plan when lineage
+                    # proves most tiles clean; NOT_HANDLED falls through
+                    # to the ordinary full dispatch
+                    inc = incremental_mod.intercept(
+                        expr, plan, rctx.leaves, plan.arg_order, donated,
+                        mesh)
+                    if inc is not incremental_mod.NOT_HANDLED:
+                        expr._result = inc
+                        return inc
                 try:
-                    return _dispatch(expr, plan, rctx.leaves,
-                                     plan.arg_order, donated, mesh)
+                    result = _dispatch(expr, plan, rctx.leaves,
+                                       plan.arg_order, donated, mesh)
                 except Exception as e:
-                    return _handle_failure(e, expr, plan, rctx.leaves,
-                                           plan.arg_order, donated, mesh)
+                    result = _handle_failure(e, expr, plan, rctx.leaves,
+                                             plan.arg_order, donated, mesh)
+                if incremental_mod._INC_FLAG._value:
+                    incremental_mod.note_result(
+                        plan, rctx.leaves, plan.arg_order, result, donated,
+                        mesh)
+                return result
             prof.count("plan_misses")
             esp.set(cache="miss")
 
@@ -1543,6 +1605,9 @@ def evaluate(expr: Expr, donate: Sequence[Any] = ()) -> Any:
                                      donated, mesh)
         if plan.stored is not None and plan.warm:
             plan.stored.warm = True
+        if incremental_mod._INC_FLAG._value:
+            incremental_mod.note_result(plan, leaves, plan.arg_order,
+                                        result, donated, mesh)
         return result
 
 
@@ -1662,6 +1727,13 @@ def _build_plan(expr: Expr, mesh, rctx: Optional[_PlanSigCtx],
     # cost ledger: this plan's predictions (DP cost + per-class
     # components), so measured walks land next to them. Miss path only
     ledger_mod.note_plan(stored if stored is not None else plan)
+    # autotune hot-plan templates (obs/monitor.py): under the
+    # re-calibration daemon, a result-free clone of this miss's raw DAG
+    # keyed by its ledger digest, so drift-triggered replans run off
+    # the hot path. One flag read when the daemon is off; miss path only
+    if monitor_mod._AUTOTUNE_FLAG._value:
+        monitor_mod.note_plan_built(stored if stored is not None else plan,
+                                    expr)
     # the digest -> node table, computed LAST, from the final node state
     report["scope_digests"] = scope_digest_table(dag)
     if store:
@@ -1710,3 +1782,12 @@ def eval_shape_of(fn: Callable, *inputs: Expr, cache_key: Any = None,
     if key is not None and len(_eval_shape_cache) < 4096:
         _eval_shape_cache[key] = res
     return res
+
+
+# Bottom-bound seam: the incremental engine (expr/incremental.py) needs
+# every Expr type above, and its own expr imports are lazy, so binding it
+# here closes the cycle. The evaluate() paths read
+# incremental_mod._INC_FLAG._value — one attribute-chain read when
+# FLAGS.incremental is off — and a benchmark may swap this binding for a
+# null shim to price that read.
+from . import incremental as incremental_mod  # noqa: E402

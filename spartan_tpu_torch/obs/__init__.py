@@ -29,8 +29,11 @@
 * :mod:`skew` — ``st.skew(expr)``: per-position time skew with a
   collective wait decomposition, per-block data skew, and an advisory
   re-tiling, sampled on the profiler's cadence.
-
-The JAX package's ``monitor`` is not ported yet.
+* :mod:`monitor` — the closed loop: the continuous sampler with its
+  bounded time-series store, the sustained-breach detectors
+  (calibration drift, SLO burn, fallback spikes, backpressure, shard
+  imbalance), the autotune daemon (``FLAGS.monitor_autotune``), and
+  ``st.status()`` / ``st.fleet_status()``.
 
 Import discipline: ``obs`` sits below the expr and array layers (only
 ``utils/config`` above it), so every subsystem can emit spans and
@@ -40,6 +43,7 @@ metrics without import cycles.
 from . import flight
 from . import ledger as _ledger_mod
 from . import metrics as _metrics_mod
+from . import monitor
 from . import numerics
 from . import profile
 from . import skew
@@ -65,6 +69,8 @@ profile_export = profile.export_merged
 trace_export = _trace_mod.export
 trace_events = _trace_mod.events
 trace_clear = _trace_mod.clear
+status = monitor.status
+fleet_status = monitor.fleet_status
 
 __all__ = ["span", "Span", "trace_export", "trace_events", "trace_clear",
            "metrics", "REGISTRY", "Registry", "Counter", "Gauge",
@@ -74,4 +80,5 @@ __all__ = ["span", "Span", "trace_export", "trace_events", "trace_clear",
            "ledger", "ledger_snapshot", "CalibrationProfile",
            "fit_profile", "save_profile", "load_profile", "profile",
            "profile_export", "DeviceProfile", "flight", "flightrec",
-           "skew", "SkewReport", "slo"]
+           "skew", "SkewReport", "monitor", "slo", "status",
+           "fleet_status"]

@@ -662,6 +662,27 @@ class ExplainReport:
         elif ca is None and "cost_analysis" in d:
             lines.append("  cost_analysis: (skipped; "
                          "st.explain(expr, cost=True) to count)")
+        inc = d.get("incremental")
+        if inc:
+            # delta-aware evaluation (expr/incremental.py): what the
+            # last warm evaluate of this plan did — served whole from
+            # the result cache, recomputed a dirty sub-region, or fell
+            # back to full with the reason
+            line = f"  incremental: {inc.get('mode')}"
+            if inc.get("dirty_frac") is not None:
+                line += f", dirty_frac={inc['dirty_frac']}"
+            if inc.get("dirty_box"):
+                ul, lr = inc["dirty_box"]
+                line += f", box {tuple(ul)}..{tuple(lr)}"
+            if inc.get("fallback"):
+                line += f" [fallback: {inc['fallback']}]"
+            line += (f" (cache {_fmt_bytes(inc.get('cache_bytes', 0))}"
+                     f" in {inc.get('entries', 0)} entr(ies))")
+            lines.append(line)
+            for nd in (inc.get("nodes") or [])[:8]:
+                lines.append(
+                    f"    {nd['node']:<24} dirty "
+                    f"{nd['dirty_tiles']}/{nd['tiles']} tile(s)")
         return "\n".join(lines)
 
     __repr__ = __str__

@@ -234,9 +234,9 @@ def snapshot(limit: Optional[int] = None) -> Dict[str, Any]:
         _n, lab = metrics_mod.parse_labels(key)
         tenants.setdefault(lab.get("tenant", "default"),
                            {})[phase] = summary
-    # delta-aware evaluation counters (the JAX package's
-    # expr/incremental.py, not ported yet: the section stays empty
-    # until it is), read from one flightrec call
+    # delta-aware evaluation counters (expr/incremental.py): the engine
+    # notes per-dispatch events above ("incremental" kind) and its
+    # running totals here, read from one flightrec call
     ctr = REGISTRY.counter_values()
     incremental = {k: v for k, v in ctr.items()
                    if k.startswith("incremental_")}

@@ -878,8 +878,8 @@ def dump_crash(path: Optional[str] = None, reason: str = "",
     cost ledger, a metrics snapshot, and (optionally) the full Chrome
     trace document. Returns the path written. The flight recorder's
     last 128 events ride along (``flightrec``: which requests were in
-    flight); the JAX package's ``monitor`` section is None until the
-    monitor is ported."""
+    flight) and the continuous monitor's section (health, recent
+    anomalies, the autotune daemon, series tails)."""
     from .metrics import snapshot as metrics_snapshot
 
     path = path or _CRASH_FLAG._value or _default_crash_path()
@@ -911,12 +911,18 @@ def dump_crash(path: Optional[str] = None, reason: str = "",
         ledger: Optional[Dict[str, Any]] = ledger_mod.snapshot()
     except Exception:  # noqa: BLE001 - forensics are best-effort
         ledger = None
+    try:
+        from . import monitor as monitor_mod
+
+        monitor: Optional[Dict[str, Any]] = monitor_mod.crash_section()
+    except Exception:  # noqa: BLE001 - forensics are best-effort
+        monitor = None
     doc: Dict[str, Any] = {
         "reason": reason,
         "pid": os.getpid(),
         "flightrec": flightrec,
         "ledger": ledger,
-        "monitor": None,
+        "monitor": monitor,
         # the non-default FLAGS in force when the process died
         "flags_nondefault": {f.name: f.value for f in FLAGS._flags.values()
                              if f.value != f.default},

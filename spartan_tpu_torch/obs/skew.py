@@ -27,8 +27,8 @@ the per-POSITION gap under the per-node views of the rest of ``obs``:
   skew" section; ``skew_imbalance_ratio{plan=...}`` /
   ``skew_straggler_wait_s{plan=...}`` labeled gauges; ledger skew
   columns (``obs/ledger.note_skew``); :func:`current` and
-  :func:`worst_current`, the inputs of the JAX package's monitor
-  detector and status line (the port's monitor is not written yet); and
+  :func:`worst_current`, the inputs of the continuous monitor's
+  sustained-imbalance detector and of ``st.status()``'s skew line; and
   an **advisory** re-tiling suggestion — when a node's imbalance ratio
   exceeds ``FLAGS.skew_warn_ratio`` the report prices an alternative
   tiling for the heaviest leaf through the redistribution planner.

@@ -35,8 +35,8 @@ operator-facing contract:
    {slo_class=}`` counters and the ``slo_burn_rate{slo_class=}``
    gauge: the windowed violation rate divided by the class's error
    budget ``(1 - objective)``. Burn 1.0 = exactly consuming budget.
-   The JAX package's monitor alerts on sustained burn; the port's
-   monitor is not written yet, and :func:`burn_rates` is its input.
+   The continuous monitor (``obs/monitor.py``) reads :func:`burn_rates`
+   and alerts on sustained burn.
 
 Parsing is memoized on ``config.mutation_count()`` (the
 ``_opt_flags_key`` pattern) so the per-request cost when no classes

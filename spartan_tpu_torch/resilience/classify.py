@@ -176,3 +176,8 @@ def classify(exc: BaseException) -> str:
         if _match(text, _TRANSIENT_MARKERS):
             return TRANSIENT
     return DETERMINISTIC
+
+
+def retryable(exc: BaseException) -> bool:
+    """True when a plain retry is worth attempting (transient / io)."""
+    return classify(exc) in (TRANSIENT, IO)

@@ -120,6 +120,56 @@ def clone_for_replan(root: Any) -> Any:
     return go(root)
 
 
+# -- autotune replan/warm (obs/monitor's daemon) ------------------------
+
+
+def replan_for_profile(template: Any, mesh) -> Optional[Any]:
+    """Re-plan a result-free template DAG under the CURRENTLY installed
+    calibration profile — optimizer only: sign a fresh clone, look the
+    key up, build on a miss. Nothing runs. The profile's fingerprint is
+    part of the plan key, so the challenger lands in the plan cache
+    WITHOUT touching the incumbent. Returns the (possibly cached) plan,
+    or None when the structure is uncacheable."""
+    from ..expr import base
+
+    clone = clone_for_replan(template)
+    plan_key, rctx = base.plan_signature(clone, mesh)
+    plan = base.lookup_plan(plan_key)
+    if plan is None:
+        plan, _dag, _leaves = base._build_plan(clone, mesh, rctx,
+                                               plan_key)
+    return plan
+
+
+def warm_evaluate(template: Any, mesh) -> bool:
+    """Evaluate a fresh clone of ``template`` once, off the hot path
+    (the autotune daemon's challenger warm-up), so the first re-keyed
+    request is a plan-cache hit. Advisory: an ordinary failure is
+    swallowed and counted in ``monitor_warm_failures``, and the swap
+    stands on the modeled win alone. A ``fatal_mesh`` error (a sticky
+    CUDA error, a lost peer) is re-raised: the context it poisoned must
+    reach the caller, never be hidden by an advisory warm-up."""
+    from ..expr import base
+    from ..parallel import mesh as mesh_mod
+    from . import classify
+
+    clone = clone_for_replan(template)
+    try:
+        with mesh_mod.use_mesh(mesh):
+            base.evaluate(clone)
+        return True
+    except Exception as e:  # noqa: BLE001 - warm-up is advisory; the
+        # resilience engine already classified/retried inside evaluate
+        if classify.classify(e) == classify.FATAL_MESH:
+            raise
+        if _METRICS_FLAG._value:
+            REGISTRY.counter(
+                "monitor_warm_failures",
+                "autotune challenger warm-up evaluations that failed "
+                "(advisory; the hot-swap decision is model-based)").inc()
+        return False
+
+
 def force_finer(dag: Any, mesh) -> int:
     """Force the finest divisible candidate tiling on every interior
     node of ``dag`` (a clone). Returns how many nodes were re-forced.

@@ -71,8 +71,7 @@ FLAGS.define_bool(
 FLAGS.define_float(
     "elastic_retry_after_s", 0.1,
     "retry-after a drained serve request carries during a mesh "
-    "rebuild (the serve engine is not ported; kept for the JAX "
-    "package's flag set).")
+    "rebuild (serve/engine.drain_reconfiguring).")
 
 _lock = threading.Lock()
 
@@ -152,8 +151,13 @@ def _resume_serve() -> None:
 
 
 def _notify_monitor() -> None:
-    """Fence the continuous monitor's detectors at the epoch bump. The
-    monitor (``obs/monitor``) is not ported (ROADMAP A6)."""
+    """Fence the continuous monitor NOW, at the epoch bump: its detector
+    streaks and the autotune daemon's hot-plan templates reference the
+    dead epoch, and waiting for the sampler to notice would let a refit
+    racing this recovery replan onto the dead mesh."""
+    from ..obs import monitor as monitor_mod
+
+    monitor_mod.notify_mesh_recovery()
 
 
 def _evict() -> int:

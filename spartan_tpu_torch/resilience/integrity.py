@@ -406,14 +406,21 @@ def note_violation(implicated: Sequence[int]) -> Optional[int]:
 
 
 def _quarantine(suspect: int, digest: str) -> None:
-    """Planned eviction of a confirmed suspect through
-    ``elastic.quarantine_device`` (the continuous monitor's ``sdc``
-    anomaly waits for ``obs/monitor``, ROADMAP A6)."""
+    """Planned eviction of a confirmed suspect: the monitor's ``sdc``
+    anomaly, then ``elastic.quarantine_device`` (drain -> rebuild_mesh
+    without the suspect -> evict the dead epoch -> resume)."""
+    from ..obs import monitor as monitor_mod
     from ..parallel import mesh as mesh_mod
     from . import elastic as elastic_mod
 
     with _lock:
         strikes = len(_strikes.get(suspect, ()))
+    threshold = max(1, _STRIKES_FLAG._value)
+    monitor_mod.note_anomaly(
+        "sdc", key=f"device{suspect}", value=float(strikes),
+        threshold=float(threshold),
+        detail=f"integrity violations implicated position {suspect} "
+               f"{strikes}x in-window (plan {digest}); quarantining")
     if _METRICS_FLAG._value:
         REGISTRY.counter(
             "integrity_quarantines",

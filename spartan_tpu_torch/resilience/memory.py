@@ -775,10 +775,18 @@ def redirect_governed(expr: Any, plan: Any, donated: List[Any],
 
 
 def resident_cache_bytes_per_chip(mesh) -> int:
-    """Bytes pinned by the incremental engine's result cache. The port
-    has no such cache yet (``expr/incremental.py`` is not ported), so
-    nothing is pinned: 0."""
-    return 0
+    """Bytes of a card pinned by the incremental engine's result cache
+    (``expr/incremental.py``, ``FLAGS.result_cache_bytes``): cached
+    results and the leaf snapshots they keep alive are tensors a new
+    walk cannot reuse, so the governor charges them like any other
+    resident set. The JAX package divides its total over the mesh's
+    chips, which hold the sharded results; on a logical mesh the whole
+    cache sits on the one card (``peak_bytes_card`` is priced the same
+    way), and the engine caches nothing on a group mesh. Zero when the
+    cache is empty or off."""
+    from ..expr import incremental as inc_mod
+
+    return 0 if mesh.is_group else inc_mod.cache_bytes()
 
 
 # -- admission -------------------------------------------------------------

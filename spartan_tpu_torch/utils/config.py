@@ -15,7 +15,7 @@ from __future__ import annotations
 import os
 import tempfile
 import threading
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 # Bumped on every flag write: memoized keys over flag values (the plan
 # cache's optimizer-flag key, expr/base.py) stay valid until it moves.
@@ -28,6 +28,10 @@ def mutation_count() -> int:
 
 def _parse_bool(text: str) -> bool:
     return text.lower() in ("1", "true", "yes", "on")
+
+
+def _parse_int_list(text: str) -> List[int]:
+    return [int(x) for x in text.split(",") if x]
 
 
 class Flag:
@@ -44,6 +48,9 @@ class Flag:
         env = os.environ.get("SPARTAN_TPU_TORCH_" + name.upper())
         if env is not None:
             self._value = parser(env)
+        # reset() restores the value as configured at definition time
+        # (env override included), not the compiled-in default
+        self._initial = self._value
 
     @property
     def value(self) -> Any:
@@ -54,6 +61,12 @@ class Flag:
         global _mutations
         self._value = v
         _mutations += 1
+
+    def parse(self, text: str) -> None:
+        self.value = self.parser(text)
+
+    def reset(self) -> None:
+        self.value = self._initial
 
 
 class FlagRegistry:
@@ -89,6 +102,10 @@ class FlagRegistry:
                      help: str = "") -> Flag:
         return self.define(name, default, help, float)
 
+    def define_int_list(self, name: str, default: List[int],
+                        help: str = "") -> Flag:
+        return self.define(name, default, help, _parse_int_list)
+
     def flag(self, name: str) -> Flag:
         """The Flag object itself: hot paths keep it and read
         ``._value`` instead of going through ``__getattr__``."""
@@ -119,11 +136,28 @@ class FlagRegistry:
         for flag in self._flags.values():
             text = getattr(ns, flag.name, None)
             if text is not None:
-                flag.value = flag.parser(text)
+                flag.parse(text)
         return rest
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._flags
+
+    def __iter__(self) -> Iterator[Flag]:
+        return iter(self._flags.values())
+
+    def reset_all(self) -> None:
+        """Every flag back to its value at definition time."""
+        for flag in self._flags.values():
+            flag.reset()
 
     def snapshot(self) -> Dict[str, Any]:
         return {f.name: f.value for f in self._flags.values()}
+
+    def snapshot_nondefault(self) -> Dict[str, Any]:
+        """Flags whose value differs from the compiled-in default: the
+        compact record of the flag state a measurement ran under."""
+        return {f.name: f.value for f in self._flags.values()
+                if f.value != f.default}
 
 
 FLAGS = FlagRegistry()

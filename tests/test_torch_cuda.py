@@ -1508,3 +1508,98 @@ def test_one_served_kmeans_batch_on_the_card(card):
         km.kmeans_step(points, cs[0], 16))[0])
     assert coalesce.mode_for(plan) == "vmap"
     assert plan.report["serve"]["mode"] == "vmap"
+
+
+@pytest.mark.cuda
+def test_incremental_splice_on_the_card_is_bit_equal(card):
+    """The incremental engine on the card: a map stream is served by a
+    restricted walk spliced into a clone of the cached result, bit-equal
+    to the full walk; a product's restriction would not keep cuBLAS's
+    reduction order, so its warm step falls back under the counted
+    reason ``contraction-order``, bit-equal too."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array import distarray as da
+    from spartan_tpu_torch.expr import base, incremental as inc
+    from spartan_tpu_torch.expr.base import evaluate, lazify
+    from spartan_tpu_torch.utils import profiling as prof
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    st.set_default_device(card)
+    prev = FLAGS.incremental
+    FLAGS.incremental = True
+    inc.clear()
+    try:
+        rng = np.random.RandomState(90)
+        x_np = rng.rand(4096, 256).astype(np.float32)
+        x = da.from_numpy(x_np)
+
+        def build(a):
+            return lazify(a) * 3.0 + 0.5
+
+        cached = evaluate(build(x))
+        kept = cached.tensor.clone()
+        x2 = x.update((slice(100, 140), slice(0, 256)), 7.0)
+        h0 = prof.counters().get("incremental_hits", 0)
+        got = evaluate(build(x2)).tensor
+        assert prof.counters().get("incremental_hits", 0) == h0 + 1
+        x2_np = x_np.copy()
+        x2_np[100:140] = 7.0
+        FLAGS.incremental = False
+        want = evaluate(build(da.from_numpy(x2_np))).tensor
+        FLAGS.incremental = True
+        assert torch.equal(got, want)
+        assert torch.equal(cached.tensor, kept)  # never written in place
+
+        n = 4096
+        r = da.from_numpy(rng.rand(n).astype(np.float32))
+        a = da.from_numpy(rng.rand(n, n).astype(np.float32))
+
+        def step(m):
+            return lazify(r).dot(lazify(m)) * 0.85 + 0.15 / n
+
+        evaluate(step(a))
+        a2 = a.update((slice(0, n), slice(512, 768)),
+                      rng.rand(n, 256).astype(np.float32))
+        f0 = prof.counters().get("incremental_fallbacks", 0)
+        got = evaluate(step(a2)).tensor
+        assert prof.counters().get("incremental_fallbacks", 0) == f0 + 1
+        plan = base.lookup_plan(base.plan_signature(step(a2))[0])
+        assert plan.report["incremental"]["fallback"] == "contraction-order"
+        FLAGS.incremental = False
+        assert torch.equal(got, evaluate(step(da.from_numpy(
+            a2.glom()))).tensor)
+    finally:
+        FLAGS.incremental = prev
+        inc.clear()
+
+
+@pytest.mark.cuda
+def test_monitor_sampler_thread_starts_and_stops_on_the_card(card):
+    """The sampler thread ticks while k-means steps run on the card, and
+    stops; its health and ``st.status()`` show it."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.obs import monitor
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    st.set_default_device(card)
+    prev = (FLAGS.monitor, FLAGS.monitor_interval_s)
+    monitor.MONITOR.stop()
+    monitor.MONITOR.reset()
+    FLAGS.monitor, FLAGS.monitor_interval_s = True, 0.02
+    try:
+        pts, c0 = _clustered(65536, 128, 16, seed=91)
+        points, c = st.from_numpy(pts), st.from_numpy(c0)
+        monitor.start()
+        for _ in range(5):
+            c = km.kmeans_step(points, c, 16).evaluate()
+        torch.cuda.synchronize()
+        assert monitor.MONITOR.ticked.wait(30)
+        s = st.status()
+        assert s["monitor"]["running"] and s["monitor"]["samples"] >= 1
+        assert s["platform"] == "gpu"
+    finally:
+        monitor.stop()
+        FLAGS.monitor, FLAGS.monitor_interval_s = prev
+    assert monitor.MONITOR.health()["running"] is False
+    monitor.MONITOR.reset()

@@ -437,7 +437,8 @@ def test_port_imports_no_jax():
                 "persist/fingerprint.py", "serve/__init__.py",
                 "serve/future.py", "serve/queue.py", "serve/coalesce.py",
                 "serve/engine.py", "obs/flight.py", "obs/slo.py",
-                "obs/skew.py"):
+                "obs/skew.py", "expr/incremental.py", "obs/monitor.py",
+                "utils/benchguard.py"):
         assert os.path.join(REPO, "spartan_tpu_torch", mod) in files
     bad = []
     for path in files:
@@ -456,3 +457,30 @@ def test_port_imports_no_jax():
                     bad.append(f"{os.path.relpath(path, REPO)}:"
                                f"{node.lineno}: {name}")
     assert bad == []
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each ``.py`` file of the JAX package has a file of the same path
+    in the port, but ``utils/compat.py`` (a shim over jax versions), and
+    the JAX package's public names (top level and ``obs``) are all the
+    port's too."""
+    import spartan_tpu
+    import spartan_tpu.obs as obs_j
+    import spartan_tpu_torch.obs as obs_t
+
+    jax_root = os.path.join(REPO, "spartan_tpu")
+    missing = []
+    for dirpath, _, names in os.walk(jax_root):
+        for name in names:
+            if not name.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, name), jax_root)
+            if not os.path.exists(os.path.join(REPO, "spartan_tpu_torch",
+                                               rel)):
+                missing.append(rel)
+    assert missing == [os.path.join("utils", "compat.py")]
+    assert set(spartan_tpu.__all__) - set(st_t.__all__) == set()
+    assert set(obs_j.__all__) - set(obs_t.__all__) == set()
+    for name in ("status", "fleet_status", "compile_cache_size",
+                 "clear_compile_cache"):
+        assert callable(getattr(st_t, name))

@@ -204,7 +204,10 @@ def test_evaluate_feeds_the_ledger():
     snap = st_t.ledger(validate=True)
     ent = snap["plans"][r.plan_key]
     assert ent["predicted"]["dp_cost"] == pytest.approx(r.dp_cost)
-    assert ent["measured"]["dispatch_count"] == 3
+    # the plan's first walk is its one-time run (the JAX package's
+    # compile, tests/test_ledger.py:125-126), kept out of the dispatches
+    assert ent["measured"]["dispatch_count"] == 2
+    assert ent["measured"]["compile_s"] > 0
     assert ent["measured"]["dispatch_min_s"] > 0
     assert ent["measured"]["flops"] == r.cost_analysis["flops"]
     # the memory governor's modeled card peak is the prediction; the

@@ -316,11 +316,12 @@ def test_dump_crash_and_the_watchdog(tmp_path):
                 "flags_nondefault"):
         assert key in doc
     assert doc["reason"] == "test" and doc["x"] == 1
-    # the flight recorder's window rides the dump (the JAX package's
-    # section); the monitor's stays None until it is ported
+    # the flight recorder's window and the continuous monitor's section
+    # ride the dump (the JAX package's sections)
     assert set(doc["flightrec"]) == {"events", "requests", "tenants",
                                      "incremental"}
-    assert doc["monitor"] is None
+    assert set(doc["monitor"]) == {"health", "anomalies", "daemon",
+                                   "series_tail"}
     assert doc["last_health"]["op"] == "ReduceExpr"
     assert num_t.watchdog("dispatch") is num_t._NULL_WD
     FLAGS_T.dispatch_timeout_s = 5.0

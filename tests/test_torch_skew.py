@@ -3,10 +3,12 @@
 Each case of ``tests/test_skew.py`` has its counterpart here, on a
 logical (8, 1) mesh with the deliberately skewed array (its first row
 block dense, the rest zero). The JAX file's four monitor and
-status-line cases check the JAX package's monitor; the port's monitor is
-not written yet, so their counterparts check the skew state those
-surfaces read (``current``, ``worst_current``, ``reset``) against the
-JAX package's for the same records.
+status-line cases have their counterparts in the four cases that hold
+the skew state those surfaces read (``current``, ``worst_current``,
+``reset``) against the JAX package's for the same records: each also
+drives the port's monitor (``obs/monitor.py``: its sustained-imbalance
+detector, the epoch fence) and ``st.status()`` / ``st.fleet_status()``
+against the JAX package's on the same records.
 
 Against the JAX package, exactly:
 
@@ -37,6 +39,7 @@ import spartan_tpu as st_j
 from spartan_tpu.analysis import plan_audit as plan_audit_j
 from spartan_tpu.array import tiling as tiling_j
 from spartan_tpu.obs import ledger as ledger_j
+from spartan_tpu.obs import monitor as monitor_j
 from spartan_tpu.obs import skew as skew_j
 from spartan_tpu.parallel import mesh as mesh_j
 from spartan_tpu.utils.config import FLAGS as FLAGS_J
@@ -46,6 +49,7 @@ from spartan_tpu_torch.analysis import plan_audit as plan_audit_t
 from spartan_tpu_torch.array import tiling as tiling_t
 from spartan_tpu_torch.expr import base
 from spartan_tpu_torch.obs import ledger
+from spartan_tpu_torch.obs import monitor
 from spartan_tpu_torch.obs import numerics
 from spartan_tpu_torch.obs import profile as profile_t
 from spartan_tpu_torch.obs import skew as skew_mod
@@ -64,8 +68,13 @@ def _setup():
     mesh_t.set_default_device("cpu")
     saved = {n: getattr(FLAGS, n) for n in (
         "profile_sample_every", "profile_tier", "skew_warn_ratio",
-        "cost_ledger")}
-    saved_j = {n: getattr(FLAGS_J, n) for n in ("cost_ledger",)}
+        "cost_ledger", "monitor_drift_patience", "monitor_fleet_dir")}
+    saved_j = {n: getattr(FLAGS_J, n) for n in (
+        "cost_ledger", "skew_warn_ratio", "monitor_drift_patience",
+        "monitor_fleet_dir")}
+    for mon in (monitor, monitor_j):
+        mon.MONITOR.stop()
+        mon.MONITOR.reset()
     FLAGS.cost_ledger = True
     FLAGS.profile_sample_every = 0
     for mod in (skew_mod, skew_j):
@@ -79,6 +88,9 @@ def _setup():
     st_t.serve.shutdown_default()
     for mod in (skew_mod, skew_j):
         mod.reset()
+    for mon in (monitor, monitor_j):
+        mon.MONITOR.stop()
+        mon.MONITOR.reset()
     profile_t.reset()
     ledger.set_profile(None)
     ledger.reset()
@@ -245,6 +257,18 @@ def test_recorded_imbalance_matches_jax_skew_state():
     assert ent == ent_j
     assert ent["samples"] == 2 and ent["imbalance_ratio_max"] == 3.2
     ledger_j.reset()
+    # the port's monitor reads that state: the third breached sample
+    # emits one ``imbalance`` anomaly, as the JAX package's does
+    out = {}
+    for mon, flags in ((monitor, FLAGS), (monitor_j, FLAGS_J)):
+        flags.skew_warn_ratio = 1.5
+        flags.monitor_drift_patience = 3
+        seq = [_tick(mon, t) for t in range(4)]
+        series = mon.MONITOR.store.series("skew_imbalance_ratio:testplan00")
+        out[mon is monitor] = (seq, series.latest())
+    assert out[True] == out[False]
+    assert out[True][0] == [[], [], [("imbalance", "testplan00", 2.5, 1.5,
+                                      True)], []]
 
 
 def test_imbalance_below_warn_carries_no_advisory():
@@ -254,6 +278,24 @@ def test_imbalance_below_warn_carries_no_advisory():
     assert rep.to_dict()["advisory"] is None
     assert "ADVISORY" not in str(rep)
     assert rep.imbalance_ratio is not None  # measured, below the warning
+    # a measured but healthy ratio never makes the monitor emit
+    for mod in (skew_mod, skew_j):
+        mod.reset()
+    for mod, mon, flags in ((skew_mod, monitor, FLAGS),
+                            (skew_j, monitor_j, FLAGS_J)):
+        flags.skew_warn_ratio = 1.5
+        flags.monitor_drift_patience = 2
+        _seed(mod, ratio=1.2)
+        assert [_tick(mon, t) for t in range(5)] == [[]] * 5
+
+
+def _tick(mon, t):
+    """One monitor tick as (kind, key, value, threshold, detail names
+    the straggler) tuples: the port's at the injected time ``t``, the
+    JAX package's at its clock."""
+    out = mon.sample() if mon is monitor_j else mon.sample(float(t))
+    return [(a.kind, a.key, a.value, a.threshold, "dot#5" in a.detail)
+            for a in out]
 
 
 def test_reset_clears_the_skew_state():
@@ -264,18 +306,49 @@ def test_reset_clears_the_skew_state():
     assert skew_mod.current() == {}
     assert skew_mod.worst_current() is None
     assert skew_mod.take_last_sample() is None
+    # the epoch fence clears the monitor's imbalance streak, in both
+    # packages alike
+    for mod, mon, mesh_mod, flags in (
+            (skew_mod, monitor, mesh_t, FLAGS),
+            (skew_j, monitor_j, mesh_j, FLAGS_J)):
+        flags.skew_warn_ratio = 1.5
+        flags.monitor_drift_patience = 3
+        _seed(mod, ratio=3.2)
+        _tick(mon, 0)
+        _tick(mon, 1)
+        assert mon.MONITOR.imbalance.streak("testplan00") == 2
+        mon.MONITOR._epoch_seen = mesh_mod.mesh_epoch() - 1
+        assert _tick(mon, 2) == []  # the fenced tick is quiet
+        assert mon.MONITOR.imbalance.streak("testplan00") == 0
+        mod.reset()
 
 
-def test_worst_current_matches_jax_status_line():
-    """``st.status()``'s skew line (the JAX package) is ``worst_current``:
-    the worst plan, the same in both packages."""
+def test_worst_current_matches_jax_status_line(tmp_path):
+    """``st.status()``'s skew line is ``worst_current``: the worst plan,
+    the same in both packages; ``st.fleet_status()`` names the worst
+    rank's."""
+    assert st_t.status()["skew"] is None
     for mod in (skew_mod, skew_j):
         assert mod.worst_current() is None  # nothing measured yet
         _seed(mod, "planA", ratio=2.0)
         _seed(mod, "planB", ratio=4.0)
-    assert skew_mod.worst_current() == {"plan": "planB", "ratio": 4.0,
-                                        "wait_s": 0.01, "node": "dot#5"}
+    want = {"plan": "planB", "ratio": 4.0, "wait_s": 0.01, "node": "dot#5"}
+    assert skew_mod.worst_current() == want
     assert skew_mod.worst_current() == skew_j.worst_current()
+    assert st_t.status()["skew"] == want == st_j.status()["skew"]
+    peer = {"rank": 1, "wall_t": 0.0,
+            "status": {"skew": {"plan": "planX", "ratio": 9.0,
+                                "wait_s": 0.5, "node": "sum#2"}}}
+    out = []
+    for st, flags, sub in ((st_t, FLAGS, "t"), (st_j, FLAGS_J, "j")):
+        flags.monitor_fleet_dir = str(tmp_path / sub / "fleet")
+        fs = st.fleet_status()
+        first = (fs["skew_worst"]["plan"], fs["skew_worst"]["rank"])
+        (tmp_path / sub / "fleet" / "rank_1.json").write_text(
+            json.dumps(peer))
+        out.append((first, st.fleet_status()["skew_worst"]))
+    assert out[0] == out[1] == (("planB", 0), dict(
+        peer["status"]["skew"], rank=1))
 
 
 # -- time skew: the fold, against the JAX package --------------------------
