@@ -329,6 +329,13 @@ LOCAL_KM_N, LOCAL_DOT_N, LOCAL_RETILE_N = 1_000_448, 8192, 4096
 LOCAL_LAYOUTS = {"row": ("x", None), "col": (None, "x"),
                  "block": ("x", "y"), "rep": (None, None)}
 LOCAL_CAL_N = 1024
+# [local]'s local rules on the same group: the structure ops at 8192^2
+# f32, outer of two 16,384-vectors, the batched sorts of 8 rows of 2^23
+# keys along their tiled axis, a 64-bin histogram of the 8192^2 array,
+# pooling of VGG-16 block 1's activations and the block's forward; each
+# rank's measured peak within LOCAL_MEM_TOL of peak_bytes_card
+LOCAL_BSORT = (8, 2 ** 23)
+LOCAL_MEM_TOL = 0.05
 # [resilience]: config 3 on a logical (4, 2) mesh; [elastic_group]: the
 # gloo group's timeout, the parent's wait for a world, and the sleep
 # each dispatch of the world that loses a rank takes (so the kill lands
@@ -3924,8 +3931,10 @@ def local_child(workdir: str, rank: int) -> None:
     ``st.from_numpy`` -> ``st.loop(kmeans_step)`` -> ``glom``, config
     2's 8192^2 ``st.dot``, ``st.sort``/``st.argsort``/``st.topk`` of
     2^26 keys, PageRank over the sharded SpMV, retile between every
-    pair of layouts and the FLOP-weight calibration; results to
-    ``workdir``."""
+    pair of layouts, the local rules of the structure ops, outer, the
+    scan, the batched sorts, the histogram, pooling and the VGG-16
+    block-1 forward (``_local_rules``) and the FLOP-weight calibration;
+    results to ``workdir``."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import spartan_tpu_torch as st
     from spartan_tpu_torch.array.distarray import from_tensor
@@ -4077,6 +4086,8 @@ def local_child(workdir: str, rank: int) -> None:
                 bool(torch.equal(out.local, whole[ext.to_slice()])), recv]
     del whole, src, out
 
+    res["rules"] = _local_rules(st, path, dev, mesh)
+
     res["flop_weight"] = tc.calibrate_flop_weight(LOCAL_CAL_N, mesh=mesh)
     # the plan the DP gives config 2's dot at the calibrated weight
     # (planned only; every rank has the same weight)
@@ -4096,6 +4107,186 @@ def local_child(workdir: str, rank: int) -> None:
     with open(os.path.join(workdir, f"local{rank}.json"), "w") as f:
         json.dump(res, f)
     mesh_mod.shutdown()
+
+
+def _sort_scratch(dev, r: int, n: int) -> float:
+    """Bytes a stable torch.sort of int64 keys (with its int64 indices)
+    holds per element beyond its input and outputs, at a size the
+    batched sort's merge sorts, (R, p * m) (``ops/sort.SORT_SCRATCH``)."""
+    keys = torch.randint(0, 2 ** 40, (r, n), device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = torch.sort(keys, dim=-1, stable=True)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base - 16 * keys.numel()
+    del out, keys
+    return extra / (r * n)
+
+
+def _local_rules(st, path, dev, mesh) -> dict:
+    """The local rules at full width on this rank: each case's one-process
+    result on a logical mesh of the group's shape first (from the same
+    whole inputs), and for a case on a kernel's path the same run with
+    ``native_kernels=off`` (the kernels' plain versions); then the
+    group's walk measured against the plan's peak_bytes_card
+    (``memory.validate_plan``), then the evaluation: its gathers, its
+    kernel launches, and the rank's block against the same block of the
+    one-process results (bit for bit, or the relative error). The sort
+    and the histogram run at a second size as well, so that the card
+    model's constants are held where they were not measured."""
+    import torch.nn.functional as F  # noqa: F401 - _vgg_float64
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.kernels import exchange as kx
+    from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.kernels import stencil as kst
+    from spartan_tpu_torch.resilience import memory
+
+    half = (LOCAL_BSORT[0], LOCAL_BSORT[1] // 2)
+    out = {"sort_scratch": _sort_scratch(dev, *LOCAL_BSORT),
+           "sort_scratch_half": _sort_scratch(dev, *half)}
+    gen = torch.Generator(device=dev)
+    # the one-process run: the logical mesh of the group's shape, whose
+    # programs add in the group's order (the blocked scan)
+    one = st.build_mesh((mesh.shape["x"], mesh.shape["y"]), dev)
+    rows, cols = st.Tiling(("x", None)), st.Tiling((None, "x"))
+    hx = st.Tiling((None, "x", None, None))
+    n = STRUCT_N
+
+    def counted():
+        return (kx.LAUNCHES["partition_pack"], kh.LAUNCHES["bincount_block"],
+                kst.LAUNCHES["conv_block"])
+
+    def one_run(make, leaves):
+        with st.use_mesh(one):
+            return make(*[st.as_expr(from_tensor(w)) for w, _ in
+                          leaves]).evaluate().local
+
+    def case(name, make, leaves, tol=None, ref=None, compare=None,
+             plain=None):
+        """``make(*exprs)`` over ``leaves`` (whole tensor, tiling); with
+        ``compare(block, extent)`` the error is its answer. ``plain``
+        ("equal", or "close": [stencil]'s rtol 1e-4 plus an atol of 1e-6
+        of the largest output) holds the block against the plain
+        versions' run as well."""
+        if ref is None and compare is None:
+            ref = one_run(make, leaves)
+        plain_ref = None
+        if plain is not None:
+            prev = st.FLAGS.native_kernels
+            st.FLAGS.native_kernels = "off"
+            try:
+                plain_ref = one_run(make, leaves)
+            finally:
+                st.FLAGS.native_kernels = prev
+        xs = [st.as_expr(from_tensor(w, tiling=t)) for w, t in leaves]
+        in_bytes = sum(w.numel() * w.element_size() for w, _ in leaves)
+        del leaves[:]
+        expr = make(*xs)
+        plan = _plan_of(st, expr)
+        val = memory.validate_plan(plan)
+        k0 = counted()
+        got = path("r_" + name, lambda: make(*xs).evaluate())
+        torch.cuda.synchronize()
+        k1 = counted()
+        ext = got.tiling.block_extent(got.shape, mesh)
+        if compare is not None:
+            err = compare(got.local, ext)
+            want = None
+        else:
+            want = ref[ext.to_slice()] if ref.shape == tuple(got.shape) \
+                else ref
+        if compare is not None:
+            pass
+        elif tol is None:
+            err = 0.0 if torch.equal(got.local, want) else float("inf")
+        else:
+            d = (got.local.double() - want.double()).abs().max()
+            err = float(d / want.double().abs().max().clamp_min(1e-30))
+        plain_err = None
+        if plain_ref is not None:
+            pw = plain_ref[ext.to_slice()]
+            if plain == "equal":
+                plain_err = 0.0 if torch.equal(got.local, pw) \
+                    else float("inf")
+            else:  # the count of elements outside the rule
+                atol = 1e-6 * float(plain_ref.abs().max())
+                plain_err = float(((got.local - pw).abs()
+                                   > 1e-4 * pw.abs() + atol).sum())
+            del pw
+        rec = {"err": err, "tol": tol, "in_bytes": in_bytes,
+               "plain": plain, "plain_err": plain_err,
+               "out_bytes": int(np.prod(got.shape))
+               * got.local.element_size(),
+               "measured": val["measured_peak_bytes"],
+               "predicted": val["predicted_bytes"],
+               "launches": [b - a for a, b in zip(k0, k1)],
+               "ms": _wall_ms(lambda: make(*xs).evaluate(), reps=2)}
+        out[name] = rec
+        del got, ref, want, xs, expr, plan, plain_ref
+        torch.cuda.empty_cache()
+
+    def rand(*shape, seed):
+        gen.manual_seed(seed)
+        return torch.rand(shape, generator=gen, device=dev)
+
+    case("transpose", lambda x: x.T, [(rand(n, n, seed=41), rows)])
+    case("reshape", lambda x: st.reshape(x, (n // 2, 2 * n)),
+         [(rand(n, n, seed=42), rows)])
+    case("ravel", lambda x: st.ravel(x), [(rand(n, n, seed=43), cols)])
+    case("concatenate_untiled", lambda x, y: st.concatenate([x, y], 1),
+         [(rand(n, n, seed=44), rows), (rand(n, n, seed=45), rows)])
+
+    def concat_rows(x, y):
+        e = st.concatenate([x, y], 0)
+        e._forced_tiling = rows  # the tiled axis stays tiled
+        return e
+
+    case("concatenate_tiled", concat_rows,
+         [(rand(n, n, seed=46), rows), (rand(n, n, seed=47), rows)])
+    case("strided_slice", lambda x: x[::2, ::-3],
+         [(rand(n, n, seed=48), rows)])
+    case("outer", lambda a, b: st.outer(a, b),
+         [(rand(OUTER_N, seed=49), st.Tiling(("x",))),
+          (rand(OUTER_N, seed=50), st.Tiling(("x",)))])
+    case("cumsum", lambda x: st.cumsum(x, 0), [(rand(n, n, seed=51), rows)],
+         tol=1e-6)
+    case("sort", lambda x: st.sort(x), [(rand(*LOCAL_BSORT, seed=52), cols)],
+         plain="equal")
+    case("argsort", lambda x: st.argsort(x),
+         [(rand(*LOCAL_BSORT, seed=53), cols)], plain="equal")
+    case("histogram", lambda x: st.histogram(x, HIST_BINS)[0],
+         [(rand(n, n, seed=54), rows)], plain="equal")
+    # the card model at a second size
+    case("sort_half", lambda x: st.sort(x), [(rand(*half, seed=55), cols)],
+         plain="equal")
+    case("histogram_half", lambda x: st.histogram(x, HIST_BINS)[0],
+         [(rand(n, n // 2, seed=56), rows)], plain="equal")
+    xv, params = _vgg_params(dev)
+    with torch.no_grad():
+        act = torch.relu(torch.randn((VGG_N, VGG_HW, VGG_HW, VGG_WIDTHS[-1]),
+                                     generator=gen, device=dev))
+    case("maxpool", lambda x: st.maxpool(x, 2), [(act, hx)])
+    with torch.no_grad():
+        act = torch.relu(torch.randn((VGG_N, VGG_HW, VGG_HW, VGG_WIDTHS[-1]),
+                                     generator=gen, device=dev))
+    case("avgpool", lambda x: st.avgpool(x, 3, 1, "SAME"), [(act, hx)],
+         tol=1e-6)
+    del act
+    ref = _vgg_float64(xv[:2], params)
+
+    def against_f64(blk, ext):
+        """The rank's rows of the first two images against the float64
+        forward's (the [spmd] check: the largest absolute difference)."""
+        rows_ = ref[:, ext.ul[1]:ext.lr[1]]
+        return float((blk[:2].double() - rows_).abs().max())
+
+    case("vgg", lambda x, *p: vgg_block1(st, x, list(zip(p[::2], p[1::2]))),
+         [(xv, hx)] + [(a, None) for wb in params for a in wb], tol=1e-5,
+         compare=against_f64, plain="close")
+    del xv, params, ref
+    return out
 
 
 def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
@@ -4199,6 +4390,65 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
     if not pr_err <= 1e-6:
         _fail(f"[local] PageRank differs from the one-process run by "
               f"{pr_err} of the largest rank (limit 1e-6)")
+    from spartan_tpu_torch.ops.sort import SORT_SCRATCH
+
+    for rr in res:
+        for name, rec in rr["rules"].items():
+            if name.startswith("sort_scratch"):
+                continue
+            lim = ("bit-equal" if rec["tol"] is None else
+                   f"limit {rec['tol']:g}")
+            if rec["plain"] is not None:
+                lim += (f"; against the plain versions' run "
+                        f"({rec['plain']}): {rec['plain_err']:.3g}")
+            _say(f"[local] rank {rr['rank']}: {name}: operands "
+                 f"{rec['in_bytes']} bytes, result {rec['out_bytes']} bytes "
+                 f"whole; this rank's measured peak {rec['measured']} bytes, "
+                 f"peak_bytes_card {rec['predicted']} (ratio "
+                 f"{rec['predicted'] / rec['measured']:.4f}); 0 gathered "
+                 f"whole; err {rec['err']:.3g} ({lim}); launches "
+                 f"(partition_pack, bincount_block, conv_block) "
+                 f"{rec['launches']}; {rec['ms']:.2f} ms a walk (host "
+                 f"clock; two processes time-slice one card) on {card}")
+        _say(f"[local] rank {rr['rank']}: torch.sort of int64 keys held "
+             f"{rr['rules']['sort_scratch']:.4f} bytes an element of "
+             f"scratch at {LOCAL_BSORT[0]}x{LOCAL_BSORT[1]} and "
+             f"{rr['rules']['sort_scratch_half']:.4f} at half the row "
+             f"(ops/sort.SORT_SCRATCH = {SORT_SCRATCH}) on {card}")
+    # the local rules: no gather, each result within its limit, the
+    # kernels' launches on the stored blocks, the card model's peak
+    want_launches = {"sort": [1, 0, 0], "argsort": [2, 0, 0],
+                     "histogram": [0, 1, 0], "vgg": [0, 0, 2],
+                     "sort_half": [1, 0, 0], "histogram_half": [0, 1, 0]}
+    for r, rr in enumerate(res):
+        scratch = rr["rules"]["sort_scratch"]
+        if abs(scratch / SORT_SCRATCH - 1.0) > LOCAL_MEM_TOL:
+            _fail(f"[local] rank {r}: torch.sort held {scratch} bytes an "
+                  f"element of scratch, ops/sort.SORT_SCRATCH says "
+                  f"{SORT_SCRATCH} (limit 1 +- {LOCAL_MEM_TOL})")
+        for name, rec in rr["rules"].items():
+            if name.startswith("sort_scratch"):
+                continue
+            if rec["plain"] is not None and rec["plain_err"] != 0.0:
+                _fail(f"[local] rank {r}: {name} differs from the plain "
+                      f"versions' run ({rec['plain']}): {rec['plain_err']}")
+            if rr[f"r_{name}_mat"] != 0:
+                _fail(f"[local] rank {r}: the {name} path gathered "
+                      f"{rr[f'r_{name}_mat']} arrays whole ({rr['sites']})")
+            if not rec["err"] <= (rec["tol"] or 0.0):
+                _fail(f"[local] rank {r}: {name} differs from the "
+                      f"one-process run by {rec['err']} (limit "
+                      f"{rec['tol'] or 0.0})")
+            if rec["launches"] != want_launches.get(name, [0, 0, 0]):
+                _fail(f"[local] rank {r}: {name} launched (partition_pack, "
+                      f"bincount_block, conv_block) {rec['launches']}, want "
+                      f"{want_launches.get(name, [0, 0, 0])}")
+            ratio = rec["predicted"] / rec["measured"]
+            if abs(ratio - 1.0) > LOCAL_MEM_TOL:
+                _fail(f"[local] rank {r}: {name} peak_bytes_card "
+                      f"{rec['predicted']} against a measured peak of "
+                      f"{rec['measured']} (ratio {ratio:.4f}, limit 1 +- "
+                      f"{LOCAL_MEM_TOL})")
     r0 = res[0]
     _say(f"[local] {GROUP_RANKS} gloo processes on the one card, mesh "
          f"{tuple(r0['mesh'])}, local-shard storage ({wall:.1f} s with "
@@ -4240,10 +4490,15 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
              f"{rr['sites']}; staged through host memory "
              f"{rr['totals']['collective_host_staged_calls']} calls "
              f"{rr['totals']['collective_host_staged_bytes']} bytes")
+    rules = r0["rules"]
     _say(f"[local] phase {time.perf_counter() - t0:.1f} s on {card}")
     return {"kmeans": r0["km_launches"], "partition_pack": r0["sort_launches"],
             "shard_topk": r0["topk_launches"],
-            "windowed_segsum": r0["pagerank_launches"]}
+            "windowed_segsum": r0["pagerank_launches"],
+            "batched_partition_pack": rules["sort"]["launches"][0]
+            + rules["argsort"]["launches"][0],
+            "bincount_block": rules["histogram"]["launches"][1],
+            "conv_block": rules["vgg"]["launches"][2]}
 
 
 # -- [resilience] and [elastic_group] -------------------------------------
@@ -6842,7 +7097,9 @@ def main() -> None:
         "ms": sortr["ms"], "plain_ms": sortr["plain_ms"],
         "bound_ms": sortr["bound_ms"], "bound_by": sortr["bound_by"],
         "library_ms": sortr["library_ms"],
-        "local_launches_per_rank": loc["partition_pack"]}, {
+        "local_launches_per_rank": loc["partition_pack"],
+        "local_batched_sort_launches_per_rank":
+            loc["batched_partition_pack"]}, {
         "name": "shard_topk", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/topk.cu",
         "replaces": "spartan_tpu/kernels/topk.py:30",
@@ -6860,7 +7117,8 @@ def main() -> None:
         "library_ms": histr["library_ms"], "unique_ms": histr["unique_ms"],
         "unique_bound_ms": histr["unique_bound_ms"],
         "unique_library_ms": histr["unique_library_ms"],
-        "group_launches_per_rank": grp["bincount"]}, {
+        "group_launches_per_rank": grp["bincount"],
+        "local_histogram_launches_per_rank": loc["bincount_block"]}, {
         "name": "conv_block", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/stencil.cu",
         "replaces": "spartan_tpu/kernels/stencil.py:32",
@@ -6869,7 +7127,8 @@ def main() -> None:
         "bound_ms": vggr["bound_ms"], "bound_by": vggr["bound_by"],
         "bound_fp32_ms": vggr["bound_fp32_ms"],
         "library_ms": vggr["library_ms"],
-        "group_launches_per_rank": grp["conv_block"]}]}))
+        "group_launches_per_rank": grp["conv_block"],
+        "local_vgg_launches_per_rank": loc["conv_block"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")
     print(json.dumps({"ok": True, "device": {

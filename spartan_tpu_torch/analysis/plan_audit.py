@@ -18,8 +18,14 @@ logical mesh or on a group. The sources it sees:
 * each ``all_gather``/``all_to_all`` step of the schedule
   ``parallel/redistribute.relayout`` runs for a reshard (a forced
   tiling, an operand's required layout, the plan's output tilings);
-* the sample sort's ``all_to_all`` exchanges and sample gathers;
-* the stencil's halo ``ring_permute`` calls;
+* the sample sort's ``all_to_all`` exchanges and sample gathers (of
+  rows along a tiled axis too);
+* the stencil's and the pools' halo ``ring_permute`` calls;
+* the piece exchange's uneven ``all_to_all``
+  (``parallel/redistribute.move_pieces``) of a reshape, a
+  concatenation, a slice, a diagonal or an uneven relayout, and the
+  all-gathers of the blocked scan's totals and of a user reduce's
+  partials;
 * every whole-array gather of a node without a local rule (counted on a
   real walk as ``group_materialize_calls{site}``).
 

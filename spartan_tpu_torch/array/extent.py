@@ -9,9 +9,12 @@ region algebra of ``assign``/``write_array`` and ``shuffle``;
 ``drop_axis``/``add_axis`` carry a region through a reduction (the
 incremental engine's dirt propagation); ``find_overlapping``,
 ``all_nonoverlapping``, ``is_complete``, ``tiles_like_hint`` and
-``index_for`` are the tile-map algebra of the reference. Metadata
-only: the data of an array is one torch tensor whatever its tiles.
-Extents are immutable and hashable.
+``index_for`` are the tile-map algebra of the reference;
+``flat_runs`` and ``intersect_runs`` give the row-major runs of a
+region and their overlaps (the piece exchange of
+``parallel/redistribute.py``). Metadata only: the data of an array is
+one torch tensor whatever its tiles. Extents are immutable and
+hashable.
 """
 
 from __future__ import annotations
@@ -252,3 +255,51 @@ def tiles_like_hint(shape: Sequence[int], tile_hint: Sequence[int]
 
 def index_for(extents: Sequence[TileExtent]) -> Dict[TileExtent, int]:
     return {e: i for i, e in enumerate(extents)}
+
+
+def flat_runs(ext: TileExtent, shape: Sequence[int]
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """(starts, lengths), int64: the contiguous runs of the region
+    ``ext`` of an array of ``shape`` in its row-major (C) order, in
+    increasing order. The axes after the last one the region cuts merge
+    into each run, so a block of whole rows is one run."""
+    shape = tuple(int(s) for s in shape)
+    if ext.size == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    if not shape:
+        return np.zeros(1, np.int64), np.ones(1, np.int64)
+    k = len(shape) - 1
+    while k > 0 and ext.ul[k] == 0 and ext.lr[k] == shape[k]:
+        k -= 1
+    strides = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        strides[i] = strides[i + 1] * shape[i + 1]
+    length = (ext.lr[k] - ext.ul[k]) * strides[k]
+    starts = np.array([sum(u * s for u, s in zip(ext.ul, strides))],
+                      np.int64)
+    for i in range(k):
+        step = np.arange(ext.lr[i] - ext.ul[i], dtype=np.int64) * strides[i]
+        starts = (starts[:, None] + step[None, :]).reshape(-1)
+    return starts, np.full(starts.shape[0], length, np.int64)
+
+
+def intersect_runs(a: Tuple[np.ndarray, np.ndarray],
+                   b: Tuple[np.ndarray, np.ndarray]
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                              np.ndarray]:
+    """The overlaps of two increasing lists of disjoint runs, in
+    increasing order: (starts, lengths, the index of the run of ``a``
+    and of ``b`` each overlap lies in)."""
+    a_s, a_l = a
+    b_s, b_l = b
+    a_e, b_e = a_s + a_l, b_s + b_l
+    lo = np.searchsorted(b_e, a_s, side="right")
+    hi = np.searchsorted(b_s, a_e, side="left")
+    cnt = np.maximum(hi - lo, 0)
+    ai = np.repeat(np.arange(a_s.shape[0], dtype=np.int64), cnt)
+    first = np.cumsum(cnt) - cnt
+    bj = lo[ai] + np.arange(ai.shape[0], dtype=np.int64) - first[ai]
+    st = np.maximum(a_s[ai], b_s[bj])
+    en = np.minimum(a_e[ai], b_e[bj])
+    keep = en > st
+    return st[keep], (en - st)[keep], ai[keep], bj[keep]

@@ -305,6 +305,17 @@ class Expr:
     def _default_tiling(self) -> Tiling:
         raise NotImplementedError
 
+    # a node whose lowering gives one layout (``_default_tiling``)
+    # whatever it is asked: the tiling DP offers it no other
+    fixed_tiling = False
+
+    def operand_requirement(self, t: Tiling,
+                            child_idx: int) -> Optional[Tiling]:
+        """The tiling this node wants of child ``child_idx`` when it
+        produces ``t``, which the tiling DP prices as a move of that
+        child (``expr/tiling_cost``); None = no preference."""
+        return None
+
     def cost(self) -> Dict[str, float]:
         """This node's own FLOPs and bytes accessed, counted from shapes
         by the rules XLA's cost analysis applies (``st.explain``'s

@@ -11,6 +11,7 @@ helpers (diag, diagonal, tril, triu, trace) and the contraction builtins
 
 from __future__ import annotations
 
+import builtins as _py
 import functools
 from typing import Any, Dict, Optional, Tuple
 
@@ -212,6 +213,87 @@ def norm(x, ord=2) -> Expr:
     raise ValueError(f"unsupported norm order {ord}")
 
 
+def _call_map(fn, *args, **hints) -> MapExpr:
+    """``map_expr(fn, *args)`` (the same plan key) with the package's
+    hints of how ``fn`` acts on a block (``LocalCall``)."""
+    inputs = tuple(as_expr(a) for a in args)
+    return MapExpr(inputs, LocalCall(
+        fn, tuple(LocalInput(i) for i in range(len(inputs))), **hints))
+
+
+class DiagonalExpr(Expr):
+    """The main diagonal of a matrix, a node so that a group mesh can
+    move each rank's run of it (the elements of its block whose row
+    equals their column) to the output's tiling
+    (``redistribute.move_pieces``) instead of reading the matrix
+    whole."""
+
+    def __init__(self, x: Expr):
+        self.x = x
+        super().__init__((_py.min(x.shape),), x.dtype)
+
+    def children(self):
+        return (self.x,)
+
+    def replace_children(self, new_children) -> "DiagonalExpr":
+        return DiagonalExpr(new_children[0])
+
+    def _lower(self, env) -> Any:
+        return torch.diagonal(self.x.lower(env)).clone()
+
+    def _sig(self, ctx):
+        return ("diagonal", ctx.of(self.x))
+
+    def _default_tiling(self):
+        from ..array import tiling as tiling_mod
+
+        return tiling_mod.default_tiling(self.shape)
+
+    def _run_of(self, t, mesh):
+        """The position -> the run of the diagonal its block of the
+        matrix (tiled ``t``) holds, as an extent of the output."""
+        from ..array.extent import TileExtent
+
+        def run(c):
+            e = t.block_extent(self.x.shape, mesh, c)
+            lo, hi = _py.max(e.ul[0], e.ul[1]), _py.min(e.lr[0], e.lr[1])
+            return None if hi <= lo else TileExtent((lo,), (hi,),
+                                                    self.shape)
+
+        return run
+
+    def card_staging(self, mesh) -> float:
+        """The piece exchange's buffers (``resilience/memory.py``)."""
+        if not mesh.is_group:
+            return 0.0
+        from ..array import tiling as tiling_mod
+        from ..parallel import redistribute as redist_mod
+
+        t = tiling_mod.sanitize(self.x.out_tiling(), self.x.shape, mesh)
+        return redist_mod.exchange_staging(
+            [self._run_of(t, mesh)], [redist_mod.free_axes(t, mesh)],
+            tiling_mod.sanitize(self.out_tiling(), self.shape, mesh),
+            self.shape, mesh, self.dtype.itemsize)
+
+    def _lower_local(self, env) -> Any:
+        from ..array import tiling as tiling_mod
+        from ..array.distarray import DistArray
+        from ..parallel import redistribute as redist_mod
+
+        mesh = env.mesh
+        x = self.x.lower_local(env)
+        t = x.tiling
+        run = self._run_of(t, mesh)
+        ext = t.block_extent(x.shape, mesh)
+        blk = (torch.diagonal(x.local, offset=ext.ul[0] - ext.ul[1])
+               if run(mesh.coords) is not None else None)
+        out_t = tiling_mod.sanitize(self.out_tiling(), self.shape, mesh)
+        out = redist_mod.move_pieces(
+            [redist_mod.Piece(blk, run, redist_mod.free_axes(t, mesh))],
+            out_t, self.shape, x.local.dtype, mesh)
+        return DistArray.from_local(out, out_t, self.shape, mesh)
+
+
 def diag(x) -> Expr:
     """1-D -> diagonal matrix; 2-D -> its diagonal (NumPy semantics)."""
     x = as_expr(x)
@@ -226,15 +308,20 @@ def diagonal(x) -> Expr:
     x = as_expr(x)
     if x.ndim != 2:
         raise ValueError("diagonal requires a 2-D input")
-    return map_expr(lambda v: torch.diagonal(v).clone(), x)
+    return DiagonalExpr(x)
 
 
 def tril(x, k=0) -> Expr:
-    return map_expr(lambda v: dtypes.call(torch.tril, v, k), as_expr(x))
+    # on a block at (r, c) the diagonal moves by r - c
+    return _call_map(lambda v: dtypes.call(torch.tril, v, k), x,
+                     located=lambda v, ul: dtypes.call(
+                         torch.tril, v, k + ul[-2] - ul[-1]))
 
 
 def triu(x, k=0) -> Expr:
-    return map_expr(lambda v: dtypes.call(torch.triu, v, k), as_expr(x))
+    return _call_map(lambda v: dtypes.call(torch.triu, v, k), x,
+                     located=lambda v, ul: dtypes.call(
+                         torch.triu, v, k + ul[-2] - ul[-1]))
 
 
 def var(x, axis=None, ddof: int = 0, keepdims: bool = False) -> Expr:
@@ -475,18 +562,32 @@ class BincountExpr(Expr):
         return _bincount_expr_path(v, self.length)
 
     def _lower_local(self, env) -> Any:
-        """A 1-D bincount on a group mesh: each rank counts its stored
-        row block (the kernel's group form where selected, else the
-        scatter-add) and the counts are summed over the row axis."""
-        if self.x.ndim != 1:
-            return NotImplemented
+        """A bincount on a group mesh: each rank counts its stored block
+        (the kernel's group form where selected, else the scatter-add)
+        and the counts are summed over the mesh axes. A vector moves to
+        row blocks first; an N-d array's blocks are counted raveled
+        where they lie, the kernel selected as for their ravel."""
         from ..array import tiling as tiling_mod
         from ..array.distarray import DistArray
         from ..kernels import registry as kernels_mod
         from ..parallel import collectives as coll
 
         xv = self.x.lower_local(env)
-        if kernels_mod.node_selection(self).native:
+        if self.x.ndim != 1:
+            sel = kernels_mod.select("bincount", (self.x.size,),
+                                     self.x.dtype, tiling_mod.row(1),
+                                     env.mesh, length=self.length)
+            if sel.native:
+                from ..kernels import histogram as khist
+
+                out = khist.bincount_local(xv, self.length)
+            else:
+                used = [sub for a in xv.tiling.axes
+                        for sub in tiling_mod.mesh_axes_of(a)]
+                out = coll.reduce_over(
+                    _bincount_expr_path(xv.local, self.length), used,
+                    "add", env.mesh)
+        elif kernels_mod.node_selection(self).native:
             from ..kernels import histogram as khist
 
             out = khist.bincount_local(xv, self.length)
@@ -545,6 +646,11 @@ class SampleSortExpr(Expr):
     position a row of the same program. With ``indices=True`` it is the
     distributed argsort (source indices ride as a payload)."""
 
+    # its lowering returns the sort axis on the collective axis, whatever
+    # it is asked: an operand requirement cannot say that (priced so,
+    # the DP picks a layout the sort cannot give and moves its result)
+    fixed_tiling = True
+
     def __init__(self, x: Expr, indices: bool = False, axis: int = -1):
         self.x = x
         self.indices = indices
@@ -587,32 +693,53 @@ class SampleSortExpr(Expr):
         return out
 
     def _lower_local(self, env) -> Any:
-        """A 1-D sort on a group mesh: the program once per rank on the
-        stored row blocks (``ops/sort.sample_sort_local``). A batched
-        sort reads its operand whole."""
-        if self.x.ndim != 1:
-            return NotImplemented
+        """The program once per rank on the stored blocks
+        (``ops/sort.sample_sort_local``): a batched sort keeps its batch
+        axes in each rank's block and exchanges over the sort axis's
+        collective axis."""
         from ..ops import sort as sort_ops
 
         return sort_ops.sample_sort_local(self.x.lower_local(env),
-                                          with_indices=self.indices)
+                                          with_indices=self.indices,
+                                          axis=self.axis)
+
+    def card_staging(self, mesh) -> float:
+        """What the local rule holds beyond its input and output blocks
+        at its peak (``resilience/memory.py``): the program's stages
+        (``ops/sort.local_staging``), and a moved input block."""
+        if not mesh.is_group:
+            return 0.0
+        from ..array import tiling as tiling_mod
+        from ..ops import sort as sort_ops
+
+        t_in = tiling_mod.sanitize(self.x.out_tiling(), self.x.shape, mesh)
+        t = sort_ops.sort_tiling(t_in.axes, self.axis, mesh)
+        p = int(mesh.shape[t.axes[self.axis]])
+        n = int(self.shape[self.axis])
+        ext = t.block_extent(self.shape, mesh)
+        ln = ext.shape[self.axis]
+        r = ext.size // ln if ln else 0
+        item = _py.max(int(self.x.dtype.itemsize), 4)
+        out = float(ext.size) * self.dtype.itemsize
+        moved = float(ext.size) * self.x.dtype.itemsize if t != t_in \
+            else 0.0
+        if p <= 1 or n == 0:
+            return moved
+        staged = sort_ops.local_staging(r, -(-n // p), p, ln, self.indices,
+                                        item)
+        return moved + _py.max(0.0, staged - out)
 
     def _sig(self, ctx):
         return ("sample_sort", self.indices, self.axis, ctx.of(self.x))
 
     def _default_tiling(self):
-        from ..array import tiling as tiling_mod
         from ..ops import sort as sort_ops
+        from ..parallel import mesh as mesh_mod
 
-        if self.ndim <= 1:
-            return tiling_mod.row(1)
         # batch axes keep the operand's placements; the sort axis comes
         # back on the collective axis (the helpers _run uses)
-        moved = self._moved_in_tiling()
-        name = sort_ops.collective_axis(moved)
-        axes = list(sort_ops.batch_axes(moved, name, self.ndim))
-        axes.insert(self.axis, name)
-        return tiling_mod.Tiling(axes)
+        return sort_ops.sort_tiling(self.x.out_tiling().axes, self.axis,
+                                    mesh_mod.get_mesh())
 
 
 def _checked_axis(axis: int, ndim: int) -> int:
@@ -653,8 +780,8 @@ def sort(x, axis: int = -1) -> Expr:
         return SampleSortExpr(x, axis=ax)
     from ..ops.sort import stable_argsort
 
-    return map_expr(lambda v: dtypes.call(
-        lambda w: w.gather(ax, stable_argsort(w, ax)), v), x)
+    return _call_map(lambda v: dtypes.call(
+        lambda w: w.gather(ax, stable_argsort(w, ax)), v), x, along=ax)
 
 
 def argsort(x, axis: int = -1) -> Expr:
@@ -671,7 +798,8 @@ def argsort(x, axis: int = -1) -> Expr:
         return SampleSortExpr(x, indices=True, axis=ax)
     from ..ops.sort import stable_argsort
 
-    return map_expr(lambda v: stable_argsort(v, ax).to(torch.int32), x)
+    return _call_map(lambda v: stable_argsort(v, ax).to(torch.int32), x,
+                     along=ax)
 
 
 # -- order statistics -------------------------------------------------------
@@ -1027,7 +1155,10 @@ def histogram(x, bins: int = 10, range=None):
             oob = (vv < e[0]) | (vv > e[-1])
             return torch.where(oob, bins, idx).to(torch.int32)
 
-        counts = bincount(map_expr(bucket, x), length=bins)
+        # its peak, 5.25 int32 outputs (a trace of its live tensors, on
+        # the CPU and the card), for the card model
+        counts = bincount(_call_map(bucket, x, elementwise=True,
+                                    units=5.25), length=bins)
         edges = map2([as_expr(0.0)],
                      lambda _z, lo=lo, hi=hi, bins=bins:
                      _hist_edges(lo, hi, bins, _edges_device(_z)))
@@ -1045,7 +1176,10 @@ def histogram(x, bins: int = 10, range=None):
         idx = _search_right(e, v.to(torch.float32)) - 1
         return idx.clamp(0, bins - 1).to(torch.int32)
 
-    counts = bincount(map_expr(bucket2, x, lo_e, hi_e), length=bins)
+    # its peak, 5 int32 outputs (a trace of its live tensors, on the CPU
+    # and the card), for the card model
+    counts = bincount(_call_map(bucket2, x, lo_e, hi_e, elementwise=True,
+                                units=5.0), length=bins)
 
     def edges_fn(lo, hi):
         lo, hi = lo.to(torch.float32), hi.to(torch.float32)
@@ -1173,6 +1307,32 @@ class BlockedScanExpr(Expr):
         return scan_ops.blocked_scan(self.x.lower(env), self.op,
                                      in_axes=self.x.out_tiling().axes)
 
+    def _lower_local(self, env) -> Any:
+        """The blocked program once per rank on its stored block
+        (``ops/scan.blocked_scan_local``)."""
+        from ..array import tiling as tiling_mod
+        from ..ops import scan as scan_ops
+
+        t = tiling_mod.sanitize(scan_ops.scan_axes(
+            self.x.out_tiling().axes, self.ndim), self.shape, env.mesh)
+        return scan_ops.blocked_scan_local(self.x.lower_local(env),
+                                           self.op, t)
+
+    def card_staging(self, mesh) -> float:
+        """The local scan held beside the combined output (one block; the
+        whole array on a logical mesh), and a moved input block."""
+        from ..array import tiling as tiling_mod
+        from ..ops import scan as scan_ops
+
+        if not mesh.is_group:
+            return float(self.size) * self.dtype.itemsize
+        t_in = tiling_mod.sanitize(self.x.out_tiling(), self.shape, mesh)
+        t = tiling_mod.sanitize(scan_ops.scan_axes(
+            self.x.out_tiling().axes, self.ndim), self.shape, mesh)
+        out = float(t.block_extent(self.shape, mesh).size) \
+            * self.dtype.itemsize
+        return out + (out if t != t_in else 0.0)
+
     def _sig(self, ctx):
         return ("blocked_scan", self.op, self.x.out_tiling().axes,
                 ctx.of(self.x))
@@ -1252,7 +1412,7 @@ def scan(x, axis: Optional[int] = 0, op: str = "add") -> Expr:
         raise ValueError(f"unknown scan op {op!r}")
     if axis is not None and _blocked_scannable(x, axis, op):
         return BlockedScanExpr(x, op)
-    return map_expr(scan_ops.LocalScan(op, axis), x)
+    return _call_map(scan_ops.LocalScan(op, axis), x, along=axis)
 
 
 def cumsum(x, axis: Optional[int] = 0) -> Expr:

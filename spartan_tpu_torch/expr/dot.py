@@ -22,7 +22,9 @@ the operands' own placements (:func:`local_plan`).
 ``DotShardMapExpr`` (``dot_shardmap``) is the explicit blocked GEMM
 under ``parallel/shard_map.py``: A split (x, y), B split (y, None), a
 partial ``torch.matmul`` at every position and an ``all_reduce`` over
-y; the result is row-tiled.
+y; the result is row-tiled. On a group mesh its body runs on the blocks
+the ranks store (``shard_map_local``): each operand moves to its
+tiling, each rank multiplies its blocks and all-reduces over y.
 """
 
 from __future__ import annotations
@@ -219,6 +221,32 @@ class DotShardMapExpr(Expr):
 
         return shard_map(kernel, mesh, (a_t, b_t),
                          tiling_mod.row(2))(av, bv)
+
+    def _lower_local(self, env) -> Any:
+        """The body on the stored blocks, as ``ShardMap2Expr`` runs its
+        kernel: the partial product, then ``all_reduce`` over y."""
+        from ..array.distarray import DistArray
+        from ..parallel import collectives as coll
+        from ..parallel.shard_map import shard_map_local
+
+        mesh = env.mesh
+        a_t = Tiling((mesh_mod.AXIS_ROW, mesh_mod.AXIS_COL))
+        b_t = Tiling((mesh_mod.AXIS_COL, None))
+        out_t = tiling_mod.row(2)
+        if not (a_t.divisible(self.a.shape, mesh)
+                and b_t.divisible(self.b.shape, mesh)
+                and out_t.divisible(self.shape, mesh)):
+            return NotImplemented  # the whole path raises as shard_map does
+        ab = redist_mod.relayout(self.a.lower_local(env), a_t).local
+        bb = redist_mod.relayout(self.b.lower_local(env), b_t).local
+        dt = self.dtype
+
+        def kernel(x, y):
+            return coll.all_reduce(dtypes.contract(torch.matmul, dt, x, y),
+                                   mesh_mod.AXIS_COL)
+
+        blk = shard_map_local(kernel, mesh, (a_t, b_t), out_t)(ab, bb)
+        return DistArray.from_local(blk, out_t, self.shape, mesh)
 
     def _sig(self, ctx) -> Tuple:
         return ("dot_smap", ctx.of(self.a), ctx.of(self.b))

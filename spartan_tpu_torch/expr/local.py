@@ -231,6 +231,12 @@ class LocalUfunc(LocalExpr):
     def remap(self, mapping):
         return LocalUfunc(self.name, [a.remap(mapping) for a in self.args])
 
+    def at(self, ul: Tuple[int, ...]) -> "LocalUfunc":
+        """This tree with its located calls bound to offset ``ul``."""
+        return LocalUfunc(self.name, [
+            a.at(ul) if isinstance(a, (LocalCall, LocalUfunc)) else a
+            for a in self.args])
+
     def __repr__(self):
         return f"{self.name}({', '.join(map(repr, self.args))})"
 
@@ -239,17 +245,37 @@ class LocalCall(LocalExpr):
     """A user-supplied function of torch tensors over the inputs (the
     reference's ``FnCallExpr``); its identity is part of the plan key.
     ``elementwise`` marks a function the package knows to act on each
-    element alone (a cast), which may then run on any block."""
+    element alone (a cast), which may then run on any block. The
+    package's own builtins say more for a group mesh's local rules:
+    ``along`` names the axis a shape-keeping function works along (a
+    sort, a scan), which a block must hold whole; ``located(v, ul)`` is
+    the function on a block at global offset ``ul`` (``tril``/
+    ``triu``); ``units`` is the most memory the function holds at once,
+    in units of its output (the card model's ``tree_units``). None of
+    them joins the plan key: the function and its captures already name
+    it."""
 
-    __slots__ = ("fn", "args", "fn_kw", "elementwise")
+    __slots__ = ("fn", "args", "fn_kw", "elementwise", "along", "located",
+                 "units")
 
     def __init__(self, fn: Callable, args: Sequence[LocalExpr],
                  fn_kw: Tuple[Tuple[str, Any], ...] = (),
-                 elementwise: bool = False):
+                 elementwise: bool = False, along: Any = None,
+                 located: Any = None, units: Any = None):
         self.fn = fn
         self.args = tuple(args)
         self.fn_kw = tuple(fn_kw)
         self.elementwise = elementwise
+        self.along = along
+        self.located = located
+        self.units = units
+
+    def _with(self, fn, args, **hints) -> "LocalCall":
+        """A copy over ``args`` (and ``fn``) keeping the hints."""
+        kw = {"elementwise": self.elementwise, "along": self.along,
+              "located": self.located, "units": self.units}
+        kw.update(hints)
+        return LocalCall(fn, args, self.fn_kw, **kw)
 
     def emit(self, inputs):
         return self.fn(*[a.emit(inputs) for a in self.args],
@@ -262,13 +288,22 @@ class LocalCall(LocalExpr):
                 + tuple(a.key() for a in self.args))
 
     def remap(self, mapping):
-        return LocalCall(self.fn, [a.remap(mapping) for a in self.args],
-                         self.fn_kw, self.elementwise)
+        return self._with(self.fn, [a.remap(mapping) for a in self.args])
+
+    def at(self, ul: Tuple[int, ...]) -> "LocalExpr":
+        """This tree with every located call bound to a block at global
+        offset ``ul`` (it then acts on the block alone)."""
+        args = [a.at(ul) if isinstance(a, (LocalCall, LocalUfunc)) else a
+                for a in self.args]
+        if self.located is None:
+            return self._with(self.fn, args)
+        loc = self.located
+        return self._with(lambda *vs, **kw: loc(*vs, ul, **kw), args,
+                          elementwise=True, located=None)
 
     def __repr__(self):
         name = getattr(self.fn, "__name__", "fn")
         return f"{name}({', '.join(map(repr, self.args))})"
-
 
 
 # ufuncs XLA's cost analysis counts as transcendentals (its exp, expm1,

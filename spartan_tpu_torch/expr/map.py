@@ -8,10 +8,15 @@ the data and returns the union of the masks beside it.
 On a group mesh a tree of ufuncs runs on the ranks' blocks: each
 operand comes to the output's tiling (a scalar as it is, a broadcast
 dim whole, any other layout through ``redistribute.relayout``) and the
-tree runs on the aligned blocks. A tree with a user function
-(``LocalCall``, but a cast) may not be elementwise (``diag``, a sort
-along an axis), so it reads its operands whole. ``map_with_location`` runs
-``fn`` on the rank's block with its global offset.
+tree runs on the aligned blocks. The package's own functions in a tree
+say how they act on a block (``LocalCall``): a cast or histogram's
+bucketing acts on each element; a sort or scan along an axis needs that
+axis whole in the block (the operands move to a tiling without it);
+``tril``/``triu`` read the block's offset. An arbitrary user function
+may not act on blocks at all (C36 in ROADMAP: GSPMD partitions the ops
+it traces, torch sees none), so it reads its operands whole.
+``map_with_location`` runs ``fn`` on the rank's block with its global
+offset.
 """
 
 from __future__ import annotations
@@ -36,6 +41,54 @@ def elementwise(op: LocalExpr) -> bool:
     if isinstance(op, LocalCall):
         return op.elementwise and all(elementwise(a) for a in op.args)
     return True
+
+
+def blockwise(op: LocalExpr) -> bool:
+    """True for a tree every call of which acts on blocks: elementwise,
+    along an axis or at a block's offset."""
+    if isinstance(op, LocalUfunc):
+        return all(blockwise(a) for a in op.args)
+    if isinstance(op, LocalCall):
+        return ((op.elementwise or op.along is not None
+                 or op.located is not None)
+                and all(blockwise(a) for a in op.args))
+    return True
+
+
+def along_axes(op: LocalExpr, ndim: int) -> set:
+    """The axes the tree's calls work along (each must be whole in a
+    block)."""
+    out = set()
+    if isinstance(op, LocalCall) and op.along is not None:
+        out.add(op.along % ndim)
+    for a in getattr(op, "args", ()):
+        out |= along_axes(a, ndim)
+    return out
+
+
+def emit_blocks(op: LocalExpr, inputs: Sequence[Expr],
+                shape: Tuple[int, ...], t: Tiling, env):
+    """The tree ``op`` over ``inputs`` run on this rank's block of an
+    output of ``shape`` tiled ``t``: (the block, its tiling), or
+    NotImplemented where a call cannot act on blocks. Calls along an
+    axis or at an offset need every operand of the output's shape (so
+    each call sees the block's shape) and the axes they work along
+    whole in the block."""
+    if not blockwise(op) or not broadcasts_to(inputs, shape):
+        return NotImplemented
+    if not elementwise(op):
+        if any(c.ndim and c.shape != shape for c in inputs):
+            return NotImplemented
+        for a in along_axes(op, len(shape)):
+            t = t.with_axis(a, None)
+        t = tiling_mod.sanitize(t, shape, env.mesh)
+        op = op.at(t.block_extent(shape, env.mesh).ul)
+    blk = op.emit(aligned_blocks([c.lower_local(env) for c in inputs],
+                                 shape, t))
+    want = t.block_extent(shape, env.mesh).shape
+    if tuple(blk.shape) != tuple(want):  # every operand a scalar
+        blk = torch.broadcast_to(blk, want).clone()
+    return blk, t
 
 
 def aligned_blocks(vals: Sequence[Any], shape: Tuple[int, ...],
@@ -91,18 +144,13 @@ class MapExpr(Expr):
         return self.op.emit([c.lower(env) for c in self.inputs])
 
     def _lower_local(self, env) -> Any:
-        if not elementwise(self.op) or not broadcasts_to(self.inputs,
-                                                         self.shape):
-            return NotImplemented
+        got = emit_blocks(self.op, self.inputs, self.shape,
+                          self.out_tiling(), env)
+        if got is NotImplemented:
+            return got
         from ..array.distarray import DistArray
 
-        t = self.out_tiling()
-        blocks = aligned_blocks([c.lower_local(env) for c in self.inputs],
-                                self.shape, t)
-        blk = self.op.emit(blocks)
-        want = t.block_extent(self.shape, env.mesh).shape
-        if tuple(blk.shape) != tuple(want):  # every operand a scalar
-            blk = torch.broadcast_to(blk, want).clone()
+        blk, t = got
         return DistArray.from_local(blk, t, self.shape, env.mesh)
 
     def _sig(self, ctx) -> Tuple:

@@ -1,6 +1,12 @@
 """Block outer product (port of ``spartan_tpu/expr/outer.py``): C[i, j]
 = a[i] * b[j], or ``fn(a[:, None], b[None, :])`` with a user function of
-torch tensors; the result is tiled over both mesh axes."""
+torch tensors; the result is tiled over both mesh axes.
+
+On a group mesh each rank forms its (row block x column block) of the
+result from the pieces of the two vectors it needs: each vector comes to
+the tiling of its output axis (an all-gather of at most m + n elements,
+never of m * n), and ``fn`` runs on the two pieces as it runs on the
+whole vectors, an outer broadcast."""
 
 from __future__ import annotations
 
@@ -37,6 +43,21 @@ class OuterExpr(Expr):
 
     def _lower(self, env: Dict[int, Any]) -> Any:
         return self._apply(self.a.lower(env), self.b.lower(env))
+
+    def _lower_local(self, env) -> Any:
+        """The rank's output block from its rows' piece of ``a`` and its
+        columns' piece of ``b``."""
+        from ..array.distarray import DistArray
+        from ..parallel import redistribute as redist_mod
+
+        mesh = env.mesh
+        t = tiling_mod.sanitize(self.out_tiling(), self.shape, mesh)
+        av = redist_mod.relayout(self.a.lower_local(env),
+                                 Tiling((t.axes[0],))).local
+        bv = redist_mod.relayout(self.b.lower_local(env),
+                                 Tiling((t.axes[1],))).local
+        return DistArray.from_local(self._apply(av, bv), t, self.shape,
+                                    mesh)
 
     def _sig(self, ctx) -> Tuple:
         return ("outer", None if self.fn is None else fn_key(self.fn),

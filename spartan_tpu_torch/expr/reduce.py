@@ -18,6 +18,12 @@ int64, so int32 wraps as in one pass), max/min/all/any through max/min,
 global index) pairs gathered and merged with the lowest index winning
 ties and NaN winning as in one pass. An empty block (a dim shorter than
 its tiles) contributes the op's identity.
+
+A ``GeneralReduceExpr`` with an ``accumulate_fn`` applies its
+``local_reduce_fn`` to the rank's block, gathers the partials over the
+mesh axes that tile a reduced dim and folds them with
+``accumulate_fn`` in position order, so every rank gets the same bits.
+Without one the combiner is unknown and it reads its operand whole.
 """
 
 from __future__ import annotations
@@ -181,22 +187,19 @@ class ReduceExpr(Expr):
                 "bytes accessed": io_bytes(self.inputs, self)}
 
     def _lower_local(self, env) -> Any:
-        from .map import aligned_blocks, broadcasts_to, elementwise
+        from .map import emit_blocks
 
-        if not elementwise(self.pre) or not broadcasts_to(self.inputs,
-                                                          self._pre_shape):
-            return NotImplemented
+        shape = self._pre_shape
+        got = emit_blocks(self.pre, self.inputs, shape, self._pre_tiling(),
+                          env)
+        if got is NotImplemented:
+            return got
         from ..array.distarray import DistArray
         from ..parallel import collectives as coll
 
         mesh = env.mesh
-        shape = self._pre_shape
-        tp = self._pre_tiling()
+        x, tp = got
         ext = tp.block_extent(shape, mesh)
-        x = self.pre.emit(aligned_blocks(
-            [c.lower_local(env) for c in self.inputs], shape, tp))
-        if tuple(x.shape) != tuple(ext.shape):  # a scalar-only tree
-            x = torch.broadcast_to(x, ext.shape)
         dims = tuple(range(len(shape))) if self.axis is None else self.axis
         over = [sub for d in dims for sub in tiling_mod.mesh_axes_of(
             tp.axes[d])]
@@ -227,8 +230,7 @@ class ReduceExpr(Expr):
                                if d not in dims])
         if self.req_dtype is not None:
             out = out.to(dtypes.to_torch(self.req_dtype))
-        t = self._default_tiling()
-        return DistArray.from_local(out, t, self.shape, mesh)
+        return DistArray.from_local(out, self._out_of(tp), self.shape, mesh)
 
     def _sig(self, ctx) -> Tuple:
         return (("reduce", self.op, self.axis, self.keepdims,
@@ -250,7 +252,11 @@ class ReduceExpr(Expr):
         return tiling_mod.default_tiling(self._pre_shape)
 
     def _default_tiling(self) -> Tiling:
-        t = self._pre_tiling()
+        return self._out_of(self._pre_tiling())
+
+    def _out_of(self, t: Tiling) -> Tiling:
+        """The output's tiling when the pre-reduce value is tiled
+        ``t``."""
         if self.axis is None:
             return tiling_mod.replicated(self.ndim)
         if self.keepdims and self.op not in _NO_KEEPDIMS:
@@ -384,6 +390,43 @@ class GeneralReduceExpr(Expr):
         want = dtypes.to_torch(self.dtype)
         return out if out.dtype == want else out.to(want)
 
+    def _lower_local(self, env) -> Any:
+        """The user's reduction of the rank's block, its partials folded
+        over the reduced mesh axes by ``accumulate_fn`` in position
+        order. Without a combiner, or where a reduced dim leaves some
+        position an empty block, the counted whole read."""
+        if self.accumulate_fn is None:
+            return NotImplemented
+        from ..array.distarray import DistArray
+        from ..parallel import collectives as coll
+
+        mesh = env.mesh
+        x = self.input.lower_local(env)
+        t = x.tiling
+        dims = tuple(range(self.input.ndim)) if self.axis is None \
+            else self.axis
+        over = [sub for d in dims for sub in tiling_mod.mesh_axes_of(
+            t.axes[d]) if mesh.shape[sub] > 1]
+        for d in dims:
+            if tiling_mod.tile_count(t.axes[d], mesh) > self.input.shape[d]:
+                return NotImplemented
+        part = self.local_reduce_fn(x.local, axis=self._ax())
+        want = dtypes.to_torch(self.dtype)
+        fold = _TORCH_FOLD.get(self.accumulate_fn, self.accumulate_fn)
+        for sub in over:
+            parts = coll.stack_over(part, sub, mesh)
+            part = parts[0]
+            for k in range(1, parts.shape[0]):
+                part = fold(part, parts[k])
+        if part.dtype != want:
+            part = part.to(want)
+        out_t = tiling_mod.replicated(self.ndim)
+        if self.axis is not None:
+            out_t = t
+            for a in reversed(self.axis):
+                out_t = out_t.drop_axis(a)
+        return DistArray.from_local(part, out_t, self.shape, mesh)
+
     def _sig(self, ctx) -> Tuple:
         return ("greduce", fn_key(self.local_reduce_fn),
                 fn_key(self.accumulate_fn) if self.accumulate_fn else None,
@@ -406,6 +449,14 @@ class GeneralReduceExpr(Expr):
         for a in reversed(self.axis):
             t = t.drop_axis(a)
         return t
+
+
+# numpy combiners a user passes as ``accumulate_fn``, as torch ops (a
+# numpy ufunc would take a CUDA tensor to the host)
+_TORCH_FOLD = {np.add: torch.add, np.multiply: torch.mul,
+               np.maximum: torch.maximum, np.minimum: torch.minimum,
+               np.logical_and: torch.logical_and,
+               np.logical_or: torch.logical_or}
 
 
 def reduce(input: Any, axis: Axis = None, *,

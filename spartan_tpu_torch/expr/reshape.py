@@ -5,6 +5,17 @@ Each is a node whose output tiling differs from its input's; on one
 device the data movement is one torch copy (the JAX package leaves it to
 GSPMD's collectives). Results are materialized, never views of an input.
 ``concatenate`` keeps the masks of masked operands (``array/masked.py``).
+
+On a group mesh each has a local rule. A transpose permutes the rank's
+block under the permuted tiling: no collective. A reshape (ravel
+included) and a concatenation move only the pieces that change owner
+(``parallel/redistribute.move_pieces``): every position's block is a
+region of the output, found from the shapes and tilings, and the runs
+each rank's output block lacks arrive in one ``all_to_all`` of uneven
+pieces. Where every block maps onto the rank's own output block (axes
+split or merged inside the block, the ravel of a row-tiled array whose
+rows divide the mesh, a concatenation along an untiled axis) nothing
+moves.
 """
 
 from __future__ import annotations
@@ -15,8 +26,10 @@ import numpy as np
 import torch
 
 from ..array import tiling as tiling_mod
+from ..array.extent import TileExtent
 from ..array.tiling import Tiling
 from .base import Expr, as_expr, eval_shape_of
+
 
 
 class TransposeExpr(Expr):
@@ -34,6 +47,15 @@ class TransposeExpr(Expr):
 
     def _lower(self, env: Dict[int, Any]) -> Any:
         return self.input.lower(env).permute(self.perm).contiguous()
+
+    def _lower_local(self, env) -> Any:
+        """The rank's block permuted, under the permuted tiling."""
+        from ..array.distarray import DistArray
+
+        x = self.input.lower_local(env)
+        blk = x.local.permute(self.perm).contiguous()
+        return DistArray.from_local(blk, x.tiling.transpose(self.perm),
+                                    self.shape, env.mesh)
 
     def _sig(self, ctx) -> Tuple:
         return ("transpose", self.perm, ctx.of(self.input))
@@ -69,6 +91,58 @@ class ReshapeExpr(Expr):
         out = v.reshape(self._shape)
         # reshape returns a view where it can: keep results independent
         return out.clone() if out.data_ptr() == v.data_ptr() else out
+
+    def _extent_of(self, t: Tiling, mesh):
+        """Each position's block of the input (tiled ``t``) as a region
+        of the output: a reshape keeps the row-major order, so a block's
+        runs in the input are its runs in the output."""
+        from ..array.extent import flat_runs
+        from ..parallel import redistribute as redist_mod
+
+        shape, out_shape = self.input.shape, self.shape
+
+        def ext_of(c):
+            e = t.block_extent(shape, mesh, c)
+            if e.size == 0:
+                return None
+            return redist_mod.RunSet(flat_runs(e, shape), out_shape)
+
+        return ext_of
+
+    def _pieces(self, x, mesh):
+        """The input's blocks as pieces of the output."""
+        from ..parallel import redistribute as redist_mod
+
+        return redist_mod.Piece(x.local, self._extent_of(x.tiling, mesh),
+                                redist_mod.free_axes(x.tiling, mesh))
+
+    def card_staging(self, mesh) -> float:
+        """The piece exchange's buffers (``resilience/memory.py``)."""
+        if not mesh.is_group:
+            return 0.0
+        from ..parallel import redistribute as redist_mod
+
+        t_in = tiling_mod.sanitize(self.input.out_tiling(), self.input.shape,
+                                   mesh)
+        return redist_mod.exchange_staging(
+            [self._extent_of(t_in, mesh)],
+            [redist_mod.free_axes(t_in, mesh)],
+            tiling_mod.sanitize(self.out_tiling(), self.shape, mesh),
+            self.shape, mesh, self.dtype.itemsize)
+
+    def _lower_local(self, env) -> Any:
+        """Each rank's output block from the pieces the input's blocks
+        hold of it (no collective where each block is the rank's own
+        output block)."""
+        from ..array.distarray import DistArray
+        from ..parallel import redistribute as redist_mod
+
+        mesh = env.mesh
+        x = self.input.lower_local(env)
+        t = tiling_mod.sanitize(self.out_tiling(), self.shape, mesh)
+        blk = redist_mod.move_pieces([self._pieces(x, mesh)], t,
+                                     self.shape, x.local.dtype, mesh)
+        return DistArray.from_local(blk, t, self.shape, mesh)
 
     def _sig(self, ctx) -> Tuple:
         return ("reshape", self._shape, ctx.of(self.input))
@@ -121,6 +195,55 @@ class ConcatExpr(Expr):
     def _lower(self, env: Dict[int, Any]) -> Any:
         return torch.cat([c.lower(env) for c in self.inputs], dim=self.axis)
 
+    def _lower_local(self, env) -> Any:
+        """Each input's blocks placed at its offset along the axis as
+        pieces of the output: along an untiled axis every rank holds its
+        output block already; along a tiled one the pieces move."""
+        from ..array.distarray import DistArray
+        from ..parallel import redistribute as redist_mod
+        from ..utils import dtypes
+
+        mesh = env.mesh
+        t = tiling_mod.sanitize(self.out_tiling(), self.shape, mesh)
+        want = dtypes.to_torch(self.dtype)
+        pieces = []
+        for c, off in zip(self.inputs, self._offsets()):
+            x = c.lower_local(env)
+            blk = x.local if x.local.dtype == want else x.local.to(want)
+            pieces.append(redist_mod.Piece(
+                blk, _shifted_extent(x.tiling, c.shape, self.axis, off,
+                                     self.shape, mesh),
+                redist_mod.free_axes(x.tiling, mesh)))
+        blk = redist_mod.move_pieces(pieces, t, self.shape, want, mesh)
+        return DistArray.from_local(blk, t, self.shape, mesh)
+
+    def _offsets(self):
+        off = 0
+        for c in self.inputs:
+            yield off
+            off += c.shape[self.axis]
+
+    def card_staging(self, mesh) -> float:
+        """The piece exchange's buffers and the inputs cast to the
+        output's dtype (``resilience/memory.py``)."""
+        if not mesh.is_group:
+            return 0.0
+        from ..parallel import redistribute as redist_mod
+
+        exts, frees, cast = [], [], 0.0
+        for c, off in zip(self.inputs, self._offsets()):
+            t_in = tiling_mod.sanitize(c.out_tiling(), c.shape, mesh)
+            exts.append(_shifted_extent(t_in, c.shape, self.axis, off,
+                                        self.shape, mesh))
+            frees.append(redist_mod.free_axes(t_in, mesh))
+            if c.dtype != self.dtype:
+                cast += float(t_in.block_extent(c.shape, mesh).size) \
+                    * self.dtype.itemsize
+        return cast + redist_mod.exchange_staging(
+            exts, frees,
+            tiling_mod.sanitize(self.out_tiling(), self.shape, mesh),
+            self.shape, mesh, self.dtype.itemsize)
+
     def _sig(self, ctx) -> Tuple:
         return (("concat", self.axis)
                 + tuple(ctx.of(c) for c in self.inputs))
@@ -128,6 +251,23 @@ class ConcatExpr(Expr):
     def _default_tiling(self) -> Tiling:
         # keep the first input's tiling on the other axes
         return self.inputs[0].out_tiling().with_axis(self.axis, None)
+
+
+def _shifted_extent(t: Tiling, shape, axis: int, off: int, out_shape,
+                    mesh):
+    """Each position's block of an input tiled ``t`` as a region of the
+    concatenation ``out_shape``, at offset ``off`` along ``axis``."""
+
+    def ext_of(c):
+        e = t.block_extent(shape, mesh, c)
+        if e.size == 0:
+            return None
+        ul, lr = list(e.ul), list(e.lr)
+        ul[axis] += off
+        lr[axis] += off
+        return TileExtent(ul, lr, out_shape)
+
+    return ext_of
 
 
 def concatenate(arrays: Sequence[Any], axis: int = 0):

@@ -127,8 +127,12 @@ def candidates(node: Expr, mesh) -> List[Tiling]:
     row / col / block plus their mesh-axis-swapped (transposed)
     variants, replicated, and — for rank >= 3 (batched contractions)
     — every single-axis placement on the TRAILING axes too, which the
-    leading-axes-only vocabulary above cannot express."""
+    leading-axes-only vocabulary above cannot express. A node with a
+    ``fixed_tiling`` offers its own layout only."""
     nd = node.ndim
+    if node.fixed_tiling:
+        return [tiling_mod.sanitize(node._default_tiling(), node.shape,
+                                    mesh)]
     cands = {tiling_mod.replicated(nd)}
     if nd >= 1:
         cands.add(tiling_mod.row(nd))
@@ -236,8 +240,9 @@ def _operand_requirement(node: Expr, t: Tiling, child: Expr,
         return t.transpose(tuple(int(i) for i in inv))
     if isinstance(node, SliceExpr):
         return None
-    # DotExpr is strategy-searched inline in assign_tilings.build
-    return None
+    # DotExpr is strategy-searched inline in assign_tilings.build; any
+    # other node says what it wants itself
+    return node.operand_requirement(t, child_idx)
 
 
 def _dot_strategies(t: Tiling, mesh) -> List[Optional[str]]:

@@ -239,14 +239,22 @@ def bincount_group(ids: torch.Tensor, length: int,
 
 
 def bincount_local(ids, length: int) -> torch.Tensor:
-    """Per-rank bincount of a 1-D group mesh ``DistArray`` of ids as the
-    ranks store them (moved to rows first): :func:`bincount_block` a
-    rank on its block, the count rows summed as f32 by an all-reduce
-    over the row axis, then int32. Returns the whole (length,) counts
-    on every rank."""
+    """Per-rank bincount of a group mesh ``DistArray`` of ids as the
+    ranks store them: :func:`bincount_block` a rank on its block. A 1-D
+    array moves to rows first and its count rows are summed as f32 by
+    an all-reduce over the row axis, then int32 (the JAX package's
+    psum); an N-d array counts its block raveled, wherever it lies, and
+    the counts are summed as integers over the mesh axes its tiling
+    uses. Returns the whole (length,) counts on every rank."""
     from ..parallel import collectives as coll
     from ..parallel import redistribute as redist_mod
 
+    if ids.ndim != 1:
+        length = _checked(ids.local, length)
+        part = bincount_block(ids.local.reshape(-1).to(torch.int32), length)
+        used = [sub for a in ids.tiling.axes
+                for sub in tiling_mod.mesh_axes_of(a)]
+        return coll.reduce_over(part, used, "add", ids.mesh).to(torch.int32)
     ids = redist_mod.relayout(ids, tiling_mod.row(1))
     length = _checked(ids.local, length)
     part = bincount_block(ids.local.to(torch.int32), length).to(

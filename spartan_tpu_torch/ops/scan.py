@@ -9,6 +9,12 @@ leading blocks of one tensor and the all_gather is a view, but the
 blocked decomposition stays: float sums round as they do in the JAX
 package's blocked program (up to the summation order inside a block).
 
+On a group mesh (:func:`blocked_scan_local`) the same program runs once
+per rank on the block it stores: the local scan, a real all-gather of
+the p block totals along the row axis, their inclusive scan, and the
+combine with this rank's exclusive offset, so the additions are the
+blocked program's, in its order.
+
 Supports add / mul / max / min, axis 0 of arrays of any rank. Result
 dtypes follow ``jnp.cumsum``/``cumprod`` with 64-bit types off: bool
 scans in int32, every other type keeps its dtype (an int8 sum wraps in
@@ -171,3 +177,30 @@ def blocked_scan(x: torch.Tensor, op: str = "add", mesh=None,
         return _LOCAL[op](x, 0)
     out = _kernel(x.reshape((p, n // p) + tuple(x.shape[1:])), p, op)
     return out.reshape(x.shape)
+
+
+def blocked_scan_local(arr, op: str, tiling):
+    """The blocked scan of a group mesh ``DistArray`` along axis 0, on
+    the blocks the ranks store (moved to ``tiling``, the scan axis on
+    the row axis or whole): each rank scans its block, the p blocks'
+    totals are gathered along the row axis and scanned, and each rank
+    combines its block with its exclusive offset. Returns the rank's
+    block of the result under ``tiling``."""
+    from ..array.distarray import DistArray
+    from ..parallel import collectives as coll
+    from ..parallel import redistribute as redist_mod
+
+    mesh = arr.mesh
+    x = redist_mod.relayout(arr, tiling)
+    local = _LOCAL[op](x.local, 0)
+    name = tiling.axes[0]
+    if name is None or int(mesh.shape[name]) <= 1:
+        return DistArray.from_local(local, tiling, arr.shape, mesh)
+    tot = local[-1]                                       # (...) total
+    incl = _LOCAL[op](coll.stack_over(tot, name, mesh), 0)
+    me = mesh.coords[name]
+    # the first block combines with the identity, as _kernel's does
+    off = (torch.full_like(incl[0], _identity_for(op, local.dtype))
+           if me == 0 else incl[me - 1])
+    out = _COMBINE[op](local, off)
+    return DistArray.from_local(out, tiling, arr.shape, mesh)

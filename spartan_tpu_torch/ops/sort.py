@@ -24,7 +24,9 @@ host sync). On a group mesh (local-shard storage, ``array/distarray.py``)
 :func:`sample_sort_local` runs the same program once per rank on the
 row block the rank stores, with a real ``all_gather`` of the samples
 and bucket sizes and a real ``all_to_all`` of the send buffers over the
-row axis, and rebalances to the row tiling's blocks;
+collective axis, and rebalances to the blocks of the sort axis (an N-d
+array's batch axes stay in each rank's block, every batch position a
+row of the program);
 :func:`distributed_topk_local` takes each rank's candidates from its
 block and gathers the p * k of them. Batched sorts (an N-d array along
 its last axis) stack the rows of every batch position. The send buffer is packed by the
@@ -360,29 +362,86 @@ def distributed_topk(x: torch.Tensor, k: int, largest: bool = True,
 def _pack_runs(xs_sorted: torch.Tensor, dst: torch.Tensor,
                starts: torch.Tensor, counts: torch.Tensor, p: int,
                pack: bool) -> torch.Tensor:
-    """One rank's (p, m) send buffer: run j of its sorted stream in row
-    j; the ``partition_pack`` kernel when selected (one launch), else
-    the expr path's scatter."""
+    """One rank's (R, p, m) send buffers, one a row: run j of a row's
+    sorted stream in its row j; the ``partition_pack`` kernel when
+    selected (one launch for all rows), else the expr path's
+    scatter."""
     from ..kernels import exchange as kexchange
 
     if pack:
-        return kexchange.partition_pack(
-            xs_sorted[None], starts[None].to(torch.int32),
-            counts[None].to(torch.int32))[0]
-    return _pack_scatter(xs_sorted[None, None], dst[None, None],
-                         starts[None, None], p)[0, 0]
+        return kexchange.partition_pack(xs_sorted, starts.to(torch.int32),
+                                        counts.to(torch.int32))
+    return _pack_scatter(xs_sorted[:, None], dst[:, None],
+                         starts[:, None], p)[:, 0]
 
 
-def sample_sort_local(arr, with_indices: bool = False):
-    """The sample sort (or argsort: int32 global indices) of a 1-D group
-    mesh ``DistArray`` over the row axis, on the row blocks the ranks
-    store: each rank sorts its block, the samples are gathered into
-    p - 1 splitters, each rank packs its runs into a (p, m) send buffer
-    (one ``partition_pack`` launch a rank where the registry selects
-    it, two for an argsort) and one ``all_to_all`` delivers them, each
-    rank merges its bucket, and a second ``all_to_all`` rebalances the
-    buckets to the blocks of the row tiling. Returns the result under
-    that tiling. Static shapes throughout: no host sync."""
+def sort_tiling(in_axes, axis: int, mesh) -> tiling_mod.Tiling:
+    """The tiling the sample sort of an array tiled ``in_axes`` along
+    ``axis`` runs and returns under: the sort axis on the collective
+    axis, the batch axes keeping their placements less that axis (a
+    vector on the row axis)."""
+    if len(in_axes) == 1:  # a vector sorts over the row axis
+        return tiling_mod.row(1)
+    axes = list(in_axes)
+    axes.append(axes.pop(axis))
+    moved = tiling_mod.Tiling(axes)
+    name = collective_axis(moved, mesh)
+    out = list(batch_axes(moved, name, len(axes)))
+    out.insert(axis, name)
+    return tiling_mod.Tiling(out)
+
+
+# Bytes a stable ``torch.sort`` of int64 keys holds per element beyond
+# its input and its two int64 outputs (the radix sort's scratch), as
+# chip_smoke.py's [local] phase measures it on an H100 at 8 rows of 2^23
+SORT_SCRATCH = 3.03
+
+
+def local_staging(r: int, m: int, p: int, ln: int, with_indices: bool,
+                  itemsize: int = 4) -> float:
+    """The most bytes :func:`sample_sort_local` holds at once on a rank
+    beyond its input block, for R rows of m slots (ln of them real) over
+    p ranks: the largest of its stages' live sets, counted from the
+    program (each intermediate dropped where the program drops it; a
+    key is 4 bytes a 4-byte value, ``sort_key``'s own temporaries three
+    keys; a two-key sort 24 bytes an element to build its int64 keys,
+    then those keys, its values and indices and ``SORT_SCRATCH``)."""
+    n1, n2 = float(r * m), float(r * p * m)
+    f = float(itemsize)
+    pad = f * n1 if ln < m else 0.0
+    idx = 4.0 * n1 if with_indices else 0.0
+
+    def lexsort(n: float, flag: float) -> float:
+        # the key, the flag, the int64 key built (24 B/elt at its
+        # peak), then the key, flag, int64 key, values, indices, scratch
+        return 4.0 * n + flag + max(24.0 * n, (24.0 + SORT_SCRATCH) * n)
+
+    a = pad + max(3.0 * 4.0 * n1, lexsort(n1, 0.0))
+    b = f * n1 + idx + max(3.0 * 4.0 * n1, 4.0 * n1 + 8.0 * n1,
+                           16.0 * n1)
+    c = f * n1 + idx + 8.0 * n1 + 2.0 * f * n2
+    if with_indices:
+        c = max(c, f * n1 + idx + 8.0 * n1 + (f + 1.0) * n2 + 8.0 * n2)
+    base = (f + 1.0) * n2 + (4.0 * n2 if with_indices else 0.0)
+    d = base + max(n2 + 3.0 * 4.0 * n2, lexsort(n2, n2))
+    e = max(base + 8.0 * n2 + f * n2, f * n2 + 8.0 * n2 + 2.0 * f * n2,
+            f * n2 + n2 + 16.0 * n2 + f * n1)
+    return max(a, b, c, d, e)
+
+
+def sample_sort_local(arr, with_indices: bool = False, axis: int = -1):
+    """The sample sort (or argsort: int32 positions along the axis) of a
+    group mesh ``DistArray`` along ``axis``, on the blocks the ranks
+    store: the array moves to :func:`sort_tiling` (the sort axis on the
+    collective axis, the batch axes staying in the block), every batch
+    position of the block is a row of one program: each rank sorts its
+    rows, the samples are gathered into p - 1 splitters a row, each rank
+    packs its runs into (R, p, m) send buffers (one ``partition_pack``
+    launch a rank for all its rows where the registry selects it, two
+    for an argsort) and one ``all_to_all`` delivers them, each rank
+    merges its buckets, and a second ``all_to_all`` rebalances them to
+    the blocks of the sort axis. Returns the result under that tiling.
+    Static shapes throughout: no host sync."""
     from ..array import extent as extent_mod
     from ..array.distarray import DistArray
     from ..kernels import registry as kernels_mod
@@ -390,77 +449,101 @@ def sample_sort_local(arr, with_indices: bool = False):
     from ..parallel import redistribute as redist_mod
 
     mesh = arr.mesh
-    name = tiling_mod.AXIS_ROW
+    ndim = arr.ndim
+    axis = axis % ndim
+    shape = tuple(arr.shape)
+    t = sort_tiling(arr.tiling.axes, axis, mesh)
+    name = t.axes[axis]
     p = int(mesh.shape[name])
-    n = int(arr.shape[0])
-    t = tiling_mod.Tiling((name,))
+    n = int(shape[axis])
     arr = redist_mod.relayout(arr, t)
     orig = arr.local.dtype
-    x = dtypes.widen(arr.local)
-    ext = t.block_extent((n,), mesh)
-    lo, ln = ext.ul[0], ext.shape[0]
+    v = torch.movedim(dtypes.widen(arr.local), axis, -1)
+    bshape = tuple(v.shape[:-1])
+    ext = t.block_extent(shape, mesh)
+    lo, ln = ext.ul[axis], ext.shape[axis]
+    r = int(np.prod(bshape, dtype=np.int64))
+    x = v.reshape(r, ln)
     dev = x.device
+
+    def result(out):
+        out = out.reshape(bshape + (ln,))
+        out = torch.movedim(out, -1, axis).contiguous()
+        return DistArray.from_local(out if with_indices else out.to(orig),
+                                    t, shape, mesh)
+
     if p <= 1 or n == 0:
         order = stable_argsort(x)
-        out = order.to(torch.int32) if with_indices \
-            else x.gather(-1, order).to(orig)
-        return DistArray.from_local(out, t, (n,), mesh)
+        return result(order.to(torch.int32) if with_indices
+                      else x.gather(-1, order))
     m = -(-n // p)
     sel = kernels_mod.select("sort_exchange", (n,), dtypes.to_numpy(x.dtype),
                              t, mesh, p=p, m=m)
     tpos = torch.arange(m, dtype=torch.int64, device=dev)
     if ln < m:
-        x = torch.cat([x, x.new_zeros(m - ln)])
-    inv = tpos >= ln
+        x = torch.cat([x, x.new_zeros(r, m - ln)], -1)
+    inv = (tpos >= ln).expand(r, m)
     # 1. local two-key sort: padding behind every value, stable
     order = _lexsort(inv, sort_key(x))
-    xs_sorted = x.gather(0, order)
+    xs_sorted = x.gather(-1, order)
     src_idx = (lo + order).to(torch.int32) if with_indices else None
+    # each intermediate is dropped once the program is past it (the
+    # card model, local_staging, counts what stays live)
+    del order, x, v
     # 2. splitters from s evenly spaced samples of each valid prefix
     s = min(_SAMPLES, m)
     samp = ((torch.arange(s, device=dev) * ln) // s).clamp(0, m - 1)
-    alls = coll.stack_over(xs_sorted[samp], name, mesh).reshape(p * s)
-    alls = alls.gather(0, stable_argsort(alls))
-    splitters = alls[torch.arange(1, p, device=dev) * s]
+    alls = coll.stack_over(xs_sorted[:, samp], name, mesh).transpose(
+        0, 1).reshape(r, p * s)
+    alls = alls.gather(-1, stable_argsort(alls))
+    splitters = alls[:, torch.arange(1, p, device=dev) * s]
     # 3. bucket exchange: runs are contiguous in the sorted stream
     dst = torch.searchsorted(sort_key(splitters).contiguous(),
                              sort_key(xs_sorted), right=True)
     dst = torch.where(inv, p, dst)
-    bounds = torch.searchsorted(dst, torch.arange(p + 1, device=dev))
-    starts, counts = bounds[:p], bounds[1:] - bounds[:p]
+    bounds = torch.searchsorted(dst, torch.arange(p + 1, device=dev).expand(
+        r, p + 1).contiguous())
+    starts, counts = bounds[:, :p], bounds[:, 1:] - bounds[:, :p]
     vals = coll.exchange(_pack_runs(xs_sorted, dst, starts, counts, p,
-                                    sel.native), name, 0, 0, mesh)
-    rvalid = coll.exchange(tpos[None, :] < counts[:, None], name, 0, 0,
-                           mesh).reshape(p * m)
+                                    sel.native), name, 1, 1, mesh)
+    rvalid = coll.exchange(tpos < counts[..., None], name, 1, 1,
+                           mesh).reshape(r, p * m)
     if with_indices:
         ridx = coll.exchange(_pack_runs(src_idx, dst, starts, counts, p,
-                                        sel.native), name, 0, 0, mesh)
+                                        sel.native), name, 1, 1, mesh)
+    del dst, xs_sorted, src_idx
     # 4. local merge: (invalid, value), stable
-    order2 = _lexsort(~rvalid, sort_key(vals.reshape(p * m)))
-    bucket = (ridx if with_indices else vals).reshape(p * m).gather(
-        0, order2)
-    # 5. rebalance to the row tiling's blocks
-    ks = coll.stack_over(rvalid.sum().reshape(1), name, mesh).reshape(p)
-    off = torch.cumsum(ks, 0) - ks
+    order2 = _lexsort(~rvalid, sort_key(vals.reshape(r, p * m)))
+    bucket = (ridx if with_indices else vals).reshape(r, p * m).gather(
+        -1, order2)
+    del order2, vals
+    if with_indices:
+        del ridx
+    # 5. rebalance to the blocks of the sort axis
+    ks = coll.stack_over(rvalid.sum(-1), name, mesh).transpose(0, 1)
+    del rvalid
+    off = torch.cumsum(ks, -1) - ks                       # (R, p)
     me = mesh.coords[name]
     bnd = torch.tensor(extent_mod.compute_splits(n, p), dtype=torch.int64,
                        device=dev)
     if bnd.shape[0] < p:  # fewer elements than ranks: empty tail blocks
         bnd = torch.cat([bnd, bnd.new_full((p - bnd.shape[0], 2), n)])
-    lo_j = torch.maximum(off[me], bnd[:, 0])
-    hi_j = torch.minimum(off[me] + ks[me], bnd[:, 1])
+    mine = off[:, me:me + 1]
+    lo_j = torch.maximum(mine, bnd[:, 0])
+    hi_j = torch.minimum(mine + ks[:, me:me + 1], bnd[:, 1])
     cnt = (hi_j - lo_j).clamp(min=0)
     st = (lo_j - bnd[:, 0]).clamp(0, m)
-    gidx = ((lo_j - off[me])[:, None] + tpos[None, :]).clamp(0, p * m - 1)
-    recv = coll.exchange(bucket[gidx], name, 0, 0, mesh)
-    rcnt = coll.exchange(cnt[:, None], name, 0, 0, mesh)
-    rst = coll.exchange(st[:, None], name, 0, 0, mesh)
-    positions = torch.where(tpos[None, :] < rcnt, rst + tpos[None, :], ln)
-    out = torch.zeros(ln + 1, dtype=recv.dtype, device=dev)
-    out.scatter_(0, positions.reshape(-1), recv.reshape(-1))
-    out = out[:ln]
-    return DistArray.from_local(out if with_indices else out.to(orig), t,
-                                (n,), mesh)
+    gidx = ((lo_j - mine)[..., None] + tpos).clamp(0, p * m - 1)
+    recv = coll.exchange(bucket.gather(-1, gidx.reshape(r, p * m)).reshape(
+        r, p, m), name, 1, 1, mesh)
+    del bucket, gidx
+    rcnt = coll.exchange(cnt[..., None], name, 1, 1, mesh)
+    rst = coll.exchange(st[..., None], name, 1, 1, mesh)
+    positions = torch.where(tpos < rcnt, rst + tpos, ln)
+    out = torch.zeros(r, ln + 1, dtype=recv.dtype, device=dev)
+    out.scatter_(-1, positions.reshape(r, p * m), recv.reshape(r, p * m))
+    del positions, recv
+    return result(out[:, :ln])
 
 
 def distributed_topk_local(arr, k: int, largest: bool = True

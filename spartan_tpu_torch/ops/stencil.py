@@ -10,7 +10,10 @@ convolves with ``torch.nn.functional.conv2d`` under XLA's padding rule,
 as the JAX package's ``lax.conv_general_dilated`` does (cuDNN's TF32 is
 off, ``spartan_tpu_torch/__init__.py``). :func:`maxpool` and
 :func:`avgpool` are ``lax.reduce_window`` max and add (the add divided
-by the whole window, edges included) over the spatial axes.
+by the whole window, edges included) over the spatial axes, a
+:class:`PoolExpr` each (the JAX package's are ``map2`` calls): on a
+group mesh each rank pools its H block, with halo rows from its
+neighbours where a window crosses a block edge.
 """
 
 from __future__ import annotations
@@ -21,9 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
 from ..expr.base import Expr, as_expr
-from ..expr.map2 import map2
 from ..utils import dtypes
 
 Stride = Union[int, Tuple[int, int]]
@@ -174,12 +177,42 @@ class StencilExpr(Expr):
         tx = self.x.out_tiling()
         return Tiling((tx.axes[0], tx.axes[1], None, None))
 
+    def operand_requirement(self, t: Tiling, child_idx: int):
+        # the images' batch and H placements (each rank works on its H
+        # block on a group mesh); W and C whole, a filter read whole
+        if child_idx:
+            return tiling_mod.replicated(self.children()[child_idx].ndim)
+        return Tiling((t.axes[0], t.axes[1], None, None))
+
 
 def stencil(images, filters, stride: Stride = 1,
             padding: str = "SAME") -> Expr:
     """images (N, H, W, C), filters (KH, KW, C, O) -> (N, H', W', O)."""
     return StencilExpr(as_expr(images), as_expr(filters),
                        _pair(stride), padding)
+
+
+def _pool_fill(kind: str, dtype: torch.dtype):
+    """The value a pooling window's padding holds: -inf for a float max
+    (an integer's least value, 0 for bool), 0 for a sum."""
+    if kind != "max" or dtype.is_floating_point:
+        return float("-inf") if kind == "max" else 0.0
+    return torch.iinfo(dtype).min if dtype != torch.bool else 0
+
+
+def _pool_nchw(xc: torch.Tensor, kind: str, window, stride) -> torch.Tensor:
+    """The VALID pooling of the padded NCHW ``xc``, back as NHWC."""
+    if kind == "max":
+        if xc.dtype.is_floating_point:
+            out = F.max_pool2d(xc, window, stride)
+        else:
+            # max_pool2d has no integer kernel: pool in float64 (every
+            # int32 and smaller value is exact there) and cast back
+            out = dtypes.call(lambda t: F.max_pool2d(
+                t.to(torch.float64), window, stride).to(t.dtype), xc)
+        return out.permute(0, 2, 3, 1)
+    summed = F.avg_pool2d(xc, window, stride, divisor_override=1)
+    return summed.permute(0, 2, 3, 1) / float(window[0] * window[1])
 
 
 def _pool_input(x: torch.Tensor, w, s, padding: str,
@@ -192,16 +225,8 @@ def _pool_input(x: torch.Tensor, w, s, padding: str,
 def _maxpool(x, window, stride, padding):
     """Floats pad with -inf; integers with their dtype's least value and
     keep their dtype (``reduce_window`` with -inf as the init value)."""
-    if x.dtype.is_floating_point:
-        xc = _pool_input(x, window, stride, padding, float("-inf"))
-        return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
-    # max_pool2d has no integer kernel: pool in float64 (every int32 and
-    # smaller value is exact there) and cast back
-    fill = torch.iinfo(x.dtype).min if x.dtype != torch.bool else 0
-    xc = _pool_input(x, window, stride, padding, fill)
-    return dtypes.call(lambda t: F.max_pool2d(t.to(torch.float64), window,
-                                              stride).to(t.dtype),
-                       xc).permute(0, 2, 3, 1)
+    xc = _pool_input(x, window, stride, padding, _pool_fill("max", x.dtype))
+    return _pool_nchw(xc, "max", window, stride)
 
 
 def _avgpool(x, window, stride, padding):
@@ -210,8 +235,206 @@ def _avgpool(x, window, stride, padding):
     if not x.dtype.is_floating_point:
         x = x.to(torch.float32)
     xc = _pool_input(x, window, stride, padding, 0.0)
-    summed = F.avg_pool2d(xc, window, stride, divisor_override=1)
-    return summed.permute(0, 2, 3, 1) / float(window[0] * window[1])
+    return _pool_nchw(xc, "avg", window, stride)
+
+
+_POOL = {"max": _maxpool, "avg": _avgpool}
+
+
+class PoolExpr(Expr):
+    """Max or average pooling of NHWC images over the spatial axes
+    (``lax.reduce_window``), a node so that a group mesh can pool each
+    rank's H block in place: where a window crosses a block edge the
+    rank takes the rows it lacks from its neighbours (one
+    ``ring_permute`` each way, as the halo stencil does), and a 2x2
+    stride-2 pool of even blocks needs none."""
+
+    def __init__(self, x: Expr, kind: str, window: Tuple[int, int],
+                 stride: Tuple[int, int], padding: str):
+        if x.ndim != 4:
+            raise ValueError(f"{kind}pool takes images (N, H, W, C); got "
+                             f"{x.shape}")
+        self.x = x
+        self.kind = kind
+        self.window = tuple(int(v) for v in window)
+        self.stride = tuple(int(v) for v in stride)
+        self.padding = str(padding)
+        pad = _xla_pads(x.shape[1:3], self.window, self.stride,
+                        self.padding)
+        hw = []
+        for n, k, st, lo, hi in zip(x.shape[1:3], self.window, self.stride,
+                                    pad[2::-2], pad[3::-2]):
+            if n + lo + hi < k:
+                raise ValueError(f"window {self.window} larger than the "
+                                 f"padded image {x.shape[1:3]}")
+            hw.append((n + lo + hi - k) // st + 1)
+        dt = x.dtype
+        if kind == "avg" and not np.issubdtype(dt, np.floating):
+            dt = np.dtype(np.float32)
+        super().__init__((x.shape[0], hw[0], hw[1], x.shape[3]), dt)
+
+    def children(self) -> Tuple[Expr, ...]:
+        return (self.x,)
+
+    def replace_children(self, new_children) -> "PoolExpr":
+        return PoolExpr(new_children[0], self.kind, self.window,
+                        self.stride, self.padding)
+
+    def _lower(self, env: Dict[int, Any]) -> Any:
+        return _POOL[self.kind](self.x.lower(env), self.window, self.stride,
+                                self.padding)
+
+    def _sig(self, ctx) -> Tuple:
+        return ("pool", self.kind, self.window, self.stride, self.padding,
+                ctx.of(self.x))
+
+    def _default_tiling(self) -> Tiling:
+        # batch and H tilings carry through (the halo path keeps them);
+        # the W window and the channels stay whole
+        tx = self.x.out_tiling()
+        return Tiling((tx.axes[0], tx.axes[1], None, None))
+
+    def operand_requirement(self, t: Tiling, child_idx: int):
+        # the images' batch and H placements (each rank works on its H
+        # block on a group mesh); W and C whole, a filter read whole
+        if child_idx:
+            return tiling_mod.replicated(self.children()[child_idx].ndim)
+        return Tiling((t.axes[0], t.axes[1], None, None))
+
+    def _halo(self, mesh, tiling: Tiling):
+        """(rows from the previous block, rows from the next) the ranks
+        along H's mesh axis take, the most any rank needs, or None where
+        a window reaches past a neighbour's block (decided from shapes:
+        every rank takes the same collectives)."""
+        ax = tiling.axes[1]
+        p = int(mesh.shape[ax]) if ax is not None else 1
+        h, ho = self.x.shape[1], self.shape[1]
+        if p == 1:
+            return 0, 0
+        if h % p or ho % p:
+            return None
+        hb, hob = h // p, ho // p
+        plo = _xla_pads(self.x.shape[1:3], self.window, self.stride,
+                        self.padding)[2]
+        lo_n = hi_n = 0
+        for i in range(p):
+            r0 = max(0, i * hob * self.stride[0] - plo)
+            r1 = min(h, ((i + 1) * hob - 1) * self.stride[0]
+                     + self.window[0] - plo)
+            lo_n = max(lo_n, i * hb - r0)
+            hi_n = max(hi_n, r1 - (i + 1) * hb)
+        if lo_n > hb or hi_n > hb:
+            return None
+        return lo_n, hi_n
+
+    def card_staging(self, mesh) -> float:
+        """What the pooling holds beyond its input and output at its
+        peak (``resilience/memory.py``): the padded NCHW copy it pools
+        (with a float32 copy of integer input to an average, a float64
+        pass of integer input to a max, the sum beside the average),
+        and on a group mesh the rows a rank's windows read, joined with
+        its neighbours' halo rows."""
+        n, h, w, c = self.x.shape
+        out_elems = float(np.prod(self.shape))
+        pads = _xla_pads(self.x.shape[1:3], self.window, self.stride,
+                         self.padding)
+        rows, halo = h + pads[2] + pads[3], 0.0
+        if mesh.is_group:
+            t_in, t_out = self._local_tilings(tiling_mod.sanitize(
+                self.x.out_tiling(), self.x.shape, mesh), mesh)
+            lohi = self._halo(mesh, t_in)
+            if lohi is None or t_out.axes != t_in.axes:
+                return 0.0
+            n = t_in.block_extent(self.x.shape, mesh).shape[0]
+            out_elems = float(t_out.block_extent(self.shape, mesh).size)
+            ax = t_in.axes[1]
+            p = int(mesh.shape[ax]) if ax is not None else 1
+            # the padded rows a rank's windows read
+            rows = (self.shape[1] // p - 1) * self.stride[0] \
+                + self.window[0]
+            if any(lohi):
+                # the halo rows sent and received, the joined block
+                halo = float(n * w * c) * (2 * sum(lohi) + h // p
+                                           + sum(lohi))
+        padded = float(n) * c * rows * (w + pads[0] + pads[1])
+        fin = np.issubdtype(self.x.dtype, np.floating)
+        isz = float(self.x.dtype.itemsize)
+        osz = float(self.dtype.itemsize)
+        out = out_elems * osz
+        if self.kind == "avg":
+            conv = 0.0 if fin else float(n) * h * w * c * 4.0
+            # the sum and the quotient beside the padded copy
+            return max(conv + (halo + padded) * 4.0,
+                       padded * 4.0 + 2.0 * out) - out
+        # the card's max_pool2d writes int64 indices beside its output;
+        # an integer max pools a float64 copy
+        extra = 8.0 * out_elems + (0.0 if fin else 8.0 * (padded
+                                                          + out_elems))
+        return max((halo + padded) * isz, padded * isz + extra + out) - out
+
+    def _local_tilings(self, xt: Tiling, mesh):
+        """(the input's, the output's) tilings of the local rule: batch
+        and H placed as the input's, W and C whole."""
+        t_in = tiling_mod.sanitize(Tiling((xt.axes[0], xt.axes[1], None,
+                                           None)), self.x.shape, mesh)
+        t_out = tiling_mod.sanitize(Tiling(t_in.axes), self.shape, mesh)
+        return t_in, t_out
+
+    def _lower_local(self, env) -> Any:
+        """Each rank pools its block of H rows (W and C whole), with
+        the halo rows a window crossing its block edge needs from its
+        neighbours."""
+        from ..array.distarray import DistArray
+        from ..parallel import collectives as coll
+        from ..parallel import redistribute as redist_mod
+        from ..parallel.shard_map import shard_map_local
+
+        mesh = env.mesh
+        x = self.x.lower_local(env)
+        t_in, t_out = self._local_tilings(x.tiling, mesh)
+        halo = self._halo(mesh, t_in)
+        if t_out.axes != t_in.axes or halo is None:
+            return NotImplemented
+        lo_n, hi_n = halo
+        ax = t_in.axes[1]
+        h, ho = self.x.shape[1], self.shape[1]
+        kh, sh = self.window[0], self.stride[0]
+        pads = _xla_pads(self.x.shape[1:3], self.window, self.stride,
+                         self.padding)
+        kind, window, stride = self.kind, self.window, self.stride
+
+        def body(xl):
+            if kind == "avg" and not xl.dtype.is_floating_point:
+                xl = xl.to(torch.float32)
+            fill = _pool_fill(kind, xl.dtype)
+            p = coll.axis_size(ax) if ax is not None else 1
+            me = coll.axis_index(ax) if ax is not None else 0
+            hb, hob = h // p, ho // p
+            parts = []
+            if lo_n:
+                parts.append(coll.ring_permute(
+                    xl[:, hb - lo_n:].contiguous(), ax, 1))
+            parts.append(xl)
+            if hi_n:
+                parts.append(coll.ring_permute(
+                    xl[:, :hi_n].contiguous(), ax, -1))
+            ext = torch.cat(parts, 1) if len(parts) > 1 else xl
+            # rows of the padded image this rank's windows read
+            w0 = me * hob * sh
+            w1 = ((me + 1) * hob - 1) * sh + kh
+            r0, r1 = max(0, w0 - pads[2]), min(h, w1 - pads[2])
+            base = me * hb - lo_n
+            rows = ext[:, r0 - base:r1 - base]
+            top = max(0, pads[2] - w0)
+            bot = max(0, w1 - pads[2] - h)
+            xc = F.pad(rows.permute(0, 3, 1, 2),
+                       (pads[0], pads[1], top, bot), value=fill)
+            del parts, ext, rows, xl  # the joined rows, before pooling
+            return _pool_nchw(xc, kind, window, stride)
+
+        x = redist_mod.relayout(x, t_in)
+        blk = shard_map_local(body, mesh, (t_in,), t_out)(x.local)
+        return DistArray.from_local(blk, t_out, self.shape, mesh)
 
 
 def maxpool(images, window: Stride = 2, stride: Stride = None,
@@ -220,8 +443,7 @@ def maxpool(images, window: Stride = 2, stride: Stride = None,
     propagates, as ``lax.max`` does)."""
     w = _pair(window)
     s = _pair(stride) if stride is not None else w
-    return map2([as_expr(images)], _maxpool,
-                fn_kw={"window": w, "stride": s, "padding": padding})
+    return PoolExpr(as_expr(images), "max", w, s, padding)
 
 
 def avgpool(images, window: Stride = 2, stride: Stride = None,
@@ -230,5 +452,4 @@ def avgpool(images, window: Stride = 2, stride: Stride = None,
     window's sum divided by the window's full size, at the edges too."""
     w = _pair(window)
     s = _pair(stride) if stride is not None else w
-    return map2([as_expr(images)], _avgpool,
-                fn_kw={"window": w, "stride": s, "padding": padding})
+    return PoolExpr(as_expr(images), "avg", w, s, padding)

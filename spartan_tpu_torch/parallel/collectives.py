@@ -304,6 +304,22 @@ class GroupRunner:
         return self._differentiable(x, lambda t: self._permute(t, axis, shift),
                                lambda g: self._permute(g, axis, -shift))
 
+    def all_to_all_v(self, x, in_splits, out_splits):
+        """``all_to_all_single`` of the flat ``x`` over the whole group
+        with uneven splits: ``in_splits[r]`` elements go to rank r,
+        ``out_splits[r]`` come from it, in rank order."""
+        dist = self.dist
+        pg = self.mesh.group
+
+        def call(t):
+            out = torch.empty(sum(out_splits), dtype=t.dtype,
+                              device=t.device)
+            dist.all_to_all_single(out, t, list(out_splits),
+                                   list(in_splits), group=pg)
+            return out
+
+        return self._transport("all_to_all", x, call)
+
 
 # -- local blocks on a group mesh (outside shard_map) ---------------------
 #
@@ -471,6 +487,21 @@ def exchange(t: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
     record_received("all_to_all", _nbytes(w) * (n - 1) // n)
     return _from_wire(group_runner(mesh)._all_to_all(w, axis, split_dim,
                                                      concat_dim), dtype)
+
+
+def exchange_v(send: torch.Tensor, in_splits, out_splits,
+               mesh: mesh_mod.Mesh) -> torch.Tensor:
+    """One ``all_to_all`` of uneven pieces over the whole group: the
+    flat ``send`` holds ``in_splits[r]`` elements for each rank r in
+    rank order, and the result the ``out_splits[r]`` elements each rank
+    r sent here. Counted as an ``all_to_all`` of ``send``'s bytes."""
+    w, dtype = _to_wire(send.reshape(-1))
+    n = len(in_splits)
+    record_collective("all_to_all", _nbytes(w), n)
+    record_received("all_to_all", (sum(out_splits) - out_splits[mesh.rank])
+                    * w.element_size())
+    return _from_wire(group_runner(mesh).all_to_all_v(w, in_splits,
+                                                      out_splits), dtype)
 
 
 # -- in-kernel collectives (call inside shard_map) ------------------------

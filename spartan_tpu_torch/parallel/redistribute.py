@@ -36,8 +36,11 @@ so a layout change is a real move: :func:`relayout` runs the cheapest
 schedule with :func:`apply_schedule_group`, whose ``all_gather`` and
 ``all_to_all`` steps are ``torch.distributed`` collectives over the
 step's mesh-axis sub-group and whose ``slice`` is local; where no
-schedule applies (a tuple-sharded axis, an uneven intermediate) it
-gathers the source's tiled dims and slices the destination's block.
+schedule applies (a tuple-sharded axis, an uneven intermediate) the
+piece exchange (:func:`move_pieces`) sends each rank only the runs of
+its destination block it does not hold, in one ``all_to_all``. The
+same exchange carries the local rules whose output blocks are no
+schedule's (reshape, concatenate, slice, diagonal).
 :func:`constrain` takes and returns such a local block (a
 ``DistArray``) whatever the planner flag says: the consumer reads the
 blocks of the layout it asked for. Every step copies values and never
@@ -734,14 +737,317 @@ def apply_schedule_group(block: torch.Tensor, schedule: Schedule,
     return block
 
 
+# -- the piece exchange (a group mesh) ------------------------------------
+#
+# A node whose output blocks are not the blocks of one schedule (a
+# reshape, a concatenation, a slice, a diagonal, an uneven relayout)
+# moves only the pieces that change owner. Every position's part of
+# each operand is a region of the OUTPUT array, known from shapes and
+# tilings alone; the rows of those regions and of the output blocks in
+# row-major order (``array/extent.flat_runs``) meet in runs, each sent
+# by one holder to one receiver in ONE all_to_all of uneven pieces.
+# Every rank computes the same table, so every rank makes the same
+# collective, or none when no piece changes owner.
+
+
+class Piece(NamedTuple):
+    """One operand of :func:`move_pieces`: ``block`` is this rank's part
+    (contiguous; its shape the region's), ``extent_of(coords)`` the
+    region of the output the part of the position ``coords`` covers
+    (None where it holds none), and ``free`` the mesh axes along which
+    positions hold the same part (one of them, the receiver's own line,
+    sends it)."""
+
+    block: Any
+    extent_of: Any
+    free: Tuple[str, ...]
+
+
+class RunSet:
+    """A piece's region given by its row-major runs in the output (a
+    reshaped block, which is no box of the output). Hashable: the route
+    table is memoized on the pieces' regions."""
+
+    __slots__ = ("runs", "_key")
+
+    def __init__(self, runs, shape):
+        self.runs = runs
+        self._key = (runs[0].tobytes(), runs[1].tobytes(), tuple(shape))
+
+    def __hash__(self) -> int:
+        return hash(self._key)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, RunSet) and other._key == self._key
+
+
+def _runs_of(region, shape):
+    from ..array import extent as extent_mod
+
+    if isinstance(region, RunSet):
+        return region.runs
+    return extent_mod.flat_runs(region, shape)
+
+
+class _Route(NamedTuple):
+    """This rank's share of a piece exchange: runs as (piece, offsets
+    in the piece's flat block, offsets in the output's flat block,
+    lengths)."""
+
+    send: Tuple  # per rank: ((piece, src offsets, lengths), ...)
+    recv: Tuple  # per rank: ((dst offsets, lengths), ...)
+    self_runs: Tuple  # ((piece, src offsets, dst offsets, lengths), ...)
+    in_splits: Tuple[int, ...]
+    out_splits: Tuple[int, ...]
+    moves: bool  # any piece changes owner anywhere in the group
+
+
+_route_memo: Dict[Tuple, _Route] = {}
+
+
+def _merge_runs(src: np.ndarray, dst: np.ndarray, ln: np.ndarray):
+    """Join runs contiguous on both sides."""
+    if ln.shape[0] <= 1:
+        return src, dst, ln
+    brk = np.ones(ln.shape[0], bool)
+    brk[1:] = ((src[:-1] + ln[:-1] != src[1:])
+               | (dst[:-1] + ln[:-1] != dst[1:]))
+    idx = np.flatnonzero(brk)
+    sums = np.add.reduceat(ln, idx)
+    return src[idx], dst[idx], sums
+
+
+def _local_starts(runs) -> np.ndarray:
+    return np.cumsum(runs[1]) - runs[1]
+
+
+def _route(exts: Tuple, frees: Tuple, dst: Tiling, shape, mesh) -> _Route:
+    """The run table of one exchange at this rank (memoized on its
+    extents: a plan's walks repeat it)."""
+    from ..array import extent as extent_mod
+
+    me = mesh.rank
+    key = (exts, frees, dst.axes, tuple(shape), tuple(sorted(
+        mesh.shape.items())), me)
+    hit = _route_memo.get(key)
+    if hit is not None:
+        return hit
+    coords = _coords(mesh)
+    n = len(coords)
+    out_runs = [extent_mod.flat_runs(dst.block_extent(shape, mesh, c),
+                                     shape) for c in coords]
+    src_runs = [[None if e is None else _runs_of(e, shape) for e in pe]
+                for pe in exts]
+
+    def pair(s: int, d: int):
+        """The runs s sends d: (piece, src offsets, dst offsets, lens)."""
+        out = []
+        for j, (pe, free) in enumerate(zip(src_runs, frees)):
+            runs = pe[s]
+            if runs is None or any(coords[s][a] != coords[d][a]
+                                   for a in free):
+                continue
+            st, ln, ai, bj = extent_mod.intersect_runs(runs, out_runs[d])
+            if ln.shape[0] == 0:
+                continue
+            so = _local_starts(runs)[ai] + (st - runs[0][ai])
+            do = _local_starts(out_runs[d])[bj] + (st - out_runs[d][0][bj])
+            out.append((j,) + _merge_runs(so, do, ln))
+        return out
+
+    moves = False
+    for s in range(n):
+        for d in range(n):
+            if s != d and pair(s, d):
+                moves = True
+                break
+        if moves:
+            break
+    send, recv, in_splits, out_splits = [], [], [], []
+    for r in range(n):
+        if r == me:
+            send.append(())
+            recv.append(())
+            in_splits.append(0)
+            out_splits.append(0)
+            continue
+        to = pair(me, r)
+        send.append(tuple((j, so, ln) for j, so, _, ln in to))
+        in_splits.append(int(sum(int(ln.sum()) for _, _, _, ln in to)))
+        frm = pair(r, me)
+        recv.append(tuple((do, ln) for _, _, do, ln in frm))
+        out_splits.append(int(sum(int(ln.sum()) for _, _, _, ln in frm)))
+    own = tuple(pair(me, me))
+    got = sum(out_splits) + sum(int(ln.sum()) for *_, ln in own)
+    want = int(out_runs[me][1].sum())
+    if got != want:
+        raise RuntimeError(f"piece exchange covers {got} of the {want} "
+                           f"elements of this rank's block")
+    route = _Route(tuple(send), tuple(recv), own, tuple(in_splits),
+                   tuple(out_splits), moves)
+    if len(_route_memo) > 256:
+        _route_memo.clear()
+    _route_memo[key] = route
+    return route
+
+
+def _runs_view(flat: torch.Tensor, offs: np.ndarray, lens: np.ndarray):
+    """The runs of the flat contiguous ``flat`` as one strided view
+    (one run, or equal runs at a constant stride), else None."""
+    if offs.shape[0] == 1:
+        return flat.narrow(0, int(offs[0]), int(lens[0]))
+    ln = int(lens[0])
+    if not (lens == ln).all():
+        return None
+    step = np.diff(offs)
+    if not (step == step[0]).all() or int(step[0]) < ln:
+        return None
+    return flat.as_strided((offs.shape[0], ln), (int(step[0]), 1),
+                           flat.storage_offset() + int(offs[0]))
+
+
+_LOOP_RUNS = 256  # irregular runs copied one by one up to this many
+
+
+def _copy_runs(dst: torch.Tensor, d_off: np.ndarray, src: torch.Tensor,
+               s_off: np.ndarray, lens: np.ndarray) -> None:
+    """``dst``'s runs at ``d_off`` = ``src``'s at ``s_off`` (both flat,
+    contiguous; equal ``lens``)."""
+    if lens.shape[0] == 0:
+        return
+    dv, sv = _runs_view(dst, d_off, lens), _runs_view(src, s_off, lens)
+    if dv is not None and sv is not None:
+        dv.copy_(sv)
+        return
+    if lens.shape[0] <= _LOOP_RUNS:
+        for a, b, n in zip(d_off.tolist(), s_off.tolist(), lens.tolist()):
+            dst.narrow(0, a, n).copy_(src.narrow(0, b, n))
+        return
+    base = np.cumsum(lens) - lens
+    step = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(base,
+                                                                  lens)
+    si = torch.from_numpy(np.repeat(s_off, lens) + step).to(src.device)
+    di = torch.from_numpy(np.repeat(d_off, lens) + step).to(dst.device)
+    dst.index_copy_(0, di, src.index_select(0, si))
+
+
+def move_pieces(pieces, dst: Tiling, shape, dtype, mesh) -> torch.Tensor:
+    """This rank's block of the output of ``shape`` under ``dst``,
+    assembled from the :class:`Piece` s the positions hold: the runs a
+    rank holds of its own block are copied in place, the rest arrive in
+    one ``all_to_all`` of uneven pieces (:func:`collectives.exchange_v`,
+    skipped when no piece changes owner anywhere). Copies only, so the
+    values are bit-equal to the pieces'."""
+    from . import collectives as coll
+
+    shape = tuple(int(s) for s in shape)
+    coords = _coords(mesh)
+    exts = tuple(tuple(p.extent_of(c) for c in coords) for p in pieces)
+    frees = tuple(tuple(p.free) for p in pieces)
+    route = _route(exts, frees, dst, shape, mesh)
+    dev = mesh.device
+    for p in pieces:
+        if p.block is not None:
+            dev = p.block.device
+            break
+    out = torch.empty(dst.block_extent(shape, mesh).shape, dtype=dtype,
+                      device=dev)
+    flat_out = out.view(-1)
+    flats = [None if p.block is None else p.block.contiguous().view(-1)
+             for p in pieces]
+    for j, so, do, ln in route.self_runs:
+        _copy_runs(flat_out, do, flats[j], so, ln)
+    if not route.moves:
+        return out
+    send = torch.empty(sum(route.in_splits), dtype=dtype, device=dev)
+    pos = 0
+    for runs in route.send:
+        for j, so, ln in runs:
+            total = int(ln.sum())
+            _copy_runs(send.narrow(0, pos, total),
+                       np.cumsum(ln) - ln, flats[j], so, ln)
+            pos += total
+    recv = coll.exchange_v(send, route.in_splits, route.out_splits, mesh)
+    del send
+    pos = 0
+    for runs in route.recv:
+        for do, ln in runs:
+            total = int(ln.sum())
+            _copy_runs(flat_out, do, recv.narrow(0, pos, total),
+                       np.cumsum(ln) - ln, ln)
+            pos += total
+    return out
+
+
+def _copy_temp(d_off: np.ndarray, s_off: np.ndarray, lens: np.ndarray,
+               itemsize: int) -> float:
+    """Bytes :func:`_copy_runs` allocates for one copy: none for strided
+    views or a loop of copies; two int64 index tensors and the gathered
+    values on the index path."""
+    if lens.shape[0] <= _LOOP_RUNS:
+        return 0.0
+    # a constant stride on both sides copies between views
+    return 0.0 if _regular(d_off, lens) and _regular(s_off, lens) \
+        else float(lens.sum()) * (16 + itemsize)
+
+
+def _regular(offs: np.ndarray, lens: np.ndarray) -> bool:
+    if offs.shape[0] == 1:
+        return True
+    step = np.diff(offs)
+    return bool((lens == lens[0]).all() and (step == step[0]).all()
+                and step[0] >= lens[0])
+
+
+def exchange_staging(pieces_exts, frees, dst: Tiling, shape, mesh,
+                     itemsize: int) -> float:
+    """The bytes :func:`move_pieces` holds beside its output at this
+    rank, at its peak: the send and received buffers live together
+    (with the index tensors of an irregular copy), or an irregular copy
+    of the rank's own runs before them (``resilience/memory.py``'s card
+    model). ``pieces_exts`` are the pieces' ``extent_of`` functions."""
+    coords = _coords(mesh)
+    exts = tuple(tuple(f(c) for c in coords) for f in pieces_exts)
+    route = _route(exts, tuple(tuple(f) for f in frees), dst,
+                   tuple(int(s) for s in shape), mesh)
+    own = max((_copy_temp(do, so, ln, itemsize)
+               for _, so, do, ln in route.self_runs), default=0.0)
+    if not route.moves:
+        return own
+    moved = max([_copy_temp(np.cumsum(ln) - ln, so, ln, itemsize)
+                 for runs in route.send for _, so, ln in runs]
+                + [_copy_temp(do, np.cumsum(ln) - ln, ln, itemsize)
+                   for runs in route.recv for do, ln in runs] + [0.0])
+    return max(own, float(sum(route.in_splits) + sum(route.out_splits))
+               * itemsize + moved)
+
+
+def free_axes(tiling: Tiling, mesh) -> Tuple[str, ...]:
+    """The mesh axes ``tiling`` leaves unused (positions along them hold
+    the same block)."""
+    from ..array import tiling as tiling_mod
+
+    used = {sub for a in tiling.axes for sub in tiling_mod.mesh_axes_of(a)}
+    return tuple(a for a in mesh.axis_names if a not in used)
+
+
+def block_piece(arr: Any) -> Piece:
+    """A group mesh ``DistArray`` as one piece of an exchange of its own
+    shape."""
+    t, shape, mesh = arr.tiling, arr.shape, arr.mesh
+    return Piece(arr.local,
+                 lambda c: t.block_extent(shape, mesh, c),
+                 free_axes(t, mesh))
+
+
 def relayout(arr: Any, dst: Tiling) -> Any:
     """``arr`` (a DistArray on a group mesh) under ``dst``: each rank
     ends with its ``dst`` block. The cheapest schedule runs over the
-    group (:func:`apply_schedule_group`); without one, each rank
-    gathers the source's tiled dims and slices its destination block
-    (a replicated source slices without moving a byte)."""
+    group (:func:`apply_schedule_group`); without one (an uneven or
+    tuple-split layout) the pieces that change owner move in one
+    exchange (:func:`move_pieces`), and a replicated source slices
+    without moving a byte."""
     from ..array.distarray import DistArray
-    from . import collectives as coll
 
     src = arr.tiling
     if src == dst:
@@ -751,11 +1057,8 @@ def relayout(arr: Any, dst: Tiling) -> Any:
     if sched is not None:
         block = apply_schedule_group(arr.local, sched, shape, mesh)
     else:
-        whole = coll.gather_whole(arr.local, src, shape, mesh)
-        ext = dst.block_extent(shape, mesh)
-        block = whole[ext.to_slice()]
-        if block.numel() != whole.numel():
-            block = block.clone()
+        block = move_pieces([block_piece(arr)], dst, shape,
+                            arr.local.dtype, mesh)
     return DistArray.from_local(block, dst, shape, mesh)
 
 

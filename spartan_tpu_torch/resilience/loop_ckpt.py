@@ -29,8 +29,14 @@ Failures (``resilience/classify.py``):
 * ``stale_mesh`` (a leaf the body captured, made before the rebuild)
   rehomes the arrays the error names (``elastic.rehome``) and re-runs
   the segment, at most 8 passes;
-* an I/O error while writing or reading a snapshot propagates (the
-  previous snapshot stays whole).
+* an ``OSError`` while writing a snapshot at a segment boundary is
+  counted (``resilience_checkpoint_failures``, ``checkpoint_failures``
+  in the loop's record) and warned, and the run carries on: the next
+  boundary retries the write and the previous snapshot stays the one
+  ``LATEST.json`` names. Any other error of the write propagates, as
+  does an I/O error while reading a snapshot, and on a group mesh any
+  error of the write (the peers wait for the rank's blobs at the
+  snapshot's barriers: the rank cannot carry on alone).
 
 On a **group mesh** every rank writes only its blocks' blobs, straight
 into the step directory (``utils/checkpoint.save``: no gather, rank 0
@@ -51,9 +57,8 @@ Observability, as in the JAX package: a ``ckpt_loop`` span around the
 run, a ``loop_segment`` span per segment and a ``loop_checkpoint`` span
 per snapshot, and the ``REGISTRY`` counters
 ``resilience_loop_checkpoints``, ``resilience_loop_resumes``,
-``resilience_loop_restores`` and ``resilience_loop_elastic_resumes``.
-The JAX package's ``resilience_checkpoint_failures`` counts a branch the
-port does not have (a failed snapshot write propagates here).
+``resilience_loop_restores``, ``resilience_loop_elastic_resumes`` and
+``resilience_checkpoint_failures``.
 
 Layout under ``checkpoint_path`` (the JAX package's)::
 
@@ -385,7 +390,28 @@ def checkpointed_loop(n_iters: Any, body_fn: Any, init: Tuple[Any, ...], *,
                             "last committed snapshot is the one "
                             "LATEST.json names: resume from it in a "
                             "smaller world") from e
-                    raise
+                    if not isinstance(e, OSError) or \
+                            mesh_mod.get_mesh().is_group:
+                        # on a group mesh the peers wait for this rank's
+                        # blobs at the snapshot's barriers: carrying on
+                        # alone would split the group, so the failure
+                        # propagates (LATEST.json names the previous
+                        # snapshot; resume= recovers)
+                        raise
+                    # a failed snapshot must not kill a healthy run:
+                    # the carries live on, the next boundary retries
+                    # the write, and the previous snapshot (LATEST.json
+                    # is written last) stays the restore point
+                    rec["checkpoint_failures"] = (
+                        rec.get("checkpoint_failures", 0) + 1)
+                    _count("resilience_checkpoint_failures",
+                           "loop snapshot writes that failed "
+                           "(non-fatal; previous snapshot intact)")
+                    log_warn("st.loop: snapshot at iteration %d failed "
+                             "(%s); continuing, the previous snapshot "
+                             "remains the restore point", step,
+                             str(e)[:120])
+                    continue
                 own = True
 
     out = []

@@ -28,7 +28,12 @@ it, degrade before dying (port of ``spartan_tpu/resilience/memory.py``).
        the all-reduce's result at once (PR 13 measured it); a planned
        product on a logical mesh is one matmul (its output only);
      - the halo stencil stages the padded halo blocks beside its
-       output (the kernel writes the output in place);
+       output (the kernel writes the output in place); on a group mesh
+       each rank's rows joined with the halo rows, then padded;
+     - a node that knows what its lowering stages says so
+       (``card_staging(mesh)``): the local rules' piece exchanges
+       (send and receive buffers), copies, the blocked scan's local
+       scan, pooling's padded copy, the sample sort's stages;
      - ``st.loop`` re-walks its body from Python each iteration: the
        body's own peak with the carries, old and new, live.
 
@@ -344,7 +349,9 @@ def tree_units(tree: Any) -> float:
         peak = max(peak, held + tree_units(a))
         if isinstance(a, (LocalUfunc, LocalCall)):
             held += 1.0
-    return max(peak, held + 1.0)
+    # a package function that knows its own temporaries (histogram's
+    # bucketing: ``LocalCall.units``) holds that many at its peak
+    return max(peak, held + float(getattr(tree, "units", None) or 1.0))
 
 
 def _card_bytes(n: Any, mesh) -> float:
@@ -385,6 +392,11 @@ def _card_transient(n: Any, mesh) -> float:
 
     out = _card_bytes(n, mesh)
     group = mesh.is_group
+    own = getattr(n, "card_staging", None)
+    if own is not None:
+        # a node whose lowering (its local rule on a group mesh) knows
+        # what it stages: exchange buffers, copies, the sort's stages
+        return own(mesh)
     if isinstance(n, MapExpr):
         tr = max(0.0, tree_units(n.op) - 1.0) * out
         if group:
@@ -419,7 +431,9 @@ def _card_transient(n: Any, mesh) -> float:
         from ..kernels import registry as kernels_mod
         from ..kernels import stencil as kstencil
 
-        if group or not kernels_mod.node_selection(n).native:
+        if group:
+            return _halo_local_staging(n, mesh, out)
+        if not kernels_mod.node_selection(n).native:
             return 0.0
         t = n.x.out_tiling()
         p = int(mesh.shape[t.axes[1]]) if t.axes[1] is not None else 1
@@ -431,6 +445,26 @@ def _card_transient(n: Any, mesh) -> float:
     if isinstance(n, LoopExpr):
         return _loop_peak(n, mesh)
     return 0.0
+
+
+def _halo_local_staging(n: Any, mesh, out: float) -> float:
+    """The halo stencil's local rule on a group mesh: the rank's rows
+    joined with its neighbours' halo rows and that block padded along W
+    live together, then the padded block beside the output (the kernel
+    writes it in place)."""
+    from ..array import tiling as tiling_mod
+    from ..kernels import registry as kernels_mod
+
+    t = tiling_mod.sanitize(n.x.out_tiling(), n.x.shape, mesh)
+    if t.axes[1] is None or not kernels_mod.node_selection(n).native:
+        return 0.0
+    nb, hb, w, c = t.block_extent(n.x.shape, mesh).shape
+    kh, kw = int(n.w.shape[0]), int(n.w.shape[1])
+    rows = hb + kh - 1
+    halo = 2.0 * 2.0 * (kh - 1) * nb * w * c * 4.0
+    cat = 4.0 * nb * rows * w * c
+    xpad = 4.0 * nb * rows * (w + kw - 1) * c
+    return max(halo + cat + xpad, xpad + out) - out
 
 
 def _loop_peak(loop: Any, mesh) -> float:

@@ -1603,3 +1603,113 @@ def test_monitor_sampler_thread_starts_and_stops_on_the_card(card):
         FLAGS.monitor, FLAGS.monitor_interval_s = prev
     assert monitor.MONITOR.health()["running"] is False
     monitor.MONITOR.reset()
+
+
+# -- the local rules' kernels on two gloo ranks sharing the card ----------
+
+_LOCAL_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, os.environ["REPO"])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import spartan_tpu_torch as st
+from spartan_tpu_torch.array.distarray import from_numpy
+from spartan_tpu_torch.kernels import exchange as kx
+from spartan_tpu_torch.kernels import histogram as kh
+from spartan_tpu_torch.kernels import stencil as kst
+from spartan_tpu_torch.obs.metrics import collective_totals
+from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+dev = torch.device("cuda", 0)
+st.set_default_device(dev)
+assert mesh_mod.initialize_distributed(
+    "file://" + os.environ["STORE"], num_processes=2,
+    process_id=int(os.environ["RANK"]), backend="gloo", device=dev,
+    timeout_s=120)
+case = os.environ["CASE"]
+rng = np.random.RandomState(5)
+kernels = {"sort": (kx.LAUNCHES, "partition_pack"),
+           "histogram": (kh.LAUNCHES, "bincount_block"),
+           "stencil": (kst.LAUNCHES, "conv_block")}
+if case == "sort":
+    data, tiling = rng.randn(6, 4096).astype(np.float32), (None, "x")
+    build = lambda: st.tuple_of(st.sort(x), st.argsort(x))
+elif case == "histogram":
+    data, tiling = rng.rand(257, 96).astype(np.float32), ("x", None)
+    build = lambda: st.histogram(x, 64)[0]
+else:
+    data, tiling = rng.randn(3, 32, 20, 8).astype(np.float32), (
+        None, "x", None, None)
+    w = rng.randn(3, 3, 8, 16).astype(np.float32) * 0.2
+    build = lambda: st.maxpool(st.maximum(st.stencil(x, from_numpy(w)), 0.0),
+                               2)
+x = st.as_expr(from_numpy(data, tiling=st.Tiling(tiling)))
+table, name = kernels[case]
+st.FLAGS.native_kernels = "on"
+before, m0 = table[name], collective_totals()["group_materialize_calls"]
+got = build().evaluate()
+got = got if isinstance(got, tuple) else (got,)
+torch.cuda.synchronize()
+out = {"launches": table[name] - before,
+       "mat": collective_totals()["group_materialize_calls"] - m0,
+       "vals": [g.local.cpu().numpy().tolist() for g in got]}
+mesh = mesh_mod.get_mesh()
+exts = [g.tiling.block_extent(g.shape, mesh).to_slice() for g in got]
+# the plain versions: the same expression on a logical 1 x 1 mesh with
+# the kernels off, cut to this rank's blocks
+st.FLAGS.native_kernels = "off"
+with st.use_mesh(st.build_mesh((1, 1), dev)):
+    x = st.as_expr(from_numpy(data))
+    before = table[name]
+    ref = build().evaluate()
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    out["plain_launches"] = table[name] - before
+    out["plain"] = [r.local[e].cpu().numpy().tolist()
+                    for r, e in zip(ref, exts)]
+mesh_mod.shutdown()
+with open(os.environ["OUT"], "w") as f:
+    json.dump(out, f)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,launches", [("sort", 3), ("histogram", 1),
+                                           ("stencil", 1)])
+def test_local_rule_kernels_on_stored_blocks(card, tmp_path, case, launches):
+    """Two gloo ranks sharing the card, each holding its blocks: the
+    batched sort and argsort of rows along their tiled axis pack with
+    ``partition_pack`` (one launch for the sort, two for the argsort, a
+    rank), the histogram of a 2-D array counts each rank's raveled block
+    with ``bincount_block``, and the conv of an H-tiled image with
+    ``conv_block`` before the pool pools each block; each rank's blocks
+    equal the plain versions' (``native_kernels=off`` on a logical 1 x 1
+    mesh), nothing gathered whole."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, REPO=repo, STORE=str(tmp_path / "store"),
+                   RANK=str(rank), CASE=case,
+                   OUT=str(tmp_path / f"rank{rank}.json"),
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, "-c", _LOCAL_CHILD],
+                                      env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    import json
+
+    for rank in range(2):
+        with open(tmp_path / f"rank{rank}.json") as f:
+            got = json.load(f)
+        assert got["launches"] == launches, (rank, got["launches"])
+        assert got["plain_launches"] == 0 and got["mat"] == 0
+        for a, b in zip(got["vals"], got["plain"]):
+            if case == "stencil":
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+            else:
+                np.testing.assert_array_equal(a, b)

@@ -19,10 +19,10 @@ through ``ContractExpr`` under its committed plan and forced ones; ``retile`` th
 top-k with ties and with C4's NaN keys; PageRank over the sharded SpMV;
 ``update``, ``fetch`` and donation; the group forms of the bincount,
 segment-sum, k-means and stencil kernels on the stored blocks and on
-whole tensors (each rank keeps its block); and two ops with no local
-rule: a transpose, which gives the right value and raises
-``group_materialize_calls`` by one, and ``map2``, which gathers each of
-its split inputs once (site ``Map2Expr``). On the main-path cases
+whole tensors (each rank keeps its block); a transpose, which permutes
+each rank's block and gathers nothing; and ``map2`` with a user
+function, which has no local rule and gathers each of its split inputs
+once (site ``Map2Expr``). On the main-path cases
 ``group_materialize_calls`` stays 0. ``calibrate_flop_weight`` gives
 every rank the same weight.
 
@@ -278,6 +278,122 @@ def run_cases(inputs):
     return out, mat
 '''
 
+# The local rules of the structure ops, outer, the blocked scan, user
+# reduces, pooling, batched sorts, the builtin maps and dot_shardmap:
+# each on an even shape and on an uneven one, run by every rank and on
+# the logical mesh. run_cases(inputs) -> (results, materializations).
+_RULE_CASES = r'''
+import numpy as np
+import torch
+import spartan_tpu_torch as st
+from spartan_tpu_torch.array.distarray import from_numpy
+from spartan_tpu_torch.array.tiling import Tiling
+from spartan_tpu_torch.obs.metrics import collective_totals
+
+# (name, array, tiling): the even ones take the default placement
+GRIDS = [("e", "even", None), ("u", "uneven", ("x", None)),
+         ("ub", "uneven", ("x", "y")), ("ec", "even", (None, "y"))]
+
+
+def run_cases(inputs):
+    out, mat = {}, {}
+
+    def main(name, fn):
+        before = collective_totals()["group_materialize_calls"]
+        got = fn()
+        if isinstance(got, tuple):
+            for i, v in enumerate(got):
+                out[f"{name}#{i}"] = np.asarray(v)
+        else:
+            out[name] = np.asarray(got)
+        mat[name] = collective_totals()["group_materialize_calls"] - before
+
+    for g, key, axes in GRIDS:
+        a = inputs[key]
+        x = st.as_expr(from_numpy(a) if axes is None
+                       else from_numpy(a, tiling=Tiling(axes)))
+        m, n = a.shape
+        main(f"T_{g}", lambda: x.T.glom())
+        main(f"Tsum_{g}", lambda: x.T.sum(axis=0).glom())
+        main(f"reshape_{g}", lambda: st.reshape(x, (n, m)).glom())
+        main(f"reshape3_{g}", lambda: st.reshape(x, (m, 1, n)).glom())
+        main(f"ravel_{g}", lambda: st.ravel(x).glom())
+        main(f"ravel_max_{g}", lambda: st.ravel(x).max().glom())
+        main(f"cat0_{g}", lambda: st.concatenate([x, x * 2.0], 0).glom())
+        main(f"cat1_{g}", lambda: st.concatenate([x, x + 1.0], 1).glom())
+        main(f"slice_{g}", lambda: x[1:m - 2:2, ::-1].glom())
+        main(f"slice_int_{g}", lambda: x[3, 2:].glom())
+        main(f"slice_new_{g}", lambda: x[None, ::-3, 1].glom())
+        main(f"slice_neg_{g}", lambda: x[-2:2:-2, n - 2:1:-1].glom())
+        main(f"slice_sum_{g}", lambda: x[::2, 1::3].sum(axis=1).glom())
+        va = st.as_expr(from_numpy(a[:, 0].copy()))
+        vb = st.as_expr(from_numpy(a[0].copy()))
+        main(f"outer_{g}", lambda: st.outer(va, vb).glom())
+        main(f"cumsum_{g}", lambda: st.cumsum(x, 0).glom())
+        main(f"cummax_{g}", lambda: st.scan(x, 0, op="max").glom())
+        main(f"cumsum_max_{g}", lambda: st.cumsum(x, 0).max(axis=0).glom())
+        main(f"ureduce_max_{g}", lambda: st.reduce(
+            x, axis=0, local_reduce_fn=lambda b, axis: torch.amax(b, dim=axis),
+            accumulate_fn=np.maximum).glom())
+        main(f"ureduce_sum_{g}", lambda: st.reduce(
+            x, local_reduce_fn=lambda b, axis: torch.sum(b),
+            accumulate_fn=np.add).glom())
+        main(f"sort0_{g}", lambda: st.sort(x, axis=0).glom())
+        main(f"argsort0_{g}", lambda: st.argsort(x, axis=0).glom())
+        main(f"sort1_{g}", lambda: st.sort(x, axis=1).glom())
+        main(f"argsort1_{g}", lambda: st.argsort(x, axis=1).glom())
+        main(f"tril_{g}", lambda: st.tril(x).glom())
+        main(f"triu_{g}", lambda: (st.triu(x, 1) + 1.0).glom())
+        main(f"diagonal_{g}", lambda: st.diagonal(x).glom())
+        main(f"histogram_{g}", lambda: st.histogram(x, 16))
+        main(f"histogram_range_{g}", lambda: st.histogram(x, 8, (0.2, 0.7)))
+    # batched sorts of rows along their tiled axis, both kernel switches
+    bx = st.as_expr(from_numpy(inputs["batch"], tiling=Tiling((None, "x"))))
+    for flag in ("on", "off"):
+        st.FLAGS.native_kernels = flag
+        try:
+            main(f"bsort_{flag}", lambda: st.sort(bx).glom())
+            main(f"bargsort_{flag}", lambda: st.argsort(bx).glom())
+            main(f"bhist_{flag}", lambda: st.histogram(bx, 32))
+        finally:
+            st.FLAGS.native_kernels = "auto"
+    img = st.as_expr(from_numpy(inputs["img"], tiling=Tiling(
+        (None, "x", None, None))))
+    for name, fn in (("max2", lambda: st.maxpool(img, 2)),
+                     ("avg2", lambda: st.avgpool(img, 2)),
+                     ("max3s2", lambda: st.maxpool(img, 3, 2, "SAME")),
+                     ("avg3s1", lambda: st.avgpool(img, 3, 1, "SAME")),
+                     ("max3v", lambda: st.maxpool(img, 3, 1)),
+                     ("maxint", lambda: st.maxpool(img.astype(np.int32),
+                                                   3, 2, "SAME"))):
+        main(f"pool_{name}", lambda: fn().glom())
+    A = st.as_expr(from_numpy(inputs["A"]))
+    B = st.as_expr(from_numpy(inputs["B"]))
+    main("dot_shardmap", lambda: st.dot_shardmap(A, B).glom())
+    # no local rule: a user function and a reduce without its combiner
+    x = st.as_expr(from_numpy(inputs["even"]))
+    before = collective_totals()["group_materialize_calls"]
+    out["user_map"] = st.map(lambda v: v.flip(0), x).glom()
+    out["user_reduce"] = st.reduce(
+        x, axis=0, local_reduce_fn=lambda b, axis: torch.sum(b, axis)).glom()
+    out["user_gathers"] = np.array(
+        collective_totals()["group_materialize_calls"] - before)
+    return out, mat
+'''
+
+
+def _rule_inputs(world: int) -> dict:
+    rng = np.random.RandomState(200 + world)
+    return {
+        "even": rng.rand(12, 8).astype(np.float32),
+        "uneven": rng.rand(63, 33).astype(np.float32),
+        "batch": rng.randn(6, 1001).astype(np.float32),
+        "img": rng.randn(3, 12, 5, 4).astype(np.float32),
+        "A": rng.rand(16, 12).astype(np.float32),
+        "B": rng.rand(12, 10).astype(np.float32),
+    }
+
+
 _CHILD = r"""
 import os, sys
 sys.path.insert(0, os.environ["REPO"])
@@ -346,14 +462,14 @@ def _inputs(world: int) -> dict:
     }
 
 
-def _launch(world: int, tmp_path):
-    inputs = _inputs(world)
+def _launch(world: int, tmp_path, cases: str = _PORT_CASES, inputs=None):
+    inputs = _inputs(world) if inputs is None else inputs
     path = tmp_path / "inputs.npz"
     np.savez(path, **inputs)
     procs = []
     for rank in range(world):
         env = dict(os.environ, REPO=REPO, INPUTS=str(path), OUT=str(tmp_path),
-                   CASES=_PORT_CASES,
+                   CASES=cases,
                    COORDINATOR_ADDRESS=f"file://{tmp_path / 'store'}",
                    WORLD_SIZE=str(world), RANK=str(rank),
                    OMP_NUM_THREADS="1")
@@ -382,7 +498,7 @@ def _launch(world: int, tmp_path):
     return inputs, join
 
 
-def _logical(inputs: dict, world: int):
+def _logical(inputs: dict, world: int, cases: str = _PORT_CASES):
     """The same cases on the port's logical mesh of the group's shape."""
     from spartan_tpu_torch.parallel import mesh as mesh_t
 
@@ -391,7 +507,7 @@ def _logical(inputs: dict, world: int):
     try:
         with mesh_t.use_mesh(mesh_t.build_mesh(_shape(world), "cpu")):
             ns = {}
-            exec(_PORT_CASES, ns)
+            exec(cases, ns)
             return ns["run_cases"](inputs)[0]
     finally:
         mesh_t.set_default_device(prev)
@@ -532,12 +648,12 @@ def _check(r, want, logical, inputs):
             if split < inputs["R"].size:
                 assert int(r[f"retile_recv_{name}_rep"]) > 0, name
 
-    # every main-path case gathered nothing whole
+    # every main-path case gathered nothing whole; a transpose has its
+    # local rule (it permutes the rank's block)
     gathered = {key: int(val) for key, val in r.items()
-                if key.startswith("mat_") and key != "mat_transpose"
-                and int(val)}
+                if key.startswith("mat_") and int(val)}
     assert not gathered
-    assert int(r["mat_transpose"]) == 1
+    assert int(r["mat_transpose"]) == 0
     np.testing.assert_array_equal(r["transpose"], inputs["x"].T)
     assert float(r["flop_weight"]) > 0
     # map2 has no local rule: x (split over x) is gathered, and y (split
@@ -678,3 +794,201 @@ def test_local_storage_matches_jax_and_the_logical_mesh(world, tmp_path):
                                                 "meta_")):
                 continue
             np.testing.assert_array_equal(other[key], val, err_msg=key)
+
+
+def _jax_rules(inputs: dict, world: int) -> dict:
+    """The JAX package's results of the rule cases on the 8-device CPU
+    mesh cut to the group's shape (its own placements: the results do
+    not depend on them)."""
+    from spartan_tpu.ops.stencil import avgpool, maxpool
+
+    mj = mesh_j.build_mesh(jax.devices()[:world], shape=_shape(world))
+    want = {}
+    with mesh_j.use_mesh(mj):
+        for key in ("even", "uneven"):
+            a = inputs[key]
+            m, n = a.shape
+            x = st_j.from_numpy(a)
+            w = want[key] = {}
+            w["T"] = x.T.glom()
+            w["Tsum"] = x.T.sum(axis=0).glom()
+            w["reshape"] = st_j.reshape(x, (n, m)).glom()
+            w["reshape3"] = st_j.reshape(x, (m, 1, n)).glom()
+            w["ravel"] = st_j.ravel(x).glom()
+            w["ravel_max"] = st_j.ravel(x).max().glom()
+            w["cat0"] = st_j.concatenate([x, x * 2.0], 0).glom()
+            w["cat1"] = st_j.concatenate([x, x + 1.0], 1).glom()
+            w["slice"] = x[1:m - 2:2, ::-1].glom()
+            w["slice_int"] = x[3, 2:].glom()
+            w["slice_new"] = x[None, ::-3, 1].glom()
+            w["slice_neg"] = x[-2:2:-2, n - 2:1:-1].glom()
+            w["slice_sum"] = x[::2, 1::3].sum(axis=1).glom()
+            w["outer"] = st_j.outer(st_j.from_numpy(a[:, 0].copy()),
+                                    st_j.from_numpy(a[0].copy())).glom()
+            w["cumsum"] = st_j.cumsum(x, 0).glom()
+            w["cummax"] = st_j.scan(x, 0, op="max").glom()
+            w["cumsum_max"] = st_j.cumsum(x, 0).max(axis=0).glom()
+            w["ureduce_max"] = st_j.reduce(
+                x, axis=0, local_reduce_fn=lambda b, axis: jnp.max(b, axis),
+                accumulate_fn=np.maximum).glom()
+            w["ureduce_sum"] = st_j.reduce(
+                x, local_reduce_fn=lambda b, axis: jnp.sum(b),
+                accumulate_fn=np.add).glom()
+            for ax in (0, 1):
+                w[f"sort{ax}"] = st_j.sort(x, axis=ax).glom()
+                w[f"argsort{ax}"] = st_j.argsort(x, axis=ax).glom()
+            w["tril"] = st_j.tril(x).glom()
+            w["triu"] = (st_j.triu(x, 1) + 1.0).glom()
+            w["diagonal"] = st_j.diagonal(x).glom()
+            w["histogram"] = tuple(np.asarray(v.glom()) for v in
+                                   st_j.histogram(x, 16))
+            w["histogram_range"] = tuple(np.asarray(v.glom()) for v in
+                                         st_j.histogram(x, 8, (0.2, 0.7)))
+        bx = st_j.from_numpy(inputs["batch"])
+        want["bsort"] = st_j.sort(bx).glom()
+        want["bargsort"] = st_j.argsort(bx).glom()
+        want["bhist"] = tuple(np.asarray(v.glom())
+                              for v in st_j.histogram(bx, 32))
+        img = st_j.from_numpy(inputs["img"])
+        want["pool_max2"] = maxpool(img, 2).glom()
+        want["pool_avg2"] = avgpool(img, 2).glom()
+        want["pool_max3s2"] = maxpool(img, 3, 2, "SAME").glom()
+        want["pool_avg3s1"] = avgpool(img, 3, 1, "SAME").glom()
+        want["pool_max3v"] = maxpool(img, 3, 1).glom()
+        want["pool_maxint"] = maxpool(img.astype(np.int32), 3, 2,
+                                      "SAME").glom()
+        want["dot_shardmap"] = st_j.dot_shardmap(
+            st_j.from_numpy(inputs["A"]), st_j.from_numpy(inputs["B"])).glom()
+    return want
+
+
+# (case, tolerance against the JAX package): None is bit-equal; a float
+# is the relative error allowed (the order of a float sum differs)
+_RULE_TOL = {"T": None, "Tsum": 1e-6, "reshape": None, "reshape3": None,
+             "ravel": None, "ravel_max": None, "cat0": None, "cat1": None,
+             "slice": None, "slice_int": None, "slice_new": None,
+             "slice_neg": None, "slice_sum": 1e-6, "outer": None,
+             "cumsum": 1e-6, "cummax": None, "cumsum_max": 1e-6,
+             "ureduce_max": None, "ureduce_sum": 1e-6, "sort0": None,
+             "argsort0": None, "sort1": None, "argsort1": None,
+             "tril": None, "triu": None, "diagonal": None}
+
+
+def _same(got, want, tol, key) -> None:
+    if tol is None:
+        np.testing.assert_array_equal(got, want, err_msg=key)
+    else:
+        assert _rel(got, want) <= tol, key
+
+
+def _check_rules(r, want, logical, inputs, world: int) -> None:
+    # every case with a rule gathered nothing whole
+    gathered = {key: int(val) for key, val in r.items()
+                if key.startswith("mat_") and int(val)}
+    assert not gathered, gathered
+    for g, key in (("e", "even"), ("u", "uneven"), ("ub", "uneven"),
+                   ("ec", "even")):
+        w = want[key]
+        for case, tol in _RULE_TOL.items():
+            k = f"{case}_{g}"
+            _same(r[k], w[case], tol, k)
+            # the logical mesh walks the same program: bit-equal but for
+            # float sums, whose order a group changes
+            _same(r[k], logical[k], tol, k)
+        for case in ("histogram", "histogram_range"):
+            for i in range(2):
+                k = f"{case}_{g}#{i}"
+                np.testing.assert_array_equal(r[k], logical[k], k)
+                if i == 0:
+                    np.testing.assert_array_equal(r[k], w[case][0], k)
+                else:
+                    np.testing.assert_allclose(r[k], w[case][1], rtol=1e-6,
+                                               err_msg=k)
+    for flag in ("on", "off"):
+        for case in ("bsort", "bargsort"):
+            k = f"{case}_{flag}"
+            np.testing.assert_array_equal(r[k], want[case], k)
+            np.testing.assert_array_equal(r[k], logical[k], k)
+        np.testing.assert_array_equal(r[f"bhist_{flag}#0"], want["bhist"][0])
+        np.testing.assert_array_equal(r[f"bhist_{flag}#0"],
+                                      logical[f"bhist_{flag}#0"])
+    for case in ("max2", "max3s2", "max3v", "maxint"):
+        k = f"pool_{case}"
+        np.testing.assert_array_equal(r[k], want[k], k)
+        np.testing.assert_array_equal(r[k], logical[k], k)
+    for case in ("avg2", "avg3s1"):
+        k = f"pool_{case}"
+        assert _rel(r[k], want[k]) <= 1e-6, k
+        assert _rel(r[k], logical[k]) <= 1e-6, k
+    assert _rel(r["dot_shardmap"], want["dot_shardmap"]) <= 1e-4
+    assert _rel(r["dot_shardmap"], inputs["A"] @ inputs["B"]) <= 1e-4
+    # a user function and a reduce without a combiner read their split
+    # operand whole: one counted gather each
+    assert int(r["user_gathers"]) == 2
+    assert int(logical["user_gathers"]) == 0
+    np.testing.assert_array_equal(r["user_map"], inputs["even"][::-1])
+    assert _rel(r["user_reduce"], inputs["even"].sum(0)) <= 1e-6
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_local_rules_match_jax_and_the_logical_mesh(world, tmp_path):
+    inputs = _rule_inputs(world)
+    _, join = _launch(world, tmp_path, _RULE_CASES, inputs)
+    want = _jax_rules(inputs, world)  # while the children run
+    logical = _logical(inputs, world, _RULE_CASES)
+    outs = join()
+    for r in outs:
+        _check_rules(r, want, logical, inputs, world)
+    # every rank's whole results are the same bits
+    for other in outs[1:]:
+        for key, val in outs[0].items():
+            if key != "mesh" and not key.startswith("mat_"):
+                np.testing.assert_array_equal(other[key], val, err_msg=key)
+
+
+# The port's Expr subclasses without a local rule (ROADMAP §A): leaves
+# and carries the walk seeds (never lowered), the dict wrapper (walked
+# through its tuple), creation and random fills (made whole on every
+# rank: no data read), and the gathers that remain: a user function's
+# map2, fancy indexing, region writes and the incremental engine's
+# restriction nodes (made when the engine first runs; the test makes
+# them first, so the list does not depend on the tests before it). The
+# list may only shrink.
+_NO_LOCAL_RULE = {
+    "spartan_tpu_torch.expr.assign.WriteExpr",
+    "spartan_tpu_torch.expr.base.DictExpr",
+    "spartan_tpu_torch.expr.base.ScalarExpr",
+    "spartan_tpu_torch.expr.base.ValExpr",
+    "spartan_tpu_torch.expr.filter.GatherExpr",
+    "spartan_tpu_torch.expr.incremental._DynSliceExpr",
+    "spartan_tpu_torch.expr.incremental._DynUpdateExpr",
+    "spartan_tpu_torch.expr.loop.CarryExpr",
+    "spartan_tpu_torch.expr.loop.LoopIndexExpr",
+    "spartan_tpu_torch.expr.map2.Map2Expr",
+    "spartan_tpu_torch.expr.ndarray.CreateExpr",
+    "spartan_tpu_torch.expr.ndarray.RandomExpr",
+}
+
+
+def test_exprs_without_a_local_rule_are_the_listed_ones():
+    import importlib
+    import pkgutil
+
+    import spartan_tpu_torch
+    from spartan_tpu_torch.expr.base import Expr
+
+    for mod in pkgutil.walk_packages(spartan_tpu_torch.__path__,
+                                     "spartan_tpu_torch."):
+        importlib.import_module(mod.name)
+    from spartan_tpu_torch.expr import incremental
+
+    incremental._types()
+    seen, todo = set(), [Expr]
+    while todo:
+        for sub in todo.pop().__subclasses__():
+            if sub not in seen:
+                seen.add(sub)
+                todo.append(sub)
+    missing = {f"{c.__module__}.{c.__name__}" for c in seen
+               if c._lower_local is None}
+    assert missing == _NO_LOCAL_RULE

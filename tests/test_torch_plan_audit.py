@@ -13,9 +13,12 @@ tensors (``spartan_tpu_torch/analysis/plan_audit.py``). Held here:
   its walk counts in ``collective_calls{op}``/``collective_bytes{op}``,
   call for call and byte for byte, and its ``full_gather`` findings
   equal the walk's ``group_materialize_calls{site}``; the audit on the
-  logical mesh of the group's shape gives the same list. This is the
-  oracle for the planted gathers: the JAX package's own traced-start
-  case is red on this tree (ROADMAP C1);
+  logical mesh of the group's shape gives the same list. The local rules
+  of the structure ops, outer, the scan, a user reduce, pooling, batched
+  sorts, the builtin maps and ``dot_shardmap`` find no ``full_gather``;
+  a user function's ``map2`` is the planted gather. This is the oracle
+  for the planted gathers: the JAX package's own traced-start case is
+  red on this tree (ROADMAP C1);
 * the memoized verdict, the explain table, the miss-path hook and the
   port's ``missed_donation`` semantics (ROADMAP C35).
 """
@@ -150,15 +153,19 @@ def test_verify_evaluate_audits_the_miss_only():
     np.testing.assert_array_equal(got, x.T * 2.0)
 
 
+def _flip(v):
+    return v.flip(0)
+
+
 def test_planted_gather_is_a_full_gather_finding():
+    # a user function's map2 has no local rule (a transpose has one now)
     with mesh_t.use_mesh(mesh_t.build_mesh((4, 2))):
         x = st_t.from_numpy(RNG.rand(16, 8).astype(np.float32))
-        au = st_t.audit_plan(st_t.transpose(x) + 1.0)
+        au = st_t.audit_plan(st_t.map2([x], _flip) + 1.0)
     hits = [f for f in au.findings if f.kind == "full_gather"]
     assert len(hits) == 1
     f = hits[0]
-    assert f.node.startswith("TransposeExpr#") and "TransposeExpr" in \
-        f.message
+    assert f.node.startswith("Map2Expr#") and "Map2Expr" in f.message
     assert f.bytes == 16 * 8 * 4 and __file__ in f.source
     assert au.multiset.get("all-gather", 0) >= 1
 
@@ -170,7 +177,7 @@ def test_replicated_intermediate_over_the_threshold():
         with mesh_t.use_mesh(mesh_t.build_mesh((4, 2))):
             base_t.clear_plan_cache()  # a memoized verdict of this shape
             x = st_t.from_numpy(RNG.rand(16, 8).astype(np.float32))
-            au = st_t.audit_plan(st_t.transpose(x) * 3.0)
+            au = st_t.audit_plan(st_t.map2([x], _flip) * 3.0)
     finally:
         FLAGS_T.replication_warn_bytes = prev
     rep = [f for f in au.findings if f.kind == "replicated_intermediate"]
@@ -244,6 +251,7 @@ print("CHILD_OK", mesh.rank, flush=True)
 
 _CASES = r"""
 import numpy as np
+import torch
 
 def cases(st, km):
     rng = np.random.RandomState(3)
@@ -253,7 +261,11 @@ def cases(st, km):
     pts = rng.rand(2048, 128).astype(np.float32)
     c0 = pts[:4].copy()
     x = rng.rand(16, 8).astype(np.float32)
+    sq = rng.rand(16, 16).astype(np.float32)
+    img = rng.rand(2, 16, 6, 4).astype(np.float32)
+    batch = rng.rand(4, 512).astype(np.float32)
     rows, cols = st.Tiling(("x", None)), st.Tiling((None, "x"))
+    hx = st.Tiling((None, "x", None, None))
     return {
         # a long contraction, split over the ranks (a k-split)
         "dot": lambda: st.dot(st.from_numpy(a, tiling=cols),
@@ -262,8 +274,39 @@ def cases(st, km):
         "kmeans": lambda: km.kmeans_step(st.from_numpy(pts),
                                          st.from_numpy(c0), 4),
         "transpose": lambda: st.transpose(st.from_numpy(x)) * 2.0 + 1.0,
+        # no local rule: a user function reads its operand whole
+        "user_map2": lambda: st.map2([st.from_numpy(x)],
+                                     lambda v: v.flip(0)) + 1.0,
+        # one case per local rule of the structure ops and the rest
+        "reshape": lambda: st.reshape(st.from_numpy(x), (8, 16)) * 2.0,
+        "ravel": lambda: st.ravel(st.from_numpy(x)).sum(),
+        "concat": lambda: st.concatenate([st.from_numpy(x),
+                                          st.from_numpy(x)], 0),
+        "concat1": lambda: st.concatenate([st.from_numpy(x),
+                                           st.from_numpy(x)], 1),
+        "slice": lambda: st.from_numpy(sq)[::2, ::-1] + 1.0,
+        "outer": lambda: st.outer(st.from_numpy(keys[:64]),
+                                  st.from_numpy(keys[64:96])),
+        "cumsum": lambda: st.cumsum(st.from_numpy(x), 0),
+        "ureduce": lambda: st.reduce(
+            st.from_numpy(x), axis=0,
+            local_reduce_fn=lambda v, axis: torch.amax(v, dim=axis),
+            accumulate_fn=np.maximum),
+        "maxpool": lambda: st.maxpool(st.from_numpy(img, tiling=hx), 3, 1,
+                                      "SAME"),
+        "bsort": lambda: st.sort(st.from_numpy(batch, tiling=cols)),
+        "bargsort": lambda: st.argsort(st.from_numpy(batch, tiling=cols)),
+        "tril": lambda: st.tril(st.from_numpy(sq), 1),
+        "diagonal": lambda: st.diagonal(st.from_numpy(sq)) * 2.0,
+        "histogram": lambda: st.histogram(st.from_numpy(sq), 16)[0],
+        "dot_shardmap": lambda: st.dot_shardmap(st.from_numpy(sq),
+                                                st.from_numpy(sq)),
     }
 """
+
+_RULES = ("transpose", "reshape", "ravel", "concat", "concat1", "slice",
+          "outer", "cumsum", "ureduce", "maxpool", "bsort", "bargsort",
+          "tril", "diagonal", "histogram", "dot_shardmap")
 
 _KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
          "all_to_all": "all-to-all", "ring_permute": "collective-permute",
@@ -335,5 +378,16 @@ def test_audit_equals_the_counted_collectives_on_a_gloo_group(tmp_path):
         assert got["sort"]["audit"]["multiset"].get("all-to-all", 0) >= 2
         assert not [f for f in got["kmeans"]["findings"]
                     if f["kind"] == "full_gather"]
-        assert [f for f in got["transpose"]["findings"]
+        assert [f for f in got["user_map2"]["findings"]
                 if f["kind"] == "full_gather"]
+        # each local rule: no whole gather, and collectives where the
+        # rule moves data between the ranks
+        for name in _RULES:
+            assert not [f for f in got[name]["findings"]
+                        if f["kind"] == "full_gather"], (name, rank)
+        for name in ("reshape", "concat", "slice", "outer", "cumsum",
+                     "ureduce", "maxpool", "bsort", "histogram",
+                     "dot_shardmap"):
+            assert got[name]["audit"]["collectives"], (name, rank)
+        assert got["maxpool"]["audit"]["multiset"] == {
+            "collective-permute": 2}

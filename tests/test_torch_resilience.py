@@ -1,7 +1,8 @@
 """The port's resilience ladder on the CPU, against the JAX package: the
 classifier tables, the chaos grammar and its seeded draws, the retry
 engine, the OOM ladder, the mesh epoch and ``rebuild_mesh``, and the
-sticky-CUDA rule of elastic recovery.
+sticky-CUDA rule of elastic recovery, and the checkpointed loop's
+failed snapshot write.
 
 Both packages get the same numpy inputs, the JAX package on its 8-device
 CPU mesh (4, 2) and the port on a logical (4, 2) mesh. Tolerances:
@@ -10,6 +11,9 @@ equal; retried results bit-equal to the clean ones; degraded results
 rtol 1e-6 (the JAX package's tolerance at
 ``tests/test_resilience.py:133``).
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -639,3 +643,67 @@ def test_quarantine_device_is_a_planned_idempotent_rebuild():
         grids.append(dict(m.shape))
     assert grids[0] == grids[1] == {"x": 7, "y": 1}
     assert 5 not in mesh_t.get_mesh().ids
+
+
+# -- the checkpointed loop's failed snapshot write ------------------------
+
+
+def test_failed_snapshot_write_is_counted_and_the_loop_carries_on(
+        tmp_path, monkeypatch):
+    """A snapshot write that raises ``OSError`` at one segment boundary
+    (the last) is counted once and warned; the run finishes with the
+    carries of the uninterrupted run in both packages, ``LATEST.json``
+    stays at the previous snapshot, and ``resume=`` restores it."""
+    import jax
+
+    from spartan_tpu.resilience import loop_ckpt as lc_j
+    from spartan_tpu_torch.resilience import loop_ckpt as lc_t
+
+    x = np.random.RandomState(5).rand(8, 4).astype(np.float32)
+    outs = {}
+    for name, st, lc, mesh in (
+            ("jax", st_j, lc_j, lambda: mesh_j.use_mesh(mesh_j.build_mesh(
+                jax.devices(), shape=(8, 1)))),
+            ("torch", st_t, lc_t, lambda: mesh_t.use_mesh(
+                mesh_t.build_mesh((8, 1))))):
+        save = lc.save_snapshot
+        failed = []
+
+        def flaky(path, step, carries, _save=save, _failed=failed):
+            if step == 20:
+                _failed.append(step)
+                raise OSError(f"disk full at iteration {step}")
+            return _save(path, step, carries)
+
+        monkeypatch.setattr(lc, "save_snapshot", flaky)
+        path = str(tmp_path / name)
+        with mesh():
+            xe = st.from_numpy(x)
+            before = _c(st, "resilience_checkpoint_failures")
+            out = st.loop(20, lambda c: c + xe, st.from_numpy(x),
+                          checkpoint_every=5, checkpoint_path=path)
+            got = np.asarray(out.glom())
+            counted = _c(st, "resilience_checkpoint_failures") - before
+            rec = out._resilience
+            monkeypatch.setattr(lc, "save_snapshot", save)
+            with open(os.path.join(path, "LATEST.json")) as f:
+                latest = json.load(f)["step"]
+            resumed = st.loop(20, lambda c: c + xe, st.from_numpy(x),
+                              checkpoint_every=5, checkpoint_path=path,
+                              resume=path)
+            outs[name] = (got, counted, rec, latest, failed,
+                          np.asarray(resumed.glom()),
+                          resumed._resilience)
+    want = x * 21.0
+    for name, (got, counted, rec, latest, failed, res_v, res_rec) in \
+            outs.items():
+        np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=name)
+        assert failed == [20], name
+        assert counted == 1, name
+        assert rec["checkpoint_failures"] == 1, name
+        assert rec["segments"] == 4 and rec["restores"] == 0, name
+        assert latest == 15, name
+        assert res_rec["resumed_from"] == 15, name
+        assert res_rec["segments"] == 1, name
+        np.testing.assert_array_equal(res_v, got, err_msg=name)
+    np.testing.assert_array_equal(outs["torch"][0], outs["jax"][0])

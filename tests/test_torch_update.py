@@ -372,6 +372,10 @@ def test_restore_budget_exhausted(tmp_path):
 
 
 def test_snapshot_write_failure_propagates(tmp_path, monkeypatch):
+    """A snapshot write that raises ``OSError`` propagates into the
+    loop's record, not out of the run (the JAX package's branch): each
+    failed boundary is counted, the run finishes, and the previous
+    snapshot stays the restore point."""
     from spartan_tpu_torch.utils import checkpoint as ckpt
 
     def broken(*a, **k):
@@ -380,10 +384,11 @@ def test_snapshot_write_failure_propagates(tmp_path, monkeypatch):
     st_t.loop(6, lambda w: w + 1.0, st_t.from_numpy(np.zeros(2, np.float32)),
               checkpoint_every=3, checkpoint_path=str(tmp_path))
     monkeypatch.setattr(ckpt, "save_tree", broken)
-    with pytest.raises(OSError, match="no space"):
-        st_t.loop(9, lambda w: w + 1.0,
-                  st_t.from_numpy(np.zeros(2, np.float32)),
-                  checkpoint_every=3, checkpoint_path=str(tmp_path))
+    out = st_t.loop(9, lambda w: w + 1.0,
+                    st_t.from_numpy(np.zeros(2, np.float32)),
+                    checkpoint_every=3, checkpoint_path=str(tmp_path))
+    np.testing.assert_array_equal(out.glom(), [9.0, 9.0])
+    assert out._resilience["checkpoint_failures"] == 3
     monkeypatch.undo()
     # the earlier run's last snapshot is still the one to restore
     step, carries = loop_ckpt.load_latest(str(tmp_path))
