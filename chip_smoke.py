@@ -5661,6 +5661,28 @@ def _guards_persist(card: str, workdir: str) -> None:
          f"{time.perf_counter() - t0:.1f} s on {card}")
 
 
+def _profile_launches(profile_mod, kk):
+    """Wrap the sampled profiler so its walks' k-means launches are
+    counted apart: (the counts [samples, launches], the undo)."""
+    sampled = [0, 0]
+    impl = profile_mod._profile_impl
+
+    def counted_impl(*a, **kw):
+        before = kk.LAUNCHES
+        try:
+            return impl(*a, **kw)
+        finally:
+            sampled[0] += 1
+            sampled[1] += kk.LAUNCHES - before
+
+    profile_mod._profile_impl = counted_impl
+
+    def undo():
+        profile_mod._profile_impl = impl
+
+    return sampled, undo
+
+
 def _km_steps(st, km, pe, c, first: int, last: int):
     """Iterations ``first``..``last - 1`` of k-means, one evaluate each."""
     for _ in range(first, last):
@@ -5721,23 +5743,12 @@ def _guards_integrity(st, kk, km, card: str) -> int:
         v0 = _counter(st, "integrity_violations")
         # the cadence also samples the profiler (every 5th successful
         # warm walk of a plan): its walks' launches are counted apart
-        sampled = [0, 0]
-        impl = profile_mod._profile_impl
-
-        def counted_impl(*a, **kw):
-            before = kk.LAUNCHES
-            try:
-                return impl(*a, **kw)
-            finally:
-                sampled[0] += 1
-                sampled[1] += kk.LAUNCHES - before
-
-        profile_mod._profile_impl = counted_impl
+        sampled, undo = _profile_launches(profile_mod, kk)
         _reset_counts(kk)
         try:
             got, plan = run(True)
         finally:
-            profile_mod._profile_impl = impl
+            undo()
         launches = kk.LAUNCHES
         status = integrity.status()
         hist = integrity.quarantine_history()
@@ -6415,7 +6426,8 @@ def _inc_pagerank_arm(st, streaming, a, starts, width: int, on: bool):
         reasons.append(rep.get("fallback") or rep.get("mode"))
     cnt = _delta(_inc_counters(st), c0)
     FLAGS.incremental = False
-    return pr.ranks.tensor, seam, steps, cnt, reasons
+    # the ranks (this rank's block of them on a group mesh)
+    return pr.ranks.local, seam, steps, cnt, reasons
 
 
 def _inc_order_check(n: int, dev) -> str:
@@ -6502,10 +6514,14 @@ def _inc_off_path(st, km, card: str, kmr: dict) -> dict:
     return {"off_path_cost": cost}
 
 
-def _inc_refine(st, kk, card: str, dev, kmr: dict) -> None:
+def _inc_refine(st, kk, card: str, dev, kmr: dict,
+                tag: str = "[incremental]", runs: int = 2) -> dict:
     """``OnlineKMeans.refine(iters=5)`` under the flag: 5 row-1 launches a
     refine, bit-equal to the flag-off run; the loop node's dirt is
-    whole-node, its fallback counted."""
+    whole-node, its fallback counted. On a group mesh each rank holds
+    its block of the points and counts its own launches; there the
+    second refine is a plan miss (the first moved the centers to the
+    step's output tiling), so a third is the warm one."""
     from spartan_tpu_torch.examples import streaming
     from spartan_tpu_torch.utils.config import FLAGS
 
@@ -6515,32 +6531,35 @@ def _inc_refine(st, kk, card: str, dev, kmr: dict) -> None:
         okm = streaming.OnlineKMeans(torch.from_numpy(kmr["c0"]).to(dev))
         launches = []
         c0 = _inc_counters(st)
-        for _ in range(2):  # a miss, then a warm hit on moved centers
+        for _ in range(runs):  # a miss, then a warm hit on new centers
             _reset_counts(kk)
             okm.refine(kmr["points"], iters=OKM_REFINE)
             torch.cuda.synchronize()
             launches.append(kk.LAUNCHES)
-        out[on] = (okm.centers.tensor.clone(), launches,
+        out[on] = (okm.centers.local.clone(), launches,
                    _delta(_inc_counters(st), c0))
     FLAGS.incremental = False
     (c_on, l_on, d_on), (c_off, l_off, _) = out[True], out[False]
-    _say(f"[incremental] OnlineKMeans.refine(iters={OKM_REFINE}) twice, "
+    _say(f"{tag} OnlineKMeans.refine(iters={OKM_REFINE}) {runs} times, "
          f"flag on: row-1 launches {l_on} (flag off {l_off}), counters "
          f"{d_on}, centers bit-equal to the flag-off run: "
          f"{torch.equal(c_on, c_off)} on {card}")
-    if l_on != [OKM_REFINE] * 2 or l_off != [OKM_REFINE] * 2:
-        _fail(f"[incremental] refine launched {l_on} / {l_off}, want "
+    if l_on != [OKM_REFINE] * runs or l_off != [OKM_REFINE] * runs:
+        _fail(f"{tag} refine launched {l_on} / {l_off}, want "
               f"{OKM_REFINE} a refine")
     if not torch.equal(c_on, c_off):
-        _fail("[incremental] refine under the flag is not bit-equal")
+        _fail(f"{tag} refine under the flag is not bit-equal")
     if d_on["fallbacks"] < 1 or d_on["hits"] != 0:
-        _fail(f"[incremental] the loop node was not a counted fallback: "
-              f"{d_on}")
+        _fail(f"{tag} the loop node was not a counted fallback: {d_on}")
+    return {"launches": l_on, "counters": d_on}
 
 
-def _inc_window(st, card: str, dev) -> None:
+def _inc_window(st, card: str, dev, pushes: int = INC_BATCHES,
+                tag: str = "[incremental]") -> dict:
     """The elementwise stream: a 1,048,576 x 128 window normalized with
-    fixed statistics after each 1% push; the restricted map serves it."""
+    fixed statistics after each 1% push; the restricted map serves it.
+    On a group mesh each rank holds its block of the window and compares
+    its own block of the results."""
     from spartan_tpu_torch.examples import streaming
     from spartan_tpu_torch.utils.config import FLAGS
 
@@ -6549,7 +6568,7 @@ def _inc_window(st, card: str, dev) -> None:
     first = torch.randn((INC_SW_ROWS, INC_SW_DIM), generator=gen,
                         device=dev)
     rows = [torch.randn((INC_SW_PUSH, INC_SW_DIM), generator=gen,
-                        device=dev) for _ in range(INC_BATCHES)]
+                        device=dev) for _ in range(pushes)]
     res = {}
     for on in (True, False):
         FLAGS.incremental = on
@@ -6559,29 +6578,37 @@ def _inc_window(st, card: str, dev) -> None:
         mean, std = sw.stats()
         sw.normalized(mean, std)  # seed
         c0 = _inc_counters(st)
-        ms = []
+        ms, seam = [], []
         for r in rows:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
             sw.push(r)
             torch.cuda.synchronize()
+            seam.append((time.perf_counter() - t) * 1e3)
             t = time.perf_counter()
             out = sw.normalized(mean, std)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
-        res[on] = (out.tensor.clone(), float(np.median(ms)),
-                   _delta(_inc_counters(st), c0))
+        res[on] = (out.local.clone(), float(np.median(ms)),
+                   _delta(_inc_counters(st), c0), float(np.median(seam)))
         del sw, out
+    del first, rows
     FLAGS.incremental = False
-    (o_on, m_on, d_on), (o_off, m_off, _) = res[True], res[False]
-    _say(f"[incremental] window {INC_SW_ROWS}x{INC_SW_DIM} f32, "
-         f"{INC_BATCHES} pushes of {INC_SW_PUSH} rows, normalized() with "
+    (o_on, m_on, d_on, s_on), (o_off, m_off, _, s_off) = (res[True],
+                                                          res[False])
+    _say(f"{tag} window {INC_SW_ROWS}x{INC_SW_DIM} f32, "
+         f"{pushes} pushes of {INC_SW_PUSH} rows, normalized() with "
          f"fixed statistics: median {m_on:.3f} ms on, {m_off:.3f} ms off "
-         f"(x{m_off / m_on:.2f}); counters {d_on}; bit-equal "
-         f"{torch.equal(o_on, o_off)} on {card}")
+         f"(x{m_off / m_on:.2f}); the push (the seam write) median "
+         f"{s_on:.3f} ms on, {s_off:.3f} ms off; counters {d_on}; "
+         f"bit-equal {torch.equal(o_on, o_off)} on {card}")
     if not torch.equal(o_on, o_off):
-        _fail("[incremental] the window stream is not bit-equal")
-    if d_on["hits"] != INC_BATCHES or d_on["fallbacks"] != 0:
-        _fail(f"[incremental] the window stream was not served "
+        _fail(f"{tag} the window stream is not bit-equal")
+    if d_on["hits"] != pushes or d_on["fallbacks"] != 0:
+        _fail(f"{tag} the window stream was not served "
               f"incrementally: {d_on}")
+    return {"on_ms": m_on, "off_ms": m_off, "seam_ms": s_on,
+            "counters": d_on}
 
 
 def phase_incremental(st, kk, km, card: str, dev, kmr: dict) -> dict:
@@ -6661,6 +6688,394 @@ def phase_incremental(st, kk, km, card: str, dev, kmr: dict) -> dict:
         inc.clear()
     _say(f"[incremental] phase {time.perf_counter() - t0:.1f} s on {card}")
     return out
+
+
+# -- [integrity_group] and [incremental_group] ----------------------------
+#
+# Two gloo ranks sharing the card on a (2, 1) group mesh. [integrity_group]
+# runs config 3 under the SDC sentinel: the flag-off loop, iterations/s
+# and each rank's peak with the check off and on, a clean checked run of
+# IG_ITERS iterations in a checkpointed st.loop, then the planted fault:
+# rank IG_VICTIM corrupts the sampled walks IG_SDC names, both ranks
+# vote alike and raise the same quarantining IntegrityError at the third
+# violation, and a one-process survivor world resumes the per-rank
+# snapshots, bit-equal to a clean one-process resume of a copy of them.
+# st.loop walks one plan a segment, so the loop is checkpointed every
+# iteration to give the cadence IG_ITERS walks. [incremental_group] runs
+# the engine's streams on the group: the 1,048,576 x 128 window with
+# IGI_PUSHES pushes, PageRank on a dense IGI_PR_N^2 transition (every
+# product step falls back under contraction-order) and the refine.
+IG_SAMPLE, IG_STRIKES, IG_VICTIM, IG_ITERS = 5, 3, 1, 15
+IG_SDC = "sdc@4#1,sdc@9#1,sdc@14#1"
+IG_IPS_REPS, IG_TIMEOUT_S, IG_JOIN_S = 3, 120, 300
+IGI_PUSHES, IGI_PR_N, IGI_PR_BATCHES = 20, 16_384, 4
+
+
+def group_guard_child(workdir: str, rank: int) -> None:
+    """One rank of an [integrity_group] or [incremental_group] world on
+    the card (gloo, local storage), by ``job.json``'s ``kind``: the
+    checked k-means runs (``integrity``), a resume of their snapshots
+    (``resume``), or the engine's streams (``incremental``); results to
+    ``workdir``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import importlib
+
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.kernels import kmeans as kk
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+    from spartan_tpu_torch.resilience import integrity
+
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = json.load(f)
+    dev = _child_device()
+    st.set_default_device(dev)
+    if not mesh_mod.initialize_distributed(
+            "file://" + os.path.join(workdir, "store"),
+            num_processes=job["world"], process_id=rank, backend="gloo",
+            device=dev, timeout_s=IG_TIMEOUT_S):
+        _fail("[integrity_group] child: no process group")
+    card = job["card"]
+    pts_np = np.load(job["points"], mmap_mode="r")
+    c0_np = np.load(job["c0"])
+    res = {"rank": rank}
+    if job["kind"] == "incremental":
+        kmr = {"points": st.as_expr(st.from_numpy(pts_np).evaluate()),
+               "c0": c0_np}
+        res.update(_ig_incremental(st, kk, card, dev, kmr))
+    else:
+        # the step keeps its centers replicated (its own out_tiling), so
+        # the healthy rank's copy outvotes a corrupt one; the tiling
+        # pass would split them, and two ranks' split blocks tie (the
+        # JAX package's vote: both holders implicated)
+        st.FLAGS.opt_auto_tiling = False
+        pe = st.from_numpy(pts_np).evaluate()
+        # the centers in the step's output tiling: every walk of the
+        # loop's segments is one plan, whose walks the cadence counts
+        t_out = km.kmeans_step(pe, st.from_numpy(c0_np), KM_K).evaluate(
+        ).tiling
+        c0 = st.from_numpy(c0_np, tiling=t_out).evaluate()
+
+        def body(c):
+            return km.kmeans_step(pe, c, KM_K)
+
+        if job["kind"] == "resume":
+            _reset_counts(kk)
+            c = st.loop(IG_ITERS, body, c0, checkpoint_every=1,
+                        resume=job["ck"])
+            res["centers"] = c.glom().tolist()
+            res["launches"] = kk.LAUNCHES
+            res["resumed_from"] = c._resilience["resumed_from"]
+        else:
+            profile_mod = importlib.import_module(
+                "spartan_tpu_torch.obs.profile")
+            res.update(_ig_checked(st, km, kk, integrity, base,
+                                   profile_mod, pe, c0, body, job, dev))
+    with open(os.path.join(workdir, f"result{rank}.json"), "w") as f:
+        json.dump(res, f)
+    st.shutdown()
+
+
+def _ig_checked(st, km, kk, integrity, base, profile_mod, pe, c0, body,
+                job, dev) -> dict:
+    """The 2-rank world of [integrity_group] (module section comment)."""
+    res = {}
+    st.FLAGS.retry_backoff_s = 0.0
+    st.FLAGS.profile_sample_every = IG_SAMPLE
+    st.FLAGS.sdc_quarantine_strikes = IG_STRIKES
+    st.FLAGS.integrity_check = False
+    off = st.loop(IG_ITERS, body, c0).glom()
+    # iterations/s and the rank's peak with the check off and on, one
+    # evaluate an iteration (every IG_SAMPLE-th walk checked), best of
+    # IG_IPS_REPS each, alternated; the sampled profiler, which rides
+    # the same cadence, is held off in both arms (its replay's peak
+    # would hide the check's)
+    ips = {False: [], True: []}
+    peak = {False: 0, True: 0}
+    sample = profile_mod.maybe_sample
+    profile_mod.maybe_sample = lambda *a, **kw: None
+    try:
+        base_bytes = torch.cuda.memory_allocated(dev)
+        for _ in range(IG_IPS_REPS):
+            for check in (False, True):
+                st.FLAGS.integrity_check = check
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t = time.perf_counter()
+                _km_steps(st, km, pe, c0, 0, IG_ITERS)
+                torch.cuda.synchronize()
+                ips[check].append(IG_ITERS / (time.perf_counter() - t))
+                peak[check] = max(peak[check], torch.cuda.max_memory_allocated(
+                    dev) - base_bytes)
+    finally:
+        profile_mod.maybe_sample = sample
+    res["ips_off"], res["ips_on"] = max(ips[False]), max(ips[True])
+    res["peak_off"], res["peak_on"] = peak[False], peak[True]
+
+    verdicts, implicated = [], []
+    stamp, note = integrity._stamp, integrity.note_violation
+
+    def spy_stamp(d, p, v):
+        verdicts.append({k: v[k] for k in v if k not in ("t", "plan")})
+        return stamp(d, p, v)
+
+    def spy_note(imp):
+        implicated.append(list(imp))
+        return note(imp)
+
+    integrity._stamp, integrity.note_violation = spy_stamp, spy_note
+    sampled, undo = _profile_launches(profile_mod, kk)
+    try:
+        # the clean checked run, snapshotted every iteration
+        st.FLAGS.integrity_check = True
+        integrity.reset()
+        base.clear_plan_cache()
+        _reset_counts(kk)
+        clean = st.loop(IG_ITERS, body, c0, checkpoint_every=1,
+                        checkpoint_path=job["ck_clean"]).glom()
+        torch.cuda.synchronize()
+        res["clean_equal"] = bool(np.array_equal(_bits(clean), _bits(off)))
+        res["clean_launches"] = kk.LAUNCHES
+        res["clean_samples"] = list(sampled)
+        res["clean_verdicts"] = list(verdicts)
+        res["clean_checks"] = integrity.status()["checks"]
+        # the planted fault
+        integrity.reset()
+        base.clear_plan_cache()
+        verdicts.clear()
+        sampled[:] = [0, 0]
+        _reset_counts(kk)
+        err = None
+        with st.chaos(IG_SDC, seed=3) as plan:
+            try:
+                st.loop(IG_ITERS, body, c0, checkpoint_every=1,
+                        checkpoint_path=job["ck_fault"]).glom()
+            except integrity.IntegrityError as e:
+                err = {"quarantined": e.quarantined,
+                       "suspects": list(e.suspects),
+                       "kind": getattr(e, "fault_kind", None)}
+        torch.cuda.synchronize()
+        res["fault_error"] = err
+        res["fault_implicated"] = implicated
+        res["fault_verdicts"] = list(verdicts)
+        res["fault_fired"] = [f["occurrence"] for f in plan.fired]
+        res["fault_launches"] = kk.LAUNCHES
+        res["fault_samples"] = list(sampled)
+        res["history"] = [{k: h[k] for k in ("device", "strikes", "remedy")}
+                          for h in integrity.quarantine_history()]
+        res["quarantines"] = _counter(st, "integrity_quarantines")
+    finally:
+        integrity._stamp, integrity.note_violation = stamp, note
+        undo()
+        st.FLAGS.integrity_check = False
+    res["off_centers"] = off.tolist()
+    return res
+
+
+def _ig_world(workdir: str, job: dict) -> list:
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump(job, f)
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--group-guard-child", workdir, str(r)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for r in range(job["world"])]
+
+
+def _ig_join(procs: list, workdir: str, label: str) -> list:
+    """Each rank's result of a world, after it exited 0."""
+    try:
+        logs = [p.communicate(timeout=IG_JOIN_S)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        _fail(f"{label}: a child did not finish in {IG_JOIN_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    out = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            _fail(f"{label}: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+        for ln in log.splitlines():
+            if ln.startswith("[incremental_group]"):
+                _say(f"{ln} (rank {r})")
+        with open(os.path.join(workdir, f"result{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_integrity_group(st, card: str, workdir: str) -> dict:
+    """[integrity_group] (section comment above)."""
+    t0 = time.perf_counter()
+    pts_np, c0_np, _ = _data(LOCAL_KM_N, KM_D, KM_K, "clustered", 0)
+    base = {"points": os.path.join(workdir, "points.npy"),
+            "c0": os.path.join(workdir, "c0.npy"), "card": card}
+    np.save(base["points"], pts_np)
+    np.save(base["c0"], c0_np)
+    del pts_np
+    ck_fault = os.path.join(workdir, "ck_fault")
+    job = dict(base, kind="integrity", world=2,
+               ck_clean=os.path.join(workdir, "ck_clean"), ck_fault=ck_fault)
+    r = _ig_join(_ig_world(os.path.join(workdir, "w2"), job),
+                 os.path.join(workdir, "w2"), "[integrity_group]")
+    tag = "[integrity_group]"
+    for key in ("clean_verdicts", "fault_verdicts", "fault_implicated",
+                "fault_error", "history", "clean_checks", "fault_fired"):
+        if r[0][key] != r[1][key]:
+            _fail(f"{tag} the ranks differ on {key}: {r[0][key]} / "
+                  f"{r[1][key]}")
+    x = r[0]
+    if (not x["clean_equal"] or not r[1]["clean_equal"]
+            or x["clean_checks"] != IG_ITERS // IG_SAMPLE
+            or any(v["verdict"] != "ok" for v in x["clean_verdicts"])):
+        _fail(f"{tag} clean run: checks {x['clean_checks']}, verdicts "
+              f"{x['clean_verdicts']}, bit-equal {x['clean_equal']}")
+    for rr in r:
+        walks = IG_ITERS
+        want = walks + rr["clean_checks"] + rr["clean_samples"][1]
+        if rr["clean_launches"] != want:
+            _fail(f"{tag} rank {rr['rank']}: {rr['clean_launches']} "
+                  f"k-means launches, want {walks} walks + "
+                  f"{rr['clean_checks']} re-walks + the profiler "
+                  f"samples' {rr['clean_samples'][1]}")
+    err = x["fault_error"]
+    # replicated centers: the JAX package's vote names the victim alone
+    if (err is None or err["quarantined"] != IG_VICTIM
+            or err["kind"] != "sdc_quarantine"
+            or x["fault_implicated"] != [[IG_VICTIM]] * IG_STRIKES
+            or [h["device"] for h in x["history"]] != [IG_VICTIM]
+            or x["quarantines"] != 1):
+        _fail(f"{tag} planted fault: error {err}, implicated "
+              f"{x['fault_implicated']}, history {x['history']}")
+    moved, moved1 = ([(v.get("moved_sent"), v.get("moved_recv"))
+                      for v in rr["clean_verdicts"]] for rr in r)
+    with open(os.path.join(ck_fault, "LATEST.json")) as f:
+        step = json.load(f)["step"]
+    _say(f"{tag} config-3 k-means {LOCAL_KM_N}x{KM_D}, k = {KM_K}, on a "
+         f"(2, 1) group of 2 gloo ranks sharing the card, every "
+         f"{IG_SAMPLE}th walk checked: clean run of {IG_ITERS} iterations "
+         f"in st.loop(checkpoint_every=1): {x['clean_checks']} checks, "
+         f"verdicts {[v['verdict'] for v in x['clean_verdicts']]} on both "
+         f"ranks, centers bit-equal to the flag-off run; row-1 launches a "
+         f"rank {[rr['clean_launches'] for rr in r]} = {IG_ITERS} walks + "
+         f"{x['clean_checks']} re-walks + the profiler samples' "
+         f"{[rr['clean_samples'][1] for rr in r]}")
+    _say(f"{tag} each check moves the split leaf's block to the rank "
+         f"holding its rotated coordinates: rank 0 sent/received "
+         f"{moved} bytes, rank 1 {moved1}; peak above the resident "
+         f"points a rank, the sampled profiler held off in both arms: "
+         f"{x['peak_off']} B with the check off, {x['peak_on']} B on "
+         f"(rank 1: {r[1]['peak_off']} / "
+         f"{r[1]['peak_on']}); iterations/s (one evaluate an iteration, "
+         f"best of {IG_IPS_REPS}) off {x['ips_off']:.2f}, on "
+         f"{x['ips_on']:.2f} ({(1 - x['ips_on'] / x['ips_off']) * 100:.1f}% "
+         f"lower) on {card}")
+    _say(f"{tag} planted {IG_SDC} (rank {IG_VICTIM} corrupts): fired at "
+         f"walks {x['fault_fired']}, {len(x['fault_implicated'])} "
+         f"violations implicating {x['fault_implicated']} on both ranks; "
+         f"both raised IntegrityError(quarantined={err['quarantined']}, "
+         f"class {err['kind']}) at the third; LATEST snapshot step {step}")
+    # the survivor world: one process resumes the per-rank snapshots;
+    # a clean one-process world resumes a copy of them
+    ref = os.path.join(workdir, "ck_ref")
+    _copy_snapshot(ck_fault, ref, step)
+    surv = _ig_world(os.path.join(workdir, "surv"),
+                     dict(base, kind="resume", world=1, ck=ck_fault))
+    clean = _ig_world(os.path.join(workdir, "clean"),
+                      dict(base, kind="resume", world=1, ck=ref))
+    sv = _ig_join(surv, os.path.join(workdir, "surv"), tag)[0]
+    cl = _ig_join(clean, os.path.join(workdir, "clean"), tag)[0]
+    if (sv["resumed_from"] != step or sv["launches"] != IG_ITERS - step
+            or not np.array_equal(_bits(sv["centers"]),
+                                  _bits(cl["centers"]))):
+        _fail(f"{tag} survivor: resumed from {sv['resumed_from']} (want "
+              f"{step}), {sv['launches']} launches, bit-equal to the clean "
+              "resume: "
+              f"{np.array_equal(_bits(sv['centers']), _bits(cl['centers']))}")
+    rel = _rel(np.asarray(sv["centers"]), np.asarray(x["off_centers"]))
+    _say(f"{tag} one-process survivor world resumed from step "
+         f"{sv['resumed_from']} with {sv['launches']} k-means launches, "
+         f"centers bit-equal to a clean one-process resume of a copy of "
+         f"the snapshots; {rel:.2e} relative to the 2-rank flag-off "
+         f"centers (one rank sums its points in another order)")
+    _say(f"{tag} phase {time.perf_counter() - t0:.1f} s on {card}")
+    return {"launches": [rr["clean_launches"] for rr in r],
+            "ips_off": x["ips_off"], "ips_on": x["ips_on"]}
+
+
+def _ig_incremental(st, kk, card: str, dev, kmr: dict) -> dict:
+    """One rank's streams of [incremental_group]."""
+    from spartan_tpu_torch.examples import streaming
+    from spartan_tpu_torch.expr import incremental as inc
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    tag = "[incremental_group]"
+    FLAGS.result_cache_bytes = INC_CACHE_BYTES
+    out = {"window": _inc_window(st, card, dev, IGI_PUSHES, tag)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(83)
+    n = IGI_PR_N
+    a = torch.rand((n, n), generator=gen, device=dev)
+    a /= a.sum(1, keepdim=True)
+    width = -(-n * int(INC_FRAC * 1000) // 1000)
+    starts = [(j * 7919 * width) % (n - width)
+              for j in range(1, IGI_PR_BATCHES + 1)]
+    on = _inc_pagerank_arm(st, streaming, a, starts, width, True)
+    off = _inc_pagerank_arm(st, streaming, a, starts, width, False)
+    del a
+    equal = torch.equal(on[0], off[0])
+    _say(f"{tag} PageRank dense {n}^2 f32, {IGI_PR_BATCHES} batches of "
+         f"{width} columns: step median {np.median(on[2]):.3f} ms on, "
+         f"{np.median(off[2]):.3f} ms off; seam write median "
+         f"{np.median(on[1]):.3f} ms; counters on {on[3]}; reasons "
+         f"{on[4]}; ranks bit-equal {equal} on {card}")
+    if not equal:
+        _fail(f"{tag} PageRank is not bit-equal")
+    if (on[3]["fallbacks"] != IGI_PR_BATCHES or on[3]["hits"] != 0
+            or any(r != "contraction-order" for r in on[4])):
+        _fail(f"{tag} PageRank steps did not fall back under "
+              f"contraction-order: {on[3]}, {on[4]}")
+    out["pagerank"] = {"on_ms": float(np.median(on[2])),
+                       "off_ms": float(np.median(off[2])),
+                       "seam_ms": float(np.median(on[1])),
+                       "counters": on[3], "reasons": on[4]}
+    out["refine"] = _inc_refine(st, kk, card, dev, kmr, tag, runs=3)
+    FLAGS.incremental = False
+    inc.clear()
+    return out
+
+
+def phase_incremental_group(st, card: str, workdir: str) -> dict:
+    """[incremental_group] (section comment above)."""
+    t0 = time.perf_counter()
+    pts_np, c0_np, _ = _data(LOCAL_KM_N, KM_D, KM_K, "clustered", 0)
+    base = {"points": os.path.join(workdir, "points.npy"),
+            "c0": os.path.join(workdir, "c0.npy"), "card": card}
+    if not os.path.exists(base["points"]):
+        np.save(base["points"], pts_np)
+        np.save(base["c0"], c0_np)
+    del pts_np
+    d = os.path.join(workdir, "inc")
+    r = _ig_join(_ig_world(d, dict(base, kind="incremental", world=2)), d,
+                 "[incremental_group]")
+    for key in ("window", "pagerank", "refine"):
+        if r[0][key]["counters"] != r[1][key]["counters"]:
+            _fail(f"[incremental_group] the ranks' {key} counters differ: "
+                  f"{r[0][key]['counters']} / {r[1][key]['counters']}")
+    if r[0]["pagerank"]["reasons"] != r[1]["pagerank"]["reasons"]:
+        _fail("[incremental_group] the ranks' PageRank reasons differ")
+    w0 = r[0]["window"]["counters"]
+    _say(f"[incremental_group] both ranks alike: window {w0}, PageRank "
+         f"{r[0]['pagerank']['counters']}, refine "
+         f"{r[0]['refine']['counters']} with row-1 launches a rank "
+         f"{[rr['refine']['launches'] for rr in r]}; phase "
+         f"{time.perf_counter() - t0:.1f} s on {card}")
+    return {"refine_launches": [rr["refine"]["launches"][0] for rr in r],
+            "window_on_ms": r[0]["window"]["on_ms"],
+            "window_off_ms": r[0]["window"]["off_ms"]}
 
 
 def monitor_child(workdir: str, rank: int) -> None:
@@ -6949,6 +7364,9 @@ def main() -> None:
     if len(sys.argv) == 4 and sys.argv[1] == "--monitor-child":
         monitor_child(sys.argv[2], int(sys.argv[3]))
         return
+    if len(sys.argv) == 4 and sys.argv[1] == "--group-guard-child":
+        group_guard_child(sys.argv[2], int(sys.argv[3]))
+        return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
               "the port on the card")
@@ -7036,6 +7454,12 @@ def main() -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     incr = phase_incremental(st, kk, km, card, dev, kmr)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_group_guard_")
+    try:
+        igr = phase_integrity_group(st, card, workdir)
+        incg = phase_incremental_group(st, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_monitor_")
     try:
         phase_monitor(st, kk, km, card, kmr, workdir)
@@ -7070,7 +7494,10 @@ def main() -> None:
         "resilience_launches": resr["launches"],
         "elastic_survivor_launches": elr["survivor_launches"],
         "integrity_launches": guard["integrity_launches"],
-        "serve_launches": serve["launches"]}, {
+        "serve_launches": serve["launches"],
+        "group_integrity_kmeans_launches_per_rank": igr["launches"],
+        "group_incremental_refine_launches_per_rank":
+            incg["refine_launches"]}, {
         "name": "windowed_segsum", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/segment.cu",
         "replaces": "spartan_tpu/kernels/segment.py:148",

@@ -147,8 +147,8 @@ class Lineage:
         """The post-write values of the delta: available iff EXACTLY one
         write landed in ``v0 < version <= v1`` and its values were
         stashed whole (stashes of sequential writes do not compose: the
-        later region may overlap the earlier; on a group mesh a rank
-        stashes only where the region meets its block)."""
+        later region may overlap the earlier; a group mesh stashes
+        nothing)."""
         found = None
         for v, ext in self.log:
             if v0 < v <= v1:
@@ -453,8 +453,9 @@ class DistArray:
         The new array shares this array's :class:`Lineage` with
         ``region`` logged as its delta; an overwrite with
         ``FLAGS.incremental`` on also stashes the post-write values of
-        the region (a rank's part of it on a group mesh), which the
-        incremental engine serves a restricted leaf from."""
+        the region, which the incremental engine serves a restricted
+        leaf from (not on a group mesh, where the engine slices the
+        rank's own block)."""
         if not isinstance(region, TileExtent):
             region = extent_mod.from_slice(region, self.shape)
         op = REDUCERS[_canonical_reducer(reducer)]
@@ -470,7 +471,7 @@ class DistArray:
             dp = d[part.offset_from(region).to_slice()]
             out[sl] = dp if op == "set" else dtypes.call(_COMBINE[op],
                                                          out[sl], dp)
-            if op == "set" and _stash_enabled():
+            if op == "set" and not self.mesh.is_group and _stash_enabled():
                 stash = out[sl].clone()
         res = DistArray.from_local(out, self.tiling, self.shape, self.mesh)
         self._record_mutation(res, region, stash)

@@ -119,6 +119,80 @@ class Tiling:
         return True
 
 
+class BoxTiling(Tiling):
+    """Where the ranks of a group mesh hold a box cut from a tiled
+    array: the box at ``offset`` in an array of shape ``parent`` tiled
+    ``axes``, each position holding the part of the box that its block
+    of the parent covers (possibly empty). The incremental engine's
+    restricted walk (``expr/incremental.py``) carries the values cut
+    from its leaves under it, so the restricted nodes and the splice
+    work inside each rank's block; a move to any other tiling goes
+    through the piece exchange (``parallel/redistribute.relayout``)."""
+
+    __slots__ = ("parent", "offset")
+
+    def __init__(self, axes: Sequence[Optional[str]],
+                 parent: Sequence[int], offset: Sequence[int]):
+        super().__init__(axes)
+        self.parent: Tuple[int, ...] = tuple(int(d) for d in parent)
+        self.offset: Tuple[int, ...] = tuple(int(o) for o in offset)
+
+    def __hash__(self) -> int:
+        return hash((self.axes, self.parent, self.offset))
+
+    def __eq__(self, other: object) -> bool:
+        return (isinstance(other, BoxTiling) and self.axes == other.axes
+                and self.parent == other.parent
+                and self.offset == other.offset)
+
+    def __repr__(self) -> str:
+        return (f"BoxTiling({self.axes}, parent={self.parent}, "
+                f"offset={self.offset})")
+
+    def drop_axis(self, axis: int) -> "BoxTiling":
+        axis = axis % self.ndim
+        return BoxTiling(self.axes[:axis] + self.axes[axis + 1:],
+                         self.parent[:axis] + self.parent[axis + 1:],
+                         self.offset[:axis] + self.offset[axis + 1:])
+
+    def whole(self, axis: int) -> "BoxTiling":
+        """The tiling with dim ``axis`` held whole by every position (a
+        dim of size 1 after a reduction kept it)."""
+        return BoxTiling(self.axes[:axis] + (None,) + self.axes[axis + 1:],
+                         self.parent[:axis] + (1,) + self.parent[axis + 1:],
+                         self.offset[:axis] + (0,) + self.offset[axis + 1:])
+
+    def block_extent(self, shape: Sequence[int], mesh: Optional[Mesh] = None,
+                     coords: Optional[dict] = None) -> TileExtent:
+        blk = Tiling(self.axes).block_extent(self.parent, mesh, coords)
+        ul, lr = [], []
+        for lo, hi, off, d in zip(blk.ul, blk.lr, self.offset, shape):
+            a = min(max(lo - off, 0), int(d))
+            ul.append(a)
+            lr.append(max(a, min(max(hi - off, 0), int(d))))
+        return TileExtent(ul, lr, shape)
+
+    def extents(self, shape: Sequence[int],
+                mesh: Optional[Mesh] = None) -> List[TileExtent]:
+        mesh = mesh or mesh_mod.get_mesh()
+        return [self.block_extent(shape, mesh, {AXIS_ROW: i, AXIS_COL: j})
+                for i in range(mesh.shape[AXIS_ROW])
+                for j in range(mesh.shape[AXIS_COL])]
+
+    def divisible(self, shape: Sequence[int],
+                  mesh: Optional[Mesh] = None) -> bool:
+        return False  # its blocks follow the parent's grid, not shape's
+
+
+def box_of(t: Tiling, shape: Sequence[int], ul: Sequence[int]) -> BoxTiling:
+    """The :class:`BoxTiling` of the box at ``ul`` cut from an array of
+    ``shape`` under ``t`` (itself possibly a box: the cuts compose)."""
+    if isinstance(t, BoxTiling):
+        return BoxTiling(t.axes, t.parent,
+                         tuple(a + b for a, b in zip(t.offset, ul)))
+    return BoxTiling(t.axes, shape, ul)
+
+
 def mesh_axes_of(a) -> Tuple[str, ...]:
     """The mesh axes of one tiling entry (None, an axis, or a tuple of
     axes)."""
@@ -235,6 +309,8 @@ def default_tiling(shape: Sequence[int],
 def sanitize(t: Tiling, shape: Sequence[int],
              mesh: Optional[Mesh] = None) -> Tiling:
     """Drop mesh axes from dims they don't divide evenly."""
+    if isinstance(t, BoxTiling):
+        return t  # its blocks follow its parent's grid
     mesh = mesh or mesh_mod.get_mesh()
     axes = list(t.axes)
     for i, (d, n) in enumerate(zip(shape, t.tiles_per_dim(mesh))):

@@ -87,7 +87,7 @@ class IncrementalPageRank:
         self.damping = float(damping)
         self.rebase_every = int(rebase_every)
         self._base = da_mod.from_tensor(torch.full(
-            (n,), 1.0 / n, dtype=self.A.tensor.dtype,
+            (n,), 1.0 / n, dtype=self.A.local.dtype,
             device=self.A.device), mesh=self.A.mesh)
         self.ranks: DistArray = self._base
         self._batches_since_rebase = 0
@@ -170,7 +170,7 @@ class OnlineKMeans:
         self.centers = _dist(centers)
         self.k, self.d = self.centers.shape
         self._counts = da_mod.from_tensor(torch.ones(
-            (self.k,), dtype=self.centers.tensor.dtype,
+            (self.k,), dtype=self.centers.local.dtype,
             device=self.centers.device), mesh=self.centers.mesh)
 
     def partial_fit(self, batch: Any) -> DistArray:

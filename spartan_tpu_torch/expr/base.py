@@ -1321,16 +1321,18 @@ def plan_leaves(plan: _Plan) -> List[Expr]:
     return [by_id[lid] for lid in plan.leaf_ids]
 
 
-def walk_env(plan: _Plan, leaves: Sequence[Expr], mesh) -> Dict[int, Any]:
+def walk_env(plan: _Plan, leaves: Sequence[Expr], mesh,
+             seeds: Optional[Sequence[Any]] = None) -> Dict[int, Any]:
     """The env a walk of ``plan`` starts from: each of ``leaves`` (in
     ``plan.leaf_ids`` order) seeded as its tensor, or its local value
-    on a group mesh; the walk frees each value at its last consumer
-    (``FREE_AT_LAST_USE``)."""
+    on a group mesh (``seeds`` when given: the integrity check's leaves
+    moved onto a rotated mesh); the walk frees each value at its last
+    consumer (``FREE_AT_LAST_USE``)."""
     free = plan.release if FREE_AT_LAST_USE else None
     if mesh.is_group:
-        env: Dict[int, Any] = GroupEnv(mesh, (
-            (lid, _leaf_local(leaf, mesh))
-            for lid, leaf in zip(plan.leaf_ids, leaves)))
+        if seeds is None:
+            seeds = [_leaf_local(leaf, mesh) for leaf in leaves]
+        env: Dict[int, Any] = GroupEnv(mesh, zip(plan.leaf_ids, seeds))
         if free is not None:
             env.consumers = free[0]
             env.remaining = dict(free[0])

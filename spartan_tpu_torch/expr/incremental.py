@@ -59,9 +59,22 @@ reaps entries born under a dead mesh, and an entry whose result or
 leaves were donated is dropped on first touch. A published entry is
 never written in place: a splice clones the cached result.
 
-On a group mesh every rank holds only its block, and the restricted
-walk would need each rank's share of the dirty region; the engine does
-not do that yet and falls back with the reason ``group-mesh``.
+On a group mesh every rank caches its block of the result (whether to
+cache is decided on the global result size, so every rank caches
+alike), and the same decisions run on every rank from data every rank
+has alike: the lineage's global regions, the propagated box, the
+``dirty-frac`` threshold on the global fraction, the order granule
+(agreed once per group, :func:`_granule`) and the cache hit. The
+restricted sub-DAG and the splice run as one group walk: a leaf's
+slice is the rank's share of the box, the part of it that the rank's
+block holds (possibly empty; ``array/tiling.BoxTiling``), elementwise
+maps and reductions along unsplit axes compute only that share, a
+reduction along a split axis or a product issues its collective over
+the box's slab on every rank (an empty share takes part), and the
+splice writes each rank's share into a clone of its cached block. No
+collective moves the box when the walk keeps it where the ranks hold
+it. The mutation seam stashes nothing there: the slice of the rank's
+own block serves the restricted leaf.
 
 Expr-layer imports happen inside functions: expr/base.py binds this
 module at import time (``incremental_mod``, swappable by a null shim)
@@ -154,6 +167,98 @@ def order_granule(device: torch.device) -> Optional[int]:
     return None
 
 
+def reduce_granule(device: torch.device) -> Optional[int]:
+    """The width the kept axes of a restricted sum are widened to on
+    ``device`` (window ends on multiples of it from the start of each
+    block the reduction runs on, or at the block's end) where a reduced
+    axis lies outside a cut kept axis, or None when no width keeps the
+    full reduction's order.
+
+    * ``cpu``: torch sums an outer axis over the inner columns in
+      vectorized groups, and columns outside a whole group take another
+      summation order; windows on multiples of 32 columns gave the full
+      sum's bits for every shape measured (31 to 20,000 rows, 16 to
+      1000 columns, 1 and 4 threads), windows on multiples of 16 did
+      not.
+    * ``cuda``: the reduction's launch configuration follows the shape,
+      so a restricted sum's dirt is whole-node under the counted reason
+      ``reduction-order``.
+
+    An inner axis (each kept element reduced over contiguous values)
+    and ``max``/``min``/``argmax``/``argmin`` (exact in any order) are
+    not held to it."""
+    return 32 if device.type == "cpu" else None
+
+
+_ORDERED = ("sum", "mean", "prod")
+
+
+def _outer_cut(n: Any, out_box: TileExtent) -> List[int]:
+    """The pre-reduce axes of the reduction ``n`` that its restricted
+    output ``out_box`` cuts with a reduced axis outside them (their
+    restricted sums may take another order), where ``n``'s op sums."""
+    if n.op not in _ORDERED or n.axis is None:
+        return []
+    ps = n._pre_shape
+    kept = [d for d in range(len(ps)) if d not in n.axis]
+    keep_dims = n.keepdims and n.op not in ("argmax", "argmin")
+    out = []
+    for i, d in enumerate(kept):
+        j = d if keep_dims else i
+        if (out_box.ul[j], out_box.lr[j]) != (0, ps[d]) \
+                and any(a < d for a in n.axis):
+            out.append(d)
+    return out
+
+
+def _reduce_window(n: Any, d: int, lo: int, hi: int, granule: int,
+                   mesh: Any) -> Tuple[int, int]:
+    """``[lo, hi)`` of pre-reduce axis ``d`` widened to the points
+    ``reduce_granule`` allows: multiples of ``granule`` from the start
+    of each block the reduction runs on (one block on a logical mesh,
+    the ranks' blocks of the pre-reduce tiling on a group mesh), and
+    the blocks' ends."""
+    from ..array import extent as extent_mod
+    from ..array import tiling as tiling_mod
+
+    size = n._pre_shape[d]
+    tiles = (tiling_mod.tile_count(n._pre_tiling().axes[d], mesh)
+             if mesh.is_group else 1)
+    points = set()
+    for a, b in extent_mod.compute_splits(size, tiles):
+        points.update(range(a, b, granule))
+        points.add(b)
+    points.add(0)
+    return (max(p for p in points if p <= lo),
+            min(p for p in points if p >= hi))
+
+
+# id(process group) -> the order granule its ranks agreed on
+_agreed: Dict[int, Optional[int]] = {}
+
+
+def _granule(mesh: Any) -> Optional[int]:
+    """:func:`order_granule` of the mesh's device; on a group mesh the
+    smallest of the ranks' answers (a rank whose library splits the
+    contraction says None), agreed once per group, so every rank
+    restricts the same products (it decides which collectives the
+    restricted walk issues)."""
+    g = order_granule(mesh.device)
+    if not mesh.is_group:
+        return g
+    key = id(mesh.group)
+    with _lock:
+        if key in _agreed:
+            return _agreed[key]
+    from ..parallel import collectives as coll
+
+    got = int(coll.reduce_over(torch.tensor([g or 0], device=mesh.device),
+                               mesh.axis_names, "min", mesh)[0])
+    with _lock:
+        _agreed[key] = got or None
+    return got or None
+
+
 def _widen(lo: int, hi: int, dim: int, granule: int) -> Tuple[int, int]:
     return (lo // granule) * granule, min(dim, -(-hi // granule) * granule)
 
@@ -217,6 +322,7 @@ def clear() -> int:
     with _lock:
         n = len(_cache)
         _cache.clear()
+        _agreed.clear()
         _total_bytes = 0
     _gauge()
     return n
@@ -289,9 +395,11 @@ def note_result(plan: Any, leaves: List[Any], order: Tuple[int, ...],
     """Seed/refresh the result cache after an ordinary (full) dispatch.
     Called from both evaluate paths behind the FLAGS.incremental read;
     skips anything outside the model (tuple roots, donated buffers,
-    oversized results, group meshes) — those evaluations stay full."""
+    oversized results) — those evaluations stay full. On a group mesh
+    each rank caches its block; the entry is charged the GLOBAL sizes,
+    which every rank has alike, so every rank makes the same choice."""
     global _total_bytes
-    if getattr(_tls, "active", False) or donated or mesh.is_group:
+    if getattr(_tls, "active", False) or donated:
         return
     from ..array.distarray import DistArray
 
@@ -432,6 +540,13 @@ def _propagate(n: Any, dirt: Dict[int, Any], memo: Dict[int, Any],
             for a in sorted(n.axis, reverse=True):
                 box = box.drop_axis(a)
             r = TileExtent(box.ul, box.lr, n.shape)
+        if (r is not None and r is not FULL and _outer_cut(n, r)
+                and reduce_granule(mesh_mod.get_mesh().device) is None):
+            # the restricted sum would not add in the full one's order
+            # here: whole-node, under a named reason
+            if reasons is not None:
+                reasons.append("reduction-order")
+            r = FULL
     elif isinstance(n, DotExpr):
         r = _dot_dirt(n, dirt, memo, details, reasons)
     else:
@@ -471,7 +586,7 @@ def _dot_dirt(n: Any, dirt: Dict, memo: Dict, details: List,
         out = (TileExtent((0, db.ul[1]), (n.shape[0], db.lr[1]), n.shape)
                if an == 2 else  # dirty cols -> those output cols
                TileExtent((db.ul[1],), (db.lr[1],), n.shape))
-    if order_granule(mesh_mod.get_mesh().device) is None:
+    if _granule(mesh_mod.get_mesh()) is None:
         # the restricted product would not reduce in the full one's
         # order here: whole-node, under a named reason
         if reasons is not None:
@@ -500,11 +615,20 @@ class DynUpdateExpr:
 def _build_expr_types():
     """Define the real expr subclasses lazily (base import cycle)."""
     global DynSliceExpr, DynUpdateExpr
+    from ..array import tiling as tiling_mod
     from ..array.tiling import Tiling
     from .base import Expr
 
     def _starts(starts, env) -> List[int]:
         return [int(s.lower(env)) for s in starts]
+
+    def _in_block(mine: TileExtent, starts: List[int],
+                  blk: TileExtent) -> Tuple[slice, ...]:
+        """The box-relative part ``mine`` of a box at ``starts`` as a
+        slice of the block ``blk`` (empty where ``mine`` is)."""
+        return tuple(slice(max(0, u + s - b), max(0, u + s - b) + (l - u))
+                     for u, l, s, b in zip(mine.ul, mine.lr, starts,
+                                           blk.ul))
 
     class _DynSliceExpr(Expr):
         __doc__ = DynSliceExpr.__doc__
@@ -527,6 +651,20 @@ def _build_expr_types():
             x = self.input.lower(env)
             return x[tuple(slice(s, s + z) for s, z in
                            zip(_starts(self.starts, env), self.sizes))]
+
+        def _lower_local(self, env) -> Any:
+            """The rank's share of the box: the part of it that the
+            rank's block of the input holds, a view of that block (no
+            collective), under the box's ``BoxTiling``."""
+            from ..array.distarray import DistArray
+
+            x = self.input.lower_local(env)
+            starts = _starts(self.starts, env)
+            t = tiling_mod.box_of(x.tiling, x.shape, starts)
+            mine = t.block_extent(self.sizes, env.mesh)
+            return DistArray.from_local(
+                x.local[_in_block(mine, starts, x.block_extent())], t,
+                self.sizes, env.mesh)
 
         def _sig(self, ctx) -> Tuple:
             return (("dynslice", self.sizes)
@@ -566,6 +704,26 @@ def _build_expr_types():
                        zip(_starts(self.starts, env), self.src.shape))
             out[sl] = src.to(dtype=out.dtype)
             return out
+
+        def _lower_local(self, env) -> Any:
+            """The rank's block of the cached result (a clone) with the
+            rank's share of the box written: the recomputed values come
+            to where the ranks hold the box, which moves nothing when
+            the restricted walk kept them there."""
+            from ..array.distarray import DistArray
+            from ..parallel import redistribute as redist_mod
+
+            dst = self.dst.lower_local(env)
+            src = self.src.lower_local(env)
+            starts = _starts(self.starts, env)
+            t = tiling_mod.box_of(dst.tiling, dst.shape, starts)
+            part = redist_mod.relayout(src, t).local
+            out = dst.local.clone()  # a published entry is never written
+            sl = _in_block(t.block_extent(src.shape, env.mesh), starts,
+                           dst.block_extent())
+            out[sl] = part.to(dtype=out.dtype)
+            return DistArray.from_local(out, dst.tiling, dst.shape,
+                                        env.mesh)
 
         def _sig(self, ctx) -> Tuple:
             return ("dynupdate",) + tuple(
@@ -657,12 +815,30 @@ def _restrict(n: Any, box: TileExtent, memo: Dict,
                 else:
                     ul.append(0)
                     lr.append(ps[d])
-        pre_box = TileExtent(ul, lr, ps)
+        cut = _outer_cut(n, box)
+        wide_ul, wide_lr = list(ul), list(lr)
+        if cut:
+            mesh = mesh_mod.get_mesh()
+            granule = reduce_granule(mesh.device)
+            if granule is None:
+                raise Unsupported("reduction-order")
+            for d in cut:
+                wide_ul[d], wide_lr[d] = _reduce_window(
+                    n, d, ul[d], lr[d], granule, mesh)
+        pre_box = TileExtent(wide_ul, wide_lr, ps)
         out = ReduceExpr(
             None, n.op, n.axis, n.keepdims, n.req_dtype,
             _inputs=tuple(_restrict_bcast(c, pre_box, ps, memo, stashes)
                           for c in n.inputs),
             _pre=n.pre)
+        if (wide_ul, wide_lr) != (ul, lr):
+            # the widened sums, then the box cut back out of them
+            keep_dims = n.keepdims and n.op not in ("argmax", "argmin")
+            dims = [d for d in range(len(ps))
+                    if keep_dims or d not in n.axis]
+            _types()
+            out = DynSliceExpr(out, tuple(
+                ScalarExpr(ul[d] - wide_ul[d]) for d in dims), box.shape)
     elif isinstance(n, DotExpr):
         out = _restrict_dot(n, box, memo, stashes)
     else:
@@ -681,7 +857,7 @@ def _restrict_dot(n: Any, box: TileExtent, memo: Dict,
     from .dot import DotExpr
 
     a, b = n.children()
-    granule = order_granule(mesh_mod.get_mesh().device)
+    granule = _granule(mesh_mod.get_mesh())
     if granule is None:
         raise Unsupported("contraction-order")
     wide = TileExtent(
@@ -797,8 +973,6 @@ def intercept(expr: Any, plan: Any, leaves: List[Any],
     global _total_bytes
     if getattr(_tls, "active", False):
         return NOT_HANDLED  # inner restricted/splice evaluate
-    if mesh.is_group:
-        return degrade_to_full(plan, "group-mesh")
     if donated:
         return degrade_to_full(plan, "donation")
     with _lock:
@@ -884,12 +1058,18 @@ def intercept(expr: Any, plan: Any, leaves: List[Any],
                 sub_expr = _restrict(expr, use_box, {})
             from .base import ScalarExpr, ValExpr, evaluate
 
-            sub = evaluate(sub_expr)
             _types()
             starts = tuple(ScalarExpr(int(u)) for u in use_box.ul)
-            combined = evaluate(
-                DynUpdateExpr(ValExpr(entry.result), ValExpr(sub),
-                              starts))
+            if mesh.is_group:
+                # one walk: the restricted values reach the splice where
+                # the ranks hold them, never gathered
+                combined = evaluate(DynUpdateExpr(ValExpr(entry.result),
+                                                  sub_expr, starts))
+            else:
+                sub = evaluate(sub_expr)
+                combined = evaluate(
+                    DynUpdateExpr(ValExpr(entry.result), ValExpr(sub),
+                                  starts))
         except Unsupported as e:
             return degrade_to_full(plan, str(e))
         except Exception as e:  # noqa: BLE001 - the honest-fallback

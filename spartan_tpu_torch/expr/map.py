@@ -76,6 +76,14 @@ def emit_blocks(op: LocalExpr, inputs: Sequence[Expr],
     whole in the block."""
     if not blockwise(op) or not broadcasts_to(inputs, shape):
         return NotImplemented
+    vals = [c.lower_local(env) for c in inputs]
+    box = box_tiling(vals, shape)
+    if box is not None:
+        # a restricted walk's operand cut from a leaf: the output stays
+        # where the ranks hold that box (expr/incremental.py)
+        if not elementwise(op):
+            return NotImplemented
+        t = box
     if not elementwise(op):
         if any(c.ndim and c.shape != shape for c in inputs):
             return NotImplemented
@@ -83,8 +91,7 @@ def emit_blocks(op: LocalExpr, inputs: Sequence[Expr],
             t = t.with_axis(a, None)
         t = tiling_mod.sanitize(t, shape, env.mesh)
         op = op.at(t.block_extent(shape, env.mesh).ul)
-    blk = op.emit(aligned_blocks([c.lower_local(env) for c in inputs],
-                                 shape, t))
+    blk = op.emit(aligned_blocks(vals, shape, t))
     want = t.block_extent(shape, env.mesh).shape
     if tuple(blk.shape) != tuple(want):  # every operand a scalar
         blk = torch.broadcast_to(blk, want).clone()
@@ -106,11 +113,31 @@ def aligned_blocks(vals: Sequence[Any], shape: Tuple[int, ...],
             out.append(v.local)
             continue
         off = len(shape) - v.ndim
-        want = Tiling([None if d == 1 and shape[i + off] != 1
-                       else tiling.axes[i + off]
-                       for i, d in enumerate(v.shape)])
+        if isinstance(tiling, tiling_mod.BoxTiling):
+            # the box's dims of the value; a broadcast dim whole
+            want = tiling
+            for i in range(off):
+                want = want.drop_axis(0)
+            for i, d in enumerate(v.shape):
+                if d == 1 and shape[i + off] != 1:
+                    want = want.whole(i)
+        else:
+            want = Tiling([None if d == 1 and shape[i + off] != 1
+                           else tiling.axes[i + off]
+                           for i, d in enumerate(v.shape)])
         out.append(redist_mod.relayout(v, want).local)
     return out
+
+
+def box_tiling(vals: Sequence[Any], shape: Tuple[int, ...]):
+    """The :class:`~..array.tiling.BoxTiling` of the first local value
+    of ``shape`` that carries one, else None."""
+    for v in vals:
+        t = getattr(v, "tiling", None)
+        if isinstance(t, tiling_mod.BoxTiling) and tuple(v.shape) == \
+                tuple(shape):
+            return t
+    return None
 
 
 def broadcasts_to(vals: Sequence[Any], shape: Tuple[int, ...]) -> bool:

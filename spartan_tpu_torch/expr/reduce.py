@@ -261,7 +261,8 @@ class ReduceExpr(Expr):
             return tiling_mod.replicated(self.ndim)
         if self.keepdims and self.op not in _NO_KEEPDIMS:
             for a in self.axis:
-                t = t.with_axis(a, None)
+                t = (t.whole(a) if isinstance(t, tiling_mod.BoxTiling)
+                     else t.with_axis(a, None))
             return t
         for a in reversed(self.axis):
             t = t.drop_axis(a)

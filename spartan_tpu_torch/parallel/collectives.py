@@ -15,7 +15,14 @@ Each runner carries them its own way:
   position order, so a sum is bit-stable from run to run; the result is
   computed once per line of positions and shared.
 * **the group runner** (:class:`GroupRunner`, a group mesh): through
-  ``torch.distributed`` on the axis sub-group. On a ``gloo`` group a
+  ``torch.distributed`` on the axis sub-group, with the pieces in
+  coordinate order along the line. On a rotated mesh
+  (``mesh.rotated_mesh``) a line's coordinates are not its sub-group's
+  rank order: gathers and all-to-alls reorder the pieces, and a sum
+  over a line of more than two ranks first moves each value to the
+  group rank of its coordinate, so the backend adds in the unrotated
+  mesh's order (a sum of two is the same bits either way). On a
+  ``gloo`` group a
   CUDA tensor goes through a host buffer and back: gloo has no CUDA
   form of these calls in the card's torch build (a CUDA ``all_reduce``
   aborts the process there, ``writev: Bad address``). That transport is
@@ -163,6 +170,30 @@ class GroupRunner:
         pg, members = self.mesh.axis_group(axis)
         return pg, len(members), self.mesh.coords[axis]
 
+    def _swap(self, t: torch.Tensor, pg, n: int, send_to: int,
+              recv_from: int) -> torch.Tensor:
+        """``t`` sent to group rank ``send_to`` of ``pg``, and the
+        same-shaped tensor group rank ``recv_from`` sent here."""
+        flat = t.reshape(-1)
+        m = flat.numel()
+        out = torch.empty_like(flat)
+        self.dist.all_to_all_single(
+            out, flat, [m if r == recv_from else 0 for r in range(n)],
+            [m if r == send_to else 0 for r in range(n)], group=pg)
+        return out.view(t.shape)
+
+    def _in_rank_order(self, t: torch.Tensor, axis: str, order,
+                       back: bool = False) -> torch.Tensor:
+        """On a line whose coordinates are not its group's rank order:
+        coordinate c's ``t`` moved to group rank c (so the backend
+        combines in the unrotated order), or with ``back`` group rank
+        c's ``t`` moved to coordinate c."""
+        pg, n, me = self._line(axis)
+        mine = order[me]
+        if back:
+            return self._swap(t, pg, n, order[mine], me)
+        return self._swap(t, pg, n, me, order[mine])
+
     def _transport(self, op: str, x: torch.Tensor,
                    call: Callable[[torch.Tensor], torch.Tensor]
                    ) -> torch.Tensor:
@@ -188,12 +219,7 @@ class GroupRunner:
                "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
 
         def run(t):
-            def call(buf):
-                buf = buf.clone()
-                dist.all_reduce(buf, op=red, group=pg)
-                return buf
-
-            out = self._transport("all_reduce", t, call)
+            out = self.reduce_line(t, axis, red)
             return out / n if op == "mean" else out
 
         if op in ("max", "min"):
@@ -208,10 +234,13 @@ class GroupRunner:
         if pg is None:
             return x if tiled else x.unsqueeze(dim)
         dist = self.dist
+        order = self.mesh.line_order(axis)
 
         def call(t):
             parts = [torch.empty_like(t) for _ in range(n)]
             dist.all_gather(parts, t, group=pg)
+            if order is not None:  # group rank order -> coordinates
+                parts = [parts[g] for g in order]
             return torch.cat(parts, dim) if tiled else torch.stack(parts,
                                                                    dim)
 
@@ -246,11 +275,19 @@ class GroupRunner:
             return x
         _check_split(x, dim, n, "reduce_scatter")
         dist = self.dist
+        order = self.mesh.line_order(axis)
 
         def call(t):
+            if order is not None and n > 2:
+                t = self._in_rank_order(t, axis, order)
             chunks = [c.contiguous() for c in t.chunk(n, dim)]
+            if order is not None and n <= 2:
+                # group rank g takes coordinate order.index(g)'s chunk
+                chunks = [chunks[order.index(g)] for g in range(n)]
             out = torch.empty_like(chunks[0])
             dist.reduce_scatter(out, chunks, group=pg)
+            if order is not None and n > 2:
+                out = self._in_rank_order(out, axis, order, back=True)
             return out
 
         return self._transport("reduce_scatter", x, call)
@@ -266,14 +303,21 @@ class GroupRunner:
             return x
         _check_split(x, split_axis, n, "all_to_all")
         dist = self.dist
+        order = self.mesh.line_order(axis)
 
         def call(t):
             # the chunks stacked on a new leading dim: all_to_all_single
             # (gloo has no list form of all_to_all in every build)
-            send = torch.stack(t.chunk(n, split_axis)).contiguous()
+            chunks = t.chunk(n, split_axis)
+            if order is not None:  # chunk c goes to coordinate c
+                chunks = [chunks[order.index(g)] for g in range(n)]
+            send = torch.stack(chunks).contiguous()
             recv = torch.empty_like(send)
             dist.all_to_all_single(recv, send, group=pg)
-            return torch.cat(recv.unbind(0), concat_axis)
+            parts = recv.unbind(0)
+            if order is not None:
+                parts = [parts[g] for g in order]
+            return torch.cat(parts, concat_axis)
 
         return self._transport("all_to_all", x, call)
 
@@ -286,23 +330,32 @@ class GroupRunner:
         pg, n, me = self._line(axis)
         if pg is None:
             return x
-        dist = self.dist
         dst, src = (me + shift) % n, (me - shift) % n
-
-        def call(t):
-            flat = t.reshape(-1)
-            m = flat.numel()
-            out = torch.empty_like(flat)
-            dist.all_to_all_single(
-                out, flat, [m if r == src else 0 for r in range(n)],
-                [m if r == dst else 0 for r in range(n)], group=pg)
-            return out.view(t.shape)
-
-        return self._transport("ring_permute", x, call)
+        order = self.mesh.line_order(axis)
+        if order is not None:
+            dst, src = order[dst], order[src]
+        return self._transport("ring_permute", x, lambda t: self._swap(
+            t, pg, n, dst, src))
 
     def ring_permute(self, x, axis, shift):
         return self._differentiable(x, lambda t: self._permute(t, axis, shift),
                                lambda g: self._permute(g, axis, -shift))
+
+    def reduce_line(self, t: torch.Tensor, axis: str, red) -> torch.Tensor:
+        """``t`` combined by the backend's ``red`` over this rank's line
+        of ``axis`` (in the unrotated order, as :meth:`all_reduce`)."""
+        pg, n, _ = self._line(axis)
+        order = self.mesh.line_order(axis)
+
+        def call(buf):
+            if order is not None and n > 2:
+                buf = self._in_rank_order(buf, axis, order)
+            else:
+                buf = buf.clone()
+            self.dist.all_reduce(buf, op=red, group=pg)
+            return buf
+
+        return self._transport("all_reduce", t, call)
 
     def all_to_all_v(self, x, in_splits, out_splits):
         """``all_to_all_single`` of the flat ``x`` over the whole group
@@ -411,7 +464,17 @@ def gather_dim(block: torch.Tensor, dim: int, entry, size: int,
 
 def gather_whole(block: torch.Tensor, tiling: Tiling, shape,
                  mesh: mesh_mod.Mesh) -> torch.Tensor:
-    """The whole array from the ranks' blocks under ``tiling``."""
+    """The whole array from the ranks' blocks under ``tiling`` (a box's
+    blocks, which follow another array's grid, through the piece
+    exchange)."""
+    from ..array.tiling import BoxTiling, replicated
+    from . import redistribute as redist_mod
+
+    if isinstance(tiling, BoxTiling):
+        return redist_mod.move_pieces([redist_mod.Piece(
+            block, lambda c: tiling.block_extent(shape, mesh, c),
+            redist_mod.free_axes(tiling, mesh))], replicated(len(shape)),
+            shape, block.dtype, mesh)
     for dim, a in enumerate(tiling.axes):
         block = gather_dim(block, dim, a, int(shape[dim]), mesh)
     return block
@@ -450,16 +513,10 @@ def reduce_over(t: torch.Tensor, axes, op: str,
     red = {"add": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT,
            "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
     for axis in live:
-        pg, n, _ = runner._line(axis)
-
-        def call(buf, pg=pg):
-            buf = buf.clone()
-            dist.all_reduce(buf, op=red, group=pg)
-            return buf
-
+        n = mesh.shape[axis]
         record_collective("all_reduce", _nbytes(t), n)
         record_received("all_reduce", _nbytes(t) * (n - 1))
-        t = runner._transport("all_reduce", t, call)
+        t = runner.reduce_line(t, axis, red)
     return t.to(dtype) if t.dtype != dtype else t
 
 

@@ -70,6 +70,11 @@ _group_mesh: Optional["Mesh"] = None
 _created_group = False
 _lock = threading.Lock()
 _dist_lock = threading.Lock()
+# id(process group) -> {frozenset of member ranks: the line's sub-group},
+# every sub-group the group meshes over that group created
+_line_groups: Dict[int, Dict[frozenset, object]] = {}
+# (id(process group), shape, rotation, epoch) -> the rotated group mesh
+_rotated: Dict[Tuple, "Mesh"] = {}
 
 # -- mesh epoch (elastic recovery) ---------------------------------------
 #
@@ -141,7 +146,7 @@ class Mesh:
     the grid of the ranks of a ``torch.distributed`` process group."""
 
     __slots__ = ("shape", "device", "group", "rank", "coords",
-                 "_axis_groups", "runner", "ids")
+                 "_axis_groups", "_orders", "runner", "ids", "rank_of_pos")
 
     def __init__(self, shape: Tuple[int, int], device: torch.device,
                  group=None, ids: Optional[Tuple[int, ...]] = None):
@@ -160,8 +165,15 @@ class Mesh:
         self.group = group
         self.rank = 0
         self.coords: Dict[str, int] = {AXIS_ROW: 0, AXIS_COL: 0}
-        # axis -> (process group or None, ranks of my row/column)
+        # axis -> (process group or None, ranks of my row/column in
+        # coordinate order)
         self._axis_groups: Dict[str, Tuple[object, List[int]]] = {}
+        # axis -> the group rank of each coordinate along my line, where
+        # that is not the identity (a rotated mesh's lines)
+        self._orders: Dict[str, Tuple[int, ...]] = {}
+        # the group rank holding each position, where that is not the
+        # position itself (a rotated mesh); None: position p is rank p
+        self.rank_of_pos: Optional[Tuple[int, ...]] = None
         # the group's collectives outside shard_map (parallel/collectives
         # GroupRunner), made at first use
         self.runner = None
@@ -175,17 +187,26 @@ class Mesh:
         if nx * ny != world:
             raise ValueError(f"group mesh {nx}x{ny} needs {nx * ny} ranks; "
                              f"the group has {world}")
+        if sorted(self.ids) != list(range(world)):
+            raise ValueError(f"the position ids {self.ids} of a group mesh "
+                             f"must be the group's ranks 0..{world - 1}")
         ranks = dist.get_process_group_ranks(group)
         self.rank = dist.get_rank(group)
-        i, j = divmod(self.rank, ny)
+        # position p is held by group rank ids[p]: the identity, or a
+        # rotation of it (rotated_mesh)
+        if self.ids != tuple(range(world)):
+            self.rank_of_pos = self.ids
+        i, j = divmod(self.ids.index(self.rank), ny)
         self.coords = {AXIS_ROW: i, AXIS_COL: j}
         # every rank creates every sub-group, in one order (new_group is
         # collective); a sub-group of all ranks is the group itself, one
         # of one rank other than the group is not created (its
-        # collectives are local)
-        lines = {AXIS_ROW: [[ranks[a * ny + b] for a in range(nx)]
+        # collectives are local), and a set of ranks that already has a
+        # sub-group reuses it
+        known = _line_groups.setdefault(id(group), {})
+        lines = {AXIS_ROW: [[ranks[self.ids[a * ny + b]] for a in range(nx)]
                             for b in range(ny)],
-                 AXIS_COL: [[ranks[a * ny + b] for b in range(ny)]
+                 AXIS_COL: [[ranks[self.ids[a * ny + b]] for b in range(ny)]
                             for a in range(nx)]}
         mine = {AXIS_ROW: j, AXIS_COL: i}
         for axis in (AXIS_ROW, AXIS_COL):
@@ -195,9 +216,17 @@ class Mesh:
                 elif len(members) == 1:
                     pg = None
                 else:
-                    pg = dist.new_group(members)
+                    pg = known.get(frozenset(members))
+                    if pg is None:
+                        pg = dist.new_group(members)
+                        known[frozenset(members)] = pg
                 if k == mine[axis]:
                     self._axis_groups[axis] = (pg, members)
+                    order = (tuple(dist.get_group_rank(pg, m)
+                                   for m in members)
+                             if pg is not None else ())
+                    if order and order != tuple(range(len(members))):
+                        self._orders[axis] = order
 
     @property
     def axis_names(self) -> Tuple[str, str]:
@@ -208,10 +237,23 @@ class Mesh:
         """True for a mesh over the ranks of a process group."""
         return self.group is not None
 
+    @property
+    def pos(self) -> int:
+        """This position's row-major index over the grid (a group
+        mesh's rank unless the mesh is rotated)."""
+        return self.coords[AXIS_ROW] * self.shape[AXIS_COL] \
+            + self.coords[AXIS_COL]
+
     def axis_group(self, axis: str):
-        """(process group or None, member ranks) of this rank's line
-        along ``axis`` of a group mesh."""
+        """(process group or None, member ranks in coordinate order) of
+        this rank's line along ``axis`` of a group mesh."""
         return self._axis_groups[axis]
+
+    def line_order(self, axis: str) -> Optional[Tuple[int, ...]]:
+        """The group rank of each coordinate along this rank's line of
+        ``axis`` in its process group, or None where coordinate c is
+        group rank c (every line of an unrotated mesh)."""
+        return self._orders.get(axis)
 
     def __repr__(self) -> str:
         extra = (f", rank={self.rank} of a group" if self.group is not None
@@ -297,24 +339,45 @@ def _build_surviving() -> Mesh:
 def rotated_mesh(mesh: Optional[Mesh] = None, k: int = 1
                  ) -> Optional[Mesh]:
     """A mesh of the same shape whose position ids are rotated by ``k``:
-    every logical coordinate is held by another position. The
-    integrity sentinel (``resilience/integrity.py``) re-walks sampled
-    plans on it. On one card the positions are logical: the rotated
-    mesh is a permutation of position ids over the same device, and a
-    walk on it computes the same values. None for a one-position mesh
-    (no rotation exists). Never installed or cached."""
+    every logical coordinate is held by another position (position p by
+    id ``ids[(p + k) % n]``, the JAX package's rotated device
+    assignment). The integrity sentinel (``resilience/integrity.py``)
+    re-walks sampled plans on it. None for a one-position mesh (no
+    rotation exists).
+
+    On one card the positions are logical: the rotated mesh is a
+    permutation of position ids over the same device, and a walk on it
+    computes the same values; it is never installed or cached.
+
+    On a group mesh the ids are the group's ranks, so the rotated mesh
+    is a mesh over the same group in which each rank holds another
+    position's coordinates. Its row and column lines are sets of ranks
+    the unrotated mesh may have no sub-group for (on 2x2 with k = 1 a
+    column line is ranks {3, 0}): they are created here, on every rank
+    in one order, and the mesh is kept per (group, shape, rotation,
+    epoch), so a rotation's sub-groups are made once. Call it on every
+    rank of the group together (``new_group`` is collective). The
+    collectives of its lines assemble pieces in coordinate order
+    (``parallel/collectives.GroupRunner``)."""
     mesh = mesh or get_mesh()
-    if mesh.is_group:
-        raise NotImplementedError(
-            "a rotated group mesh would move every block to another "
-            "rank; the integrity check does not run on a group mesh")
     ids = list(mesh.ids)
     n = len(ids)
     if n < 2:
         return None
     k = k % n or 1
-    return Mesh((mesh.shape[AXIS_ROW], mesh.shape[AXIS_COL]), mesh.device,
-                ids=ids[k:] + ids[:k])
+    shape = (mesh.shape[AXIS_ROW], mesh.shape[AXIS_COL])
+    if not mesh.is_group:
+        return Mesh(shape, mesh.device, ids=ids[k:] + ids[:k])
+    if mesh.rank_of_pos is not None:
+        raise ValueError("rotated_mesh rotates an unrotated group mesh")
+    key = (id(mesh.group), shape, k, _EPOCH, str(mesh.device))
+    with _dist_lock:
+        rot = _rotated.get(key)
+        if rot is None:
+            rot = Mesh(shape, mesh.device, group=mesh.group,
+                       ids=ids[k:] + ids[:k])
+            _rotated[key] = rot
+    return rot
 
 
 def rebuild_mesh(exclude_devices=(), shape=None) -> Mesh:
@@ -626,6 +689,8 @@ def shutdown() -> None:
     _state.mesh = None
     with _dist_lock:
         _group_mesh = None
+        _line_groups.clear()
+        _rotated.clear()
         if _created_group:
             import torch.distributed as dist
 

@@ -826,8 +826,8 @@ def _route(exts: Tuple, frees: Tuple, dst: Tiling, shape, mesh) -> _Route:
     extents: a plan's walks repeat it)."""
     from ..array import extent as extent_mod
 
-    me = mesh.rank
-    key = (exts, frees, dst.axes, tuple(shape), tuple(sorted(
+    me = mesh.pos
+    key = (exts, frees, dst, tuple(shape), tuple(sorted(
         mesh.shape.items())), me)
     hit = _route_memo.get(key)
     if hit is not None:
@@ -959,19 +959,25 @@ def move_pieces(pieces, dst: Tiling, shape, dtype, mesh) -> torch.Tensor:
         _copy_runs(flat_out, do, flats[j], so, ln)
     if not route.moves:
         return out
+    # the route is by position, the exchange by rank (a rotated mesh's
+    # ranks hold other positions)
+    rop = mesh.rank_of_pos
+    by_rank = (range(len(coords)) if rop is None
+               else [rop.index(r) for r in range(len(coords))])
     send = torch.empty(sum(route.in_splits), dtype=dtype, device=dev)
     pos = 0
-    for runs in route.send:
-        for j, so, ln in runs:
+    for p in by_rank:
+        for j, so, ln in route.send[p]:
             total = int(ln.sum())
             _copy_runs(send.narrow(0, pos, total),
                        np.cumsum(ln) - ln, flats[j], so, ln)
             pos += total
-    recv = coll.exchange_v(send, route.in_splits, route.out_splits, mesh)
+    recv = coll.exchange_v(send, [route.in_splits[p] for p in by_rank],
+                           [route.out_splits[p] for p in by_rank], mesh)
     del send
     pos = 0
-    for runs in route.recv:
-        for do, ln in runs:
+    for p in by_rank:
+        for do, ln in route.recv[p]:
             total = int(ln.sum())
             _copy_runs(flat_out, do, recv.narrow(0, pos, total),
                        np.cumsum(ln) - ln, ln)
@@ -1046,14 +1052,26 @@ def relayout(arr: Any, dst: Tiling) -> Any:
     group (:func:`apply_schedule_group`); without one (an uneven or
     tuple-split layout) the pieces that change owner move in one
     exchange (:func:`move_pieces`), and a replicated source slices
-    without moving a byte."""
+    without moving a byte. A :class:`~..array.tiling.BoxTiling` on
+    either side always takes the piece exchange."""
     from ..array.distarray import DistArray
+
+    from ..array.tiling import BoxTiling
 
     src = arr.tiling
     if src == dst:
         return arr
     mesh, shape = arr.mesh, arr.shape
-    sched = _best(src, dst, shape, arr.dtype, mesh)
+    if isinstance(src, BoxTiling) or isinstance(dst, BoxTiling):
+        # a box's blocks follow its parent's grid: no schedule; where
+        # every position already holds its destination part, nothing
+        # moves and the block is not copied
+        if all(src.block_extent(shape, mesh, c)
+               == dst.block_extent(shape, mesh, c) for c in _coords(mesh)):
+            return DistArray.from_local(arr.local, dst, shape, mesh)
+        sched = None
+    else:
+        sched = _best(src, dst, shape, arr.dtype, mesh)
     if sched is not None:
         block = apply_schedule_group(arr.local, sched, shape, mesh)
     else:
@@ -1091,3 +1109,43 @@ def constrain(val: Any, tiling: Tiling, mesh=None,
         if d is not None:
             prof.count("redistribute_fallback")
     return val
+
+
+def rotate_block(arr: Any, rmesh) -> Tuple[Any, int, int]:
+    """``arr`` (a DistArray on an unrotated group mesh) on ``rmesh``, a
+    rotation of that mesh over the same group (``mesh.rotated_mesh``):
+    each rank ends with the block of its coordinates in ``rmesh``. A
+    rank whose block there is the one it holds keeps it (every rank of
+    a replicated array does); every other rank receives it from the
+    rank that holds those coordinates unrotated, all in one
+    ``all_to_all`` of uneven pieces (none when nothing moves). Returns
+    (the array on ``rmesh``, bytes this rank sent, bytes it
+    received)."""
+    from ..array.distarray import DistArray
+    from . import collectives as coll
+
+    mesh, t, shape = arr.mesh, arr.tiling, arr.shape
+    coords = _coords(mesh)
+    rop = rmesh.rank_of_pos
+    n = len(coords)
+    # src[d]: the rank that sends rank d its rotated block, or None
+    src: List[Optional[int]] = []
+    for d in range(n):
+        p = rop.index(d)
+        same = (t.block_extent(shape, mesh, coords[d])
+                == t.block_extent(shape, mesh, coords[p]))
+        src.append(None if same else p)
+    if all(s is None for s in src):
+        return DistArray.from_local(arr.local, t, shape, rmesh), 0, 0
+    me = mesh.rank
+    blk = arr.local.contiguous()
+    want = t.block_extent(shape, rmesh).shape
+    # a rotation is a permutation: a rank sends to at most one rank
+    to = [blk.numel() if src[d] == me else 0 for d in range(n)]
+    frm = [int(np.prod(want, dtype=np.int64)) if src[me] == s else 0
+           for s in range(n)]
+    send = blk.reshape(-1) if any(to) else blk.new_empty(0)
+    recv = coll.exchange_v(send, to, frm, mesh)
+    out = blk if src[me] is None else recv.view(want)
+    return (DistArray.from_local(out, t, shape, rmesh),
+            sum(to) * blk.element_size(), sum(frm) * blk.element_size())

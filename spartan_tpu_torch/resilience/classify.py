@@ -24,7 +24,10 @@ class               what it covers                          policy
                     exited")
 ``stale_mesh``      an array of a rebuilt mesh              fail fast; the
                     (``StaleMeshError``)                    loop rehomes
-``sdc``             a failed integrity check                retry
+``sdc``             a failed integrity check                retry (a rank
+                                                            quarantined on
+                                                            a group mesh:
+                                                            ``fatal_mesh``)
 ``deterministic``   everything else: ValueError, TypeError, fail fast
                     shape and dtype errors, compile errors
 ==================  ======================================  ================
@@ -146,6 +149,7 @@ def classify(exc: BaseException) -> str:
         return {"transient": TRANSIENT, "oom": OOM, "io": IO,
                 "device_loss": FATAL_MESH, "recover": TRANSIENT,
                 "compile": DETERMINISTIC, "sdc": SDC,
+                "sdc_quarantine": FATAL_MESH,
                 }.get(kind, DETERMINISTIC)
     if isinstance(exc, FatalMeshError):
         return FATAL_MESH

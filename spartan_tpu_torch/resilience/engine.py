@@ -216,6 +216,15 @@ def handle_failure(exc: BaseException, expr: Any, plan: Any,
         # happens above (the checkpointed loop restores its snapshot)
         from . import elastic
 
+        if getattr(exc, "quarantined", None) is not None and mesh.is_group:
+            # the integrity sentinel quarantined a rank of the group:
+            # every rank raises this same error, and the world restarts
+            # without that rank from its per-rank snapshots
+            _attach_note(exc, "resilience: a group mesh cannot drop a "
+                         "rank in its processes; not retried")
+            _dump("integrity quarantine on a group mesh", plan, rec)
+            raise exc
+
         if _METRICS_FLAG._value:
             REGISTRY.counter(
                 "resilience_fatal_mesh_faults",

@@ -316,16 +316,14 @@ class ChaosPlan:
         """Apply an armed ``sdc`` corruption to a walk's result: one
         seeded bit flipped in the victim position's unit
         (``integrity.flip_bit``). Consumes the armed record; ``out``
-        unchanged when nothing is armed or the victim left the mesh."""
+        unchanged when nothing is armed or the victim left the mesh. On
+        a group mesh every rank consumes the record (the ranks' plans
+        stay in step) and only the victim's rank flips the bit, in its
+        own block."""
         with self._lock:
             pending, self._pending_sdc = self._pending_sdc, None
         if pending is None:
             return out
-        if mesh.is_group:
-            raise NotImplementedError(
-                "the sdc chaos kind corrupts a logical position's unit; "
-                "on a group mesh the integrity check does not run "
-                "(ROADMAP A10)")
         spec, idx = pending
         try:
             victim = _pick_victim(spec.dev)

@@ -39,9 +39,31 @@ the position whose chunk it falls in. The chaos kind ``sdc@N[#d]``
 through :func:`flip_bit`, the same byte and bit the JAX package flips
 in a block.
 
-**Group mesh.** Rotating a group mesh moves every block to another
-rank; with the flag on, a walk on a group mesh raises
-``NotImplementedError`` (ROADMAP A10) rather than skip the check.
+**Group mesh.** Each rank is one position of the grid and holds its
+own block, so the evidence is the JAX package's per shard: each rank
+computes the CRC of its own output block, keyed by the JAX package's
+``shard_checksums`` index (each dim's ``(lo, hi)``, ``(0, -1)`` where
+the dim is whole), under its rank id; nothing is gathered. The re-walk
+runs on the rotated mesh over the same group (``mesh.rotated_mesh``:
+rank r holds the coordinates of the position rotation k gives it),
+after each leaf's block has moved to the rank that holds its
+coordinates there (``redistribute.rotate_block``: one all-to-all;
+replicated leaves do not move). Every rank's records from both walks
+meet in one all-gather, and every rank runs the same vote over the same
+ballots, so every rank reaches the same verdict, strikes and
+quarantine, and raises the same error or none. The cadence counts each
+plan's walks on every rank: a rank that walks a plan the others do not
+walks out of step, and the ballots' check of the plan, walk count and
+rotation raises on every rank (or the group's timeout does, should a
+rank not reach the gather at all).
+
+A process group cannot drop a member in its processes, so a quarantine
+there is recorded, noted to the monitor and counted as on one card,
+and the error it raises is classified ``fatal_mesh``: the policy
+engine and a checkpointed ``st.loop`` end rather than retry, and a
+world without that rank resumes from the per-rank snapshots
+(``resilience/loop_ckpt.py``). The decision and the strikes are the JAX
+package's; the remedy is a restart.
 
 Not covered: corruption in an unsampled walk (the cadence is a screen,
 not a proof), corruption that hits both walks alike, and donated walks
@@ -109,10 +131,14 @@ class IntegrityError(RuntimeError):
     fault_kind = "sdc"
 
     def __init__(self, msg: str, suspects: Sequence[int] = (),
-                 quarantined: Optional[int] = None):
+                 quarantined: Optional[int] = None, restart: bool = False):
         super().__init__(msg)
         self.suspects = tuple(suspects)
         self.quarantined = quarantined
+        if restart:
+            # a group mesh cannot drop the rank in its processes: the
+            # world ends (resilience/classify: fatal_mesh) and restarts
+            self.fault_kind = "sdc_quarantine"
 
 
 # -- the checksum walk ------------------------------------------------------
@@ -193,6 +219,8 @@ def flip_bit(out: Any, victim: int, seed: int, occurrence: int,
     or ``out`` unchanged when the victim holds no unit."""
     outs = out if isinstance(out, tuple) else (out,)
     word = zlib.crc32(f"{seed}:sdc:{occurrence}".encode())
+    if mesh.is_group:
+        return _flip_group(out, outs, victim, word, tilings, mesh)
     for i, (o, t) in enumerate(zip(outs, tilings)):
         if not isinstance(o, torch.Tensor) or o.numel() == 0:
             continue
@@ -216,6 +244,48 @@ def flip_bit(out: Any, victim: int, seed: int, occurrence: int,
     return out
 
 
+def _flip_group(out: Any, outs: Sequence[Any], victim: int, word: int,
+                tilings: Sequence[Any], mesh: Any) -> Any:
+    """:func:`flip_bit` on a group mesh: every rank brings its outputs
+    to their tilings (a relayout may be a collective), and only the
+    victim's rank flips the bit, in its own block of the first output
+    whose block there is not empty."""
+    from ..array.distarray import DistArray
+    from ..parallel import redistribute as redist_mod
+
+    lst = [redist_mod.relayout(o, t) if isinstance(o, DistArray) else o
+           for o, t in zip(outs, tilings)]
+    if mesh.rank == int(victim):
+        for i, o in enumerate(lst):
+            if not isinstance(o, DistArray) or o.local.numel() == 0:
+                continue
+            flat = _unit_bytes(o.local, ())
+            flat[word % flat.numel()] ^= (1 << ((word >> 8) % 8))
+            lst[i] = DistArray.from_local(
+                flat.view(o.local.dtype).to(o.local.device).reshape(
+                    o.local.shape), o.tiling, o.shape, mesh)
+            break
+    return tuple(lst) if isinstance(out, tuple) else lst[0]
+
+
+def block_records(o: Any, tiling: Any, mesh: Any
+                  ) -> List[Tuple[Tuple, int, int]]:
+    """This rank's record on a group mesh: ``(index_key, rank,
+    crc32)`` of its block of the output ``o`` (a local value) under
+    ``tiling``, keyed as the JAX package's ``shard_checksums`` keys the
+    shard at the rank's coordinates."""
+    from ..array import tiling as tiling_mod
+    from ..parallel import redistribute as redist_mod
+
+    t = tiling_mod.sanitize(tiling, o.shape, mesh)
+    o = redist_mod.relayout(o, t)
+    ext = o.block_extent()
+    key = tuple((0, -1) if tiling_mod.tile_count(a, mesh) == 1 else (lo, hi)
+                for a, lo, hi in zip(t.axes, ext.ul, ext.lr))
+    crc = zlib.crc32(_unit_bytes(o.local, ()).numpy().tobytes())
+    return [(key, int(mesh.rank), crc)]
+
+
 # -- detect -------------------------------------------------------------------
 
 
@@ -224,11 +294,6 @@ def maybe_check(plan: Any, out: Any, leaves: Sequence[Any],
     """The walk's hook (``expr/base.py::_run``, before the result is
     wrapped): every Nth non-donating walk of a plan gets the
     cross-check. Raises :class:`IntegrityError` on a failed check."""
-    if mesh.is_group:
-        raise NotImplementedError(
-            "FLAGS.integrity_check on a group mesh: the re-walk on a "
-            "rotated mesh would move every block to another rank, which "
-            "the port does not do yet (ROADMAP A10)")
     if donated:
         return  # the inputs are gone: no re-walk exists
     report = plan.report
@@ -243,12 +308,12 @@ def maybe_check(plan: Any, out: Any, leaves: Sequence[Any],
             _counts.pop(next(iter(_counts)))
     if c % n != 0:
         return
-    _check(plan, out, leaves, mesh, digest)
+    _check(plan, out, leaves, mesh, digest, c)
 
 
 def _rewalk(plan: Any, leaves: Sequence[Any], mesh: Any) -> Any:
-    """The plan walked again on ``mesh`` (a rotated mesh), from the same
-    leaves."""
+    """The plan walked again on ``mesh`` (a rotated logical mesh), from
+    the same leaves."""
     from ..expr import base
     from ..parallel import mesh as mesh_mod
 
@@ -257,22 +322,94 @@ def _rewalk(plan: Any, leaves: Sequence[Any], mesh: Any) -> Any:
         return plan.dag.lower(env)
 
 
+def _rewalk_group(plan: Any, leaves: Sequence[Any], mesh: Any,
+                  rmesh: Any, moved: Dict[str, int]) -> Any:
+    """The plan walked again on the rotated group mesh ``rmesh``: each
+    leaf's block first moves to the rank holding its coordinates there
+    (``moved`` adds up this rank's bytes sent and received)."""
+    from ..expr import base
+    from ..parallel import mesh as mesh_mod
+    from ..parallel import redistribute as redist_mod
+
+    seeds = None
+    if rmesh is not mesh:  # a one-rank group walks again in place
+        seeds = []
+        for leaf in leaves:
+            arr, sent, recv = redist_mod.rotate_block(
+                base._leaf_local(leaf, mesh), rmesh)
+            moved["sent"] += sent
+            moved["recv"] += recv
+            seeds.append(arr)
+    with mesh_mod.use_mesh(rmesh), base.launch_guard(rmesh):
+        env = base.walk_env(plan, leaves, rmesh, seeds)
+        del seeds
+        return plan.dag.lower_local(env)
+
+
+def _stable_tag(plan: Any) -> str:
+    """A digest of the plan that is the same in every process (the
+    report's ``plan_key`` hashes with the process's string hash)."""
+    from ..persist import fingerprint
+
+    try:
+        return fingerprint.stable_digest(plan.key)
+    except fingerprint.UnstableKeyError:  # a user function in the key
+        return fingerprint.stable_digest(
+            [type(plan.dag).__name__, list(plan.dag.shape)]
+            + [list(t.axes) for t in plan.out_tilings])
+
+
+def _ballots(mesh: Any, mine: Tuple) -> Tuple[List[List[Tuple]],
+                                              List[List[Tuple]]]:
+    """Every rank's records of both walks, from one all-gather over the
+    group: (primary, reference), each per output and sorted. Raises on
+    every rank when the ranks sampled different walks."""
+    import torch.distributed as dist
+
+    got: List[Any] = [None] * dist.get_world_size(mesh.group)
+    dist.all_gather_object(got, mine, group=mesh.group)
+    heads = {g[0] for g in got}
+    if len(heads) != 1:
+        raise RuntimeError(
+            f"integrity: the ranks checked different walks (plan, walk, "
+            f"rotation) {sorted(heads)}; every rank must walk every plan "
+            "for the sampled walks to line up")
+    n_out = len(mine[1])
+    primary = [sorted(r for g in got for r in g[1][i]) for i in range(n_out)]
+    reference = [sorted(r for g in got for r in g[2][i])
+                 for i in range(n_out)]
+    return primary, reference
+
+
 def _check(plan: Any, out: Any, leaves: Sequence[Any], mesh: Any,
-           digest: str) -> None:
+           digest: str, walk: int = 0) -> None:
     global _checks, _violations
     from ..parallel import mesh as mesh_mod
 
+    moved = {"sent": 0, "recv": 0}
     with trace_mod.span("integrity_check", plan=digest):
         outs = out if plan.is_tuple else (out,)
-        primary = [shard_checksums(o, t, mesh)
-                   for o, t in zip(outs, plan.out_tilings)]
         with _lock:
             k = 1 + (_checks % max(1, len(mesh.ids) - 1))
-        rmesh = mesh_mod.rotated_mesh(mesh, k) or mesh
-        out2 = _rewalk(plan, leaves, rmesh)
-        outs2 = out2 if plan.is_tuple else (out2,)
-        reference = [shard_checksums(o, t, rmesh)
-                     for o, t in zip(outs2, plan.out_tilings)]
+        if mesh.is_group:
+            rmesh = mesh_mod.rotated_mesh(mesh, k) or mesh
+            mine = [block_records(o, t, mesh)
+                    for o, t in zip(outs, plan.out_tilings)]
+            out2 = _rewalk_group(plan, leaves, mesh, rmesh, moved)
+            outs2 = out2 if plan.is_tuple else (out2,)
+            theirs = [block_records(o, t, rmesh)
+                      for o, t in zip(outs2, plan.out_tilings)]
+            del out2, outs2
+            primary, reference = _ballots(
+                mesh, ((_stable_tag(plan), walk, k), mine, theirs))
+        else:
+            primary = [shard_checksums(o, t, mesh)
+                       for o, t in zip(outs, plan.out_tilings)]
+            rmesh = mesh_mod.rotated_mesh(mesh, k) or mesh
+            out2 = _rewalk(plan, leaves, rmesh)
+            outs2 = out2 if plan.is_tuple else (out2,)
+            reference = [shard_checksums(o, t, rmesh)
+                         for o, t in zip(outs2, plan.out_tilings)]
         disagreements = _compare(primary, reference)
     with _lock:
         _checks += 1
@@ -282,6 +419,8 @@ def _check(plan: Any, out: Any, leaves: Sequence[Any], mesh: Any,
         "plan": digest, "check": checks, "rotation": k,
         "t": trace_mod.now(),
     }
+    if mesh.is_group:
+        verdict.update(moved_sent=moved["sent"], moved_recv=moved["recv"])
     if _METRICS_FLAG._value:
         REGISTRY.counter(
             "integrity_checks",
@@ -312,6 +451,16 @@ def _check(plan: Any, out: Any, leaves: Sequence[Any], mesh: Any,
     if suspect is not None:
         verdict["quarantined"] = suspect
         _stamp(digest, plan, verdict)
+        if mesh.is_group:
+            _quarantine_group(suspect, digest)
+            raise IntegrityError(
+                f"integrity violation: block checksum mismatch on plan "
+                f"{digest} ({len(disagreements)} block(s)); rank "
+                f"{suspect} crossed {max(1, _STRIKES_FLAG._value)} strikes "
+                "and is quarantined — the result was discarded; a process "
+                "group cannot drop a rank in its processes: restart the "
+                "world without it and resume from the per-rank snapshots",
+                suspects=implicated, quarantined=suspect, restart=True)
         _quarantine(suspect, digest)
         raise IntegrityError(
             f"integrity violation: block checksum mismatch on plan "
@@ -437,6 +586,39 @@ def _quarantine(suspect: int, digest: str) -> None:
     log_warn("integrity: position %d quarantined after %d strikes "
              "(mesh epoch %d -> %d)", suspect, strikes, rec["epoch_from"],
              rec["epoch_to"])
+
+
+def _quarantine_group(suspect: int, digest: str) -> None:
+    """A confirmed suspect on a group mesh, on every rank alike: the
+    monitor's ``sdc`` anomaly, the count and the history record. No
+    rebuild: the caller raises, and the world restarts without the
+    rank (module docstring)."""
+    from ..obs import monitor as monitor_mod
+    from ..parallel import mesh as mesh_mod
+
+    with _lock:
+        strikes = len(_strikes.get(suspect, ()))
+    threshold = max(1, _STRIKES_FLAG._value)
+    monitor_mod.note_anomaly(
+        "sdc", key=f"device{suspect}", value=float(strikes),
+        threshold=float(threshold),
+        detail=f"integrity violations implicated rank {suspect} "
+               f"{strikes}x in-window (plan {digest}); quarantining: "
+               "restart the world without it")
+    if _METRICS_FLAG._value:
+        REGISTRY.counter(
+            "integrity_quarantines",
+            "suspect positions evicted from the mesh by the SDC "
+            "sentinel's planned quarantine").inc()
+    epoch = mesh_mod.mesh_epoch()
+    rec = {"device": int(suspect), "strikes": strikes,
+           "epoch_from": epoch, "epoch_to": epoch, "plan": digest,
+           "remedy": "restart", "t": trace_mod.now()}
+    with _lock:
+        _history.append(rec)
+        _strikes.pop(suspect, None)
+    log_warn("integrity: rank %d quarantined after %d strikes; the group "
+             "ends and restarts without it", suspect, strikes)
 
 
 # -- surfaces -----------------------------------------------------------------

@@ -1713,3 +1713,108 @@ def test_local_rule_kernels_on_stored_blocks(card, tmp_path, case, launches):
                 np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
             else:
                 np.testing.assert_array_equal(a, b)
+
+
+# -- the integrity check on a group mesh: two gloo ranks on the card ------
+
+_INTEGRITY_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, os.environ["REPO"])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import spartan_tpu_torch as st
+from spartan_tpu_torch.examples import kmeans as km
+from spartan_tpu_torch.kernels import kmeans as kk
+from spartan_tpu_torch.parallel import mesh as mesh_mod
+from spartan_tpu_torch.resilience import integrity
+
+dev = torch.device("cuda", 0)
+st.set_default_device(dev)
+assert mesh_mod.initialize_distributed(
+    "file://" + os.environ["STORE"], num_processes=2,
+    process_id=int(os.environ["RANK"]), backend="gloo", device=dev,
+    timeout_s=120)
+rng = np.random.RandomState(9)
+pts = rng.rand(65536, 128).astype(np.float32)
+c0 = pts[:16].copy()
+st.FLAGS.opt_auto_tiling = False  # the centers stay replicated
+st.FLAGS.retry_backoff_s = 0.0
+p = st.from_numpy(pts).evaluate()
+off = km.kmeans_step(p, st.from_numpy(c0), 16).evaluate().glom()
+st.FLAGS.integrity_check = True
+st.FLAGS.profile_sample_every = 1
+verdicts = []
+stamp = integrity._stamp
+integrity._stamp = lambda d, pl, v: (verdicts.append(
+    {k: v[k] for k in v if k not in ("t", "plan")}), stamp(d, pl, v))[1]
+# the profiler samples at the same cadence: its walks' launches apart
+import importlib
+profile_mod = importlib.import_module("spartan_tpu_torch.obs.profile")
+impl, sampled = profile_mod._profile_impl, [0]
+
+
+def counted(*a, **kw):
+    before = kk.LAUNCHES
+    try:
+        return impl(*a, **kw)
+    finally:
+        sampled[0] += kk.LAUNCHES - before
+
+
+profile_mod._profile_impl = counted
+before = kk.LAUNCHES
+on = km.kmeans_step(p, st.from_numpy(c0), 16).evaluate().glom()
+torch.cuda.synchronize()
+out = {"launches": kk.LAUNCHES - before - sampled[0],
+       "equal": bool((on == off).all()), "clean": list(verdicts)}
+verdicts.clear()
+with st.chaos("sdc@0#1", seed=2):
+    again = km.kmeans_step(p, st.from_numpy(c0), 16).evaluate().glom()
+out["fault"] = list(verdicts)
+out["retry_equal"] = bool((again == off).all())
+mesh_mod.shutdown()
+with open(os.environ["OUT"], "w") as f:
+    json.dump(out, f)
+"""
+
+
+@pytest.mark.cuda
+def test_group_integrity_leaf_move_and_vote(card, tmp_path):
+    """Two gloo ranks sharing the card check a k-means step: each rank's
+    block of the points moves to the rank holding its coordinates on the
+    rotated mesh, the re-walk launches the kernel again there (2 launches
+    a rank), the verdicts are the same on both ranks, and a bit flipped
+    in rank 1's copy of the replicated centers implicates rank 1 alone;
+    the clean retry returns the flag-off centers."""
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, REPO=repo, STORE=str(tmp_path / "store"),
+                   RANK=str(rank), OUT=str(tmp_path / f"rank{rank}.json"),
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, "-c",
+                                       _INTEGRITY_CHILD], env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    got = []
+    for rank in range(2):
+        with open(tmp_path / f"rank{rank}.json") as f:
+            got.append(json.load(f))
+    for g in got:
+        assert g["launches"] == 2 and g["equal"] and g["retry_equal"]
+        (clean,) = g["clean"]
+        assert clean["verdict"] == "ok"
+        # the points' block (32768 x 128 f32) is what moves
+        assert clean["moved_sent"] == clean["moved_recv"] >= 32768 * 128 * 4
+        assert g["fault"][0]["suspects"] == [1]
+        assert [v["verdict"] for v in g["fault"]] == ["violation", "ok"]
+    assert got[0]["clean"] == got[1]["clean"]
+    assert got[0]["fault"] == got[1]["fault"]

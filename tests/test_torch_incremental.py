@@ -1063,3 +1063,378 @@ def test_dirt_phase_error_degrades_to_full(mesh, monkeypatch):
     _, ot = _both(_dirt_error, mesh, monkeypatch)
     assert ot.counters["incremental_fallbacks"] == 1
     assert ot.facts[0] == ("mode", "full", "error:ValueError")
+
+
+# -- a group mesh ---------------------------------------------------------
+#
+# Gloo groups of 2 and 4 CPU processes (meshes 2x1 and 2x2), launched as
+# tests/test_torch_local_storage.py launches them. Every rank runs the
+# streams of _GROUP_STREAMS with the engine on and off; the parent runs
+# the same streams on the port's logical mesh of the group's shape and
+# through the JAX package's streaming drivers on its mesh of that shape.
+# A stream is a window normalized after each push with fixed statistics
+# (an elementwise map: bit-equal to the logical mesh's run too; the
+# sums add per-rank partials on a group and in one pass on a logical
+# mesh, so there the logical run is held to 1e-6),
+# a PageRank correction after each edge insert (a restricted product:
+# one-thread CPUs keep the full product's order at the granule), a sum
+# along the split axis after each column-block write, and an uneven
+# (63 x 33) map whose cache decision must agree across ranks at a budget
+# of exactly its entry's bytes and one byte less.
+
+import functools  # noqa: E402
+import importlib  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import shutil  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GROUP_JOIN_S = 240
+UNEVEN = (63, 33)
+UNEVEN_ENTRY = 2 * UNEVEN[0] * UNEVEN[1] * 4  # the result and its leaf
+
+_GROUP_STREAMS = r"""
+import numpy as np
+
+
+def _modes(P, expr):
+    plan = P.base.lookup_plan(P.base.plan_signature(expr)[0])
+    inc = (plan.report or {}).get("incremental") or {}
+    return [inc.get("mode"), inc.get("fallback")]
+
+
+def _count(P):
+    c = P.counters()
+    return [int(c.get(k, 0)) for k in ("incremental_hits",
+                                       "incremental_fallbacks")]
+
+
+def _delta(a, b):
+    return [x - y for x, y in zip(a, b)]
+
+
+def window(P, on):
+    P.FLAGS.incremental = on
+    rng = np.random.RandomState(50)
+    sw = P.streaming.SlidingWindowStats(64, 16)
+    first = rng.rand(64, 16).astype(np.float32)
+    sw.push(first)
+    # fixed statistics from the host, replicated as a reduction leaves
+    # them: the stream itself is elementwise
+    rep = P.Tiling((None,))
+    mean = P.st.from_numpy(first.mean(0), tiling=rep).evaluate()
+    std = P.st.from_numpy(first.std(0), tiling=rep).evaluate()
+    sw.normalized(mean, std)
+    c0, coll = _count(P), 0
+    outs, modes = [], []
+    for _ in range(6):
+        sw.push(rng.rand(3, 16).astype(np.float32))
+        coll -= P.collectives()
+        res = sw.normalized(mean, std)
+        coll += P.collectives()  # the step's walk, not the glom
+        outs.append(res.glom())
+        modes.append(_modes(P, (P.lazify(sw.buf) - P.lazify(mean))
+                            / (P.lazify(std) + 1e-12)))
+    return outs, _delta(_count(P), c0), modes, coll
+
+
+def pagerank(P, on):
+    P.FLAGS.incremental = on
+    n = 512
+    a = np.random.RandomState(51).rand(n, n).astype(np.float32)
+    a /= a.sum(1, keepdims=True)
+    pr = P.streaming.IncrementalPageRank(P.st.from_numpy(a).evaluate(),
+                                         rebase_every=10)
+    pr.step()
+    c0, coll0 = _count(P), P.collectives()
+    g = np.random.RandomState(52)
+    outs, modes = [], []
+    for j in (3, 100, 300):
+        pr.insert_edges(slice(j, j + 5),
+                        g.rand(n, 5).astype(np.float32) / n)
+        outs.append(pr.step().glom())
+        modes.append(_modes(P, pr._step_expr()))
+    return outs, _delta(_count(P), c0), modes, P.collectives() - coll0
+
+
+def split_sum(P, on):
+    P.FLAGS.incremental = on
+    rng = np.random.RandomState(53)
+    x = P.st.from_numpy(rng.rand(64, 256).astype(np.float32),
+                        tiling=P.Tiling(("x", "y"))).evaluate()
+    P.evaluate(P.lazify(x).sum(axis=0))
+    c0, coll = _count(P), 0
+    outs, modes = [], []
+    for c in (3, 70, 140, 250):
+        x = x.update((slice(5, 9), slice(c, c + 3)),
+                     rng.rand(4, 3).astype(np.float32))
+        coll -= P.collectives()
+        res = P.evaluate(P.lazify(x).sum(axis=0))
+        coll += P.collectives()
+        outs.append(res.glom())
+        modes.append(_modes(P, P.lazify(x).sum(axis=0)))
+    return outs, _delta(_count(P), c0), modes, coll
+
+
+def uneven(P, on, budget):
+    P.FLAGS.incremental = on
+    prev = P.FLAGS.result_cache_bytes
+    P.FLAGS.result_cache_bytes = budget
+    try:
+        rng = np.random.RandomState(54)
+        u = P.st.from_numpy(rng.rand(63, 33).astype(np.float32),
+                            tiling=P.Tiling(("x", None))).evaluate()
+        P.evaluate(P.lazify(u) * 2.0 + 1.0)
+        c0 = _count(P)
+        outs = []
+        for r in (40, 7):
+            u = u.update((slice(r, r + 3), slice(0, 33)),
+                         rng.rand(3, 33).astype(np.float32))
+            outs.append(P.evaluate(P.lazify(u) * 2.0 + 1.0).glom())
+        return outs, _delta(_count(P), c0), P.inc.cache_entries()
+    finally:
+        P.FLAGS.result_cache_bytes = prev
+        P.inc.clear()
+
+
+STREAMS = {"window": window, "pagerank": pagerank, "split_sum": split_sum}
+
+
+def run_streams(P):
+    res = {}
+    for name, fn in STREAMS.items():
+        for on in (True, False):
+            P.inc.clear()
+            res[(name, on)] = fn(P, on)
+    P.FLAGS.incremental = False
+    P.inc.clear()
+    return res
+"""
+
+_GROUP_CHILD = r"""
+import json, os, sys, types
+sys.path.insert(0, os.environ["REPO"])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import spartan_tpu_torch as st
+from spartan_tpu_torch.array.tiling import Tiling
+from spartan_tpu_torch.examples import streaming
+from spartan_tpu_torch.expr import base, incremental
+from spartan_tpu_torch.obs.metrics import materialize_sites
+from spartan_tpu_torch.utils import profiling as prof
+from spartan_tpu_torch.utils.config import FLAGS
+
+st.set_default_device("cpu")
+assert st.initialize_distributed() is True
+mesh = st.get_mesh()
+
+
+def collectives():
+    return sum(int(v) for k, v in st.metrics()["counters"].items()
+               if k.startswith("collective_calls"))
+
+
+P = types.SimpleNamespace(
+    st=st, streaming=streaming, base=base, inc=incremental, FLAGS=FLAGS,
+    Tiling=Tiling, lazify=base.lazify, evaluate=base.evaluate,
+    counters=prof.counters, collectives=collectives)
+ns = {}
+exec(os.environ["STREAMS"], ns)
+res = ns["run_streams"](P)
+entry = int(os.environ["ENTRY"])
+for budget in (entry, entry - 1):
+    for on in (True, False):
+        res[("uneven", budget, on)] = ns["uneven"](P, on, budget)
+arrays, facts = {}, {}
+for key, val in res.items():
+    name = "/".join(str(k) for k in key)
+    for i, o in enumerate(val[0]):
+        arrays[f"{name}/{i}"] = o
+    facts[name] = [v for v in val[1:]]
+facts["materialized"] = sum(materialize_sites().values())
+# the plan audit's collectives of each restricted walk (its splice plan)
+from spartan_tpu_torch.analysis import plan_audit
+facts["audit"] = {
+    str(list(p.dag.shape)): len(plan_audit.audit_built_plan(
+        p, mesh).collectives)
+    for p in list(base._plan_cache.values())
+    if type(p.dag).__name__ == "_DynUpdateExpr"}
+# st.explain of a warm step names the mode
+FLAGS.incremental = True
+pr = streaming.IncrementalPageRank(st.from_numpy(
+    np.eye(512, dtype=np.float32)).evaluate(), rebase_every=10)
+pr.step()
+pr.insert_edges(slice(7, 9), np.full((512, 2), 0.5, np.float32))
+pr.step()
+facts["explain"] = [ln.strip() for ln in str(st.explain(
+    pr._step_expr())).splitlines() if "incremental:" in ln]
+FLAGS.incremental = False
+incremental.clear()
+st.shutdown()
+out = os.environ["OUT"]
+np.savez(os.path.join(out, f"rank{mesh.rank}.npz"), **arrays)
+with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+    json.dump(facts, f)
+print("CHILD_OK", mesh.rank, flush=True)
+"""
+
+
+def _group_shape(world):
+    return (2, 1) if world == 2 else (2, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _group_run(world: int):
+    """Every rank's (arrays, facts) of _GROUP_CHILD on a gloo group."""
+    tmp = tempfile.mkdtemp(prefix="incremental_group_")
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, REPO=REPO, OUT=tmp, STREAMS=_GROUP_STREAMS,
+                   ENTRY=str(UNEVEN_ENTRY),
+                   COORDINATOR_ADDRESS=f"file://{tmp}/store",
+                   WORLD_SIZE=str(world), RANK=str(rank),
+                   OMP_NUM_THREADS="1")
+        for key in ("MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+            env.pop(key, None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _GROUP_CHILD], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=GROUP_JOIN_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:  # a hung rank fails the test
+                p.kill()
+                p.communicate()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"CHILD_OK {rank}" in log, log[-3000:]
+    outs = []
+    for rank in range(world):
+        arrays = dict(np.load(os.path.join(tmp, f"rank{rank}.npz")))
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            outs.append((arrays, json.load(f)))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return outs
+
+
+def _streams_ns():
+    ns = {}
+    exec(_GROUP_STREAMS, ns)
+    return ns
+
+
+def _ns_of(P):
+    return types.SimpleNamespace(
+        st=P.st, streaming=importlib.import_module(
+            f"{P.name}.examples.streaming"),
+        base=P.base, inc=P.inc, FLAGS=P.FLAGS,
+        Tiling=importlib.import_module(f"{P.name}.array.tiling").Tiling,
+        lazify=P.lazify, evaluate=P.evaluate, counters=P.prof.counters,
+        collectives=lambda: 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_runs(world: int, pkg: str):
+    """The flag-on streams on the logical mesh of the group's shape: the
+    port's (``spartan_tpu_torch``) or the JAX package's."""
+    P = T if pkg == T.name else J
+    shape = _group_shape(world)
+    ctx = (mesh_j.use_mesh(mesh_j.build_mesh(jax.devices()[:world],
+                                             shape=shape))
+           if P is J else mesh_t.use_mesh(mesh_t.build_mesh(shape, "cpu")))
+    prev = mesh_t.get_default_device()
+    mesh_t.set_default_device("cpu")
+    saved = {n: getattr(P.FLAGS, n) for n in _SAVED}
+    try:
+        with ctx:
+            ns, nsp = _streams_ns(), _ns_of(P)
+            out = {}
+            for name, fn in ns["STREAMS"].items():
+                P.inc.clear()
+                out[name] = [np.asarray(o) for o in fn(nsp, True)[0]]
+            return out
+    finally:
+        P.inc.clear()
+        for n, v in saved.items():
+            setattr(P.FLAGS, n, v)
+        mesh_t.set_default_device(prev)
+
+
+_TOL = {"window": ELEM, "pagerank": SUM, "split_sum": SUM}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_group_streams_served_incrementally_and_bit_equal(world):
+    outs = _group_run(world)
+    logical = _reference_runs(world, T.name)
+    for arrays, facts in outs:
+        for name in ("window", "pagerank", "split_sum"):
+            steps = len(logical[name])
+            hits, falls = facts[f"{name}/True"][0]
+            assert (hits, falls) == (steps, 0), (name, facts)
+            assert facts[f"{name}/False"][0] == [0, 0]
+            assert all(m == ["incremental", None]
+                       for m in facts[f"{name}/True"][1]), name
+            for i in range(steps):
+                got = arrays[f"{name}/True/{i}"]
+                # the flag-off group run, then the logical mesh's run:
+                # bit-equal for the elementwise stream; the sums add
+                # per-rank partials on a group and in one pass there
+                np.testing.assert_array_equal(
+                    got, arrays[f"{name}/False/{i}"], err_msg=name)
+                if name == "window":
+                    np.testing.assert_array_equal(got, logical[name][i])
+                else:
+                    np.testing.assert_allclose(got, logical[name][i],
+                                               rtol=ELEM, atol=ELEM,
+                                               err_msg=name)
+        # the window stays where the ranks hold it: no collective, and
+        # nothing gathered whole
+        assert facts["window/True"][2] == 0
+        assert facts["materialized"] == 0
+        # a sum along the split axis still reduces over it
+        assert facts["split_sum/True"][2] > 0
+        # the plan audit of each restricted walk lists the collectives
+        # the walk made: one all-reduce a step for the sum, none for
+        # the window
+        assert facts["audit"]["[256]"] * 4 == facts["split_sum/True"][2]
+        assert facts["audit"]["[64, 16]"] == 0
+        assert facts["explain"] and facts["explain"][0].startswith(
+            "incremental: incremental, dirty_frac="), facts["explain"]
+    # every rank took the same decisions
+    for _, facts in outs[1:]:
+        assert facts == outs[0][1]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_group_streams_within_tolerance_of_jax(world):
+    outs = _group_run(world)
+    want = _reference_runs(world, J.name)
+    arrays = outs[0][0]
+    for name, tol in _TOL.items():
+        for i, w in enumerate(want[name]):
+            np.testing.assert_allclose(arrays[f"{name}/True/{i}"], w,
+                                       rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_group_uneven_cache_decision_agrees_across_ranks(world):
+    outs = _group_run(world)
+    for arrays, facts in outs:
+        # at the entry's global bytes every rank caches and serves both
+        # writes; one byte less and no rank caches
+        assert facts[f"uneven/{UNEVEN_ENTRY}/True"][0] == [2, 0]
+        assert facts[f"uneven/{UNEVEN_ENTRY - 1}/True"][0] == [0, 0]
+        for budget in (UNEVEN_ENTRY, UNEVEN_ENTRY - 1):
+            for i in range(2):
+                np.testing.assert_array_equal(
+                    arrays[f"uneven/{budget}/True/{i}"],
+                    arrays[f"uneven/{budget}/False/{i}"])
+    for _, facts in outs[1:]:
+        assert facts == outs[0][1]

@@ -950,18 +950,16 @@ def test_local_rules_match_jax_and_the_logical_mesh(world, tmp_path):
 # and carries the walk seeds (never lowered), the dict wrapper (walked
 # through its tuple), creation and random fills (made whole on every
 # rank: no data read), and the gathers that remain: a user function's
-# map2, fancy indexing, region writes and the incremental engine's
+# map2, fancy indexing and region writes. The incremental engine's
 # restriction nodes (made when the engine first runs; the test makes
-# them first, so the list does not depend on the tests before it). The
-# list may only shrink.
+# them first, so the list does not depend on the tests before it) have
+# their rules. The list may only shrink.
 _NO_LOCAL_RULE = {
     "spartan_tpu_torch.expr.assign.WriteExpr",
     "spartan_tpu_torch.expr.base.DictExpr",
     "spartan_tpu_torch.expr.base.ScalarExpr",
     "spartan_tpu_torch.expr.base.ValExpr",
     "spartan_tpu_torch.expr.filter.GatherExpr",
-    "spartan_tpu_torch.expr.incremental._DynSliceExpr",
-    "spartan_tpu_torch.expr.incremental._DynUpdateExpr",
     "spartan_tpu_torch.expr.loop.CarryExpr",
     "spartan_tpu_torch.expr.loop.LoopIndexExpr",
     "spartan_tpu_torch.expr.map2.Map2Expr",
