@@ -336,6 +336,9 @@ LOCAL_CAL_N = 1024
 # rank's measured peak within LOCAL_MEM_TOL of peak_bytes_card
 LOCAL_BSORT = (8, 2 ** 23)
 LOCAL_MEM_TOL = 0.05
+# [local]'s fills: the draws' seed, the sample of the points' rows and
+# the rows of the 8192^2 array a 4096-row source is written into
+FILL_SEED, FILL_SAMPLE, FILL_ROWS = 70, 65_536, (2048, 6144)
 # [resilience]: config 3 on a logical (4, 2) mesh; [elastic_group]: the
 # gloo group's timeout, the parent's wait for a world, and the sleep
 # each dispatch of the world that loses a rank takes (so the kill lands
@@ -4164,12 +4167,13 @@ def _local_rules(st, path, dev, mesh) -> dict:
                           leaves]).evaluate().local
 
     def case(name, make, leaves, tol=None, ref=None, compare=None,
-             plain=None):
+             plain=None, keep=False):
         """``make(*exprs)`` over ``leaves`` (whole tensor, tiling); with
         ``compare(block, extent)`` the error is its answer. ``plain``
         ("equal", or "close": [stencil]'s rtol 1e-4 plus an atol of 1e-6
         of the largest output) holds the block against the plain
-        versions' run as well."""
+        versions' run as well. With ``keep`` it returns the group's
+        result and the one-process result."""
         if ref is None and compare is None:
             ref = one_run(make, leaves)
         plain_ref = None
@@ -4224,6 +4228,8 @@ def _local_rules(st, path, dev, mesh) -> dict:
                "launches": [b - a for a, b in zip(k0, k1)],
                "ms": _wall_ms(lambda: make(*xs).evaluate(), reps=2)}
         out[name] = rec
+        if keep:
+            return got, ref
         del got, ref, want, xs, expr, plan, plain_ref
         torch.cuda.empty_cache()
 
@@ -4286,7 +4292,222 @@ def _local_rules(st, path, dev, mesh) -> dict:
          [(xv, hx)] + [(a, None) for wb in params for a in wb], tol=1e-5,
          compare=against_f64, plain="close")
     del xv, params, ref
+    out["fills"] = _local_fills(st, path, dev, mesh, one, case, rand)
     return out
+
+
+def _local_fills_report(res, card: str) -> None:
+    """[local]'s fills beside the whole-array path each rule replaced,
+    and their checks: the uniform draw's bits on the host, 20 row-1
+    launches a rank on the group-drawn points with the one-process
+    run's centers, the window's DistArray pushes gathering nothing."""
+    for r, rr in enumerate(res):
+        f = rr["rules"]["fills"]
+        rules = rr["rules"]
+        for name, (peak, ms) in f["whole_path"].items():
+            if name == "sw":
+                now = (f"peak {f['sw']['peak']} bytes (card model "
+                       f"{f['sw']['pred']:.0f}; worst push off its model "
+                       f"by {f['sw']['worst']:.4f}), {f['sw']['ms']:.2f} "
+                       f"ms a push, received {f['sw']['recv']} bytes")
+            else:
+                now = (f"peak {rules[name]['measured']} bytes, "
+                       f"{rules[name]['ms']:.2f} ms, received "
+                       f"{rr[f'r_{name}_recv']} bytes")
+            _say(f"[local] rank {r}: {name}: local rule {now}; the "
+                 f"whole-array path (the rule switched off, in this run, "
+                 f"its gathers counted) peak {peak} bytes, {ms:.2f} ms "
+                 f"(host clock; two processes time-slice one card) on "
+                 f"{card}")
+        _say(f"[local] rank {r}: st.rand of its {LOCAL_KM_N // GROUP_RANKS}"
+             f"x{KM_D} block {rules['rand']['ms']:.2f} ms (counter-based, "
+             f"Philox4x32-10); torch.rand of the same block "
+             f"{f['torch_rand_ms']:.2f} ms; host draw of its first and "
+             f"last 4096 rows bit-equal: {f['rand_host_equal']}; config-3 "
+             f"k-means on the drawn points: {f['km_launches']} launches, "
+             f"centers bit-equal to the one-process sharded run: "
+             f"{f['km_equal']} (max |diff| {f['km_diff']:.3g}); window "
+             f"{SW_WINDOW}x{SW_DIM}: {f['sw']['pushes']} DistArray pushes "
+             f"of {SW_PUSH} rows, {f['sw']['gathers']} gathered whole, "
+             f"received {f['sw']['recv']} bytes, bit-equal to the "
+             f"one-process window: {f['sw']['equal']} on {card}")
+        if not f["rand_host_equal"]:
+            _fail(f"[local] rank {r}: the uniform draw's bits differ "
+                  f"between the card and the host")
+        if f["km_launches"] != KM_ITERS or rr["r_fill_km_mat"] != 0:
+            _fail(f"[local] rank {r}: k-means on the drawn points launched "
+                  f"{f['km_launches']} times (want {KM_ITERS}) and "
+                  f"gathered {rr['r_fill_km_mat']} arrays whole")
+        if not f["km_equal"]:
+            _fail(f"[local] rank {r}: k-means centers on the drawn points "
+                  f"differ from the one-process run by {f['km_diff']}")
+        if f["sw"]["worst"] > LOCAL_MEM_TOL:
+            _fail(f"[local] rank {r}: a window push's peak is off its card "
+                  f"model by {f['sw']['worst']:.4f} (limit {LOCAL_MEM_TOL})")
+        if f["sw"]["gathers"] != 0 or not f["sw"]["equal"]:
+            _fail(f"[local] rank {r}: the window's DistArray pushes "
+                  f"gathered {f['sw']['gathers']} arrays whole, bit-equal "
+                  f"{f['sw']['equal']}")
+
+
+def _whole_path(dev, cls, fn) -> tuple:
+    """(peak bytes over the resident ones, best ms) of ``fn()`` with
+    ``cls``'s local rule switched off: each rank makes or reads the
+    whole array and keeps its block, as the port did before the rule."""
+    saved = cls._lower_local
+    cls._lower_local = None
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        return peak, _wall_ms(fn, reps=1)
+    finally:
+        cls._lower_local = saved
+        torch.cuda.empty_cache()
+
+
+def _local_fills(st, path, dev, mesh, one, case, rand) -> dict:
+    """[local]'s creation, random fills, fancy indexing and region
+    writes on this rank (``case`` records each one as the other rules),
+    beside the whole-array path they replace; then config-3 k-means on
+    the group-drawn points and the sliding window fed DistArray batches.
+    Returns the figures that are no ``case``."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.array.extent import TileExtent
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.examples import streaming
+    from spartan_tpu_torch.expr.assign import WriteExpr
+    from spartan_tpu_torch.expr.filter import GatherExpr
+    from spartan_tpu_torch.expr.ndarray import CreateExpr, RandomExpr
+    from spartan_tpu_torch.kernels import kmeans as kk
+    from spartan_tpu_torch.obs.metrics import collective_totals as tot
+    from spartan_tpu_torch.utils import philox
+
+    n, rows = STRUCT_N, st.Tiling(("x", None))
+    res = {"whole_path": {}}
+
+    def draw():
+        return st.rand(LOCAL_KM_N, KM_D, seed=FILL_SEED, tiling=rows)
+
+    pts, pts_ref = case("rand", draw, [], keep=True)
+    res["whole_path"]["rand"] = _whole_path(
+        dev, RandomExpr, lambda: draw().evaluate())
+    # the uniform bits do not depend on the device: the rank's first and
+    # last 4096 rows drawn on the host
+    ext = pts.tiling.block_extent(pts.shape, mesh)
+    same = []
+    for a, b in ((ext.ul[0], ext.ul[0] + 4096), (ext.lr[0] - 4096,
+                                                 ext.lr[0])):
+        host = philox.draw("uniform", FILL_SEED, pts.shape,
+                           TileExtent((a, 0), (b, KM_D), pts.shape),
+                           torch.float32, "cpu")
+        same.append(torch.equal(host, pts.local[a - ext.ul[0]:
+                                                b - ext.ul[0]].cpu()))
+    res["rand_host_equal"] = all(same)
+    # torch.rand of the rank's block, for scale
+    res["torch_rand_ms"] = _wall_ms(
+        lambda: torch.rand(tuple(ext.shape), device=dev), reps=2)
+    # config-3 k-means on the drawn points: one launch a rank an
+    # iteration; the one-process run is the logical mesh's sharded pass
+    # (a launch per row block, the blocks' sums added), so the centers
+    # are the same bits
+    c0 = pts_ref[:KM_K].clone()
+    c = c0
+    for _ in range(KM_ITERS):
+        sums, cnt = kk.assign_accumulate_sharded(pts_ref, c, KM_K, mesh=one)
+        c = sums / torch.clamp_min(cnt, 1.0)[:, None]
+    one_centers = c.cpu().numpy()
+    pe = st.as_expr(pts)
+    k0 = kk.LAUNCHES
+    got = path("r_fill_km", lambda: st.loop(
+        KM_ITERS, lambda cc: km.kmeans_step(pe, cc, KM_K),
+        st.from_numpy(c0.cpu().numpy())).glom())
+    res["km_launches"] = kk.LAUNCHES - k0
+    res["km_equal"] = bool(np.array_equal(got, one_centers))
+    res["km_diff"] = float(np.abs(got - one_centers).max())
+    del pe, got
+    case("randn", lambda: st.randn(LOCAL_KM_N, KM_D, seed=FILL_SEED + 1,
+                                   tiling=rows), [])
+    case("zeros", lambda: st.zeros((n, n), tiling=rows), [])
+    res["whole_path"]["zeros"] = _whole_path(
+        dev, CreateExpr, lambda: st.zeros((n, n), tiling=rows).evaluate())
+    case("arange", lambda: st.arange(n * n, tiling=st.Tiling(("x",))), [])
+    case("eye", lambda: st.eye(n), [])
+    # a sorted sample of the points' rows (the leaf: the one-process
+    # draw, of which each rank keeps its block: the group's bits)
+    idx = np.sort(np.random.RandomState(FILL_SEED).choice(
+        LOCAL_KM_N, FILL_SAMPLE, replace=False))
+    case("gather", lambda x: x[idx], [(pts_ref, rows)])
+    xg = st.as_expr(from_tensor(pts_ref, tiling=rows))
+    res["whole_path"]["gather"] = _whole_path(
+        dev, GatherExpr, lambda: xg[idx].evaluate())
+    del xg, pts, pts_ref
+    torch.cuda.empty_cache()
+    region = (slice(FILL_ROWS[0], FILL_ROWS[1]), slice(0, n))
+    src_rows = FILL_ROWS[1] - FILL_ROWS[0]
+    dst_t = rand(n, n, seed=FILL_SEED + 2)
+    src_t = rand(src_rows, n, seed=FILL_SEED + 3)
+    de = st.as_expr(from_tensor(dst_t, tiling=rows))
+    ve = st.as_expr(from_tensor(src_t, tiling=rows))
+    case("assign", lambda d, v: st.assign(d, region, v),
+         [(dst_t, rows), (src_t, rows)])
+    res["whole_path"]["assign"] = _whole_path(
+        dev, WriteExpr, lambda: st.assign(de, region, ve).evaluate())
+    del dst_t, src_t, de, ve
+    torch.cuda.empty_cache()
+
+    # the sliding window fed DistArray batches drawn on the group: each
+    # rank receives only the rows its block of the window takes
+    seeds = [FILL_SEED + 10 + i for i in range(SW_PUSHES)]
+    with st.use_mesh(one):
+        sw1 = streaming.SlidingWindowStats(SW_WINDOW, SW_DIM)
+        for sd in seeds:
+            sw1.push(st.randn(SW_PUSH, SW_DIM, seed=sd).evaluate())
+        ref_buf = sw1.buf.local
+        del sw1
+    sw = streaming.SlidingWindowStats(SW_WINDOW, SW_DIM)
+    batches = [st.randn(SW_PUSH, SW_DIM, seed=sd).evaluate() for sd in seeds]
+    m0, r0 = (tot()["group_materialize_calls"], tot()["group_received_bytes"])
+    times, peaks, preds = [], [], []
+    for b in batches:
+        # what the push's update should hold beside the window and the
+        # batch (``DistArray.update_card_bytes``)
+        preds.append(sw.buf.update_card_bytes(
+            (slice(sw._head, sw._head + SW_PUSH), slice(0, SW_DIM)), b))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        sw.push(b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+    res["sw"] = {
+        "pushes": len(batches),
+        "gathers": tot()["group_materialize_calls"] - m0,
+        "recv": tot()["group_received_bytes"] - r0,
+        "ms": float(np.median(times)), "peak": int(max(peaks)),
+        "pred": float(max(preds)),
+        "worst": float(max(abs(m / p - 1.0) for m, p in zip(peaks, preds))),
+        "equal": bool(torch.equal(sw.buf.local, ref_buf[
+            sw.buf.block_extent().to_slice()]))}
+    # the path before this rule: each batch gathered whole on every rank
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    for b in batches[:4]:
+        sw.push(b.materialize("update"))
+    torch.cuda.synchronize()
+    res["whole_path"]["sw"] = (
+        torch.cuda.max_memory_allocated(dev) - base,
+        (time.perf_counter() - t) * 1e3 / 4)
+    del sw, batches, ref_buf
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
@@ -4394,7 +4615,7 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
 
     for rr in res:
         for name, rec in rr["rules"].items():
-            if name.startswith("sort_scratch"):
+            if name.startswith("sort_scratch") or name == "fills":
                 continue
             lim = ("bit-equal" if rec["tol"] is None else
                    f"limit {rec['tol']:g}")
@@ -4427,7 +4648,7 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
                   f"element of scratch, ops/sort.SORT_SCRATCH says "
                   f"{SORT_SCRATCH} (limit 1 +- {LOCAL_MEM_TOL})")
         for name, rec in rr["rules"].items():
-            if name.startswith("sort_scratch"):
+            if name.startswith("sort_scratch") or name == "fills":
                 continue
             if rec["plain"] is not None and rec["plain_err"] != 0.0:
                 _fail(f"[local] rank {r}: {name} differs from the plain "
@@ -4449,6 +4670,7 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
                       f"{rec['predicted']} against a measured peak of "
                       f"{rec['measured']} (ratio {ratio:.4f}, limit 1 +- "
                       f"{LOCAL_MEM_TOL})")
+    _local_fills_report(res, card)
     r0 = res[0]
     _say(f"[local] {GROUP_RANKS} gloo processes on the one card, mesh "
          f"{tuple(r0['mesh'])}, local-shard storage ({wall:.1f} s with "

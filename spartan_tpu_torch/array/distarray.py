@@ -448,7 +448,9 @@ class DistArray:
         (default: overwrite); this array is unchanged. ``data`` is cast
         to this array's dtype and broadcast to the region's shape; the
         reducers combine in that dtype (integers wrap). On a group mesh
-        each rank writes where the region meets its block.
+        each rank writes where the region meets its block; a DistArray
+        ``data`` sends each rank only the part its block takes
+        (:func:`region_source`).
 
         The new array shares this array's :class:`Lineage` with
         ``region`` logged as its delta; an overwrite with
@@ -460,22 +462,54 @@ class DistArray:
             region = extent_mod.from_slice(region, self.shape)
         op = REDUCERS[_canonical_reducer(reducer)]
         x = self._data()
-        d = _as_tensor(data, x.dtype, x.device)
-        d = torch.broadcast_to(d, region.shape)
         mine = self.block_extent()
-        out = x.clone()
         part = region.intersection(mine) if region.size else None
+        if isinstance(data, DistArray) and data.mesh.is_group:
+            # each rank receives only the part of the value its block
+            # takes (the write's piece exchange)
+            d = region_source(data, region, self.tiling, self.shape)
+            d = None if part is None else torch.broadcast_to(
+                d.to(device=x.device, dtype=x.dtype), part.shape)
+        else:
+            d = _as_tensor(data, x.dtype, x.device)
+            d = torch.broadcast_to(d, region.shape)
+            if part is not None:
+                d = d[part.offset_from(region).to_slice()]
+        out = x.clone()
         stash = None
         if part is not None:
             sl = part.offset_from(mine).to_slice()
-            dp = d[part.offset_from(region).to_slice()]
-            out[sl] = dp if op == "set" else dtypes.call(_COMBINE[op],
-                                                         out[sl], dp)
+            out[sl] = d if op == "set" else dtypes.call(_COMBINE[op],
+                                                        out[sl], d)
             if op == "set" and not self.mesh.is_group and _stash_enabled():
                 stash = out[sl].clone()
         res = DistArray.from_local(out, self.tiling, self.shape, self.mesh)
         self._record_mutation(res, region, stash)
         return res
+
+    def update_card_bytes(self, region: Any, data: "DistArray",
+                          reducer: Any = None) -> float:
+        """The bytes ``self.update(region, data, reducer)`` holds on this
+        rank at its peak beside the arrays it is given, for a DistArray
+        ``data`` on a group mesh: the value's part with its exchange's
+        buffers while it moves, then the part beside its cast, the new
+        block and a combine's result (``WriteExpr.card_staging``'s
+        model, in the order ``update`` runs)."""
+        if not isinstance(region, TileExtent):
+            region = extent_mod.from_slice(region, self.shape)
+        item, s_item = self.dtype.itemsize, data.dtype.itemsize
+        piece, moving = source_staging(data.tiling, data.shape, s_item,
+                                       region, self.tiling, self.shape,
+                                       self.mesh)
+        mine = self.block_extent()
+        part = region.intersection(mine) if region.size else None
+        after = float(mine.size) * item
+        if part is not None:
+            if data.dtype != self.dtype:
+                after += piece / s_item * item
+            if _canonical_reducer(reducer) != "set":
+                after += float(part.size) * item
+        return piece + max(moving, after)
 
     def _record_mutation(self, child: "DistArray",
                          region: Optional[TileExtent],
@@ -599,6 +633,67 @@ class DistArray:
         return DistArray.from_local(out, self.tiling, self.shape, self.mesh)
 
 
+def region_source(src: "DistArray", region: TileExtent, dst: Tiling,
+                  shape: Sequence[int]) -> Optional[torch.Tensor]:
+    """The part of ``src`` (broadcast numpy-style into ``region`` of an
+    array of ``shape`` under ``dst``) that this rank's ``dst`` block
+    takes, on this rank, from one piece exchange
+    (``redistribute.move_pieces``: a rank copies the runs it holds
+    itself, and no collective runs where no part changes owner). Along
+    a broadcast dim the part keeps size 1 (the caller broadcasts after
+    the move). None where the block misses the region."""
+    from ..parallel import redistribute as redist_mod
+
+    mesh = src.mesh
+    t, sshape, want = source_layout(src.tiling, src.shape, region, dst,
+                                    shape)
+    blk = src.local.reshape(t.block_extent(sshape, mesh).shape)
+    got = redist_mod.move_pieces(
+        [redist_mod.Piece(blk, lambda c: t.block_extent(sshape, mesh, c),
+                          redist_mod.free_axes(t, mesh))],
+        want, sshape, blk.dtype, mesh)
+    part = (region.intersection(dst.block_extent(shape, mesh))
+            if region.size else None)
+    return None if part is None else got
+
+
+def source_staging(src_tiling: Tiling, src_shape: Sequence[int],
+                   itemsize: int, region: TileExtent, dst: Tiling,
+                   shape: Sequence[int], mesh: Mesh) -> tuple:
+    """(the bytes of the part :func:`region_source` returns on this
+    rank, the bytes its exchange holds beside it while it moves), from
+    shapes and tilings (``resilience/memory.py``'s card model)."""
+    from ..parallel import redistribute as redist_mod
+
+    t, sshape, want = source_layout(src_tiling, src_shape, region, dst,
+                                    shape)
+    piece = float(want.block_extent(sshape, mesh).size) * itemsize
+    moving = redist_mod.exchange_staging(
+        [lambda c: t.block_extent(sshape, mesh, c)],
+        [redist_mod.free_axes(t, mesh)], want, sshape, mesh, itemsize)
+    return piece, moving
+
+
+def source_layout(t: Tiling, sshape: Sequence[int], region: TileExtent,
+                  dst: Tiling, shape: Sequence[int]) -> tuple:
+    """(tiling, shape, where the write needs it) of a write's source
+    under ``t``, with the leading size-1 dims numpy's broadcast adds to
+    reach the region's rank."""
+    k = len(region.shape) - len(sshape)
+    sshape = tuple(int(d) for d in sshape)
+    if k:
+        pad = (1,) * k
+        t = (tiling_mod.BoxTiling((None,) * k + t.axes, pad + t.parent,
+                                  (0,) * k + t.offset)
+             if isinstance(t, tiling_mod.BoxTiling)
+             else Tiling((None,) * k + t.axes))
+        sshape = pad + sshape
+    want = tiling_mod.RegionTiling(
+        dst, shape, region, [s == 1 and r != 1
+                             for s, r in zip(sshape, region.shape)])
+    return t, sshape, want
+
+
 def _as_tensor(data: Any, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     """``data`` (a DistArray, tensor, array or scalar) as a tensor of
@@ -676,18 +771,6 @@ def from_reference(values: np.ndarray,
     return from_numpy(values, tiling=t, mesh=mesh, device=device)
 
 
-def _filled(shape: Sequence[int], dtype: Any, make,
-            tiling: Optional[Tiling], tile_hint: Optional[Sequence[int]],
-            mesh: Optional[Mesh], device: Optional[DeviceLike]
-            ) -> DistArray:
-    """A fill made whole (a group rank keeps its block): a seeded
-    generator's draws then equal a logical mesh's on the same device."""
-    shape = tuple(int(s) for s in shape)
-    tiling, mesh = _resolve(shape, tiling, tile_hint, mesh, device)
-    return DistArray(make(shape, dtypes.to_torch(dtype), mesh.device),
-                     tiling, mesh)
-
-
 def _filled_local(shape: Sequence[int], dtype: Any, make,
                   tiling: Optional[Tiling],
                   tile_hint: Optional[Sequence[int]], mesh: Optional[Mesh],
@@ -739,36 +822,51 @@ def arange(*args, dtype: Any = None, tiling: Optional[Tiling] = None,
            tile_hint: Optional[Sequence[int]] = None,
            mesh: Optional[Mesh] = None,
            device: Optional[DeviceLike] = None) -> DistArray:
-    probe = np.arange(*args, dtype=dtype)
-    return from_numpy(probe, tiling=tiling, tile_hint=tile_hint, mesh=mesh,
-                      device=device)
+    """The lazy ``arange``'s fill, made eagerly: a group rank makes only
+    its block."""
+    from ..expr.ndarray import _arange_block, arange_meta
+
+    n, dt = arange_meta(args, dtype)
+    shape = (n,)
+    tiling, mesh = _resolve(shape, tiling, tile_hint, mesh, device)
+    ext = (tiling.block_extent(shape, mesh) if mesh.is_group
+           else TileExtent((0,), shape, shape))
+    return DistArray.from_local(
+        _arange_block(args, int(ext.ul[0]), int(ext.lr[0]),
+                      dtypes.to_torch(dtypes.canonical(dt)), mesh.device),
+        tiling, shape, mesh)
 
 
-def _random(shape: Sequence[int], seed: int, sampler,
+def _random(shape: Sequence[int], seed: int, kind: str,
             tiling: Optional[Tiling], tile_hint: Optional[Sequence[int]],
             mesh: Optional[Mesh], device: Optional[DeviceLike]
             ) -> DistArray:
-    def make(s, dt, dev):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        return sampler(s, generator=gen, dtype=dt, device=dev)
+    """A counter-based f32 draw (``utils/philox.py``): a group rank
+    makes only its block, the same slice of the whole draw."""
+    from ..utils import philox
 
-    return _filled(shape, np.float32, make, tiling, tile_hint, mesh, device)
+    shape = tuple(int(s) for s in shape)
+    tiling, mesh = _resolve(shape, tiling, tile_hint, mesh, device)
+    ext = (tiling.block_extent(shape, mesh) if mesh.is_group
+           else philox.whole(shape))
+    return DistArray.from_local(
+        philox.draw(kind, seed, shape, ext, torch.float32, mesh.device),
+        tiling, shape, mesh)
 
 
 def rand(*shape: int, seed: int = 0, tiling: Optional[Tiling] = None,
          tile_hint: Optional[Sequence[int]] = None,
          mesh: Optional[Mesh] = None,
          device: Optional[DeviceLike] = None) -> DistArray:
-    """Uniform [0, 1) f32 from a ``torch.Generator`` seeded with
-    ``seed`` (not the JAX package's bits: tests feed both packages
-    numpy data instead)."""
-    return _random(shape, seed, torch.rand, tiling, tile_hint, mesh, device)
+    """Uniform [0, 1) f32, counter-based under ``seed`` (the lazy
+    ``st.rand``'s values; not the JAX package's bits: tests feed both
+    packages numpy data instead)."""
+    return _random(shape, seed, "uniform", tiling, tile_hint, mesh, device)
 
 
 def randn(*shape: int, seed: int = 0, tiling: Optional[Tiling] = None,
           tile_hint: Optional[Sequence[int]] = None,
           mesh: Optional[Mesh] = None,
           device: Optional[DeviceLike] = None) -> DistArray:
-    return _random(shape, seed, torch.randn, tiling, tile_hint, mesh,
-                   device)
+    """Standard normal f32, counter-based under ``seed``."""
+    return _random(shape, seed, "normal", tiling, tile_hint, mesh, device)

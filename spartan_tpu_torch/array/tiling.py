@@ -184,6 +184,62 @@ class BoxTiling(Tiling):
         return False  # its blocks follow the parent's grid, not shape's
 
 
+class RegionTiling(Tiling):
+    """Where the positions of a group mesh need the source of a write
+    into ``region`` of an array of ``parent`` under ``dst``: each
+    position the part of the region its ``dst`` block covers, in the
+    source's coordinates; along a dim the source broadcasts (``bcast``:
+    its size 1) the whole dim where that part is not empty. A position
+    whose block misses the region needs nothing. The write's piece
+    exchange moves a source to it (``array/distarray.region_source``)."""
+
+    __slots__ = ("dst", "parent", "region", "bcast")
+
+    def __init__(self, dst: Tiling, parent: Sequence[int],
+                 region: TileExtent, bcast: Sequence[bool]):
+        super().__init__(dst.axes)
+        self.dst = dst
+        self.parent: Tuple[int, ...] = tuple(int(d) for d in parent)
+        self.region = region
+        self.bcast: Tuple[bool, ...] = tuple(bool(b) for b in bcast)
+
+    def __hash__(self) -> int:
+        return hash((self.dst, self.parent, self.region, self.bcast))
+
+    def __eq__(self, other: object) -> bool:
+        return (isinstance(other, RegionTiling) and self.dst == other.dst
+                and self.parent == other.parent
+                and self.region == other.region
+                and self.bcast == other.bcast)
+
+    def __repr__(self) -> str:
+        return (f"RegionTiling({self.dst}, parent={self.parent}, "
+                f"region={self.region}, bcast={self.bcast})")
+
+    def block_extent(self, shape: Sequence[int], mesh: Optional[Mesh] = None,
+                     coords: Optional[dict] = None) -> TileExtent:
+        blk = self.dst.block_extent(self.parent, mesh, coords)
+        part = self.region.intersection(blk) if self.region.size else None
+        if part is None:
+            return TileExtent((0,) * len(shape), (0,) * len(shape), shape)
+        ul = [0 if b else a - r for a, r, b in
+              zip(part.ul, self.region.ul, self.bcast)]
+        lr = [1 if b else a - r for a, r, b in
+              zip(part.lr, self.region.ul, self.bcast)]
+        return TileExtent(ul, lr, shape)
+
+    def extents(self, shape: Sequence[int],
+                mesh: Optional[Mesh] = None) -> List[TileExtent]:
+        mesh = mesh or mesh_mod.get_mesh()
+        return [self.block_extent(shape, mesh, {AXIS_ROW: i, AXIS_COL: j})
+                for i in range(mesh.shape[AXIS_ROW])
+                for j in range(mesh.shape[AXIS_COL])]
+
+    def divisible(self, shape: Sequence[int],
+                  mesh: Optional[Mesh] = None) -> bool:
+        return False  # its blocks follow the destination's grid
+
+
 def box_of(t: Tiling, shape: Sequence[int], ul: Sequence[int]) -> BoxTiling:
     """The :class:`BoxTiling` of the box at ``ul`` cut from an array of
     ``shape`` under ``t`` (itself possibly a box: the cuts compose)."""
@@ -267,6 +323,14 @@ def block_t(ndim: int) -> Tiling:
     return Tiling((AXIS_COL, AXIS_ROW) + (None,) * (ndim - 2))
 
 
+def flat_row(ndim: int) -> Tiling:
+    """The leading axis split over both mesh axes, row-major: the
+    finest 1-D split."""
+    if ndim == 0:
+        return Tiling(())
+    return Tiling(((AXIS_ROW, AXIS_COL),) + (None,) * (ndim - 1))
+
+
 def from_tile_hint(shape: Sequence[int], tile_hint: Sequence[int],
                    mesh: Optional[Mesh] = None) -> Tiling:
     """Map the reference's ``tile_hint`` (desired per-tile shape) onto the
@@ -309,7 +373,7 @@ def default_tiling(shape: Sequence[int],
 def sanitize(t: Tiling, shape: Sequence[int],
              mesh: Optional[Mesh] = None) -> Tiling:
     """Drop mesh axes from dims they don't divide evenly."""
-    if isinstance(t, BoxTiling):
+    if isinstance(t, (BoxTiling, RegionTiling)):
         return t  # its blocks follow its parent's grid
     mesh = mesh or mesh_mod.get_mesh()
     axes = list(t.axes)

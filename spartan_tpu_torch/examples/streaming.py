@@ -203,7 +203,9 @@ class SlidingWindowStats:
     """Per-feature mean/std over a ring-buffer window (w, d).
 
     ``push(rows)`` overwrites the oldest slots through
-    ``DistArray.update``; ``stats()`` reduces the window.
+    ``DistArray.update``; ``stats()`` reduces the window. Rows given as
+    a ``DistArray`` stay on the mesh: on a group mesh each rank receives
+    only the rows its block of the window takes.
     """
 
     def __init__(self, window: int, dim: int, dtype: Any = np.float32,
@@ -216,21 +218,30 @@ class SlidingWindowStats:
         self._filled = 0
 
     def push(self, rows: Any) -> None:
-        if isinstance(rows, torch.Tensor):
+        if isinstance(rows, DistArray):
+            if rows.ndim == 1:
+                rows = expr_base.evaluate(lazify(rows)[None, :])
+        elif isinstance(rows, torch.Tensor):
             rows = rows.to(self.buf.device)
         else:
             rows = np.asarray(rows, self.buf.dtype)
         if rows.ndim == 1:
             rows = rows[None, :]
+        n = rows.shape[0]
         r = 0
-        while r < len(rows):
-            take = min(len(rows) - r, self.window - self._head)
+        while r < n:
+            take = min(n - r, self.window - self._head)
+            part = rows
+            if take < n:
+                # a DistArray's rows stay split: the slice's local rule
+                part = (expr_base.evaluate(lazify(rows)[r:r + take])
+                        if isinstance(rows, DistArray) else rows[r:r + take])
             self.buf = self.buf.update(
                 (slice(self._head, self._head + take), slice(0, self.dim)),
-                rows[r:r + take])
+                part)
             self._head = (self._head + take) % self.window
             r += take
-        self._filled = min(self.window, self._filled + len(rows))
+        self._filled = min(self.window, self._filled + n)
 
     def stats(self) -> Tuple[DistArray, DistArray]:
         """(mean, std) per feature over the window."""

@@ -24,7 +24,7 @@ from .base import Expr, ValExpr, as_expr
 from .local import LocalCall, LocalInput, LocalUfunc
 from .map import MapExpr, build_binop, build_unop, map as map_expr
 from .map2 import map2
-from .ndarray import CreateExpr, RandomExpr, ndarray
+from .ndarray import CreateExpr, RandomExpr, arange_meta, ndarray
 from .reduce import (all, any, argmax, argmin, max, mean, min, prod,
                      reduce, sum)
 
@@ -65,9 +65,9 @@ def full(shape, fill_value, dtype=np.float32, tile_hint=None,
 
 
 def arange(*args, dtype=None, tile_hint=None, tiling=None) -> Expr:
-    probe = np.arange(*args, dtype=dtype)
-    return CreateExpr(probe.shape, dtypes.canonical(probe.dtype), "arange",
-                      tuple(args), tiling, tile_hint)
+    n, dt = arange_meta(args, dtype)
+    return CreateExpr((n,), dtypes.canonical(dt), "arange", tuple(args),
+                      tiling, tile_hint)
 
 
 def eye(n, m=None, k=0, dtype=np.float32, tile_hint=None) -> Expr:

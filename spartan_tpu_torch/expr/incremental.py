@@ -184,10 +184,31 @@ def reduce_granule(device: torch.device) -> Optional[int]:
       so a restricted sum's dirt is whole-node under the counted reason
       ``reduction-order``.
 
+    The CPU width holds only where it was measured: one kept axis after
+    the reduced ones, and that axis the last (:func:`_window_holds`).
+    With several kept axes after them torch vectorizes over their
+    flattened run, and the full sum's tail (the last ``W mod 32`` of the
+    ``W`` flattened columns) takes another order than a restricted sum
+    of the same columns: (300, 3, 200) at windows 160 and 192,
+    (300, 5, 100) at 64, (300, 4, 200) and (300, 2, 208) at 192 and
+    (50, 3, 1000) at 960 and 992 missed the full sum's bits, (300, 3,
+    192), whose flattened width has no tail, did not. Those sums fall
+    back under ``reduction-order`` on every device.
+
     An inner axis (each kept element reduced over contiguous values)
     and ``max``/``min``/``argmax``/``argmin`` (exact in any order) are
     not held to it."""
     return 32 if device.type == "cpu" else None
+
+
+def _window_holds(n: Any) -> bool:
+    """True where :func:`reduce_granule`'s width was measured to keep a
+    restricted sum of the reduction ``n`` in the full sum's order: the
+    kept axes after its first reduced axis are one, the last."""
+    ps = n._pre_shape
+    first = min(n.axis)
+    return [d for d in range(len(ps))
+            if d > first and d not in n.axis] == [len(ps) - 1]
 
 
 _ORDERED = ("sum", "mean", "prod")
@@ -541,7 +562,8 @@ def _propagate(n: Any, dirt: Dict[int, Any], memo: Dict[int, Any],
                 box = box.drop_axis(a)
             r = TileExtent(box.ul, box.lr, n.shape)
         if (r is not None and r is not FULL and _outer_cut(n, r)
-                and reduce_granule(mesh_mod.get_mesh().device) is None):
+                and (reduce_granule(mesh_mod.get_mesh().device) is None
+                     or not _window_holds(n))):
             # the restricted sum would not add in the full one's order
             # here: whole-node, under a named reason
             if reasons is not None:
@@ -820,7 +842,7 @@ def _restrict(n: Any, box: TileExtent, memo: Dict,
         if cut:
             mesh = mesh_mod.get_mesh()
             granule = reduce_granule(mesh.device)
-            if granule is None:
+            if granule is None or not _window_holds(n):
                 raise Unsupported("reduction-order")
             for d in cut:
                 wide_ul[d], wide_lr[d] = _reduce_window(

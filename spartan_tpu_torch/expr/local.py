@@ -342,3 +342,13 @@ def op_counts(tree: LocalExpr) -> Tuple[int, int]:
         f += af
         t += at
     return f, t
+
+
+def count_ops(tree: LocalExpr) -> int:
+    """Number of op nodes of a fused tree: each ufunc and each call
+    (optimizer tests count fusion with it)."""
+    if isinstance(tree, (LocalInput, LocalConst)):
+        return 0
+    if isinstance(tree, (LocalUfunc, LocalCall)):
+        return 1 + sum(count_ops(a) for a in tree.args)
+    raise TypeError(type(tree))

@@ -2,23 +2,106 @@
 ``spartan_tpu/expr/ndarray.py``).
 
 A creation node makes its tensor when the plan runs, on the mesh's
-device. Random fills draw from a ``torch.Generator`` seeded per node,
-so re-evaluating the same expr gives the same values (not the JAX
-package's bits: tests feed both packages numpy data).
+device. Both compute any block from its extent alone, so on a group
+mesh a rank makes only its block (``_lower_local``) and that block
+equals the same slice of the whole array. Random fills are
+counter-based (``utils/philox.py``): the value at a flat index is a
+function of the node's seed and the index, so re-evaluating the same
+expr gives the same values on any mesh (not the JAX package's bits:
+tests feed both packages numpy data).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..array import tiling as tiling_mod
+from ..array.extent import TileExtent
 from ..array.tiling import Tiling
 from ..parallel import mesh as mesh_mod
-from ..utils import dtypes
+from ..utils import dtypes, philox
 from .base import Expr
+
+
+def _lower_block(node: Expr, env: Any) -> Any:
+    """A creation node's local value on a group mesh: only the rank's
+    block under the node's sanitized tiling, made from its extent."""
+    from ..array.distarray import DistArray
+
+    mesh = env.mesh
+    t = tiling_mod.sanitize(node.out_tiling(), node.shape, mesh)
+    blk = node.block(t.block_extent(node.shape, mesh), mesh.device)
+    return DistArray.from_local(blk, t, node.shape, mesh)
+
+
+def _block_numel(node: Expr, mesh) -> int:
+    """Elements of the block ``node`` makes on ``mesh`` (the whole on a
+    logical mesh)."""
+    if not mesh.is_group:
+        return int(np.prod(node.shape, dtype=np.int64))
+    t = tiling_mod.sanitize(node.out_tiling(), node.shape, mesh)
+    return t.block_extent(node.shape, mesh).size
+
+
+def _arange_args(params: Tuple) -> Tuple[Any, Any, Any]:
+    """(start, stop, step) of ``arange(*params)`` with numpy's defaults
+    (start 0, step 1)."""
+    if len(params) == 1:
+        return 0, params[0], 1
+    if len(params) == 2:
+        return params[0], params[1], 1
+    return tuple(params)
+
+
+def arange_meta(params: Tuple, dtype: Any = None) -> Tuple[int, np.dtype]:
+    """The length and dtype of ``np.arange(*params, dtype=dtype)``,
+    worked out from the arguments without making the array: numpy's
+    ``ceil((stop - start) / step)``, and the arguments' common type with
+    the defaults taking part as numpy's int (the canonical dtype is the
+    caller's)."""
+    start, stop, step = _arange_args(params)
+    if step == 0:
+        raise ValueError("arange: step must not be 0")
+    n = max(0, math.ceil(float((stop - start) / step)))
+    dt = (np.dtype(dtype) if dtype is not None else
+          np.result_type(*(np.asarray(p) for p in (start, stop, step))))
+    return n, dt
+
+
+def _scalar(x: Any, dt: torch.dtype) -> torch.Tensor:
+    """``x`` cast to ``dt`` as numpy casts a scalar (a 0-d host tensor)."""
+    return torch.from_numpy(np.asarray(x)).to(dt)
+
+
+def _arange_block(params: Tuple, lo: int, hi: int, dt: torch.dtype,
+                  device: Any) -> torch.Tensor:
+    """Elements ``lo .. hi`` of the JAX package's ``jnp.arange(*params,
+    dtype=dt)``, in ``dt`` as it fills (integers in int64, then cast).
+    With a step that is numpy's fill: the first value ``start``, the
+    second ``start + step``, then ``start + i * (second - start)``;
+    without one, ``start + i``."""
+    start, _, step = _arange_args(params)
+    ints = not dt.is_floating_point
+    cdt = torch.int64 if ints else dt
+    v = torch.arange(lo, hi, dtype=torch.int64, device=device)
+    if len(params) < 3:
+        v = v.to(cdt)
+        if start != 0:
+            v.add_(_scalar(start, dt).to(cdt))
+        return v.to(dt)
+    if cdt in (torch.float16, torch.bfloat16):
+        cdt = torch.float32  # numpy fills a half array in float32
+    first = _scalar(start, dt).to(cdt)
+    nxt = _scalar(start + step, dt).to(cdt)
+    v = v.to(cdt).mul_(nxt - first).add_(first)
+    for i, val in ((0, first), (1, nxt)):
+        if lo <= i < hi:
+            v[i - lo] = val
+    return v.to(dt)
 
 
 class CreateExpr(Expr):
@@ -43,37 +126,54 @@ class CreateExpr(Expr):
         return self
 
     def _lower(self, env: Dict[int, Any]) -> Any:
-        dev = mesh_mod.get_mesh().device
+        return self.block(philox.whole(self.shape),
+                          mesh_mod.get_mesh().device)
+
+    def _lower_local(self, env) -> Any:
+        return _lower_block(self, env)
+
+    def block(self, ext: TileExtent, dev: Any) -> torch.Tensor:
+        """The block ``ext`` of this fill, on ``dev``."""
         dt = dtypes.to_torch(self.dtype)
+        shape = tuple(int(h - l) for l, h in zip(ext.ul, ext.lr))
         k = self.kind
-        if k == "zeros":
-            return torch.zeros(self.shape, dtype=dt, device=dev)
-        if k == "ones":
-            return torch.ones(self.shape, dtype=dt, device=dev)
-        if k == "full":
-            return torch.full(self.shape, self.params[0], dtype=dt,
-                              device=dev)
+        if k in ("zeros", "ones", "full"):
+            v = (self.params[0] if k == "full" else
+                 0 if k == "zeros" else 1)
+            return torch.full(shape, v, dtype=dt, device=dev)
         if k == "arange":
-            return torch.from_numpy(
-                np.arange(*self.params).astype(self.dtype)).to(dev)
+            lo, hi = int(ext.ul[0]), int(ext.lr[0])
+            return _arange_block(self.params, lo, hi, dt, dev)
         if k == "linspace":
             # the JAX package's explicit iota lowering: start + step * i
             # in f32, the last sample pinned to stop
             start, stop, num, endpoint = self.params
+            lo, hi = int(ext.ul[0]), int(ext.lr[0])
             if num == 1:
-                return torch.full((1,), start, dtype=dt, device=dev)
+                return torch.full(shape, start, dtype=dt, device=dev)
             step = (stop - start) / ((num - 1) if endpoint else num)
-            out = (torch.tensor(start, dtype=torch.float32)
-                   + torch.tensor(step, dtype=torch.float32)
-                   * torch.arange(num, dtype=torch.float32)).to(dev)
-            if endpoint:
-                out[-1] = stop
+            out = torch.arange(lo, hi, dtype=torch.int64,
+                               device=dev).to(torch.float32)
+            out.mul_(torch.tensor(np.float32(step))).add_(
+                torch.tensor(np.float32(start)))
+            if endpoint and lo <= num - 1 < hi:
+                out[num - 1 - lo] = stop
             return out.to(dt)
         if k == "eye":
+            # the diagonal col - row = k_off, in the block's coordinates
             n, m, k_off = self.params
-            return torch.from_numpy(
-                np.eye(n, m, k_off, dtype=self.dtype)).to(dev)
+            out = torch.zeros(shape, dtype=dt, device=dev)
+            torch.diagonal(out, int(k_off) - int(ext.ul[1])
+                           + int(ext.ul[0])).fill_(1)
+            return out
         raise ValueError(f"unknown creation kind {self.kind!r}")
+
+    def card_staging(self, mesh) -> float:
+        """The int64 index vector an iota fill holds beside its
+        block (``resilience/memory.py``)."""
+        if self.kind not in ("arange", "linspace"):
+            return 0.0
+        return 8.0 * _block_numel(self, mesh)
 
     def _sig(self, ctx) -> Tuple:
         return ("create", self.kind, self._shape, str(self._dtype),
@@ -86,8 +186,9 @@ class CreateExpr(Expr):
 
 
 class RandomExpr(Expr):
-    """Lazy random fill from a per-node seed (a counter when none is
-    given), so re-evaluating the same expr is deterministic."""
+    """Lazy counter-based random fill from a per-node seed (a counter
+    when none is given), so re-evaluating the same expr is
+    deterministic."""
 
     _counter = [0]
 
@@ -116,21 +217,22 @@ class RandomExpr(Expr):
         return self
 
     def _lower(self, env: Dict[int, Any]) -> Any:
-        dev = mesh_mod.get_mesh().device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(self.seed)
-        dt = dtypes.to_torch(self.dtype)
-        if self.kind == "uniform":
-            return torch.rand(self.shape, generator=gen, dtype=dt,
-                              device=dev)
-        if self.kind == "normal":
-            return torch.randn(self.shape, generator=gen, dtype=dt,
-                               device=dev)
-        if self.kind == "randint":
-            lo, hi = self.params_range
-            return torch.randint(lo, hi, self.shape, generator=gen,
-                                 dtype=dt, device=dev)
-        raise ValueError(f"unknown random kind {self.kind!r}")
+        return self.block(philox.whole(self.shape),
+                          mesh_mod.get_mesh().device)
+
+    def _lower_local(self, env) -> Any:
+        return _lower_block(self, env)
+
+    def block(self, ext: TileExtent, dev: Any) -> torch.Tensor:
+        """The block ``ext`` of this draw, on ``dev``: the same slice of
+        the whole draw on every mesh and device."""
+        return philox.draw(self.kind, self.seed, self.shape, ext,
+                           dtypes.to_torch(self.dtype), dev,
+                           self.params_range)
+
+    def card_staging(self, mesh) -> float:
+        """The draw's word buffers (``utils/philox.py``)."""
+        return float(philox.staging_bytes(_block_numel(self, mesh)))
 
     def _sig(self, ctx) -> Tuple:
         return ("random", self.kind, self.seed, self._shape,

@@ -234,14 +234,9 @@ def _advisory(arr: Any, mesh: Any, ratio: float) -> Optional[Dict[str, Any]]:
             return None
         nbytes = int(np.prod(shape)) * int(np.dtype(da.dtype).itemsize)
 
-        def flat_row(ndim: int) -> Any:
-            return tiling_mod.Tiling(
-                ((tiling_mod.AXIS_ROW, tiling_mod.AXIS_COL),)
-                + (None,) * (ndim - 1))
-
         best = None
-        for maker in (tiling_mod.block, flat_row, tiling_mod.row,
-                      tiling_mod.col):
+        for maker in (tiling_mod.block, tiling_mod.flat_row,
+                      tiling_mod.row, tiling_mod.col):
             dst = tiling_mod.sanitize(maker(len(shape)), shape, mesh)
             if dst.axes == src.axes or not dst.sharded_axes():
                 continue

@@ -1037,6 +1037,14 @@ def free_axes(tiling: Tiling, mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a not in used)
 
 
+def same_blocks(a: Tiling, b: Tiling, shape, mesh) -> bool:
+    """True when every position holds the same block of ``shape`` under
+    ``a`` as under ``b`` (a size-1 mesh axis splits nothing)."""
+    return all(a.block_extent(shape, mesh, c) == b.block_extent(shape, mesh,
+                                                                 c)
+               for c in _coords(mesh))
+
+
 def block_piece(arr: Any) -> Piece:
     """A group mesh ``DistArray`` as one piece of an exchange of its own
     shape."""

@@ -251,3 +251,44 @@ def test_log_helpers_match_jax(caplog):
     assert any(m.startswith("leftover-span: ") and m.endswith(" ms")
                for m in msgs)
     assert "leftover 42" in msgs
+
+
+@pytest.mark.parametrize("ndim", [0, 1, 2, 3])
+def test_flat_row_matches_jax(ndim):
+    """``tiling.flat_row``: the leading axis over both mesh axes; the
+    same axes, and on each mesh the same tile extents."""
+    assert til_t.flat_row(ndim).axes == til_j.flat_row(ndim).axes
+    shape = (16, 6, 4)[:ndim]
+    for m in MESHES:
+        mj = mesh_j.build_mesh(jax.devices(), shape=m)
+        mt = mesh_t.build_mesh(m, "cpu")
+        want = [(e.ul, e.lr) for e in til_j.flat_row(ndim).extents(shape,
+                                                                   mj)]
+        got = [(e.ul, e.lr) for e in til_t.flat_row(ndim).extents(shape,
+                                                                  mt)]
+        assert got == want
+
+
+def test_count_ops_matches_jax():
+    """``expr.local.count_ops`` on the fused trees of the same maps,
+    and its TypeError on a node that is no tree."""
+    from spartan_tpu.expr import local as loc_j
+    from spartan_tpu_torch.expr import local as loc_t
+
+    def trees(st, loc):
+        x = st.from_numpy(np.ones((4, 4), np.float32))
+        exprs = [x + 1.0, st.exp(x * 2.0 - x), st.sqrt(abs(x)) / (x + 3.0),
+                 (x * x).astype(np.int32)]
+        out = []
+        for e in exprs:
+            op = e.optimized().op
+            out.append(loc.count_ops(op))
+        out.append(loc.count_ops(loc.LocalInput(0)))
+        out.append(loc.count_ops(loc.LocalConst(2.0)))
+        with pytest.raises(TypeError):
+            loc.count_ops(object())
+        return out
+
+    got = trees(st_t, loc_t)
+    assert got == trees(st_j, loc_j)
+    assert got[:4] == [1, 3, 4, 2]

@@ -1818,3 +1818,32 @@ def test_group_integrity_leaf_move_and_vote(card, tmp_path):
         assert [v["verdict"] for v in g["fault"]] == ["violation", "ok"]
     assert got[0]["clean"] == got[1]["clean"]
     assert got[0]["fault"] == got[1]["fault"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,params", [
+    ("uniform", torch.float32, (0, 0)), ("randint", torch.int32, (-9, 1000)),
+    ("normal", torch.float32, (0, 0))])
+def test_counter_draw_on_the_card_equals_the_host(card, kind, dtype, params):
+    """A counter-based draw (``utils/philox.py``) of a block on the card
+    against the same block drawn on the host: the integer words and the
+    uniform's exact scaling give the same bits; the normal's float64
+    log and cos round to within one float32 ulp."""
+    from spartan_tpu_torch.array.extent import TileExtent
+    from spartan_tpu_torch.utils import philox
+
+    flat = (2 * philox.CHUNK + 4097,)  # three chunks
+    for shape, ul, lr in (((1001, 37, 3), (0, 0, 0), (1001, 37, 3)),
+                          ((1001, 37, 3), (500, 3, 1), (1001, 30, 3)),
+                          (flat, (0,), flat),
+                          (flat, (philox.CHUNK - 3,), flat)):
+        ext = TileExtent(ul, lr, shape)
+        on_card = philox.draw(kind, 2 ** 40 + 5, shape, ext, dtype, card,
+                              params).cpu()
+        host = philox.draw(kind, 2 ** 40 + 5, shape, ext, dtype, "cpu",
+                           params)
+        if kind == "normal":
+            torch.testing.assert_close(on_card, host, rtol=1.2e-7,
+                                       atol=1e-7)
+        else:
+            assert torch.equal(on_card, host)

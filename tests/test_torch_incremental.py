@@ -1065,6 +1065,88 @@ def test_dirt_phase_error_degrades_to_full(mesh, monkeypatch):
     assert ot.facts[0] == ("mode", "full", "error:ValueError")
 
 
+# -- C39: a restricted sum with several kept axes after the reduced one --
+#
+# torch vectorizes a sum along an outer axis over the flattened run of
+# the kept axes after it, so a restricted window of a 3-D sum takes
+# another order than the full sum in the run's tail. The engine holds
+# its 32-wide window only where one kept axis follows (the 2-D streams
+# above) and falls back under ``reduction-order`` elsewhere.
+
+C39_MESHES = [(1, 1), (4, 2), (8, 1), (2, 4)]
+# (name, shape, region written with 1.0): each window touches the tail
+# of the flattened kept run, where the full sum adds in another order
+C39_CASES = [
+    ("sum", (300, 3, 200), (slice(10, 12), slice(0, 3), slice(161, 190))),
+    ("sum", (300, 5, 100), (slice(10, 12), slice(0, 5), slice(70, 90))),
+    ("sum", (50, 3, 1000), (slice(10, 12), slice(0, 3), slice(965, 1000))),
+    ("fused", (300, 3, 200), (slice(10, 12), slice(0, 3),
+                              slice(161, 190))),
+    ("keepdims", (300, 3, 200), (slice(10, 12), slice(0, 3),
+                                 slice(161, 190))),
+]
+
+
+def _c39_expr(P, x, kind):
+    e = P.lazify(x)
+    if kind == "fused":
+        return (e * 2 + 1).sum(axis=0)
+    if kind == "keepdims":
+        return e.sum(axis=0, keepdims=True)
+    return e.sum(axis=0)
+
+
+@pytest.mark.parametrize("case", range(len(C39_CASES)))
+@pytest.mark.parametrize("mesh", C39_MESHES)
+def test_c39_restricted_3d_sum_bit_equal_to_flag_off(mesh, case,
+                                                     monkeypatch):
+    kind, shape, region = C39_CASES[case]
+    a = _rand(shape)
+
+    def c39(P, o, mp):
+        x = _arr(P, a)
+        P.evaluate(_c39_expr(P, x, kind))
+        x = x.update(region, 1.0)
+        got = P.evaluate(_c39_expr(P, x, kind)).glom()
+        o.mode(_c39_expr(P, x, kind))
+        b = a.copy()
+        b[region] = 1.0
+        o.result(got, lambda y: _c39_expr(P, y, kind), b)
+
+    ot = _run(T, c39, mesh, monkeypatch)
+    assert ot.bitequal == [True]
+    assert ot.facts == [("mode", "full", "reduction-order")]
+    assert ot.counters["incremental_fallbacks"] == 1
+    assert ot.counters["incremental_hits"] == 0
+
+
+@pytest.mark.parametrize("mesh", C39_MESHES)
+def test_c39_one_kept_axis_after_the_sum_stays_incremental(mesh,
+                                                           monkeypatch):
+    """The measured layout keeps its window: a 2-D column write and a
+    3-D sum along the middle axis (one kept axis after it)."""
+    cases = [((64, 256), (slice(5, 9), slice(70, 73)), 0),
+             ((8, 300, 200), (slice(2, 3), slice(10, 12), slice(161, 190)),
+              1)]
+
+    def served(P, o, mp):
+        for shape, region, axis in cases:
+            a = _rand(shape, seed=len(shape))
+            x = _arr(P, a)
+            P.evaluate(P.lazify(x).sum(axis=axis))
+            x = x.update(region, 1.0)
+            got = P.evaluate(P.lazify(x).sum(axis=axis)).glom()
+            o.mode(P.lazify(x).sum(axis=axis))
+            b = a.copy()
+            b[region] = 1.0
+            o.result(got, lambda y: P.lazify(y).sum(axis=axis), b)
+
+    ot = _run(T, served, mesh, monkeypatch)
+    assert ot.bitequal == [True, True]
+    assert ot.facts == [("mode", "incremental", None)] * 2
+    assert ot.counters["incremental_hits"] == 2
+
+
 # -- a group mesh ---------------------------------------------------------
 #
 # Gloo groups of 2 and 4 CPU processes (meshes 2x1 and 2x2), launched as
@@ -1200,6 +1282,49 @@ def uneven(P, on, budget):
         P.inc.clear()
 
 
+C39 = [((300, 3, 200), (slice(10, 12), slice(0, 3), slice(161, 190)), "sum"),
+       ((300, 5, 100), (slice(10, 12), slice(0, 5), slice(70, 90)), "sum"),
+       ((50, 3, 1000), (slice(10, 12), slice(0, 3), slice(965, 1000)), "sum"),
+       ((300, 3, 200), (slice(10, 12), slice(0, 3), slice(161, 190)),
+        "fused"),
+       ((300, 3, 200), (slice(10, 12), slice(0, 3), slice(161, 190)),
+        "keepdims")]
+
+
+def _c39_expr(P, x, kind):
+    e = P.lazify(x)
+    if kind == "fused":
+        return (e * 2 + 1).sum(axis=0)
+    if kind == "keepdims":
+        return e.sum(axis=0, keepdims=True)
+    return e.sum(axis=0)
+
+
+def c39(P):
+    # each warm 3-D sum after a write into the kept run's tail, and its
+    # flag-off recompute over fresh arrays
+    rng = np.random.RandomState(55)
+    outs, facts = [], []
+    for shape, region, kind in C39:
+        a = rng.rand(*shape).astype(np.float32)
+        P.FLAGS.incremental = True
+        P.inc.clear()
+        x = P.st.from_numpy(a).evaluate()
+        P.evaluate(_c39_expr(P, x, kind))
+        c0 = _count(P)
+        x = x.update(region, 1.0)
+        outs.append(P.evaluate(_c39_expr(P, x, kind)).glom())
+        facts.append([_modes(P, _c39_expr(P, x, kind)),
+                      _delta(_count(P), c0)])
+        P.FLAGS.incremental = False
+        b = a.copy()
+        b[region] = 1.0
+        outs.append(P.evaluate(_c39_expr(
+            P, P.st.from_numpy(b).evaluate(), kind)).glom())
+    P.inc.clear()
+    return outs, facts
+
+
 STREAMS = {"window": window, "pagerank": pagerank, "split_sum": split_sum}
 
 
@@ -1249,6 +1374,7 @@ entry = int(os.environ["ENTRY"])
 for budget in (entry, entry - 1):
     for on in (True, False):
         res[("uneven", budget, on)] = ns["uneven"](P, on, budget)
+res[("c39",)] = ns["c39"](P)
 arrays, facts = {}, {}
 for key, val in res.items():
     name = "/".join(str(k) for k in key)
@@ -1438,3 +1564,18 @@ def test_group_uneven_cache_decision_agrees_across_ranks(world):
                     arrays[f"uneven/{budget}/False/{i}"])
     for _, facts in outs[1:]:
         assert facts == outs[0][1]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_group_c39_sums_fall_back_bit_equal(world):
+    """C39 on a group: each rank sums its block of the 3-D array, and the
+    warm sum falls back under ``reduction-order`` on every rank,
+    bit-equal to the group's flag-off recompute."""
+    outs = _group_run(world)
+    ns = _streams_ns()
+    for arrays, facts in outs:
+        assert facts["c39"][0] == [[["full", "reduction-order"], [0, 1]]] \
+            * len(ns["C39"])
+        for i in range(len(ns["C39"])):
+            np.testing.assert_array_equal(arrays[f"c39/{2 * i}"],
+                                          arrays[f"c39/{2 * i + 1}"])

@@ -946,25 +946,409 @@ def test_local_rules_match_jax_and_the_logical_mesh(world, tmp_path):
                 np.testing.assert_array_equal(other[key], val, err_msg=key)
 
 
+# Creation, random fills, fancy indexing and region writes: the local
+# rules that build only a rank's block (each block the same slice of
+# the whole array) and move only the rows or region parts a rank takes.
+# run_cases(inputs) -> (results, materializations); a case's "_local"
+# and "_ext" entries are the rank's block and its extent (ul + lr).
+_FILL_CASES = r'''
+import numpy as np
+import torch
+import spartan_tpu_torch as st
+from spartan_tpu_torch.array import distarray as da
+from spartan_tpu_torch.array.distarray import from_numpy
+from spartan_tpu_torch.array.tiling import Tiling
+from spartan_tpu_torch.expr.filter import GatherExpr
+from spartan_tpu_torch.obs.metrics import collective_totals
+
+TILINGS = {"def": None, "row": ("x", None), "col": (None, "y"),
+           "block": ("x", "y"), "flat": (("x", "y"), None),
+           "rep": (None, None)}
+
+
+def run_cases(inputs):
+    out, mat = {}, {}
+
+    def main(name, fn):
+        before = collective_totals()["group_materialize_calls"]
+        r0 = collective_totals()["group_received_bytes"]
+        got = fn()
+        arr = got if hasattr(got, "local") else got.evaluate()
+        mat[name] = collective_totals()["group_materialize_calls"] - before
+        out[name + "_recv"] = np.array(
+            collective_totals()["group_received_bytes"] - r0)
+        out[name] = arr.glom()
+        out[name + "_local"] = arr.local.cpu().numpy()
+        ext = arr.block_extent()
+        out[name + "_ext"] = np.array(ext.ul + ext.lr, np.int64)
+
+    def tiled(axes):
+        return None if axes is None else Tiling(axes)
+
+    # creation and random fills under each layout, even and uneven
+    for tn, axes in TILINGS.items():
+        for shape in ((12, 8), (13, 7)):
+            sh = "x".join(map(str, shape))
+            main(f"rand_{tn}_{sh}", lambda: st.rand(*shape, seed=5,
+                                                    tiling=tiled(axes)))
+            main(f"randn_{tn}_{sh}", lambda: st.randn(*shape, seed=6,
+                                                      tiling=tiled(axes)))
+            main(f"zeros_{tn}_{sh}", lambda: st.zeros(shape,
+                                                      tiling=tiled(axes)))
+            main(f"full_{tn}_{sh}", lambda: st.full(shape, 2.5,
+                                                    tiling=tiled(axes)))
+            main(f"eager_rand_{tn}_{sh}", lambda: da.rand(
+                *shape, seed=7, tiling=tiled(axes)))
+            main(f"eager_randn_{tn}_{sh}", lambda: da.randn(
+                *shape, seed=7, tiling=tiled(axes)))
+    for name, make in (
+            ("randint", lambda: st.randint(10, 9, low=-3, high=40, seed=8,
+                                           tile_hint=(5, 9))),
+            ("rand3", lambda: st.rand(4, 6, 5, seed=9,
+                                      tiling=Tiling((None, "x", "y")))),
+            ("randn1", lambda: st.randn(101, seed=10)),
+            ("eye", lambda: st.eye(12, 10, 2)),
+            ("eye_hint", lambda: st.eye(13, 9, -3, tile_hint=(7, 5))),
+            ("eye_int", lambda: st.eye(12, dtype=np.int32)),
+            ("arange", lambda: st.arange(5, 200, 3)),
+            ("arange_f", lambda: st.arange(0.5, 30.1, 0.7)),
+            ("arange_neg", lambda: st.arange(40, -13, -2)),
+            ("arange_stop", lambda: st.arange(50.5)),
+            ("arange_two", lambda: st.arange(0.1, 40.3)),
+            ("arange_f32", lambda: st.arange(3, 70, 2, dtype=np.float32)),
+            ("eager_arange", lambda: da.arange(0.5, 30.1, 0.7,
+                                               tiling=Tiling(("x",)))),
+            ("linspace", lambda: st.linspace(-1.0, 2.0, 101)),
+            ("linspace_open", lambda: st.linspace(0.0, 1.0, 100,
+                                                  endpoint=False)),
+            ("ones_i", lambda: st.ones((14, 4), dtype=np.int32)),
+            ("create_sum", lambda: (st.rand(16, 8, seed=11)
+                                    + st.arange(8)).sum(axis=0))):
+        main(name, make)
+
+    # fancy indexing: duplicates, unsorted, a mask, two index arrays
+    xa = inputs["gx"]
+    for tn, axes in TILINGS.items():
+        x = st.as_expr(from_numpy(xa, tiling=tiled(axes)))
+        main(f"gather_{tn}", lambda: x[inputs["gidx"]])
+        main(f"gather_dup_{tn}", lambda: x[np.array([2, 2, 2, 11, 2])])
+        main(f"gather_mask_{tn}", lambda: x[inputs["gmask"]])
+        main(f"gather2_{tn}", lambda: GatherExpr(
+            x, (inputs["gi"], inputs["gj"])))
+        main(f"gather_map_{tn}", lambda: x[inputs["gidx"]] * 2.0 + 1.0)
+    y = st.as_expr(from_numpy(inputs["g3"], tiling=Tiling((None, "x", "y"))))
+    main("gather3", lambda: y[inputs["gidx3"]])
+    main("gather_empty", lambda: st.as_expr(from_numpy(xa))[
+        np.zeros(0, np.int64)])
+
+    # region writes: inside one rank, across ranks, a broadcast source,
+    # the reducers; the destination and source under several layouts
+    d_np, s_np = inputs["wd"], inputs["ws"]
+    for tn, axes in TILINGS.items():
+        d = st.as_expr(from_numpy(d_np, tiling=tiled(axes)))
+        src = st.as_expr(from_numpy(s_np))
+        main(f"assign_in_{tn}", lambda: st.assign(
+            d, (slice(1, 4), slice(0, 8)), src[0:3]))
+        main(f"assign_across_{tn}", lambda: st.assign(d, (
+            slice(4, 10), slice(2, 8)), from_numpy(s_np[:, 2:].copy())))
+        main(f"assign_bcast_{tn}", lambda: st.assign(
+            d, (slice(3, 11), slice(0, 8)), from_numpy(s_np[1].copy())))
+        main(f"assign_scalar_{tn}", lambda: st.assign(
+            d, (slice(2, 9), slice(1, 6)), 7.5))
+        main(f"assign_add_{tn}", lambda: st.assign(
+            d, (slice(0, 6), slice(0, 8)), src, "add"))
+        main(f"assign_max_{tn}", lambda: st.assign(
+            d, (slice(5, 11), slice(0, 8)),
+            from_numpy(s_np, tiling=Tiling((None, "y"))), "max"))
+        main(f"write_array_{tn}", lambda: st.write_array(
+            (12, 8), (slice(6, 12), slice(0, 8)), src, tile_hint=(6, 4)))
+        U = from_numpy(d_np, tiling=tiled(axes))
+        main(f"update_across_{tn}", lambda: U.update(
+            (slice(3, 9), slice(0, 8)), from_numpy(s_np)))
+        main(f"update_in_{tn}", lambda: U.update(
+            (slice(0, 2), slice(1, 5)), from_numpy(s_np[:2, :4].copy()),
+            "add"))
+        main(f"update_bcast_{tn}", lambda: U.update(
+            (slice(2, 12), slice(0, 8)), from_numpy(s_np[4].copy(),
+                                                    tiling=Tiling(("x",))),
+            "max"))
+        main(f"update_int_{tn}", lambda: U.update(
+            (slice(1, 7), slice(0, 8)), from_numpy(
+                inputs["wi"], tiling=Tiling((None, "x")))))
+
+    # the card model of a DistArray update: a column-tiled value into
+    # row-tiled rows 3..9 (``test_update_card_bytes_on_two_ranks``)
+    Ur = from_numpy(d_np, tiling=Tiling(("x", None)))
+    vc = from_numpy(s_np, tiling=Tiling((None, "x")))
+    reg = (slice(3, 9), slice(0, 8))
+    out["card_update"] = np.array([
+        Ur.update_card_bytes(reg, vc), Ur.update_card_bytes(reg, vc, "add"),
+        Ur.update_card_bytes(reg, from_numpy(inputs["wi"], tiling=Tiling(
+            (None, "x"))))])
+
+    # a sliding window fed DistArray batches (the third one wraps)
+    from spartan_tpu_torch.examples import streaming
+
+    def window():
+        sw = streaming.SlidingWindowStats(16, 8)
+        for batch in inputs["sw"]:
+            sw.push(from_numpy(batch))
+        sw.push(from_numpy(inputs["sw"][0, 0]))  # one row
+        return sw.buf
+
+    main("sw_buf", window)
+    return out, mat
+'''
+
+
+def _fill_inputs(world: int) -> dict:
+    rng = np.random.RandomState(300 + world)
+    gx = rng.rand(13, 7).astype(np.float32)
+    return {
+        "gx": gx,
+        "gidx": np.array([12, 0, 5, 5, 3, 12, 1, 9, 6]),
+        "gmask": gx > 0.6,
+        "gi": rng.randint(0, 13, (3, 4)),
+        "gj": rng.randint(0, 7, (3, 4)),
+        "g3": rng.rand(9, 6, 5).astype(np.float32),
+        "gidx3": np.array([8, 0, 4, 4, 7, 1]),
+        "wd": rng.rand(12, 8).astype(np.float32),
+        "ws": rng.rand(6, 8).astype(np.float32),
+        "wi": rng.randint(-5, 5, (6, 8)).astype(np.int32),
+        "sw": rng.rand(4, 6, 8).astype(np.float32),
+    }
+
+
+def _jax_fills(inputs: dict, world: int) -> dict:
+    """The JAX package's fancy indexing and region writes on the
+    8-device CPU mesh cut to the group's shape (its own placements: the
+    results do not depend on them)."""
+    from spartan_tpu.expr.filter import GatherExpr as GatherJ
+
+    from spartan_tpu.array import distarray as da_j
+
+    mj = mesh_j.build_mesh(jax.devices()[:world], shape=_shape(world))
+    want = {}
+    with mesh_j.use_mesh(mj):
+        for shape in ((12, 8), (13, 7)):
+            sh = "x".join(map(str, shape))
+            for tn in ("def", "row", "col", "block", "flat", "rep"):
+                want[f"zeros_{tn}_{sh}"] = st_j.zeros(shape).glom()
+                want[f"full_{tn}_{sh}"] = st_j.full(shape, 2.5).glom()
+        for name, make in (
+                ("eye", lambda: st_j.eye(12, 10, 2)),
+                ("eye_hint", lambda: st_j.eye(13, 9, -3, tile_hint=(7, 5))),
+                ("eye_int", lambda: st_j.eye(12, dtype=np.int32)),
+                ("arange", lambda: st_j.arange(5, 200, 3)),
+                ("arange_f", lambda: st_j.arange(0.5, 30.1, 0.7)),
+                ("arange_neg", lambda: st_j.arange(40, -13, -2)),
+                ("arange_stop", lambda: st_j.arange(50.5)),
+                ("arange_two", lambda: st_j.arange(0.1, 40.3)),
+                ("arange_f32", lambda: st_j.arange(3, 70, 2,
+                                                   dtype=np.float32)),
+                ("linspace", lambda: st_j.linspace(-1.0, 2.0, 101)),
+                ("linspace_open", lambda: st_j.linspace(0.0, 1.0, 100,
+                                                        endpoint=False)),
+                ("ones_i", lambda: st_j.ones((14, 4), dtype=np.int32))):
+            want[name] = make().glom()
+        want["eager_arange"] = da_j.arange(0.5, 30.1, 0.7).glom()
+        x = st_j.from_numpy(inputs["gx"])
+        want["gather"] = x[inputs["gidx"]].glom()
+        want["gather_dup"] = x[np.array([2, 2, 2, 11, 2])].glom()
+        want["gather_mask"] = x[inputs["gmask"]].glom()
+        want["gather2"] = GatherJ(x, (inputs["gi"], inputs["gj"])).glom()
+        want["gather_map"] = (x[inputs["gidx"]] * 2.0 + 1.0).glom()
+        want["gather3"] = st_j.from_numpy(inputs["g3"])[
+            inputs["gidx3"]].glom()
+        d, s_np = st_j.from_numpy(inputs["wd"]), inputs["ws"]
+        src = st_j.from_numpy(s_np)
+        want["assign_in"] = st_j.assign(d, (slice(1, 4), slice(0, 8)),
+                                        src[0:3]).glom()
+        want["assign_across"] = st_j.assign(
+            d, (slice(4, 10), slice(2, 8)), s_np[:, 2:].copy()).glom()
+        want["assign_bcast"] = st_j.assign(
+            d, (slice(3, 11), slice(0, 8)), s_np[1].copy()).glom()
+        want["assign_scalar"] = st_j.assign(d, (slice(2, 9), slice(1, 6)),
+                                            7.5).glom()
+        want["assign_add"] = st_j.assign(d, (slice(0, 6), slice(0, 8)), src,
+                                         "add").glom()
+        want["assign_max"] = st_j.assign(d, (slice(5, 11), slice(0, 8)),
+                                         src, "max").glom()
+        want["write_array"] = st_j.write_array(
+            (12, 8), (slice(6, 12), slice(0, 8)), src).glom()
+        U = st_j.from_numpy(inputs["wd"]).evaluate()
+        want["update_across"] = U.update((slice(3, 9), slice(0, 8)),
+                                         s_np).glom()
+        want["update_in"] = U.update((slice(0, 2), slice(1, 5)),
+                                     s_np[:2, :4], "add").glom()
+        want["update_bcast"] = U.update((slice(2, 12), slice(0, 8)),
+                                        s_np[4], "max").glom()
+        want["update_int"] = U.update((slice(1, 7), slice(0, 8)),
+                                      inputs["wi"]).glom()
+        from spartan_tpu.examples import streaming as streaming_j
+
+        sw = streaming_j.SlidingWindowStats(16, 8)
+        for batch in inputs["sw"]:
+            sw.push(batch)
+        sw.push(inputs["sw"][0, 0])
+        want["sw_buf"] = sw.buf.glom()
+    return want
+
+
+def _check_fills(r, want, logical) -> None:
+    for key in r:
+        if key.endswith(("_local", "_ext", "_recv")) or key == "mesh" \
+                or key.startswith(("mat_", "card_")):
+            continue
+        # nothing read whole; the whole result and the rank's block are
+        # the logical mesh's bits (a sum along a split axis adds per-rank
+        # partials on a group: 1e-6)
+        assert int(r[f"mat_{key}"]) == 0, key
+        if key == "create_sum":
+            assert _rel(r[key], logical[key]) <= 1e-6
+            continue
+        np.testing.assert_array_equal(r[key], logical[key], err_msg=key)
+        ext = r[key + "_ext"]
+        nd = ext.size // 2
+        sl = tuple(slice(int(a), int(b)) for a, b in zip(ext[:nd], ext[nd:]))
+        np.testing.assert_array_equal(r[key + "_local"], logical[key][sl],
+                                      err_msg=key)
+        base = key.rsplit("_", 1)[0] if key.rsplit("_", 1)[-1] in (
+            "def", "row", "col", "block", "flat", "rep") else key
+        if base in want:
+            np.testing.assert_array_equal(r[key], want[base], err_msg=key)
+            assert r[key].dtype == want[base].dtype, key
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_fills_gathers_writes_match_jax_and_the_logical_mesh(world,
+                                                             tmp_path):
+    inputs = _fill_inputs(world)
+    _, join = _launch(world, tmp_path, _FILL_CASES, inputs)
+    want = _jax_fills(inputs, world)  # while the children run
+    logical = _logical(inputs, world, _FILL_CASES)
+    outs = join()
+    for r in outs:
+        _check_fills(r, want, logical)
+    # a rank whose block misses a region write receives nothing, and a
+    # write whose source each rank holds where it writes moves nothing
+    if world == 2:
+        assert int(outs[1]["assign_in_row_recv"]) == 0
+        assert int(outs[0]["assign_in_row_recv"]) > 0  # src is col-tiled
+        assert int(outs[1]["update_in_row_recv"]) == 0
+    for r in outs:
+        assert int(r["assign_scalar_row_recv"]) == 0
+        assert int(r["rand_block_12x8_recv"]) == 0
+    if world == 2:
+        # each rank: its 3 x 8 part of the value (96 bytes) beside the
+        # exchange's 12 elements each way (96), then beside its 6 x 8
+        # block (192); an add's result over the part (96) and an int
+        # value's cast (96) come on top of the block
+        for r in outs:
+            assert r["card_update"].tolist() == [288.0, 384.0, 384.0]
+
+
+_DRAWS = {"uniform": (np.float32, (0, 0)), "normal": (np.float32, (0, 0)),
+          "randint": (np.int32, (-7, 1000))}
+
+
+@pytest.mark.parametrize("kind", sorted(_DRAWS))
+@pytest.mark.parametrize("mesh", [(1, 1), (4, 2), (8, 1), (2, 4)])
+def test_random_draw_blocks_are_slices_of_the_whole_draw(mesh, kind):
+    """Any block of a counter-based draw, on any mesh position of the
+    four logical meshes and under any tiling, and any box cut from it,
+    is the same slice of the whole draw; the lazy and the eager draws
+    are the same bits. (The group's ranks: the fills test above.)"""
+    from spartan_tpu_torch.array import distarray as da_t
+    from spartan_tpu_torch.array.extent import TileExtent
+    from spartan_tpu_torch.array.tiling import Tiling
+    from spartan_tpu_torch.expr.ndarray import RandomExpr
+    from spartan_tpu_torch.parallel import mesh as mesh_t
+    from spartan_tpu_torch.parallel import redistribute as redist_t
+    from spartan_tpu_torch.utils import philox
+
+    dtype, rng_ = _DRAWS[kind]
+    shape = (37, 29, 6)
+    whole = philox.draw(kind, 12345, shape, philox.whole(shape),
+                        torch.from_numpy(np.zeros(0, dtype)).dtype, "cpu",
+                        rng_).numpy()
+    rng = np.random.RandomState(len(kind))
+    prev = mesh_t.get_default_device()
+    mesh_t.set_default_device("cpu")
+    try:
+        with mesh_t.use_mesh(mesh_t.build_mesh(mesh, "cpu")):
+            m = mesh_t.get_mesh()
+            for axes in ((None, None, None), ("x", None, None),
+                         (None, "y", "x"), ("x", "y", None),
+                         (("x", "y"), None, None)):
+                e = RandomExpr(shape, kind, 12345, dtype, Tiling(axes))
+                e.params_range = rng_
+                np.testing.assert_array_equal(e.glom(), whole)
+                for c in redist_t._coords(m):
+                    ext = Tiling(axes).block_extent(shape, m, c)
+                    np.testing.assert_array_equal(
+                        e.block(ext, torch.device("cpu")).numpy(),
+                        whole[ext.to_slice()])
+            for _ in range(20):
+                ul = [int(rng.randint(0, d)) for d in shape]
+                lr = [int(rng.randint(u, d + 1)) for u, d in zip(ul, shape)]
+                ext = TileExtent(ul, lr, shape)
+                np.testing.assert_array_equal(
+                    e.block(ext, torch.device("cpu")).numpy(),
+                    whole[ext.to_slice()])
+            if kind != "randint":
+                eager = (da_t.rand if kind == "uniform" else da_t.randn)(
+                    *shape, seed=12345, tiling=Tiling(("x", None, None)))
+                np.testing.assert_array_equal(eager.glom(), whole)
+    finally:
+        mesh_t.set_default_device(prev)
+
+
+_ARANGES = [(5, 200, 3), (0.5, 30.1, 0.7), (40, -13, -2), (0.1, 50.3, 0.13),
+            (-3.7, 100.0, 0.31), (1000.0, 2850.0, 0.37), (0, 1, 1e-4),
+            (50.5,), (7,), (0.1, 40.3), (-5, 20), (3, 70.5), (9, 2, 1),
+            (np.float32(1.5), 9, np.float32(0.25))]
+
+
+@pytest.mark.parametrize("args", _ARANGES, ids=str)
+@pytest.mark.parametrize("dtype", [None, np.float32, np.int32])
+def test_arange_length_dtype_and_blocks_match_numpy_and_jax(args, dtype):
+    """``st.arange`` learns its length and dtype from its arguments
+    without making the array (numpy's, canonicalized as the JAX
+    package's), and every block of its fill is the same slice of the
+    JAX package's ``jnp.arange``: a stepped float fill in float32, not
+    a float64 fill cast down."""
+    from spartan_tpu_torch.expr import builtins as bt
+    from spartan_tpu_torch.expr.ndarray import _arange_block
+    from spartan_tpu_torch.utils import dtypes as dtypes_t
+
+    e, ej = bt.arange(*args, dtype=dtype), st_j.arange(*args, dtype=dtype)
+    assert e.shape == ej.shape == np.arange(*args, dtype=dtype).shape
+    assert np.dtype(e.dtype) == np.dtype(ej.dtype)
+    want = np.asarray(jnp.arange(*args, dtype=ej.dtype))
+    n, dt = e.shape[0], dtypes_t.to_torch(e.dtype)
+    for lo, hi in ((0, n), (0, 1), (1, 2), (1, n), (2, n // 2 + 1),
+                   (n // 3, n)):
+        if lo < hi <= n:
+            got = _arange_block(args, lo, hi, dt, "cpu").numpy()
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want[lo:hi])
+
+
 # The port's Expr subclasses without a local rule (ROADMAP §A): leaves
 # and carries the walk seeds (never lowered), the dict wrapper (walked
-# through its tuple), creation and random fills (made whole on every
-# rank: no data read), and the gathers that remain: a user function's
-# map2, fancy indexing and region writes. The incremental engine's
+# through its tuple), and the gather that remains: a user function's
+# map2. The incremental engine's
 # restriction nodes (made when the engine first runs; the test makes
 # them first, so the list does not depend on the tests before it) have
 # their rules. The list may only shrink.
 _NO_LOCAL_RULE = {
-    "spartan_tpu_torch.expr.assign.WriteExpr",
     "spartan_tpu_torch.expr.base.DictExpr",
     "spartan_tpu_torch.expr.base.ScalarExpr",
     "spartan_tpu_torch.expr.base.ValExpr",
-    "spartan_tpu_torch.expr.filter.GatherExpr",
     "spartan_tpu_torch.expr.loop.CarryExpr",
     "spartan_tpu_torch.expr.loop.LoopIndexExpr",
     "spartan_tpu_torch.expr.map2.Map2Expr",
-    "spartan_tpu_torch.expr.ndarray.CreateExpr",
-    "spartan_tpu_torch.expr.ndarray.RandomExpr",
 }
 
 

@@ -362,3 +362,57 @@ def test_card_rule_halo_stencil_stages_its_blocks():
     assert blocks == 8 * 2 * (4 + 2) * (8 + 2) * 4
     out = img.size // 4 * 4
     assert m["peak_bytes_card"] == (img.size + flt.size + out + blocks) * F32
+
+
+def test_card_rule_fills_gathers_and_writes_on_a_group():
+    # what each new local rule holds beside its input and output blocks
+    # on a (2, 1) group, at each rank's position
+    from spartan_tpu_torch.expr.filter import GatherExpr
+    from spartan_tpu_torch.utils import philox
+
+    sq = R.rand(16, 16).astype(np.float32)
+    pts = R.rand(2048, 128).astype(np.float32)
+    cols = st_t.Tiling((None, "x"))
+    with mesh_t.use_mesh(mesh_t.build_mesh((2, 1))) as mesh:
+        rnd = st_t.rand(64, 16, seed=1)
+        big = st_t.randn(2 ** 21, 2, seed=2)
+        ar = st_t.arange(1000)
+        eye = st_t.eye(16, 12, 1)
+        g = st_t.as_expr(st_t.from_numpy(pts))[np.array([2047, 3, 1500, 3,
+                                                         900])]
+        assert isinstance(g, GatherExpr)
+        w = st_t.assign(st_t.from_numpy(sq), (slice(4, 12), slice(0, 16)),
+                        st_t.from_numpy(sq[:8], tiling=cols))
+        wb = st_t.assign(st_t.from_numpy(sq), (slice(6, 14), slice(0, 16)),
+                         st_t.from_numpy(sq[0]), "add")
+        wh = st_t.assign(st_t.from_numpy(sq), (slice(4, 12), slice(0, 16)),
+                         st_t.from_numpy(sq[:8],
+                                         tiling=st_t.Tiling(("x", None))))
+        for pos in (0, 1):
+            dm = plan_audit.dry_mesh(mesh)
+            dm.coords = {"x": pos, "y": 0}
+            # a draw's six word buffers over its block (one chunk at most)
+            assert rnd.card_staging(dm) == 48 * 32 * 16
+            assert big.card_staging(dm) == 48 * philox.CHUNK
+            assert ar.card_staging(dm) == 8 * 500  # the int64 iota
+            assert eye.card_staging(dm) == 0
+            # the gather: own rows (3 and 2 rows of 64 columns), then the
+            # send and receive buffers together (192 + 128 elements), and
+            # the index vector of the largest piece (3 rows)
+            assert g.card_staging(dm) == max((3, 2)[pos] * 64 * F32,
+                                             (192 + 128) * F32) + 8 * 3
+            # the source's part (4 x 16) once moved, and the exchange's
+            # buffers while it moves (32 elements each way)
+            assert w.card_staging(dm) == 64 * F32 + 64 * F32
+            # a broadcast source: its (1 x 16) part, then the add's
+            # result over the rank's part of the region (2 and 6 rows)
+            assert wb.card_staging(dm) == 16 * F32 + max(
+                16 * F32, (2, 6)[pos] * 16 * F32)
+            # a source each rank holds where it writes: its (4 x 16)
+            # part copied out of its block, and no exchange
+            assert wh.card_staging(dm) == 64 * F32
+    # a logical mesh holds the whole draw's chunk and no exchange
+    with mesh_t.use_mesh(mesh_t.build_mesh((4, 2))) as mesh:
+        assert st_t.rand(64, 16).card_staging(mesh) == 48 * 64 * 16
+        assert g.card_staging(mesh) == 0.0
+        assert w.card_staging(mesh) == 0.0

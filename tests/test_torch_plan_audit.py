@@ -301,12 +301,32 @@ def cases(st, km):
         "histogram": lambda: st.histogram(st.from_numpy(sq), 16)[0],
         "dot_shardmap": lambda: st.dot_shardmap(st.from_numpy(sq),
                                                 st.from_numpy(sq)),
+        "rand": lambda: st.rand(64, 16, seed=3) * 2.0,
+        "randint": lambda: st.randint(33, 8, low=0, high=5, seed=4),
+        "arange": lambda: st.arange(1000) + 1,
+        "eye": lambda: st.eye(16, 12, 1),
+        "gather": lambda: st.from_numpy(pts)[np.array([2047, 3, 1500, 3,
+                                                       900])],
+        "gather_cols": lambda: st.from_numpy(sq, tiling=cols)[
+            np.array([15, 0, 7])],
+        "assign": lambda: st.assign(st.from_numpy(sq), (slice(4, 12),
+                                                        slice(0, 16)),
+                                    st.from_numpy(sq[:8], tiling=cols)),
+        "assign_bcast": lambda: st.assign(st.from_numpy(sq),
+                                          (slice(6, 14), slice(0, 16)),
+                                          st.from_numpy(sq[0]), "add"),
     }
 """
 
 _RULES = ("transpose", "reshape", "ravel", "concat", "concat1", "slice",
           "outer", "cumsum", "ureduce", "maxpool", "bsort", "bargsort",
-          "tril", "diagonal", "histogram", "dot_shardmap")
+          "tril", "diagonal", "histogram", "dot_shardmap", "rand",
+          "randint", "arange", "eye", "gather", "gather_cols", "assign",
+          "assign_bcast")
+
+# cases whose ranks send different byte counts (the rows the indices
+# take split unevenly over the ranks)
+_UNEVEN = ("gather",)
 
 _KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
          "all_to_all": "all-to-all", "ring_permute": "collective-permute",
@@ -368,8 +388,16 @@ def test_audit_equals_the_counted_collectives_on_a_gloo_group(tmp_path):
                     site = f.message.split(" for ")[1].split(",")[0]
                     gathers[site] = gathers.get(site, 0) + 1
             assert gathers == sites, (name, rank)
-            # the logical mesh's audit lists the same calls
+            # the logical mesh's audit (position (0, 0)) lists the same
+            # calls (for an uneven case, the other rank's byte counts
+            # are its own)
             lg = logical[name]
+            if rank and name in _UNEVEN:
+                assert [(c["kind"], c["group_size"])
+                        for c in lg.collectives] == [
+                    (c["kind"], c["group_size"])
+                    for c in audit.collectives], name
+                continue
             assert [(c["kind"], c["operand_bytes"], c["group_size"])
                     for c in lg.collectives] == [
                 (c["kind"], c["operand_bytes"], c["group_size"])
@@ -387,7 +415,11 @@ def test_audit_equals_the_counted_collectives_on_a_gloo_group(tmp_path):
                         if f["kind"] == "full_gather"], (name, rank)
         for name in ("reshape", "concat", "slice", "outer", "cumsum",
                      "ureduce", "maxpool", "bsort", "histogram",
-                     "dot_shardmap"):
+                     "dot_shardmap", "gather", "assign"):
             assert got[name]["audit"]["collectives"], (name, rank)
+        # a fill makes its block and moves nothing; a gather of rows from
+        # column blocks reads each rank's own columns
+        for name in ("rand", "randint", "arange", "eye", "gather_cols"):
+            assert not got[name]["audit"]["collectives"], (name, rank)
         assert got["maxpool"]["audit"]["multiset"] == {
             "collective-permute": 2}
