@@ -336,6 +336,10 @@ LOCAL_CAL_N = 1024
 # rank's measured peak within LOCAL_MEM_TOL of peak_bytes_card
 LOCAL_BSORT = (8, 2 ** 23)
 LOCAL_MEM_TOL = 0.05
+# [local]'s user functions: logistic regression at bench.py's guard size
+# (config 4) and its iterations, the seed of its X, the fuzzy k-means
+# fuzziness; the rule-off arms walk one iteration of the loop
+PART_SEED, PART_FZ_M = 90, 2.0
 # [local]'s fills: the draws' seed, the sample of the points' rows and
 # the rows of the 8192^2 array a 4096-row source is written into
 FILL_SEED, FILL_SAMPLE, FILL_ROWS = 70, 65_536, (2048, 6144)
@@ -4089,7 +4093,7 @@ def local_child(workdir: str, rank: int) -> None:
                 bool(torch.equal(out.local, whole[ext.to_slice()])), recv]
     del whole, src, out
 
-    res["rules"] = _local_rules(st, path, dev, mesh)
+    res["rules"] = _local_rules(st, path, dev, mesh, workdir)
 
     res["flop_weight"] = tc.calibrate_flop_weight(LOCAL_CAL_N, mesh=mesh)
     # the plan the DP gives config 2's dot at the calibrated weight
@@ -4127,7 +4131,7 @@ def _sort_scratch(dev, r: int, n: int) -> float:
     return extra / (r * n)
 
 
-def _local_rules(st, path, dev, mesh) -> dict:
+def _local_rules(st, path, dev, mesh, workdir: str) -> dict:
     """The local rules at full width on this rank: each case's one-process
     result on a logical mesh of the group's shape first (from the same
     whole inputs), and for a case on a kernel's path the same run with
@@ -4293,6 +4297,7 @@ def _local_rules(st, path, dev, mesh) -> dict:
          compare=against_f64, plain="close")
     del xv, params, ref
     out["fills"] = _local_fills(st, path, dev, mesh, one, case, rand)
+    out["part"] = _local_partition(st, path, dev, case, rand, workdir)
     return out
 
 
@@ -4510,6 +4515,212 @@ def _local_fills(st, path, dev, mesh, one, case, rand) -> dict:
     return res
 
 
+def _local_partition(st, path, dev, case, rand, workdir: str) -> dict:
+    """[local]'s user functions on this rank (``expr/partition.py``):
+    config 4's logistic regression (10,000,000 x 32 f32, 10 iterations
+    through ``st.loop``), linear and SVM gradients and the logistic
+    predict on the same X, a fuzzy k-means step and ``kmeans_step``'s
+    map2 form (``native_kernels=off``) on config 3's points, and a user
+    elementwise map over 8192^2; each a ``case`` (0 gathered, its peak
+    against ``peak_bytes_card``, its block against the one-process
+    run), beside the path with its rule switched off (the counted
+    gather) and the decisions it counted. Returns the figures that are
+    no ``case``."""
+    from spartan_tpu_torch.expr import builtins as bi
+    from spartan_tpu_torch.expr.map import MapExpr
+    from spartan_tpu_torch.expr.map2 import Map2Expr
+    from spartan_tpu_torch.examples import fuzzy_kmeans, regression, svm
+    from spartan_tpu_torch.examples import kmeans as km
+    from spartan_tpu_torch.obs.metrics import partition_decisions
+
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    res = {"whole_path": {}, "decisions": {}}
+    rows, rep1 = st.Tiling(("x", None)), st.Tiling((None,))
+    n, d, iters = EX_LR_N, EX_LR_D, EX_LR_ITERS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(PART_SEED)
+    x = torch.rand((n, d), generator=gen, device=dev)
+    w_true = torch.randn((d,), generator=gen, device=dev)
+    y01 = ((x - 0.5) @ w_true > 0).float()
+
+    def logreg(k):
+        def make(xe, ye):
+            return st.loop(k, lambda w: w - 0.1 * regression.logistic_grad(
+                xe, ye, w), bi.zeros((d,), np.float32, tiling=rep1))
+        return make
+
+    def decided(name, fn):
+        """``fn()`` with the partition decisions it counted."""
+        before = partition_decisions()
+        got = fn()
+        res["decisions"][name] = {
+            "/".join(k): v - before.get(k, 0)
+            for k, v in partition_decisions().items()
+            if v != before.get(k, 0)}
+        return got
+
+    def off(name, cls, make, leaves):
+        """The rule switched off (``cls``'s local rule): the peak over the
+        resident bytes and the ms of one walk, the arrays gathered whole
+        and the bytes received."""
+        xs = [st.as_expr(from_tensor(w, tiling=t)) for w, t in leaves]
+        saved = cls._lower_local
+        cls._lower_local = None
+        try:
+            make(*xs).evaluate()  # its plan, built
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            path("off_" + name, lambda: make(*xs).evaluate())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev) - base
+        finally:
+            cls._lower_local = saved
+        res["whole_path"][name] = (peak, ms)
+        del xs
+        torch.cuda.empty_cache()
+
+    got, _ = decided("logreg", lambda: case(
+        "logreg", logreg(iters), [(x, rows), (y01, st.Tiling(("x",)))],
+        tol=1e-5, keep=True))
+    res["logreg_w"] = np.asarray(got.glom()).tolist()
+    del got
+    off("logreg", Map2Expr, logreg(1), [(x, rows), (y01, st.Tiling(("x",)))])
+    if st.get_mesh().rank == 0:
+        ref = _logreg_f64(x.cpu().numpy().astype(np.float64),
+                          y01.cpu().numpy().astype(np.float64), iters, 0.1)
+        res["logreg_f64_err"] = _rel(np.asarray(res["logreg_w"]), ref)
+    w0 = (0.01 * torch.randn((d,), generator=gen, device=dev))
+    y_lin = x @ w_true
+    ypm = 2.0 * y01 - 1.0
+    for name, make, y in (
+            ("linear_grad", lambda xe, ye, we: regression.linear_grad(
+                xe, ye, we), y_lin),
+            ("svm_grad", lambda xe, ye, we: svm.svm_grad(xe, ye, we, 1e-3),
+             ypm)):
+        leaves = [(x, rows), (y, st.Tiling(("x",))), (w0, rep1)]
+        decided(name, lambda: case(name, make, list(leaves), tol=1e-5))
+        off(name, Map2Expr, make, leaves)
+    predict = (lambda xe, we: regression.predict_logistic(xe, we))
+    decided("predict_logistic", lambda: case(
+        "predict_logistic", predict, [(x, rows), (w0, rep1)]))
+    off("predict_logistic", Map2Expr, predict, [(x, rows), (w0, rep1)])
+    del x, y01, y_lin, ypm, w_true
+    torch.cuda.empty_cache()
+    # config 3's points: a fuzzy step and the map2 form of k-means
+    pts_np = np.load(os.path.join(workdir, "km_points.npy"), mmap_mode="r")
+    c0_np = np.load(os.path.join(workdir, "km_c0.npy"))
+    pts = torch.from_numpy(np.array(pts_np)).to(dev)
+    c0 = torch.from_numpy(c0_np).to(dev)
+    crep = st.Tiling((None, None))
+    fz = (lambda p, c: fuzzy_kmeans.fuzzy_kmeans_step(p, c, KM_K, PART_FZ_M))
+    # the step in float64 on the card: the memberships divide by d2 =
+    # |p|^2 - 2 p.c + |c|^2, which cancels on clustered points, so a
+    # float32 step moves with the bits of p @ c^T; the group and the
+    # one-process run are each held against this
+    acc = fuzzy_kmeans._fuzzy_kern(pts.double(), c0.double(), PART_FZ_M)
+    f64 = acc[:, :-1] / torch.clamp_min(acc[:, -1:], 1e-12)
+    del acc
+    grid = st.get_mesh().shape
+    with st.use_mesh(st.build_mesh((grid["x"], grid["y"]), dev)):
+        one = fz(st.as_expr(from_tensor(pts)),
+                 st.as_expr(from_tensor(c0))).evaluate().local.double()
+    res["fuzzy_one_f64"] = float((one - f64).abs().max() / f64.abs().max())
+    got, _ = decided("fuzzy_kmeans_step", lambda: case(
+        "fuzzy_kmeans_step", fz, [(pts, rows), (c0, crep)], tol=1e-4,
+        compare=lambda blk, ext: float(
+            (blk.double() - f64[ext.to_slice()]).abs().max()
+            / f64.abs().max()), keep=True))
+    ext = got.tiling.block_extent(got.shape, st.get_mesh())
+    res["fuzzy_one_group"] = float(
+        (got.local.double() - one[ext.to_slice()]).abs().max()
+        / one.abs().max())
+    del got, one, f64
+    off("fuzzy_kmeans_step", Map2Expr, fz, [(pts, rows), (c0, crep)])
+    kmf = (lambda p, c: km.kmeans_step(p, c, KM_K))
+    prev = st.FLAGS.native_kernels
+    st.FLAGS.native_kernels = "off"  # the map2 form, not the fused pass
+    try:
+        decided("kmeans_step_map2", lambda: case(
+            "kmeans_step_map2", kmf, [(pts, rows), (c0, crep)], tol=1e-5))
+        off("kmeans_step_map2", Map2Expr, kmf, [(pts, rows), (c0, crep)])
+    finally:
+        st.FLAGS.native_kernels = prev
+    del pts, c0
+    torch.cuda.empty_cache()
+    # a user elementwise map over 8192^2
+    m = STRUCT_N
+    a, b = rand(m, m, seed=PART_SEED + 1), rand(m, m, seed=PART_SEED + 2)
+    umap = (lambda xe, ye: st.map(
+        lambda u, v: torch.where(u > v, u - v, 0.5 * v), xe, ye))
+    decided("map_where", lambda: case("map_where", umap,
+                                      [(a, rows), (b, rows)]))
+    off("map_where", MapExpr, umap, [(a, rows), (b, rows)])
+    del a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def _local_partition_report(res, card: str) -> None:
+    """[local]'s user functions: each proven path beside its rule-off arm
+    and the decisions counted; config 4's weights against float64."""
+    per_iter = {"logreg": EX_LR_ITERS}
+    for r, rr in enumerate(res):
+        f = rr["rules"]["part"]
+        rules = rr["rules"]
+        for name, (peak, ms) in f["whole_path"].items():
+            rec = rules[name]
+            k = per_iter.get(name, 1)
+            recv = rr[f"r_{name}_recv"]
+            _say(f"[local] rank {r}: {name}: proven ({f['decisions'][name]}"
+                 f" over its walks): gathered whole "
+                 f"{rr[f'r_{name}_mat']}, received {recv} bytes "
+                 f"({recv / k:.0f} an iteration), measured peak "
+                 f"{rec['measured']} bytes against peak_bytes_card "
+                 f"{rec['predicted']} (ratio "
+                 f"{rec['predicted'] / rec['measured']:.4f}), "
+                 f"{rec['ms'] / k:.3f} ms an iteration, err {rec['err']:.3g}"
+                 f" (limit {rec['tol'] or 0.0:g}); the rule switched off "
+                 f"(one iteration, in this run): gathered whole "
+                 f"{rr[f'off_{name}_mat']}, received "
+                 f"{rr[f'off_{name}_recv']} bytes, peak {peak} bytes, "
+                 f"{ms:.2f} ms (host clock; two processes time-slice one "
+                 f"card) on {card}")
+            if rr[f"off_{name}_mat"] < 1:
+                _fail(f"[local] rank {r}: {name} with its rule off gathered "
+                      f"nothing: the arm did not run the old path")
+            bad = [key for key in f["decisions"][name]
+                   if "/gather/" in key]
+            if bad:
+                _fail(f"[local] rank {r}: {name} was not proven: {bad}")
+        recv = rr["r_logreg_recv"] / EX_LR_ITERS
+        if recv > 1024:
+            _fail(f"[local] rank {r}: config-4 logreg received {recv:.0f} "
+                  f"bytes an iteration (limit 1024)")
+    for r, rr in enumerate(res):
+        f = rr["rules"]["part"]
+        grp = rr["rules"]["fuzzy_kmeans_step"]["err"]
+        _say(f"[local] rank {r}: fuzzy_kmeans_step against the same step "
+             f"in float64 on the card: the group {grp:.3g} (rtol 1e-4), "
+             f"the one-process run {f['fuzzy_one_f64']:.3g}; "
+             f"the group against the one-process run "
+             f"{f['fuzzy_one_group']:.3g} (d2 = |p|^2 - 2 p.c + |c|^2 "
+             f"cancels on clustered points) on {card}")
+    err = res[0]["rules"]["part"]["logreg_f64_err"]
+    _say(f"[local] config-4 logreg on the group ({EX_LR_N}x{EX_LR_D}, "
+         f"{EX_LR_ITERS} iterations through st.loop): weights vs the same "
+         f"steps in float64 numpy: normwise rel err {err:.3g} (rtol 1e-4) "
+         f"on {card}")
+    if not err <= 1e-4:
+        _fail(f"[local] config-4 logreg on the group differs from float64 "
+              f"by {err}")
+    if len({str(rr["rules"]["part"]["logreg_w"]) for rr in res}) != 1:
+        _fail("[local] the ranks' logreg weights differ")
+
+
 def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
     """[local]: local-shard storage on two gloo processes sharing the
     card, each holding only its blocks, against one-process runs here."""
@@ -4615,7 +4826,7 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
 
     for rr in res:
         for name, rec in rr["rules"].items():
-            if name.startswith("sort_scratch") or name == "fills":
+            if name.startswith("sort_scratch") or name in ("fills", "part"):
                 continue
             lim = ("bit-equal" if rec["tol"] is None else
                    f"limit {rec['tol']:g}")
@@ -4648,7 +4859,7 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
                   f"element of scratch, ops/sort.SORT_SCRATCH says "
                   f"{SORT_SCRATCH} (limit 1 +- {LOCAL_MEM_TOL})")
         for name, rec in rr["rules"].items():
-            if name.startswith("sort_scratch") or name == "fills":
+            if name.startswith("sort_scratch") or name in ("fills", "part"):
                 continue
             if rec["plain"] is not None and rec["plain_err"] != 0.0:
                 _fail(f"[local] rank {r}: {name} differs from the plain "
@@ -4671,6 +4882,7 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
                       f"{rec['measured']} (ratio {ratio:.4f}, limit 1 +- "
                       f"{LOCAL_MEM_TOL})")
     _local_fills_report(res, card)
+    _local_partition_report(res, card)
     r0 = res[0]
     _say(f"[local] {GROUP_RANKS} gloo processes on the one card, mesh "
          f"{tuple(r0['mesh'])}, local-shard storage ({wall:.1f} s with "

@@ -14,7 +14,10 @@ so the list is the one a real group walk issues, call for call and
 byte for byte, and it is the same whether the plan was built on a
 logical mesh or on a group. The sources it sees:
 
-* the k-split all-reduce of a ``DotExpr`` or ``ContractExpr``;
+* the k-split all-reduce of a ``DotExpr`` or ``ContractExpr``, and
+  the all-reduce of a user ``map2``'s partial sum where its function is
+  proven row-partitionable (``expr/partition.py``; an unproven one is a
+  whole-array gather below);
 * each ``all_gather``/``all_to_all`` step of the schedule
   ``parallel/redistribute.relayout`` runs for a reshard (a forced
   tiling, an operand's required layout, the plan's output tilings);

@@ -12,9 +12,11 @@ tree runs on the aligned blocks. The package's own functions in a tree
 say how they act on a block (``LocalCall``): a cast or histogram's
 bucketing acts on each element; a sort or scan along an axis needs that
 axis whole in the block (the operands move to a tiling without it);
-``tril``/``triu`` read the block's offset. An arbitrary user function
-may not act on blocks at all (C36 in ROADMAP: GSPMD partitions the ops
-it traces, torch sees none), so it reads its operands whole.
+``tril``/``triu`` read the block's offset. A user function runs on the
+blocks where the aten program it traces to proves it elementwise
+(``expr/partition.py``: pointwise ops only, the same program at the
+whole shapes and at every block shape), as GSPMD partitions the ops it
+traces; any other user function reads its operands whole, counted.
 ``map_with_location`` runs ``fn`` on the rank's block with its global
 offset.
 """
@@ -67,24 +69,33 @@ def along_axes(op: LocalExpr, ndim: int) -> set:
 
 
 def emit_blocks(op: LocalExpr, inputs: Sequence[Expr],
-                shape: Tuple[int, ...], t: Tiling, env):
+                shape: Tuple[int, ...], t: Tiling, env,
+                node: str = "MapExpr"):
     """The tree ``op`` over ``inputs`` run on this rank's block of an
     output of ``shape`` tiled ``t``: (the block, its tiling), or
     NotImplemented where a call cannot act on blocks. Calls along an
     axis or at an offset need every operand of the output's shape (so
     each call sees the block's shape) and the axes they work along
-    whole in the block."""
-    if not blockwise(op) or not broadcasts_to(inputs, shape):
+    whole in the block. A tree with a user function runs on the blocks
+    where its traced program proves it elementwise
+    (:func:`proven_elementwise`; the decision counted at ``node``)."""
+    if not broadcasts_to(inputs, shape):
         return NotImplemented
+    ew = elementwise(op)
+    if not blockwise(op):
+        if not proven_elementwise(op, inputs, shape, t, env.mesh, node):
+            return NotImplemented
+        ew = True
     vals = [c.lower_local(env) for c in inputs]
     box = box_tiling(vals, shape)
     if box is not None:
         # a restricted walk's operand cut from a leaf: the output stays
-        # where the ranks hold that box (expr/incremental.py)
+        # where the ranks hold that box (expr/incremental.py); a user
+        # function is proven at the tiling's blocks, not the box's
         if not elementwise(op):
             return NotImplemented
         t = box
-    if not elementwise(op):
+    if not ew:
         if any(c.ndim and c.shape != shape for c in inputs):
             return NotImplemented
         for a in along_axes(op, len(shape)):
@@ -96,6 +107,62 @@ def emit_blocks(op: LocalExpr, inputs: Sequence[Expr],
     if tuple(blk.shape) != tuple(want):  # every operand a scalar
         blk = torch.broadcast_to(blk, want).clone()
     return blk, t
+
+
+def _want(v_shape: Tuple[int, ...], shape: Tuple[int, ...],
+          tiling: Tiling) -> Tiling:
+    """The tiling of a value of ``v_shape`` aligned with ``tiling`` of an
+    output of ``shape``: the output's axis on each of its dims, a
+    broadcast dim (size 1) whole."""
+    off = len(shape) - len(v_shape)
+    return Tiling([None if d == 1 and shape[i + off] != 1
+                   else tiling.axes[i + off]
+                   for i, d in enumerate(v_shape)])
+
+
+def proven_elementwise(op: LocalExpr, inputs: Sequence[Expr],
+                       shape: Tuple[int, ...], t: Tiling, mesh,
+                       node: str = "MapExpr") -> bool:
+    """True where the tree's traced program acts on each element alone
+    and is the same at the whole shapes and at every distinct block
+    shape ``t`` gives the mesh's positions (``expr/partition.py``),
+    decided from metadata alone, so every rank agrees. Cached by the
+    tree, the shapes, dtypes, tiling and mesh shape; each decision is
+    counted in ``group_partition_decisions``."""
+    from ..obs.metrics import record_partition
+
+    reason, _ = _decision(op, inputs, shape, t, mesh)
+    record_partition(node, "gather" if reason else "local",
+                     reason or "elementwise")
+    return reason is None
+
+
+def _decision(op: LocalExpr, inputs: Sequence[Expr],
+              shape: Tuple[int, ...], t: Tiling, mesh):
+    """(None or the reason, units) of :func:`partition.elementwise` for
+    the tree, cached."""
+    from ..parallel.redistribute import _coords
+    from ..utils import dtypes
+    from . import partition
+    from .base import ScalarExpr
+
+    specs = tuple((tuple(c.shape), c.tdtype if isinstance(c, ScalarExpr)
+                   else dtypes.to_torch(c.dtype)) for c in inputs)
+    axes = tuple((a, int(mesh.shape[a])) for a in mesh.axis_names)
+    key = ("map", op.key(), specs, tuple(shape), t.axes, axes)
+
+    def decide():
+        blocks = {}
+        for co in _coords(mesh):
+            ins = tuple(
+                () if not c.ndim else tuple(
+                    _want(c.shape, shape, t).block_extent(
+                        c.shape, mesh, co).shape) for c in inputs)
+            blocks[ins] = tuple(t.block_extent(shape, mesh, co).shape)
+        return partition.elementwise(lambda *xs: op.emit(list(xs)), specs,
+                                     tuple(shape), list(blocks.items()))
+
+    return partition.cached(key, decide)
 
 
 def aligned_blocks(vals: Sequence[Any], shape: Tuple[int, ...],
@@ -122,9 +189,7 @@ def aligned_blocks(vals: Sequence[Any], shape: Tuple[int, ...],
                 if d == 1 and shape[i + off] != 1:
                     want = want.whole(i)
         else:
-            want = Tiling([None if d == 1 and shape[i + off] != 1
-                           else tiling.axes[i + off]
-                           for i, d in enumerate(v.shape)])
+            want = _want(tuple(v.shape), shape, tiling)
         out.append(redist_mod.relayout(v, want).local)
     return out
 
@@ -179,6 +244,16 @@ class MapExpr(Expr):
 
         blk, t = got
         return DistArray.from_local(blk, t, self.shape, env.mesh)
+
+    def card_units(self, mesh) -> Optional[float]:
+        """On a group mesh, for a tree with a user function proven
+        elementwise: the most its traced program holds at once, in units
+        of its output (``resilience/memory.py``); else None."""
+        if not mesh.is_group or blockwise(self.op):
+            return None
+        reason, units = _decision(self.op, self.inputs, self.shape,
+                                  self.out_tiling(), mesh)
+        return None if reason else units
 
     def _sig(self, ctx) -> Tuple:
         return (("map", self.op.key())

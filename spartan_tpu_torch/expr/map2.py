@@ -6,10 +6,15 @@ tensor. ``shard_map2``'s ``fn`` runs under ``parallel/shard_map.py`` at
 every mesh position on each input's block, and its blocks tile the
 result.
 
-On a group mesh ``map2`` reads its inputs whole (its ``fn`` sees whole
-arrays), while ``shard_map2`` runs on the blocks the ranks store
-(``shard_map_local``): each operand moves to its tiling and each rank
-keeps its output block.
+On a group mesh ``map2`` runs on the ranks' row blocks where the aten
+program its ``fn`` traces to proves that right (``expr/partition.py``,
+as GSPMD partitions the ops it traces): the operands that span the
+rows move to a tiling split on the row mesh axis only, the program is
+replayed on the blocks with an all-reduce wherever a partial sum meets
+an op that needs it whole, and a partial result is all-reduced once.
+Any other ``fn`` reads its split inputs whole (counted). ``shard_map2``
+runs on the blocks the ranks store (``shard_map_local``): each operand
+moves to its tiling and each rank keeps its output block.
 """
 
 from __future__ import annotations
@@ -50,6 +55,121 @@ class Map2Expr(Expr):
         vals = [c.lower(env) for c in self.inputs]
         return self.fn(*vals, **dict(self.fn_kw))
 
+    def _row_plan(self, tilings: Sequence[Tiling], mesh,
+                  count: bool = False):
+        """(the proof's plan, each input's row dim or None, the row
+        count) where ``fn`` is proven row-partitionable over inputs held
+        under ``tilings`` on the group mesh ``mesh``; None where no
+        input is split (``fn`` runs whole, moving nothing), or a string:
+        why it is not proven. The rows are the leading dim of the
+        largest input, and every input of that many rows is split along
+        them. With ``count``, the decision is counted in
+        ``group_partition_decisions``."""
+        from ..obs.metrics import record_partition
+        from ..utils import dtypes
+        from . import partition
+        from .base import ScalarExpr
+
+        if not any(n > 1 for t in tilings for n in t.tiles_per_dim(mesh)):
+            return None
+        big = max((c for c in self.inputs if c.ndim),
+                  key=lambda c: c.size, default=None)
+        n_rows = big.shape[0] if big is not None else 0
+        if n_rows < mesh.shape[mesh_mod.AXIS_ROW] or \
+                mesh.shape[mesh_mod.AXIS_ROW] == 1:
+            reason = "fewer rows than row positions"
+            plan = None
+        else:
+            row_dims = tuple(0 if c.ndim and c.shape[0] == n_rows else None
+                             for c in self.inputs)
+            specs = tuple((tuple(c.shape),
+                           c.tdtype if isinstance(c, ScalarExpr)
+                           else dtypes.to_torch(c.dtype))
+                          for c in self.inputs)
+            axes = tuple((a, int(mesh.shape[a])) for a in mesh.axis_names)
+            key = ("map2", fn_key(self.fn), self.fn_kw, specs,
+                   tuple(t.axes for t in tilings), axes)
+            fn, kw = self.fn, dict(self.fn_kw)
+            plan = partition.cached(key, lambda: partition.rows(
+                lambda *xs: fn(*xs, **kw), specs, row_dims, n_rows))
+            reason = plan if isinstance(plan, str) else None
+        if count:
+            record_partition("Map2Expr", "gather" if reason else "local",
+                             reason or "rows")
+        if reason:
+            return reason
+        return plan, row_dims, n_rows
+
+    def _lower_local(self, env) -> Any:
+        """On a group mesh, a proven ``fn``'s program on the rank's row
+        blocks (:meth:`_row_plan`): one all-reduce over the row axis a
+        partial sum, the output relaid to the node's tiling. Otherwise
+        NotImplemented: ``fn`` runs whole on inputs gathered whole."""
+        from ..array.distarray import DistArray
+        from ..parallel import collectives as coll
+        from ..parallel import redistribute as redist_mod
+        from . import partition
+
+        mesh = env.mesh
+        vals = [c.lower_local(env) for c in self.inputs]
+        got = self._row_plan([v.tiling for v in vals], mesh, count=True)
+        if got is None or isinstance(got, str):
+            return NotImplemented
+        plan, row_dims, n_rows = got
+        axis = mesh_mod.AXIS_ROW
+        blocks = [redist_mod.relayout(v, _row_tiling(v.ndim, d)).local
+                  for v, d in zip(vals, row_dims)]
+        rows = Tiling((axis,)).block_extent((n_rows,), mesh).shape[0]
+
+        def reduce(t):
+            return coll.reduce_over(t, (axis,), "add", mesh)
+
+        out = plan.run(blocks, rows, reduce)
+        st = plan.out_state
+        if st == partition.P:
+            out = reduce(out)
+        t = _row_tiling(out.ndim, st[1] if st[0] == "R" else None)
+        val = DistArray.from_local(out, t, self.shape, mesh)
+        return redist_mod.relayout(val, tiling_mod.sanitize(
+            self.out_tiling(), self.shape, mesh))
+
+    def card_staging(self, mesh) -> float:
+        """What the lowering holds beside its output on a group mesh
+        (``resilience/memory.py``): for a proven ``fn``, the operands'
+        row blocks (where they move) and the replay's intermediates at
+        the block's rows, a partial beside its all-reduce; else each
+        split operand gathered whole."""
+        if not mesh.is_group:
+            return 0.0
+        from . import partition
+
+        tilings = [tiling_mod.sanitize(c.out_tiling(), c.shape, mesh)
+                   for c in self.inputs]
+        got = self._row_plan(tilings, mesh)
+        if got is None:
+            return 0.0
+        if isinstance(got, str):
+            return float(sum(c.size * c.dtype.itemsize
+                             for c, t in zip(self.inputs, tilings)
+                             if t.sharded_axes()))
+        plan, row_dims, n_rows = got
+        staging = 0.0
+        for c, t, d in zip(self.inputs, tilings, row_dims):
+            want = _row_tiling(c.ndim, d)
+            if t != want:
+                staging += float(want.block_extent(c.shape, mesh).size) \
+                    * c.dtype.itemsize
+        rows = Tiling((mesh_mod.AXIS_ROW,)).block_extent(
+            (n_rows,), mesh).shape[0]
+        replay = plan.card_bytes(rows)
+        if plan.out_state != partition.P:
+            # the program's output is the node's value (its own size)
+            st = plan.out_state
+            t = _row_tiling(self.ndim, st[1] if st[0] == "R" else None)
+            replay -= float(t.block_extent(self.shape, mesh).size) \
+                * self.dtype.itemsize
+        return staging + max(replay, 0.0)
+
     def _sig(self, ctx) -> Tuple:
         return (("map2", fn_key(self.fn), self.fn_kw)
                 + tuple(ctx.of(c) for c in self.inputs))
@@ -58,6 +178,12 @@ class Map2Expr(Expr):
         if self._map2_tiling is not None:
             return self._map2_tiling
         return tiling_mod.default_tiling(self.shape)
+
+
+def _row_tiling(ndim: int, d: Optional[int]) -> Tiling:
+    """Split along dim ``d`` on the row mesh axis only (None: whole)."""
+    return Tiling([mesh_mod.AXIS_ROW if i == d else None
+                   for i in range(ndim)])
 
 
 def map2(arrays: Sequence[Any], fn: Callable,

@@ -191,7 +191,7 @@ class ReduceExpr(Expr):
 
         shape = self._pre_shape
         got = emit_blocks(self.pre, self.inputs, shape, self._pre_tiling(),
-                          env)
+                          env, "ReduceExpr")
         if got is NotImplemented:
             return got
         from ..array.distarray import DistArray

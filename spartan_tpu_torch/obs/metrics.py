@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Any, Deque, Dict, List
+from typing import Any, Deque, Dict, List, Tuple
 
 from ..utils.config import FLAGS
 
@@ -475,6 +475,31 @@ def record_materialize(site: str, nbytes: int) -> None:
                      "whole arrays gathered on a group mesh").inc()
     REGISTRY.counter(labeled("group_materialize_bytes", site=site),
                      "bytes of whole arrays gathered").inc(int(nbytes))
+
+
+def record_partition(node: str, result: str, reason: str) -> None:
+    """One decision on whether a user function runs on a rank's blocks
+    (``expr/partition.py``): ``group_partition_decisions{node, result,
+    reason}``, ``result`` ``local`` or ``gather``. The plan audit's dry
+    walk records none."""
+    if TAP.rec is not None:
+        return
+    REGISTRY.counter(labeled("group_partition_decisions", node=node,
+                             result=result, reason=reason),
+                     "user-function partition decisions on a group "
+                     "mesh").inc()
+
+
+def partition_decisions() -> Dict[Tuple[str, str, str], int]:
+    """``group_partition_decisions`` by (node, result, reason)."""
+    out: Dict[Tuple[str, str, str], int] = {}
+    for key, v in REGISTRY.counter_values().items():
+        base, labels = parse_labels(key)
+        if base == "group_partition_decisions" and v:
+            k = (labels.get("node", ""), labels.get("result", ""),
+                 labels.get("reason", ""))
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def materialize_sites() -> Dict[str, int]:

@@ -21,7 +21,12 @@ it, degrade before dying (port of ``spartan_tpu/resilience/memory.py``).
 
      - a fused map or pre-reduce tree is evaluated op by op by torch:
        the intermediates it holds at once, by a walk of the tree, in
-       units of its output;
+       units of its output (a user function proven elementwise on a
+       group mesh: by its traced program, ``expr/partition.py``);
+     - a user ``map2`` on a group mesh: where proven row-partitionable,
+       its operands' row blocks where they move and its replayed
+       program's intermediates at the block's rows (a partial beside
+       its all-reduce); otherwise each split operand gathered whole;
      - on a group mesh a node's relayouts stage a new block for each
        operand it reads in another layout;
      - the k-split on a group mesh holds its whole partial product and
@@ -398,7 +403,11 @@ def _card_transient(n: Any, mesh) -> float:
         # what it stages: exchange buffers, copies, the sort's stages
         return own(mesh)
     if isinstance(n, MapExpr):
-        tr = max(0.0, tree_units(n.op) - 1.0) * out
+        # a user function proven elementwise: its traced program's units
+        units = n.card_units(mesh)
+        if units is None:
+            units = tree_units(n.op)
+        tr = max(0.0, units - 1.0) * out
         if group:
             t = n.out_tiling()
             tr += _group_staging(n, [_operand_requirement(n, t, c, i)

@@ -21,10 +21,14 @@ top-k with ties and with C4's NaN keys; PageRank over the sharded SpMV;
 segment-sum, k-means and stencil kernels on the stored blocks and on
 whole tensors (each rank keeps its block); a transpose, which permutes
 each rank's block and gathers nothing; and ``map2`` with a user
-function, which has no local rule and gathers each of its split inputs
-once (site ``Map2Expr``). On the main-path cases
+function proven row-partitionable (``expr/partition.py``), which runs
+on the ranks' row blocks and gathers nothing. On the main-path cases
 ``group_materialize_calls`` stays 0. ``calibrate_flop_weight`` gives
-every rank the same weight.
+every rank the same weight. The user-function cases (``_PART_CASES``)
+hold the regression, SVM, fuzzy k-means and k-means steps, the predict
+kernels and elementwise maps against the JAX package's same functions:
+0 gathered, one all-reduce a step; unproven functions keep their
+counted gather.
 
 Tolerances: data movement, sort, top-k and integer sums bit-equal;
 float sums and ``map2`` 1e-6 relative (XLA fuses ``a * b + b`` into
@@ -656,9 +660,10 @@ def _check(r, want, logical, inputs):
     assert int(r["mat_transpose"]) == 0
     np.testing.assert_array_equal(r["transpose"], inputs["x"].T)
     assert float(r["flop_weight"]) > 0
-    # map2 has no local rule: x (split over x) is gathered, and y (split
-    # over y) where y has more than one position
-    assert int(r["map2_gathers"]) == 1 + (ny > 1)
+    # map2 of a * b + b is proven row-partitionable: it runs on the
+    # ranks' row blocks (y relaid from its column split), gathering
+    # nothing, bit for bit the logical mesh's
+    assert int(r["map2_gathers"]) == 0
     assert int(logical["map2_gathers"]) == 0
     np.testing.assert_array_equal(r["map2"], logical["map2"])
     # XLA fuses a * b + b into one rounding; torch rounds twice
@@ -1335,10 +1340,202 @@ def test_arange_length_dtype_and_blocks_match_numpy_and_jax(args, dtype):
             np.testing.assert_array_equal(got, want[lo:hi])
 
 
+# User functions on a group: map2 steps proven row-partitionable (a
+# partial sum all-reduced once), row-local predict kernels and proven
+# elementwise maps on each rank's blocks, and unproven functions that
+# keep the counted gather. run_cases(inputs) -> (results,
+# materializations); "reduces_<case>" counts the case's all-reduces.
+_PART_CASES = r"""
+import numpy as np
+import torch
+import spartan_tpu_torch as st
+from spartan_tpu_torch.array.distarray import from_numpy
+from spartan_tpu_torch.array.tiling import Tiling
+from spartan_tpu_torch.examples import fuzzy_kmeans, naive_bayes, regression
+from spartan_tpu_torch.examples import kmeans as km
+from spartan_tpu_torch.examples import svm
+from spartan_tpu_torch.obs.metrics import REGISTRY, collective_totals
+
+REDUCES = 'collective_calls{op="all_reduce"}'
+
+
+def run_cases(inputs):
+    out, mat = {}, {}
+
+    def main(name, fn):
+        m0 = collective_totals()["group_materialize_calls"]
+        r0 = REGISTRY.counter_values().get(REDUCES, 0)
+        out[name] = np.asarray(fn())
+        mat[name] = collective_totals()["group_materialize_calls"] - m0
+        out["reduces_" + name] = np.array(
+            REGISTRY.counter_values().get(REDUCES, 0) - r0)
+
+    x = st.as_expr(from_numpy(inputs["X"]))
+    y01 = st.as_expr(from_numpy(inputs["y01"]))
+    ylin = st.as_expr(from_numpy(inputs["ylin"]))
+    ypm = st.as_expr(from_numpy(inputs["ypm"]))
+    w = st.as_expr(from_numpy(inputs["w"], tiling=Tiling((None,))))
+    main("logistic_grad",
+         lambda: regression.logistic_grad(x, y01, w).glom())
+    main("linear_grad", lambda: regression.linear_grad(x, ylin, w).glom())
+    main("svm_grad", lambda: svm.svm_grad(x, ypm, w, 1e-3).glom())
+    main("logreg", lambda: regression.logistic_regression(x, y01,
+                                                          num_iter=3))
+    p = st.as_expr(from_numpy(inputs["pts"]))
+    c = st.as_expr(from_numpy(inputs["c0"]))
+    k = inputs["c0"].shape[0]
+    main("fuzzy_kmeans_step",
+         lambda: fuzzy_kmeans.fuzzy_kmeans_step(p, c, k).glom())
+    st.FLAGS.native_kernels = "off"  # kmeans_step's map2 form
+    try:
+        main("kmeans_step_map2", lambda: km.kmeans_step(p, c, k).glom())
+    finally:
+        st.FLAGS.native_kernels = "auto"
+    main("predict_logistic",
+         lambda: regression.predict_logistic(x, w).glom())
+    main("predict_svm", lambda: svm.predict(x, w).glom())
+    main("predict_nb", lambda: naive_bayes.predict(
+        x, inputs["nb_prior"], inputs["nb_lik"]).glom())
+    x2 = st.as_expr(from_numpy(inputs["X2"]))
+    main("map_where", lambda: st.map(
+        lambda a, b: torch.where(a > b, a - b, 0.5 * b), x, x2).glom())
+    main("map_bcast", lambda: st.map(lambda a, b: a * b + 1.0, x,
+                                     w).glom())
+    # unproven: each gathers its split operands whole, counted
+    main("map_shape", lambda: st.map(lambda a: a / a.shape[0], x).glom())
+    main("map2_flip", lambda: st.map2([x], lambda a: a.flip(0)).glom())
+    cnt = st.as_expr(from_numpy(inputs["nb_x"]))
+    lab = st.as_expr(from_numpy(inputs["nb_y"]))
+    main("nb_fit", lambda: np.concatenate(
+        [v.ravel() for v in naive_bayes.fit(cnt, lab, k)]))
+    return out, mat
+"""
+
+
+def _part_inputs(world: int) -> dict:
+    rng = np.random.RandomState(300 + world)
+    n, d, k = 4096, 16, 4
+    x = rng.rand(n, d).astype(np.float32)
+    w_true = rng.randn(d).astype(np.float32)
+    y01 = ((x - 0.5) @ w_true > 0).astype(np.float32)
+    true = (rng.rand(k, 32) * 4.0).astype(np.float32)
+    lab = rng.randint(0, k, n)
+    return {
+        "X": x, "X2": rng.rand(n, d).astype(np.float32),
+        "y01": y01, "ylin": (x @ w_true).astype(np.float32),
+        "ypm": (2.0 * y01 - 1.0).astype(np.float32),
+        "w": (0.1 * rng.randn(d)).astype(np.float32),
+        "pts": (true[lab] + 0.05 * rng.randn(n, 32)).astype(np.float32),
+        "c0": (true + 0.05 * rng.randn(k, 32)).astype(np.float32),
+        "nb_prior": rng.randn(k).astype(np.float32),
+        "nb_lik": rng.randn(k, d).astype(np.float32),
+        "nb_x": rng.randint(0, 5, (n, 8)).astype(np.float32),
+        "nb_y": lab.astype(np.int32),
+    }
+
+
+def _jax_parts(inputs: dict, world: int) -> dict:
+    """The JAX package's same functions on the 8-device CPU mesh cut to
+    the group's shape."""
+    from spartan_tpu.examples import fuzzy_kmeans as fz_j
+    from spartan_tpu.examples import kmeans as km_j
+    from spartan_tpu.examples import naive_bayes as nb_j
+    from spartan_tpu.examples import regression as reg_j
+    from spartan_tpu.examples import svm as svm_j
+
+    mj = mesh_j.build_mesh(jax.devices()[:world], shape=_shape(world))
+    want = {}
+    with mesh_j.use_mesh(mj):
+        x = st_j.from_numpy(inputs["X"])
+        w = st_j.from_numpy(inputs["w"], tiling=tiling_j.Tiling((None,)))
+        y01 = st_j.from_numpy(inputs["y01"])
+        want["logistic_grad"] = reg_j.logistic_grad(x, y01, w).glom()
+        want["linear_grad"] = reg_j.linear_grad(
+            x, st_j.from_numpy(inputs["ylin"]), w).glom()
+        want["svm_grad"] = svm_j.svm_grad(
+            x, st_j.from_numpy(inputs["ypm"]), w, 1e-3).glom()
+        want["logreg"] = reg_j.logistic_regression(x, y01, num_iter=3)
+        p, c = st_j.from_numpy(inputs["pts"]), st_j.from_numpy(inputs["c0"])
+        k = inputs["c0"].shape[0]
+        want["fuzzy_kmeans_step"] = fz_j.fuzzy_kmeans_step(p, c, k).glom()
+        want["kmeans_step_map2"] = km_j.kmeans_step(p, c, k).glom()
+        want["predict_logistic"] = reg_j.predict_logistic(x, w).glom()
+        want["predict_svm"] = svm_j.predict(x, w).glom()
+        want["predict_nb"] = nb_j.predict(x, inputs["nb_prior"],
+                                          inputs["nb_lik"]).glom()
+        x2 = st_j.from_numpy(inputs["X2"])
+        want["map_where"] = st_j.map(
+            lambda a, b: jnp.where(a > b, a - b, 0.5 * b), x, x2).glom()
+        want["map_bcast"] = st_j.map(lambda a, b: a * b + 1.0, x, w).glom()
+        want["map_shape"] = st_j.map(lambda a: a / a.shape[0], x).glom()
+        want["map2_flip"] = st_j.map2([x], lambda a: jnp.flip(a, 0)).glom()
+        want["nb_fit"] = np.concatenate([v.ravel() for v in nb_j.fit(
+            st_j.from_numpy(inputs["nb_x"]), st_j.from_numpy(inputs["nb_y"]),
+            k)])
+    return want
+
+
+# case: (tolerance against the logical mesh, against the JAX package, the
+# all-reduces a proven case makes; None for an unproven one). 0 is
+# bit-equal: an elementwise or row-local result, on blocks of whole
+# multiples of 64 rows (the host BLAS's row groups); a partial sum's
+# order changes on a group (1e-5). Against the JAX package XLA fuses
+# and rounds its own way (its sigmoid; a * b + 1 in one FMA).
+_PART_TOL = {
+    "logistic_grad": (1e-5, 1e-5, 1), "linear_grad": (1e-5, 1e-5, 1),
+    "svm_grad": (1e-5, 1e-5, 1), "logreg": (1e-5, 1e-5, 3),
+    "fuzzy_kmeans_step": (1e-5, 1e-5, 1),
+    "kmeans_step_map2": (1e-5, 1e-5, 1),
+    "predict_logistic": (0, 1e-6, 0), "predict_svm": (0, 0, 0),
+    "predict_nb": (0, 0, 0), "map_where": (0, 0, 0),
+    "map_bcast": (0, 1e-6, 0),
+    "map_shape": (0, 1e-6, None), "map2_flip": (0, 0, None),
+    "nb_fit": (0, 1e-6, None),
+}
+
+
+def _check_parts(r, want, logical) -> None:
+    for case, (tol_l, tol_j, reduces) in _PART_TOL.items():
+        got = r[case]
+        for ref, tol, what in ((logical[case], tol_l, "logical"),
+                               (want[case], tol_j, "jax")):
+            if tol == 0:
+                np.testing.assert_array_equal(got, ref,
+                                              err_msg=f"{case} {what}")
+            else:
+                assert _rel(got, ref) <= tol, (case, what, _rel(got, ref))
+        if reduces is None:
+            # unproven: its split operands read whole, counted
+            assert int(r[f"mat_{case}"]) >= 1, case
+            assert int(logical[f"reduces_{case}"]) == 0, case
+        else:
+            assert int(r[f"mat_{case}"]) == 0, case
+            assert int(r[f"reduces_{case}"]) == reduces, case
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_user_functions_keep_blocks_on_a_group(world, tmp_path):
+    inputs = _part_inputs(world)
+    _, join = _launch(world, tmp_path, _PART_CASES, inputs)
+    want = _jax_parts(inputs, world)  # while the children run
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the children's BLAS runs on one thread
+    try:
+        logical = _logical(inputs, world, _PART_CASES)
+    finally:
+        torch.set_num_threads(threads)
+    outs = join()
+    for r in outs:
+        _check_parts(r, want, logical)
+    for other in outs[1:]:
+        for key, val in outs[0].items():
+            if key != "mesh" and not key.startswith("mat_"):
+                np.testing.assert_array_equal(other[key], val, err_msg=key)
+
+
 # The port's Expr subclasses without a local rule (ROADMAP §A): leaves
-# and carries the walk seeds (never lowered), the dict wrapper (walked
-# through its tuple), and the gather that remains: a user function's
-# map2. The incremental engine's
+# and carries the walk seeds (never lowered) and the dict wrapper
+# (walked through its tuple). The incremental engine's
 # restriction nodes (made when the engine first runs; the test makes
 # them first, so the list does not depend on the tests before it) have
 # their rules. The list may only shrink.
@@ -1348,7 +1545,6 @@ _NO_LOCAL_RULE = {
     "spartan_tpu_torch.expr.base.ValExpr",
     "spartan_tpu_torch.expr.loop.CarryExpr",
     "spartan_tpu_torch.expr.loop.LoopIndexExpr",
-    "spartan_tpu_torch.expr.map2.Map2Expr",
 }
 
 

@@ -158,7 +158,8 @@ def _flip(v):
 
 
 def test_planted_gather_is_a_full_gather_finding():
-    # a user function's map2 has no local rule (a transpose has one now)
+    # a user function's map2 that is not proven row-partitionable (flip
+    # reverses the rows) gathers its operand whole
     with mesh_t.use_mesh(mesh_t.build_mesh((4, 2))):
         x = st_t.from_numpy(RNG.rand(16, 8).astype(np.float32))
         au = st_t.audit_plan(st_t.map2([x], _flip) + 1.0)
@@ -168,6 +169,25 @@ def test_planted_gather_is_a_full_gather_finding():
     assert f.node.startswith("Map2Expr#") and "Map2Expr" in f.message
     assert f.bytes == 16 * 8 * 4 and __file__ in f.source
     assert au.multiset.get("all-gather", 0) >= 1
+
+
+def test_a_proven_map2_is_one_all_reduce_and_no_gather():
+    # logistic_grad's map2 is proven row-partitionable: the dry walk
+    # runs its program on the row blocks (X relaid from its block tiling
+    # by all-gathers over y) and all-reduces the partial gradient once
+    from spartan_tpu_torch.examples import regression
+
+    with mesh_t.use_mesh(mesh_t.build_mesh((4, 2))):
+        x = st_t.from_numpy(RNG.rand(64, 8).astype(np.float32))
+        y = st_t.from_numpy((RNG.rand(64) > 0.5).astype(np.float32))
+        w = st_t.from_numpy(RNG.rand(8).astype(np.float32),
+                            tiling=tiling_t.replicated(1))
+        au = st_t.audit_plan(regression.logistic_grad(x, y, w))
+    assert not [f for f in au.findings if f.kind == "full_gather"]
+    assert au.multiset.get("all-reduce", 0) == 1
+    red = [c for c in au.collectives if c["kind"] == "all-reduce"]
+    assert red[0]["node"].startswith("Map2Expr#")
+    assert red[0]["operand_bytes"] == 8 * 4 and red[0]["group_size"] == 4
 
 
 def test_replicated_intermediate_over_the_threshold():
