@@ -137,10 +137,18 @@ Phases, in order; any failure exits nonzero before the result line:
     keys bit-equal to ``torch.sort`` and the one-pass top-k, with 1, 2
     and 1 kernel launches per rank; 10 PageRank iterations over the
     sharded SpMV (10 ``windowed_segsum`` launches per rank) within 1e-6
-    of the one-process run; ``retile`` of a 4096^2 array between every
-    pair of {row, col, block, replicated}, bit-equal, with the bytes
-    each rank received; ``calibrate_flop_weight`` over the group. No
-    path gathers an array whole (``group_materialize_calls`` stays 0);
+    of the one-process run; config 5's links and transition stored as
+    each rank's block of the entries (nse / 2 x 12 bytes a rank, one
+    ``partition_pack`` launch a rank for the transpose), a group
+    ``from_coo_device`` of the 16M-entry stream bit-equal to the
+    one-process dedup, naive Bayes's fit at 262,144 x 2,048 on each
+    rank's rows (one ``segment_sum_block`` launch and one all-reduce of
+    163,920 bytes a rank) beside one walk with its rule off, a per-row
+    masked sort of 8 x 2^23 and a group save and load of the links;
+    ``retile`` of a 4096^2 array between every pair of {row, col,
+    block, replicated}, bit-equal, with the bytes each rank received;
+    ``calibrate_flop_weight`` over the group. No path gathers an array
+    whole (``group_materialize_calls`` stays 0);
 21. ``[resilience]``: config 3 (1,000,448 x 128, k = 64, 20 iterations,
     a snapshot every 5) on a logical (4, 2) mesh under ``st.chaos``:
     ``transient@1`` retried by the policy engine (bit-equal),
@@ -4063,9 +4071,16 @@ def local_child(workdir: str, rank: int) -> None:
                               reps=2)
     del x, keys, vals, idx
 
-    # PageRank at the [pagerank] plan over the sharded SpMV
-    links = pagerank_links(st.SparseDistArray)
-    links.transition()._ensure_plan()
+    # PageRank at the [pagerank] plan over the sharded SpMV: the links
+    # and their transition stored as each rank's block of the entries
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    links = path("links", lambda: pagerank_links(st.SparseDistArray))
+    torch.cuda.synchronize()
+    res["links_alloc"] = torch.cuda.memory_allocated(dev) - m0
+    kx.LAUNCHES["partition_pack"] = 0
+    path("transition", links.transition)._ensure_plan()
+    res["transition_launches"] = kx.LAUNCHES["partition_pack"]
     ks.LAUNCHES["windowed_segsum"] = 0
     ranks = path("pagerank", lambda: pr.pagerank(links, num_iter=PR_ITERS))
     res["pagerank_launches"] = ks.LAUNCHES["windowed_segsum"]
@@ -4073,7 +4088,9 @@ def local_child(workdir: str, rank: int) -> None:
     res["pagerank_ms"] = _wall_ms(lambda: pr.pagerank(links,
                                                       num_iter=PR_ITERS),
                                   reps=2)
+    res["sparse"] = _local_sparse(st, path, dev, mesh, links, workdir)
     del links
+    torch.cuda.empty_cache()
 
     # retile between every pair of layouts: each rank's block, bit-equal
     gen.manual_seed(31)
@@ -4114,6 +4131,245 @@ def local_child(workdir: str, rank: int) -> None:
     with open(os.path.join(workdir, f"local{rank}.json"), "w") as f:
         json.dump(res, f)
     mesh_mod.shutdown()
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same shape and the same bits (4-byte dtypes)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(
+        torch.int32), b.contiguous().view(torch.int32))
+
+
+def _local_sparse(st, path, dev, mesh, links, workdir: str) -> dict:
+    """[local]'s sparse arrays, segment sums and masked sorts on this
+    rank: config 5's ``links`` and its transition as stored (bytes a
+    rank); a group ``from_coo_device`` of the 16M-entry stream with
+    random values against the one-process dedup; the naive Bayes fit at
+    262,144 x 2,048 under ``native_kernels=on`` (its segment sums proven
+    over the rows) beside one walk with the rule switched off, both
+    against the one-process fit; a per-row masked sort of 8 x 2^23
+    against the one-process sort; a group save and load of ``links``.
+    Each path's gathers and received bytes go to ``path``."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.array.masked import MaskedDistArray, masked_sort
+    from spartan_tpu_torch.examples import naive_bayes as nb
+    from spartan_tpu_torch.expr.map2 import Map2Expr
+    from spartan_tpu_torch.kernels import exchange as kx
+    from spartan_tpu_torch.kernels import segment as ks
+    from spartan_tpu_torch.obs.metrics import partition_decisions
+    from spartan_tpu_torch.utils import checkpoint as ckpt
+
+    out = {}
+    grid = (mesh.shape["x"], mesh.shape["y"])
+
+    def stored(sp) -> int:
+        return sum(t.numel() * t.element_size() for t in sp.block[:3])
+
+    def same(g, one) -> bool:
+        """``g``'s block is the one-process array's slice, bit for bit."""
+        b, w = g.block, one.block
+        sl = slice(b.lo, b.lo + b.data.shape[0])
+        return (g.nnz == one.nnz and g.nse == one.nse
+                and all(_bits_equal(x, y[sl]) for x, y in zip(b[:3], w[:3])))
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = path(name, fn)
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t) * 1e3
+        return got
+
+    T = links.transition()
+    out["links_nse"], out["links_nnz"] = links.nse, links.nnz
+    out["links_bytes"], out["T_bytes"] = stored(links), stored(T)
+    out["T_nse"] = T.nse
+
+    # the config-5 stream (16M entries, its duplicate links) with random
+    # values, so each duplicate's sum shows its order
+    rng = np.random.RandomState(4)
+    rows = torch.from_numpy(np.repeat(np.arange(PR_N, dtype=np.int32),
+                                      PR_DEG)).to(dev)
+    cols = torch.from_numpy(rng.randint(0, PR_N, PR_N * PR_DEG)
+                            .astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    vals = torch.rand(PR_N * PR_DEG, generator=gen, device=dev)
+    kx.LAUNCHES["partition_pack"] = 0
+    g = timed("coo_device", lambda: st.SparseDistArray.from_coo_device(
+        rows, cols, vals, (PR_N, PR_N)))
+    out["coo_device_launches"] = kx.LAUNCHES["partition_pack"]
+    with st.use_mesh(st.build_mesh(grid, dev)):
+        one = st.SparseDistArray.from_coo_device(rows, cols, vals,
+                                                 (PR_N, PR_N))
+    out["coo_device_equal"] = same(g, one)
+    out["coo_device_nnz"], out["coo_device_bytes"] = g.nnz, stored(g)
+    del g, one, rows, cols, vals
+    torch.cuda.empty_cache()
+
+    # naive Bayes's fit on each rank's rows, then with the rule off
+    x, yt, _ = _nb_data(dev)
+    prev = st.FLAGS.native_kernels
+    st.FLAGS.native_kernels = "on"
+    try:
+        with st.use_mesh(st.build_mesh(grid, dev)):
+            one = nb.fit(from_tensor(x), from_tensor(yt), NB_CLASSES)
+        X = from_tensor(x, tiling=st.Tiling(("x", None)))
+        Y = from_tensor(yt, tiling=st.Tiling(("x",)))
+        del x, yt
+        torch.cuda.empty_cache()
+        nb.fit(X, Y, NB_CLASSES)  # its plan, built
+        ks.LAUNCHES["segment_sum_block"] = 0
+        before = partition_decisions()
+        c0 = st.REGISTRY.counter_values()
+        got = timed("nb_fit", lambda: nb.fit(X, Y, NB_CLASSES))
+        c1 = st.REGISTRY.counter_values()
+        for key, name in (('collective_calls{op="all_reduce"}',
+                           "nb_reduces"),
+                          ('group_received_bytes{op="all_reduce"}',
+                           "nb_reduce_recv")):
+            out[name] = c1.get(key, 0) - c0.get(key, 0)
+        out["nb_launches"] = ks.LAUNCHES["segment_sum_block"]
+        out["nb_decisions"] = {"/".join(k): v - before.get(k, 0)
+                               for k, v in partition_decisions().items()
+                               if v != before.get(k, 0)}
+        out["nb_equal"] = all(np.array_equal(a, b)
+                              for a, b in zip(got, one))
+        saved = Map2Expr._lower_local
+        Map2Expr._lower_local = None
+        try:
+            nb.fit(X, Y, NB_CLASSES)  # its plan, built
+            got = timed("nb_fit_off", lambda: nb.fit(X, Y, NB_CLASSES))
+        finally:
+            Map2Expr._lower_local = saved
+        out["nb_off_equal"] = all(np.array_equal(a, b)
+                                  for a, b in zip(got, one))
+    finally:
+        st.FLAGS.native_kernels = prev
+    del X, Y, got, one
+    torch.cuda.empty_cache()
+
+    # a masked sort of each row of 8 x 2^23: the rows whole on each rank
+    gen.manual_seed(43)
+    shape = (MASK_ROWS, MASK_COLS)
+    md = torch.randn(shape, generator=gen, device=dev)
+    mm = torch.rand(shape, generator=gen, device=dev) < MASK_WHERE
+    rows_t = st.Tiling(("x", None))
+    srt = masked_sort(MaskedDistArray(from_tensor(md, tiling=rows_t),
+                                      from_tensor(mm, tiling=rows_t)), 1)
+    gd = timed("msort", lambda: srt.data.evaluate())
+    gm = path("msort_mask", lambda: srt.mask.evaluate())
+    with st.use_mesh(st.build_mesh(grid, dev)):
+        one = masked_sort(MaskedDistArray(from_tensor(md),
+                                          from_tensor(mm)), 1)
+        od, om = one.data.evaluate().local, one.mask.evaluate().local
+    ext = gd.tiling.block_extent(gd.shape, mesh)
+    out["msort_equal"] = (_bits_equal(gd.local, od[ext.to_slice()])
+                          and torch.equal(gm.local, om[ext.to_slice()]))
+    out["msort_local"] = list(gd.local.shape)
+    del md, mm, srt, gd, gm, one, od, om
+    torch.cuda.empty_cache()
+
+    # a group save and load of the links
+    d = os.path.join(workdir, "links_ckpt")
+    timed("sparse_save", lambda: ckpt.save_sparse(d, links))
+    kx.LAUNCHES["partition_pack"] = 0
+    back = timed("sparse_load", lambda: ckpt.load_sparse(d))
+    out["load_launches"] = kx.LAUNCHES["partition_pack"]
+    out["ckpt_equal"] = (back.nnz == links.nnz and back.nse == links.nse
+                         and all(_bits_equal(x, y) for x, y in zip(
+                             back.block[:3], links.block[:3])))
+    del back
+    return out
+
+
+def _local_sparse_report(res, card: str) -> None:
+    """[local]'s sparse cases beside their gates: each rank's entry
+    bytes, nothing gathered, the launches on the stored blocks, NB's one
+    all-reduce, every result bit-equal to the one-process run."""
+    nb_bytes = NB_CLASSES * (NB_FEATURES + 1) * 4
+    for r, rr in enumerate(res):
+        sp = rr["sparse"]
+        want = 12 * sp["links_nse"] // GROUP_RANKS
+        _say(f"[local] rank {r}: config-5 links ({sp['links_nnz']} entries, "
+             f"nse {sp['links_nse']}) stored {sp['links_bytes']} bytes "
+             f"(nse / {GROUP_RANKS} x 12 = {want}; cudaMalloc'd "
+             f"{rr['links_alloc']}), gathered whole {rr['links_mat']}; "
+             f"its transition T stored {sp['T_bytes']} bytes, built with "
+             f"{rr['transition_launches']} partition_pack launch(es), "
+             f"gathered whole {rr['transition_mat']}, received "
+             f"{rr['transition_recv']} bytes on {card}")
+        for key, got, lim in (("links", sp["links_bytes"], want),
+                              ("T", sp["T_bytes"], 12 * sp["T_nse"]
+                               // GROUP_RANKS)):
+            if got != lim:
+                _fail(f"[local] rank {r}: {key} stores {got} bytes of "
+                      f"entries, want {lim}")
+        if abs(rr["links_alloc"] - want) > 0.01 * want:
+            _fail(f"[local] rank {r}: from_coo allocated "
+                  f"{rr['links_alloc']} bytes on the card, want its block "
+                  f"of {want} (limit 1%)")
+        _say(f"[local] rank {r}: from_coo_device of the {PR_N * PR_DEG}-"
+             f"entry stream (random values, its duplicate links summed) "
+             f"over the group: {sp['coo_device_ms']:.1f} ms, "
+             f"{sp['coo_device_launches']} partition_pack launch(es), "
+             f"nnz {sp['coo_device_nnz']}, stored "
+             f"{sp['coo_device_bytes']} bytes, received "
+             f"{rr['coo_device_recv']} bytes, bit-equal to the one-process "
+             f"dedup {sp['coo_device_equal']} (host clock; two processes "
+             f"time-slice one card) on {card}")
+        _say(f"[local] rank {r}: naive Bayes fit {NB_ROWS} x {NB_FEATURES},"
+             f" {NB_CLASSES} classes, native_kernels=on, on this rank's "
+             f"rows: {sp['nb_fit_ms']:.1f} ms, {sp['nb_launches']} "
+             f"segment_sum_block launch(es), gathered whole "
+             f"{rr['nb_fit_mat']}, {sp['nb_reduces']} all-reduce receiving "
+             f"{sp['nb_reduce_recv']} bytes (the (k, d + 1) partial: "
+             f"{nb_bytes}), {rr['nb_fit_recv']} bytes received in all "
+             f"(glom gathers the table the planner split), decisions "
+             f"{sp['nb_decisions']}, tables bit-equal to the one-process "
+             f"fit {sp['nb_equal']}; the rule switched off (one walk): "
+             f"gathered whole {rr['nb_fit_off_mat']}, received "
+             f"{rr['nb_fit_off_recv']} bytes, {sp['nb_fit_off_ms']:.1f} ms,"
+             f" bit-equal {sp['nb_off_equal']} (host clock) on {card}")
+        _say(f"[local] rank {r}: masked sort of each row of {MASK_ROWS} x "
+             f"{MASK_COLS} f32 (block {sp['msort_local']}): "
+             f"{sp['msort_ms']:.1f} ms, gathered whole "
+             f"{rr['msort_mat'] + rr['msort_mask_mat']}, bit-equal to the "
+             f"one-process sort {sp['msort_equal']}; save_sparse of links "
+             f"{sp['sparse_save_ms']:.1f} ms, load_sparse "
+             f"{sp['sparse_load_ms']:.1f} ms ({sp['load_launches']} "
+             f"partition_pack launch(es)), gathered whole "
+             f"{rr['sparse_save_mat'] + rr['sparse_load_mat']}, bit-equal "
+             f"{sp['ckpt_equal']} on {card}")
+        for name in ("links", "transition", "coo_device", "nb_fit", "msort",
+                     "msort_mask", "sparse_save", "sparse_load"):
+            if rr[f"{name}_mat"] != 0:
+                _fail(f"[local] rank {r}: the {name} path gathered "
+                      f"{rr[f'{name}_mat']} arrays whole ({rr['sites']})")
+        for key in ("coo_device_equal", "nb_equal", "nb_off_equal",
+                    "msort_equal", "ckpt_equal"):
+            if not sp[key]:
+                _fail(f"[local] rank {r}: {key} is False")
+        for key, n in (("transition_launches", 1),):
+            if rr[key] != n:
+                _fail(f"[local] rank {r}: {key} {rr[key]}, want {n}")
+        for key, n in (("coo_device_launches", 1), ("nb_launches", 1),
+                       ("load_launches", 1)):
+            if sp[key] != n:
+                _fail(f"[local] rank {r}: {key} {sp[key]}, want {n}")
+        if sp["nb_reduces"] != 1 or sp["nb_reduce_recv"] != nb_bytes:
+            _fail(f"[local] rank {r}: the NB fit made {sp['nb_reduces']} "
+                  f"all-reduces receiving {sp['nb_reduce_recv']} bytes, "
+                  f"want one of {nb_bytes}")
+        if rr["nb_fit_recv"] > 2 * nb_bytes:
+            _fail(f"[local] rank {r}: the NB fit received "
+                  f"{rr['nb_fit_recv']} bytes in all (limit twice its "
+                  f"table, {2 * nb_bytes})")
+        if [k for k in sp["nb_decisions"] if "/gather/" in k]:
+            _fail(f"[local] rank {r}: the NB fit was not proven: "
+                  f"{sp['nb_decisions']}")
+        if rr["nb_fit_off_mat"] < 1:
+            _fail(f"[local] rank {r}: the NB fit with its rule off gathered "
+                  f"nothing: the arm did not run the old path")
 
 
 def _sort_scratch(dev, r: int, n: int) -> float:
@@ -4883,6 +5139,7 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
                       f"{LOCAL_MEM_TOL})")
     _local_fills_report(res, card)
     _local_partition_report(res, card)
+    _local_sparse_report(res, card)
     r0 = res[0]
     _say(f"[local] {GROUP_RANKS} gloo processes on the one card, mesh "
          f"{tuple(r0['mesh'])}, local-shard storage ({wall:.1f} s with "
@@ -4929,6 +5186,10 @@ def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:
     return {"kmeans": r0["km_launches"], "partition_pack": r0["sort_launches"],
             "shard_topk": r0["topk_launches"],
             "windowed_segsum": r0["pagerank_launches"],
+            "segment_sum_block": r0["sparse"]["nb_launches"],
+            "sparse_partition_pack": r0["transition_launches"]
+            + r0["sparse"]["coo_device_launches"]
+            + r0["sparse"]["load_launches"],
             "batched_partition_pack": rules["sort"]["launches"][0]
             + rules["argsort"]["launches"][0],
             "bincount_block": rules["histogram"]["launches"][1],
@@ -7950,7 +8211,8 @@ def main() -> None:
         "naive_bayes_bound_ms": nbr["bound_ms"],
         "naive_bayes_library_ms": nbr["library_ms"],
         "estimator_launches": exr["nb_launches"],
-        "group_launches_per_rank": grp["segment"]}, {
+        "group_launches_per_rank": grp["segment"],
+        "local_launches_per_rank": loc["segment_sum_block"]}, {
         "name": "partition_pack", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/exchange.cu",
         "replaces": "spartan_tpu/kernels/exchange.py:31",
@@ -7960,7 +8222,9 @@ def main() -> None:
         "library_ms": sortr["library_ms"],
         "local_launches_per_rank": loc["partition_pack"],
         "local_batched_sort_launches_per_rank":
-            loc["batched_partition_pack"]}, {
+            loc["batched_partition_pack"],
+        "local_sparse_sort_launches_per_rank":
+            loc["sparse_partition_pack"]}, {
         "name": "shard_topk", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/topk.cu",
         "replaces": "spartan_tpu/kernels/topk.py:30",

@@ -333,14 +333,28 @@ def _sorted_mask(m: torch.Tensor, ax: int) -> torch.Tensor:
     return iota >= k
 
 
+def _map_along(fn, ax: int, *args) -> Expr:
+    """``map_expr(fn, *args, fn_kw={"ax": ax})`` (the same plan key)
+    with the hint that ``fn`` works along axis ``ax`` and keeps the
+    shape (``LocalCall(along=)``): on a group mesh a block that holds the
+    axis whole runs it in place, as the builtin sorts do."""
+    from ..expr.local import LocalCall, LocalInput
+    from ..expr.map import MapExpr
+
+    inputs = tuple(as_expr(a) for a in args)
+    return MapExpr(inputs, LocalCall(
+        fn, tuple(LocalInput(i) for i in range(len(inputs))),
+        (("ax", ax),), along=ax))
+
+
 def masked_sort(x: MaskedDistArray, axis: int = -1) -> MaskedDistArray:
     """``numpy.ma.sort``: valid elements sorted, masked ones last."""
     from ..expr.builtins import _checked_axis
 
     ax = _checked_axis(axis, len(x.shape))
     return MaskedDistArray(
-        map_expr(_sorted_values, x.data, x.mask, fn_kw={"ax": ax}),
-        map_expr(_sorted_mask, x.mask, fn_kw={"ax": ax}))
+        _map_along(_sorted_values, ax, x.data, x.mask),
+        _map_along(_sorted_mask, ax, x.mask))
 
 
 def _argsort_valid_first(d: torch.Tensor, m: torch.Tensor,
@@ -354,7 +368,7 @@ def masked_argsort(x: MaskedDistArray, axis: int = -1) -> Expr:
     from ..expr.builtins import _checked_axis
 
     ax = _checked_axis(axis, len(x.shape))
-    return map_expr(_argsort_valid_first, x.data, x.mask, fn_kw={"ax": ax})
+    return _map_along(_argsort_valid_first, ax, x.data, x.mask)
 
 
 def _median_valid(d: torch.Tensor, m: torch.Tensor, axis) -> torch.Tensor:
@@ -381,5 +395,7 @@ def _median_valid(d: torch.Tensor, m: torch.Tensor, axis) -> torch.Tensor:
 def masked_median(x: MaskedDistArray, axis=None) -> Expr:
     """``numpy.ma.median``: the median of the unmasked elements, float32.
     A valid NaN makes its slice NaN (``numpy.ma`` does not treat NaN as
-    missing) and a fully masked slice is NaN."""
+    missing) and a fully masked slice is NaN. Its result drops the axis,
+    so on a group mesh it reads its operands whole (counted), along an
+    axis or not."""
     return map_expr(_median_valid, x.data, x.mask, fn_kw={"axis": axis})

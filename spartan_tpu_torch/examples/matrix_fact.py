@@ -45,13 +45,17 @@ def _sgd_epoch(u, v, rows, cols, vals, valid, batch: int, lr: float,
 
 def _stream(ratings: SparseDistArray, idx: torch.Tensor):
     """Entries in ``idx`` order: rows and cols with padding pointed at
-    the spare rows, values, and the mask of real entries."""
+    the spare rows, values, and the mask of real entries. ``idx`` picks
+    from the whole entry stream, so on a group mesh the stream is
+    gathered once (counted at ``matrix_fact_stream``), as GSPMD gathers
+    a split array for a replicated index into it."""
     n_users, n_items = ratings.shape
-    r = ratings.rows[idx].long()
-    c = ratings.cols[idx].long()
+    data, rows, cols = ratings.whole_entries("matrix_fact_stream")
+    r = rows[idx].long()
+    c = cols[idx].long()
     ok = (r < n_users) & (c < n_items)
     return (torch.where(ok, r, n_users), torch.where(ok, c, n_items),
-            ratings.data[idx], ok)
+            data[idx], ok)
 
 
 def sgd_matrix_factorization(
@@ -92,15 +96,19 @@ def sgd_matrix_factorization(
 
 
 def rmse(ratings: SparseDistArray, u, v) -> float:
-    """Root-mean-square error over the observed entries."""
+    """Root-mean-square error over the observed entries: each rank's
+    partial sum of squares over the entries it stores, merged over the
+    row axis on a group mesh."""
     dev = ratings.device
     u = torch.as_tensor(np.asarray(u, np.float32), device=dev)
     v = torch.as_tensor(np.asarray(v, np.float32), device=dev)
     n_users = u.shape[0]
-    valid = ratings.rows < n_users
-    r = torch.where(valid, ratings.rows, 0).long()
+    blk = ratings.block
+    valid = blk.rows < n_users
+    r = torch.where(valid, blk.rows, 0).long()
     ur = torch.where(valid[:, None], u[r], 0.0)
-    vr = v[ratings.cols.long()]
+    vr = v[blk.cols.long()]
     pred = (ur * vr).sum(1)
-    se = torch.where(valid, (pred - ratings.data) ** 2, 0.0).sum()
+    se = torch.where(valid, (pred - blk.data) ** 2, 0.0).sum()
+    se = ratings.merge_partials(se)
     return float(torch.sqrt(se / ratings.nnz))

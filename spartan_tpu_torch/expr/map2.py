@@ -65,8 +65,10 @@ class Map2Expr(Expr):
         largest input, and every input of that many rows is split along
         them. With ``count``, the decision is counted in
         ``group_partition_decisions``."""
+        from ..kernels import registry as kernels_mod
         from ..obs.metrics import record_partition
         from ..utils import dtypes
+        from ..utils.config import FLAGS
         from . import partition
         from .base import ScalarExpr
 
@@ -87,8 +89,11 @@ class Map2Expr(Expr):
                            else dtypes.to_torch(c.dtype))
                           for c in self.inputs)
             axes = tuple((a, int(mesh.shape[a])) for a in mesh.axis_names)
+            # the kernel policy picks the ops a function traces to (a
+            # segment sum's kernel or its scatter)
             key = ("map2", fn_key(self.fn), self.fn_kw, specs,
-                   tuple(t.axes for t in tilings), axes)
+                   tuple(t.axes for t in tilings), axes,
+                   kernels_mod.policy_key(), FLAGS.segment_impl)
             fn, kw = self.fn, dict(self.fn_kw)
             plan = partition.cached(key, lambda: partition.rows(
                 lambda *xs: fn(*xs, **kw), specs, row_dims, n_rows))

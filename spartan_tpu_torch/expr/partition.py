@@ -524,7 +524,10 @@ class _Rows:
                     name.endswith("full") and n.args[i + 1] == 0)):
                 self.zeros.add(n)
             return s
-        if name == "scalar_tensor":
+        if name in ("scalar_tensor", "arange"):
+            # the same values on every rank (an arange of the rows is
+            # whole too: used against split rows it is rejected where
+            # it meets them)
             return W
         raise Reject(f"no rule: {name}")
 
@@ -547,6 +550,16 @@ class _Rows:
         if not ok:
             raise Reject(f"{name}: sources not split along its dim")
         return P
+
+
+def _segment_block(w: _Rows, n: Any) -> Any:
+    """The block segment-sum kernel (``kernels/segment.py``'s operator):
+    values and ids split along the rows give each rank the sum of its
+    rows' entries into the same buckets, a partial sum."""
+    vals, ids = n.args[0], n.args[1]
+    if w.s(vals) == R(0) and w.s(ids) == R(0):
+        return P
+    raise Reject("segment_sum_block: entries not split along the rows")
 
 
 def _writes(op: Any) -> bool:
@@ -820,6 +833,7 @@ _RULES: Dict[str, Callable[[_Rows, Any], Any]] = {
     "dot": _matmul,
     "bmm": _matmul,
     "addmm": _addmm,
+    "segment_sum_block": _segment_block,
 }
 
 

@@ -145,6 +145,13 @@ class _ShapesOnly(threading.local):
 SHAPES_ONLY = _ShapesOnly()
 
 
+def client(t, dim, i: int):
+    """Client ``i``'s operand inside a batching rule: its slice along the
+    batch dim ``dim``, or the whole tensor where every client shares it
+    (``dim`` None)."""
+    return t if dim is None else t.select(dim, i)
+
+
 def on_card(t, what: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); raises for any other device, except a

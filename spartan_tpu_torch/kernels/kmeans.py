@@ -216,18 +216,14 @@ def _pass_fake(points, centers, k, valid):
     return (points.new_empty((k, d)), points.new_empty((k,)))
 
 
-def _client(t: torch.Tensor, dim: Optional[int], i: int) -> torch.Tensor:
-    """Client ``i``'s operand: the whole tensor where it is shared."""
-    return t if dim is None else t.select(dim, i)
-
-
 def _pass_vmap(info, in_dims, points, centers, k, valid):
     """The batching rule: one pass a client, outputs stacked on a new
     leading axis. A client's slice of a contiguous stack along its batch
     axis is contiguous, and 16-byte aligned since the kernel takes d in
     multiples of 128."""
     pd, cd = in_dims[0], in_dims[1]
-    outs = [_pass_op(_client(points, pd, i), _client(centers, cd, i), k,
+    outs = [_pass_op(build_mod.client(points, pd, i),
+                     build_mod.client(centers, cd, i), k,
                      valid) for i in range(info.batch_size)]
     return ((torch.stack([o[0] for o in outs]),
              torch.stack([o[1] for o in outs])), (0, 0))

@@ -12,7 +12,11 @@ On CUDA tensors each wrapper launches its kernel in
 ``spartan_tpu_torch/csrc/segment.cu`` (built with ``nvcc`` for
 ``sm_90a`` at first use, bound through ``ctypes``); on CPU tensors it
 runs the plain version beside it; any other device raises. There is no
-fallback: a CUDA tensor the kernel cannot take raises.
+fallback: a CUDA tensor the kernel cannot take raises. The block kernel
+is the torch custom operator ``spartan_tpu_torch::segment_sum_block``:
+on ``meta`` tensors its shape rule answers (a trace records it as one
+node), and under ``torch.func.vmap`` its batching rule launches it once
+a client.
 
 :func:`segment_sum_sharded` is the JAX package's ``shard_map`` form
 (per-shard block sums merged by ``reduce_scatter`` and ``all_gather``
@@ -173,6 +177,49 @@ def _launch_windowed(vals: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+# -- the block kernel as an operator, with its batching rule -------------
+#
+# The block kernel is a torch custom operator, as the k-means pass is
+# (kernels/kmeans.py): ``make_fx`` records it as one node (the row proof
+# of expr/partition.py gives it a rule, and its replay calls it on the
+# rank's rows), and ``torch.func.vmap`` (the serve coalescer's batched
+# walk) reaches it through a batching rule that launches the kernel once
+# per client on that client's slice, so a batched walk is bit-equal to
+# the solo walks and counts one launch a client.
+
+
+@torch.library.custom_op("spartan_tpu_torch::segment_sum_block",
+                         mutates_args=())
+def _block_op(vals: torch.Tensor, ids: torch.Tensor,
+              num_segments: int) -> torch.Tensor:
+    """The CUDA kernel on the card, the plain version on the CPU."""
+    if not build_mod.on_card(vals, "segment_sum_block"):
+        return segment_sum_block_plain(vals, ids, num_segments)
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int64)
+    squeeze = vals.ndim == 1
+    v2 = vals.reshape(-1, 1) if squeeze else vals
+    out = _launch_block(v2.contiguous(), ids.contiguous(), num_segments)
+    return out.reshape(num_segments) if squeeze else out
+
+
+@_block_op.register_fake
+def _block_fake(vals, ids, num_segments):
+    return vals.new_empty((num_segments,) + tuple(vals.shape[1:]))
+
+
+def _block_vmap(info, in_dims, vals, ids, num_segments):
+    """The batching rule: one launch a client, outputs stacked on a new
+    leading axis."""
+    vd, idd = in_dims[0], in_dims[1]
+    outs = [_block_op(build_mod.client(vals, vd, i),
+                      build_mod.client(ids, idd, i), num_segments) for i in range(info.batch_size)]
+    return torch.stack(outs), 0
+
+
+_block_op.register_vmap(_block_vmap)
+
+
 # -- the wrappers -------------------------------------------------------
 
 
@@ -182,7 +229,8 @@ def segment_sum_block(vals: torch.Tensor, ids: torch.Tensor,
     ``num_segments`` buckets by integer ``ids`` ``(e,)``; ids outside
     ``[0, num_segments)`` are dropped. ``block_e`` is the JAX kernel's
     entry block, accepted for its signature: the CUDA kernel sizes its
-    own row chunks."""
+    own row chunks. On ``meta`` tensors (a trace) the operator's shape
+    rule answers."""
     del block_e
     if vals.dtype != torch.float32:
         raise TypeError(f"segment_sum_block takes float32 vals, not "
@@ -195,15 +243,9 @@ def segment_sum_block(vals: torch.Tensor, ids: torch.Tensor,
         raise TypeError(f"segment ids must be integers, not {ids.dtype}")
     if ids.device != vals.device:
         raise ValueError("vals and ids must be on one device")
-    k = int(num_segments)
-    if not build_mod.on_card(vals, "segment_sum_block"):
-        return segment_sum_block_plain(vals, ids, k)
-    if ids.dtype not in (torch.int32, torch.int64):
-        ids = ids.to(torch.int64)
-    squeeze = vals.ndim == 1
-    v2 = vals.reshape(-1, 1) if squeeze else vals
-    out = _launch_block(v2.contiguous(), ids.contiguous(), k)
-    return out[:, 0] if squeeze else out
+    if vals.device.type != "meta":
+        build_mod.on_card(vals, "segment_sum_block")  # raises elsewhere
+    return _block_op(vals, ids, int(num_segments))
 
 
 def windowed_segsum(vals: torch.Tensor, ids2d: torch.Tensor,

@@ -43,10 +43,17 @@ FLAGS.define_str("segment_impl", "auto",
 
 def _segment_sum_xla(vals: torch.Tensor, ids: torch.Tensor,
                      num_segments: int) -> torch.Tensor:
+    """``index_add_`` of every entry into zeros of one spare bucket more,
+    the out-of-range ids pointed at the spare one, which is cut off: the
+    kept buckets add their entries in the same order as an add of the
+    kept entries alone, and no step depends on the data (it traces to
+    an ``index_add`` into zeros, which the row proof of
+    ``expr/partition.py`` splits over the rows)."""
     keep = (ids >= 0) & (ids < num_segments)
-    out = torch.zeros((num_segments,) + tuple(vals.shape[1:]),
+    slot = torch.where(keep, ids, num_segments)
+    out = torch.zeros((num_segments + 1,) + tuple(vals.shape[1:]),
                       dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, ids[keep], vals[keep])
+    return out.index_add_(0, slot, vals)[:num_segments]
 
 
 def _select(vals: torch.Tensor, num_segments: int,
@@ -58,23 +65,28 @@ def _select(vals: torch.Tensor, num_segments: int,
 
 
 def segment_sum(vals: torch.Tensor, ids: torch.Tensor, num_segments: int,
-                impl: Optional[str] = None,
-                sorted_ids: bool = False) -> torch.Tensor:
+                impl: Optional[str] = None, sorted_ids: bool = False,
+                local: bool = False) -> torch.Tensor:
     """Sum ``vals`` rows into ``num_segments`` buckets by ``ids``; ids
     outside ``[0, num_segments)`` are dropped. ``sorted_ids`` is the JAX
-    package's hint to XLA's scatter; ``index_add_`` has no use for it."""
+    package's hint to XLA's scatter; ``index_add_`` has no use for it.
+
+    On a group mesh the kernel path of whole tensors is the group form
+    (``segment_sum_sharded``: each rank's rows, then an all-reduce);
+    ``local=True`` says the tensors are already this rank's entries,
+    whose partial sum the caller merges. ``meta`` tensors (a trace)
+    take the path a device takes, with the kernel as its operator, so
+    the traced program is the one that runs on a rank's rows."""
     del sorted_ids
     k = int(num_segments)
-    if vals.device.type == "meta":
-        # shape inference (map2 runs its kernel on meta tensors)
-        return vals.new_empty((k,) + tuple(vals.shape[1:]))
     impl = impl or FLAGS.segment_impl
     forced = impl == "pallas"
     if impl == "auto":
         impl = "pallas" if _select(vals, k).native else "xla"
     if impl == "pallas":
         if _select(vals, k, force=forced).native:
-            group = mesh_mod.ambient_group()
+            group = None if local or vals.device.type == "meta" \
+                else mesh_mod.ambient_group()
             if group is not None:
                 return ksegment.segment_sum_sharded(vals, ids, k, group)
             return ksegment.segment_sum_block(vals, ids, k)

@@ -391,21 +391,27 @@ def load_tree(path: str, nthreads: int = 8) -> Dict[str, DistArray]:
 
 def save_sparse(path: str, sp, nthreads: int = 8) -> None:
     """Checkpoint a SparseDistArray: its three entry arrays, tiled over
-    the mesh's row axis, and its shape and true entry count."""
+    the mesh's row axis, and its shape and true entry count. On a group
+    mesh each rank writes its block of the entries (the group writer)
+    and rank 0 the shape record, before a closing barrier."""
     os.makedirs(path, exist_ok=True)
-    t = tiling_mod.row(1)
-    for name, arr in (("data", sp.data), ("rows", sp.rows),
-                      ("cols", sp.cols)):
-        save(os.path.join(path, name), DistArray(arr, t, sp.mesh), nthreads)
-    with open(os.path.join(path, "sparse.json"), "w") as f:
-        json.dump({"shape": list(sp.shape), "nnz": int(sp.nnz)}, f)
+    for name in ("data", "rows", "cols"):
+        save(os.path.join(path, name), sp.entry_array(name), nthreads)
+    mesh = sp.mesh
+    if mesh.rank == 0:
+        with open(os.path.join(path, "sparse.json"), "w") as f:
+            json.dump({"shape": list(sp.shape), "nnz": int(sp.nnz)}, f)
+    if mesh.is_group:
+        _barrier(mesh)
 
 
 def load_sparse(path: str, nthreads: int = 8):
     """Load a sparse checkpoint onto the current mesh's device and
     re-canonicalise it there (``from_coo_device``): the entry count is
     padded to the current mesh's size with out-of-range rows, which the
-    dedup rewrites to the canonical padding."""
+    dedup rewrites to the canonical padding. On a group mesh each rank
+    reads only its block of the padded stream, and the dedup runs over
+    the ranks."""
     from ..array.sparse import SparseDistArray
 
     with open(os.path.join(path, "sparse.json")) as f:
@@ -413,15 +419,31 @@ def load_sparse(path: str, nthreads: int = 8):
     shape = tuple(meta["shape"])
     mesh = mesh_mod.get_mesh()
     nx, ny = mesh_mod.mesh_axis_sizes(mesh)
+    saved = int(_read_manifest(os.path.join(path, "data"))["shape"][0])
+    total = saved + (-saved % (nx * ny))
+    ext = tiling_mod.row(1).block_extent((total,), mesh) if mesh.is_group \
+        else TileExtent((0,), (total,), (total,))
+    lo, hi = ext.ul[0], ext.lr[0]
+    have = TileExtent((min(lo, saved),), (min(hi, saved),), (saved,))
 
     def component(name, fill):
-        t, _ = _read(os.path.join(path, name), mesh.device, nthreads)
-        pad = -t.shape[0] % (nx * ny)
+        p = os.path.join(path, name)
+        man = _read_manifest(p)
+        if have.size:
+            t, _ = _read(p, mesh.device, nthreads, man, have)
+        else:  # a block of padding only: no blob to read
+            t = torch.empty(0, dtype=_torch_dtype(man["dtype"]),
+                            device=mesh.device)
+        pad = (hi - lo) - t.shape[0]
         if pad:
             t = torch.cat([t, torch.full((pad,), fill, dtype=t.dtype,
                                          device=t.device)])
         return t
 
-    return SparseDistArray.from_coo_device(
-        component("rows", shape[0]), component("cols", 0),
-        component("data", 0), shape, mesh=mesh)
+    rows, cols, data = (component("rows", shape[0]), component("cols", 0),
+                        component("data", 0))
+    if mesh.is_group:
+        return SparseDistArray._from_entry_blocks(rows, cols, data, total,
+                                                  shape, mesh)
+    return SparseDistArray.from_coo_device(rows, cols, data, shape,
+                                           mesh=mesh)

@@ -232,6 +232,64 @@ def test_segment_kernels_never_fall_back(card):
     assert ks.LAUNCHES == before
 
 
+@pytest.mark.cuda
+def test_block_operator_vmap_rule_one_launch_a_client(card):
+    """``torch.func.vmap`` over the block kernel reaches the operator's
+    batching rule: one launch a client, each bit-equal to the solo
+    launch and to the plain version on integer values."""
+    from spartan_tpu_torch.kernels import segment as ks
+
+    vals = torch.stack([_block_data(20_000, 64, 20, seed=80 + i,
+                                    card=card)[0] for i in range(5)])
+    ids = _block_data(20_000, 64, 20, seed=79, card=card)[1]
+    solo = [ks.segment_sum_block(vals[i], ids, 20) for i in range(5)]
+    before = ks.LAUNCHES["segment_sum_block"]
+    got = torch.func.vmap(lambda v: ks.segment_sum_block(v, ids, 20))(vals)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES["segment_sum_block"] - before == 5
+    for i in range(5):
+        assert torch.equal(got[i], solo[i])
+        assert torch.equal(got[i], ks.segment_sum_block_plain(vals[i], ids,
+                                                              20))
+
+
+@pytest.mark.cuda
+def test_naive_bayes_fit_replays_the_kernel_on_each_rows_block(card):
+    """The row proof's replay of the fit under ``native_kernels=on`` on
+    two row blocks of the card: the block kernel once a block for the
+    2-D counts, and the blocks' partials summed equal the whole fit on
+    integer counts."""
+    from spartan_tpu_torch.examples import naive_bayes
+    from spartan_tpu_torch.expr import partition as pt
+    from spartan_tpu_torch.kernels import segment as ks
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    rng = np.random.RandomState(81)
+    n, d, k = 65536, 256, 20
+    x = torch.from_numpy(rng.poisson(2.0, (n, d)).astype(np.float32)).to(card)
+    y = torch.from_numpy(rng.randint(0, k, n).astype(np.int32)).to(card)
+    prev = FLAGS.native_kernels
+    FLAGS.native_kernels = "on"
+    try:
+        plan = pt.rows(naive_bayes._fit_kern(k),
+                       [((n, d), torch.float32), ((n,), torch.int32)],
+                       (0, 0), n)
+        assert not isinstance(plan, str), plan
+        whole = naive_bayes._fit_kern(k)(x, y)
+        before = ks.LAUNCHES["segment_sum_block"]
+        h = n // 2
+        parts = [plan.run([x[lo:lo + h], y[lo:lo + h]], h, lambda t: t)
+                 for lo in (0, h)]
+        torch.cuda.synchronize()
+    finally:
+        FLAGS.native_kernels = prev
+    launched = ks.LAUNCHES["segment_sum_block"] - before
+    ops = [str(s.node.target) for s in plan.steps]
+    assert launched == 2 * ops.count(
+        "spartan_tpu_torch.segment_sum_block.default")
+    assert torch.equal(parts[0] + parts[1], whole)
+
+
 # -- sort/select kernels (csrc/exchange.cu, topk.cu, histogram.cu) ---------
 
 

@@ -75,6 +75,8 @@ _ROWS = [
     ("linear_layer", torch.nn.functional.linear, (X, L, PV),
      (0, None, None), pt.R(0)),
     ("elementwise", lambda a, b: a * b + b, (X, X2), (0, 0), pt.R(0)),
+    ("naive_bayes_fit", naive_bayes._fit_kern(K), (X, LABELS), (0, 0),
+     pt.P),
 ]
 
 
@@ -186,10 +188,31 @@ def test_replay_holds_the_card_model_of_its_intermediates():
     assert plan.card_bytes(r) == 2 * r * D * 4
 
 
+def test_the_naive_bayes_fit_replays_its_kernel_priced_by_its_shape():
+    # under native_kernels=on both segment sums trace to the block
+    # kernel's operator, a partial sum over the rows; the card model
+    # prices each call from the operator's shape rule: the (K, D) counts,
+    # the rows' ones and the (K,) class sizes live at once
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    prev = FLAGS.native_kernels
+    FLAGS.native_kernels = "on"
+    try:
+        plan = pt.rows(naive_bayes._fit_kern(K), _specs((X, LABELS)),
+                       (0, 0), N)
+    finally:
+        FLAGS.native_kernels = prev
+    ops = [str(s.node.target) for s in plan.steps]
+    assert ops.count("spartan_tpu_torch.segment_sum_block.default") == 2
+    assert plan.out_state == pt.P and plan.inner_reduces == 0
+    r = 1000
+    assert plan.card_bytes(r) == (K * D + r + K) * 4
+    got = _replay(plan, (X, LABELS), (0, 0), _splits(N, (1024,) * 4))
+    assert _rel(got, naive_bayes._fit_kern(K)(X, LABELS)) <= 1e-5
+
+
 # (name, fn, operands, reason's start)
 _ROW_REJECTS = [
-    ("naive_bayes_fit", naive_bayes._fit_kern(K), (X, LABELS),
-     "uninitialised: new_empty"),
     ("mean_over_rows", lambda a: a - a.mean(0), (X,), "mean: over the rows"),
     ("flip", lambda a: a.flip(0), (X,), "no rule: flip"),
     ("cumsum", lambda a: a.cumsum(0), (X,), "no rule: cumsum"),

@@ -190,6 +190,32 @@ def test_a_proven_map2_is_one_all_reduce_and_no_gather():
     assert red[0]["operand_bytes"] == 8 * 4 and red[0]["group_size"] == 4
 
 
+def test_the_naive_bayes_fit_is_one_all_reduce_and_no_gather():
+    # the fit's segment sums are proven over the rows (the scatter under
+    # native_kernels=auto, the block kernel's operator under on): the
+    # dry walk replays them on the row blocks and all-reduces the
+    # (k, d + 1) partial counts once
+    from spartan_tpu_torch.examples import naive_bayes
+
+    prev = FLAGS_T.native_kernels
+    try:
+        for mode in ("auto", "on"):
+            FLAGS_T.native_kernels = mode
+            with mesh_t.use_mesh(mesh_t.build_mesh((4, 2))):
+                x = st_t.from_numpy(np.floor(RNG.rand(64, 8) * 5.0)
+                                    .astype(np.float32))
+                y = st_t.from_numpy((np.arange(64) % 3).astype(np.int32))
+                au = st_t.audit_plan(st_t.map2(
+                    [x, y], naive_bayes._fit_kern(3),
+                    out_tiling=tiling_t.replicated(2)))
+            assert not [f for f in au.findings if f.kind == "full_gather"]
+            red = [c for c in au.collectives if c["kind"] == "all-reduce"]
+            assert len(red) == 1 and red[0]["node"].startswith("Map2Expr#")
+            assert red[0]["operand_bytes"] == 3 * 9 * 4
+    finally:
+        FLAGS_T.native_kernels = prev
+
+
 def test_replicated_intermediate_over_the_threshold():
     prev = FLAGS_T.replication_warn_bytes
     FLAGS_T.replication_warn_bytes = 100
@@ -274,6 +300,8 @@ import numpy as np
 import torch
 
 def cases(st, km):
+    from spartan_tpu_torch.examples import naive_bayes as nb
+
     rng = np.random.RandomState(3)
     a = rng.rand(16, 256).astype(np.float32)
     b = rng.rand(256, 16).astype(np.float32)
@@ -294,6 +322,12 @@ def cases(st, km):
         "kmeans": lambda: km.kmeans_step(st.from_numpy(pts),
                                          st.from_numpy(c0), 4),
         "transpose": lambda: st.transpose(st.from_numpy(x)) * 2.0 + 1.0,
+        # naive Bayes's fit: its segment sums proven over the rows, the
+        # (k, d + 1) partial counts all-reduced once
+        "nb_fit": lambda: st.map2(
+            [st.from_numpy(np.floor(pts[:, :8] * 5.0)),
+             st.from_numpy((np.arange(2048) % 4).astype(np.int32))],
+            nb._fit_kern(4), out_tiling=st.Tiling((None, None))),
         # no local rule: a user function reads its operand whole
         "user_map2": lambda: st.map2([st.from_numpy(x)],
                                      lambda v: v.flip(0)) + 1.0,
@@ -338,7 +372,7 @@ def cases(st, km):
     }
 """
 
-_RULES = ("transpose", "reshape", "ravel", "concat", "concat1", "slice",
+_RULES = ("nb_fit", "transpose", "reshape", "ravel", "concat", "concat1", "slice",
           "outer", "cumsum", "ureduce", "maxpool", "bsort", "bargsort",
           "tril", "diagonal", "histogram", "dot_shardmap", "rand",
           "randint", "arange", "eye", "gather", "gather_cols", "assign",
@@ -426,6 +460,7 @@ def test_audit_equals_the_counted_collectives_on_a_gloo_group(tmp_path):
         assert got["sort"]["audit"]["multiset"].get("all-to-all", 0) >= 2
         assert not [f for f in got["kmeans"]["findings"]
                     if f["kind"] == "full_gather"]
+        assert got["nb_fit"]["audit"]["multiset"] == {"all-reduce": 1}
         assert [f for f in got["user_map2"]["findings"]
                 if f["kind"] == "full_gather"]
         # each local rule: no whole gather, and collectives where the

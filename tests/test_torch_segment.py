@@ -133,10 +133,12 @@ def test_block_wrapper_rejects_bad_inputs():
         kseg_t.segment_sum_block(v, torch.zeros(8), 3)
     with pytest.raises(ValueError):
         kseg_t.segment_sum_block(v, torch.zeros(7, dtype=torch.int64), 3)
-    with pytest.raises(ValueError, match="no segment_sum_block kernel"):
-        kseg_t.segment_sum_block(v.to("meta"),
-                                 torch.zeros(8, dtype=torch.int64,
-                                             device="meta"), 3)
+    # a meta tensor is a trace, not a device: the operator's shape rule
+    # answers (the row proof of expr/partition.py records the kernel)
+    out = kseg_t.segment_sum_block(v.to("meta"),
+                                   torch.zeros(8, dtype=torch.int64,
+                                               device="meta"), 3)
+    assert out.device.type == "meta" and tuple(out.shape) == (3, 4)
 
 
 # -- selection -----------------------------------------------------------
@@ -296,3 +298,43 @@ def test_naive_bayes_two_class_example():
     lp, ll = nb_t.fit(st_t.from_numpy(X), st_t.from_numpy(y), n_classes=2)
     pred = nb_t.predict(st_t.from_numpy(X), lp, ll).glom()
     assert (pred == y).mean() > 0.9
+
+
+# -- the block kernel's operator ----------------------------------------
+
+
+def test_block_kernel_traces_to_one_operator_node():
+    """``make_fx`` records the block kernel as one node of the
+    ``spartan_tpu_torch`` namespace (its shape rule answers on ``meta``
+    tensors), so the row proof of ``expr/partition.py`` sees the kernel
+    the replay calls."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    v = torch.empty((64, 5), device="meta")
+    i = torch.empty((64,), dtype=torch.int32, device="meta")
+    gm = make_fx(lambda a, b: kseg_t.segment_sum_block(a, b, 7))(v, i)
+    ops = [str(n.target) for n in gm.graph.nodes
+           if n.op == "call_function"]
+    assert ops == ["spartan_tpu_torch.segment_sum_block.default"]
+    assert tuple(gm(v, i).shape) == (7, 5)
+
+
+@pytest.mark.parametrize("in_dims", [(0, 0), (0, None), (None, 0),
+                                     (1, 0)])
+def test_block_operator_batching_rule_is_the_solo_calls(in_dims):
+    """``torch.func.vmap`` reaches the operator's batching rule: one call
+    a client on that client's slice (a shared operand whole), stacked,
+    bit-equal to the solo calls."""
+    rng = np.random.RandomState(11)
+    b, e, d, k = 3, 200, 6, 9
+    vd, idd = in_dims
+    vshape = {0: (b, e, d), None: (e, d), 1: (e, b, d)}[vd]
+    vals = torch.from_numpy(rng.randn(*vshape).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(-2, k + 2, (b, e) if idd == 0
+                                       else (e,)))
+    got = torch.func.vmap(lambda v, i: kseg_t.segment_sum_block(v, i, k),
+                          in_dims=in_dims)(vals, ids)
+    for c in range(b):
+        v = vals if vd is None else vals.select(vd, c)
+        i = ids if idd is None else ids.select(idd, c)
+        assert torch.equal(got[c], kseg_t.segment_sum_block(v, i, k))

@@ -792,6 +792,50 @@ def test_coalesced_kmeans_step_vmap_matches_jax():
         np.testing.assert_allclose(b, want, rtol=1e-5, atol=1e-5)
 
 
+def test_coalesced_naive_bayes_fits_stay_in_vmap(monkeypatch):
+    """Served naive Bayes fits under ``native_kernels=on``, where both
+    segment sums are the block kernel's operator: one batch in ``vmap``
+    mode with no demotion, the operator's batching rule one call a
+    client, each result bit-equal to its serial evaluate."""
+    from spartan_tpu_torch.array import tiling as tiling_t
+    from spartan_tpu_torch.examples import naive_bayes
+    from spartan_tpu_torch.kernels import segment as kseg
+
+    rng = np.random.RandomState(5)
+    y = st_t.from_numpy(rng.randint(0, 4, 512).astype(np.int32))
+    xs = [st_t.from_numpy(np.floor(rng.rand(512, 16) * 5.0)
+                          .astype(np.float32)) for _ in range(8)]
+
+    def build(x):
+        return st_t.map2([x, y], naive_bayes._fit_kern(4),
+                         out_tiling=tiling_t.replicated(2))
+
+    prev = FLAGS.native_kernels
+    FLAGS.native_kernels = "on"
+    try:
+        serial = [np.asarray(build(x).glom()) for x in xs]
+        calls = []
+        plain = kseg.segment_sum_block_plain
+
+        def counted(v, i, k):
+            calls.append(tuple(v.shape))
+            return plain(v, i, k)
+
+        monkeypatch.setattr(kseg, "segment_sum_block_plain", counted)
+        got, futs = _serve_all(st_t, [build(x) for x in xs], _park)
+        plan = _plan_of(build(xs[0]))
+    finally:
+        FLAGS.native_kernels = prev
+    for a, b in zip(serial, got):
+        np.testing.assert_array_equal(a, b)
+    assert [f.coalesced for f in futs] == [8] * 8
+    assert coalesce.mode_for(plan) == "vmap"
+    assert plan.report["serve"]["mode"] == "vmap"
+    # each client's feature counts one call a client; the class sizes
+    # read only the shared labels, so they run once, unbatched
+    assert sorted(calls) == sorted([(512, 16)] * 8 + [(512,)])
+
+
 def test_shared_subdag_runs_once_per_batch_under_vmap(monkeypatch):
     """``(x + y).sum() * s``: the shared ``(x + y).sum()`` runs once per
     batch (on unbatched tensors), the product once, batched."""
