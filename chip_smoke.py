@@ -203,7 +203,19 @@ Phases, in order; any failure exits nonzero before the result line:
     bit-equal to its serial ``evaluate()``, the plan still in ``vmap``
     mode with no demotion or solo fallback, every batch of a
     power-of-two size, and exactly one k-means launch per served
-    request in the served window (the operator's batching rule). The
+    request in the served window (the operator's batching rule). Then
+    the same for kernel rows 4-7, 16 x 4 requests each on a logical
+    (8, 1) mesh through one engine with batches of at most 16: top-k
+    (both outputs, k = 128) and a 64-bin ranged histogram on 2^26 keys
+    a request (windows of one seeded key buffer), the sort of 2^22 keys
+    a request, and VGG-16 block 1 on 4 images of 224^2 x 3 a request
+    (H tiled): the predicted peak a batch printed first (walks
+    serialized where two would not fit), every result bit-equal to its
+    serial ``evaluate()``, the plan in ``vmap`` with no demotion or solo
+    fallback, batches of powers of two, the window's launches equal to
+    the requests times a solo walk's (the operators' batching rules),
+    request 0 against a torch, numpy or float64 reference, requests/s
+    served and serial and the ``serve_batch`` dispatch ms. The
     4096^2 dot chain's ``(x @ y).sum() * s`` with shared ``x``, ``y`` and
     a scalar per request, served and in a serial loop: values bit-equal,
     requests/s of each and their ratio, and the p50/p99 of each
@@ -370,6 +382,13 @@ GUARD_IPS_PAIRS = 5
 # [serve]: client threads and requests each (k-means, then the dot), the
 # waits of a served request and of the gloo children
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_WAIT_S = 16, 4, 300
+# [serve]'s kernel cases (rows 4-7 through their batching rules): the
+# engine's largest batch, keys a sort request (16 of them make one 2^26
+# sort), images a VGG request, the stride between the top-k and
+# histogram requests' windows of one key buffer, and the share of the
+# card two batches' predicted peaks may take before walks serialize
+SERVE_KERNEL_BATCH, SERVE_SORT_N, SERVE_VGG_N = 16, 2 ** 22, 4
+SERVE_WINDOW_STRIDE, SERVE_MEM_SHARE = 4096, 0.8
 
 
 def _say(*args) -> None:
@@ -6558,18 +6577,21 @@ def _serve_unpark(eng) -> None:
 def _serve_clients(st, eng, builds, label: str) -> list:
     """``SERVE_CLIENTS`` threads, client ``c`` submitting ``builds[c]``
     (a list of zero-argument expression builders) back to back, then
-    fetching each; returns the fetched values in the same nesting."""
+    fetching each, under the caller's mesh (a thread starts on the
+    default one); returns the fetched values in the same nesting."""
     import threading
 
     out = [[None] * len(b) for b in builds]
     futs = [[None] * len(b) for b in builds]
     errors = []
     barrier = threading.Barrier(len(builds))
+    mesh = st.get_mesh()
 
     def client(c):
         try:
             barrier.wait()
-            fs = [eng.submit(build()) for build in builds[c]]
+            with st.use_mesh(mesh):
+                fs = [eng.submit(build()) for build in builds[c]]
             for i, f in enumerate(fs):
                 futs[c][i] = f
                 out[c][i] = f.glom(timeout=SERVE_WAIT_S)
@@ -7028,10 +7050,229 @@ def _serve_skew(st, km, card: str, dev, kmr: dict, workdir: str) -> None:
     _say(f"[serve] skew children {time.perf_counter() - t0:.1f} s on {card}")
 
 
+def _serve_kernel_case(st, kk, label: str, reqs: list, build, kernels,
+                       check, card: str) -> int:
+    """``SERVE_CLIENTS`` threads x ``SERVE_PER_CLIENT`` requests of one
+    plan that launches kernel rows 4-7 (``build(req)`` is request
+    ``req``'s expression, ``kernels`` the (module, name) counters of its
+    kernels, ``check(req, value)`` holds request 0's value to a
+    reference) through one ``ServeEngine`` with at most
+    ``SERVE_KERNEL_BATCH`` requests a batch. Prints the predicted peak
+    a batch (the solo walk's measured peak and stacked inputs, times the
+    batch) before the window; fails unless every served result is
+    bit-equal to its serial ``evaluate()``, the plan stays in ``vmap``
+    with no demotion or solo fallback, every batch is a power of two and
+    the window's launches equal the requests times a solo walk's.
+    Returns the window's launches."""
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.obs import flight
+    from spartan_tpu_torch.obs import trace as trace_mod
+    from spartan_tpu_torch.serve import coalesce
+
+    n = len(reqs)
+
+    def launches() -> int:
+        return sum(mod.LAUNCHES[name] for mod, name in kernels)
+
+    def values(v) -> list:
+        return list(v) if isinstance(v, (tuple, list)) else [v]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    _reset_counts(kk)
+    first = values(build(reqs[0]).glom())  # builds the plan
+    torch.cuda.synchronize()
+    solo_peak = torch.cuda.max_memory_allocated() - live
+    per_req = launches()
+    check(reqs[0], first)
+    inputs = sum(t.numel() * t.element_size() for t in reqs[0]
+                 if isinstance(t, torch.Tensor))
+    batch = SERVE_KERNEL_BATCH
+    predicted = batch * (solo_peak + inputs)
+    torch.cuda.empty_cache()  # the card's free bytes, not the cache's
+    free, total = torch.cuda.mem_get_info()
+    # two workers may walk two batches at once: walks go one at a time
+    # where two predicted batch peaks would not fit the card's share
+    serialize = 2 * predicted > SERVE_MEM_SHARE * free
+    _say(f"[serve] {label}: predicted peak a batch of {batch}: "
+         f"{predicted} bytes ({batch} x (solo walk's measured peak "
+         f"{solo_peak} + stacked inputs {inputs})); {per_req} kernel "
+         f"launch(es) a solo walk; {free} bytes free of {total}; walks "
+         f"{'serialized' if serialize else 'concurrent'} across the two "
+         f"workers")
+    if per_req < 1:
+        _fail(f"[serve] {label}: a solo walk launched no kernel")
+    _reset_counts(kk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [values(build(r).glom()) for r in reqs]
+    serial_s = time.perf_counter() - t0
+    if launches() != n * per_req:
+        _fail(f"[serve] {label}: {launches()} launches in {n} serial "
+              f"walks, not {n} x {per_req}")
+    dem0 = _counter(st, "serve_mode_demotions")
+    fb0 = _counter(st, "serve_solo_fallbacks")
+    flight.clear()
+    builds = [[(lambda r=reqs[c * SERVE_PER_CLIENT + i]: build(r))
+               for i in range(SERVE_PER_CLIENT)]
+              for c in range(SERVE_CLIENTS)]
+    prev = st.FLAGS.dispatch_serialize
+    if serialize:
+        st.FLAGS.dispatch_serialize = "on"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    t_us = (trace_mod.now() - trace_mod._EPOCH) * 1e6
+    try:
+        with st.ServeEngine(max_batch=batch) as eng:
+            _reset_counts(kk)
+            t0 = time.perf_counter()
+            got, futs = _serve_clients(st, eng, builds, label)
+            served_s = time.perf_counter() - t0
+            served = launches()
+    finally:
+        st.FLAGS.dispatch_serialize = prev
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live
+    plan = base.lookup_plan(base.plan_signature(build(reqs[0]))[0])
+    mode = coalesce.mode_for(plan)
+    sv = plan.report.get("serve") or {}
+    got = [values(v) for row in got for v in row]
+    equal = sum(len(a) == len(b) and all(
+        np.array_equal(u, v) for u, v in zip(a, b))
+        for a, b in zip(serial, got))
+    batches = _serve_flight(st, futs, label, card)
+    sizes = sorted(set(batches))
+    dispatch = [sp.seconds * 1e3 for sp in st.trace_events()
+                if sp.name == "serve_batch" and sp.ts >= t_us]
+    dem = _counter(st, "serve_mode_demotions") - dem0
+    fb = _counter(st, "serve_solo_fallbacks") - fb0
+    _say(f"[serve] {label}: {n} requests from {SERVE_CLIENTS} clients: "
+         f"{equal}/{n} bit-equal to serial evaluate() (limit: all); mode "
+         f"{mode} (report {sv.get('mode')}); batch sizes {sizes} (limit: "
+         f"powers of two); {served} kernel launches in the served window "
+         f"(limit: {n} x {per_req} = {n * per_req}); demotions {dem}, solo "
+         f"fallbacks {fb} (limit 0); measured peak {peak} bytes above the "
+         f"{live} live (predicted a batch {predicted})")
+    _say(f"[serve] {label} served {n / served_s:.1f} requests/s, serial "
+         f"evaluate() {n / serial_s:.1f} requests/s (host clock, fetch "
+         f"included); {len(dispatch)} serve_batch dispatches, ms "
+         + (f"min {min(dispatch):.3f} median {_pct(dispatch, 50):.3f} max "
+            f"{max(dispatch):.3f}" if dispatch else "none recorded")
+         + f" on {card}")
+    if equal != n:
+        _fail(f"[serve] {label}: served results differ from the serial "
+              "ones")
+    if mode != "vmap" or sv.get("mode") != "vmap":
+        _fail(f"[serve] {label}: the plan left vmap mode: {mode}, {sv}")
+    if dem or fb:
+        _fail(f"[serve] {label}: {dem} demotion(s), {fb} solo fallback(s)")
+    if any(b & (b - 1) for b in batches):
+        _fail(f"[serve] {label}: a batch is not a power of two: {sizes}")
+    if served != n * per_req:
+        _fail(f"[serve] {label}: {served} launches for {n} served requests"
+              f" of {per_req} each")
+    if not any(b > 1 for b in batches):
+        _fail(f"[serve] {label}: no request was coalesced")
+    return served
+
+
+def _serve_kernels(st, kk, kx, kh, kt, kst, card: str, dev) -> dict:
+    """The kernel cases of [serve] on a logical (8, 1) mesh: top-k (both
+    outputs) and a 64-bin histogram with a range on 2^26 keys a request,
+    the sort of SERVE_SORT_N keys a request, and VGG-16 block 1's
+    forward on SERVE_VGG_N images a request, H tiled."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    out = {}
+    with st.use_mesh(st.build_mesh(SORT_MESH)):
+        # request i reads keys [i * stride, i * stride + SORT_N) of one
+        # buffer: distinct inputs without 64 whole copies on the card
+        buf = torch.rand(SORT_N + (n - 1) * SERVE_WINDOW_STRIDE,
+                         generator=gen, device=dev)
+        windows = [(buf[i * SERVE_WINDOW_STRIDE:
+                        i * SERVE_WINDOW_STRIDE + SORT_N],)
+                   for i in range(n)]
+
+        def topk_check(req, v):
+            want = torch.topk(req[0], TOPK_K).values.cpu().numpy()
+            if not np.array_equal(v[0], want):
+                _fail("[serve] top-k: request 0's values differ from "
+                      "torch.topk's")
+
+        out["shard_topk"] = _serve_kernel_case(
+            st, kk, f"top-k k={TOPK_K} of {SORT_N} keys", windows,
+            lambda r: st.tuple_of(*st.topk(from_tensor(r[0]), TOPK_K)),
+            [(kt, "shard_topk")], topk_check, card)
+
+        def hist_check(req, v):
+            xn = req[0].cpu().numpy()
+            edges = _np_edges(0.0, 1.0, HIST_BINS)
+            b = np.searchsorted(edges, xn, side="right") - 1
+            b[xn == edges[-1]] = HIST_BINS - 1
+            want = np.bincount(b[(xn >= edges[0]) & (xn <= edges[-1])],
+                               minlength=HIST_BINS)
+            if not np.array_equal(v[0], want):
+                _fail("[serve] histogram: request 0's counts differ from "
+                      "numpy's on the same f32 edges")
+
+        out["bincount_block"] = _serve_kernel_case(
+            st, kk, f"histogram({HIST_BINS} bins, range=(0, 1)) of "
+            f"{SORT_N} keys", windows,
+            lambda r: st.histogram(from_tensor(r[0]), HIST_BINS,
+                                   range=(0.0, 1.0))[0],
+            [(kh, "bincount_block")], hist_check, card)
+        del windows, buf
+        keys = [(torch.rand(SERVE_SORT_N, generator=gen, device=dev),)
+                for _ in range(n)]
+
+        def sort_check(req, v):
+            want = torch.sort(req[0]).values.cpu().numpy()
+            if not np.array_equal(v[0], want):
+                _fail("[serve] sort: request 0 differs from torch.sort")
+
+        out["partition_pack"] = _serve_kernel_case(
+            st, kk, f"sort of {SERVE_SORT_N} keys", keys,
+            lambda r: st.sort(from_tensor(r[0])),
+            [(kx, "partition_pack")], sort_check, card)
+        del keys
+    with st.use_mesh(st.build_mesh(VGG_MESH)):
+        _, params = _vgg_params(dev)
+        P = [(from_tensor(w), from_tensor(b)) for w, b in params]
+        imgs = [(torch.randn((SERVE_VGG_N, VGG_HW, VGG_HW, VGG_WIDTHS[0]),
+                             generator=gen, device=dev),)
+                for _ in range(n)]
+
+        def vgg_check(req, v):
+            ref = _vgg_float64(req[0], params).cpu().numpy()
+            rel = float(np.abs(v[0] - ref).max() / np.abs(ref).max())
+            if rel > 1e-5:
+                _fail(f"[serve] VGG: request 0 is {rel:.3g} off its "
+                      "float64 forward (limit 1e-5)")
+
+        out["conv_block"] = _serve_kernel_case(
+            st, kk, f"VGG-16 block 1 on {SERVE_VGG_N} x {VGG_HW}^2 x "
+            f"{VGG_WIDTHS[0]} images, H tiled", imgs,
+            lambda r: vgg_block1(st, from_tensor(
+                r[0], tiling=st.Tiling((None, "x", None, None))), P),
+            [(kst, "conv_block")], vgg_check, card)
+    return out
+
+
 def phase_serve(st, kk, km, card: str, dev, kmr: dict, workdir: str) -> dict:
     """[serve]: the serving front end on the card (module docstring)."""
+    from spartan_tpu_torch.kernels import exchange as kx
+    from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.kernels import stencil as kst
+    from spartan_tpu_torch.kernels import topk as kt
+
     t0 = time.perf_counter()
     out = _serve_kmeans(st, kk, km, card, dev, kmr)
+    out["kernels"] = _serve_kernels(st, kk, kx, kh, kt, kst, card, dev)
     _serve_dot(st, card, dev)
     _serve_admission(st, km, card, dev, kmr)
     _serve_drain(st, card, dev)
@@ -8224,7 +8465,8 @@ def main() -> None:
         "local_batched_sort_launches_per_rank":
             loc["batched_partition_pack"],
         "local_sparse_sort_launches_per_rank":
-            loc["sparse_partition_pack"]}, {
+            loc["sparse_partition_pack"],
+        "serve_launches": serve["kernels"]["partition_pack"]}, {
         "name": "shard_topk", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/topk.cu",
         "replaces": "spartan_tpu/kernels/topk.py:30",
@@ -8232,7 +8474,8 @@ def main() -> None:
         "ms": topkr["ms"], "plain_ms": topkr["plain_ms"],
         "bound_ms": topkr["bound_ms"], "bound_by": topkr["bound_by"],
         "library_ms": topkr["library_ms"],
-        "local_launches_per_rank": loc["shard_topk"]}, {
+        "local_launches_per_rank": loc["shard_topk"],
+        "serve_launches": serve["kernels"]["shard_topk"]}, {
         "name": "bincount_block", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/histogram.cu",
         "replaces": "spartan_tpu/kernels/histogram.py:24",
@@ -8243,7 +8486,8 @@ def main() -> None:
         "unique_bound_ms": histr["unique_bound_ms"],
         "unique_library_ms": histr["unique_library_ms"],
         "group_launches_per_rank": grp["bincount"],
-        "local_histogram_launches_per_rank": loc["bincount_block"]}, {
+        "local_histogram_launches_per_rank": loc["bincount_block"],
+        "serve_launches": serve["kernels"]["bincount_block"]}, {
         "name": "conv_block", "route": "cuda",
         "source": "spartan_tpu_torch/csrc/stencil.cu",
         "replaces": "spartan_tpu/kernels/stencil.py:32",
@@ -8253,7 +8497,8 @@ def main() -> None:
         "bound_fp32_ms": vggr["bound_fp32_ms"],
         "library_ms": vggr["library_ms"],
         "group_launches_per_rank": grp["conv_block"],
-        "local_vgg_launches_per_rank": loc["conv_block"]}]}))
+        "local_vgg_launches_per_rank": loc["conv_block"],
+        "serve_launches": serve["kernels"]["conv_block"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ scatter the expr path lowers through is a batch of dynamic slices.
 Both move raw 32-bit words, so every 4-byte dtype is packed bit for bit,
 NaN payloads and -0.0 included. Validity needs no kernel: slot t of row
 j is valid when ``t < counts[j]`` (an iota compare, built by the
-caller).
+caller). The pack is the torch custom operator
+``spartan_tpu_torch::partition_pack``: on ``meta`` tensors its shape rule
+answers, and under ``torch.func.vmap`` its batching rule launches it
+once a client.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def partition_pack_plain(xs: torch.Tensor, starts: torch.Tensor,
     p = starts.shape[1]
     words = xs.view(_WORD[xs.dtype])
     t = torch.arange(m, dtype=torch.int64, device=xs.device)
-    src = (starts.to(torch.int64)[:, :, None] + t).clamp_(0, max(m - 1, 0))
+    src = (starts.to(torch.int64)[:, :, None] + t).clamp(0, max(m - 1, 0))
     vals = words.gather(1, src.reshape(b, p * m)).reshape(b, p, m)
     keep = t < counts.to(torch.int64)[:, :, None]
     return torch.where(keep, vals, torch.zeros((), dtype=words.dtype,
@@ -92,11 +95,41 @@ def _launch(xs: torch.Tensor, starts: torch.Tensor,
     return out
 
 
+# -- the operator and its batching rule ---------------------------------
+#
+# The pack is a torch custom operator with a shape rule and a batching
+# rule (``build.per_client``: one launch a client; ``starts`` and
+# ``counts`` batched or shared); the wrapper calls it through
+# ``build.call``.
+
+
+def _pack_impl(xs: torch.Tensor, starts: torch.Tensor,
+               counts: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel on the card, the plain version on the CPU."""
+    if not build_mod.on_card(xs, "partition_pack"):
+        return partition_pack_plain(xs, starts, counts)
+    return _launch(xs.contiguous(), starts.contiguous(), counts.contiguous())
+
+
+_pack_op = torch.library.custom_op("spartan_tpu_torch::partition_pack",
+                                   mutates_args=())(_pack_impl)
+
+
+@_pack_op.register_fake
+def _pack_fake(xs, starts, counts):
+    return xs.new_empty((xs.shape[0], starts.shape[1], xs.shape[1]))
+
+
+_pack_op.register_vmap(build_mod.per_client(_pack_op))
+
+
 def partition_pack(xs: torch.Tensor, starts: torch.Tensor,
                    counts: torch.Tensor) -> torch.Tensor:
     """``(B, p, m)`` send buffers of B logical shards' sorted streams
     ``xs`` (B, m), 4-byte dtype; ``starts``/``counts`` (B, p) int32 name
-    each destination's contiguous run. Slots past a run's count are 0."""
+    each destination's contiguous run. Slots past a run's count are 0.
+    On ``meta`` tensors in the plan audit's dry walk the operator's
+    shape rule answers."""
     if xs.ndim != 2 or starts.ndim != 2 or starts.shape != counts.shape \
             or starts.shape[0] != xs.shape[0]:
         raise ValueError(f"xs {tuple(xs.shape)}, starts "
@@ -108,10 +141,9 @@ def partition_pack(xs: torch.Tensor, starts: torch.Tensor,
     why = cuda_limits(xs.dtype, xs.shape[1])
     if why:
         raise TypeError(f"partition_pack cannot take this input: {why}")
-    if not build_mod.on_card(xs, "partition_pack"):
-        return partition_pack_plain(xs, starts, counts)
-    for name, t in (("starts", starts), ("counts", counts)):
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32 on the card, not "
-                             f"{t.dtype}")
-    return _launch(xs.contiguous(), starts.contiguous(), counts.contiguous())
+    if build_mod.on_card(xs, "partition_pack"):
+        for name, t in (("starts", starts), ("counts", counts)):
+            if t.dtype != torch.int32:
+                raise ValueError(f"{name} must be int32 on the card, not "
+                                 f"{t.dtype}")
+    return build_mod.call(_pack_op, _pack_impl, xs, starts, counts)

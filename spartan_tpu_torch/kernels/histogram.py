@@ -15,7 +15,10 @@ launch: the sub-histograms a CTA, the split of the ids into a scalar
 head, 16-byte vectors and a scalar tail, and the grid. On
 CPU tensors they run :func:`bincount_block_plain`, the TPU
 kernel's formulation (a f32 one-hot per 512-id block, reduced over the
-block); any other device raises. Counting in int32 instead of the TPU's
+block); any other device raises. The count is the torch custom operator
+``spartan_tpu_torch::bincount``: on ``meta`` tensors its shape rule
+answers, and under ``torch.func.vmap`` its batching rule counts once a
+client. Counting in int32 instead of the TPU's
 f32 gives the same result wherever the TPU's count is exact: below 2**24
 per bucket per shard. Both wrappers return int32, as ``bincount_sharded``
 does in the JAX package.
@@ -114,8 +117,25 @@ def bincount_block_plain(ids: torch.Tensor, length: int,
     step = max(1, _ONEHOT_BUDGET // (block_e * k_total))
     for lo in range(0, ids.shape[0], step):
         onehot = (ids[lo:lo + step, :, None] == seg).to(torch.float32)
-        counts += onehot.sum(dim=(0, 1))
+        counts = counts + onehot.sum(dim=(0, 1))
     return counts[:length].to(torch.int32)
+
+
+def bincount_shards_plain(ids: torch.Tensor, length: int, shards: int,
+                          block_e: int = _BLOCK_E) -> torch.Tensor:
+    """The plain version of ``bincount_sharded`` over ``shards`` logical
+    row shards: the id stream padded with ``length`` (dropped) to whole
+    shards, :func:`bincount_block_plain` a shard, the shards' rows added
+    as f32 in shard order (as the psum merges them), then int32. One
+    shard is :func:`bincount_block_plain` itself."""
+    if shards <= 1:
+        return bincount_block_plain(ids, length, block_e)
+    parts = _padded(ids.reshape(-1), length, shards).reshape(shards, -1)
+    total = torch.zeros((length,), dtype=torch.float32, device=ids.device)
+    for i in range(shards):
+        total = total + bincount_block_plain(parts[i], length,
+                                             block_e).to(torch.float32)
+    return total.to(torch.int32)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -184,15 +204,50 @@ def _checked(ids: torch.Tensor, length: int) -> int:
     return length
 
 
+# -- the operator and its batching rule ---------------------------------
+#
+# The count is a torch custom operator with a shape rule and a batching
+# rule (``build.per_client``: one launch a client); the wrapper calls
+# it through ``build.call``. ``shards`` and ``block_e`` shape only the
+# plain version: on the card one launch counts every shard's ids (exact
+# int32 counts need no shard split).
+
+
+def _count_impl(ids: torch.Tensor, length: int, shards: int,
+                block_e: int) -> torch.Tensor:
+    """The CUDA kernel on the card, the plain version on the CPU."""
+    if not build_mod.on_card(ids, "bincount_block"):
+        return bincount_shards_plain(ids, length, shards, block_e)
+    # jnp parity: ids are counted as int32 (wider ids wrap, as astype)
+    return _launch(ids.reshape(-1).to(torch.int32).contiguous(), length)
+
+
+_count_op = torch.library.custom_op("spartan_tpu_torch::bincount",
+                                    mutates_args=())(_count_impl)
+
+
+@_count_op.register_fake
+def _count_fake(ids, length, shards, block_e):
+    return ids.new_empty((length,), dtype=torch.int32)
+
+
+_count_op.register_vmap(build_mod.per_client(_count_op))
+
+
+def _count(ids: torch.Tensor, length: int, shards: int = 1,
+           block_e: int = _BLOCK_E) -> torch.Tensor:
+    """The operator, after the device check (a ``meta`` tensor in the
+    plan audit's dry walk takes its shape rule)."""
+    build_mod.on_card(ids, "bincount_block")  # raises for another device
+    return build_mod.call(_count_op, _count_impl, ids, length, int(shards),
+                          int(block_e))
+
+
 def bincount_block(ids: torch.Tensor, length: int,
                    block_e: int = _BLOCK_E) -> torch.Tensor:
     """One shard's int32 counts of ``ids`` in [0, length). ``block_e`` is
     the TPU kernel's id block, kept for the plain version."""
-    length = _checked(ids, length)
-    if not build_mod.on_card(ids, "bincount_block"):
-        return bincount_block_plain(ids, length, block_e)
-    # jnp parity: ids are counted as int32 (wider ids wrap, as astype)
-    return _launch(ids.reshape(-1).to(torch.int32).contiguous(), length)
+    return _count(ids, _checked(ids, length), 1, block_e)
 
 
 def _padded(ids: torch.Tensor, length: int, p: int) -> torch.Tensor:
@@ -280,12 +335,4 @@ def bincount_sharded(ids: torch.Tensor, length: int,
     if mesh.is_group:
         return bincount_group(ids, length, mesh)
     p = max(int(mesh.shape.get(tiling_mod.AXIS_ROW, 1)), 1)
-    ids = ids.reshape(-1)
-    if build_mod.on_card(ids, "bincount_block"):
-        return _launch(ids.to(torch.int32).contiguous(), length)
-    shards = _padded(ids, length, p).reshape(p, -1)
-    # the shards' rows merge as the psum does: f32 rows added, then int32
-    total = torch.zeros((length,), dtype=torch.float32, device=ids.device)
-    for i in range(p):
-        total += bincount_block_plain(shards[i], length).to(torch.float32)
-    return total.to(torch.int32)
+    return _count(ids.reshape(-1), length, p)

@@ -188,15 +188,10 @@ def _launch(points: torch.Tensor, centers: torch.Tensor, k: int,
 
 # -- the operator and its batching rule ---------------------------------
 #
-# The pass is a torch custom operator, so that ``torch.func.vmap`` (the
-# serve coalescer's batched walk, serve/coalesce.py) reaches the kernel
-# through a batching rule instead of tracing into the ctypes call, which
-# cannot take a batched tensor: the counterpart of ``pallas_call``'s
-# batching rule in the JAX package. The rule launches the kernel once
-# per client on that client's slice (the same kernel, inputs and grid as
-# a solo call), so a batched walk is bit-equal to the solo walks and
-# counts one launch per client. One launch for the whole batch, with a
-# client axis in the grid, is later work (ROADMAP).
+# The pass is a torch custom operator with a shape rule and a batching
+# rule (``build.per_client``: one launch a client). A client's slice of a
+# contiguous stack along its batch axis is contiguous, and 16-byte
+# aligned since the kernel takes d in multiples of 128.
 
 
 @torch.library.custom_op("spartan_tpu_torch::kmeans_assign_accumulate",
@@ -216,20 +211,7 @@ def _pass_fake(points, centers, k, valid):
     return (points.new_empty((k, d)), points.new_empty((k,)))
 
 
-def _pass_vmap(info, in_dims, points, centers, k, valid):
-    """The batching rule: one pass a client, outputs stacked on a new
-    leading axis. A client's slice of a contiguous stack along its batch
-    axis is contiguous, and 16-byte aligned since the kernel takes d in
-    multiples of 128."""
-    pd, cd = in_dims[0], in_dims[1]
-    outs = [_pass_op(build_mod.client(points, pd, i),
-                     build_mod.client(centers, cd, i), k,
-                     valid) for i in range(info.batch_size)]
-    return ((torch.stack([o[0] for o in outs]),
-             torch.stack([o[1] for o in outs])), (0, 0))
-
-
-_pass_op.register_vmap(_pass_vmap)
+_pass_op.register_vmap(build_mod.per_client(_pass_op))
 
 
 # -- the wrapper -------------------------------------------------------

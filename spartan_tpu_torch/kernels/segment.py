@@ -182,10 +182,8 @@ def _launch_windowed(vals: torch.Tensor, ids: torch.Tensor,
 # The block kernel is a torch custom operator, as the k-means pass is
 # (kernels/kmeans.py): ``make_fx`` records it as one node (the row proof
 # of expr/partition.py gives it a rule, and its replay calls it on the
-# rank's rows), and ``torch.func.vmap`` (the serve coalescer's batched
-# walk) reaches it through a batching rule that launches the kernel once
-# per client on that client's slice, so a batched walk is bit-equal to
-# the solo walks and counts one launch a client.
+# rank's rows), and ``torch.func.vmap`` reaches it through its batching
+# rule (``build.per_client``: one launch a client).
 
 
 @torch.library.custom_op("spartan_tpu_torch::segment_sum_block",
@@ -208,16 +206,7 @@ def _block_fake(vals, ids, num_segments):
     return vals.new_empty((num_segments,) + tuple(vals.shape[1:]))
 
 
-def _block_vmap(info, in_dims, vals, ids, num_segments):
-    """The batching rule: one launch a client, outputs stacked on a new
-    leading axis."""
-    vd, idd = in_dims[0], in_dims[1]
-    outs = [_block_op(build_mod.client(vals, vd, i),
-                      build_mod.client(ids, idd, i), num_segments) for i in range(info.batch_size)]
-    return torch.stack(outs), 0
-
-
-_block_op.register_vmap(_block_vmap)
+_block_op.register_vmap(build_mod.per_client(_block_op))
 
 
 # -- the wrappers -------------------------------------------------------

@@ -21,7 +21,10 @@ raises. :func:`halo_stencil_sharded` is the JAX package's ``shard_map``
 form: the boundary rows travel by ``ring_permute`` and each position
 runs one :func:`conv_block` on its own block. On a group mesh
 (``parallel/mesh.py``) :func:`halo_stencil` keeps only each rank's
-block and runs that body on it (:func:`halo_stencil_local`).
+block and runs that body on it (:func:`halo_stencil_local`). The conv is
+the torch custom operator ``spartan_tpu_torch::conv_block``: on ``meta``
+tensors its shape rule answers, and under ``torch.func.vmap`` its
+batching rule launches it once a client.
 """
 
 from __future__ import annotations
@@ -110,7 +113,7 @@ def conv_block_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for dh in range(kh):
         for dw in range(kw):
             patch = x[:, dh:dh + ho, dw:dw + wo, :].reshape(-1, c)
-            acc += patch @ w[dh, dw]
+            acc = acc + patch @ w[dh, dw]
     return acc.reshape(b, ho, wo, o)
 
 
@@ -151,12 +154,44 @@ def _launch(x5: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# -- the operator and its batching rule ---------------------------------
+#
+# The conv is a torch custom operator with a shape rule and a batching
+# rule (``build.per_client``: one launch a client, on either route; the
+# filter usually shared); the wrapper calls it through ``build.call``.
+
+
+def _conv_impl(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel on the card, the plain version on the CPU."""
+    if build_mod.on_card(x, "conv_block"):
+        x5 = x if x.ndim == 5 else x.unsqueeze(0)
+        return _launch(x5.contiguous(), w.contiguous())
+    return conv_block_plain(x, w)
+
+
+_conv_op = torch.library.custom_op("spartan_tpu_torch::conv_block",
+                                   mutates_args=())(_conv_impl)
+
+
+@_conv_op.register_fake
+def _conv_fake(x, w):
+    kh, kw, _, o = w.shape
+    ho, wo = x.shape[-3] - kh + 1, x.shape[-2] - kw + 1
+    if x.ndim == 5:  # halo blocks (p, N, ...): the unsharded output
+        return x.new_empty((x.shape[1], x.shape[0] * ho, wo, o))
+    return x.new_empty((x.shape[0], ho, wo, o))
+
+
+_conv_op.register_vmap(build_mod.per_client(_conv_op))
+
+
 def conv_block(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """VALID f32 conv of ``x`` with ``w`` (KH, KW, C, O): for ``x``
     (B, Hp, Wp, C) the result is (B, Hp-KH+1, Wp-KW+1, O); for the p
     shards' halo blocks (p, N, Hp, Wp, C) of :func:`halo_exchange` it is
     the unsharded (N, p*(Hp-KH+1), Wp-KW+1, O). One kernel launch on a
-    CUDA tensor; the plain version on a CPU tensor."""
+    CUDA tensor; the plain version on a CPU tensor; on ``meta`` tensors
+    in the plan audit's dry walk the operator's shape rule."""
     if x.ndim not in (4, 5) or w.ndim != 4:
         raise ValueError(f"conv_block takes x (B, Hp, Wp, C) or (p, N, Hp, "
                          f"Wp, C) and w (KH, KW, C, O); got {tuple(x.shape)} "
@@ -168,10 +203,8 @@ def conv_block(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.shape[-1] != c or x.shape[-3] < kh or x.shape[-2] < kw:
         raise ValueError(f"conv_block: x {tuple(x.shape)} does not fit the "
                          f"filter {tuple(w.shape)}")
-    if build_mod.on_card(x, "conv_block"):
-        x5 = x if x.ndim == 5 else x.unsqueeze(0)
-        return _launch(x5.contiguous(), w.contiguous())
-    return conv_block_plain(x, w)
+    build_mod.on_card(x, "conv_block")  # raises for another device
+    return build_mod.call(_conv_op, _conv_impl, x, w)
 
 
 def halo_exchange(x: torch.Tensor, kh: int, kw: int, p: int) -> torch.Tensor:
@@ -180,7 +213,9 @@ def halo_exchange(x: torch.Tensor, kh: int, kw: int, p: int) -> torch.Tensor:
     shard's last ``lo`` rows, its own H/p rows and the next shard's first
     ``hi`` rows (zeros beyond the first and last shard), between ``wlo``
     and ``whi`` zero columns, where (lo, hi) and (wlo, whi) are XLA's SAME
-    split of KH-1 and KW-1 (the extra row or column goes high)."""
+    split of KH-1 and KW-1 (the extra row or column goes high). Built out
+    of place (a zero-padded copy of ``x``, each block a window of its
+    rows), so that a batched walk can take it."""
     n, h, w, c = x.shape
     if h % p:
         raise ValueError(f"H {h} does not split into {p} shards")
@@ -189,18 +224,10 @@ def halo_exchange(x: torch.Tensor, kh: int, kw: int, p: int) -> torch.Tensor:
     wlo, whi = _same_pad(kw)
     if hs < max(hlo, hhi):
         raise ValueError(f"shard H {hs} cannot supply a {kh}-row halo")
-    out = torch.empty((p, n, hs + kh - 1, w + kw - 1, c), dtype=x.dtype,
-                      device=x.device)
-    out[..., :wlo, :] = 0
-    out[..., wlo + w:, :] = 0
-    out[0, :, :hlo] = 0
-    out[p - 1, :, hlo + hs:] = 0
-    for s in range(p):
-        lo = max(s * hs - hlo, 0)
-        hi = min(s * hs + hs + hhi, h)
-        top = lo - (s * hs - hlo)
-        out[s, :, top:top + hi - lo, wlo:wlo + w] = x[:, lo:hi]
-    return out
+    # padded row hlo + r is x's row r: shard s's block starts at s * hs
+    xpad = torch.nn.functional.pad(x, (0, 0, wlo, whi, hlo, hhi))
+    return torch.stack([xpad[:, s * hs:s * hs + hs + kh - 1]
+                        for s in range(p)])
 
 
 def _halo_body(w: torch.Tensor, tiling, mesh: mesh_mod.Mesh, h: int):

@@ -13,13 +13,16 @@ to ``m - 1``, as in the TPU kernel.
 On CUDA tensors the wrapper launches ``spartan_tpu_torch/csrc/topk.cu``
 (built with ``nvcc`` for ``sm_90a`` at first use, bound through
 ``ctypes``); on CPU tensors it runs :func:`shard_topk_plain`; any other
-device raises, and so does a CUDA tensor the kernel cannot take.
+device raises, and so does a CUDA tensor the kernel cannot take. The
+selection is the torch custom operator ``spartan_tpu_torch::shard_topk``:
+on ``meta`` tensors its shape rule answers, and under ``torch.func.vmap``
+its batching rule launches it once a client.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,7 +53,7 @@ def order_key(key: torch.Tensor) -> torch.Tensor:
     patterns tie), integers and bools by value."""
     if key.dtype.is_floating_point:
         ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-        bits = key.view(ints[key.element_size()])
+        bits = dtypes.bitcast(key, ints[key.element_size()])
         mask = (1 << (8 * key.element_size() - 1)) - 1
         return bits ^ ((bits >> (8 * key.element_size() - 1)) & mask)
     if key.dtype == torch.bool:
@@ -94,7 +97,7 @@ def shard_topk_plain(key: torch.Tensor, k: int,
         idx = torch.cat([idx, torch.full((b, pad), IDX_INF,
                                          dtype=idx.dtype,
                                          device=key.device)], 1)
-    return keys, idx.clamp_(max=max(m - 1, 0)).to(torch.int32)
+    return keys, idx.clamp(max=max(m - 1, 0)).to(torch.int32)
 
 
 def _chunking(rows: int, m: int, sms: int) -> Tuple[int, int]:
@@ -161,21 +164,50 @@ def _launch(key: torch.Tensor, k: int, sentinel):
     return out_keys, out_idx
 
 
+# -- the operator and its batching rule ---------------------------------
+#
+# The selection is a torch custom operator with a shape rule and a
+# batching rule (``build.per_client``: one launch a client); the
+# wrapper calls it through ``build.call``.
+
+
+def _topk_impl(key: torch.Tensor, k: int, sentinel: Union[int, float, bool]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel on the card, the plain version on the CPU."""
+    if not build_mod.on_card(key, "shard_topk"):
+        return shard_topk_plain(key, k, sentinel)
+    return _launch(key.contiguous(), k, sentinel)
+
+
+_topk_op = torch.library.custom_op("spartan_tpu_torch::shard_topk",
+                                   mutates_args=())(_topk_impl)
+
+
+@_topk_op.register_fake
+def _topk_fake(key, k, sentinel):
+    b = key.shape[0]
+    return (key.new_empty((b, k)), key.new_empty((b, k), dtype=torch.int32))
+
+
+_topk_op.register_vmap(build_mod.per_client(_topk_op))
+
+
 def shard_topk(key: torch.Tensor, k: int,
                sentinel) -> Tuple[torch.Tensor, torch.Tensor]:
     """``((B, k) keys, (B, k) int32 local indices)`` of each row of the
     ranking keys ``key`` (B, m), best first. ``sentinel`` fills the slots
-    of a row shorter than k."""
+    of a row shorter than k. On ``meta`` tensors in the plan audit's dry
+    walk the operator's shape rule answers."""
     if key.ndim != 2 or key.shape[0] == 0 or key.shape[1] == 0:
         raise ValueError(f"shard_topk takes (B, m) keys with B, m >= 1, "
                          f"not {tuple(key.shape)}")
     k = int(k)
-    if not build_mod.on_card(key, "shard_topk"):
-        return shard_topk_plain(key, k, sentinel)
-    why = cuda_limits(key.dtype, key.shape[1], k)
-    if why:
-        raise ValueError(f"shard_topk kernel cannot take this input: {why}")
-    if key.shape[0] > 65535:
-        raise ValueError(f"shard_topk kernel takes at most 65535 rows, not "
-                         f"{key.shape[0]}")
-    return _launch(key.contiguous(), k, sentinel)
+    if build_mod.on_card(key, "shard_topk"):
+        why = cuda_limits(key.dtype, key.shape[1], k)
+        if why:
+            raise ValueError(f"shard_topk kernel cannot take this input: "
+                             f"{why}")
+        if key.shape[0] > 65535:
+            raise ValueError(f"shard_topk kernel takes at most 65535 rows, "
+                             f"not {key.shape[0]}")
+    return build_mod.call(_topk_op, _topk_impl, key, k, sentinel)

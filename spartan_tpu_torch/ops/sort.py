@@ -70,7 +70,7 @@ def sort_key(v: torch.Tensor) -> torch.Tensor:
                                                    dtype=v.dtype,
                                                    device=v.device), v)
         ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-        bits = v.view(ints[v.element_size()])
+        bits = dtypes.bitcast(v, ints[v.element_size()])
         width = 8 * v.element_size()
         return bits ^ ((bits >> (width - 1)) & ((1 << (width - 1)) - 1))
     if v.dtype == torch.bool:
@@ -114,9 +114,10 @@ def _pack_scatter(xs_sorted: torch.Tensor, dst: torch.Tensor,
     dc = dst.clamp(max=p - 1)
     pos = torch.arange(m, device=dst.device) - starts.gather(-1, dc)
     flat = torch.where(dst < p, dc * m + pos, p * m)
-    out = torch.zeros((r, shards, p * m + 1), dtype=xs_sorted.dtype,
-                      device=xs_sorted.device)
-    out.scatter_(-1, flat, xs_sorted)
+    # zeros made from the source (batched with it under vmap), filled in
+    # place: one buffer, as many bytes as a solo walk's
+    out = xs_sorted.new_zeros((r, shards, p * m + 1)).scatter_(
+        -1, flat, xs_sorted)
     return out[..., :p * m].reshape(r, shards, p, m)
 
 
@@ -194,8 +195,8 @@ def _kernel(xs: torch.Tensor, p: int, s: int, n: int,
 
     def deliver(src: torch.Tensor) -> torch.Tensor:
         chunks = _exchange(src.gather(-1, gather_idx).reshape(r, p, p, m))
-        out = torch.zeros((r, p, m + 1), dtype=src.dtype, device=dev)
-        out.scatter_(-1, positions, chunks.reshape(r, p, p * m))
+        out = chunks.new_zeros((r, p, m + 1)).scatter_(
+            -1, positions, chunks.reshape(r, p, p * m))
         return out[..., :m]
 
     out_vals = deliver(bucket)
@@ -540,8 +541,8 @@ def sample_sort_local(arr, with_indices: bool = False, axis: int = -1):
     rcnt = coll.exchange(cnt[..., None], name, 1, 1, mesh)
     rst = coll.exchange(st[..., None], name, 1, 1, mesh)
     positions = torch.where(tpos < rcnt, rst + tpos, ln)
-    out = torch.zeros(r, ln + 1, dtype=recv.dtype, device=dev)
-    out.scatter_(-1, positions.reshape(r, p * m), recv.reshape(r, p * m))
+    out = recv.new_zeros((r, ln + 1)).scatter_(
+        -1, positions.reshape(r, p * m), recv.reshape(r, p * m))
     del positions, recv
     return result(out[:, :ln])
 

@@ -109,6 +109,20 @@ def widen(t: torch.Tensor) -> torch.Tensor:
     return t.to(_WIDE) if t.dtype in _NARROW_KERNELS else t
 
 
+def bitcast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.view(dtype)`` for a ``dtype`` of the same element size: the
+    same bits read as another type. Inside ``torch.func.vmap`` a batched
+    tensor is viewed through its physical tensor and batched again at
+    its level and batch dim, since a torch without a batching rule for
+    ``view.dtype`` (2.11) raises on it."""
+    fn = torch._C._functorch
+    if not fn.is_batchedtensor(t):
+        return t.view(dtype)
+    level = fn.maybe_get_level(t)
+    inner, bdim = fn._unwrap_batched(t, level)
+    return fn._add_batch_dim(bitcast(inner, dtype), bdim, level)
+
+
 def call(fn: Callable, *args: Any, **kw: Any) -> Any:
     """``fn(*args, **kw)``. Where a tensor operand is uint16 or uint32,
     which torch has few kernels for, every such operand is computed in

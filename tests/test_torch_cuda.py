@@ -1530,6 +1530,124 @@ def test_kmeans_vmap_rule_bit_equal_to_solo_launches(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_shard_topk_vmap_rule_one_launch_a_client(card, dtype):
+    """``torch.func.vmap`` over ``shard_topk`` reaches the operator's
+    batching rule: one launch a client, each bit-equal to its solo
+    launch, the batch along dim 0 or dim 1."""
+    from spartan_tpu_torch.kernels import topk as kt
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(81)
+    if dtype == torch.float32:
+        keys, sentinel = torch.rand((5, 8, 70_001), generator=gen,
+                                    device=card), float("-inf")
+    else:
+        keys, sentinel = torch.randint(-9, 9, (5, 8, 70_001), generator=gen,
+                                       device=card, dtype=dtype), -2 ** 31
+    solo = [kt.shard_topk(keys[i], 128, sentinel) for i in range(5)]
+    for dim in (0, 1):
+        before = kt.LAUNCHES["shard_topk"]
+        got = torch.func.vmap(lambda k: kt.shard_topk(k, 128, sentinel),
+                              in_dims=dim)(keys.movedim(0, dim))
+        torch.cuda.synchronize()
+        assert kt.LAUNCHES["shard_topk"] - before == 5
+        for i in range(5):
+            assert torch.equal(got[0][i].view(torch.int32),
+                               solo[i][0].view(torch.int32))
+            assert torch.equal(got[1][i], solo[i][1])
+
+
+@pytest.mark.cuda
+def test_bincount_vmap_rule_one_launch_a_client(card):
+    """``torch.func.vmap`` over ``bincount_block`` and over
+    ``bincount_sharded`` on a logical (8, 1) mesh: one launch a client,
+    each bit-equal to its solo launch and to the plain version."""
+    from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(82)
+    ids = torch.randint(-5, 300, (6, 1_000_003), generator=gen, device=card,
+                        dtype=torch.int32)
+    with mesh_mod.use_mesh(mesh_mod.build_mesh((8, 1), card)):
+        for fn in (lambda i: kh.bincount_block(i, 257),
+                   lambda i: kh.bincount_sharded(i, 257)):
+            solo = [fn(ids[i]) for i in range(6)]
+            before = kh.LAUNCHES["bincount_block"]
+            got = torch.func.vmap(fn)(ids)
+            torch.cuda.synchronize()
+            assert kh.LAUNCHES["bincount_block"] - before == 6
+            for i in range(6):
+                assert torch.equal(got[i], solo[i])
+                assert torch.equal(got[i], kh.bincount_block_plain(ids[i],
+                                                                   257))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", ["xs", "runs", "all"])
+def test_partition_pack_vmap_rule_one_launch_a_client(card, batched):
+    """``torch.func.vmap`` over ``partition_pack`` with the streams, the
+    runs or both batched: one launch a client, each bit-equal to its
+    solo launch."""
+    from spartan_tpu_torch.kernels import exchange as kx
+
+    rng = np.random.RandomState(83)
+    xs = torch.from_numpy(rng.rand(4, 8, 30_000).astype(np.float32)).to(card)
+    counts = np.stack([rng.multinomial(30_000, np.ones(8) / 8, 8)
+                       for _ in range(4)]).astype(np.int32)
+    starts = (np.cumsum(counts, -1) - counts).astype(np.int32)
+    s, c = torch.from_numpy(starts).to(card), torch.from_numpy(counts).to(card)
+    x_d = None if batched == "runs" else 0
+    r_d = None if batched == "xs" else 0
+
+    def pick(t, d, i):
+        return t[i] if d == 0 else t[0]
+
+    solo = [kx.partition_pack(pick(xs, x_d, i), pick(s, r_d, i),
+                              pick(c, r_d, i)) for i in range(4)]
+    before = kx.LAUNCHES["partition_pack"]
+    got = torch.func.vmap(kx.partition_pack, in_dims=(x_d, r_d, r_d))(
+        xs if x_d == 0 else xs[0], s if r_d == 0 else s[0],
+        c if r_d == 0 else c[0])
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["partition_pack"] - before == 4
+    for i in range(4):
+        assert torch.equal(got[i].view(torch.int32),
+                           solo[i].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 64])
+@pytest.mark.parametrize("shared_w", [True, False])
+def test_conv_block_vmap_rule_one_launch_a_client(card, c, shared_w):
+    """``torch.func.vmap`` over ``conv_block`` on halo blocks, both
+    routes (C = 3 SIMT, C = 64 tensor cores), the filter shared or
+    batched: one launch a client on the route's counter, each bit-equal
+    to its solo launch."""
+    from spartan_tpu_torch.kernels import stencil as kst
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(84 + c)
+    x = torch.stack([kst.halo_exchange(torch.randn(
+        (2, 64, 40, c), generator=gen, device=card), 3, 3, 8)
+        for _ in range(3)])
+    w = torch.randn((3, 3, 3, c, 64), generator=gen, device=card)
+    w_d = None if shared_w else 0
+    solo = [kst.conv_block(x[i], w[0] if shared_w else w[i])
+            for i in range(3)]
+    before = dict(kst.LAUNCHES)
+    got = torch.func.vmap(kst.conv_block, in_dims=(0, w_d))(
+        x, w[0] if shared_w else w)
+    torch.cuda.synchronize()
+    assert kst.LAUNCHES["conv_block"] - before["conv_block"] == 3
+    assert kst.LAUNCHES["conv_block_mma"] - before["conv_block_mma"] == \
+        (3 if kst.route(c) == "mma" else 0)
+    for i in range(3):
+        assert torch.equal(got[i], solo[i])
+
+
+@pytest.mark.cuda
 def test_one_served_kmeans_batch_on_the_card(card):
     """A coalesced batch of k-means steps through one ``ServeEngine``:
     mode ``vmap``, one launch a request, each bit-equal to its serial

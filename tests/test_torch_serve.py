@@ -870,18 +870,26 @@ def test_shared_subdag_runs_once_per_batch_under_vmap(monkeypatch):
 # -- the demotion ladder ---------------------------------------------------
 
 
+def _copied_in_place(t):
+    """A user function that writes its operand into a fresh buffer in
+    place: under vmap the buffer is unbatched and the write raises."""
+    out = torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+    out.add_(t)
+    return out * 2.0
+
+
 def test_ladder_reaches_unroll_on_an_unvmappable_plan():
-    """``st.histogram`` without a range reads its data's min and max on
-    the host: its vmap walk raises, the failure classifies
-    deterministic, the plan demotes to ``unroll`` and the batch is
-    served solo (a ``fallback`` flight event); the next batch coalesces
-    in ``unroll``, bit-equal to serial."""
+    """A user map that writes in place into an unbatched buffer: its
+    vmap walk raises, the failure classifies deterministic, the plan
+    demotes to ``unroll`` and the batch is served solo (a ``fallback``
+    flight event); the next batch coalesces in ``unroll``, bit-equal to
+    serial."""
     rng = np.random.RandomState(15)
     vs = [st_t.from_numpy(rng.rand(4096).astype(np.float32))
           for _ in range(4)]
 
     def build(v):
-        return st_t.histogram(st_t.as_expr(v), 8)[0]
+        return st_t.map(_copied_in_place, st_t.as_expr(v))
 
     serial = [np.asarray(build(v).glom()) for v in vs]
     dem = _counter("serve_mode_demotions")
