@@ -13,7 +13,14 @@ Phases, in order; any failure exits nonzero before the result line:
    sub-histograms and CTAs an SM at the path's lengths;
 3. kernel vs plain: each kernel against its plain torch version on the
    card, at the main paths' shapes and at edge shapes, and each kernel
-   rerun against its first run bit for bit;
+   rerun against its first run bit for bit; ``[gemv]``: the fixed-order
+   vector product (``kernels/gemv.py``) as ``x @ A`` and ``A @ x`` of
+   16,384^2 and 32,768^2 matrices and of a tall (2^22, 32) matrix in
+   both orientations (the contraction 2^22 long), each bit-equal to its
+   plain version, each output window at odd offsets and widths bit-equal
+   to the product of the matching window view, within the float32
+   summation bound of float64, with kernel, ``torch.matmul``, plain and
+   bound ms;
 4. main path, dense dot chain: bench.py's 4096^2 f32 chain through
    ``st.loop``/``evaluate``/``glom``, checked against float64 numpy;
 5. main path, k-means: ``examples.kmeans.kmeans`` at 1M x 128, k = 64,
@@ -235,19 +242,21 @@ Phases, in order; any failure exits nonzero before the result line:
     data skew;
 24. ``[incremental]``, the delta-aware engine (``FLAGS.incremental``,
     ``result_cache_bytes`` raised to hold a 4 GiB leaf): first the card's
-    answer to ``incremental.order_granule`` (restricted vector-matrix
-    and 4096^2 matrix products against the full products' bits).
+    answer to ``incremental.order_granule`` (restricted cuBLAS
+    vector-matrix and 4096^2 matrix products against the full products'
+    bits) and the fixed-order kernel's windows at granule 1.
     Edge-insert PageRank through ``streaming.IncrementalPageRank`` on
     dense transitions at n = 16,384 and 32,768: 8 batches rewriting 1%
     of the columns through ``update()`` with a step after each, the
     flag on then off on the same stream, the seam write synchronised
     and timed outside the step windows; median step ms of each arm,
     their ratio, the on arm's ``incremental_*`` counter deltas and
-    modes (a counted ``contraction-order`` fallback where the card's
-    product cannot keep the order), final ranks bit-equal to the off
-    arm. The delta curve at 0.1%, 1% and 10% dirty for n = 16,384. A
-    1,048,576 x 128 window normalized with fixed statistics after each
-    1% push (served incrementally, bit-equal). ``OnlineKMeans.refine
+    modes (every warm step served: its product restricted to the
+    rewritten columns through ``fixed_order_dot``, 9 launches in the on
+    arm), final ranks bit-equal to the off arm. The delta curve at
+    0.1%, 1% and 10% dirty for n = 16,384. A 1,048,576 x 128 window
+    normalized with fixed statistics after each 1% push (served
+    incrementally, bit-equal). ``OnlineKMeans.refine
     (iters=5)`` twice under the flag: 5 row-1 launches each, bit-equal
     to the flag-off run, the loop node a counted fallback. The flag-off
     cost: config-3 ``kmeans_step`` iterations/s with ``expr.base``'s
@@ -266,7 +275,10 @@ Phases, in order; any failure exits nonzero before the result line:
     fit's ms and each kernel row's ms) against ``spartan_tpu_torch/utils/thresholds.json``; a
     breach names the figure, its value and its bound and fails the run;
     on a card other than the file's, ``ungraded: <card>``;
-27. the ``kernels`` line (times, launches, bounds; rows 1, 3, 4 and 7
+27. the ``kernels`` line (eight entries: the seven ports of Pallas
+    kernels and ``fixed_order_dot``, with its launches on the
+    ``[incremental]`` PageRank on arm and per rank of
+    ``[incremental_group]``; times, launches, bounds; rows 1, 3, 4 and 7
     with their launches per rank on the group path, rows 1, 2, 5 and 6
     with their launches per rank under local-shard storage, row 1 with
     the faulted run's, the survivor's, the integrity run's and the
@@ -389,6 +401,14 @@ SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_WAIT_S = 16, 4, 300
 # card two batches' predicted peaks may take before walks serialize
 SERVE_KERNEL_BATCH, SERVE_SORT_N, SERVE_VGG_N = 16, 2 ** 22, 4
 SERVE_WINDOW_STRIDE, SERVE_MEM_SHARE = 4096, 0.8
+# [gemv]: the fixed-order vector product at the incremental PageRank
+# step's widths (vector-matrix and matrix-vector of one n^2 matrix) and
+# at a tall (2^22, 32) matrix in both orientations (the contraction runs
+# to 2^22); the output windows (start, width) each is checked at, and
+# the timed reps
+GEMV_NS, GEMV_TALL, GEMV_REPS = (16_384, 32_768), (2 ** 22, 32), 20
+GEMV_WINDOWS = ((777, 164), (3001, 329), (1, 1), (-331, 331))
+GEMV_TALL_WINDOWS = ((1, 7), (5, 27), (31, 1))
 
 
 def _say(*args) -> None:
@@ -1744,6 +1764,110 @@ def phase_stencil_kernel(kst, dev) -> float:
         wt = torch.randn((3, 3, cin, cout), generator=gen, device=dev)
         _stencil_case(kst, blocks, wt, f"C={cin}, O={cout}, W=33")
     return main
+
+
+# -- [gemv]: the fixed-order vector product ----------------------------------
+
+
+def _gemv_case(kg, label: str, vec, mat, orient: str, windows,
+               card: str) -> dict:
+    """One product through ``fixed_order_dot``: one launch, bit-equal to
+    its plain version, each output window bit-equal to the product of
+    the matching window of ``mat`` (a view), within the recursive-sum
+    bound of float64; then kernel, ``torch.matmul`` and plain ms beside
+    the bound."""
+    if orient == "vecmat":  # vec (K,) @ mat (K, M)
+        (k, m), pair = mat.shape, (vec, mat)
+
+        def window(lo, hi):
+            return kg.fixed_order_dot(vec, mat[:, lo:hi])
+    else:  # mat (M, K) @ vec (K,)
+        (m, k), pair = mat.shape, (mat, vec)
+
+        def window(lo, hi):
+            return kg.fixed_order_dot(mat[lo:hi], vec)
+    before = kg.LAUNCHES["fixed_order_dot"]
+    got = kg.fixed_order_dot(*pair)
+    torch.cuda.synchronize()
+    launches = kg.LAUNCHES["fixed_order_dot"] - before
+    want = kg.fixed_order_dot_plain(*pair)
+    err = float((got - want).abs().max())
+    if launches != 1 or not torch.equal(got, want):
+        _fail(f"[gemv] {label}: {launches} launches, max |kernel - plain| "
+              f"{err:.3g} (want 1 launch, bit-equal)")
+    held = []
+    for lo, w in windows:
+        lo = lo % m
+        hi = min(m, lo + w)
+        held.append(torch.equal(got[lo:hi], window(lo, hi)))
+    if not all(held):
+        _fail(f"[gemv] {label}: windows {windows} held {held}")
+    # |got - exact| <= gamma_n (|x| @ |A|), n = KS + S + 1 roundings on
+    # each element's path (a slice's products and sums, the slices' fold)
+    n_round = kg.KS + -(-k // kg.KS) + 1
+    ref = torch.matmul(*(t.double() for t in pair))
+    mag = torch.matmul(*(t.double().abs() for t in pair))
+    slack = float(((got.double() - ref).abs()
+                   - n_round * _U / (1 - n_round * _U) * mag).max())
+    del ref, mag
+    if slack > 0:
+        _fail(f"[gemv] {label}: beyond the float32 summation bound by "
+              f"{slack:.3g}")
+    ms = _event_ms(lambda: kg.fixed_order_dot(*pair), GEMV_REPS)
+    lib_ms = _event_ms(lambda: torch.matmul(*pair), GEMV_REPS)
+    plain_ms = _event_ms(lambda: kg.fixed_order_dot_plain(*pair), 1,
+                         warmup=0)
+    flops_peak, bw_peak = _peaks(card)
+    bytes_ms = 4.0 * (k * m + k + m) / bw_peak * 1e3
+    ops_ms = 2.0 * k * m / flops_peak * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    _say(f"[gemv] {label}: K = {k}, M = {m}, {launches} launch a product, "
+         f"bit-equal to the plain version, {len(held)} windows "
+         f"{[(lo % m, min(m, lo % m + w)) for lo, w in windows]} "
+         f"bit-equal; kernel {ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
+         f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
+         f"{bound_by} ({100 * bound_ms / ms:.0f}% of it) on {card}")
+    return {"ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "launches": launches}
+
+
+def phase_gemv(kg, card: str, dev) -> dict:
+    """[gemv]: ``kernels/gemv.fixed_order_dot`` against its plain version
+    at the PageRank step's widths and a tall matrix, in both
+    orientations; returns the 16,384^2 vector-matrix case (the PageRank
+    step's product) with the largest error of all cases."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    out, errs = None, []
+    for n in GEMV_NS:
+        a = torch.rand((n, n), generator=gen, device=dev).mul_(2).sub_(1)
+        x = torch.rand((n,), generator=gen, device=dev).mul_(2).sub_(1)
+        vm = _gemv_case(kg, f"{n}^2 x @ A", x, a, "vecmat", GEMV_WINDOWS,
+                        card)
+        mv = _gemv_case(kg, f"{n}^2 A @ x", x, a, "matvec", GEMV_WINDOWS,
+                        card)
+        # a transposed view takes the other entry point over its base
+        if not torch.equal(kg.fixed_order_dot(x, a.t()),
+                           kg.fixed_order_dot(a, x)):
+            _fail(f"[gemv] {n}^2: x @ A.T differs from A @ x")
+        errs += [vm["max_abs_err"], mv["max_abs_err"]]
+        out = out or vm
+        del a
+    rows, cols = GEMV_TALL
+    a = torch.rand((rows, cols), generator=gen, device=dev).mul_(2).sub_(1)
+    x = torch.rand((rows,), generator=gen, device=dev).mul_(2).sub_(1)
+    errs.append(_gemv_case(kg, f"tall ({rows}, {cols}) x @ A", x, a,
+                           "vecmat", GEMV_TALL_WINDOWS, card)["max_abs_err"])
+    at = a.t().contiguous()
+    del a
+    errs.append(_gemv_case(kg, f"tall ({cols}, {rows}) A @ x", x, at,
+                           "matvec", GEMV_TALL_WINDOWS, card)["max_abs_err"])
+    del at, x
+    torch.cuda.empty_cache()
+    _say(f"[gemv] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return dict(out, max_abs_err=max(errs))
 
 
 # -- stencil: the VGG-16 block-1 forward --------------------------------------
@@ -7366,14 +7490,17 @@ def _inc_pagerank_arm(st, streaming, a, starts, width: int, on: bool):
     return pr.ranks.local, seam, steps, cnt, reasons
 
 
-def _inc_order_check(n: int, dev) -> str:
+def _inc_order_check(kg, n: int, dev) -> str:
     """The card's answer to ``incremental.order_granule``: do restricted
-    vector-matrix products give the full product's bits?"""
+    cuBLAS vector-matrix and matrix products give the full product's
+    bits? And the fixed-order kernel's windows at granule 1 (which the
+    engine's vector products rely on); raises if one of those misses."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(81)
     r = torch.rand(n, generator=gen, device=dev)
     a = torch.rand((n, n), generator=gen, device=dev)
     full = r @ a
+    mine = kg.fixed_order_dot(r, a)
     out = []
     for g in (1, 64, 1024):
         held = tries = 0
@@ -7381,7 +7508,13 @@ def _inc_order_check(n: int, dev) -> str:
             lo, hi = (c0 // g) * g, min(n, -(-(c0 + w) // g) * g)
             tries += 1
             held += int(torch.equal(full[lo:hi], r @ a[:, lo:hi]))
-        out.append(f"window granule {g}: {held}/{tries}")
+        out.append(f"cuBLAS window granule {g}: {held}/{tries}")
+    held = [torch.equal(mine[lo:lo + w],
+                        kg.fixed_order_dot(r, a[:, lo:lo + w]))
+            for lo, w in ((777, 164), (3001, 328), (n - 300, 300), (5, 1))]
+    if not all(held):
+        _fail(f"[incremental] fixed_order_dot windows held {held}")
+    out.append(f"fixed_order_dot window granule 1: {sum(held)}/{len(held)}")
     m = 4096  # matrix products: row and column windows of a @ b
     x, y = a[:m, :m].contiguous(), a[m:2 * m, :m].contiguous()
     del a
@@ -7547,7 +7680,7 @@ def _inc_window(st, card: str, dev, pushes: int = INC_BATCHES,
             "counters": d_on}
 
 
-def phase_incremental(st, kk, km, card: str, dev, kmr: dict) -> dict:
+def phase_incremental(st, kk, kg, km, card: str, dev, kmr: dict) -> dict:
     """[incremental]: the delta-aware engine on the card (module
     docstring)."""
     from spartan_tpu_torch.examples import streaming
@@ -7562,7 +7695,7 @@ def phase_incremental(st, kk, km, card: str, dev, kmr: dict) -> dict:
         _say(f"[incremental] order_granule({dev.type}) = "
              f"{inc.order_granule(dev)}; restricted r @ A[:, window] "
              f"against the full product's bits at n = {INC_NS[0]}: "
-             f"{_inc_order_check(INC_NS[0], dev)} on {card}")
+             f"{_inc_order_check(kg, INC_NS[0], dev)} on {card}")
         for n in INC_NS:
             gen = torch.Generator(device=dev)
             gen.manual_seed(83)
@@ -7571,7 +7704,9 @@ def phase_incremental(st, kk, km, card: str, dev, kmr: dict) -> dict:
             width = -(-n * int(INC_FRAC * 1000) // 1000)
             starts = [(j * 7919 * width) % (n - width)
                       for j in range(1, INC_BATCHES + 1)]
+            kg.LAUNCHES["fixed_order_dot"] = 0
             on = _inc_pagerank_arm(st, streaming, a, starts, width, True)
+            launches = kg.LAUNCHES["fixed_order_dot"]
             off = _inc_pagerank_arm(st, streaming, a, starts, width, False)
             del a
             torch.cuda.empty_cache()
@@ -7583,15 +7718,19 @@ def phase_incremental(st, kk, km, card: str, dev, kmr: dict) -> dict:
                  f"{s_on:.3f} ms on, {s_off:.3f} ms off (x"
                  f"{s_off / s_on:.2f}); counters on {on[3]}, off "
                  f"{off[3]}; the on arm's modes {sorted(set(on[4]))}; "
-                 f"final ranks bit-equal {equal} on {card}")
+                 f"fixed_order_dot launches in the on arm {launches} (the "
+                 f"cold step and each warm one); final ranks bit-equal "
+                 f"{equal} on {card}")
             if not equal:
                 _fail(f"[incremental] PageRank at {n} is not bit-equal")
-            served = on[3]["hits"] + on[3]["fallbacks"]
-            if served != INC_BATCHES or off[3]["hits"] + off[3][
-                    "fallbacks"] != 0:
-                _fail(f"[incremental] the engine saw {on[3]} / {off[3]}")
-            if on[3]["fallbacks"] and inc.order_granule(dev) is not None:
-                _fail(f"[incremental] PageRank fell back: {on[4]}")
+            if on[3]["hits"] != INC_BATCHES or on[3]["fallbacks"] != 0 \
+                    or off[3]["hits"] + off[3]["fallbacks"] != 0:
+                _fail(f"[incremental] PageRank's warm steps were not all "
+                      f"served: on {on[3]} {on[4]}, off {off[3]}")
+            if launches != INC_BATCHES + 1:
+                _fail(f"[incremental] the on arm launched fixed_order_dot "
+                      f"{launches} times, want {INC_BATCHES + 1}")
+            out.setdefault("gemv_launches", launches)
             out[n] = {"on_ms": s_on, "off_ms": s_off, "counters": on[3],
                       "modes": sorted(set(on[4]))}
         n = INC_NS[0]
@@ -7640,7 +7779,9 @@ def phase_incremental(st, kk, km, card: str, dev, kmr: dict) -> dict:
 # iteration to give the cadence IG_ITERS walks. [incremental_group] runs
 # the engine's streams on the group: the 1,048,576 x 128 window with
 # IGI_PUSHES pushes, PageRank on a dense IGI_PR_N^2 transition (every
-# product step falls back under contraction-order) and the refine.
+# warm step served: each rank's restricted product through the
+# fixed-order kernel, the two ranks' partial sums added once) and the
+# refine.
 IG_SAMPLE, IG_STRIKES, IG_VICTIM, IG_ITERS = 5, 3, 1, 15
 IG_SDC = "sdc@4#1,sdc@9#1,sdc@14#1"
 IG_IPS_REPS, IG_TIMEOUT_S, IG_JOIN_S = 3, 120, 300
@@ -7946,6 +8087,7 @@ def _ig_incremental(st, kk, card: str, dev, kmr: dict) -> dict:
     """One rank's streams of [incremental_group]."""
     from spartan_tpu_torch.examples import streaming
     from spartan_tpu_torch.expr import incremental as inc
+    from spartan_tpu_torch.kernels import gemv as kg
     from spartan_tpu_torch.utils.config import FLAGS
 
     tag = "[incremental_group]"
@@ -7959,21 +8101,27 @@ def _ig_incremental(st, kk, card: str, dev, kmr: dict) -> dict:
     width = -(-n * int(INC_FRAC * 1000) // 1000)
     starts = [(j * 7919 * width) % (n - width)
               for j in range(1, IGI_PR_BATCHES + 1)]
+    kg.LAUNCHES["fixed_order_dot"] = 0
     on = _inc_pagerank_arm(st, streaming, a, starts, width, True)
+    out["gemv_launches"] = kg.LAUNCHES["fixed_order_dot"]
     off = _inc_pagerank_arm(st, streaming, a, starts, width, False)
     del a
     equal = torch.equal(on[0], off[0])
     _say(f"{tag} PageRank dense {n}^2 f32, {IGI_PR_BATCHES} batches of "
          f"{width} columns: step median {np.median(on[2]):.3f} ms on, "
          f"{np.median(off[2]):.3f} ms off; seam write median "
-         f"{np.median(on[1]):.3f} ms; counters on {on[3]}; reasons "
-         f"{on[4]}; ranks bit-equal {equal} on {card}")
+         f"{np.median(on[1]):.3f} ms; counters on {on[3]}; modes "
+         f"{on[4]}; fixed_order_dot launches in the on arm "
+         f"{out['gemv_launches']}; ranks bit-equal {equal} on {card}")
     if not equal:
         _fail(f"{tag} PageRank is not bit-equal")
-    if (on[3]["fallbacks"] != IGI_PR_BATCHES or on[3]["hits"] != 0
-            or any(r != "contraction-order" for r in on[4])):
-        _fail(f"{tag} PageRank steps did not fall back under "
-              f"contraction-order: {on[3]}, {on[4]}")
+    if (on[3]["hits"] != IGI_PR_BATCHES or on[3]["fallbacks"] != 0
+            or any(r != "incremental" for r in on[4])):
+        _fail(f"{tag} PageRank's warm steps were not all served: "
+              f"{on[3]}, {on[4]}")
+    if out["gemv_launches"] != IGI_PR_BATCHES + 1:
+        _fail(f"{tag} the on arm launched fixed_order_dot "
+              f"{out['gemv_launches']} times, want {IGI_PR_BATCHES + 1}")
     out["pagerank"] = {"on_ms": float(np.median(on[2])),
                        "off_ms": float(np.median(off[2])),
                        "seam_ms": float(np.median(on[1])),
@@ -8010,6 +8158,7 @@ def phase_incremental_group(st, card: str, workdir: str) -> dict:
          f"{[rr['refine']['launches'] for rr in r]}; phase "
          f"{time.perf_counter() - t0:.1f} s on {card}")
     return {"refine_launches": [rr["refine"]["launches"][0] for rr in r],
+            "gemv_launches": [rr["gemv_launches"] for rr in r],
             "window_on_ms": r[0]["window"]["on_ms"],
             "window_off_ms": r[0]["window"]["off_ms"]}
 
@@ -8314,6 +8463,7 @@ def main() -> None:
     from spartan_tpu_torch.kernels import build as build_mod
     from spartan_tpu_torch.kernels import kmeans as kk
     from spartan_tpu_torch.kernels import exchange as kx
+    from spartan_tpu_torch.kernels import gemv as kg
     from spartan_tpu_torch.kernels import histogram as kh
     from spartan_tpu_torch.kernels import segment as ks
     from spartan_tpu_torch.kernels import stencil as kst
@@ -8324,15 +8474,16 @@ def main() -> None:
     card = phase_device()
     dev = torch.device("cuda")
     st.set_default_device(dev)
-    _COUNTED[:] = [ks, kx, kt, kh, kst]
+    _COUNTED[:] = [ks, kx, kt, kh, kst, kg]
     phase_build(build_mod, (kk._load, ks._load, kx._load, kt._load,
-                            kh._load, kst._load))
+                            kh._load, kst._load, kg._load))
     _histogram_layout(kh, dev)
     max_err = phase_kernel_vs_plain(kk, dev)
     phase_pack_kernel(kx, dev)
     topk_err = phase_topk_kernel(kt, dev)
     hist_err = phase_bincount_kernel(kh, dev)
     stencil_err = phase_stencil_kernel(kst, dev)
+    gemv = phase_gemv(kg, card, dev)
     t0 = time.perf_counter()
     links = pagerank_links(st.SparseDistArray)
     links.transition()._ensure_plan()
@@ -8389,7 +8540,7 @@ def main() -> None:
         serve = phase_serve(st, kk, km, card, dev, kmr, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    incr = phase_incremental(st, kk, km, card, dev, kmr)
+    incr = phase_incremental(st, kk, kg, km, card, dev, kmr)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_group_guard_")
     try:
         igr = phase_integrity_group(st, card, workdir)
@@ -8498,7 +8649,16 @@ def main() -> None:
         "library_ms": vggr["library_ms"],
         "group_launches_per_rank": grp["conv_block"],
         "local_vgg_launches_per_rank": loc["conv_block"],
-        "serve_launches": serve["kernels"]["conv_block"]}]}))
+        "serve_launches": serve["kernels"]["conv_block"]}, {
+        "name": "fixed_order_dot", "route": "cuda",
+        "source": "spartan_tpu_torch/csrc/gemv.cu",
+        "replaces": "spartan_tpu/expr/dot.py:93 (no Pallas kernel: "
+                    "XLA's dot of a vector product)",
+        "launches": incr["gemv_launches"], "max_abs_err":
+            gemv["max_abs_err"], "ms": gemv["ms"],
+        "plain_ms": gemv["plain_ms"], "bound_ms": gemv["bound_ms"],
+        "bound_by": gemv["bound_by"], "library_ms": gemv["library_ms"],
+        "group_incremental_launches_per_rank": incg["gemv_launches"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,12 @@ What is delta-scaled:
   ``insert_edges`` holds the base vector fixed, so only the transition
   matrix's dirty columns changed since the cached step and the engine
   restricts the product to them where the device's product keeps its
-  per-element order for a narrower output (``incremental.order_granule``:
-  the CPU on one thread); elsewhere (cuBLAS) the step recomputes in full
-  with the reason ``contraction-order`` counted.
+  per-element order for a narrower output
+  (``incremental.product_granule``: on the card the float32 step goes
+  through the fixed-order kernel, ``kernels/gemv.py``, any window of
+  which keeps it; on the CPU, BLAS on one thread at windows of 256);
+  elsewhere (BLAS on several threads) the step recomputes in full with
+  the reason ``contraction-order`` counted.
 * :class:`OnlineKMeans` — every batch is new data (whole-batch dirty),
   so its steps are full evaluations; ``refine`` is one ``st.loop``.
 * :class:`SlidingWindowStats` — ``stats()`` after a push is a full

@@ -5,7 +5,12 @@ The JAX package leaves the dense product to XLA; here it is
 import (see ``spartan_tpu_torch/__init__.py``), so a float32 product is
 IEEE float32 whatever ``precision`` says — the JAX package's
 ``precision="highest"``. ``precision`` stays in the signature for API
-parity.
+parity. A float32 product of one 1-D and one 2-D operand on the card
+(``kernels/gemv.py::routes``) runs through the hand-written fixed-order
+kernel instead, whose per-element order depends only on the contraction
+length, so a product restricted to a window of its output
+(``expr/incremental.py``) keeps the whole product's bits there; the
+route does not depend on ``FLAGS.incremental``.
 
 The smart-tiling pass records a GEMM's plan in ``_dot_plan``: the
 output grid and the contraction's placement (None: gathered; a mesh
@@ -35,6 +40,7 @@ import torch
 
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
+from ..kernels import gemv
 from ..parallel import mesh as mesh_mod
 from ..parallel import redistribute as redist_mod
 from ..utils import dtypes
@@ -92,9 +98,7 @@ class DotExpr(Expr):
                                       src=self.a.out_tiling())
             bv = redist_mod.constrain(bv, Tiling((k, m_c)), mesh,
                                       src=self.b.out_tiling())
-        # torch.matmul takes one dtype: both operands are cast to the
-        # result type first
-        return dtypes.contract(torch.matmul, self.dtype, av, bv)
+        return _contract(self.dtype, av, bv)
 
     def _lower_local(self, env) -> Any:
         """The plan on the ranks' blocks: 1-D operands take part as a
@@ -121,7 +125,7 @@ class DotExpr(Expr):
                                             + (k,))).local
         bb = redist_mod.relayout(bv, Tiling((k,) + ((m_c,) if bv.ndim == 2
                                                     else ()))).local
-        out = dtypes.contract(torch.matmul, self.dtype, ab, bb)
+        out = _contract(self.dtype, ab, bb)
         if k is not None:
             out = coll.reduce_over(out, (k,), "add", env.mesh)
         axes = ((m_r,) if self.a.ndim == 2 else ()) + \
@@ -152,6 +156,16 @@ class DotExpr(Expr):
         if self.ndim == 1:
             return tiling_mod.row(1)
         return tiling_mod.replicated(0)
+
+
+def _contract(dtype, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the result ``dtype``: through the fixed-order kernel
+    where ``gemv.routes`` holds, else ``torch.matmul`` (which takes one
+    dtype: both operands are cast to the result type first)."""
+    if gemv.routes(a, b, dtype):
+        return gemv.fixed_order_dot(a.to(torch.float32),
+                                    b.to(torch.float32))
+    return dtypes.contract(torch.matmul, dtype, a, b)
 
 
 def local_plan(a_axes, b_axes) -> Tuple[Any, Any, Any]:

@@ -41,15 +41,19 @@ read when ``FLAGS.incremental`` is off):
 
 Bit-equality with a full recompute rests on the restricted program
 running the same per-element reductions. Elementwise maps and axis
-reductions do so by construction. A product does only where the
-device's GEMM/GEMV kernel for the narrower shape reduces each output
-element in the same order as for the full one, which BLAS libraries do
-not promise: they pick kernels, thread splits and split-K by shape.
-:func:`order_granule` says, per device, the width a restricted product's
-output window is widened to (start rounded down, end rounded up to a
-multiple of it, or to the end of the axis) so that the orders match, or
-that no width does; then the dot's dirt is whole-node under the counted
-reason ``contraction-order``.
+reductions do so by construction. A product does where its kernel
+reduces each output element of the narrower shape in the same order as
+for the full one. On the card a float32 product of one 1-D and one 2-D
+operand lowers through the hand-written fixed-order kernel
+(``kernels/gemv.py``), whose order depends only on the contraction's
+length, so its restricted window is any window; integer and bool
+products are exact in any order. Other products go to BLAS, which does
+not promise the order: it picks kernels, thread splits and split-K by
+shape. :func:`product_granule` says, per product node, the width its
+restricted output window is widened to (start rounded down, end rounded
+up to a multiple of it, or to the end of the axis) so that the orders
+match, or that no width does (:func:`order_granule` for BLAS); then the
+dot's dirt is whole-node under the counted reason ``contraction-order``.
 
 Cached results live in a bounded LRU under ``FLAGS.result_cache_bytes``
 (reported to the memory governor via :func:`cache_bytes` and the
@@ -63,15 +67,16 @@ On a group mesh every rank caches its block of the result (whether to
 cache is decided on the global result size, so every rank caches
 alike), and the same decisions run on every rank from data every rank
 has alike: the lineage's global regions, the propagated box, the
-``dirty-frac`` threshold on the global fraction, the order granule
-(agreed once per group, :func:`_granule`) and the cache hit. The
-restricted sub-DAG and the splice run as one group walk: a leaf's
-slice is the rank's share of the box, the part of it that the rank's
-block holds (possibly empty; ``array/tiling.BoxTiling``), elementwise
-maps and reductions along unsplit axes compute only that share, a
-reduction along a split axis or a product issues its collective over
-the box's slab on every rank (an empty share takes part), and the
-splice writes each rank's share into a clone of its cached block. No
+``dirty-frac`` threshold on the global fraction, the product granule
+(agreed once per group and kind of product, :func:`product_granule`)
+and the cache hit. The restricted sub-DAG and the splice run as one
+group walk: a leaf's slice is the rank's share of the box, the part of
+it that the rank's block holds (possibly empty;
+``array/tiling.BoxTiling``), elementwise maps and reductions along
+unsplit axes compute only that share, a reduction along a split axis or
+a product issues its collective over the box's slab on every rank (an
+empty share takes part), and the splice writes each rank's share into a
+clone of its cached block. No
 collective moves the box when the walk keeps it where the ranks hold
 it. The mutation seam stashes nothing there: the slice of the rank's
 own block serves the restricted leaf.
@@ -84,14 +89,18 @@ and map/reduce/dot import base themselves.
 from __future__ import annotations
 
 import threading
+import types
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..array.extent import TileExtent
+from ..kernels import gemv
 from ..obs.metrics import REGISTRY
 from ..parallel import mesh as mesh_mod
+from ..utils import dtypes
 from ..utils import profiling as prof
 from ..utils.config import FLAGS
 
@@ -142,9 +151,12 @@ class Unsupported(Exception):
 
 
 def order_granule(device: torch.device) -> Optional[int]:
-    """The width a restricted product's output window is widened to on
-    ``device`` so that each output element is reduced in the same order
-    as in the full product, or None when no width does.
+    """The width a restricted BLAS product's output window is widened to
+    on ``device`` so that each output element is reduced in the same
+    order as in the full product, or None when no width does. On the
+    card a float32 vector product does not ask: it lowers through the
+    fixed-order kernel, any window of which holds the order
+    (:func:`product_granule`).
 
     * ``cpu``: the BLAS GEMV kernels vectorize over the output in
       blocks of 16 float32 lanes and treat the remainder in a tail, and
@@ -160,7 +172,8 @@ def order_granule(device: torch.device) -> Optional[int]:
       window width from 1 to 1024 gave the full product's bits for
       vector-matrix, matrix-vector or matrix products of 4096 to 32,768
       wide (``chip_smoke.py``'s ``[incremental]`` phase repeats the
-      check on every run), so a product's dirt is whole-node there.
+      check on every run), so a matrix-matrix product's dirt, and a
+      float16, bfloat16 or float64 product's, is whole-node there.
     """
     if device.type == "cpu":
         return 256 if torch.get_num_threads() == 1 else None
@@ -254,30 +267,69 @@ def _reduce_window(n: Any, d: int, lo: int, hi: int, granule: int,
             min(p for p in points if p >= hi))
 
 
-# id(process group) -> the order granule its ranks agreed on
-_agreed: Dict[int, Optional[int]] = {}
+def _product_kind(n: Any) -> str:
+    """``exact`` for an integer or bool product (exact in any order),
+    ``vector`` for a shape and dtype the fixed-order kernel computes
+    (``gemv.takes``), else ``blas``. Every rank of a group says the same
+    of a node."""
+    dt = dtypes.to_numpy(n.dtype)
+    if dt == np.bool_ or np.issubdtype(dt, np.integer):
+        return "exact"
+    return "vector" if gemv.takes(n.a, n.b, n.dtype) else "blas"
 
 
-def _granule(mesh: Any) -> Optional[int]:
-    """:func:`order_granule` of the mesh's device; on a group mesh the
-    smallest of the ranks' answers (a rank whose library splits the
-    contraction says None), agreed once per group, so every rank
-    restricts the same products (it decides which collectives the
-    restricted walk issues)."""
-    g = order_granule(mesh.device)
+# (id(process group), kind of product) -> the granule its ranks agreed on
+_agreed: Dict[Tuple[int, str], Optional[int]] = {}
+
+
+def product_granule(n: Any, mesh: Any) -> Optional[int]:
+    """The width the product ``n``'s restricted output window is
+    widened to on ``mesh`` so that each element is reduced in the whole
+    product's order, or None where no width does (its dirt is then
+    whole-node under ``contraction-order``):
+
+    * 1 (any window, no widening) where ``n`` lowers through the
+      fixed-order kernel (``kernels/gemv.py::routes``: a float32 product
+      of one 1-D and one 2-D operand on the card), whose per-element
+      order depends only on the contraction's length;
+    * 1 for integer and bool products, exact in any order;
+    * :func:`order_granule` of the mesh's device otherwise.
+
+    On a group mesh the ranks agree on the answer once per group and
+    kind of product (:func:`_product_kind`): None where any rank says
+    None, else the widest, so every rank restricts the same products (it
+    decides which collectives the restricted walk issues). There a float
+    product keeps ``contraction-order`` where an axis of the mesh has
+    three or more ranks: a k-split product ends in an all-reduce along
+    that axis (``collectives.reduce_over``), and the backend's ring may
+    add three or more partial sums in an order that follows the
+    message's length, so a window's sums need not meet in the whole
+    product's order. Two ranks' partial sums meet in one add, which is
+    commutative, so a line of two keeps the order."""
+    kind = _product_kind(n)
+    if kind == "exact":
+        return 1
+    if mesh.is_group and max(mesh.shape.values()) >= 3:
+        return None
+    a, b = (types.SimpleNamespace(ndim=c.ndim, device=mesh.device)
+            for c in (n.a, n.b))
+    g = (1 if kind == "vector" and gemv.routes(a, b, n.dtype)
+         else order_granule(mesh.device))
     if not mesh.is_group:
         return g
-    key = id(mesh.group)
+    key = (id(mesh.group), kind)
     with _lock:
         if key in _agreed:
             return _agreed[key]
     from ..parallel import collectives as coll
 
-    got = int(coll.reduce_over(torch.tensor([g or 0], device=mesh.device),
-                               mesh.axis_names, "min", mesh)[0])
+    none, widest = (int(v) for v in coll.reduce_over(
+        torch.tensor([int(g is None), g or 0], device=mesh.device),
+        mesh.axis_names, "max", mesh))
+    got = None if none else widest
     with _lock:
-        _agreed[key] = got or None
-    return got or None
+        _agreed[key] = got
+    return got
 
 
 def _widen(lo: int, hi: int, dim: int, granule: int) -> Tuple[int, int]:
@@ -608,7 +660,7 @@ def _dot_dirt(n: Any, dirt: Dict, memo: Dict, details: List,
         out = (TileExtent((0, db.ul[1]), (n.shape[0], db.lr[1]), n.shape)
                if an == 2 else  # dirty cols -> those output cols
                TileExtent((db.ul[1],), (db.lr[1],), n.shape))
-    if _granule(mesh_mod.get_mesh()) is None:
+    if product_granule(n, mesh_mod.get_mesh()) is None:
         # the restricted product would not reduce in the full one's
         # order here: whole-node, under a named reason
         if reasons is not None:
@@ -872,14 +924,14 @@ def _restrict(n: Any, box: TileExtent, memo: Dict,
 def _restrict_dot(n: Any, box: TileExtent, memo: Dict,
                   stashes: Optional[Dict[int, Tuple]]) -> Any:
     """``n[box]`` for a product: the output window is widened to the
-    device's order granule (``order_granule``) along each cut
-    non-contracted axis, the product runs over the widened operands,
-    and a slice takes ``box`` back out of it."""
+    product's granule (``product_granule``: 1 leaves it as it is) along
+    each cut non-contracted axis, the product runs over the widened
+    operands, and a slice takes ``box`` back out of it."""
     from .base import ScalarExpr
     from .dot import DotExpr
 
     a, b = n.children()
-    granule = _granule(mesh_mod.get_mesh())
+    granule = product_granule(n, mesh_mod.get_mesh())
     if granule is None:
         raise Unsupported("contraction-order")
     wide = TileExtent(

@@ -1690,13 +1690,14 @@ def test_one_served_kmeans_batch_on_the_card(card):
 def test_incremental_splice_on_the_card_is_bit_equal(card):
     """The incremental engine on the card: a map stream is served by a
     restricted walk spliced into a clone of the cached result, bit-equal
-    to the full walk; a product's restriction would not keep cuBLAS's
-    reduction order, so its warm step falls back under the counted
-    reason ``contraction-order``, bit-equal too."""
+    to the full walk; a vector-matrix product's warm step is served too,
+    its product restricted to the rewritten columns through the
+    fixed-order kernel (one launch), bit-equal to the full walk."""
     import spartan_tpu_torch as st
     from spartan_tpu_torch.array import distarray as da
     from spartan_tpu_torch.expr import base, incremental as inc
     from spartan_tpu_torch.expr.base import evaluate, lazify
+    from spartan_tpu_torch.kernels import gemv as kg
     from spartan_tpu_torch.utils import profiling as prof
     from spartan_tpu_torch.utils.config import FLAGS
 
@@ -1736,11 +1737,14 @@ def test_incremental_splice_on_the_card_is_bit_equal(card):
         evaluate(step(a))
         a2 = a.update((slice(0, n), slice(512, 768)),
                       rng.rand(n, 256).astype(np.float32))
-        f0 = prof.counters().get("incremental_fallbacks", 0)
+        h0 = prof.counters().get("incremental_hits", 0)
+        l0 = kg.LAUNCHES["fixed_order_dot"]
         got = evaluate(step(a2)).tensor
-        assert prof.counters().get("incremental_fallbacks", 0) == f0 + 1
+        assert prof.counters().get("incremental_hits", 0) == h0 + 1
+        assert kg.LAUNCHES["fixed_order_dot"] == l0 + 1
         plan = base.lookup_plan(base.plan_signature(step(a2))[0])
-        assert plan.report["incremental"]["fallback"] == "contraction-order"
+        assert plan.report["incremental"]["mode"] == "incremental"
+        assert plan.report["incremental"].get("fallback") is None
         FLAGS.incremental = False
         assert torch.equal(got, evaluate(step(da.from_numpy(
             a2.glom()))).tensor)
@@ -2023,3 +2027,109 @@ def test_counter_draw_on_the_card_equals_the_host(card, kind, dtype, params):
                                        atol=1e-7)
         else:
             assert torch.equal(on_card, host)
+
+
+# -- the fixed-order vector product (csrc/gemv.cu) ---------------------------
+
+
+def _gemv_operands(card, orient, k, m, seed):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    vec = torch.rand((k,), generator=gen, device=card) * 2 - 1
+    shape = (k, m) if orient == "vecmat" else (m, k)
+    mat = torch.rand(shape, generator=gen, device=card) * 2 - 1
+    return (vec, mat) if orient == "vecmat" else (mat, vec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient", ["vecmat", "matvec"])
+@pytest.mark.parametrize("k,m", [(1, 1), (100, 301), (256, 4096),
+                                 (257, 33), (845, 1000), (16384, 4096),
+                                 (70_000, 32), (32, 100_000)])
+def test_gemv_matches_plain_bit_for_bit(card, orient, k, m):
+    from spartan_tpu_torch.kernels import gemv as kg
+
+    a, b = _gemv_operands(card, orient, k, m, seed=k + m)
+    before = kg.LAUNCHES["fixed_order_dot"]
+    got = kg.fixed_order_dot(a, b)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["fixed_order_dot"] == before + 1
+    assert torch.equal(got, kg.fixed_order_dot_plain(a, b))
+    assert torch.equal(got, kg.fixed_order_dot(a, b))  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [255, 4096, 5000])
+def test_gemv_windows_are_bit_equal_on_the_card(card, k):
+    """Column windows of x @ A (views at odd, unaligned offsets, which
+    take the one-column route) and row windows of A @ x give the whole
+    product's bits."""
+    from spartan_tpu_torch.kernels import gemv as kg
+
+    x, a = _gemv_operands(card, "vecmat", k, 3001, seed=k)
+    full = kg.fixed_order_dot(x, a)
+    rows = kg.fixed_order_dot(a.t(), x)  # the other entry point
+    assert torch.equal(full, rows)
+    for lo, hi in ((0, 3001), (1, 2), (3, 40), (777, 941), (2999, 3001),
+                   (4, 1028)):
+        assert torch.equal(full[lo:hi], kg.fixed_order_dot(x, a[:, lo:hi]))
+        at = a.t().contiguous()
+        assert torch.equal(full[lo:hi], kg.fixed_order_dot(at[lo:hi], x))
+
+
+@pytest.mark.cuda
+def test_gemv_is_the_route_of_vector_products(card):
+    """``st.dot`` of a float32 vector and matrix on the card launches the
+    kernel once and gives its bits, with the incremental flag on or off;
+    a matrix-matrix product and a float16 one keep ``torch.matmul`` (a
+    float64 one is float32, as with JAX's 64-bit types off, and takes
+    the kernel); a float64 operand is refused by the kernel, not run
+    elsewhere."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.kernels import gemv as kg
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    st.set_default_device(card)
+    x, a = _gemv_operands(card, "vecmat", 4096, 2048, seed=5)
+    want = kg.fixed_order_dot(x, a)
+    prev = FLAGS.incremental
+    try:
+        for on in (False, True):
+            FLAGS.incremental = on
+            before = kg.LAUNCHES["fixed_order_dot"]
+            got = st.dot(from_tensor(x), from_tensor(a)).evaluate()
+            assert kg.LAUNCHES["fixed_order_dot"] == before + 1
+            assert torch.equal(got.tensor, want)
+            got = st.dot(from_tensor(a.t().contiguous()),
+                         from_tensor(x)).evaluate()
+            assert torch.equal(got.tensor, want)
+    finally:
+        FLAGS.incremental = prev
+    before = kg.LAUNCHES["fixed_order_dot"]
+    st.dot(from_tensor(a.t().contiguous()), from_tensor(a)).evaluate()
+    st.dot(from_tensor(x.half()), from_tensor(a.half())).evaluate()
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["fixed_order_dot"] == before
+    got = st.dot(from_tensor(x.double()), from_tensor(a.double()))
+    assert got.dtype == np.float32
+    assert torch.equal(got.evaluate().tensor, want)
+    assert kg.LAUNCHES["fixed_order_dot"] == before + 1
+    with pytest.raises(TypeError):
+        kg.fixed_order_dot(x.double(), a.double())
+
+
+@pytest.mark.cuda
+def test_gemv_batching_rule_launches_once_a_client(card):
+    from spartan_tpu_torch.kernels import gemv as kg
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(6)
+    xs = torch.rand((4, 1000), generator=gen, device=card)
+    a = torch.rand((1000, 513), generator=gen, device=card)
+    before = kg.LAUNCHES["fixed_order_dot"]
+    got = torch.func.vmap(kg.fixed_order_dot, in_dims=(0, None))(xs, a)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["fixed_order_dot"] == before + 4
+    assert torch.equal(got, torch.stack([kg.fixed_order_dot(x, a)
+                                         for x in xs]))
