@@ -20,7 +20,10 @@ Phases, in order; any failure exits nonzero before the result line:
    plain version, each output window at odd offsets and widths bit-equal
    to the product of the matching window view, within the float32
    summation bound of float64, with kernel, ``torch.matmul``, plain and
-   bound ms;
+   bound ms; each case's device split from torch.profiler (pass 1 ms,
+   fold ms, and what a product takes beyond its pass 1), traced in a
+   child process so that no trace runs in this one before
+   ``[sort]``'s, and printed beside those;
 4. main path, dense dot chain: bench.py's 4096^2 f32 chain through
    ``st.loop``/``evaluate``/``glom``, checked against float64 numpy;
 5. main path, k-means: ``examples.kmeans.kmeans`` at 1M x 128, k = 64,
@@ -222,7 +225,11 @@ Phases, in order; any failure exits nonzero before the result line:
     fallback, batches of powers of two, the window's launches equal to
     the requests times a solo walk's (the operators' batching rules),
     request 0 against a torch, numpy or float64 reference, requests/s
-    served and serial and the ``serve_batch`` dispatch ms. The
+    served and serial and the ``serve_batch`` dispatch ms. Then 64
+    requests of ``st.ravel`` of a 2048^2 (2^22-key) array on (8, 1),
+    batches of 16: its mode, demotions and solo fallbacks, each result
+    bit-equal to its serial ``evaluate()`` and request 0 to
+    ``reshape(-1)``. The
     4096^2 dot chain's ``(x @ y).sum() * s`` with shared ``x``, ``y`` and
     a scalar per request, served and in a serial loop: values bit-equal,
     requests/s of each and their ratio, and the p50/p99 of each
@@ -409,6 +416,10 @@ SERVE_WINDOW_STRIDE, SERVE_MEM_SHARE = 4096, 0.8
 GEMV_NS, GEMV_TALL, GEMV_REPS = (16_384, 32_768), (2 ** 22, 32), 20
 GEMV_WINDOWS = ((777, 164), (3001, 329), (1, 1), (-331, 331))
 GEMV_TALL_WINDOWS = ((1, 7), (5, 27), (31, 1))
+# [gemv]'s device split: calls traced a case
+GEMV_SPLIT_CALLS = 5
+# [serve]'s ravel case: the side of each request's square array (2^22 keys)
+SERVE_RAVEL_SIDE = 2048
 
 
 def _say(*args) -> None:
@@ -1829,18 +1840,60 @@ def _gemv_case(kg, label: str, vec, mat, orient: str, windows,
          f"{bound_by} ({100 * bound_ms / ms:.0f}% of it) on {card}")
     return {"ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-            "launches": launches}
+            "launches": launches, "label": label, "orient": orient,
+            "shape": tuple(mat.shape)}
+
+
+def _gemv_split(kg, pair, ms: float) -> str:
+    """Where one product's device time goes: a torch.profiler trace of
+    ``GEMV_SPLIT_CALLS`` calls after a warm-up, the pass-1 and fold
+    kernels' device ms (means over the calls), and what the product
+    takes beyond its pass 1 (``ms``, the CUDA-event time of a call, less
+    pass 1's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kg.fixed_order_dot(*pair)
+    torch.cuda.synchronize()
+    for _attempt in range(2):  # a trace may lose its device records
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(GEMV_SPLIT_CALLS):
+                kg.fixed_order_dot(*pair)
+            torch.cuda.synchronize()
+        rows = {"pass1": [], "fold_slices": []}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for key, got in rows.items():
+                if key in e.key and e.self_device_time_total > 0:
+                    got.append((e.self_device_time_total, e.count))
+        if rows["pass1"]:
+            break
+    if not rows["pass1"]:
+        return "not measured (the profiler recorded no pass-1 kernel)"
+    # means over the kernels recorded (a late trace may drop a few)
+    pass1, fold = (sum(t for t, _ in rows[k]) / 1e3
+                   / max(1, sum(n for _, n in rows[k]))
+                   for k in ("pass1", "fold_slices"))
+    seen = sum(n for _, n in rows["pass1"])
+    out = f"pass 1 {pass1:.4f} ms, "
+    out += f"fold {fold:.4f} ms" if rows["fold_slices"] else \
+        "no fold (one slice)"
+    return out + (f", {ms - pass1:.4f} ms beyond pass 1 (torch.profiler, "
+                  f"mean of the {seen} of {GEMV_SPLIT_CALLS} calls "
+                  f"recorded)")
 
 
 def phase_gemv(kg, card: str, dev) -> dict:
     """[gemv]: ``kernels/gemv.fixed_order_dot`` against its plain version
     at the PageRank step's widths and a tall matrix, in both
     orientations; returns the 16,384^2 vector-matrix case (the PageRank
-    step's product) with the largest error of all cases."""
+    step's product) with the largest error of all cases, and every
+    case's figures under ``cases`` (for ``phase_gemv_split``)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(26)
-    out, errs = None, []
+    out, cases = None, []
     for n in GEMV_NS:
         a = torch.rand((n, n), generator=gen, device=dev).mul_(2).sub_(1)
         x = torch.rand((n,), generator=gen, device=dev).mul_(2).sub_(1)
@@ -1852,22 +1905,74 @@ def phase_gemv(kg, card: str, dev) -> dict:
         if not torch.equal(kg.fixed_order_dot(x, a.t()),
                            kg.fixed_order_dot(a, x)):
             _fail(f"[gemv] {n}^2: x @ A.T differs from A @ x")
-        errs += [vm["max_abs_err"], mv["max_abs_err"]]
+        cases += [vm, mv]
         out = out or vm
         del a
     rows, cols = GEMV_TALL
     a = torch.rand((rows, cols), generator=gen, device=dev).mul_(2).sub_(1)
     x = torch.rand((rows,), generator=gen, device=dev).mul_(2).sub_(1)
-    errs.append(_gemv_case(kg, f"tall ({rows}, {cols}) x @ A", x, a,
-                           "vecmat", GEMV_TALL_WINDOWS, card)["max_abs_err"])
+    cases.append(_gemv_case(kg, f"tall ({rows}, {cols}) x @ A", x, a,
+                            "vecmat", GEMV_TALL_WINDOWS, card))
     at = a.t().contiguous()
     del a
-    errs.append(_gemv_case(kg, f"tall ({cols}, {rows}) A @ x", x, at,
-                           "matvec", GEMV_TALL_WINDOWS, card)["max_abs_err"])
+    cases.append(_gemv_case(kg, f"tall ({cols}, {rows}) A @ x", x, at,
+                            "matvec", GEMV_TALL_WINDOWS, card))
     del at, x
     torch.cuda.empty_cache()
     _say(f"[gemv] phase {time.perf_counter() - t0:.1f} s on {card}")
-    return dict(out, max_abs_err=max(errs))
+    return dict(out, max_abs_err=max(c["max_abs_err"] for c in cases),
+                cases=cases)
+
+
+def phase_gemv_split(card: str, cases: list) -> None:
+    """[gemv]'s device split of each case of ``phase_gemv`` (``cases``,
+    its returned list), printed beside the case's kernel,
+    ``torch.matmul`` and bound ms by :func:`gemv_split_child`. The trace
+    runs in a process of its own: a torch.profiler trace in this one
+    would be its first, and the phases timed by the host clock before
+    ``[sort]`` (PageRank's launch-bound steps among them) ran without
+    one when their limits in ``utils/thresholds.json`` were taken."""
+    keep = ("label", "orient", "shape", "ms", "library_ms", "bound_ms")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gemv_")
+    try:
+        job = os.path.join(workdir, "cases.json")
+        with open(job, "w") as f:
+            json.dump({"card": card,
+                       "cases": [{k: c[k] for k in keep} for c in cases]}, f)
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--gemv-split-child",
+             job], capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            _fail(f"[gemv] the split child exited {res.returncode}: "
+                  f"{(res.stdout + res.stderr)[-2000:]}")
+        for line in res.stdout.splitlines():
+            _say(line)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def gemv_split_child(job: str) -> None:
+    """The child of :func:`phase_gemv_split`: each case of ``job`` (a
+    JSON file) on fresh operands of its shape and layout, its device
+    split printed beside its kernel, ``torch.matmul`` and bound ms."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from spartan_tpu_torch.kernels import gemv as kg
+
+    with open(job) as f:
+        spec = json.load(f)
+    card, dev = spec["card"], torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    for case in spec["cases"]:
+        mat = torch.rand(case["shape"], generator=gen, device=dev)
+        vec = torch.rand((mat.shape[0 if case["orient"] == "vecmat" else 1],),
+                         generator=gen, device=dev)
+        pair = (vec, mat) if case["orient"] == "vecmat" else (mat, vec)
+        split = _gemv_split(kg, pair, case["ms"])
+        _say(f"[gemv] {case['label']}: device split {split}; beside kernel "
+             f"{case['ms']:.4f} ms, torch.matmul {case['library_ms']:.4f} "
+             f"ms, bound {case['bound_ms']:.4f} ms on {card}")
+        del mat, vec, pair
 
 
 # -- stencil: the VGG-16 block-1 forward --------------------------------------
@@ -7387,6 +7492,71 @@ def _serve_kernels(st, kk, kx, kh, kt, kst, card: str, dev) -> dict:
     return out
 
 
+def _serve_ravel(st, card: str, dev) -> None:
+    """[serve]'s ravel case: 64 requests of ``st.ravel`` of a
+    SERVE_RAVEL_SIDE^2 array from 16 clients through one engine with
+    batches of at most 16, on a logical (8, 1) mesh. Fails unless the
+    plan stays in ``vmap`` with no demotion or solo fallback, every
+    served result is bit-equal to its serial ``evaluate()`` and request
+    0 is its array's ``reshape(-1)``."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.obs import flight
+    from spartan_tpu_torch.serve import coalesce
+
+    label = f"ravel of {SERVE_RAVEL_SIDE}^2 f32"
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    with st.use_mesh(st.build_mesh(SORT_MESH)):
+        xs = [torch.rand((SERVE_RAVEL_SIDE, SERVE_RAVEL_SIDE), generator=gen,
+                         device=dev) for _ in range(n)]
+
+        def build(x):
+            return st.ravel(from_tensor(x))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = [build(x).glom() for x in xs]
+        serial_s = time.perf_counter() - t0
+        if not np.array_equal(serial[0], xs[0].reshape(-1).cpu().numpy()):
+            _fail(f"[serve] {label}: request 0 differs from reshape(-1)")
+        dem0 = _counter(st, "serve_mode_demotions")
+        fb0 = _counter(st, "serve_solo_fallbacks")
+        flight.clear()
+        builds = [[(lambda x=xs[c * SERVE_PER_CLIENT + i]: build(x))
+                   for i in range(SERVE_PER_CLIENT)]
+                  for c in range(SERVE_CLIENTS)]
+        with st.ServeEngine(max_batch=SERVE_KERNEL_BATCH) as eng:
+            t0 = time.perf_counter()
+            got, futs = _serve_clients(st, eng, builds, label)
+            served_s = time.perf_counter() - t0
+        plan = base.lookup_plan(base.plan_signature(build(xs[0]))[0])
+        mode = coalesce.mode_for(plan)
+        sv = plan.report.get("serve") or {}
+        got = [v for row in got for v in row]
+        equal = sum(np.array_equal(a, b) for a, b in zip(serial, got))
+        batches = _serve_flight(st, futs, label, card)
+        dem = _counter(st, "serve_mode_demotions") - dem0
+        fb = _counter(st, "serve_solo_fallbacks") - fb0
+        del xs
+    _say(f"[serve] {label}: {n} requests from {SERVE_CLIENTS} clients: "
+         f"{equal}/{n} bit-equal to serial evaluate() (limit: all); mode "
+         f"{mode} (report {sv.get('mode')}); batch sizes "
+         f"{sorted(set(batches))}; demotions {dem}, solo fallbacks {fb} "
+         f"(limit 0); served {n / served_s:.1f} requests/s, serial "
+         f"{n / serial_s:.1f} (host clock, fetch included) on {card}")
+    if equal != n:
+        _fail(f"[serve] {label}: served results differ from the serial "
+              "ones")
+    if mode != "vmap" or sv.get("mode") != "vmap":
+        _fail(f"[serve] {label}: the plan left vmap mode: {mode}, {sv}")
+    if dem or fb:
+        _fail(f"[serve] {label}: {dem} demotion(s), {fb} solo fallback(s)")
+    if not any(b > 1 for b in batches):
+        _fail(f"[serve] {label}: no request was coalesced")
+
+
 def phase_serve(st, kk, km, card: str, dev, kmr: dict, workdir: str) -> dict:
     """[serve]: the serving front end on the card (module docstring)."""
     from spartan_tpu_torch.kernels import exchange as kx
@@ -7397,6 +7567,7 @@ def phase_serve(st, kk, km, card: str, dev, kmr: dict, workdir: str) -> dict:
     t0 = time.perf_counter()
     out = _serve_kmeans(st, kk, km, card, dev, kmr)
     out["kernels"] = _serve_kernels(st, kk, kx, kh, kt, kst, card, dev)
+    _serve_ravel(st, card, dev)
     _serve_dot(st, card, dev)
     _serve_admission(st, km, card, dev, kmr)
     _serve_drain(st, card, dev)
@@ -8452,6 +8623,9 @@ def main() -> None:
     if len(sys.argv) == 4 and sys.argv[1] == "--group-guard-child":
         group_guard_child(sys.argv[2], int(sys.argv[3]))
         return
+    if len(sys.argv) == 3 and sys.argv[1] == "--gemv-split-child":
+        gemv_split_child(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script drives "
               "the port on the card")
@@ -8484,6 +8658,7 @@ def main() -> None:
     hist_err = phase_bincount_kernel(kh, dev)
     stencil_err = phase_stencil_kernel(kst, dev)
     gemv = phase_gemv(kg, card, dev)
+    phase_gemv_split(card, gemv["cases"])
     t0 = time.perf_counter()
     links = pagerank_links(st.SparseDistArray)
     links.transition()._ensure_plan()

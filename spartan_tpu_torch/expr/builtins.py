@@ -527,9 +527,11 @@ def _bincount_expr_path(v: torch.Tensor, length: int) -> torch.Tensor:
     dropped slot keeps the shape static). int32."""
     ids = v.reshape(-1).to(torch.int64).clamp_min(0)
     ids = torch.where(ids < length, ids, length)
-    out = torch.zeros((length + 1,), dtype=torch.int32, device=v.device)
-    out.scatter_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
-    return out[:length]
+    # out of place, into zeros made from the ids: a batched walk under
+    # ``torch.func.vmap`` gives each client its own counts
+    out = ids.new_zeros((length + 1,), dtype=torch.int32)
+    return out.scatter_add(0, ids, torch.ones_like(ids, dtype=torch.int32)
+                           )[:length]
 
 
 class BincountExpr(Expr):
@@ -1202,11 +1204,11 @@ def unique_counts(x, size: int) -> Expr:
 def _scatter_unique(v, r, f, size, fill):
     """Slot ``r`` of the output takes ``v`` where ``f`` marks a new
     value; ranks past ``size`` drop (a dropped slot keeps the shape
-    static)."""
+    static). Out of place, so a batched walk under ``torch.func.vmap``
+    scatters each client's values into its own output."""
     slot = torch.where((f == 1) & (r < size), r.to(torch.int64), size)
     out = torch.full((size + 1,), fill, dtype=v.dtype, device=v.device)
-    out.scatter_(0, slot, v)
-    return out[:size]
+    return out.scatter(0, slot, v)[:size]
 
 
 def _new_value_flags(v: torch.Tensor) -> torch.Tensor:

@@ -373,8 +373,9 @@ class MapWithLocationExpr(Expr):
             sl = ext.to_slice()
             blk = self.fn(x[sl], ext.ul, **kw)
             if out is None:
-                out = torch.empty(self.shape, dtype=blk.dtype,
-                                  device=blk.device)
+                # made from the block, so a batched block under
+                # ``torch.func.vmap`` gives a batched result
+                out = blk.new_empty(self.shape)
             out[sl] = blk
         return out
 

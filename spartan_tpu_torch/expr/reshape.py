@@ -88,9 +88,14 @@ class ReshapeExpr(Expr):
 
     def _lower(self, env: Dict[int, Any]) -> Any:
         v = self.input.lower(env)
-        out = v.reshape(self._shape)
-        # reshape returns a view where it can: keep results independent
-        return out.clone() if out.data_ptr() == v.data_ptr() else out
+        # reshape returns a view where the strides allow one: keep results
+        # independent by cloning a view, and let reshape copy otherwise.
+        # Asking ``view`` decides this from the strides alone, which a
+        # batched tensor under ``torch.func.vmap`` has (not a data pointer)
+        try:
+            return v.view(self._shape).clone()
+        except RuntimeError:
+            return v.reshape(self._shape)
 
     def _extent_of(self, t: Tiling, mesh):
         """Each position's block of the input (tiled ``t``) as a region

@@ -158,8 +158,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             return torch.zeros((m,), dtype=mat.dtype, device=dev)
         out = torch.empty((m,), dtype=mat.dtype, device=dev)
         s = -(-k // KS)
-        part = (torch.empty((s, m), dtype=mat.dtype, device=dev)
-                if s > 1 else None)
+        # the slices' sums, tiled by 32 columns (csrc/gemv.cu)
+        part = (torch.empty((-(-m // 32), s, 32), dtype=mat.dtype,
+                            device=dev) if s > 1 else None)
         pp = part.data_ptr() if part is not None else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kind == "vecmat":

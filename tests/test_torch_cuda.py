@@ -2041,11 +2041,18 @@ def _gemv_operands(card, orient, k, m, seed):
     return (vec, mat) if orient == "vecmat" else (mat, vec)
 
 
+# each path of the kernel: M from one column to just past a warp, and K
+# of S = 1, 2, 64 and 16,384 slices (no fold, and folds of one to 128
+# stages)
+_GEMV_PATHS = [(k, m) for m in (1, 3, 4, 32, 33)
+               for k in (256, 300, 16_384, 2 ** 22)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("orient", ["vecmat", "matvec"])
 @pytest.mark.parametrize("k,m", [(1, 1), (100, 301), (256, 4096),
                                  (257, 33), (845, 1000), (16384, 4096),
-                                 (70_000, 32), (32, 100_000)])
+                                 (70_000, 32), (32, 100_000)] + _GEMV_PATHS)
 def test_gemv_matches_plain_bit_for_bit(card, orient, k, m):
     from spartan_tpu_torch.kernels import gemv as kg
 
@@ -2056,6 +2063,34 @@ def test_gemv_matches_plain_bit_for_bit(card, orient, k, m):
     assert kg.LAUNCHES["fixed_order_dot"] == before + 1
     assert torch.equal(got, kg.fixed_order_dot_plain(a, b))
     assert torch.equal(got, kg.fixed_order_dot(a, b))  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient", ["vecmat", "matvec"])
+@pytest.mark.parametrize("k,m", [(300, 32), (16_384, 33), (2 ** 20, 32),
+                                 (16_384, 4096)])
+def test_gemv_unaligned_window_matches_plain(card, orient, k, m):
+    """A window whose rows are not 16-byte aligned (a view one row and one
+    column into a matrix with an odd row stride) takes the 4-byte loads
+    and copies, in the same order: bit-equal to the plain version and to
+    the product of its contiguous copy."""
+    from spartan_tpu_torch.kernels import gemv as kg
+
+    ops = _gemv_operands(card, orient, k + 1, m + 1, seed=k + 3 * m)
+    vec, mat = ops if orient == "vecmat" else ops[::-1]
+    view = mat[1:, 1:]
+    vec = vec[1:]
+    pair = (vec, view) if orient == "vecmat" else (view, vec)
+    kind, *_, lda = kg.layout(*pair)
+    assert kind == orient and lda % 4 != 0
+    before = kg.LAUNCHES["fixed_order_dot"]
+    got = kg.fixed_order_dot(*pair)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["fixed_order_dot"] == before + 1
+    assert torch.equal(got, kg.fixed_order_dot_plain(*pair))
+    dense = (vec, view.contiguous()) if orient == "vecmat" \
+        else (view.contiguous(), vec)
+    assert torch.equal(got, kg.fixed_order_dot(*dense))
 
 
 @pytest.mark.cuda

@@ -127,6 +127,39 @@ def test_windows_hypothesis(k, m, lo, w, seed):
                                   gemv.fixed_order_dot(a.t()[lo:hi], x))
 
 
+def _documented_order(x, a):
+    """``x @ a`` in the order the module states, as a float32 numpy loop:
+    each slice of ``KS`` rows folded from 0.0 in ascending k (each product
+    and each sum rounded to float32 on its own), then the slices' sums
+    folded from 0.0 in ascending order."""
+    k, m = a.shape
+    out = np.zeros(m, np.float32)
+    for k0 in range(0, k, 256):
+        part = np.zeros(m, np.float32)
+        for j in range(k0, min(k, k0 + 256)):
+            part = part + x[j] * a[j]
+        out = out + part
+    return out
+
+
+@pytest.mark.parametrize("orient", ["vecmat", "matvec"])
+@pytest.mark.parametrize("m", [1, 4, 33])
+@pytest.mark.parametrize("k", [1, 255, 256, 257, 3 * 256 + 17, 70_000])
+def test_plain_order_is_the_documented_loop(k, m, orient):
+    """The plain version (the kernel's bits on the card) against an
+    independent float32 loop of the documented order, bit for bit, on
+    either side of a slice boundary and across many slices."""
+    assert gemv.KS == 256
+    x, a = _rand((k,), k + m), _rand((k, m), k * m + 1)
+    want = _documented_order(x, a)
+    assert want.dtype == np.float32
+    if orient == "vecmat":
+        got = gemv.fixed_order_dot_plain(_t(x), _t(a))
+    else:
+        got = gemv.fixed_order_dot_plain(_t(a.T), _t(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("k,m", [(845, 301), (4096, 64), (7, 1000)])
 def test_values_match_float64_and_jax(k, m):
     x, a = _rand((k,), k), _rand((k, m), m)

@@ -30,6 +30,8 @@ value.
 
 import threading
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,7 @@ import torch
 import spartan_tpu as st_j
 from spartan_tpu.array import tiling as tiling_j
 from spartan_tpu.expr import base as base_j
+from spartan_tpu.parallel import mesh as mesh_j
 from spartan_tpu.serve import coalesce as coalesce_j
 from spartan_tpu.utils.config import FLAGS as FLAGS_J
 
@@ -216,6 +219,138 @@ def test_served_plan_stays_in_vmap_and_matches_jax(case, monkeypatch):
                 np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL)
             else:
                 np.testing.assert_array_equal(u, v.astype(u.dtype))
+
+
+# -- the expr paths: plans whose lowerings build their outputs out of place
+
+
+def _ints(seed, lo, hi):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(lo, hi, 4096).astype(np.int32) for _ in range(N_REQ)]
+
+
+def _grid(seed):
+    rng = np.random.RandomState(seed)
+    return [rng.rand(64, 48).astype(np.float32) for _ in range(N_REQ)]
+
+
+# Each reads its block's shape and upper-left corner: exact integers, so
+# the packages agree bit for bit.
+
+
+def _location_j(b, ul):
+    r = jnp.arange(b.shape[0], dtype=jnp.int32)[:, None] + ul[0]
+    c = jnp.arange(b.shape[1], dtype=jnp.int32)[None, :] + ul[1]
+    return ((b > 0.5).astype(jnp.int32) + r * 100 + c
+            + b.shape[0] * 1000 + b.shape[1] * 10000)
+
+
+def _location_t(b, ul):
+    r = torch.arange(b.shape[0], dtype=torch.int32,
+                     device=b.device)[:, None] + ul[0]
+    c = torch.arange(b.shape[1], dtype=torch.int32,
+                     device=b.device)[None, :] + ul[1]
+    return ((b > 0.5).to(torch.int32) + r * 100 + c
+            + b.shape[0] * 1000 + b.shape[1] * 10000)
+
+
+def _both(fn):
+    """One build for both packages: ``fn(st, x)`` on ``st.from_numpy``."""
+    return (lambda x: fn(st_t, st_t.from_numpy(x)),
+            lambda x: fn(st_j, st_j.from_numpy(x)))
+
+
+# name -> (port build, JAX build, inputs): each under native_kernels=off,
+# where the reshape reads no data pointer, the located blocks join with a
+# concatenation, and the unique scatter and the counts' scatter-add are
+# out of place
+EXPR_CASES = {
+    "reshape": (*_both(lambda st, x: st.reshape(x, (48, 64))),
+                lambda: _grid(60)),
+    "ravel": (*_both(lambda st, x: st.ravel(x)), lambda: _grid(61)),
+    "map_with_location": (
+        lambda x: st_t.map_with_location(st_t.from_numpy(x), _location_t),
+        lambda x: st_j.map_with_location(st_j.from_numpy(x), _location_j),
+        lambda: _grid(62)),
+    "unique": (*_both(lambda st, x: st.tuple_of(
+        *st.unique(x, 16, fill_value=-1.0, return_counts=True))),
+        lambda: [v.astype(np.float32) for v in _ints(63, 0, 24)]),
+    "bincount": (*_both(lambda st, x: st.bincount(x, length=16)),
+                 lambda: _ints(64, -2, 20)),
+    "histogram_range": (*_both(lambda st, x: st.tuple_of(
+        *st.histogram(x, 8, range=(0.125, 0.875)))), lambda: _keys(65)),
+    "histogram": (*_both(lambda st, x: st.tuple_of(*st.histogram(x, 8))),
+                  lambda: _keys(66)),
+}
+
+
+_EXPR_RUNS = ([(c, (8, 1)) for c in EXPR_CASES]
+              + [(c, (4, 2)) for c in ("reshape", "ravel",
+                                       "map_with_location")])
+
+
+@pytest.mark.parametrize("case,shape", _EXPR_RUNS,
+                         ids=[f"{c}-{a}x{b}" for c, (a, b) in _EXPR_RUNS])
+def test_served_expr_path_stays_in_vmap_and_matches_jax(case, shape):
+    """The port coalesces the 8 requests as one batch in ``vmap`` mode with
+    no demotion and no solo fallback; each served result is bit-equal to
+    its serial ``evaluate()`` and to the JAX package's served result, whose
+    plan is in ``vmap`` too."""
+    build_t, build_j, inputs = EXPR_CASES[case]
+    xs = inputs()
+    FLAGS.native_kernels = "off"
+    FLAGS_J.native_kernels = "off"
+    with mesh_t.use_mesh(mesh_t.build_mesh(shape)), \
+            mesh_j.use_mesh(mesh_j.build_mesh(jax.devices(), shape=shape)):
+        serial = [_arrays(build_t(x).glom()) for x in xs]
+        dem = _demotions()
+        got, futs = _serve_all(st_t, [build_t(x) for x in xs])
+        assert [f.coalesced for f in futs] == [N_REQ] * N_REQ
+        plan = base.lookup_plan(base.plan_signature(build_t(xs[0]))[0])
+        assert coalesce.mode_for(plan) == "vmap"
+        assert plan.report["serve"]["mode"] == "vmap"
+        assert _demotions() == dem
+        rec = st_t.flightrec()
+        assert not any("fallback" in rec["requests"][f.rid]["events"]
+                       for f in futs)
+        got = [_arrays(g) for g in got]
+        for a, b in zip(serial, got):
+            assert len(a) == len(b)
+            for u, v in zip(a, b):
+                assert u.dtype == v.dtype
+                np.testing.assert_array_equal(u, v)
+
+        build_j(xs[0]).glom()
+        got_j, futs_j = _serve_all(st_j, [build_j(x) for x in xs])
+        plan_j = base_j.lookup_plan(base_j.plan_signature(build_j(xs[0]))[0])
+        assert coalesce_j.mode_for(plan_j) == "vmap"
+        assert [f.coalesced for f in futs_j] == [N_REQ] * N_REQ
+    for a, b in zip(got, [_arrays(g) for g in got_j]):
+        for j, (u, v) in enumerate(zip(a, b)):
+            assert u.shape == v.shape and u.dtype == v.dtype
+            if case == "histogram" and j == 1:
+                # edges from the data's range: XLA may rewrite
+                # jnp.linspace's arithmetic, so they agree to a few ulps
+                # (tests/test_torch_sort.py's autorange tolerance)
+                np.testing.assert_allclose(u, v, rtol=0, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+def test_reshape_result_owns_its_storage(layout):
+    """A solo reshape never hands back a view of its operand: where the
+    strides allow a view it is cloned, and where they do not the reshape
+    has copied. Either way the values are the operand's, in row-major
+    order."""
+    a = np.random.RandomState(67).rand(16, 12).astype(np.float32)
+    x = st_t.from_numpy(a if layout == "contiguous" else a.T.copy())
+    src = x if layout == "contiguous" else st_t.transpose(x)
+    operand = src.evaluate()
+    out = st_t.reshape(operand, (12, 16)).evaluate()
+    assert (out.tensor.untyped_storage().data_ptr()
+            != operand.tensor.untyped_storage().data_ptr())
+    np.testing.assert_array_equal(out.glom(), a.reshape(12, 16))
 
 
 # -- each operator under torch.func.vmap -----------------------------------
