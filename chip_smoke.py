@@ -155,6 +155,13 @@ Phases, in order; any failure exits nonzero before the result line:
     rank's rows (one ``segment_sum_block`` launch and one all-reduce of
     163,920 bytes a rank) beside one walk with its rule off, a per-row
     masked sort of 8 x 2^23 and a group save and load of the links;
+    the user functions GSPMD keeps split, each beside its rule-off arm:
+    the trace, a flip and a whole-shape map constant of 8192^2,
+    centering config 4's X, ALS's half-step and 5 iterations of ``als``
+    at MovieLens-1M's shape (within 1e-4 of float64 on the card, its
+    bytes received exactly the transposed ratings' one relayout and the
+    gloms) and the masked median of 8 x 2^23 along each axis, each
+    with the bytes it received;
     ``retile`` of a 4096^2 array between every pair of {row, col,
     block, replicated}, bit-equal, with the bytes each rank received;
     ``calibrate_flop_weight`` over the group. No path gathers an array
@@ -379,6 +386,11 @@ LOCAL_MEM_TOL = 0.05
 # (config 4) and its iterations, the seed of its X, the fuzzy k-means
 # fuzziness; the rule-off arms walk one iteration of the loop
 PART_SEED, PART_FZ_M = 90, 2.0
+# [local]'s user functions GSPMD keeps split: ALS at MovieLens-1M's shape
+# (6,040 users x 3,706 items, 1,000,209 ratings), synthetic by
+# _movielens's recipe, k = EX_ML_K, its iterations and regularisation
+LOCAL_ML_USERS, LOCAL_ML_ITEMS, LOCAL_ML_RATINGS = 6040, 3706, 1_000_209
+LOCAL_ALS_ITERS, LOCAL_ALS_REG = 5, 0.1
 # [local]'s fills: the draws' seed, the sample of the points' rows and
 # the rows of the 8192^2 array a 4096-row source is written into
 FILL_SEED, FILL_SAMPLE, FILL_ROWS = 70, 65_536, (2048, 6144)
@@ -2605,12 +2617,13 @@ def _examples_solvers(st, card: str, dev) -> None:
                       f"mesh ({wall:.3f} s wall)", q, r, a64, r64)
 
 
-def _movielens():
-    """MovieLens-100K's shape, synthetic: 100,000 distinct (user, item)
-    pairs, integer ratings 1-5 from a rank-5 model plus noise."""
+def _movielens(nu: int = EX_ML_USERS, ni: int = EX_ML_ITEMS,
+               n_ratings: int = EX_ML_RATINGS):
+    """A MovieLens shape (100K's by default), synthetic: ``n_ratings``
+    distinct (user, item) pairs, integer ratings 1-5 from a rank-5
+    model plus noise."""
     rng = np.random.RandomState(49)
-    nu, ni = EX_ML_USERS, EX_ML_ITEMS
-    flat = rng.choice(nu * ni, EX_ML_RATINGS, replace=False)
+    flat = rng.choice(nu * ni, n_ratings, replace=False)
     rows, cols = flat // ni, flat % ni
     score = (rng.randn(nu, 5) @ rng.randn(5, ni)) / np.sqrt(5.0)
     vals = np.clip(np.rint(3.0 + score[rows, cols]
@@ -2620,21 +2633,25 @@ def _movielens():
     return rows, cols, vals.astype(np.float32), dense
 
 
-def _als_f64(r, k: int, iters: int, reg: float, seed: int):
-    """als' steps in float64 numpy (batched normal equations)."""
-    v = (np.random.RandomState(seed).rand(r.shape[1], k).astype(np.float32)
-         * 0.1).astype(np.float64)
-    r = r.astype(np.float64)
+def _als_f64(r, k: int, iters: int, reg: float, seed: int, dev=None):
+    """als' steps in float64 (batched normal equations), on ``dev`` (the
+    host by default); numpy factors back."""
+    dev = torch.device("cpu") if dev is None else dev
+    v = torch.from_numpy((np.random.RandomState(seed).rand(
+        r.shape[1], k).astype(np.float32) * 0.1).astype(np.float64)).to(dev)
+    r = torch.as_tensor(r).to(device=dev, dtype=torch.float64)
+    eye = torch.eye(k, dtype=torch.float64, device=dev)
 
     def side(rr, other):
-        w = (rr != 0).astype(np.float64)
-        a = np.einsum("mn,nk,nl->mkl", w, other, other) + reg * np.eye(k)
-        return np.linalg.solve(a, ((w * rr) @ other)[:, :, None])[:, :, 0]
+        w = (rr != 0).to(torch.float64)
+        a = torch.einsum("mn,nk,nl->mkl", w, other, other) + reg * eye
+        b = ((w * rr) @ other)[:, :, None]
+        return torch.linalg.solve(a, b)[:, :, 0]
 
     for _ in range(iters):
         u = side(r, v)
         v = side(r.T, u)
-    return u, v
+    return u.cpu().numpy(), v.cpu().numpy()
 
 
 def _netflix_f64(r, k: int, iters: int, lr: float, reg: float, seed: int):
@@ -5025,11 +5042,13 @@ def _local_partition(st, path, dev, case, rand, workdir: str) -> dict:
     through ``st.loop``), linear and SVM gradients and the logistic
     predict on the same X, a fuzzy k-means step and ``kmeans_step``'s
     map2 form (``native_kernels=off``) on config 3's points, and a user
-    elementwise map over 8192^2; each a ``case`` (0 gathered, its peak
-    against ``peak_bytes_card``, its block against the one-process
-    run), beside the path with its rule switched off (the counted
-    gather) and the decisions it counted. Returns the figures that are
-    no ``case``."""
+    elementwise map over 8192^2, the functions GSPMD keeps split (the
+    trace, a flip and a whole-shape constant of 8192^2, centering the
+    same X; ALS and the masked medians: ``_local_partition_gspmd``);
+    each a ``case`` (0 gathered, its peak against ``peak_bytes_card``,
+    its block against the one-process run), beside the path with its
+    rule switched off (the counted gather) and the decisions it
+    counted. Returns the figures that are no ``case``."""
     from spartan_tpu_torch.expr import builtins as bi
     from spartan_tpu_torch.expr.map import MapExpr
     from spartan_tpu_torch.expr.map2 import Map2Expr
@@ -5112,6 +5131,12 @@ def _local_partition(st, path, dev, case, rand, workdir: str) -> dict:
     decided("predict_logistic", lambda: case(
         "predict_logistic", predict, [(x, rows), (w0, rep1)]))
     off("predict_logistic", Map2Expr, predict, [(x, rows), (w0, rep1)])
+    # centering config 4's X: its mean over the rows is the blocks' sums
+    # all-reduced, then divided
+    center = (lambda xe: st.map2([xe], lambda t: t - t.mean(0)))
+    decided("mean_center", lambda: case("mean_center", center, [(x, rows)],
+                                        tol=1e-6))
+    off("mean_center", Map2Expr, center, [(x, rows)])
     del x, y01, y_lin, ypm, w_true
     torch.cuda.empty_cache()
     # config 3's points: a fuzzy step and the map2 form of k-means
@@ -5163,9 +5188,111 @@ def _local_partition(st, path, dev, case, rand, workdir: str) -> dict:
     decided("map_where", lambda: case("map_where", umap,
                                       [(a, rows), (b, rows)]))
     off("map_where", MapExpr, umap, [(a, rows), (b, rows)])
-    del a, b
+    del b
+    # the trace (the diagonal's elements in each rank's rows, one
+    # all-reduce), a flip (the mirrored rows moved), a whole-shape
+    # constant in a map (each block divided by the whole row count)
+    for name, cls, make, tol in (
+            ("trace", Map2Expr, lambda xe: st.trace(xe), 1e-6),
+            ("flip", Map2Expr, lambda xe: st.map2([xe],
+                                                  lambda t: t.flip(0)), None),
+            ("map_shape", MapExpr,
+             lambda xe: st.map(lambda t: t / t.shape[0], xe), None)):
+        decided(name, lambda: case(name, make, [(a, rows)], tol=tol))
+        off(name, cls, make, [(a, rows)])
+    del a
     torch.cuda.empty_cache()
+    res.update(_local_partition_gspmd(st, path, dev, case, decided, off))
     return res
+
+
+def _local_partition_gspmd(st, path, dev, case, decided, off) -> dict:
+    """[local]'s ALS and masked medians on this rank (the functions GSPMD
+    keeps split that the first proof gathered): ALS's half-step at
+    MovieLens-1M's shape as a ``case`` beside its rule-off arm, then
+    ``als`` itself (LOCAL_ALS_ITERS iterations) against float64 and
+    the one-process run, with the bytes it received; the masked median
+    of [masked]'s sensor matrix along each axis, bit for bit against
+    the one-process run."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.array.masked import MaskedDistArray
+    from spartan_tpu_torch.examples import als
+    from spartan_tpu_torch.expr.map import MapExpr
+    from spartan_tpu_torch.expr.map2 import Map2Expr
+    from spartan_tpu_torch.obs.metrics import partition_decisions
+
+    out = {}
+    mesh = st.get_mesh()
+    grid = (mesh.shape["x"], mesh.shape["y"])
+    rows, crep = st.Tiling(("x", None)), st.Tiling((None, None))
+    k, iters, reg = EX_ML_K, LOCAL_ALS_ITERS, LOCAL_ALS_REG
+    dense_np = _movielens(LOCAL_ML_USERS, LOCAL_ML_ITEMS,
+                          LOCAL_ML_RATINGS)[3]
+    dense = torch.from_numpy(dense_np).to(dev)
+    v0 = torch.from_numpy((np.random.RandomState(0).rand(
+        LOCAL_ML_ITEMS, k).astype(np.float32) * 0.1)).to(dev)
+    half = (lambda re, ve: st.map2([re, ve], als._solve_side,
+                                   fn_kw={"reg": reg}, out_tiling=rows))
+    # a GEMM of a row block need not sum as the whole's rows do on the
+    # card (cuBLAS picks its kernel by the row count): within 1e-5
+    decided("als_half", lambda: case("als_half", half,
+                                     [(dense, rows), (v0, crep)], tol=1e-5))
+    off("als_half", Map2Expr, half, [(dense, rows), (v0, crep)])
+    del v0
+
+    def run_als():
+        r = from_tensor(dense, tiling=rows)
+        t0 = time.perf_counter()
+        got = als.als(r, k=k, num_iter=iters, reg=reg)
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    before = partition_decisions()
+    (u, v), ms = path("als", run_als)
+    out["als_decisions"] = {"/".join(key): val - before.get(key, 0)
+                            for key, val in partition_decisions().items()
+                            if val != before.get(key, 0)}
+    with st.use_mesh(st.build_mesh(grid, dev)):
+        u1, v1 = als.als(from_tensor(dense), k=k, num_iter=iters, reg=reg)
+    out["als"] = {"ms": ms, "u_one": _rel(u, u1), "v_one": _rel(v, v1),
+                  "u": np.asarray(u).tolist()[:4]}
+    if mesh.rank == 0:
+        u64, v64 = _als_f64(dense, k, iters, reg, 0, dev)
+        out["als"].update(u_f64=_rel(u, u64), v_f64=_rel(v, v64))
+        del u64, v64
+    del dense, u1, v1
+    torch.cuda.empty_cache()
+
+    # the masked median of [masked]'s sensor matrix along each axis: the
+    # rows split over the ranks; along the split axis the operands move
+    # so that it is whole (an all-to-all of half of each block)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MASK_SEED)
+    shape = (MASK_ROWS, MASK_COLS)
+    md = torch.rand(shape, generator=gen, device=dev)
+    md[torch.rand(shape, generator=gen, device=dev) < MASK_NAN] = np.nan
+    mm = torch.rand(shape, generator=gen, device=dev) < MASK_WHERE
+    for ax in (1, 0):
+        name = f"median_ax{ax}"
+
+        def med(de, me, ax=ax):
+            return st.median(MaskedDistArray(de, me), axis=ax)
+
+        with st.use_mesh(st.build_mesh(grid, dev)):
+            one = med(st.as_expr(from_tensor(md)),
+                      st.as_expr(from_tensor(mm))).evaluate().local
+
+        def bits(blk, ext, one=one):
+            return 0.0 if _bits_equal(blk, one[ext.to_slice()]) \
+                else float("inf")
+
+        decided(name, lambda: case(name, med, [(md, rows), (mm, rows)],
+                                   compare=bits))
+        off(name, MapExpr, med, [(md, rows), (mm, rows)])
+        del one
+    del md, mm
+    torch.cuda.empty_cache()
+    return out
 
 
 def _local_partition_report(res, card: str) -> None:
@@ -5213,6 +5340,7 @@ def _local_partition_report(res, card: str) -> None:
              f"the group against the one-process run "
              f"{f['fuzzy_one_group']:.3g} (d2 = |p|^2 - 2 p.c + |c|^2 "
              f"cancels on clustered points) on {card}")
+    _local_gspmd_report(res, card)
     err = res[0]["rules"]["part"]["logreg_f64_err"]
     _say(f"[local] config-4 logreg on the group ({EX_LR_N}x{EX_LR_D}, "
          f"{EX_LR_ITERS} iterations through st.loop): weights vs the same "
@@ -5223,6 +5351,70 @@ def _local_partition_report(res, card: str) -> None:
               f"by {err}")
     if len({str(rr["rules"]["part"]["logreg_w"]) for rr in res}) != 1:
         _fail("[local] the ranks' logreg weights differ")
+
+
+def _als_recv_bytes(rank: int) -> int:
+    """The bytes a rank of the group receives in ``als``: the transposed
+    ratings laid out by their own rows once (its block's other half),
+    then each iteration's glom of u and of v (the other ranks' rows)."""
+    def own(n: int) -> int:
+        return np.array_split(np.arange(n), GROUP_RANKS)[rank].size
+
+    m, n, k = LOCAL_ML_USERS, LOCAL_ML_ITEMS, EX_ML_K
+    retile = own(n) * (m - own(m)) * 4
+    return retile + LOCAL_ALS_ITERS * ((m - own(m)) + (n - own(n))) * k * 4
+
+
+def _local_gspmd_report(res, card: str) -> None:
+    """[local]'s functions GSPMD keeps split: the bytes each case
+    received against what the rule moves (nothing but a few bytes of
+    all-reduce, a flip's mirrored block, half of the median's operands
+    along the split axis), ALS against float64 and the one-process
+    run."""
+    blk = STRUCT_N // GROUP_RANKS * STRUCT_N * 4
+    half = (MASK_ROWS // GROUP_RANKS) * (MASK_COLS // GROUP_RANKS) * 5
+    want = {"trace": (0, 1024), "mean_center": (0, 1024),
+            "map_shape": (0, 0), "als_half": (0, 0), "median_ax1": (0, 0),
+            "flip": (blk, blk + 1024), "median_ax0": (half, half + 1024)}
+    for r, rr in enumerate(res):
+        for name, (lo, hi) in want.items():
+            got = rr[f"r_{name}_recv"]
+            _say(f"[local] rank {r}: {name}: received {got} bytes (want "
+                 f"{lo}..{hi}) on {card}")
+            if not lo <= got <= hi:
+                _fail(f"[local] rank {r}: {name} received {got} bytes, "
+                      f"want {lo}..{hi}")
+        a = rr["rules"]["part"]["als"]
+        recv, want_als = rr["als_recv"], _als_recv_bytes(r)
+        f64 = (f"u {a['u_f64']:.3g}, v {a['v_f64']:.3g}" if "u_f64" in a
+               else "computed on rank 0")
+        _say(f"[local] rank {r}: als {LOCAL_ML_USERS} x {LOCAL_ML_ITEMS}, "
+             f"{LOCAL_ML_RATINGS} ratings, k = {EX_ML_K}, {LOCAL_ALS_ITERS} "
+             f"iterations on the group: {a['ms']:.1f} ms, gathered whole "
+             f"{rr['als_mat']}, "
+             f"received {recv} bytes (the transposed ratings' one relayout "
+             f"and the gloms: {want_als}), decisions "
+             f"{rr['rules']['part']['als_decisions']}; normwise rel err "
+             f"against float64 on the card: {f64} (rtol 1e-4); against the "
+             f"one-process run: u {a['u_one']:.3g}, v {a['v_one']:.3g} "
+             f"(rtol 1e-4: a row block's GEMM sums in the order cuBLAS "
+             f"picks for its row count) on {card}")
+        if rr["als_mat"] != 0 or recv != want_als:
+            _fail(f"[local] rank {r}: als gathered {rr['als_mat']} arrays "
+                  f"whole and received {recv} bytes (want 0 and "
+                  f"{want_als})")
+        if any("/gather/" in key for key in
+               rr["rules"]["part"]["als_decisions"]):
+            _fail(f"[local] rank {r}: als was not proven: "
+                  f"{rr['rules']['part']['als_decisions']}")
+        if not (a["u_one"] <= 1e-4 and a["v_one"] <= 1e-4):
+            _fail(f"[local] rank {r}: als differs from the one-process run "
+                  f"by u {a['u_one']}, v {a['v_one']}")
+        if "u_f64" in a and not (a["u_f64"] <= 1e-4 and a["v_f64"] <= 1e-4):
+            _fail(f"[local] rank {r}: als differs from float64 by u "
+                  f"{a['u_f64']}, v {a['v_f64']}")
+    if len({str(rr["rules"]["part"]["als"]["u"]) for rr in res}) != 1:
+        _fail("[local] the ranks' ALS factors differ")
 
 
 def phase_local(st, kk, km, pr, links, card: str, dev, workdir: str) -> dict:

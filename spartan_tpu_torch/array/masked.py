@@ -315,8 +315,10 @@ def _valid_first(d: torch.Tensor, m: torch.Tensor, ax: int) -> torch.Tensor:
     value in ``lax.sort`` order, ties by index: a stable sort by value,
     then a stable sort by the mask."""
     by_value = torch.sort(sort_key(d), dim=ax, stable=True).indices
-    flags = m.to(torch.int8).gather(ax, by_value)
-    return by_value.gather(ax, torch.sort(flags, dim=ax, stable=True).indices)
+    # the flags die with their sort (no name holds them past it)
+    order = torch.sort(m.to(torch.int8).gather(ax, by_value), dim=ax,
+                       stable=True).indices
+    return by_value.gather(ax, order)
 
 
 def _sorted_values(d: torch.Tensor, m: torch.Tensor, ax: int) -> torch.Tensor:
@@ -395,7 +397,18 @@ def _median_valid(d: torch.Tensor, m: torch.Tensor, axis) -> torch.Tensor:
 def masked_median(x: MaskedDistArray, axis=None) -> Expr:
     """``numpy.ma.median``: the median of the unmasked elements, float32.
     A valid NaN makes its slice NaN (``numpy.ma`` does not treat NaN as
-    missing) and a fully masked slice is NaN. Its result drops the axis,
-    so on a group mesh it reads its operands whole (counted), along an
-    axis or not."""
-    return map_expr(_median_valid, x.data, x.mask, fn_kw={"axis": axis})
+    missing) and a fully masked slice is NaN. Along an axis, each output
+    element reads its own line along it (``LocalCall(drops=)``): on a
+    group mesh each rank takes the medians of its block's lines, the
+    operands first moved so that the axis is whole in a block where it
+    is split; over every element it reads its operands whole (counted)."""
+    if axis is None:
+        return map_expr(_median_valid, x.data, x.mask, fn_kw={"axis": axis})
+    from ..expr.builtins import _checked_axis
+    from ..expr.local import LocalCall, LocalInput
+    from ..expr.map import MapExpr
+
+    inputs = (as_expr(x.data), as_expr(x.mask))
+    return MapExpr(inputs, LocalCall(
+        _median_valid, (LocalInput(0), LocalInput(1)), (("axis", axis),),
+        drops=_checked_axis(axis, len(x.shape))))

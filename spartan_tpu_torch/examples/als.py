@@ -7,7 +7,9 @@ package's ``vmap`` over rows becomes an (m, k, k) stack of normal
 matrices and one batched ``torch.linalg.solve``. The stack is built
 through an (m, n, k) masked copy of the other factor, so a half-step
 holds m·n·k·4 bytes beside its inputs (101.6 MB at MovieLens-100K's
-943 x 1,682 with k = 16).
+943 x 1,682 with k = 16). On a group mesh each rank solves its own
+rows' systems (``expr/partition.py``): the transposed ratings are laid
+out by their own rows once, so no half-step moves the ratings.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def als(ratings, k: int = 8, num_iter: int = 10, reg: float = 0.1,
     v = rng.rand(n, k).astype(np.float32) * 0.1
 
     r_rows = ratings  # (m, n)
-    r_cols = ratings.T  # lazy transpose -> (n, m)
+    # the transpose (n, m), once, split along its own rows: the item
+    # half-steps read their row blocks where they are held
+    r_cols = ratings.T.evaluate().retile(tiling_mod.row(2))
 
     u = None
     for _ in range(num_iter):

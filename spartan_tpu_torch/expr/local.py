@@ -251,17 +251,21 @@ class LocalCall(LocalExpr):
     sort, a scan), which a block must hold whole; ``located(v, ul)`` is
     the function on a block at global offset ``ul`` (``tril``/
     ``triu``); ``units`` is the most memory the function holds at once,
-    in units of its output (the card model's ``tree_units``). None of
-    them joins the plan key: the function and its captures already name
-    it."""
+    in units of its output (the card model's ``tree_units``); ``drops``
+    names the axis a function of same-shaped operands reduces away
+    along, each output element from its own line along that axis (a
+    median along an axis), so a block that holds the axis whole gives
+    its part of the output. None of them joins the plan key: the
+    function and its captures already name it."""
 
     __slots__ = ("fn", "args", "fn_kw", "elementwise", "along", "located",
-                 "units")
+                 "units", "drops")
 
     def __init__(self, fn: Callable, args: Sequence[LocalExpr],
                  fn_kw: Tuple[Tuple[str, Any], ...] = (),
                  elementwise: bool = False, along: Any = None,
-                 located: Any = None, units: Any = None):
+                 located: Any = None, units: Any = None,
+                 drops: Any = None):
         self.fn = fn
         self.args = tuple(args)
         self.fn_kw = tuple(fn_kw)
@@ -269,11 +273,13 @@ class LocalCall(LocalExpr):
         self.along = along
         self.located = located
         self.units = units
+        self.drops = drops
 
     def _with(self, fn, args, **hints) -> "LocalCall":
         """A copy over ``args`` (and ``fn``) keeping the hints."""
         kw = {"elementwise": self.elementwise, "along": self.along,
-              "located": self.located, "units": self.units}
+              "located": self.located, "units": self.units,
+              "drops": self.drops}
         kw.update(hints)
         return LocalCall(fn, args, self.fn_kw, **kw)
 

@@ -14,11 +14,16 @@ bucketing acts on each element; a sort or scan along an axis needs that
 axis whole in the block (the operands move to a tiling without it);
 ``tril``/``triu`` read the block's offset. A user function runs on the
 blocks where the aten program it traces to proves it elementwise
-(``expr/partition.py``: pointwise ops only, the same program at the
-whole shapes and at every block shape), as GSPMD partitions the ops it
-traces; any other user function reads its operands whole, counted.
-``map_with_location`` runs ``fn`` on the rank's block with its global
-offset.
+(``expr/partition.py``: pointwise ops only): the program traced at the
+whole shapes is replayed on the blocks, as GSPMD partitions the ops it
+traces, so a size read from an operand's shape keeps its whole value;
+any other user function reads its operands whole, counted.
+A call that reduces an axis away (``LocalCall(drops=)``, the masked
+median along an axis) runs where each block holds that axis whole: the
+operands move to the output's tiling with the axis added whole, which
+keeps them where the axis is not split and is GSPMD's all-to-all where
+it is. ``map_with_location`` runs ``fn`` on the rank's block with its
+global offset.
 """
 
 from __future__ import annotations
@@ -82,9 +87,11 @@ def emit_blocks(op: LocalExpr, inputs: Sequence[Expr],
     if not broadcasts_to(inputs, shape):
         return NotImplemented
     ew = elementwise(op)
+    plan = None
     if not blockwise(op):
-        if not proven_elementwise(op, inputs, shape, t, env.mesh, node):
+        if not proven_elementwise(op, inputs, shape, node):
             return NotImplemented
+        plan = _decision(op, inputs, shape)
         ew = True
     vals = [c.lower_local(env) for c in inputs]
     box = box_tiling(vals, shape)
@@ -102,11 +109,39 @@ def emit_blocks(op: LocalExpr, inputs: Sequence[Expr],
             t = t.with_axis(a, None)
         t = tiling_mod.sanitize(t, shape, env.mesh)
         op = op.at(t.block_extent(shape, env.mesh).ul)
-    blk = op.emit(aligned_blocks(vals, shape, t))
     want = t.block_extent(shape, env.mesh).shape
+    blocks = aligned_blocks(vals, shape, t)
+    blk = op.emit(blocks) if plan is None else plan.run(blocks, want)
     if tuple(blk.shape) != tuple(want):  # every operand a scalar
         blk = torch.broadcast_to(blk, want).clone()
     return blk, t
+
+
+def dropped_axis(op: LocalExpr, inputs: Sequence[Expr]) -> Optional[int]:
+    """The axis a tree reduces away where its root is a call that says so
+    (``LocalCall(drops=)``) over elementwise trees (fused producers) of
+    inputs of one shape (or scalars); else None."""
+    if not isinstance(op, LocalCall) or op.drops is None or \
+            not all(elementwise(a) for a in op.args):
+        return None
+    shapes = {tuple(c.shape) for c in inputs if c.ndim}
+    if len(shapes) != 1:
+        return None
+    return op.drops % len(shapes.pop())
+
+
+def drop_tiling(t: Tiling, axis: int) -> Tiling:
+    """The output tiling of a call that reduces ``axis`` of an operand
+    tiled ``t`` away: a mesh axis on ``axis`` moves to the first other
+    unsplit dim (the operand then moves once, GSPMD's all-to-all), then
+    the axis goes."""
+    m = t.axes[axis]
+    if m is not None:
+        for i, a in enumerate(t.axes):
+            if i != axis and a is None:
+                t = t.with_axis(i, m)
+                break
+    return t.drop_axis(axis)
 
 
 def _want(v_shape: Tuple[int, ...], shape: Tuple[int, ...],
@@ -121,48 +156,42 @@ def _want(v_shape: Tuple[int, ...], shape: Tuple[int, ...],
 
 
 def proven_elementwise(op: LocalExpr, inputs: Sequence[Expr],
-                       shape: Tuple[int, ...], t: Tiling, mesh,
-                       node: str = "MapExpr") -> bool:
-    """True where the tree's traced program acts on each element alone
-    and is the same at the whole shapes and at every distinct block
-    shape ``t`` gives the mesh's positions (``expr/partition.py``),
-    decided from metadata alone, so every rank agrees. Cached by the
-    tree, the shapes, dtypes, tiling and mesh shape; each decision is
-    counted in ``group_partition_decisions``."""
+                       shape: Tuple[int, ...], node: str = "MapExpr") -> bool:
+    """True where the tree's program traced at the whole shapes acts on
+    each element alone (``expr/partition.py``), decided from metadata
+    alone, so every rank agrees, whatever its block. Cached by the tree,
+    the shapes and dtypes; each decision is counted in
+    ``group_partition_decisions``."""
     from ..obs.metrics import record_partition
 
-    reason, _ = _decision(op, inputs, shape, t, mesh)
+    got = _decision(op, inputs, shape)
+    reason = got if isinstance(got, str) else None
     record_partition(node, "gather" if reason else "local",
                      reason or "elementwise")
     return reason is None
 
 
-def _decision(op: LocalExpr, inputs: Sequence[Expr],
-              shape: Tuple[int, ...], t: Tiling, mesh):
-    """(None or the reason, units) of :func:`partition.elementwise` for
-    the tree, cached."""
-    from ..parallel.redistribute import _coords
+def _specs(inputs: Sequence[Expr], shapes=None) -> Tuple:
+    """(shape, torch dtype) of each input (at ``shapes`` where given)."""
     from ..utils import dtypes
-    from . import partition
     from .base import ScalarExpr
 
-    specs = tuple((tuple(c.shape), c.tdtype if isinstance(c, ScalarExpr)
-                   else dtypes.to_torch(c.dtype)) for c in inputs)
-    axes = tuple((a, int(mesh.shape[a])) for a in mesh.axis_names)
-    key = ("map", op.key(), specs, tuple(shape), t.axes, axes)
+    shapes = shapes or [c.shape for c in inputs]
+    return tuple((tuple(s), c.tdtype if isinstance(c, ScalarExpr)
+                  else dtypes.to_torch(c.dtype))
+                 for c, s in zip(inputs, shapes))
 
-    def decide():
-        blocks = {}
-        for co in _coords(mesh):
-            ins = tuple(
-                () if not c.ndim else tuple(
-                    _want(c.shape, shape, t).block_extent(
-                        c.shape, mesh, co).shape) for c in inputs)
-            blocks[ins] = tuple(t.block_extent(shape, mesh, co).shape)
-        return partition.elementwise(lambda *xs: op.emit(list(xs)), specs,
-                                     tuple(shape), list(blocks.items()))
 
-    return partition.cached(key, decide)
+def _decision(op: LocalExpr, inputs: Sequence[Expr],
+              shape: Tuple[int, ...]):
+    """:func:`partition.elementwise` for the tree (its plan, or the
+    reason it is not proven), cached."""
+    from . import partition
+
+    specs = _specs(inputs)
+    key = ("map", op.key(), specs, tuple(shape))
+    return partition.cached(key, lambda: partition.elementwise(
+        lambda *xs: op.emit(list(xs)), specs, tuple(shape)))
 
 
 def aligned_blocks(vals: Sequence[Any], shape: Tuple[int, ...],
@@ -236,14 +265,65 @@ class MapExpr(Expr):
         return self.op.emit([c.lower(env) for c in self.inputs])
 
     def _lower_local(self, env) -> Any:
+        from ..array.distarray import DistArray
+
+        ax = dropped_axis(self.op, self.inputs)
+        if ax is not None:
+            return self._drop_local(env, ax)
         got = emit_blocks(self.op, self.inputs, self.shape,
                           self.out_tiling(), env)
         if got is NotImplemented:
             return got
-        from ..array.distarray import DistArray
-
         blk, t = got
         return DistArray.from_local(blk, t, self.shape, env.mesh)
+
+    def _drop_local(self, env, ax: int) -> Any:
+        """A call that reduces ``ax`` away, on this rank's blocks: the
+        operands under the output's tiling with ``ax`` added whole, the
+        call on them, the output block kept."""
+        from ..array.distarray import DistArray
+        from ..obs.metrics import record_partition
+        from ..parallel import redistribute as redist_mod
+
+        mesh = env.mesh
+        t = tiling_mod.sanitize(self.out_tiling(), self.shape, mesh)
+        t_in = t.add_axis(ax, None)
+        blocks = []
+        for c in self.inputs:
+            v = c.lower_local(env)
+            blocks.append(v.local if not c.ndim else
+                          redist_mod.relayout(v, t_in).local)
+        record_partition("MapExpr", "local", "drops_axis")
+        return DistArray.from_local(self.op.emit(blocks), t, self.shape,
+                                    mesh)
+
+    def drop_staging(self, mesh) -> Optional[float]:
+        """On a group mesh, for a call that reduces an axis away
+        (:meth:`_drop_local`): the blocks its operands move into and the
+        most its program, traced at those blocks' shapes, holds beside
+        them, less its output block (``resilience/memory.py``); else
+        None."""
+        ax = dropped_axis(self.op, self.inputs)
+        if ax is None or not mesh.is_group:
+            return None
+        from . import partition
+
+        t = tiling_mod.sanitize(self.out_tiling(), self.shape, mesh)
+        t_in = t.add_axis(ax, None)
+        staging, shapes = 0.0, []
+        for c in self.inputs:
+            blk = t_in.block_extent(c.shape, mesh) if c.ndim else None
+            shapes.append(blk.shape if c.ndim else ())
+            if c.ndim and tiling_mod.sanitize(c.out_tiling(), c.shape,
+                                              mesh) != t_in:
+                staging += float(blk.size) * c.dtype.itemsize
+        specs = _specs(self.inputs, shapes)
+        key = ("drop", self.op.key(), specs)
+        peak = partition.cached(key, lambda: partition.program_peak(
+            lambda *xs: self.op.emit(list(xs)), specs))
+        out = float(t.block_extent(self.shape, mesh).size) \
+            * self.dtype.itemsize
+        return staging + max(peak - out, 0.0)
 
     def card_units(self, mesh) -> Optional[float]:
         """On a group mesh, for a tree with a user function proven
@@ -251,9 +331,8 @@ class MapExpr(Expr):
         of its output (``resilience/memory.py``); else None."""
         if not mesh.is_group or blockwise(self.op):
             return None
-        reason, units = _decision(self.op, self.inputs, self.shape,
-                                  self.out_tiling(), mesh)
-        return None if reason else units
+        got = _decision(self.op, self.inputs, self.shape)
+        return None if isinstance(got, str) else got.units
 
     def _sig(self, ctx) -> Tuple:
         return (("map", self.op.key())
@@ -273,6 +352,11 @@ class MapExpr(Expr):
                 "bytes accessed": io_bytes(self.inputs, self)}
 
     def _default_tiling(self) -> Tiling:
+        ax = dropped_axis(self.op, self.inputs)
+        if ax is not None:
+            # the operands' tiling without the axis the call reduces
+            big = next(c for c in self.inputs if c.ndim)
+            return drop_tiling(big.out_tiling(), ax)
         # the largest same-shaped input donates its tiling (the reference
         # evaluated on the owner of the largest input's tiles)
         best: Optional[Tiling] = None

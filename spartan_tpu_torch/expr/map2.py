@@ -11,7 +11,11 @@ program its ``fn`` traces to proves that right (``expr/partition.py``,
 as GSPMD partitions the ops it traces): the operands that span the
 rows move to a tiling split on the row mesh axis only, the program is
 replayed on the blocks with an all-reduce wherever a partial sum meets
-an op that needs it whole, and a partial result is all-reduced once.
+an op that needs it whole (a mean over the rows among them), a flip
+along the rows brings each rank its mirrored rows in one piece
+exchange, and a partial result is all-reduced once. Where the rows are
+not proven and the column mesh axis has positions, the same proof runs
+over the columns of the largest input, split on that axis.
 Any other ``fn`` reads its split inputs whole (counted). ``shard_map2``
 runs on the blocks the ranks store (``shard_map_local``): each operand
 moves to its tiling and each rank keeps its output block.
@@ -57,59 +61,70 @@ class Map2Expr(Expr):
 
     def _row_plan(self, tilings: Sequence[Tiling], mesh,
                   count: bool = False):
-        """(the proof's plan, each input's row dim or None, the row
-        count) where ``fn`` is proven row-partitionable over inputs held
-        under ``tilings`` on the group mesh ``mesh``; None where no
-        input is split (``fn`` runs whole, moving nothing), or a string:
-        why it is not proven. The rows are the leading dim of the
-        largest input, and every input of that many rows is split along
-        them. With ``count``, the decision is counted in
+        """(the proof's plan, each input's split dim or None, the split
+        dim's whole count, the mesh axis it is split on) where ``fn`` is
+        proven partitionable over inputs held under ``tilings`` on the
+        group mesh ``mesh``; None where no input is split (``fn`` runs
+        whole, moving nothing), or a string: why it is not proven. The
+        rows are the leading dim of the largest input, split on the row
+        mesh axis, and every input of that many rows is split along
+        them; where that is not proven and the column mesh axis has
+        positions, the largest input's second dim is tried on it (GSPMD
+        keeps a column split where a function reads whole columns).
+        With ``count``, the decision is counted in
         ``group_partition_decisions``."""
-        from ..kernels import registry as kernels_mod
         from ..obs.metrics import record_partition
-        from ..utils import dtypes
-        from ..utils.config import FLAGS
-        from . import partition
-        from .base import ScalarExpr
 
         if not any(n > 1 for t in tilings for n in t.tiles_per_dim(mesh)):
             return None
         big = max((c for c in self.inputs if c.ndim),
                   key=lambda c: c.size, default=None)
-        n_rows = big.shape[0] if big is not None else 0
-        if n_rows < mesh.shape[mesh_mod.AXIS_ROW] or \
-                mesh.shape[mesh_mod.AXIS_ROW] == 1:
-            reason = "fewer rows than row positions"
-            plan = None
-        else:
-            row_dims = tuple(0 if c.ndim and c.shape[0] == n_rows else None
-                             for c in self.inputs)
-            specs = tuple((tuple(c.shape),
-                           c.tdtype if isinstance(c, ScalarExpr)
-                           else dtypes.to_torch(c.dtype))
-                          for c in self.inputs)
-            axes = tuple((a, int(mesh.shape[a])) for a in mesh.axis_names)
-            # the kernel policy picks the ops a function traces to (a
-            # segment sum's kernel or its scatter)
-            key = ("map2", fn_key(self.fn), self.fn_kw, specs,
-                   tuple(t.axes for t in tilings), axes,
-                   kernels_mod.policy_key(), FLAGS.segment_impl)
-            fn, kw = self.fn, dict(self.fn_kw)
-            plan = partition.cached(key, lambda: partition.rows(
-                lambda *xs: fn(*xs, **kw), specs, row_dims, n_rows))
-            reason = plan if isinstance(plan, str) else None
+        first = None
+        for dim, axis, what in ((0, mesh_mod.AXIS_ROW, "rows"),
+                                (1, mesh_mod.AXIS_COL, "columns")):
+            n = big.shape[dim] if big is not None and big.ndim > dim \
+                else 0
+            if n < mesh.shape[axis] or mesh.shape[axis] == 1:
+                got = "fewer rows than row positions"
+            else:
+                got = self._split_plan(tilings, mesh, dim, n)
+            if not isinstance(got, str):
+                if count:
+                    record_partition("Map2Expr", "local", what)
+                return got[0], got[1], n, axis
+            first = first or got
         if count:
-            record_partition("Map2Expr", "gather" if reason else "local",
-                             reason or "rows")
-        if reason:
-            return reason
-        return plan, row_dims, n_rows
+            record_partition("Map2Expr", "gather", first)
+        return first
+
+    def _split_plan(self, tilings, mesh, dim: int, n: int):
+        """(plan, split dims) of the proof with every input of ``n``
+        along ``dim`` split there, or the reason it is not proven."""
+        from ..kernels import registry as kernels_mod
+        from ..utils.config import FLAGS
+        from . import partition
+        from .map import _specs
+
+        row_dims = tuple(dim if c.ndim > dim and c.shape[dim] == n
+                         else None for c in self.inputs)
+        specs = _specs(self.inputs)
+        axes = tuple((a, int(mesh.shape[a])) for a in mesh.axis_names)
+        # the kernel policy picks the ops a function traces to (a
+        # segment sum's kernel or its scatter)
+        key = ("map2", fn_key(self.fn), self.fn_kw, specs, dim,
+               tuple(t.axes for t in tilings), axes,
+               kernels_mod.policy_key(), FLAGS.segment_impl)
+        fn, kw = self.fn, dict(self.fn_kw)
+        plan = partition.cached(key, lambda: partition.rows(
+            lambda *xs: fn(*xs, **kw), specs, row_dims, n))
+        return plan if isinstance(plan, str) else (plan, row_dims)
 
     def _lower_local(self, env) -> Any:
-        """On a group mesh, a proven ``fn``'s program on the rank's row
-        blocks (:meth:`_row_plan`): one all-reduce over the row axis a
-        partial sum, the output relaid to the node's tiling. Otherwise
-        NotImplemented: ``fn`` runs whole on inputs gathered whole."""
+        """On a group mesh, a proven ``fn``'s program on the rank's
+        blocks (:meth:`_row_plan`): one all-reduce over the split's mesh
+        axis a partial sum, the output relaid to the node's tiling.
+        Otherwise NotImplemented: ``fn`` runs whole on inputs gathered
+        whole."""
         from ..array.distarray import DistArray
         from ..parallel import collectives as coll
         from ..parallel import redistribute as redist_mod
@@ -120,32 +135,44 @@ class Map2Expr(Expr):
         got = self._row_plan([v.tiling for v in vals], mesh, count=True)
         if got is None or isinstance(got, str):
             return NotImplemented
-        plan, row_dims, n_rows = got
-        axis = mesh_mod.AXIS_ROW
-        blocks = [redist_mod.relayout(v, _row_tiling(v.ndim, d)).local
+        plan, row_dims, n_rows, axis = got
+        blocks = [redist_mod.relayout(v, _split_tiling(v.ndim, d, axis)).local
                   for v, d in zip(vals, row_dims)]
-        rows = Tiling((axis,)).block_extent((n_rows,), mesh).shape[0]
+        ext = Tiling((axis,)).block_extent((n_rows,), mesh)
 
         def reduce(t):
             return coll.reduce_over(t, (axis,), "add", mesh)
 
-        out = plan.run(blocks, rows, reduce)
+        def move(t, d):
+            shape = list(t.shape)
+            shape[d] = n_rows
+            piece, tl = _mirror_piece(t, d, shape, mesh, axis)
+            return redist_mod.move_pieces([piece], tl, shape, t.dtype, mesh)
+
+        out = plan.run(blocks, ext.shape[0], reduce, start=ext.ul[0],
+                       move=move)
         st = plan.out_state
         if st == partition.P:
             out = reduce(out)
-        t = _row_tiling(out.ndim, st[1] if st[0] == "R" else None)
-        val = DistArray.from_local(out, t, self.shape, mesh)
-        return redist_mod.relayout(val, tiling_mod.sanitize(
-            self.out_tiling(), self.shape, mesh))
+        t = _split_tiling(out.ndim, st[1] if st[0] == "R" else None, axis)
+        want = tiling_mod.sanitize(self.out_tiling(), self.shape, mesh)
+        if redist_mod.same_blocks(t, want, self.shape, mesh):
+            # the node's tiling gives every rank this block (a mesh axis
+            # of one position splits nothing): no copy
+            return DistArray.from_local(out, want, self.shape, mesh)
+        return redist_mod.relayout(DistArray.from_local(out, t, self.shape,
+                                                        mesh), want)
 
     def card_staging(self, mesh) -> float:
         """What the lowering holds beside its output on a group mesh
         (``resilience/memory.py``): for a proven ``fn``, the operands'
-        row blocks (where they move) and the replay's intermediates at
-        the block's rows, a partial beside its all-reduce; else each
-        split operand gathered whole."""
+        blocks (where they move) and the replay's intermediates at the
+        block's rows, a partial beside its all-reduce, a flip's reversed
+        block beside its exchange; else each split operand gathered
+        whole."""
         if not mesh.is_group:
             return 0.0
+        from ..parallel import redistribute as redist_mod
         from . import partition
 
         tilings = [tiling_mod.sanitize(c.out_tiling(), c.shape, mesh)
@@ -157,20 +184,30 @@ class Map2Expr(Expr):
             return float(sum(c.size * c.dtype.itemsize
                              for c, t in zip(self.inputs, tilings)
                              if t.sharded_axes()))
-        plan, row_dims, n_rows = got
+        plan, row_dims, n_rows, axis = got
         staging = 0.0
         for c, t, d in zip(self.inputs, tilings, row_dims):
-            want = _row_tiling(c.ndim, d)
+            want = _split_tiling(c.ndim, d, axis)
             if t != want:
                 staging += float(want.block_extent(c.shape, mesh).size) \
                     * c.dtype.itemsize
-        rows = Tiling((mesh_mod.AXIS_ROW,)).block_extent(
-            (n_rows,), mesh).shape[0]
-        replay = plan.card_bytes(rows)
+        rows = Tiling((axis,)).block_extent((n_rows,), mesh).shape[0]
+
+        def move_bytes(node):
+            # a flip's piece exchange: its send and received buffers
+            v = node.meta["val"]
+            d = plan.states[node][1]
+            piece, tl = _mirror_piece(None, d, list(v.shape), mesh, axis)
+            return redist_mod.exchange_staging(
+                [piece.extent_of], [piece.free], tl, tuple(v.shape), mesh,
+                v.element_size())
+
+        replay = plan.card_bytes(rows, move_bytes)
         if plan.out_state != partition.P:
             # the program's output is the node's value (its own size)
             st = plan.out_state
-            t = _row_tiling(self.ndim, st[1] if st[0] == "R" else None)
+            t = _split_tiling(self.ndim, st[1] if st[0] == "R" else None,
+                              axis)
             replay -= float(t.block_extent(self.shape, mesh).size) \
                 * self.dtype.itemsize
         return staging + max(replay, 0.0)
@@ -185,10 +222,31 @@ class Map2Expr(Expr):
         return tiling_mod.default_tiling(self.shape)
 
 
-def _row_tiling(ndim: int, d: Optional[int]) -> Tiling:
-    """Split along dim ``d`` on the row mesh axis only (None: whole)."""
-    return Tiling([mesh_mod.AXIS_ROW if i == d else None
-                   for i in range(ndim)])
+def _mirror_piece(block, d: int, shape, mesh, axis: str):
+    """A rank's block of an array of ``shape`` split along dim ``d`` on
+    the mesh axis ``axis``, reversed along ``d``, as a piece of the
+    flipped array (it covers the mirror of the rows it was cut from),
+    and the tiling the flipped array's blocks take."""
+    from ..array import extent as extent_mod
+    from ..parallel import redistribute as redist_mod
+
+    tl = _split_tiling(len(shape), d, axis)
+    n = shape[d]
+
+    def extent_of(c):
+        e = tl.block_extent(shape, mesh, c)
+        ul, lr = list(e.ul), list(e.lr)
+        ul[d], lr[d] = n - e.lr[d], n - e.ul[d]
+        return extent_mod.create(ul, lr, shape)
+
+    return redist_mod.Piece(block, extent_of,
+                            redist_mod.free_axes(tl, mesh)), tl
+
+
+def _split_tiling(ndim: int, d: Optional[int], axis: str) -> Tiling:
+    """Split along dim ``d`` on the mesh axis ``axis`` only (None:
+    whole)."""
+    return Tiling([axis if i == d else None for i in range(ndim)])
 
 
 def map2(arrays: Sequence[Any], fn: Callable,

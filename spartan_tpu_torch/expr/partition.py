@@ -13,21 +13,27 @@ right. Everything else keeps the counted gather.
   pointwise (``torch.Tag.pointwise``) or one of a few value-free ops
   (casts, copies, a constant, a broadcast to the output's own shape);
   nothing reads a value to the host, draws a random number or leaves
-  memory uninitialised; and the program traced at the whole shapes is
-  the one traced at every distinct block shape of the mesh, argument for
-  argument, apart from sizes that follow the tensors' own shapes. Then
-  each output element depends on the same input elements only, and the
-  tree runs on the aligned blocks.
+  memory uninitialised. Then each output element depends on the same
+  input elements only, and the program traced at the whole shapes is
+  replayed on the aligned blocks (:meth:`ElementwisePlan.run`), each
+  size that is a tensor's own whole shape set to its block's, as GSPMD
+  runs the program it traced at the whole shapes: a constant such as
+  ``/ x.shape[0]`` keeps its whole value.
 * **Row-partitionable** (:func:`rows`, a ``map2`` function): the
   program is traced once at the whole shapes (a constant such as
   ``/ x.shape[0]`` is baked in at its whole value) and a state is
   propagated through it: ``R(d)``, split along the row axis at dim d;
   ``W``, whole and the same on every rank; ``P``, a partial sum still
-  to be all-reduced. A product or sum over the rows gives ``P``; a
-  ``P`` that meets an op with no rule for it is all-reduced there, as
-  GSPMD does. The accepted program is replayed on the rank's blocks
-  (:meth:`RowPlan.run`); the function is not called again, since it
-  may compute whole-shape constants from its inputs' shapes.
+  to be all-reduced; ``S(d)``, a diagonal's elements that lie in the
+  rank's rows (each rank holds its own, none twice), which only casts,
+  pointwise ops with whole scalars and sums take. A product or sum
+  over the rows gives ``P``; a ``P`` that meets an op with no rule for
+  it is all-reduced there, as GSPMD does; a mean over the rows is a sum
+  all-reduced, then divided by the whole count; a flip along the rows
+  is a move of the mirrored rows between the ranks. The accepted
+  program is replayed on the rank's blocks (:meth:`RowPlan.run`); the
+  function is not called again, since it may compute whole-shape
+  constants from its inputs' shapes.
 
 Every decision is taken from shapes and dtypes alone, so every rank of a
 group takes the same one, and it is cached by the caller's key (a loop
@@ -36,6 +42,7 @@ body traces once a plan). This module imports torch only.
 
 from __future__ import annotations
 
+import operator
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -104,8 +111,26 @@ def _val(node: Any) -> Any:
 
 
 def _shape(node: Any) -> Tuple[int, ...]:
+    """The node's shape; () for a node that is no tensor (a multi-output
+    op's tuple, an op that returns nothing)."""
     v = _val(node)
+    if not isinstance(v, torch.Tensor):
+        return ()
     return tuple(int(s) for s in v.shape)
+
+
+def _tensors(v: Any) -> List[torch.Tensor]:
+    """The tensors of a node's value: itself, a tuple's, or none."""
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, (list, tuple)):
+        return [t for t in v if isinstance(t, torch.Tensor)]
+    return []
+
+
+def _nbytes(node: Any) -> float:
+    return float(sum(_prod(t.shape) * t.element_size()
+                     for t in _tensors(_val(node))))
 
 
 def _screen(node: Any) -> None:
@@ -135,94 +160,130 @@ def cached(key: Any, decide: Callable[[], Any]) -> Any:
 # -- (a) elementwise ------------------------------------------------------
 
 
-def _program(gm: torch.fx.GraphModule, out_shape: Tuple[int, ...]
-             ) -> Tuple:
-    """The traced program as comparable data: each op and its non-tensor
-    arguments, a tensor argument by its position, and a size that is
-    the node's own output shape as ``<shape>``. Raises :class:`Reject`
-    for an op that is not pointwise or value-free, or an output that is
-    not one tensor of ``out_shape``."""
-    pos: Dict[Any, int] = {}
-    prog: List[Any] = []
-
-    def norm(a: Any, own: Tuple[int, ...]) -> Any:
-        if isinstance(a, torch.fx.Node):
-            return ("%", pos[a])
-        if isinstance(a, (list, tuple)):
-            if a and all(isinstance(v, int) for v in a) and \
-                    tuple(a) == own:
-                return "<shape>"
-            return tuple(norm(v, own) for v in a)
-        if isinstance(a, torch.device):
-            return "<device>"
-        return a
-
-    for i, n in enumerate(gm.graph.nodes):
-        pos[n] = i
-        if n.op == "placeholder":
-            prog.append(("in",))
-        elif n.op == "get_attr":
-            c = getattr(gm, n.target)
-            if c.numel() > 16:
+def _check_elementwise(gm: torch.fx.GraphModule,
+                       out_shape: Tuple[int, ...]) -> Any:
+    """The output node of the traced program, once every op is found
+    pointwise or value-free and the output one tensor of ``out_shape``;
+    raises :class:`Reject` otherwise."""
+    out = None
+    for n in gm.graph.nodes:
+        if n.op == "get_attr":
+            if getattr(gm, n.target).numel() > 16:
                 raise Reject("constant tensor")
-            prog.append(("const", str(c.dtype), tuple(c.shape),
-                         tuple(c.reshape(-1).tolist())))
         elif n.op == "call_function":
             _screen(n)
             op = n.target
-            own = _shape(n)
+            if op is operator.getitem:
+                continue  # an output of the multi-output op it reads
             if _writes(op) and n.args[0].op != "call_function":
                 raise Reject(f"{_name(op)}: writes an operand")
             if op is aten.expand.default:
-                if own != tuple(out_shape):
+                if _shape(n) != tuple(out_shape):
                     raise Reject("expand: not to the output's shape")
             elif op is aten.full.default:
-                if own != ():
+                if _shape(n) != ():
                     raise Reject("full: not a scalar")
             elif op not in _VALUE_FREE and \
                     torch.Tag.pointwise not in getattr(op, "tags", ()):
                 raise Reject(f"not pointwise: {_name(op)}")
-            prog.append((str(op), norm(n.args, own),
-                         tuple(sorted((k, norm(v, own))
-                                      for k, v in n.kwargs.items()))))
         elif n.op == "output":
             res = n.args[0]
-            if not isinstance(res, torch.fx.Node):
+            if not isinstance(res, torch.fx.Node) or \
+                    not isinstance(_val(res), torch.Tensor):
                 raise Reject("output: not one tensor")
             if _shape(res) != tuple(out_shape):
                 raise Reject("output: not the block's shape")
-            prog.append(("out", pos[res]))
-        else:
+            out = res
+        elif n.op != "placeholder":
             raise Reject(f"graph node: {n.op}")
-    return tuple(prog)
+    return out
+
+
+class ElementwisePlan:
+    """A ``map`` tree's program proven elementwise, traced at the whole
+    shapes; :meth:`run` replays it on blocks. ``units`` is the most its
+    intermediates and result hold at once, in units of the result's
+    bytes."""
+
+    def __init__(self, gm: torch.fx.GraphModule, out: Any,
+                 out_shape: Tuple[int, ...], units: float):
+        self.gm = gm
+        self.out = out
+        self.out_shape = tuple(out_shape)
+        self.units = units
+
+    def _block_shape(self, shape: Sequence[int],
+                     out_block: Tuple[int, ...]) -> List[int]:
+        """The block of a value of ``shape`` (which broadcasts to the
+        output's) aligned with the output block ``out_block``: a
+        broadcast dim of 1 stays 1."""
+        off = len(self.out_shape) - len(shape)
+        return [1 if d == 1 and self.out_shape[i + off] != 1
+                else out_block[i + off] for i, d in enumerate(shape)]
+
+    def run(self, blocks: Sequence[torch.Tensor],
+            out_block: Sequence[int]) -> torch.Tensor:
+        """The program on the aligned ``blocks`` of an output block of
+        shape ``out_block``: every size that is a node's own whole shape
+        is set to its block's, any other value is the whole-shape
+        trace's."""
+        out_block = tuple(int(v) for v in out_block)
+        device = next((b.device for b in blocks if b.dim()),
+                      blocks[0].device if blocks else None)
+        env: Dict[Any, Any] = {}
+        it = iter(blocks)
+
+        def sized(a: Any, own: Tuple[int, ...], blk: List[int]) -> Any:
+            if isinstance(a, (list, tuple)):
+                if a and all(isinstance(v, int) for v in a) and \
+                        tuple(a) == own:
+                    return list(blk)
+                return type(a)(sized(v, own, blk) for v in a)
+            return a
+
+        for n in self.gm.graph.nodes:
+            if n.op == "placeholder":
+                env[n] = next(it)
+            elif n.op == "get_attr":
+                c = getattr(self.gm, n.target)
+                env[n] = c.to(device) if c.dim() else c
+            elif n.op == "call_function":
+                own = _shape(n)
+                blk = self._block_shape(own, out_block)
+                args = sized(torch.fx.node.map_arg(n.args, lambda a: env[a]),
+                             own, blk)
+                kwargs = dict(torch.fx.node.map_arg(n.kwargs,
+                                                    lambda a: env[a]))
+                if "device" in kwargs and device is not None:
+                    kwargs["device"] = device
+                env[n] = n.target(*args, **kwargs)
+        return env[self.out]
 
 
 def elementwise(fn: Callable, whole: Sequence[Tuple[Tuple[int, ...], Any]],
-                out_shape: Tuple[int, ...],
-                blocks: Sequence[Tuple[Sequence[Tuple[int, ...]],
-                                       Tuple[int, ...]]]
-                ) -> Tuple[Optional[str], float]:
-    """(None, units) where ``fn`` over inputs of ``whole`` (shape, dtype)
-    specs, with a result of ``out_shape``, acts on each element alone
-    and the same way at every block shape: ``blocks`` holds each
-    distinct (input block shapes, output block shape) of the mesh;
-    ``units`` is the most its intermediates and result hold at once, in
-    units of the result's bytes. Otherwise (the reason it is not
-    proven, 0)."""
+                out_shape: Tuple[int, ...]) -> Any:
+    """An :class:`ElementwisePlan` where ``fn`` over inputs of ``whole``
+    (shape, dtype) specs, with a result of ``out_shape``, acts on each
+    element alone; otherwise the reason it is not proven (a string). One
+    trace, at the whole shapes: a block replays it."""
     try:
         gm = trace(fn, whole)
-        want = _program(gm, out_shape)
-        for shapes, out_blk in blocks:
-            specs = [(s, dt) for s, (_, dt) in zip(shapes, whole)]
-            if _program(trace(fn, specs), out_blk) != want:
-                raise Reject("program differs at a block's shape")
+        out = _check_elementwise(gm, out_shape)
     except Reject as r:
-        return r.reason, 0.0
-    steps, out = _steps(gm)
-    v = _val(out)
-    out_bytes = float(_prod(v.shape) * v.element_size())
-    return None, _peak(steps, lambda n: float(
-        _prod(_val(n).shape) * _val(n).element_size())) / max(out_bytes, 1.0)
+        return r.reason
+    steps, _ = _steps(gm)
+    out_bytes = _nbytes(out)
+    return ElementwisePlan(gm, out, out_shape,
+                           _peak(steps, _nbytes) / max(out_bytes, 1.0))
+
+
+def program_peak(fn: Callable, specs: Sequence[Tuple[Tuple[int, ...], Any]]
+                 ) -> float:
+    """The most bytes ``fn``'s program over inputs of ``specs`` holds at
+    once beside its inputs, its result included (:func:`_peak`). Raises
+    :class:`Reject` where ``fn`` does not trace."""
+    steps, _ = _steps(trace(fn, specs))
+    return _peak(steps, _nbytes)
 
 
 # -- (b) row-partitionable -----------------------------------------------
@@ -235,21 +296,37 @@ def R(d: int) -> Tuple[str, int]:
     return ("R", d)
 
 
+def S(d: int) -> Tuple[str, int]:
+    return ("S", d)
+
+
 def _is_r(s: Any) -> bool:
     return s[0] == "R"
 
 
+def _is_s(s: Any) -> bool:
+    return s[0] == "S"
+
+
 class _Step:
     """One call of the replay: the op, which argument nodes to all-reduce
-    first, and which size to set to the block's rows."""
+    first, which size to set to the block's rows, and what the op does
+    beyond its own call on a block: ``mean`` (the whole count a mean
+    over the rows divides its all-reduced sum by), ``diag`` (+1 or -1: a
+    diagonal's offset moved by the block's first row or column) or
+    ``move`` (the dim a flip reverses across the ranks)."""
 
-    __slots__ = ("node", "reduce", "rows_at", "frees")
+    __slots__ = ("node", "reduce", "rows_at", "frees", "mean", "diag",
+                 "move")
 
     def __init__(self, node: Any):
         self.node = node
         self.reduce: List[Any] = []
         self.rows_at: Optional[Tuple[int, int]] = None  # (arg, position)
         self.frees: List[Any] = []
+        self.mean: Optional[int] = None
+        self.diag: Optional[int] = None
+        self.move: Optional[int] = None
 
 
 class RowPlan:
@@ -266,15 +343,23 @@ class RowPlan:
         self.n_rows = n_rows
         self.out_state = states[out]
         # partial sums all-reduced inside the program (the output's own
-        # all-reduce is the caller's)
-        self.inner_reduces = sum(len(s.reduce) for s in steps)
+        # all-reduce is the caller's), a mean over the rows' among them
+        self.inner_reduces = sum(len(s.reduce) + (s.mean is not None)
+                                 for s in steps)
+        self.moves = [s.node for s in steps if s.move is not None]
 
     def run(self, blocks: Sequence[torch.Tensor], rows: int,
-            reduce: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+            reduce: Callable[[torch.Tensor], torch.Tensor],
+            start: int = 0,
+            move: Optional[Callable[[torch.Tensor, int],
+                                    torch.Tensor]] = None) -> torch.Tensor:
         """The program on the rank's operands (``R`` ones cut to its
-        ``rows`` rows, ``W`` ones whole); ``reduce`` all-reduces a
-        partial sum over the row axis. Returns the output, a partial sum
-        still where ``out_state`` is ``P``."""
+        ``rows`` rows from row ``start``, ``W`` ones whole); ``reduce``
+        all-reduces a partial sum over the row axis; ``move(t, d)`` is
+        the rank's block of the array whose blocks along its split dim
+        ``d`` the ranks hold reversed (``t``, this rank's reversed):
+        each rank's mirrored rows brought to it. Returns the output, a
+        partial sum still where ``out_state`` is ``P``."""
         env: Dict[Any, Any] = {}
         # the fills' device: the operands' (a scalar operand may be a
         # host tensor)
@@ -301,24 +386,87 @@ class RowPlan:
                     args[i] = size
                 if "device" in kwargs and device is not None:
                     kwargs["device"] = device
-                env[n] = n.target(*args, **kwargs)
+                if step.mean is not None:
+                    env[n] = _mean_replay(args, kwargs, reduce, step.mean)
+                elif step.diag is not None:
+                    x, off, d1, d2 = _diag_args(args, kwargs)
+                    env[n] = torch.diagonal(x, off + step.diag * start, d1,
+                                            d2)
+                else:
+                    env[n] = n.target(*args, **kwargs)
+                if step.move is not None:
+                    if move is None:
+                        raise ValueError("the plan moves rows between the "
+                                         "ranks: pass move=")
+                    env[n] = move(env[n], step.move)
             for f in step.frees:
                 del env[f]
         return env[self.out]
 
-    def card_bytes(self, rows: int) -> float:
+    def card_bytes(self, rows: int,
+                   move_bytes: Optional[Callable[[Any], float]] = None
+                   ) -> float:
         """The most bytes the replay holds at once at ``rows`` rows a
         block beside its operands (:func:`_peak`), the all-reduces'
-        copies included."""
-        def nbytes(n: Any) -> float:
-            v = _val(n)
-            shp = list(v.shape)
-            s = self.states.get(n, W)
+        copies included; ``move_bytes(node)`` is what a flip's move
+        across the ranks holds beside its two blocks."""
+        def block(t: torch.Tensor, s: Any) -> float:
+            shp = list(t.shape)
             if _is_r(s):
                 shp[s[1]] = rows
-            return float(_prod(shp) * v.element_size())
+            elif _is_s(s):
+                # a diagonal's pieces: at most its whole length
+                shp[s[1]] = min(shp[s[1]], rows)
+            return float(_prod(shp) * t.element_size())
 
-        return _peak(self.steps, nbytes)
+        def nbytes(n: Any) -> float:
+            v = _val(n)
+            s = self.states.get(n, W)
+            if isinstance(v, (list, tuple)):
+                ss = s if s and isinstance(s[0], tuple) else [s] * len(v)
+                return sum(block(t, x) for t, x in zip(v, ss)
+                           if isinstance(t, torch.Tensor))
+            return block(v, s) if isinstance(v, torch.Tensor) else 0.0
+
+        def extra(step: _Step) -> float:
+            if step.mean is not None:
+                return nbytes(step.node)  # the sum beside its all-reduce
+            if step.move is not None:
+                # the reversed block and the moved one, beside the move's
+                # send and received buffers
+                return nbytes(step.node) + (
+                    move_bytes(step.node) if move_bytes else
+                    2.0 * nbytes(step.node))
+            return 0.0
+
+        return _peak(self.steps, nbytes, extra)
+
+
+def _mean_replay(args, kwargs, reduce, count: int) -> torch.Tensor:
+    """A mean over the rows on a block, in GSPMD's order: the block's
+    sum, all-reduced, divided by the whole count."""
+    x = args[0]
+    dims = args[1] if len(args) > 1 else kwargs.get("dim")
+    keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+    dtype = kwargs.get("dtype")
+    if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+        total = torch.sum(x, dtype=dtype)
+        if keep:
+            total = total.reshape([1] * x.dim())
+    else:
+        total = torch.sum(x, list(dims), keepdim=keep, dtype=dtype)
+    return reduce(total) / count
+
+
+def _diag_args(args, kwargs) -> Tuple[Any, int, int, int]:
+    """``diagonal``'s (self, offset, dim1, dim2) with their defaults."""
+    full = list(args) + [None] * (4 - len(args))
+    names = ("self", "offset", "dim1", "dim2")
+    vals = [full[i] if full[i] is not None else kwargs.get(k)
+            for i, k in enumerate(names)]
+    dflt = (None, 0, 0, 1)
+    return tuple(v if v is not None else dflt[i]
+                 for i, v in enumerate(vals))
 
 
 def _steps(gm: torch.fx.GraphModule) -> Tuple[List[_Step], Any]:
@@ -338,11 +486,26 @@ def _steps(gm: torch.fx.GraphModule) -> Tuple[List[_Step], Any]:
     return steps, out
 
 
-def _peak(steps: Sequence[_Step], nbytes: Callable[[Any], float]) -> float:
+def _aliases(op: Any) -> bool:
+    """True for an op whose result is a view of (or written into) its
+    first operand; an output of a multi-output op is a view of its
+    tuple."""
+    if op is operator.getitem:
+        return True
+    schema = getattr(op, "_schema", None)
+    return bool(schema is not None and schema.returns
+                and schema.returns[0].alias_info is not None)
+
+
+def _peak(steps: Sequence[_Step], nbytes: Callable[[Any], float],
+          extra: Optional[Callable[[_Step], float]] = None) -> float:
     """The most bytes a program's new tensors hold at once: each live
     from its call to its last use, a view or an in-place result sharing
-    its base's bytes, an all-reduce's copy beside its partial; the
-    operands cost nothing here."""
+    its base's bytes, an all-reduce's copy beside its partial, and what
+    ``extra(step)`` says a step holds for its own call; the operands
+    cost nothing here. A multi-output op's outputs all live at its
+    return; each then lives as the ``getitem`` that reads it, and one
+    that nothing reads dies there."""
     base: Dict[Any, Any] = {}
     size: Dict[Any, float] = {}
     aliases: Dict[Any, int] = {}
@@ -352,9 +515,17 @@ def _peak(steps: Sequence[_Step], nbytes: Callable[[Any], float]) -> float:
         if n.op == "call_function":
             for r in step.reduce:
                 peak = max(peak, live + nbytes(r))
-            op = n.target
-            if op._schema.returns and \
-                    op._schema.returns[0].alias_info is not None:
+            b = None
+            if isinstance(_val(n), (list, tuple)):
+                peak = max(peak, live + nbytes(n)
+                           + (extra(step) if extra else 0.0))
+                for u in n.users:
+                    if u.target is operator.getitem and u.users:
+                        size[u] = nbytes(u)
+                        live += size[u]
+            elif n.target is operator.getitem:
+                b = n if n in size else None
+            elif _aliases(n.target):
                 b = base.get(n.args[0])
             else:
                 b = n
@@ -363,7 +534,7 @@ def _peak(steps: Sequence[_Step], nbytes: Callable[[Any], float]) -> float:
             base[n] = b
             if b is not None:
                 aliases[b] = aliases.get(b, 0) + 1
-            peak = max(peak, live)
+            peak = max(peak, live + (extra(step) if extra else 0.0))
         for f in step.frees:
             b = base.get(f)
             if b is None:
@@ -473,18 +644,28 @@ class _Rows:
         op = n.target
         name = _name(op)
         _screen(n)
+        if op is operator.getitem:
+            # an output of a multi-output op: that output's state
+            s = self.s(n.args[0])
+            return s[n.args[1]] if isinstance(s[0], tuple) else s
         ins = self.tensors(n)
         states = [self.s(a) for a in ins]
         if _writes(op):
             self.check_inplace(n)
         if not ins:
             return self.factory(n, 0)
-        if all(s == W for s in states):
+        if all(s == W for s in states) and name != "expand":
             # deterministic ops of whole operands: whole on every rank
+            # (an expand may split one: ``_expand``)
             if name in ("zeros_like", "new_zeros") or (
                     name in ("full_like", "new_full") and n.args[-1] == 0):
                 self.zeros.add(n)
+            outs = _val(n)
+            if isinstance(outs, (list, tuple)):
+                return tuple(W for _ in outs)
             return W
+        if any(_is_s(x) for x in states):
+            return self.pieces(n, ins, states)
         if name in ("index_add", "index_add_", "scatter_add",
                     "scatter_add_"):
             return self.scatter(n)
@@ -501,6 +682,35 @@ class _Rows:
         if rule is None:
             raise Reject(f"no rule: {name}")
         return rule(self, n)
+
+    def pieces(self, n: Any, ins: Sequence[Any], states) -> Any:
+        """An op of a diagonal's pieces (``S``): a cast keeps them, a
+        pointwise op with whole scalars acts on each, a sum over their
+        dim is a partial sum; nothing else takes them."""
+        op = n.target
+        name = _name(op)
+        s = next(x for x in states if _is_s(x))
+        if op in _VALUE_FREE and len(ins) == 1:
+            return s
+        if torch.Tag.pointwise in getattr(op, "tags", ()) and all(
+                x == s or (x == W and not _shape(a))
+                for a, x in zip(ins, states)):
+            return S(s[1] + len(_shape(n)) - len(_shape(ins[0])))
+        if name == "sum" and len(ins) == 1:
+            nd = len(_shape(ins[0]))
+            dims = n.args[1] if len(n.args) > 1 else None
+            if dims is None or (isinstance(dims, (list, tuple))
+                                and not dims):
+                return P
+            dims = [dims] if isinstance(dims, int) else list(dims)
+            dims = [_norm_dim(int(v), nd) for v in dims]
+            if s[1] in dims:
+                return P
+            keep = n.args[2] if len(n.args) > 2 else \
+                n.kwargs.get("keepdim", False)
+            return S(s[1] if keep else
+                     s[1] - sum(1 for v in dims if v < s[1]))
+        raise Reject(f"{name}: of a diagonal's pieces")
 
     def check_inplace(self, n: Any) -> None:
         """An op that writes its first operand: not an operand or a
@@ -524,7 +734,7 @@ class _Rows:
                     name.endswith("full") and n.args[i + 1] == 0)):
                 self.zeros.add(n)
             return s
-        if name in ("scalar_tensor", "arange"):
+        if name in ("scalar_tensor", "arange", "eye"):
             # the same values on every rank (an arange of the rows is
             # whole too: used against split rows it is rejected where
             # it meets them)
@@ -563,8 +773,12 @@ def _segment_block(w: _Rows, n: Any) -> Any:
 
 
 def _writes(op: Any) -> bool:
-    """True for an op that writes its first operand (in place)."""
-    args = op._schema.arguments
+    """True for an op that writes its first operand (in place); an op
+    with no schema (``operator.getitem``) writes nothing."""
+    schema = getattr(op, "_schema", None)
+    if schema is None:
+        return False
+    args = schema.arguments
     return bool(args) and args[0].alias_info is not None and \
         args[0].alias_info.is_write
 
@@ -649,7 +863,10 @@ def _view(w: _Rows, n: Any) -> Any:
     d = s[1]
     shp_in, shp_out = _shape(x), _shape(n)
     for e in range(len(shp_out)):
-        if shp_out[:e] == shp_in[:d] and shp_out[e] == shp_in[d] and \
+        # the dims before and after the rows may merge or split among
+        # themselves; the rows stay one dim of the same extent
+        if _prod(shp_out[:e]) == _prod(shp_in[:d]) and \
+                shp_out[e] == shp_in[d] and \
                 _prod(shp_out[e + 1:]) == _prod(shp_in[d + 1:]):
             size = list(n.args[1])
             if size[e] not in (-1, w.n):
@@ -672,8 +889,20 @@ def _prod(xs) -> int:
 
 
 def _expand(w: _Rows, n: Any) -> Any:
+    """An expand of a split operand keeps its rows (a size of the whole
+    row count set to the block's); a whole operand expanded to the
+    whole row count along a dim of 1 (or a new one) is split there, cut
+    to the block's rows: it is the same along that dim."""
     x = n.args[0]
     s = w.s(x)
+    if s == W and w.n > 1:
+        size, shp = list(n.args[1]), _shape(x)
+        off = len(size) - len(shp)
+        hits = [j for j, v in enumerate(size)
+                if v == w.n and (j < off or shp[j - off] == 1)]
+        if len(hits) == 1:
+            w.step.rows_at = (1, hits[0])
+            return R(hits[0])
     if s in (W, P):
         return s
     size = list(n.args[1])
@@ -752,6 +981,97 @@ def _along(w: _Rows, n: Any) -> Any:
     return R(d - sum(1 for v in dims if v < d))
 
 
+def _mean(w: _Rows, n: Any) -> Any:
+    """``mean``: along other dims than the rows the rows stay split;
+    over the rows it is GSPMD's reduce-sum, all-reduce, divide: the
+    block's sum all-reduced in the step, then divided by the whole
+    count (whole on every rank)."""
+    x = n.args[0]
+    s = w.s(x)
+    if s in (W, P):
+        return _along(w, n)
+    nd = len(_shape(x))
+    dims = n.args[1] if len(n.args) > 1 else n.kwargs.get("dim")
+    if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+        dims = list(range(nd))
+    dims = [dims] if isinstance(dims, int) else list(dims)
+    dims = [_norm_dim(int(v), nd) for v in dims]
+    if s[1] not in dims:
+        return _along(w, n)
+    shp = _shape(x)
+    w.step.mean = _prod(shp[v] for v in dims)
+    return W
+
+
+def _diagonal(w: _Rows, n: Any) -> Any:
+    """``diagonal`` of an operand split along one of its two dims: the
+    elements in the rank's rows (its offset moved by the block's first
+    row, or back by its first column), a piece of the whole (``S``);
+    split along another dim, the rows stay split."""
+    x = n.args[0]
+    s = w.s(x)
+    if s in (W, P):
+        return s
+    if not _is_r(s):
+        raise Reject("diagonal: of a diagonal's pieces")
+    nd = len(_shape(x))
+    _, _, d1, d2 = _diag_args(n.args, n.kwargs)
+    d1, d2 = _norm_dim(int(d1), nd), _norm_dim(int(d2), nd)
+    d = s[1]
+    if d not in (d1, d2):
+        return R(d - sum(1 for v in (d1, d2) if v < d))
+    w.step.diag = 1 if d == d1 else -1
+    return S(nd - 2)  # the diagonal is the last dim
+
+
+def _flip(w: _Rows, n: Any) -> Any:
+    """``flip``: along other dims the block flips alone; along the rows
+    each rank's output rows are the mirrored rows another rank holds,
+    brought by a move between the ranks (GSPMD's collective-permute)."""
+    x = n.args[0]
+    s = w.s(x)
+    if s in (W, P):
+        return s
+    if not _is_r(s):
+        raise Reject("flip: of a diagonal's pieces")
+    nd = len(_shape(x))
+    if s[1] in [_norm_dim(int(v), nd) for v in n.args[1]]:
+        w.step.move = s[1]
+    return s
+
+
+def _cumsum(w: _Rows, n: Any) -> Any:
+    """``cumsum`` along another dim than the rows: each row's scan is the
+    block's (a partial scanned is still partial); along the rows it has
+    no rule (GSPMD gathers it too)."""
+    x = n.args[0]
+    s = w.s(x)
+    if s in (W, P):
+        return s
+    if not _is_r(s):
+        raise Reject("cumsum: of a diagonal's pieces")
+    if _norm_dim(int(n.args[1]), len(_shape(x))) == s[1]:
+        raise Reject("cumsum: along the rows")
+    return s
+
+
+def _solve(w: _Rows, n: Any) -> Any:
+    """A batched ``linalg.solve``: systems split along their batch dim
+    (0) are solved on each rank; every output keeps the split."""
+    a, b = n.args[:2]
+    if w.s(a) == R(0) and w.s(b) == R(0) and len(_shape(a)) >= 3:
+        return tuple(R(0) for _ in _val(n))
+    raise Reject(f"{_name(n.target)}: systems not split along the batch")
+
+
+def _check_errors(w: _Rows, n: Any) -> Any:
+    """``_linalg_check_errors`` of a solve's status: each rank checks
+    its own systems; it returns nothing."""
+    if _is_r(w.s(n.args[0])):
+        return W
+    raise Reject("_linalg_check_errors: of a partial")
+
+
 # per product: the contracted dim of each operand, the kept dims of each
 # (operand dim -> output dim), and a batch dim both share
 _PRODUCTS = {"mm": (1, 0, {0: 0}, {1: 1}, None),
@@ -817,7 +1137,7 @@ _RULES: Dict[str, Callable[[_Rows, Any], Any]] = {
     "cat": _cat,
     "stack": _cat,
     "sum": _sum,
-    "mean": _along,
+    "mean": _mean,
     "amax": _along,
     "amin": _along,
     "argmax": _along,
@@ -834,6 +1154,12 @@ _RULES: Dict[str, Callable[[_Rows, Any], Any]] = {
     "bmm": _matmul,
     "addmm": _addmm,
     "segment_sum_block": _segment_block,
+    "diagonal": _diagonal,
+    "flip": _flip,
+    "cumsum": _cumsum,
+    "_linalg_solve_ex": _solve,
+    "linalg_solve_ex": _solve,
+    "_linalg_check_errors": _check_errors,
 }
 
 
@@ -871,4 +1197,8 @@ def _walk(gm: torch.fx.GraphModule, row_dims, n_rows: int) -> RowPlan:
             w.st[n] = w.call(n)
         else:
             raise Reject(f"graph node: {n.op}")
+    if not isinstance(_val(out), torch.Tensor):
+        raise Reject("output: not one tensor")
+    if _is_s(w.st[out]):
+        raise Reject("output: a diagonal's pieces")
     return RowPlan(gm, w.st, steps, out, n_rows)

@@ -26,7 +26,11 @@ it, degrade before dying (port of ``spartan_tpu/resilience/memory.py``).
      - a user ``map2`` on a group mesh: where proven row-partitionable,
        its operands' row blocks where they move and its replayed
        program's intermediates at the block's rows (a partial beside
-       its all-reduce); otherwise each split operand gathered whole;
+       its all-reduce, a flip's reversed block beside its exchange);
+       otherwise each split operand gathered whole;
+     - a call that reduces an axis away on a group mesh (the masked
+       median along an axis): its operands' blocks where they move and
+       its program traced at the blocks' shapes;
      - on a group mesh a node's relayouts stage a new block for each
        operand it reads in another layout;
      - the k-split on a group mesh holds its whole partial product and
@@ -403,6 +407,11 @@ def _card_transient(n: Any, mesh) -> float:
         # what it stages: exchange buffers, copies, the sort's stages
         return own(mesh)
     if isinstance(n, MapExpr):
+        # a call that reduces an axis away, on a group mesh: its
+        # operands' moved blocks and its traced program at their shape
+        drop = n.drop_staging(mesh)
+        if drop is not None:
+            return drop
         # a user function proven elementwise: its traced program's units
         units = n.card_units(mesh)
         if units is None:

@@ -290,6 +290,108 @@ def test_naive_bayes_fit_replays_the_kernel_on_each_rows_block(card):
     assert torch.equal(parts[0] + parts[1], whole)
 
 
+def _ratings(n, items, seed):
+    rng = np.random.RandomState(seed)
+    return ((np.floor(rng.rand(n, items) * 5.0 + 1.0)
+             * (rng.rand(n, items) > 0.4)).astype(np.float32),
+            (0.1 * rng.rand(items, 16)).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_als_half_step_and_flip_replay_on_row_blocks_of_the_card(card):
+    """The row proof's replay of ALS's half-step (one batched solve a
+    block) and of a flip (each block's mirrored rows brought to it) on
+    two row blocks of 2048 rows on the card. The flip is bit-equal to
+    ``torch.flip``. The half-step's batched normal matrices and solves
+    are bit-equal to the whole's, but the right-hand sides' GEMM of a
+    row block sums in the order cuBLAS picks for its row count (1.9e-5
+    apart at these shapes on an H100), so the solves are held within
+    1e-4 of the largest value, ALS's tolerance against float64."""
+    from spartan_tpu_torch.examples import als
+    from spartan_tpu_torch.expr import partition as pt
+
+    r_np, v_np = _ratings(4096, 512, 82)
+    r, v = torch.from_numpy(r_np).to(card), torch.from_numpy(v_np).to(card)
+    n, h = r.shape[0], r.shape[0] // 2
+    solve = (lambda a, b: als._solve_side(a, b, 0.1))
+    plan = pt.rows(solve, [(tuple(r.shape), r.dtype),
+                           (tuple(v.shape), v.dtype)], (0, None), n)
+    assert not isinstance(plan, str), plan
+    parts = torch.cat([plan.run([r[lo:lo + h], v], h, lambda t: t, start=lo)
+                       for lo in (0, h)], 0)
+    whole = solve(r, v)
+    assert float((parts - whole).abs().max() / whole.abs().max()) <= 1e-4
+    # the normal matrices alone: one batched product a block, bit-equal
+    normal = pt.rows(lambda a, b: ((a != 0).float()[:, :, None]
+                                   * b[None]).transpose(1, 2) @ b,
+                     [(tuple(r.shape), r.dtype), (tuple(v.shape), v.dtype)],
+                     (0, None), n)
+    blocks = [normal.run([r[lo:lo + h], v], h, lambda t: t, start=lo)
+              for lo in (0, h)]
+    w = (r != 0).float()
+    assert torch.equal(torch.cat(blocks, 0),
+                       (w[:, :, None] * v[None]).transpose(1, 2) @ v)
+    flip = pt.rows(lambda a: a.flip(0), [(tuple(r.shape), r.dtype)], (0,), n)
+    assert len(flip.moves) == 1
+    rev = [flip.run([r[lo:lo + h]], h, lambda t: t, start=lo,
+                    move=lambda t, d: t) for lo in (0, h)]
+    # each block's reversed rows are the other block's mirrored ones
+    assert torch.equal(torch.cat(rev[::-1], 0), torch.flip(r, (0,)))
+
+
+@pytest.mark.cuda
+def test_als_half_step_and_flip_on_a_one_rank_nccl_group(card, tmp_path):
+    """ALS's half-step and a flip through ``map2`` on a one-rank nccl
+    group (its one block is the whole) and on a logical (2, 1) mesh on
+    the card: bit-equal to ``_solve_side`` and ``torch.flip`` run whole,
+    nothing gathered."""
+    import torch.distributed as dist
+
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_numpy
+    from spartan_tpu_torch.array.tiling import Tiling
+    from spartan_tpu_torch.examples import als
+    from spartan_tpu_torch.obs.metrics import collective_totals
+    from spartan_tpu_torch.parallel import mesh as mesh_mod
+
+    if not dist.is_nccl_available():
+        pytest.skip("this torch build has no NCCL")
+    r_np, v_np = _ratings(4096, 512, 83)
+    r, v = torch.from_numpy(r_np).to(card), torch.from_numpy(v_np).to(card)
+    want = (als._solve_side(r, v, 0.1).cpu().numpy(),
+            torch.flip(r, (0,)).cpu().numpy())
+
+    def run():
+        re = st.as_expr(from_numpy(r_np))
+        ve = st.as_expr(from_numpy(v_np, tiling=Tiling((None, None))))
+        return (st.map2([re, ve], als._solve_side, fn_kw={"reg": 0.1},
+                        out_tiling=Tiling(("x", None))).glom(),
+                st.map2([re], lambda t: t.flip(0)).glom())
+
+    prev = mesh_mod.get_default_device()
+    mesh_mod.set_default_device(card)
+    try:
+        with mesh_mod.use_mesh(mesh_mod.build_mesh((2, 1), card)):
+            logical = run()
+        assert mesh_mod.initialize_distributed(
+            f"file://{tmp_path / 'store'}", num_processes=1, process_id=0,
+            backend="nccl", device=card, timeout_s=120)
+        try:
+            assert mesh_mod.get_mesh().is_group
+            before = collective_totals()
+            got = run()
+            after = collective_totals()
+        finally:
+            mesh_mod.shutdown()
+    finally:
+        mesh_mod.set_default_device(prev)
+    assert after["group_materialize_calls"] == \
+        before["group_materialize_calls"]
+    for g, l_, w in zip(got, logical, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(l_, w)
+
+
 # -- sort/select kernels (csrc/exchange.cu, topk.cu, histogram.cu) ---------
 
 

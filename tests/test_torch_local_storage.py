@@ -1342,8 +1342,11 @@ def test_arange_length_dtype_and_blocks_match_numpy_and_jax(args, dtype):
 
 # User functions on a group: map2 steps proven row-partitionable (a
 # partial sum all-reduced once), row-local predict kernels and proven
-# elementwise maps on each rank's blocks, and unproven functions that
-# keep the counted gather. run_cases(inputs) -> (results,
+# elementwise maps on each rank's blocks (a size read from a shape keeps
+# its whole value), ALS's batched solve, the trace and a mean over the
+# rows (one all-reduce each), a flip (a move of the mirrored rows) and
+# the masked median along either axis (the operands moved so that the
+# axis is whole where it is split). run_cases(inputs) -> (results,
 # materializations); "reduces_<case>" counts the case's all-reduces.
 _PART_CASES = r"""
 import numpy as np
@@ -1351,9 +1354,10 @@ import torch
 import spartan_tpu_torch as st
 from spartan_tpu_torch.array.distarray import from_numpy
 from spartan_tpu_torch.array.tiling import Tiling
-from spartan_tpu_torch.examples import fuzzy_kmeans, naive_bayes, regression
+from spartan_tpu_torch.array import masked
+from spartan_tpu_torch.examples import als, fuzzy_kmeans, naive_bayes
 from spartan_tpu_torch.examples import kmeans as km
-from spartan_tpu_torch.examples import svm
+from spartan_tpu_torch.examples import regression, svm
 from spartan_tpu_torch.obs.metrics import REGISTRY, collective_totals
 
 REDUCES = 'collective_calls{op="all_reduce"}'
@@ -1401,9 +1405,31 @@ def run_cases(inputs):
         lambda a, b: torch.where(a > b, a - b, 0.5 * b), x, x2).glom())
     main("map_bcast", lambda: st.map(lambda a, b: a * b + 1.0, x,
                                      w).glom())
-    # unproven: each gathers its split operands whole, counted
+    # the program traced at the whole shape: its constant is the whole
+    # row count on every block
     main("map_shape", lambda: st.map(lambda a: a / a.shape[0], x).glom())
+    # each rank's mirrored rows moved to it
     main("map2_flip", lambda: st.map2([x], lambda a: a.flip(0)).glom())
+    # a mean over the rows: the blocks' sums all-reduced, then divided
+    main("mean_center", lambda: st.map2([x], lambda a: a - a.mean(0)).glom())
+    sq = st.as_expr(from_numpy(inputs["sq"]))
+    main("trace", lambda: np.asarray(st.trace(sq).glom()))
+    sqi = st.as_expr(from_numpy(inputs["sqi"]))
+    main("trace_int", lambda: np.asarray(st.trace(sqi, -3).glom()))
+    # ALS's half-step on each rank's users, and two iterations (the
+    # transposed ratings laid out by their own rows once)
+    r = st.as_expr(from_numpy(inputs["ratings"]))
+    v = st.as_expr(from_numpy(inputs["factor"], tiling=Tiling((None, None))))
+    main("als_half", lambda: st.map2([r, v], als._solve_side,
+                                     fn_kw={"reg": 0.1},
+                                     out_tiling=Tiling(("x", None))).glom())
+    main("als", lambda: np.concatenate(
+        [f.ravel() for f in als.als(r, k=4, num_iter=2, reg=0.1)]))
+    rows = Tiling(("x", None))
+    mx = masked.MaskedDistArray(from_numpy(inputs["md"], tiling=rows),
+                                from_numpy(inputs["mm"], tiling=rows))
+    main("masked_median_ax1", lambda: st.median(mx, axis=1).glom())
+    main("masked_median_ax0", lambda: st.median(mx, axis=0).glom())
     # proven: the segment sums' partials over each rank's rows
     cnt = st.as_expr(from_numpy(inputs["nb_x"]))
     lab = st.as_expr(from_numpy(inputs["nb_y"]))
@@ -1432,12 +1458,22 @@ def _part_inputs(world: int) -> dict:
         "nb_lik": rng.randn(k, d).astype(np.float32),
         "nb_x": rng.randint(0, 5, (n, 8)).astype(np.float32),
         "nb_y": lab.astype(np.int32),
+        "sq": rng.rand(256, 256).astype(np.float32),
+        "sqi": rng.randint(-1000, 1000, (256, 256)).astype(np.int32),
+        "ratings": (np.floor(rng.rand(n, 48) * 5.0 + 1.0)
+                    * (rng.rand(n, 48) > 0.4)).astype(np.float32),
+        "factor": (0.1 * rng.rand(48, 4)).astype(np.float32),
+        "md": np.where(rng.rand(8, 2048) < 0.01, np.nan,
+                       rng.randn(8, 2048)).astype(np.float32),
+        "mm": rng.rand(8, 2048) < 0.05,
     }
 
 
 def _jax_parts(inputs: dict, world: int) -> dict:
     """The JAX package's same functions on the 8-device CPU mesh cut to
     the group's shape."""
+    from spartan_tpu.array import masked as masked_j
+    from spartan_tpu.examples import als as als_j
     from spartan_tpu.examples import fuzzy_kmeans as fz_j
     from spartan_tpu.examples import kmeans as km_j
     from spartan_tpu.examples import naive_bayes as nb_j
@@ -1470,6 +1506,25 @@ def _jax_parts(inputs: dict, world: int) -> dict:
         want["map_bcast"] = st_j.map(lambda a, b: a * b + 1.0, x, w).glom()
         want["map_shape"] = st_j.map(lambda a: a / a.shape[0], x).glom()
         want["map2_flip"] = st_j.map2([x], lambda a: jnp.flip(a, 0)).glom()
+        want["mean_center"] = st_j.map2([x], lambda a: a - a.mean(0)).glom()
+        want["trace"] = np.asarray(st_j.trace(
+            st_j.from_numpy(inputs["sq"])).glom())
+        want["trace_int"] = np.asarray(st_j.trace(
+            st_j.from_numpy(inputs["sqi"]), -3).glom())
+        r = st_j.from_numpy(inputs["ratings"])
+        want["als_half"] = st_j.map2(
+            [r, st_j.from_numpy(inputs["factor"],
+                                tiling=tiling_j.Tiling((None, None)))],
+            lambda rv, vv: als_j._solve_side(rv, vv, 0.1),
+            out_tiling=tiling_j.Tiling(("x", None))).glom()
+        want["als"] = np.concatenate(
+            [f.ravel() for f in als_j.als(r, k=4, num_iter=2, reg=0.1)])
+        rows = tiling_j.Tiling(("x", None))
+        mx = masked_j.MaskedDistArray(
+            st_j.from_numpy(inputs["md"], tiling=rows),
+            st_j.from_numpy(inputs["mm"], tiling=rows))
+        want["masked_median_ax1"] = st_j.median(mx, axis=1).glom()
+        want["masked_median_ax0"] = st_j.median(mx, axis=0).glom()
         want["nb_fit"] = np.concatenate([v.ravel() for v in nb_j.fit(
             st_j.from_numpy(inputs["nb_x"]), st_j.from_numpy(inputs["nb_y"]),
             k)])
@@ -1479,9 +1534,11 @@ def _jax_parts(inputs: dict, world: int) -> dict:
 # case: (tolerance against the logical mesh, against the JAX package, the
 # all-reduces a proven case makes; None for an unproven one). 0 is
 # bit-equal: an elementwise or row-local result, on blocks of whole
-# multiples of 64 rows (the host BLAS's row groups); a partial sum's
-# order changes on a group (1e-5). Against the JAX package XLA fuses
-# and rounds its own way (its sigmoid; a * b + 1 in one FMA).
+# multiples of 64 rows (the host BLAS's row groups), a move of rows, an
+# integer sum or a median; a partial sum's order changes on a group
+# (1e-5), a mean over the rows divides the all-reduced sum (1e-6 of the
+# logical mesh). Against the JAX package XLA fuses and rounds its own
+# way (its sigmoid; a * b + 1 in one FMA; its batched LU solve).
 _PART_TOL = {
     "logistic_grad": (1e-5, 1e-5, 1), "linear_grad": (1e-5, 1e-5, 1),
     "svm_grad": (1e-5, 1e-5, 1), "logreg": (1e-5, 1e-5, 3),
@@ -1490,7 +1547,10 @@ _PART_TOL = {
     "predict_logistic": (0, 1e-6, 0), "predict_svm": (0, 0, 0),
     "predict_nb": (0, 0, 0), "map_where": (0, 0, 0),
     "map_bcast": (0, 1e-6, 0),
-    "map_shape": (0, 1e-6, None), "map2_flip": (0, 0, None),
+    "map_shape": (0, 1e-6, 0), "map2_flip": (0, 0, 0),
+    "mean_center": (1e-6, 1e-5, 1), "trace": (1e-6, 1e-5, 1),
+    "trace_int": (0, 0, 1), "als_half": (0, 1e-4, 0), "als": (0, 1e-4, 0),
+    "masked_median_ax1": (0, 0, 0), "masked_median_ax0": (0, 0, 0),
     # naive Bayes's fit: one all-reduce of the (k, d + 1) partial
     # counts; integer counts sum exactly, so its tables are the JAX
     # package's bits
@@ -1508,6 +1568,8 @@ def _check_parts(r, want, logical) -> None:
                                               err_msg=f"{case} {what}")
             else:
                 assert _rel(got, ref) <= tol, (case, what, _rel(got, ref))
+            assert np.asarray(got).dtype == np.asarray(ref).dtype, (case,
+                                                                     what)
         if reduces is None:
             # unproven: its split operands read whole, counted
             assert int(r[f"mat_{case}"]) >= 1, case

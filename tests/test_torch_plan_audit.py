@@ -15,10 +15,15 @@ tensors (``spartan_tpu_torch/analysis/plan_audit.py``). Held here:
   equal the walk's ``group_materialize_calls{site}``; the audit on the
   logical mesh of the group's shape gives the same list. The local rules
   of the structure ops, outer, the scan, a user reduce, pooling, batched
-  sorts, the builtin maps and ``dot_shardmap`` find no ``full_gather``;
-  a user function's ``map2`` is the planted gather. This is the oracle
-  for the planted gathers: the JAX package's own traced-start case is
-  red on this tree (ROADMAP C1);
+  sorts, the builtin maps, ``dot_shardmap`` and the proven user
+  functions (a flip, a mean over the rows, the trace, ALS's half-step,
+  a whole-shape constant, the masked median along either axis) find no
+  ``full_gather``; a user function's ``map2`` scanning its rows is the
+  planted gather. This is the oracle for the planted gathers: the JAX
+  package's own traced-start case is red on this tree (ROADMAP C1);
+* for each user function of the group-gather table, on 8x1 and 4x2,
+  ``full_gather`` exactly where the JAX audit finds one, and the same
+  count of all-reduces where GSPMD's is a sum over the split rows;
 * the memoized verdict, the explain table, the miss-path hook and the
   port's ``missed_donation`` semantics (ROADMAP C35).
 """
@@ -157,12 +162,17 @@ def _flip(v):
     return v.flip(0)
 
 
+def _cumsum(v):
+    return v.cumsum(0)
+
+
 def test_planted_gather_is_a_full_gather_finding():
-    # a user function's map2 that is not proven row-partitionable (flip
-    # reverses the rows) gathers its operand whole
-    with mesh_t.use_mesh(mesh_t.build_mesh((4, 2))):
+    # a user function's map2 that is not proven row-partitionable (a
+    # scan along the rows; the JAX package all-gathers it too) gathers
+    # its operand whole
+    with mesh_t.use_mesh(mesh_t.build_mesh((8, 1))):
         x = st_t.from_numpy(RNG.rand(16, 8).astype(np.float32))
-        au = st_t.audit_plan(st_t.map2([x], _flip) + 1.0)
+        au = st_t.audit_plan(st_t.map2([x], _cumsum) + 1.0)
     hits = [f for f in au.findings if f.kind == "full_gather"]
     assert len(hits) == 1
     f = hits[0]
@@ -300,6 +310,8 @@ import numpy as np
 import torch
 
 def cases(st, km):
+    from spartan_tpu_torch.array import masked
+    from spartan_tpu_torch.examples import als
     from spartan_tpu_torch.examples import naive_bayes as nb
 
     rng = np.random.RandomState(3)
@@ -328,9 +340,31 @@ def cases(st, km):
             [st.from_numpy(np.floor(pts[:, :8] * 5.0)),
              st.from_numpy((np.arange(2048) % 4).astype(np.int32))],
             nb._fit_kern(4), out_tiling=st.Tiling((None, None))),
-        # no local rule: a user function reads its operand whole
+        # not proven: a user function scanning its rows reads its
+        # operand whole
         "user_map2": lambda: st.map2([st.from_numpy(x)],
+                                     lambda v: v.cumsum(0)) + 1.0,
+        # proven user functions: a flip (the mirrored rows moved), a
+        # mean over the rows and the trace (one all-reduce each), a
+        # whole-shape constant, ALS's half-step, the masked median
+        "user_flip": lambda: st.map2([st.from_numpy(x)],
                                      lambda v: v.flip(0)) + 1.0,
+        "user_mean": lambda: st.map2([st.from_numpy(x)],
+                                     lambda v: v - v.mean(0)),
+        "user_trace": lambda: st.trace(st.from_numpy(sq), 2),
+        "user_shape": lambda: st.map(lambda v: v / v.shape[0],
+                                     st.from_numpy(x)),
+        "user_als": lambda: st.map2(
+            [st.from_numpy(np.floor(pts[:64, :12] * 3.0)),
+             st.from_numpy(pts[:12, :3].copy(),
+                           tiling=st.Tiling((None, None)))],
+            als._solve_side, fn_kw={"reg": 0.1}),
+        "median_ax1": lambda: st.median(masked.MaskedDistArray(
+            st.from_numpy(batch, tiling=rows),
+            st.from_numpy(batch > 0.9, tiling=rows)), axis=1),
+        "median_ax0": lambda: st.median(masked.MaskedDistArray(
+            st.from_numpy(batch, tiling=rows),
+            st.from_numpy(batch > 0.9, tiling=rows)), axis=0),
         # one case per local rule of the structure ops and the rest
         "reshape": lambda: st.reshape(st.from_numpy(x), (8, 16)) * 2.0,
         "ravel": lambda: st.ravel(st.from_numpy(x)).sum(),
@@ -376,7 +410,8 @@ _RULES = ("nb_fit", "transpose", "reshape", "ravel", "concat", "concat1", "slice
           "outer", "cumsum", "ureduce", "maxpool", "bsort", "bargsort",
           "tril", "diagonal", "histogram", "dot_shardmap", "rand",
           "randint", "arange", "eye", "gather", "gather_cols", "assign",
-          "assign_bcast")
+          "assign_bcast", "user_flip", "user_mean", "user_trace",
+          "user_shape", "user_als", "median_ax1", "median_ax0")
 
 # cases whose ranks send different byte counts (the rows the indices
 # take split unevenly over the ranks)
@@ -461,6 +496,11 @@ def test_audit_equals_the_counted_collectives_on_a_gloo_group(tmp_path):
         assert not [f for f in got["kmeans"]["findings"]
                     if f["kind"] == "full_gather"]
         assert got["nb_fit"]["audit"]["multiset"] == {"all-reduce": 1}
+        for name in ("user_mean", "user_trace"):
+            assert got[name]["audit"]["multiset"] == {"all-reduce": 1}, name
+        assert got["user_flip"]["audit"]["multiset"] == {"all-to-all": 1}
+        for name in ("user_shape", "user_als", "median_ax1"):
+            assert got[name]["audit"]["multiset"] == {}, name
         assert [f for f in got["user_map2"]["findings"]
                 if f["kind"] == "full_gather"]
         # each local rule: no whole gather, and collectives where the
@@ -478,3 +518,90 @@ def test_audit_equals_the_counted_collectives_on_a_gloo_group(tmp_path):
             assert not got[name]["audit"]["collectives"], (name, rank)
         assert got["maxpool"]["audit"]["multiset"] == {
             "collective-permute": 2}
+
+
+# -- the group-gather table against the JAX audit ---------------------------
+
+_TX = RNG.rand(1024, 16).astype(np.float32)
+_TR = (np.floor(RNG.rand(1024, 64) * 5.0)
+       * (RNG.rand(1024, 64) > 0.5)).astype(np.float32)
+_TV = (0.1 * RNG.rand(64, 4)).astype(np.float32)
+_TSQ = RNG.rand(256, 256).astype(np.float32)
+_TM = RNG.rand(2048, 32).astype(np.float32)
+_TMK = RNG.rand(2048, 32) > 0.9
+_TA = RNG.rand(1024, 8).astype(np.float32)
+
+
+def _table(st, tm, masked, als, pkg):
+    """Each function of the group-gather table over row-split operands
+    (``pkg`` "jax" or "torch" for the functions written per package)."""
+    import jax.numpy as jnp
+
+    rows = tm.Tiling(("x", None))
+    x = st.from_numpy(_TX, tiling=rows)
+    r = st.from_numpy(_TR, tiling=rows)
+    v = st.from_numpy(_TV, tiling=tm.replicated(2))
+    m = masked.MaskedDistArray(st.from_numpy(_TM, tiling=rows),
+                               st.from_numpy(_TMK, tiling=rows))
+    a = st.from_numpy(_TA, tiling=rows)
+    if pkg == "jax":
+        out = {"als": lambda: st.map2(
+                   [r, v], lambda rv, vv: als._solve_side(rv, vv, 0.1),
+                   out_tiling=tm.row(2)),
+               "flip": lambda: st.map2([x], lambda t: jnp.flip(t, 0)),
+               "cumsum": lambda: st.map2([x], lambda t: jnp.cumsum(t, 0))}
+    else:
+        out = {"als": lambda: st.map2([r, v], als._solve_side,
+                                      fn_kw={"reg": 0.1},
+                                      out_tiling=tm.row(2)),
+               "flip": lambda: st.map2([x], lambda t: t.flip(0)),
+               "cumsum": lambda: st.map2([x], lambda t: t.cumsum(0))}
+    out.update({
+        "trace": lambda: st.trace(st.from_numpy(_TSQ, tiling=rows)),
+        "mean": lambda: st.map2([x], lambda t: t - t.mean(0)),
+        "shape_constant": lambda: st.map(lambda t: t / t.shape[0], x),
+        "median_ax1": lambda: st.median(m, axis=1),
+        "median_ax0": lambda: st.median(m, axis=0),
+        "einsum_chain": lambda: st.einsum("ij,jk,kl->il", x,
+                                          st.from_numpy(_TSQ[:16, :16]),
+                                          st.from_numpy(_TSQ[:16, :8])),
+        "einsum_rows": lambda: st.einsum("ij,ik,il->jkl", a, a, a),
+    })
+    return out
+
+
+_TABLE = ("als", "trace", "mean", "flip", "shape_constant", "median_ax1",
+          "median_ax0", "einsum_chain", "einsum_rows", "cumsum")
+# GSPMD's all-reduces of the masked median combine pieces of its result
+# on their way to the result's layout, not partial sums of the function:
+# the port keeps the result split until its glom
+_NO_REDUCE_PARITY = ("median_ax1", "median_ax0")
+
+
+@pytest.mark.parametrize("shape", [(8, 1), (4, 2)], ids=["8x1", "4x2"])
+@pytest.mark.parametrize("name", _TABLE)
+def test_group_gather_table_matches_the_jax_audit(name, shape):
+    from spartan_tpu.array import masked as masked_j
+    from spartan_tpu.examples import als as als_j
+    from spartan_tpu_torch.array import masked as masked_t
+    from spartan_tpu_torch.examples import als as als_t
+
+    mj, mt = _both(shape)
+    with mj:
+        aj = st_j.audit_plan(_table(st_j, tiling_j, masked_j, als_j,
+                                    "jax")[name]())
+    with mt:
+        at = st_t.audit_plan(_table(st_t, tiling_t, masked_t, als_t,
+                                    "torch")[name]())
+
+    def gathers(au):
+        return [f for f in au.findings if f.kind == "full_gather"]
+
+    assert bool(gathers(at)) == bool(gathers(aj)), (at.multiset,
+                                                    aj.multiset)
+    if name not in _NO_REDUCE_PARITY:
+        assert at.multiset.get("all-reduce", 0) == \
+            aj.multiset.get("all-reduce", 0), (at.multiset, aj.multiset)
+    # a scan along the rows is the one whole gather on 8x1; on 4x2 the
+    # scan runs on each rank's columns (GSPMD all-gathers over x only)
+    assert bool(gathers(at)) == (name == "cumsum" and shape == (8, 1))
