@@ -430,8 +430,22 @@ GEMV_WINDOWS = ((777, 164), (3001, 329), (1, 1), (-331, 331))
 GEMV_TALL_WINDOWS = ((1, 7), (5, 27), (31, 1))
 # [gemv]'s device split: calls traced a case
 GEMV_SPLIT_CALLS = 5
+# [reduce]: the fixed-order reduction at the column sums' widths
+# (16,384^2 and 32,768^2 along axis 0, PageRank's in-degree weights; the
+# first along axis 1 too), SlidingWindowStats.stats's mean of its
+# 1,048,576 x 128 window, (2^22, 32) along axis 1 and a 3-D mean over
+# two non-adjacent axes; (start, width) windows each outer case checks
+REDUCE_NS, REDUCE_WINDOW, REDUCE_TALL = (16_384, 32_768), \
+    (1_048_576, 128), (2 ** 22, 32)
+REDUCE_3D, REDUCE_REPS = (256, 64, 2048), 20
+# a spin of ~25 ms at the H100's clocks: longer than the host takes to
+# enqueue REDUCE_REPS calls of any [reduce] case
+QUEUE_SPIN_CYCLES = 50_000_000
+REDUCE_WINDOWS = ((777, 164), (3001, 329), (1, 1), (-331, 331))
 # [serve]'s ravel case: the side of each request's square array (2^22 keys)
 SERVE_RAVEL_SIDE = 2048
+# [serve]'s sum case: the side of each request's square array
+SERVE_SUM_N = 4096
 
 
 def _say(*args) -> None:
@@ -468,6 +482,25 @@ def _event_ms(fn, reps: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _queued_ms(fn, reps: int, warmup: int = 2) -> float:
+    """As :func:`_event_ms`, with the ``reps`` calls enqueued while the
+    stream is held by a device-side spin, so the events time the device's
+    back-to-back work and not the host's launch rate (where a call's host
+    path outlasts its kernel)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -1985,6 +2018,135 @@ def gemv_split_child(job: str) -> None:
              f"{case['ms']:.4f} ms, torch.matmul {case['library_ms']:.4f} "
              f"ms, bound {case['bound_ms']:.4f} ms on {card}")
         del mat, vec, pair
+
+
+# -- [reduce]: the fixed-order reduction ---------------------------------------
+
+
+def _reduce_case(kr, label: str, x, op: str, dims, windows,
+                 card: str) -> dict:
+    """One reduction through ``fixed_order_reduce``: one launch, bit-equal
+    to its plain version, each window of the kept axis after the reduced
+    ones (or of the rows, for an inner sum) bit-equal to the reduction
+    of the matching window view, within the recursive bound of float64;
+    then kernel, ``torch.sum``/``mean``/``prod`` and plain ms beside the
+    bound."""
+    before = kr.LAUNCHES["fixed_order_reduce"]
+    got = kr.fixed_order_reduce(x, op, dims)
+    torch.cuda.synchronize()
+    launches = kr.LAUNCHES["fixed_order_reduce"] - before
+    want = kr.fixed_order_reduce_plain(x, op, dims)
+    err = float((got - want).abs().max())
+    if launches != 1 or not torch.equal(got, want):
+        _fail(f"[reduce] {label}: {launches} launches, max |kernel - plain| "
+              f"{err:.3g} (want 1 launch, bit-equal)")
+    kept = [d for d in range(x.ndim) if d not in dims]
+    d = kept[-1]  # the window axis: the last kept one
+    held = []
+    for lo, w in windows:
+        lo = lo % x.shape[d]
+        hi = min(x.shape[d], lo + w)
+        sl = [slice(None)] * x.ndim
+        sl[d] = slice(lo, hi)
+        held.append(torch.equal(got[..., lo:hi], kr.fixed_order_reduce(
+            x[tuple(sl)], op, dims)))
+    if not all(held):
+        _fail(f"[reduce] {label}: windows {windows} held {held}")
+    p, r, q = kr.split(x.shape, dims)
+    if op != "prod":
+        # |got - exact| <= gamma_n sum |x|, n = KS + S roundings on each
+        # element's path (a slice's adds, the slices' fold), one more for
+        # a mean's division
+        n_round = kr.KS + -(-r // kr.KS) + 1
+        ref = x.double().sum(dim=dims)
+        mag = x.double().abs().sum(dim=dims)
+        if op == "mean":
+            ref, mag = ref / r, mag / r
+        slack = float(((got.double() - ref).abs()
+                       - n_round * _U / (1 - n_round * _U) * mag).max())
+        del ref, mag
+        if slack > 0:
+            _fail(f"[reduce] {label}: beyond the float32 summation bound "
+                  f"by {slack:.3g}")
+    lib = {"sum": torch.sum, "mean": torch.mean, "prod": torch.prod}[op]
+    ms = _event_ms(lambda: kr.fixed_order_reduce(x, op, dims), REDUCE_REPS)
+    if op == "prod":
+        lib_ms = _event_ms(lambda: torch.prod(x, dim=dims[0]), REDUCE_REPS)
+    else:
+        lib_ms = _event_ms(lambda: lib(x, dim=dims), REDUCE_REPS)
+    if op == "prod":
+        lib_dev = _queued_ms(lambda: torch.prod(x, dim=dims[0]), REDUCE_REPS)
+    else:
+        lib_dev = _queued_ms(lambda: lib(x, dim=dims), REDUCE_REPS)
+    dev_ms = _queued_ms(lambda: kr.fixed_order_reduce(x, op, dims),
+                        REDUCE_REPS)
+    plain_ms = _event_ms(lambda: kr.fixed_order_reduce_plain(x, op, dims),
+                         1, warmup=0)
+    flops_peak, bw_peak = _peaks(card)
+    bytes_ms = 4.0 * (p * r * q + p * q) / bw_peak * 1e3
+    ops_ms = float(p * r * q) / flops_peak * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    slower = f", slower than torch.{op}" if ms > lib_ms else ""
+    _say(f"[reduce] {label}: {op} over {tuple(dims)} of "
+         f"{tuple(x.shape)} (P = {p}, R = {r}, Q = {q}), {launches} launch, "
+         f"bit-equal to the plain version, {len(held)} windows bit-equal; "
+         f"kernel {ms:.4f} ms, torch.{op} {lib_ms:.4f} ms, plain "
+         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+         f"({100 * bound_ms / ms:.0f}% of it){slower}; queued behind a "
+         f"spin (device only) kernel {dev_ms:.4f} ms, torch.{op} "
+         f"{lib_dev:.4f} ms on {card}")
+    return {"ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "launches": launches, "label": label}
+
+
+def phase_reduce(kr, kg, card: str, dev) -> dict:
+    """[reduce]: ``kernels/reduce.fixed_order_reduce`` against its plain
+    version at the column sums' widths, the sliding window's mean, a tall
+    inner sum and a 3-D mean over non-adjacent axes; each sum along axis
+    0 of a matrix against ``fixed_order_dot(ones, A)``. Returns the
+    16,384^2 column sum's figures with the largest error of all cases and
+    every case under ``cases``."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    cases = []
+    for n in REDUCE_NS:
+        a = torch.rand((n, n), generator=gen, device=dev)
+        cases.append(_reduce_case(kr, f"{n}^2 column sums", a, "sum", (0,),
+                                  REDUCE_WINDOWS, card))
+        if not torch.equal(kr.fixed_order_reduce(a, "sum", 0),
+                           kg.fixed_order_dot(torch.ones(n, device=dev),
+                                              a)):
+            _fail(f"[reduce] {n}^2: the column sums differ from "
+                  f"fixed_order_dot(ones, A)")
+        if n == REDUCE_NS[0]:
+            cases.append(_reduce_case(kr, f"{n}^2 row sums", a, "sum",
+                                      (1,), REDUCE_WINDOWS, card))
+        del a
+        torch.cuda.empty_cache()
+    rows, cols = REDUCE_WINDOW
+    a = torch.randn((rows, cols), generator=gen, device=dev)
+    cases.append(_reduce_case(kr, "window mean", a, "mean", (0,),
+                              ((1, 7), (5, 27), (127, 1)), card))
+    del a
+    rows, cols = REDUCE_TALL
+    a = torch.rand((rows, cols), generator=gen, device=dev)
+    cases.append(_reduce_case(kr, "tall row sums", a, "sum", (1,),
+                              ((1, 7), (77, 8192), (-1, 1)), card))
+    del a
+    a = torch.rand(REDUCE_3D, generator=gen, device=dev)
+    cases.append(_reduce_case(kr, "3-D mean over (0, 2)", a, "mean",
+                              (0, 2), ((3, 20), (63, 1)), card))
+    a = 0.999 + 0.002 * a
+    cases.append(_reduce_case(kr, "3-D product along axis 1", a, "prod",
+                              (1,), ((3, 200), (2047, 1)), card))
+    del a
+    torch.cuda.empty_cache()
+    _say(f"[reduce] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases),
+                cases=cases)
 
 
 # -- stencil: the VGG-16 block-1 forward --------------------------------------
@@ -7681,7 +7843,37 @@ def _serve_kernels(st, kk, kx, kh, kt, kst, card: str, dev) -> dict:
             lambda r: vgg_block1(st, from_tensor(
                 r[0], tiling=st.Tiling((None, "x", None, None))), P),
             [(kst, "conv_block")], vgg_check, card)
+        del imgs
+    out["fixed_order_reduce"] = _serve_sums(st, kk, card, dev)
     return out
+
+
+def _serve_sums(st, kk, card: str, dev) -> int:
+    """[serve]'s sum case: ``st.sum(x, 0)`` of a SERVE_SUM_N^2 f32 array a
+    request, the fixed-order reduction's batching rule under the
+    coalescer's ``vmap`` (one launch a client)."""
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.kernels import reduce as kr
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    reqs = [(torch.rand((SERVE_SUM_N, SERVE_SUM_N), generator=gen,
+                        device=dev),) for _ in range(n)]
+
+    def sum_check(req, v):
+        want = kr.fixed_order_reduce_plain(req[0], "sum", (0,))
+        if not np.array_equal(v[0], want.cpu().numpy()):
+            _fail("[serve] sum: request 0 differs from the plain version's "
+                  "column sums")
+
+    launches = _serve_kernel_case(
+        st, kk, f"st.sum(x, 0) of {SERVE_SUM_N}^2", reqs,
+        lambda r: st.sum(from_tensor(r[0]), 0),
+        [(kr, "fixed_order_reduce")], sum_check, card)
+    del reqs
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _serve_ravel(st, card: str, dev) -> None:
@@ -7793,6 +7985,11 @@ INC_NS, INC_BATCHES, INC_FRAC = (16_384, 32_768), 8, 0.01
 INC_CURVE, INC_CURVE_STEPS = (0.001, 0.01, 0.1), 3
 INC_SW_ROWS, INC_SW_DIM, INC_SW_PUSH = 1_048_576, 128, 10_486
 INC_CACHE_BYTES = 16 << 30  # room for the cached result and leaf pins
+# the 3-D mean stream (1 GiB) and its batches; the inner-sum probe's
+# operands and row windows
+INC_MEAN3D, INC_MEAN3D_BATCHES = (1024, 64, 4096), 4
+INC_INNER_SHAPES = ((16_384, 16_384), (2 ** 22, 32))
+INC_INNER_ROWS = (1, 7, 164, 8192)
 INC_OFF_ITERS, INC_OFF_REPS = 200, 3
 # [monitor]: the sampler's cadence, the per-evaluate k-means run each arm
 # times, and the planted calibration drift
@@ -7819,9 +8016,11 @@ def _inc_report(st, expr) -> dict:
         if plan is not None else {}
 
 
-def _inc_pagerank_arm(st, streaming, a, starts, width: int, on: bool):
+def _inc_pagerank_arm(st, streaming, a, starts, width: int, on: bool,
+                      profiler=None):
     """One arm of the edge-insert stream: per batch the seam write (its
-    own ms, synchronised outside the step window), then one step."""
+    own ms, synchronised outside the step window), then one step (under
+    ``profiler``, a ``cProfile.Profile``, where one is given)."""
     from spartan_tpu_torch.utils.config import FLAGS
 
     FLAGS.incremental = on
@@ -7841,16 +8040,222 @@ def _inc_pagerank_arm(st, streaming, a, starts, width: int, on: bool):
         pr.insert_edges(slice(j, j + width), vals)
         torch.cuda.synchronize()
         seam.append((time.perf_counter() - t) * 1e3)
+        if profiler is not None:
+            profiler.enable()
         t = time.perf_counter()
         pr.step()
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t) * 1e3)
+        if profiler is not None:
+            profiler.disable()
         rep = _inc_report(st, pr._step_expr())
         reasons.append(rep.get("fallback") or rep.get("mode"))
     cnt = _delta(_inc_counters(st), c0)
     FLAGS.incremental = False
     # the ranks (this rank's block of them on a group mesh)
     return pr.ranks.local, seam, steps, cnt, reasons
+
+
+def _inc_colsum_arm(st, kr, a, starts, width: int, on: bool,
+                    profiler=None):
+    """One arm of the column-sum stream: the in-degree weights
+    ``st.sum(A, 0)`` of the transition ``a`` after each batch's seam
+    write of ``width`` columns (the sum under ``profiler`` where one is
+    given). Returns each warm sum (this rank's block of it on a group
+    mesh), its ms, the counter deltas, each warm evaluate's mode and the
+    arm's ``fixed_order_reduce`` launches (the cold sum's and the warm
+    ones')."""
+    from spartan_tpu_torch.array import distarray as da
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    FLAGS.incremental = on
+    n = a.shape[0]
+    gen = torch.Generator(device=a.device)
+    gen.manual_seed(86)
+    arr = da.from_tensor(a.clone())
+    kr.LAUNCHES["fixed_order_reduce"] = 0
+    st.sum(arr, 0).evaluate()  # the cold sum: a plan miss, the cache's seed
+    torch.cuda.synchronize()
+    c0 = _inc_counters(st)
+    outs, ms, reasons = [], [], []
+    for j in starts:
+        vals = torch.rand((n, width), generator=gen, device=a.device)
+        arr = arr.update((slice(0, n), slice(j, j + width)), vals)
+        del vals
+        torch.cuda.synchronize()
+        if profiler is not None:
+            profiler.enable()
+        t = time.perf_counter()
+        got = st.sum(arr, 0).evaluate()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if profiler is not None:
+            profiler.disable()
+        outs.append(got.local.clone())
+        rep = _inc_report(st, st.sum(arr, 0))
+        reasons.append(rep.get("fallback") or rep.get("mode"))
+    cnt = _delta(_inc_counters(st), c0)
+    launches = kr.LAUNCHES["fixed_order_reduce"]
+    FLAGS.incremental = False
+    del arr
+    return outs, ms, cnt, reasons, launches
+
+
+def _inc_colsums(st, kr, card: str, dev, n: int, batches: int,
+                 tag: str = "[incremental]", profiler=None) -> dict:
+    """The column-sum stream at ``n``^2, flag on then off: every warm sum
+    served, bit-equal, ``1 + batches`` kernel launches in the on arm."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(87)
+    a = torch.rand((n, n), generator=gen, device=dev)
+    a /= a.sum(1, keepdim=True)
+    width = -(-n * int(INC_FRAC * 1000) // 1000)
+    starts = [(j * 7919 * width) % (n - width)
+              for j in range(1, batches + 1)]
+    on = _inc_colsum_arm(st, kr, a, starts, width, True, profiler)
+    off = _inc_colsum_arm(st, kr, a, starts, width, False)
+    del a
+    torch.cuda.empty_cache()
+    equal = all(torch.equal(x, y) for x, y in zip(on[0], off[0]))
+    s_on, s_off = float(np.median(on[1])), float(np.median(off[1]))
+    _say(f"{tag} column sums st.sum(A, 0) of {n}^2 f32, {batches} batches "
+         f"of {width} columns: median {s_on:.3f} ms on, {s_off:.3f} ms off "
+         f"(x{s_off / s_on:.2f}); counters on {on[2]}, off {off[2]}; the "
+         f"on arm's modes {sorted(set(on[3]))}; fixed_order_reduce "
+         f"launches in the on arm {on[4]} (the cold sum and each warm "
+         f"one); every warm sum bit-equal {equal} on {card}")
+    if not equal:
+        _fail(f"{tag} the column sums at {n} are not bit-equal")
+    if on[2]["hits"] != batches or on[2]["fallbacks"] != 0 \
+            or off[2]["hits"] + off[2]["fallbacks"] != 0:
+        _fail(f"{tag} the warm column sums were not all served: on "
+              f"{on[2]} {on[3]}, off {off[2]}")
+    if on[4] != batches + 1:
+        _fail(f"{tag} the on arm launched fixed_order_reduce {on[4]} "
+              f"times, want {batches + 1}")
+    return {"on_ms": s_on, "off_ms": s_off, "counters": on[2],
+            "modes": sorted(set(on[3])), "launches": on[4]}
+
+
+def _inc_mean3d(st, kr, card: str, dev) -> dict:
+    """A 3-D mean along axis 0 of a (1024, 64, 4096) f32 array after
+    each of INC_MEAN3D_BATCHES rewrites of 1% of its last axis, flag on
+    then off: served, bit-equal, one launch a warm mean (the CPU's torch
+    sums cannot restrict it: two kept axes follow the reduced one); the
+    on arm's cold mean and last warm mean bit-equal to the plain version
+    of the whole array."""
+    from spartan_tpu_torch.array import distarray as da
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(88)
+    first = torch.rand(INC_MEAN3D, generator=gen, device=dev)
+    d0, d1, d2 = INC_MEAN3D
+    width = -(-d2 * int(INC_FRAC * 1000) // 1000)
+    res = {}
+    for on in (True, False):
+        FLAGS.incremental = on
+        g = torch.Generator(device=dev)
+        g.manual_seed(89)
+        arr = da.from_tensor(first.clone())
+        kr.LAUNCHES["fixed_order_reduce"] = 0
+        cold = st.mean(arr, 0).evaluate().local
+        torch.cuda.synchronize()
+        if on and not torch.equal(cold, kr.fixed_order_reduce_plain(
+                first, "mean", (0,))):
+            _fail("[incremental] the 3-D mean's cold walk differs from the "
+                  "plain version")
+        del cold
+        c0 = _inc_counters(st)
+        outs, ms = [], []
+        for j in range(INC_MEAN3D_BATCHES):
+            lo = (j * 1531 * width) % (d2 - width)
+            arr = arr.update((slice(0, d0), slice(0, d1),
+                              slice(lo, lo + width)),
+                             torch.rand((d0, d1, width), generator=g,
+                                        device=dev))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(st.mean(arr, 0).evaluate().local.clone())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        if on and not torch.equal(outs[-1], kr.fixed_order_reduce_plain(
+                arr.tensor, "mean", (0,))):
+            _fail("[incremental] the 3-D mean's last served walk differs "
+                  "from the plain version of the whole array")
+        res[on] = (outs, float(np.median(ms)),
+                   _delta(_inc_counters(st), c0),
+                   kr.LAUNCHES["fixed_order_reduce"])
+        del arr
+    FLAGS.incremental = False
+    del first
+    torch.cuda.empty_cache()
+    (o_on, m_on, d_on, l_on), (o_off, m_off, _, _) = res[True], res[False]
+    equal = all(torch.equal(x, y) for x, y in zip(o_on, o_off))
+    _say(f"[incremental] 3-D mean along axis 0 of {INC_MEAN3D} f32, "
+         f"{INC_MEAN3D_BATCHES} rewrites of {width} of the last axis: "
+         f"median {m_on:.3f} ms on, {m_off:.3f} ms off; counters {d_on}; "
+         f"fixed_order_reduce launches in the on arm {l_on}; bit-equal "
+         f"{equal} on {card}")
+    if not equal:
+        _fail("[incremental] the 3-D mean is not bit-equal")
+    if d_on["hits"] != INC_MEAN3D_BATCHES or d_on["fallbacks"] != 0 \
+            or l_on != INC_MEAN3D_BATCHES + 1:
+        _fail(f"[incremental] the 3-D mean was not served: {d_on}, "
+              f"{l_on} launches")
+    return {"on_ms": m_on, "off_ms": m_off, "counters": d_on,
+            "launches": l_on}
+
+
+def _inc_inner_probe(kr, dev) -> str:
+    """Do torch's inner-axis sums on the card keep the full sum's bits in
+    a window of rows? ``x.sum(1)`` of each INC_INNER_SHAPES operand in
+    row windows of INC_INNER_ROWS rows at three offsets, against the
+    full sum's rows (printed, not gated: the engine routes these sums
+    through the fixed-order kernel), and the kernel's own windows (which
+    must hold)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(90)
+    out = []
+    for shape in INC_INNER_SHAPES:
+        x = torch.rand(shape, generator=gen, device=dev)
+        full, mine = x.sum(1), kr.fixed_order_reduce(x, "sum", 1)
+        missed, kept, tries = [], 0, 0
+        for w in INC_INNER_ROWS:
+            for lo in (0, 777, shape[0] - w):
+                tries += 1
+                if not torch.equal(full[lo:lo + w], x[lo:lo + w].sum(1)):
+                    missed.append((lo, w))
+                kept += int(torch.equal(mine[lo:lo + w],
+                                        kr.fixed_order_reduce(
+                                            x[lo:lo + w], "sum", 1)))
+        del x, full, mine
+        if kept != tries:
+            _fail(f"[incremental] fixed_order_reduce's row windows of "
+                  f"{shape} held {kept}/{tries}")
+        out.append(f"{shape}: torch.sum {tries - len(missed)}/{tries} "
+                   f"(missed (start, rows) {missed}), fixed_order_reduce "
+                   f"{kept}/{tries}")
+    torch.cuda.empty_cache()
+    return "; ".join(out)
+
+
+def _top_cumulative(profiler, calls: int, n: int = 10) -> str:
+    """The ``n`` functions with the most cumulative time in a
+    ``cProfile`` run over ``calls`` calls, each as file:line(name),
+    cumulative and own ms a call, and calls a call."""
+    import pstats
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = sorted(pstats.Stats(profiler).stats.items(),
+                  key=lambda kv: kv[1][3], reverse=True)[:n]
+    out = []
+    for (path, line, name), (_, nc, tt, ct, _) in rows:
+        where = (os.path.relpath(path, here) if path.startswith(here)
+                 else os.path.basename(path))
+        out.append(f"{where}:{line}({name}) {1e3 * ct / calls:.3f} ms "
+                   f"cum, {1e3 * tt / calls:.3f} own, {nc / calls:g} calls")
+    return "; ".join(out)
 
 
 def _inc_order_check(kg, n: int, dev) -> str:
@@ -8043,9 +8448,12 @@ def _inc_window(st, card: str, dev, pushes: int = INC_BATCHES,
             "counters": d_on}
 
 
-def phase_incremental(st, kk, kg, km, card: str, dev, kmr: dict) -> dict:
+def phase_incremental(st, kk, kg, kr, km, card: str, dev,
+                      kmr: dict) -> dict:
     """[incremental]: the delta-aware engine on the card (module
     docstring)."""
+    import cProfile
+
     from spartan_tpu_torch.examples import streaming
     from spartan_tpu_torch.expr import incremental as inc
     from spartan_tpu_torch.utils.config import FLAGS
@@ -8059,6 +8467,9 @@ def phase_incremental(st, kk, kg, km, card: str, dev, kmr: dict) -> dict:
              f"{inc.order_granule(dev)}; restricted r @ A[:, window] "
              f"against the full product's bits at n = {INC_NS[0]}: "
              f"{_inc_order_check(kg, INC_NS[0], dev)} on {card}")
+        _say(f"[incremental] inner-axis sums x.sum(1) restricted to row "
+             f"windows of {INC_INNER_ROWS} against the full sum's rows: "
+             f"{_inc_inner_probe(kr, dev)} on {card}")
         for n in INC_NS:
             gen = torch.Generator(device=dev)
             gen.manual_seed(83)
@@ -8068,7 +8479,9 @@ def phase_incremental(st, kk, kg, km, card: str, dev, kmr: dict) -> dict:
             starts = [(j * 7919 * width) % (n - width)
                       for j in range(1, INC_BATCHES + 1)]
             kg.LAUNCHES["fixed_order_dot"] = 0
-            on = _inc_pagerank_arm(st, streaming, a, starts, width, True)
+            prof = cProfile.Profile() if n == INC_NS[0] else None
+            on = _inc_pagerank_arm(st, streaming, a, starts, width, True,
+                                   prof)
             launches = kg.LAUNCHES["fixed_order_dot"]
             off = _inc_pagerank_arm(st, streaming, a, starts, width, False)
             del a
@@ -8096,6 +8509,19 @@ def phase_incremental(st, kk, kg, km, card: str, dev, kmr: dict) -> dict:
             out.setdefault("gemv_launches", launches)
             out[n] = {"on_ms": s_on, "off_ms": s_off, "counters": on[3],
                       "modes": sorted(set(on[4]))}
+            sprof = cProfile.Profile() if n == INC_NS[0] else None
+            out[f"colsum{n}"] = _inc_colsums(st, kr, card, dev, n,
+                                             INC_BATCHES, profiler=sprof)
+            out.setdefault("reduce_launches", out[f"colsum{n}"]["launches"])
+            if prof is not None:
+                _say(f"[incremental] host profile (cProfile) of the "
+                     f"{INC_BATCHES} served PageRank steps at {n}^2, top 10 "
+                     f"by cumulative time: "
+                     f"{_top_cumulative(prof, INC_BATCHES)} on {card}")
+                _say(f"[incremental] host profile (cProfile) of the "
+                     f"{INC_BATCHES} served column sums at {n}^2, top 10 by "
+                     f"cumulative time: "
+                     f"{_top_cumulative(sprof, INC_BATCHES)} on {card}")
         n = INC_NS[0]
         gen = torch.Generator(device=dev)
         gen.manual_seed(84)
@@ -8117,6 +8543,7 @@ def phase_incremental(st, kk, kg, km, card: str, dev, kmr: dict) -> dict:
         torch.cuda.empty_cache()
         _say(f"[incremental] delta curve at {n}: " + "; ".join(curve)
              + f" on {card}")
+        out["mean3d"] = _inc_mean3d(st, kr, card, dev)
         _inc_window(st, card, dev)
         _inc_refine(st, kk, card, dev, kmr)
         out.update(_inc_off_path(st, km, card, kmr))
@@ -8489,6 +8916,9 @@ def _ig_incremental(st, kk, card: str, dev, kmr: dict) -> dict:
                        "off_ms": float(np.median(off[2])),
                        "seam_ms": float(np.median(on[1])),
                        "counters": on[3], "reasons": on[4]}
+    from spartan_tpu_torch.kernels import reduce as kr
+
+    out["colsums"] = _inc_colsums(st, kr, card, dev, n, IGI_PR_BATCHES, tag)
     out["refine"] = _inc_refine(st, kk, card, dev, kmr, tag, runs=3)
     FLAGS.incremental = False
     inc.clear()
@@ -8508,7 +8938,7 @@ def phase_incremental_group(st, card: str, workdir: str) -> dict:
     d = os.path.join(workdir, "inc")
     r = _ig_join(_ig_world(d, dict(base, kind="incremental", world=2)), d,
                  "[incremental_group]")
-    for key in ("window", "pagerank", "refine"):
+    for key in ("window", "pagerank", "colsums", "refine"):
         if r[0][key]["counters"] != r[1][key]["counters"]:
             _fail(f"[incremental_group] the ranks' {key} counters differ: "
                   f"{r[0][key]['counters']} / {r[1][key]['counters']}")
@@ -8516,12 +8946,14 @@ def phase_incremental_group(st, card: str, workdir: str) -> dict:
         _fail("[incremental_group] the ranks' PageRank reasons differ")
     w0 = r[0]["window"]["counters"]
     _say(f"[incremental_group] both ranks alike: window {w0}, PageRank "
-         f"{r[0]['pagerank']['counters']}, refine "
+         f"{r[0]['pagerank']['counters']}, column sums "
+         f"{r[0]['colsums']['counters']}, refine "
          f"{r[0]['refine']['counters']} with row-1 launches a rank "
          f"{[rr['refine']['launches'] for rr in r]}; phase "
          f"{time.perf_counter() - t0:.1f} s on {card}")
     return {"refine_launches": [rr["refine"]["launches"][0] for rr in r],
             "gemv_launches": [rr["gemv_launches"] for rr in r],
+            "reduce_launches": [rr["colsums"]["launches"] for rr in r],
             "window_on_ms": r[0]["window"]["on_ms"],
             "window_off_ms": r[0]["window"]["off_ms"]}
 
@@ -8831,6 +9263,7 @@ def main() -> None:
     from spartan_tpu_torch.kernels import exchange as kx
     from spartan_tpu_torch.kernels import gemv as kg
     from spartan_tpu_torch.kernels import histogram as kh
+    from spartan_tpu_torch.kernels import reduce as kr
     from spartan_tpu_torch.kernels import segment as ks
     from spartan_tpu_torch.kernels import stencil as kst
     from spartan_tpu_torch.kernels import topk as kt
@@ -8840,7 +9273,7 @@ def main() -> None:
     card = phase_device()
     dev = torch.device("cuda")
     st.set_default_device(dev)
-    _COUNTED[:] = [ks, kx, kt, kh, kst, kg]
+    _COUNTED[:] = [ks, kx, kt, kh, kst, kg, kr]
     phase_build(build_mod, (kk._load, ks._load, kx._load, kt._load,
                             kh._load, kst._load, kg._load))
     _histogram_layout(kh, dev)
@@ -8851,6 +9284,7 @@ def main() -> None:
     stencil_err = phase_stencil_kernel(kst, dev)
     gemv = phase_gemv(kg, card, dev)
     phase_gemv_split(card, gemv["cases"])
+    red = phase_reduce(kr, kg, card, dev)
     t0 = time.perf_counter()
     links = pagerank_links(st.SparseDistArray)
     links.transition()._ensure_plan()
@@ -8907,7 +9341,7 @@ def main() -> None:
         serve = phase_serve(st, kk, km, card, dev, kmr, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    incr = phase_incremental(st, kk, kg, km, card, dev, kmr)
+    incr = phase_incremental(st, kk, kg, kr, km, card, dev, kmr)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_group_guard_")
     try:
         igr = phase_integrity_group(st, card, workdir)
@@ -8930,7 +9364,8 @@ def main() -> None:
         "kernel_ms:partition_pack": sortr["ms"],
         "kernel_ms:shard_topk": topkr["ms"],
         "kernel_ms:bincount_block": histr["ms"],
-        "kernel_ms:conv_block": vggr["ms"]}
+        "kernel_ms:conv_block": vggr["ms"],
+        "kernel_ms:fixed_order_reduce": red["ms"]}
     phase_benchguard(card, figures)
     _say(json.dumps({"kernels": [{
         "name": "kmeans_assign_accumulate", "route": "cuda",
@@ -9025,7 +9460,20 @@ def main() -> None:
             gemv["max_abs_err"], "ms": gemv["ms"],
         "plain_ms": gemv["plain_ms"], "bound_ms": gemv["bound_ms"],
         "bound_by": gemv["bound_by"], "library_ms": gemv["library_ms"],
-        "group_incremental_launches_per_rank": incg["gemv_launches"]}]}))
+        "group_incremental_launches_per_rank": incg["gemv_launches"]}, {
+        "name": "fixed_order_reduce", "route": "cuda",
+        "source": "spartan_tpu_torch/csrc/gemv.cu",
+        "replaces": "spartan_tpu/expr/reduce.py:96 (no Pallas kernel: "
+                    "XLA's reduce of a sum, mean or product)",
+        "launches": incr["reduce_launches"], "max_abs_err":
+            red["max_abs_err"], "ms": red["ms"],
+        "plain_ms": red["plain_ms"], "bound_ms": red["bound_ms"],
+        "bound_by": red["bound_by"], "library_ms": red["library_ms"],
+        "cases_ms": {c["label"]: [c["ms"], c["library_ms"], c["bound_ms"]]
+                     for c in red["cases"]},
+        "mean3d_launches": incr["mean3d"]["launches"],
+        "serve_launches": serve["kernels"]["fixed_order_reduce"],
+        "group_incremental_launches_per_rank": incg["reduce_launches"]}]}))
     _say(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}"
          " s")
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,30 @@
 // of S adds a column is the floor of a narrow product with a long
 // contraction (16,384 adds at (2^22, 32)); it is not started early,
 // since no product the port runs has both a narrow output and S >> 64.
+//
+// fixed_order_reduce (kernels/reduce.py) is the same design without the
+// vector: a float32 sum, mean or product along a run of axes, replacing
+// no Pallas kernel either (the JAX package leaves a reduction to XLA,
+// spartan_tpu/expr/reduce.py). The wrapper views the operand as
+// (P, R, Q): P the kept axes before the reduced run, R the reduced axes
+// (flattened in ascending order), Q the kept axes after them. Its order:
+//
+//   slice s covers r in [s*KS, min(R, (s+1)*KS))
+//   part[s, p, q] = fold from the identity over that slice's r,
+//                   ascending, of A[p, r, q]
+//   out[p, q]     = fold from the identity over s, ascending
+//
+// with the identity 0.0 and __fadd_rn for a sum, 1.0 and __fmul_rn for
+// a product (the wrapper divides a mean's sum by R once). Pass 1 and the
+// fold are the GEMV's, templated on the op (DotOp, SumOp, ProdOp below):
+// Q >= 2 takes the vector-matrix pass with P in the grid (block t =
+// (p, column block, slice group)), Q = 1 the matrix-vector pass with
+// rows = P. Only R and KS shape an element's order, so a window of the
+// kept axes gives the whole reduction's bits in it, and a sum along
+// axis 0 of a matrix gives the bits of fixed_order_dot(ones, A)
+// (1.0 * a is exact). Bound: the operand read
+// once, 4 P R Q bytes at 3.35 TB/s (0.32 ms at 16,384^2, 0.16 ms at
+// 1,048,576 x 128); the slice buffer adds 4 S P Q bytes written and read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,6 +126,42 @@ __device__ __forceinline__ float mul(float a, float b) {
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);
 }
+
+// The ops pass 1 and the fold are templated on: a slice folds
+// step(acc, x[k], A[k, m]) from init(), the fold folds the slices' values
+// with fold(acc, v) from init(). Only DotOp reads the vector.
+struct DotOp {
+  static constexpr bool kVector = true;
+  static __device__ __forceinline__ float init() { return 0.0f; }
+  static __device__ __forceinline__ float step(float acc, float x, float v) {
+    return add(acc, mul(x, v));
+  }
+  static __device__ __forceinline__ float fold(float acc, float v) {
+    return add(acc, v);
+  }
+};
+
+struct SumOp {
+  static constexpr bool kVector = false;
+  static __device__ __forceinline__ float init() { return 0.0f; }
+  static __device__ __forceinline__ float step(float acc, float, float v) {
+    return add(acc, v);
+  }
+  static __device__ __forceinline__ float fold(float acc, float v) {
+    return add(acc, v);
+  }
+};
+
+struct ProdOp {
+  static constexpr bool kVector = false;
+  static __device__ __forceinline__ float init() { return 1.0f; }
+  static __device__ __forceinline__ float step(float acc, float, float v) {
+    return mul(acc, v);
+  }
+  static __device__ __forceinline__ float fold(float acc, float v) {
+    return mul(acc, v);
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -161,23 +221,24 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 }
 
 // The slice buffer's place of (slice s, column col): tiles of 32 columns,
-// each S x 32 slice-major.
+// each S x 32 slice-major (a batch's tiles follow the previous batch's).
 __device__ __forceinline__ long long tiled(long long s, long long col,
                                            long long S) {
   return (col >> 5) * S * 32 + s * 32 + (col & 31);
 }
 
-// Write W adjacent slice sums from column col (W divides 32 and col):
+// Write W adjacent slice values from column col (W divides 32 and col):
 // into the output where there is one slice (the fold over slices from
-// 0.0 is then 0.0 + sum), else into the slice buffer.
-template <int W>
+// the identity is then init() op value), else into the slice buffer.
+template <int W, class Op>
 __device__ __forceinline__ void put(const float (&acc)[W], long long s,
                                     long long S, long long col,
                                     float* __restrict__ part,
                                     float* __restrict__ out) {
   float v[W];
 #pragma unroll
-  for (int c = 0; c < W; ++c) v[c] = S == 1 ? add(0.0f, acc[c]) : acc[c];
+  for (int c = 0; c < W; ++c)
+    v[c] = S == 1 ? Op::fold(Op::init(), acc[c]) : acc[c];
   float* dst = S == 1 ? out + col : part + tiled(s, col, S);
   if constexpr (W == 4) {
     *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
@@ -199,20 +260,25 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[W]) {
   }
 }
 
-// out[m] = fold from 0.0 over s ascending of the slice sums of column
-// m. Block b (one warp) folds the tile of columns 32 b .. 32 b + 31,
-// lane l column 32 b + l. Lane 0 copies stage st (`rows` slices of the
-// tile, contiguous) into slot st % ring of a ring of `ring` stages with
-// an mbarrier each, keeping ring - 1 stages in flight; the lanes add
-// each stage as it lands.
+// out[p, m] = fold from init() over s ascending of the slice values of
+// batch p's column m. Block b (one warp) folds tile b of the slice
+// buffer: batch b / tiles, columns 32 (b % tiles) .. + 31, lane l the
+// tile's column l. Lane 0 copies stage st (`rows` slices of the tile,
+// contiguous) into slot st % ring of a ring of `ring` stages with an
+// mbarrier each, keeping ring - 1 stages in flight; the lanes fold each
+// stage as it lands.
+template <class Op>
 __global__ void __launch_bounds__(32)
 fold_slices(const float* __restrict__ part, long long S, long long M,
-            int rows, int ring, float* __restrict__ out) {
+            long long tiles, int rows, int ring,
+            float* __restrict__ out) {
   extern __shared__ __align__(128) float slots[];
   __shared__ __align__(8) uint64_t landed[kRing];
   const int lane = threadIdx.x;
-  const long long c0 = static_cast<long long>(blockIdx.x) * 32;
-  const float* tile = part + c0 * S;
+  const long long b = blockIdx.x;
+  const long long p = b / tiles;
+  const long long c0 = (b - p * tiles) * 32;
+  const float* tile = part + b * S * 32;
   const long long stages = (S + rows - 1) / rows;
   if (lane == 0) {
     for (int i = 0; i < ring; ++i) mbar_init(&landed[i]);
@@ -230,7 +296,7 @@ fold_slices(const float* __restrict__ part, long long S, long long M,
     bulk_copy(slots + (st % ring) * rows * 32, tile + s0 * 32, n * 128, bar);
   };
   for (int st = 0; st < ring - 1; ++st) issue(st);
-  float acc = 0.0f;
+  float acc = Op::init();
   for (long long st = 0; st < stages; ++st) {
     __syncwarp();  // every lane is done with the slot issue() refills
     issue(st + ring - 1);
@@ -241,16 +307,17 @@ fold_slices(const float* __restrict__ part, long long S, long long M,
     const long long left = S - st * rows;
     if (left >= kFoldRows) {  // a full stage: rows == kFoldRows
 #pragma unroll
-      for (int i = 0; i < kFoldRows; ++i) acc = add(acc, src[i * 32]);
+      for (int i = 0; i < kFoldRows; ++i) acc = Op::fold(acc, src[i * 32]);
     } else {
-      for (int i = 0; i < left; ++i) acc = add(acc, src[i * 32]);
+      for (int i = 0; i < left; ++i) acc = Op::fold(acc, src[i * 32]);
     }
   }
-  if (c0 + lane < M) out[c0 + lane] = acc;
+  if (c0 + lane < M) out[p * M + c0 + lane] = acc;
 }
 
-// kRowsAhead rows of A from p (lda apart) and their x values, loaded
-template <int W>
+// kRowsAhead rows of A from p (lda apart) and, for DotOp, their x values,
+// loaded
+template <int W, class Op>
 __device__ __forceinline__ void load_batch(const float* __restrict__ x,
                                            const float* __restrict__ p,
                                            long long lda,
@@ -259,79 +326,86 @@ __device__ __forceinline__ void load_batch(const float* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < kRowsAhead; ++i) {
     load_row<W>(p + i * lda, v[i]);
-    xv[i] = __ldg(x + i);
+    xv[i] = Op::kVector ? __ldg(x + i) : 0.0f;
   }
 }
 
-// a loaded batch added onto acc, row by row in ascending k
-template <int W>
+// a loaded batch folded onto acc, row by row in ascending k
+template <int W, class Op>
 __device__ __forceinline__ void add_batch(const float (&v)[kRowsAhead][W],
                                           const float (&xv)[kRowsAhead],
                                           float (&acc)[W]) {
 #pragma unroll
   for (int i = 0; i < kRowsAhead; ++i) {
 #pragma unroll
-    for (int c = 0; c < W; ++c) acc[c] = add(acc[c], mul(xv[i], v[i][c]));
+    for (int c = 0; c < W; ++c) acc[c] = Op::step(acc[c], xv[i], v[i][c]);
   }
 }
 
-// vector-matrix pass 1. Block t = (column block t / slice_groups,
-// slice group t % slice_groups); its thread (x, y) owns column unit
+// vector-matrix pass 1 over P batches of A (batch p at a + p * sp, its
+// output at out + p * M). Block t = (batch, column block, slice group),
+// slice group fastest; its thread (x, y) owns column unit
 // cb * blockDim.x + x (W columns) and slice sg * blockDim.y + y.
-template <int W>
+template <int W, class Op>
 __global__ void __launch_bounds__(kThreads)
 vecmat_pass1(const float* __restrict__ x, const float* __restrict__ a,
-             long long lda, long long K, long long M, long long S,
-             long long units, long long slice_groups,
-             float* __restrict__ part, float* __restrict__ out) {
-  const long long t = blockIdx.x;
+             long long lda, long long sp, long long K, long long M,
+             long long S, long long units, long long col_blocks,
+             long long slice_groups, float* __restrict__ part,
+             float* __restrict__ out) {
+  long long t = blockIdx.x;
+  const long long batch = t / (col_blocks * slice_groups);
+  t -= batch * col_blocks * slice_groups;
   const long long u = (t / slice_groups) * blockDim.x + threadIdx.x;
   const long long s = (t % slice_groups) * blockDim.y + threadIdx.y;
   if (u < units && s < S) {
+    a += batch * sp;
+    out += batch * M;
+    if (S > 1) part += batch * ((M + 31) / 32) * S * 32;
     const long long col = u * W;
     const long long k0 = s * KS;
     const long long k1 = K < k0 + KS ? K : k0 + KS;
     const float* p = a + k0 * lda + col;
     float acc[W];
 #pragma unroll
-    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+    for (int c = 0; c < W; ++c) acc[c] = Op::init();
     // batches of kRowsAhead rows, two register buffers: the next
-    // batch's loads are in flight while this one is added
+    // batch's loads are in flight while this one is folded
     const int batches = static_cast<int>((k1 - k0) / kRowsAhead);
     float va[kRowsAhead][W], vb[kRowsAhead][W];
     float xa[kRowsAhead], xb[kRowsAhead];
-    if (batches > 0) load_batch<W>(x + k0, p, lda, va, xa);
+    if (batches > 0) load_batch<W, Op>(x + k0, p, lda, va, xa);
     int b = 0;
     for (; b + 1 < batches; b += 2) {
-      load_batch<W>(x + k0 + (b + 1) * kRowsAhead,
-                    p + (b + 1) * kRowsAhead * lda, lda, vb, xb);
-      add_batch<W>(va, xa, acc);
+      load_batch<W, Op>(x + k0 + (b + 1) * kRowsAhead,
+                        p + (b + 1) * kRowsAhead * lda, lda, vb, xb);
+      add_batch<W, Op>(va, xa, acc);
       if (b + 2 < batches)
-        load_batch<W>(x + k0 + (b + 2) * kRowsAhead,
-                      p + (b + 2) * kRowsAhead * lda, lda, va, xa);
-      add_batch<W>(vb, xb, acc);
+        load_batch<W, Op>(x + k0 + (b + 2) * kRowsAhead,
+                          p + (b + 2) * kRowsAhead * lda, lda, va, xa);
+      add_batch<W, Op>(vb, xb, acc);
     }
-    if (b < batches) add_batch<W>(va, xa, acc);  // an odd count's last
+    if (b < batches) add_batch<W, Op>(va, xa, acc);  // an odd count's last
     long long k = k0 + static_cast<long long>(batches) * kRowsAhead;
     p += (k - k0) * lda;
     for (; k < k1; ++k, p += lda) {
       float v[W];
       load_row<W>(p, v);
-      const float xk = __ldg(x + k);
+      const float xk = Op::kVector ? __ldg(x + k) : 0.0f;
 #pragma unroll
-      for (int c = 0; c < W; ++c) acc[c] = add(acc[c], mul(xk, v[c]));
+      for (int c = 0; c < W; ++c) acc[c] = Op::step(acc[c], xk, v[c]);
     }
-    put<W>(acc, s, S, col, part, out);
+    put<W, Op>(acc, s, S, col, part, out);
   }
 }
 
 // Rows r0 .. r0 + 31 of A's columns [kc, kc + n) into a warp's tile
-// (pitch kPitch) and x[kc, kc + n) after it, by cp.async; rows at or past
-// M and columns past n are zeros. V = 4: 16-byte copies (A's base
-// 16-byte aligned, lda a multiple of 4), lane l copying floats
+// (pitch kPitch) and, for DotOp, x[kc, kc + n) after it, by cp.async;
+// rows at or past M and columns past n are zeros. V = 4: 16-byte copies
+// (A's base 16-byte aligned, lda a multiple of 4), lane l copying floats
 // 4 (l % kLanesPerRow) .. + 3 of rows l / kLanesPerRow + kRowsPerCopy j;
 // V = 1: 4-byte copies, lane l copying columns l, l + 32, ... of each row.
-template <int V>
+template <int V, class Op>
 __device__ __forceinline__ void copy_chunk(float* tile,
                                            const float* __restrict__ a,
                                            long long lda,
@@ -362,15 +436,19 @@ __device__ __forceinline__ void copy_chunk(float* tile,
       }
     }
   }
+  if constexpr (Op::kVector) {
 #pragma unroll
-  for (int c = lane; c < kChunk; c += 32) {
-    const bool ok = c < n;
-    cp_async4(tile + 32 * kPitch + c, ok ? x + kc + c : x, ok ? 4 : 0);
+    for (int c = lane; c < kChunk; c += 32) {
+      const bool ok = c < n;
+      cp_async4(tile + 32 * kPitch + c, ok ? x + kc + c : x, ok ? 4 : 0);
+    }
   }
 }
 
 // Lane i's row of a landed tile folded onto acc, columns 0 .. n - 1 in
-// order (16-byte reads of the row and of x where four remain).
+// order (16-byte reads of the row, and of x for DotOp, where four
+// remain).
+template <class Op>
 __device__ __forceinline__ float fold_chunk(const float* tile, int n,
                                             int lane, float acc) {
   const float* row = tile + lane * kPitch;
@@ -378,25 +456,26 @@ __device__ __forceinline__ float fold_chunk(const float* tile, int n,
   int j = 0;
   for (; j + 4 <= n; j += 4) {
     const float4 v = *reinterpret_cast<const float4*>(row + j);
-    const float4 w = *reinterpret_cast<const float4*>(xs + j);
-    acc = add(acc, mul(w.x, v.x));
-    acc = add(acc, mul(w.y, v.y));
-    acc = add(acc, mul(w.z, v.z));
-    acc = add(acc, mul(w.w, v.w));
+    float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (Op::kVector) w = *reinterpret_cast<const float4*>(xs + j);
+    acc = Op::step(acc, w.x, v.x);
+    acc = Op::step(acc, w.y, v.y);
+    acc = Op::step(acc, w.z, v.z);
+    acc = Op::step(acc, w.w, v.w);
   }
-  for (; j < n; ++j) acc = add(acc, mul(xs[j], row[j]));
+  for (; j < n; ++j) acc = Op::step(acc, Op::kVector ? xs[j] : 0.0f, row[j]);
   return acc;
 }
 
 // matrix-vector pass 1. Block t = (row block t / slice_groups, slice
 // group t % slice_groups); its warp w owns the block's 32 rows and slice
 // sg * kMvWarps + w.
-template <int V>
+template <int V, class Op>
 __global__ void __launch_bounds__(kMvWarps * 32)
 matvec_pass1(const float* __restrict__ a, long long lda,
              const float* __restrict__ x, long long K, long long M,
-             long long S, long long slice_groups, float* __restrict__ part,
-             float* __restrict__ out) {
+             long long S, long long slice_groups,
+             float* __restrict__ part, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -408,32 +487,34 @@ matvec_pass1(const float* __restrict__ a, long long lda,
     const long long k0 = s * KS;
     const long long k1 = K < k0 + KS ? K : k0 + KS;
     const int chunks = static_cast<int>((k1 - k0 + kChunk - 1) / kChunk);
-    float acc = 0.0f;
-    copy_chunk<V>(tiles, a, lda, x, r0, M, k0,
-                  static_cast<int>(k1 - k0 < kChunk ? k1 - k0 : kChunk),
-                  lane);
+    float acc = Op::init();
+    copy_chunk<V, Op>(tiles, a, lda, x, r0, M, k0,
+                      static_cast<int>(k1 - k0 < kChunk ? k1 - k0 : kChunk),
+                      lane);
     cp_async_commit();
     for (int c = 0; c < chunks; ++c) {
       if (c + 1 < chunks) {
         const long long kn = k0 + static_cast<long long>(c + 1) * kChunk;
-        copy_chunk<V>(tiles + ((c + 1) & 1) * kTileFloats, a, lda, x, r0,
-                      M, kn,
-                      static_cast<int>(k1 - kn < kChunk ? k1 - kn : kChunk),
-                      lane);
+        copy_chunk<V, Op>(tiles + ((c + 1) & 1) * kTileFloats, a, lda, x,
+                          r0, M, kn,
+                          static_cast<int>(k1 - kn < kChunk ? k1 - kn
+                                                            : kChunk),
+                          lane);
       }
       cp_async_commit();  // empty past the last chunk: one group a step
       cp_async_wait<1>();
       __syncwarp();
       const long long kc = k0 + static_cast<long long>(c) * kChunk;
-      acc = fold_chunk(tiles + (c & 1) * kTileFloats,
-                       static_cast<int>(k1 - kc < kChunk ? k1 - kc : kChunk),
-                       lane, acc);
+      acc = fold_chunk<Op>(tiles + (c & 1) * kTileFloats,
+                           static_cast<int>(k1 - kc < kChunk ? k1 - kc
+                                                             : kChunk),
+                           lane, acc);
       __syncwarp();  // the tile is free for chunk c + 2
     }
     const long long r = r0 + lane;
     if (r < M) {
       const float one[1] = {acc};
-      put<1>(one, s, S, r, part, out);
+      put<1, Op>(one, s, S, r, part, out);
     }
   }
 }
@@ -444,23 +525,27 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-int fold(const float* part, long long S, long long M, float* out,
-         cudaStream_t stream) {
+// The fold of P batches' slice buffers (each ceil(M / 32) tiles) into
+// out (P, M), launched after pass 1 in the same stream.
+template <class Op>
+int fold(const float* part, long long S, long long P, long long M,
+         float* out, cudaStream_t stream) {
   if (S == 1) return cudaSuccess;
-  const long long blocks = (M + 31) / 32;
+  const long long tiles = (M + 31) / 32;
+  const long long blocks = P * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   // a stage of at most kFoldRows slices, the ring no deeper than the
   // tile's stages
   const int rows = static_cast<int>(S < kFoldRows ? S : kFoldRows);
   const long long stages = (S + rows - 1) / rows;
   const int ring = static_cast<int>(stages < kRing ? stages : kRing);
-  fold_slices<<<static_cast<unsigned>(blocks), 32, ring * rows * 128,
-                stream>>>(part, S, M, rows, ring, out);
+  fold_slices<Op><<<static_cast<unsigned>(blocks), 32, ring * rows * 128,
+                    stream>>>(part, S, M, tiles, rows, ring, out);
   return cudaGetLastError();
 }
 
 // Once a device: the opt-in to the dynamic shared memory of the
-// matrix-vector tiles and of the fold's ring.
+// matrix-vector tiles and of the fold's ring, for every op.
 int allow_smem() {
   static bool done[kMaxDevices];
   int dev = 0;
@@ -471,9 +556,16 @@ int allow_smem() {
     const void* kernel;
     int bytes;
   } sets[] = {
-      {reinterpret_cast<const void*>(matvec_pass1<4>), kMatvecSmem},
-      {reinterpret_cast<const void*>(matvec_pass1<1>), kMatvecSmem},
-      {reinterpret_cast<const void*>(fold_slices), kRing * kStageBytes},
+      {reinterpret_cast<const void*>(matvec_pass1<4, DotOp>), kMatvecSmem},
+      {reinterpret_cast<const void*>(matvec_pass1<1, DotOp>), kMatvecSmem},
+      {reinterpret_cast<const void*>(matvec_pass1<4, SumOp>), kMatvecSmem},
+      {reinterpret_cast<const void*>(matvec_pass1<1, SumOp>), kMatvecSmem},
+      {reinterpret_cast<const void*>(matvec_pass1<4, ProdOp>), kMatvecSmem},
+      {reinterpret_cast<const void*>(matvec_pass1<1, ProdOp>), kMatvecSmem},
+      {reinterpret_cast<const void*>(fold_slices<DotOp>), kRing * kStageBytes},
+      {reinterpret_cast<const void*>(fold_slices<SumOp>), kRing * kStageBytes},
+      {reinterpret_cast<const void*>(fold_slices<ProdOp>),
+       kRing * kStageBytes},
   };
   for (const auto& set : sets) {
     err = cudaFuncSetAttribute(
@@ -483,6 +575,71 @@ int allow_smem() {
   if (dev >= 0 && dev < kMaxDevices) done[dev] = true;
   return cudaSuccess;
 }
+
+// Pass 1 and the fold of P batches of x (K,) @ A (K, M) (Op's view of
+// it): A's rows lda floats apart, its columns adjacent, batch p at
+// a + p * sp. K, M, P > 0.
+template <class Op>
+int vecmat(const float* x, const float* a, long long lda, long long sp,
+           long long P, long long K, long long M, float* part,
+           float* out, cudaStream_t st) {
+  const long long S = slices(K);
+  if (S > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const bool wide = aligned16(a) && lda % 4 == 0 && M % 4 == 0 &&
+                    (P == 1 || sp % 4 == 0);
+  const long long units = wide ? M / 4 : M;  // threads along the columns
+  const long long bx = units < kThreads ? units : kThreads;
+  const long long by = kThreads / bx;
+  const long long slice_groups = (S + by - 1) / by;
+  const long long col_blocks = (units + bx - 1) / bx;
+  const long long blocks = P * col_blocks * slice_groups;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  int err = allow_smem();
+  if (err != cudaSuccess) return err;
+  const dim3 g(static_cast<unsigned>(blocks));
+  const dim3 block(static_cast<unsigned>(bx), static_cast<unsigned>(by));
+  if (wide) {
+    vecmat_pass1<4, Op><<<g, block, 0, st>>>(x, a, lda, sp, K, M, S, units,
+                                             col_blocks, slice_groups, part,
+                                             out);
+  } else {
+    vecmat_pass1<1, Op><<<g, block, 0, st>>>(x, a, lda, sp, K, M, S, units,
+                                             col_blocks, slice_groups, part,
+                                             out);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return fold<Op>(part, S, P, M, out, st);
+}
+
+// Pass 1 and the fold of A (M, K) @ x (K,) (Op's view of it): A's rows
+// lda floats apart, each row's K floats adjacent. K, M > 0.
+template <class Op>
+int matvec(const float* a, long long lda, const float* x, long long K,
+           long long M, float* part, float* out,
+           cudaStream_t st) {
+  const long long S = slices(K);
+  if (S > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const long long slice_groups = (S + kMvWarps - 1) / kMvWarps;
+  const long long blocks = ((M + 31) / 32) * slice_groups;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  int err = allow_smem();
+  if (err != cudaSuccess) return err;
+  const unsigned g = static_cast<unsigned>(blocks);
+  if (aligned16(a) && lda % 4 == 0) {
+    matvec_pass1<4, Op><<<g, kMvWarps * 32, kMatvecSmem, st>>>(
+        a, lda, x, K, M, S, slice_groups, part, out);
+  } else {
+    matvec_pass1<1, Op><<<g, kMvWarps * 32, kMatvecSmem, st>>>(
+        a, lda, x, K, M, S, slice_groups, part, out);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return fold<Op>(part, S, 1, M, out, st);
+}
+
+// the reduction codes of kernels/reduce.py (a mean is a sum there)
+enum ReduceCode { kSum = 0, kProd = 1 };
 
 }  // namespace
 
@@ -500,34 +657,10 @@ int spartan_gemv_slice(void) { return KS; }
 int spartan_vecmat(const void* x, const void* a, long long lda, long long K,
                    long long M, void* part, void* out, void* stream) {
   if (K <= 0 || M <= 0 || lda < M) return cudaErrorInvalidValue;
-  const long long S = slices(K);
-  if (S > 1 && part == nullptr) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = aligned16(a) && lda % 4 == 0 && M % 4 == 0;
-  const long long units = wide ? M / 4 : M;  // threads along the columns
-  const long long bx = units < kThreads ? units : kThreads;
-  const long long by = kThreads / bx;
-  const long long slice_groups = (S + by - 1) / by;
-  const long long blocks = ((units + bx - 1) / bx) * slice_groups;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  int err = allow_smem();
-  if (err != cudaSuccess) return err;
-  const dim3 g(static_cast<unsigned>(blocks));
-  const dim3 block(static_cast<unsigned>(bx), static_cast<unsigned>(by));
-  const float* xf = static_cast<const float*>(x);
-  const float* af = static_cast<const float*>(a);
-  float* pf = static_cast<float*>(part);
-  float* of = static_cast<float*>(out);
-  if (wide) {
-    vecmat_pass1<4><<<g, block, 0, st>>>(xf, af, lda, K, M, S, units,
-                                         slice_groups, pf, of);
-  } else {
-    vecmat_pass1<1><<<g, block, 0, st>>>(xf, af, lda, K, M, S, units,
-                                         slice_groups, pf, of);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return fold(pf, S, M, of, st);
+  return vecmat<DotOp>(static_cast<const float*>(x),
+                       static_cast<const float*>(a), lda, 0, 1, K, M,
+                       static_cast<float*>(part), static_cast<float*>(out),
+                       static_cast<cudaStream_t>(stream));
 }
 
 // out (M,) = A (M, K) @ x (K,); A's rows lda floats apart, each row's K
@@ -535,29 +668,55 @@ int spartan_vecmat(const void* x, const void* a, long long lda, long long K,
 int spartan_matvec(const void* a, long long lda, const void* x, long long K,
                    long long M, void* part, void* out, void* stream) {
   if (K <= 0 || M <= 0 || lda < K) return cudaErrorInvalidValue;
-  const long long S = slices(K);
-  if (S > 1 && part == nullptr) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long slice_groups = (S + kMvWarps - 1) / kMvWarps;
-  const long long blocks = ((M + 31) / 32) * slice_groups;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  int err = allow_smem();
-  if (err != cudaSuccess) return err;
+  return matvec<DotOp>(static_cast<const float*>(a), lda,
+                       static_cast<const float*>(x), K, M,
+                       static_cast<float*>(part), static_cast<float*>(out),
+                       static_cast<cudaStream_t>(stream));
+}
+
+// out (P, Q) = the reduction `op` (ReduceCode) of A (P, R, Q) over R:
+// batch p at a + p * sp, its rows sr floats apart, its Q floats
+// adjacent. part: ceil(R / KS) * P * ceil(Q / 32) * 32 floats, unused
+// (may be null) when R <= KS. P, R, Q > 0.
+int spartan_reduce_outer(const void* a, long long sp, long long sr,
+                         long long P, long long R, long long Q, int op,
+                         void* part, void* out, void* stream) {
+  if (P <= 0 || R <= 0 || Q <= 0 || (R > 1 && sr < Q)) {
+    return cudaErrorInvalidValue;
+  }
   const float* af = static_cast<const float*>(a);
-  const float* xf = static_cast<const float*>(x);
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
-  const unsigned g = static_cast<unsigned>(blocks);
-  if (aligned16(a) && lda % 4 == 0) {
-    matvec_pass1<4><<<g, kMvWarps * 32, kMatvecSmem, st>>>(
-        af, lda, xf, K, M, S, slice_groups, pf, of);
-  } else {
-    matvec_pass1<1><<<g, kMvWarps * 32, kMatvecSmem, st>>>(
-        af, lda, xf, K, M, S, slice_groups, pf, of);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (op) {
+    case kSum:
+      return vecmat<SumOp>(nullptr, af, sr, sp, P, R, Q, pf, of, st);
+    case kProd:
+      return vecmat<ProdOp>(nullptr, af, sr, sp, P, R, Q, pf, of, st);
+    default:
+      return cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return fold(pf, S, M, of, st);
+}
+
+// out (P,) = the reduction `op` of A (P, R) over R: its rows lda floats
+// apart, each row's R floats adjacent. part: ceil(R / KS) * ceil(P / 32)
+// * 32 floats, unused (may be null) when R <= KS. P, R > 0.
+int spartan_reduce_inner(const void* a, long long lda, long long P,
+                         long long R, int op, void* part, void* out,
+                         void* stream) {
+  if (P <= 0 || R <= 0 || (P > 1 && lda < R)) return cudaErrorInvalidValue;
+  const float* af = static_cast<const float*>(a);
+  float* pf = static_cast<float*>(part);
+  float* of = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (op) {
+    case kSum:
+      return matvec<SumOp>(af, lda, nullptr, R, P, pf, of, st);
+    case kProd:
+      return matvec<ProdOp>(af, lda, nullptr, R, P, pf, of, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

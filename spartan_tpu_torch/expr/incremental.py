@@ -40,10 +40,18 @@ read when ``FLAGS.incremental`` is off):
    full dispatch with the reason in the metrics and ``st.explain``.
 
 Bit-equality with a full recompute rests on the restricted program
-running the same per-element reductions. Elementwise maps and axis
-reductions do so by construction. A product does where its kernel
-reduces each output element of the narrower shape in the same order as
-for the full one. On the card a float32 product of one 1-D and one 2-D
+running the same per-element reductions. Elementwise maps do so by
+construction. A sum, mean or product restricted to a window of its
+kept axes does where its reduction keeps each kept element's order for
+the narrower window: on the card a float32 one lowers through the
+hand-written fixed-order kernel (``kernels/reduce.py``), whose order
+depends only on the reduced length; integer and bool sums and products
+are exact in any order; torch's CPU sums hold it for an inner axis in
+any window and for an outer one at windows of 32 columns in the layouts
+measured; :func:`reduce_granule` says which, per node, or that none does
+(``reduction-order``). A product does where its kernel reduces each
+output element of the narrower shape in the same order as for the full
+one. On the card a float32 product of one 1-D and one 2-D
 operand lowers through the hand-written fixed-order kernel
 (``kernels/gemv.py``), whose order depends only on the contraction's
 length, so its restricted window is any window; integer and bool
@@ -98,6 +106,7 @@ import torch
 
 from ..array.extent import TileExtent
 from ..kernels import gemv
+from ..kernels import reduce as kreduce
 from ..obs.metrics import REGISTRY
 from ..parallel import mesh as mesh_mod
 from ..utils import dtypes
@@ -180,12 +189,14 @@ def order_granule(device: torch.device) -> Optional[int]:
     return None
 
 
-def reduce_granule(device: torch.device) -> Optional[int]:
-    """The width the kept axes of a restricted sum are widened to on
-    ``device`` (window ends on multiples of it from the start of each
+def cpu_reduce_granule(device: torch.device) -> Optional[int]:
+    """The width the kept axes of a restricted torch sum are widened to
+    on ``device`` (window ends on multiples of it from the start of each
     block the reduction runs on, or at the block's end) where a reduced
     axis lies outside a cut kept axis, or None when no width keeps the
-    full reduction's order.
+    full reduction's order. A float32 sum, mean or product on the card
+    does not ask: it lowers through the fixed-order kernel, any window of
+    which holds the order (:func:`reduce_granule`).
 
     * ``cpu``: torch sums an outer axis over the inner columns in
       vectorized groups, and columns outside a whole group take another
@@ -194,8 +205,8 @@ def reduce_granule(device: torch.device) -> Optional[int]:
       1000 columns, 1 and 4 threads), windows on multiples of 16 did
       not.
     * ``cuda``: the reduction's launch configuration follows the shape,
-      so a restricted sum's dirt is whole-node under the counted reason
-      ``reduction-order``.
+      so a restricted float16, bfloat16 or float64 sum's dirt is
+      whole-node there under the counted reason ``reduction-order``.
 
     The CPU width holds only where it was measured: one kept axis after
     the reduced ones, and that axis the last (:func:`_window_holds`).
@@ -206,18 +217,25 @@ def reduce_granule(device: torch.device) -> Optional[int]:
     (300, 5, 100) at 64, (300, 4, 200) and (300, 2, 208) at 192 and
     (50, 3, 1000) at 960 and 992 missed the full sum's bits, (300, 3,
     192), whose flattened width has no tail, did not. Those sums fall
-    back under ``reduction-order`` on every device.
+    back under ``reduction-order`` on the CPU; on the card a float32 one
+    takes the kernel.
 
-    An inner axis (each kept element reduced over contiguous values)
-    and ``max``/``min``/``argmax``/``argmin`` (exact in any order) are
-    not held to it."""
+    ``max``/``min``/``argmax``/``argmin`` (exact in any order) are not
+    held to it, nor, on the CPU, an inner axis (each kept element
+    reduced over contiguous values): restricted windows of ``x.sum(1)``
+    gave the full sum's bits at (64, 2^20), (1024, 16,384), (16,384,
+    4096) and (8, 2^22) with 8 threads. On the card torch's inner sums
+    of 16,384^2 missed the full sum's bits in row windows of 1 and 7
+    rows (``chip_smoke.py``'s ``[incremental]`` probe, C47), so there
+    every cut kept axis is held (:func:`_ordered_cut`): a float32 sum
+    takes the kernel, the other float dtypes keep ``reduction-order``."""
     return 32 if device.type == "cpu" else None
 
 
 def _window_holds(n: Any) -> bool:
-    """True where :func:`reduce_granule`'s width was measured to keep a
-    restricted sum of the reduction ``n`` in the full sum's order: the
-    kept axes after its first reduced axis are one, the last."""
+    """True where :func:`cpu_reduce_granule`'s width was measured to
+    keep a restricted sum of the reduction ``n`` in the full sum's order:
+    the kept axes after its first reduced axis are one, the last."""
     ps = n._pre_shape
     first = min(n.axis)
     return [d for d in range(len(ps))
@@ -227,10 +245,16 @@ def _window_holds(n: Any) -> bool:
 _ORDERED = ("sum", "mean", "prod")
 
 
-def _outer_cut(n: Any, out_box: TileExtent) -> List[int]:
+def _ordered_cut(n: Any, out_box: TileExtent,
+                 device: torch.device) -> List[int]:
     """The pre-reduce axes of the reduction ``n`` that its restricted
-    output ``out_box`` cuts with a reduced axis outside them (their
-    restricted sums may take another order), where ``n``'s op sums."""
+    output ``out_box`` cuts where their restricted sums may take another
+    order than the whole reduction's (:func:`reduce_granule`), where
+    ``n``'s op sums: on the CPU the cut axes with a reduced axis before
+    them (torch's CPU sums of an inner axis keep the order in any window
+    of rows, :func:`cpu_reduce_granule`), on the card every cut axis
+    (torch's inner sums there may split a row over blocks by the
+    output's size, C47)."""
     if n.op not in _ORDERED or n.axis is None:
         return []
     ps = n._pre_shape
@@ -239,16 +263,64 @@ def _outer_cut(n: Any, out_box: TileExtent) -> List[int]:
     out = []
     for i, d in enumerate(kept):
         j = d if keep_dims else i
-        if (out_box.ul[j], out_box.lr[j]) != (0, ps[d]) \
-                and any(a < d for a in n.axis):
+        if (out_box.ul[j], out_box.lr[j]) != (0, ps[d]) and (
+                device.type != "cpu" or any(a < d for a in n.axis)):
             out.append(d)
     return out
+
+
+def _exact_reduce(n: Any) -> bool:
+    """True for an integer or bool ``sum``/``prod``: exact in any
+    order."""
+    dt = dtypes.to_numpy(n._pre_dtype)
+    return n.op in ("sum", "prod") and (dt == np.bool_
+                                        or np.issubdtype(dt, np.integer))
+
+
+def reduce_granule(n: Any, mesh: Any) -> Optional[int]:
+    """The width the reduction ``n``'s restricted kept axes are widened
+    to on ``mesh`` where :func:`_ordered_cut` names a cut axis, so that
+    each element is reduced in the whole reduction's order, or None
+    where no width does (its dirt is then whole-node under
+    ``reduction-order``):
+
+    * 1 for integer and bool sums and products, exact in any order;
+    * 1 (any window, no widening) where ``n`` lowers through the
+      fixed-order kernel (``kernels/reduce.py::routes``: a float32
+      ``sum``, ``mean`` or ``prod`` on the card), whose per-element order
+      depends only on the reduced length;
+    * :func:`cpu_reduce_granule` of the mesh's device where
+      :func:`_window_holds`, else None (so a float16, bfloat16 or
+      float64 sum on the card keeps ``reduction-order``, its cut an
+      outer or an inner one).
+
+    On a group mesh a kernel reduction keeps ``reduction-order`` where a
+    mesh axis that splits a reduced axis has three or more ranks: the
+    ranks' partial sums meet in an all-reduce along it whose ring may
+    add them in an order that follows the message's length; two partial
+    sums meet in one add, which is commutative, so a line of two keeps
+    the order. Every rank gives the same answer: it follows the node's
+    shapes, dtype and tiling and the mesh's device type."""
+    if _exact_reduce(n):
+        return 1
+    if not kreduce.routes(mesh.device, n._pre_dtype, n.op, n.axis,
+                          len(n._pre_shape)):
+        return cpu_reduce_granule(mesh.device) if _window_holds(n) else None
+    if not mesh.is_group:
+        return 1
+    from ..array import tiling as tiling_mod
+
+    t = n._pre_tiling()
+    if any(mesh.shape[sub] >= 3 for d in n.axis
+           for sub in tiling_mod.mesh_axes_of(t.axes[d])):
+        return None
+    return 1
 
 
 def _reduce_window(n: Any, d: int, lo: int, hi: int, granule: int,
                    mesh: Any) -> Tuple[int, int]:
     """``[lo, hi)`` of pre-reduce axis ``d`` widened to the points
-    ``reduce_granule`` allows: multiples of ``granule`` from the start
+    ``cpu_reduce_granule`` allows: multiples of ``granule`` from the start
     of each block the reduction runs on (one block on a logical mesh,
     the ranks' blocks of the pre-reduce tiling on a group mesh), and
     the blocks' ends."""
@@ -613,9 +685,10 @@ def _propagate(n: Any, dirt: Dict[int, Any], memo: Dict[int, Any],
             for a in sorted(n.axis, reverse=True):
                 box = box.drop_axis(a)
             r = TileExtent(box.ul, box.lr, n.shape)
-        if (r is not None and r is not FULL and _outer_cut(n, r)
-                and (reduce_granule(mesh_mod.get_mesh().device) is None
-                     or not _window_holds(n))):
+        mesh = mesh_mod.get_mesh()
+        if (r is not None and r is not FULL
+                and _ordered_cut(n, r, mesh.device)
+                and reduce_granule(n, mesh) is None):
             # the restricted sum would not add in the full one's order
             # here: whole-node, under a named reason
             if reasons is not None:
@@ -889,14 +962,14 @@ def _restrict(n: Any, box: TileExtent, memo: Dict,
                 else:
                     ul.append(0)
                     lr.append(ps[d])
-        cut = _outer_cut(n, box)
+        mesh = mesh_mod.get_mesh()
+        cut = _ordered_cut(n, box, mesh.device)
         wide_ul, wide_lr = list(ul), list(lr)
         if cut:
-            mesh = mesh_mod.get_mesh()
-            granule = reduce_granule(mesh.device)
-            if granule is None or not _window_holds(n):
+            granule = reduce_granule(n, mesh)
+            if granule is None:
                 raise Unsupported("reduction-order")
-            for d in cut:
+            for d in cut if granule > 1 else ():
                 wide_ul[d], wide_lr[d] = _reduce_window(
                     n, d, ul[d], lr[d], granule, mesh)
         pre_box = TileExtent(wide_ul, wide_lr, ps)

@@ -19,6 +19,14 @@ global index) pairs gathered and merged with the lowest index winning
 ties and NaN winning as in one pass. An empty block (a dim shorter than
 its tiles) contributes the op's identity.
 
+On the card a float32 ``sum``, ``mean`` or ``prod`` along some but not
+all axes (an integer mean's float32 cast too) lowers through the
+hand-written fixed-order kernel (``kernels/reduce.py::routes``), whose
+per-element order depends only on the reduced length, so the
+incremental engine restricts it to any window of its kept axes; a rank's
+partial sum on a group mesh takes it too. Elsewhere the lowering keeps
+torch's reductions.
+
 A ``GeneralReduceExpr`` with an ``accumulate_fn`` applies its
 ``local_reduce_fn`` to the rank's block, gathers the partials over the
 mesh axes that tile a reduced dim and folds them with
@@ -36,6 +44,7 @@ import torch
 
 from ..array import tiling as tiling_mod
 from ..array.tiling import Tiling
+from ..kernels import reduce as kreduce
 from ..utils import dtypes
 from .base import Expr, as_expr, eval_shape_of, fn_key
 from .local import LocalExpr, LocalInput
@@ -71,6 +80,11 @@ def reduce_tensor(op: str, x: torch.Tensor, axis: Optional[Tuple[int, ...]],
         return out.to(torch.int32)
     dims = tuple(range(x.ndim)) if axis is None else axis
     integral = not (x.dtype.is_floating_point or x.dtype.is_complex)
+    if kreduce.routes(x.device, x.dtype, op, axis, x.ndim):
+        # float32 on the card: the fixed-order kernel (an integer mean
+        # in its float32 cast)
+        return kreduce.fixed_order_reduce(x.to(torch.float32), op, dims,
+                                          keepdims)
     if op in ("sum", "prod") and integral:
         # int32 or uint32 results, summed in a type torch has kernels for
         # (int64 wraps to the same low 32 bits)
@@ -210,10 +224,16 @@ class ReduceExpr(Expr):
         elif op == "mean":
             xs = x.to(torch.float32) if not (x.dtype.is_floating_point
                                              or x.dtype.is_complex) else x
-            part = coll.reduce_over(torch.sum(xs, dim=dims, keepdim=True),
-                                    over, "add", mesh)
             count = int(np.prod([shape[d] for d in dims], dtype=np.int64))
-            out = part / count
+            routed = kreduce.routes(xs.device, xs.dtype, "sum", self.axis,
+                                    xs.ndim)
+            part = coll.reduce_over(
+                kreduce.fixed_order_reduce(xs, "sum", dims, True) if routed
+                else torch.sum(xs, dim=dims, keepdim=True),
+                over, "add", mesh)
+            # a routed sum divides once, correctly rounded, as the
+            # kernel's wrapper divides its mean
+            out = kreduce.divide(part, count) if routed else part / count
         else:
             if empty and op in ("max", "min"):
                 keep = [1 if d in dims else n for d, n in

@@ -148,8 +148,9 @@ SHAPES_ONLY = _ShapesOnly()
 def client(t, dim, i: int):
     """Client ``i``'s operand inside a batching rule: its slice along the
     batch dim ``dim``, or the whole tensor where every client shares it
-    (``dim`` None)."""
-    return t if dim is None else t.select(dim, i)
+    (``dim`` None); an argument that is no tensor (its ``dim`` a pytree of
+    Nones) as it is."""
+    return t.select(dim, i) if isinstance(dim, int) else t
 
 
 def per_client(op: Callable) -> Callable:

@@ -117,6 +117,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.spartan_vecmat.restype = ctypes.c_int
     lib.spartan_matvec.argtypes = [vp, i64, vp, i64, i64, vp, vp, vp]
     lib.spartan_matvec.restype = ctypes.c_int
+    # the reduction's entry points (kernels/reduce.py) share the library
+    i32 = ctypes.c_int
+    lib.spartan_reduce_outer.argtypes = [vp, i64, i64, i64, i64, i64, i32,
+                                         vp, vp, vp]
+    lib.spartan_reduce_outer.restype = ctypes.c_int
+    lib.spartan_reduce_inner.argtypes = [vp, i64, i64, i64, i32, vp, vp, vp]
+    lib.spartan_reduce_inner.restype = ctypes.c_int
     if lib.spartan_gemv_slice() != KS:
         raise RuntimeError(f"csrc/gemv.cu slices the contraction by "
                            f"{lib.spartan_gemv_slice()}, kernels/gemv.py "

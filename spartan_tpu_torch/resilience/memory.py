@@ -425,15 +425,17 @@ def _card_transient(n: Any, mesh) -> float:
         return tr
     if isinstance(n, ReduceExpr):
         units = tree_units(n.pre)
+        scratch = _reduce_scratch(n, mesh)
         if not units:
-            return 0.0
+            return scratch
         if not group:
-            return units * _full_bytes(n._pre_shape, n._pre_dtype)
+            return units * _full_bytes(n._pre_shape, n._pre_dtype) + scratch
         t = n.out_tiling()
         for a in (n.axis or ()):
             if not n.keepdims:
                 t = t.add_axis(a, None)
-        return units * _shard_bytes(n._pre_shape, n._pre_dtype, t, mesh)
+        return (units * _shard_bytes(n._pre_shape, n._pre_dtype, t, mesh)
+                + scratch)
     if isinstance(n, (DotExpr, ContractExpr)):
         plan = getattr(n, "_dot_plan", None)
         if not group or plan is None or _contraction_view(n) is None:
@@ -463,6 +465,23 @@ def _card_transient(n: Any, mesh) -> float:
     if isinstance(n, LoopExpr):
         return _loop_peak(n, mesh)
     return 0.0
+
+
+def _reduce_scratch(n: Any, mesh) -> float:
+    """What the fixed-order reduction kernel holds beside its operand and
+    output where the reduction ``n`` lowers through it on ``mesh``'s
+    device (``kernels/reduce.py::routes``): its slice buffer and, for
+    reduced axes that are not one run of the layout, the moved copy of
+    the operand (of the rank's block on a group mesh)."""
+    from ..kernels import reduce as kreduce
+
+    if not kreduce.routes(mesh.device, n._pre_dtype, n.op, n.axis,
+                          len(n._pre_shape)):
+        return 0.0
+    shape = tuple(n._pre_shape)
+    if mesh.is_group:
+        shape = tuple(n._pre_tiling().block_extent(shape, mesh).shape)
+    return float(kreduce.scratch_bytes(shape, n.axis))
 
 
 def _halo_local_staging(n: Any, mesh, out: float) -> float:

@@ -27,12 +27,13 @@ MEASURED = {
     "kernel_ms:shard_topk": 0.2547,
     "kernel_ms:bincount_block": 0.1014,
     "kernel_ms:conv_block": 2.2766,
+    "kernel_ms:fixed_order_reduce": 0.3563,
 }
 RATES = ("dot_gflops", "kmeans_iters_per_sec", "pagerank_iters_per_sec",
          "logreg_iters_per_sec")
 KERNELS = ("kmeans_assign_accumulate", "windowed_segsum",
            "segment_sum_block", "partition_pack", "shard_topk",
-           "bincount_block", "conv_block")
+           "bincount_block", "conv_block", "fixed_order_reduce")
 
 
 def test_thresholds_file_well_formed():

@@ -2270,3 +2270,223 @@ def test_gemv_batching_rule_launches_once_a_client(card):
     assert kg.LAUNCHES["fixed_order_dot"] == before + 4
     assert torch.equal(got, torch.stack([kg.fixed_order_dot(x, a)
                                          for x in xs]))
+
+
+# -- the fixed-order reduction (kernels/reduce.py) ------------------------
+
+# (shape, reduced axes): the outer pass with one and several batches,
+# four columns a thread and one, folds of one to 4096 slices; the inner
+# pass; non-adjacent axes (a moved copy)
+_REDUCE_CASES = [((1000, 7), (0,)), ((7, 1000), (1,)), ((16_384, 33), (0,)),
+                 ((33, 16_384), (1,)), ((3, 300, 40), (1,)),
+                 ((40, 30, 20), (0, 2)), ((2 ** 20, 3), (0,)),
+                 ((4, 256, 4096), (1,)), ((5, 257, 33), (1,)),
+                 ((2 ** 16, 32), (1,)), ((1, 70_000), (1,)),
+                 ((6, 7, 8, 9), (1, 3))]
+
+
+def _reduce_operand(card, shape, seed):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    return 0.99 + 0.02 * torch.rand(shape, generator=gen, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "prod", "mean"])
+@pytest.mark.parametrize("shape,dims", _REDUCE_CASES)
+def test_reduce_matches_plain_bit_for_bit(card, shape, dims, op):
+    from spartan_tpu_torch.kernels import reduce as kr
+
+    x = _reduce_operand(card, shape, sum(shape))
+    for keepdim in (False, True):
+        before = kr.LAUNCHES["fixed_order_reduce"]
+        got = kr.fixed_order_reduce(x, op, dims, keepdim)
+        torch.cuda.synchronize()
+        assert kr.LAUNCHES["fixed_order_reduce"] == before + 1
+        assert torch.equal(got, kr.fixed_order_reduce_plain(x, op, dims,
+                                                            keepdim))
+        assert torch.equal(got, kr.fixed_order_reduce(x, op, dims,
+                                                      keepdim))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 255, 256, 257, 1000, 16_384])
+def test_reduce_axis0_sum_is_fixed_order_dot_of_ones(card, k):
+    from spartan_tpu_torch.kernels import gemv as kg
+    from spartan_tpu_torch.kernels import reduce as kr
+
+    a = _reduce_operand(card, (k, 301), k) * 2 - 1
+    ones = torch.ones(k, device=card)
+    assert torch.equal(kr.fixed_order_reduce(a, "sum", 0),
+                       kg.fixed_order_dot(ones, a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "mean"])
+def test_reduce_windows_are_bit_equal_on_the_card(card, op):
+    """Column windows of a sum along axis 0 (views at odd, unaligned
+    offsets: the one-column route), row windows of a sum along axis 1
+    and windows of the last axis of a 3-D sum along axis 0 give the
+    whole reduction's bits."""
+    from spartan_tpu_torch.kernels import reduce as kr
+
+    a = _reduce_operand(card, (5000, 3001), 7)
+    full0 = kr.fixed_order_reduce(a, op, 0)
+    full1 = kr.fixed_order_reduce(a, op, 1)
+    for lo, hi in ((0, 3001), (1, 2), (3, 40), (777, 941), (2999, 3001),
+                   (4, 1028)):
+        assert torch.equal(full0[lo:hi], kr.fixed_order_reduce(
+            a[:, lo:hi], op, 0))
+        assert torch.equal(full1[lo:hi], kr.fixed_order_reduce(
+            a[lo:hi], op, 1))
+    b = _reduce_operand(card, (1024, 6, 700), 8)
+    full = kr.fixed_order_reduce(b, op, 0)
+    for lo, hi in ((0, 7), (161, 190), (693, 700)):
+        assert torch.equal(full[:, lo:hi], kr.fixed_order_reduce(
+            b[:, :, lo:hi], op, 0))
+
+
+@pytest.mark.cuda
+def test_reduce_is_the_route_of_float32_sums(card):
+    """``st.sum``/``st.mean``/``st.prod`` of float32 along an axis on the
+    card launch the kernel once and give its bits, the incremental flag
+    on or off; an integer mean takes it in its float32 cast; a whole
+    reduction, an integer sum and float16 and float64 sums keep torch's
+    reductions; a float64 operand is refused by the kernel."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.kernels import reduce as kr
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    st.set_default_device(card)
+    a = _reduce_operand(card, (4096, 2048), 9)
+    prev = FLAGS.incremental
+    try:
+        for on in (False, True):
+            FLAGS.incremental = on
+            for op in ("sum", "mean", "prod"):
+                for axis in (0, 1):
+                    before = kr.LAUNCHES["fixed_order_reduce"]
+                    got = getattr(st, op)(from_tensor(a), axis=axis)
+                    got = got.evaluate().tensor
+                    assert kr.LAUNCHES["fixed_order_reduce"] == before + 1
+                    assert torch.equal(got, kr.fixed_order_reduce(a, op,
+                                                                  axis))
+    finally:
+        FLAGS.incremental = prev
+    ints = (a * 100).to(torch.int32)
+    before = kr.LAUNCHES["fixed_order_reduce"]
+    got = st.mean(from_tensor(ints), axis=0).evaluate().tensor
+    assert kr.LAUNCHES["fixed_order_reduce"] == before + 1
+    assert torch.equal(got, kr.fixed_order_reduce(ints.float(), "mean", 0))
+    before = kr.LAUNCHES["fixed_order_reduce"]
+    st.sum(from_tensor(a)).evaluate()
+    st.sum(from_tensor(ints), axis=0).evaluate()
+    st.sum(from_tensor(a.half()), axis=0).evaluate()
+    # from_tensor keeps a float64 tensor's dtype (from_numpy casts it)
+    got = st.sum(from_tensor(a.double()), axis=0).evaluate().tensor
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES["fixed_order_reduce"] == before
+    assert got.dtype == torch.float64
+    with pytest.raises(TypeError):
+        kr.fixed_order_reduce(a.double(), "sum", 0)
+
+
+@pytest.mark.cuda
+def test_reduce_batching_rule_launches_once_a_client(card):
+    from spartan_tpu_torch.kernels import reduce as kr
+
+    xs = _reduce_operand(card, (4, 1000, 513), 10)
+    before = kr.LAUNCHES["fixed_order_reduce"]
+    got = torch.func.vmap(lambda t: kr.fixed_order_reduce(t, "sum", 0))(xs)
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES["fixed_order_reduce"] == before + 4
+    assert torch.equal(got, torch.stack([kr.fixed_order_reduce(x, "sum", 0)
+                                         for x in xs]))
+
+
+@pytest.mark.cuda
+def test_served_inner_sums_keep_the_full_walks_bits(card):
+    """C47: torch's own sum along the inner axis of a 16,384^2 operand
+    on the card need not give a few rows the bits the whole sum gives
+    them (a narrow output splits each row over blocks), and the engine
+    restricts an inner sum to its dirty rows. Through the fixed-order
+    kernel every warm sum, restricted to windows of 1, 7 and 164 rows, is
+    served bit-equal to a full walk, one launch each."""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.expr import incremental as inc
+    from spartan_tpu_torch.kernels import reduce as kr
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    st.set_default_device(card)
+    n = 16_384
+    gen = torch.Generator(device=card)
+    gen.manual_seed(11)
+    prev = (FLAGS.incremental, FLAGS.result_cache_bytes)
+    FLAGS.incremental, FLAGS.result_cache_bytes = True, 4 << 30
+    try:
+        arr = from_tensor(torch.rand((n, n), generator=gen, device=card))
+        st.sum(arr, 1).evaluate()
+        hits = st.metrics()["counters"].get("incremental_hits", 0)
+        for lo, w in ((5, 1), (777, 7), (3000, 164)):
+            arr = arr.update((slice(lo, lo + w), slice(0, n)),
+                             torch.rand((w, n), generator=gen, device=card))
+            before = kr.LAUNCHES["fixed_order_reduce"]
+            got = st.sum(arr, 1).evaluate().tensor
+            assert kr.LAUNCHES["fixed_order_reduce"] == before + 1
+            FLAGS.incremental = False
+            want = st.sum(from_tensor(arr.tensor.clone()), 1).evaluate()
+            FLAGS.incremental = True
+            assert torch.equal(got, want.tensor)
+        assert st.metrics()["counters"]["incremental_hits"] == hits + 3
+    finally:
+        FLAGS.incremental, FLAGS.result_cache_bytes = prev
+        inc.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_inner_sums_outside_the_kernel_keep_reduction_order(card, dtype):
+    """C47 beyond float32: an inner-axis sum the kernel does not take
+    (torch's reduction, which may split a row over blocks by the
+    output's size) is not restricted on the card. Each warm sum after a
+    write of 7 rows falls back under ``reduction-order``, launches no
+    kernel and gives the full walk's bits. (bfloat16 takes the same
+    rule, ``tests/test_torch_fixed_reduce.py``; a bfloat16 array's
+    numpy dtype needs ``ml_dtypes`` registered, which the card's
+    environment does not promise.)"""
+    import spartan_tpu_torch as st
+    from spartan_tpu_torch.array.distarray import from_tensor
+    from spartan_tpu_torch.expr import base
+    from spartan_tpu_torch.expr import incremental as inc
+    from spartan_tpu_torch.kernels import reduce as kr
+    from spartan_tpu_torch.utils.config import FLAGS
+
+    st.set_default_device(card)
+    n = 4096
+    gen = torch.Generator(device=card)
+    gen.manual_seed(12)
+    prev = (FLAGS.incremental, FLAGS.result_cache_bytes)
+    FLAGS.incremental, FLAGS.result_cache_bytes = True, 4 << 30
+    try:
+        arr = from_tensor(torch.rand((n, n), generator=gen,
+                                     device=card).to(dtype))
+        st.sum(arr, 1).evaluate()
+        for lo in (5, 777):
+            arr = arr.update((slice(lo, lo + 7), slice(0, n)),
+                             torch.rand((7, n), generator=gen,
+                                        device=card).to(dtype))
+            before = kr.LAUNCHES["fixed_order_reduce"]
+            got = st.sum(arr, 1).evaluate().tensor
+            assert kr.LAUNCHES["fixed_order_reduce"] == before
+            plan = base.lookup_plan(base.plan_signature(st.sum(arr, 1))[0])
+            rep = (plan.report or {}).get("incremental") or {}
+            assert rep.get("fallback") == "reduction-order", rep
+            FLAGS.incremental = False
+            want = st.sum(from_tensor(arr.tensor.clone()), 1).evaluate()
+            FLAGS.incremental = True
+            assert torch.equal(got, want.tensor)
+    finally:
+        FLAGS.incremental, FLAGS.result_cache_bytes = prev
+        inc.clear()

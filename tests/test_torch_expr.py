@@ -439,7 +439,7 @@ def test_port_imports_no_jax():
                 "serve/engine.py", "obs/flight.py", "obs/slo.py",
                 "obs/skew.py", "expr/incremental.py", "obs/monitor.py",
                 "utils/benchguard.py", "expr/partition.py",
-                "kernels/gemv.py"):
+                "kernels/gemv.py", "kernels/reduce.py"):
         assert os.path.join(REPO, "spartan_tpu_torch", mod) in files
     bad = []
     for path in files:
